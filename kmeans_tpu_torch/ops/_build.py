@@ -1,0 +1,91 @@
+"""Build and load the port's CUDA kernels (``csrc/lloyd.cu``).
+
+The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface the first time a kernel is launched, into
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
+and loaded with :mod:`ctypes`.  The library's file name carries a hash of
+the source and flags, so an edited source is rebuilt and a stale library is
+never loaded.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["library", "build", "SOURCE", "BUILD_DIR"]
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "lloyd.cu"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: argtypes of each C entry point: every pointer and the stream as c_void_p.
+_SIGNATURES = {
+    # x, x_dtype, neg2c, cd, csq, w, n, d, k, with_update, vec,
+    # labels, mind, sums, counts, stream
+    "kml_lloyd_pass": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                       _P, _P, _P, _P, _P],
+    # x, x_dtype, neg2c, cd, csq, w, prev, n, d, k, with_mind, vec,
+    # labels, mind, dsums, dcounts, n_changed, group_counts, stream
+    "kml_lloyd_delta": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P],
+    # x, x_dtype, cd, labels, scores, w, n, d, k, sums, counts, mind, stream
+    "kml_accumulate": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+                       "machine with the card, from csrc/lloyd.cu")
+
+
+def build() -> dict:
+    """Compile the kernels (unless this exact source is already built).
+
+    Returns ``{"path", "seconds", "built", "ptxas"}``: the library path,
+    the compile time, whether it compiled now, and the assembler's
+    per-kernel register / shared-memory report (empty when cached)."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"libkml_lloyd_{tag}.so"
+    if out.exists():
+        return {"path": out, "seconds": 0.0, "built": False, "ptxas": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return {"path": out, "seconds": seconds, "built": True,
+            "ptxas": proc.stderr}
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    lib = ctypes.CDLL(str(build()["path"]))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -46,6 +46,10 @@ def pytest_configure(config):
         "markers",
         "soak: long-running kill/resume recovery drills (tools/soak.py); "
         "excluded from tier-1 exactly like slow")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc (the port's CUDA kernels); "
+        "skips without a card")
 
 
 # Pre-existing tier-1 failures on the jax 0.4.37 CPU image (ISSUE 14
