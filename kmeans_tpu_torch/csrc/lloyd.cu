@@ -1,4 +1,4 @@
-// Hand-written Hopper (sm_90a) kernels for the three Lloyd sweeps of the port.
+// Hand-written Hopper (sm_90a) kernels for the four Lloyd sweeps of the port.
 //
 // Built by kmeans_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -7,22 +7,29 @@
 // returns cudaGetLastError() after its launch.  Python wrappers, checks and
 // the plain PyTorch versions live in kmeans_tpu_torch/ops/cuda_lloyd.py.
 //
-// Shared design of the two scoring kernels (K1, K2):
+// Shared design of the three scoring kernels (K1, K2, K4):
 //
-// * One block owns BM = 128 rows and walks every centroid in k-tiles of
-//   BN = 128.  For each k-tile it streams d in chunks of BK through shared
-//   memory: the row chunk cast to the compute dtype (cd) and the centroid
-//   chunk, pre-scaled by -2 in cd by the wrapper.  Scores are
-//   csq + x_cd . (-2 C_cd)^T with f32 accumulation:
+// * A block scores BM = 128 rows against every centroid in k-tiles of
+//   BN = 128 (score_block).  The rows are a contiguous block (K1, K2) or
+//   128 rows gathered by index (K4).  For each k-tile it streams d in chunks
+//   of BK through shared memory: the row chunk cast to the compute dtype
+//   (cd) and the centroid chunk, pre-scaled by -2 in cd by the wrapper.
+//   Scores are csq + x_cd . (-2 C_cd)^T with f32 accumulation:
 //     - bf16: nvcuda::wmma 16x16x16 bf16 tiles with f32 accumulators
 //       (8 warps, each a 64 x 32 sub-tile);
 //     - f32: plain f32 FMA on an 8 x 8 register micro-tile per thread, never
 //       TF32.
+//   A row's score does not depend on where in the tile the row sits, so K4
+//   gives a row the bits K2 gives it.
 // * The (BM, BN) score tile goes through shared memory, where two threads per
 //   row scan its columns in increasing order with strict '<' and merge the
 //   halves by (value, index): the lowest index wins a tie inside a tile.
 //   Tiles are merged with strict '<' in increasing k, so the lowest index
-//   wins across tiles too -- the rule of jnp.argmin and _argmin_rows.
+//   wins across tiles too -- the rule of jnp.argmin and _argmin_rows.  K4
+//   also carries the least score over the other columns (second): within a
+//   scan a new best pushes the old best into second; a merge takes
+//   min(second_a, second_b, max(best_a, best_b)), so an exact duplicate of
+//   the best column makes second == best.
 //   Columns past k and rows past n are masked, so any d and k are taken.
 // * The fold is a scatter: a warp per row adds w * float(cd(x[r, :])) into
 //   sums[label, :] and w into counts[label] with f32 atomicAdd.  At the
@@ -33,9 +40,10 @@
 //
 // What bounds them on an H100: the distance product, 2*n*d*k operations
 // (5.24 TFLOP at n = 1.28M, d = 2048, k = 1000: >= 5.3 ms at 989 TFLOP/s
-// bf16), against one read of x (5.24 GB bf16: >= 1.56 ms at 3.35 TB/s).
-// This first version is simple rather than fast: no wgmma, no TMA, no
-// software pipelining; the x tile is re-read from L2 once per k-tile.
+// bf16), against one read of x (5.24 GB bf16: >= 1.56 ms at 3.35 TB/s); K4
+// does the product for its needed rows only.  This first version is simple
+// rather than fast: no wgmma, no TMA, no software pipelining; the x tile is
+// re-read from L2 once per k-tile.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -125,10 +133,11 @@ template <> __device__ __forceinline__ void load_vec<bf16, float>(const bf16* p,
 
 // Stage rows [0, rows) x columns [col0, col0 + BK) of a row-major (., d)
 // matrix into dst (row stride LDX) in cd; rows >= rows_valid and columns
-// >= d are zero.
-template <class XT, class CT, bool VEC>
+// >= d are zero.  With GATHER, tile row r is row gather[r] of src.
+template <class XT, class CT, bool VEC, bool GATHER = false>
 __device__ __forceinline__ void load_tile(CT* dst, const XT* __restrict__ src, int rows,
-                                          int rows_valid, int col0, int d) {
+                                          int rows_valid, int col0, int d,
+                                          const int* gather = nullptr) {
   constexpr int BK = Cfg<CT>::BK, LDX = Cfg<CT>::LDX, VW = Cfg<CT>::VW;
   if constexpr (VEC) {
     constexpr int PER_ROW = BK / VW;
@@ -136,7 +145,8 @@ __device__ __forceinline__ void load_tile(CT* dst, const XT* __restrict__ src, i
       const int r = v / PER_ROW, c = (v % PER_ROW) * VW;
       CT* o = dst + r * LDX + c;
       if (r < rows_valid && col0 + c < d) {
-        load_vec<XT, CT>(src + (size_t)r * d + col0 + c, o);
+        const size_t row = GATHER ? (size_t)gather[r] : (size_t)r;
+        load_vec<XT, CT>(src + row * d + col0 + c, o);
       } else {
 #pragma unroll
         for (int e = 0; e < VW; ++e) o[e] = cast_cd<CT>(0.f);
@@ -145,28 +155,33 @@ __device__ __forceinline__ void load_tile(CT* dst, const XT* __restrict__ src, i
   } else {
     for (int v = threadIdx.x; v < rows * BK; v += NT) {
       const int r = v / BK, c = v % BK;
-      const float val = (r < rows_valid && col0 + c < d)
-                            ? to_f32(src[(size_t)r * d + col0 + c]) : 0.f;
+      float val = 0.f;
+      if (r < rows_valid && col0 + c < d) {
+        const size_t row = GATHER ? (size_t)gather[r] : (size_t)r;
+        val = to_f32(src[row * d + col0 + c]);
+      }
       dst[r * LDX + c] = cast_cd<CT>(val);
     }
   }
 }
 
-// Scores of rows [row0, row0 + BM) against every centroid; leaves each row's
-// (min score, lowest argmin) in s_min / s_lab.  Ends with a barrier.
-template <class XT, class CT, bool VEC>
-__device__ void score_block(const XT* __restrict__ x, const CT* __restrict__ neg2c,
-                            const float* __restrict__ csq, int n, int d, int k, int row0,
-                            unsigned char* smem, float* s_csq, float* s_min, int* s_lab) {
+// Scores of rows_valid (<= BM) rows against every centroid: rows [0,
+// rows_valid) of xblk, or with GATHER the rows gather[0 .. rows_valid) of
+// xblk.  Leaves each row's (min score, lowest argmin) in s_min / s_lab and,
+// with SECOND, the least score over the other columns in s_second.  Ends
+// with a barrier.
+template <class XT, class CT, bool VEC, bool GATHER, bool SECOND>
+__device__ void score_block(const XT* __restrict__ xblk, const int* gather, int rows_valid,
+                            const CT* __restrict__ neg2c, const float* __restrict__ csq,
+                            int d, int k, unsigned char* smem, float* s_csq, float* s_min,
+                            float* s_second, int* s_lab) {
   constexpr int BK = Cfg<CT>::BK, LDX = Cfg<CT>::LDX;
   CT* xs = reinterpret_cast<CT*>(smem);
   CT* cs = xs + BM * LDX;
   float* sc = reinterpret_cast<float*>(smem);   // reuses the staging buffers
   const int tid = threadIdx.x;
-  const int rows_valid = min(BM, n - row0);
   const int rr = tid >> 1, side = tid & 1;      // two scanning threads per row
-  const XT* xblk = x + (size_t)row0 * d;
-  float run_best = INFINITY;
+  float run_best = INFINITY, run_second = INFINITY;
   int run_idx = 0;
 
   for (int k0 = 0; k0 < k; k0 += BN) {
@@ -183,7 +198,7 @@ __device__ void score_block(const XT* __restrict__ x, const CT* __restrict__ neg
 #pragma unroll
         for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
       for (int d0 = 0; d0 < d; d0 += BK) {
-        load_tile<XT, CT, VEC>(xs, xblk, BM, rows_valid, d0, d);
+        load_tile<XT, CT, VEC, GATHER>(xs, xblk, BM, rows_valid, d0, d, gather);
         load_tile<CT, CT, VEC>(cs, cblk, BN, cols_valid, d0, d);
         __syncthreads();
 #pragma unroll
@@ -217,7 +232,7 @@ __device__ void score_block(const XT* __restrict__ x, const CT* __restrict__ neg
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
       for (int d0 = 0; d0 < d; d0 += BK) {
-        load_tile<XT, CT, VEC>(xs, xblk, BM, rows_valid, d0, d);
+        load_tile<XT, CT, VEC, GATHER>(xs, xblk, BM, rows_valid, d0, d, gather);
         load_tile<CT, CT, VEC>(cs, cblk, BN, cols_valid, d0, d);
         __syncthreads();
 #pragma unroll 4
@@ -243,22 +258,38 @@ __device__ void score_block(const XT* __restrict__ x, const CT* __restrict__ neg
 
     // Lowest-index argmin of this tile, then a strict-'<' merge into the
     // running carry (earlier tiles hold lower indices).
-    float best = INFINITY;
+    float best = INFINITY, second = INFINITY;
     int bi = INT_MAX;
     const float* srow = sc + rr * LDS;
     for (int j = 0; j < BN / 2; ++j) {
       const int col = side * (BN / 2) + j;
       if (col >= cols_valid) break;
       const float v = s_csq[col] + srow[col];
-      if (v < best) { best = v; bi = k0 + col; }
+      if (v < best) {
+        if constexpr (SECOND) second = best;
+        best = v;
+        bi = k0 + col;
+      } else if constexpr (SECOND) {
+        if (v < second) second = v;
+      }
     }
     const float ob = __shfl_xor_sync(0xffffffffu, best, 1);
     const int oi = __shfl_xor_sync(0xffffffffu, bi, 1);
+    if constexpr (SECOND) {
+      const float os = __shfl_xor_sync(0xffffffffu, second, 1);
+      second = fminf(fminf(second, os), fmaxf(best, ob));
+    }
     if (ob < best || (ob == best && oi < bi)) { best = ob; bi = oi; }
+    if constexpr (SECOND)
+      run_second = fminf(fminf(run_second, second), fmaxf(run_best, best));
     if (best < run_best) { run_best = best; run_idx = bi; }
     __syncthreads();
   }
-  if (side == 0) { s_min[rr] = run_best; s_lab[rr] = run_idx; }
+  if (side == 0) {
+    s_min[rr] = run_best;
+    s_lab[rr] = run_idx;
+    if constexpr (SECOND) s_second[rr] = run_second;
+  }
   __syncthreads();
 }
 
@@ -278,7 +309,9 @@ lloyd_pass_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
   __shared__ float s_csq[BN], s_min[BM];
   __shared__ int s_lab[BM];
   const int row0 = blockIdx.x * BM;
-  score_block<XT, CT, VEC>(x, neg2c, csq, n, d, k, row0, smem, s_csq, s_min, s_lab);
+  score_block<XT, CT, VEC, false, false>(x + (size_t)row0 * d, nullptr, min(BM, n - row0),
+                                         neg2c, csq, d, k, smem, s_csq, s_min, nullptr,
+                                         s_lab);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < BM; r += NWARP) {
@@ -327,7 +360,9 @@ lloyd_delta_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
   __shared__ int s_changed;
   if (threadIdx.x == 0) s_changed = 0;
   const int row0 = blockIdx.x * BM;
-  score_block<XT, CT, VEC>(x, neg2c, csq, n, d, k, row0, smem, s_csq, s_min, s_lab);
+  score_block<XT, CT, VEC, false, false>(x + (size_t)row0 * d, nullptr, min(BM, n - row0),
+                                         neg2c, csq, d, k, smem, s_csq, s_min, nullptr,
+                                         s_lab);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < BM; r += NWARP) {
@@ -368,6 +403,102 @@ lloyd_delta_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
   if (threadIdx.x == 0 && s_changed > 0) {
     atomicAdd(n_changed, s_changed);
     atomicAdd(group_counts + row0 / GROUP_ROWS, s_changed);
+  }
+}
+
+// K4 -- replaces kmeans_tpu/ops/pallas_lloyd.py::lloyd_hamerly_pallas
+// (_hamerly_kernel).  Bound on an H100: the distance product of the rows
+// flagged need (2*n_rec*d*k operations); the other rows only pass their
+// label and bounds through.  Design: the TPU kernel compacted needed rows
+// with a permutation-matrix matmul (a Mosaic workaround) and fell back to a
+// dense branch past mc = 256 of them.  Here a block owns one 1024-row group:
+// it compacts the group's needed rows into shared memory (a ballot prefix
+// per 256-row round, so they stay in increasing order), writes prev / sb_in
+// / slb_in through for the others, then scores the needed rows 128 at a
+// time with score_block on gathered rows.  A needed row gets label = the
+// lowest argmin, sb = its score, slb = the least score over the other
+// columns; a changed one (label != prev, w > 0) is scattered as in K2.
+// group_counts[g] is the group's needed-row count, from which the wrapper
+// reports dense_tiles; there is no dense branch.
+template <class XT, class CT, bool VEC>
+__global__ void __launch_bounds__(NT, 2)
+lloyd_hamerly_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
+                     const float* __restrict__ csq, const float* __restrict__ w,
+                     const int* __restrict__ prev, const unsigned char* __restrict__ need,
+                     const float* __restrict__ sb_in, const float* __restrict__ slb_in,
+                     int n, int d, int k, int* __restrict__ labels, float* __restrict__ sb,
+                     float* __restrict__ slb, float* __restrict__ dsums,
+                     float* __restrict__ dcounts, int* __restrict__ n_rec,
+                     int* __restrict__ group_counts) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float s_csq[BN], s_min[BM], s_second[BM];
+  __shared__ int s_lab[BM];
+  __shared__ int s_rows[GROUP_ROWS];   // the group's needed rows, compacted
+  __shared__ int s_warp[NWARP];
+  __shared__ int s_count;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.x * GROUP_ROWS;
+  const int rows = min(GROUP_ROWS, n - row0);
+  if (tid == 0) s_count = 0;
+  __syncthreads();
+  for (int r0 = 0; r0 < GROUP_ROWS; r0 += NT) {
+    const int r = r0 + tid, gr = row0 + r;
+    const bool valid = r < rows;
+    const bool needed = valid && need[gr];
+    const unsigned ballot = __ballot_sync(0xffffffffu, needed);
+    if (lane == 0) s_warp[warp] = __popc(ballot);
+    __syncthreads();
+    int slot = s_count + __popc(ballot & ((1u << lane) - 1u));
+    for (int v = 0; v < warp; ++v) slot += s_warp[v];
+    if (needed) {
+      s_rows[slot] = gr;
+    } else if (valid) {
+      labels[gr] = prev[gr];
+      sb[gr] = sb_in[gr];
+      slb[gr] = slb_in[gr];
+    }
+    __syncthreads();
+    if (tid == 0)
+      for (int v = 0; v < NWARP; ++v) s_count += s_warp[v];
+    __syncthreads();
+  }
+  const int count = s_count;
+
+  for (int s0 = 0; s0 < count; s0 += BM) {
+    const int m = min(BM, count - s0);
+    score_block<XT, CT, VEC, true, true>(x, s_rows + s0, m, neg2c, csq, d, k, smem, s_csq,
+                                         s_min, s_second, s_lab);
+    for (int r = warp; r < m; r += NWARP) {
+      const int gr = s_rows[s0 + r];
+      const int lab = s_lab[r];
+      const int old = prev[gr];
+      const float wr = w[gr];
+      const bool changed = lab != old && wr > 0.f;
+      const bool sub = changed && old >= 0 && old < k;
+      if (changed) {
+        const XT* xr = x + (size_t)gr * d;
+        float* add_row = dsums + (size_t)lab * d;
+        float* sub_row = dsums + (size_t)(sub ? old : 0) * d;
+        for (int c = lane; c < d; c += 32) {
+          const float v = wr * cd_round<CT>(to_f32(xr[c]));
+          atomicAdd(add_row + c, v);
+          if (sub) atomicAdd(sub_row + c, -v);
+        }
+      }
+      if (lane == 0) {
+        labels[gr] = lab;
+        sb[gr] = s_min[r];
+        slb[gr] = s_second[r];
+        if (changed) {
+          atomicAdd(dcounts + lab, wr);
+          if (sub) atomicAdd(dcounts + old, -wr);
+        }
+      }
+    }
+  }
+  if (tid == 0) {
+    group_counts[blockIdx.x] = count;
+    if (count > 0) atomicAdd(n_rec, count);
   }
 }
 
@@ -436,6 +567,21 @@ int launch_delta(const void* x, const void* neg2c, const float* csq, const float
   return (int)cudaGetLastError();
 }
 
+template <class XT, class CT, bool VEC>
+int launch_hamerly(const void* x, const void* neg2c, const float* csq, const float* w,
+                   const int* prev, const unsigned char* need, const float* sb_in,
+                   const float* slb_in, int n, int d, int k, int* labels, float* sb, float* slb,
+                   float* dsums, float* dcounts, int* n_rec, int* group_counts,
+                   cudaStream_t stream) {
+  auto kern = lloyd_hamerly_kernel<XT, CT, VEC>;
+  constexpr int smem = smem_bytes<CT>();
+  if (int e = set_smem(kern, smem)) return e;
+  kern<<<(n + GROUP_ROWS - 1) / GROUP_ROWS, NT, smem, stream>>>(
+      static_cast<const XT*>(x), static_cast<const CT*>(neg2c), csq, w, prev, need, sb_in,
+      slb_in, n, d, k, labels, sb, slb, dsums, dcounts, n_rec, group_counts);
+  return (int)cudaGetLastError();
+}
+
 template <class XT, class CT>
 int launch_acc(const void* x, const int* labels, const float* scores, const float* w, int n,
                int d, int k, float* sums, float* counts, float* mind, cudaStream_t stream) {
@@ -490,4 +636,14 @@ extern "C" int kml_accumulate(const void* x, int x_dtype, int cd, const int* lab
   if (x_dtype == 0 && cd == 0) return launch_acc<float, float>(x, labels, scores, w, n, d, k, sums, counts, mind, s);
   if (x_dtype == 1 && cd == 0) return launch_acc<bf16, float>(x, labels, scores, w, n, d, k, sums, counts, mind, s);
   return kBadDtype;
+}
+
+extern "C" int kml_lloyd_hamerly(const void* x, int x_dtype, const void* neg2c, int cd,
+                                 const float* csq, const float* w, const int* prev,
+                                 const unsigned char* need, const float* sb_in,
+                                 const float* slb_in, int n, int d, int k, int vec, int* labels,
+                                 float* sb, float* slb, float* dsums, float* dcounts,
+                                 int* n_rec, int* group_counts, void* stream) {
+  KML_DISPATCH(launch_hamerly, x, neg2c, csq, w, prev, need, sb_in, slb_in, n, d, k, labels,
+               sb, slb, dsums, dcounts, n_rec, group_counts, static_cast<cudaStream_t>(stream));
 }

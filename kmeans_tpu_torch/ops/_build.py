@@ -41,6 +41,10 @@ _SIGNATURES = {
                         _P, _P, _P, _P, _P, _P, _P],
     # x, x_dtype, cd, labels, scores, w, n, d, k, sums, counts, mind, stream
     "kml_accumulate": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # x, x_dtype, neg2c, cd, csq, w, prev, need, sb_in, slb_in, n, d, k,
+    # vec, labels, sb, slb, dsums, dcounts, n_rec, group_counts, stream
+    "kml_lloyd_hamerly": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 

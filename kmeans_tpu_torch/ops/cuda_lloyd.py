@@ -1,17 +1,18 @@
-"""The three Lloyd sweep kernels: CUDA wrappers, plain versions and the plan.
+"""The four Lloyd sweep kernels: CUDA wrappers, plain versions and the plan.
 
 Counterpart of ``kmeans_tpu/ops/pallas_lloyd.py``.  Each TPU kernel of the
-full-batch delta path has a hand-written Hopper kernel in
+full-batch delta and bound-pruned paths has a hand-written Hopper kernel in
 ``kmeans_tpu_torch/csrc/lloyd.cu`` (built by :mod:`kmeans_tpu_torch.ops._build`)
 and, beside it here, a plain PyTorch version of the same function:
 
-===================== ======================= ==============================
-wrapper               replaces                plain version
-===================== ======================= ==============================
-``lloyd_pass_cuda``   ``lloyd_pass_pallas``   ``lloyd_pass_plain``
-``lloyd_delta_cuda``  ``lloyd_delta_pallas``  ``lloyd_delta_plain``
-``accumulate_cuda``   ``accumulate_pallas``   ``accumulate_plain``
-===================== ======================= ==============================
+======================= ======================== ============================
+wrapper                 replaces                 plain version
+======================= ======================== ============================
+``lloyd_pass_cuda``     ``lloyd_pass_pallas``    ``lloyd_pass_plain``
+``lloyd_delta_cuda``    ``lloyd_delta_pallas``   ``lloyd_delta_plain``
+``accumulate_cuda``     ``accumulate_pallas``    ``accumulate_plain``
+``lloyd_hamerly_cuda``  ``lloyd_hamerly_pallas`` ``lloyd_hamerly_plain``
+======================= ======================== ============================
 
 A wrapper given a tensor on the CPU runs the plain version; given a CUDA
 tensor it launches its kernel or raises.  Each wrapper counts its launches in
@@ -37,15 +38,19 @@ from kmeans_tpu_torch.ops.distance import full_f32, resolve_cd, sq_norms
 
 __all__ = ["KernelPlan", "kernel_plan",
            "lloyd_pass_cuda", "lloyd_delta_cuda", "accumulate_cuda",
-           "lloyd_pass_plain", "lloyd_delta_plain", "accumulate_plain",
+           "lloyd_hamerly_cuda", "lloyd_pass_plain", "lloyd_delta_plain",
+           "accumulate_plain", "lloyd_hamerly_plain",
            "launch_counts", "reset_launch_counts",
-           "DENSE_GROUP_ROWS", "DENSE_SLOTS"]
+           "DENSE_GROUP_ROWS", "DENSE_SLOTS", "HAMERLY_SLOTS"]
 
-#: ``dense_tiles`` keeps the TPU kernel's meaning: the number of 1024-row
-#: groups (its row tile) with more than 128 changed rows (its slot budget
-#: ``mc``).  Reported, never branched on: the CUDA fold is a scatter.
+#: ``dense_tiles`` keeps the TPU kernels' meaning: the number of 1024-row
+#: groups (their row tile) with more rows to compact than their slot budget
+#: ``mc`` -- 128 changed rows for the delta kernel, 256 needed rows for the
+#: Hamerly kernel.  Reported, never branched on: the CUDA kernels scatter
+#: every changed row and score every needed one.
 DENSE_GROUP_ROWS = 1024
 DENSE_SLOTS = 128
+HAMERLY_SLOTS = 256
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -188,20 +193,28 @@ def _chunks(n: int, chunk_size: int):
         yield slice(s, min(n, s + chunk_size))
 
 
-def _argmin_plain(x, centroids, cd, chunk_size):
-    """Per-row ``(lowest-index argmin, min score)`` of ``csq + x·(−2C)ᵀ``."""
+def _argmin_plain(x, centroids, cd, chunk_size, rows=None, with_second=False):
+    """Per-row ``(lowest-index argmin, min score)`` of ``csq + x·(−2C)ᵀ`` over
+    the rows of x, or over ``x[rows]`` (gathered chunk by chunk); with
+    ``with_second`` also the least score over the other columns (the
+    reference's ``_second_min_rows``: an exact duplicate of the winning
+    centroid makes it equal the min)."""
     neg2c, csq = _score_operands(centroids, cd)
     neg2c_t = neg2c.float().T
-    n = x.shape[0]
+    n = x.shape[0] if rows is None else rows.numel()
     labels = torch.empty(n, dtype=torch.int32, device=x.device)
     part_min = torch.empty(n, dtype=torch.float32, device=x.device)
+    second = torch.empty_like(part_min) if with_second else None
     with full_f32():
-        for rows in _chunks(n, chunk_size):
-            part = csq + x[rows].to(cd).float() @ neg2c_t
-            lab = part.argmin(dim=1)
-            labels[rows] = lab.int()
-            part_min[rows] = part.gather(1, lab[:, None])[:, 0]
-    return labels, part_min
+        for s in _chunks(n, chunk_size):
+            xr = x[s] if rows is None else x[rows[s]]
+            part = csq + xr.to(cd).float() @ neg2c_t
+            lab = part.argmin(dim=1)[:, None]
+            labels[s] = lab[:, 0].int()
+            part_min[s] = part.gather(1, lab)[:, 0]
+            if with_second:
+                second[s] = part.scatter_(1, lab, torch.inf).amin(dim=1)
+    return (labels, part_min, second) if with_second else (labels, part_min)
 
 
 def _row_sq_plain(x, chunk_size):
@@ -230,6 +243,18 @@ def _fold_plain(sums, counts, x, labels, w, fold_dtype, chunk_size, sign=1.0,
         counts.index_add_(0, lab[idx], wr)
 
 
+def _signed_fold_plain(x, k, labels, prev, changed, w, cd, chunk_size):
+    """``(dsums, dcounts)`` of the signed fold over ``changed`` rows: ``+w``
+    at ``labels``, ``−w`` at ``prev`` where ``0 <= prev < k``."""
+    dsums = torch.zeros(k, x.shape[1], dtype=torch.float32, device=x.device)
+    dcounts = torch.zeros(k, dtype=torch.float32, device=x.device)
+    _fold_plain(dsums, dcounts, x, labels, w, cd, chunk_size,
+                rows_mask=changed)
+    _fold_plain(dsums, dcounts, x, prev, w, cd, chunk_size, sign=-1.0,
+                rows_mask=changed)
+    return dsums, dcounts
+
+
 def lloyd_pass_plain(x, centroids, *, weights=None, compute_dtype=None,
                      with_update=True, update="matmul", chunk_size=4096):
     """Plain version of :func:`lloyd_pass_cuda` (and of the reference's XLA
@@ -249,34 +274,59 @@ def lloyd_pass_plain(x, centroids, *, weights=None, compute_dtype=None,
     return labels, min_d2, sums, counts, (min_d2 * w).sum()
 
 
-def _dense_tiles(changed: torch.Tensor) -> torch.Tensor:
-    n = changed.shape[0]
+def _dense_tiles(rows: torch.Tensor, slots: int = DENSE_SLOTS) -> torch.Tensor:
+    """1024-row groups with more than ``slots`` rows flagged in ``rows``."""
+    n = rows.shape[0]
     pad = (-n) % DENSE_GROUP_ROWS
-    per_group = torch.nn.functional.pad(changed.int(), (0, pad)).view(
+    per_group = torch.nn.functional.pad(rows.int(), (0, pad)).view(
         -1, DENSE_GROUP_ROWS).sum(dim=1)
-    return (per_group > DENSE_SLOTS).sum().int()
+    return (per_group > slots).sum().int()
 
 
 def lloyd_delta_plain(x, centroids, labels_prev, *, weights=None,
                       compute_dtype=None, with_mind=True, chunk_size=4096):
     """Plain version of :func:`lloyd_delta_cuda`."""
     cd = resolve_cd(compute_dtype, x.dtype)
-    n, d = x.shape
+    n = x.shape[0]
     k = centroids.shape[0]
     w = _weights(weights, n, x.device)
     prev = labels_prev.to(device=x.device, dtype=torch.int32)
     labels, part_min = _argmin_plain(x, centroids, cd, chunk_size)
     changed = (labels != prev) & (w > 0)
-    dsums = torch.zeros(k, d, dtype=torch.float32, device=x.device)
-    dcounts = torch.zeros(k, dtype=torch.float32, device=x.device)
-    _fold_plain(dsums, dcounts, x, labels, w, cd, chunk_size,
-                rows_mask=changed)
-    _fold_plain(dsums, dcounts, x, prev, w, cd, chunk_size, sign=-1.0,
-                rows_mask=changed)
+    dsums, dcounts = _signed_fold_plain(x, k, labels, prev, changed, w, cd,
+                                        chunk_size)
     min_d2 = ((part_min + _row_sq_plain(x, chunk_size)).clamp_min(0.0)
               if with_mind else part_min)
     return (labels, min_d2, dsums, dcounts, (min_d2 * w).sum(),
             changed.sum().int(), _dense_tiles(changed))
+
+
+def lloyd_hamerly_plain(x, centroids, labels_prev, need, sb_in, slb_in, *,
+                        weights=None, compute_dtype=None, chunk_size=4096):
+    """Plain version of :func:`lloyd_hamerly_cuda`: the rows flagged
+    ``need`` are gathered and scored; every other row keeps ``labels_prev``,
+    ``sb_in`` and ``slb_in``."""
+    cd = resolve_cd(compute_dtype, x.dtype)
+    n = x.shape[0]
+    k = centroids.shape[0]
+    dev = x.device
+    w = _weights(weights, n, dev)
+    prev = labels_prev.to(device=dev, dtype=torch.int32)
+    need = need.to(device=dev, dtype=torch.bool)
+    rows = need.nonzero()[:, 0]
+    lab_r, best_r, second_r = _argmin_plain(x, centroids, cd, chunk_size,
+                                            rows=rows, with_second=True)
+    labels = prev.clone()
+    labels[rows] = lab_r
+    sb = sb_in.to(device=dev, dtype=torch.float32).clone()
+    sb[rows] = best_r
+    slb = slb_in.to(device=dev, dtype=torch.float32).clone()
+    slb[rows] = second_r
+    changed = need & (labels != prev) & (w > 0)
+    dsums, dcounts = _signed_fold_plain(x, k, labels, prev, changed, w, cd,
+                                        chunk_size)
+    return (labels, sb, slb, dsums, dcounts, need.sum().int(),
+            _dense_tiles(need, HAMERLY_SLOTS))
 
 
 def accumulate_plain(x, labels, k, *, scores=None, weights=None,
@@ -399,4 +449,52 @@ def accumulate_cuda(x, labels, k, *, scores=None, weights=None,
     return sums, counts, min_d2
 
 
-_WRAPPERS = (lloyd_pass_cuda, lloyd_delta_cuda, accumulate_cuda)
+@_counted
+def lloyd_hamerly_cuda(x, centroids, labels_prev, need, sb_in, slb_in, *,
+                       weights=None, compute_dtype=None):
+    """K4: the bound-pruned sweep (replaces ``lloyd_hamerly_pallas``).
+
+    Returns ``(labels, sb, slb, delta_sums, delta_counts, n_recomputed,
+    dense_tiles)``.  Only the rows flagged ``need`` are scored: each gets
+    the lowest-index argmin, ``sb`` = its score and ``slb`` = the least
+    score over the other columns; every other row passes ``labels_prev``,
+    ``sb_in`` and ``slb_in`` through.  The delta is K2's signed fold over
+    the scored rows whose label changed (a −1 sentinel, which the caller
+    must flag ``need``, makes it the full reduction)."""
+    if x.device.type == "cpu":
+        return lloyd_hamerly_plain(x, centroids, labels_prev, need, sb_in,
+                                   slb_in, weights=weights,
+                                   compute_dtype=compute_dtype)
+    cd = resolve_cd(compute_dtype, x.dtype)
+    n, d = x.shape
+    k = centroids.shape[0]
+    dev = x.device
+    w = _weights(weights, n, dev)
+    prev = labels_prev.to(device=dev, dtype=torch.int32).contiguous()
+    need = need.to(device=dev, dtype=torch.bool).contiguous()
+    sb_in = sb_in.to(device=dev, dtype=torch.float32).contiguous()
+    slb_in = slb_in.to(device=dev, dtype=torch.float32).contiguous()
+    neg2c, csq = _score_operands(centroids, cd)
+    _check_cuda_inputs("lloyd_hamerly_cuda", x, k, cd, w, neg2c, prev, need,
+                       sb_in, slb_in)
+    labels = torch.empty(n, dtype=torch.int32, device=dev)
+    sb = torch.empty(n, dtype=torch.float32, device=dev)
+    slb = torch.empty(n, dtype=torch.float32, device=dev)
+    dsums = torch.zeros(k, d, dtype=torch.float32, device=dev)
+    dcounts = torch.zeros(k, dtype=torch.float32, device=dev)
+    n_rec = torch.zeros(1, dtype=torch.int32, device=dev)
+    groups = torch.empty(-(-n // DENSE_GROUP_ROWS), dtype=torch.int32,
+                         device=dev)
+    _launch(lloyd_hamerly_cuda, "kml_lloyd_hamerly", x,
+            x.data_ptr(), _DTYPE_CODES[x.dtype], neg2c.data_ptr(),
+            _DTYPE_CODES[cd], csq.data_ptr(), w.data_ptr(), prev.data_ptr(),
+            need.data_ptr(), sb_in.data_ptr(), slb_in.data_ptr(), n, d, k,
+            _vec_ok(d, cd, x, neg2c), labels.data_ptr(), sb.data_ptr(),
+            slb.data_ptr(), dsums.data_ptr(), dcounts.data_ptr(),
+            n_rec.data_ptr(), groups.data_ptr())
+    dense_tiles = (groups > HAMERLY_SLOTS).sum().int()
+    return labels, sb, slb, dsums, dcounts, n_rec[0], dense_tiles
+
+
+_WRAPPERS = (lloyd_pass_cuda, lloyd_delta_cuda, accumulate_cuda,
+             lloyd_hamerly_cuda)

@@ -9,6 +9,9 @@ checkout (that machine may have no JAX, which ``tests/conftest.py`` imports):
 Inputs are tie-free blobs, so labels must be equal.  Sums agree to rtol
 1e-4 and atol 1e-4·max|want|: the kernels fold with f32 atomics, in an
 order that changes from run to run.  Counts of binary weights are exact.
+Scores (the Hamerly kernel's bounds) agree to rtol 1e-5 and atol
+1e-5·max|want|: the kernel and the plain version sum the same f32 products
+in another order.
 """
 
 import numpy as np
@@ -44,6 +47,11 @@ def _close(got, want):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
 
 
+def _close_scores(got, want):
+    atol = 1e-5 * float(want.abs().max().clamp_min(1e-30))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
 @pytest.mark.parametrize("x_dtype,cd", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.float32, torch.bfloat16)])
@@ -73,8 +81,43 @@ def test_kernels_match_plain_versions(card, n, d, k, x_dtype, cd):
     torch.cuda.synchronize()
     for g, e in zip(got, want):
         _close(g, e)
+    # K4 with about a third of the rows needed, every sentinel among them.
+    gen = torch.Generator(device=card).manual_seed(3)
+    need = (torch.rand(n, generator=gen, device=card) < 0.3) | (prev < 0)
+    sb_in = torch.randn(n, generator=gen, device=card)
+    slb_in = torch.randn(n, generator=gen, device=card)
+    got = K.lloyd_hamerly_cuda(x, c, prev, need, sb_in, slb_in, weights=w,
+                               compute_dtype=cd)
+    want = K.lloyd_hamerly_plain(x, c, prev, need, sb_in, slb_in, weights=w,
+                                 compute_dtype=cd)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    for g, e in zip(got[1:3], want[1:3]):
+        _close_scores(g, e)
+        assert torch.equal(g[~need], e[~need])
+    for g, e in zip(got[3:5], want[3:5]):
+        _close(g, e)
+    assert int(got[5]) == int(want[5]) == int(need.sum())
+    assert int(got[6]) == int(want[6])
     assert K.launch_counts() == {"lloyd_pass_cuda": 1, "lloyd_delta_cuda": 1,
-                                 "accumulate_cuda": 1}
+                                 "accumulate_cuda": 1,
+                                 "lloyd_hamerly_cuda": 1}
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_hamerly_kernel_scores_rows_as_the_delta_kernel_does(card, cd):
+    """With every row needed, K4 labels and scores each row exactly as K2
+    does: the same score loop, on rows gathered instead of contiguous."""
+    x, c, w, prev = _blobs(4, 3001, 96, 130, card)
+    need = torch.ones(3001, dtype=torch.bool, device=card)
+    zeros = torch.zeros(3001, device=card)
+    got = K.lloyd_hamerly_cuda(x, c, prev, need, zeros, zeros, weights=w,
+                               compute_dtype=cd)
+    lab, raw = K.lloyd_delta_cuda(x, c, prev, weights=w, compute_dtype=cd,
+                                  with_mind=False)[:2]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], lab) and torch.equal(got[1], raw)
+    assert int(got[5]) == 3001 and int(got[6]) == 3   # 3 groups over 256
 
 
 def test_fit_on_the_card_matches_the_plain_backend(card):
@@ -90,3 +133,26 @@ def test_fit_on_the_card_matches_the_plain_backend(card):
     _close(a.inertia, b.inertia)
     km = KMeans(n_clusters=7, update="delta", compute_dtype="bfloat16").fit(x)
     assert km.cluster_centers_.is_cuda and np.isfinite(km.inertia_)
+
+
+@pytest.mark.parametrize("update", ["auto", "hamerly", "yinyang"])
+def test_pruned_fit_on_the_card_matches_the_plain_backend(card, update):
+    """The bound-pruned loops through K4 against the same loops on the
+    plain versions.  Labels and sweeps must be equal (tie-free blobs); the
+    recompute counts may differ on rows whose bound test sits within the f32
+    accumulation order of the scores, so they agree to 1%.  At n = 20000
+    (>= AUTO_MIN_ROWS) "auto" runs the adaptive loop."""
+    x, c, _, _ = _blobs(5, 20000, 48, 40, card)
+    fits = {}
+    for backend in ("auto", "plain"):
+        cfg = KMeansConfig(k=40, update=update, backend=backend)
+        fits[backend] = fit_lloyd(x, 40, init=c, config=cfg, max_iter=40,
+                                  tol=-1.0, diag=True, device=card)
+    (a, da), (b, db) = fits["auto"], fits["plain"]
+    assert torch.equal(a.labels, b.labels)
+    assert int(a.n_iter) == int(b.n_iter) == 40
+    _close(a.centroids, b.centroids)
+    assert da["final_flavor"] == db["final_flavor"]
+    assert da["rows_seen"] == db["rows_seen"] == 40 * 20000
+    assert abs(da["recompute_rows"] - db["recompute_rows"]) <= (
+        0.01 * db["recompute_rows"])

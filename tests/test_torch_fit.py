@@ -24,7 +24,8 @@ from kmeans_tpu.config import KMeansConfig as RefConfig
 from kmeans_tpu_torch import (KMeans, KMeansConfig, delta_pass, fit_lloyd,
                               kmeans_plus_plus, lloyd_pass, make_blobs)
 from kmeans_tpu_torch.convert import state_from_numpy, state_to_numpy
-from kmeans_tpu_torch.models.lloyd import AUTO_MIN_ROWS, fit_plan
+from kmeans_tpu_torch.models.lloyd import fit_plan
+from kmeans_tpu_torch.ops.yinyang import AUTO_MIN_ROWS
 
 CPU = "cpu"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -169,22 +170,34 @@ def test_make_blobs_on_cpu():
 
 
 def test_unported_update_flavours_raise():
+    """Every update flavour is ported; what raises is what the reference
+    refuses: the pruned flavours with the farthest-reseed policy.  The
+    plan reports the adaptive loop where the reference's does."""
     x, c0 = _problem()
     for update in ("hamerly", "yinyang"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fit_lloyd(x, 5, init=c0, device=CPU,
-                      config=KMeansConfig(k=5, update=update))
+        cfg = dict(k=5, update=update, empty="farthest")
+        with pytest.raises(ValueError, match="farthest"):
+            fit_lloyd(x, 5, init=c0, device=CPU, config=KMeansConfig(**cfg))
+        with pytest.raises(ValueError, match="farthest"):
+            fit_plan(x, 5, config=KMeansConfig(**cfg), device=CPU)
+        with pytest.raises(ValueError, match="farthest"):
+            kmeans_tpu.fit_lloyd(jnp.asarray(x), 5, init=jnp.asarray(c0),
+                                 config=RefConfig(**cfg))
+        plan = fit_plan(x, 5, config=KMeansConfig(k=5, update=update),
+                        device=CPU)
+        assert plan == {"update": update, "backend": "plain",
+                        "delta_backend": "plain", "adaptive": False}
     big = np.zeros((AUTO_MIN_ROWS, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        fit_plan(big, 3, device=CPU)
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        fit_lloyd(big, 3, init=np.eye(3, 2), device=CPU)
-    # Below the adaptive threshold "auto" is the delta loop, as in the
-    # reference's fit_plan.
-    assert fit_plan(x, 5, device=CPU) == {
-        "update": "delta", "backend": "plain", "delta_backend": "plain",
-        "adaptive": False}
-    assert kmeans_tpu.models.lloyd.fit_plan(x, 5)["update"] == "delta"
+    for n, adaptive in ((AUTO_MIN_ROWS, True), (AUTO_MIN_ROWS - 1, False)):
+        assert fit_plan(big[:n], 3, device=CPU) == {
+            "update": "delta", "backend": "plain", "delta_backend": "plain",
+            "adaptive": adaptive}
+        assert kmeans_tpu.models.lloyd.fit_plan(
+            big[:n], 3)["adaptive"] is adaptive
+    # "farthest" keeps "auto" off the adaptive loop, as in the reference.
+    assert not fit_plan(big, 3, config=KMeansConfig(k=3, empty="farthest"),
+                        device=CPU)["adaptive"]
+    assert fit_plan(x, 5, device=CPU)["adaptive"] is False
     with pytest.raises(ValueError, match="unknown backend"):
         KMeansConfig(k=5, backend="pallas").validate()
 

@@ -224,10 +224,18 @@ def test_wrappers_run_plain_versions_on_cpu_and_count_nothing():
     want = K.lloyd_pass_plain(xt, ct)
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
-    K.lloyd_delta_cuda(xt, ct, torch.full((200,), -1, dtype=torch.int32))
+    sentinel = torch.full((200,), -1, dtype=torch.int32)
+    K.lloyd_delta_cuda(xt, ct, sentinel)
     K.accumulate_cuda(xt, got[0], 4)
+    need = torch.ones(200, dtype=torch.bool)
+    zeros = torch.zeros(200)
+    got = K.lloyd_hamerly_cuda(xt, ct, sentinel, need, zeros, zeros)
+    want = K.lloyd_hamerly_plain(xt, ct, sentinel, need, zeros, zeros)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
     assert K.launch_counts() == {"lloyd_pass_cuda": 0, "lloyd_delta_cuda": 0,
-                                 "accumulate_cuda": 0}
+                                 "accumulate_cuda": 0,
+                                 "lloyd_hamerly_cuda": 0}
 
 
 def test_cuda_input_checks_refuse_what_the_kernels_do_not_take():
