@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 from the root of a checkout.  It builds the port's CUDA kernels from
-``kmeans_tpu_torch/csrc/lloyd.cu`` and runs six phases, exiting non-zero if
-any fails:
+``kmeans_tpu_torch/csrc/lloyd.cu`` and runs seven phases, exiting non-zero
+if any fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` for sm_90a, with its seconds and register report;
@@ -13,7 +13,11 @@ any fails:
    d in {2, 100, 2048}, k in {3, 1000}, float32 and bfloat16, zero-weight
    rows, a −1 sentinel ``prev``, out-of-range labels, and exact ties; the
    Hamerly kernel (K4) at need fractions 0, about 10% and 100%, and with
-   every row needed against the delta kernel (K2), bit for bit;
+   every row needed against the delta kernel (K2), bit for bit; the k-tiled
+   pair at 128-column slices (K5's labels, raw scores and second-min
+   against K2's and K4's bit for bit, K6's single and dual folds with −1
+   sentinels and a skewed bucket, two K6 launches bit for bit), and ties
+   on either side of a slice edge;
 4. the slice at full width, at n = 1,280,000, d = 2048, k = 1000 in bf16:
    the main path in three runs, each with the launch counts set to 0 just
    before it and read just after -- ``fit_lloyd(update="delta")`` (20
@@ -25,12 +29,21 @@ any fails:
    ``yinyang_pass`` sweeps, each held against K1 at the same centroids
    (every label that differs must be a tie); then each kernel at that
    shape against its plain version, its time beside its bound, the plain
-   version's and a library call's, one steady sweep of each flavour, and
-   the time of k-means++ there;
+   version's and a library call's, K5 + K6 forced tiled there, one steady
+   sweep of each flavour, and the time of k-means++ there;
 5. whole ``KMeans(compute_dtype="bfloat16")`` fits with k-means++ at the
    ``glove`` shape, ``update="delta"`` and the default ``"auto"`` (the
    adaptive loop: n >= 16384), each held against a plain-backend fit;
-6. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
+6. the ``codebook`` shape, n = 1,280,000, d = 2048, k = 65536 in bf16, where
+   the planner tiles: its decision for every kind there and at the headline
+   and glove shapes, then the main path in three runs, counts set to 0
+   before each and read after -- ``KMeans(update="delta", max_iter=4,
+   tol=-1)`` (the refresh, three delta sweeps and the final view: K5 and K6
+   only), ``delta_pass(force_full=True)`` and three hand-driven
+   ``hamerly_pass`` sweeps, each held against K5's full scoring; the fit's
+   labels against the plain route's; then K5 and K6 beside their bounds,
+   plain versions and library calls, and the same sweeps untiled (K1, K2);
+7. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 
 The bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of memory, 989
 TFLOP/s bf16 on the tensor cores and 67 TFLOP/s f32 outside them.
@@ -46,6 +59,7 @@ import sys
 import time
 
 HEADLINE = dict(n=1_280_000, d=2048, k=1000)
+CODEBOOK = dict(n=1_280_000, d=2048, k=65536)
 MEM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
@@ -67,12 +81,18 @@ REPLACES = {
     "lloyd_delta_cuda": "kmeans_tpu/ops/pallas_lloyd.py:677",
     "accumulate_cuda": "kmeans_tpu/ops/pallas_lloyd.py:1583",
     "lloyd_hamerly_cuda": "kmeans_tpu/ops/pallas_lloyd.py:1058",
+    "tiled_argmin_cuda": "kmeans_tpu/ops/pallas_lloyd.py:1388",
+    "tiled_fold_cuda": "kmeans_tpu/ops/pallas_lloyd.py:1484",
 }
 #: Hand-driven sweeps of each pruned flavour in the soundness check.
 SOUND_SWEEPS = 20
 #: Sweeps of the default-entry-point fit: the yinyang probe at sweep 16 and
 #: its judgment at sweep 32 both run.
 AUTO_SWEEPS = 48
+#: The codebook fit's sweeps (the refresh and three delta sweeps) and the
+#: hand-driven tiled Hamerly sweeps there.
+CODEBOOK_SWEEPS = 4
+CODEBOOK_HAMERLY_SWEEPS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -88,6 +108,27 @@ def _sync():
     import torch
 
     torch.cuda.synchronize()
+
+
+def _time_auto(fn):
+    """CUDA-event milliseconds of ``fn()`` and its output: one timed launch
+    when it takes a second or more, else the median of 3 more after it."""
+    import torch
+
+    _sync()
+    times = []
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        if times[0] >= 1000.0:
+            break
+    return (times[0] if len(times) == 1 else statistics.median(times[1:]),
+            out)
 
 
 def _time_ms(fn, reps):
@@ -189,12 +230,12 @@ def _check_labels(name, x, c, cd, labels, plain_labels, ties=False):
 
 def _check_labels_rows(name, x, c, cd, labels, plain_labels):
     """:func:`_check_labels` for a large n: only the rows where the kernel
-    and the plain version disagree are scored in f64."""
+    and the plain version disagree are scored in f64, 1024 at a time."""
     rows = (labels != plain_labels).nonzero()[:, 0]
-    if rows.numel():
-        s, scale = _scores64(x[rows], c, cd)
-        _near_min(name, s, scale, labels[rows])
-        _near_min(f"{name} (plain)", s, scale, plain_labels[rows])
+    for part in rows.split(1024):
+        s, scale = _scores64(x[part], c, cd)
+        _near_min(name, s, scale, labels[part])
+        _near_min(f"{name} (plain)", s, scale, plain_labels[part])
     return int(rows.numel())
 
 
@@ -324,6 +365,82 @@ def _check_hamerly(name, x, c, cd, w, prev, gen, ties, k2):
     return moved
 
 
+def _check_tiled(name, x, c, cd, w, prev, ties, k_tile=128):
+    """K5 and K6 against their plain versions at ``k_tile``-wide slices.
+    K5: labels near the f64 minimum (the lower index of an exact tie), raw
+    scores and second-min within the score tolerance, and labels, raw
+    scores, normed min and second-min equal to K2's, K1's and K4's bit for
+    bit (the same score loop).  K6: the single fold at K5's labels with half
+    the rows moved to one label and some to −1, and the dual fold against
+    ``prev``: sums within SUMS_RTOL of the plain version's, counts exact,
+    and a second launch equal bit for bit.  Returns the rows labelled
+    differently from the plain version."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    n, k = x.shape[0], c.shape[0]
+    what = f"K5 k_tile={k_tile} {name}"
+    neg2c, csq = K._score_operands(c, cd)
+    lab, raw, sec = K.tiled_argmin_cuda(x, neg2c, csq, k_tile=k_tile,
+                                        raw_scores=True, with_second=True)
+    normed = K.tiled_argmin_cuda(x, neg2c, csq, k_tile=k_tile)[1]
+    k1 = K.lloyd_pass_cuda(x, c, compute_dtype=cd, with_update=False)
+    k2 = K.lloyd_delta_cuda(x, c, prev, compute_dtype=cd, with_mind=False)
+    ones = torch.ones(n, dtype=torch.bool, device="cuda")
+    zeros = torch.zeros(n, device="cuda")
+    k4 = K.lloyd_hamerly_cuda(x, c, prev, ones, zeros, zeros,
+                              compute_dtype=cd)
+    _sync()
+    plain = K.tiled_argmin_plain(x, neg2c, csq, k_tile=k_tile,
+                                 raw_scores=True, with_second=True)
+    chosen, tol, moved = _check_labels(what, x, c, cd, lab, plain[0], ties)
+    _within(f"{what} raw", raw, chosen, tol)
+    s, scale = _scores64(x, c, cd)
+    second, col = _second64(s, lab)
+    _within(f"{what} second", sec, second,
+            SCORE_RTOL * scale.gather(1, col[:, None])[:, 0])
+    _check(bool(torch.equal(lab, k2[0]) and torch.equal(raw, k2[1])
+                and torch.equal(normed, k1[1]) and torch.equal(sec, k4[2])),
+           f"{what}: labels, scores or second-min differ from K1/K2/K4's")
+    lab3 = lab.clone()
+    lab3[::2] = k // 2
+    lab3[1::7] = -1
+    for lab2 in (None, prev):
+        fold = f"K6 {'dual' if lab2 is not None else 'single'} {name}"
+        got = K.tiled_fold_cuda(x, w, lab3, lab2, k, compute_dtype=cd)
+        again = K.tiled_fold_cuda(x, w, lab3, lab2, k, compute_dtype=cd)
+        _sync()
+        want = K.tiled_fold_plain(x, w, lab3, lab2, k, compute_dtype=cd,
+                                  k_tile=k_tile)
+        _check(bool(torch.equal(got[0], again[0])
+                    and torch.equal(got[1], again[1])),
+               f"{fold}: two launches differ")
+        _close(f"{fold} sums", got[0], want[0])
+        _check(bool(torch.equal(got[1], want[1])), f"{fold} counts")
+    return moved
+
+
+def _straddling_tie_cases(gen):
+    """Duplicate centroids at columns 127 and 128, on either side of a
+    128-column slice edge, and rows that sit on them: K5 must give 127."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    for xd, cd in ((torch.float32, torch.float32),
+                   (torch.bfloat16, torch.bfloat16)):
+        x, c, w, prev = _case_inputs(gen, 2053, 2048, 256, xd, False)
+        c[128] = c[127]
+        x[:64] = c[127].to(xd)
+        name = f"n=2053 d=2048 k=256 x={str(xd)[6:]} tie at the slice edge"
+        _check_tiled(name, x, c, cd, w, prev, False)
+        lab = K.tiled_argmin_cuda(x, *K._score_operands(c, cd), k_tile=128)[0]
+        _check(bool((lab[:64] == 127).all()),
+               f"K5 {name}: the tie did not go to column 127")
+        print(f"  ok {name}")
+
+
 def phase_kernels():
     import torch
 
@@ -403,10 +520,15 @@ def phase_kernels():
         # K4 at three need fractions; k2 holds K2's with_mind=False run.
         moved = max(moved, _check_hamerly(name, x, c, cd, w, prev, gen,
                                           ties, k2))
+        # K5 and K6 at 128-column slices: k = 1000 leaves a ragged last
+        # slice of 104 columns, k = 3 one ragged slice.
+        moved = max(moved, _check_tiled(name, x, c, cd, w, prev, ties))
         print(f"  ok {name} ({moved} rows labelled differently from the "
               "plain version, each a tie within the tolerance)")
-    print(f"kernels vs plain: {len(cases)} cases agree (score rtol "
-          f"{SCORE_RTOL}, sums rtol {SUMS_RTOL}, counts exact)")
+    _straddling_tie_cases(gen)
+    print(f"kernels vs plain: {len(cases) + 2} cases agree (score rtol "
+          f"{SCORE_RTOL}, sums rtol {SUMS_RTOL}, counts exact; K5 equal to "
+          "K1, K2 and K4 bit for bit; K6 equal to itself bit for bit)")
 
 
 # ---------------------------------------------------------------------------
@@ -419,6 +541,21 @@ def _bound_ms(bytes_moved, tensor_ops=0.0, f32_ops=0.0):
     t_ops = max(tensor_ops / BF16_TENSOR_OPS_PER_S, f32_ops / F32_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def _kernel_row(name, launches, ms, plain_ms, library_ms, err, bytes_moved,
+                tensor_ops, f32_ops):
+    """One entry of the ``{"kernels": [...]}`` line, printed as it is
+    made; ``library_ms`` may be None."""
+    bound, by = _bound_ms(bytes_moved, tensor_ops, f32_ops)
+    lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
+    print(f"{name}: {ms:.3f} ms (bound {bound:.3f} ms by {by}), plain "
+          f"{plain_ms:.3f} ms, library {lib}, max abs err vs plain "
+          f"{err:.3e}")
+    return {"name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
 
 
 def phase_headline():
@@ -475,6 +612,9 @@ def phase_headline():
     _check(refresh_launches["accumulate_cuda"] >= 1
            and refresh_launches["lloyd_delta_cuda"] >= 1,
            "delta_pass(force_full=True) did not launch K2 and K3")
+    _check(not any(fit_launches[t] or refresh_launches[t]
+                   for t in ("tiled_argmin_cuda", "tiled_fold_cuda")),
+           "the headline shape planned untiled, but K5 or K6 launched")
     _check(n_iter == 20 and bool(torch.isfinite(state.centroids).all())
            and bool(torch.isfinite(state.inertia)),
            "headline fit: wrong sweep count or non-finite result")
@@ -493,17 +633,8 @@ def phase_headline():
     w = torch.ones(n, device="cuda")
     kernels = []
 
-    def record(name, ms, plain_ms, library_ms, err, bytes_moved, tensor_ops,
-               f32_ops):
-        bound, by = _bound_ms(bytes_moved, tensor_ops, f32_ops)
-        row = {"name": name, "route": "cuda", "source": SOURCE,
-               "replaces": REPLACES[name], "launches": launches[name],
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
-        kernels.append(row)
-        print(f"{name}: {ms:.3f} ms (bound {bound:.3f} ms by {by}), plain "
-              f"{plain_ms:.3f} ms, library {library_ms:.3f} ms, max abs err "
-              f"vs plain {err:.3e}")
+    def record(name, *args):
+        kernels.append(_kernel_row(name, launches[name], *args))
 
     xb, x_row, cb = n * d * 2, n * 4, k * d * 2 + k * 4
     dist_ops = 2.0 * n * d * k
@@ -570,6 +701,7 @@ def phase_headline():
                     .index_add_(0, lab_long, x), 3),
            err, xb + 3 * x_row + k * d * 4 + k * 4, 0.0, 4.0 * n * d)
 
+    _forced_tiled(x, c1, lab, kernels[0]["ms"], kernels[1]["ms"])
     _hamerly_timings(x, states, rno, record)
     _flavour_sweeps(x, states, rno)
 
@@ -579,7 +711,47 @@ def phase_headline():
     print(f"kmeans_plus_plus at the headline shape: "
           f"{time.perf_counter() - t0:.3f} s")
     _check(bool(torch.isfinite(seeds).all()), "k-means++ seeds not finite")
-    return kernels
+    return kernels, launches
+
+
+def _forced_tiled(x, c, prev, k1_ms, k2_ms):
+    """The tiled route forced at the headline shape, where the planner keeps
+    it untiled: K5 + K6 against K1 (the classic sweep) and K2 (the delta
+    sweep from ``prev``), at the planner's widest slice (all 1000 columns
+    in one) and at 128-column slices.  K5 must give K2's labels and raw
+    scores bit for bit."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.ops.plan import max_k_tile
+
+    n, d = x.shape
+    k = c.shape[0]
+    bf16 = torch.bfloat16
+    neg2c, csq = K._score_operands(c, bf16)
+    k2 = K.lloyd_delta_cuda(x, c, prev, compute_dtype=bf16, with_mind=False)
+    for k_tile in (max_k_tile("classic", d, k), 128):
+        lab, raw = K.tiled_argmin_cuda(x, neg2c, csq, k_tile=k_tile,
+                                       raw_scores=True)
+        _check(bool(torch.equal(lab, k2[0]) and torch.equal(raw, k2[1])),
+               f"K5 k_tile={k_tile} headline: differs from K2")
+        wch = (lab != prev).float()
+        normed_ms = _time_ms(lambda: K.tiled_argmin_cuda(
+            x, neg2c, csq, k_tile=k_tile), 5)
+        raw_ms = _time_ms(lambda: K.tiled_argmin_cuda(
+            x, neg2c, csq, k_tile=k_tile, raw_scores=True), 5)
+        single_ms = _time_ms(lambda: K.tiled_fold_cuda(
+            x, None, lab, None, k, compute_dtype=bf16), 5)
+        dual_ms = _time_ms(lambda: K.tiled_fold_cuda(
+            x, wch, lab, prev, k, compute_dtype=bf16), 5)
+        print(f"forced tiled at the headline shape, k_tile={k_tile} "
+              f"({-(-k // k_tile)} slices; a sweep's bound "
+              f"{_bound_ms(n * d * 2, 2.0 * n * d * k)[0]:.3f} ms): classic "
+              f"K5 {normed_ms:.3f} + K6 "
+              f"single {single_ms:.3f} = {normed_ms + single_ms:.3f} ms "
+              f"against K1 {k1_ms:.3f} ms; delta K5 raw {raw_ms:.3f} + K6 "
+              f"dual {dual_ms:.3f} ({int(wch.sum())} changed rows) = "
+              f"{raw_ms + dual_ms:.3f} ms against K2 {k2_ms:.3f} ms")
 
 
 def _auto_fit(x, c0):
@@ -861,6 +1033,256 @@ def phase_whole_fit():
                f"whole fit update={update}: non-finite centroids")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the codebook shape, where the planner tiles
+# ---------------------------------------------------------------------------
+
+def _plans():
+    """The planner's decision for every kind at the headline, glove and
+    codebook shapes (bf16), on this card's budget."""
+    from kmeans_tpu_torch.ops import plan as P
+
+    budget = P.card_budget()
+    print(f"planner budget: {budget.l2_bytes} B of L2 (3/4), "
+          f"{budget.smem_per_block} B of shared memory a block "
+          f"({budget.source})")
+    shapes = {"headline": (HEADLINE["d"], HEADLINE["k"]), "glove": (300, 1000),
+              "codebook": (CODEBOOK["d"], CODEBOOK["k"])}
+    for name, (d, k) in shapes.items():
+        for kind in P.KINDS:
+            plan = P.kernel_plan(kind, d, k, budget=budget)
+            print(f"  plan {name} {kind}: {plan.mode}, k_tile {plan.k_tile}: "
+                  f"{plan.why}")
+            want = "tiled" if name == "codebook" else "untiled"
+            _check(plan.mode == want, f"plan {name} {kind}: {plan.mode}, "
+                   f"not {want}")
+
+
+def _counted_run(fn):
+    """``(fn(), launch counts of that run)``: counts set to 0 just before
+    and read just after."""
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    K.reset_launch_counts()
+    out = fn()
+    _sync()
+    return out, K.launch_counts()
+
+
+def _add_counts(total, counts):
+    for name, v in counts.items():
+        total[name] = total.get(name, 0) + v
+
+
+def phase_codebook(headline_launches):
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.init import random_init
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.ops.hamerly import hamerly_pass, row_norms
+    from kmeans_tpu_torch.ops.update import apply_update
+
+    n, d, k = CODEBOOK["n"], CODEBOOK["d"], CODEBOOK["k"]
+    bf16 = torch.bfloat16
+    t_phase = time.perf_counter()
+    _plans()
+    t0 = time.perf_counter()
+    x, _, _ = kt.make_blobs(11, n, d, k, dtype=bf16)
+    c0 = random_init(torch.Generator(device="cuda").manual_seed(2), x, k)
+    _sync()
+    print(f"codebook data: n={n} d={d} k={k} bf16 ({k} generator blobs, "
+          f"init {k} random rows), {time.perf_counter() - t0:.2f} s to make")
+    plan = kt.fit_plan(x, k, config=kt.KMeansConfig(
+        k=k, update="delta", compute_dtype="bfloat16"))
+    print(f"fit_plan (update='delta'): {plan}")
+    _check(plan["mode"] == "tiled" and plan["k_tile"] % 128 == 0,
+           "the codebook delta fit is not planned tiled")
+    k_tile = plan["k_tile"]
+    launches = {}
+
+    # The main path, in three runs.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    km, counts = _counted_run(lambda: kt.KMeans(
+        n_clusters=k, update="delta", compute_dtype="bfloat16", init=c0,
+        max_iter=CODEBOOK_SWEEPS, tol=-1.0).fit(x))
+    fit_s = time.perf_counter() - t0
+    _add_counts(launches, counts)
+    c = km.cluster_centers_
+    print(f"KMeans(update='delta', max_iter={CODEBOOK_SWEEPS}, tol=-1): "
+          f"{km.n_iter_} sweeps + final view in {fit_s:.3f} s = "
+          f"{km.n_iter_ / fit_s:.4f} iter/s (final view included); inertia "
+          f"{km.inertia_:.6e}; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    print(f"  launches: {counts}")
+    _check(counts["tiled_argmin_cuda"] == CODEBOOK_SWEEPS + 1
+           and counts["tiled_fold_cuda"] == CODEBOOK_SWEEPS + 1
+           and sum(counts.values()) == 2 * (CODEBOOK_SWEEPS + 1),
+           "the codebook fit launched other kernels than K5 and K6")
+    _check(km.n_iter_ == CODEBOOK_SWEEPS and _finite(c)
+           and math.isfinite(km.inertia_),
+           "codebook fit: wrong sweep count or non-finite result")
+    t0 = time.perf_counter()
+    plain = K.lloyd_pass_plain(x, c, compute_dtype=bf16, with_update=False)
+    _sync()
+    plain_s = time.perf_counter() - t0
+    moved = _check_labels_rows("codebook fit", x, c, bf16, km.labels_,
+                               plain[0])
+    print(f"  labels against the plain route at the final centroids: {moved} "
+          f"rows differ, each a tie within {SCORE_RTOL} (plain sweep "
+          f"{plain_s:.3f} s)")
+
+    zeros_s = torch.zeros(k, d, device="cuda")
+    zeros_c = torch.zeros(k, device="cuda")
+    refresh, counts = _counted_run(lambda: kt.delta_pass(
+        x, c, km.labels_, zeros_s, zeros_c, compute_dtype="bfloat16",
+        force_full=True))
+    _add_counts(launches, counts)
+    print(f"delta_pass(force_full=True): {int(refresh[5])} rows changed; "
+          f"launches {counts}")
+    _check(counts["tiled_argmin_cuda"] == 1 and counts["tiled_fold_cuda"] == 2
+           and sum(counts.values()) == 3,
+           "delta_pass(force_full=True) did not run K5 and K6 only")
+    _check(int(refresh[3].sum()) == n and _finite(refresh[2]),
+           "delta_pass(force_full=True): counts do not sum to n")
+
+    rno = row_norms(x, compute_dtype=bf16)
+    hc = c0.clone()
+    lab = torch.full((n,), -1, dtype=torch.int32, device="cuda")
+    sb = torch.zeros(n, device="cuda")
+    slb = torch.zeros(n, device="cuda")
+    c_cd, csq = c0.to(bf16), torch.zeros(k, device="cuda")
+    sums, hcounts = zeros_s, zeros_c
+    recs, diffs = [], []
+    for i in range(CODEBOOK_HAMERLY_SWEEPS):
+        out, counts = _counted_run(lambda: hamerly_pass(
+            x, hc, lab, sums, hcounts, sb, slb, c_cd, csq, rno,
+            compute_dtype="bfloat16"))
+        _add_counts(launches, counts)
+        _check(counts["tiled_argmin_cuda"] == 1
+               and counts["tiled_fold_cuda"] == 1
+               and sum(counts.values()) == 2,
+               f"tiled hamerly sweep {i}: launches {counts}")
+        lab, sums, hcounts, sb, slb, c_cd, csq, n_rec = out
+        full = K.tiled_argmin_cuda(x, *K._score_operands(hc, bf16),
+                                   k_tile=k_tile, raw_scores=True)[0]
+        diffs.append(_check_labels_rows(f"tiled hamerly sweep {i}", x, hc,
+                                        bf16, lab, full))
+        recs.append(int(n_rec))
+        hc = apply_update(hc, sums, hcounts)
+    print(f"hamerly on the tiled route ({CODEBOOK_HAMERLY_SWEEPS} sweeps): "
+          f"rows needed per sweep {recs}; rows labelled differently from K5's "
+          f"full scoring {diffs} (each a tie within {SCORE_RTOL})")
+    print(f"codebook main path launches: {launches}")
+    del rno, sb, slb, lab, sums
+
+    # Timings at the state after the refresh: K5 and K6 against their
+    # plain versions and library calls, then the same sweeps untiled.
+    c1 = apply_update(c, refresh[2], refresh[3])
+    prev = refresh[0]
+    neg2c, csq = K._score_operands(c1, bf16)
+    total = {name: headline_launches.get(name, 0) + launches.get(name, 0)
+             for name in launches}
+    rows = []
+    xb, x_row = n * d * 2, n * 4
+    dist_ops = 2.0 * n * d * k
+    k5_ms, (lab5, raw5) = _time_auto(lambda: K.tiled_argmin_cuda(
+        x, neg2c, csq, k_tile=k_tile, raw_scores=True))
+    plain_ms, plain5 = _time_auto(lambda: K.tiled_argmin_plain(
+        x, neg2c, csq, k_tile=k_tile, raw_scores=True))
+    moved = _check_labels_rows("K5 codebook", x, c1, bf16, lab5, plain5[0])
+    same = lab5 == plain5[0]
+    err = _within("K5 codebook raw scores", raw5[same], plain5[1][same],
+                  _row_scale(x, c1, bf16, lab5)[same])
+    del plain5
+
+    def library_argmin():
+        out = torch.empty(n, dtype=torch.float32, device="cuda")
+        idx = torch.empty(n, dtype=torch.int64, device="cuda")
+        for s in range(0, n, 16384):
+            part = torch.mm(x[s:s + 16384], neg2c.T, out_dtype=torch.float32)
+            torch.min(part.add_(csq), dim=1, out=(out[s:s + 16384],
+                                                  idx[s:s + 16384]))
+        return out, idx
+
+    library_ms, _ = _time_auto(library_argmin)
+    print(f"K5 codebook (k_tile={k_tile}, {-(-k // k_tile)} slices): {moved} "
+          "rows labelled differently from the plain version, each a tie "
+          "within the tolerance")
+    rows.append(_kernel_row(
+        "tiled_argmin_cuda", total["tiled_argmin_cuda"], k5_ms, plain_ms,
+        library_ms, err, xb + k * d * 2 + k * 4 + 2 * x_row, dist_ops, 0.0))
+
+    # K6: the full single fold at K5's labels, then the dual fold at this
+    # sweep's churn.
+    got, again = (K.tiled_fold_cuda(x, None, lab5, None, k, compute_dtype=bf16)
+                  for _ in range(2))
+    _check(bool(torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                              again[1])),
+           "K6 codebook: two launches differ")
+    del again
+    k6_ms, _ = _time_auto(lambda: K.tiled_fold_cuda(
+        x, None, lab5, None, k, compute_dtype=bf16))
+    k6_plain_ms, want = _time_auto(lambda: K.tiled_fold_plain(
+        x, None, lab5, None, k, compute_dtype=bf16, k_tile=k_tile))
+    err = _close("K6 codebook sums", got[0], want[0])
+    _check(bool(torch.equal(got[1], want[1])), "K6 codebook counts")
+    del got, want
+    xf = x.float()
+    lab_long = lab5.long()
+    k6_lib_ms, _ = _time_auto(lambda: torch.zeros(k, d, device="cuda")
+                              .index_add_(0, lab_long, xf))
+    rows.append(_kernel_row(
+        "tiled_fold_cuda", total["tiled_fold_cuda"], k6_ms, k6_plain_ms,
+        k6_lib_ms, err, xb + 2 * x_row + k * d * 4 + k * 4, 0.0,
+        2.0 * n * d))
+    changed = lab5 != prev
+    n_changed = int(changed.sum())
+    wch = changed.float()
+    dual_ms, got = _time_auto(lambda: K.tiled_fold_cuda(
+        x, wch, lab5, prev, k, compute_dtype=bf16))
+    dual_plain_ms, want = _time_auto(lambda: K.tiled_fold_plain(
+        x, wch, lab5, prev, k, compute_dtype=bf16, k_tile=k_tile))
+    _close("K6 codebook dual sums", got[0], want[0])
+    _check(bool(torch.equal(got[1], want[1])), "K6 codebook dual counts")
+    rows_ch = changed.nonzero()[:, 0]
+    dual_lib_ms, _ = _time_auto(lambda: torch.zeros(k, d, device="cuda")
+                                .index_add_(0, lab_long[rows_ch], xf[rows_ch])
+                                .index_add_(0, prev[rows_ch].long(),
+                                            xf[rows_ch], alpha=-1.0))
+    bound, by = _bound_ms(n_changed * d * 2 + 3 * x_row + k * d * 4 + k * 4,
+                          0.0, 4.0 * n_changed * d)
+    print(f"K6 dual at this sweep's churn ({n_changed} of {n} rows changed): "
+          f"{dual_ms:.3f} ms (bound {bound:.3f} ms by {by}), plain "
+          f"{dual_plain_ms:.3f} ms, library (two index_add_ of the changed "
+          f"f32 rows) {dual_lib_ms:.3f} ms")
+    del got, want, xf, lab_long
+
+    # The same sweeps untiled: K1 and K2 at the codebook shape.
+    k1_ms, k1 = _time_auto(lambda: K.lloyd_pass_cuda(x, c1,
+                                                     compute_dtype=bf16))
+    _check(bool(torch.equal(k1[0], lab5)), "K1 codebook labels differ from "
+           "K5's")
+    del k1
+    k2_ms, k2 = _time_auto(lambda: K.lloyd_delta_cuda(
+        x, c1, prev, compute_dtype=bf16, with_mind=False))
+    _check(bool(torch.equal(k2[0], lab5) and torch.equal(k2[1], raw5)),
+           "K2 codebook labels or raw scores differ from K5's")
+    del k2
+    k5n_ms, _ = _time_auto(lambda: K.tiled_argmin_cuda(
+        x, neg2c, csq, k_tile=k_tile))
+    bound = _bound_ms(xb, dist_ops)[0]
+    print(f"codebook classic sweep (bound {bound:.3f} ms): untiled K1 "
+          f"{k1_ms:.3f} ms; tiled K5 {k5n_ms:.3f} + K6 {k6_ms:.3f} = "
+          f"{k5n_ms + k6_ms:.3f} ms")
+    print(f"codebook delta sweep (bound {bound:.3f} ms): untiled K2 "
+          f"{k2_ms:.3f} ms; tiled K5 raw {k5_ms:.3f} + K6 dual "
+          f"{dual_ms:.3f} = {k5_ms + dual_ms:.3f} ms")
+    print(f"codebook phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -871,8 +1293,12 @@ def main() -> int:
     phase_device()
     phase_build()
     phase_kernels()
-    kernels = phase_headline()
+    kernels, headline_launches = phase_headline()
     phase_whole_fit()
+    tiled, codebook_launches = phase_codebook(headline_launches)
+    for row in kernels:
+        row["launches"] += codebook_launches.get(row["name"], 0)
+    kernels += tiled
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,7 @@
-// Hand-written Hopper (sm_90a) kernels for the four Lloyd sweeps of the port.
+// Hand-written Hopper (sm_90a) kernels for the Lloyd sweeps of the port: the
+// untiled K1-K4 and the k-tiled pair K5 (streamed argmin) and K6 (bucketed
+// fold) that the planner (kmeans_tpu_torch/ops/plan.py) picks where -2C and
+// the f32 sums outgrow L2.
 //
 // Built by kmeans_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -297,12 +300,14 @@ __device__ void score_block(const XT* __restrict__ xblk, const int* gather, int 
 // Bound on an H100: the distance product (2*n*d*k operations); the fold adds
 // one more read of x (every row is folded).  Design: score_block for the
 // argmin, then a warp per row reads the row once for ||x||^2 and, with
-// with_update, its scatter fold.
+// with_update, its scatter fold.  raw (the sharded callers' hook) writes the
+// raw min score and skips the norm; the other hook, valid_cols, is a +inf
+// csq set by the wrapper.
 template <class XT, class CT, bool VEC>
 __global__ void __launch_bounds__(NT, 2)
 lloyd_pass_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
                   const float* __restrict__ csq, const float* __restrict__ w,
-                  int n, int d, int k, int with_update,
+                  int n, int d, int k, int with_update, int raw,
                   int* __restrict__ labels, float* __restrict__ mind,
                   float* __restrict__ sums, float* __restrict__ counts) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -323,15 +328,17 @@ lloyd_pass_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
     const XT* xr = x + (size_t)gr * d;
     float* dst = sums + (size_t)lab * d;
     float sq = 0.f;
-    for (int c = lane; c < d; c += 32) {
-      const float xf = to_f32(xr[c]);
-      sq = fmaf(xf, xf, sq);
-      if (fold) atomicAdd(dst + c, wr * cd_round<CT>(xf));
+    if (fold || !raw) {
+      for (int c = lane; c < d; c += 32) {
+        const float xf = to_f32(xr[c]);
+        sq = fmaf(xf, xf, sq);
+        if (fold) atomicAdd(dst + c, wr * cd_round<CT>(xf));
+      }
+      sq = warp_sum(sq);
     }
-    sq = warp_sum(sq);
     if (lane == 0) {
       labels[gr] = lab;
-      mind[gr] = fmaxf(s_min[r] + sq, 0.f);
+      mind[gr] = raw ? s_min[r] : fmaxf(s_min[r] + sq, 0.f);
       if (fold) atomicAdd(counts + lab, wr);
     }
   }
@@ -535,6 +542,348 @@ accumulate_kernel(const XT* __restrict__ x, const int* __restrict__ labels,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The k-tiled pair, for shapes whose -2C and f32 sums outgrow L2 (the
+// planner, kmeans_tpu_torch/ops/plan.py, decides).  At the codebook shape
+// (n = 1.28M, d = 2048, k = 65536) -2C in bf16 is 268 MB and the sums are
+// 512 MiB against a 50 MB L2: an untiled sweep streams all of -2C through
+// every 128-row block and folds with atomics into sums that live in HBM.
+// ---------------------------------------------------------------------------
+
+// K5 -- replaces kmeans_tpu/ops/pallas_lloyd.py::_tiled_argmin
+// (_tiled_argmin_kernel).  Bound on an H100: the distance product,
+// 2*n*d*k operations (3.44e14 at the codebook shape: >= 347 ms at 989
+// TFLOP/s bf16).  Design: the TPU kernel carried a per-row argmin across the
+// sequential k-slice axis of its grid; blocks on the card run in no order,
+// so K5 is two launches.  The score launch has a block for each (k slice,
+// 128-row block), numbered slice-major, so the blocks resident at one time
+// work on the same slice and that slice's -2C stays in L2; each runs
+// score_block over its slice's columns -- the loop K1, K2 and K4 run, so
+// every score is theirs bit for bit -- and writes the slice's (best, index
+// [, second]) for its rows to a (slices, n) buffer.  The merge launch (a
+// warp per row) walks the slices in increasing order with strict '<', the
+// reference's carry rule, so the lowest global index wins a tie, one that
+// straddles a slice edge included; the second-min merges on the same
+// lattice as score_block's.  It adds ||x||^2 (read as K1 reads it) unless
+// raw.
+template <class XT, class CT, bool VEC, bool SECOND>
+__global__ void __launch_bounds__(NT, 2)
+tiled_score_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
+                   const float* __restrict__ csq, int n, int d, int k, int k_tile,
+                   int row_blocks, float* __restrict__ part_best, int* __restrict__ part_idx,
+                   float* __restrict__ part_second) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float s_csq[BN], s_min[BM], s_second[BM];
+  __shared__ int s_lab[BM];
+  const int slice = blockIdx.x / row_blocks;
+  const int row0 = (blockIdx.x - slice * row_blocks) * BM;
+  const int col0 = slice * k_tile;
+  const int rows = min(BM, n - row0);
+  score_block<XT, CT, VEC, false, SECOND>(x + (size_t)row0 * d, nullptr, rows,
+                                          neg2c + (size_t)col0 * d, csq + col0, d,
+                                          min(k_tile, k - col0), smem, s_csq, s_min,
+                                          s_second, s_lab);
+  for (int r = threadIdx.x; r < rows; r += NT) {
+    const size_t o = (size_t)slice * n + row0 + r;
+    part_best[o] = s_min[r];
+    part_idx[o] = col0 + s_lab[r];
+    if constexpr (SECOND) part_second[o] = s_second[r];
+  }
+}
+
+template <class XT>
+__global__ void __launch_bounds__(NT)
+tiled_merge_kernel(const XT* __restrict__ x, const float* __restrict__ part_best,
+                   const int* __restrict__ part_idx, const float* __restrict__ part_second,
+                   int n, int d, int slices, int raw, int* __restrict__ labels,
+                   float* __restrict__ mind, float* __restrict__ second) {
+  const int row = (int)((blockIdx.x * (size_t)NT + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n) return;
+  float sq = 0.f;
+  if (!raw) {
+    const XT* xr = x + (size_t)row * d;
+    for (int c = lane; c < d; c += 32) {
+      const float xf = to_f32(xr[c]);
+      sq = fmaf(xf, xf, sq);
+    }
+    sq = warp_sum(sq);
+  }
+  if (lane != 0) return;
+  float best = part_best[row];
+  int idx = part_idx[row];
+  float sec = part_second != nullptr ? part_second[row] : 0.f;
+  for (int s = 1; s < slices; ++s) {
+    const size_t o = (size_t)s * n + row;
+    const float b = part_best[o];
+    if (part_second != nullptr) sec = fminf(fminf(sec, part_second[o]), fmaxf(best, b));
+    if (b < best) {
+      best = b;
+      idx = part_idx[o];
+    }
+  }
+  labels[row] = idx;
+  mind[row] = raw ? best : fmaxf(best + sq, 0.f);
+  if (part_second != nullptr) second[row] = sec;
+}
+
+// K6 -- replaces kmeans_tpu/ops/pallas_lloyd.py::_tiled_fold
+// (_tiled_fold_kernel).  Bound on an H100: bytes -- one read of each folded
+// row (5.24 GB for a full fold at the codebook shape) and one write of the
+// sums (512 MiB): >= 1.72 ms at 3.35 TB/s.  Design: the TPU kernel re-read x
+// once per k slice; on the card that would be a read of x per 128 columns.
+// Instead the fold's entries -- a row's +w at lab and, in the dual mode, its
+// -w at lab2 (entry e = row * S + side, S = 1 or 2) -- are bucketed by label
+// in integer arithmetic only:
+//   1. fold_hist: per (chunk of entries, bucket) counts, integer atomics;
+//   2. fold_chunk_scan: each bucket's counts turned into per-chunk offsets;
+//   3. fold_bucket_scan (one block): each bucket's first entry, first fold
+//      block and first partial row;
+//   4. fold_scatter: a warp per chunk walks its entries in order, 32 at a
+//      time, ranking equal buckets with __match_any_sync, so each bucket
+//      lists its entries in increasing entry (so row) order;
+// then fold_sum gives each (bucket, chunk of FOLD_CHUNK entries, 2048
+// columns) a block whose threads sum their columns over the chunk's entries
+// in that order, in f32, as w * float(cd(x)) -- no float atomics -- and
+// write each sums element once; a bucket of more than FOLD_CHUNK entries (a
+// skewed label) writes partial rows that fold_combine adds in chunk order.
+// Two launches therefore give the same bits.  Entries with w == 0, labels
+// outside [0, k), and in the dual mode rows with lab == lab2 fold nothing.
+constexpr int FOLD_CHUNK = 512;             // entries a fold block sums
+constexpr int FOLD_COLS = 8;                // columns a fold thread sums
+constexpr int FOLD_SPAN = NT * FOLD_COLS;   // columns a fold block sums
+
+template <bool DUAL>
+__device__ __forceinline__ int fold_bucket(const int* __restrict__ lab,
+                                           const int* __restrict__ lab2,
+                                           const float* __restrict__ w, int e, int k) {
+  const int row = DUAL ? e >> 1 : e;
+  if (w[row] == 0.f) return -1;
+  int b = lab[row];
+  if constexpr (DUAL) {
+    const int p = lab2[row];
+    if (b == p) return -1;
+    if (e & 1) b = p;
+  }
+  return (b >= 0 && b < k) ? b : -1;
+}
+
+template <bool DUAL>
+__global__ void __launch_bounds__(NT)
+fold_hist_kernel(const int* __restrict__ lab, const int* __restrict__ lab2,
+                 const float* __restrict__ w, int entries, int k, int chunk_entries,
+                 int* __restrict__ hist) {
+  const int e = (int)(blockIdx.x * (size_t)NT + threadIdx.x);
+  if (e >= entries) return;
+  const int b = fold_bucket<DUAL>(lab, lab2, w, e, k);
+  if (b >= 0) atomicAdd(hist + (size_t)(e / chunk_entries) * k + b, 1);
+}
+
+__global__ void __launch_bounds__(NT)
+fold_chunk_scan_kernel(int* __restrict__ hist, int chunks, int k, int* __restrict__ total) {
+  const int b = (int)(blockIdx.x * (size_t)NT + threadIdx.x);
+  if (b >= k) return;
+  int run = 0;
+  for (int c = 0; c < chunks; ++c) {
+    int* p = hist + (size_t)c * k + b;
+    const int v = *p;
+    *p = run;
+    run += v;
+  }
+  total[b] = run;
+}
+
+__device__ __forceinline__ int fold_blocks(int entries) {
+  return max(1, (entries + FOLD_CHUNK - 1) / FOLD_CHUNK);
+}
+
+constexpr int SCAN_NT = 1024;
+
+__global__ void __launch_bounds__(SCAN_NT)
+fold_bucket_scan_kernel(const int* __restrict__ total, int k, int* __restrict__ start,
+                        int* __restrict__ cstart, int* __restrict__ pstart) {
+  __shared__ int s[3][SCAN_NT];
+  const int t = threadIdx.x;
+  const int per = (k + SCAN_NT - 1) / SCAN_NT;
+  const int b0 = min(k, t * per), b1 = min(k, b0 + per);
+  int a = 0, c = 0, p = 0;
+  for (int b = b0; b < b1; ++b) {
+    const int m = fold_blocks(total[b]);
+    a += total[b];
+    c += m;
+    p += m > 1 ? m : 0;
+  }
+  s[0][t] = a;
+  s[1][t] = c;
+  s[2][t] = p;
+  __syncthreads();
+  for (int off = 1; off < SCAN_NT; off <<= 1) {
+    int va = 0, vc = 0, vp = 0;
+    if (t >= off) {
+      va = s[0][t - off];
+      vc = s[1][t - off];
+      vp = s[2][t - off];
+    }
+    __syncthreads();
+    s[0][t] += va;
+    s[1][t] += vc;
+    s[2][t] += vp;
+    __syncthreads();
+  }
+  a = s[0][t] - a;
+  c = s[1][t] - c;
+  p = s[2][t] - p;
+  for (int b = b0; b < b1; ++b) {
+    const int m = fold_blocks(total[b]);
+    start[b] = a;
+    cstart[b] = c;
+    pstart[b] = p;
+    a += total[b];
+    c += m;
+    p += m > 1 ? m : 0;
+  }
+  if (t == SCAN_NT - 1) {
+    start[k] = s[0][t];
+    cstart[k] = s[1][t];
+    pstart[k] = s[2][t];
+  }
+}
+
+template <bool DUAL>
+__global__ void __launch_bounds__(NT)
+fold_scatter_kernel(const int* __restrict__ lab, const int* __restrict__ lab2,
+                    const float* __restrict__ w, int entries, int k, int chunk_entries,
+                    int chunks, const int* __restrict__ start, int* hist,
+                    int* __restrict__ order) {
+  const int c = (int)((blockIdx.x * (size_t)NT + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (c >= chunks) return;
+  const int e_end = (int)min((long long)entries, (long long)(c + 1) * chunk_entries);
+  for (int e0 = c * chunk_entries; e0 < e_end; e0 += 32) {
+    const int e = e0 + lane;
+    const int b = e < e_end ? fold_bucket<DUAL>(lab, lab2, w, e, k) : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, b);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    volatile int* cur = hist + (size_t)c * k + (b >= 0 ? b : 0);
+    int base = 0;
+    if (b >= 0) {
+      base = *cur;
+      order[start[b] + base + rank] = e;
+    }
+    __syncwarp();
+    if (b >= 0 && rank == 0) *cur = base + __popc(peers);
+    __syncwarp();
+  }
+}
+
+// FOLD_COLS columns of row xr for this thread, as f32 (0 past d): with VEC
+// eight consecutive columns from one 16-byte (bf16) or two (f32) loads,
+// else columns strided by NT.
+template <class XT, bool VEC>
+__device__ __forceinline__ void fold_load(const XT* __restrict__ xr, int colb, int d,
+                                          float* v) {
+  if constexpr (VEC) {
+    const int c0 = colb + threadIdx.x * FOLD_COLS;
+    if (c0 >= d) {
+#pragma unroll
+      for (int j = 0; j < FOLD_COLS; ++j) v[j] = 0.f;
+    } else if constexpr (std::is_same<XT, bf16>::value) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(xr + c0));
+      const bf16* h = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+      for (int j = 0; j < FOLD_COLS; ++j) v[j] = __bfloat162float(h[j]);
+    } else {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(xr + c0));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(xr + c0) + 1);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < FOLD_COLS; ++j) {
+      const int c = colb + threadIdx.x + NT * j;
+      v[j] = c < d ? to_f32(xr[c]) : 0.f;
+    }
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void fold_store(float* __restrict__ dst, int colb, int d,
+                                           const float* acc) {
+  if constexpr (VEC) {
+    const int c0 = colb + threadIdx.x * FOLD_COLS;
+    if (c0 < d) {
+      reinterpret_cast<float4*>(dst + c0)[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      reinterpret_cast<float4*>(dst + c0)[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < FOLD_COLS; ++j) {
+      const int c = colb + threadIdx.x + NT * j;
+      if (c < d) dst[c] = acc[j];
+    }
+  }
+}
+
+template <class XT, class CT, bool VEC, bool DUAL>
+__global__ void __launch_bounds__(NT)
+fold_sum_kernel(const XT* __restrict__ x, const float* __restrict__ w,
+                const int* __restrict__ order, const int* __restrict__ start,
+                const int* __restrict__ cstart, const int* __restrict__ pstart, int d,
+                int k, float* __restrict__ sums, float* __restrict__ counts,
+                float* __restrict__ part, float* __restrict__ part_counts) {
+  const int g = blockIdx.x;
+  if (g >= cstart[k]) return;
+  int lo = 0, hi = k - 1;          // the bucket: the last b with cstart[b] <= g
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (cstart[mid] <= g) lo = mid; else hi = mid - 1;
+  }
+  const int b = lo, j = g - cstart[b];
+  const bool split = cstart[b + 1] - cstart[b] > 1;
+  const int e_beg = start[b] + j * FOLD_CHUNK;
+  const int e_end = min(start[b + 1], e_beg + FOLD_CHUNK);
+  const int colb = blockIdx.y * FOLD_SPAN;
+  float acc[FOLD_COLS];
+#pragma unroll
+  for (int c = 0; c < FOLD_COLS; ++c) acc[c] = 0.f;
+  float cnt = 0.f;
+  for (int e = e_beg; e < e_end; ++e) {
+    const int id = order[e];
+    const int row = DUAL ? id >> 1 : id;
+    const float wr = (DUAL && (id & 1)) ? -w[row] : w[row];
+    float v[FOLD_COLS];
+    fold_load<XT, VEC>(x + (size_t)row * d, colb, d, v);
+#pragma unroll
+    for (int c = 0; c < FOLD_COLS; ++c)
+      acc[c] = __fadd_rn(acc[c], __fmul_rn(wr, cd_round<CT>(v[c])));
+    cnt = __fadd_rn(cnt, wr);
+  }
+  const size_t dst_row = split ? (size_t)(pstart[b] + j) : (size_t)b;
+  fold_store<VEC>((split ? part : sums) + dst_row * d, colb, d, acc);
+  if (blockIdx.y == 0 && threadIdx.x == 0) (split ? part_counts : counts)[dst_row] = cnt;
+}
+
+__global__ void __launch_bounds__(NT)
+fold_combine_kernel(const int* __restrict__ cstart, const int* __restrict__ pstart, int d,
+                    const float* __restrict__ part, const float* __restrict__ part_counts,
+                    float* __restrict__ sums, float* __restrict__ counts) {
+  const int b = blockIdx.x;
+  const int m = cstart[b + 1] - cstart[b];
+  if (m < 2) return;
+  const size_t p0 = pstart[b];
+  for (int c = threadIdx.x; c < d; c += NT) {
+    float acc = 0.f;
+    for (int j = 0; j < m; ++j) acc = __fadd_rn(acc, part[(p0 + j) * d + c]);
+    sums[(size_t)b * d + c] = acc;
+  }
+  if (threadIdx.x == 0) {
+    float acc = 0.f;
+    for (int j = 0; j < m; ++j) acc = __fadd_rn(acc, part_counts[p0 + j]);
+    counts[b] = acc;
+  }
+}
+
 template <class F>
 int set_smem(F kern, int bytes) {
   return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -542,14 +891,14 @@ int set_smem(F kern, int bytes) {
 
 template <class XT, class CT, bool VEC>
 int launch_pass(const void* x, const void* neg2c, const float* csq, const float* w, int n,
-                int d, int k, int with_update, int* labels, float* mind, float* sums,
+                int d, int k, int with_update, int raw, int* labels, float* mind, float* sums,
                 float* counts, cudaStream_t stream) {
   auto kern = lloyd_pass_kernel<XT, CT, VEC>;
   constexpr int smem = smem_bytes<CT>();
   if (int e = set_smem(kern, smem)) return e;
   kern<<<(n + BM - 1) / BM, NT, smem, stream>>>(
       static_cast<const XT*>(x), static_cast<const CT*>(neg2c), csq, w, n, d, k, with_update,
-      labels, mind, sums, counts);
+      raw, labels, mind, sums, counts);
   return (int)cudaGetLastError();
 }
 
@@ -591,6 +940,80 @@ int launch_acc(const void* x, const int* labels, const float* scores, const floa
   return (int)cudaGetLastError();
 }
 
+template <class XT, class CT, bool VEC>
+int launch_tiled_argmin(const void* x, const void* neg2c, const float* csq, int n, int d,
+                        int k, int k_tile, int raw, int with_second, float* part_best,
+                        int* part_idx, float* part_second, int* labels, float* mind,
+                        float* second, cudaStream_t stream) {
+  const int row_blocks = (n + BM - 1) / BM;
+  const int slices = (k + k_tile - 1) / k_tile;
+  constexpr int smem = smem_bytes<CT>();
+  const XT* xt = static_cast<const XT*>(x);
+  const CT* ct = static_cast<const CT*>(neg2c);
+  if (with_second) {
+    auto kern = tiled_score_kernel<XT, CT, VEC, true>;
+    if (int e = set_smem(kern, smem)) return e;
+    kern<<<row_blocks * slices, NT, smem, stream>>>(xt, ct, csq, n, d, k, k_tile, row_blocks,
+                                                    part_best, part_idx, part_second);
+  } else {
+    auto kern = tiled_score_kernel<XT, CT, VEC, false>;
+    if (int e = set_smem(kern, smem)) return e;
+    kern<<<row_blocks * slices, NT, smem, stream>>>(xt, ct, csq, n, d, k, k_tile, row_blocks,
+                                                    part_best, part_idx, nullptr);
+  }
+  if (int e = (int)cudaGetLastError()) return e;
+  const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
+  tiled_merge_kernel<XT><<<(unsigned)blocks, NT, 0, stream>>>(
+      xt, part_best, part_idx, with_second ? part_second : nullptr, n, d, slices, raw, labels,
+      mind, with_second ? second : nullptr);
+  return (int)cudaGetLastError();
+}
+
+template <class XT, class CT, bool VEC, bool DUAL>
+int launch_fold_dual(const void* x, const float* w, const int* lab, const int* lab2, int n,
+                     int d, int k, int chunk_entries, int chunks, int* hist, int* total,
+                     int* start, int* cstart, int* pstart, int* order, float* part,
+                     float* part_counts, float* sums, float* counts, cudaStream_t stream) {
+  const int entries = DUAL ? 2 * n : n;
+  const unsigned entry_blocks = (unsigned)(((size_t)entries + NT - 1) / NT);
+  fold_hist_kernel<DUAL><<<entry_blocks, NT, 0, stream>>>(lab, lab2, w, entries, k,
+                                                          chunk_entries, hist);
+  if (int e = (int)cudaGetLastError()) return e;
+  fold_chunk_scan_kernel<<<(k + NT - 1) / NT, NT, 0, stream>>>(hist, chunks, k, total);
+  if (int e = (int)cudaGetLastError()) return e;
+  fold_bucket_scan_kernel<<<1, SCAN_NT, 0, stream>>>(total, k, start, cstart, pstart);
+  if (int e = (int)cudaGetLastError()) return e;
+  fold_scatter_kernel<DUAL><<<(unsigned)(((size_t)chunks * 32 + NT - 1) / NT), NT, 0,
+                              stream>>>(lab, lab2, w, entries, k, chunk_entries, chunks,
+                                        start, hist, order);
+  if (int e = (int)cudaGetLastError()) return e;
+  // Every bucket has at least one fold block; the others come from entries.
+  const dim3 grid((unsigned)(k + (entries + FOLD_CHUNK - 1) / FOLD_CHUNK),
+                  (unsigned)((d + FOLD_SPAN - 1) / FOLD_SPAN));
+  fold_sum_kernel<XT, CT, VEC, DUAL><<<grid, NT, 0, stream>>>(
+      static_cast<const XT*>(x), w, order, start, cstart, pstart, d, k, sums, counts, part,
+      part_counts);
+  if (int e = (int)cudaGetLastError()) return e;
+  fold_combine_kernel<<<k, NT, 0, stream>>>(cstart, pstart, d, part, part_counts, sums,
+                                            counts);
+  return (int)cudaGetLastError();
+}
+
+template <class XT, class CT, bool VEC>
+int launch_fold(const void* x, const float* w, const int* lab, const int* lab2, int n, int d,
+                int k, int chunk_entries, int chunks, int* hist, int* total, int* start,
+                int* cstart, int* pstart, int* order, float* part, float* part_counts,
+                float* sums, float* counts, cudaStream_t stream) {
+  if (lab2 != nullptr)
+    return launch_fold_dual<XT, CT, VEC, true>(x, w, lab, lab2, n, d, k, chunk_entries,
+                                               chunks, hist, total, start, cstart, pstart,
+                                               order, part, part_counts, sums, counts,
+                                               stream);
+  return launch_fold_dual<XT, CT, VEC, false>(x, w, lab, lab2, n, d, k, chunk_entries, chunks,
+                                              hist, total, start, cstart, pstart, order, part,
+                                              part_counts, sums, counts, stream);
+}
+
 constexpr int kBadDtype = -1;
 
 }  // namespace
@@ -612,9 +1035,9 @@ constexpr int kBadDtype = -1;
 
 extern "C" int kml_lloyd_pass(const void* x, int x_dtype, const void* neg2c, int cd,
                               const float* csq, const float* w, int n, int d, int k,
-                              int with_update, int vec, int* labels, float* mind,
+                              int with_update, int raw, int vec, int* labels, float* mind,
                               float* sums, float* counts, void* stream) {
-  KML_DISPATCH(launch_pass, x, neg2c, csq, w, n, d, k, with_update, labels, mind, sums,
+  KML_DISPATCH(launch_pass, x, neg2c, csq, w, n, d, k, with_update, raw, labels, mind, sums,
                counts, static_cast<cudaStream_t>(stream));
 }
 
@@ -646,4 +1069,26 @@ extern "C" int kml_lloyd_hamerly(const void* x, int x_dtype, const void* neg2c, 
                                  int* n_rec, int* group_counts, void* stream) {
   KML_DISPATCH(launch_hamerly, x, neg2c, csq, w, prev, need, sb_in, slb_in, n, d, k, labels,
                sb, slb, dsums, dcounts, n_rec, group_counts, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int kml_tiled_argmin(const void* x, int x_dtype, const void* neg2c, int cd,
+                                const float* csq, int n, int d, int k, int k_tile, int raw,
+                                int with_second, int vec, float* part_best, int* part_idx,
+                                float* part_second, int* labels, float* mind, float* second,
+                                void* stream) {
+  KML_DISPATCH(launch_tiled_argmin, x, neg2c, csq, n, d, k, k_tile, raw, with_second,
+               part_best, part_idx, part_second, labels, mind, second,
+               static_cast<cudaStream_t>(stream));
+}
+
+// lab2 == nullptr: the single fold.  The wrapper zeroes hist (chunks x k)
+// and sizes order (n or 2n entries) and part (rows of split buckets).
+extern "C" int kml_tiled_fold(const void* x, int x_dtype, int cd, const float* w,
+                              const int* lab, const int* lab2, int n, int d, int k,
+                              int chunk_entries, int chunks, int vec, int* hist, int* total,
+                              int* start, int* cstart, int* pstart, int* order, float* part,
+                              float* part_counts, float* sums, float* counts, void* stream) {
+  KML_DISPATCH(launch_fold, x, w, lab, lab2, n, d, k, chunk_entries, chunks, hist, total,
+               start, cstart, pstart, order, part, part_counts, sums, counts,
+               static_cast<cudaStream_t>(stream));
 }

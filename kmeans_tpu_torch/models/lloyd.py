@@ -44,6 +44,7 @@ from kmeans_tpu_torch.ops.hamerly import (hamerly_pass,
                                           resolve_hamerly_backend, row_norms)
 from kmeans_tpu_torch.ops.lloyd import (lloyd_pass, resolve_backend,
                                         resolve_update, weights_exact)
+from kmeans_tpu_torch.ops.plan import shape_plan
 from kmeans_tpu_torch.ops.update import apply_update, reseed_empty_farthest
 
 __all__ = ["KMeansState", "fit_lloyd", "fit_plan", "KMeans",
@@ -257,13 +258,15 @@ def fit_lloyd(
 def fit_plan(x, k: int, *, config: Optional[KMeansConfig] = None,
              weights=None, device=None) -> dict:
     """The execution plan a :func:`fit_lloyd` call with these arguments
-    runs: ``{"update", "backend", "delta_backend", "adaptive"}``, the
-    resolved flavour, the classic sweep's route, the incremental sweeps'
-    route (``"cuda"``/``"plain"``, or None for a dense fit) and whether the
-    ``"auto"`` policy's runtime delta ↔ yinyang loop engages (``update``
-    then stays ``"delta"``, its starting flavour).  Raises where
-    :func:`fit_lloyd` would.  ``x`` needs only ``shape`` and ``dtype``;
-    nothing is moved to the device."""
+    runs: ``{"update", "backend", "delta_backend", "adaptive", "mode",
+    "k_tile"}``, the resolved flavour, the classic sweep's route, the
+    incremental sweeps' route (``"cuda"``/``"plain"``, or None for a dense
+    fit), whether the ``"auto"`` policy's runtime delta ↔ yinyang loop
+    engages (``update`` then stays ``"delta"``, its starting flavour), and
+    the planner's mode and slice width for the flavour's sweeps
+    (:func:`kmeans_tpu_torch.ops.plan.shape_plan`; both routes run them).
+    Raises where :func:`fit_lloyd` would.  ``x`` needs only ``shape`` and
+    ``dtype``; nothing is moved to the device."""
     cfg = (config or KMeansConfig(k=k)).validate()
     dev = resolve_device(device)
     x_dtype = as_dtype(x.dtype)
@@ -281,8 +284,16 @@ def fit_plan(x, k: int, *, config: Optional[KMeansConfig] = None,
         _, delta_backend = resolver(cfg.backend, x, k, weights=weights,
                                     compute_dtype=cfg.compute_dtype,
                                     device=dev)
+    kind = update if update in ("delta", "hamerly", "yinyang") else "classic"
+    groups = None
+    if kind == "yinyang":
+        groups = (cfg.yinyang_groups if cfg.yinyang_groups is not None
+                  else _yy.default_groups(k))
+    shape = shape_plan(kind, x, k, compute_dtype=cfg.compute_dtype,
+                       groups=groups, device=dev)
     return {"update": update, "backend": backend,
-            "delta_backend": delta_backend, "adaptive": adaptive}
+            "delta_backend": delta_backend, "adaptive": adaptive,
+            "mode": shape.mode, "k_tile": shape.k_tile}
 
 
 def restart_generator(seed: int, i: int, device) -> torch.Generator:

@@ -31,9 +31,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: argtypes of each C entry point: every pointer and the stream as c_void_p.
 _SIGNATURES = {
-    # x, x_dtype, neg2c, cd, csq, w, n, d, k, with_update, vec,
+    # x, x_dtype, neg2c, cd, csq, w, n, d, k, with_update, raw, vec,
     # labels, mind, sums, counts, stream
-    "kml_lloyd_pass": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+    "kml_lloyd_pass": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                        _P, _P, _P, _P, _P],
     # x, x_dtype, neg2c, cd, csq, w, prev, n, d, k, with_mind, vec,
     # labels, mind, dsums, dcounts, n_changed, group_counts, stream
@@ -45,6 +45,15 @@ _SIGNATURES = {
     # vec, labels, sb, slb, dsums, dcounts, n_rec, group_counts, stream
     "kml_lloyd_hamerly": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                           _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    # x, x_dtype, neg2c, cd, csq, n, d, k, k_tile, raw, with_second, vec,
+    # part_best, part_idx, part_second, labels, mind, second, stream
+    "kml_tiled_argmin": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P, _P],
+    # x, x_dtype, cd, w, lab, lab2, n, d, k, chunk_entries, chunks, vec,
+    # hist, total, start, cstart, pstart, order, part, part_counts, sums,
+    # counts, stream
+    "kml_tiled_fold": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 

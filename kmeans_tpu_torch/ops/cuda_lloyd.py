@@ -1,9 +1,9 @@
-"""The four Lloyd sweep kernels: CUDA wrappers, plain versions and the plan.
+"""The Lloyd sweep kernels: CUDA wrappers and their plain versions.
 
-Counterpart of ``kmeans_tpu/ops/pallas_lloyd.py``.  Each TPU kernel of the
-full-batch delta and bound-pruned paths has a hand-written Hopper kernel in
-``kmeans_tpu_torch/csrc/lloyd.cu`` (built by :mod:`kmeans_tpu_torch.ops._build`)
-and, beside it here, a plain PyTorch version of the same function:
+Counterpart of ``kmeans_tpu/ops/pallas_lloyd.py``.  Each TPU kernel has a
+hand-written Hopper kernel in ``kmeans_tpu_torch/csrc/lloyd.cu`` (built by
+:mod:`kmeans_tpu_torch.ops._build`) and, beside it here, a plain PyTorch
+version of the same function:
 
 ======================= ======================== ============================
 wrapper                 replaces                 plain version
@@ -12,7 +12,15 @@ wrapper                 replaces                 plain version
 ``lloyd_delta_cuda``    ``lloyd_delta_pallas``   ``lloyd_delta_plain``
 ``accumulate_cuda``     ``accumulate_pallas``    ``accumulate_plain``
 ``lloyd_hamerly_cuda``  ``lloyd_hamerly_pallas`` ``lloyd_hamerly_plain``
+``tiled_argmin_cuda``   ``_tiled_argmin``        ``tiled_argmin_plain``
+``tiled_fold_cuda``     ``_tiled_fold``          ``tiled_fold_plain``
 ======================= ======================== ============================
+
+The four sweep wrappers take ``k_tile``: None runs their own kernel (K1–K4,
+"untiled"); a multiple of 128 runs the k-tiled pair instead, K5 (the
+streamed argmin over ``k_tile``-wide centroid slices) and K6 (the bucketed
+fold), with the reference's tiled semantics.  The planner
+(:mod:`kmeans_tpu_torch.ops.plan`) chooses.
 
 A wrapper given a tensor on the CPU runs the plain version; given a CUDA
 tensor it launches its kernel or raises.  Each wrapper counts its launches in
@@ -23,23 +31,25 @@ Numerics shared by the kernels and the plain versions: scores are
 ``||c||² + x_cd·(−2·C_cd)ᵀ`` with f32 accumulation (bf16 operands multiply
 exactly; f32 products never use TF32), the argmin keeps the lowest index on
 a tie, ``||x||²`` is taken from x in its stored dtype, and the fold adds
-``w·float(cd(x))``.  The kernels fold with f32 atomics, so their sums differ
-from the plain versions' (and from run to run) at the f32 rounding level.
+``w·float(cd(x))``.  K1–K4 fold with f32 atomics, so their sums differ from
+the plain versions' (and from run to run) at the f32 rounding level; K6 sums
+each bucket in row order and gives the same bits every launch.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import functools
+from typing import Optional
 
 import torch
 
-from kmeans_tpu_torch.device import as_dtype
 from kmeans_tpu_torch.ops.distance import full_f32, resolve_cd, sq_norms
+from kmeans_tpu_torch.ops.plan import LANE
 
-__all__ = ["KernelPlan", "kernel_plan",
-           "lloyd_pass_cuda", "lloyd_delta_cuda", "accumulate_cuda",
-           "lloyd_hamerly_cuda", "lloyd_pass_plain", "lloyd_delta_plain",
-           "accumulate_plain", "lloyd_hamerly_plain",
+__all__ = ["lloyd_pass_cuda", "lloyd_delta_cuda", "accumulate_cuda",
+           "lloyd_hamerly_cuda", "tiled_argmin_cuda", "tiled_fold_cuda",
+           "lloyd_pass_plain", "lloyd_delta_plain", "accumulate_plain",
+           "lloyd_hamerly_plain", "tiled_argmin_plain", "tiled_fold_plain",
            "launch_counts", "reset_launch_counts",
            "DENSE_GROUP_ROWS", "DENSE_SLOTS", "HAMERLY_SLOTS"]
 
@@ -47,55 +57,18 @@ __all__ = ["KernelPlan", "kernel_plan",
 #: groups (their row tile) with more rows to compact than their slot budget
 #: ``mc`` -- 128 changed rows for the delta kernel, 256 needed rows for the
 #: Hamerly kernel.  Reported, never branched on: the CUDA kernels scatter
-#: every changed row and score every needed one.
+#: every changed row and score every needed one.  The k-tiled route reports
+#: 0, as the reference's does.
 DENSE_GROUP_ROWS = 1024
 DENSE_SLOTS = 128
 HAMERLY_SLOTS = 256
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-
-class KernelPlan(NamedTuple):
-    """A dispatch decision for the kernels at one input: ``mode`` is
-    ``"cuda"`` or ``"refuse"``; ``why`` says why, in one line."""
-
-    mode: str
-    why: str
-
-
-def kernel_plan(x, k: int, *, weights=None, weights_are_binary: bool = False,
-                compute_dtype=None, device=None) -> KernelPlan:
-    """Whether the CUDA kernels take this input (counterpart of
-    ``kernel_plan`` and the vetoes of ``ops/lloyd._pallas_plan``).
-
-    ``x`` needs only ``shape`` and ``dtype`` (a numpy array will do);
-    ``device`` overrides ``x.device``.  The kernels take any n, d and k
-    (ragged edges are masked, so nothing is tiled or padded), x in float32
-    or bfloat16, and a float32 or bfloat16 compute dtype.  They refuse off
-    the card, and for fractional weights in a non-f32 compute dtype: the
-    reference's exactness policy (:func:`kmeans_tpu_torch.ops.lloyd.
-    weights_exact`) that every fit resolves its update flavour by."""
-    from kmeans_tpu_torch.ops.lloyd import weights_exact
-
-    x_dtype = as_dtype(x.dtype)
-    if x_dtype == torch.float64:
-        x_dtype = torch.float32
-    cd = resolve_cd(compute_dtype, x_dtype)
-    dev = torch.device(device) if device is not None else x.device
-    if not weights_exact(cd, weights=weights,
-                         weights_are_binary=weights_are_binary):
-        return KernelPlan("refuse",
-                          "fractional weights in a non-f32 compute dtype")
-    if dev.type != "cuda":
-        return KernelPlan("refuse", f"not running on a CUDA device ({dev})")
-    if x_dtype not in _DTYPE_CODES or cd not in _DTYPE_CODES:
-        return KernelPlan(
-            "refuse", f"x dtype {x_dtype} / compute dtype {cd}: the kernels "
-            "take float32 or bfloat16")
-    n, d = x.shape
-    if n < 1 or n * max(d, k) >= 2 ** 62 or max(n, d, k) >= 2 ** 31:
-        return KernelPlan("refuse", f"shape n={n}, d={d}, k={k} out of range")
-    return KernelPlan("cuda", "any n, d, k: ragged edges are masked")
+#: K6's entries a fold block sums (``FOLD_CHUNK`` in ``csrc/lloyd.cu``) and
+#: the most (chunk, label) counts its histogram may hold.
+_FOLD_CHUNK = 512
+_FOLD_HIST_CELLS = 1 << 24
 
 
 def _counted(fn):
@@ -123,19 +96,29 @@ def _weights(weights, n: int, device) -> torch.Tensor:
     return weights.to(device=device, dtype=torch.float32).contiguous()
 
 
-def _score_operands(centroids: torch.Tensor, cd: torch.dtype):
+def _score_operands(centroids: torch.Tensor, cd: torch.dtype,
+                    valid_cols: Optional[torch.Tensor] = None):
     """``(−2·C in cd, ||C||² in f32)`` — the TPU's ``_neg2_ct`` convention.
     The ×(−2) is an exponent shift on the cast values, so every score is
-    exactly ``csq − 2·x·c``."""
-    return ((centroids.to(cd) * -2).contiguous(),
-            sq_norms(centroids).contiguous())
+    exactly ``csq − 2·x·c``.  ``valid_cols`` (k,) bool, the sharded callers'
+    hook, gives the False columns a +inf ``csq``: they never win."""
+    csq = sq_norms(centroids)
+    if valid_cols is not None:
+        csq = torch.where(valid_cols.to(csq.device), csq, torch.inf)
+    return (centroids.to(cd) * -2).contiguous(), csq.contiguous()
+
+
+def _check_k_tile(k_tile: int) -> None:
+    if k_tile < LANE or k_tile % LANE:
+        raise ValueError(f"k_tile must be a positive multiple of {LANE}; "
+                         f"got {k_tile}")
 
 
 def _check_cuda_inputs(name: str, x: torch.Tensor, k: int, cd: torch.dtype,
                        w: torch.Tensor, neg2c: Optional[torch.Tensor],
                        *vectors: torch.Tensor) -> None:
-    """Raise on anything the kernels do not take: ``w`` and each of
-    ``vectors`` must be (n,), ``neg2c`` (k, d)."""
+    """Raise on anything the kernels do not take: ``w`` (unless None) and
+    each of ``vectors`` must be (n,), ``neg2c`` (k, d)."""
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous (n, d) tensor")
     if x.dtype not in _DTYPE_CODES or cd not in _DTYPE_CODES:
@@ -147,11 +130,12 @@ def _check_cuda_inputs(name: str, x: torch.Tensor, k: int, cd: torch.dtype,
     if neg2c is not None and tuple(neg2c.shape) != (k, d):
         raise ValueError(f"{name}: centroids shape {tuple(neg2c.shape)} != "
                          f"{(k, d)}")
-    for v in (w, *vectors):
+    rows = [v for v in (w, *vectors) if v is not None]
+    for v in rows:
         if tuple(v.shape) != (n,):
             raise ValueError(f"{name}: per-row operand shape "
                              f"{tuple(v.shape)} != ({n},)")
-    for v in (w, *vectors, *([] if neg2c is None else [neg2c])):
+    for v in (*rows, *([] if neg2c is None else [neg2c])):
         if v.device != x.device or not v.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous and on "
                              f"{x.device}")
@@ -193,13 +177,14 @@ def _chunks(n: int, chunk_size: int):
         yield slice(s, min(n, s + chunk_size))
 
 
-def _argmin_plain(x, centroids, cd, chunk_size, rows=None, with_second=False):
+def _argmin_plain(x, centroids, cd, chunk_size, rows=None, with_second=False,
+                  valid_cols=None):
     """Per-row ``(lowest-index argmin, min score)`` of ``csq + x·(−2C)ᵀ`` over
     the rows of x, or over ``x[rows]`` (gathered chunk by chunk); with
     ``with_second`` also the least score over the other columns (the
     reference's ``_second_min_rows``: an exact duplicate of the winning
     centroid makes it equal the min)."""
-    neg2c, csq = _score_operands(centroids, cd)
+    neg2c, csq = _score_operands(centroids, cd, valid_cols)
     neg2c_t = neg2c.float().T
     n = x.shape[0] if rows is None else rows.numel()
     labels = torch.empty(n, dtype=torch.int32, device=x.device)
@@ -255,8 +240,140 @@ def _signed_fold_plain(x, k, labels, prev, changed, w, cd, chunk_size):
     return dsums, dcounts
 
 
+def tiled_argmin_plain(x, neg2c, csq, *, k_tile, raw_scores=False,
+                       with_second=False, chunk_size=4096):
+    """Plain version of :func:`tiled_argmin_cuda`: each chunk of rows is
+    scored one ``k_tile``-wide slice at a time, and the slices are merged
+    online in increasing order with strict ``<`` (the lowest global index
+    wins a tie) and, with ``with_second``, the second-min lattice
+    ``min(s_a, s_b, max(b_a, b_b))``."""
+    _check_k_tile(k_tile)
+    n, k = x.shape[0], neg2c.shape[0]
+    cd = neg2c.dtype
+    neg2c_f = neg2c.float()
+    csq = csq.to(device=x.device, dtype=torch.float32)
+    labels = torch.empty(n, dtype=torch.int32, device=x.device)
+    best = torch.empty(n, dtype=torch.float32, device=x.device)
+    second = torch.empty_like(best) if with_second else None
+    with full_f32():
+        for s in _chunks(n, chunk_size):
+            xr = x[s].to(cd).float()
+            run = None
+            for lo in range(0, k, k_tile):
+                hi = min(k, lo + k_tile)
+                part = csq[lo:hi] + xr @ neg2c_f[lo:hi].T
+                idx = part.argmin(dim=1, keepdim=True)
+                b, i = part.gather(1, idx)[:, 0], idx[:, 0] + lo
+                sec = (part.scatter_(1, idx, torch.inf).amin(dim=1)
+                       if with_second else None)
+                if run is None:
+                    run = [b, i, sec]
+                    continue
+                if with_second:
+                    run[2] = torch.minimum(torch.minimum(run[2], sec),
+                                           torch.maximum(run[0], b))
+                take = b < run[0]
+                run[0] = torch.where(take, b, run[0])
+                run[1] = torch.where(take, i, run[1])
+            best[s], labels[s] = run[0], run[1].int()
+            if with_second:
+                second[s] = run[2]
+    if not raw_scores:
+        best = (best + _row_sq_plain(x, chunk_size)).clamp_min(0.0)
+    return (labels, best, second) if with_second else (labels, best)
+
+
+def tiled_fold_plain(x, weights, labels, labels2, k, *, compute_dtype=None,
+                     k_tile=None, chunk_size=4096):
+    """Plain version of :func:`tiled_fold_cuda`, folding one ``k_tile``-wide
+    slice of the sums at a time (all of k at once when None)."""
+    cd = resolve_cd(compute_dtype, x.dtype)
+    n, d = x.shape
+    dev = x.device
+    w = _weights(weights, n, dev)
+    lab = labels.to(device=dev, dtype=torch.int32)
+    lab2 = None if labels2 is None else labels2.to(device=dev,
+                                                   dtype=torch.int32)
+    keep = None if lab2 is None else lab != lab2
+    sums = torch.zeros(k, d, dtype=torch.float32, device=dev)
+    counts = torch.zeros(k, dtype=torch.float32, device=dev)
+    step = k if k_tile is None else k_tile
+    for lo in range(0, k, step):
+        sl = slice(lo, min(k, lo + step))
+        _fold_plain(sums[sl], counts[sl], x, lab - lo, w, cd, chunk_size,
+                    rows_mask=keep)
+        if lab2 is not None:
+            _fold_plain(sums[sl], counts[sl], x, lab2 - lo, w, cd,
+                        chunk_size, sign=-1.0, rows_mask=keep)
+    return sums, counts
+
+
+def _no_dense_tiles(x):
+    return torch.zeros((), dtype=torch.int32, device=x.device)
+
+
+def _tiled_pair(on_card: bool, k_tile: int, chunk_size: int = 4096):
+    """K5 and K6, or their plain versions, as the tiled sweeps call them."""
+    if on_card:
+        return tiled_argmin_cuda, tiled_fold_cuda
+    return (functools.partial(tiled_argmin_plain, chunk_size=chunk_size),
+            functools.partial(tiled_fold_plain, k_tile=k_tile,
+                              chunk_size=chunk_size))
+
+
+def _pass_tiled(on_card, x, centroids, w, cd, fold_dtype, with_update,
+                valid_cols, raw_scores, k_tile, chunk_size=4096):
+    """The classic sweep on the tiled route: K5, then K6's single fold."""
+    argmin, fold = _tiled_pair(on_card, k_tile, chunk_size)
+    k, d = centroids.shape
+    neg2c, csq = _score_operands(centroids, cd, valid_cols)
+    labels, min_d2 = argmin(x, neg2c, csq, k_tile=k_tile,
+                            raw_scores=raw_scores)
+    if with_update:
+        sums, counts = fold(x, w, labels, None, k, compute_dtype=fold_dtype)
+    else:
+        sums = torch.zeros(k, d, dtype=torch.float32, device=x.device)
+        counts = torch.zeros(k, dtype=torch.float32, device=x.device)
+    return labels, min_d2, sums, counts, (min_d2 * w).sum()
+
+
+def _delta_tiled(on_card, x, centroids, prev, w, cd, with_mind, k_tile,
+                 chunk_size=4096):
+    """The delta sweep on the tiled route: K5 scores every row, then K6's
+    dual fold over ``w·changed``."""
+    argmin, fold = _tiled_pair(on_card, k_tile, chunk_size)
+    neg2c, csq = _score_operands(centroids, cd)
+    labels, min_d2 = argmin(x, neg2c, csq, k_tile=k_tile,
+                            raw_scores=not with_mind)
+    changed = (labels != prev) & (w > 0)
+    dsums, dcounts = fold(x, w * changed, labels, prev, centroids.shape[0],
+                          compute_dtype=cd)
+    return (labels, min_d2, dsums, dcounts, (min_d2 * w).sum(),
+            changed.sum().int(), _no_dense_tiles(x))
+
+
+def _hamerly_tiled(on_card, x, centroids, prev, need, sb_in, slb_in, w, cd,
+                   k_tile, chunk_size=4096):
+    """The Hamerly sweep on the tiled route, as the reference's: K5 scores
+    every row (raw, with the second-min), ``need`` selects fresh or carried
+    (label, sb, slb), then K6's dual fold over the changed rows."""
+    argmin, fold = _tiled_pair(on_card, k_tile, chunk_size)
+    neg2c, csq = _score_operands(centroids, cd)
+    lab_f, m1, m2 = argmin(x, neg2c, csq, k_tile=k_tile, raw_scores=True,
+                           with_second=True)
+    labels = torch.where(need, lab_f, prev)
+    sb = torch.where(need, m1, sb_in)
+    slb = torch.where(need, m2, slb_in)
+    changed = (labels != prev) & (w > 0)
+    dsums, dcounts = fold(x, w * changed, labels, prev, centroids.shape[0],
+                          compute_dtype=cd)
+    return (labels, sb, slb, dsums, dcounts, need.sum().int(),
+            _no_dense_tiles(x))
+
+
 def lloyd_pass_plain(x, centroids, *, weights=None, compute_dtype=None,
-                     with_update=True, update="matmul", chunk_size=4096):
+                     with_update=True, update="matmul", chunk_size=4096,
+                     valid_cols=None, raw_scores=False, k_tile=None):
     """Plain version of :func:`lloyd_pass_cuda` (and of the reference's XLA
     route): ``update="segment"`` folds ``float(x)`` instead of the cd-cast
     row, as ``jax.ops.segment_sum`` over f32 rows does there."""
@@ -264,12 +381,17 @@ def lloyd_pass_plain(x, centroids, *, weights=None, compute_dtype=None,
     n, d = x.shape
     k = centroids.shape[0]
     w = _weights(weights, n, x.device)
-    labels, part_min = _argmin_plain(x, centroids, cd, chunk_size)
-    min_d2 = (part_min + _row_sq_plain(x, chunk_size)).clamp_min(0.0)
+    fold = cd if update == "matmul" else torch.float32
+    if k_tile is not None:
+        return _pass_tiled(False, x, centroids, w, cd, fold, with_update,
+                           valid_cols, raw_scores, k_tile, chunk_size)
+    labels, part_min = _argmin_plain(x, centroids, cd, chunk_size,
+                                     valid_cols=valid_cols)
+    min_d2 = (part_min if raw_scores else
+              (part_min + _row_sq_plain(x, chunk_size)).clamp_min(0.0))
     sums = torch.zeros(k, d, dtype=torch.float32, device=x.device)
     counts = torch.zeros(k, dtype=torch.float32, device=x.device)
     if with_update:
-        fold = cd if update == "matmul" else torch.float32
         _fold_plain(sums, counts, x, labels, w, fold, chunk_size)
     return labels, min_d2, sums, counts, (min_d2 * w).sum()
 
@@ -284,13 +406,17 @@ def _dense_tiles(rows: torch.Tensor, slots: int = DENSE_SLOTS) -> torch.Tensor:
 
 
 def lloyd_delta_plain(x, centroids, labels_prev, *, weights=None,
-                      compute_dtype=None, with_mind=True, chunk_size=4096):
+                      compute_dtype=None, with_mind=True, chunk_size=4096,
+                      k_tile=None):
     """Plain version of :func:`lloyd_delta_cuda`."""
     cd = resolve_cd(compute_dtype, x.dtype)
     n = x.shape[0]
     k = centroids.shape[0]
     w = _weights(weights, n, x.device)
     prev = labels_prev.to(device=x.device, dtype=torch.int32)
+    if k_tile is not None:
+        return _delta_tiled(False, x, centroids, prev, w, cd, with_mind,
+                            k_tile, chunk_size)
     labels, part_min = _argmin_plain(x, centroids, cd, chunk_size)
     changed = (labels != prev) & (w > 0)
     dsums, dcounts = _signed_fold_plain(x, k, labels, prev, changed, w, cd,
@@ -301,26 +427,37 @@ def lloyd_delta_plain(x, centroids, labels_prev, *, weights=None,
             changed.sum().int(), _dense_tiles(changed))
 
 
+def _hamerly_inputs(x, labels_prev, need, sb_in, slb_in):
+    dev = x.device
+    return (labels_prev.to(device=dev, dtype=torch.int32).contiguous(),
+            need.to(device=dev, dtype=torch.bool).contiguous(),
+            sb_in.to(device=dev, dtype=torch.float32).contiguous(),
+            slb_in.to(device=dev, dtype=torch.float32).contiguous())
+
+
 def lloyd_hamerly_plain(x, centroids, labels_prev, need, sb_in, slb_in, *,
-                        weights=None, compute_dtype=None, chunk_size=4096):
+                        weights=None, compute_dtype=None, chunk_size=4096,
+                        k_tile=None):
     """Plain version of :func:`lloyd_hamerly_cuda`: the rows flagged
     ``need`` are gathered and scored; every other row keeps ``labels_prev``,
     ``sb_in`` and ``slb_in``."""
     cd = resolve_cd(compute_dtype, x.dtype)
     n = x.shape[0]
     k = centroids.shape[0]
-    dev = x.device
-    w = _weights(weights, n, dev)
-    prev = labels_prev.to(device=dev, dtype=torch.int32)
-    need = need.to(device=dev, dtype=torch.bool)
+    w = _weights(weights, n, x.device)
+    prev, need, sb_in, slb_in = _hamerly_inputs(x, labels_prev, need, sb_in,
+                                                slb_in)
+    if k_tile is not None:
+        return _hamerly_tiled(False, x, centroids, prev, need, sb_in, slb_in,
+                              w, cd, k_tile, chunk_size)
     rows = need.nonzero()[:, 0]
     lab_r, best_r, second_r = _argmin_plain(x, centroids, cd, chunk_size,
                                             rows=rows, with_second=True)
     labels = prev.clone()
     labels[rows] = lab_r
-    sb = sb_in.to(device=dev, dtype=torch.float32).clone()
+    sb = sb_in.clone()
     sb[rows] = best_r
-    slb = slb_in.to(device=dev, dtype=torch.float32).clone()
+    slb = slb_in.clone()
     slb[rows] = second_r
     changed = need & (labels != prev) & (w > 0)
     dsums, dcounts = _signed_fold_plain(x, k, labels, prev, changed, w, cd,
@@ -330,17 +467,19 @@ def lloyd_hamerly_plain(x, centroids, labels_prev, need, sb_in, slb_in, *,
 
 
 def accumulate_plain(x, labels, k, *, scores=None, weights=None,
-                     compute_dtype=None, chunk_size=4096):
+                     compute_dtype=None, chunk_size=4096, k_tile=None):
     """Plain version of :func:`accumulate_cuda`."""
-    cd = resolve_cd(compute_dtype, x.dtype)
-    n, d = x.shape
-    w = _weights(weights, n, x.device)
-    sums = torch.zeros(k, d, dtype=torch.float32, device=x.device)
-    counts = torch.zeros(k, dtype=torch.float32, device=x.device)
-    _fold_plain(sums, counts, x, labels.to(x.device), w, cd, chunk_size)
+    w = _weights(weights, x.shape[0], x.device)
+    sums, counts = tiled_fold_plain(x, w, labels, None, k,
+                                    compute_dtype=compute_dtype,
+                                    k_tile=k_tile, chunk_size=chunk_size)
+    return sums, counts, _acc_min_d2(x, scores, chunk_size)
+
+
+def _acc_min_d2(x, scores, chunk_size=4096):
+    """``max(scores + ||x||², 0)``: the labeled fold's min_d2."""
     g = 0.0 if scores is None else scores.to(x.device, torch.float32)
-    min_d2 = (g + _row_sq_plain(x, chunk_size)).clamp_min(0.0)
-    return sums, counts, min_d2
+    return (g + _row_sq_plain(x, chunk_size)).clamp_min(0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -349,21 +488,31 @@ def accumulate_plain(x, labels, k, *, scores=None, weights=None,
 
 @_counted
 def lloyd_pass_cuda(x, centroids, *, weights=None, compute_dtype=None,
-                    with_update=True):
+                    with_update=True, valid_cols=None, raw_scores=False,
+                    k_tile=None):
     """K1: the classic fused sweep (replaces ``lloyd_pass_pallas``).
 
     Returns ``(labels int32 [n], min_d2 f32 [n], sums f32 [k, d], counts
     f32 [k], inertia f32 scalar)``; ``with_update=False`` leaves sums and
-    counts zero."""
+    counts zero.  The sharded callers' hooks: ``valid_cols`` (k,) bool
+    masks the False columns out of the argmin, and ``raw_scores`` returns
+    the raw min score ``min(||c||² − 2x·c)`` in the min_d2 slot (the
+    inertia is then meaningless).  ``k_tile`` runs K5 and K6's single fold
+    instead of K1."""
     if x.device.type == "cpu":
         return lloyd_pass_plain(x, centroids, weights=weights,
                                 compute_dtype=compute_dtype,
-                                with_update=with_update)
+                                with_update=with_update,
+                                valid_cols=valid_cols, raw_scores=raw_scores,
+                                k_tile=k_tile)
     cd = resolve_cd(compute_dtype, x.dtype)
     n, d = x.shape
     k = centroids.shape[0]
     w = _weights(weights, n, x.device)
-    neg2c, csq = _score_operands(centroids, cd)
+    if k_tile is not None:
+        return _pass_tiled(True, x, centroids, w, cd, cd, with_update,
+                           valid_cols, raw_scores, k_tile)
+    neg2c, csq = _score_operands(centroids, cd, valid_cols)
     _check_cuda_inputs("lloyd_pass_cuda", x, k, cd, w, neg2c)
     dev = x.device
     labels = torch.empty(n, dtype=torch.int32, device=dev)
@@ -373,14 +522,15 @@ def lloyd_pass_cuda(x, centroids, *, weights=None, compute_dtype=None,
     _launch(lloyd_pass_cuda, "kml_lloyd_pass", x,
             x.data_ptr(), _DTYPE_CODES[x.dtype], neg2c.data_ptr(),
             _DTYPE_CODES[cd], csq.data_ptr(), w.data_ptr(), n, d, k,
-            int(with_update), _vec_ok(d, cd, x, neg2c), labels.data_ptr(),
-            min_d2.data_ptr(), sums.data_ptr(), counts.data_ptr())
+            int(with_update), int(raw_scores), _vec_ok(d, cd, x, neg2c),
+            labels.data_ptr(), min_d2.data_ptr(), sums.data_ptr(),
+            counts.data_ptr())
     return labels, min_d2, sums, counts, (min_d2 * w).sum()
 
 
 @_counted
 def lloyd_delta_cuda(x, centroids, labels_prev, *, weights=None,
-                     compute_dtype=None, with_mind=True):
+                     compute_dtype=None, with_mind=True, k_tile=None):
     """K2: the incremental sweep (replaces ``lloyd_delta_pallas``).
 
     Returns ``(labels, min_d2, delta_sums, delta_counts, inertia,
@@ -388,16 +538,21 @@ def lloyd_delta_cuda(x, centroids, labels_prev, *, weights=None,
     from ``labels_prev`` and its weight is positive; it adds ``+w`` at the
     new label and ``−w`` at the old one when ``0 <= prev < k`` (so a −1
     sentinel makes the delta the full reduction).  ``with_mind=False``
-    returns the raw score ``min(||c||² − 2x·c)`` in the min_d2 slot."""
+    returns the raw score ``min(||c||² − 2x·c)`` in the min_d2 slot.
+    ``k_tile`` runs K5 and K6's dual fold instead of K2 (``dense_tiles``
+    is then 0)."""
     if x.device.type == "cpu":
         return lloyd_delta_plain(x, centroids, labels_prev, weights=weights,
                                  compute_dtype=compute_dtype,
-                                 with_mind=with_mind)
+                                 with_mind=with_mind, k_tile=k_tile)
     cd = resolve_cd(compute_dtype, x.dtype)
     n, d = x.shape
     k = centroids.shape[0]
     w = _weights(weights, n, x.device)
     prev = labels_prev.to(device=x.device, dtype=torch.int32).contiguous()
+    if k_tile is not None:
+        return _delta_tiled(True, x, centroids, prev, w, cd, with_mind,
+                            k_tile)
     neg2c, csq = _score_operands(centroids, cd)
     _check_cuda_inputs("lloyd_delta_cuda", x, k, cd, w, neg2c, prev)
     dev = x.device
@@ -421,19 +576,24 @@ def lloyd_delta_cuda(x, centroids, labels_prev, *, weights=None,
 
 @_counted
 def accumulate_cuda(x, labels, k, *, scores=None, weights=None,
-                    compute_dtype=None):
+                    compute_dtype=None, k_tile=None):
     """K3: the labeled fold (replaces ``accumulate_pallas``).
 
     Returns ``(sums f32 [k, d], counts f32 [k], min_d2 f32 [n])`` with
     ``min_d2 = max(scores + ||x||², 0)``; labels outside ``[0, k)``
-    contribute nothing."""
+    contribute nothing.  ``k_tile`` runs K6's single fold instead of K3
+    (its min_d2 then comes from a PyTorch epilogue, as the reference's
+    tiled route finishes it in XLA)."""
     if x.device.type == "cpu":
         return accumulate_plain(x, labels, k, scores=scores, weights=weights,
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype, k_tile=k_tile)
     cd = resolve_cd(compute_dtype, x.dtype)
     n, d = x.shape
     w = _weights(weights, n, x.device)
     lab = labels.to(device=x.device, dtype=torch.int32).contiguous()
+    if k_tile is not None:
+        sums, counts = tiled_fold_cuda(x, w, lab, None, k, compute_dtype=cd)
+        return sums, counts, _acc_min_d2(x, scores)
     g = (None if scores is None
          else scores.to(device=x.device, dtype=torch.float32).contiguous())
     _check_cuda_inputs("accumulate_cuda", x, k, cd, w, None, lab,
@@ -451,7 +611,7 @@ def accumulate_cuda(x, labels, k, *, scores=None, weights=None,
 
 @_counted
 def lloyd_hamerly_cuda(x, centroids, labels_prev, need, sb_in, slb_in, *,
-                       weights=None, compute_dtype=None):
+                       weights=None, compute_dtype=None, k_tile=None):
     """K4: the bound-pruned sweep (replaces ``lloyd_hamerly_pallas``).
 
     Returns ``(labels, sb, slb, delta_sums, delta_counts, n_recomputed,
@@ -460,20 +620,24 @@ def lloyd_hamerly_cuda(x, centroids, labels_prev, need, sb_in, slb_in, *,
     score over the other columns; every other row passes ``labels_prev``,
     ``sb_in`` and ``slb_in`` through.  The delta is K2's signed fold over
     the scored rows whose label changed (a −1 sentinel, which the caller
-    must flag ``need``, makes it the full reduction)."""
+    must flag ``need``, makes it the full reduction).  ``k_tile`` runs K5
+    over every row and K6's dual fold instead of K4, as the reference's
+    tiled route does (``dense_tiles`` is then 0)."""
     if x.device.type == "cpu":
         return lloyd_hamerly_plain(x, centroids, labels_prev, need, sb_in,
                                    slb_in, weights=weights,
-                                   compute_dtype=compute_dtype)
+                                   compute_dtype=compute_dtype,
+                                   k_tile=k_tile)
     cd = resolve_cd(compute_dtype, x.dtype)
     n, d = x.shape
     k = centroids.shape[0]
     dev = x.device
     w = _weights(weights, n, dev)
-    prev = labels_prev.to(device=dev, dtype=torch.int32).contiguous()
-    need = need.to(device=dev, dtype=torch.bool).contiguous()
-    sb_in = sb_in.to(device=dev, dtype=torch.float32).contiguous()
-    slb_in = slb_in.to(device=dev, dtype=torch.float32).contiguous()
+    prev, need, sb_in, slb_in = _hamerly_inputs(x, labels_prev, need, sb_in,
+                                                slb_in)
+    if k_tile is not None:
+        return _hamerly_tiled(True, x, centroids, prev, need, sb_in, slb_in,
+                              w, cd, k_tile)
     neg2c, csq = _score_operands(centroids, cd)
     _check_cuda_inputs("lloyd_hamerly_cuda", x, k, cd, w, neg2c, prev, need,
                        sb_in, slb_in)
@@ -496,5 +660,102 @@ def lloyd_hamerly_cuda(x, centroids, labels_prev, need, sb_in, slb_in, *,
     return labels, sb, slb, dsums, dcounts, n_rec[0], dense_tiles
 
 
+@_counted
+def tiled_argmin_cuda(x, neg2c, csq, *, k_tile, raw_scores=False,
+                      with_second=False):
+    """K5: the streamed argmin (replaces ``_tiled_argmin``).
+
+    ``neg2c`` is −2·C in the compute dtype (k, d) and ``csq`` its f32
+    ``||c||²`` (+inf on masked columns).  Returns ``(labels int32 [n],
+    min f32 [n])`` and with ``with_second`` the least score over the other
+    columns; the min is ``max(min + ||x||², 0)``, or the raw score with
+    ``raw_scores``.  Labels, raw scores and second-min are K2's and K4's
+    bit for bit at the same operands."""
+    if x.device.type == "cpu":
+        return tiled_argmin_plain(x, neg2c, csq, k_tile=k_tile,
+                                  raw_scores=raw_scores,
+                                  with_second=with_second)
+    _check_k_tile(k_tile)
+    cd = neg2c.dtype
+    n, d = x.shape
+    k = neg2c.shape[0]
+    dev = x.device
+    csq = csq.to(device=dev, dtype=torch.float32).contiguous()
+    _check_cuda_inputs("tiled_argmin_cuda", x, k, cd, None, neg2c)
+    if tuple(csq.shape) != (k,):
+        raise ValueError(f"tiled_argmin_cuda: csq shape {tuple(csq.shape)} "
+                         f"!= ({k},)")
+    slices = -(-k // k_tile)
+    if -(-n // 128) * slices >= 2 ** 31:
+        raise ValueError(f"tiled_argmin_cuda: n={n}, k={k} at k_tile="
+                         f"{k_tile} needs more than 2**31 blocks")
+    part_best = torch.empty(slices, n, dtype=torch.float32, device=dev)
+    part_idx = torch.empty(slices, n, dtype=torch.int32, device=dev)
+    part_second = torch.empty_like(part_best) if with_second else None
+    labels = torch.empty(n, dtype=torch.int32, device=dev)
+    best = torch.empty(n, dtype=torch.float32, device=dev)
+    second = torch.empty_like(best) if with_second else None
+    _launch(tiled_argmin_cuda, "kml_tiled_argmin", x,
+            x.data_ptr(), _DTYPE_CODES[x.dtype], neg2c.data_ptr(),
+            _DTYPE_CODES[cd], csq.data_ptr(), n, d, k, k_tile,
+            int(raw_scores), int(with_second), _vec_ok(d, cd, x, neg2c),
+            part_best.data_ptr(), part_idx.data_ptr(), _ptr(part_second),
+            labels.data_ptr(), best.data_ptr(), _ptr(second))
+    return (labels, best, second) if with_second else (labels, best)
+
+
+@_counted
+def tiled_fold_cuda(x, weights, labels, labels2, k, *, compute_dtype=None):
+    """K6: the bucketed fold (replaces ``_tiled_fold``).
+
+    Returns ``(sums f32 [k, d], counts f32 [k])``: ``+w·float(cd(x))`` at
+    ``labels`` and, when ``labels2`` is given (the dual fold), ``−w·…`` at
+    ``labels2``.  Labels outside ``[0, k)``, rows with ``w == 0`` and, in
+    the dual fold, rows with equal labels fold nothing.  Each bucket is
+    summed in row order without float atomics: two launches give the same
+    bits."""
+    if x.device.type == "cpu":
+        return tiled_fold_plain(x, weights, labels, labels2, k,
+                                compute_dtype=compute_dtype)
+    cd = resolve_cd(compute_dtype, x.dtype)
+    n, d = x.shape
+    dev = x.device
+    w = _weights(weights, n, dev)
+    lab = labels.to(device=dev, dtype=torch.int32).contiguous()
+    lab2 = (None if labels2 is None
+            else labels2.to(device=dev, dtype=torch.int32).contiguous())
+    _check_cuda_inputs("tiled_fold_cuda", x, k, cd, w, None, lab,
+                       *([] if lab2 is None else [lab2]))
+    entries = n * (1 if lab2 is None else 2)
+    if entries >= 2 ** 31:
+        raise ValueError(f"tiled_fold_cuda: {entries} fold entries do not "
+                         "fit the kernel's int32 entry index")
+    chunks = max(1, min(-(-n // DENSE_GROUP_ROWS), _FOLD_HIST_CELLS // k))
+    chunk_entries = -(-entries // chunks)
+    chunks = -(-entries // chunk_entries)
+    ints = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    hist = torch.zeros(chunks * k, **ints)
+    total = torch.empty(k, **ints)
+    start, cstart, pstart = (torch.empty(k + 1, **ints) for _ in range(3))
+    order = torch.empty(entries, **ints)
+    # A bucket of more than _FOLD_CHUNK entries writes a partial row per
+    # fold block: at most 2·entries/_FOLD_CHUNK rows in all.
+    part_rows = 2 * -(-entries // _FOLD_CHUNK) + 1
+    part = torch.empty(part_rows, d, **f32)
+    part_counts = torch.empty(part_rows, **f32)
+    sums = torch.empty(k, d, **f32)
+    counts = torch.empty(k, **f32)
+    vec = int(d % 8 == 0 and x.data_ptr() % 16 == 0)
+    _launch(tiled_fold_cuda, "kml_tiled_fold", x,
+            x.data_ptr(), _DTYPE_CODES[x.dtype], _DTYPE_CODES[cd],
+            w.data_ptr(), lab.data_ptr(), _ptr(lab2), n, d, k,
+            chunk_entries, chunks, vec, hist.data_ptr(), total.data_ptr(),
+            start.data_ptr(), cstart.data_ptr(), pstart.data_ptr(),
+            order.data_ptr(), part.data_ptr(), part_counts.data_ptr(),
+            sums.data_ptr(), counts.data_ptr())
+    return sums, counts
+
+
 _WRAPPERS = (lloyd_pass_cuda, lloyd_delta_cuda, accumulate_cuda,
-             lloyd_hamerly_cuda)
+             lloyd_hamerly_cuda, tiled_argmin_cuda, tiled_fold_cuda)

@@ -8,7 +8,9 @@ additive function of the assignment,
 so a sweep needs the distance product plus a fold over the rows whose label
 changed.  On the card that is one kernel launch
 (:func:`kmeans_tpu_torch.ops.cuda_lloyd.lloyd_delta_cuda`): argmin, then a
-scatter of each changed row, ``+w`` at the new label and ``−w`` at the old.
+scatter of each changed row, ``+w`` at the new label and ``−w`` at the old;
+where the planner tiles the shape, the k-tiled pair (K5's streamed argmin,
+K6's dual fold) instead.
 Like the reference's fused kernel route, the delta is valid at any churn,
 so the only full recompute is the caller's periodic refresh
 (``force_full``, the labeled fold
@@ -23,11 +25,12 @@ from typing import Optional, Tuple
 import torch
 
 from kmeans_tpu_torch.device import as_tensor, resolve_device
-from kmeans_tpu_torch.ops.cuda_lloyd import (KernelPlan, accumulate_cuda,
-                                             accumulate_plain, kernel_plan,
+from kmeans_tpu_torch.ops.cuda_lloyd import (accumulate_cuda,
+                                             accumulate_plain,
                                              lloyd_delta_cuda,
                                              lloyd_delta_plain)
-from kmeans_tpu_torch.ops.lloyd import resolve_backend
+from kmeans_tpu_torch.ops.lloyd import resolve_backend, sweep_route
+from kmeans_tpu_torch.ops.plan import KernelPlan, device_plan
 
 __all__ = ["delta_pass", "delta_kernel_plan", "resolve_delta_backend",
            "default_cap", "DELTA_REFRESH"]
@@ -41,10 +44,10 @@ DELTA_REFRESH = 16
 
 def delta_kernel_plan(x, k: int, *, weights=None, weights_are_binary=False,
                       compute_dtype=None, device=None) -> KernelPlan:
-    """Dispatch decision for the delta kernel.  It takes every input the
-    classic kernel takes (no per-kernel footprint to price on this card),
-    so this is :func:`kmeans_tpu_torch.ops.cuda_lloyd.kernel_plan`."""
-    return kernel_plan(x, k, weights=weights,
+    """Dispatch decision for the delta sweep: the vetoes, then the shape's
+    price as the ``"delta"`` kind (:func:`kmeans_tpu_torch.ops.plan.
+    device_plan`)."""
+    return device_plan("delta", x, k, weights=weights,
                        weights_are_binary=weights_are_binary,
                        compute_dtype=compute_dtype, device=device)
 
@@ -57,7 +60,7 @@ def resolve_delta_backend(backend, x, k: int, *, weights=None,
     return backend, resolve_backend(
         backend, x, k, weights=weights,
         weights_are_binary=weights_are_binary, compute_dtype=compute_dtype,
-        device=device)
+        device=device, kind="delta")
 
 
 def default_cap(n: int) -> int:
@@ -113,22 +116,27 @@ def delta_pass(
     labels_prev = as_tensor(labels_prev, dev, torch.int32)
     w = None if weights is None else as_tensor(weights, dev, torch.float32)
     k = centroids.shape[0]
-    route = resolve_backend(backend, x, k, weights=w,
-                            weights_are_binary=weights_are_binary,
-                            compute_dtype=compute_dtype)
+    route, k_tile = sweep_route("delta", backend, x, k, weights=w,
+                                weights_are_binary=weights_are_binary,
+                                compute_dtype=compute_dtype)
     if route == "cuda":
         labels, min_d2, dsums, dcounts, inertia, n_changed, _ = \
             lloyd_delta_cuda(x, centroids, labels_prev, weights=w,
-                             compute_dtype=compute_dtype, with_mind=with_mind)
+                             compute_dtype=compute_dtype, with_mind=with_mind,
+                             k_tile=k_tile)
     else:
         labels, min_d2, dsums, dcounts, inertia, n_changed, _ = \
             lloyd_delta_plain(x, centroids, labels_prev, weights=w,
                               compute_dtype=compute_dtype,
-                              with_mind=with_mind, chunk_size=chunk_size)
+                              with_mind=with_mind, chunk_size=chunk_size,
+                              k_tile=k_tile)
     if force_full:
+        # The delta plan's tile serves the labeled fold too, as in the
+        # reference (K6 ignores it; the plain version folds per slice).
         accumulate = accumulate_cuda if route == "cuda" else accumulate_plain
         sums, counts, _ = accumulate(x, labels, k, weights=w,
-                                     compute_dtype=compute_dtype)
+                                     compute_dtype=compute_dtype,
+                                     k_tile=k_tile)
     else:
         sums = as_tensor(sums_prev, dev, torch.float32) + dsums
         counts = as_tensor(counts_prev, dev, torch.float32) + dcounts

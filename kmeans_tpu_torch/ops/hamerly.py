@@ -24,7 +24,9 @@ The scoring of the needed rows is the Hamerly kernel on the card
 (:func:`kmeans_tpu_torch.ops.cuda_lloyd.lloyd_hamerly_cuda`, which compacts
 them per 1024-row group) and its plain version on the CPU (which gathers
 them).  Both give the values of the reference's XLA route at any ``cap``,
-so ``cap`` is taken for call compatibility only.
+so ``cap`` is taken for call compatibility only.  Where the planner tiles
+the shape, the sweep is the k-tiled pair instead, which like the reference's
+tiled route scores every row and forgoes the pruning.
 """
 
 from __future__ import annotations
@@ -36,11 +38,12 @@ import numpy as np
 import torch
 
 from kmeans_tpu_torch.device import as_tensor, resolve_device
-from kmeans_tpu_torch.ops.cuda_lloyd import (KernelPlan, _argmin_plain,
-                                             kernel_plan, lloyd_hamerly_cuda,
+from kmeans_tpu_torch.ops.cuda_lloyd import (_argmin_plain,
+                                             lloyd_hamerly_cuda,
                                              lloyd_hamerly_plain)
 from kmeans_tpu_torch.ops.distance import resolve_cd, sq_norms
-from kmeans_tpu_torch.ops.lloyd import resolve_backend
+from kmeans_tpu_torch.ops.lloyd import resolve_backend, sweep_route
+from kmeans_tpu_torch.ops.plan import KernelPlan, device_plan
 
 __all__ = ["hamerly_pass", "hamerly_bounds", "hamerly_kernel_plan",
            "resolve_hamerly_backend", "row_norms", "centroid_mini_kmeans",
@@ -124,10 +127,10 @@ def centroid_mini_kmeans(centroids, n_groups: int, *, seed: int = 0,
 
 def hamerly_kernel_plan(x, k: int, *, weights=None, weights_are_binary=False,
                         compute_dtype=None, device=None) -> KernelPlan:
-    """Dispatch decision for the Hamerly kernel.  It takes every input the
-    classic kernel takes (it streams k in tiles, so no k is too large for
-    it), so this is :func:`kmeans_tpu_torch.ops.cuda_lloyd.kernel_plan`."""
-    return kernel_plan(x, k, weights=weights,
+    """Dispatch decision for the Hamerly sweep: the vetoes, then the
+    shape's price as the ``"hamerly"`` kind (:func:`kmeans_tpu_torch.ops.
+    plan.device_plan`)."""
+    return device_plan("hamerly", x, k, weights=weights,
                        weights_are_binary=weights_are_binary,
                        compute_dtype=compute_dtype, device=device)
 
@@ -140,7 +143,7 @@ def resolve_hamerly_backend(backend, x, k: int, *, weights=None,
     return backend, resolve_backend(
         backend, x, k, weights=weights,
         weights_are_binary=weights_are_binary, compute_dtype=compute_dtype,
-        device=device)
+        device=device, kind="hamerly")
 
 
 def _scores_chunked(x, centroids, *, chunk_size, compute_dtype):
@@ -229,9 +232,10 @@ def hamerly_pass(
         x, centroids, labels_prev, c_prev_cd,
         (sums_prev, counts_prev, sb, slb, csq_prev, rno), weights, device)
     sums_prev, counts_prev, sb, slb, csq_prev, rno = vecs
-    route = resolve_backend(backend, x, centroids.shape[0], weights=w,
-                            weights_are_binary=weights_are_binary,
-                            compute_dtype=compute_dtype)
+    route, k_tile = sweep_route("hamerly", backend, x, centroids.shape[0],
+                                weights=w,
+                                weights_are_binary=weights_are_binary,
+                                compute_dtype=compute_dtype)
     sb2, slb2, need, c_cd, csq = hamerly_bounds(
         centroids, labels_prev, sb, slb, c_prev_cd, csq_prev, rno,
         resolve_cd(compute_dtype, x.dtype))
@@ -239,6 +243,6 @@ def hamerly_pass(
              functools.partial(lloyd_hamerly_plain, chunk_size=chunk_size))
     labels, sb3, slb3, dsums, dcounts, n_rec, _ = sweep(
         x, centroids, labels_prev, need, sb2, slb2, weights=w,
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, k_tile=k_tile)
     return (labels, sums_prev + dsums, counts_prev + dcounts, sb3, slb3,
             c_cd, csq, n_rec)

@@ -3,23 +3,24 @@
 Counterpart of ``kmeans_tpu/ops/lloyd.py``.  One call returns ``labels``,
 ``min_d2``, per-cluster ``sums`` and ``counts`` and the ``inertia``.  On the
 card the sweep is the hand-written classic kernel
-(:func:`kmeans_tpu_torch.ops.cuda_lloyd.lloyd_pass_cuda`); on the CPU it is
-its plain PyTorch version, which also serves the reference XLA route's
-``update="segment"`` flavour.
+(:func:`kmeans_tpu_torch.ops.cuda_lloyd.lloyd_pass_cuda`), or the k-tiled
+pair where the planner (:mod:`kmeans_tpu_torch.ops.plan`) tiles the shape;
+on the CPU it is their plain PyTorch version, which also serves the
+reference XLA route's ``update="segment"`` flavour.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from kmeans_tpu_torch.device import as_dtype, as_tensor, resolve_device
-from kmeans_tpu_torch.ops.cuda_lloyd import (kernel_plan, lloyd_pass_cuda,
-                                             lloyd_pass_plain)
+from kmeans_tpu_torch.ops.cuda_lloyd import lloyd_pass_cuda, lloyd_pass_plain
 from kmeans_tpu_torch.ops.distance import resolve_cd
+from kmeans_tpu_torch.ops.plan import device_plan, shape_plan
 
-__all__ = ["lloyd_pass", "resolve_backend", "resolve_update",
+__all__ = ["lloyd_pass", "resolve_backend", "sweep_route", "resolve_update",
            "weights_exact", "BACKENDS"]
 
 #: The port's sweep backends.  The reference's ``"xla"``, ``"pallas"`` and
@@ -40,13 +41,15 @@ def weights_exact(compute_dtype, *, weights=None,
 
 def resolve_backend(backend: str, x, k: int, *, weights=None,
                     weights_are_binary: bool = False, compute_dtype=None,
-                    device=None) -> str:
+                    device=None, kind: str = "classic",
+                    groups=None) -> str:
     """Resolve a backend request to the route a sweep runs: ``"cuda"`` or
     ``"plain"``.
 
     ``"auto"`` is the kernels for data on the card and the plain versions
-    for data on the CPU; where the kernel plan refuses data on the card it
-    raises rather than run the plain version there.  ``"cuda"`` raises
+    for data on the CPU; where the kernel plan of ``kind``
+    (:func:`kmeans_tpu_torch.ops.plan.device_plan`) refuses data on the card
+    it raises rather than run the plain version there.  ``"cuda"`` raises
     wherever the plan refuses (the CPU included).  ``device`` overrides
     ``x.device`` (``x`` needs only ``shape`` and ``dtype``)."""
     if backend not in BACKENDS:
@@ -58,14 +61,29 @@ def resolve_backend(backend: str, x, k: int, *, weights=None,
     dev = torch.device(device) if device is not None else x.device
     if backend == "auto" and dev.type == "cpu":
         return "plain"
-    plan = kernel_plan(x, k, weights=weights,
+    plan = device_plan(kind, x, k, weights=weights,
                        weights_are_binary=weights_are_binary,
-                       compute_dtype=compute_dtype, device=dev)
+                       compute_dtype=compute_dtype, device=dev, groups=groups)
     if plan.mode == "refuse":
         raise ValueError(f"the CUDA kernels do not take this input: "
                          f"{plan.why}; use backend='plain' to run the plain "
                          "PyTorch versions")
     return "cuda"
+
+
+def sweep_route(kind: str, backend: str, x, k: int, *, weights=None,
+                weights_are_binary: bool = False, compute_dtype=None,
+                groups=None) -> Tuple[str, Optional[int]]:
+    """``(route, k_tile)`` of one sweep of ``kind``: the route of
+    :func:`resolve_backend` and the planner's slice width
+    (:func:`kmeans_tpu_torch.ops.plan.shape_plan`; None: untiled), which
+    either route runs at."""
+    route = resolve_backend(backend, x, k, weights=weights,
+                            weights_are_binary=weights_are_binary,
+                            compute_dtype=compute_dtype, kind=kind,
+                            groups=groups)
+    return route, shape_plan(kind, x, k, compute_dtype=compute_dtype,
+                             groups=groups).k_tile
 
 
 def resolve_update(update: str, *, w_exact: bool,
@@ -127,6 +145,7 @@ def lloyd_pass(
         dense fold for a single sweep, as in the reference).
       with_update: when False, sums/counts come back zero.
       backend: "auto" | "cuda" | "plain" (see :func:`resolve_backend`).
+        Either route takes the planner's ``k_tile`` for this shape.
       device: where to run; None is the card.
 
     Returns:
@@ -147,14 +166,15 @@ def lloyd_pass(
         # Fractional weights would not survive the cd fold: the reference's
         # XLA route demotes to the f32 segment reduction, and so does this.
         update = "segment"
-    route = resolve_backend(backend, x, centroids.shape[0], weights=w,
-                            weights_are_binary=weights_are_binary,
-                            compute_dtype=compute_dtype)
+    route, k_tile = sweep_route("classic", backend, x, centroids.shape[0],
+                                weights=w,
+                                weights_are_binary=weights_are_binary,
+                                compute_dtype=compute_dtype)
     if route == "cuda":
         return lloyd_pass_cuda(x, centroids, weights=w,
                                compute_dtype=compute_dtype,
-                               with_update=with_update)
+                               with_update=with_update, k_tile=k_tile)
     return lloyd_pass_plain(x, centroids, weights=w,
                             compute_dtype=compute_dtype,
                             with_update=with_update, update=update,
-                            chunk_size=chunk_size)
+                            chunk_size=chunk_size, k_tile=k_tile)

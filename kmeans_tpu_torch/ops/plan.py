@@ -1,0 +1,247 @@
+"""The Hopper planner: how the sweep kernels run a shape on the card.
+
+Counterpart of ``vmem_breakdown`` / ``max_k_tile`` / ``kernel_plan`` in
+``kmeans_tpu/ops/pallas_lloyd.py``, with the card's L2 cache in the role the
+TPU's VMEM plays there.  The port's untiled kernels (K1–K4) take any k: they
+stream the centroids in 128-wide tiles through shared memory and fold with
+f32 atomics into the sums.  Both rest on L2: every 128-row block streams all
+of −2·C, and the atomics resolve in L2 while the sums fit there.  Once −2·C
+and the f32 sums outgrow it, the plan switches to the k-tiled pair: K5
+(``tiled_argmin_cuda``) streams one centroid slice at a time, with the blocks
+resident at one time sharing that slice, and K6 (``tiled_fold_cuda``) folds
+by bucketing the rows by label, without float atomics.
+
+Two layers, as in the reference:
+
+* :func:`kernel_plan` prices a shape alone (``kind``, d, k, the item sizes)
+  against a :class:`Budget`: ``"untiled"`` while −2·C in the compute dtype
+  plus the f32 sums fit 3/4 of L2 (the reference plans to 3/4 of VMEM);
+  else ``"tiled"`` with the widest 128-multiple slice whose −2·C fits;
+  ``"refuse"`` when not even one 128-column slice fits, or the kernels'
+  shared memory does not fit a block.
+* :func:`device_plan` adds the vetoes: fractional weights in a non-f32
+  compute dtype, a device that is not a CUDA card, dtypes the kernels do not
+  take, shapes out of range.
+
+``padded_d`` has no counterpart: the kernels mask a ragged d, so d is never
+padded.  With no card the budget is the H100's (50 MiB of L2, 227 KB of
+shared memory a block): metadata callers and the CPU tests plan as on the
+card, as the reference falls back to ``_VMEM_FALLBACK``.  That is a planning
+constant only; no kernel runs without the card.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
+
+import torch
+
+from kmeans_tpu_torch.device import as_dtype
+from kmeans_tpu_torch.ops.distance import resolve_cd
+
+__all__ = ["KernelPlan", "Budget", "card_budget", "l2_breakdown",
+           "max_k_tile", "kernel_plan", "device_plan", "shape_plan",
+           "KINDS", "LANE", "L2_FALLBACK_BYTES", "SMEM_FALLBACK_BYTES",
+           "KERNEL_SMEM_BYTES"]
+
+#: Kernel kinds, the reference's plus ``accumulate`` (the labeled fold).
+KINDS = ("classic", "delta", "hamerly", "yinyang", "accumulate")
+#: Column granularity of a centroid slice: the kernels' k-tile.
+LANE = 128
+#: The H100's L2 and opt-in shared memory a block: the no-card budget.
+L2_FALLBACK_BYTES = 50 * 1024 * 1024
+SMEM_FALLBACK_BYTES = 232_448
+#: Dynamic shared memory of a scoring block (``score_block`` in
+#: ``csrc/lloyd.cu``): the (128, 132) f32 score tile, which reuses the
+#: staging buffers of either compute dtype.
+KERNEL_SMEM_BYTES = 128 * (128 + 4) * 4
+
+_F32_BF16 = (torch.float32, torch.bfloat16)
+
+
+class KernelPlan(NamedTuple):
+    """A dispatch decision: ``mode`` is ``"untiled"`` (K1–K4), ``"tiled"``
+    (K5 + K6 over ``k_tile``-wide centroid slices) or ``"refuse"``;
+    ``k_tile`` is set only when tiled; ``why`` says which rule decided."""
+
+    mode: str
+    k_tile: Optional[int]
+    why: str
+
+
+class Budget(NamedTuple):
+    """What a plan may use: ``l2_bytes`` (3/4 of the card's L2) and the
+    opt-in shared memory a block, and where they were read."""
+
+    l2_bytes: int
+    smem_per_block: int
+    source: str
+
+
+@functools.cache
+def _card_properties(index: int):
+    props = torch.cuda.get_device_properties(index)
+    return (props.name, int(getattr(props, "L2_cache_size", 0)),
+            int(getattr(props, "shared_memory_per_block_optin", 0)))
+
+
+def card_budget(device=None) -> Budget:
+    """The budget of the card (``device``, default the current one), or the
+    H100's constants when no card is present."""
+    if torch.cuda.is_available():
+        dev = torch.device("cuda") if device is None else torch.device(device)
+        if dev.type == "cuda":
+            index = (torch.cuda.current_device() if dev.index is None
+                     else dev.index)
+            name, l2, smem = _card_properties(index)
+            return Budget(3 * (l2 or L2_FALLBACK_BYTES) // 4,
+                          smem or SMEM_FALLBACK_BYTES, name)
+    return Budget(3 * L2_FALLBACK_BYTES // 4, SMEM_FALLBACK_BYTES,
+                  "no card: the H100's L2 and shared memory")
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in KINDS:
+        raise ValueError(f"unknown kernel kind {kind!r}; have {KINDS}")
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def l2_breakdown(kind: str, d: int, k: int, *, cd_itemsize: int = 2,
+                 k_tile: Optional[int] = None,
+                 groups: Optional[int] = None) -> dict:
+    """Named bytes that a sweep of ``kind`` keeps in L2: untiled, −2·C in
+    the compute dtype, ``||c||²``, the f32 sums and counts (the labeled
+    fold has only the sums and counts); with ``k_tile``, the one centroid
+    slice the resident blocks share (the labeled fold's slice of sums).
+    ``yinyang`` adds the centroid → group map and the per-group drift
+    vectors (t = ``groups``, default ⌈k/10⌉).  x is streamed, not held, so it
+    is not priced."""
+    _check_kind(kind)
+    cols = k if k_tile is None else min(k_tile, _round_up(k, LANE))
+    if kind == "accumulate":
+        terms = {"sums": cols * d * 4, "counts": cols * 4}
+    elif k_tile is None:
+        terms = {"neg2c": k * d * cd_itemsize, "csq": k * 4,
+                 "sums": k * d * 4, "counts": k * 4}
+    else:
+        terms = {"neg2c_slice": cols * d * cd_itemsize, "csq_slice": cols * 4}
+    if kind == "yinyang":
+        t = groups if groups is not None else -(-k // 10)
+        terms["group_map"] = k * 4
+        terms["group_drift"] = 2 * t * 4
+    return terms
+
+
+def _fits(kind, d, k, budget, *, cd_itemsize, k_tile=None, groups=None):
+    return sum(l2_breakdown(kind, d, k, cd_itemsize=cd_itemsize,
+                            k_tile=k_tile, groups=groups).values()
+               ) <= budget.l2_bytes
+
+
+def max_k_tile(kind: str, d: int, k: int, *, cd_itemsize: int = 2,
+               groups: Optional[int] = None,
+               budget: Optional[Budget] = None) -> Optional[int]:
+    """The widest multiple of 128 (capped at k rounded up to 128) whose
+    slice fits the budget, or None when one 128-column slice does not."""
+    budget = budget or card_budget()
+    kw = dict(cd_itemsize=cd_itemsize, groups=groups)
+    if not _fits(kind, d, k, budget, k_tile=LANE, **kw):
+        return None
+    lo, hi = 1, _round_up(max(k, 1), LANE) // LANE
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if _fits(kind, d, k, budget, k_tile=mid * LANE, **kw):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo * LANE
+
+
+def kernel_plan(kind: str, d: int, k: int, *, x_itemsize: int = 2,
+                cd_itemsize: int = 2, groups: Optional[int] = None,
+                budget: Optional[Budget] = None) -> KernelPlan:
+    """The shape-level plan of one kernel kind (see the module docstring).
+    ``budget`` defaults to :func:`card_budget`."""
+    _check_kind(kind)
+    budget = budget or card_budget()
+    if x_itemsize not in (2, 4) or cd_itemsize not in (2, 4):
+        return KernelPlan("refuse", None,
+                          "the kernels take float32 or bfloat16 x and compute")
+    if not 1 <= d < 2 ** 31 or not 1 <= k < 2 ** 31:
+        return KernelPlan("refuse", None, f"d={d}, k={k} out of range")
+    if kind != "accumulate" and KERNEL_SMEM_BYTES > budget.smem_per_block:
+        return KernelPlan(
+            "refuse", None, f"a scoring block needs {KERNEL_SMEM_BYTES} B of "
+            f"shared memory; the card offers {budget.smem_per_block}")
+    kw = dict(cd_itemsize=cd_itemsize, groups=groups)
+    mib = budget.l2_bytes / 2 ** 20
+    mib_held = sum(l2_breakdown(kind, d, k, **kw).values()) / 2 ** 20
+    held = ("the f32 sums" if kind == "accumulate" else
+            "−2C and the f32 sums") + f" ({mib_held:.1f} MiB)"
+    if _fits(kind, d, k, budget, **kw):
+        return KernelPlan("untiled", None,
+                          f"{held} fit 3/4 of L2 ({mib:.1f} MiB)")
+    kt = max_k_tile(kind, d, k, budget=budget, **kw)
+    if kt is None:
+        return KernelPlan("refuse", None,
+                          f"one 128-column slice overflows {mib:.1f} MiB")
+    return KernelPlan(
+        "tiled", kt, f"{held} overflow 3/4 of L2 ({mib:.1f} MiB): "
+        f"{-(-k // kt)} slices of {kt} columns")
+
+
+def _dtypes(x_dtype, compute_dtype):
+    x_dtype = as_dtype(x_dtype)
+    if x_dtype == torch.float64:
+        x_dtype = torch.float32          # float64 input computes in f32
+    return x_dtype, resolve_cd(compute_dtype, x_dtype)
+
+
+def shape_plan(kind: str, x, k: int, *, compute_dtype=None,
+               groups: Optional[int] = None, device=None,
+               budget: Optional[Budget] = None) -> KernelPlan:
+    """:func:`kernel_plan` at the shape and dtypes of ``x`` (which needs
+    only ``shape`` and ``dtype``), without the vetoes.  A sweep runs at its
+    ``k_tile`` on either route, so the plain versions take the sub-route the
+    kernels would; a shape it refuses runs untiled on the plain route (the
+    card route has raised on it before)."""
+    x_dtype, cd = _dtypes(x.dtype, compute_dtype)
+    if x_dtype not in _F32_BF16 or cd not in _F32_BF16:
+        return KernelPlan("refuse", None, f"x dtype {x_dtype} / compute "
+                          f"dtype {cd}: the kernels take float32 or bfloat16")
+    dev = device if device is not None else getattr(x, "device", None)
+    return kernel_plan(kind, x.shape[1], k, x_itemsize=x_dtype.itemsize,
+                       cd_itemsize=cd.itemsize, groups=groups,
+                       budget=budget or card_budget(dev))
+
+
+def device_plan(kind: str, x, k: int, *, weights=None,
+                weights_are_binary: bool = False, compute_dtype=None,
+                device=None, groups: Optional[int] = None,
+                budget: Optional[Budget] = None) -> KernelPlan:
+    """The full dispatch decision for ``kind`` at this input: the vetoes,
+    then :func:`shape_plan`.  ``x`` needs only ``shape`` and ``dtype`` (a
+    numpy array will do); ``device`` overrides ``x.device``.  The weights
+    veto is the reference's exactness policy
+    (:func:`kmeans_tpu_torch.ops.lloyd.weights_exact`)."""
+    from kmeans_tpu_torch.ops.lloyd import weights_exact
+
+    _, cd = _dtypes(x.dtype, compute_dtype)
+    dev = torch.device(device) if device is not None else x.device
+    if not weights_exact(cd, weights=weights,
+                         weights_are_binary=weights_are_binary):
+        return KernelPlan("refuse", None,
+                          "fractional weights in a non-f32 compute dtype")
+    if dev.type != "cuda":
+        return KernelPlan("refuse", None,
+                          f"not running on a CUDA device ({dev})")
+    n, d = x.shape
+    if n < 1 or 2 * n >= 2 ** 31 or n * max(d, k) >= 2 ** 62:
+        return KernelPlan("refuse", None,
+                          f"shape n={n}, d={d}, k={k} out of range")
+    return shape_plan(kind, x, k, compute_dtype=compute_dtype, groups=groups,
+                      device=dev, budget=budget)

@@ -19,8 +19,9 @@ Two routes, as in the reference:
 
 * on the card, the Hamerly kernel with the yinyang ``need`` mask and
   ``slb_in = min_g glb'`` gives labels, ``sb`` and the fold (the masked
-  argmin provably equals the full one), then :func:`_glb_refresh` scores
-  the needed rows again with a library product to refresh ``glb`` -- the
+  argmin provably equals the full one; where the planner tiles the shape,
+  the k-tiled pair in its place), then :func:`_glb_refresh` scores the
+  needed rows again with a library product to refresh ``glb`` -- the
   double scoring the reference's Pallas route does too;
 * on the CPU, the needed rows are gathered and scored once with the
   passing groups' columns masked to +inf (:func:`_scores_grouped_chunked`),
@@ -37,16 +38,15 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from kmeans_tpu_torch.ops.cuda_lloyd import (KernelPlan, _chunks,
-                                             _score_operands,
+from kmeans_tpu_torch.ops.cuda_lloyd import (_chunks, _score_operands,
                                              _signed_fold_plain, _weights,
                                              lloyd_hamerly_cuda)
 from kmeans_tpu_torch.ops.distance import full_f32, resolve_cd
 from kmeans_tpu_torch.ops.hamerly import (HAMERLY_MARGIN_REL,
                                           _centroid_drift, _inputs,
-                                          centroid_mini_kmeans,
-                                          hamerly_kernel_plan)
-from kmeans_tpu_torch.ops.lloyd import resolve_backend
+                                          centroid_mini_kmeans)
+from kmeans_tpu_torch.ops.lloyd import resolve_backend, sweep_route
+from kmeans_tpu_torch.ops.plan import KernelPlan, device_plan
 
 __all__ = ["yinyang_pass", "yinyang_kernel_plan", "resolve_yinyang_backend",
            "centroid_groups", "default_groups", "AUTO_SWITCH_HIGH",
@@ -93,12 +93,13 @@ def centroid_groups(centroids, n_groups: Optional[int] = None, *,
 def yinyang_kernel_plan(x, k: int, *, groups: Optional[int] = None,
                         weights=None, weights_are_binary=False,
                         compute_dtype=None, device=None) -> KernelPlan:
-    """Dispatch decision for the yinyang route: the Hamerly kernel's
-    (``groups`` prices nothing on this card: the bounds live outside the
-    kernel)."""
-    return hamerly_kernel_plan(x, k, weights=weights,
-                               weights_are_binary=weights_are_binary,
-                               compute_dtype=compute_dtype, device=device)
+    """Dispatch decision for the yinyang route: the vetoes, then the
+    shape's price as the ``"yinyang"`` kind, whose ``groups`` add the
+    centroid → group map and drift vectors to the Hamerly footprint."""
+    return device_plan("yinyang", x, k, weights=weights,
+                       weights_are_binary=weights_are_binary,
+                       compute_dtype=compute_dtype, device=device,
+                       groups=groups)
 
 
 def resolve_yinyang_backend(backend, x, k: int, *,
@@ -110,7 +111,7 @@ def resolve_yinyang_backend(backend, x, k: int, *,
     return backend, resolve_backend(
         backend, x, k, weights=weights,
         weights_are_binary=weights_are_binary, compute_dtype=compute_dtype,
-        device=device)
+        device=device, kind="yinyang", groups=groups)
 
 
 def _group_drift(big_d, delta_c, group_of, t: int):
@@ -242,9 +243,9 @@ def yinyang_pass(
     k = centroids.shape[0]
     t = glb.shape[1]
     cd = resolve_cd(compute_dtype, x.dtype)
-    route = resolve_backend(backend, x, k, weights=w,
-                            weights_are_binary=weights_are_binary,
-                            compute_dtype=compute_dtype)
+    route, k_tile = sweep_route("yinyang", backend, x, k, weights=w,
+                                weights_are_binary=weights_are_binary,
+                                compute_dtype=compute_dtype, groups=t)
     c_cd, csq, delta_c, big_d, cmax = _centroid_drift(centroids, c_prev_cd,
                                                       csq_prev, cd)
     gmin_d, gmax_dc = _group_drift(big_d, delta_c, group_of, t)
@@ -267,7 +268,7 @@ def yinyang_pass(
     if route == "cuda":
         labels, sb3, _, dsums, dcounts, n_rec, _ = lloyd_hamerly_cuda(
             x, centroids, labels_prev, need, sb2, glb2.amin(dim=1),
-            weights=w, compute_dtype=compute_dtype)
+            weights=w, compute_dtype=compute_dtype, k_tile=k_tile)
         glb3 = _glb_refresh(x, centroids, labels, need, fail, glb2, group_of,
                             chunk_size=max(chunk_size, 32768),
                             compute_dtype=compute_dtype)

@@ -101,7 +101,9 @@ def test_kernels_match_plain_versions(card, n, d, k, x_dtype, cd):
     assert int(got[6]) == int(want[6])
     assert K.launch_counts() == {"lloyd_pass_cuda": 1, "lloyd_delta_cuda": 1,
                                  "accumulate_cuda": 1,
-                                 "lloyd_hamerly_cuda": 1}
+                                 "lloyd_hamerly_cuda": 1,
+                                 "tiled_argmin_cuda": 0,
+                                 "tiled_fold_cuda": 0}
 
 
 @pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
@@ -156,3 +158,78 @@ def test_pruned_fit_on_the_card_matches_the_plain_backend(card, update):
     assert da["rows_seen"] == db["rows_seen"] == 40 * 20000
     assert abs(da["recompute_rows"] - db["recompute_rows"]) <= (
         0.01 * db["recompute_rows"])
+
+
+@pytest.mark.parametrize("x_dtype,cd", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("n,d,k", [(2053, 100, 300), (1031, 64, 130)])
+def test_tiled_kernels_match_plain_versions_and_the_untiled_kernels(
+        card, n, d, k, x_dtype, cd):
+    """K5 against its plain version and, bit for bit, against K2's labels
+    and raw scores and K4's second-min; K6 against its plain version, and
+    two K6 launches bit for bit."""
+    x, c, w, prev = _blobs(6, n, d, k, card)
+    x = x.to(x_dtype)
+    neg2c, csq = K._score_operands(c, cd)
+    K.reset_launch_counts()
+    lab, raw, second = K.tiled_argmin_cuda(x, neg2c, csq, k_tile=128,
+                                           raw_scores=True, with_second=True)
+    want = K.tiled_argmin_plain(x, neg2c, csq, k_tile=128, raw_scores=True,
+                                with_second=True)
+    torch.cuda.synchronize()
+    assert torch.equal(lab, want[0])
+    _close_scores(raw, want[1])
+    _close_scores(second, want[2])
+    k2 = K.lloyd_delta_cuda(x, c, prev, compute_dtype=cd, with_mind=False)
+    need = torch.ones(n, dtype=torch.bool, device=card)
+    zeros = torch.zeros(n, device=card)
+    k4 = K.lloyd_hamerly_cuda(x, c, prev, need, zeros, zeros,
+                              compute_dtype=cd)
+    assert torch.equal(lab, k2[0]) and torch.equal(raw, k2[1])
+    assert torch.equal(second, k4[2])
+    normed = K.tiled_argmin_cuda(x, neg2c, csq, k_tile=256)[1]
+    assert torch.equal(normed, K.lloyd_pass_cuda(x, c, compute_dtype=cd)[1])
+    for lab2 in (None, prev):
+        got = K.tiled_fold_cuda(x, w, lab, lab2, k, compute_dtype=cd)
+        again = K.tiled_fold_cuda(x, w, lab, lab2, k, compute_dtype=cd)
+        want = K.tiled_fold_plain(x, w, lab, lab2, k, compute_dtype=cd)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        _close(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+    assert K.launch_counts()["tiled_argmin_cuda"] == 2
+    assert K.launch_counts()["tiled_fold_cuda"] == 4
+
+
+def test_tiled_sweeps_on_the_card_match_their_plain_versions(card):
+    """The four sweep wrappers with k_tile against their plain versions
+    with k_tile, and the labeled fold with half the rows on one label."""
+    n, d, k = 3001, 96, 300
+    x, c, w, prev = _blobs(7, n, d, k, card)
+    got = K.lloyd_pass_cuda(x, c, weights=w, k_tile=128)
+    want = K.lloyd_pass_plain(x, c, weights=w, k_tile=128)
+    assert torch.equal(got[0], want[0])
+    for g, e in zip(got[1:], want[1:]):
+        _close(g, e)
+    got = K.lloyd_delta_cuda(x, c, prev, weights=w, k_tile=128)
+    want = K.lloyd_delta_plain(x, c, prev, weights=w, k_tile=128)
+    assert torch.equal(got[0], want[0]) and int(got[5]) == int(want[5])
+    for g, e in zip(got[1:5], want[1:5]):
+        _close(g, e)
+    gen = torch.Generator(device=card).manual_seed(5)
+    need = (torch.rand(n, generator=gen, device=card) < 0.4) | (prev < 0)
+    sb_in = torch.randn(n, generator=gen, device=card)
+    got = K.lloyd_hamerly_cuda(x, c, prev, need, sb_in, sb_in + 1,
+                               weights=w, k_tile=128)
+    want = K.lloyd_hamerly_plain(x, c, prev, need, sb_in, sb_in + 1,
+                                 weights=w, k_tile=128)
+    assert torch.equal(got[0], want[0]) and int(got[5]) == int(need.sum())
+    for g, e in zip(got[1:5], want[1:5]):
+        _close(g, e)
+    lab = prev.clone()
+    lab[::2] = 3
+    got = K.accumulate_cuda(x, lab, k, weights=w, k_tile=128)
+    want = K.accumulate_plain(x, lab, k, weights=w, k_tile=128)
+    for g, e in zip(got, want):
+        _close(g, e)

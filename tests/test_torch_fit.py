@@ -186,12 +186,13 @@ def test_unported_update_flavours_raise():
         plan = fit_plan(x, 5, config=KMeansConfig(k=5, update=update),
                         device=CPU)
         assert plan == {"update": update, "backend": "plain",
-                        "delta_backend": "plain", "adaptive": False}
+                        "delta_backend": "plain", "adaptive": False,
+                        "mode": "untiled", "k_tile": None}
     big = np.zeros((AUTO_MIN_ROWS, 2), np.float32)
     for n, adaptive in ((AUTO_MIN_ROWS, True), (AUTO_MIN_ROWS - 1, False)):
         assert fit_plan(big[:n], 3, device=CPU) == {
             "update": "delta", "backend": "plain", "delta_backend": "plain",
-            "adaptive": adaptive}
+            "adaptive": adaptive, "mode": "untiled", "k_tile": None}
         assert kmeans_tpu.models.lloyd.fit_plan(
             big[:n], 3)["adaptive"] is adaptive
     # "farthest" keeps "auto" off the adaptive loop, as in the reference.

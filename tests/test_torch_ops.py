@@ -36,6 +36,7 @@ from kmeans_tpu_torch.ops.distance import (assign, chunk_tiles,
                                            pairwise_sq_dists)
 from kmeans_tpu_torch.ops.lloyd import (lloyd_pass, resolve_backend,
                                         resolve_update)
+from kmeans_tpu_torch.ops.plan import device_plan
 from kmeans_tpu_torch.ops.update import apply_update, reseed_empty_farthest
 
 CPU = "cpu"
@@ -233,9 +234,17 @@ def test_wrappers_run_plain_versions_on_cpu_and_count_nothing():
     want = K.lloyd_hamerly_plain(xt, ct, sentinel, need, zeros, zeros)
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
+    neg2c, csq = K._score_operands(ct, torch.float32)
+    got = K.tiled_argmin_cuda(xt, neg2c, csq, k_tile=128, with_second=True)
+    want = K.tiled_argmin_plain(xt, neg2c, csq, k_tile=128, with_second=True)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    K.tiled_fold_cuda(xt, None, got[0], sentinel, 4)
     assert K.launch_counts() == {"lloyd_pass_cuda": 0, "lloyd_delta_cuda": 0,
                                  "accumulate_cuda": 0,
-                                 "lloyd_hamerly_cuda": 0}
+                                 "lloyd_hamerly_cuda": 0,
+                                 "tiled_argmin_cuda": 0,
+                                 "tiled_fold_cuda": 0}
 
 
 def test_cuda_input_checks_refuse_what_the_kernels_do_not_take():
@@ -259,16 +268,16 @@ def test_cuda_input_checks_refuse_what_the_kernels_do_not_take():
 
 def test_kernel_plan_and_backend_resolution():
     x = np.zeros((10, 4), np.float32)
-    assert K.kernel_plan(x, 3, device="cuda").mode == "cuda"
-    assert K.kernel_plan(torch.zeros(10, 4), 3).mode == "refuse"
-    frac = K.kernel_plan(x, 3, weights=np.full(10, 0.5),
-                         compute_dtype="bfloat16", device="cuda")
+    assert device_plan("classic", x, 3, device="cuda").mode == "untiled"
+    assert device_plan("classic", torch.zeros(10, 4), 3).mode == "refuse"
+    frac = device_plan("classic", x, 3, weights=np.full(10, 0.5),
+                       compute_dtype="bfloat16", device="cuda")
     assert frac.mode == "refuse" and "fractional" in frac.why
-    assert K.kernel_plan(x, 3, weights=np.full(10, 0.5),
-                         weights_are_binary=True, compute_dtype="bfloat16",
-                         device="cuda").mode == "cuda"
-    assert K.kernel_plan(x.astype(np.float16), 3,
-                         device="cuda").mode == "refuse"
+    assert device_plan("classic", x, 3, weights=np.full(10, 0.5),
+                       weights_are_binary=True, compute_dtype="bfloat16",
+                       device="cuda").mode == "untiled"
+    assert device_plan("classic", x.astype(np.float16), 3,
+                       device="cuda").mode == "refuse"
     assert resolve_backend("auto", torch.zeros(10, 4), 3) == "plain"
     assert resolve_backend("plain", x, 3, device="cuda") == "plain"
     assert resolve_backend("auto", x, 3, device="cuda") == "cuda"
@@ -334,7 +343,8 @@ def test_delta_kernel_plan_is_the_classic_plan():
     for kw in (dict(device="cuda"), dict(device="cpu"),
                dict(device="cuda", weights=np.full(10, 0.5),
                     compute_dtype="bfloat16")):
-        assert delta_kernel_plan(x, 3, **kw) == K.kernel_plan(x, 3, **kw)
+        assert delta_kernel_plan(x, 3, **kw) == device_plan("classic", x, 3,
+                                                            **kw)
 
 
 def test_delta_constants_match_reference():
