@@ -12,6 +12,10 @@ if any fails:
 3. each kernel against its plain PyTorch version on the card: ragged n,
    d in {2, 100, 2048}, k in {3, 1000}, float32 and bfloat16, zero-weight
    rows, a −1 sentinel ``prev``, out-of-range labels, and exact ties; the
+   Hopper core of K1 and K2 (bf16, d % 8 == 0) also at d in {8, 200} and
+   k in {3, 257, 1000}, with its labels, min_d2 and raw scores equal to
+   ``score_block``'s bit for bit, two K1 launches equal bit for bit, and
+   duplicate centroids at columns 255 and 256 (its slice edge); the
    Hamerly kernel (K4) at need fractions 0, about 10% and 100%, and with
    every row needed against the delta kernel (K2), bit for bit; the k-tiled
    pair at 128-column slices (K5's labels, raw scores and second-min
@@ -29,7 +33,9 @@ if any fails:
    ``yinyang_pass`` sweeps, each held against K1 at the same centroids
    (every label that differs must be a tie); then each kernel at that
    shape against its plain version, its time beside its bound, the plain
-   version's and a library call's, K5 + K6 forced tiled there, one steady
+   version's and a library call's, K1's time split into scoring, ||x||²
+   and fold, the SM clock and power under K2, K5 + K6 forced tiled there,
+   one steady
    sweep of each flavour, and the time of k-means++ there;
 5. whole ``KMeans(compute_dtype="bfloat16")`` fits with k-means++ at the
    ``glove`` shape, ``update="delta"`` and the default ``"auto"`` (the
@@ -69,7 +75,8 @@ F32_OPS_PER_S = 67e12
 #: one's chosen score may exceed the f64 minimum by this fraction of
 #: ||x_cd||² + ||c||² (which bounds |csq − 2x·c|), and no more.
 SCORE_RTOL = 1e-5
-#: Sums: f32 sums of the same terms, in atomic order on the card.
+#: Sums: f32 sums of the same terms, in another order on the card (K2-K4's
+#: atomics, K1's and K6's buckets in row order).
 SUMS_RTOL = 1e-4
 #: Phase 5: final inertia of the kernel fit vs the plain-backend fit.  Both
 #: start from the same k-means++ draw; rows whose two best bf16 scores tie
@@ -441,6 +448,86 @@ def _straddling_tie_cases(gen):
         print(f"  ok {name}")
 
 
+class _ForcedScoreBlock:
+    """Within it, K1 and K2 score every input with ``score_block``: the
+    wrappers read ``cuda_lloyd.scoring_core`` at each call."""
+
+    def __enter__(self):
+        from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+        self._rule = K.scoring_core
+        K.scoring_core = lambda *args: "score_block"
+
+    def __exit__(self, *exc):
+        from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+        K.scoring_core = self._rule
+
+
+def _check_k1_repeats(name, x, c, cd, w, k1):
+    """A second K1 launch equals the first ``k1`` bit for bit, sums and
+    counts included (K6's bucketed fold)."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    again = K.lloyd_pass_cuda(x, c, weights=w, compute_dtype=cd)
+    _sync()
+    _check(all(torch.equal(a, b) for a, b in zip(k1[:4], again[:4])),
+           f"K1 {name}: two launches differ")
+
+
+def _check_cores_agree(name, x, c, cd, w, prev, k1, k2):
+    """On an input the Hopper core takes: K1's labels and min_d2 and K2's
+    labels and raw scores (``k1``, ``k2``) equal ``score_block``'s on the
+    same input bit for bit."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    with _ForcedScoreBlock():
+        sb1 = K.lloyd_pass_cuda(x, c, weights=w, compute_dtype=cd)
+        sb2 = K.lloyd_delta_cuda(x, c, prev, weights=w, compute_dtype=cd,
+                                 with_mind=False)
+    _sync()
+    _check(torch.equal(k1[0], sb1[0]) and torch.equal(k1[1], sb1[1]),
+           f"K1 {name}: the Hopper core's labels or min_d2 differ from "
+           "score_block's")
+    _check(torch.equal(k2[0], sb2[0]) and torch.equal(k2[1], sb2[1]),
+           f"K2 {name}: the Hopper core's labels or raw scores differ from "
+           "score_block's")
+
+
+def _slice_edge_core_ties(gen):
+    """Duplicate centroids at columns 255 and 256, on either side of the
+    Hopper core's 256-column slice edge, and rows that sit on them: K1 and
+    K2 must give 255.  k = 257 leaves the second slice one column; k = 1000
+    is the headline's width."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    bf16 = torch.bfloat16
+    for k in (257, 1000):
+        x, c, w, prev = _case_inputs(gen, 2053, 2048, k, bf16, False)
+        c[256] = c[255]
+        x[:64] = c[255].to(bf16)
+        name = f"n=2053 d=2048 k={k} x=bfloat16 tie at the core's slice edge"
+        _check(K.scoring_core(x, bf16, c.to(bf16)) == "wgmma",
+               f"{name}: not on the Hopper core")
+        k1 = K.lloyd_pass_cuda(x, c, weights=w, compute_dtype=bf16)
+        k2 = K.lloyd_delta_cuda(x, c, prev, weights=w, compute_dtype=bf16,
+                                with_mind=False)
+        _sync()
+        _check(bool((k1[0][:64] == 255).all() and (k2[0][:64] == 255).all()),
+               f"{name}: the tie did not go to column 255")
+        _check_labels(f"K1 {name}", x, c, bf16, k1[0],
+                      K.lloyd_pass_plain(x, c, compute_dtype=bf16)[0])
+        _check_k1_repeats(name, x, c, bf16, w, k1)
+        _check_cores_agree(name, x, c, bf16, w, prev, k1, k2)
+        print(f"  ok {name} (core wgmma)")
+
+
 def phase_kernels():
     import torch
 
@@ -454,13 +541,22 @@ def phase_kernels():
              for n in (2053,)]
     cases += [(1531, 64, 10, f32, f32, True), (1531, 64, 10, bf16, bf16, True),
               (2053, 2048, 1000, bf16, bf16, True)]
+    # The Hopper core's ragged shapes: n % 128 != 0; d a multiple of 8 but
+    # not of 64; k = 257 (a last slice of one column), k = 3 (one ragged
+    # slice).
+    cases += [(2053, d, k, bf16, bf16, False)
+              for d in (8, 200) for k in (3, 257, 1000)]
+    cases += [(2053, 2048, 257, bf16, bf16, False)]
+    cores = {}
     for n, d, k, xd, cd, ties in cases:
+        x, c, w, prev = _case_inputs(gen, n, d, k, xd, ties)
+        core = K.scoring_core(x, cd, c.to(cd))
+        cores[core] = cores.get(core, 0) + 1
         name = (f"n={n} d={d} k={k} x={str(xd)[6:]} cd={str(cd)[6:]}"
                 f"{' ties' if ties else ''}")
-        x, c, w, prev = _case_inputs(gen, n, d, k, xd, ties)
         xf = x.float()
         # K1
-        lab, mind, sums, counts, _ = K.lloyd_pass_cuda(
+        lab, mind, sums, counts, _ = k1 = K.lloyd_pass_cuda(
             x, c, weights=w, compute_dtype=cd)
         _sync()
         plain = K.lloyd_pass_plain(x, c, weights=w, compute_dtype=cd)
@@ -505,6 +601,9 @@ def phase_kernels():
             _close(f"K2 dsums {name}", dsums, add[0] - sub[0])
             _check(bool(torch.equal(dcounts, add[1] - sub[1])),
                    f"K2 dcounts {name}")
+        _check_k1_repeats(name, x, c, cd, w, k1)
+        if core == "wgmma":
+            _check_cores_agree(name, x, c, cd, w, prev, k1, k2)
         # K3 with out-of-range labels and scores.
         lab3 = torch.randint(-2, k + 3, (n,), generator=gen, device="cuda",
                              dtype=torch.int32)
@@ -523,10 +622,14 @@ def phase_kernels():
         # K5 and K6 at 128-column slices: k = 1000 leaves a ragged last
         # slice of 104 columns, k = 3 one ragged slice.
         moved = max(moved, _check_tiled(name, x, c, cd, w, prev, ties))
-        print(f"  ok {name} ({moved} rows labelled differently from the "
-              "plain version, each a tie within the tolerance)")
+        print(f"  ok {name}, core {core} ({moved} rows labelled differently "
+              "from the plain version, each a tie within the tolerance)")
     _straddling_tie_cases(gen)
-    print(f"kernels vs plain: {len(cases) + 2} cases agree (score rtol "
+    _slice_edge_core_ties(gen)
+    print(f"scoring cores of K1 and K2 over the cases: {cores}; the Hopper "
+          "core's labels, min_d2 and raw scores equal score_block's bit for "
+          "bit, and two K1 launches equal each other bit for bit")
+    print(f"kernels vs plain: {len(cases) + 4} cases agree (score rtol "
           f"{SCORE_RTOL}, sums rtol {SUMS_RTOL}, counts exact; K5 equal to "
           "K1, K2 and K4 bit for bit; K6 equal to itself bit for bit)")
 
@@ -575,6 +678,9 @@ def phase_headline():
     _sync()
     print(f"headline data: n={n} d={d} k={k} bf16, "
           f"{time.perf_counter() - t0:.2f} s to make")
+    core = K.scoring_core(x, bf16, c0.to(bf16))
+    print(f"scoring core of K1 and K2 at the headline shape: {core}")
+    _check(core == "wgmma", "the headline shape does not take the Hopper core")
 
     # The main path, in three runs, each with the counts set to 0 just
     # before it and read just after: the delta fit (K1 and K2 only), the
@@ -685,6 +791,7 @@ def phase_headline():
            library_ms, err,
            xb + 2 * x_row + cb + 2 * x_row + k * d * 4 + k * 4,
            dist_ops, 4.0 * n_changed * d)
+    _core_breakdown(x, c1, lab, kernels[0]["ms"], kernels[1]["ms"], dist_ops)
 
     # K3 with the sweep's labels.
     got = K.accumulate_cuda(x, lab, k, weights=w, compute_dtype=bf16)
@@ -712,6 +819,66 @@ def phase_headline():
           f"{time.perf_counter() - t0:.3f} s")
     _check(bool(torch.isfinite(seeds).all()), "k-means++ seeds not finite")
     return kernels, launches
+
+
+def _clock_under(fn, seconds=3.0):
+    """Median SM clock (MHz) and power draw (W) that ``nvidia-smi`` samples
+    every 100 ms while ``fn`` runs back to back, the first second of samples
+    left out; None where it reports none."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(10):
+                fn()
+            _sync()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    rows = []
+    for line in out.splitlines()[10:]:
+        try:
+            rows.append([float(v) for v in line.split(",")])
+        except ValueError:
+            continue
+    if not rows:
+        return None, None
+    return (statistics.median(r[0] for r in rows),
+            statistics.median(r[1] for r in rows))
+
+
+def _core_breakdown(x, c, prev, k1_ms, k2_ms, dist_ops):
+    """K1's time split by what it does at the headline shape (scoring + the
+    slice merge, + ||x||², + K6's fold), both kernels' product rate, and
+    the SM clock and power under K2, with the tensor cores' bf16 peak at
+    that clock (4096 operations a clock on each SM)."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    bf16 = torch.bfloat16
+    raw_ms = _time_ms(lambda: K.lloyd_pass_cuda(
+        x, c, compute_dtype=bf16, with_update=False, raw_scores=True), 5)
+    norm_ms = _time_ms(lambda: K.lloyd_pass_cuda(
+        x, c, compute_dtype=bf16, with_update=False), 5)
+    print(f"K1 {k1_ms:.3f} ms = scoring and merge {raw_ms:.3f} + ||x||² "
+          f"{norm_ms - raw_ms:.3f} + K6 fold {k1_ms - norm_ms:.3f}; product "
+          f"rate K1 {dist_ops / k1_ms / 1e9:.1f}, K2 "
+          f"{dist_ops / k2_ms / 1e9:.1f}, scoring alone "
+          f"{dist_ops / raw_ms / 1e9:.1f} TFLOP/s")
+    clock, power = _clock_under(lambda: K.lloyd_delta_cuda(
+        x, c, prev, compute_dtype=bf16, with_mind=False))
+    if clock is None:
+        print("SM clock under K2: not reported by nvidia-smi")
+        return
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    peak = sms * 4096 * clock * 1e6 / 1e12
+    print(f"SM clock under K2: {clock:.0f} MHz, power {power:.1f} W; the "
+          f"tensor cores' bf16 peak at that clock {peak:.1f} TFLOP/s, K2 at "
+          f"{dist_ops / k2_ms / 1e9 / peak:.1%} of it")
 
 
 def _forced_tiled(x, c, prev, k1_ms, k2_ms):
@@ -813,7 +980,7 @@ def _auto_fit(x, c0):
                       max_iter=AUTO_SWEEPS, tol=-1.0).fit(x)
     _sync()
     seconds = time.perf_counter() - t0
-    # Its counters may differ a little: the kernels' atomic fold sums in
+    # Its counters may differ a little: K2's and K4's atomic folds sum in
     # another order each run, which moves the centroids at the f32
     # rounding level and with them bound tests on the margin.
     print(f"  the same fit again: {seconds:.3f} s = "
@@ -1010,8 +1177,15 @@ def _flavour_sweeps(x, states, rno):
 def phase_whole_fit():
     import kmeans_tpu_torch as kt
 
+    import torch
+
+    from kmeans_tpu_torch.ops.cuda_lloyd import scoring_core
+
     n, d, k = 400_000, 300, 1000
     x, _, _ = kt.make_blobs(5, n, d, k)
+    core = scoring_core(x.to(torch.bfloat16), torch.bfloat16)
+    print(f"scoring core of K1 and K2 at the glove shape (d = {d}): {core}")
+    _check(core == "score_block", "the glove shape took the Hopper core")
     for update in ("delta", "auto"):
         fits = {}
         for backend in ("auto", "plain"):

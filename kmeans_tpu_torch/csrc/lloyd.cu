@@ -10,7 +10,12 @@
 // returns cudaGetLastError() after its launch.  Python wrappers, checks and
 // the plain PyTorch versions live in kmeans_tpu_torch/ops/cuda_lloyd.py.
 //
-// Shared design of the three scoring kernels (K1, K2, K4):
+// Two scoring cores.  K1 and K2 score bf16 x in bf16 compute with d % 8 == 0
+// and 16-byte-aligned bases (the rule is scoring_core in cuda_lloyd.py, and
+// the wrapper passes its choice in) with the Hopper core below
+// (core_score_kernel: TMA into an mbarrier ring, wgmma, the argmin taken
+// from registers).  Every other input of K1 and K2, and every input of K4
+// and K5, runs score_block:
 //
 // * A block scores BM = 128 rows against every centroid in k-tiles of
 //   BN = 128 (score_block).  The rows are a contiguous block (K1, K2) or
@@ -34,23 +39,27 @@
 //   min(second_a, second_b, max(best_a, best_b)), so an exact duplicate of
 //   the best column makes second == best.
 //   Columns past k and rows past n are masked, so any d and k are taken.
-// * The fold is a scatter: a warp per row adds w * float(cd(x[r, :])) into
-//   sums[label, :] and w into counts[label] with f32 atomicAdd.  At the
+// * K1 folds with K6's bucketed fold (below), so its sums have the same bits
+//   every launch.  K2 and K4 scatter their changed rows: a warp per row adds
+//   +-w * float(cd(x[r, :])) into the sums with f32 atomicAdd, in an order
+//   that changes from run to run at the f32 rounding level.  At the
 //   headline shape (k = 1000, d = 2048) the f32 sums are 8 MB, so the
-//   atomics resolve in L2.  The sum order is that of the atomics: it changes
-//   from run to run at the f32 rounding level.
-// * ||x||^2 is taken from x in its stored dtype, widened to f32.
+//   atomics resolve in L2.
+// * ||x||^2 is taken from x in its stored dtype, widened to f32, a lane per
+//   32nd column and a butterfly sum, the same order in every kernel.
 //
 // What bounds them on an H100: the distance product, 2*n*d*k operations
 // (5.24 TFLOP at n = 1.28M, d = 2048, k = 1000: >= 5.3 ms at 989 TFLOP/s
 // bf16), against one read of x (5.24 GB bf16: >= 1.56 ms at 3.35 TB/s); K4
-// does the product for its needed rows only.  This first version is simple
-// rather than fast: no wgmma, no TMA, no software pipelining; the x tile is
-// re-read from L2 once per k-tile.
+// does the product for its needed rows only.  score_block is simple rather
+// than fast: no wgmma, no TMA, no software pipelining; the x tile is re-read
+// from L2 once per k-tile.
 
+#include <cuda.h>             // CUtensorMap and its enums only: no driver call is linked
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
+#include <algorithm>
 #include <climits>
 #include <cmath>
 #include <cstdint>
@@ -296,20 +305,32 @@ __device__ void score_block(const XT* __restrict__ xblk, const int* gather, int 
   __syncthreads();
 }
 
+// ||x[row]||^2 in f32 from x in its stored dtype: lane l sums columns l,
+// l + 32, ... and the warp adds the lanes up in a butterfly.  Every kernel
+// takes the norm in this order, so they give one row the same bits.
+template <class XT>
+__device__ __forceinline__ float row_sq(const XT* __restrict__ xr, int d, int lane) {
+  float sq = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float xf = to_f32(xr[c]);
+    sq = fmaf(xf, xf, sq);
+  }
+  return warp_sum(sq);
+}
+
 // K1 -- replaces kmeans_tpu/ops/pallas_lloyd.py::lloyd_pass_pallas (_kernel).
 // Bound on an H100: the distance product (2*n*d*k operations); the fold adds
-// one more read of x (every row is folded).  Design: score_block for the
-// argmin, then a warp per row reads the row once for ||x||^2 and, with
-// with_update, its scatter fold.  raw (the sharded callers' hook) writes the
-// raw min score and skips the norm; the other hook, valid_cols, is a +inf
-// csq set by the wrapper.
+// one more read of x (every row is folded).  Design: the argmin (this
+// kernel with score_block, or the Hopper core and tiled_merge_kernel), then
+// with with_update K6's single fold on the labels just written.  This kernel
+// scores a 128-row block and a warp per row reads the row for ||x||^2.  raw
+// (the sharded callers' hook) writes the raw min score and skips the norm;
+// the other hook, valid_cols, is a +inf csq set by the wrapper.
 template <class XT, class CT, bool VEC>
 __global__ void __launch_bounds__(NT, 2)
 lloyd_pass_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
-                  const float* __restrict__ csq, const float* __restrict__ w,
-                  int n, int d, int k, int with_update, int raw,
-                  int* __restrict__ labels, float* __restrict__ mind,
-                  float* __restrict__ sums, float* __restrict__ counts) {
+                  const float* __restrict__ csq, int n, int d, int k, int raw,
+                  int* __restrict__ labels, float* __restrict__ mind) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float s_csq[BN], s_min[BM];
   __shared__ int s_lab[BM];
@@ -322,24 +343,10 @@ lloyd_pass_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
   for (int r = warp; r < BM; r += NWARP) {
     const int gr = row0 + r;
     if (gr >= n) break;
-    const int lab = s_lab[r];
-    const float wr = w[gr];
-    const bool fold = with_update && wr != 0.f;
-    const XT* xr = x + (size_t)gr * d;
-    float* dst = sums + (size_t)lab * d;
-    float sq = 0.f;
-    if (fold || !raw) {
-      for (int c = lane; c < d; c += 32) {
-        const float xf = to_f32(xr[c]);
-        sq = fmaf(xf, xf, sq);
-        if (fold) atomicAdd(dst + c, wr * cd_round<CT>(xf));
-      }
-      sq = warp_sum(sq);
-    }
+    const float sq = raw ? 0.f : row_sq(x + (size_t)gr * d, d, lane);
     if (lane == 0) {
-      labels[gr] = lab;
+      labels[gr] = s_lab[r];
       mind[gr] = raw ? s_min[r] : fmaxf(s_min[r] + sq, 0.f);
-      if (fold) atomicAdd(counts + lab, wr);
     }
   }
 }
@@ -352,7 +359,46 @@ lloyd_pass_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
 // is scattered directly: +w at the new label, -w at the old one when
 // 0 <= prev < k.  n_changed is one shared-memory count per block plus one
 // global atomic; group_counts[g] counts the changed rows of the g-th
-// 1024-row group, from which the wrapper reports dense_tiles.
+// 1024-row group, from which the wrapper reports dense_tiles.  The epilogue
+// of one row (delta_row) is shared with the Hopper core's finishing launch.
+template <class XT, class CT>
+__device__ __forceinline__ bool delta_row(const XT* __restrict__ x, const float* __restrict__ w,
+                                          const int* __restrict__ prev, int gr, int d, int k,
+                                          int with_mind, int lab, float best, int lane,
+                                          int* __restrict__ labels, float* __restrict__ mind,
+                                          float* __restrict__ dsums,
+                                          float* __restrict__ dcounts) {
+  const int old = prev[gr];
+  const float wr = w[gr];
+  const bool changed = lab != old && wr > 0.f;
+  const bool sub = changed && old >= 0 && old < k;
+  float sq = 0.f;
+  if (with_mind || changed) {
+    const XT* xr = x + (size_t)gr * d;
+    float* add_row = dsums + (size_t)lab * d;
+    float* sub_row = dsums + (size_t)(sub ? old : 0) * d;
+    for (int c = lane; c < d; c += 32) {
+      const float xf = to_f32(xr[c]);
+      sq = fmaf(xf, xf, sq);
+      if (changed) {
+        const float v = wr * cd_round<CT>(xf);
+        atomicAdd(add_row + c, v);
+        if (sub) atomicAdd(sub_row + c, -v);
+      }
+    }
+    sq = warp_sum(sq);
+  }
+  if (lane == 0) {
+    labels[gr] = lab;
+    mind[gr] = with_mind ? fmaxf(best + sq, 0.f) : best;
+    if (changed) {
+      atomicAdd(dcounts + lab, wr);
+      if (sub) atomicAdd(dcounts + old, -wr);
+    }
+  }
+  return changed;
+}
+
 template <class XT, class CT, bool VEC>
 __global__ void __launch_bounds__(NT, 2)
 lloyd_delta_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
@@ -375,36 +421,10 @@ lloyd_delta_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
   for (int r = warp; r < BM; r += NWARP) {
     const int gr = row0 + r;
     if (gr >= n) break;
-    const int lab = s_lab[r];
-    const int old = prev[gr];
-    const float wr = w[gr];
-    const bool changed = lab != old && wr > 0.f;
-    const bool sub = changed && old >= 0 && old < k;
-    float sq = 0.f;
-    if (with_mind || changed) {
-      const XT* xr = x + (size_t)gr * d;
-      float* add_row = dsums + (size_t)lab * d;
-      float* sub_row = dsums + (size_t)(sub ? old : 0) * d;
-      for (int c = lane; c < d; c += 32) {
-        const float xf = to_f32(xr[c]);
-        sq = fmaf(xf, xf, sq);
-        if (changed) {
-          const float v = wr * cd_round<CT>(xf);
-          atomicAdd(add_row + c, v);
-          if (sub) atomicAdd(sub_row + c, -v);
-        }
-      }
-      sq = warp_sum(sq);
-    }
-    if (lane == 0) {
-      labels[gr] = lab;
-      mind[gr] = with_mind ? fmaxf(s_min[r] + sq, 0.f) : s_min[r];
-      if (changed) {
-        atomicAdd(dcounts + lab, wr);
-        if (sub) atomicAdd(dcounts + old, -wr);
-        atomicAdd(&s_changed, 1);
-      }
-    }
+    if (delta_row<XT, CT>(x, w, prev, gr, d, k, with_mind, s_lab[r], s_min[r], lane, labels,
+                          mind, dsums, dcounts) &&
+        lane == 0)
+      atomicAdd(&s_changed, 1);
   }
   __syncthreads();
   if (threadIdx.x == 0 && s_changed > 0) {
@@ -600,15 +620,7 @@ tiled_merge_kernel(const XT* __restrict__ x, const float* __restrict__ part_best
   const int row = (int)((blockIdx.x * (size_t)NT + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= n) return;
-  float sq = 0.f;
-  if (!raw) {
-    const XT* xr = x + (size_t)row * d;
-    for (int c = lane; c < d; c += 32) {
-      const float xf = to_f32(xr[c]);
-      sq = fmaf(xf, xf, sq);
-    }
-    sq = warp_sum(sq);
-  }
+  const float sq = raw ? 0.f : row_sq(x + (size_t)row * d, d, lane);
   if (lane != 0) return;
   float best = part_best[row];
   int idx = part_idx[row];
@@ -884,36 +896,312 @@ fold_combine_kernel(const int* __restrict__ cstart, const int* __restrict__ psta
   }
 }
 
+// ---------------------------------------------------------------------------
+// The Hopper scoring core of K1 and K2 (bf16 x in bf16 compute, d % 8 == 0,
+// 16-byte-aligned bases).  What bounds it: the distance product, 2*n*d*k
+// bf16 operations on the tensor cores (>= 5.3 ms at the headline shape),
+// and the L2 traffic of its tiles.  score_block lost to the library's
+// matmul + argmin by 4-6x for four reasons, and the design answers each:
+//   * no pipelining: one producer thread keeps TMA loads
+//     (cp.async.bulk.tensor, 128-byte swizzle) of an x tile (128 x 64) and a
+//     -2C tile (256 x 64) in flight into a ring of CORE_STAGES stages, each
+//     with a full and an empty mbarrier; TMA fills rows past n, centroids
+//     past k and features past d with zeros, which add 0 to a product;
+//   * mma.sync instead of wgmma: two consumer warpgroups, 64 rows each,
+//     issue wgmma.mma_async m64n256k16 (bf16 in, f32 accumulators in
+//     registers, 128 a thread), four per stage, with one stage's group left
+//     in flight while the next stage is awaited; setmaxnreg moves registers
+//     from the producer warpgroup to them;
+//   * a score tile in shared memory: the argmin is taken in registers.  Each
+//     thread adds csq (+inf past k) to its 64 columns of each of its 2 rows,
+//     in increasing column order with strict '<', and the 4 lanes that share
+//     a row merge by (value, index), so the lowest index wins a tie;
+//   * x re-streamed per 128-column k-tile: the kernel is persistent (a block
+//     per SM) and walks (row block, 256-column slice) tiles numbered
+//     row-block-major, so the ceil(k/256) slices of a row block run on
+//     neighbouring blocks at about the same time and all but the first read
+//     its x tile from L2, while -2C (4 MB at the headline shape) stays there.
+// Each tile writes its (best, index) per row to a (slices, n) buffer; the
+// finishing launch (a warp per row: tiled_merge_kernel for K1,
+// core_delta_finish_kernel for K2) walks the slices in increasing order with
+// strict '<', K5's rule, so the lowest global index wins across a slice edge.
+// The wgmma products sum in the order mma.sync does: the core's scores equal
+// score_block's bit for bit (chip_smoke.py checks it).  A cluster of two
+// blocks sharing the -2C tile by TMA multicast halved the L2 reads of -2C
+// and did not move the headline time beyond its run-to-run spread
+// (PERF.md, PR 4), so L2 is not what holds the core and it stays one block.
+// ---------------------------------------------------------------------------
+constexpr int CORE_BM = 128;                 // rows of a tile: two warpgroups of 64
+constexpr int CORE_BN = 256;                 // centroids of a tile: one column slice
+constexpr int CORE_BK = 64;                  // features a stage: one 128-byte swizzle row
+constexpr int CORE_STAGES = 4;
+constexpr int CORE_THREADS = 3 * 128;        // the producer warpgroup and two consumers
+constexpr int CORE_X_BYTES = CORE_BM * CORE_BK * 2;
+constexpr int CORE_C_BYTES = CORE_BN * CORE_BK * 2;
+constexpr int CORE_STAGE_BYTES = CORE_X_BYTES + CORE_C_BYTES;
+// Dynamic shared memory: the ring and the slack that aligns it to 1024 bytes
+// (the 128-byte swizzle's period).  kmeans_tpu_torch/ops/plan.py prices it,
+// with the ring's 2 * CORE_STAGES mbarriers, as CORE_SMEM_BYTES.
+constexpr int CORE_SMEM = CORE_STAGES * CORE_STAGE_BYTES + 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A 2-D TMA load of the box at (col, row) of map into dst, completing on bar.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with the 128-byte swizzle:
+// 8-row groups 1024 bytes apart (SBO), the leading offset unused (1).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (+)= A . B^T over 16 features: A 64 rows of x, B 256 rows of -2C, both
+// K-major in shared memory; scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__global__ void __launch_bounds__(CORE_THREADS, 1)
+core_score_kernel(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap c_map, const float* __restrict__ csq,
+                  int n, int d, int k, float* __restrict__ part_best,
+                  int* __restrict__ part_idx) {
+  extern __shared__ __align__(1024) unsigned char core_smem[];
+  __shared__ __align__(8) uint64_t full[CORE_STAGES], empty[CORE_STAGES];
+  unsigned char* ring = core_smem + ((1024u - (smem_u32(core_smem) & 1023u)) & 1023u);
+  const int slices = (k + CORE_BN - 1) / CORE_BN;
+  const int tiles = ((n + CORE_BM - 1) / CORE_BM) * slices;
+  const int kblocks = (d + CORE_BK - 1) / CORE_BK;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < CORE_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);          // one arrival from each consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // The producer.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int row0 = (t / slices) * CORE_BM, col0 = (t % slices) * CORE_BN;
+        for (int kb = 0; kb < kblocks; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1u);
+          unsigned char* xs = ring + stage * CORE_STAGE_BYTES;
+          mbar_expect_tx(&full[stage], CORE_STAGE_BYTES);
+          tma_load_2d(xs, &x_map, &full[stage], kb * CORE_BK, row0);
+          tma_load_2d(xs + CORE_X_BYTES, &c_map, &full[stage], kb * CORE_BK, col0);
+          if (++stage == CORE_STAGES) {
+            stage = 0;
+            phase ^= 1u;
+          }
+        }
+      }
+    }
+  } else {
+    // A consumer: rows cw*64 .. cw*64 + 63 of each tile.  Thread t of the
+    // warpgroup holds rows 16*(t/32) + (t%32)/4 (+8) and, in n8 chunk j,
+    // columns 8j + 2(t%4) (+1): acc[4j + 2h + e] is (row + 8h, column + e).
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1, t128 = threadIdx.x & 127, lane = threadIdx.x & 31;
+    const int r_lo = cw * 64 + (t128 >> 5) * 16 + (lane >> 2);
+    const int c_lo = (lane & 3) * 2;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int slice = t % slices;
+      const int row0 = (t / slices) * CORE_BM, col0 = slice * CORE_BN;
+      int held = -1;                    // the stage whose wgmma group is in flight
+      for (int kb = 0; kb < kblocks; ++kb) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* xs = ring + stage * CORE_STAGE_BYTES;
+        const uint64_t da = sw128_desc(xs + cw * 64 * CORE_BK * 2);
+        const uint64_t db = sw128_desc(xs + CORE_X_BYTES);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < CORE_BK / 16; ++kk)   // 16 features = 32 bytes = 2 units
+          wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk, (kb > 0 || kk > 0) ? 1 : 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (held >= 0 && t128 == 0) mbar_arrive(&empty[held]);
+        held = stage;
+        if (++stage == CORE_STAGES) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+      wgmma_wait<0>();
+      if (t128 == 0) mbar_arrive(&empty[held]);
+
+      float best[2] = {INFINITY, INFINITY};
+      int idx[2] = {col0, col0};
+#pragma unroll
+      for (int j = 0; j < CORE_BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = col0 + 8 * j + c_lo + e;
+          const float cs = col < k ? __ldg(csq + col) : INFINITY;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float v = cs + acc[4 * j + 2 * h + e];
+            if (v < best[h]) {
+              best[h] = v;
+              idx[h] = col;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          const float ob = __shfl_xor_sync(0xffffffffu, best[h], o);
+          const int oi = __shfl_xor_sync(0xffffffffu, idx[h], o);
+          if (ob < best[h] || (ob == best[h] && oi < idx[h])) {
+            best[h] = ob;
+            idx[h] = oi;
+          }
+        }
+        const int row = row0 + r_lo + 8 * h;
+        if ((lane & 3) == 0 && row < n) {
+          const size_t o = (size_t)slice * n + row;
+          part_best[o] = best[h];
+          part_idx[o] = idx[h];
+        }
+      }
+    }
+  }
+}
+
+// K2's finishing launch after the core: a warp per row merges the slices
+// (strict '<' in increasing slice order) and runs K2's row epilogue.
+template <class XT, class CT>
+__global__ void __launch_bounds__(NT)
+core_delta_finish_kernel(const XT* __restrict__ x, const float* __restrict__ part_best,
+                         const int* __restrict__ part_idx, int slices,
+                         const float* __restrict__ w, const int* __restrict__ prev, int n, int d,
+                         int k, int with_mind, int* __restrict__ labels,
+                         float* __restrict__ mind, float* __restrict__ dsums,
+                         float* __restrict__ dcounts, int* __restrict__ n_changed,
+                         int* __restrict__ group_counts) {
+  __shared__ int s_changed;
+  if (threadIdx.x == 0) s_changed = 0;
+  __syncthreads();
+  const int row0 = (int)(((size_t)blockIdx.x * NT) >> 5);
+  const int gr = row0 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (gr < n) {
+    float best = part_best[gr];
+    int lab = part_idx[gr];
+    for (int s = 1; s < slices; ++s) {
+      const size_t o = (size_t)s * n + gr;
+      const float b = part_best[o];
+      if (b < best) {
+        best = b;
+        lab = part_idx[o];
+      }
+    }
+    if (delta_row<XT, CT>(x, w, prev, gr, d, k, with_mind, lab, best, lane, labels, mind, dsums,
+                          dcounts) &&
+        lane == 0)
+      atomicAdd(&s_changed, 1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && s_changed > 0) {
+    atomicAdd(n_changed, s_changed);
+    atomicAdd(group_counts + row0 / GROUP_ROWS, s_changed);
+  }
+}
+
 template <class F>
 int set_smem(F kern, int bytes) {
   return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-template <class XT, class CT, bool VEC>
-int launch_pass(const void* x, const void* neg2c, const float* csq, const float* w, int n,
-                int d, int k, int with_update, int raw, int* labels, float* mind, float* sums,
-                float* counts, cudaStream_t stream) {
-  auto kern = lloyd_pass_kernel<XT, CT, VEC>;
-  constexpr int smem = smem_bytes<CT>();
-  if (int e = set_smem(kern, smem)) return e;
-  kern<<<(n + BM - 1) / BM, NT, smem, stream>>>(
-      static_cast<const XT*>(x), static_cast<const CT*>(neg2c), csq, w, n, d, k, with_update,
-      raw, labels, mind, sums, counts);
-  return (int)cudaGetLastError();
-}
-
-template <class XT, class CT, bool VEC>
-int launch_delta(const void* x, const void* neg2c, const float* csq, const float* w,
-                 const int* prev, int n, int d, int k, int with_mind, int* labels, float* mind,
-                 float* dsums, float* dcounts, int* n_changed, int* group_counts,
-                 cudaStream_t stream) {
-  auto kern = lloyd_delta_kernel<XT, CT, VEC>;
-  constexpr int smem = smem_bytes<CT>();
-  if (int e = set_smem(kern, smem)) return e;
-  kern<<<(n + BM - 1) / BM, NT, smem, stream>>>(
-      static_cast<const XT*>(x), static_cast<const CT*>(neg2c), csq, w, prev, n, d, k,
-      with_mind, labels, mind, dsums, dcounts, n_changed, group_counts);
-  return (int)cudaGetLastError();
 }
 
 template <class XT, class CT, bool VEC>
@@ -1014,7 +1302,140 @@ int launch_fold(const void* x, const float* w, const int* lab, const int* lab2, 
                                               part_counts, sums, counts, stream);
 }
 
-constexpr int kBadDtype = -1;
+// Error codes of the entry points besides CUDA's own (which are positive).
+constexpr int kBadDtype = -1;       // no kernel for this dtype pair
+constexpr int kBadCore = -2;        // the Hopper core was asked for an input it does not take
+constexpr int kNoTensorMap = -3;    // the driver offers no cuTensorMapEncodeTiled
+constexpr int kBadTensorMap = -4;   // cuTensorMapEncodeTiled refused an operand
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime, so the
+// library links no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a row-major (rows, d) bf16 matrix, read in boxes of
+// CORE_BK features by box_rows rows with the 128-byte swizzle; reads past
+// the edges fill zeros.
+int make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d, int rows,
+             int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)CORE_BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kBadTensorMap;
+}
+
+// The core's score launch: (best, index) of every (slice, row) into
+// part_best / part_idx, (ceil(k / CORE_BN), n) each.
+int launch_core_score(const void* x, const void* neg2c, const float* csq, int n, int d, int k,
+                      float* part_best, int* part_idx, cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kNoTensorMap;
+  CUtensorMap x_map, c_map;
+  if (int e = make_map(encode, &x_map, x, d, n, CORE_BM)) return e;
+  if (int e = make_map(encode, &c_map, neg2c, d, k, CORE_BN)) return e;
+  int dev = 0, sms = 0;
+  if (int e = (int)cudaGetDevice(&dev)) return e;
+  if (int e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) return e;
+  if (int e = set_smem(core_score_kernel, CORE_SMEM)) return e;
+  const long long tiles =
+      (long long)((n + CORE_BM - 1) / CORE_BM) * ((k + CORE_BN - 1) / CORE_BN);
+  const int grid = (int)std::min<long long>(tiles, sms);
+  core_score_kernel<<<grid, CORE_THREADS, CORE_SMEM, stream>>>(x_map, c_map, csq, n, d, k,
+                                                               part_best, part_idx);
+  return (int)cudaGetLastError();
+}
+
+template <class XT, class CT, bool VEC>
+constexpr bool core_takes = std::is_same<XT, bf16>::value && std::is_same<CT, bf16>::value && VEC;
+
+template <class XT, class CT, bool VEC>
+int launch_pass(const void* x, const void* neg2c, const float* csq, const float* w, int n,
+                int d, int k, int with_update, int raw, int core, int* labels, float* mind,
+                float* sums, float* counts, float* part_best, int* part_idx, int chunk_entries,
+                int chunks, int fold_vec, int* hist, int* total, int* start, int* cstart,
+                int* pstart, int* order, float* part, float* part_counts, cudaStream_t stream) {
+  const XT* xt = static_cast<const XT*>(x);
+  if (core) {
+    if constexpr (core_takes<XT, CT, VEC>) {
+      if (int e = launch_core_score(x, neg2c, csq, n, d, k, part_best, part_idx, stream))
+        return e;
+      const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
+      tiled_merge_kernel<XT><<<(unsigned)blocks, NT, 0, stream>>>(
+          xt, part_best, part_idx, nullptr, n, d, (k + CORE_BN - 1) / CORE_BN, raw, labels,
+          mind, nullptr);
+    } else {
+      return kBadCore;
+    }
+  } else {
+    auto kern = lloyd_pass_kernel<XT, CT, VEC>;
+    constexpr int smem = smem_bytes<CT>();
+    if (int e = set_smem(kern, smem)) return e;
+    kern<<<(n + BM - 1) / BM, NT, smem, stream>>>(xt, static_cast<const CT*>(neg2c), csq, n, d,
+                                                  k, raw, labels, mind);
+  }
+  if (int e = (int)cudaGetLastError()) return e;
+  if (!with_update) return 0;
+  if (fold_vec)
+    return launch_fold_dual<XT, CT, true, false>(x, w, labels, nullptr, n, d, k, chunk_entries,
+                                                 chunks, hist, total, start, cstart, pstart,
+                                                 order, part, part_counts, sums, counts, stream);
+  return launch_fold_dual<XT, CT, false, false>(x, w, labels, nullptr, n, d, k, chunk_entries,
+                                                chunks, hist, total, start, cstart, pstart, order,
+                                                part, part_counts, sums, counts, stream);
+}
+
+template <class XT, class CT, bool VEC>
+int launch_delta(const void* x, const void* neg2c, const float* csq, const float* w,
+                 const int* prev, int n, int d, int k, int with_mind, int core, int* labels,
+                 float* mind, float* dsums, float* dcounts, int* n_changed, int* group_counts,
+                 float* part_best, int* part_idx, cudaStream_t stream) {
+  const XT* xt = static_cast<const XT*>(x);
+  if (core) {
+    if constexpr (core_takes<XT, CT, VEC>) {
+      if (int e = launch_core_score(x, neg2c, csq, n, d, k, part_best, part_idx, stream))
+        return e;
+      const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
+      core_delta_finish_kernel<XT, CT><<<(unsigned)blocks, NT, 0, stream>>>(
+          xt, part_best, part_idx, (k + CORE_BN - 1) / CORE_BN, w, prev, n, d, k, with_mind,
+          labels, mind, dsums, dcounts, n_changed, group_counts);
+      return (int)cudaGetLastError();
+    } else {
+      return kBadCore;
+    }
+  }
+  auto kern = lloyd_delta_kernel<XT, CT, VEC>;
+  constexpr int smem = smem_bytes<CT>();
+  if (int e = set_smem(kern, smem)) return e;
+  kern<<<(n + BM - 1) / BM, NT, smem, stream>>>(xt, static_cast<const CT*>(neg2c), csq, w, prev,
+                                                n, d, k, with_mind, labels, mind, dsums,
+                                                dcounts, n_changed, group_counts);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -1033,21 +1454,31 @@ constexpr int kBadDtype = -1;
     return kBadDtype;                                                               \
   } while (0)
 
+// core = 1 scores with the Hopper core (the wrapper's scoring_core rule);
+// part_best / part_idx are its (ceil(k / 256), n) slice buffers.  K1 folds
+// with K6's single fold when with_update; the wrapper zeroes hist and sizes
+// the fold's scratch (_fold_scratch in cuda_lloyd.py).
 extern "C" int kml_lloyd_pass(const void* x, int x_dtype, const void* neg2c, int cd,
                               const float* csq, const float* w, int n, int d, int k,
-                              int with_update, int raw, int vec, int* labels, float* mind,
-                              float* sums, float* counts, void* stream) {
-  KML_DISPATCH(launch_pass, x, neg2c, csq, w, n, d, k, with_update, raw, labels, mind, sums,
-               counts, static_cast<cudaStream_t>(stream));
+                              int with_update, int raw, int vec, int core, int* labels,
+                              float* mind, float* sums, float* counts, float* part_best,
+                              int* part_idx, int chunk_entries, int chunks, int fold_vec,
+                              int* hist, int* total, int* start, int* cstart, int* pstart,
+                              int* order, float* part, float* part_counts, void* stream) {
+  KML_DISPATCH(launch_pass, x, neg2c, csq, w, n, d, k, with_update, raw, core, labels, mind,
+               sums, counts, part_best, part_idx, chunk_entries, chunks, fold_vec, hist, total,
+               start, cstart, pstart, order, part, part_counts,
+               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int kml_lloyd_delta(const void* x, int x_dtype, const void* neg2c, int cd,
                                const float* csq, const float* w, const int* prev, int n, int d,
-                               int k, int with_mind, int vec, int* labels, float* mind,
-                               float* dsums, float* dcounts, int* n_changed,
-                               int* group_counts, void* stream) {
-  KML_DISPATCH(launch_delta, x, neg2c, csq, w, prev, n, d, k, with_mind, labels, mind, dsums,
-               dcounts, n_changed, group_counts, static_cast<cudaStream_t>(stream));
+                               int k, int with_mind, int vec, int core, int* labels, float* mind,
+                               float* dsums, float* dcounts, int* n_changed, int* group_counts,
+                               float* part_best, int* part_idx, void* stream) {
+  KML_DISPATCH(launch_delta, x, neg2c, csq, w, prev, n, d, k, with_mind, core, labels, mind,
+               dsums, dcounts, n_changed, group_counts, part_best, part_idx,
+               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int kml_accumulate(const void* x, int x_dtype, int cd, const int* labels,

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/lloyd.cu``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface the first time a kernel is launched, into
+The source is compiled with ``nvcc`` for ``sm_90a`` (``wgmma`` and
+``setmaxnreg`` exist only there) into a shared library with a plain C
+interface the first time a kernel is launched, into
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
 and loaded with :mod:`ctypes`.  The library's file name carries a hash of
 the source and flags, so an edited source is rebuilt and a stale library is
@@ -31,14 +32,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: argtypes of each C entry point: every pointer and the stream as c_void_p.
 _SIGNATURES = {
-    # x, x_dtype, neg2c, cd, csq, w, n, d, k, with_update, raw, vec,
-    # labels, mind, sums, counts, stream
-    "kml_lloyd_pass": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _P, _P, _P],
-    # x, x_dtype, neg2c, cd, csq, w, prev, n, d, k, with_mind, vec,
-    # labels, mind, dsums, dcounts, n_changed, group_counts, stream
-    "kml_lloyd_delta": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _P, _P, _P, _P, _P, _P, _P],
+    # x, x_dtype, neg2c, cd, csq, w, n, d, k, with_update, raw, vec, core,
+    # labels, mind, sums, counts, part_best, part_idx, chunk_entries,
+    # chunks, fold_vec, hist, total, start, cstart, pstart, order, part,
+    # part_counts, stream
+    "kml_lloyd_pass": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # x, x_dtype, neg2c, cd, csq, w, prev, n, d, k, with_mind, vec, core,
+    # labels, mind, dsums, dcounts, n_changed, group_counts, part_best,
+    # part_idx, stream
+    "kml_lloyd_delta": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # x, x_dtype, cd, labels, scores, w, n, d, k, sums, counts, mind, stream
     "kml_accumulate": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # x, x_dtype, neg2c, cd, csq, w, prev, need, sb_in, slb_in, n, d, k,

@@ -31,26 +31,32 @@ Numerics shared by the kernels and the plain versions: scores are
 ``||c||² + x_cd·(−2·C_cd)ᵀ`` with f32 accumulation (bf16 operands multiply
 exactly; f32 products never use TF32), the argmin keeps the lowest index on
 a tie, ``||x||²`` is taken from x in its stored dtype, and the fold adds
-``w·float(cd(x))``.  K1–K4 fold with f32 atomics, so their sums differ from
-the plain versions' (and from run to run) at the f32 rounding level; K6 sums
-each bucket in row order and gives the same bits every launch.
+``w·float(cd(x))``.  K2–K4 fold with f32 atomics, so their sums differ from
+the plain versions' (and from run to run) at the f32 rounding level; K1
+folds with K6's bucketed fold, which sums each bucket in row order and gives
+the same bits every launch.
+
+K1 and K2 score with one of two cores (:func:`scoring_core`): the Hopper
+core (TMA loads into an mbarrier ring, ``wgmma``, the argmin taken from
+registers) for bf16 x in bf16 compute with 16-byte rows, ``score_block``
+(``mma.sync`` in bf16, CUDA-core FMA in f32) for every other input.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from kmeans_tpu_torch.ops.distance import full_f32, resolve_cd, sq_norms
-from kmeans_tpu_torch.ops.plan import LANE
+from kmeans_tpu_torch.ops.plan import LANE, core_takes
 
 __all__ = ["lloyd_pass_cuda", "lloyd_delta_cuda", "accumulate_cuda",
            "lloyd_hamerly_cuda", "tiled_argmin_cuda", "tiled_fold_cuda",
            "lloyd_pass_plain", "lloyd_delta_plain", "accumulate_plain",
            "lloyd_hamerly_plain", "tiled_argmin_plain", "tiled_fold_plain",
-           "launch_counts", "reset_launch_counts",
+           "launch_counts", "reset_launch_counts", "scoring_core",
            "DENSE_GROUP_ROWS", "DENSE_SLOTS", "HAMERLY_SLOTS"]
 
 #: ``dense_tiles`` keeps the TPU kernels' meaning: the number of 1024-row
@@ -69,6 +75,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the most (chunk, label) counts its histogram may hold.
 _FOLD_CHUNK = 512
 _FOLD_HIST_CELLS = 1 << 24
+#: Centroids of one column slice of the Hopper core (``CORE_BN``).
+_CORE_SLICE = 256
+#: Negative codes of the C entry points (CUDA's own errors are positive).
+_ERRORS = {-1: "no kernel for this dtype pair",
+           -2: "the Hopper core does not take this input",
+           -3: "the driver offers no cuTensorMapEncodeTiled",
+           -4: "cuTensorMapEncodeTiled refused an operand"}
 
 
 def _counted(fn):
@@ -149,6 +162,78 @@ def _vec_ok(d: int, cd: torch.dtype, *tensors: torch.Tensor) -> int:
     return int(d % width == 0 and aligned)
 
 
+def scoring_core(x: torch.Tensor, cd: torch.dtype,
+                 *operands: torch.Tensor) -> str:
+    """The core K1 and K2 score ``x`` with: ``"wgmma"`` (the Hopper core)
+    where :func:`kmeans_tpu_torch.ops.plan.core_takes` says so and x and
+    ``operands`` start on 16-byte boundaries, else ``"score_block"``.  A
+    fixed rule on dtype, d and alignment: a failed build or launch never
+    picks the other core."""
+    d = x.shape[1]
+    takes = (x.dtype == cd == torch.bfloat16
+             and core_takes("classic", d, 2, 2)
+             and _vec_ok(d, cd, x, *operands))
+    return "wgmma" if takes else "score_block"
+
+
+def _core_parts(x: torch.Tensor, k: int, core: str):
+    """The Hopper core's per-slice ``(best, index)`` buffers, (⌈k/256⌉, n)
+    each, or ``(None, None)`` for ``score_block``."""
+    if core != "wgmma":
+        return None, None
+    n = x.shape[0]
+    slices = -(-k // _CORE_SLICE)
+    if -(-n // 128) * slices >= 2 ** 31:
+        raise ValueError(f"n={n}, k={k}: more than 2**31 tiles")
+    return (torch.empty(slices, n, dtype=torch.float32, device=x.device),
+            torch.empty(slices, n, dtype=torch.int32, device=x.device))
+
+
+class FoldScratch(NamedTuple):
+    """K6's launch sizes and scratch, as its C entry points take them."""
+
+    chunk_entries: int
+    chunks: int
+    vec: int
+    hist: torch.Tensor
+    total: torch.Tensor
+    start: torch.Tensor
+    cstart: torch.Tensor
+    pstart: torch.Tensor
+    order: torch.Tensor
+    part: torch.Tensor
+    part_counts: torch.Tensor
+
+    def args(self) -> tuple:
+        return (self.chunk_entries, self.chunks, self.vec,
+                *(t.data_ptr() for t in self[3:]))
+
+
+def _fold_scratch(x: torch.Tensor, k: int, dual: bool) -> FoldScratch:
+    """K6's scratch for a fold of x's rows into k labels: one entry a row,
+    two in the dual fold.  The histogram is zeroed; ``vec`` says whether
+    the fold may load 8 columns at once (d % 8 == 0, x 16-byte aligned)."""
+    n, d = x.shape
+    entries = n * (2 if dual else 1)
+    if entries >= 2 ** 31:
+        raise ValueError(f"{entries} fold entries do not fit the kernel's "
+                         "int32 entry index")
+    chunks = max(1, min(-(-n // DENSE_GROUP_ROWS), _FOLD_HIST_CELLS // k))
+    chunk_entries = -(-entries // chunks)
+    chunks = -(-entries // chunk_entries)
+    ints = dict(dtype=torch.int32, device=x.device)
+    # A bucket of more than _FOLD_CHUNK entries writes a partial row per
+    # fold block: at most 2·entries/_FOLD_CHUNK rows in all.
+    part_rows = 2 * -(-entries // _FOLD_CHUNK) + 1
+    return FoldScratch(
+        chunk_entries, chunks, int(d % 8 == 0 and x.data_ptr() % 16 == 0),
+        torch.zeros(chunks * k, **ints), torch.empty(k, **ints),
+        *(torch.empty(k + 1, **ints) for _ in range(3)),
+        torch.empty(entries, **ints),
+        torch.empty(part_rows, d, dtype=torch.float32, device=x.device),
+        torch.empty(part_rows, dtype=torch.float32, device=x.device))
+
+
 def _launch(wrapper, entry: str, x: torch.Tensor, *args) -> None:
     """Call one C entry point on PyTorch's current stream of x's device and
     raise if the launch was refused."""
@@ -159,8 +244,8 @@ def _launch(wrapper, entry: str, x: torch.Tensor, *args) -> None:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{wrapper.__name__}: kernel launch failed with "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"{wrapper.__name__}: kernel launch failed: "
+                           f"{_ERRORS.get(err, f'CUDA error {err}')}")
     wrapper.launches += 1
 
 
@@ -497,8 +582,11 @@ def lloyd_pass_cuda(x, centroids, *, weights=None, compute_dtype=None,
     counts zero.  The sharded callers' hooks: ``valid_cols`` (k,) bool
     masks the False columns out of the argmin, and ``raw_scores`` returns
     the raw min score ``min(||c||² − 2x·c)`` in the min_d2 slot (the
-    inertia is then meaningless).  ``k_tile`` runs K5 and K6's single fold
-    instead of K1."""
+    inertia is then meaningless).  It scores with :func:`scoring_core`'s
+    core and folds with K6's single fold inside the same entry point (so
+    ``tiled_fold_cuda.launches`` does not move): its sums have the same
+    bits every launch.  ``k_tile`` runs K5 and K6's single fold instead of
+    K1."""
     if x.device.type == "cpu":
         return lloyd_pass_plain(x, centroids, weights=weights,
                                 compute_dtype=compute_dtype,
@@ -515,16 +603,27 @@ def lloyd_pass_cuda(x, centroids, *, weights=None, compute_dtype=None,
     neg2c, csq = _score_operands(centroids, cd, valid_cols)
     _check_cuda_inputs("lloyd_pass_cuda", x, k, cd, w, neg2c)
     dev = x.device
+    core = scoring_core(x, cd, neg2c)
+    part_best, part_idx = _core_parts(x, k, core)
     labels = torch.empty(n, dtype=torch.int32, device=dev)
     min_d2 = torch.empty(n, dtype=torch.float32, device=dev)
-    sums = torch.zeros(k, d, dtype=torch.float32, device=dev)
-    counts = torch.zeros(k, dtype=torch.float32, device=dev)
+    if with_update:
+        # K6 writes every element of the sums and counts.
+        sums = torch.empty(k, d, dtype=torch.float32, device=dev)
+        counts = torch.empty(k, dtype=torch.float32, device=dev)
+        scratch = _fold_scratch(x, k, dual=False)   # held through the launch
+        fold = scratch.args()
+    else:
+        sums = torch.zeros(k, d, dtype=torch.float32, device=dev)
+        counts = torch.zeros(k, dtype=torch.float32, device=dev)
+        fold = (0, 0, 0) + (None,) * 8
     _launch(lloyd_pass_cuda, "kml_lloyd_pass", x,
             x.data_ptr(), _DTYPE_CODES[x.dtype], neg2c.data_ptr(),
             _DTYPE_CODES[cd], csq.data_ptr(), w.data_ptr(), n, d, k,
             int(with_update), int(raw_scores), _vec_ok(d, cd, x, neg2c),
-            labels.data_ptr(), min_d2.data_ptr(), sums.data_ptr(),
-            counts.data_ptr())
+            int(core == "wgmma"), labels.data_ptr(), min_d2.data_ptr(),
+            sums.data_ptr(), counts.data_ptr(), _ptr(part_best),
+            _ptr(part_idx), *fold)
     return labels, min_d2, sums, counts, (min_d2 * w).sum()
 
 
@@ -539,8 +638,9 @@ def lloyd_delta_cuda(x, centroids, labels_prev, *, weights=None,
     new label and ``−w`` at the old one when ``0 <= prev < k`` (so a −1
     sentinel makes the delta the full reduction).  ``with_mind=False``
     returns the raw score ``min(||c||² − 2x·c)`` in the min_d2 slot.
-    ``k_tile`` runs K5 and K6's dual fold instead of K2 (``dense_tiles``
-    is then 0)."""
+    It scores with :func:`scoring_core`'s core and scatters the changed
+    rows with f32 atomics.  ``k_tile`` runs K5 and K6's dual fold instead
+    of K2 (``dense_tiles`` is then 0)."""
     if x.device.type == "cpu":
         return lloyd_delta_plain(x, centroids, labels_prev, weights=weights,
                                  compute_dtype=compute_dtype,
@@ -556,6 +656,8 @@ def lloyd_delta_cuda(x, centroids, labels_prev, *, weights=None,
     neg2c, csq = _score_operands(centroids, cd)
     _check_cuda_inputs("lloyd_delta_cuda", x, k, cd, w, neg2c, prev)
     dev = x.device
+    core = scoring_core(x, cd, neg2c)
+    part_best, part_idx = _core_parts(x, k, core)
     labels = torch.empty(n, dtype=torch.int32, device=dev)
     min_d2 = torch.empty(n, dtype=torch.float32, device=dev)
     dsums = torch.zeros(k, d, dtype=torch.float32, device=dev)
@@ -567,8 +669,9 @@ def lloyd_delta_cuda(x, centroids, labels_prev, *, weights=None,
             x.data_ptr(), _DTYPE_CODES[x.dtype], neg2c.data_ptr(),
             _DTYPE_CODES[cd], csq.data_ptr(), w.data_ptr(), prev.data_ptr(),
             n, d, k, int(with_mind), _vec_ok(d, cd, x, neg2c),
-            labels.data_ptr(), min_d2.data_ptr(), dsums.data_ptr(),
-            dcounts.data_ptr(), n_changed.data_ptr(), groups.data_ptr())
+            int(core == "wgmma"), labels.data_ptr(), min_d2.data_ptr(),
+            dsums.data_ptr(), dcounts.data_ptr(), n_changed.data_ptr(),
+            groups.data_ptr(), _ptr(part_best), _ptr(part_idx))
     dense_tiles = (groups > DENSE_SLOTS).sum().int()
     return (labels, min_d2, dsums, dcounts, (min_d2 * w).sum(),
             n_changed[0], dense_tiles)
@@ -726,34 +829,13 @@ def tiled_fold_cuda(x, weights, labels, labels2, k, *, compute_dtype=None):
             else labels2.to(device=dev, dtype=torch.int32).contiguous())
     _check_cuda_inputs("tiled_fold_cuda", x, k, cd, w, None, lab,
                        *([] if lab2 is None else [lab2]))
-    entries = n * (1 if lab2 is None else 2)
-    if entries >= 2 ** 31:
-        raise ValueError(f"tiled_fold_cuda: {entries} fold entries do not "
-                         "fit the kernel's int32 entry index")
-    chunks = max(1, min(-(-n // DENSE_GROUP_ROWS), _FOLD_HIST_CELLS // k))
-    chunk_entries = -(-entries // chunks)
-    chunks = -(-entries // chunk_entries)
-    ints = dict(dtype=torch.int32, device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    hist = torch.zeros(chunks * k, **ints)
-    total = torch.empty(k, **ints)
-    start, cstart, pstart = (torch.empty(k + 1, **ints) for _ in range(3))
-    order = torch.empty(entries, **ints)
-    # A bucket of more than _FOLD_CHUNK entries writes a partial row per
-    # fold block: at most 2·entries/_FOLD_CHUNK rows in all.
-    part_rows = 2 * -(-entries // _FOLD_CHUNK) + 1
-    part = torch.empty(part_rows, d, **f32)
-    part_counts = torch.empty(part_rows, **f32)
-    sums = torch.empty(k, d, **f32)
-    counts = torch.empty(k, **f32)
-    vec = int(d % 8 == 0 and x.data_ptr() % 16 == 0)
+    scratch = _fold_scratch(x, k, dual=lab2 is not None)
+    sums = torch.empty(k, d, dtype=torch.float32, device=dev)
+    counts = torch.empty(k, dtype=torch.float32, device=dev)
     _launch(tiled_fold_cuda, "kml_tiled_fold", x,
             x.data_ptr(), _DTYPE_CODES[x.dtype], _DTYPE_CODES[cd],
             w.data_ptr(), lab.data_ptr(), _ptr(lab2), n, d, k,
-            chunk_entries, chunks, vec, hist.data_ptr(), total.data_ptr(),
-            start.data_ptr(), cstart.data_ptr(), pstart.data_ptr(),
-            order.data_ptr(), part.data_ptr(), part_counts.data_ptr(),
-            sums.data_ptr(), counts.data_ptr())
+            *scratch.args(), sums.data_ptr(), counts.data_ptr())
     return sums, counts
 
 

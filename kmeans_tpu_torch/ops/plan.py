@@ -3,9 +3,11 @@
 Counterpart of ``vmem_breakdown`` / ``max_k_tile`` / ``kernel_plan`` in
 ``kmeans_tpu/ops/pallas_lloyd.py``, with the card's L2 cache in the role the
 TPU's VMEM plays there.  The port's untiled kernels (K1–K4) take any k: they
-stream the centroids in 128-wide tiles through shared memory and fold with
-f32 atomics into the sums.  Both rest on L2: every 128-row block streams all
-of −2·C, and the atomics resolve in L2 while the sums fit there.  Once −2·C
+stream the centroids through shared memory (in 256-wide slices on the Hopper
+core of K1 and K2, 128-wide tiles in ``score_block``), and K2–K4 scatter
+their changed rows with f32 atomics into the sums.  Both rest on L2: every
+row block streams all of −2·C, and the atomics resolve in L2 while the sums
+fit there.  Once −2·C
 and the f32 sums outgrow it, the plan switches to the k-tiled pair: K5
 (``tiled_argmin_cuda``) streams one centroid slice at a time, with the blocks
 resident at one time sharing that slice, and K6 (``tiled_fold_cuda``) folds
@@ -17,8 +19,10 @@ Two layers, as in the reference:
   against a :class:`Budget`: ``"untiled"`` while −2·C in the compute dtype
   plus the f32 sums fit 3/4 of L2 (the reference plans to 3/4 of VMEM);
   else ``"tiled"`` with the widest 128-multiple slice whose −2·C fits;
-  ``"refuse"`` when not even one 128-column slice fits, or the kernels'
-  shared memory does not fit a block.
+  ``"refuse"`` when not even one 128-column slice fits, or a block of the
+  scoring core the shape runs (:func:`kernel_smem_bytes`: the Hopper core
+  of K1 and K2 at bf16 with d % 8 == 0, ``score_block`` otherwise) does not
+  fit the card's opt-in shared memory.
 * :func:`device_plan` adds the vetoes: fractional weights in a non-f32
   compute dtype, a device that is not a CUDA card, dtypes the kernels do not
   take, shapes out of range.
@@ -42,8 +46,9 @@ from kmeans_tpu_torch.ops.distance import resolve_cd
 
 __all__ = ["KernelPlan", "Budget", "card_budget", "l2_breakdown",
            "max_k_tile", "kernel_plan", "device_plan", "shape_plan",
-           "KINDS", "LANE", "L2_FALLBACK_BYTES", "SMEM_FALLBACK_BYTES",
-           "KERNEL_SMEM_BYTES"]
+           "core_takes", "kernel_smem_bytes", "KINDS", "LANE",
+           "L2_FALLBACK_BYTES", "SMEM_FALLBACK_BYTES",
+           "SCORE_BLOCK_SMEM_BYTES", "CORE_SMEM_BYTES", "CORE_KINDS"]
 
 #: Kernel kinds, the reference's plus ``accumulate`` (the labeled fold).
 KINDS = ("classic", "delta", "hamerly", "yinyang", "accumulate")
@@ -52,10 +57,17 @@ LANE = 128
 #: The H100's L2 and opt-in shared memory a block: the no-card budget.
 L2_FALLBACK_BYTES = 50 * 1024 * 1024
 SMEM_FALLBACK_BYTES = 232_448
-#: Dynamic shared memory of a scoring block (``score_block`` in
-#: ``csrc/lloyd.cu``): the (128, 132) f32 score tile, which reuses the
-#: staging buffers of either compute dtype.
-KERNEL_SMEM_BYTES = 128 * (128 + 4) * 4
+#: Dynamic shared memory of a ``score_block`` block (``csrc/lloyd.cu``): the
+#: (128, 132) f32 score tile, which reuses the staging buffers of either
+#: compute dtype.
+SCORE_BLOCK_SMEM_BYTES = 128 * (128 + 4) * 4
+#: Shared memory of the Hopper core (``core_score_kernel``, ``CORE_SMEM``
+#: in ``csrc/lloyd.cu``): a ring of 4 stages, each a 128 x 64 bf16 x tile
+#: and a 256 x 64 bf16 −2C tile, 1024 bytes of alignment slack, and the
+#: ring's 8 mbarriers.
+CORE_SMEM_BYTES = 4 * (128 + 256) * 64 * 2 + 1024 + 8 * 8
+#: The kinds whose kernels (K1, K2) take the Hopper core.
+CORE_KINDS = ("classic", "delta")
 
 _F32_BF16 = (torch.float32, torch.bfloat16)
 
@@ -99,6 +111,29 @@ def card_budget(device=None) -> Budget:
                           smem or SMEM_FALLBACK_BYTES, name)
     return Budget(3 * L2_FALLBACK_BYTES // 4, SMEM_FALLBACK_BYTES,
                   "no card: the H100's L2 and shared memory")
+
+
+def core_takes(kind: str, d: int, x_itemsize: int, cd_itemsize: int) -> bool:
+    """Whether an untiled sweep of ``kind`` scores with the Hopper core: K1
+    or K2 on bf16 x in bf16 compute with d a multiple of 8 (TMA's 16-byte
+    row stride; the wrappers add 16-byte-aligned bases).  f32 compute stays
+    real f32 on the CUDA cores, f32 x is cast on load (TMA cannot), and an
+    odd d such as glove's 300 breaks the stride rule: those run
+    ``score_block``."""
+    return (kind in CORE_KINDS and x_itemsize == 2 and cd_itemsize == 2
+            and d % 8 == 0)
+
+
+def kernel_smem_bytes(kind: str, d: int, *, x_itemsize: int = 2,
+                      cd_itemsize: int = 2, tiled: bool = False) -> int:
+    """Shared memory a block of the scoring core that ``kind`` runs at this
+    shape needs (0 for the labeled fold, which scores nothing); the tiled
+    route's K5 runs ``score_block``."""
+    if kind == "accumulate":
+        return 0
+    if not tiled and core_takes(kind, d, x_itemsize, cd_itemsize):
+        return CORE_SMEM_BYTES
+    return SCORE_BLOCK_SMEM_BYTES
 
 
 def _check_kind(kind: str) -> None:
@@ -173,25 +208,32 @@ def kernel_plan(kind: str, d: int, k: int, *, x_itemsize: int = 2,
                           "the kernels take float32 or bfloat16 x and compute")
     if not 1 <= d < 2 ** 31 or not 1 <= k < 2 ** 31:
         return KernelPlan("refuse", None, f"d={d}, k={k} out of range")
-    if kind != "accumulate" and KERNEL_SMEM_BYTES > budget.smem_per_block:
-        return KernelPlan(
-            "refuse", None, f"a scoring block needs {KERNEL_SMEM_BYTES} B of "
-            f"shared memory; the card offers {budget.smem_per_block}")
     kw = dict(cd_itemsize=cd_itemsize, groups=groups)
     mib = budget.l2_bytes / 2 ** 20
     mib_held = sum(l2_breakdown(kind, d, k, **kw).values()) / 2 ** 20
     held = ("the f32 sums" if kind == "accumulate" else
             "−2C and the f32 sums") + f" ({mib_held:.1f} MiB)"
     if _fits(kind, d, k, budget, **kw):
-        return KernelPlan("untiled", None,
+        plan = KernelPlan("untiled", None,
                           f"{held} fit 3/4 of L2 ({mib:.1f} MiB)")
-    kt = max_k_tile(kind, d, k, budget=budget, **kw)
-    if kt is None:
-        return KernelPlan("refuse", None,
-                          f"one 128-column slice overflows {mib:.1f} MiB")
-    return KernelPlan(
-        "tiled", kt, f"{held} overflow 3/4 of L2 ({mib:.1f} MiB): "
-        f"{-(-k // kt)} slices of {kt} columns")
+    else:
+        kt = max_k_tile(kind, d, k, budget=budget, **kw)
+        if kt is None:
+            return KernelPlan("refuse", None,
+                              f"one 128-column slice overflows {mib:.1f} MiB")
+        plan = KernelPlan(
+            "tiled", kt, f"{held} overflow 3/4 of L2 ({mib:.1f} MiB): "
+            f"{-(-k // kt)} slices of {kt} columns")
+    smem = kernel_smem_bytes(kind, d, x_itemsize=x_itemsize,
+                             cd_itemsize=cd_itemsize,
+                             tiled=plan.mode == "tiled")
+    if smem > budget.smem_per_block:
+        core = ("the Hopper core" if smem == CORE_SMEM_BYTES
+                else "score_block")
+        return KernelPlan(
+            "refuse", None, f"a block of {core} needs {smem} B of shared "
+            f"memory; the card offers {budget.smem_per_block}")
+    return plan
 
 
 def _dtypes(x_dtype, compute_dtype):

@@ -7,8 +7,10 @@ checkout (that machine may have no JAX, which ``tests/conftest.py`` imports):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Inputs are tie-free blobs, so labels must be equal.  Sums agree to rtol
-1e-4 and atol 1e-4·max|want|: the kernels fold with f32 atomics, in an
-order that changes from run to run.  Counts of binary weights are exact.
+1e-4 and atol 1e-4·max|want|: K2–K4 fold with f32 atomics, in an order
+that changes from run to run, and K1 and K6 sum each label's rows in row
+order, another order than the plain version's.  Counts of binary weights
+are exact.
 Scores (the Hamerly kernel's bounds) agree to rtol 1e-5 and atol
 1e-5·max|want|: the kernel and the plain version sum the same f32 products
 in another order.
@@ -233,3 +235,71 @@ def test_tiled_sweeps_on_the_card_match_their_plain_versions(card):
     want = K.accumulate_plain(x, lab, k, weights=w, k_tile=128)
     for g, e in zip(got, want):
         _close(g, e)
+
+
+@pytest.mark.parametrize("n,d,k", [(2053, 8, 3), (2053, 200, 257),
+                                   (1031, 2048, 1000), (4099, 64, 256)])
+def test_hopper_core_matches_plain_versions_and_score_block(card, n, d, k):
+    """bf16 x in bf16 compute with d % 8 == 0: K1 and K2 take the Hopper
+    core at ragged n, ragged d and ragged or single-column last slices.
+    Labels equal the plain version's (tie-free blobs) and, with the scores,
+    ``score_block``'s bit for bit; sums to the fold tolerance."""
+    x, c, w, prev = _blobs(8, n, d, k, card)
+    x = x.to(torch.bfloat16)
+    bf16 = torch.bfloat16
+    assert K.scoring_core(x, bf16, c.to(bf16)) == "wgmma"
+    got1 = K.lloyd_pass_cuda(x, c, weights=w, compute_dtype=bf16)
+    want1 = K.lloyd_pass_plain(x, c, weights=w, compute_dtype=bf16)
+    got2 = K.lloyd_delta_cuda(x, c, prev, weights=w, compute_dtype=bf16,
+                              with_mind=False)
+    want2 = K.lloyd_delta_plain(x, c, prev, weights=w, compute_dtype=bf16,
+                                with_mind=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got1[0], want1[0]) and torch.equal(got2[0], want2[0])
+    for g, e in zip(got1[1:], want1[1:]):
+        _close(g, e)
+    _close_scores(got2[1], want2[1])
+    for g, e in zip(got2[2:5], want2[2:5]):
+        _close(g, e)
+    assert int(got2[5]) == int(want2[5]) and int(got2[6]) == int(want2[6])
+    rule = K.scoring_core
+    try:
+        K.scoring_core = lambda *args: "score_block"
+        sb1 = K.lloyd_pass_cuda(x, c, weights=w, compute_dtype=bf16)
+        sb2 = K.lloyd_delta_cuda(x, c, prev, weights=w, compute_dtype=bf16,
+                                 with_mind=False)
+    finally:
+        K.scoring_core = rule
+    torch.cuda.synchronize()
+    assert torch.equal(got1[0], sb1[0]) and torch.equal(got1[1], sb1[1])
+    assert torch.equal(got2[0], sb2[0]) and torch.equal(got2[1], sb2[1])
+
+
+@pytest.mark.parametrize("x_dtype,cd,d", [
+    (torch.bfloat16, torch.bfloat16, 2048), (torch.float32, torch.float32, 64),
+    (torch.float32, torch.bfloat16, 64), (torch.bfloat16, torch.bfloat16, 100)])
+def test_classic_kernel_sums_repeat_bit_for_bit(card, x_dtype, cd, d):
+    """K1 folds with K6's bucketed fold on either core: two launches give
+    the same sums and counts bit for bit."""
+    x, c, w, _ = _blobs(9, 3001, d, 300, card)
+    x = x.to(x_dtype)
+    a = K.lloyd_pass_cuda(x, c, weights=w, compute_dtype=cd)
+    b = K.lloyd_pass_cuda(x, c, weights=w, compute_dtype=cd)
+    torch.cuda.synchronize()
+    for g, e in zip(a[:4], b[:4]):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("k", [257, 512])
+def test_hopper_core_tie_at_its_slice_edge_goes_to_the_lower_index(card, k):
+    """Centroids 255 and 256 are equal, on either side of the core's
+    256-column slice edge; rows on them take label 255 in K1 and K2."""
+    x, c, w, prev = _blobs(10, 1031, 96, k, card)
+    c[256] = c[255]
+    x[:40] = c[255]
+    x = x.to(torch.bfloat16)
+    bf16 = torch.bfloat16
+    lab1 = K.lloyd_pass_cuda(x, c, weights=w, compute_dtype=bf16)[0]
+    lab2 = K.lloyd_delta_cuda(x, c, prev, weights=w, compute_dtype=bf16)[0]
+    torch.cuda.synchronize()
+    assert bool((lab1[:40] == 255).all()) and bool((lab2[:40] == 255).all())
