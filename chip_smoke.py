@@ -8,20 +8,25 @@ from the root of a checkout.  It builds the port's CUDA kernels from
 if any fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: ``nvcc`` for sm_90a, with its seconds and register report;
+2. build: ``nvcc`` for sm_90a, with its seconds, register report, and the
+   registers and spills of each variant of the Hopper core;
 3. each kernel against its plain PyTorch version on the card: ragged n,
    d in {2, 100, 2048}, k in {3, 1000}, float32 and bfloat16, zero-weight
    rows, a −1 sentinel ``prev``, out-of-range labels, and exact ties; the
-   Hopper core of K1 and K2 (bf16, d % 8 == 0) also at d in {8, 200} and
-   k in {3, 257, 1000}, with its labels, min_d2 and raw scores equal to
-   ``score_block``'s bit for bit, two K1 launches equal bit for bit, and
-   duplicate centroids at columns 255 and 256 (its slice edge); the
-   Hamerly kernel (K4) at need fractions 0, about 10% and 100%, and with
-   every row needed against the delta kernel (K2), bit for bit; the k-tiled
-   pair at 128-column slices (K5's labels, raw scores and second-min
-   against K2's and K4's bit for bit, K6's single and dual folds with −1
-   sentinels and a skewed bucket, two K6 launches bit for bit), and ties
-   on either side of a slice edge;
+   Hopper core (bf16, d % 8 == 0) also at d in {8, 200} and k in
+   {3, 257, 1000}: K1's labels and min_d2, K2's labels and raw scores,
+   K4's labels, sb, slb, n_recomputed and dense_tiles (need fractions 0,
+   about 10% and 100%) and K5's labels, raw and normed min and second-min
+   (k_tile in {128, 384, 1024}) equal to
+   ``score_block``'s bit for bit, two launches of each equal bit for bit,
+   duplicate centroids at columns 255 and 256 (the core's slice edge) and,
+   for K4 and K5, at a sub-slice edge inside a range and at range edges;
+   the Hamerly kernel (K4) at need fractions 0, about 10% and 100%, and
+   with every row needed against the delta kernel (K2), bit for bit; the
+   k-tiled pair at 128-column slices (K5's labels, raw scores and
+   second-min against K2's and K4's bit for bit, K6's single and dual
+   folds with −1 sentinels and a skewed bucket, two K6 launches bit for
+   bit), and ties on either side of a slice edge;
 4. the slice at full width, at n = 1,280,000, d = 2048, k = 1000 in bf16:
    the main path in three runs, each with the launch counts set to 0 just
    before it and read just after -- ``fit_lloyd(update="delta")`` (20
@@ -33,10 +38,10 @@ if any fails:
    ``yinyang_pass`` sweeps, each held against K1 at the same centroids
    (every label that differs must be a tie); then each kernel at that
    shape against its plain version, its time beside its bound, the plain
-   version's and a library call's, K1's time split into scoring, ||x||²
-   and fold, the SM clock and power under K2, K5 + K6 forced tiled there,
-   one steady
-   sweep of each flavour, and the time of k-means++ there;
+   version's and a library call's (K4's also on ``score_block``), K1's
+   time split into scoring, ||x||² and fold, the SM clock and power under
+   K2, K5 + K6 forced tiled there, one steady sweep of each flavour, and
+   the time of k-means++ there;
 5. whole ``KMeans(compute_dtype="bfloat16")`` fits with k-means++ at the
    ``glove`` shape, ``update="delta"`` and the default ``"auto"`` (the
    adaptive loop: n >= 16384), each held against a plain-backend fit;
@@ -48,7 +53,9 @@ if any fails:
    only), ``delta_pass(force_full=True)`` and three hand-driven
    ``hamerly_pass`` sweeps, each held against K5's full scoring; the fit's
    labels against the plain route's; then K5 and K6 beside their bounds,
-   plain versions and library calls, and the same sweeps untiled (K1, K2);
+   plain versions and library calls, K5 with the second-min and on
+   ``score_block`` (bit for bit against each other), and the same sweeps
+   untiled (K1, K2);
 7. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 
 The bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of memory, 989
@@ -170,19 +177,38 @@ def phase_device():
     return card
 
 
+#: The Hopper core's template arguments as ptxas names them (the mangled
+#: ``core_score_kernel<GATHER, SECOND>``), and what runs each.
+CORE_VARIANTS = {"ILb0ELb0E": "dense (K1, K2, K5)",
+                 "ILb0ELb1E": "dense with second-min (K5 for Hamerly)",
+                 "ILb1ELb1E": "gathered with second-min (K4)"}
+
+
 def phase_build():
     from kmeans_tpu_torch.ops import _build
 
     info = _build.build()
     print(f"build: {info['seconds']:.1f} s (built now: {info['built']}) "
           f"-> {info['path']}")
-    regs = [int(w.split()[0]) for line in info["ptxas"].splitlines()
+    lines = info["ptxas"].splitlines()
+    regs = [int(w.split()[0]) for line in lines
             for w in line.split("Used ")[1:] if "registers" in w]
-    spills = [line.strip() for line in info["ptxas"].splitlines()
+    spills = [line.strip() for line in lines
               if "spill" in line and " 0 bytes spill stores" not in line]
     if regs:
         print(f"  ptxas: {len(regs)} kernels, at most {max(regs)} registers "
               f"a thread, {len(spills)} with spills")
+    # Each core variant: the registers ptxas allocates a thread at launch
+    # (setmaxnreg then moves them from the producer warpgroup to the
+    # consumers) and its spills.
+    name = None
+    for line in lines:
+        if "Compiling entry function" in line or "Function properties for" in line:
+            name = line.split("'")[1] if "'" in line else line.split()[-1]
+        variant = next((v for key, v in CORE_VARIANTS.items()
+                        if name and "core_score_kernel" + key in name), None)
+        if variant and ("spill" in line or "Used" in line):
+            print(f"  core {variant}: {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -449,8 +475,9 @@ def _straddling_tie_cases(gen):
 
 
 class _ForcedScoreBlock:
-    """Within it, K1 and K2 score every input with ``score_block``: the
-    wrappers read ``cuda_lloyd.scoring_core`` at each call."""
+    """Within it, K1, K2, K4 and K5 score every input with
+    ``score_block``: the wrappers read ``cuda_lloyd.scoring_core`` at each
+    call."""
 
     def __enter__(self):
         from kmeans_tpu_torch.ops import cuda_lloyd as K
@@ -496,6 +523,99 @@ def _check_cores_agree(name, x, c, cd, w, prev, k1, k2):
     _check(torch.equal(k2[0], sb2[0]) and torch.equal(k2[1], sb2[1]),
            f"K2 {name}: the Hopper core's labels or raw scores differ from "
            "score_block's")
+
+
+def _check_core_k4_k5(name, x, c, cd, w, prev, gen):
+    """On an input the Hopper core takes: K4 at need fractions 0, about 10%
+    and 100% (−1 sentinels needed) and K5 at k_tile 128, 384 and 1024,
+    with the second-min, against ``score_block``'s on the
+    same input bit for bit -- K4's labels, sb, slb, n_recomputed and
+    dense_tiles, K5's labels, raw min, second-min and normed min -- and two
+    launches of each equal bit for bit."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    n = x.shape[0]
+    sb_in = torch.randn(n, generator=gen, device="cuda")
+    k4_out = ("labels", "sb", "slb", None, None, "n_recomputed", "dense_tiles")
+    for frac in (0.0, 0.1, 1.0):
+        p = prev.clamp_min(0) if frac == 0.0 else prev
+        need = ((torch.rand(n, generator=gen, device="cuda") < frac)
+                | (p < 0))
+        args = (x, c, p, need, sb_in, sb_in + 1)
+        with _ForcedScoreBlock():
+            ref = K.lloyd_hamerly_cuda(*args, weights=w, compute_dtype=cd)
+        for launch in ("first", "second"):
+            got = K.lloyd_hamerly_cuda(*args, weights=w, compute_dtype=cd)
+            _sync()
+            for g, e, what in zip(got, ref, k4_out):
+                _check(what is None or torch.equal(g, e),
+                       f"K4 need={frac:.0%} {name} ({launch} launch): the "
+                       f"core's {what} differ from score_block's")
+    neg2c, csq = K._score_operands(c, cd)
+
+    def k5(k_tile):
+        return (*K.tiled_argmin_cuda(x, neg2c, csq, k_tile=k_tile,
+                                     raw_scores=True, with_second=True),
+                K.tiled_argmin_cuda(x, neg2c, csq, k_tile=k_tile)[1])
+
+    for k_tile in (128, 384, 1024):
+        with _ForcedScoreBlock():
+            ref = k5(k_tile)
+        for launch in ("first", "second"):
+            got = k5(k_tile)
+            _sync()
+            for g, e, what in zip(got, ref, ("labels", "raw min",
+                                             "second-min", "normed min")):
+                _check(torch.equal(g, e),
+                       f"K5 k_tile={k_tile} {name} ({launch} launch): the "
+                       f"core's {what} differ from score_block's")
+
+
+def _core_range_edge_ties(gen):
+    """Duplicate centroids on either side of 256-column sub-slice edges
+    inside a range (255 | 256 at k_tile 384 and 1024, 511 | 512 at 1024)
+    and of range edges (127 | 128 at every k_tile, 383 | 384 at 128 and
+    384, 1023 | 1024 at 128 and 1024), at k = 1100, and rows that sit on
+    them: K4 with every row needed and K5 at each k_tile give the lower
+    index with second-min == min, and the core equals score_block bit for
+    bit."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    bf16 = torch.bfloat16
+    x, c, w, prev = _case_inputs(gen, 2053, 2048, 1100, bf16, False)
+    pairs = ((127, 128), (255, 256), (383, 384), (511, 512), (1023, 1024))
+    for i, (lo, hi) in enumerate(pairs):
+        c[hi] = c[lo]
+        x[16 * i:16 * (i + 1)] = c[lo].to(bf16)
+    name = ("n=2053 d=2048 k=1100 x=bfloat16 ties at sub-slice and range "
+            "edges")
+    _check(K.scoring_core(x, bf16, c.to(bf16)) == "wgmma",
+           f"{name}: not on the Hopper core")
+    _check_core_k4_k5(name, x, c, bf16, w, prev, gen)
+    n = x.shape[0]
+    ones = torch.ones(n, dtype=torch.bool, device="cuda")
+    zeros = torch.zeros(n, device="cuda")
+    k4 = K.lloyd_hamerly_cuda(x, c, prev, ones, zeros, zeros,
+                              compute_dtype=bf16)
+    outs = [("K4", k4[:3])]
+    neg2c, csq = K._score_operands(c, bf16)
+    for k_tile in (128, 384, 1024):
+        outs.append((f"K5 k_tile={k_tile}",
+                     K.tiled_argmin_cuda(x, neg2c, csq, k_tile=k_tile,
+                                         raw_scores=True, with_second=True)))
+    _sync()
+    for what, (lab, best, second) in outs:
+        for i, (lo, hi) in enumerate(pairs):
+            rows = slice(16 * i, 16 * (i + 1))
+            _check(bool((lab[rows] == lo).all()),
+                   f"{what} {name}: the tie at {lo} | {hi} did not go to {lo}")
+            _check(torch.equal(second[rows], best[rows]),
+                   f"{what} {name}: second-min != min on the tie at {lo}")
+    print(f"  ok {name} (core wgmma)")
 
 
 def _slice_edge_core_ties(gen):
@@ -604,6 +724,7 @@ def phase_kernels():
         _check_k1_repeats(name, x, c, cd, w, k1)
         if core == "wgmma":
             _check_cores_agree(name, x, c, cd, w, prev, k1, k2)
+            _check_core_k4_k5(name, x, c, cd, w, prev, gen)
         # K3 with out-of-range labels and scores.
         lab3 = torch.randint(-2, k + 3, (n,), generator=gen, device="cuda",
                              dtype=torch.int32)
@@ -626,10 +747,12 @@ def phase_kernels():
               "from the plain version, each a tie within the tolerance)")
     _straddling_tie_cases(gen)
     _slice_edge_core_ties(gen)
-    print(f"scoring cores of K1 and K2 over the cases: {cores}; the Hopper "
-          "core's labels, min_d2 and raw scores equal score_block's bit for "
-          "bit, and two K1 launches equal each other bit for bit")
-    print(f"kernels vs plain: {len(cases) + 4} cases agree (score rtol "
+    _core_range_edge_ties(gen)
+    print(f"scoring cores over the cases: {cores}; the Hopper core's labels, "
+          "min_d2, raw scores, sb, slb and second-min (K1, K2, K4, K5 at "
+          "k_tile 128, 384, 1024) equal score_block's bit for bit, and two "
+          "launches of K1, K4 and K5 equal each other bit for bit")
+    print(f"kernels vs plain: {len(cases) + 5} cases agree (score rtol "
           f"{SCORE_RTOL}, sums rtol {SUMS_RTOL}, counts exact; K5 equal to "
           "K1, K2 and K4 bit for bit; K6 equal to itself bit for bit)")
 
@@ -1058,10 +1181,11 @@ def _soundness(x, c0):
 def _hamerly_timings(x, states, rno, record):
     """K4 at the hamerly state entering sweep SOUND_SWEEPS (the fit's
     steady state), with every row needed, and with about 10% needed: its
-    time beside the bound (2·n_rec·d·k), the plain version's and the
-    library yardstick's (``torch.mm`` of the gathered rows, then the two
-    least scores with ``topk``).  The steady case is checked against the
-    plain version and recorded."""
+    time beside the bound (2·n_rec·d·k), the plain version's, the library
+    yardstick's (``torch.mm`` of the gathered rows, then the two least
+    scores with ``topk``) and ``score_block``'s, whose labels, sb and slb
+    must equal the core's bit for bit.  The steady case is checked against
+    the plain version and recorded."""
     import torch
 
     from kmeans_tpu_torch.ops import cuda_lloyd as K
@@ -1095,7 +1219,14 @@ def _hamerly_timings(x, states, rno, record):
         library_ms = _time_ms(
             lambda: torch.mm(x[rows], cb.T, out_dtype=torch.float32).topk(
                 2, dim=1, largest=False), 3)
+        with _ForcedScoreBlock():
+            sb_ms = _time_ms(kernel, 3)
+            ref = kernel()
         got = kernel()
+        _check(all(torch.equal(got[i], ref[i]) for i in (0, 1, 2, 5, 6)),
+               f"K4 at need {what}: the core's labels, sb or slb differ from "
+               "score_block's")
+        del ref
         n_changed = int(((got[0] != lab) & need).sum())
         bytes_moved = (n_rec * d * 2 + n * (4 + 1 + 4 + 4 + 4) + k * d * 2
                        + k * 4 + n * 12 + k * d * 4 + k * 4)
@@ -1104,7 +1235,8 @@ def _hamerly_timings(x, states, rno, record):
         print(f"K4 at need {what}: {n_rec} of {n} rows "
               f"({n_rec / n:.4f}), {n_changed} changed: {ms:.3f} ms (bound "
               f"{bound:.3f} ms by {by}), plain {plain_ms:.3f} ms, library "
-              f"{library_ms:.3f} ms")
+              f"{library_ms:.3f} ms, on score_block {sb_ms:.3f} ms (bit for "
+              "bit equal)")
         if what != "steady":
             continue
         want = plain()
@@ -1248,6 +1380,29 @@ def _add_counts(total, counts):
         total[name] = total.get(name, 0) + v
 
 
+def _k5_variants(x, neg2c, csq, k_tile, lab5, raw5, k5_ms, dist_ops):
+    """K5 at the codebook shape beside the main path's launch (``k5_ms``,
+    raw scores): with the second-min (the tiled Hamerly sweep's call) and
+    on ``score_block``, each with labels and raw min equal bit for bit."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    def k5(**kw):
+        return K.tiled_argmin_cuda(x, neg2c, csq, k_tile=k_tile,
+                                   raw_scores=True, **kw)
+
+    second_ms, got2 = _time_auto(lambda: k5(with_second=True))
+    with _ForcedScoreBlock():
+        sb_ms, got3 = _time_auto(k5)
+    for what, out in (("with_second", got2), ("score_block", got3)):
+        _check(bool(torch.equal(out[0], lab5) and torch.equal(out[1], raw5)),
+               f"K5 codebook {what}: labels or raw min differ")
+    print(f"K5 codebook raw {k5_ms:.3f} ms ({dist_ops / k5_ms / 1e9:.1f} "
+          f"TFLOP/s); with the second-min {second_ms:.3f} ms; on score_block "
+          f"{sb_ms:.3f} ms; labels and raw min bit for bit equal")
+
+
 def phase_codebook(headline_launches):
     import torch
 
@@ -1387,6 +1542,7 @@ def phase_codebook(headline_launches):
     rows.append(_kernel_row(
         "tiled_argmin_cuda", total["tiled_argmin_cuda"], k5_ms, plain_ms,
         library_ms, err, xb + k * d * 2 + k * 4 + 2 * x_row, dist_ops, 0.0))
+    _k5_variants(x, neg2c, csq, k_tile, lab5, raw5, k5_ms, dist_ops)
 
     # K6: the full single fold at K5's labels, then the dual fold at this
     # sweep's churn.

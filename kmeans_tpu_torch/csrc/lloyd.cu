@@ -10,12 +10,12 @@
 // returns cudaGetLastError() after its launch.  Python wrappers, checks and
 // the plain PyTorch versions live in kmeans_tpu_torch/ops/cuda_lloyd.py.
 //
-// Two scoring cores.  K1 and K2 score bf16 x in bf16 compute with d % 8 == 0
-// and 16-byte-aligned bases (the rule is scoring_core in cuda_lloyd.py, and
-// the wrapper passes its choice in) with the Hopper core below
-// (core_score_kernel: TMA into an mbarrier ring, wgmma, the argmin taken
-// from registers).  Every other input of K1 and K2, and every input of K4
-// and K5, runs score_block:
+// Two scoring cores.  K1, K2, K4 and K5 score bf16 x in bf16 compute with
+// d % 8 == 0 and 16-byte-aligned bases (the rule is scoring_core in
+// cuda_lloyd.py, and the wrapper passes its choice in) with the Hopper core
+// below (core_score_kernel: TMA into an mbarrier ring -- cp.async for K4's
+// gathered rows --, wgmma, the argmin and second-min taken from registers,
+// over a column range for K5).  Every other input runs score_block:
 //
 // * A block scores BM = 128 rows against every centroid in k-tiles of
 //   BN = 128 (score_block).  The rows are a contiguous block (K1, K2) or
@@ -53,7 +53,8 @@
 // bf16), against one read of x (5.24 GB bf16: >= 1.56 ms at 3.35 TB/s); K4
 // does the product for its needed rows only.  score_block is simple rather
 // than fast: no wgmma, no TMA, no software pipelining; the x tile is re-read
-// from L2 once per k-tile.
+// from L2 once per k-tile.  It stays for the inputs the Hopper core does not
+// take (f32 compute, f32 x, d % 8 != 0).
 
 #include <cuda.h>             // CUtensorMap and its enums only: no driver call is linked
 #include <cuda_runtime.h>
@@ -438,15 +439,89 @@ lloyd_delta_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
 // flagged need (2*n_rec*d*k operations); the other rows only pass their
 // label and bounds through.  Design: the TPU kernel compacted needed rows
 // with a permutation-matrix matmul (a Mosaic workaround) and fell back to a
-// dense branch past mc = 256 of them.  Here a block owns one 1024-row group:
-// it compacts the group's needed rows into shared memory (a ballot prefix
-// per 256-row round, so they stay in increasing order), writes prev / sb_in
-// / slb_in through for the others, then scores the needed rows 128 at a
-// time with score_block on gathered rows.  A needed row gets label = the
-// lowest argmin, sb = its score, slb = the least score over the other
-// columns; a changed one (label != prev, w > 0) is scattered as in K2.
-// group_counts[g] is the group's needed-row count, from which the wrapper
-// reports dense_tiles; there is no dense branch.
+// dense branch past mc = 256 of them.  Here the needed rows of a 1024-row
+// group are listed in increasing order (compact_group: a ballot prefix per
+// 256-row round) and the others pass prev / sb_in / slb_in through.  A
+// needed row gets label = the lowest argmin, sb = its score, slb = the least
+// score over the other columns; a changed one (label != prev, w > 0) is
+// scattered as in K2 (hamerly_row).  group_counts[g] is the group's
+// needed-row count, from which the wrapper reports dense_tiles; there is no
+// dense branch.  On score_block a block owns one group and scores its
+// needed rows 128 at a time, gathered (lloyd_hamerly_kernel), so the
+// 128-row sub-blocks are as full as the group's share of needed rows.  On
+// the Hopper core the rows are listed globally (hamerly_count_kernel, a
+// scan of the group counts, hamerly_list_kernel), the core scores them 128
+// at a time, gathered with cp.async, so every tile but the last is full,
+// and core_hamerly_finish_kernel runs the row epilogue.
+
+// The needed rows of the 1024-row group at row0 in increasing order:
+// take(slot, gr) for each, slot being its rank among the group's needed
+// rows, and skip(gr) for every other row below n.  Every thread of the
+// block calls it; it returns the group's needed-row count.
+template <class Take, class Skip>
+__device__ __forceinline__ int compact_group(const unsigned char* __restrict__ need, int row0,
+                                             int n, Take take, Skip skip) {
+  __shared__ int s_warp[NWARP];
+  __shared__ int s_count;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rows = min(GROUP_ROWS, n - row0);
+  if (tid == 0) s_count = 0;
+  __syncthreads();
+  for (int r0 = 0; r0 < GROUP_ROWS; r0 += NT) {
+    const int r = r0 + tid, gr = row0 + r;
+    const bool valid = r < rows;
+    const bool needed = valid && need[gr];
+    const unsigned ballot = __ballot_sync(0xffffffffu, needed);
+    if (lane == 0) s_warp[warp] = __popc(ballot);
+    __syncthreads();
+    int slot = s_count + __popc(ballot & ((1u << lane) - 1u));
+    for (int v = 0; v < warp; ++v) slot += s_warp[v];
+    if (needed)
+      take(slot, gr);
+    else if (valid)
+      skip(gr);
+    __syncthreads();
+    if (tid == 0)
+      for (int v = 0; v < NWARP; ++v) s_count += s_warp[v];
+    __syncthreads();
+  }
+  return s_count;
+}
+
+// A scored row's epilogue, a warp per row: label, sb = best, slb = second,
+// and the +-w scatter of a changed row.
+template <class XT, class CT>
+__device__ __forceinline__ void hamerly_row(const XT* __restrict__ x, const float* __restrict__ w,
+                                            const int* __restrict__ prev, int gr, int d, int k,
+                                            int lab, float best, float second, int lane,
+                                            int* __restrict__ labels, float* __restrict__ sb,
+                                            float* __restrict__ slb, float* __restrict__ dsums,
+                                            float* __restrict__ dcounts) {
+  const int old = prev[gr];
+  const float wr = w[gr];
+  const bool changed = lab != old && wr > 0.f;
+  const bool sub = changed && old >= 0 && old < k;
+  if (changed) {
+    const XT* xr = x + (size_t)gr * d;
+    float* add_row = dsums + (size_t)lab * d;
+    float* sub_row = dsums + (size_t)(sub ? old : 0) * d;
+    for (int c = lane; c < d; c += 32) {
+      const float v = wr * cd_round<CT>(to_f32(xr[c]));
+      atomicAdd(add_row + c, v);
+      if (sub) atomicAdd(sub_row + c, -v);
+    }
+  }
+  if (lane == 0) {
+    labels[gr] = lab;
+    sb[gr] = best;
+    slb[gr] = second;
+    if (changed) {
+      atomicAdd(dcounts + lab, wr);
+      if (sub) atomicAdd(dcounts + old, -wr);
+    }
+  }
+}
+
 template <class XT, class CT, bool VEC>
 __global__ void __launch_bounds__(NT, 2)
 lloyd_hamerly_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
@@ -461,69 +536,24 @@ lloyd_hamerly_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
   __shared__ float s_csq[BN], s_min[BM], s_second[BM];
   __shared__ int s_lab[BM];
   __shared__ int s_rows[GROUP_ROWS];   // the group's needed rows, compacted
-  __shared__ int s_warp[NWARP];
-  __shared__ int s_count;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.x * GROUP_ROWS;
-  const int rows = min(GROUP_ROWS, n - row0);
-  if (tid == 0) s_count = 0;
-  __syncthreads();
-  for (int r0 = 0; r0 < GROUP_ROWS; r0 += NT) {
-    const int r = r0 + tid, gr = row0 + r;
-    const bool valid = r < rows;
-    const bool needed = valid && need[gr];
-    const unsigned ballot = __ballot_sync(0xffffffffu, needed);
-    if (lane == 0) s_warp[warp] = __popc(ballot);
-    __syncthreads();
-    int slot = s_count + __popc(ballot & ((1u << lane) - 1u));
-    for (int v = 0; v < warp; ++v) slot += s_warp[v];
-    if (needed) {
-      s_rows[slot] = gr;
-    } else if (valid) {
-      labels[gr] = prev[gr];
-      sb[gr] = sb_in[gr];
-      slb[gr] = slb_in[gr];
-    }
-    __syncthreads();
-    if (tid == 0)
-      for (int v = 0; v < NWARP; ++v) s_count += s_warp[v];
-    __syncthreads();
-  }
-  const int count = s_count;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int count = compact_group(
+      need, blockIdx.x * GROUP_ROWS, n, [&](int slot, int gr) { s_rows[slot] = gr; },
+      [&](int gr) {
+        labels[gr] = prev[gr];
+        sb[gr] = sb_in[gr];
+        slb[gr] = slb_in[gr];
+      });
 
   for (int s0 = 0; s0 < count; s0 += BM) {
     const int m = min(BM, count - s0);
     score_block<XT, CT, VEC, true, true>(x, s_rows + s0, m, neg2c, csq, d, k, smem, s_csq,
                                          s_min, s_second, s_lab);
-    for (int r = warp; r < m; r += NWARP) {
-      const int gr = s_rows[s0 + r];
-      const int lab = s_lab[r];
-      const int old = prev[gr];
-      const float wr = w[gr];
-      const bool changed = lab != old && wr > 0.f;
-      const bool sub = changed && old >= 0 && old < k;
-      if (changed) {
-        const XT* xr = x + (size_t)gr * d;
-        float* add_row = dsums + (size_t)lab * d;
-        float* sub_row = dsums + (size_t)(sub ? old : 0) * d;
-        for (int c = lane; c < d; c += 32) {
-          const float v = wr * cd_round<CT>(to_f32(xr[c]));
-          atomicAdd(add_row + c, v);
-          if (sub) atomicAdd(sub_row + c, -v);
-        }
-      }
-      if (lane == 0) {
-        labels[gr] = lab;
-        sb[gr] = s_min[r];
-        slb[gr] = s_second[r];
-        if (changed) {
-          atomicAdd(dcounts + lab, wr);
-          if (sub) atomicAdd(dcounts + old, -wr);
-        }
-      }
-    }
+    for (int r = warp; r < m; r += NWARP)
+      hamerly_row<XT, CT>(x, w, prev, s_rows[s0 + r], d, k, s_lab[r], s_min[r], s_second[r],
+                          lane, labels, sb, slb, dsums, dcounts);
   }
-  if (tid == 0) {
+  if (threadIdx.x == 0) {
     group_counts[blockIdx.x] = count;
     if (count > 0) atomicAdd(n_rec, count);
   }
@@ -575,17 +605,18 @@ accumulate_kernel(const XT* __restrict__ x, const int* __restrict__ labels,
 // 2*n*d*k operations (3.44e14 at the codebook shape: >= 347 ms at 989
 // TFLOP/s bf16).  Design: the TPU kernel carried a per-row argmin across the
 // sequential k-slice axis of its grid; blocks on the card run in no order,
-// so K5 is two launches.  The score launch has a block for each (k slice,
-// 128-row block), numbered slice-major, so the blocks resident at one time
-// work on the same slice and that slice's -2C stays in L2; each runs
-// score_block over its slice's columns -- the loop K1, K2 and K4 run, so
-// every score is theirs bit for bit -- and writes the slice's (best, index
-// [, second]) for its rows to a (slices, n) buffer.  The merge launch (a
-// warp per row) walks the slices in increasing order with strict '<', the
-// reference's carry rule, so the lowest global index wins a tie, one that
-// straddles a slice edge included; the second-min merges on the same
-// lattice as score_block's.  It adds ||x||^2 (read as K1 reads it) unless
-// raw.
+// so K5 is two launches.  The score launch writes each (k slice, row)'s
+// (best, index[, second]) to a (slices, n) buffer.  On the Hopper core
+// (core_score_kernel below, over column ranges of k_tile) a persistent block
+// walks the slice's 256-column sub-slices and carries the row's triple in
+// registers; on score_block (tiled_score_kernel) a block for each (k slice,
+// 128-row block), numbered slice-major, runs score_block over its slice's
+// columns.  Either way every score is K1's, K2's and K4's bit for bit.  The
+// merge launch (a warp per row) walks the slices in increasing order with
+// strict '<', the reference's carry rule, so the lowest global index wins a
+// tie, one that straddles a slice edge included; the second-min merges on
+// the same lattice as score_block's.  It adds ||x||^2 (read as K1 reads it)
+// unless raw.
 template <class XT, class CT, bool VEC, bool SECOND>
 __global__ void __launch_bounds__(NT, 2)
 tiled_score_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
@@ -611,6 +642,27 @@ tiled_score_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
   }
 }
 
+// Entry i of a (slices, n) part buffer merged over its slices in increasing
+// order: strict '<' on the best, the second-min lattice when part_second is
+// given (else second is left 0).
+__device__ __forceinline__ void merge_parts(const float* __restrict__ part_best,
+                                            const int* __restrict__ part_idx,
+                                            const float* __restrict__ part_second, int slices,
+                                            int n, int i, float& best, int& idx, float& second) {
+  best = part_best[i];
+  idx = part_idx[i];
+  second = part_second != nullptr ? part_second[i] : 0.f;
+  for (int s = 1; s < slices; ++s) {
+    const size_t o = (size_t)s * n + i;
+    const float b = part_best[o];
+    if (part_second != nullptr) second = fminf(fminf(second, part_second[o]), fmaxf(best, b));
+    if (b < best) {
+      best = b;
+      idx = part_idx[o];
+    }
+  }
+}
+
 template <class XT>
 __global__ void __launch_bounds__(NT)
 tiled_merge_kernel(const XT* __restrict__ x, const float* __restrict__ part_best,
@@ -622,18 +674,9 @@ tiled_merge_kernel(const XT* __restrict__ x, const float* __restrict__ part_best
   if (row >= n) return;
   const float sq = raw ? 0.f : row_sq(x + (size_t)row * d, d, lane);
   if (lane != 0) return;
-  float best = part_best[row];
-  int idx = part_idx[row];
-  float sec = part_second != nullptr ? part_second[row] : 0.f;
-  for (int s = 1; s < slices; ++s) {
-    const size_t o = (size_t)s * n + row;
-    const float b = part_best[o];
-    if (part_second != nullptr) sec = fminf(fminf(sec, part_second[o]), fmaxf(best, b));
-    if (b < best) {
-      best = b;
-      idx = part_idx[o];
-    }
-  }
+  float best, sec;
+  int idx;
+  merge_parts(part_best, part_idx, part_second, slices, n, row, best, idx, sec);
   labels[row] = idx;
   mind[row] = raw ? best : fmaxf(best + sq, 0.f);
   if (part_second != nullptr) second[row] = sec;
@@ -897,39 +940,62 @@ fold_combine_kernel(const int* __restrict__ cstart, const int* __restrict__ psta
 }
 
 // ---------------------------------------------------------------------------
-// The Hopper scoring core of K1 and K2 (bf16 x in bf16 compute, d % 8 == 0,
-// 16-byte-aligned bases).  What bounds it: the distance product, 2*n*d*k
-// bf16 operations on the tensor cores (>= 5.3 ms at the headline shape),
-// and the L2 traffic of its tiles.  score_block lost to the library's
-// matmul + argmin by 4-6x for four reasons, and the design answers each:
-//   * no pipelining: one producer thread keeps TMA loads
-//     (cp.async.bulk.tensor, 128-byte swizzle) of an x tile (128 x 64) and a
-//     -2C tile (256 x 64) in flight into a ring of CORE_STAGES stages, each
-//     with a full and an empty mbarrier; TMA fills rows past n, centroids
-//     past k and features past d with zeros, which add 0 to a product;
+// The Hopper scoring core of K1, K2, K4 and K5 (bf16 x in bf16 compute,
+// d % 8 == 0, 16-byte-aligned bases).  What bounds it: the distance product,
+// 2*n*d*k bf16 operations on the tensor cores (>= 5.3 ms at the headline
+// shape), and the L2 traffic of its tiles.  score_block lost to the
+// library's matmul + argmin by 4-6x for four reasons, and the design answers
+// each:
+//   * no pipelining: the producer warpgroup keeps loads of an x tile
+//     (128 x 64) and a -2C tile (256 x 64) in flight into a ring of
+//     CORE_STAGES stages, each with a full and an empty mbarrier.  -2C, and
+//     x where its rows are contiguous, come by TMA (cp.async.bulk.tensor,
+//     128-byte swizzle), which fills rows past n, centroids past k and
+//     features past d with zeros, which add 0 to a product.  K4's rows are
+//     gathered by index, which TMA cannot do (GATHER): all 128 producer
+//     threads copy them with cp.async, 16 bytes each, into the same swizzled
+//     layout (16-byte chunk c of tile row r at chunk c ^ (r & 7)), with a
+//     source size of 0 past the needed rows and past d, and complete on the
+//     stage's full barrier with cp.async.mbarrier.arrive.noinc (the barrier
+//     counts those 128 arrivals beside the TMA's);
 //   * mma.sync instead of wgmma: two consumer warpgroups, 64 rows each,
 //     issue wgmma.mma_async m64n256k16 (bf16 in, f32 accumulators in
 //     registers, 128 a thread), four per stage, with one stage's group left
 //     in flight while the next stage is awaited; setmaxnreg moves registers
 //     from the producer warpgroup to them;
 //   * a score tile in shared memory: the argmin is taken in registers.  Each
-//     thread adds csq (+inf past k) to its 64 columns of each of its 2 rows,
-//     in increasing column order with strict '<', and the 4 lanes that share
-//     a row merge by (value, index), so the lowest index wins a tie;
+//     thread adds csq (+inf past the column range) to its 64 columns of each
+//     of its 2 rows, in increasing column order with strict '<', and the 4
+//     lanes that share a row merge by (value, index), so the lowest index
+//     wins a tie.  With SECOND (K4, K5's Hamerly sub-route) it also carries
+//     the least score over the other columns on score_block's lattice: in
+//     the scan a new best pushes the old one into second, and a merge takes
+//     min(second_a, second_b, max(best_a, best_b));
 //   * x re-streamed per 128-column k-tile: the kernel is persistent (a block
-//     per SM) and walks (row block, 256-column slice) tiles numbered
-//     row-block-major, so the ceil(k/256) slices of a row block run on
+//     per SM) and walks tiles of (128-row block, column range of k_tile
+//     columns), walking a range's 256-column sub-slices in increasing order
+//     and carrying each row's (best, index[, second]) across them in
+//     registers.  K1, K2 and K4 take k_tile = 256, K5 the planner's.  Tiles
+//     are numbered row-block-major, so the ranges of a row block run on
 //     neighbouring blocks at about the same time and all but the first read
-//     its x tile from L2, while -2C (4 MB at the headline shape) stays there.
-// Each tile writes its (best, index) per row to a (slices, n) buffer; the
-// finishing launch (a warp per row: tiled_merge_kernel for K1,
-// core_delta_finish_kernel for K2) walks the slices in increasing order with
-// strict '<', K5's rule, so the lowest global index wins across a slice edge.
-// The wgmma products sum in the order mma.sync does: the core's scores equal
-// score_block's bit for bit (chip_smoke.py checks it).  A cluster of two
-// blocks sharing the -2C tile by TMA multicast halved the L2 reads of -2C
-// and did not move the headline time beyond its run-to-run spread
-// (PERF.md, PR 4), so L2 is not what holds the core and it stays one block.
+//     its x tile from L2; -2C (4 MB at the headline shape) stays there, and
+//     at the codebook shape each range's current 256-column sub-slice is
+//     shared by the ~19 blocks on that range.  Numbering the tiles
+//     range-major instead (the resident blocks on one range) keeps 132 row
+//     blocks of x in flight, 67 MB against a 50 MB L2, and measured 14%
+//     slower at the codebook shape (PERF.md).
+// Each tile writes its triple per row to a (ranges, n) buffer; the finishing
+// launch (a warp per row: tiled_merge_kernel for K1 and K5,
+// core_delta_finish_kernel for K2, core_hamerly_finish_kernel for K4) walks
+// the ranges in increasing order with strict '<', K5's rule, so the lowest
+// global index wins across a range edge.  Min and max are exact, so the
+// result does not depend on how the columns are grouped, and the wgmma
+// products sum in the order mma.sync does: the core's labels, scores and
+// second-min equal score_block's bit for bit (chip_smoke.py checks it).  A
+// cluster of two blocks sharing the -2C tile by TMA multicast halved the L2
+// reads of -2C and did not move the headline time beyond its run-to-run
+// spread (PERF.md), so L2 is not what holds the core and it stays one
+// block.
 // ---------------------------------------------------------------------------
 constexpr int CORE_BM = 128;                 // rows of a tile: two warpgroups of 64
 constexpr int CORE_BN = 256;                 // centroids of a tile: one column slice
@@ -939,6 +1005,15 @@ constexpr int CORE_THREADS = 3 * 128;        // the producer warpgroup and two c
 constexpr int CORE_X_BYTES = CORE_BM * CORE_BK * 2;
 constexpr int CORE_C_BYTES = CORE_BN * CORE_BK * 2;
 constexpr int CORE_STAGE_BYTES = CORE_X_BYTES + CORE_C_BYTES;
+// Registers a thread after setmaxnreg: the producer warpgroup gives up what
+// the two consumer warpgroups take.  setmaxnreg.inc waits until the block's
+// own pool -- 168 a thread at launch, all __launch_bounds__(384, 1) leaves --
+// can supply it, so a budget that asks for more than the producer frees
+// never returns.
+constexpr int CORE_PRODUCER_REGS = 40;
+constexpr int CORE_CONSUMER_REGS = 232;
+static_assert(128 * (168 - CORE_PRODUCER_REGS) >= 256 * (CORE_CONSUMER_REGS - 168),
+              "the consumers' setmaxnreg.inc would wait forever");
 // Dynamic shared memory: the ring and the slack that aligns it to 1024 bytes
 // (the 128-byte swizzle's period).  kmeans_tpu_torch/ops/plan.py prices it,
 // with the ring's 2 * CORE_STAGES mbarriers, as CORE_SMEM_BYTES.
@@ -986,6 +1061,20 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
       : "memory");
+}
+
+// 16 bytes from src to dst (src_bytes of them read, the rest zero-filled).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// An arrival on bar once this thread's earlier cp.async copies land; the
+// barrier's count includes it (.noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 // wgmma shared-memory descriptor of a K-major tile with the 128-byte swizzle:
@@ -1040,21 +1129,42 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// Merge (ob, oi, os) into (best, idx, second): the lower (value, index)
+// wins, the second-min on score_block's lattice.
+template <bool SECOND>
+__device__ __forceinline__ void core_merge(float& best, int& idx, float& second, float ob, int oi,
+                                           float os) {
+  if constexpr (SECOND) second = fminf(fminf(second, os), fmaxf(best, ob));
+  if (ob < best || (ob == best && oi < idx)) {
+    best = ob;
+    idx = oi;
+  }
+}
+
+// Scores rows [0, n) of x_map, or with GATHER the rows rows[0 .. *count)
+// of x (a slot per listed row), against the columns of c_map in ranges of
+// k_tile (a multiple of 128), and writes each (range, row or slot)'s
+// (best, index[, second]) at range * n + row.
+template <bool GATHER, bool SECOND>
 __global__ void __launch_bounds__(CORE_THREADS, 1)
 core_score_kernel(const __grid_constant__ CUtensorMap x_map,
                   const __grid_constant__ CUtensorMap c_map, const float* __restrict__ csq,
-                  int n, int d, int k, float* __restrict__ part_best,
-                  int* __restrict__ part_idx) {
+                  const bf16* __restrict__ x, const int* __restrict__ rows,
+                  const int* __restrict__ count, int n, int d, int k, int k_tile,
+                  float* __restrict__ part_best, int* __restrict__ part_idx,
+                  float* __restrict__ part_second) {
   extern __shared__ __align__(1024) unsigned char core_smem[];
   __shared__ __align__(8) uint64_t full[CORE_STAGES], empty[CORE_STAGES];
   unsigned char* ring = core_smem + ((1024u - (smem_u32(core_smem) & 1023u)) & 1023u);
-  const int slices = (k + CORE_BN - 1) / CORE_BN;
-  const int tiles = ((n + CORE_BM - 1) / CORE_BM) * slices;
+  const int m = GATHER ? *count : n;     // rows to score
+  const int ranges = (k + k_tile - 1) / k_tile;
+  const int tiles = ((m + CORE_BM - 1) / CORE_BM) * ranges;   // row-block-major
   const int kblocks = (d + CORE_BK - 1) / CORE_BK;
-  const int wg = threadIdx.x >> 7;
+  const int wg = threadIdx.x >> 7, t128 = threadIdx.x & 127;
   if (threadIdx.x == 0) {
     for (int s = 0; s < CORE_STAGES; ++s) {
-      mbar_init(&full[s], 1);
+      // The TMA thread's arrival, and with GATHER each copying thread's.
+      mbar_init(&full[s], GATHER ? 1 + 128 : 1);
       mbar_init(&empty[s], 2);          // one arrival from each consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -1062,19 +1172,39 @@ core_score_kernel(const __grid_constant__ CUtensorMap x_map,
   __syncthreads();
 
   if (wg == 0) {
-    // The producer.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 0) {
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int row0 = (t / slices) * CORE_BM, col0 = (t % slices) * CORE_BN;
+    // The producer: thread 0 issues the TMA loads; with GATHER every thread
+    // copies 8 rows' 16-byte chunk t128 % 8 of each x tile.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(CORE_PRODUCER_REGS));
+    if (!GATHER && t128 != 0) return;
+    const int chunk = t128 & 7;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int row0 = (t / ranges) * CORE_BM, range = t % ranges;
+      const int col_lo = range * k_tile, col_hi = min(k, col_lo + k_tile);
+      for (int col0 = col_lo; col0 < col_hi; col0 += CORE_BN) {
         for (int kb = 0; kb < kblocks; ++kb) {
           mbar_wait(&empty[stage], phase ^ 1u);
           unsigned char* xs = ring + stage * CORE_STAGE_BYTES;
-          mbar_expect_tx(&full[stage], CORE_STAGE_BYTES);
-          tma_load_2d(xs, &x_map, &full[stage], kb * CORE_BK, row0);
-          tma_load_2d(xs + CORE_X_BYTES, &c_map, &full[stage], kb * CORE_BK, col0);
+          if (t128 == 0) {
+            mbar_expect_tx(&full[stage], GATHER ? CORE_C_BYTES : CORE_STAGE_BYTES);
+            if constexpr (!GATHER) tma_load_2d(xs, &x_map, &full[stage], kb * CORE_BK, row0);
+            tma_load_2d(xs + CORE_X_BYTES, &c_map, &full[stage], kb * CORE_BK, col0);
+          }
+          if constexpr (GATHER) {
+            // Tile row r is listed row rows[row0 + r], its index re-read
+            // from L1 each stage and the rows copied one at a time, so the
+            // producer stays within its 40 registers.
+            const int f = kb * CORE_BK + chunk * 8;
+#pragma unroll 1
+            for (int i = 0; i < 8; ++i) {
+              const int r = (t128 >> 3) + 16 * i;
+              const int src = row0 + r < m && f < d ? __ldg(rows + row0 + r) : -1;
+              cp_async_16(xs + r * (CORE_BK * 2) + ((chunk ^ (r & 7)) << 4),
+                          x + (src >= 0 ? (size_t)src * d + f : 0), src >= 0 ? 16 : 0);
+            }
+            cp_async_arrive(&full[stage]);
+          }
           if (++stage == CORE_STAGES) {
             stage = 0;
             phase ^= 1u;
@@ -1082,12 +1212,13 @@ core_score_kernel(const __grid_constant__ CUtensorMap x_map,
         }
       }
     }
+    if constexpr (GATHER) asm volatile("cp.async.wait_all;\n" ::: "memory");
   } else {
     // A consumer: rows cw*64 .. cw*64 + 63 of each tile.  Thread t of the
     // warpgroup holds rows 16*(t/32) + (t%32)/4 (+8) and, in n8 chunk j,
     // columns 8j + 2(t%4) (+1): acc[4j + 2h + e] is (row + 8h, column + e).
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    const int cw = wg - 1, t128 = threadIdx.x & 127, lane = threadIdx.x & 31;
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CORE_CONSUMER_REGS));
+    const int cw = wg - 1, lane = threadIdx.x & 31;
     const int r_lo = cw * 64 + (t128 >> 5) * 16 + (lane >> 2);
     const int c_lo = (lane & 3) * 2;
     float acc[128];
@@ -1096,64 +1227,83 @@ core_score_kernel(const __grid_constant__ CUtensorMap x_map,
     int stage = 0;
     uint32_t phase = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int slice = t % slices;
-      const int row0 = (t / slices) * CORE_BM, col0 = slice * CORE_BN;
-      int held = -1;                    // the stage whose wgmma group is in flight
-      for (int kb = 0; kb < kblocks; ++kb) {
-        mbar_wait(&full[stage], phase);
-        const unsigned char* xs = ring + stage * CORE_STAGE_BYTES;
-        const uint64_t da = sw128_desc(xs + cw * 64 * CORE_BK * 2);
-        const uint64_t db = sw128_desc(xs + CORE_X_BYTES);
-        wgmma_fence();
+      const int row0 = (t / ranges) * CORE_BM, range = t % ranges;
+      const int col_lo = range * k_tile, col_hi = min(k, col_lo + k_tile);
+      // Each row's triple, carried across the range's sub-slices.
+      float run_best[2] = {INFINITY, INFINITY}, run_second[2] = {INFINITY, INFINITY};
+      int run_idx[2] = {col_lo, col_lo};
+      for (int col0 = col_lo; col0 < col_hi; col0 += CORE_BN) {
+        int held = -1;                  // the stage whose wgmma group is in flight
+        for (int kb = 0; kb < kblocks; ++kb) {
+          mbar_wait(&full[stage], phase);
+          // cp.async writes through the generic proxy; wgmma reads through
+          // the async proxy.
+          if constexpr (GATHER) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          const unsigned char* xs = ring + stage * CORE_STAGE_BYTES;
+          const uint64_t da = sw128_desc(xs + cw * 64 * CORE_BK * 2);
+          const uint64_t db = sw128_desc(xs + CORE_X_BYTES);
+          wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < CORE_BK / 16; ++kk)   // 16 features = 32 bytes = 2 units
-          wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk, (kb > 0 || kk > 0) ? 1 : 0);
-        wgmma_commit();
-        wgmma_wait<1>();
-        if (held >= 0 && t128 == 0) mbar_arrive(&empty[held]);
-        held = stage;
-        if (++stage == CORE_STAGES) {
-          stage = 0;
-          phase ^= 1u;
+          for (int kk = 0; kk < CORE_BK / 16; ++kk)   // 16 features = 32 bytes = 2 units
+            wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk, (kb > 0 || kk > 0) ? 1 : 0);
+          wgmma_commit();
+          wgmma_wait<1>();
+          if (held >= 0 && t128 == 0) mbar_arrive(&empty[held]);
+          held = stage;
+          if (++stage == CORE_STAGES) {
+            stage = 0;
+            phase ^= 1u;
+          }
         }
-      }
-      wgmma_wait<0>();
-      if (t128 == 0) mbar_arrive(&empty[held]);
+        wgmma_wait<0>();
+        if (t128 == 0) mbar_arrive(&empty[held]);
 
-      float best[2] = {INFINITY, INFINITY};
-      int idx[2] = {col0, col0};
+        float best[2] = {INFINITY, INFINITY}, second[2] = {INFINITY, INFINITY};
+        int idx[2] = {col0, col0};
 #pragma unroll
-      for (int j = 0; j < CORE_BN / 8; ++j) {
+        for (int j = 0; j < CORE_BN / 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = col0 + 8 * j + c_lo + e;
-          const float cs = col < k ? __ldg(csq + col) : INFINITY;
+          for (int e = 0; e < 2; ++e) {
+            const int col = col0 + 8 * j + c_lo + e;
+            const float cs = col < col_hi ? __ldg(csq + col) : INFINITY;
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float v = cs + acc[4 * j + 2 * h + e];
-            if (v < best[h]) {
-              best[h] = v;
-              idx[h] = col;
+            for (int h = 0; h < 2; ++h) {
+              const float v = cs + acc[4 * j + 2 * h + e];
+              if (v < best[h]) {
+                if constexpr (SECOND) second[h] = best[h];
+                best[h] = v;
+                idx[h] = col;
+              } else if constexpr (SECOND) {
+                second[h] = fminf(second[h], v);
+              }
             }
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int o = 1; o < 4; o <<= 1)
+            core_merge<SECOND>(best[h], idx[h], second[h],
+                               __shfl_xor_sync(0xffffffffu, best[h], o),
+                               __shfl_xor_sync(0xffffffffu, idx[h], o),
+                               SECOND ? __shfl_xor_sync(0xffffffffu, second[h], o) : 0.f);
+          // Later sub-slices hold higher indices: strict '<'.
+          if constexpr (SECOND)
+            run_second[h] = fminf(fminf(run_second[h], second[h]), fmaxf(run_best[h], best[h]));
+          if (best[h] < run_best[h]) {
+            run_best[h] = best[h];
+            run_idx[h] = idx[h];
           }
         }
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-#pragma unroll
-        for (int o = 1; o < 4; o <<= 1) {
-          const float ob = __shfl_xor_sync(0xffffffffu, best[h], o);
-          const int oi = __shfl_xor_sync(0xffffffffu, idx[h], o);
-          if (ob < best[h] || (ob == best[h] && oi < idx[h])) {
-            best[h] = ob;
-            idx[h] = oi;
-          }
-        }
         const int row = row0 + r_lo + 8 * h;
-        if ((lane & 3) == 0 && row < n) {
-          const size_t o = (size_t)slice * n + row;
-          part_best[o] = best[h];
-          part_idx[o] = idx[h];
+        if ((lane & 3) == 0 && row < m) {
+          const size_t o = (size_t)range * n + row;
+          part_best[o] = run_best[h];
+          part_idx[o] = run_idx[h];
+          if constexpr (SECOND) part_second[o] = run_second[h];
         }
       }
     }
@@ -1177,16 +1327,9 @@ core_delta_finish_kernel(const XT* __restrict__ x, const float* __restrict__ par
   const int row0 = (int)(((size_t)blockIdx.x * NT) >> 5);
   const int gr = row0 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (gr < n) {
-    float best = part_best[gr];
-    int lab = part_idx[gr];
-    for (int s = 1; s < slices; ++s) {
-      const size_t o = (size_t)s * n + gr;
-      const float b = part_best[o];
-      if (b < best) {
-        best = b;
-        lab = part_idx[o];
-      }
-    }
+    float best, unused;
+    int lab;
+    merge_parts(part_best, part_idx, nullptr, slices, n, gr, best, lab, unused);
     if (delta_row<XT, CT>(x, w, prev, gr, d, k, with_mind, lab, best, lane, labels, mind, dsums,
                           dcounts) &&
         lane == 0)
@@ -1199,24 +1342,83 @@ core_delta_finish_kernel(const XT* __restrict__ x, const float* __restrict__ par
   }
 }
 
+// K4 on the core, launch 1 of 5: each 1024-row group's needed-row count;
+// the rows not needed pass prev / sb_in / slb_in through.
+__global__ void __launch_bounds__(NT)
+hamerly_count_kernel(const unsigned char* __restrict__ need, const int* __restrict__ prev,
+                     const float* __restrict__ sb_in, const float* __restrict__ slb_in, int n,
+                     int* __restrict__ labels, float* __restrict__ sb, float* __restrict__ slb,
+                     int* __restrict__ group_counts) {
+  const int count = compact_group(
+      need, blockIdx.x * GROUP_ROWS, n, [](int, int) {},
+      [&](int gr) {
+        labels[gr] = prev[gr];
+        sb[gr] = sb_in[gr];
+        slb[gr] = slb_in[gr];
+      });
+  if (threadIdx.x == 0) group_counts[blockIdx.x] = count;
+}
+
+// Launch 2 of 5 (one block): out = the exclusive prefix sums of in[0, m),
+// *total = their sum -- the needed-row count the core reads.
+__global__ void __launch_bounds__(SCAN_NT)
+exclusive_scan_kernel(const int* __restrict__ in, int m, int* __restrict__ out,
+                      int* __restrict__ total) {
+  __shared__ int s[SCAN_NT];
+  const int t = threadIdx.x;
+  const int per = (m + SCAN_NT - 1) / SCAN_NT;
+  const int b0 = min(m, t * per), b1 = min(m, b0 + per);
+  int a = 0;
+  for (int b = b0; b < b1; ++b) a += in[b];
+  s[t] = a;
+  __syncthreads();
+  for (int off = 1; off < SCAN_NT; off <<= 1) {
+    const int v = t >= off ? s[t - off] : 0;
+    __syncthreads();
+    s[t] += v;
+    __syncthreads();
+  }
+  a = s[t] - a;
+  for (int b = b0; b < b1; ++b) {
+    out[b] = a;
+    a += in[b];
+  }
+  if (t == SCAN_NT - 1) *total = s[t];
+}
+
+// Launch 3 of 5: the needed rows listed in increasing row order.
+__global__ void __launch_bounds__(NT)
+hamerly_list_kernel(const unsigned char* __restrict__ need, int n,
+                    const int* __restrict__ group_start, int* __restrict__ rows) {
+  int* out = rows + group_start[blockIdx.x];
+  compact_group(
+      need, blockIdx.x * GROUP_ROWS, n, [&](int slot, int gr) { out[slot] = gr; }, [](int) {});
+}
+
+// Launch 5 of 5, after the core's gathered scoring (4 of 5): a warp per
+// listed row merges its slices with the second-min and runs K4's row
+// epilogue.
+__global__ void __launch_bounds__(NT)
+core_hamerly_finish_kernel(const bf16* __restrict__ x, const int* __restrict__ rows,
+                           const int* __restrict__ count, const float* __restrict__ part_best,
+                           const int* __restrict__ part_idx,
+                           const float* __restrict__ part_second, int slices, int n,
+                           const float* __restrict__ w, const int* __restrict__ prev, int d,
+                           int k, int* __restrict__ labels, float* __restrict__ sb,
+                           float* __restrict__ slb, float* __restrict__ dsums,
+                           float* __restrict__ dcounts) {
+  const int slot = (int)(((size_t)blockIdx.x * NT + threadIdx.x) >> 5);
+  if (slot >= *count) return;
+  float best, second;
+  int lab;
+  merge_parts(part_best, part_idx, part_second, slices, n, slot, best, lab, second);
+  hamerly_row<bf16, bf16>(x, w, prev, rows[slot], d, k, lab, best, second, threadIdx.x & 31,
+                          labels, sb, slb, dsums, dcounts);
+}
+
 template <class F>
 int set_smem(F kern, int bytes) {
   return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-template <class XT, class CT, bool VEC>
-int launch_hamerly(const void* x, const void* neg2c, const float* csq, const float* w,
-                   const int* prev, const unsigned char* need, const float* sb_in,
-                   const float* slb_in, int n, int d, int k, int* labels, float* sb, float* slb,
-                   float* dsums, float* dcounts, int* n_rec, int* group_counts,
-                   cudaStream_t stream) {
-  auto kern = lloyd_hamerly_kernel<XT, CT, VEC>;
-  constexpr int smem = smem_bytes<CT>();
-  if (int e = set_smem(kern, smem)) return e;
-  kern<<<(n + GROUP_ROWS - 1) / GROUP_ROWS, NT, smem, stream>>>(
-      static_cast<const XT*>(x), static_cast<const CT*>(neg2c), csq, w, prev, need, sb_in,
-      slb_in, n, d, k, labels, sb, slb, dsums, dcounts, n_rec, group_counts);
-  return (int)cudaGetLastError();
 }
 
 template <class XT, class CT>
@@ -1225,35 +1427,6 @@ int launch_acc(const void* x, const int* labels, const float* scores, const floa
   const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
   accumulate_kernel<XT, CT><<<(unsigned)blocks, NT, 0, stream>>>(
       static_cast<const XT*>(x), labels, scores, w, n, d, k, sums, counts, mind);
-  return (int)cudaGetLastError();
-}
-
-template <class XT, class CT, bool VEC>
-int launch_tiled_argmin(const void* x, const void* neg2c, const float* csq, int n, int d,
-                        int k, int k_tile, int raw, int with_second, float* part_best,
-                        int* part_idx, float* part_second, int* labels, float* mind,
-                        float* second, cudaStream_t stream) {
-  const int row_blocks = (n + BM - 1) / BM;
-  const int slices = (k + k_tile - 1) / k_tile;
-  constexpr int smem = smem_bytes<CT>();
-  const XT* xt = static_cast<const XT*>(x);
-  const CT* ct = static_cast<const CT*>(neg2c);
-  if (with_second) {
-    auto kern = tiled_score_kernel<XT, CT, VEC, true>;
-    if (int e = set_smem(kern, smem)) return e;
-    kern<<<row_blocks * slices, NT, smem, stream>>>(xt, ct, csq, n, d, k, k_tile, row_blocks,
-                                                    part_best, part_idx, part_second);
-  } else {
-    auto kern = tiled_score_kernel<XT, CT, VEC, false>;
-    if (int e = set_smem(kern, smem)) return e;
-    kern<<<row_blocks * slices, NT, smem, stream>>>(xt, ct, csq, n, d, k, k_tile, row_blocks,
-                                                    part_best, part_idx, nullptr);
-  }
-  if (int e = (int)cudaGetLastError()) return e;
-  const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
-  tiled_merge_kernel<XT><<<(unsigned)blocks, NT, 0, stream>>>(
-      xt, part_best, part_idx, with_second ? part_second : nullptr, n, d, slices, raw, labels,
-      mind, with_second ? second : nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -1349,29 +1522,116 @@ int make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d, int 
   return r == CUDA_SUCCESS ? 0 : kBadTensorMap;
 }
 
-// The core's score launch: (best, index) of every (slice, row) into
-// part_best / part_idx, (ceil(k / CORE_BN), n) each.
-int launch_core_score(const void* x, const void* neg2c, const float* csq, int n, int d, int k,
-                      float* part_best, int* part_idx, cudaStream_t stream) {
+// The core's score launch: the (best, index[, second]) of every (range of
+// k_tile columns, row) into part_best / part_idx / part_second, (ceil(k /
+// k_tile), n) each.  With GATHER the rows are x's rows rows[0 .. *count),
+// read on the card; the grid is sized for n of them.
+template <bool GATHER, bool SECOND>
+int launch_core_score(const void* x, const void* neg2c, const float* csq, const int* rows,
+                      const int* count, int n, int d, int k, int k_tile, float* part_best,
+                      int* part_idx, float* part_second, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kNoTensorMap;
-  CUtensorMap x_map, c_map;
-  if (int e = make_map(encode, &x_map, x, d, n, CORE_BM)) return e;
+  CUtensorMap x_map{}, c_map;
+  if (!GATHER)
+    if (int e = make_map(encode, &x_map, x, d, n, CORE_BM)) return e;
   if (int e = make_map(encode, &c_map, neg2c, d, k, CORE_BN)) return e;
   int dev = 0, sms = 0;
   if (int e = (int)cudaGetDevice(&dev)) return e;
   if (int e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) return e;
-  if (int e = set_smem(core_score_kernel, CORE_SMEM)) return e;
+  auto kern = core_score_kernel<GATHER, SECOND>;
+  if (int e = set_smem(kern, CORE_SMEM)) return e;
   const long long tiles =
-      (long long)((n + CORE_BM - 1) / CORE_BM) * ((k + CORE_BN - 1) / CORE_BN);
+      (long long)((n + CORE_BM - 1) / CORE_BM) * ((k + k_tile - 1) / k_tile);
   const int grid = (int)std::min<long long>(tiles, sms);
-  core_score_kernel<<<grid, CORE_THREADS, CORE_SMEM, stream>>>(x_map, c_map, csq, n, d, k,
-                                                               part_best, part_idx);
+  kern<<<grid, CORE_THREADS, CORE_SMEM, stream>>>(
+      x_map, c_map, csq, static_cast<const bf16*>(x), rows, count, n, d, k, k_tile, part_best,
+      part_idx, part_second);
   return (int)cudaGetLastError();
 }
 
 template <class XT, class CT, bool VEC>
 constexpr bool core_takes = std::is_same<XT, bf16>::value && std::is_same<CT, bf16>::value && VEC;
+
+template <class XT, class CT, bool VEC>
+int launch_hamerly(const void* x, const void* neg2c, const float* csq, const float* w,
+                   const int* prev, const unsigned char* need, const float* sb_in,
+                   const float* slb_in, int n, int d, int k, int core, int* labels, float* sb,
+                   float* slb, float* dsums, float* dcounts, int* n_rec, int* group_counts,
+                   float* part_best, int* part_idx, float* part_second, int* rows,
+                   int* group_start, cudaStream_t stream) {
+  const int groups = (n + GROUP_ROWS - 1) / GROUP_ROWS;
+  if (!core) {
+    auto kern = lloyd_hamerly_kernel<XT, CT, VEC>;
+    constexpr int smem = smem_bytes<CT>();
+    if (int e = set_smem(kern, smem)) return e;
+    kern<<<groups, NT, smem, stream>>>(static_cast<const XT*>(x), static_cast<const CT*>(neg2c),
+                                       csq, w, prev, need, sb_in, slb_in, n, d, k, labels, sb,
+                                       slb, dsums, dcounts, n_rec, group_counts);
+    return (int)cudaGetLastError();
+  }
+  if constexpr (core_takes<XT, CT, VEC>) {
+    hamerly_count_kernel<<<groups, NT, 0, stream>>>(need, prev, sb_in, slb_in, n, labels, sb,
+                                                    slb, group_counts);
+    if (int e = (int)cudaGetLastError()) return e;
+    exclusive_scan_kernel<<<1, SCAN_NT, 0, stream>>>(group_counts, groups, group_start, n_rec);
+    if (int e = (int)cudaGetLastError()) return e;
+    hamerly_list_kernel<<<groups, NT, 0, stream>>>(need, n, group_start, rows);
+    if (int e = (int)cudaGetLastError()) return e;
+    if (int e = launch_core_score<true, true>(x, neg2c, csq, rows, n_rec, n, d, k, CORE_BN,
+                                              part_best, part_idx, part_second, stream))
+      return e;
+    const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
+    core_hamerly_finish_kernel<<<(unsigned)blocks, NT, 0, stream>>>(
+        static_cast<const bf16*>(x), rows, n_rec, part_best, part_idx, part_second,
+        (k + CORE_BN - 1) / CORE_BN, n, w, prev, d, k, labels, sb, slb, dsums, dcounts);
+    return (int)cudaGetLastError();
+  } else {
+    return kBadCore;
+  }
+}
+
+template <class XT, class CT, bool VEC>
+int launch_tiled_argmin(const void* x, const void* neg2c, const float* csq, int n, int d,
+                        int k, int k_tile, int raw, int with_second, int core,
+                        float* part_best, int* part_idx, float* part_second, int* labels,
+                        float* mind, float* second, cudaStream_t stream) {
+  const int row_blocks = (n + BM - 1) / BM;
+  const int slices = (k + k_tile - 1) / k_tile;
+  constexpr int smem = smem_bytes<CT>();
+  const XT* xt = static_cast<const XT*>(x);
+  const CT* ct = static_cast<const CT*>(neg2c);
+  if (core) {
+    if constexpr (core_takes<XT, CT, VEC>) {
+      if (int e = with_second
+                      ? launch_core_score<false, true>(x, neg2c, csq, nullptr, nullptr, n, d, k,
+                                                       k_tile, part_best, part_idx, part_second,
+                                                       stream)
+                      : launch_core_score<false, false>(x, neg2c, csq, nullptr, nullptr, n, d, k,
+                                                        k_tile, part_best, part_idx, nullptr,
+                                                        stream))
+        return e;
+    } else {
+      return kBadCore;
+    }
+  } else if (with_second) {
+    auto kern = tiled_score_kernel<XT, CT, VEC, true>;
+    if (int e = set_smem(kern, smem)) return e;
+    kern<<<row_blocks * slices, NT, smem, stream>>>(xt, ct, csq, n, d, k, k_tile, row_blocks,
+                                                    part_best, part_idx, part_second);
+  } else {
+    auto kern = tiled_score_kernel<XT, CT, VEC, false>;
+    if (int e = set_smem(kern, smem)) return e;
+    kern<<<row_blocks * slices, NT, smem, stream>>>(xt, ct, csq, n, d, k, k_tile, row_blocks,
+                                                    part_best, part_idx, nullptr);
+  }
+  if (int e = (int)cudaGetLastError()) return e;
+  const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
+  tiled_merge_kernel<XT><<<(unsigned)blocks, NT, 0, stream>>>(
+      xt, part_best, part_idx, with_second ? part_second : nullptr, n, d, slices, raw, labels,
+      mind, with_second ? second : nullptr);
+  return (int)cudaGetLastError();
+}
 
 template <class XT, class CT, bool VEC>
 int launch_pass(const void* x, const void* neg2c, const float* csq, const float* w, int n,
@@ -1382,7 +1642,8 @@ int launch_pass(const void* x, const void* neg2c, const float* csq, const float*
   const XT* xt = static_cast<const XT*>(x);
   if (core) {
     if constexpr (core_takes<XT, CT, VEC>) {
-      if (int e = launch_core_score(x, neg2c, csq, n, d, k, part_best, part_idx, stream))
+      if (int e = launch_core_score<false, false>(x, neg2c, csq, nullptr, nullptr, n, d, k,
+                                                  CORE_BN, part_best, part_idx, nullptr, stream))
         return e;
       const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
       tiled_merge_kernel<XT><<<(unsigned)blocks, NT, 0, stream>>>(
@@ -1417,7 +1678,8 @@ int launch_delta(const void* x, const void* neg2c, const float* csq, const float
   const XT* xt = static_cast<const XT*>(x);
   if (core) {
     if constexpr (core_takes<XT, CT, VEC>) {
-      if (int e = launch_core_score(x, neg2c, csq, n, d, k, part_best, part_idx, stream))
+      if (int e = launch_core_score<false, false>(x, neg2c, csq, nullptr, nullptr, n, d, k,
+                                                  CORE_BN, part_best, part_idx, nullptr, stream))
         return e;
       const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
       core_delta_finish_kernel<XT, CT><<<(unsigned)blocks, NT, 0, stream>>>(
@@ -1492,22 +1754,30 @@ extern "C" int kml_accumulate(const void* x, int x_dtype, int cd, const int* lab
   return kBadDtype;
 }
 
+// core = 1: the Hopper core.  part_best / part_idx / part_second are its
+// (ceil(k / 256), n) slice buffers, rows (n) and group_start (one per
+// 1024-row group) the list of needed rows; n_rec is the device-side count
+// the core reads.  score_block (core = 0) takes none of them.
 extern "C" int kml_lloyd_hamerly(const void* x, int x_dtype, const void* neg2c, int cd,
                                  const float* csq, const float* w, const int* prev,
                                  const unsigned char* need, const float* sb_in,
-                                 const float* slb_in, int n, int d, int k, int vec, int* labels,
-                                 float* sb, float* slb, float* dsums, float* dcounts,
-                                 int* n_rec, int* group_counts, void* stream) {
-  KML_DISPATCH(launch_hamerly, x, neg2c, csq, w, prev, need, sb_in, slb_in, n, d, k, labels,
-               sb, slb, dsums, dcounts, n_rec, group_counts, static_cast<cudaStream_t>(stream));
+                                 const float* slb_in, int n, int d, int k, int vec, int core,
+                                 int* labels, float* sb, float* slb, float* dsums,
+                                 float* dcounts, int* n_rec, int* group_counts,
+                                 float* part_best, int* part_idx, float* part_second,
+                                 int* rows, int* group_start, void* stream) {
+  KML_DISPATCH(launch_hamerly, x, neg2c, csq, w, prev, need, sb_in, slb_in, n, d, k, core,
+               labels, sb, slb, dsums, dcounts, n_rec, group_counts, part_best, part_idx,
+               part_second, rows, group_start, static_cast<cudaStream_t>(stream));
 }
 
+// core = 1: the Hopper core over ranges of k_tile columns.
 extern "C" int kml_tiled_argmin(const void* x, int x_dtype, const void* neg2c, int cd,
                                 const float* csq, int n, int d, int k, int k_tile, int raw,
-                                int with_second, int vec, float* part_best, int* part_idx,
-                                float* part_second, int* labels, float* mind, float* second,
-                                void* stream) {
-  KML_DISPATCH(launch_tiled_argmin, x, neg2c, csq, n, d, k, k_tile, raw, with_second,
+                                int with_second, int vec, int core, float* part_best,
+                                int* part_idx, float* part_second, int* labels, float* mind,
+                                float* second, void* stream) {
+  KML_DISPATCH(launch_tiled_argmin, x, neg2c, csq, n, d, k, k_tile, raw, with_second, core,
                part_best, part_idx, part_second, labels, mind, second,
                static_cast<cudaStream_t>(stream));
 }

@@ -47,13 +47,15 @@ _SIGNATURES = {
     # x, x_dtype, cd, labels, scores, w, n, d, k, sums, counts, mind, stream
     "kml_accumulate": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # x, x_dtype, neg2c, cd, csq, w, prev, need, sb_in, slb_in, n, d, k,
-    # vec, labels, sb, slb, dsums, dcounts, n_rec, group_counts, stream
+    # vec, core, labels, sb, slb, dsums, dcounts, n_rec, group_counts,
+    # part_best, part_idx, part_second, rows, group_start, stream
     "kml_lloyd_hamerly": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                          _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+                          _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _P, _P],
     # x, x_dtype, neg2c, cd, csq, n, d, k, k_tile, raw, with_second, vec,
-    # part_best, part_idx, part_second, labels, mind, second, stream
+    # core, part_best, part_idx, part_second, labels, mind, second, stream
     "kml_tiled_argmin": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P, _P, _P, _P, _P, _P, _P],
+                         _I, _P, _P, _P, _P, _P, _P, _P],
     # x, x_dtype, cd, w, lab, lab2, n, d, k, chunk_entries, chunks, vec,
     # hist, total, start, cstart, pstart, order, part, part_counts, sums,
     # counts, stream
@@ -78,7 +80,8 @@ def build() -> dict:
 
     Returns ``{"path", "seconds", "built", "ptxas"}``: the library path,
     the compile time, whether it compiled now, and the assembler's
-    per-kernel register / shared-memory report (empty when cached)."""
+    per-kernel register / shared-memory / spill report (empty when
+    cached)."""
     src = SOURCE.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libkml_lloyd_{tag}.so"

@@ -36,10 +36,13 @@ the plain versions' (and from run to run) at the f32 rounding level; K1
 folds with K6's bucketed fold, which sums each bucket in row order and gives
 the same bits every launch.
 
-K1 and K2 score with one of two cores (:func:`scoring_core`): the Hopper
-core (TMA loads into an mbarrier ring, ``wgmma``, the argmin taken from
-registers) for bf16 x in bf16 compute with 16-byte rows, ``score_block``
-(``mma.sync`` in bf16, CUDA-core FMA in f32) for every other input.
+K1, K2, K4 and K5 score with one of two cores (:func:`scoring_core`): the
+Hopper core (TMA loads into an mbarrier ring -- ``cp.async`` for K4's
+gathered rows --, ``wgmma``, the argmin and second-min taken from registers,
+over ``k_tile``-wide column ranges for K5) for bf16 x in bf16 compute with
+16-byte rows, ``score_block`` (``mma.sync`` in bf16, CUDA-core FMA in f32)
+for every other input.  The two give the same labels, scores and second-min
+bit for bit.
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ __all__ = ["lloyd_pass_cuda", "lloyd_delta_cuda", "accumulate_cuda",
            "lloyd_hamerly_cuda", "tiled_argmin_cuda", "tiled_fold_cuda",
            "lloyd_pass_plain", "lloyd_delta_plain", "accumulate_plain",
            "lloyd_hamerly_plain", "tiled_argmin_plain", "tiled_fold_plain",
-           "launch_counts", "reset_launch_counts", "scoring_core",
+           "hamerly_compaction_plain", "launch_counts",
+           "reset_launch_counts", "scoring_core",
            "DENSE_GROUP_ROWS", "DENSE_SLOTS", "HAMERLY_SLOTS"]
 
 #: ``dense_tiles`` keeps the TPU kernels' meaning: the number of 1024-row
@@ -164,10 +168,10 @@ def _vec_ok(d: int, cd: torch.dtype, *tensors: torch.Tensor) -> int:
 
 def scoring_core(x: torch.Tensor, cd: torch.dtype,
                  *operands: torch.Tensor) -> str:
-    """The core K1 and K2 score ``x`` with: ``"wgmma"`` (the Hopper core)
-    where :func:`kmeans_tpu_torch.ops.plan.core_takes` says so and x and
-    ``operands`` start on 16-byte boundaries, else ``"score_block"``.  A
-    fixed rule on dtype, d and alignment: a failed build or launch never
+    """The core K1, K2, K4 and K5 score ``x`` with: ``"wgmma"`` (the Hopper
+    core) where :func:`kmeans_tpu_torch.ops.plan.core_takes` says so and x
+    and ``operands`` start on 16-byte boundaries, else ``"score_block"``.
+    A fixed rule on dtype, d and alignment: a failed build or launch never
     picks the other core."""
     d = x.shape[1]
     takes = (x.dtype == cd == torch.bfloat16
@@ -176,17 +180,27 @@ def scoring_core(x: torch.Tensor, cd: torch.dtype,
     return "wgmma" if takes else "score_block"
 
 
-def _core_parts(x: torch.Tensor, k: int, core: str):
-    """The Hopper core's per-slice ``(best, index)`` buffers, (⌈k/256⌉, n)
-    each, or ``(None, None)`` for ``score_block``."""
+def _core_parts(x: torch.Tensor, slices: int, second: bool = False):
+    """Per-slice ``[best, index]`` buffers (and ``second`` with
+    ``second``), (slices, n) each: a score launch's partial argmins, which
+    its finishing launch merges in slice order."""
+    n = x.shape[0]
+    if -(-n // 128) * slices >= 2 ** 31:
+        raise ValueError(f"n={n} in {slices} slices: more than 2**31 tiles")
+    parts = [torch.empty(slices, n, dtype=torch.float32, device=x.device),
+             torch.empty(slices, n, dtype=torch.int32, device=x.device)]
+    if second:
+        parts.append(torch.empty(slices, n, dtype=torch.float32,
+                                 device=x.device))
+    return parts
+
+
+def _core_slices(x: torch.Tensor, k: int, core: str):
+    """K1's and K2's part buffers on the Hopper core, (⌈k/256⌉, n) each, or
+    ``(None, None)`` for ``score_block``."""
     if core != "wgmma":
         return None, None
-    n = x.shape[0]
-    slices = -(-k // _CORE_SLICE)
-    if -(-n // 128) * slices >= 2 ** 31:
-        raise ValueError(f"n={n}, k={k}: more than 2**31 tiles")
-    return (torch.empty(slices, n, dtype=torch.float32, device=x.device),
-            torch.empty(slices, n, dtype=torch.int32, device=x.device))
+    return _core_parts(x, -(-k // _CORE_SLICE))
 
 
 class FoldScratch(NamedTuple):
@@ -481,13 +495,16 @@ def lloyd_pass_plain(x, centroids, *, weights=None, compute_dtype=None,
     return labels, min_d2, sums, counts, (min_d2 * w).sum()
 
 
+def _group_counts(rows: torch.Tensor) -> torch.Tensor:
+    """The number of rows flagged in ``rows`` in each 1024-row group."""
+    pad = (-rows.shape[0]) % DENSE_GROUP_ROWS
+    return torch.nn.functional.pad(rows.int(), (0, pad)).view(
+        -1, DENSE_GROUP_ROWS).sum(dim=1, dtype=torch.int32)
+
+
 def _dense_tiles(rows: torch.Tensor, slots: int = DENSE_SLOTS) -> torch.Tensor:
     """1024-row groups with more than ``slots`` rows flagged in ``rows``."""
-    n = rows.shape[0]
-    pad = (-n) % DENSE_GROUP_ROWS
-    per_group = torch.nn.functional.pad(rows.int(), (0, pad)).view(
-        -1, DENSE_GROUP_ROWS).sum(dim=1)
-    return (per_group > slots).sum().int()
+    return (_group_counts(rows) > slots).sum().int()
 
 
 def lloyd_delta_plain(x, centroids, labels_prev, *, weights=None,
@@ -520,12 +537,23 @@ def _hamerly_inputs(x, labels_prev, need, sb_in, slb_in):
             slb_in.to(device=dev, dtype=torch.float32).contiguous())
 
 
+def hamerly_compaction_plain(need: torch.Tensor):
+    """Plain version of K4's compaction on the Hopper core: ``(rows,
+    count, group_counts)`` -- the rows flagged ``need`` in increasing
+    order (int32), their count, and the count of each 1024-row group, from
+    which ``dense_tiles`` counts the groups over ``HAMERLY_SLOTS``."""
+    rows = need.nonzero()[:, 0].int()
+    return (rows, torch.tensor(rows.numel(), dtype=torch.int32),
+            _group_counts(need))
+
+
 def lloyd_hamerly_plain(x, centroids, labels_prev, need, sb_in, slb_in, *,
                         weights=None, compute_dtype=None, chunk_size=4096,
                         k_tile=None):
     """Plain version of :func:`lloyd_hamerly_cuda`: the rows flagged
-    ``need`` are gathered and scored; every other row keeps ``labels_prev``,
-    ``sb_in`` and ``slb_in``."""
+    ``need`` are listed (:func:`hamerly_compaction_plain`), gathered and
+    scored; every other row keeps ``labels_prev``, ``sb_in`` and
+    ``slb_in``."""
     cd = resolve_cd(compute_dtype, x.dtype)
     n = x.shape[0]
     k = centroids.shape[0]
@@ -535,7 +563,7 @@ def lloyd_hamerly_plain(x, centroids, labels_prev, need, sb_in, slb_in, *,
     if k_tile is not None:
         return _hamerly_tiled(False, x, centroids, prev, need, sb_in, slb_in,
                               w, cd, k_tile, chunk_size)
-    rows = need.nonzero()[:, 0]
+    rows, count, groups = hamerly_compaction_plain(need)
     lab_r, best_r, second_r = _argmin_plain(x, centroids, cd, chunk_size,
                                             rows=rows, with_second=True)
     labels = prev.clone()
@@ -547,8 +575,8 @@ def lloyd_hamerly_plain(x, centroids, labels_prev, need, sb_in, slb_in, *,
     changed = need & (labels != prev) & (w > 0)
     dsums, dcounts = _signed_fold_plain(x, k, labels, prev, changed, w, cd,
                                         chunk_size)
-    return (labels, sb, slb, dsums, dcounts, need.sum().int(),
-            _dense_tiles(need, HAMERLY_SLOTS))
+    return (labels, sb, slb, dsums, dcounts, count.to(x.device),
+            (groups > HAMERLY_SLOTS).sum().int())
 
 
 def accumulate_plain(x, labels, k, *, scores=None, weights=None,
@@ -604,7 +632,7 @@ def lloyd_pass_cuda(x, centroids, *, weights=None, compute_dtype=None,
     _check_cuda_inputs("lloyd_pass_cuda", x, k, cd, w, neg2c)
     dev = x.device
     core = scoring_core(x, cd, neg2c)
-    part_best, part_idx = _core_parts(x, k, core)
+    part_best, part_idx = _core_slices(x, k, core)
     labels = torch.empty(n, dtype=torch.int32, device=dev)
     min_d2 = torch.empty(n, dtype=torch.float32, device=dev)
     if with_update:
@@ -657,7 +685,7 @@ def lloyd_delta_cuda(x, centroids, labels_prev, *, weights=None,
     _check_cuda_inputs("lloyd_delta_cuda", x, k, cd, w, neg2c, prev)
     dev = x.device
     core = scoring_core(x, cd, neg2c)
-    part_best, part_idx = _core_parts(x, k, core)
+    part_best, part_idx = _core_slices(x, k, core)
     labels = torch.empty(n, dtype=torch.int32, device=dev)
     min_d2 = torch.empty(n, dtype=torch.float32, device=dev)
     dsums = torch.zeros(k, d, dtype=torch.float32, device=dev)
@@ -723,9 +751,13 @@ def lloyd_hamerly_cuda(x, centroids, labels_prev, need, sb_in, slb_in, *,
     score over the other columns; every other row passes ``labels_prev``,
     ``sb_in`` and ``slb_in`` through.  The delta is K2's signed fold over
     the scored rows whose label changed (a −1 sentinel, which the caller
-    must flag ``need``, makes it the full reduction).  ``k_tile`` runs K5
-    over every row and K6's dual fold instead of K4, as the reference's
-    tiled route does (``dense_tiles`` is then 0)."""
+    must flag ``need``, makes it the full reduction).  On
+    :func:`scoring_core`'s Hopper core the needed rows are listed on the
+    card in row order and scored 128 at a time, gathered with
+    ``cp.async``; on ``score_block`` each 1024-row group scores its own.
+    Neither synchronises with the host.  ``k_tile`` runs K5 over every row
+    and K6's dual fold instead of K4, as the reference's tiled route does
+    (``dense_tiles`` is then 0)."""
     if x.device.type == "cpu":
         return lloyd_hamerly_plain(x, centroids, labels_prev, need, sb_in,
                                    slb_in, weights=weights,
@@ -744,6 +776,7 @@ def lloyd_hamerly_cuda(x, centroids, labels_prev, need, sb_in, slb_in, *,
     neg2c, csq = _score_operands(centroids, cd)
     _check_cuda_inputs("lloyd_hamerly_cuda", x, k, cd, w, neg2c, prev, need,
                        sb_in, slb_in)
+    core = scoring_core(x, cd, neg2c)
     labels = torch.empty(n, dtype=torch.int32, device=dev)
     sb = torch.empty(n, dtype=torch.float32, device=dev)
     slb = torch.empty(n, dtype=torch.float32, device=dev)
@@ -752,13 +785,22 @@ def lloyd_hamerly_cuda(x, centroids, labels_prev, need, sb_in, slb_in, *,
     n_rec = torch.zeros(1, dtype=torch.int32, device=dev)
     groups = torch.empty(-(-n // DENSE_GROUP_ROWS), dtype=torch.int32,
                          device=dev)
+    # On the core: its slice buffers (indexed by a needed row's rank), the
+    # list of needed rows, and each group's first rank in that list.
+    scratch = []
+    if core == "wgmma":
+        scratch = [*_core_parts(x, -(-k // _CORE_SLICE), second=True),
+                   torch.empty(n, dtype=torch.int32, device=dev),
+                   torch.empty_like(groups)]
     _launch(lloyd_hamerly_cuda, "kml_lloyd_hamerly", x,
             x.data_ptr(), _DTYPE_CODES[x.dtype], neg2c.data_ptr(),
             _DTYPE_CODES[cd], csq.data_ptr(), w.data_ptr(), prev.data_ptr(),
             need.data_ptr(), sb_in.data_ptr(), slb_in.data_ptr(), n, d, k,
-            _vec_ok(d, cd, x, neg2c), labels.data_ptr(), sb.data_ptr(),
-            slb.data_ptr(), dsums.data_ptr(), dcounts.data_ptr(),
-            n_rec.data_ptr(), groups.data_ptr())
+            _vec_ok(d, cd, x, neg2c), int(core == "wgmma"),
+            labels.data_ptr(), sb.data_ptr(), slb.data_ptr(),
+            dsums.data_ptr(), dcounts.data_ptr(), n_rec.data_ptr(),
+            groups.data_ptr(),
+            *(_ptr(t) for t in scratch or [None] * 5))
     dense_tiles = (groups > HAMERLY_SLOTS).sum().int()
     return labels, sb, slb, dsums, dcounts, n_rec[0], dense_tiles
 
@@ -773,7 +815,11 @@ def tiled_argmin_cuda(x, neg2c, csq, *, k_tile, raw_scores=False,
     min f32 [n])`` and with ``with_second`` the least score over the other
     columns; the min is ``max(min + ||x||², 0)``, or the raw score with
     ``raw_scores``.  Labels, raw scores and second-min are K2's and K4's
-    bit for bit at the same operands."""
+    bit for bit at the same operands.  It scores with
+    :func:`scoring_core`'s core: the Hopper core walks ``k_tile``-wide
+    column ranges, a row block's ranges on neighbouring blocks;
+    ``score_block`` takes a block for each (slice, 128-row block),
+    slice-major."""
     if x.device.type == "cpu":
         return tiled_argmin_plain(x, neg2c, csq, k_tile=k_tile,
                                   raw_scores=raw_scores,
@@ -788,13 +834,8 @@ def tiled_argmin_cuda(x, neg2c, csq, *, k_tile, raw_scores=False,
     if tuple(csq.shape) != (k,):
         raise ValueError(f"tiled_argmin_cuda: csq shape {tuple(csq.shape)} "
                          f"!= ({k},)")
-    slices = -(-k // k_tile)
-    if -(-n // 128) * slices >= 2 ** 31:
-        raise ValueError(f"tiled_argmin_cuda: n={n}, k={k} at k_tile="
-                         f"{k_tile} needs more than 2**31 blocks")
-    part_best = torch.empty(slices, n, dtype=torch.float32, device=dev)
-    part_idx = torch.empty(slices, n, dtype=torch.int32, device=dev)
-    part_second = torch.empty_like(part_best) if with_second else None
+    core = scoring_core(x, cd, neg2c)
+    parts = _core_parts(x, -(-k // k_tile), second=with_second)
     labels = torch.empty(n, dtype=torch.int32, device=dev)
     best = torch.empty(n, dtype=torch.float32, device=dev)
     second = torch.empty_like(best) if with_second else None
@@ -802,7 +843,8 @@ def tiled_argmin_cuda(x, neg2c, csq, *, k_tile, raw_scores=False,
             x.data_ptr(), _DTYPE_CODES[x.dtype], neg2c.data_ptr(),
             _DTYPE_CODES[cd], csq.data_ptr(), n, d, k, k_tile,
             int(raw_scores), int(with_second), _vec_ok(d, cd, x, neg2c),
-            part_best.data_ptr(), part_idx.data_ptr(), _ptr(part_second),
+            int(core == "wgmma"), *(t.data_ptr() for t in parts),
+            *([None] * (not with_second)),
             labels.data_ptr(), best.data_ptr(), _ptr(second))
     return (labels, best, second) if with_second else (labels, best)
 

@@ -4,14 +4,14 @@ Counterpart of ``vmem_breakdown`` / ``max_k_tile`` / ``kernel_plan`` in
 ``kmeans_tpu/ops/pallas_lloyd.py``, with the card's L2 cache in the role the
 TPU's VMEM plays there.  The port's untiled kernels (K1–K4) take any k: they
 stream the centroids through shared memory (in 256-wide slices on the Hopper
-core of K1 and K2, 128-wide tiles in ``score_block``), and K2–K4 scatter
-their changed rows with f32 atomics into the sums.  Both rest on L2: every
-row block streams all of −2·C, and the atomics resolve in L2 while the sums
-fit there.  Once −2·C
-and the f32 sums outgrow it, the plan switches to the k-tiled pair: K5
-(``tiled_argmin_cuda``) streams one centroid slice at a time, with the blocks
-resident at one time sharing that slice, and K6 (``tiled_fold_cuda``) folds
-by bucketing the rows by label, without float atomics.
+core, 128-wide tiles in ``score_block``), and K2–K4 scatter their changed
+rows with f32 atomics into the sums.  Both rest on L2: every row block
+streams all of −2·C, and the atomics resolve in L2 while the sums fit
+there.  Once −2·C and the f32 sums outgrow it, the plan switches to the
+k-tiled pair: K5 (``tiled_argmin_cuda``) scores one centroid slice of
+``k_tile`` columns at a time and merges the slices' partial argmins (on the
+same core as K1–K4), and K6 (``tiled_fold_cuda``) folds by bucketing the
+rows by label, without float atomics.
 
 Two layers, as in the reference:
 
@@ -21,8 +21,8 @@ Two layers, as in the reference:
   else ``"tiled"`` with the widest 128-multiple slice whose −2·C fits;
   ``"refuse"`` when not even one 128-column slice fits, or a block of the
   scoring core the shape runs (:func:`kernel_smem_bytes`: the Hopper core
-  of K1 and K2 at bf16 with d % 8 == 0, ``score_block`` otherwise) does not
-  fit the card's opt-in shared memory.
+  at bf16 with d % 8 == 0 on either route, ``score_block`` otherwise) does
+  not fit the card's opt-in shared memory.
 * :func:`device_plan` adds the vetoes: fractional weights in a non-f32
   compute dtype, a device that is not a CUDA card, dtypes the kernels do not
   take, shapes out of range.
@@ -66,8 +66,9 @@ SCORE_BLOCK_SMEM_BYTES = 128 * (128 + 4) * 4
 #: and a 256 x 64 bf16 −2C tile, 1024 bytes of alignment slack, and the
 #: ring's 8 mbarriers.
 CORE_SMEM_BYTES = 4 * (128 + 256) * 64 * 2 + 1024 + 8 * 8
-#: The kinds whose kernels (K1, K2) take the Hopper core.
-CORE_KINDS = ("classic", "delta")
+#: The kinds whose kernels take the Hopper core: K1, K2 and K4 untiled
+#: (yinyang runs K4), K5 tiled.
+CORE_KINDS = ("classic", "delta", "hamerly", "yinyang")
 
 _F32_BF16 = (torch.float32, torch.bfloat16)
 
@@ -114,24 +115,25 @@ def card_budget(device=None) -> Budget:
 
 
 def core_takes(kind: str, d: int, x_itemsize: int, cd_itemsize: int) -> bool:
-    """Whether an untiled sweep of ``kind`` scores with the Hopper core: K1
-    or K2 on bf16 x in bf16 compute with d a multiple of 8 (TMA's 16-byte
-    row stride; the wrappers add 16-byte-aligned bases).  f32 compute stays
-    real f32 on the CUDA cores, f32 x is cast on load (TMA cannot), and an
-    odd d such as glove's 300 breaks the stride rule: those run
-    ``score_block``."""
+    """Whether a sweep of ``kind`` scores with the Hopper core, on either
+    route: every scoring kind on bf16 x in bf16 compute with d a multiple
+    of 8 (TMA's 16-byte row stride, and K4's 16-byte ``cp.async`` chunks;
+    the wrappers add 16-byte-aligned bases).  f32 compute stays real f32
+    on the CUDA cores, f32 x is cast on load (TMA cannot), and an odd d
+    such as glove's 300 breaks the stride rule: those run
+    ``score_block``.  The labeled fold scores nothing."""
     return (kind in CORE_KINDS and x_itemsize == 2 and cd_itemsize == 2
             and d % 8 == 0)
 
 
 def kernel_smem_bytes(kind: str, d: int, *, x_itemsize: int = 2,
-                      cd_itemsize: int = 2, tiled: bool = False) -> int:
+                      cd_itemsize: int = 2) -> int:
     """Shared memory a block of the scoring core that ``kind`` runs at this
-    shape needs (0 for the labeled fold, which scores nothing); the tiled
-    route's K5 runs ``score_block``."""
+    shape needs, on either route (0 for the labeled fold, which scores
+    nothing)."""
     if kind == "accumulate":
         return 0
-    if not tiled and core_takes(kind, d, x_itemsize, cd_itemsize):
+    if core_takes(kind, d, x_itemsize, cd_itemsize):
         return CORE_SMEM_BYTES
     return SCORE_BLOCK_SMEM_BYTES
 
@@ -225,8 +227,7 @@ def kernel_plan(kind: str, d: int, k: int, *, x_itemsize: int = 2,
             "tiled", kt, f"{held} overflow 3/4 of L2 ({mib:.1f} MiB): "
             f"{-(-k // kt)} slices of {kt} columns")
     smem = kernel_smem_bytes(kind, d, x_itemsize=x_itemsize,
-                             cd_itemsize=cd_itemsize,
-                             tiled=plan.mode == "tiled")
+                             cd_itemsize=cd_itemsize)
     if smem > budget.smem_per_block:
         core = ("the Hopper core" if smem == CORE_SMEM_BYTES
                 else "score_block")

@@ -1,5 +1,6 @@
-"""The scoring-core rule of K1 and K2, the planner's shared-memory pricing of
-the core, and K6's fold scratch shared by K1 and ``tiled_fold_cuda``.
+"""The scoring-core rule of K1, K2, K4 and K5, the planner's shared-memory
+pricing of the core on either route, the plain version of K4's compaction,
+and K6's fold scratch shared by K1 and ``tiled_fold_cuda``.
 
 All of it is Python that runs without a card: the rule and the sizes are
 what the wrappers hand the kernels, so they are checked here at the shapes
@@ -28,8 +29,11 @@ def test_scoring_core_rule(x_dtype, cd, d, core):
     x = torch.zeros(5, d, dtype=x_dtype)
     c = torch.zeros(3, d, dtype=cd)
     assert K.scoring_core(x, cd, c) == core
-    assert P.core_takes("classic", d, x_dtype.itemsize, cd.itemsize) == (
-        core == "wgmma")
+    # Every scoring kind reads the same rule: K1, K2, K4 (hamerly and
+    # yinyang) and, on the tiled route, K5; the labeled fold scores nothing.
+    for kind in P.KINDS:
+        assert P.core_takes(kind, d, x_dtype.itemsize, cd.itemsize) == (
+            core == "wgmma" and kind != "accumulate"), kind
 
 
 def test_scoring_core_needs_aligned_bases():
@@ -51,15 +55,17 @@ def test_kernel_smem_bytes_prices_the_core_a_shape_runs(kind, d, x_itemsize,
                                                          cd_itemsize):
     got = P.kernel_smem_bytes(kind, d, x_itemsize=x_itemsize,
                               cd_itemsize=cd_itemsize)
-    core = (kind in ("classic", "delta") and d % 8 == 0 and x_itemsize == 2
+    core = (kind != "accumulate" and d % 8 == 0 and x_itemsize == 2
             and cd_itemsize == 2)
     want = (0 if kind == "accumulate" else P.CORE_SMEM_BYTES if core
             else P.SCORE_BLOCK_SMEM_BYTES)
     assert got == want
-    # The tiled route runs K5, which scores with score_block.
-    assert P.kernel_smem_bytes(kind, d, x_itemsize=x_itemsize,
-                               cd_itemsize=cd_itemsize, tiled=True) == (
-        0 if kind == "accumulate" else P.SCORE_BLOCK_SMEM_BYTES)
+    # The tiled route's K5 scores on the same core: a budget one byte short
+    # of it refuses the codebook shape where the core takes the input.
+    short = P.Budget(P.card_budget().l2_bytes, P.CORE_SMEM_BYTES - 1, "test")
+    plan = P.kernel_plan(kind, d, 65536, x_itemsize=x_itemsize,
+                         cd_itemsize=cd_itemsize, budget=short)
+    assert plan.mode == ("refuse" if core else "tiled"), plan
 
 
 def test_core_smem_fits_the_h100_and_matches_the_kernel_ring():
@@ -76,8 +82,8 @@ def test_core_smem_fits_the_h100_and_matches_the_kernel_ring():
     ("delta", 2048, 2, "refuse"),
     ("delta", 300, 2, "untiled"),       # score_block fits
     ("classic", 2048, 4, "untiled"),
-    ("hamerly", 2048, 2, "untiled"),
-    ("yinyang", 2048, 2, "untiled"),
+    ("hamerly", 2048, 2, "refuse"),     # K4 scores on the core too
+    ("yinyang", 2048, 2, "refuse"),
     ("accumulate", 2048, 2, "untiled"),
 ])
 def test_planner_refuses_when_the_core_does_not_fit(kind, d, cd_itemsize,
@@ -91,11 +97,13 @@ def test_planner_refuses_when_the_core_does_not_fit(kind, d, cd_itemsize,
         assert "Hopper core" in plan.why and str(P.CORE_SMEM_BYTES) in \
             plan.why
     # With the H100's budget every one of them runs untiled; at the
-    # codebook width the tiled route's score_block fits the small budget.
+    # codebook width the tiled route's K5 takes the same core, so the small
+    # budget refuses it where it refused the untiled route.
     assert P.kernel_plan(kind, d, 1000, x_itemsize=cd_itemsize,
                          cd_itemsize=cd_itemsize).mode == "untiled"
     assert P.kernel_plan(kind, d, 65536, x_itemsize=cd_itemsize,
-                         cd_itemsize=cd_itemsize, budget=small).mode == "tiled"
+                         cd_itemsize=cd_itemsize, budget=small).mode == (
+        "refuse" if mode == "refuse" else "tiled")
 
 
 def _scratch_as_before(n, d, k, dual):
@@ -128,3 +136,66 @@ def test_fold_scratch_sizes(n, d, k, dual):
     assert not s.hist.any()
     assert s.vec == int(d % 8 == 0)
     assert len(s.args()) == 11
+
+
+@pytest.mark.parametrize("kind", ["hamerly", "yinyang", "classic"])
+def test_planner_prices_the_core_for_k4_and_the_tiled_route(kind):
+    """K4 (hamerly, yinyang) and the tiled route's K5 need the core's ring;
+    glove's d = 300 and f32 compute stay on score_block, whose block fits
+    a budget the core does not."""
+    budget = P.card_budget()
+    short = P.Budget(budget.l2_bytes, P.CORE_SMEM_BYTES - 1, "test")
+    for k in (1000, 65536):
+        plan = P.kernel_plan(kind, 2048, k, budget=short)
+        assert plan.mode == "refuse" and "Hopper core" in plan.why, plan
+        assert P.kernel_plan(kind, 2048, k).mode == (
+            "untiled" if k == 1000 else "tiled")
+        assert P.kernel_plan(kind, 300, k, budget=short).mode == (
+            "untiled" if k == 1000 else "tiled")
+        assert P.kernel_plan(kind, 2048, k, x_itemsize=4, cd_itemsize=4,
+                             budget=short).mode == (
+            "untiled" if k == 1000 else "tiled")
+
+
+@pytest.mark.parametrize("n,frac", [(1, 1.0), (1023, 0.0), (1024, 0.1),
+                                    (5000, 0.1), (5000, 0.3), (5000, 1.0)])
+def test_hamerly_compaction_plain_lists_needed_rows_in_order(n, frac):
+    """The plain version of K4's compaction: the needed rows in increasing
+    order (``need.nonzero()``), their count, and one count per 1024-row
+    group, the last group ragged."""
+    gen = torch.Generator().manual_seed(n)
+    need = torch.rand(n, generator=gen) < frac
+    need[n // 2] |= frac > 0
+    rows, count, groups = K.hamerly_compaction_plain(need)
+    assert rows.dtype == count.dtype == groups.dtype == torch.int32
+    assert torch.equal(rows.long(), need.nonzero()[:, 0])
+    assert int(count) == int(need.sum()) == rows.numel()
+    assert groups.numel() == -(-n // 1024)
+    for g in range(groups.numel()):
+        assert int(groups[g]) == int(need[g * 1024:(g + 1) * 1024].sum())
+    assert int(groups.sum()) == int(count)
+    # Each group's rows start where the counts of the groups before it end:
+    # the list the core path builds with a scan of the group counts.
+    starts = torch.cumsum(groups, 0) - groups
+    for g in range(groups.numel()):
+        part = rows[int(starts[g]):int(starts[g]) + int(groups[g])]
+        assert bool(((part >= g * 1024) & (part < (g + 1) * 1024)).all())
+
+
+def test_hamerly_plain_reports_dense_tiles_from_the_group_counts():
+    """Groups with more than HAMERLY_SLOTS needed rows count as dense, the
+    reference kernel's meaning (1024-row tiles over mc = 256 slots)."""
+    n, d, k = 3000, 8, 5
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(n, d, generator=gen)
+    c = torch.randn(k, d, generator=gen)
+    need = torch.zeros(n, dtype=torch.bool)
+    need[:257] = True                  # group 0: one over the slots
+    need[1024:1024 + 256] = True       # group 1: exactly at the slots
+    need[2048:] = True                 # group 2 (ragged): 952 rows
+    prev = torch.zeros(n, dtype=torch.int32)
+    out = K.lloyd_hamerly_plain(x, c, prev, need, torch.zeros(n),
+                                torch.zeros(n))
+    assert int(out[5]) == 257 + 256 + (n - 2048)
+    assert int(out[6]) == 2
+    assert int(out[6]) == int(K._dense_tiles(need, K.HAMERLY_SLOTS))

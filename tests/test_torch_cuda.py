@@ -16,6 +16,8 @@ Scores (the Hamerly kernel's bounds) agree to rtol 1e-5 and atol
 in another order.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -237,6 +239,18 @@ def test_tiled_sweeps_on_the_card_match_their_plain_versions(card):
         _close(g, e)
 
 
+@contextlib.contextmanager
+def _score_block():
+    """Every wrapper scores with score_block inside: they read
+    ``cuda_lloyd.scoring_core`` at each call."""
+    rule = K.scoring_core
+    K.scoring_core = lambda *args: "score_block"
+    try:
+        yield
+    finally:
+        K.scoring_core = rule
+
+
 @pytest.mark.parametrize("n,d,k", [(2053, 8, 3), (2053, 200, 257),
                                    (1031, 2048, 1000), (4099, 64, 256)])
 def test_hopper_core_matches_plain_versions_and_score_block(card, n, d, k):
@@ -262,14 +276,10 @@ def test_hopper_core_matches_plain_versions_and_score_block(card, n, d, k):
     for g, e in zip(got2[2:5], want2[2:5]):
         _close(g, e)
     assert int(got2[5]) == int(want2[5]) and int(got2[6]) == int(want2[6])
-    rule = K.scoring_core
-    try:
-        K.scoring_core = lambda *args: "score_block"
+    with _score_block():
         sb1 = K.lloyd_pass_cuda(x, c, weights=w, compute_dtype=bf16)
         sb2 = K.lloyd_delta_cuda(x, c, prev, weights=w, compute_dtype=bf16,
                                  with_mind=False)
-    finally:
-        K.scoring_core = rule
     torch.cuda.synchronize()
     assert torch.equal(got1[0], sb1[0]) and torch.equal(got1[1], sb1[1])
     assert torch.equal(got2[0], sb2[0]) and torch.equal(got2[1], sb2[1])
@@ -303,3 +313,97 @@ def test_hopper_core_tie_at_its_slice_edge_goes_to_the_lower_index(card, k):
     lab2 = K.lloyd_delta_cuda(x, c, prev, weights=w, compute_dtype=bf16)[0]
     torch.cuda.synchronize()
     assert bool((lab1[:40] == 255).all()) and bool((lab2[:40] == 255).all())
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.1, 1.0])
+@pytest.mark.parametrize("n,d,k", [(2053, 8, 3), (2053, 200, 257),
+                                   (1031, 2048, 1000), (4099, 64, 256)])
+def test_hamerly_kernel_on_the_core_matches_score_block(card, n, d, k, frac):
+    """K4 on the Hopper core (its needed rows listed on the card, gathered
+    with cp.async) against score_block's K4 on the same input: labels, sb,
+    slb, n_recomputed and dense_tiles bit for bit; against the plain
+    version: labels (tie-free blobs), bounds to the score tolerance, sums
+    to the fold tolerance; two launches equal bit for bit.  −1 sentinels
+    are always needed (none at need fraction 0)."""
+    x, c, w, prev = _blobs(11, n, d, k, card)
+    x = x.to(torch.bfloat16)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=card).manual_seed(12)
+    if frac == 0.0:
+        prev = prev.clamp_min(0)
+    need = (torch.rand(n, generator=gen, device=card) < frac) | (prev < 0)
+    sb_in = torch.randn(n, generator=gen, device=card)
+    slb_in = sb_in + 1
+    assert K.scoring_core(x, bf16, c.to(bf16)) == "wgmma"
+    args = (x, c, prev, need, sb_in, slb_in)
+    kw = dict(weights=w, compute_dtype=bf16)
+    got = K.lloyd_hamerly_cuda(*args, **kw)
+    again = K.lloyd_hamerly_cuda(*args, **kw)
+    with _score_block():
+        ref = K.lloyd_hamerly_cuda(*args, **kw)
+    want = K.lloyd_hamerly_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for i in (0, 1, 2, 5, 6):
+        assert torch.equal(got[i], again[i]) and torch.equal(got[i], ref[i])
+    assert torch.equal(got[0], want[0])
+    for g, e in zip(got[1:3], want[1:3]):
+        _close_scores(g, e)
+    for g, e in zip(got[3:5], want[3:5]):
+        _close(g, e)
+    assert int(got[5]) == int(need.sum()) and int(got[6]) == int(want[6])
+
+
+@pytest.mark.parametrize("k_tile", [128, 384, 1024])
+@pytest.mark.parametrize("n,d,k", [(2053, 8, 3), (2053, 200, 257),
+                                   (1031, 2048, 1000), (2053, 96, 1100)])
+def test_tiled_argmin_on_the_core_matches_score_block(card, n, d, k, k_tile):
+    """K5 on the Hopper core over k_tile-wide column ranges against
+    score_block's K5 bit for bit (labels, raw min, normed min, second-min),
+    two launches bit for bit, against K2's labels and raw scores and K4's
+    second-min bit for bit, and against its plain version (labels where the
+    winner is clear, scores to the score tolerance); exact ties at a
+    256-column sub-slice edge inside a range and at range edges go to the
+    lower index, with second-min == min."""
+    x, c, _, prev = _blobs(13, n, d, k, card)
+    pairs = [(lo, lo + 1) for lo in (127, 255, 383, 1023) if lo + 1 < k]
+    for i, (lo, hi) in enumerate(pairs):
+        c[hi] = c[lo]
+        x[8 * i:8 * (i + 1)] = c[lo]
+    x = x.to(torch.bfloat16)
+    bf16 = torch.bfloat16
+    neg2c, csq = K._score_operands(c, bf16)
+    assert K.scoring_core(x, bf16, neg2c) == "wgmma"
+    with _score_block():
+        ref = K.tiled_argmin_cuda(x, neg2c, csq, k_tile=k_tile,
+                                  raw_scores=True, with_second=True)
+        ref_normed = K.tiled_argmin_cuda(x, neg2c, csq, k_tile=k_tile)[1]
+    for _ in range(2):
+        got = K.tiled_argmin_cuda(x, neg2c, csq, k_tile=k_tile,
+                                  raw_scores=True, with_second=True)
+        normed = K.tiled_argmin_cuda(x, neg2c, csq, k_tile=k_tile)[1]
+        torch.cuda.synchronize()
+        for g, e in zip(got, ref):
+            assert torch.equal(g, e)
+        assert torch.equal(normed, ref_normed)
+    k2 = K.lloyd_delta_cuda(x, c, prev, compute_dtype=bf16, with_mind=False)
+    ones = torch.ones(n, dtype=torch.bool, device=card)
+    zeros = torch.zeros(n, device=card)
+    k4 = K.lloyd_hamerly_cuda(x, c, prev, ones, zeros, zeros,
+                              compute_dtype=bf16)
+    want = K.tiled_argmin_plain(x, neg2c, csq, k_tile=k_tile,
+                                raw_scores=True, with_second=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], k2[0]) and torch.equal(got[1], k2[1])
+    assert torch.equal(got[2], k4[2])
+    # Rows with a clear winner (second-min above the min by more than the
+    # score tolerance) take the plain version's label; the others -- the
+    # planted ties, and the rows of the blobs whose centroids the copies
+    # replaced -- may take either of their near-equal scores.
+    clear = (want[2] - want[1]) > 1e-5 * float(want[1].abs().max())
+    assert torch.equal(got[0][clear], want[0][clear])
+    _close_scores(got[1], want[1])
+    _close_scores(got[2], want[2])
+    for i, (lo, _) in enumerate(pairs):
+        rows = slice(8 * i, 8 * (i + 1))
+        assert bool((got[0][rows] == lo).all())
+        assert torch.equal(got[2][rows], got[1][rows])

@@ -24,7 +24,7 @@ import torch
 
 import kmeans_tpu
 from kmeans_tpu.config import KMeansConfig as RefConfig
-from kmeans_tpu.ops.pallas_lloyd import (accumulate_pallas,
+from kmeans_tpu.ops.pallas_lloyd import (_tiled_argmin, accumulate_pallas,
                                          lloyd_delta_pallas,
                                          lloyd_hamerly_pallas,
                                          lloyd_pass_pallas)
@@ -229,6 +229,123 @@ def test_tiled_argmin_plain_against_the_untiled_scorer(cd):
             _np(normed), _np((best + K._row_sq_plain(xt, 4096)).clamp_min(0)))
     with pytest.raises(ValueError, match="k_tile"):
         K.tiled_argmin_plain(xt, neg2c, csq, k_tile=100)
+
+
+def _merge(a, b):
+    """(best, index, second) of two groups of columns: the lower (value,
+    index) wins, the second-min on the lattice min(s_a, s_b, max(b_a,
+    b_b))."""
+    (ba, ia, sa), (bb, ib, sb) = a, b
+    take = (bb < ba) | ((bb == ba) & (ib < ia))
+    return (torch.where(take, bb, ba), torch.where(take, ib, ia),
+            torch.minimum(torch.minimum(sa, sb), torch.maximum(ba, bb)))
+
+
+def _carry(run, part):
+    """``part`` merged into ``run``, which holds the lower columns: strict
+    ``<`` on the best, the same lattice on the second-min."""
+    (rb, ri, rs), (b, i, sc) = run, part
+    take = b < rb
+    return (torch.where(take, b, rb), torch.where(take, i, ri),
+            torch.minimum(torch.minimum(rs, sc), torch.maximum(rb, b)))
+
+
+def _core_model(x, neg2c, csq, k_tile):
+    """A plain model of the Hopper core's merge order (``core_score_kernel``
+    then ``tiled_merge_kernel`` in ``csrc/lloyd.cu``).  In each 256-column
+    sub-slice, lane l of the 4 that share a row scans columns 8j + 2l + e
+    in increasing order (strict ``<``; a new best pushes the old into the
+    second-min), columns at or past the range's end scoring +inf; the lanes
+    merge in a butterfly (xor 1, then xor 2); the row's (best, index,
+    second) is carried across the range's sub-slices, then the ranges are
+    merged in order.  Returns (labels, raw min, second-min)."""
+    n, k = x.shape[0], neg2c.shape[0]
+    scores = csq + x.to(neg2c.dtype).float() @ neg2c.float().T
+    inf = torch.full((n,), torch.inf)
+    out = None
+    for lo in range(0, k, k_tile):
+        hi = min(k, lo + k_tile)
+        run = (inf, torch.full((n,), lo), inf)
+        for c0 in range(lo, hi, 256):
+            lanes = []
+            for lane in range(4):
+                best, idx, sec = inf, torch.full((n,), c0), inf
+                for col in (c0 + 8 * j + 2 * lane + e
+                            for j in range(32) for e in range(2)):
+                    v = scores[:, col] if col < hi else inf
+                    take = v < best
+                    sec = torch.where(take, best, torch.minimum(sec, v))
+                    best = torch.where(take, v, best)
+                    idx = torch.where(take, col, idx)
+                lanes.append((best, idx, sec))
+            for o in (1, 2):
+                lanes = [_merge(lanes[i], lanes[i ^ o]) for i in range(4)]
+            run = _carry(run, lanes[0])
+        out = run if out is None else _carry(out, run)
+    return out[1].int(), out[0], out[2]
+
+
+@pytest.mark.parametrize("cd", CD)
+@pytest.mark.parametrize("k_tile,k", [(128, 300), (384, 600), (384, 384)])
+def test_core_merge_order_matches_tiled_argmin_bit_for_bit(cd, k_tile, k):
+    """The Hopper core's grouping of the columns (lanes, 256-column
+    sub-slices carried within k_tile ranges, ranges merged in order) gives
+    the labels, raw min and second-min of the slice-merged plain scorer and
+    of the reference's ``_tiled_argmin`` (interpret mode) bit for bit, with
+    exact ties at a sub-slice edge inside a range (255 | 256 at k_tile =
+    384) and at range edges (127 | 128, 383 | 384)."""
+    x, c, _, _, _ = _ints(9, N, D, k)
+    pairs = [(127, 128), (255, 256), (383, 384)]
+    for i, (lo, hi) in enumerate(p for p in pairs if p[1] < k):
+        c[hi] = c[lo]
+        x[16 * i:16 * (i + 1)] = c[lo]
+    xt, ct = _t(x, c)
+    neg2c, csq = K._score_operands(ct, getattr(torch, cd))
+    got = _core_model(xt, neg2c, csq, k_tile)
+    want = K.tiled_argmin_plain(xt, neg2c, csq, k_tile=k_tile,
+                                raw_scores=True, with_second=True)
+    _equal(got, want, ("labels", "min", "second"))
+    k_pad = -(-k // k_tile) * k_tile
+    c_t = np.zeros((D, k_pad), np.float32)
+    c_t[:, :k] = _np(neg2c.float()).T
+    c_sq = np.full(k_pad, np.inf, np.float32)
+    c_sq[:k] = _np(csq)
+    ref = _tiled_argmin(jnp.asarray(x), jnp.asarray(c_t, dtype=cd),
+                        jnp.asarray(c_sq), t=N, k_tile=k_tile,
+                        cd=jnp.dtype(cd), raw_scores=True, with_second=True,
+                        interpret=True)
+    _equal(got, [r[:, 0] for r in ref], ("labels", "min", "second"))
+    lab = _np(got[0])
+    for i, (lo, hi) in enumerate(p for p in pairs if p[1] < k):
+        rows = slice(16 * i, 16 * (i + 1))
+        assert (lab[rows] == lo).all()
+        # An exact duplicate of the best column: second-min == min.
+        np.testing.assert_array_equal(_np(got[2])[rows], _np(got[1])[rows])
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.1, 1.0])
+def test_hamerly_compaction_matches_the_reference_dense_tiles(frac):
+    """The plain version of K4's compaction lists ``need.nonzero()`` and
+    counts the 1024-row groups; those over 256 needed rows are the
+    reference kernel's dense tiles (``lloyd_hamerly_pallas``, interpret
+    mode, 1024-row tiles with mc = 256 slots).  A −1 sentinel is always
+    needed."""
+    n, d, k = 2600, D, 16
+    x, c, w, prev, rng = _ints(10, n, d, k)
+    need = (rng.random(n) < frac) | (prev < 0)
+    need[1024:1024 + 300] |= frac > 0     # one group over the slots
+    rows, count, groups = K.hamerly_compaction_plain(torch.from_numpy(need))
+    np.testing.assert_array_equal(_np(rows), np.flatnonzero(need))
+    assert int(count) == int(need.sum())
+    np.testing.assert_array_equal(
+        _np(groups), [need[g:g + 1024].sum() for g in range(0, n, 1024)])
+    sb = rng.normal(size=n).astype(np.float32)
+    want = lloyd_hamerly_pallas(*_j(x, c, prev, need, sb, sb + 1),
+                                weights=jnp.asarray(w), interpret=True)
+    got = K.lloyd_hamerly_cuda(*_t(x, c, prev, need, sb, sb + 1),
+                               weights=torch.from_numpy(w))
+    assert int(got[6]) == int(want[6]) == int((groups > K.HAMERLY_SLOTS).sum())
+    assert int(got[5]) == int(want[5]) == int(count)
 
 
 def _np_fold(x, w, lab, lab2, k):
