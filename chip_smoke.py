@@ -56,7 +56,12 @@ if any fails:
    plain versions and library calls, K5 with the second-min and on
    ``score_block`` (bit for bit against each other), and the same sweeps
    untiled (K1, K2);
-7. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
+7. K6's time split by launch (CUDA events) on seeded inputs at the full
+   width: the single fold at k = 1000 and at k = 65536, and the dual fold
+   at k = 65536 with 2% of the rows changed;
+8. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
+
+``python3 chip_smoke.py --fold-split`` runs phases 1, 2 and 7 only.
 
 The bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of memory, 989
 TFLOP/s bf16 on the tensor cores and 67 TFLOP/s f32 outside them.
@@ -1613,6 +1618,67 @@ def phase_codebook(headline_launches):
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: K6's launches one by one
+# ---------------------------------------------------------------------------
+
+#: The dual fold's share of changed rows in the split: a steady sweep's
+#: churn at the codebook shape is a few percent of the rows.
+SPLIT_CHURN = 0.02
+
+
+def phase_fold_split():
+    """K6's time split by launch, with CUDA events, on seeded inputs at the
+    full width (x: n = 1,280,000, d = 2048, bf16, standard normal): (a) the
+    single fold at k = 1000 (K1's fold and K3's workload), (b) the single
+    fold at k = 65536, (c) the dual fold at k = 65536 with SPLIT_CHURN of
+    the rows changed (w = 1 on them, 0 elsewhere).  Each launch's time is
+    the difference of two prefixes (``fold_launch_prefix``: the first s
+    launches, scratch included); the scratch set-up (``_fold_scratch``) is
+    timed alone."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    n, d = CODEBOOK["n"], CODEBOOK["d"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(n, d, generator=gen, device="cuda", dtype=torch.bfloat16)
+    cases = []
+    for case, k, dual in (("a", HEADLINE["k"], False),
+                          ("b", CODEBOOK["k"], False),
+                          ("c", CODEBOOK["k"], True)):
+        lab = torch.randint(0, k, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        w, lab2 = None, None
+        if dual:
+            changed = torch.rand(n, generator=gen, device="cuda") < SPLIT_CHURN
+            step = torch.randint(1, k, (n,), generator=gen, device="cuda",
+                                 dtype=torch.int32)
+            lab2 = torch.where(changed, (lab + step) % k, lab)
+            w = changed.float()
+        cases.append((case, k, dual, lab, lab2, w))
+    for case, k, dual, lab, lab2, w in cases:
+        names = K.fold_launch_names(x, k, dual)
+
+        def prefix(stop):
+            return K.fold_launch_prefix(x, w, lab, lab2, k,
+                                        compute_dtype=torch.bfloat16,
+                                        stop=stop)
+
+        scratch_ms = _time_ms(lambda: K._fold_scratch(x, k, dual), 5)
+        times = [_time_ms(lambda: prefix(s), 5)
+                 for s in range(len(names) + 1)]
+        whole = _time_ms(lambda: K.tiled_fold_cuda(
+            x, w, lab, lab2, k, compute_dtype=torch.bfloat16), 5)
+        what = (f"K6 split ({case}) {'dual' if dual else 'single'} fold, "
+                f"n={n} d={d} k={k}"
+                + (f", {int(w.sum())} rows changed" if dual else ""))
+        print(f"{what}: scratch set-up {scratch_ms:.3f} ms, no launch "
+              f"{times[0]:.3f} ms; whole K6 {whole:.3f} ms")
+        for i, name in enumerate(names):
+            print(f"  launch {i + 1} {name}: {times[i + 1] - times[i]:.3f} ms")
+
+
 def main() -> int:
     import torch
 
@@ -1622,6 +1688,9 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device()
     phase_build()
+    if sys.argv[1:] == ["--fold-split"]:
+        phase_fold_split()
+        return 0
     phase_kernels()
     kernels, headline_launches = phase_headline()
     phase_whole_fit()
@@ -1629,6 +1698,7 @@ def main() -> int:
     for row in kernels:
         row["launches"] += codebook_launches.get(row["name"], 0)
     kernels += tiled
+    phase_fold_split()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1434,16 +1434,21 @@ template <class XT, class CT, bool VEC, bool DUAL>
 int launch_fold_dual(const void* x, const float* w, const int* lab, const int* lab2, int n,
                      int d, int k, int chunk_entries, int chunks, int* hist, int* total,
                      int* start, int* cstart, int* pstart, int* order, float* part,
-                     float* part_counts, float* sums, float* counts, cudaStream_t stream) {
+                     float* part_counts, float* sums, float* counts, cudaStream_t stream,
+                     int stop = -1) {
   const int entries = DUAL ? 2 * n : n;
   const unsigned entry_blocks = (unsigned)(((size_t)entries + NT - 1) / NT);
+  if (stop-- == 0) return 0;
   fold_hist_kernel<DUAL><<<entry_blocks, NT, 0, stream>>>(lab, lab2, w, entries, k,
                                                           chunk_entries, hist);
   if (int e = (int)cudaGetLastError()) return e;
+  if (stop-- == 0) return 0;
   fold_chunk_scan_kernel<<<(k + NT - 1) / NT, NT, 0, stream>>>(hist, chunks, k, total);
   if (int e = (int)cudaGetLastError()) return e;
+  if (stop-- == 0) return 0;
   fold_bucket_scan_kernel<<<1, SCAN_NT, 0, stream>>>(total, k, start, cstart, pstart);
   if (int e = (int)cudaGetLastError()) return e;
+  if (stop-- == 0) return 0;
   fold_scatter_kernel<DUAL><<<(unsigned)(((size_t)chunks * 32 + NT - 1) / NT), NT, 0,
                               stream>>>(lab, lab2, w, entries, k, chunk_entries, chunks,
                                         start, hist, order);
@@ -1451,10 +1456,12 @@ int launch_fold_dual(const void* x, const float* w, const int* lab, const int* l
   // Every bucket has at least one fold block; the others come from entries.
   const dim3 grid((unsigned)(k + (entries + FOLD_CHUNK - 1) / FOLD_CHUNK),
                   (unsigned)((d + FOLD_SPAN - 1) / FOLD_SPAN));
+  if (stop-- == 0) return 0;
   fold_sum_kernel<XT, CT, VEC, DUAL><<<grid, NT, 0, stream>>>(
       static_cast<const XT*>(x), w, order, start, cstart, pstart, d, k, sums, counts, part,
       part_counts);
   if (int e = (int)cudaGetLastError()) return e;
+  if (stop-- == 0) return 0;
   fold_combine_kernel<<<k, NT, 0, stream>>>(cstart, pstart, d, part, part_counts, sums,
                                             counts);
   return (int)cudaGetLastError();
@@ -1464,15 +1471,15 @@ template <class XT, class CT, bool VEC>
 int launch_fold(const void* x, const float* w, const int* lab, const int* lab2, int n, int d,
                 int k, int chunk_entries, int chunks, int* hist, int* total, int* start,
                 int* cstart, int* pstart, int* order, float* part, float* part_counts,
-                float* sums, float* counts, cudaStream_t stream) {
+                float* sums, float* counts, int stop, cudaStream_t stream) {
   if (lab2 != nullptr)
     return launch_fold_dual<XT, CT, VEC, true>(x, w, lab, lab2, n, d, k, chunk_entries,
                                                chunks, hist, total, start, cstart, pstart,
                                                order, part, part_counts, sums, counts,
-                                               stream);
+                                               stream, stop);
   return launch_fold_dual<XT, CT, VEC, false>(x, w, lab, lab2, n, d, k, chunk_entries, chunks,
                                               hist, total, start, cstart, pstart, order, part,
-                                              part_counts, sums, counts, stream);
+                                              part_counts, sums, counts, stream, stop);
 }
 
 // Error codes of the entry points besides CUDA's own (which are positive).
@@ -1784,12 +1791,15 @@ extern "C" int kml_tiled_argmin(const void* x, int x_dtype, const void* neg2c, i
 
 // lab2 == nullptr: the single fold.  The wrapper zeroes hist (chunks x k)
 // and sizes order (n or 2n entries) and part (rows of split buckets).
+// stop >= 0 makes only the first stop launches (chip_smoke.py times the
+// launches one by one from the differences); -1 makes them all.
 extern "C" int kml_tiled_fold(const void* x, int x_dtype, int cd, const float* w,
                               const int* lab, const int* lab2, int n, int d, int k,
                               int chunk_entries, int chunks, int vec, int* hist, int* total,
                               int* start, int* cstart, int* pstart, int* order, float* part,
-                              float* part_counts, float* sums, float* counts, void* stream) {
+                              float* part_counts, float* sums, float* counts, int stop,
+                              void* stream) {
   KML_DISPATCH(launch_fold, x, w, lab, lab2, n, d, k, chunk_entries, chunks, hist, total,
-               start, cstart, pstart, order, part, part_counts, sums, counts,
+               start, cstart, pstart, order, part, part_counts, sums, counts, stop,
                static_cast<cudaStream_t>(stream));
 }

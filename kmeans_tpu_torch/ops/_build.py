@@ -58,9 +58,9 @@ _SIGNATURES = {
                          _I, _P, _P, _P, _P, _P, _P, _P],
     # x, x_dtype, cd, w, lab, lab2, n, d, k, chunk_entries, chunks, vec,
     # hist, total, start, cstart, pstart, order, part, part_counts, sums,
-    # counts, stream
+    # counts, stop, stream
     "kml_tiled_fold": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 

@@ -248,9 +248,11 @@ def _fold_scratch(x: torch.Tensor, k: int, dual: bool) -> FoldScratch:
         torch.empty(part_rows, dtype=torch.float32, device=x.device))
 
 
-def _launch(wrapper, entry: str, x: torch.Tensor, *args) -> None:
+def _launch(wrapper, entry: str, x: torch.Tensor, *args,
+            count: bool = True) -> None:
     """Call one C entry point on PyTorch's current stream of x's device and
-    raise if the launch was refused."""
+    raise if the launch was refused; ``count`` adds one to the wrapper's
+    launches."""
     from kmeans_tpu_torch.ops._build import library
 
     fn = getattr(library(), entry)
@@ -260,7 +262,7 @@ def _launch(wrapper, entry: str, x: torch.Tensor, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__}: kernel launch failed: "
                            f"{_ERRORS.get(err, f'CUDA error {err}')}")
-    wrapper.launches += 1
+    wrapper.launches += count
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -862,6 +864,24 @@ def tiled_fold_cuda(x, weights, labels, labels2, k, *, compute_dtype=None):
     if x.device.type == "cpu":
         return tiled_fold_plain(x, weights, labels, labels2, k,
                                 compute_dtype=compute_dtype)
+    return _tiled_fold(x, weights, labels, labels2, k, compute_dtype, -1)
+
+
+def fold_launch_names(x: torch.Tensor, k: int, dual: bool) -> tuple:
+    """K6's launches in the order it makes them (:func:`fold_launch_prefix`)
+    for a fold of x's rows into k labels."""
+    return ("hist", "chunk scan", "bucket scan", "scatter", "sum", "combine")
+
+
+def fold_launch_prefix(x, weights, labels, labels2, k, *, compute_dtype=None,
+                       stop: int):
+    """K6 on a CUDA tensor making only its first ``stop`` launches
+    (:func:`fold_launch_names`), without counting them: ``chip_smoke.py`` times
+    each launch as the difference of two prefixes."""
+    return _tiled_fold(x, weights, labels, labels2, k, compute_dtype, stop)
+
+
+def _tiled_fold(x, weights, labels, labels2, k, compute_dtype, stop):
     cd = resolve_cd(compute_dtype, x.dtype)
     n, d = x.shape
     dev = x.device
@@ -877,7 +897,8 @@ def tiled_fold_cuda(x, weights, labels, labels2, k, *, compute_dtype=None):
     _launch(tiled_fold_cuda, "kml_tiled_fold", x,
             x.data_ptr(), _DTYPE_CODES[x.dtype], _DTYPE_CODES[cd],
             w.data_ptr(), lab.data_ptr(), _ptr(lab2), n, d, k,
-            *scratch.args(), sums.data_ptr(), counts.data_ptr())
+            *scratch.args(), sums.data_ptr(), counts.data_ptr(), stop,
+            count=stop < 0)
     return sums, counts
 
 

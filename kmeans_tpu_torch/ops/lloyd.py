@@ -49,9 +49,13 @@ def resolve_backend(backend: str, x, k: int, *, weights=None,
     ``"auto"`` is the kernels for data on the card and the plain versions
     for data on the CPU; where the kernel plan of ``kind``
     (:func:`kmeans_tpu_torch.ops.plan.device_plan`) refuses data on the card
-    it raises rather than run the plain version there.  ``"cuda"`` raises
-    wherever the plan refuses (the CPU included).  ``device`` overrides
-    ``x.device`` (``x`` needs only ``shape`` and ``dtype``)."""
+    (fractional weights in bf16 compute, a dtype or shape the kernels do not
+    take) it is the plain versions on the card, as the reference's
+    ``"auto"`` is its XLA route wherever its kernel plan refuses.  The plan
+    decides before any kernel is asked for: a kernel that fails to build or
+    launch still raises.  ``"cuda"`` raises wherever the plan refuses (the
+    CPU included).  ``device`` overrides ``x.device`` (``x`` needs only
+    ``shape`` and ``dtype``)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; the port has "
                          f"{BACKENDS} (the reference's xla/pallas routes "
@@ -65,6 +69,8 @@ def resolve_backend(backend: str, x, k: int, *, weights=None,
                        weights_are_binary=weights_are_binary,
                        compute_dtype=compute_dtype, device=dev, groups=groups)
     if plan.mode == "refuse":
+        if backend == "auto":
+            return "plain"
         raise ValueError(f"the CUDA kernels do not take this input: "
                          f"{plan.why}; use backend='plain' to run the plain "
                          "PyTorch versions")
