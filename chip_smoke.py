@@ -26,7 +26,10 @@ if any fails:
    k-tiled pair at 128-column slices (K5's labels, raw scores and
    second-min against K2's and K4's bit for bit, K6's single and dual
    folds with −1 sentinels and a skewed bucket, two K6 launches bit for
-   bit), and ties on either side of a slice edge;
+   bit), and ties on either side of a slice edge; the fold core (K6 single
+   and dual, K3, K1's fold) at d in {64, 100, 300, 2048, 4104}, k in
+   {1, 3, 7, 1000}, f32 and bf16, every row on one label: equal bit for
+   bit to ``fold_core_plain``, to a second launch and to each other;
 4. the slice at full width, at n = 1,280,000, d = 2048, k = 1000 in bf16:
    the main path in three runs, each with the launch counts set to 0 just
    before it and read just after -- ``fit_lloyd(update="delta")`` (20
@@ -39,12 +42,14 @@ if any fails:
    (every label that differs must be a tie); then each kernel at that
    shape against its plain version, its time beside its bound, the plain
    version's and a library call's (K4's also on ``score_block``), K1's
-   time split into scoring, ||x||² and fold, the SM clock and power under
-   K2, K5 + K6 forced tiled there, one steady sweep of each flavour, and
-   the time of k-means++ there;
+   time split into scoring and the fold with ||x||², the SM clock and
+   power under K2, K5 + K6 forced tiled there, one steady sweep of each
+   flavour, and the time of k-means++ there;
 5. whole ``KMeans(compute_dtype="bfloat16")`` fits with k-means++ at the
    ``glove`` shape, ``update="delta"`` and the default ``"auto"`` (the
    adaptive loop: n >= 16384), each held against a plain-backend fit;
+   and a small bf16 fit with fractional weights, which ``backend="auto"``
+   runs on the plain route on the card, held against the CPU;
 6. the ``codebook`` shape, n = 1,280,000, d = 2048, k = 65536 in bf16, where
    the planner tiles: its decision for every kind there and at the headline
    and glove shapes, then the main path in three runs, counts set to 0
@@ -207,6 +212,7 @@ def phase_build():
     # (setmaxnreg then moves them from the producer warpgroup to the
     # consumers) and its spills.
     name = None
+    fold_regs, fold_spills = [], 0
     for line in lines:
         if "Compiling entry function" in line or "Function properties for" in line:
             name = line.split("'")[1] if "'" in line else line.split()[-1]
@@ -214,6 +220,15 @@ def phase_build():
                         if name and "core_score_kernel" + key in name), None)
         if variant and ("spill" in line or "Used" in line):
             print(f"  core {variant}: {line.strip()}")
+        if name and "fold_kernel" in name:
+            fold_regs += [int(w.split()[0]) for w in line.split("Used ")[1:]
+                          if "registers" in w]
+            fold_spills += ("spill" in line
+                            and " 0 bytes spill stores" not in line)
+    if fold_regs:
+        print(f"  fold core: {len(fold_regs)} fold_kernel variants, "
+              f"{min(fold_regs)}-{max(fold_regs)} registers a thread, "
+              f"{fold_spills} with spills")
 
 
 # ---------------------------------------------------------------------------
@@ -498,7 +513,7 @@ class _ForcedScoreBlock:
 
 def _check_k1_repeats(name, x, c, cd, w, k1):
     """A second K1 launch equals the first ``k1`` bit for bit, sums and
-    counts included (K6's bucketed fold)."""
+    counts included (the fold core)."""
     import torch
 
     from kmeans_tpu_torch.ops import cuda_lloyd as K
@@ -653,6 +668,90 @@ def _slice_edge_core_ties(gen):
         print(f"  ok {name} (core wgmma)")
 
 
+#: The fold core's cases: (n, d, k, x dtype, compute dtype, every row on
+#: one label).  d = 300 takes the column-strided loads, d = 4104 three
+#: 2048-column spans, k = 1 one bucket.
+FOLD_CORE_CASES = (
+    (2053, 2048, 1000, "bfloat16", "bfloat16", False),
+    (2053, 2048, 1000, "bfloat16", "bfloat16", True),
+    (2053, 300, 1000, "bfloat16", "bfloat16", False),
+    (2053, 100, 1000, "float32", "float32", False),
+    (2053, 100, 3, "float32", "bfloat16", False),
+    (1031, 4104, 7, "bfloat16", "bfloat16", False),
+    (1031, 64, 1, "bfloat16", "bfloat16", False),
+)
+
+
+def _fold_core_cases(gen):
+    """K6's single and dual folds, K3 and K1's fold on the fold core, with
+    labels outside [0, k), zero weights and (dual) rows with equal labels:
+    each equal bit for bit to ``fold_core_plain`` (the core's order, op by
+    op) and to a second launch; K3's and K1's sums and counts equal to K6's
+    single fold's at the same labels bit for bit; each within SUMS_RTOL of
+    its plain version, counts exact, K3's min_d2 within rtol 1e-5 and
+    K1's within 1e-5 of ||x||² of its own raw score plus the plain
+    ||x||² (the raw score is the scoring core's, which the fold does not
+    touch)."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    for n, d, k, xd, cdn, one_label in FOLD_CORE_CASES:
+        xd, cd = getattr(torch, xd), getattr(torch, cdn)
+        x, c, w, prev = _case_inputs(gen, n, d, k, xd, False)
+        lab = torch.randint(-2, k + 2, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        if one_label:
+            lab[3:] = k // 2
+        lab2 = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.3,
+                           lab, prev)
+        scores = torch.randn(n, generator=gen, device="cuda")
+        name = (f"n={n} d={d} k={k} x={str(xd)[6:]} cd={cdn}"
+                f"{' one label' if one_label else ''}")
+        outs = {}
+        for mode, l2 in (("single", None), ("dual", lab2)):
+            what = f"fold core K6 {mode} {name}"
+            got = K.tiled_fold_cuda(x, w, lab, l2, k, compute_dtype=cd)
+            again = K.tiled_fold_cuda(x, w, lab, l2, k, compute_dtype=cd)
+            _sync()
+            model = K.fold_core_plain(x, w, lab, l2, k, compute_dtype=cd)
+            plain = K.tiled_fold_plain(x, w, lab, l2, k, compute_dtype=cd)
+            _check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                   f"{what}: two launches differ")
+            _check(all(torch.equal(g, m) for g, m in zip(got, model)),
+                   f"{what}: differs from fold_core_plain's order")
+            _close(f"{what} sums", got[0], plain[0])
+            _check(bool(torch.equal(got[1], plain[1])), f"{what} counts")
+            outs[mode] = got
+        what = f"fold core K3 {name}"
+        k3 = K.accumulate_cuda(x, lab, k, scores=scores, weights=w,
+                               compute_dtype=cd)
+        k3b = K.accumulate_cuda(x, lab, k, scores=scores, weights=w,
+                                compute_dtype=cd)
+        _sync()
+        plain = K.accumulate_plain(x, lab, k, scores=scores, weights=w,
+                                   compute_dtype=cd)
+        _check(all(torch.equal(a, b) for a, b in zip(k3, k3b)),
+               f"{what}: two launches differ")
+        _check(bool(torch.equal(k3[0], outs["single"][0])
+                    and torch.equal(k3[1], outs["single"][1])),
+               f"{what}: sums or counts differ from K6's single fold")
+        _close(f"{what} min_d2", k3[2], plain[2], rtol=1e-5)
+        what = f"fold core K1 {name}"
+        k1 = K.lloyd_pass_cuda(x, c, weights=w, compute_dtype=cd)
+        at = K.tiled_fold_cuda(x, w, k1[0], None, k, compute_dtype=cd)
+        _sync()
+        _check(bool(torch.equal(k1[2], at[0]) and torch.equal(k1[3], at[1])),
+               f"{what}: sums or counts differ from K6's single fold at its "
+               "labels")
+        raw = K.lloyd_pass_cuda(x, c, compute_dtype=cd, with_update=False,
+                                raw_scores=True)[1]
+        sq = x.float().pow(2).sum(1)
+        _within(f"{what} min_d2", k1[1], (raw + sq).clamp_min(0), 1e-5 * sq)
+        print(f"  ok {what}: K6 single and dual, K3 and K1 equal "
+              "fold_core_plain and each other bit for bit")
+
+
 def phase_kernels():
     import torch
 
@@ -753,11 +852,13 @@ def phase_kernels():
     _straddling_tie_cases(gen)
     _slice_edge_core_ties(gen)
     _core_range_edge_ties(gen)
+    _fold_core_cases(gen)
     print(f"scoring cores over the cases: {cores}; the Hopper core's labels, "
           "min_d2, raw scores, sb, slb and second-min (K1, K2, K4, K5 at "
           "k_tile 128, 384, 1024) equal score_block's bit for bit, and two "
           "launches of K1, K4 and K5 equal each other bit for bit")
-    print(f"kernels vs plain: {len(cases) + 5} cases agree (score rtol "
+    print(f"kernels vs plain: {len(cases) + 5 + len(FOLD_CORE_CASES)} "
+          "cases agree (score rtol "
           f"{SCORE_RTOL}, sums rtol {SUMS_RTOL}, counts exact; K5 equal to "
           "K1, K2 and K4 bit for bit; K6 equal to itself bit for bit)")
 
@@ -980,7 +1081,8 @@ def _clock_under(fn, seconds=3.0):
 
 def _core_breakdown(x, c, prev, k1_ms, k2_ms, dist_ops):
     """K1's time split by what it does at the headline shape (scoring + the
-    slice merge, + ||x||², + K6's fold), both kernels' product rate, and
+    raw slice merge, + the fold core's fold with ||x||²), both kernels'
+    product rate, and
     the SM clock and power under K2, with the tensor cores' bf16 peak at
     that clock (4096 operations a clock on each SM)."""
     import torch
@@ -992,8 +1094,10 @@ def _core_breakdown(x, c, prev, k1_ms, k2_ms, dist_ops):
         x, c, compute_dtype=bf16, with_update=False, raw_scores=True), 5)
     norm_ms = _time_ms(lambda: K.lloyd_pass_cuda(
         x, c, compute_dtype=bf16, with_update=False), 5)
-    print(f"K1 {k1_ms:.3f} ms = scoring and merge {raw_ms:.3f} + ||x||² "
-          f"{norm_ms - raw_ms:.3f} + K6 fold {k1_ms - norm_ms:.3f}; product "
+    print(f"K1 {k1_ms:.3f} ms = scoring and raw merge {raw_ms:.3f} + the "
+          f"fold core's fold with ||x||² {k1_ms - raw_ms:.3f} (without the "
+          f"fold the merge reads x for ||x||²: {norm_ms - raw_ms:.3f}); "
+          f"product "
           f"rate K1 {dist_ops / k1_ms / 1e9:.1f}, K2 "
           f"{dist_ops / k2_ms / 1e9:.1f}, scoring alone "
           f"{dist_ops / raw_ms / 1e9:.1f} TFLOP/s")
@@ -1342,6 +1446,51 @@ def phase_whole_fit():
                f"beyond rtol {FIT_INERTIA_RTOL}")
         _check(_finite(fits["auto"].cluster_centers_),
                f"whole fit update={update}: non-finite centroids")
+    _fractional_weights_fit()
+
+
+def _fractional_weights_fit():
+    """``KMeans(compute_dtype="bfloat16").fit`` with fractional weights on
+    the card: the kernel plan refuses it (bf16 would round the weights in
+    the fold), so ``backend="auto"`` takes the plain route on the card, as
+    the reference's ``"auto"`` takes XLA, with the ``"segment"`` update;
+    no kernel launches, and the fit agrees with the same fit on the CPU."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    n, d, k = 20_000, 64, 16
+    x, _, centres = kt.make_blobs(4, n, d, k)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    w = torch.rand(n, generator=gen, device="cuda") + 0.25
+    # Started near the blob centres, both fits find the same partition:
+    # no label is left to a tie within the two devices' summation orders.
+    c0 = centres + 0.1 * torch.randn(k, d, generator=gen, device="cuda")
+    plan = kt.fit_plan(x, k, config=kt.KMeansConfig(
+        k=k, compute_dtype="bfloat16"), weights=w)
+    _check(plan["backend"] == "plain" and plan["update"] == "segment",
+           f"fractional weights in bf16 on the card: plan {plan}")
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        K.reset_launch_counts()
+        km = kt.KMeans(n_clusters=k, compute_dtype="bfloat16",
+                       init=c0.to(dev), max_iter=20, tol=-1.0,
+                       device=dev).fit(x.to(dev), weights=w.to(dev))
+        _sync()
+        fits[dev] = (km, K.launch_counts())
+    (card, counts), (cpu, _) = fits["cuda"], fits["cpu"]
+    _check(not any(counts.values()),
+           f"the plain route on the card launched kernels: {counts}")
+    a, b = card.inertia_, cpu.inertia_
+    moved = int((card.labels_.cpu() != cpu.labels_).sum())
+    _check(abs(a - b) <= FIT_INERTIA_RTOL * abs(b) and _finite(
+        card.cluster_centers_), f"fractional-weights fit: card inertia {a} "
+           f"vs CPU {b} beyond rtol {FIT_INERTIA_RTOL}")
+    print(f"KMeans(compute_dtype='bfloat16') with fractional weights, n={n} "
+          f"d={d} k={k}: plan {plan['backend']} / {plan['update']}, no "
+          f"kernel launched; inertia {a:.6e} on the card, {b:.6e} on the "
+          f"CPU; {moved} labels differ")
 
 
 # ---------------------------------------------------------------------------
@@ -1658,7 +1807,7 @@ def phase_fold_split():
             w = changed.float()
         cases.append((case, k, dual, lab, lab2, w))
     for case, k, dual, lab, lab2, w in cases:
-        names = K.fold_launch_names(x, k, dual)
+        names = K.fold_launch_names(k)
 
         def prefix(stop):
             return K.fold_launch_prefix(x, w, lab, lab2, k,

@@ -1,7 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the Lloyd sweeps of the port: the
 // untiled K1-K4 and the k-tiled pair K5 (streamed argmin) and K6 (bucketed
 // fold) that the planner (kmeans_tpu_torch/ops/plan.py) picks where -2C and
-// the f32 sums outgrow L2.
+// the f32 sums outgrow L2.  K1's fold, K3 and K6 run on one fold core.
 //
 // Built by kmeans_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -39,14 +39,15 @@
 //   min(second_a, second_b, max(best_a, best_b)), so an exact duplicate of
 //   the best column makes second == best.
 //   Columns past k and rows past n are masked, so any d and k are taken.
-// * K1 folds with K6's bucketed fold (below), so its sums have the same bits
-//   every launch.  K2 and K4 scatter their changed rows: a warp per row adds
-//   +-w * float(cd(x[r, :])) into the sums with f32 atomicAdd, in an order
-//   that changes from run to run at the f32 rounding level.  At the
-//   headline shape (k = 1000, d = 2048) the f32 sums are 8 MB, so the
-//   atomics resolve in L2.
-// * ||x||^2 is taken from x in its stored dtype, widened to f32, a lane per
-//   32nd column and a butterfly sum, the same order in every kernel.
+// * K1 folds on the fold core (below) that K3 and K6 run, so its sums have
+//   the same bits every launch, and adds ||x||^2 there.  K2 and K4 scatter
+//   their changed rows: a warp per row adds +-w * float(cd(x[r, :])) into
+//   the sums with f32 atomicAdd, in an order that changes from run to run
+//   at the f32 rounding level.  At the headline shape (k = 1000, d = 2048)
+//   the f32 sums are 8 MB, so the atomics resolve in L2.
+// * ||x||^2 is taken from x in its stored dtype, widened to f32: a lane per
+//   32nd column and a butterfly sum (row_sq, the scoring kernels' order),
+//   or on the fold core in its own fixed order.
 //
 // What bounds them on an H100: the distance product, 2*n*d*k operations
 // (5.24 TFLOP at n = 1.28M, d = 2048, k = 1000: >= 5.3 ms at 989 TFLOP/s
@@ -76,6 +77,7 @@ constexpr int NT = 256;            // threads per block
 constexpr int NWARP = NT / 32;
 constexpr int LDS = BN + 4;        // score-tile row stride (floats)
 constexpr int GROUP_ROWS = 1024;   // row group of the dense_tiles report
+constexpr int SCAN_NT = 1024;      // threads of the one-block scans
 
 template <class CT> struct Cfg;
 template <> struct Cfg<bf16> {
@@ -323,10 +325,12 @@ __device__ __forceinline__ float row_sq(const XT* __restrict__ xr, int d, int la
 // Bound on an H100: the distance product (2*n*d*k operations); the fold adds
 // one more read of x (every row is folded).  Design: the argmin (this
 // kernel with score_block, or the Hopper core and tiled_merge_kernel), then
-// with with_update K6's single fold on the labels just written.  This kernel
-// scores a 128-row block and a warp per row reads the row for ||x||^2.  raw
-// (the sharded callers' hook) writes the raw min score and skips the norm;
-// the other hook, valid_cols, is a +inf csq set by the wrapper.
+// with with_update the fold core's single fold on the labels just written,
+// which also adds ||x||^2 to the raw score from its read of the row, so x is
+// read once after scoring.  Without the fold this kernel scores a 128-row
+// block and a warp per row reads the row for ||x||^2.  raw (the sharded
+// callers' hook, and the fold's) writes the raw min score and skips the
+// norm; the other hook, valid_cols, is a +inf csq set by the wrapper.
 template <class XT, class CT, bool VEC>
 __global__ void __launch_bounds__(NT, 2)
 lloyd_pass_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
@@ -559,39 +563,6 @@ lloyd_hamerly_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
   }
 }
 
-// K3 -- replaces kmeans_tpu/ops/pallas_lloyd.py::accumulate_pallas
-// (_acc_kernel).  Bound on an H100: bytes -- one read of x (5.24 GB bf16 at
-// the headline shape, >= 1.56 ms at 3.35 TB/s); it does no product.  Design:
-// a warp per row reads the row once, for ||x||^2 (min_d2 = max(scores +
-// ||x||^2, 0)) and for its scatter fold; labels outside [0, k) contribute
-// nothing.
-template <class XT, class CT>
-__global__ void __launch_bounds__(NT)
-accumulate_kernel(const XT* __restrict__ x, const int* __restrict__ labels,
-                  const float* __restrict__ scores, const float* __restrict__ w,
-                  int n, int d, int k, float* __restrict__ sums,
-                  float* __restrict__ counts, float* __restrict__ mind) {
-  const int row = (int)((blockIdx.x * (size_t)NT + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= n) return;
-  const int lab = labels[row];
-  const float wr = w[row];
-  const bool fold = lab >= 0 && lab < k && wr != 0.f;
-  const XT* xr = x + (size_t)row * d;
-  float* dst = sums + (size_t)(fold ? lab : 0) * d;
-  float sq = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    const float xf = to_f32(xr[c]);
-    sq = fmaf(xf, xf, sq);
-    if (fold) atomicAdd(dst + c, wr * cd_round<CT>(xf));
-  }
-  sq = warp_sum(sq);
-  if (lane == 0) {
-    mind[row] = fmaxf((scores != nullptr ? scores[row] : 0.f) + sq, 0.f);
-    if (fold) atomicAdd(counts + lab, wr);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The k-tiled pair, for shapes whose -2C and f32 sums outgrow L2 (the
 // planner, kmeans_tpu_torch/ops/plan.py, decides).  At the codebook shape
@@ -680,263 +651,6 @@ tiled_merge_kernel(const XT* __restrict__ x, const float* __restrict__ part_best
   labels[row] = idx;
   mind[row] = raw ? best : fmaxf(best + sq, 0.f);
   if (part_second != nullptr) second[row] = sec;
-}
-
-// K6 -- replaces kmeans_tpu/ops/pallas_lloyd.py::_tiled_fold
-// (_tiled_fold_kernel).  Bound on an H100: bytes -- one read of each folded
-// row (5.24 GB for a full fold at the codebook shape) and one write of the
-// sums (512 MiB): >= 1.72 ms at 3.35 TB/s.  Design: the TPU kernel re-read x
-// once per k slice; on the card that would be a read of x per 128 columns.
-// Instead the fold's entries -- a row's +w at lab and, in the dual mode, its
-// -w at lab2 (entry e = row * S + side, S = 1 or 2) -- are bucketed by label
-// in integer arithmetic only:
-//   1. fold_hist: per (chunk of entries, bucket) counts, integer atomics;
-//   2. fold_chunk_scan: each bucket's counts turned into per-chunk offsets;
-//   3. fold_bucket_scan (one block): each bucket's first entry, first fold
-//      block and first partial row;
-//   4. fold_scatter: a warp per chunk walks its entries in order, 32 at a
-//      time, ranking equal buckets with __match_any_sync, so each bucket
-//      lists its entries in increasing entry (so row) order;
-// then fold_sum gives each (bucket, chunk of FOLD_CHUNK entries, 2048
-// columns) a block whose threads sum their columns over the chunk's entries
-// in that order, in f32, as w * float(cd(x)) -- no float atomics -- and
-// write each sums element once; a bucket of more than FOLD_CHUNK entries (a
-// skewed label) writes partial rows that fold_combine adds in chunk order.
-// Two launches therefore give the same bits.  Entries with w == 0, labels
-// outside [0, k), and in the dual mode rows with lab == lab2 fold nothing.
-constexpr int FOLD_CHUNK = 512;             // entries a fold block sums
-constexpr int FOLD_COLS = 8;                // columns a fold thread sums
-constexpr int FOLD_SPAN = NT * FOLD_COLS;   // columns a fold block sums
-
-template <bool DUAL>
-__device__ __forceinline__ int fold_bucket(const int* __restrict__ lab,
-                                           const int* __restrict__ lab2,
-                                           const float* __restrict__ w, int e, int k) {
-  const int row = DUAL ? e >> 1 : e;
-  if (w[row] == 0.f) return -1;
-  int b = lab[row];
-  if constexpr (DUAL) {
-    const int p = lab2[row];
-    if (b == p) return -1;
-    if (e & 1) b = p;
-  }
-  return (b >= 0 && b < k) ? b : -1;
-}
-
-template <bool DUAL>
-__global__ void __launch_bounds__(NT)
-fold_hist_kernel(const int* __restrict__ lab, const int* __restrict__ lab2,
-                 const float* __restrict__ w, int entries, int k, int chunk_entries,
-                 int* __restrict__ hist) {
-  const int e = (int)(blockIdx.x * (size_t)NT + threadIdx.x);
-  if (e >= entries) return;
-  const int b = fold_bucket<DUAL>(lab, lab2, w, e, k);
-  if (b >= 0) atomicAdd(hist + (size_t)(e / chunk_entries) * k + b, 1);
-}
-
-__global__ void __launch_bounds__(NT)
-fold_chunk_scan_kernel(int* __restrict__ hist, int chunks, int k, int* __restrict__ total) {
-  const int b = (int)(blockIdx.x * (size_t)NT + threadIdx.x);
-  if (b >= k) return;
-  int run = 0;
-  for (int c = 0; c < chunks; ++c) {
-    int* p = hist + (size_t)c * k + b;
-    const int v = *p;
-    *p = run;
-    run += v;
-  }
-  total[b] = run;
-}
-
-__device__ __forceinline__ int fold_blocks(int entries) {
-  return max(1, (entries + FOLD_CHUNK - 1) / FOLD_CHUNK);
-}
-
-constexpr int SCAN_NT = 1024;
-
-__global__ void __launch_bounds__(SCAN_NT)
-fold_bucket_scan_kernel(const int* __restrict__ total, int k, int* __restrict__ start,
-                        int* __restrict__ cstart, int* __restrict__ pstart) {
-  __shared__ int s[3][SCAN_NT];
-  const int t = threadIdx.x;
-  const int per = (k + SCAN_NT - 1) / SCAN_NT;
-  const int b0 = min(k, t * per), b1 = min(k, b0 + per);
-  int a = 0, c = 0, p = 0;
-  for (int b = b0; b < b1; ++b) {
-    const int m = fold_blocks(total[b]);
-    a += total[b];
-    c += m;
-    p += m > 1 ? m : 0;
-  }
-  s[0][t] = a;
-  s[1][t] = c;
-  s[2][t] = p;
-  __syncthreads();
-  for (int off = 1; off < SCAN_NT; off <<= 1) {
-    int va = 0, vc = 0, vp = 0;
-    if (t >= off) {
-      va = s[0][t - off];
-      vc = s[1][t - off];
-      vp = s[2][t - off];
-    }
-    __syncthreads();
-    s[0][t] += va;
-    s[1][t] += vc;
-    s[2][t] += vp;
-    __syncthreads();
-  }
-  a = s[0][t] - a;
-  c = s[1][t] - c;
-  p = s[2][t] - p;
-  for (int b = b0; b < b1; ++b) {
-    const int m = fold_blocks(total[b]);
-    start[b] = a;
-    cstart[b] = c;
-    pstart[b] = p;
-    a += total[b];
-    c += m;
-    p += m > 1 ? m : 0;
-  }
-  if (t == SCAN_NT - 1) {
-    start[k] = s[0][t];
-    cstart[k] = s[1][t];
-    pstart[k] = s[2][t];
-  }
-}
-
-template <bool DUAL>
-__global__ void __launch_bounds__(NT)
-fold_scatter_kernel(const int* __restrict__ lab, const int* __restrict__ lab2,
-                    const float* __restrict__ w, int entries, int k, int chunk_entries,
-                    int chunks, const int* __restrict__ start, int* hist,
-                    int* __restrict__ order) {
-  const int c = (int)((blockIdx.x * (size_t)NT + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (c >= chunks) return;
-  const int e_end = (int)min((long long)entries, (long long)(c + 1) * chunk_entries);
-  for (int e0 = c * chunk_entries; e0 < e_end; e0 += 32) {
-    const int e = e0 + lane;
-    const int b = e < e_end ? fold_bucket<DUAL>(lab, lab2, w, e, k) : -1;
-    const unsigned peers = __match_any_sync(0xffffffffu, b);
-    const int rank = __popc(peers & ((1u << lane) - 1u));
-    volatile int* cur = hist + (size_t)c * k + (b >= 0 ? b : 0);
-    int base = 0;
-    if (b >= 0) {
-      base = *cur;
-      order[start[b] + base + rank] = e;
-    }
-    __syncwarp();
-    if (b >= 0 && rank == 0) *cur = base + __popc(peers);
-    __syncwarp();
-  }
-}
-
-// FOLD_COLS columns of row xr for this thread, as f32 (0 past d): with VEC
-// eight consecutive columns from one 16-byte (bf16) or two (f32) loads,
-// else columns strided by NT.
-template <class XT, bool VEC>
-__device__ __forceinline__ void fold_load(const XT* __restrict__ xr, int colb, int d,
-                                          float* v) {
-  if constexpr (VEC) {
-    const int c0 = colb + threadIdx.x * FOLD_COLS;
-    if (c0 >= d) {
-#pragma unroll
-      for (int j = 0; j < FOLD_COLS; ++j) v[j] = 0.f;
-    } else if constexpr (std::is_same<XT, bf16>::value) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(xr + c0));
-      const bf16* h = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-      for (int j = 0; j < FOLD_COLS; ++j) v[j] = __bfloat162float(h[j]);
-    } else {
-      const float4 a = __ldg(reinterpret_cast<const float4*>(xr + c0));
-      const float4 b = __ldg(reinterpret_cast<const float4*>(xr + c0) + 1);
-      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < FOLD_COLS; ++j) {
-      const int c = colb + threadIdx.x + NT * j;
-      v[j] = c < d ? to_f32(xr[c]) : 0.f;
-    }
-  }
-}
-
-template <bool VEC>
-__device__ __forceinline__ void fold_store(float* __restrict__ dst, int colb, int d,
-                                           const float* acc) {
-  if constexpr (VEC) {
-    const int c0 = colb + threadIdx.x * FOLD_COLS;
-    if (c0 < d) {
-      reinterpret_cast<float4*>(dst + c0)[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-      reinterpret_cast<float4*>(dst + c0)[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < FOLD_COLS; ++j) {
-      const int c = colb + threadIdx.x + NT * j;
-      if (c < d) dst[c] = acc[j];
-    }
-  }
-}
-
-template <class XT, class CT, bool VEC, bool DUAL>
-__global__ void __launch_bounds__(NT)
-fold_sum_kernel(const XT* __restrict__ x, const float* __restrict__ w,
-                const int* __restrict__ order, const int* __restrict__ start,
-                const int* __restrict__ cstart, const int* __restrict__ pstart, int d,
-                int k, float* __restrict__ sums, float* __restrict__ counts,
-                float* __restrict__ part, float* __restrict__ part_counts) {
-  const int g = blockIdx.x;
-  if (g >= cstart[k]) return;
-  int lo = 0, hi = k - 1;          // the bucket: the last b with cstart[b] <= g
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (cstart[mid] <= g) lo = mid; else hi = mid - 1;
-  }
-  const int b = lo, j = g - cstart[b];
-  const bool split = cstart[b + 1] - cstart[b] > 1;
-  const int e_beg = start[b] + j * FOLD_CHUNK;
-  const int e_end = min(start[b + 1], e_beg + FOLD_CHUNK);
-  const int colb = blockIdx.y * FOLD_SPAN;
-  float acc[FOLD_COLS];
-#pragma unroll
-  for (int c = 0; c < FOLD_COLS; ++c) acc[c] = 0.f;
-  float cnt = 0.f;
-  for (int e = e_beg; e < e_end; ++e) {
-    const int id = order[e];
-    const int row = DUAL ? id >> 1 : id;
-    const float wr = (DUAL && (id & 1)) ? -w[row] : w[row];
-    float v[FOLD_COLS];
-    fold_load<XT, VEC>(x + (size_t)row * d, colb, d, v);
-#pragma unroll
-    for (int c = 0; c < FOLD_COLS; ++c)
-      acc[c] = __fadd_rn(acc[c], __fmul_rn(wr, cd_round<CT>(v[c])));
-    cnt = __fadd_rn(cnt, wr);
-  }
-  const size_t dst_row = split ? (size_t)(pstart[b] + j) : (size_t)b;
-  fold_store<VEC>((split ? part : sums) + dst_row * d, colb, d, acc);
-  if (blockIdx.y == 0 && threadIdx.x == 0) (split ? part_counts : counts)[dst_row] = cnt;
-}
-
-__global__ void __launch_bounds__(NT)
-fold_combine_kernel(const int* __restrict__ cstart, const int* __restrict__ pstart, int d,
-                    const float* __restrict__ part, const float* __restrict__ part_counts,
-                    float* __restrict__ sums, float* __restrict__ counts) {
-  const int b = blockIdx.x;
-  const int m = cstart[b + 1] - cstart[b];
-  if (m < 2) return;
-  const size_t p0 = pstart[b];
-  for (int c = threadIdx.x; c < d; c += NT) {
-    float acc = 0.f;
-    for (int j = 0; j < m; ++j) acc = __fadd_rn(acc, part[(p0 + j) * d + c]);
-    sums[(size_t)b * d + c] = acc;
-  }
-  if (threadIdx.x == 0) {
-    float acc = 0.f;
-    for (int j = 0; j < m; ++j) acc = __fadd_rn(acc, part_counts[p0 + j]);
-    counts[b] = acc;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1416,71 +1130,604 @@ core_hamerly_finish_kernel(const bf16* __restrict__ x, const int* __restrict__ r
                           labels, sb, slb, dsums, dcounts);
 }
 
+// ---------------------------------------------------------------------------
+// The fold core: K6's single and dual folds, K3, and K1's fold.
+//
+// K6 -- replaces kmeans_tpu/ops/pallas_lloyd.py::_tiled_fold
+// (_tiled_fold_kernel); K3 -- replaces accumulate_pallas (_acc_kernel).  In
+// the reference both are _fold_tile, and K3 adds min_d2 = max(scores +
+// ||x||^2, 0) from the same read of x; here one core serves both, and K1's
+// fold.  Bound on an H100: bytes -- one read of each folded row (5.24 GB
+// for a full fold at n = 1.28M, d = 2048 in bf16) and one write of the f32
+// sums (8 MB at k = 1000, 512 MiB at k = 65536): >= 1.57 ms at the headline
+// shape, >= 1.72 ms at the codebook shape, at 3.35 TB/s.
+//
+// A fold entry is a row's +w at lab and, in the dual mode, its -w at lab2
+// (entry e = row * S + side, S = 1 or 2).  Its key is its bucket, or k for
+// an entry that folds nothing (w == 0, a label outside [0, k), and in the
+// dual mode lab == lab2).  The launches, in integer arithmetic until the
+// sum and with no float atomics anywhere:
+//   1. a stable LSD radix sort of (key, entry) by SORT_BITS-bit digits,
+//      ceil(bits(k) / 8) passes of three launches: sort_hist (each tile of
+//      SORT_TILE entries counts its digits in shared memory, a warp's equal
+//      digits counted once with __match_any_sync, and writes the counts
+//      digit-major), sort_digit_scan (a block a digit: each tile's offset
+//      within the digit, and the digit's total), sort_scatter (each warp
+//      ranks its 512 consecutive entries with __match_any_sync and
+//      per-warp counters in shared memory and scans the 256 digit totals
+//      itself, so a digit's entries keep entry order within the tile and
+//      across tiles).  Nothing grows with (chunks x k), and every launch
+//      fills the card: a tile is a block.  Keys end sorted with entries in
+//      increasing order within a bucket -- each bucket in row order -- and
+//      the excluded entries (key k) last;
+//   2. fold_start: each bucket's first position in the sorted list (a
+//      binary search a bucket; start[k] is the count of folded entries);
+//   3. fold: a block for each (chunk of FOLD_CHUNK consecutive sorted
+//      entries, FOLD_SPAN columns) -- no search: its chunk is its
+//      blockIdx.x, and it finds each next bucket by stepping forward
+//      through the chunk.  It sums each run of one bucket in order, in
+//      f32, as __fadd_rn(acc, __fmul_rn(w, float(cd(x)))), the count as
+//      the sum of w.  A run that is its whole bucket is written to the sums
+//      directly; the runs of a bucket that crosses a chunk edge go to
+//      partial rows (slot 0 for the run at the chunk's start, slot 1 for
+//      the one at its end).  Chunks past the folded entries return at once
+//      (the dual fold at a steady churn), unless the norms are asked for.
+//      With VEC (d % 8 == 0, 16-byte-aligned x) each thread keeps its
+//      FOLD_COLS columns of the next 16 rows (8 in f32) in flight with
+//      cp.async into a 64 KB shared-memory ring that it alone reads back,
+//      one commit group a row, so the loads never wait on the sums and no
+//      barrier guards a slot; otherwise a thread loads columns a stride
+//      of NT apart (the same order for any d);
+//   4. fold_combine: a warp per (bucket, 512 columns) writes an empty
+//      bucket's zeros and sums a crossing bucket's partial rows in chunk
+//      order; a bucket inside one chunk is already written.
+// With norms (K3, and K1 after a raw merge) every row is one entry, the
+// excluded ones included, and the fold block also reduces each row's
+// ||x||^2 from the same registers in a fixed order (a thread's columns in
+// order with fmaf, the warp's butterfly, the warps in order, the column
+// spans in order) and writes min_d2 = max(scores + ||x||^2, 0); past one
+// column span the spans' sums go to sq_part and fold_norm_finish adds
+// them.  Every step is in a fixed order, so two launches give the same
+// bits, and K3's and K1's sums and counts are K6's single fold's.
+// ---------------------------------------------------------------------------
+constexpr int SORT_BITS = 8;
+constexpr int SORT_BINS = 1 << SORT_BITS;
+constexpr int SORT_WARP_ENTRIES = 512;                  // a warp's run of a tile
+constexpr int SORT_ROUNDS = SORT_WARP_ENTRIES / 32;
+constexpr int SORT_TILE = NWARP * SORT_WARP_ENTRIES;    // entries a sort block takes
+constexpr int FOLD_CHUNK = 256;                         // sorted entries a fold block sums
+constexpr int FOLD_COLS = 8;                            // columns a fold thread sums
+constexpr int FOLD_SPAN = NT * FOLD_COLS;               // columns a fold block sums
+constexpr int FOLD_BATCH = 8;                           // rows a norm reduction takes
+constexpr int COMBINE_COLS = 512;                       // columns a combine warp writes
+
+// Entry e's key: its bucket, or k when it folds nothing.
+template <bool DUAL>
+__device__ __forceinline__ int fold_key(const int* __restrict__ lab, const int* __restrict__ lab2,
+                                        const float* __restrict__ w, int e, int k) {
+  const int row = DUAL ? e >> 1 : e;
+  if (w[row] == 0.f) return k;
+  int b = lab[row];
+  if constexpr (DUAL) {
+    const int p = lab2[row];
+    if (b == p) return k;
+    if (e & 1) b = p;
+  }
+  return (b >= 0 && b < k) ? b : k;
+}
+
+// Sort pass, launch 1 of 3: the digit counts of each tile, digit-major
+// (hist[digit * tiles + tile]).  FIRST takes the keys from the labels.
+template <bool FIRST, bool DUAL>
+__global__ void __launch_bounds__(NT)
+sort_hist_kernel(const int* __restrict__ lab, const int* __restrict__ lab2,
+                 const float* __restrict__ w, const int* __restrict__ keys, int entries, int k,
+                 int shift, int tiles, int* __restrict__ hist) {
+  __shared__ int s_hist[SORT_BINS];
+  for (int b = threadIdx.x; b < SORT_BINS; b += NT) s_hist[b] = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < SORT_TILE; i += NT) {
+    const int e = blockIdx.x * SORT_TILE + i;
+    int digit = -1;
+    if (e < entries)
+      digit = ((FIRST ? fold_key<DUAL>(lab, lab2, w, e, k) : keys[e]) >> shift) & (SORT_BINS - 1);
+    const unsigned peers = __match_any_sync(0xffffffffu, digit);
+    if (digit >= 0 && lane == __ffs(peers) - 1) atomicAdd(&s_hist[digit], __popc(peers));
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < SORT_BINS; b += NT)
+    hist[(size_t)b * tiles + blockIdx.x] = s_hist[b];
+}
+
+// The exclusive prefix sum of v over the block's NT threads; total gets
+// the block's sum.  Ends with a barrier.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* s_warp, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += t;
+  }
+  if (lane == 31) s_warp[warp] = inc;
+  __syncthreads();
+  int base = 0;
+  total = 0;
+  for (int v2 = 0; v2 < NWARP; ++v2) {
+    const int t = s_warp[v2];
+    base += v2 < warp ? t : 0;
+    total += t;
+  }
+  __syncthreads();
+  return base + inc - v;
+}
+
+// Sort pass, launch 2 of 3: a block a digit turns its row of hist into
+// each tile's offset within the digit (in place) and writes the digit's
+// total.
+__global__ void __launch_bounds__(NT)
+sort_digit_scan_kernel(int* __restrict__ hist, int tiles, int* __restrict__ digit_total) {
+  __shared__ int s_warp[NWARP];
+  int* row = hist + (size_t)blockIdx.x * tiles;
+  int carry = 0;
+  for (int t0 = 0; t0 < tiles; t0 += NT) {
+    const int t = t0 + threadIdx.x;
+    const int v = t < tiles ? row[t] : 0;
+    int total;
+    const int ex = block_exclusive_scan(v, s_warp, total);
+    if (t < tiles) row[t] = carry + ex;
+    carry += total;
+  }
+  if (threadIdx.x == 0) digit_total[blockIdx.x] = carry;
+}
+
+static_assert(SORT_BINS == NT, "sort_scatter scans the digit totals a thread a digit");
+
+// Sort pass, launch 3 of 3: each entry to (the digits below its own) +
+// offs[digit * tiles + tile] + its rank among the tile's entries of that
+// digit, in entry order.
+template <bool FIRST, bool DUAL>
+__global__ void __launch_bounds__(NT)
+sort_scatter_kernel(const int* __restrict__ lab, const int* __restrict__ lab2,
+                    const float* __restrict__ w, const int* __restrict__ keys_in,
+                    const int* __restrict__ vals_in, int entries, int k, int shift, int tiles,
+                    const int* __restrict__ offs, const int* __restrict__ digit_total,
+                    int* __restrict__ keys_out, int* __restrict__ vals_out) {
+  __shared__ int s_cnt[NWARP][SORT_BINS];
+  __shared__ int s_base[SORT_BINS];
+  __shared__ int s_warp[NWARP];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < NWARP * SORT_BINS; i += NT) (&s_cnt[0][0])[i] = 0;
+  int unused;
+  s_base[threadIdx.x] = block_exclusive_scan(digit_total[threadIdx.x], s_warp, unused);
+  const int e0 = blockIdx.x * SORT_TILE + warp * SORT_WARP_ENTRIES;
+  int key[SORT_ROUNDS], val[SORT_ROUNDS], rank[SORT_ROUNDS];
+#pragma unroll
+  for (int r = 0; r < SORT_ROUNDS; ++r) {
+    const int e = e0 + r * 32 + lane;
+    int digit = -1;
+    key[r] = 0;
+    val[r] = 0;
+    if (e < entries) {
+      key[r] = FIRST ? fold_key<DUAL>(lab, lab2, w, e, k) : keys_in[e];
+      val[r] = FIRST ? e : vals_in[e];
+      digit = (key[r] >> shift) & (SORT_BINS - 1);
+    }
+    const unsigned peers = __match_any_sync(0xffffffffu, digit);
+    const int base = digit >= 0 ? s_cnt[warp][digit] : 0;
+    rank[r] = base + __popc(peers & ((1u << lane) - 1u));
+    __syncwarp();
+    if (digit >= 0 && lane == __ffs(peers) - 1) s_cnt[warp][digit] = base + __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  // A digit's first slot for each warp: the tile's slot, then the warps
+  // before it in order.
+  for (int b = threadIdx.x; b < SORT_BINS; b += NT) {
+    int run = s_base[b] + offs[(size_t)b * tiles + blockIdx.x];
+    for (int v = 0; v < NWARP; ++v) {
+      const int c = s_cnt[v][b];
+      s_cnt[v][b] = run;
+      run += c;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < SORT_ROUNDS; ++r) {
+    if (e0 + r * 32 + lane < entries) {
+      const int pos = s_cnt[warp][(key[r] >> shift) & (SORT_BINS - 1)] + rank[r];
+      keys_out[pos] = key[r];
+      vals_out[pos] = val[r];
+    }
+  }
+}
+
+// start[b] = the first sorted position whose key is >= b, for b in [0, k].
+__global__ void __launch_bounds__(NT)
+fold_start_kernel(const int* __restrict__ keys, int entries, int k, int* __restrict__ start) {
+  const int b = (int)(blockIdx.x * (size_t)NT + threadIdx.x);
+  if (b > k) return;
+  int lo = 0, hi = entries;
+  while (lo < hi) {
+    const int mid = (int)(((unsigned)lo + (unsigned)hi) >> 1);
+    if (keys[mid] < b) lo = mid + 1; else hi = mid;
+  }
+  start[b] = lo;
+}
+
+// FOLD_COLS columns of row xr for this thread, as f32 (0 past d): with VEC
+// eight consecutive columns from one 16-byte (bf16) or two (f32) loads,
+// else columns strided by NT.
+template <class XT, bool VEC>
+__device__ __forceinline__ void fold_load(const XT* __restrict__ xr, int colb, int d,
+                                          float* v) {
+  if constexpr (VEC) {
+    const int c0 = colb + threadIdx.x * FOLD_COLS;
+    if (c0 >= d) {
+#pragma unroll
+      for (int j = 0; j < FOLD_COLS; ++j) v[j] = 0.f;
+    } else if constexpr (std::is_same<XT, bf16>::value) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(xr + c0));
+      const bf16* h = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+      for (int j = 0; j < FOLD_COLS; ++j) v[j] = __bfloat162float(h[j]);
+    } else {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(xr + c0));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(xr + c0) + 1);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < FOLD_COLS; ++j) {
+      const int c = colb + threadIdx.x + NT * j;
+      v[j] = c < d ? to_f32(xr[c]) : 0.f;
+    }
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void fold_store(float* __restrict__ dst, int colb, int d,
+                                           const float* acc) {
+  if constexpr (VEC) {
+    const int c0 = colb + threadIdx.x * FOLD_COLS;
+    if (c0 < d) {
+      reinterpret_cast<float4*>(dst + c0)[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      reinterpret_cast<float4*>(dst + c0)[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < FOLD_COLS; ++j) {
+      const int c = colb + threadIdx.x + NT * j;
+      if (c < d) dst[c] = acc[j];
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The fold's ring (VEC): each thread's FOLD_COLS columns of FOLD_RING rows
+// in flight, copied with cp.async and read back by the same thread only, so
+// no barrier guards a slot: 64 KB a block, 16 rows a thread in bf16, 8 in
+// f32.
+constexpr int FOLD_RING_BYTES = 64 * 1024;
+
+// The fold (see above).  s_key[i + 1] is the key at chunk position i, for
+// i in [-1, cnt]; -1 outside the list.
+template <class XT, class CT, bool VEC, bool NORM>
+__global__ void __launch_bounds__(NT)
+fold_kernel(const XT* __restrict__ x, const float* __restrict__ w, const int* __restrict__ keys,
+            const int* __restrict__ vals, int entries, int dual, int n, int d, int k,
+            const float* scores, float* mind, float* __restrict__ sq_part,
+            float* __restrict__ sums, float* __restrict__ counts, float* __restrict__ part,
+            float* __restrict__ part_counts) {
+  constexpr int SEG = FOLD_COLS * (int)sizeof(XT);    // a thread's bytes of a row
+  constexpr int RING = FOLD_RING_BYTES / (NT * SEG);   // rows in flight a thread
+  extern __shared__ __align__(16) unsigned char fold_ring[];
+  __shared__ int s_key[FOLD_CHUNK + 2];
+  __shared__ int s_row[FOLD_CHUNK];
+  __shared__ float s_w[FOLD_CHUNK];
+  __shared__ float s_sq[FOLD_BATCH][NWARP];
+  const int chunk = blockIdx.x;
+  const int c0 = chunk * FOLD_CHUNK;
+  const int cnt = min(FOLD_CHUNK, entries - c0);
+  if (!NORM && keys[c0] == k) return;            // only excluded entries from here on
+  for (int i = threadIdx.x; i < cnt + 2; i += NT) {
+    const int p = c0 + i - 1;
+    s_key[i] = (p >= 0 && p < entries) ? keys[p] : -1;
+    if (i >= 1 && i <= cnt) {
+      const int v = vals[p];
+      const int row = v >> dual;
+      s_row[i - 1] = row;
+      s_w[i - 1] = (v & dual) ? -w[row] : w[row];
+    }
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int colb = blockIdx.y * FOLD_SPAN;
+  const int col = colb + threadIdx.x * FOLD_COLS;     // VEC: this thread's first column
+  float acc[FOLD_COLS];
+#pragma unroll
+  for (int c = 0; c < FOLD_COLS; ++c) acc[c] = 0.f;
+  float acc_w = 0.f;
+  int run_key = s_key[1], run_a = 0, end = cnt;
+
+  // Whether chunk position q's row is read: every row with the norms,
+  // else the folded ones.
+  auto reads = [&](int q) { return q < cnt && (NORM || s_key[q + 1] < k); };
+  // VEC: copy position q's columns into its ring slot (one commit group a
+  // position, empty past the chunk, so the groups count positions).
+  auto issue = [&](int q) {
+    if (reads(q) && col < d) {
+      unsigned char* dst = fold_ring + ((q % RING) * NT + threadIdx.x) * SEG;
+      const XT* src = x + (size_t)s_row[q] * d + col;
+#pragma unroll
+      for (int o = 0; o < SEG; o += 16)
+        cp_async_16(dst + o, reinterpret_cast<const char*>(src) + o, 16);
+    }
+    cp_async_commit();
+  };
+  // Writes the run [a, b) of key: to the sums when it is its whole bucket,
+  // else to the chunk's partial row for the run at its start (slot 0) or
+  // end (slot 1).
+  auto flush = [&](int key, int a, int b) {
+    if (key >= k) return;
+    const bool whole = s_key[a] != key && s_key[b + 1] != key;
+    const size_t slot = 2 * (size_t)chunk + (a == 0 ? 0 : 1);
+    fold_store<VEC>((whole ? sums + (size_t)key * d : part + slot * d), colb, d, acc);
+    if (blockIdx.y == 0 && threadIdx.x == 0) (whole ? counts[key] : part_counts[slot]) = acc_w;
+  };
+
+  if constexpr (VEC)
+    for (int q = 0; q < RING - 1; ++q) issue(q);
+  for (int p = 0; p < cnt; p += FOLD_BATCH) {
+    if (!NORM && s_key[p + 1] == k) {
+      end = p;
+      break;
+    }
+    float sq[FOLD_BATCH];
+#pragma unroll
+    for (int u = 0; u < FOLD_BATCH; ++u) {
+      const int q = p + u;
+      float v[FOLD_COLS];
+#pragma unroll
+      for (int c = 0; c < FOLD_COLS; ++c) v[c] = 0.f;
+      if constexpr (VEC) {
+        issue(q + RING - 1);
+        cp_async_wait<RING - 1>();          // position q's group has landed
+        if (reads(q) && col < d) {
+          const unsigned char* src = fold_ring + ((q % RING) * NT + threadIdx.x) * SEG;
+          if constexpr (std::is_same<XT, bf16>::value) {
+            const uint4 raw = *reinterpret_cast<const uint4*>(src);
+            const bf16* h = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+            for (int c = 0; c < FOLD_COLS; ++c) v[c] = __bfloat162float(h[c]);
+          } else {
+            const float4 lo = reinterpret_cast<const float4*>(src)[0];
+            const float4 hi = reinterpret_cast<const float4*>(src)[1];
+            v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+            v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+          }
+        }
+      } else if (reads(q)) {
+        fold_load<XT, false>(x + (size_t)s_row[q] * d, colb, d, v);
+      }
+      if (q < cnt) {
+        const int key = s_key[q + 1];
+        if (key != run_key) {
+          flush(run_key, run_a, q);
+          run_key = key;
+          run_a = q;
+#pragma unroll
+          for (int c = 0; c < FOLD_COLS; ++c) acc[c] = 0.f;
+          acc_w = 0.f;
+        }
+        if (key < k) {
+          const float wr = s_w[q];
+          // float(cd(x)): a bf16 x, and any x in f32 compute, is its own
+          // rounding, so only f32 x in bf16 compute pays the conversions.
+          constexpr bool ROUND = std::is_same<XT, float>::value && std::is_same<CT, bf16>::value;
+#pragma unroll
+          for (int c = 0; c < FOLD_COLS; ++c)
+            acc[c] = __fadd_rn(acc[c], __fmul_rn(wr, ROUND ? cd_round<CT>(v[c]) : v[c]));
+          acc_w = __fadd_rn(acc_w, wr);
+        }
+      }
+      if constexpr (NORM) {
+        float sum = 0.f;
+#pragma unroll
+        for (int c = 0; c < FOLD_COLS; ++c) sum = fmaf(v[c], v[c], sum);
+        sq[u] = sum;
+      }
+    }
+    if constexpr (NORM) {
+#pragma unroll
+      for (int u = 0; u < FOLD_BATCH; ++u) {
+        const float sum = warp_sum(sq[u]);
+        if (lane == 0) s_sq[u][warp] = sum;
+      }
+      __syncthreads();
+      const int q = p + threadIdx.x;
+      if (threadIdx.x < FOLD_BATCH && q < cnt) {
+        float sum = 0.f;
+        for (int v2 = 0; v2 < NWARP; ++v2) sum = __fadd_rn(sum, s_sq[threadIdx.x][v2]);
+        const int row = s_row[q];
+        if (gridDim.y == 1)
+          mind[row] = fmaxf((scores != nullptr ? scores[row] : 0.f) + sum, 0.f);
+        else
+          sq_part[(size_t)blockIdx.y * n + row] = sum;
+      }
+      __syncthreads();
+    }
+  }
+  flush(run_key, run_a, end);
+  if constexpr (VEC) asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A warp per (bucket, COMBINE_COLS columns): an empty bucket's zeros, or a
+// crossing bucket's partial rows added in chunk order; a bucket inside one
+// chunk was written by its fold block.
+__global__ void __launch_bounds__(NT)
+fold_combine_kernel(const int* __restrict__ start, int k, int d, const float* __restrict__ part,
+                    const float* __restrict__ part_counts, float* __restrict__ sums,
+                    float* __restrict__ counts) {
+  constexpr int PER = COMBINE_COLS / 32;
+  const int lane = threadIdx.x & 31;
+  const int segs = (d + COMBINE_COLS - 1) / COMBINE_COLS;
+  const long long items = (long long)k * segs;
+  const long long stride = (long long)gridDim.x * (NT / 32);
+  for (long long it = (long long)blockIdx.x * (NT / 32) + (threadIdx.x >> 5); it < items;
+       it += stride) {
+    const int b = (int)(it / segs), seg = (int)(it % segs);
+    const int s = start[b], e = start[b + 1];
+    const int j0 = s / FOLD_CHUNK, j1 = (e - 1) / FOLD_CHUNK;
+    if (e > s && j0 == j1) continue;
+    const int col0 = seg * COMBINE_COLS + lane;
+    float acc[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) acc[i] = 0.f;
+    float acc_w = 0.f;
+    for (int j = j0; e > s && j <= j1; ++j) {
+      const size_t slot = 2 * (size_t)j + (j == j0 && s != j0 * FOLD_CHUNK ? 1 : 0);
+      const float* src = part + slot * d;
+#pragma unroll
+      for (int i = 0; i < PER; ++i)
+        if (col0 + 32 * i < d) acc[i] = __fadd_rn(acc[i], src[col0 + 32 * i]);
+      acc_w = __fadd_rn(acc_w, part_counts[slot]);
+    }
+    float* dst = sums + (size_t)b * d;
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      if (col0 + 32 * i < d) dst[col0 + 32 * i] = acc[i];
+    if (seg == 0 && lane == 0) counts[b] = acc_w;
+  }
+}
+
+// min_d2 from the column spans' ||x||^2 sums, added in span order.
+__global__ void __launch_bounds__(NT)
+fold_norm_finish_kernel(const float* scores, const float* __restrict__ sq_part, int n,
+                        int spans, float* mind) {
+  const int row = (int)(blockIdx.x * (size_t)NT + threadIdx.x);
+  if (row >= n) return;
+  float s = sq_part[row];
+  for (int j = 1; j < spans; ++j) s = __fadd_rn(s, sq_part[(size_t)j * n + row]);
+  mind[row] = fmaxf((scores != nullptr ? scores[row] : 0.f) + s, 0.f);
+}
+
 template <class F>
 int set_smem(F kern, int bytes) {
   return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <class XT, class CT>
-int launch_acc(const void* x, const int* labels, const float* scores, const float* w, int n,
-               int d, int k, float* sums, float* counts, float* mind, cudaStream_t stream) {
-  const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
-  accumulate_kernel<XT, CT><<<(unsigned)blocks, NT, 0, stream>>>(
-      static_cast<const XT*>(x), labels, scores, w, n, d, k, sums, counts, mind);
-  return (int)cudaGetLastError();
+// Counts down the launches that stop allows: all when stop < 0, else the
+// first stop of them.
+struct Steps {
+  int left;
+  bool next() {
+    if (left == 0) return false;
+    if (left > 0) --left;
+    return true;
+  }
+};
+
+#define KML_FOLD_LAUNCH(...)                                       \
+  if (steps.next()) {                                              \
+    __VA_ARGS__;                                                   \
+    if (int err_ = (int)cudaGetLastError()) return err_;           \
+  }
+
+// One pass of the radix sort: hist, digit scan, scatter (hist holds the
+// (digit, tile) counts, then their offsets within the digit, then the
+// SORT_BINS digit totals).
+template <bool FIRST, bool DUAL>
+int sort_pass(Steps& steps, const int* lab, const int* lab2, const float* w,
+              const int* keys_in, const int* vals_in, int entries, int k, int shift, int tiles,
+              int* hist, int* keys_out, int* vals_out, cudaStream_t stream) {
+  int* digit_total = hist + (size_t)SORT_BINS * tiles;
+  KML_FOLD_LAUNCH(sort_hist_kernel<FIRST, DUAL><<<tiles, NT, 0, stream>>>(
+      lab, lab2, w, keys_in, entries, k, shift, tiles, hist));
+  KML_FOLD_LAUNCH(sort_digit_scan_kernel<<<SORT_BINS, NT, 0, stream>>>(hist, tiles, digit_total));
+  KML_FOLD_LAUNCH(sort_scatter_kernel<FIRST, DUAL><<<tiles, NT, 0, stream>>>(
+      lab, lab2, w, keys_in, vals_in, entries, k, shift, tiles, hist, digit_total, keys_out,
+      vals_out));
+  return 0;
 }
 
-template <class XT, class CT, bool VEC, bool DUAL>
-int launch_fold_dual(const void* x, const float* w, const int* lab, const int* lab2, int n,
-                     int d, int k, int chunk_entries, int chunks, int* hist, int* total,
-                     int* start, int* cstart, int* pstart, int* order, float* part,
-                     float* part_counts, float* sums, float* counts, cudaStream_t stream,
-                     int stop = -1) {
-  const int entries = DUAL ? 2 * n : n;
-  const unsigned entry_blocks = (unsigned)(((size_t)entries + NT - 1) / NT);
-  if (stop-- == 0) return 0;
-  fold_hist_kernel<DUAL><<<entry_blocks, NT, 0, stream>>>(lab, lab2, w, entries, k,
-                                                          chunk_entries, hist);
-  if (int e = (int)cudaGetLastError()) return e;
-  if (stop-- == 0) return 0;
-  fold_chunk_scan_kernel<<<(k + NT - 1) / NT, NT, 0, stream>>>(hist, chunks, k, total);
-  if (int e = (int)cudaGetLastError()) return e;
-  if (stop-- == 0) return 0;
-  fold_bucket_scan_kernel<<<1, SCAN_NT, 0, stream>>>(total, k, start, cstart, pstart);
-  if (int e = (int)cudaGetLastError()) return e;
-  if (stop-- == 0) return 0;
-  fold_scatter_kernel<DUAL><<<(unsigned)(((size_t)chunks * 32 + NT - 1) / NT), NT, 0,
-                              stream>>>(lab, lab2, w, entries, k, chunk_entries, chunks,
-                                        start, hist, order);
-  if (int e = (int)cudaGetLastError()) return e;
-  // Every bucket has at least one fold block; the others come from entries.
-  const dim3 grid((unsigned)(k + (entries + FOLD_CHUNK - 1) / FOLD_CHUNK),
-                  (unsigned)((d + FOLD_SPAN - 1) / FOLD_SPAN));
-  if (stop-- == 0) return 0;
-  fold_sum_kernel<XT, CT, VEC, DUAL><<<grid, NT, 0, stream>>>(
-      static_cast<const XT*>(x), w, order, start, cstart, pstart, d, k, sums, counts, part,
-      part_counts);
-  if (int e = (int)cudaGetLastError()) return e;
-  if (stop-- == 0) return 0;
-  fold_combine_kernel<<<k, NT, 0, stream>>>(cstart, pstart, d, part, part_counts, sums,
-                                            counts);
-  return (int)cudaGetLastError();
-}
-
+// The fold core's launches (see above); mind != nullptr asks for the norms
+// and min_d2 = max(scores + ||x||^2, 0) (single fold only; scores may be
+// nullptr, or mind itself).  Scratch, as _fold_scratch in cuda_lloyd.py
+// sizes it: sort 4 * entries ints (two key and two value buffers), hist
+// SORT_BINS * (tiles + 1) ints (the counts, then offsets, and the totals),
+// start k + 1 ints, part 2 * chunks rows of d floats and part_counts
+// 2 * chunks floats, sq_part spans * n floats when the norms run over more
+// than one column span.  stop >= 0 makes only the first stop launches.
 template <class XT, class CT, bool VEC>
 int launch_fold(const void* x, const float* w, const int* lab, const int* lab2, int n, int d,
-                int k, int chunk_entries, int chunks, int* hist, int* total, int* start,
-                int* cstart, int* pstart, int* order, float* part, float* part_counts,
-                float* sums, float* counts, int stop, cudaStream_t stream) {
-  if (lab2 != nullptr)
-    return launch_fold_dual<XT, CT, VEC, true>(x, w, lab, lab2, n, d, k, chunk_entries,
-                                               chunks, hist, total, start, cstart, pstart,
-                                               order, part, part_counts, sums, counts,
-                                               stream, stop);
-  return launch_fold_dual<XT, CT, VEC, false>(x, w, lab, lab2, n, d, k, chunk_entries, chunks,
-                                              hist, total, start, cstart, pstart, order, part,
-                                              part_counts, sums, counts, stream, stop);
+                int k, const float* scores, float* mind, int* sort, int* hist, int* start,
+                float* part, float* part_counts, float* sq_part, float* sums, float* counts,
+                int stop, cudaStream_t stream) {
+  const int dual = lab2 != nullptr;
+  const int entries = dual ? 2 * n : n;
+  const int tiles = (entries + SORT_TILE - 1) / SORT_TILE;
+  const int chunks = (entries + FOLD_CHUNK - 1) / FOLD_CHUNK;
+  const int spans = (d + FOLD_SPAN - 1) / FOLD_SPAN;
+  const int passes = (32 - __builtin_clz((unsigned)k) + SORT_BITS - 1) / SORT_BITS;
+  int* keys[2] = {sort, sort + 2 * (size_t)entries};
+  int* vals[2] = {sort + (size_t)entries, sort + 3 * (size_t)entries};
+  Steps steps{stop};
+  for (int pass = 0; pass < passes; ++pass) {
+    const int out = pass & 1, shift = pass * SORT_BITS;
+    const int* kin = keys[out ^ 1];
+    const int* vin = vals[out ^ 1];
+    int e = 0;
+    if (pass > 0)
+      e = sort_pass<false, false>(steps, lab, lab2, w, kin, vin, entries, k, shift, tiles, hist,
+                                  keys[out], vals[out], stream);
+    else if (dual)
+      e = sort_pass<true, true>(steps, lab, lab2, w, kin, vin, entries, k, shift, tiles, hist,
+                                keys[out], vals[out], stream);
+    else
+      e = sort_pass<true, false>(steps, lab, lab2, w, kin, vin, entries, k, shift, tiles, hist,
+                                 keys[out], vals[out], stream);
+    if (e) return e;
+  }
+  const int fin = (passes - 1) & 1;
+  KML_FOLD_LAUNCH(fold_start_kernel<<<(k + NT) / NT, NT, 0, stream>>>(keys[fin], entries, k,
+                                                                       start));
+  const dim3 grid((unsigned)chunks, (unsigned)spans);
+  const XT* xt = static_cast<const XT*>(x);
+  constexpr int ring = VEC ? FOLD_RING_BYTES : 0;
+  if (mind != nullptr) {
+    auto kern = fold_kernel<XT, CT, VEC, true>;
+    if (int e = set_smem(kern, ring)) return e;
+    KML_FOLD_LAUNCH(kern<<<grid, NT, ring, stream>>>(
+        xt, w, keys[fin], vals[fin], entries, dual, n, d, k, scores, mind, sq_part, sums,
+        counts, part, part_counts));
+  } else {
+    auto kern = fold_kernel<XT, CT, VEC, false>;
+    if (int e = set_smem(kern, ring)) return e;
+    KML_FOLD_LAUNCH(kern<<<grid, NT, ring, stream>>>(
+        xt, w, keys[fin], vals[fin], entries, dual, n, d, k, nullptr, nullptr, nullptr, sums,
+        counts, part, part_counts));
+  }
+  const long long items = (long long)k * ((d + COMBINE_COLS - 1) / COMBINE_COLS);
+  const int combine_blocks = (int)std::min<long long>((items + NWARP - 1) / NWARP, 4096);
+  KML_FOLD_LAUNCH(fold_combine_kernel<<<combine_blocks, NT, 0, stream>>>(
+      start, k, d, part, part_counts, sums, counts));
+  if (mind != nullptr && spans > 1) {
+    KML_FOLD_LAUNCH(fold_norm_finish_kernel<<<(n + NT - 1) / NT, NT, 0, stream>>>(
+        scores, sq_part, n, spans, mind));
+  }
+  return 0;
 }
+#undef KML_FOLD_LAUNCH
 
 // Error codes of the entry points besides CUDA's own (which are positive).
 constexpr int kBadDtype = -1;       // no kernel for this dtype pair
@@ -1643,10 +1890,13 @@ int launch_tiled_argmin(const void* x, const void* neg2c, const float* csq, int 
 template <class XT, class CT, bool VEC>
 int launch_pass(const void* x, const void* neg2c, const float* csq, const float* w, int n,
                 int d, int k, int with_update, int raw, int core, int* labels, float* mind,
-                float* sums, float* counts, float* part_best, int* part_idx, int chunk_entries,
-                int chunks, int fold_vec, int* hist, int* total, int* start, int* cstart,
-                int* pstart, int* order, float* part, float* part_counts, cudaStream_t stream) {
+                float* sums, float* counts, float* part_best, int* part_idx, int fold_vec,
+                int* sort, int* hist, int* start, float* part, float* part_counts,
+                float* sq_part, cudaStream_t stream) {
   const XT* xt = static_cast<const XT*>(x);
+  // With the fold, the merge writes the raw score and the fold core adds
+  // ||x||^2 from its own read of the row (unless raw).
+  const int merge_raw = raw || with_update;
   if (core) {
     if constexpr (core_takes<XT, CT, VEC>) {
       if (int e = launch_core_score<false, false>(x, neg2c, csq, nullptr, nullptr, n, d, k,
@@ -1654,8 +1904,8 @@ int launch_pass(const void* x, const void* neg2c, const float* csq, const float*
         return e;
       const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
       tiled_merge_kernel<XT><<<(unsigned)blocks, NT, 0, stream>>>(
-          xt, part_best, part_idx, nullptr, n, d, (k + CORE_BN - 1) / CORE_BN, raw, labels,
-          mind, nullptr);
+          xt, part_best, part_idx, nullptr, n, d, (k + CORE_BN - 1) / CORE_BN, merge_raw,
+          labels, mind, nullptr);
     } else {
       return kBadCore;
     }
@@ -1664,17 +1914,17 @@ int launch_pass(const void* x, const void* neg2c, const float* csq, const float*
     constexpr int smem = smem_bytes<CT>();
     if (int e = set_smem(kern, smem)) return e;
     kern<<<(n + BM - 1) / BM, NT, smem, stream>>>(xt, static_cast<const CT*>(neg2c), csq, n, d,
-                                                  k, raw, labels, mind);
+                                                  k, merge_raw, labels, mind);
   }
   if (int e = (int)cudaGetLastError()) return e;
   if (!with_update) return 0;
+  float* norms = raw ? nullptr : mind;
   if (fold_vec)
-    return launch_fold_dual<XT, CT, true, false>(x, w, labels, nullptr, n, d, k, chunk_entries,
-                                                 chunks, hist, total, start, cstart, pstart,
-                                                 order, part, part_counts, sums, counts, stream);
-  return launch_fold_dual<XT, CT, false, false>(x, w, labels, nullptr, n, d, k, chunk_entries,
-                                                chunks, hist, total, start, cstart, pstart, order,
-                                                part, part_counts, sums, counts, stream);
+    return launch_fold<XT, CT, true>(x, w, labels, nullptr, n, d, k, norms, norms, sort, hist,
+                                     start, part, part_counts, sq_part, sums, counts, -1,
+                                     stream);
+  return launch_fold<XT, CT, false>(x, w, labels, nullptr, n, d, k, norms, norms, sort, hist,
+                                    start, part, part_counts, sq_part, sums, counts, -1, stream);
 }
 
 template <class XT, class CT, bool VEC>
@@ -1725,19 +1975,17 @@ int launch_delta(const void* x, const void* neg2c, const float* csq, const float
 
 // core = 1 scores with the Hopper core (the wrapper's scoring_core rule);
 // part_best / part_idx are its (ceil(k / 256), n) slice buffers.  K1 folds
-// with K6's single fold when with_update; the wrapper zeroes hist and sizes
-// the fold's scratch (_fold_scratch in cuda_lloyd.py).
+// on the fold core when with_update (fold_vec its vector rule, the scratch
+// as _fold_scratch in cuda_lloyd.py sizes it, with the norms unless raw).
 extern "C" int kml_lloyd_pass(const void* x, int x_dtype, const void* neg2c, int cd,
                               const float* csq, const float* w, int n, int d, int k,
                               int with_update, int raw, int vec, int core, int* labels,
                               float* mind, float* sums, float* counts, float* part_best,
-                              int* part_idx, int chunk_entries, int chunks, int fold_vec,
-                              int* hist, int* total, int* start, int* cstart, int* pstart,
-                              int* order, float* part, float* part_counts, void* stream) {
+                              int* part_idx, int fold_vec, int* sort, int* hist, int* start,
+                              float* part, float* part_counts, float* sq_part, void* stream) {
   KML_DISPATCH(launch_pass, x, neg2c, csq, w, n, d, k, with_update, raw, core, labels, mind,
-               sums, counts, part_best, part_idx, chunk_entries, chunks, fold_vec, hist, total,
-               start, cstart, pstart, order, part, part_counts,
-               static_cast<cudaStream_t>(stream));
+               sums, counts, part_best, part_idx, fold_vec, sort, hist, start, part,
+               part_counts, sq_part, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int kml_lloyd_delta(const void* x, int x_dtype, const void* neg2c, int cd,
@@ -1750,15 +1998,15 @@ extern "C" int kml_lloyd_delta(const void* x, int x_dtype, const void* neg2c, in
                static_cast<cudaStream_t>(stream));
 }
 
+// K3 on the fold core: the single fold with the norms (scores may be
+// nullptr); vec is the fold's vector rule.
 extern "C" int kml_accumulate(const void* x, int x_dtype, int cd, const int* labels,
-                              const float* scores, const float* w, int n, int d, int k,
-                              float* sums, float* counts, float* mind, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 1 && cd == 1) return launch_acc<bf16, bf16>(x, labels, scores, w, n, d, k, sums, counts, mind, s);
-  if (x_dtype == 0 && cd == 1) return launch_acc<float, bf16>(x, labels, scores, w, n, d, k, sums, counts, mind, s);
-  if (x_dtype == 0 && cd == 0) return launch_acc<float, float>(x, labels, scores, w, n, d, k, sums, counts, mind, s);
-  if (x_dtype == 1 && cd == 0) return launch_acc<bf16, float>(x, labels, scores, w, n, d, k, sums, counts, mind, s);
-  return kBadDtype;
+                              const float* scores, const float* w, int n, int d, int k, int vec,
+                              int* sort, int* hist, int* start, float* part,
+                              float* part_counts, float* sq_part, float* sums, float* counts,
+                              float* mind, void* stream) {
+  KML_DISPATCH(launch_fold, x, w, labels, nullptr, n, d, k, scores, mind, sort, hist, start,
+               part, part_counts, sq_part, sums, counts, -1, static_cast<cudaStream_t>(stream));
 }
 
 // core = 1: the Hopper core.  part_best / part_idx / part_second are its
@@ -1789,17 +2037,14 @@ extern "C" int kml_tiled_argmin(const void* x, int x_dtype, const void* neg2c, i
                static_cast<cudaStream_t>(stream));
 }
 
-// lab2 == nullptr: the single fold.  The wrapper zeroes hist (chunks x k)
-// and sizes order (n or 2n entries) and part (rows of split buckets).
+// K6 on the fold core: lab2 == nullptr is the single fold; no norms.
 // stop >= 0 makes only the first stop launches (chip_smoke.py times the
 // launches one by one from the differences); -1 makes them all.
 extern "C" int kml_tiled_fold(const void* x, int x_dtype, int cd, const float* w,
-                              const int* lab, const int* lab2, int n, int d, int k,
-                              int chunk_entries, int chunks, int vec, int* hist, int* total,
-                              int* start, int* cstart, int* pstart, int* order, float* part,
-                              float* part_counts, float* sums, float* counts, int stop,
-                              void* stream) {
-  KML_DISPATCH(launch_fold, x, w, lab, lab2, n, d, k, chunk_entries, chunks, hist, total,
-               start, cstart, pstart, order, part, part_counts, sums, counts, stop,
-               static_cast<cudaStream_t>(stream));
+                              const int* lab, const int* lab2, int n, int d, int k, int vec,
+                              int* sort, int* hist, int* start, float* part,
+                              float* part_counts, float* sq_part, float* sums, float* counts,
+                              int stop, void* stream) {
+  KML_DISPATCH(launch_fold, x, w, lab, lab2, n, d, k, nullptr, nullptr, sort, hist, start, part,
+               part_counts, sq_part, sums, counts, stop, static_cast<cudaStream_t>(stream));
 }

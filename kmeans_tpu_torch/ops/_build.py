@@ -30,22 +30,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+#: The fold core's arguments (``FoldScratch.args`` in cuda_lloyd.py): vec,
+#: sort, hist, start, part, part_counts, sq_part.
+_FOLD = [_I, _P, _P, _P, _P, _P, _P]
 #: argtypes of each C entry point: every pointer and the stream as c_void_p.
 _SIGNATURES = {
     # x, x_dtype, neg2c, cd, csq, w, n, d, k, with_update, raw, vec, core,
-    # labels, mind, sums, counts, part_best, part_idx, chunk_entries,
-    # chunks, fold_vec, hist, total, start, cstart, pstart, order, part,
-    # part_counts, stream
+    # labels, mind, sums, counts, part_best, part_idx, then the fold's
+    # (fold_vec, sort, hist, start, part, part_counts, sq_part), stream
     "kml_lloyd_pass": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                       _P, _P, _P, _P, _P, _P, *_FOLD, _P],
     # x, x_dtype, neg2c, cd, csq, w, prev, n, d, k, with_mind, vec, core,
     # labels, mind, dsums, dcounts, n_changed, group_counts, part_best,
     # part_idx, stream
     "kml_lloyd_delta": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    # x, x_dtype, cd, labels, scores, w, n, d, k, sums, counts, mind, stream
-    "kml_accumulate": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # x, x_dtype, cd, labels, scores, w, n, d, k, the fold's scratch, sums,
+    # counts, mind, stream
+    "kml_accumulate": [_P, _I, _I, _P, _P, _P, _I, _I, _I, *_FOLD,
+                       _P, _P, _P, _P],
     # x, x_dtype, neg2c, cd, csq, w, prev, need, sb_in, slb_in, n, d, k,
     # vec, core, labels, sb, slb, dsums, dcounts, n_rec, group_counts,
     # part_best, part_idx, part_second, rows, group_start, stream
@@ -56,11 +59,10 @@ _SIGNATURES = {
     # core, part_best, part_idx, part_second, labels, mind, second, stream
     "kml_tiled_argmin": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P, _P, _P, _P, _P, _P, _P],
-    # x, x_dtype, cd, w, lab, lab2, n, d, k, chunk_entries, chunks, vec,
-    # hist, total, start, cstart, pstart, order, part, part_counts, sums,
+    # x, x_dtype, cd, w, lab, lab2, n, d, k, the fold's scratch, sums,
     # counts, stop, stream
-    "kml_tiled_fold": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "kml_tiled_fold": [_P, _I, _I, _P, _P, _P, _I, _I, _I, *_FOLD,
+                       _P, _P, _I, _P],
 }
 
 

@@ -31,10 +31,12 @@ Numerics shared by the kernels and the plain versions: scores are
 ``||c||² + x_cd·(−2·C_cd)ᵀ`` with f32 accumulation (bf16 operands multiply
 exactly; f32 products never use TF32), the argmin keeps the lowest index on
 a tie, ``||x||²`` is taken from x in its stored dtype, and the fold adds
-``w·float(cd(x))``.  K2–K4 fold with f32 atomics, so their sums differ from
-the plain versions' (and from run to run) at the f32 rounding level; K1
-folds with K6's bucketed fold, which sums each bucket in row order and gives
-the same bits every launch.
+``w·float(cd(x))``.  K2 and K4 scatter their changed rows with f32 atomics,
+so their sums differ from the plain versions' (and from run to run) at the
+f32 rounding level; K1, K3 and K6 fold on one fold core, which sorts the
+rows by label (a stable radix sort) and sums each bucket in row order, the
+same bits every launch and the same sums from all three at the same labels
+(:func:`fold_core_plain` is its order, op by op).
 
 K1, K2, K4 and K5 score with one of two cores (:func:`scoring_core`): the
 Hopper core (TMA loads into an mbarrier ring -- ``cp.async`` for K4's
@@ -59,7 +61,10 @@ __all__ = ["lloyd_pass_cuda", "lloyd_delta_cuda", "accumulate_cuda",
            "lloyd_hamerly_cuda", "tiled_argmin_cuda", "tiled_fold_cuda",
            "lloyd_pass_plain", "lloyd_delta_plain", "accumulate_plain",
            "lloyd_hamerly_plain", "tiled_argmin_plain", "tiled_fold_plain",
-           "hamerly_compaction_plain", "launch_counts",
+           "hamerly_compaction_plain", "fold_order_plain",
+           "fold_core_plain", "fold_launch_names", "fold_launch_prefix",
+           "fold_sort_passes",
+           "launch_counts",
            "reset_launch_counts", "scoring_core",
            "DENSE_GROUP_ROWS", "DENSE_SLOTS", "HAMERLY_SLOTS"]
 
@@ -75,10 +80,12 @@ HAMERLY_SLOTS = 256
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: K6's entries a fold block sums (``FOLD_CHUNK`` in ``csrc/lloyd.cu``) and
-#: the most (chunk, label) counts its histogram may hold.
-_FOLD_CHUNK = 512
-_FOLD_HIST_CELLS = 1 << 24
+#: The fold core's sizes (``csrc/lloyd.cu``): the radix sort's digit bits
+#: and tile, the sorted entries a fold block sums, the columns it sums.
+_SORT_BITS = 8
+_SORT_TILE = 4096
+_FOLD_CHUNK = 256
+_FOLD_SPAN = 2048
 #: Centroids of one column slice of the Hopper core (``CORE_BN``).
 _CORE_SLICE = 256
 #: Negative codes of the C entry points (CUDA's own errors are positive).
@@ -204,48 +211,57 @@ def _core_slices(x: torch.Tensor, k: int, core: str):
 
 
 class FoldScratch(NamedTuple):
-    """K6's launch sizes and scratch, as its C entry points take them."""
+    """The fold core's vector rule and scratch, as its C entry points take
+    them (K1's fold, K3, K6): ``sort`` holds two key and two value buffers
+    of ``entries``, ``hist`` the sort tiles' digit counts (then their
+    offsets within the digit) and the 256 digit totals, ``start`` each
+    bucket's first sorted position (and the folded count), ``part`` /
+    ``part_counts`` two partial rows a fold chunk, ``sq_part`` the column
+    spans' ||x||² when the norms run over more than one span (else
+    empty)."""
 
-    chunk_entries: int
-    chunks: int
     vec: int
+    sort: torch.Tensor
     hist: torch.Tensor
-    total: torch.Tensor
     start: torch.Tensor
-    cstart: torch.Tensor
-    pstart: torch.Tensor
-    order: torch.Tensor
     part: torch.Tensor
     part_counts: torch.Tensor
+    sq_part: torch.Tensor
 
     def args(self) -> tuple:
-        return (self.chunk_entries, self.chunks, self.vec,
-                *(t.data_ptr() for t in self[3:]))
+        return (self.vec, *(t.data_ptr() for t in self[1:]))
 
 
-def _fold_scratch(x: torch.Tensor, k: int, dual: bool) -> FoldScratch:
-    """K6's scratch for a fold of x's rows into k labels: one entry a row,
-    two in the dual fold.  The histogram is zeroed; ``vec`` says whether
-    the fold may load 8 columns at once (d % 8 == 0, x 16-byte aligned)."""
+def _fold_scratch(x: torch.Tensor, k: int, dual: bool,
+                  norms: bool = False) -> FoldScratch:
+    """The fold core's scratch for a fold of x's rows into k labels: one
+    entry a row, two in the dual fold; ``norms`` adds the per-span ||x||²
+    buffer where d needs more than one span.  Nothing needs zeroing: every
+    cell is written before it is read.  ``vec`` says whether the fold may
+    load 8 columns at once (d % 8 == 0, x 16-byte aligned)."""
     n, d = x.shape
     entries = n * (2 if dual else 1)
     if entries >= 2 ** 31:
         raise ValueError(f"{entries} fold entries do not fit the kernel's "
                          "int32 entry index")
-    chunks = max(1, min(-(-n // DENSE_GROUP_ROWS), _FOLD_HIST_CELLS // k))
-    chunk_entries = -(-entries // chunks)
-    chunks = -(-entries // chunk_entries)
+    tiles = -(-entries // _SORT_TILE)
+    chunks = -(-entries // _FOLD_CHUNK)
+    spans = -(-d // _FOLD_SPAN)
     ints = dict(dtype=torch.int32, device=x.device)
-    # A bucket of more than _FOLD_CHUNK entries writes a partial row per
-    # fold block: at most 2·entries/_FOLD_CHUNK rows in all.
-    part_rows = 2 * -(-entries // _FOLD_CHUNK) + 1
+    floats = dict(dtype=torch.float32, device=x.device)
     return FoldScratch(
-        chunk_entries, chunks, int(d % 8 == 0 and x.data_ptr() % 16 == 0),
-        torch.zeros(chunks * k, **ints), torch.empty(k, **ints),
-        *(torch.empty(k + 1, **ints) for _ in range(3)),
-        torch.empty(entries, **ints),
-        torch.empty(part_rows, d, dtype=torch.float32, device=x.device),
-        torch.empty(part_rows, dtype=torch.float32, device=x.device))
+        int(d % 8 == 0 and x.data_ptr() % 16 == 0),
+        torch.empty(4 * entries, **ints),
+        torch.empty((1 << _SORT_BITS) * (tiles + 1), **ints),
+        torch.empty(k + 1, **ints),
+        torch.empty(2 * chunks, d, **floats),
+        torch.empty(2 * chunks, **floats),
+        torch.empty(spans * n if norms and spans > 1 else 0, **floats))
+
+
+def fold_sort_passes(k: int) -> int:
+    """The fold core's radix passes over keys in [0, k]: 8 bits each."""
+    return -(-k.bit_length() // _SORT_BITS)
 
 
 def _launch(wrapper, entry: str, x: torch.Tensor, *args,
@@ -406,6 +422,75 @@ def tiled_fold_plain(x, weights, labels, labels2, k, *, compute_dtype=None,
         if lab2 is not None:
             _fold_plain(sums[sl], counts[sl], x, lab2 - lo, w, cd,
                         chunk_size, sign=-1.0, rows_mask=keep)
+    return sums, counts
+
+
+def fold_order_plain(weights, labels, labels2, k):
+    """The fold core's sorted list: ``(keys, entries)``, each entry's
+    bucket -- k for an entry that folds nothing (``w == 0``, a label
+    outside ``[0, k)``, and in the dual fold equal labels) -- sorted
+    stably, so each bucket lists its entries (row, or ``2·row + side`` in
+    the dual fold) in increasing order and the excluded ones come last;
+    the order the kernel's radix sort makes."""
+    lab = labels.long()
+    w = weights
+    if labels2 is None:
+        keys = torch.where((w != 0) & (lab >= 0) & (lab < k), lab, k)
+    else:
+        lab2 = labels2.long()
+        both = torch.stack([lab, lab2], dim=1).reshape(-1)
+        fold = ((w != 0) & (lab != lab2)).repeat_interleave(2)
+        keys = torch.where(fold & (both >= 0) & (both < k), both, k)
+    keys, entries = torch.sort(keys, stable=True)
+    return keys, entries
+
+
+def fold_core_plain(x, weights, labels, labels2, k, *, compute_dtype=None):
+    """The fold core's ``(sums, counts)`` in its own order, one f32
+    operation at a time, so the kernel must equal it bit for bit: the
+    sorted list (:func:`fold_order_plain`) is cut into chunks of
+    ``_FOLD_CHUNK`` entries; each run of one bucket inside a chunk sums
+    ``w·float(cd(x))`` (and w) in entry order from 0; a bucket inside one
+    chunk is its run's sum, a longer one the sum from 0 of its runs in
+    chunk order (the kernel writes a lone run as it is: the same value, 0
+    added); an empty bucket is 0."""
+    cd = resolve_cd(compute_dtype, x.dtype)
+    n, d = x.shape
+    dev = x.device
+    w = _weights(weights, n, dev)
+    keys, entries = fold_order_plain(w, labels.to(dev),
+                                     None if labels2 is None
+                                     else labels2.to(dev), k)
+    dual = labels2 is not None
+    rows = entries >> 1 if dual else entries
+    ws = w[rows]
+    if dual:
+        ws = torch.where(entries % 2 == 1, -ws, ws)
+    pos = torch.arange(keys.numel(), device=dev)
+    starts = torch.ones_like(keys, dtype=torch.bool)
+    starts[1:] = (keys[1:] != keys[:-1]) | (pos[1:] % _FOLD_CHUNK == 0)
+    run = torch.cumsum(starts.long(), 0) - 1
+    rank = pos - pos[starts][run]
+    run_key = keys[starts]
+    acc = torch.zeros(run_key.numel(), d, dtype=torch.float32, device=dev)
+    acc_w = torch.zeros(run_key.numel(), dtype=torch.float32, device=dev)
+    for r in range(int(rank.max()) + 1 if keys.numel() else 0):
+        at = (rank == r) & (keys < k)
+        sel, rr = run[at], rows[at]
+        acc[sel] = acc[sel] + ws[at][:, None] * x[rr].to(cd).float()
+        acc_w[sel] = acc_w[sel] + ws[at]
+    sums = torch.zeros(k, d, dtype=torch.float32, device=dev)
+    counts = torch.zeros(k, dtype=torch.float32, device=dev)
+    keep = run_key < k
+    run_key, acc, acc_w = run_key[keep], acc[keep], acc_w[keep]
+    runs = torch.bincount(run_key, minlength=k)
+    first = torch.cumsum(runs, 0) - runs
+    within = torch.arange(run_key.numel(), device=dev) - first[run_key]
+    for r in range(int(runs.max()) if run_key.numel() else 0):
+        at = within == r
+        b = run_key[at]
+        sums[b] = sums[b] + acc[at]
+        counts[b] = counts[b] + acc_w[at]
     return sums, counts
 
 
@@ -613,10 +698,12 @@ def lloyd_pass_cuda(x, centroids, *, weights=None, compute_dtype=None,
     masks the False columns out of the argmin, and ``raw_scores`` returns
     the raw min score ``min(||c||² − 2x·c)`` in the min_d2 slot (the
     inertia is then meaningless).  It scores with :func:`scoring_core`'s
-    core and folds with K6's single fold inside the same entry point (so
-    ``tiled_fold_cuda.launches`` does not move): its sums have the same
-    bits every launch.  ``k_tile`` runs K5 and K6's single fold instead of
-    K1."""
+    core and, with ``with_update``, folds on the fold core inside the same
+    entry point (so ``tiled_fold_cuda.launches`` does not move): its merge
+    then writes the raw score and the fold adds ``||x||²`` from its own
+    read of each row (K3's min_d2), and its sums and counts are K6's single
+    fold's at its labels, the same bits every launch.  ``k_tile`` runs K5
+    and K6's single fold instead of K1."""
     if x.device.type == "cpu":
         return lloyd_pass_plain(x, centroids, weights=weights,
                                 compute_dtype=compute_dtype,
@@ -638,15 +725,16 @@ def lloyd_pass_cuda(x, centroids, *, weights=None, compute_dtype=None,
     labels = torch.empty(n, dtype=torch.int32, device=dev)
     min_d2 = torch.empty(n, dtype=torch.float32, device=dev)
     if with_update:
-        # K6 writes every element of the sums and counts.
+        # The fold core writes every element of the sums and counts.
         sums = torch.empty(k, d, dtype=torch.float32, device=dev)
         counts = torch.empty(k, dtype=torch.float32, device=dev)
-        scratch = _fold_scratch(x, k, dual=False)   # held through the launch
+        scratch = _fold_scratch(x, k, dual=False,   # held through the launch
+                                norms=not raw_scores)
         fold = scratch.args()
     else:
         sums = torch.zeros(k, d, dtype=torch.float32, device=dev)
         counts = torch.zeros(k, dtype=torch.float32, device=dev)
-        fold = (0, 0, 0) + (None,) * 8
+        fold = (0,) + (None,) * 6
     _launch(lloyd_pass_cuda, "kml_lloyd_pass", x,
             x.data_ptr(), _DTYPE_CODES[x.dtype], neg2c.data_ptr(),
             _DTYPE_CODES[cd], csq.data_ptr(), w.data_ptr(), n, d, k,
@@ -713,8 +801,11 @@ def accumulate_cuda(x, labels, k, *, scores=None, weights=None,
     """K3: the labeled fold (replaces ``accumulate_pallas``).
 
     Returns ``(sums f32 [k, d], counts f32 [k], min_d2 f32 [n])`` with
-    ``min_d2 = max(scores + ||x||², 0)``; labels outside ``[0, k)``
-    contribute nothing.  ``k_tile`` runs K6's single fold instead of K3
+    ``min_d2 = max(scores + ||x||², 0)``; labels outside ``[0, k)`` and
+    rows with ``w == 0`` contribute nothing.  It runs on the fold core, so
+    its sums and counts are K6's single fold's bit for bit (no float
+    atomics: the same bits every launch), and ``||x||²`` comes from the
+    same read of each row.  ``k_tile`` runs K6's single fold instead of K3
     (its min_d2 then comes from a PyTorch epilogue, as the reference's
     tiled route finishes it in XLA)."""
     if x.device.type == "cpu":
@@ -732,13 +823,14 @@ def accumulate_cuda(x, labels, k, *, scores=None, weights=None,
     _check_cuda_inputs("accumulate_cuda", x, k, cd, w, None, lab,
                        *([] if g is None else [g]))
     dev = x.device
-    sums = torch.zeros(k, d, dtype=torch.float32, device=dev)
-    counts = torch.zeros(k, dtype=torch.float32, device=dev)
+    scratch = _fold_scratch(x, k, dual=False, norms=True)
+    sums = torch.empty(k, d, dtype=torch.float32, device=dev)
+    counts = torch.empty(k, dtype=torch.float32, device=dev)
     min_d2 = torch.empty(n, dtype=torch.float32, device=dev)
     _launch(accumulate_cuda, "kml_accumulate", x,
             x.data_ptr(), _DTYPE_CODES[x.dtype], _DTYPE_CODES[cd],
-            lab.data_ptr(), _ptr(g), w.data_ptr(), n, d, k, sums.data_ptr(),
-            counts.data_ptr(), min_d2.data_ptr())
+            lab.data_ptr(), _ptr(g), w.data_ptr(), n, d, k, *scratch.args(),
+            sums.data_ptr(), counts.data_ptr(), min_d2.data_ptr())
     return sums, counts, min_d2
 
 
@@ -867,10 +959,13 @@ def tiled_fold_cuda(x, weights, labels, labels2, k, *, compute_dtype=None):
     return _tiled_fold(x, weights, labels, labels2, k, compute_dtype, -1)
 
 
-def fold_launch_names(x: torch.Tensor, k: int, dual: bool) -> tuple:
+def fold_launch_names(k: int) -> tuple:
     """K6's launches in the order it makes them (:func:`fold_launch_prefix`)
-    for a fold of x's rows into k labels."""
-    return ("hist", "chunk scan", "bucket scan", "scatter", "sum", "combine")
+    for a fold into k labels: three a radix pass, then the bucket starts,
+    the fold and the combine."""
+    sort = (f"{step} (pass {p})" for p in range(fold_sort_passes(k))
+            for step in ("sort hist", "sort scan", "sort scatter"))
+    return (*sort, "bucket starts", "fold", "combine")
 
 
 def fold_launch_prefix(x, weights, labels, labels2, k, *, compute_dtype=None,

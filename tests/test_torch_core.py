@@ -106,16 +106,19 @@ def test_planner_refuses_when_the_core_does_not_fit(kind, d, cd_itemsize,
         "refuse" if mode == "refuse" else "tiled")
 
 
-def _scratch_as_before(n, d, k, dual):
-    """The sizes ``tiled_fold_cuda`` allocated before the helper existed."""
+def _fold_scratch_sizes(n, d, k, dual, norms):
+    """The fold core's scratch as ``csrc/lloyd.cu`` indexes it: two key and
+    two value buffers of the entries, the sort tiles' 256 digit counts
+    (scanned in place) and the 256 digit totals, a start per bucket (+ the folded count), two
+    partial rows a 256-entry fold chunk, and the per-span ||x||² with the
+    norms over more than one 2048-column span."""
     entries = n * (2 if dual else 1)
-    chunks = max(1, min(-(-n // 1024), (1 << 24) // k))
-    chunk_entries = -(-entries // chunks)
-    chunks = -(-entries // chunk_entries)
-    part_rows = 2 * -(-entries // 512) + 1
-    return dict(chunk_entries=chunk_entries, chunks=chunks, hist=chunks * k,
-                total=k, start=k + 1, cstart=k + 1, pstart=k + 1,
-                order=entries, part=(part_rows, d), part_counts=part_rows)
+    tiles = -(-entries // 4096)
+    chunks = -(-entries // 256)
+    spans = -(-d // 2048)
+    return dict(sort=4 * entries, hist=256 * (tiles + 1), start=k + 1,
+                part=(2 * chunks, d), part_counts=2 * chunks,
+                sq_part=spans * n if norms and spans > 1 else 0)
 
 
 @pytest.mark.parametrize("dual", [False, True])
@@ -124,18 +127,40 @@ def _scratch_as_before(n, d, k, dual):
 def test_fold_scratch_sizes(n, d, k, dual):
     x = torch.zeros(n, d, dtype=BF16)
     s = K._fold_scratch(x, k, dual)
-    want = _scratch_as_before(n, d, k, dual)
-    assert (s.chunk_entries, s.chunks) == (want["chunk_entries"],
-                                           want["chunks"])
-    for name in ("hist", "total", "start", "cstart", "pstart", "order",
-                 "part_counts"):
+    want = _fold_scratch_sizes(n, d, k, dual, False)
+    for name in ("sort", "hist", "start", "part_counts", "sq_part"):
         assert getattr(s, name).numel() == want[name], name
-        assert getattr(s, name).dtype == (torch.float32 if name ==
-                                          "part_counts" else torch.int32)
+        assert getattr(s, name).dtype == (
+            torch.int32 if name in ("sort", "hist", "start")
+            else torch.float32), name
     assert tuple(s.part.shape) == want["part"]
-    assert not s.hist.any()
     assert s.vec == int(d % 8 == 0)
-    assert len(s.args()) == 11
+    assert len(s.args()) == 7
+    # Nothing is zeroed on the host: every cell is written before it is
+    # read, and k's histogram is gone (nothing grows with chunks x k).
+    assert s.hist.numel() <= 256 * (2 * n // 4096 + 2)
+
+
+@pytest.mark.parametrize("d,norms", [(2048, True), (4104, True),
+                                     (4104, False), (300, True)])
+def test_fold_scratch_holds_the_span_norms(d, norms):
+    """K3 and K1's fold keep each 2048-column span's ||x||² only where d
+    needs more than one span."""
+    s = K._fold_scratch(torch.zeros(10, d), 7, False, norms=norms)
+    assert s.sq_part.numel() == _fold_scratch_sizes(10, d, 7, False,
+                                                   norms)["sq_part"]
+    assert s.vec == int(d % 8 == 0)
+
+
+@pytest.mark.parametrize("k,passes", [(1, 1), (255, 1), (256, 2),
+                                      (1000, 2), (65535, 2), (65536, 3)])
+def test_fold_sort_passes_and_launches(k, passes):
+    """Keys run over [0, k] (k for entries that fold nothing): 8 bits a
+    radix pass, three launches a pass, then the starts, fold and combine."""
+    assert K.fold_sort_passes(k) == passes
+    names = K.fold_launch_names(k)
+    assert len(names) == 3 * passes + 3
+    assert names[-3:] == ("bucket starts", "fold", "combine")
 
 
 @pytest.mark.parametrize("kind", ["hamerly", "yinyang", "classic"])

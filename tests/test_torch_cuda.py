@@ -7,10 +7,11 @@ checkout (that machine may have no JAX, which ``tests/conftest.py`` imports):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Inputs are tie-free blobs, so labels must be equal.  Sums agree to rtol
-1e-4 and atol 1e-4·max|want|: K2–K4 fold with f32 atomics, in an order
-that changes from run to run, and K1 and K6 sum each label's rows in row
-order, another order than the plain version's.  Counts of binary weights
-are exact.
+1e-4 and atol 1e-4·max|want|: K2 and K4 fold with f32 atomics, in an order
+that changes from run to run, and K1, K3 and K6 sum each label's rows in
+row order on the fold core, another order than the plain version's (and
+exactly ``fold_core_plain``'s: equal bit for bit).  Counts of binary
+weights are exact.
 Scores (the Hamerly kernel's bounds) agree to rtol 1e-5 and atol
 1e-5·max|want|: the kernel and the plain version sum the same f32 products
 in another order.
@@ -192,8 +193,12 @@ def test_tiled_kernels_match_plain_versions_and_the_untiled_kernels(
                               compute_dtype=cd)
     assert torch.equal(lab, k2[0]) and torch.equal(raw, k2[1])
     assert torch.equal(second, k4[2])
+    # K1's merge norms a row as K5's does; with the fold, the fold core
+    # adds ||x||^2 in its own order, within the score tolerance.
     normed = K.tiled_argmin_cuda(x, neg2c, csq, k_tile=256)[1]
-    assert torch.equal(normed, K.lloyd_pass_cuda(x, c, compute_dtype=cd)[1])
+    assert torch.equal(normed, K.lloyd_pass_cuda(x, c, compute_dtype=cd,
+                                                 with_update=False)[1])
+    _close_scores(K.lloyd_pass_cuda(x, c, compute_dtype=cd)[1], normed)
     for lab2 in (None, prev):
         got = K.tiled_fold_cuda(x, w, lab, lab2, k, compute_dtype=cd)
         again = K.tiled_fold_cuda(x, w, lab, lab2, k, compute_dtype=cd)
@@ -407,3 +412,72 @@ def test_tiled_argmin_on_the_core_matches_score_block(card, n, d, k, k_tile):
         rows = slice(8 * i, 8 * (i + 1))
         assert bool((got[0][rows] == lo).all())
         assert torch.equal(got[2][rows], got[1][rows])
+
+
+FOLD_CORE_CASES = [
+    # n, d, k, x dtype, compute dtype, every row on one label
+    (2053, 2048, 1000, torch.bfloat16, torch.bfloat16, False),
+    (2053, 300, 1000, torch.bfloat16, torch.bfloat16, False),
+    (1031, 100, 130, torch.float32, torch.float32, False),
+    (1031, 4104, 7, torch.bfloat16, torch.bfloat16, False),
+    (1031, 64, 1, torch.bfloat16, torch.bfloat16, False),
+    (3001, 96, 300, torch.float32, torch.bfloat16, True),
+]
+
+
+@pytest.mark.parametrize("n,d,k,x_dtype,cd,one_label", FOLD_CORE_CASES)
+def test_fold_core_gives_one_set_of_bits(card, n, d, k, x_dtype, cd,
+                                         one_label):
+    """K6's single and dual folds, K3 and K1's fold on the fold core: each
+    equal to ``fold_core_plain`` (the core's order, op by op) and to a
+    second launch bit for bit, K3's and K1's sums and counts equal to K6's
+    single fold's at the same labels, and each within the tolerances of
+    its plain version (min_d2 at rtol 1e-5).  Labels outside [0, k),
+    zero weights and, in the dual fold, rows with equal labels fold
+    nothing; d = 300 takes the column-strided loads, d = 4104 three column
+    spans."""
+    x, c, w, prev = _blobs(11, n, d, k, card)
+    x = x.to(x_dtype)
+    gen = torch.Generator(device=card).manual_seed(12)
+    lab = torch.randint(-2, k + 2, (n,), generator=gen, device=card,
+                        dtype=torch.int32)
+    if one_label:
+        lab[3:] = k // 2
+    lab2 = torch.where(torch.rand(n, generator=gen, device=card) < 0.3, lab,
+                       prev)
+    scores = torch.randn(n, generator=gen, device=card)
+    for l2 in (None, lab2):
+        got = K.tiled_fold_cuda(x, w, lab, l2, k, compute_dtype=cd)
+        again = K.tiled_fold_cuda(x, w, lab, l2, k, compute_dtype=cd)
+        model = K.fold_core_plain(x, w, lab, l2, k, compute_dtype=cd)
+        plain = K.tiled_fold_plain(x, w, lab, l2, k, compute_dtype=cd)
+        torch.cuda.synchronize()
+        for g, a, m in zip(got, again, model):
+            assert torch.equal(g, a) and torch.equal(g, m)
+        _close(got[0], plain[0])
+        assert torch.equal(got[1], plain[1])
+        if l2 is None:
+            single = got
+    k3 = K.accumulate_cuda(x, lab, k, scores=scores, weights=w,
+                           compute_dtype=cd)
+    k3b = K.accumulate_cuda(x, lab, k, scores=scores, weights=w,
+                            compute_dtype=cd)
+    plain = K.accumulate_plain(x, lab, k, scores=scores, weights=w,
+                               compute_dtype=cd)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(k3, k3b))
+    assert torch.equal(k3[0], single[0]) and torch.equal(k3[1], single[1])
+    _close_scores(k3[2], plain[2])
+    k1 = K.lloyd_pass_cuda(x, c, weights=w, compute_dtype=cd)
+    at = K.tiled_fold_cuda(x, w, k1[0], None, k, compute_dtype=cd)
+    want = K.lloyd_pass_plain(x, c, weights=w, compute_dtype=cd)
+    torch.cuda.synchronize()
+    assert torch.equal(k1[2], at[0]) and torch.equal(k1[3], at[1])
+    assert torch.equal(k1[0], want[0])
+    # K1's min_d2 is its raw score (the scoring core's, unchanged) plus the
+    # fold core's ||x||^2: held to rtol 1e-5 of ||x||^2, the sum of the
+    # terms it adds up, against the raw score plus the plain ||x||^2.
+    raw = K.lloyd_pass_cuda(x, c, compute_dtype=cd, with_update=False,
+                            raw_scores=True)[1]
+    sq = x.float().pow(2).sum(1)
+    assert bool(((k1[1] - (raw + sq).clamp_min(0)).abs() <= 1e-5 * sq).all())

@@ -388,6 +388,49 @@ def test_tiled_fold_plain_single_dual_skewed_and_sentinels(dual, k_tile):
     _equal(again, want, ("sums", "counts"))
 
 
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("n,k", [(1500, 300), (1500, 1), (1500, 40)])
+def test_fold_core_order_covers_each_entry_once_in_row_order(dual, n, k):
+    """The fold core's plan (``fold_order_plain``: the list its radix sort
+    makes; ``fold_core_plain``: its sums in its order) lists every entry
+    that folds exactly once, each bucket in increasing row order and the
+    excluded entries (zero weight, out-of-range labels, equal dual labels)
+    last under the key k; a skewed bucket crosses several 256-entry fold
+    chunks.  On integer data its sums and counts equal the reference's
+    interpret-mode fold and the numpy fold exactly."""
+    x, _, _, _, rng = _ints(8, n, D, k)
+    lab = rng.integers(-1, k + 2, size=n).astype(np.int32)
+    lab[::2] = k // 2                      # half the rows on one label
+    lab2 = rng.integers(-1, k, size=n).astype(np.int32) if dual else None
+    if dual:
+        lab2[:30] = lab[:30]               # equal labels fold nothing
+    w = rng.integers(0, 3, size=n).astype(np.float32)   # zeros included
+    tw, tl = torch.from_numpy(w), torch.from_numpy(lab)
+    tl2 = None if lab2 is None else torch.from_numpy(lab2)
+    keys, entries = K.fold_order_plain(tw, tl, tl2, k)
+    side = 2 if dual else 1
+    row, half = entries // side, entries % side
+    label = tl.long()[row]
+    if dual:
+        label = torch.where(half == 1, tl2.long()[row], label)
+    folds = ((tw[row] != 0) & (label >= 0) & (label < k)
+             & ((tl[row] != tl2[row]) if dual else True))
+    assert torch.equal(torch.sort(entries).values,
+                       torch.arange(n * side))          # each entry once
+    assert bool((keys[:-1] <= keys[1:]).all())
+    assert torch.equal(keys, torch.where(folds, label, k))
+    same = keys[:-1] == keys[1:]
+    assert bool((entries[:-1][same] < entries[1:][same]).all())
+    assert int((keys == k // 2).sum()) > 256               # crosses chunks
+    got = K.fold_core_plain(torch.from_numpy(x), tw, tl, tl2, k)
+    want = _np_fold(x, w, lab, lab2, k)
+    _equal(got, want, ("sums", "counts"))
+    if not dual:
+        ref = accumulate_pallas(jnp.asarray(x), jnp.asarray(lab), k,
+                                weights=jnp.asarray(w), interpret=True)
+        _equal(got, ref[:2], ("sums", "counts"))
+
+
 # ---------------------------------------------------------------------------
 # The planner
 # ---------------------------------------------------------------------------
