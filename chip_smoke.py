@@ -47,9 +47,11 @@ if any fails:
    flavour, and the time of k-means++ there;
 5. whole ``KMeans(compute_dtype="bfloat16")`` fits with k-means++ at the
    ``glove`` shape, ``update="delta"`` and the default ``"auto"`` (the
-   adaptive loop: n >= 16384), each held against a plain-backend fit;
-   and a small bf16 fit with fractional weights, which ``backend="auto"``
-   runs on the plain route on the card, held against the CPU;
+   adaptive loop: n >= 16384), each held against a plain-backend fit,
+   with the counts set to 0 before each fit and read after (K1 and K2
+   must launch, and K4 on the adaptive loop); and a small bf16 fit with
+   fractional weights, which the weights veto sends on the plain route on
+   the card under ``backend="auto"``, held against the CPU;
 6. the ``codebook`` shape, n = 1,280,000, d = 2048, k = 65536 in bf16, where
    the planner tiles: its decision for every kind there and at the headline
    and glove shapes, then the main path in three runs, counts set to 0
@@ -61,12 +63,14 @@ if any fails:
    plain versions and library calls, K5 with the second-min and on
    ``score_block`` (bit for bit against each other), and the same sweeps
    untiled (K1, K2);
-7. K6's time split by launch (CUDA events) on seeded inputs at the full
-   width: the single fold at k = 1000 and at k = 65536, and the dual fold
-   at k = 65536 with 2% of the rows changed;
+7. K6's device time split by kernel (a ``torch.profiler`` trace of
+   ordinary calls) on seeded inputs at the full width: the single fold at
+   k = 1000 and at k = 65536, and the dual fold at k = 65536 with 2% of
+   the rows changed;
 8. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 
-``python3 chip_smoke.py --fold-split`` runs phases 1, 2 and 7 only.
+``python3 chip_smoke.py --fold-split`` runs phases 1 and 7 only (the
+kernels build at their first call), so it also splits an older tree's K6.
 
 The bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of memory, 989
 TFLOP/s bf16 on the tensor cores and 67 TFLOP/s f32 outside them.
@@ -1420,6 +1424,7 @@ def phase_whole_fit():
 
     import torch
 
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
     from kmeans_tpu_torch.ops.cuda_lloyd import scoring_core
 
     n, d, k = 400_000, 300, 1000
@@ -1427,19 +1432,35 @@ def phase_whole_fit():
     core = scoring_core(x.to(torch.bfloat16), torch.bfloat16)
     print(f"scoring core of K1 and K2 at the glove shape (d = {d}): {core}")
     _check(core == "score_block", "the glove shape took the Hopper core")
+    # The kernels each fit must launch: K1 and K2 on the delta loop, and
+    # K4 too on the adaptive loop's yinyang periods.
+    expect = {"delta": ("lloyd_pass_cuda", "lloyd_delta_cuda"),
+              "auto": ("lloyd_pass_cuda", "lloyd_delta_cuda",
+                       "lloyd_hamerly_cuda")}
     for update in ("delta", "auto"):
         fits = {}
         for backend in ("auto", "plain"):
+            K.reset_launch_counts()
             t0 = time.perf_counter()
             km = kt.KMeans(n_clusters=k, update=update,
                            compute_dtype="bfloat16", seed=0, backend=backend)
             km.fit(x)
             _sync()
+            counts = K.launch_counts()
             fits[backend] = km
             print(f"KMeans glove shape update={update} backend={backend}: "
                   f"{km.n_iter_} sweeps, converged "
                   f"{bool(km.state.converged)}, inertia {km.inertia_:.6e}, "
-                  f"{time.perf_counter() - t0:.3f} s; diag {km.diag_}")
+                  f"{time.perf_counter() - t0:.3f} s; diag {km.diag_}; "
+                  f"launches {counts}")
+            if backend == "auto":
+                missing = [name for name in expect[update]
+                           if not counts.get(name)]
+                _check(not missing, f"whole fit update={update} "
+                       f"backend=auto launched none of {missing}")
+            else:
+                _check(not any(counts.values()), f"whole fit update="
+                       f"{update} backend=plain launched kernels: {counts}")
         a, b = fits["auto"].inertia_, fits["plain"].inertia_
         _check(abs(a - b) <= FIT_INERTIA_RTOL * abs(b),
                f"whole fit update={update}: kernel inertia {a} vs plain {b} "
@@ -1451,14 +1472,19 @@ def phase_whole_fit():
 
 def _fractional_weights_fit():
     """``KMeans(compute_dtype="bfloat16").fit`` with fractional weights on
-    the card: the kernel plan refuses it (bf16 would round the weights in
-    the fold), so ``backend="auto"`` takes the plain route on the card, as
-    the reference's ``"auto"`` takes XLA, with the ``"segment"`` update;
-    no kernel launches, and the fit agrees with the same fit on the CPU."""
+    the card: the kernel plan's weights veto refuses it (the reference's
+    exactness policy: bf16 would round the weights in its fold), so
+    ``backend="auto"`` takes the plain route on the card, as the
+    reference's ``"auto"`` takes XLA, with the ``"segment"`` update, and
+    ``fit_plan`` says why; no kernel launches, and the fit agrees with the
+    same fit on the CPU.  Both start from the same centres: k-means++
+    draws from each device's own generator, so the two fits would start
+    apart and could settle in different partitions."""
     import torch
 
     import kmeans_tpu_torch as kt
     from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.ops.plan import WEIGHTS_VETO
 
     n, d, k = 20_000, 64, 16
     x, _, centres = kt.make_blobs(4, n, d, k)
@@ -1469,7 +1495,8 @@ def _fractional_weights_fit():
     c0 = centres + 0.1 * torch.randn(k, d, generator=gen, device="cuda")
     plan = kt.fit_plan(x, k, config=kt.KMeansConfig(
         k=k, compute_dtype="bfloat16"), weights=w)
-    _check(plan["backend"] == "plain" and plan["update"] == "segment",
+    _check(plan["backend"] == "plain" and plan["update"] == "segment"
+           and plan["why"] == WEIGHTS_VETO,
            f"fractional weights in bf16 on the card: plan {plan}")
     fits = {}
     for dev in ("cuda", "cpu"):
@@ -1774,17 +1801,60 @@ def phase_codebook(headline_launches):
 #: The dual fold's share of changed rows in the split: a steady sweep's
 #: churn at the codebook shape is a few percent of the rows.
 SPLIT_CHURN = 0.02
+#: K6 calls in each profile of the split.
+SPLIT_REPS = 5
+
+
+def _kernel_name(name):
+    """A profiled kernel's name without ``void``, the anonymous namespace
+    and its argument list (a memset or a copy keeps its name)."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    depth = 0
+    for i in range(len(name) - 1, 0, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i] if name[i] == "(" and name[i - 1] != " " else name
+    return name
+
+
+def _device_split(fn, reps):
+    """``fn()`` run ``reps`` times under ``torch.profiler`` (CUPTI) after
+    one warm-up run: ``[(kernel name, launches a call, ms a call)]`` in the
+    order the kernels first ran, memsets and copies included."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        _sync()
+    split = {}
+    for evt in sorted((e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda e: e.time_range.start):
+        name = _kernel_name(evt.name)
+        launches, us = split.get(name, (0, 0.0))
+        split[name] = (launches + 1,
+                       us + evt.time_range.end - evt.time_range.start)
+    _check(split, "the profiler recorded no device time")
+    return [(name, launches / reps, us / 1e3 / reps)
+            for name, (launches, us) in split.items()]
 
 
 def phase_fold_split():
-    """K6's time split by launch, with CUDA events, on seeded inputs at the
-    full width (x: n = 1,280,000, d = 2048, bf16, standard normal): (a) the
-    single fold at k = 1000 (K1's fold and K3's workload), (b) the single
-    fold at k = 65536, (c) the dual fold at k = 65536 with SPLIT_CHURN of
-    the rows changed (w = 1 on them, 0 elsewhere).  Each launch's time is
-    the difference of two prefixes (``fold_launch_prefix``: the first s
-    launches, scratch included); the scratch set-up (``_fold_scratch``) is
-    timed alone."""
+    """K6's device time split by kernel on seeded inputs at the full width
+    (x: n = 1,280,000, d = 2048, bf16, standard normal): (a) the single
+    fold at k = 1000 (K1's fold and K3's workload), (b) the single fold at
+    k = 65536, (c) the dual fold at k = 65536 with SPLIT_CHURN of the rows
+    changed (w = 1 on them, 0 elsewhere).  Each kernel's time is its
+    CUPTI duration in a ``torch.profiler`` trace of SPLIT_REPS ordinary
+    ``tiled_fold_cuda`` calls; the whole call and the scratch set-up
+    (``_fold_scratch``) alone are timed with CUDA events.  Written against
+    ``tiled_fold_cuda`` and ``_fold_scratch`` only, so that it also splits
+    an older tree's K6."""
     import torch
 
     from kmeans_tpu_torch.ops import cuda_lloyd as K
@@ -1807,25 +1877,28 @@ def phase_fold_split():
             w = changed.float()
         cases.append((case, k, dual, lab, lab2, w))
     for case, k, dual, lab, lab2, w in cases:
-        names = K.fold_launch_names(k)
+        def call():
+            return K.tiled_fold_cuda(x, w, lab, lab2, k,
+                                     compute_dtype=torch.bfloat16)
 
-        def prefix(stop):
-            return K.fold_launch_prefix(x, w, lab, lab2, k,
-                                        compute_dtype=torch.bfloat16,
-                                        stop=stop)
-
+        whole = _time_ms(call, 5)
         scratch_ms = _time_ms(lambda: K._fold_scratch(x, k, dual), 5)
-        times = [_time_ms(lambda: prefix(s), 5)
-                 for s in range(len(names) + 1)]
-        whole = _time_ms(lambda: K.tiled_fold_cuda(
-            x, w, lab, lab2, k, compute_dtype=torch.bfloat16), 5)
+        split = _device_split(call, SPLIT_REPS)
+        passes = getattr(K, "fold_sort_passes", None)
+        hists = sum(launches for name, launches, _ in split
+                    if name.startswith("sort_hist_kernel"))
+        _check(passes is None or hists == passes(k),
+               f"K6 at k={k} made {hists} radix passes a call, not "
+               f"fold_sort_passes' {passes and passes(k)}")
         what = (f"K6 split ({case}) {'dual' if dual else 'single'} fold, "
                 f"n={n} d={d} k={k}"
                 + (f", {int(w.sum())} rows changed" if dual else ""))
-        print(f"{what}: scratch set-up {scratch_ms:.3f} ms, no launch "
-              f"{times[0]:.3f} ms; whole K6 {whole:.3f} ms")
-        for i, name in enumerate(names):
-            print(f"  launch {i + 1} {name}: {times[i + 1] - times[i]:.3f} ms")
+        print(f"{what}: whole K6 {whole:.3f} ms (CUDA events), scratch "
+              f"set-up {scratch_ms:.3f} ms; profile of {SPLIT_REPS} calls: "
+              f"{sum(c for _, c, _ in split):g} launches and "
+              f"{sum(t for _, _, t in split):.3f} ms of device time a call")
+        for name, launches, ms in split:
+            print(f"  {name}: {launches:g} a call, {ms:.3f} ms a call")
 
 
 def main() -> int:
@@ -1836,10 +1909,10 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     phase_device()
-    phase_build()
     if sys.argv[1:] == ["--fold-split"]:
         phase_fold_split()
         return 0
+    phase_build()
     phase_kernels()
     kernels, headline_launches = phase_headline()
     phase_whole_fit()

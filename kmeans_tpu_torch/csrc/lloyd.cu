@@ -1626,38 +1626,23 @@ int set_smem(F kern, int bytes) {
   return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// Counts down the launches that stop allows: all when stop < 0, else the
-// first stop of them.
-struct Steps {
-  int left;
-  bool next() {
-    if (left == 0) return false;
-    if (left > 0) --left;
-    return true;
-  }
-};
-
-#define KML_FOLD_LAUNCH(...)                                       \
-  if (steps.next()) {                                              \
-    __VA_ARGS__;                                                   \
-    if (int err_ = (int)cudaGetLastError()) return err_;           \
-  }
-
 // One pass of the radix sort: hist, digit scan, scatter (hist holds the
 // (digit, tile) counts, then their offsets within the digit, then the
 // SORT_BINS digit totals).
 template <bool FIRST, bool DUAL>
-int sort_pass(Steps& steps, const int* lab, const int* lab2, const float* w,
-              const int* keys_in, const int* vals_in, int entries, int k, int shift, int tiles,
-              int* hist, int* keys_out, int* vals_out, cudaStream_t stream) {
+int sort_pass(const int* lab, const int* lab2, const float* w, const int* keys_in,
+              const int* vals_in, int entries, int k, int shift, int tiles, int* hist,
+              int* keys_out, int* vals_out, cudaStream_t stream) {
   int* digit_total = hist + (size_t)SORT_BINS * tiles;
-  KML_FOLD_LAUNCH(sort_hist_kernel<FIRST, DUAL><<<tiles, NT, 0, stream>>>(
-      lab, lab2, w, keys_in, entries, k, shift, tiles, hist));
-  KML_FOLD_LAUNCH(sort_digit_scan_kernel<<<SORT_BINS, NT, 0, stream>>>(hist, tiles, digit_total));
-  KML_FOLD_LAUNCH(sort_scatter_kernel<FIRST, DUAL><<<tiles, NT, 0, stream>>>(
+  sort_hist_kernel<FIRST, DUAL><<<tiles, NT, 0, stream>>>(lab, lab2, w, keys_in, entries, k,
+                                                          shift, tiles, hist);
+  if (int e = (int)cudaGetLastError()) return e;
+  sort_digit_scan_kernel<<<SORT_BINS, NT, 0, stream>>>(hist, tiles, digit_total);
+  if (int e = (int)cudaGetLastError()) return e;
+  sort_scatter_kernel<FIRST, DUAL><<<tiles, NT, 0, stream>>>(
       lab, lab2, w, keys_in, vals_in, entries, k, shift, tiles, hist, digit_total, keys_out,
-      vals_out));
-  return 0;
+      vals_out);
+  return (int)cudaGetLastError();
 }
 
 // The fold core's launches (see above); mind != nullptr asks for the norms
@@ -1667,12 +1652,12 @@ int sort_pass(Steps& steps, const int* lab, const int* lab2, const float* w,
 // SORT_BINS * (tiles + 1) ints (the counts, then offsets, and the totals),
 // start k + 1 ints, part 2 * chunks rows of d floats and part_counts
 // 2 * chunks floats, sq_part spans * n floats when the norms run over more
-// than one column span.  stop >= 0 makes only the first stop launches.
+// than one column span.
 template <class XT, class CT, bool VEC>
 int launch_fold(const void* x, const float* w, const int* lab, const int* lab2, int n, int d,
                 int k, const float* scores, float* mind, int* sort, int* hist, int* start,
                 float* part, float* part_counts, float* sq_part, float* sums, float* counts,
-                int stop, cudaStream_t stream) {
+                cudaStream_t stream) {
   const int dual = lab2 != nullptr;
   const int entries = dual ? 2 * n : n;
   const int tiles = (entries + SORT_TILE - 1) / SORT_TILE;
@@ -1681,53 +1666,51 @@ int launch_fold(const void* x, const float* w, const int* lab, const int* lab2, 
   const int passes = (32 - __builtin_clz((unsigned)k) + SORT_BITS - 1) / SORT_BITS;
   int* keys[2] = {sort, sort + 2 * (size_t)entries};
   int* vals[2] = {sort + (size_t)entries, sort + 3 * (size_t)entries};
-  Steps steps{stop};
   for (int pass = 0; pass < passes; ++pass) {
     const int out = pass & 1, shift = pass * SORT_BITS;
     const int* kin = keys[out ^ 1];
     const int* vin = vals[out ^ 1];
     int e = 0;
     if (pass > 0)
-      e = sort_pass<false, false>(steps, lab, lab2, w, kin, vin, entries, k, shift, tiles, hist,
+      e = sort_pass<false, false>(lab, lab2, w, kin, vin, entries, k, shift, tiles, hist,
                                   keys[out], vals[out], stream);
     else if (dual)
-      e = sort_pass<true, true>(steps, lab, lab2, w, kin, vin, entries, k, shift, tiles, hist,
+      e = sort_pass<true, true>(lab, lab2, w, kin, vin, entries, k, shift, tiles, hist,
                                 keys[out], vals[out], stream);
     else
-      e = sort_pass<true, false>(steps, lab, lab2, w, kin, vin, entries, k, shift, tiles, hist,
+      e = sort_pass<true, false>(lab, lab2, w, kin, vin, entries, k, shift, tiles, hist,
                                  keys[out], vals[out], stream);
     if (e) return e;
   }
   const int fin = (passes - 1) & 1;
-  KML_FOLD_LAUNCH(fold_start_kernel<<<(k + NT) / NT, NT, 0, stream>>>(keys[fin], entries, k,
-                                                                       start));
+  fold_start_kernel<<<(k + NT) / NT, NT, 0, stream>>>(keys[fin], entries, k, start);
+  if (int e = (int)cudaGetLastError()) return e;
   const dim3 grid((unsigned)chunks, (unsigned)spans);
   const XT* xt = static_cast<const XT*>(x);
   constexpr int ring = VEC ? FOLD_RING_BYTES : 0;
   if (mind != nullptr) {
     auto kern = fold_kernel<XT, CT, VEC, true>;
     if (int e = set_smem(kern, ring)) return e;
-    KML_FOLD_LAUNCH(kern<<<grid, NT, ring, stream>>>(
-        xt, w, keys[fin], vals[fin], entries, dual, n, d, k, scores, mind, sq_part, sums,
-        counts, part, part_counts));
+    kern<<<grid, NT, ring, stream>>>(xt, w, keys[fin], vals[fin], entries, dual, n, d, k,
+                                     scores, mind, sq_part, sums, counts, part, part_counts);
   } else {
     auto kern = fold_kernel<XT, CT, VEC, false>;
     if (int e = set_smem(kern, ring)) return e;
-    KML_FOLD_LAUNCH(kern<<<grid, NT, ring, stream>>>(
-        xt, w, keys[fin], vals[fin], entries, dual, n, d, k, nullptr, nullptr, nullptr, sums,
-        counts, part, part_counts));
+    kern<<<grid, NT, ring, stream>>>(xt, w, keys[fin], vals[fin], entries, dual, n, d, k,
+                                     nullptr, nullptr, nullptr, sums, counts, part,
+                                     part_counts);
   }
+  if (int e = (int)cudaGetLastError()) return e;
   const long long items = (long long)k * ((d + COMBINE_COLS - 1) / COMBINE_COLS);
   const int combine_blocks = (int)std::min<long long>((items + NWARP - 1) / NWARP, 4096);
-  KML_FOLD_LAUNCH(fold_combine_kernel<<<combine_blocks, NT, 0, stream>>>(
-      start, k, d, part, part_counts, sums, counts));
-  if (mind != nullptr && spans > 1) {
-    KML_FOLD_LAUNCH(fold_norm_finish_kernel<<<(n + NT - 1) / NT, NT, 0, stream>>>(
-        scores, sq_part, n, spans, mind));
-  }
-  return 0;
+  fold_combine_kernel<<<combine_blocks, NT, 0, stream>>>(start, k, d, part, part_counts, sums,
+                                                         counts);
+  if (int e = (int)cudaGetLastError()) return e;
+  if (mind != nullptr && spans > 1)
+    fold_norm_finish_kernel<<<(n + NT - 1) / NT, NT, 0, stream>>>(scores, sq_part, n, spans,
+                                                                   mind);
+  return (int)cudaGetLastError();
 }
-#undef KML_FOLD_LAUNCH
 
 // Error codes of the entry points besides CUDA's own (which are positive).
 constexpr int kBadDtype = -1;       // no kernel for this dtype pair
@@ -1921,10 +1904,9 @@ int launch_pass(const void* x, const void* neg2c, const float* csq, const float*
   float* norms = raw ? nullptr : mind;
   if (fold_vec)
     return launch_fold<XT, CT, true>(x, w, labels, nullptr, n, d, k, norms, norms, sort, hist,
-                                     start, part, part_counts, sq_part, sums, counts, -1,
-                                     stream);
+                                     start, part, part_counts, sq_part, sums, counts, stream);
   return launch_fold<XT, CT, false>(x, w, labels, nullptr, n, d, k, norms, norms, sort, hist,
-                                    start, part, part_counts, sq_part, sums, counts, -1, stream);
+                                    start, part, part_counts, sq_part, sums, counts, stream);
 }
 
 template <class XT, class CT, bool VEC>
@@ -2006,7 +1988,7 @@ extern "C" int kml_accumulate(const void* x, int x_dtype, int cd, const int* lab
                               float* part_counts, float* sq_part, float* sums, float* counts,
                               float* mind, void* stream) {
   KML_DISPATCH(launch_fold, x, w, labels, nullptr, n, d, k, scores, mind, sort, hist, start,
-               part, part_counts, sq_part, sums, counts, -1, static_cast<cudaStream_t>(stream));
+               part, part_counts, sq_part, sums, counts, static_cast<cudaStream_t>(stream));
 }
 
 // core = 1: the Hopper core.  part_best / part_idx / part_second are its
@@ -2038,13 +2020,11 @@ extern "C" int kml_tiled_argmin(const void* x, int x_dtype, const void* neg2c, i
 }
 
 // K6 on the fold core: lab2 == nullptr is the single fold; no norms.
-// stop >= 0 makes only the first stop launches (chip_smoke.py times the
-// launches one by one from the differences); -1 makes them all.
 extern "C" int kml_tiled_fold(const void* x, int x_dtype, int cd, const float* w,
                               const int* lab, const int* lab2, int n, int d, int k, int vec,
                               int* sort, int* hist, int* start, float* part,
                               float* part_counts, float* sq_part, float* sums, float* counts,
-                              int stop, void* stream) {
+                              void* stream) {
   KML_DISPATCH(launch_fold, x, w, lab, lab2, n, d, k, nullptr, nullptr, sort, hist, start, part,
-               part_counts, sq_part, sums, counts, stop, static_cast<cudaStream_t>(stream));
+               part_counts, sq_part, sums, counts, static_cast<cudaStream_t>(stream));
 }

@@ -44,7 +44,7 @@ from kmeans_tpu_torch.ops.hamerly import (hamerly_pass,
                                           resolve_hamerly_backend, row_norms)
 from kmeans_tpu_torch.ops.lloyd import (lloyd_pass, resolve_backend,
                                         resolve_update, weights_exact)
-from kmeans_tpu_torch.ops.plan import shape_plan
+from kmeans_tpu_torch.ops.plan import device_plan, shape_plan
 from kmeans_tpu_torch.ops.update import apply_update, reseed_empty_farthest
 
 __all__ = ["KMeansState", "fit_lloyd", "fit_plan", "KMeans",
@@ -258,12 +258,15 @@ def fit_lloyd(
 def fit_plan(x, k: int, *, config: Optional[KMeansConfig] = None,
              weights=None, device=None) -> dict:
     """The execution plan a :func:`fit_lloyd` call with these arguments
-    runs: ``{"update", "backend", "delta_backend", "adaptive", "mode",
-    "k_tile"}``, the resolved flavour, the classic sweep's route, the
-    incremental sweeps' route (``"cuda"``/``"plain"``, or None for a dense
-    fit), whether the ``"auto"`` policy's runtime delta ↔ yinyang loop
-    engages (``update`` then stays ``"delta"``, its starting flavour), and
-    the planner's mode and slice width for the flavour's sweeps
+    runs: ``{"update", "backend", "why", "delta_backend", "adaptive",
+    "mode", "k_tile"}``, the resolved flavour, the classic sweep's route,
+    why ``"auto"`` made that route the plain one (the kernel plan's reason:
+    the CPU, or the weights veto on the card; None where the route is the
+    kernels or ``"plain"`` was asked for), the incremental sweeps' route
+    (``"cuda"``/``"plain"``, or None for a dense fit), whether the
+    ``"auto"`` policy's runtime delta ↔ yinyang loop engages (``update``
+    then stays ``"delta"``, its starting flavour), and the planner's mode
+    and slice width for the flavour's sweeps
     (:func:`kmeans_tpu_torch.ops.plan.shape_plan`; both routes run them).
     Raises where :func:`fit_lloyd` would.  ``x`` needs only ``shape`` and
     ``dtype``; nothing is moved to the device."""
@@ -276,6 +279,10 @@ def fit_plan(x, k: int, *, config: Optional[KMeansConfig] = None,
     update, adaptive = _resolve_update(cfg, x.shape[0], cd, weights)
     backend = resolve_backend(cfg.backend, x, k, weights=weights,
                               compute_dtype=cfg.compute_dtype, device=dev)
+    why = None
+    if backend == "plain" and cfg.backend == "auto":
+        why = device_plan("classic", x, k, weights=weights,
+                          compute_dtype=cfg.compute_dtype, device=dev).why
     delta_backend = None
     resolver = {"delta": resolve_delta_backend,
                 "hamerly": resolve_hamerly_backend,
@@ -291,7 +298,7 @@ def fit_plan(x, k: int, *, config: Optional[KMeansConfig] = None,
                   else _yy.default_groups(k))
     shape = shape_plan(kind, x, k, compute_dtype=cfg.compute_dtype,
                        groups=groups, device=dev)
-    return {"update": update, "backend": backend,
+    return {"update": update, "backend": backend, "why": why,
             "delta_backend": delta_backend, "adaptive": adaptive,
             "mode": shape.mode, "k_tile": shape.k_tile}
 

@@ -60,9 +60,9 @@ _SIGNATURES = {
     "kml_tiled_argmin": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P, _P, _P, _P, _P, _P, _P],
     # x, x_dtype, cd, w, lab, lab2, n, d, k, the fold's scratch, sums,
-    # counts, stop, stream
+    # counts, stream
     "kml_tiled_fold": [_P, _I, _I, _P, _P, _P, _I, _I, _I, *_FOLD,
-                       _P, _P, _I, _P],
+                       _P, _P, _P],
 }
 
 

@@ -62,9 +62,7 @@ __all__ = ["lloyd_pass_cuda", "lloyd_delta_cuda", "accumulate_cuda",
            "lloyd_pass_plain", "lloyd_delta_plain", "accumulate_plain",
            "lloyd_hamerly_plain", "tiled_argmin_plain", "tiled_fold_plain",
            "hamerly_compaction_plain", "fold_order_plain",
-           "fold_core_plain", "fold_launch_names", "fold_launch_prefix",
-           "fold_sort_passes",
-           "launch_counts",
+           "fold_core_plain", "fold_sort_passes", "launch_counts",
            "reset_launch_counts", "scoring_core",
            "DENSE_GROUP_ROWS", "DENSE_SLOTS", "HAMERLY_SLOTS"]
 
@@ -264,11 +262,9 @@ def fold_sort_passes(k: int) -> int:
     return -(-k.bit_length() // _SORT_BITS)
 
 
-def _launch(wrapper, entry: str, x: torch.Tensor, *args,
-            count: bool = True) -> None:
+def _launch(wrapper, entry: str, x: torch.Tensor, *args) -> None:
     """Call one C entry point on PyTorch's current stream of x's device and
-    raise if the launch was refused; ``count`` adds one to the wrapper's
-    launches."""
+    raise if the launch was refused."""
     from kmeans_tpu_torch.ops._build import library
 
     fn = getattr(library(), entry)
@@ -278,7 +274,7 @@ def _launch(wrapper, entry: str, x: torch.Tensor, *args,
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__}: kernel launch failed: "
                            f"{_ERRORS.get(err, f'CUDA error {err}')}")
-    wrapper.launches += count
+    wrapper.launches += 1
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -702,8 +698,10 @@ def lloyd_pass_cuda(x, centroids, *, weights=None, compute_dtype=None,
     entry point (so ``tiled_fold_cuda.launches`` does not move): its merge
     then writes the raw score and the fold adds ``||x||²`` from its own
     read of each row (K3's min_d2), and its sums and counts are K6's single
-    fold's at its labels, the same bits every launch.  ``k_tile`` runs K5
-    and K6's single fold instead of K1."""
+    fold's at its labels, the same bits every launch.  Without the fold the
+    merge adds ``||x||²`` itself, in another order, so min_d2 depends on
+    ``with_update`` in its last bits (labels and raw scores do not).
+    ``k_tile`` runs K5 and K6's single fold instead of K1."""
     if x.device.type == "cpu":
         return lloyd_pass_plain(x, centroids, weights=weights,
                                 compute_dtype=compute_dtype,
@@ -956,27 +954,6 @@ def tiled_fold_cuda(x, weights, labels, labels2, k, *, compute_dtype=None):
     if x.device.type == "cpu":
         return tiled_fold_plain(x, weights, labels, labels2, k,
                                 compute_dtype=compute_dtype)
-    return _tiled_fold(x, weights, labels, labels2, k, compute_dtype, -1)
-
-
-def fold_launch_names(k: int) -> tuple:
-    """K6's launches in the order it makes them (:func:`fold_launch_prefix`)
-    for a fold into k labels: three a radix pass, then the bucket starts,
-    the fold and the combine."""
-    sort = (f"{step} (pass {p})" for p in range(fold_sort_passes(k))
-            for step in ("sort hist", "sort scan", "sort scatter"))
-    return (*sort, "bucket starts", "fold", "combine")
-
-
-def fold_launch_prefix(x, weights, labels, labels2, k, *, compute_dtype=None,
-                       stop: int):
-    """K6 on a CUDA tensor making only its first ``stop`` launches
-    (:func:`fold_launch_names`), without counting them: ``chip_smoke.py`` times
-    each launch as the difference of two prefixes."""
-    return _tiled_fold(x, weights, labels, labels2, k, compute_dtype, stop)
-
-
-def _tiled_fold(x, weights, labels, labels2, k, compute_dtype, stop):
     cd = resolve_cd(compute_dtype, x.dtype)
     n, d = x.shape
     dev = x.device
@@ -992,8 +969,7 @@ def _tiled_fold(x, weights, labels, labels2, k, compute_dtype, stop):
     _launch(tiled_fold_cuda, "kml_tiled_fold", x,
             x.data_ptr(), _DTYPE_CODES[x.dtype], _DTYPE_CODES[cd],
             w.data_ptr(), lab.data_ptr(), _ptr(lab2), n, d, k,
-            *scratch.args(), sums.data_ptr(), counts.data_ptr(), stop,
-            count=stop < 0)
+            *scratch.args(), sums.data_ptr(), counts.data_ptr())
     return sums, counts
 
 

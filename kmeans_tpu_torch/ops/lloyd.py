@@ -18,7 +18,7 @@ import torch
 from kmeans_tpu_torch.device import as_dtype, as_tensor, resolve_device
 from kmeans_tpu_torch.ops.cuda_lloyd import lloyd_pass_cuda, lloyd_pass_plain
 from kmeans_tpu_torch.ops.distance import resolve_cd
-from kmeans_tpu_torch.ops.plan import device_plan, shape_plan
+from kmeans_tpu_torch.ops.plan import WEIGHTS_VETO, device_plan, shape_plan
 
 __all__ = ["lloyd_pass", "resolve_backend", "sweep_route", "resolve_update",
            "weights_exact", "BACKENDS"]
@@ -47,15 +47,14 @@ def resolve_backend(backend: str, x, k: int, *, weights=None,
     ``"plain"``.
 
     ``"auto"`` is the kernels for data on the card and the plain versions
-    for data on the CPU; where the kernel plan of ``kind``
-    (:func:`kmeans_tpu_torch.ops.plan.device_plan`) refuses data on the card
-    (fractional weights in bf16 compute, a dtype or shape the kernels do not
-    take) it is the plain versions on the card, as the reference's
-    ``"auto"`` is its XLA route wherever its kernel plan refuses.  The plan
-    decides before any kernel is asked for: a kernel that fails to build or
-    launch still raises.  ``"cuda"`` raises wherever the plan refuses (the
-    CPU included).  ``device`` overrides ``x.device`` (``x`` needs only
-    ``shape`` and ``dtype``)."""
+    for data on the CPU.  Where the kernel plan of ``kind``
+    (:func:`kmeans_tpu_torch.ops.plan.device_plan`) vetoes the weights
+    (fractional weights in bf16 compute: the reference's exactness policy,
+    by which its ``"auto"`` takes the XLA route), ``"auto"`` is the plain
+    versions on the card; every other refusal (a dtype, a shape, a block or
+    slice the card cannot hold) raises, as ``"cuda"`` does wherever the plan
+    refuses (the CPU included).  ``device`` overrides ``x.device`` (``x``
+    needs only ``shape`` and ``dtype``)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; the port has "
                          f"{BACKENDS} (the reference's xla/pallas routes "
@@ -69,7 +68,7 @@ def resolve_backend(backend: str, x, k: int, *, weights=None,
                        weights_are_binary=weights_are_binary,
                        compute_dtype=compute_dtype, device=dev, groups=groups)
     if plan.mode == "refuse":
-        if backend == "auto":
+        if backend == "auto" and plan.why == WEIGHTS_VETO:
             return "plain"
         raise ValueError(f"the CUDA kernels do not take this input: "
                          f"{plan.why}; use backend='plain' to run the plain "

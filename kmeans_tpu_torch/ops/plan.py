@@ -73,6 +73,11 @@ CORE_KINDS = ("classic", "delta", "hamerly", "yinyang")
 _F32_BF16 = (torch.float32, torch.bfloat16)
 
 
+#: The weights veto's reason: the reference's exactness policy, the one
+#: refusal under which ``backend="auto"`` takes the plain route on the card.
+WEIGHTS_VETO = "fractional weights in a non-f32 compute dtype"
+
+
 class KernelPlan(NamedTuple):
     """A dispatch decision: ``mode`` is ``"untiled"`` (K1–K4), ``"tiled"``
     (K5 + K6 over ``k_tile``-wide centroid slices) or ``"refuse"``;
@@ -277,8 +282,7 @@ def device_plan(kind: str, x, k: int, *, weights=None,
     dev = torch.device(device) if device is not None else x.device
     if not weights_exact(cd, weights=weights,
                          weights_are_binary=weights_are_binary):
-        return KernelPlan("refuse", None,
-                          "fractional weights in a non-f32 compute dtype")
+        return KernelPlan("refuse", None, WEIGHTS_VETO)
     if dev.type != "cuda":
         return KernelPlan("refuse", None,
                           f"not running on a CUDA device ({dev})")

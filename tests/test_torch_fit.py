@@ -28,6 +28,8 @@ from kmeans_tpu_torch.models.lloyd import fit_plan
 from kmeans_tpu_torch.ops.yinyang import AUTO_MIN_ROWS
 
 CPU = "cpu"
+#: fit_plan's reason for the plain route under backend="auto" on the CPU.
+CPU_WHY = "not running on a CUDA device (cpu)"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -186,12 +188,14 @@ def test_unported_update_flavours_raise():
         plan = fit_plan(x, 5, config=KMeansConfig(k=5, update=update),
                         device=CPU)
         assert plan == {"update": update, "backend": "plain",
+                        "why": CPU_WHY,
                         "delta_backend": "plain", "adaptive": False,
                         "mode": "untiled", "k_tile": None}
     big = np.zeros((AUTO_MIN_ROWS, 2), np.float32)
     for n, adaptive in ((AUTO_MIN_ROWS, True), (AUTO_MIN_ROWS - 1, False)):
         assert fit_plan(big[:n], 3, device=CPU) == {
-            "update": "delta", "backend": "plain", "delta_backend": "plain",
+            "update": "delta", "backend": "plain", "why": CPU_WHY,
+            "delta_backend": "plain",
             "adaptive": adaptive, "mode": "untiled", "k_tile": None}
         assert kmeans_tpu.models.lloyd.fit_plan(
             big[:n], 3)["adaptive"] is adaptive

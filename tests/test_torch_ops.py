@@ -36,7 +36,7 @@ from kmeans_tpu_torch.ops.distance import (assign, chunk_tiles,
                                            pairwise_sq_dists)
 from kmeans_tpu_torch.ops.lloyd import (lloyd_pass, resolve_backend,
                                         resolve_update)
-from kmeans_tpu_torch.ops.plan import device_plan
+from kmeans_tpu_torch.ops.plan import WEIGHTS_VETO, device_plan
 from kmeans_tpu_torch.ops.update import apply_update, reseed_empty_farthest
 
 CPU = "cpu"
@@ -283,10 +283,11 @@ def test_kernel_plan_and_backend_resolution():
     assert resolve_backend("auto", x, 3, device="cuda") == "cuda"
     with pytest.raises(ValueError, match="do not take"):
         resolve_backend("cuda", torch.zeros(10, 4), 3)
-    # Where the plan refuses data on the card, "auto" is the plain route
-    # (the reference's XLA fallback) and "cuda" raises.
+    # Where the weights veto refuses data on the card, "auto" is the plain
+    # route (the reference's XLA fallback) and "cuda" raises.
     frac_kw = dict(weights=np.full(10, 0.5), compute_dtype="bfloat16",
                    device="cuda")
+    assert frac.why == WEIGHTS_VETO
     assert resolve_backend("auto", x, 3, **frac_kw) == "plain"
     with pytest.raises(ValueError, match="do not take"):
         resolve_backend("cuda", x, 3, **frac_kw)
@@ -297,21 +298,22 @@ def test_kernel_plan_and_backend_resolution():
 @pytest.mark.parametrize("kind", ["classic", "delta", "hamerly", "yinyang",
                                   "accumulate"])
 @pytest.mark.parametrize("refusal", ["dtype", "shape"])
-def test_auto_backend_takes_the_plain_route_where_the_plan_refuses(
+def test_auto_backend_raises_where_the_card_cannot_take_the_input(
         kind, refusal):
     """The plan's other refusals on the card: a dtype the kernels do not
-    take (float16) and a shape out of range (n = 0).  "auto" resolves to
-    the plain route, as the reference's "auto" resolves to XLA; "cuda"
-    raises, and the plan says why."""
+    take (float16) and a shape out of range (n = 0).  They are what the
+    card can run, not the reference's numerics policy, so "auto" raises
+    there as "cuda" does, and the plan says why; it never gives way to the
+    plain versions on the card for them."""
     x = (np.zeros((10, 4), np.float16) if refusal == "dtype"
          else np.zeros((0, 4), np.float32))
     plan = device_plan(kind, x, 3, device="cuda")
     assert plan.mode == "refuse"
     assert ("float32 or bfloat16" if refusal == "dtype" else
             "out of range") in plan.why
-    assert resolve_backend("auto", x, 3, device="cuda", kind=kind) == "plain"
-    with pytest.raises(ValueError, match="do not take"):
-        resolve_backend("cuda", x, 3, device="cuda", kind=kind)
+    for backend in ("auto", "cuda"):
+        with pytest.raises(ValueError, match="do not take"):
+            resolve_backend(backend, x, 3, device="cuda", kind=kind)
 
 
 @pytest.mark.parametrize("update", ["auto", "matmul", "segment", "delta",
