@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 from the root of a checkout.  It builds the port's CUDA kernels from
-``kmeans_tpu_torch/csrc/lloyd.cu`` and runs seven phases, exiting non-zero
+``kmeans_tpu_torch/csrc/lloyd.cu`` and runs eight phases, exiting non-zero
 if any fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -67,7 +67,22 @@ if any fails:
    ordinary calls) on seeded inputs at the full width: the single fold at
    k = 1000 and at k = 65536, and the dual fold at k = 65536 with 2% of
    the rows changed;
-8. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
+8. serving, run after phase 6: the assignment engine
+   (``kmeans_tpu_torch.serve.assign.AssignEngine``) on the card serves
+   phase 4's delta-fit centroids (imagenet-serve, k = 1000: the default
+   closure-pruned route, then the dense route on K5) and phase 6's
+   (codebook-serve, k = 65536: the default int8 quant route, then the
+   dense route), each run SERVE_SECONDS of SERVE_CLIENTS closed-loop
+   clients (64 and 512 points a request, query rows the centroids plus
+   unit noise) with a permuted generation published half-way and the
+   launch counts set to 0 before and read after; every response is held
+   against K5's labels of its own generation (a differing label must be a
+   tie within SCORE_RTOL), the routes against each other, no request may
+   fail and the batcher must coalesce; then K5 in f32 at the serving
+   batch shapes against its plain version, its bound and ``torch.mm`` +
+   ``argmin`` with TF32 off;
+9. a ``{"kernels": [...]}`` line (K5's launches include serving's) and,
+   last, the ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --fold-split`` runs phases 1 and 7 only (the
 kernels build at their first call), so it also splits an older tree's K6.
@@ -1051,7 +1066,7 @@ def phase_headline():
     print(f"kmeans_plus_plus at the headline shape: "
           f"{time.perf_counter() - t0:.3f} s")
     _check(bool(torch.isfinite(seeds).all()), "k-means++ seeds not finite")
-    return kernels, launches
+    return kernels, launches, state.centroids.float().cpu().numpy()
 
 
 def _clock_under(fn, seconds=3.0):
@@ -1791,7 +1806,7 @@ def phase_codebook(headline_launches):
           f"{k2_ms:.3f} ms; tiled K5 raw {k5_ms:.3f} + K6 dual "
           f"{dual_ms:.3f} = {k5_ms + dual_ms:.3f} ms")
     print(f"codebook phase: {time.perf_counter() - t_phase:.1f} s")
-    return rows, launches
+    return rows, launches, c.float().cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -1901,6 +1916,358 @@ def phase_fold_split():
             print(f"  {name}: {launches:g} a call, {ms:.3f} ms a call")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: serving the fitted models through the assignment engine
+# ---------------------------------------------------------------------------
+
+#: Closed-loop client threads and seconds of load a run (tools/loadgen.py
+#: --bench's shape); the new generation is published half-way.
+SERVE_CLIENTS = 48
+SERVE_SECONDS = 3.0
+#: Query rows each model's requests draw slices from, made once a model
+#: (its centroids plus unit noise) and labelled by K5 per generation.
+SERVE_POOL = 16384
+#: The longest a run waits past SERVE_SECONDS for a response from the new
+#: generation (its prepared model is built on the dispatcher, as in the
+#: reference: at k = 65536 tens of seconds).
+SERVE_SWAP_WAIT_S = 240.0
+
+
+def _serve_load(eng, registry, pool, points, new_centroids):
+    """SERVE_CLIENTS closed-loop clients submitting ``points``-row slices
+    of ``pool`` for SERVE_SECONDS, the registry publishing
+    ``new_centroids`` as generation 2 half-way; the load runs on until a
+    response from generation 2 arrives.  Returns ``(responses, errors,
+    seconds, publish_s, publish_to_first_s)``; a response is ``(first row,
+    labels, generation, latency s, completion s)``, times from the start
+    of the load."""
+    import threading
+
+    rows = pool.shape[0]
+    slots = rows // points
+    responses, errors = [], []
+    lock = threading.Lock()
+    stop = threading.Event()
+    counter = iter(range(10 ** 12))
+    first_new = []
+
+    def client():
+        while not stop.is_set():
+            with lock:
+                i = next(counter)
+            lo = (i % slots) * points
+            t0 = time.perf_counter()
+            try:
+                labels, gen = eng.submit(pool[lo:lo + points])
+            except Exception as e:      # a dropped request fails the run
+                with lock:
+                    errors.append(repr(e))
+                continue
+            t1 = time.perf_counter()
+            with lock:
+                responses.append((lo, labels, gen.generation, t1 - t0,
+                                  t1 - t_start))
+                if gen.generation == 2 and not first_new:
+                    first_new.append(t1)
+
+    threads = [threading.Thread(target=client, daemon=True)
+               for _ in range(SERVE_CLIENTS)]
+    t_start = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(SERVE_SECONDS / 2)
+    t_pub = time.perf_counter()
+    registry.publish(new_centroids, generation=2)
+    deadline = t_pub + SERVE_SWAP_WAIT_S
+    while (time.perf_counter() < t_start + SERVE_SECONDS or not first_new) \
+            and time.perf_counter() < deadline and not errors:
+        time.sleep(0.01)
+    stop.set()
+    for t in threads:
+        t.join(timeout=60.0)
+    seconds = time.perf_counter() - t_start
+    _check(not any(t.is_alive() for t in threads), "a serving client hung")
+    return (responses, errors, seconds, t_pub - t_start,
+            (first_new[0] - t_pub) if first_new else None)
+
+
+def _percentiles(seconds):
+    """(p50, p99, max) in ms of a list of latencies in seconds."""
+    lat = sorted(seconds) or [float("nan")]
+    return (1e3 * lat[len(lat) // 2],
+            1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            1e3 * lat[-1])
+
+
+def _pool_labels(pool_t, centroids, k_tile):
+    """K5's labels (f32, raw scores) of every pool row against
+    ``centroids``: what every response of that generation must equal."""
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    c = centroids.cuda()
+    return K.tiled_argmin_cuda(pool_t, (c * -2).contiguous(),
+                               (c * c).sum(dim=1).contiguous(),
+                               k_tile=k_tile, raw_scores=True)[0]
+
+
+def _serve_run(name, route, card, centroids, pool, points, perm, cfg_kw):
+    """One engine run of phase 8: the prepared model's build timed, then
+    the load with its counts set to 0 before and read after, each response
+    held against K5's labels of its own generation."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from kmeans_tpu_torch.config import ServeConfig
+    from kmeans_tpu_torch.continuous.registry import ModelRegistry
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.serve.assign import AssignEngine
+
+    registry = ModelRegistry()
+    gen1 = registry.publish(centroids, generation=1)
+    cfg = dataclasses.replace(ServeConfig(), **cfg_kw)
+    eng = AssignEngine(registry.current, cfg)
+    try:
+        t0 = time.perf_counter()
+        prep = eng._prepared(gen1)
+        t_tables = time.perf_counter() - t0
+        qmode = eng._quant_mode(prep, points)
+        kind = "quant" if qmode else "pruned" if prep.pruned else "dense"
+        t0 = time.perf_counter()
+        if qmode:
+            prep.quant_tier(qmode)
+        t_tier = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng.submit(pool[:points])
+        t_first = time.perf_counter() - t0
+        print(f"serve {name} {route} ({card}): prepared model "
+              f"{t_tables:.3f} s (closure tables: {prep.pruned}, G={prep.g_n}"
+              f", m={prep.m}), {qmode or 'no'} quant tier {t_tier:.3f} s, "
+              f"first request (device tensors, first batch) {t_first:.3f} s")
+        _check(kind == route.split()[0],
+               f"serve {name}: the engine took the {kind} route, not {route}")
+        K.reset_launch_counts()
+        before = eng.stats()
+        responses, errors, seconds, pub_s, swap_s = _serve_load(
+            eng, registry, pool, points, centroids[perm])
+        counts = K.launch_counts()
+        after = eng.stats()
+    finally:
+        eng.stop()
+    st = {key: after[key] - before[key] for key in (
+        "batches", "requests", "rows", "fallback_rows", "quant_batches",
+        "quant_rescore_rows")}
+    gens = {r[2] for r in responses}
+    n_req, n_pts = len(responses), len(responses) * points
+    p50, p99, top = _percentiles([r[3] for r in responses])
+    early = [r[3] for r in responses if r[4] <= pub_s]
+    e50, e99, _ = _percentiles(early)
+    print(f"serve {name} {route} ({card}): {n_req} requests in "
+          f"{seconds:.3f} s = {n_req / seconds:.1f} QPS, "
+          f"{n_pts / seconds:.0f} points/s; p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms, max {top:.3f} ms; before the publish "
+          f"({pub_s:.3f} s): {len(early)} requests = "
+          f"{len(early) / pub_s:.1f} QPS, {len(early) * points / pub_s:.0f} "
+          f"points/s, p50 {e50:.3f} ms, p99 {e99:.3f} ms; {st['batches']} "
+          f"batches, mean {st['rows'] / max(st['batches'], 1):.1f} rows; "
+          f"fallback rows {st['fallback_rows']}, quant batches "
+          f"{st['quant_batches']}, quant rescore rows "
+          f"{st['quant_rescore_rows']}; publish to first generation-2 "
+          f"response {swap_s if swap_s is None else round(swap_s, 3)} s; "
+          f"launches {counts}")
+    _check(not errors, f"serve {name} {route}: {len(errors)} requests "
+           f"failed, first {errors[:1]}")
+    _check(st["requests"] == n_req and gens == {1, 2},
+           f"serve {name} {route}: responses {n_req} vs engine requests "
+           f"{st['requests']}, generations {sorted(gens)}")
+    _check(st["batches"] < st["requests"],
+           f"serve {name} {route}: the batcher did not coalesce")
+    want_k5 = st["batches"] if kind == "dense" else 0
+    _check(counts["tiled_argmin_cuda"] == want_k5
+           and sum(counts.values()) == want_k5,
+           f"serve {name} {route}: launches {counts}, K5 expected "
+           f"{want_k5} (one a dense batch)")
+    return responses, counts, prep
+
+
+def _check_responses(name, route, responses, pool_t, labels, gen_c, points):
+    """Every response against K5's labels of its own generation; a label
+    that differs must be a near-tie within SCORE_RTOL.  Returns the
+    per-generation labels of every answered pool row (-1 unanswered)."""
+    import numpy as np
+    import torch
+
+    answered = {g: np.full(pool_t.shape[0], -1, np.int64) for g in labels}
+    moved = 0
+    for lo, got, g, *_ in responses:
+        answered[g][lo:lo + points] = got
+    for g, lab in answered.items():
+        seen = lab >= 0
+        want = labels[g].cpu().numpy()
+        diff = np.flatnonzero(seen & (lab != want))
+        moved += diff.size
+        if diff.size:
+            rows = torch.from_numpy(diff).cuda()
+            _check_labels_rows(
+                f"serve {name} {route} generation {g}", pool_t[rows],
+                gen_c[g].cuda(), torch.float32,
+                torch.from_numpy(lab[diff]).cuda(), labels[g][rows])
+    print(f"serve {name} {route}: {len(responses)} responses checked "
+          f"against K5 of their own generation, {moved} rows differ (each "
+          "a tie within the tolerance)")
+    return answered
+
+
+def _route_scan_ms(name, route, card, prep, x):
+    """The device scan of a pruned or quant run at a serving batch of
+    ``x``'s rows, on the run's first generation: CUDA-event ms and its f32
+    product's rate."""
+    from kmeans_tpu_torch.ops.hamerly import closure_assign_device
+    from kmeans_tpu_torch.quant import quant_assign_device
+    from kmeans_tpu_torch.serve.assign import pruned_m_tile
+
+    rows, d = x.shape
+    if route == "pruned":
+        m_tile = pruned_m_tile(rows, d, prep.m)
+        ms, _ = _time_auto(lambda: closure_assign_device(
+            x, *prep.pruned_dev(), m_tile=m_tile, margin_rel=1e-3))
+        ops, what = 2.0 * rows * (prep.g_n + prep.m) * d, (
+            f"closure_assign_device (G={prep.g_n}, m={prep.m}, "
+            f"m_tile={m_tile})")
+    elif route == "quant":
+        tier = prep.quant_tier("int8")
+        ms, _ = _time_auto(lambda: quant_assign_device(
+            x, *tier.device(x.device), "int8", k_tile=tier.k_tile))
+        ops, what = 2.0 * rows * prep.k * d, (
+            f"quant_assign_device (int8, k_tile={tier.k_tile})")
+    else:
+        return
+    print(f"serve {name} {route} scan ({card}): {what} at n={rows}: "
+          f"{ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s of f32 product)")
+
+
+def _k5_serving(name, card, pool_t, centroids, rows, k_tile):
+    """K5 in f32 (``score_block``) at a serving batch shape against its
+    plain version, the f32 bound and ``torch.mm`` + ``argmin`` with TF32
+    off; returns its ms."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.ops.distance import full_f32
+
+    x = pool_t[:rows].contiguous()
+    c = centroids.cuda()
+    k, d = c.shape
+    neg2c, csq = (c * -2).contiguous(), (c * c).sum(dim=1).contiguous()
+    _check(K.scoring_core(x, torch.float32, neg2c) == "score_block",
+           "K5 in f32 did not take score_block")
+    ms, (lab, raw) = _time_auto(lambda: K.tiled_argmin_cuda(
+        x, neg2c, csq, k_tile=k_tile, raw_scores=True))
+    plain_ms, (plab, praw) = _time_auto(lambda: K.tiled_argmin_plain(
+        x, neg2c, csq, k_tile=k_tile, raw_scores=True))
+    moved = _check_labels_rows(f"K5 f32 {name}", x, c, torch.float32, lab,
+                               plab)
+    same = lab == plab
+    err = _within(f"K5 f32 {name} raw scores", raw[same], praw[same],
+                  _row_scale(x, c, torch.float32, lab)[same])
+
+    def library():
+        with full_f32():
+            return torch.mm(x, neg2c.T).add_(csq).argmin(dim=1)
+
+    lib_ms, _ = _time_auto(library)
+    narrow = ""
+    if k_tile > 128:
+        narrow_ms, out = _time_auto(lambda: K.tiled_argmin_cuda(
+            x, neg2c, csq, k_tile=128, raw_scores=True))
+        _check(bool(torch.equal(out[0], lab) and torch.equal(out[1], raw)),
+               f"K5 f32 {name}: k_tile=128 differs from k_tile={k_tile}")
+        narrow = f"; at k_tile=128 {narrow_ms:.3f} ms, bit for bit equal"
+    ops = 2.0 * rows * k * d
+    bound, by = _bound_ms(rows * d * 4 + k * d * 4 + k * 4 + rows * 8, 0.0,
+                          ops)
+    print(f"K5 f32 {name} serving batch ({card}): n={rows} d={d} k={k} "
+          f"k_tile={k_tile}: {ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s; "
+          f"bound {bound:.3f} ms by {by}), plain {plain_ms:.3f} ms, "
+          f"torch.mm+argmin (TF32 off) {lib_ms:.3f} ms; {moved} labels "
+          f"differ from the plain version (ties), max abs err {err:.3e}"
+          f"{narrow}")
+    return ms
+
+
+def _serve_models(imagenet_c, codebook_c):
+    """Phase 8's models: ``(name, centroids, points a request, [(route,
+    ServeConfig fields)], seed)``.  The codebook model's requests carry
+    512 points, so coalesced batches clear ``assign_quant_min_rows``; its
+    quant run waits up to 300 s a request, because the new generation's
+    prepared model is built on the dispatcher mid-load."""
+    dense = ("dense", {"assign_prune_min_k": 0})
+    return [("imagenet-serve", imagenet_c, 64, [("pruned", {}), dense], 21),
+            ("codebook-serve", codebook_c, 512,
+             [("quant", {"assign_timeout_s": 300.0}), dense], 22)]
+
+
+def phase_serve(card, models):
+    """The assignment engine on the card, serving the two fitted models:
+    imagenet-serve (the headline delta fit's centroids, k = 1000: the
+    default pruned route, then the dense route on K5) and codebook-serve
+    (the codebook fit's, k = 65536: the default int8 quant route, then the
+    dense route).  Returns K5's launches in the runs."""
+    import numpy as np
+    import torch
+
+    from kmeans_tpu_torch.serve.assign import dense_k_tile
+
+    total = {}
+    t_phase = time.perf_counter()
+    for name, centroids, points, routes, seed in models:
+        k, d = centroids.shape
+        rng = np.random.default_rng(seed)
+        pool = centroids[rng.integers(0, k, size=SERVE_POOL)]
+        pool += rng.standard_normal(pool.shape, dtype=np.float32)
+        perm = rng.permutation(k)
+        gen_c = {1: torch.from_numpy(centroids),
+                 2: torch.from_numpy(centroids[perm])}
+        pool_t = torch.from_numpy(pool).cuda()
+        k_tile = dense_k_tile(k, d)
+        labels = {g: _pool_labels(pool_t, c, k_tile)
+                  for g, c in gen_c.items()}
+        _sync()
+        answered = {}
+        batch = min(SERVE_CLIENTS * points, 8192)
+        for route, cfg_kw in routes:
+            responses, counts, prep = _serve_run(
+                name, route, card, centroids, pool, points, perm, cfg_kw)
+            _add_counts(total, counts)
+            _route_scan_ms(name, route, card, prep, pool_t[:batch])
+            del prep
+            answered[route] = _check_responses(name, route, responses,
+                                               pool_t, labels, gen_c,
+                                               points)
+        first, *rest = answered
+        for route in rest:
+            moved = seen = 0
+            for g in (1, 2):
+                a, b = answered[first][g], answered[route][g]
+                both = (a >= 0) & (b >= 0)
+                seen += int(both.sum())
+                diff = torch.from_numpy(np.flatnonzero(both & (a != b)))
+                moved += _check_labels_rows(
+                    f"serve {name} {first} vs {route} generation {g}",
+                    pool_t[diff.cuda()], gen_c[g].cuda(), torch.float32,
+                    torch.from_numpy(a[diff.numpy()]).cuda(),
+                    torch.from_numpy(b[diff.numpy()]).cuda())
+            print(f"serve {name}: the {first} and {route} routes label "
+                  f"{moved} of the {seen} rows both answered differently "
+                  f"(each a tie within {SCORE_RTOL})")
+        _k5_serving(name, card, pool_t, gen_c[1], batch, k_tile)
+        del pool_t, labels
+    print(f"serving phase: {time.perf_counter() - t_phase:.1f} s; serving "
+          f"launches {total}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1908,18 +2275,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    phase_device()
+    card = phase_device()
     if sys.argv[1:] == ["--fold-split"]:
         phase_fold_split()
         return 0
     phase_build()
     phase_kernels()
-    kernels, headline_launches = phase_headline()
+    kernels, headline_launches, imagenet_c = phase_headline()
     phase_whole_fit()
-    tiled, codebook_launches = phase_codebook(headline_launches)
+    tiled, codebook_launches, codebook_c = phase_codebook(headline_launches)
     for row in kernels:
         row["launches"] += codebook_launches.get(row["name"], 0)
     kernels += tiled
+    serve_launches = phase_serve(card, _serve_models(imagenet_c, codebook_c))
+    for row in kernels:
+        row["launches"] += serve_launches.get(row["name"], 0)
     phase_fold_split()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -8,6 +8,10 @@ on the card, the plain PyTorch versions for one on the CPU), ``"cuda"`` and
 ``"plain"``.  Fields that no ported module reads yet (``comm``, the
 accelerated and minibatch engines' knobs) are kept so that a configuration
 carries over unchanged.
+
+:class:`ServeConfig` holds the reference's ``assign_*`` fields, the ones the
+assignment engine (:mod:`kmeans_tpu_torch.serve.assign`) reads, with the
+same defaults; the HTTP, room and fleet fields wait for the server.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-__all__ = ["KMeansConfig"]
+__all__ = ["KMeansConfig", "ServeConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,3 +154,54 @@ class KMeansConfig:
         if self.steps < 1:
             raise ValueError("steps must be positive")
         return self
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """The assignment engine's knobs (``kmeans_tpu/config.py``'s
+    ``ServeConfig``, its ``assign_*`` fields only)."""
+
+    #: Per-request row cap (a request asking for an unbounded distance
+    #: computation is refused at the wire; the batcher re-coalesces split
+    #: requests anyway).
+    assign_max_points: int = 4096
+    #: Adaptive micro-batching; off is the plain per-request NumPy path
+    #: (:func:`kmeans_tpu_torch.serve.assign.assign_direct`).
+    assign_batching: bool = True
+    #: Upper bound on how long the batcher holds the oldest queued request
+    #: open to coalesce arrivals behind it.  The adaptive policy usually
+    #: dispatches far sooner: it stops waiting as soon as the observed
+    #: arrival gap says nothing more is coming.
+    assign_max_delay_s: float = 0.002
+    #: Row cap on one coalesced batch.
+    assign_max_batch_rows: int = 8192
+    #: Floor of the power-of-two ladder ``stats()["batch_rows_pow2"]``
+    #: summarises batch sizes on (the port pads no batch to it).
+    assign_min_bucket: int = 64
+    #: Pending-request cap on the batcher queue; beyond it a request is
+    #: refused (``QueueFullError``) instead of queueing without bound.
+    assign_pending_limit: int = 512
+    #: Seconds a request waits for its batch before ``AssignTimeoutError``.
+    assign_timeout_s: float = 30.0
+    #: Closure-pruned scoring (candidate lists from
+    #: :func:`kmeans_tpu_torch.ops.hamerly.closure_candidates`) when the
+    #: served model's k is at least this; 0 disables pruning.  Exact: rows
+    #: whose triangle-inequality certificate fails are scored densely.
+    assign_prune_min_k: int = 256
+    #: Dispatcher threads draining the queue, each coalescing its own batch.
+    assign_workers: int = 1
+    #: Threads of the host pruned route's grouped GEMM within one batch.
+    assign_kernel_threads: int = 1
+    #: Route of the pruned stage: ``host`` (grouped NumPy GEMM), ``device``
+    #: (:func:`kmeans_tpu_torch.ops.hamerly.closure_assign_device` on the
+    #: engine's device), ``quant`` (the int8 tier), or ``auto`` (``device``
+    #: when the engine's device is a CUDA card, ``host`` on the CPU).
+    assign_pruned_backend: str = "auto"
+    #: Compressed-codebook tier: ``int8`` / ``bf16`` force it, ``off``
+    #: leaves it to policy (``assign_pruned_backend="quant"`` or an f32
+    #: codebook of 256 MiB and more engage int8).  Exact by its error
+    #: bounds; engages only for pruned-prepared models.
+    assign_quant: str = "off"
+    #: Batches with fewer rows than this skip the quant tier for the f32
+    #: pruned route (same labels; both are exact).
+    assign_quant_min_rows: int = 512

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -103,12 +104,22 @@ def build() -> dict:
             "ptxas": proc.stderr}
 
 
+_LOCK = threading.Lock()
+
+
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()["path"]))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use.  Threads that make
+    the first call together (the engine's dispatchers) wait for one build
+    and one load."""
+    with _LOCK:
+        return _load()

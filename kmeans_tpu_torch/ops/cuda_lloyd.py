@@ -50,6 +50,7 @@ bit for bit.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -93,19 +94,32 @@ _ERRORS = {-1: "no kernel for this dtype pair",
            -4: "cuTensorMapEncodeTiled refused an operand"}
 
 
+#: Guards the launch counts: the engine's dispatcher threads launch
+#: concurrently.
+_COUNT_LOCK = threading.Lock()
+
+
 def _counted(fn):
     fn.launches = 0
     return fn
 
 
+def _count(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def launch_counts() -> dict:
     """``{wrapper name: launches}`` since the last reset."""
-    return {f.__name__: f.launches for f in _WRAPPERS}
+    with _COUNT_LOCK:
+        return {f.__name__: f.launches for f in _WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    for f in _WRAPPERS:
-        f.launches = 0
+    with _COUNT_LOCK:
+        for f in _WRAPPERS:
+            f.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +288,7 @@ def _launch(wrapper, entry: str, x: torch.Tensor, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__}: kernel launch failed: "
                            f"{_ERRORS.get(err, f'CUDA error {err}')}")
-    wrapper.launches += 1
+    _count(wrapper)
 
 
 def _ptr(t: Optional[torch.Tensor]):

@@ -27,6 +27,11 @@ them).  Both give the values of the reference's XLA route at any ``cap``,
 so ``cap`` is taken for call compatibility only.  Where the planner tiles
 the shape, the sweep is the k-tiled pair instead, which like the reference's
 tiled route scores every row and forgoes the pruning.
+
+:func:`closure_candidates` and :func:`closure_assign_device` are the
+serving side of the same triangle-inequality discipline: candidate tables
+over the centroid set, and the pruned assignment the engine runs on its
+device (:mod:`kmeans_tpu_torch.serve.assign`).
 """
 
 from __future__ import annotations
@@ -41,12 +46,13 @@ from kmeans_tpu_torch.device import as_tensor, resolve_device
 from kmeans_tpu_torch.ops.cuda_lloyd import (_argmin_plain,
                                              lloyd_hamerly_cuda,
                                              lloyd_hamerly_plain)
-from kmeans_tpu_torch.ops.distance import resolve_cd, sq_norms
+from kmeans_tpu_torch.ops.distance import full_f32, resolve_cd, sq_norms
 from kmeans_tpu_torch.ops.lloyd import resolve_backend, sweep_route
 from kmeans_tpu_torch.ops.plan import KernelPlan, device_plan
 
 __all__ = ["hamerly_pass", "hamerly_bounds", "hamerly_kernel_plan",
            "resolve_hamerly_backend", "row_norms", "centroid_mini_kmeans",
+           "closure_candidates", "closure_assign_device",
            "HAMERLY_MARGIN_REL"]
 
 #: Relative soundness margin over the f32 dot-accumulation error bound
@@ -123,6 +129,95 @@ def centroid_mini_kmeans(centroids, n_groups: int, *, seed: int = 0,
     musq = np.einsum("gd,gd->g", mu, mu)
     lab = (csq[:, None] - 2.0 * (c @ mu.T) + musq[None, :]).argmin(axis=1)
     return mu.astype(np.float32), lab.astype(np.int32)
+
+
+def closure_candidates(centroids, *, n_groups: Optional[int] = None,
+                       cand_len: Optional[int] = None, seed: int = 0,
+                       iters: int = 8):
+    """Cluster-closure candidate tables for the engine's pruned route (the
+    reference's, copied: pure NumPy, the same tables bit for bit).
+
+    Groups the centroids with :func:`centroid_mini_kmeans`, then records
+    for each group the ``cand_len`` centroids nearest its center and a
+    threshold: the distance from the center to the nearest centroid left
+    out.  A point ``x`` whose nearest group center is ``g`` (at distance
+    ``Dg``) scores only the candidates; with best candidate distance ``b``,
+    every excluded centroid ``c`` has ``||x−c|| ≥ thr_g − Dg``, so
+    ``b ≤ thr_g − Dg`` certifies the pruned argmin.
+
+    Returns ``(group_centers (G, d) f32, cand_idx (G, m) int32,
+    thresholds (G,) f32)``; a threshold is ``+inf`` where the candidates
+    cover all k centroids.  Defaults: G = round(√k), m = 3 average groups'
+    worth of centroids (at least 16)."""
+    c = np.asarray(centroids, np.float32)
+    if c.ndim != 2:
+        raise ValueError(f"centroids must be (k, d); got {c.shape}")
+    k, d = c.shape
+    g_n = int(n_groups) if n_groups else max(1, int(round(k ** 0.5)))
+    g_n = min(g_n, k)
+    m = int(cand_len) if cand_len else min(k, max(16, 3 * -(-k // g_n)))
+    m = max(1, min(m, k))
+    mu, _ = centroid_mini_kmeans(c, g_n, seed=seed, iters=iters)
+    csq = np.einsum("kd,kd->k", c, c)
+    musq = np.einsum("gd,gd->g", mu, mu)
+    # (G, k) distances group center -> centroid, clamped so a threshold
+    # cannot go negative.
+    d2 = np.maximum(musq[:, None] - 2.0 * (mu @ c.T) + csq[None, :], 0.0)
+    order = np.argsort(d2, axis=1, kind="stable")
+    cand = order[:, :m].astype(np.int32)
+    if m < k:
+        thr = np.sqrt(np.take_along_axis(d2, order[:, m:m + 1], axis=1)
+                      )[:, 0].astype(np.float32)
+    else:
+        thr = np.full((g_n,), np.inf, np.float32)
+    return mu.astype(np.float32), cand, thr
+
+
+def closure_assign_device(x, gc, gsq, cand, csq_cand, thr, c, *,
+                          m_tile: int, margin_rel: float = HAMERLY_MARGIN_REL):
+    """Closure-pruned assignment on the tensors' device (the reference's
+    XLA formulation, in PyTorch).
+
+    Routes each row to its nearest of G group centers (``gsq − 2·x·gcᵀ``,
+    lowest index on a tie), gathers its group's ``m`` candidates in
+    ``m_tile``-wide chunks, and merges the chunks with strict ``<``, so the
+    winning position is the first minimum over the candidate list, as the
+    host route's ``argmin``.  Then the triangle-inequality certificate,
+    in the reference's f32 order: with ``b`` the best candidate distance
+    and ``dg`` the group-center distance, a row is exact when
+    ``b + margin·(b + dg + 1) <= thr[g] − dg``; rows that fail are rescored
+    densely by the caller.
+
+    ``x`` (B, d) f32, ``gc`` (G, d), ``gsq`` (G,), ``cand`` (G, m) int,
+    ``csq_cand`` (G, m), ``thr`` (G,), ``c`` (k, d): tensors on one device.
+    Returns ``(labels int32 (B,), ok bool (B,))``.
+    """
+    n_b = x.shape[0]
+    m = cand.shape[1]
+    mt = max(1, min(int(m_tile), m))
+    with full_f32():
+        sg = gsq[None, :] - 2.0 * (x @ gc.T)
+        g = sg.argmin(dim=1)
+        sg_best = sg.gather(1, g[:, None])[:, 0]
+        cand_g = cand[g].long()                                # (B, m)
+        csq_g = csq_cand[g]                                    # (B, m)
+        best = torch.full((n_b,), torch.inf, device=x.device)
+        pos = torch.zeros(n_b, dtype=torch.int64, device=x.device)
+        for off in range(0, m, mt):
+            idx = cand_g[:, off:off + mt]
+            prod = torch.bmm(c[idx], x[:, :, None])[:, :, 0]  # (B, mt)
+            part = csq_g[:, off:off + mt] - 2.0 * prod
+            t_pos = part.argmin(dim=1, keepdim=True)
+            t_min = part.gather(1, t_pos)[:, 0]
+            take = t_min < best       # strict: ties keep the earlier slot
+            best = torch.where(take, t_min, best)
+            pos = torch.where(take, t_pos[:, 0] + off, pos)
+        labels = cand_g.gather(1, pos[:, None])[:, 0]
+        xsq = (x * x).sum(dim=1)
+    dg = _sqrt((xsq + sg_best).clamp_min(0.0))
+    b = _sqrt((xsq + best).clamp_min(0.0))
+    ok = b + margin_rel * (b + dg + 1.0) <= thr[g] - dg
+    return labels.to(torch.int32), ok
 
 
 def hamerly_kernel_plan(x, k: int, *, weights=None, weights_are_binary=False,

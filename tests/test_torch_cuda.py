@@ -481,3 +481,75 @@ def test_fold_core_gives_one_set_of_bits(card, n, d, k, x_dtype, cd,
                             raw_scores=True)[1]
     sq = x.float().pow(2).sum(1)
     assert bool(((k1[1] - (raw + sq).clamp_min(0)).abs() <= 1e-5 * sq).all())
+
+
+def _serve_problem(seed, k, d, n):
+    """Centroids in meta-clusters and queries near their own centroid (tie
+    free), plus far rows whose certificates fail."""
+    rng = np.random.default_rng(seed)
+    g = max(2, int(round(k ** 0.5)))
+    meta = rng.normal(size=(g, d)) * 10
+    c = meta[rng.integers(0, g, size=k)] + rng.normal(size=(k, d))
+    x = c[rng.integers(0, k, size=n)] + 0.1 * rng.normal(size=(n, d))
+    x[: n // 10] = rng.normal(size=(n // 10, d)) * 30
+    return c.astype(np.float32), x.astype(np.float32)
+
+
+SERVE_ROUTES = {
+    "dense": dict(assign_prune_min_k=0),
+    "pruned": {},
+    "quant int8": dict(assign_quant="int8", assign_quant_min_rows=1),
+    "quant bf16": dict(assign_quant="bf16", assign_quant_min_rows=1),
+}
+
+
+@pytest.mark.parametrize("route", sorted(SERVE_ROUTES))
+def test_engine_routes_on_the_card_match_the_cpu_engine(card, route):
+    """The engine on the card (``auto``: the device routes) against the
+    engine on the CPU: equal labels on tie-free data.  The dense route
+    launches K5 once a batch and nothing else."""
+    import dataclasses
+
+    from kmeans_tpu_torch.config import ServeConfig
+    from kmeans_tpu_torch.continuous.registry import Generation
+    from kmeans_tpu_torch.serve.assign import AssignEngine
+
+    c, x = _serve_problem(5, 1000, 200, 3000)
+    gen = Generation(c, 1)
+    cfg = dataclasses.replace(ServeConfig(), **SERVE_ROUTES[route])
+    engines = [AssignEngine(lambda: gen, cfg), AssignEngine(
+        lambda: gen, cfg, device="cpu")]
+    try:
+        assert engines[0]._pruned_route() == "device"
+        K.reset_launch_counts()
+        got = [e.submit(x[s:s + 700])[0] for e in engines
+               for s in range(0, 3000, 700)]
+        counts = K.launch_counts()
+    finally:
+        for e in engines:
+            e.stop()
+    np.testing.assert_array_equal(np.concatenate(got[:5]),
+                                  np.concatenate(got[5:]))
+    want_k5 = 5 if route == "dense" else 0
+    assert counts == {**{name: 0 for name in counts},
+                      "tiled_argmin_cuda": want_k5}
+
+
+def test_engine_dense_route_fails_the_batch_where_k5_refuses(card,
+                                                             monkeypatch):
+    """A refused launch fails the batch's requests; nothing gives way to
+    the plain version on the card."""
+    from kmeans_tpu_torch.config import ServeConfig
+    from kmeans_tpu_torch.continuous.registry import Generation
+    from kmeans_tpu_torch.serve import assign as A
+
+    monkeypatch.setattr(A, "dense_k_tile", lambda k, d: 100)
+    gen = Generation(np.eye(4, dtype=np.float32), 1)
+    eng = A.AssignEngine(lambda: gen, ServeConfig(assign_prune_min_k=0))
+    K.reset_launch_counts()
+    try:
+        with pytest.raises(ValueError, match="multiple of 128"):
+            eng.submit(np.ones((3, 4), np.float32))
+    finally:
+        eng.stop()
+    assert K.launch_counts()["tiled_argmin_cuda"] == 0
