@@ -27,13 +27,6 @@ Two layers, as in the reference:
   compute dtype, a device that is not a CUDA card, dtypes the kernels do not
   take, shapes out of range.
 
-With ``quant`` (``"int8"`` | ``"bf16"``) a caller holding a compressed
-scoring codebook (:mod:`kmeans_tpu_torch.quant`) gets the reference's extra
-rung: the codebook priced at its payload's itemsize plus its f32 sideband
-(scale, error bound and norm a centroid), ``"quantized"`` where the whole
-compressed codebook fits although the f32 one does not, and on the tiled
-fallback a correspondingly wider slice.
-
 ``padded_d`` has no counterpart: the kernels mask a ragged d, so d is never
 padded.  With no card the budget is the H100's (50 MiB of L2, 227 KB of
 shared memory a block): metadata callers and the CPU tests plan as on the
@@ -50,7 +43,6 @@ import torch
 
 from kmeans_tpu_torch.device import as_dtype
 from kmeans_tpu_torch.ops.distance import resolve_cd
-from kmeans_tpu_torch.quant.codebook import QUANT_MODES
 
 __all__ = ["KernelPlan", "Budget", "card_budget", "l2_breakdown",
            "max_k_tile", "kernel_plan", "device_plan", "shape_plan",
@@ -88,10 +80,8 @@ WEIGHTS_VETO = "fractional weights in a non-f32 compute dtype"
 
 class KernelPlan(NamedTuple):
     """A dispatch decision: ``mode`` is ``"untiled"`` (K1–K4), ``"tiled"``
-    (K5 + K6 over ``k_tile``-wide centroid slices), ``"quantized"`` (only
-    with ``quant=``: the compressed codebook fits whole where the f32 one
-    does not) or ``"refuse"``; ``k_tile`` is set only when tiled; ``why``
-    says which rule decided."""
+    (K5 + K6 over ``k_tile``-wide centroid slices) or ``"refuse"``;
+    ``k_tile`` is set only when tiled; ``why`` says which rule decided."""
 
     mode: str
     k_tile: Optional[int]
@@ -158,40 +148,24 @@ def _check_kind(kind: str) -> None:
         raise ValueError(f"unknown kernel kind {kind!r}; have {KINDS}")
 
 
-def _check_quant(quant: Optional[str]) -> None:
-    if quant is not None and quant not in QUANT_MODES:
-        raise ValueError(f"unknown quant mode {quant!r}; "
-                         f"have {sorted(QUANT_MODES)}")
-
-
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
 def l2_breakdown(kind: str, d: int, k: int, *, cd_itemsize: int = 2,
                  k_tile: Optional[int] = None,
-                 groups: Optional[int] = None,
-                 quant: Optional[str] = None) -> dict:
+                 groups: Optional[int] = None) -> dict:
     """Named bytes that a sweep of ``kind`` keeps in L2: untiled, −2·C in
     the compute dtype, ``||c||²``, the f32 sums and counts (the labeled
     fold has only the sums and counts); with ``k_tile``, the one centroid
     slice the resident blocks share (the labeled fold's slice of sums).
     ``yinyang`` adds the centroid → group map and the per-group drift
-    vectors (t = ``groups``, default ⌈k/10⌉).  With ``quant`` the codebook
-    (or its slice) is the compressed payload at its itemsize, and its
-    sideband of three f32 vectors (scale, error bound, ``||ĉ||²``) takes
-    the place of ``||c||²``.  x is streamed, not held, so it is not
-    priced."""
+    vectors (t = ``groups``, default ⌈k/10⌉).  x is streamed, not held, so it
+    is not priced."""
     _check_kind(kind)
-    _check_quant(quant)
     cols = k if k_tile is None else min(k_tile, _round_up(k, LANE))
     if kind == "accumulate":
         terms = {"sums": cols * d * 4, "counts": cols * 4}
-    elif quant is not None:
-        terms = {"codebook_q": cols * d * QUANT_MODES[quant],
-                 "quant_sideband": 3 * cols * 4}
-        if k_tile is None:
-            terms.update(sums=k * d * 4, counts=k * 4)
     elif k_tile is None:
         terms = {"neg2c": k * d * cd_itemsize, "csq": k * 4,
                  "sums": k * d * 4, "counts": k * 4}
@@ -204,21 +178,19 @@ def l2_breakdown(kind: str, d: int, k: int, *, cd_itemsize: int = 2,
     return terms
 
 
-def _fits(kind, d, k, budget, *, cd_itemsize, k_tile=None, groups=None,
-          quant=None):
+def _fits(kind, d, k, budget, *, cd_itemsize, k_tile=None, groups=None):
     return sum(l2_breakdown(kind, d, k, cd_itemsize=cd_itemsize,
-                            k_tile=k_tile, groups=groups,
-                            quant=quant).values()) <= budget.l2_bytes
+                            k_tile=k_tile, groups=groups).values()
+               ) <= budget.l2_bytes
 
 
 def max_k_tile(kind: str, d: int, k: int, *, cd_itemsize: int = 2,
                groups: Optional[int] = None,
-               budget: Optional[Budget] = None,
-               quant: Optional[str] = None) -> Optional[int]:
+               budget: Optional[Budget] = None) -> Optional[int]:
     """The widest multiple of 128 (capped at k rounded up to 128) whose
     slice fits the budget, or None when one 128-column slice does not."""
     budget = budget or card_budget()
-    kw = dict(cd_itemsize=cd_itemsize, groups=groups, quant=quant)
+    kw = dict(cd_itemsize=cd_itemsize, groups=groups)
     if not _fits(kind, d, k, budget, k_tile=LANE, **kw):
         return None
     lo, hi = 1, _round_up(max(k, 1), LANE) // LANE
@@ -233,12 +205,10 @@ def max_k_tile(kind: str, d: int, k: int, *, cd_itemsize: int = 2,
 
 def kernel_plan(kind: str, d: int, k: int, *, x_itemsize: int = 2,
                 cd_itemsize: int = 2, groups: Optional[int] = None,
-                budget: Optional[Budget] = None,
-                quant: Optional[str] = None) -> KernelPlan:
+                budget: Optional[Budget] = None) -> KernelPlan:
     """The shape-level plan of one kernel kind (see the module docstring).
     ``budget`` defaults to :func:`card_budget`."""
     _check_kind(kind)
-    _check_quant(quant)
     budget = budget or card_budget()
     if x_itemsize not in (2, 4) or cd_itemsize not in (2, 4):
         return KernelPlan("refuse", None,
@@ -253,19 +223,14 @@ def kernel_plan(kind: str, d: int, k: int, *, x_itemsize: int = 2,
     if _fits(kind, d, k, budget, **kw):
         plan = KernelPlan("untiled", None,
                           f"{held} fit 3/4 of L2 ({mib:.1f} MiB)")
-    elif quant is not None and _fits(kind, d, k, budget, quant=quant, **kw):
-        plan = KernelPlan(
-            "quantized", None, f"{held} overflow 3/4 of L2 ({mib:.1f} MiB), "
-            f"the {quant} codebook fits")
     else:
-        kt = max_k_tile(kind, d, k, budget=budget, quant=quant, **kw)
+        kt = max_k_tile(kind, d, k, budget=budget, **kw)
         if kt is None:
             return KernelPlan("refuse", None,
                               f"one 128-column slice overflows {mib:.1f} MiB")
-        stream = f" {quant}" if quant is not None else ""
         plan = KernelPlan(
             "tiled", kt, f"{held} overflow 3/4 of L2 ({mib:.1f} MiB): "
-            f"{-(-k // kt)}{stream} slices of {kt} columns")
+            f"{-(-k // kt)} slices of {kt} columns")
     smem = kernel_smem_bytes(kind, d, x_itemsize=x_itemsize,
                              cd_itemsize=cd_itemsize)
     if smem > budget.smem_per_block:

@@ -27,8 +27,7 @@ import numpy as np
 __all__ = ["QUANT_MODES", "QuantizedCodebook", "quantize_codebook",
            "dequantize", "dequantize_matrix"]
 
-#: The codebook compression modes and their per-element payload bytes,
-#: which the planner prices (``ops/plan.py``, ``quant=``).
+#: The codebook compression modes and their per-element payload bytes.
 QUANT_MODES = {"int8": 1, "bf16": 2}
 
 #: int8 symmetric range: +-127 (not -128) keeps the scale symmetric so

@@ -23,8 +23,9 @@ point :meth:`AssignEngine.submit`:
   triangle-inequality certificate proves the result exact.  Quant: a
   k-tiled scan over an int8 or bf16 codebook whose error bounds make the
   prune provably complete (:mod:`kmeans_tpu_torch.quant`).  Rows that a
-  certificate cannot prove are rescored densely on the host, so every
-  route gives the dense route's labels.  The pruned and quant stages also
+  certificate cannot prove are rescored densely (K5 on the rows already on
+  the device; NumPy for a host route on the CPU), so every route gives
+  the dense route's labels.  The pruned and quant stages also
   have the reference's host routes (grouped NumPy GEMMs), which
   ``assign_pruned_backend="auto"`` takes on the CPU.
 * **Binary wire protocol.**  :func:`encode_points` / :func:`decode_points`
@@ -104,9 +105,10 @@ _QUANT_MIN_ROWS = 512
 #: batch never holds rows·m·d at once.
 _DEV_GATHER_ELEMS = 1 << 24
 
-#: The tile the quant scan takes where the planner refuses even a
-#: compressed slice; the scan is right at any tile.
-_QUANT_REFUSED_K_TILE = 4096
+#: Elements of one of the quant scan's (rows, k_tile) f32 temporaries
+#: (256 MiB; the scan holds about three at once): the scan streams the
+#: compressed codebook in k_tile slices so one batch never holds rows·k.
+_DEV_SCAN_ELEMS = 1 << 26
 
 
 class NoModelError(RuntimeError):
@@ -265,27 +267,25 @@ def decode_labels(body: bytes):
 def dense_k_tile(k: int, d: int, budget=None) -> int:
     """K5's column range for the dense route: the planner's ``k_tile`` for
     f32 operands (``kernel_plan("classic", d, k, x_itemsize=4,
-    cd_itemsize=4)``), or one range over all k, ``⌈k/128⌉·128``, where it
-    plans untiled.  A refused shape raises: the route has no other
-    kernel."""
+    cd_itemsize=4)``) where it tiles, else 128 columns: a range is one
+    block's work for 128 rows, and one range over all of k leaves most of
+    the card idle at a serving batch (K5's labels do not depend on the
+    range).  A refused shape raises: the route has no other kernel."""
     plan = kernel_plan("classic", d, k, x_itemsize=4, cd_itemsize=4,
                        budget=budget)
     if plan.mode == "refuse":
         raise ValueError(f"dense assign route: the planner refuses d={d}, "
                          f"k={k} in f32: {plan.why}")
-    return plan.k_tile if plan.mode == "tiled" else -(-k // LANE) * LANE
+    return plan.k_tile if plan.mode == "tiled" else LANE
 
 
-def quant_k_tile(k: int, d: int, mode: str, budget=None) -> Optional[int]:
-    """The quant scan's slice: the planner's ``k_tile`` with the codebook
-    priced at ``mode``'s itemsize where it tiles, None (all of k in one
-    slice) where the f32 or the compressed codebook fits whole, and
-    :data:`_QUANT_REFUSED_K_TILE` where it refuses."""
-    plan = kernel_plan("classic", d, k, x_itemsize=4, cd_itemsize=4,
-                       quant=mode, budget=budget)
-    if plan.mode == "tiled":
-        return plan.k_tile
-    return _QUANT_REFUSED_K_TILE if plan.mode == "refuse" else None
+def quant_k_tile(rows: int, k: int) -> int:
+    """The quant scan's slice: as many columns, a multiple of 128, as keep
+    one (rows, k_tile) f32 temporary within ``_DEV_SCAN_ELEMS``, at least
+    128 and at most k rounded up to 128 (the scan's labels do not depend
+    on the slice)."""
+    cols = _DEV_SCAN_ELEMS // max(1, rows) // LANE * LANE
+    return max(LANE, min(cols, -(-k // LANE) * LANE))
 
 
 def pruned_m_tile(rows: int, d: int, m: int) -> int:
@@ -473,12 +473,11 @@ class _QuantTier:
     routed to."""
 
     __slots__ = ("mode", "qcb", "cand_q", "scale2_cand", "csqh_cand",
-                 "err_cand", "k_tile", "_qdev")
+                 "err_cand", "_qdev")
 
     def __init__(self, prep: "PreparedModel", mode: str):
         self.mode = mode
         self.qcb = quantize_codebook(prep.gen.centroids, mode)
-        self.k_tile = quant_k_tile(prep.k, prep.d, mode)
         self._qdev = None
         if prep.pruned:
             cand, q = prep.cand, self.qcb.q
@@ -948,11 +947,28 @@ class AssignEngine:
         return host.to(self.device, non_blocking=True)
 
     def _rescore(self, prep: PreparedModel, x: np.ndarray,
-                 labels: np.ndarray, bad: np.ndarray) -> None:
-        """Dense host scores for the rows a certificate could not prove."""
-        sub = np.ascontiguousarray(x[bad])
-        d2 = -2.0 * (sub @ prep.gen.centroids.T) + prep.csq[None, :]
-        labels[bad] = d2.argmin(axis=1).astype(np.int32)
+                 labels: np.ndarray, bad: np.ndarray,
+                 x_dev: Optional[torch.Tensor] = None) -> None:
+        """Dense scores for the rows a certificate could not prove: K5 on
+        the rows already staged (``x_dev``, a device route's batch) or on
+        a card, so they get the dense route's labels bit for bit; NumPy
+        on the host for a host route on the CPU, as the reference does."""
+        if x_dev is None and self.device.type != "cuda":
+            sub = np.ascontiguousarray(x[bad])
+            d2 = -2.0 * (sub @ prep.gen.centroids.T) + prep.csq[None, :]
+            labels[bad] = d2.argmin(axis=1).astype(np.int32)
+            return
+        sub = (x_dev.index_select(0, torch.from_numpy(bad).to(x_dev.device))
+               if x_dev is not None
+               else self._stage(np.ascontiguousarray(x[bad])))
+        labels[bad] = self._dense(prep, sub)
+
+    def _dense(self, prep: PreparedModel, x_dev: torch.Tensor) -> np.ndarray:
+        """K5's labels of staged rows (its plain version on the CPU)."""
+        neg2c, csq, k_tile = prep.dense_dev()
+        labels = tiled_argmin_cuda(x_dev, neg2c, csq, k_tile=k_tile,
+                                   raw_scores=True)[0]
+        return labels.cpu().numpy()
 
     def _run_kernel(self, kind: str, prep: PreparedModel,
                     x: np.ndarray, rows: int,
@@ -960,8 +976,13 @@ class AssignEngine:
         if kind == "quant":
             return self._run_quant(prep, x, rows, qmode)
         if kind == "pruned":
+            x_dev = None
             if self._pruned_route() == "device":
-                labels, ok = self._pruned_device(prep, x)
+                x_dev = self._stage(x)
+                labels, ok = _pair_to_host(*closure_assign_device(
+                    x_dev, *prep.pruned_dev(),
+                    m_tile=pruned_m_tile(rows, prep.d, prep.m),
+                    margin_rel=_CERT_MARGIN_REL))
             else:
                 labels, ok = _pruned_host(x, prep, pool=self._pool,
                                           chunks=self._kernel_threads)
@@ -970,19 +991,9 @@ class AssignEngine:
                 # Pruning is an optimization, never an approximation.
                 with self._stats_lock:
                     self._n_fallback_rows += int(bad.size)
-                self._rescore(prep, x, labels, bad)
+                self._rescore(prep, x, labels, bad, x_dev)
             return labels
-        neg2c, csq, k_tile = prep.dense_dev()
-        labels = tiled_argmin_cuda(self._stage(x), neg2c, csq,
-                                   k_tile=k_tile, raw_scores=True)[0]
-        return labels.cpu().numpy()
-
-    def _pruned_device(self, prep: PreparedModel, x: np.ndarray
-                       ) -> Tuple[np.ndarray, np.ndarray]:
-        return _pair_to_host(*closure_assign_device(
-            self._stage(x), *prep.pruned_dev(),
-            m_tile=pruned_m_tile(x.shape[0], prep.d, prep.m),
-            margin_rel=_CERT_MARGIN_REL))
+        return self._dense(prep, self._stage(x))
 
     def _run_quant(self, prep: PreparedModel, x: np.ndarray, rows: int,
                    mode: str) -> np.ndarray:
@@ -991,18 +1002,20 @@ class AssignEngine:
         ambiguous survivors, then the closure certificate's dense
         fallback as on the f32 pruned route.  Device: the quant scan over
         the whole compressed codebook; rows it cannot certify are rescored
-        densely on the host and counted as quant rescores."""
+        densely (:meth:`_rescore`) and counted as quant rescores."""
         tier = prep.quant_tier(mode)
         if self._pruned_route() == "device":
+            x_dev = self._stage(x)
             labels, ok = _pair_to_host(*quant_assign_device(
-                self._stage(x), *tier.device(self.device), mode,
-                k_tile=tier.k_tile, margin_rel=QUANT_MARGIN_REL))
+                x_dev, *tier.device(self.device), mode,
+                k_tile=quant_k_tile(rows, prep.k),
+                margin_rel=QUANT_MARGIN_REL))
             bad = np.flatnonzero(~ok)
             with self._stats_lock:
                 self._n_quant_batches += 1
                 self._n_quant_rescore_rows += int(bad.size)
             if bad.size:
-                self._rescore(prep, x, labels, bad)
+                self._rescore(prep, x, labels, bad, x_dev)
             return labels
         labels, ok, n_rescore = _quant_host(
             x, prep, tier, pool=self._pool, chunks=self._kernel_threads)

@@ -507,7 +507,8 @@ SERVE_ROUTES = {
 def test_engine_routes_on_the_card_match_the_cpu_engine(card, route):
     """The engine on the card (``auto``: the device routes) against the
     engine on the CPU: equal labels on tie-free data.  The dense route
-    launches K5 once a batch and nothing else."""
+    launches K5 once a batch; the others launch it once for each batch
+    whose certificates fail (the rows far from every centroid)."""
     import dataclasses
 
     from kmeans_tpu_torch.config import ServeConfig
@@ -519,18 +520,26 @@ def test_engine_routes_on_the_card_match_the_cpu_engine(card, route):
     cfg = dataclasses.replace(ServeConfig(), **SERVE_ROUTES[route])
     engines = [AssignEngine(lambda: gen, cfg), AssignEngine(
         lambda: gen, cfg, device="cpu")]
+    got, rescored = [], 0
     try:
         assert engines[0]._pruned_route() == "device"
         K.reset_launch_counts()
-        got = [e.submit(x[s:s + 700])[0] for e in engines
-               for s in range(0, 3000, 700)]
+        for s in range(0, 3000, 700):
+            before = engines[0].stats()
+            got.append(engines[0].submit(x[s:s + 700])[0])
+            after = engines[0].stats()
+            rescored += any(after[key] > before[key] for key in (
+                "fallback_rows", "quant_rescore_rows"))
         counts = K.launch_counts()
+        got += [engines[1].submit(x[s:s + 700])[0]
+                for s in range(0, 3000, 700)]
     finally:
         for e in engines:
             e.stop()
     np.testing.assert_array_equal(np.concatenate(got[:5]),
                                   np.concatenate(got[5:]))
-    want_k5 = 5 if route == "dense" else 0
+    want_k5 = 5 if route == "dense" else rescored
+    assert route == "dense" or rescored >= 1
     assert counts == {**{name: 0 for name in counts},
                       "tiled_argmin_cuda": want_k5}
 

@@ -1,5 +1,4 @@
-"""The port's compressed-codebook tier and its planner rung against the JAX
-package, on the CPU.
+"""The port's compressed-codebook tier against the JAX package, on the CPU.
 
 ``quantize_codebook``, ``dequantize``, ``dequantize_matrix``,
 ``quant_candidates`` and ``quant_prune`` are NumPy copies: their outputs
@@ -19,7 +18,6 @@ import torch
 
 from kmeans_tpu.quant import codebook as RQC
 from kmeans_tpu.quant import score as RQS
-from kmeans_tpu_torch.ops import plan as P
 from kmeans_tpu_torch.quant import (QUANT_MODES, dequantize,
                                     dequantize_matrix, quant_assign_device,
                                     quant_candidates, quant_prune,
@@ -199,34 +197,19 @@ def test_quant_scan_ties_take_the_lowest_index_uncertified(k_tile):
         np.testing.assert_array_equal((lab, ok), _ref_scan(x, qcb, k_tile))
 
 
-def test_planner_quant_rung():
-    """The codebook priced at the payload's itemsize: ``quantized`` where
-    only the compressed codebook fits, a wider slice where it tiles."""
-    f32 = dict(x_itemsize=4, cd_itemsize=4)
-    plan = P.kernel_plan("classic", 2048, 65536, **f32)
-    q8 = P.kernel_plan("classic", 2048, 65536, quant="int8", **f32)
-    bf = P.kernel_plan("classic", 2048, 65536, quant="bf16", **f32)
-    assert (plan.mode, q8.mode, bf.mode) == ("tiled",) * 3
-    assert q8.k_tile > bf.k_tile > plan.k_tile
-    assert q8.k_tile % P.LANE == 0 and bf.k_tile % P.LANE == 0
-    budget = P.card_budget()
-    for mode, kt in (("int8", q8.k_tile), ("bf16", bf.k_tile)):
-        terms = P.l2_breakdown("classic", 2048, 65536, cd_itemsize=4,
-                               k_tile=kt, quant=mode)
-        assert terms == {"codebook_q": kt * 2048 * QUANT_MODES[mode],
-                         "quant_sideband": 3 * kt * 4}
-        assert sum(terms.values()) <= budget.l2_bytes
-        wider = P.l2_breakdown("classic", 2048, 65536, cd_itemsize=4,
-                               k_tile=kt + P.LANE, quant=mode)
-        assert sum(wider.values()) > budget.l2_bytes
-    mid = P.kernel_plan("classic", 2048, 3000, quant="int8", **f32)
-    assert P.kernel_plan("classic", 2048, 3000, **f32).mode == "tiled"
-    assert (mid.mode, mid.k_tile) == ("quantized", None)
-    small = P.kernel_plan("classic", 64, 1000, quant="int8", **f32)
-    assert small.mode == "untiled"
-    whole = P.l2_breakdown("classic", 2048, 3000, quant="int8")
-    assert whole == {"codebook_q": 3000 * 2048, "quant_sideband": 3000 * 12,
-                     "sums": 3000 * 2048 * 4, "counts": 3000 * 4}
-    with pytest.raises(ValueError, match="unknown quant mode"):
-        P.kernel_plan("classic", 64, 1000, quant="int4")
-    assert QUANT_MODES == P.QUANT_MODES == RQC.QUANT_MODES
+def test_quant_k_tile_bounds_the_scan_temporaries():
+    """The engine's slice for the quant scan: a multiple of 128 that keeps
+    one (rows, k_tile) f32 temporary within 2**26 elements, at least 128,
+    at most k rounded up to 128."""
+    from kmeans_tpu_torch.serve.assign import _DEV_SCAN_ELEMS, quant_k_tile
+
+    assert quant_k_tile(8192, 65536) == 8192
+    assert quant_k_tile(512, 65536) == 65536
+    assert quant_k_tile(64, 1000) == 1024
+    assert quant_k_tile(1 << 20, 65536) == 128
+    for rows, k in ((8192, 65536), (3000, 65536), (700, 5000), (1, 1)):
+        kt = quant_k_tile(rows, k)
+        assert kt % 128 == 0 and 128 <= kt <= -(-k // 128) * 128
+        assert rows * kt <= _DEV_SCAN_ELEMS or kt == 128
+        assert kt == -(-k // 128) * 128 or rows * (kt + 128) > _DEV_SCAN_ELEMS
+    assert QUANT_MODES == RQC.QUANT_MODES

@@ -314,9 +314,12 @@ def test_engine_ties_go_to_the_lowest_index(route):
 
 
 def test_dense_route_runs_k5_over_its_column_ranges(monkeypatch):
-    """Untiled, one range of ⌈k/128⌉·128 columns; tiled, the planner's
-    slice; the labels are the same, and K5's wrapper is what runs."""
-    assert A.dense_k_tile(1000, 2048) == 1024
+    """Untiled, 128-column ranges (one range over all of k would give a
+    serving batch a block per 128 rows); tiled, the planner's slice; the
+    labels are the same, and K5's wrapper is what runs."""
+    assert P.kernel_plan("classic", 2048, 1000, x_itemsize=4,
+                         cd_itemsize=4).mode == "untiled"
+    assert A.dense_k_tile(1000, 2048) == 128
     assert A.dense_k_tile(128, 8) == 128
     tiled = A.dense_k_tile(65536, 2048)
     assert tiled == P.kernel_plan("classic", 2048, 65536, x_itemsize=4,
@@ -343,6 +346,47 @@ def test_dense_route_runs_k5_over_its_column_ranges(monkeypatch):
         _check_labels(x, c, got, want)
     assert calls == [("cpu", 768, True), ("cpu", 256, True),
                      ("cpu", 128, True)]
+
+
+@pytest.mark.parametrize("route", sorted(r for r in ROUTES if r != "dense"))
+def test_certificate_failures_rescore_on_k5_where_the_batch_was_staged(
+        route, monkeypatch):
+    """A device route rescores the rows its certificate fails with K5's
+    wrapper on the rows already staged (its plain version here), so they
+    carry the dense route's labels bit for bit; a host route on the CPU
+    rescores them in NumPy, as the reference does."""
+    c, x = _separated(1024, 48, 600, seed=13)
+    x = np.concatenate([x, _far(90, 48, 14)])
+    gen = Generation(c, 1)
+    calls = []
+    real = A.tiled_argmin_cuda
+
+    def spy(x_t, neg2c, csq, *, k_tile, raw_scores=False):
+        calls.append(x_t.clone())
+        return real(x_t, neg2c, csq, k_tile=k_tile, raw_scores=raw_scores)
+
+    monkeypatch.setattr(A, "tiled_argmin_cuda", spy)
+    eng = _engine(gen, **ROUTES[route])
+    try:
+        got, _ = eng.submit(x)
+        st = eng.stats()
+    finally:
+        eng.stop()
+    _check_labels(x, c, got, A.assign_direct(gen, x))
+    if route.endswith("host"):
+        assert calls == []
+        return
+    bad = st["quant_rescore_rows"] if "quant" in route else st[
+        "fallback_rows"]
+    assert bad > 0 and len(calls) == 1 and calls[0].shape == (bad, 48)
+    # The rescored rows are the batch's own, and their labels are K5's.
+    rows = np.flatnonzero((x[:, None, :] == calls[0].numpy()[None]
+                           ).all(axis=2).any(axis=1))
+    assert rows.size == bad
+    neg2c, csq, k_tile = A.PreparedModel(gen, device=CPU).dense_dev()
+    want = real(torch.from_numpy(x[rows]), neg2c, csq, k_tile=k_tile,
+                raw_scores=True)[0].numpy()
+    np.testing.assert_array_equal(got[rows], want)
 
 
 def test_refused_column_range_fails_the_batch(monkeypatch):
