@@ -9,18 +9,25 @@ if any fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` for sm_90a, with its seconds, register report, and the
-   registers and spills of each variant of the Hopper core;
+   registers and spills of each variant of the Hopper core (bf16 and its
+   f32 route, with the f32 one-accumulator variant);
 3. each kernel against its plain PyTorch version on the card: ragged n,
    d in {2, 100, 2048}, k in {3, 1000}, float32 and bfloat16, zero-weight
-   rows, a −1 sentinel ``prev``, out-of-range labels, and exact ties; the
-   Hopper core (bf16, d % 8 == 0) also at d in {8, 200} and k in
-   {3, 257, 1000}: K1's labels and min_d2, K2's labels and raw scores,
-   K4's labels, sb, slb, n_recomputed and dense_tiles (need fractions 0,
-   about 10% and 100%) and K5's labels, raw and normed min and second-min
-   (k_tile in {128, 384, 1024}) equal to
-   ``score_block``'s bit for bit, two launches of each equal bit for bit,
-   duplicate centroids at columns 255 and 256 (the core's slice edge) and,
-   for K4 and K5, at a sub-slice edge inside a range and at range edges;
+   rows, a −1 sentinel ``prev``, out-of-range labels, and exact ties; each
+   case's scoring core asserted against the rule; the Hopper core (bf16,
+   d % 8 == 0; f32, d % 4 == 0) also at d in {8, 200} (bf16), {4, 300}
+   (f32) and k in {3, 257, 1000}: K1's labels and min_d2, K2's labels and
+   raw scores, K4's labels, sb, slb, n_recomputed and dense_tiles (need
+   fractions 0, about 10% and 100%) and K5's labels, raw and normed min
+   and second-min (k_tile in {128, 384, 1024}) equal to ``score_block``'s
+   bit for bit in bf16 and to SCORE_RTOL on the f32 route (six bf16
+   passes against IEEE f32 FMA), two launches of each equal bit for bit,
+   duplicate centroids at the core's slice edges (255 | 256; 127 | 128 on
+   the f32 route's 128-column sub-slices) and, for K4 and K5, at a
+   sub-slice edge inside a range and at range edges, in both dtypes; the
+   f32 route's worst score error against an f64 product over the f32
+   cases, within SCORE_RTOL and (d + 2)·2⁻²⁴ of ||x||² + ||c||², printed
+   beside its one-accumulator variant's;
    the Hamerly kernel (K4) at need fractions 0, about 10% and 100%, and
    with every row needed against the delta kernel (K2), bit for bit; the
    k-tiled pair at 128-column slices (K5's labels, raw scores and
@@ -44,7 +51,14 @@ if any fails:
    version's and a library call's (K4's also on ``score_block``), K1's
    time split into scoring and the fold with ||x||², the SM clock and
    power under K2, K5 + K6 forced tiled there, one steady sweep of each
-   flavour, and the time of k-means++ there;
+   flavour, and the time of k-means++ there; then imagenet-delta-f32, the
+   same shape in f32 on the core's f32 route: ``fit_lloyd(update=
+   "delta")`` (F32_SWEEPS sweeps) and F32_HAMERLY_SWEEPS hand-driven
+   ``hamerly_pass`` sweeps, each run's counts set to 0 before it and read
+   after, labels held against K1 and the plain route, then K1, K2 and K4
+   timed beside both bounds (six bf16 passes, f32 FMA), ``torch.mm`` +
+   ``argmin`` with TF32 off, ``score_block`` and the one-accumulator
+   variant, and the route's score error against f64 on sampled rows;
 5. whole ``KMeans(compute_dtype="bfloat16")`` fits with k-means++ at the
    ``glove`` shape, ``update="delta"`` and the default ``"auto"`` (the
    adaptive loop: n >= 16384), each held against a plain-backend fit,
@@ -81,17 +95,24 @@ if any fails:
    fail or wait past the default ``assign_timeout_s``, the batcher must
    coalesce, and K5 must launch once a dense batch and once for each
    pruned or quant batch whose certificate failures it rescores; then K5
-   in f32 at the serving
-   batch shapes against its plain version, its bound and ``torch.mm`` +
-   ``argmin`` with TF32 off;
+   in f32 (the core's f32 route) at the serving batch shapes against its
+   plain version, both bounds and ``torch.mm`` + ``argmin`` with TF32 off,
+   beside its other column range, its one-accumulator variant and
+   ``score_block``, with each one's score error against f64;
 9. a ``{"kernels": [...]}`` line (K5's launches include serving's) and,
    last, the ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --fold-split`` runs phases 1 and 7 only (the
 kernels build at their first call), so it also splits an older tree's K6.
+``python3 chip_smoke.py --f32-bench`` runs phase 1 and
+:func:`phase_f32_bench` only (the f32-compute kernels at the serving and
+headline shapes beside the library), so a copy of this script run in an
+older checkout times that tree's f32 route in the same call.
 
 The bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of memory, 989
-TFLOP/s bf16 on the tensor cores and 67 TFLOP/s f32 outside them.
+TFLOP/s bf16 on the tensor cores and 67 TFLOP/s f32 outside them; an f32
+row states both the f32 route's bound (six bf16 passes at 989 TFLOP/s)
+and the f32 FMA bound.
 """
 
 from __future__ import annotations
@@ -209,11 +230,20 @@ def phase_device():
     return card
 
 
-#: The Hopper core's template arguments as ptxas names them (the mangled
-#: ``core_score_kernel<GATHER, SECOND>``), and what runs each.
-CORE_VARIANTS = {"ILb0ELb0E": "dense (K1, K2, K5)",
-                 "ILb0ELb1E": "dense with second-min (K5 for Hamerly)",
-                 "ILb1ELb1E": "gathered with second-min (K4)"}
+#: The Hopper core's variants as ptxas names them (the mangled
+#: ``core_score_kernel<GATHER, SECOND>`` and, on the f32 route,
+#: ``core32_score_kernel<GATHER, SECOND, SPLIT>``), and what runs each.
+CORE_VARIANTS = {
+    "core_score_kernelILb0ELb0E": "dense (K1, K2, K5)",
+    "core_score_kernelILb0ELb1E": "dense with second-min (K5 for Hamerly)",
+    "core_score_kernelILb1ELb1E": "gathered with second-min (K4)",
+    "core32_score_kernelILb0ELb0ELb1E": "f32 dense (K1, K2, K5)",
+    "core32_score_kernelILb0ELb1ELb1E":
+        "f32 dense with second-min (K5 for Hamerly)",
+    "core32_score_kernelILb1ELb1ELb1E": "f32 gathered with second-min (K4)",
+    "core32_score_kernelILb0ELb0ELb0E":
+        "f32 dense, one accumulator (measured beside the route)",
+}
 
 
 def phase_build():
@@ -239,7 +269,7 @@ def phase_build():
         if "Compiling entry function" in line or "Function properties for" in line:
             name = line.split("'")[1] if "'" in line else line.split()[-1]
         variant = next((v for key, v in CORE_VARIANTS.items()
-                        if name and "core_score_kernel" + key in name), None)
+                        if name and key in name), None)
         if variant and ("spill" in line or "Used" in line):
             print(f"  core {variant}: {line.strip()}")
         if name and "fold_kernel" in name:
@@ -329,11 +359,11 @@ def _within(name, got, want, tol):
     accumulation order of the score: ``|got − want| <= tol`` row by row,
     ``tol`` being SCORE_RTOL of each row's ``||x_cd||² + ||c||²``."""
     err = (got.double() - want.double()).abs()
+    worst = float(err.max()) if err.numel() else 0.0
     _check(bool((err <= tol).all()),
            f"{name}: {int((err > tol).sum())} rows differ by more than "
-           f"{SCORE_RTOL} of their row scale (max abs error "
-           f"{float(err.max())})")
-    return float(err.max()) if err.numel() else 0.0
+           f"{SCORE_RTOL} of their row scale (max abs error {worst})")
+    return worst
 
 
 def _row_scale(x, c, cd, labels):
@@ -516,21 +546,67 @@ def _straddling_tie_cases(gen):
         print(f"  ok {name}")
 
 
-class _ForcedScoreBlock:
-    """Within it, K1, K2, K4 and K5 score every input with
-    ``score_block``: the wrappers read ``cuda_lloyd.scoring_core`` at each
-    call."""
+class _ForcedCore:
+    """Within it, K1, K2, K4 and K5 score every input with ``core``: the
+    wrappers read ``cuda_lloyd.scoring_core`` at each call."""
+
+    def __init__(self, core):
+        self.core = core
 
     def __enter__(self):
         from kmeans_tpu_torch.ops import cuda_lloyd as K
 
         self._rule = K.scoring_core
-        K.scoring_core = lambda *args: "score_block"
+        K.scoring_core = lambda *args: self.core
 
     def __exit__(self, *exc):
         from kmeans_tpu_torch.ops import cuda_lloyd as K
 
         K.scoring_core = self._rule
+
+
+class _ForcedScoreBlock(_ForcedCore):
+    """``score_block`` for every input (the parent's f32 route)."""
+
+    def __init__(self):
+        super().__init__("score_block")
+
+
+#: The f32 route's one-accumulator variant (all six products in one
+#: accumulator), which the smoke measures beside the route: K1, K2 and K5
+#: without the second-min only.
+ONE_ACC = "wgmma_one_acc"
+#: Worst relative score error against the f64 product, (error / (||x||² +
+#: ||c||²), d, case), of the f32 route and of its one-accumulator variant
+#: over phase 3's f32 cases.
+F32_ERRORS = {"route": [], ONE_ACC: []}
+
+
+def _f32_score_error(x, c, lab, raw):
+    """max |raw − f64 score at lab| / (||x||² + ||c[lab]||²) over rows."""
+    s, scale = _scores64(x, c, x.dtype)
+    at = lab.long()[:, None]
+    return float(((raw.double() - s.gather(1, at)[:, 0]).abs()
+                  / scale.gather(1, at)[:, 0]).max())
+
+
+def _record_f32_errors(name, x, c, prev):
+    """K2's raw scores on the f32 route and on its one-accumulator variant
+    against the f64 product, into F32_ERRORS."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    f32 = torch.float32
+    for variant in F32_ERRORS:
+        core = _ForcedCore(ONE_ACC) if variant == ONE_ACC else _ForcedCore(
+            "wgmma")
+        with core:
+            lab, raw = K.lloyd_delta_cuda(x, c, prev, compute_dtype=f32,
+                                          with_mind=False)[:2]
+        _sync()
+        F32_ERRORS[variant].append((_f32_score_error(x, c, lab, raw),
+                                    x.shape[1], name))
 
 
 def _check_k1_repeats(name, x, c, cd, w, k1):
@@ -548,8 +624,10 @@ def _check_k1_repeats(name, x, c, cd, w, k1):
 
 def _check_cores_agree(name, x, c, cd, w, prev, k1, k2):
     """On an input the Hopper core takes: K1's labels and min_d2 and K2's
-    labels and raw scores (``k1``, ``k2``) equal ``score_block``'s on the
-    same input bit for bit."""
+    labels and raw scores (``k1``, ``k2``) against ``score_block``'s on the
+    same input -- in bf16 bit for bit; on the f32 route (six bf16 passes
+    against IEEE f32 FMA) labels equal except near-ties within SCORE_RTOL
+    and scores within SCORE_RTOL of the row scale."""
     import torch
 
     from kmeans_tpu_torch.ops import cuda_lloyd as K
@@ -559,26 +637,63 @@ def _check_cores_agree(name, x, c, cd, w, prev, k1, k2):
         sb2 = K.lloyd_delta_cuda(x, c, prev, weights=w, compute_dtype=cd,
                                  with_mind=False)
     _sync()
-    _check(torch.equal(k1[0], sb1[0]) and torch.equal(k1[1], sb1[1]),
-           f"K1 {name}: the Hopper core's labels or min_d2 differ from "
-           "score_block's")
-    _check(torch.equal(k2[0], sb2[0]) and torch.equal(k2[1], sb2[1]),
-           f"K2 {name}: the Hopper core's labels or raw scores differ from "
-           "score_block's")
+    if cd == torch.bfloat16:
+        _check(torch.equal(k1[0], sb1[0]) and torch.equal(k1[1], sb1[1]),
+               f"K1 {name}: the Hopper core's labels or min_d2 differ from "
+               "score_block's")
+        _check(torch.equal(k2[0], sb2[0]) and torch.equal(k2[1], sb2[1]),
+               f"K2 {name}: the Hopper core's labels or raw scores differ "
+               "from score_block's")
+        return
+    chosen, tol, _ = _check_labels(f"K2 {name} vs score_block", x, c, cd,
+                                   k2[0], sb2[0])
+    same = k2[0] == sb2[0]
+    _within(f"K2 {name} raw scores vs score_block", k2[1][same],
+            sb2[1][same], tol[same])
+    _check(torch.equal(k1[0], k2[0]), f"K1 {name}: labels differ from K2's "
+           "on the core")
 
 
 def _check_core_k4_k5(name, x, c, cd, w, prev, gen):
     """On an input the Hopper core takes: K4 at need fractions 0, about 10%
     and 100% (−1 sentinels needed) and K5 at k_tile 128, 384 and 1024,
-    with the second-min, against ``score_block``'s on the
-    same input bit for bit -- K4's labels, sb, slb, n_recomputed and
-    dense_tiles, K5's labels, raw min, second-min and normed min -- and two
+    with the second-min, against ``score_block``'s on the same input --
+    K4's labels, sb, slb, n_recomputed and dense_tiles, K5's labels, raw
+    min, second-min and normed min: bit for bit in bf16; on the f32 route
+    n_recomputed, dense_tiles and the labels of rows that are no near-tie
+    equal, the scores within SCORE_RTOL of the row scale -- and two
     launches of each equal bit for bit."""
     import torch
 
     from kmeans_tpu_torch.ops import cuda_lloyd as K
 
     n = x.shape[0]
+    exact = cd == torch.bfloat16
+    s64, scale = _scores64(x, c, cd)
+
+    def agree(what, got, ref, kinds, rows=None):
+        """``got`` against ``ref`` entry by entry, over ``rows`` (a mask;
+        all rows when None) where the f32 route compares to a tolerance:
+        labels near the f64 minimum, scores of rows whose labels agree
+        within SCORE_RTOL of the row's largest scale."""
+        for g, e, kind in zip(got, ref, kinds):
+            if kind is None:
+                continue
+            if exact or kind in ("n_recomputed", "dense_tiles"):
+                _check(torch.equal(g, e), f"{what}: the core's {kind} "
+                       "differ from score_block's")
+                continue
+            r = torch.ones(n, dtype=torch.bool, device="cuda") \
+                if rows is None else rows
+            _check(torch.equal(g[~r], e[~r]),
+                   f"{what}: rows not scored differ in {kind}")
+            if kind == "labels":
+                _near_min(what, s64[r], scale[r], g[r])
+                continue
+            keep = got[0][r] == ref[0][r]
+            tol = SCORE_RTOL * scale[r].max(dim=1).values
+            _within(f"{what} {kind}", g[r][keep], e[r][keep], tol[keep])
+
     sb_in = torch.randn(n, generator=gen, device="cuda")
     k4_out = ("labels", "sb", "slb", None, None, "n_recomputed", "dense_tiles")
     for frac in (0.0, 0.1, 1.0):
@@ -588,13 +703,14 @@ def _check_core_k4_k5(name, x, c, cd, w, prev, gen):
         args = (x, c, p, need, sb_in, sb_in + 1)
         with _ForcedScoreBlock():
             ref = K.lloyd_hamerly_cuda(*args, weights=w, compute_dtype=cd)
-        for launch in ("first", "second"):
-            got = K.lloyd_hamerly_cuda(*args, weights=w, compute_dtype=cd)
-            _sync()
-            for g, e, what in zip(got, ref, k4_out):
-                _check(what is None or torch.equal(g, e),
-                       f"K4 need={frac:.0%} {name} ({launch} launch): the "
-                       f"core's {what} differ from score_block's")
+        first = K.lloyd_hamerly_cuda(*args, weights=w, compute_dtype=cd)
+        again = K.lloyd_hamerly_cuda(*args, weights=w, compute_dtype=cd)
+        _sync()
+        what = f"K4 need={frac:.0%} {name}"
+        _check(all(torch.equal(a, b) for a, b, kind in
+                   zip(first, again, k4_out) if kind),
+               f"{what}: two launches differ")
+        agree(what, first, ref, k4_out, need)
     neg2c, csq = K._score_operands(c, cd)
 
     def k5(k_tile):
@@ -605,46 +721,45 @@ def _check_core_k4_k5(name, x, c, cd, w, prev, gen):
     for k_tile in (128, 384, 1024):
         with _ForcedScoreBlock():
             ref = k5(k_tile)
-        for launch in ("first", "second"):
-            got = k5(k_tile)
-            _sync()
-            for g, e, what in zip(got, ref, ("labels", "raw min",
-                                             "second-min", "normed min")):
-                _check(torch.equal(g, e),
-                       f"K5 k_tile={k_tile} {name} ({launch} launch): the "
-                       f"core's {what} differ from score_block's")
+        first, again = k5(k_tile), k5(k_tile)
+        _sync()
+        what = f"K5 k_tile={k_tile} {name}"
+        _check(all(torch.equal(a, b) for a, b in zip(first, again)),
+               f"{what}: two launches differ")
+        agree(what, first, ref, ("labels", "raw min", "second-min",
+                                 "normed min"))
 
 
-def _core_range_edge_ties(gen):
-    """Duplicate centroids on either side of 256-column sub-slice edges
-    inside a range (255 | 256 at k_tile 384 and 1024, 511 | 512 at 1024)
-    and of range edges (127 | 128 at every k_tile, 383 | 384 at 128 and
-    384, 1023 | 1024 at 128 and 1024), at k = 1100, and rows that sit on
-    them: K4 with every row needed and K5 at each k_tile give the lower
-    index with second-min == min, and the core equals score_block bit for
-    bit."""
+def _core_range_edge_ties(gen, cd):
+    """Duplicate centroids on either side of the core's sub-slice edges
+    inside a range (255 | 256 at k_tile 384 and 1024, 511 | 512 at 1024;
+    on the f32 route's 128-column sub-slices also 127 | 128 inside 384 and
+    1024) and of range edges (127 | 128 at k_tile 128, 383 | 384 at 128
+    and 384, 1023 | 1024 at 128 and 1024), at k = 1100, and rows that sit
+    on them: K4 with every row needed and K5 at each k_tile give the lower
+    index with second-min == min, and the core agrees with score_block
+    (bit for bit in bf16)."""
     import torch
 
     from kmeans_tpu_torch.ops import cuda_lloyd as K
 
-    bf16 = torch.bfloat16
-    x, c, w, prev = _case_inputs(gen, 2053, 2048, 1100, bf16, False)
+    x, c, w, prev = _case_inputs(gen, 2053, 2048, 1100, cd, False)
     pairs = ((127, 128), (255, 256), (383, 384), (511, 512), (1023, 1024))
     for i, (lo, hi) in enumerate(pairs):
         c[hi] = c[lo]
-        x[16 * i:16 * (i + 1)] = c[lo].to(bf16)
-    name = ("n=2053 d=2048 k=1100 x=bfloat16 ties at sub-slice and range "
-            "edges")
-    _check(K.scoring_core(x, bf16, c.to(bf16)) == "wgmma",
+        x[16 * i:16 * (i + 1)] = c[lo].to(cd)
+    name = (f"n=2053 d=2048 k=1100 x={str(cd)[6:]} ties at sub-slice and "
+            "range edges")
+    _check(K.scoring_core(x, cd, c.to(cd)) == "wgmma",
            f"{name}: not on the Hopper core")
-    _check_core_k4_k5(name, x, c, bf16, w, prev, gen)
+    _check_core_k4_k5(name, x, c, cd, w, prev, gen)
     n = x.shape[0]
     ones = torch.ones(n, dtype=torch.bool, device="cuda")
     zeros = torch.zeros(n, device="cuda")
     k4 = K.lloyd_hamerly_cuda(x, c, prev, ones, zeros, zeros,
-                              compute_dtype=bf16)
+                              compute_dtype=cd)
     outs = [("K4", k4[:3])]
-    neg2c, csq = K._score_operands(c, bf16)
+    neg2c, csq = K._score_operands(c, cd)
     for k_tile in (128, 384, 1024):
         outs.append((f"K5 k_tile={k_tile}",
                      K.tiled_argmin_cuda(x, neg2c, csq, k_tile=k_tile,
@@ -660,33 +775,40 @@ def _core_range_edge_ties(gen):
     print(f"  ok {name} (core wgmma)")
 
 
-def _slice_edge_core_ties(gen):
-    """Duplicate centroids at columns 255 and 256, on either side of the
-    Hopper core's 256-column slice edge, and rows that sit on them: K1 and
-    K2 must give 255.  k = 257 leaves the second slice one column; k = 1000
-    is the headline's width."""
+def _slice_edge_core_ties(gen, cd):
+    """Duplicate centroids on either side of the core's slice edge (255 |
+    256; on the f32 route also its 128-column sub-slice edge 127 | 128),
+    and rows that sit on them: K1 and K2 must give the lower index.  k =
+    257 leaves the last slice one column; k = 1000 is the headline's
+    width."""
     import torch
 
     from kmeans_tpu_torch.ops import cuda_lloyd as K
 
-    bf16 = torch.bfloat16
+    pairs = ((255, 256),) if cd == torch.bfloat16 else ((127, 128),
+                                                        (255, 256))
     for k in (257, 1000):
-        x, c, w, prev = _case_inputs(gen, 2053, 2048, k, bf16, False)
-        c[256] = c[255]
-        x[:64] = c[255].to(bf16)
-        name = f"n=2053 d=2048 k={k} x=bfloat16 tie at the core's slice edge"
-        _check(K.scoring_core(x, bf16, c.to(bf16)) == "wgmma",
+        x, c, w, prev = _case_inputs(gen, 2053, 2048, k, cd, False)
+        for i, (lo, hi) in enumerate(pairs):
+            c[hi] = c[lo]
+            x[64 * i:64 * (i + 1)] = c[lo].to(cd)
+        name = (f"n=2053 d=2048 k={k} x={str(cd)[6:]} ties at the core's "
+                "slice edges")
+        _check(K.scoring_core(x, cd, c.to(cd)) == "wgmma",
                f"{name}: not on the Hopper core")
-        k1 = K.lloyd_pass_cuda(x, c, weights=w, compute_dtype=bf16)
-        k2 = K.lloyd_delta_cuda(x, c, prev, weights=w, compute_dtype=bf16,
+        k1 = K.lloyd_pass_cuda(x, c, weights=w, compute_dtype=cd)
+        k2 = K.lloyd_delta_cuda(x, c, prev, weights=w, compute_dtype=cd,
                                 with_mind=False)
         _sync()
-        _check(bool((k1[0][:64] == 255).all() and (k2[0][:64] == 255).all()),
-               f"{name}: the tie did not go to column 255")
-        _check_labels(f"K1 {name}", x, c, bf16, k1[0],
-                      K.lloyd_pass_plain(x, c, compute_dtype=bf16)[0])
-        _check_k1_repeats(name, x, c, bf16, w, k1)
-        _check_cores_agree(name, x, c, bf16, w, prev, k1, k2)
+        for i, (lo, _) in enumerate(pairs):
+            rows = slice(64 * i, 64 * (i + 1))
+            _check(bool((k1[0][rows] == lo).all()
+                        and (k2[0][rows] == lo).all()),
+                   f"{name}: the tie did not go to column {lo}")
+        _check_labels(f"K1 {name}", x, c, cd, k1[0],
+                      K.lloyd_pass_plain(x, c, compute_dtype=cd)[0])
+        _check_k1_repeats(name, x, c, cd, w, k1)
+        _check_cores_agree(name, x, c, cd, w, prev, k1, k2)
         print(f"  ok {name} (core wgmma)")
 
 
@@ -778,6 +900,7 @@ def phase_kernels():
     import torch
 
     from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.ops.plan import core_takes
 
     f32, bf16 = torch.float32, torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -786,18 +909,27 @@ def phase_kernels():
              for (xd, cd) in ((f32, f32), (bf16, bf16), (f32, bf16))
              for n in (2053,)]
     cases += [(1531, 64, 10, f32, f32, True), (1531, 64, 10, bf16, bf16, True),
-              (2053, 2048, 1000, bf16, bf16, True)]
-    # The Hopper core's ragged shapes: n % 128 != 0; d a multiple of 8 but
-    # not of 64; k = 257 (a last slice of one column), k = 3 (one ragged
-    # slice).
+              (2053, 2048, 1000, bf16, bf16, True),
+              (2053, 2048, 1000, f32, f32, True)]
+    # The Hopper core's ragged shapes: n % 128 != 0; d a multiple of 8 (4
+    # in f32, whose −2C pieces pad to 8) but not of 64; k = 257 (a last
+    # slice of one column), k = 3 (one ragged slice).
     cases += [(2053, d, k, bf16, bf16, False)
               for d in (8, 200) for k in (3, 257, 1000)]
-    cases += [(2053, 2048, 257, bf16, bf16, False)]
+    cases += [(2053, d, k, f32, f32, False)
+              for d in (4, 300) for k in (3, 257, 1000)]
+    cases += [(2053, 2048, 257, bf16, bf16, False),
+              (2053, 2048, 257, f32, f32, False)]
     cores = {}
     for n, d, k, xd, cd, ties in cases:
         x, c, w, prev = _case_inputs(gen, n, d, k, xd, ties)
         core = K.scoring_core(x, cd, c.to(cd))
         cores[core] = cores.get(core, 0) + 1
+        _check(core == ("wgmma" if core_takes("classic", d, xd.itemsize,
+                                              cd.itemsize)
+                        else "score_block"),
+               f"n={n} d={d} k={k} x={xd} cd={cd}: scoring core {core} "
+               "against the rule")
         name = (f"n={n} d={d} k={k} x={str(xd)[6:]} cd={str(cd)[6:]}"
                 f"{' ties' if ties else ''}")
         xf = x.float()
@@ -851,6 +983,8 @@ def phase_kernels():
         if core == "wgmma":
             _check_cores_agree(name, x, c, cd, w, prev, k1, k2)
             _check_core_k4_k5(name, x, c, cd, w, prev, gen)
+            if cd == f32:
+                _record_f32_errors(name, x, c, prev)
         # K3 with out-of-range labels and scores.
         lab3 = torch.randint(-2, k + 3, (n,), generator=gen, device="cuda",
                              dtype=torch.int32)
@@ -872,17 +1006,47 @@ def phase_kernels():
         print(f"  ok {name}, core {core} ({moved} rows labelled differently "
               "from the plain version, each a tie within the tolerance)")
     _straddling_tie_cases(gen)
-    _slice_edge_core_ties(gen)
-    _core_range_edge_ties(gen)
+    for cd in (bf16, f32):
+        _slice_edge_core_ties(gen, cd)
+        _core_range_edge_ties(gen, cd)
     _fold_core_cases(gen)
     print(f"scoring cores over the cases: {cores}; the Hopper core's labels, "
           "min_d2, raw scores, sb, slb and second-min (K1, K2, K4, K5 at "
-          "k_tile 128, 384, 1024) equal score_block's bit for bit, and two "
-          "launches of K1, K4 and K5 equal each other bit for bit")
-    print(f"kernels vs plain: {len(cases) + 5 + len(FOLD_CORE_CASES)} "
+          "k_tile 128, 384, 1024) equal score_block's bit for bit in bf16 "
+          "and to SCORE_RTOL on the f32 route, K4's and K5's equal K1's and "
+          "K2's bit for bit, and two launches of K1, K4 and K5 equal each "
+          "other bit for bit")
+    _f32_error_summary()
+    print(f"kernels vs plain: {len(cases) + 8 + len(FOLD_CORE_CASES)} "
           "cases agree (score rtol "
           f"{SCORE_RTOL}, sums rtol {SUMS_RTOL}, counts exact; K5 equal to "
           "K1, K2 and K4 bit for bit; K6 equal to itself bit for bit)")
+
+
+def _gamma(d):
+    """The f32 accumulation bound of a score at width d, relative to
+    ||x||² + ||c||²: γ = (d + 2)·2⁻²⁴ -- the d products and the epilogue's
+    two adds (the corrections into x1c1, then csq) -- the bound
+    HAMERLY_MARGIN_REL covers (γ_d ≈ d·2⁻²⁴ in ``ops/hamerly.py``)."""
+    return (d + 2) * 2.0 ** -24
+
+
+def _f32_error_summary():
+    """The worst f32-route and one-accumulator errors over phase 3's f32
+    cases; the route must stay within SCORE_RTOL and :func:`_gamma` of
+    the row scale."""
+    for variant, errs in F32_ERRORS.items():
+        worst = max(errs)
+        print(f"f32 {'route (split accumulators)' if variant == 'route' else 'one-accumulator variant'}"
+              f": worst |score − f64| / (||x||² + ||c||²) over "
+              f"{len(errs)} cases {worst[0]:.3e} (d={worst[1]}: {worst[2]})"
+              f"; per d: " + ", ".join(
+                  f"d={d} {max(e for e, dd, _ in errs if dd == d):.3e}"
+                  for d in sorted({dd for _, dd, _ in errs})))
+    for rel, d, name in F32_ERRORS["route"]:
+        _check(rel <= min(SCORE_RTOL, _gamma(d)),
+               f"f32 route {name}: score error {rel:.3e} of the row scale "
+               f"beyond min(SCORE_RTOL, γ = {_gamma(d):.3e})")
 
 
 # ---------------------------------------------------------------------------
@@ -1434,6 +1598,340 @@ def _flavour_sweeps(x, states, rno):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4, f32: imagenet-delta-f32 on the core's f32 route
+# ---------------------------------------------------------------------------
+
+#: Sweeps of the f32 headline delta fit (the refresh at sweep 16 and the
+#: final view run), and the hand-driven Hamerly sweeps after it (a refresh,
+#: then steady sweeps).
+F32_SWEEPS = 20
+F32_HAMERLY_SWEEPS = 4
+#: Rows of the f32 error sample against the f64 product.
+F32_ERROR_ROWS = 4096
+
+
+def _f32_bounds(n, d, k):
+    """(the f32 route's bound: six bf16 passes at 989 TFLOP/s, the FFMA
+    bound any f32 kernel is held to: one f32 product at 67 TFLOP/s), ms."""
+    ops = 2.0 * n * d * k
+    return 1e3 * 6 * ops / BF16_TENSOR_OPS_PER_S, 1e3 * ops / F32_OPS_PER_S
+
+
+def _f32_library(x, neg2c, csq, chunk=None):
+    """``torch.mm`` + ``argmin`` in full f32 (TF32 off), the library
+    yardstick of the f32 scoring kernels; ``chunk`` rows at a time."""
+    import torch
+
+    from kmeans_tpu_torch.ops.distance import full_f32
+
+    def run():
+        with full_f32():
+            if chunk is None:
+                return torch.mm(x, neg2c.T).add_(csq).argmin(dim=1)
+            return torch.cat([torch.mm(x[s:s + chunk], neg2c.T).add_(csq)
+                              .argmin(dim=1)
+                              for s in range(0, x.shape[0], chunk)])
+    return run
+
+
+def _f32_sweep_times(x, c, prev, need, reps=5):
+    """CUDA-event ms of K1 (with its fold), K2 (raw, from ``prev``) and K4
+    (the rows of ``need``) in f32 at ``x``'s shape, of their plain
+    versions (one timed run each), of ``torch.mm`` + ``argmin`` with TF32
+    off, and, where the tree has it, of K2 on the f32 route's
+    one-accumulator variant; with the scoring core."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    f32 = torch.float32
+    n = x.shape[0]
+    zeros = torch.zeros(n, device="cuda")
+    neg2c, csq = K._score_operands(c, f32)
+    out = {"core": K.scoring_core(x, f32, neg2c)}
+
+    def k2():
+        return K.lloyd_delta_cuda(x, c, prev, compute_dtype=f32,
+                                  with_mind=False)
+
+    out["K1"] = _time_ms(lambda: K.lloyd_pass_cuda(x, c, compute_dtype=f32),
+                         reps)
+    out["K2"] = _time_ms(k2, reps)
+    out["K4"] = _time_ms(lambda: K.lloyd_hamerly_cuda(
+        x, c, prev, need, zeros, zeros, compute_dtype=f32), reps)
+    out["K1 plain"] = _time_ms(lambda: K.lloyd_pass_plain(
+        x, c, compute_dtype=f32), 1)
+    out["K2 plain"] = _time_ms(lambda: K.lloyd_delta_plain(
+        x, c, prev, compute_dtype=f32, with_mind=False), 1)
+    out["K4 plain"] = _time_ms(lambda: K.lloyd_hamerly_plain(
+        x, c, prev, need, zeros, zeros, compute_dtype=f32), 1)
+    out["library"] = _time_ms(_f32_library(x, neg2c, csq, 262144), 3)
+    if ONE_ACC in getattr(K, "_CORE_CODES", {}):
+        with _ForcedCore(ONE_ACC):
+            out["K2 one-acc"] = _time_ms(k2, reps)
+    return out
+
+
+def _print_f32_times(what, times, n, d, k, n_need):
+    route, ffma = _f32_bounds(n, d, k)
+    route4, ffma4 = _f32_bounds(n_need, d, k)
+    print(f"{what} f32 (core {times['core']}): K1 {times['K1']:.3f} ms, K2 "
+          f"{times['K2']:.3f} ms"
+          + (f" (one accumulator {times['K2 one-acc']:.3f} ms)"
+             if "K2 one-acc" in times else "")
+          + f", K4 at {n_need} needed rows {times['K4']:.3f} ms (bounds "
+          f"{route4:.3f}, {ffma4:.3f} ms); plain "
+          f"K1 {times['K1 plain']:.3f}, K2 {times['K2 plain']:.3f}, K4 "
+          f"{times['K4 plain']:.3f} ms; "
+          f"torch.mm+argmin (TF32 off) {times['library']:.3f} ms; bounds "
+          f"{route:.3f} ms (six bf16 passes at 989 TFLOP/s), {ffma:.3f} ms "
+          f"(f32 FMA at 67 TFLOP/s); K2 at "
+          f"{2.0 * n * d * k / times['K2'] / 1e9:.1f} TFLOP/s of f32 "
+          "product")
+
+
+def _f32_row_errors(name, x, c, prev, rows=F32_ERROR_ROWS):
+    """K2's raw scores on ``rows`` sampled rows (the f32 route, and its
+    one-accumulator variant where the tree has it) against the f64 product
+    at each row's label, relative to ||x||² + ||c||²: printed, and the
+    route's held to SCORE_RTOL and :func:`_gamma`.  Returns the route's."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    f32 = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    pick = torch.randperm(x.shape[0], generator=gen, device="cuda")[:rows]
+    xs, ps = x[pick].contiguous(), prev[pick].contiguous()
+    errs = {}
+    variants = [("route", "wgmma")]
+    if ONE_ACC in getattr(K, "_CORE_CODES", {}):
+        variants.append(("one accumulator", ONE_ACC))
+    core = K.scoring_core(xs, f32, c)
+    for what, forced in variants:
+        with _ForcedCore(forced if core == "wgmma" else core):
+            lab, raw = K.lloyd_delta_cuda(xs, c, ps, compute_dtype=f32,
+                                          with_mind=False)[:2]
+        _sync()
+        errs[what] = _f32_score_error(xs, c, lab, raw)
+        if core != "wgmma":
+            break
+    d = x.shape[1]
+    print(f"{name} f32 score error against f64 on {rows} rows (core "
+          f"{core}): " + ", ".join(f"{w} {e:.3e}" for w, e in errs.items())
+          + f" of ||x||² + ||c||² (SCORE_RTOL {SCORE_RTOL}, γ "
+          f"{_gamma(d):.3e})")
+    if core == "wgmma":
+        _check(errs["route"] <= min(SCORE_RTOL, _gamma(d)),
+               f"{name}: f32 score error {errs['route']:.3e} beyond "
+               f"min(SCORE_RTOL, γ)")
+    return errs["route"]
+
+
+def phase_headline_f32():
+    """imagenet-delta-f32: n = 1,280,000, d = 2048, k = 1000, f32
+    ``make_blobs`` on the card and a fixed init, computed in f32 (the
+    default for f32 data) on the core's f32 route: the main path in two
+    runs, each with the counts set to 0 just before and read just after --
+    ``fit_lloyd(update="delta")`` (F32_SWEEPS sweeps: K1 and K2) and
+    F32_HAMERLY_SWEEPS hand-driven ``hamerly_pass`` sweeps (K4) -- each
+    held against K1, and the fit's labels against the plain route's; then
+    K1, K2 and K4 timed beside their bounds, the library and the
+    one-accumulator variant, and the route's score error against f64.
+    Nothing is cut but the sweep depth.  Returns the runs' launches."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.init import random_init
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.ops.hamerly import (hamerly_bounds, hamerly_pass,
+                                              row_norms)
+    from kmeans_tpu_torch.ops.update import apply_update
+
+    n, d, k = HEADLINE["n"], HEADLINE["d"], HEADLINE["k"]
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    x, _, _ = kt.make_blobs(0, n, d, k, dtype=f32)
+    c0 = random_init(torch.Generator(device="cuda").manual_seed(1), x, k)
+    _sync()
+    print(f"imagenet-delta-f32 data: n={n} d={d} k={k} f32, "
+          f"{time.perf_counter() - t0:.2f} s to make")
+    core = K.scoring_core(x, f32, c0)
+    print(f"scoring core of K1, K2 and K4 at the headline shape in f32: "
+          f"{core}")
+    _check(core == "wgmma", "f32 at the headline shape is not on the core")
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    cfg = kt.KMeansConfig(k=k, update="delta")
+    t0 = time.perf_counter()
+    state, counts = _counted_run(lambda: kt.fit_lloyd(
+        x, k, config=cfg, init=c0, max_iter=F32_SWEEPS, tol=-1.0))
+    fit_s = time.perf_counter() - t0
+    _add_counts(launches, counts)
+    print(f"f32 fit_lloyd(update='delta', max_iter={F32_SWEEPS}, tol=-1): "
+          f"{int(state.n_iter)} sweeps + final view in {fit_s:.3f} s = "
+          f"{int(state.n_iter) / fit_s:.3f} iter/s; inertia "
+          f"{float(state.inertia):.6e}; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches "
+          f"{counts}")
+    _check(counts["lloyd_pass_cuda"] >= 3
+           and counts["lloyd_delta_cuda"] >= F32_SWEEPS - 3
+           and not counts["tiled_argmin_cuda"] and not counts["tiled_fold_cuda"],
+           f"f32 fit: launches {counts}")
+    _check(int(state.n_iter) == F32_SWEEPS and _finite(state.centroids)
+           and bool(torch.isfinite(state.inertia)),
+           "f32 fit: wrong sweep count or non-finite result")
+    c = state.centroids
+    lab1 = K.lloyd_pass_cuda(x, c, compute_dtype=f32, with_update=False)[0]
+    plain = K.lloyd_pass_plain(x, c, compute_dtype=f32, with_update=False)
+    moved = _check_labels_rows("f32 fit vs plain", x, c, f32, lab1, plain[0])
+    print(f"  K1 at the fit's centroids against the plain f32 route: "
+          f"{moved} rows differ, each a tie within {SCORE_RTOL}")
+    del plain
+
+    # Hand-driven Hamerly sweeps from the fit's centroids: a refresh (every
+    # row needed), then steady sweeps, each held against K1.
+    rno = row_norms(x, compute_dtype=f32)
+    hc = c.clone()
+    lab = torch.full((n,), -1, dtype=torch.int32, device="cuda")
+    sb = torch.zeros(n, device="cuda")
+    slb = torch.zeros(n, device="cuda")
+    c_cd, csq = hc.clone(), torch.zeros(k, device="cuda")
+    sums, hcounts = torch.zeros(k, d, device="cuda"), torch.zeros(
+        k, device="cuda")
+    recs, diffs = [], []
+    for i in range(F32_HAMERLY_SWEEPS):
+        out, counts = _counted_run(lambda: hamerly_pass(
+            x, hc, lab, sums, hcounts, sb, slb, c_cd, csq, rno,
+            compute_dtype="float32"))
+        _add_counts(launches, counts)
+        _check(counts["lloyd_hamerly_cuda"] == 1,
+               f"f32 hamerly sweep {i}: launches {counts}")
+        lab, sums, hcounts, sb, slb, c_cd, csq, n_rec = out[:8]
+        ref = K.lloyd_pass_cuda(x, hc, compute_dtype=f32,
+                                with_update=False)[0]
+        diffs.append(_check_labels_rows(f"f32 hamerly sweep {i}", x, hc, f32,
+                                        lab, ref))
+        recs.append(int(n_rec))
+        hc = apply_update(hc, sums, hcounts)
+    print(f"f32 hamerly ({F32_HAMERLY_SWEEPS} sweeps): rows recomputed "
+          f"{recs}; rows labelled differently from K1 {diffs} (each a tie "
+          f"within {SCORE_RTOL})")
+    print(f"imagenet-delta-f32 main path launches: {launches}")
+
+    # Timings at the steady state: K2 from one more sweep's labels at the
+    # next centroids (this run's churn), K4 at the Hamerly sweeps' steady
+    # need.
+    _, _, need, _, _ = hamerly_bounds(hc, lab, sb, slb, c_cd, csq, rno, f32)
+    del rno, sb, slb, sums
+    prev, _, sums1, counts1, _ = K.lloyd_pass_cuda(x, c, compute_dtype=f32)
+    c = apply_update(c, sums1, counts1)
+    times = _f32_sweep_times(x, c, prev, need)
+    _print_f32_times("imagenet-delta-f32", times, n, d, k, int(need.sum()))
+    with _ForcedScoreBlock():
+        sb_ms = _time_ms(lambda: K.lloyd_delta_cuda(
+            x, c, prev, compute_dtype=f32, with_mind=False), 2)
+    print(f"imagenet-delta-f32 K2 on score_block (the parent's f32 route): "
+          f"{sb_ms:.3f} ms")
+    got = K.lloyd_delta_cuda(x, c, prev, compute_dtype=f32, with_mind=False)
+    want = K.lloyd_delta_plain(x, c, prev, compute_dtype=f32,
+                               with_mind=False)
+    moved = _check_labels_rows("K2 f32 headline", x, c, f32, got[0], want[0])
+    same = got[0] == want[0]
+    err = _within("K2 f32 headline raw scores", got[1][same], want[1][same],
+                  _row_scale(x, c, f32, got[0])[same])
+    print(f"K2 f32 headline: {moved} rows labelled differently from the "
+          f"plain version (ties), max abs err {err:.3e}")
+    _f32_row_errors("imagenet-delta-f32", x, c, prev)
+    return launches
+
+
+def phase_f32_bench():
+    """The f32-compute kernels of the tree this script runs in, so that two
+    commits can be compared in one call (copy this script over an older
+    checkout's and run each with ``--f32-bench``, in turns): K5 (raw
+    scores, as the serving engine calls it) at the serving batch shapes --
+    1536 and 3072 x 1000 (a mean and a full imagenet-serve batch) and
+    8192 x 65536 at d = 2048, at the engine's column range and at 128 and
+    256 columns for the first two --, the imagenet-delta-f32 fit (phase
+    4's data, init and depth, twice), and K1, K2
+    and K4 (13.4% of the rows needed, the headline's steady Hamerly
+    share) at the headline shape, each beside ``torch.mm`` + ``argmin``
+    with TF32 off and both bounds, the one-accumulator variant where the
+    tree has it, and the route's score error against f64 on sampled rows.
+    Blob data from a seed, f32.  Written against the APIs every tree since
+    the serving engine has."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.serve.assign import dense_k_tile
+
+    from kmeans_tpu_torch.models.init import random_init
+
+    f32 = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    d = HEADLINE["d"]
+    for rows, k, reps in ((1536, HEADLINE["k"], 50),
+                          (3072, HEADLINE["k"], 50),
+                          (8192, CODEBOOK["k"], 10)):
+        c = torch.randn(k, d, generator=gen, device="cuda") * 4
+        x = (c[torch.randint(0, k, (rows,), generator=gen, device="cuda")]
+             + torch.randn(rows, d, generator=gen, device="cuda"))
+        neg2c, csq = (c * -2).contiguous(), (c * c).sum(dim=1).contiguous()
+        core = K.scoring_core(x, f32, neg2c)
+        kw = {}
+        if hasattr(K, "neg2c_pieces") and core == "wgmma":
+            kw["neg2c_pieces"] = K.neg2c_pieces(neg2c)
+        tiles = [dense_k_tile(k, d)] + ([128, 256] if k < 4096 else [])
+        times = {}
+        for k_tile in dict.fromkeys(tiles):
+            times[k_tile] = _time_ms(lambda: K.tiled_argmin_cuda(
+                x, neg2c, csq, k_tile=k_tile, raw_scores=True, **kw), reps)
+        one = ""
+        if ONE_ACC in getattr(K, "_CORE_CODES", {}):
+            with _ForcedCore(ONE_ACC):
+                one_ms = _time_ms(lambda: K.tiled_argmin_cuda(
+                    x, neg2c, csq, k_tile=tiles[0], raw_scores=True), reps)
+            one = f", one accumulator {one_ms:.3f} ms"
+        lib = _time_ms(_f32_library(x, neg2c, csq), reps)
+        route, ffma = _f32_bounds(rows, d, k)
+        print(f"f32-bench K5 {rows} x {k} x {d} (core {core}): "
+              + ", ".join(f"k_tile {kt_} {ms:.3f} ms"
+                          for kt_, ms in times.items())
+              + f"{one}; torch.mm+argmin (TF32 off) {lib:.3f} ms; bounds "
+              f"{route:.3f} ms (six passes), {ffma:.3f} ms (f32 FMA)")
+        prev = K.tiled_argmin_cuda(x, neg2c, csq, k_tile=tiles[0],
+                                   raw_scores=True)[0]
+        _f32_row_errors(f"f32-bench {rows} x {k}", x, c, prev, rows=512)
+        del x, c, neg2c, csq, kw
+    n, k = HEADLINE["n"], HEADLINE["k"]
+    x, _, _ = kt.make_blobs(0, n, d, k, dtype=f32)
+    # The imagenet-delta-f32 fit: the same data and init as phase 4's.
+    c0 = random_init(torch.Generator(device="cuda").manual_seed(1), x, k)
+    cfg = kt.KMeansConfig(k=k, update="delta")
+    for run in ("first", "again"):
+        _sync()
+        t0 = time.perf_counter()
+        state = kt.fit_lloyd(x, k, config=cfg, init=c0, max_iter=F32_SWEEPS,
+                             tol=-1.0)
+        _sync()
+        fit_s = time.perf_counter() - t0
+        print(f"f32-bench imagenet-delta-f32 fit ({run}): "
+              f"{int(state.n_iter)} sweeps + final view in {fit_s:.3f} s = "
+              f"{int(state.n_iter) / fit_s:.3f} iter/s; inertia "
+              f"{float(state.inertia):.6e}")
+    del state
+    c = x[torch.randperm(n, generator=gen, device="cuda")[:k]].clone()
+    prev = K.lloyd_pass_cuda(x, c, compute_dtype=f32, with_update=False)[0]
+    c += 0.05 * torch.randn(k, d, generator=gen, device="cuda")
+    need = torch.rand(n, generator=gen, device="cuda") < 0.134
+    times = _f32_sweep_times(x, c, prev, need)
+    _print_f32_times("f32-bench headline", times, n, d, k, int(need.sum()))
+    _f32_row_errors("f32-bench headline", x, c, prev)
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: whole fits against the plain backend
 # ---------------------------------------------------------------------------
 
@@ -1544,7 +2042,11 @@ def _fractional_weights_fit():
 
 def _plans():
     """The planner's decision for every kind at the headline, glove and
-    codebook shapes (bf16), on this card's budget."""
+    codebook shapes (bf16, then f32), on this card's budget; in f32 the
+    scoring core at each shape (the core's f32 route: d % 4 == 0)."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
     from kmeans_tpu_torch.ops import plan as P
 
     budget = P.card_budget()
@@ -1561,6 +2063,20 @@ def _plans():
             want = "tiled" if name == "codebook" else "untiled"
             _check(plan.mode == want, f"plan {name} {kind}: {plan.mode}, "
                    f"not {want}")
+    for name, (d, k) in shapes.items():
+        x = torch.empty(2, d, device="cuda")
+        core = K.scoring_core(x, torch.float32, torch.empty(3, d,
+                                                            device="cuda"))
+        plans = {kind: P.kernel_plan(kind, d, k, x_itemsize=4,
+                                     cd_itemsize=4, budget=budget)
+                 for kind in P.CORE_KINDS}
+        print(f"  plan {name} in f32 (core {core}): " + "; ".join(
+            f"{kind} {p.mode}, k_tile {p.k_tile}" for kind, p in
+            plans.items()))
+        want = "tiled" if name == "codebook" else "untiled"
+        _check(core == "wgmma" and all(p.mode == want
+                                       for p in plans.values()),
+               f"plan {name} in f32: core {core}, plans {plans}")
 
 
 def _counted_run(fn):
@@ -1838,17 +2354,23 @@ def _kernel_name(name):
 def _device_split(fn, reps):
     """``fn()`` run ``reps`` times under ``torch.profiler`` (CUPTI) after
     one warm-up run: ``[(kernel name, launches a call, ms a call)]`` in the
-    order the kernels first ran, memsets and copies included."""
+    order the kernels first ran, memsets and copies included.  The
+    profiler's own warm-up step takes one more call, whose records are
+    dropped: tracing starts with it, so no measured call loses the
+    launches that ran while CUPTI was being enabled."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     _sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps,
+                                   repeat=1)) as prof:
+        for _ in range(1 + reps):
             fn()
-        _sync()
+            _sync()
+            prof.step()
     split = {}
     for evt in sorted((e for e in prof.events()
                        if e.device_type == DeviceType.CUDA),
@@ -2162,52 +2684,69 @@ def _route_scan_ms(name, route, card, prep, x):
 
 
 def _k5_serving(name, card, pool_t, centroids, rows, k_tile):
-    """K5 in f32 (``score_block``) at a serving batch shape against its
-    plain version, the f32 bound and ``torch.mm`` + ``argmin`` with TF32
-    off; returns its ms."""
+    """K5 in f32 at a serving batch shape on the core's f32 route, called
+    as the engine calls it (−2C's pieces held): against its plain version,
+    both bounds and ``torch.mm`` + ``argmin`` with TF32 off; beside it, in
+    the same call, its other column range (bit for bit), its
+    one-accumulator variant and ``score_block`` (the parent's f32 route:
+    labels equal but for near-ties within SCORE_RTOL); the score error of
+    the route and of the variant against f64 on 512 rows.  Returns its
+    ms."""
     import torch
 
     from kmeans_tpu_torch.ops import cuda_lloyd as K
-    from kmeans_tpu_torch.ops.distance import full_f32
 
+    f32 = torch.float32
     x = pool_t[:rows].contiguous()
     c = centroids.cuda()
     k, d = c.shape
     neg2c, csq = (c * -2).contiguous(), (c * c).sum(dim=1).contiguous()
-    _check(K.scoring_core(x, torch.float32, neg2c) == "score_block",
-           "K5 in f32 did not take score_block")
-    ms, (lab, raw) = _time_auto(lambda: K.tiled_argmin_cuda(
-        x, neg2c, csq, k_tile=k_tile, raw_scores=True))
+    _check(K.scoring_core(x, f32, neg2c) == "wgmma",
+           "K5 in f32 did not take the Hopper core")
+    pieces = K.neg2c_pieces(neg2c)
+
+    def k5(k_tile=k_tile):
+        return K.tiled_argmin_cuda(x, neg2c, csq, k_tile=k_tile,
+                                   raw_scores=True, neg2c_pieces=pieces)
+
+    ms, (lab, raw) = _time_auto(k5)
     plain_ms, (plab, praw) = _time_auto(lambda: K.tiled_argmin_plain(
         x, neg2c, csq, k_tile=k_tile, raw_scores=True))
-    moved = _check_labels_rows(f"K5 f32 {name}", x, c, torch.float32, lab,
-                               plab)
+    moved = _check_labels_rows(f"K5 f32 {name}", x, c, f32, lab, plab)
     same = lab == plab
     err = _within(f"K5 f32 {name} raw scores", raw[same], praw[same],
-                  _row_scale(x, c, torch.float32, lab)[same])
-
-    def library():
-        with full_f32():
-            return torch.mm(x, neg2c.T).add_(csq).argmin(dim=1)
-
-    lib_ms, _ = _time_auto(library)
+                  _row_scale(x, c, f32, lab)[same])
+    lib_ms, _ = _time_auto(_f32_library(x, neg2c, csq))
     # The other column range beside the route's: 128 where the planner
-    # tiles, one range over all of k where it does not.
-    other = 128 if k_tile > 128 else -(-k // 128) * 128
-    other_ms, out = _time_auto(lambda: K.tiled_argmin_cuda(
-        x, neg2c, csq, k_tile=other, raw_scores=True))
+    # tiles, 256 where it does not.
+    other = 128 if k_tile > 128 else 256
+    other_ms, out = _time_auto(lambda: k5(other))
     _check(bool(torch.equal(out[0], lab) and torch.equal(out[1], raw)),
            f"K5 f32 {name}: k_tile={other} differs from k_tile={k_tile}")
-    narrow = f"; at k_tile={other} {other_ms:.3f} ms, bit for bit equal"
+    with _ForcedCore(ONE_ACC):
+        one_ms, (lab1, raw1) = _time_auto(k5)
+    with _ForcedScoreBlock():
+        sb_ms, (lab_sb, raw_sb) = _time_auto(k5)
+    _check_labels_rows(f"K5 f32 {name} vs score_block", x, c, f32, lab,
+                       lab_sb)
+    sample = slice(0, 512)
+    errs = [_f32_score_error(x[sample], c, lb[sample], rw[sample])
+            for lb, rw in ((lab, raw), (lab1, raw1), (lab_sb, raw_sb))]
+    _check(errs[0] <= min(SCORE_RTOL, _gamma(d)),
+           f"K5 f32 {name}: score error {errs[0]:.3e} beyond min("
+           "SCORE_RTOL, γ)")
     ops = 2.0 * rows * k * d
-    bound, by = _bound_ms(rows * d * 4 + k * d * 4 + k * 4 + rows * 8, 0.0,
-                          ops)
+    route_b, ffma_b = _f32_bounds(rows, d, k)
     print(f"K5 f32 {name} serving batch ({card}): n={rows} d={d} k={k} "
-          f"k_tile={k_tile}: {ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s; "
-          f"bound {bound:.3f} ms by {by}), plain {plain_ms:.3f} ms, "
+          f"k_tile={k_tile}: {ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s of "
+          f"f32 product; bounds {route_b:.3f} ms six bf16 passes, "
+          f"{ffma_b:.3f} ms f32 FMA), plain {plain_ms:.3f} ms, "
           f"torch.mm+argmin (TF32 off) {lib_ms:.3f} ms; {moved} labels "
-          f"differ from the plain version (ties), max abs err {err:.3e}"
-          f"{narrow}")
+          f"differ from the plain version (ties), max abs err {err:.3e}; at "
+          f"k_tile={other} {other_ms:.3f} ms, bit for bit equal; one "
+          f"accumulator {one_ms:.3f} ms; score_block {sb_ms:.3f} ms; score "
+          f"error against f64 on 512 rows: route {errs[0]:.3e}, one "
+          f"accumulator {errs[1]:.3e}, score_block {errs[2]:.3e}")
     return ms
 
 
@@ -2296,9 +2835,16 @@ def main() -> int:
     if sys.argv[1:] == ["--fold-split"]:
         phase_fold_split()
         return 0
+    if sys.argv[1:] == ["--f32-bench"]:
+        phase_f32_bench()
+        return 0
     phase_build()
     phase_kernels()
     kernels, headline_launches, imagenet_c = phase_headline()
+    f32_launches = phase_headline_f32()
+    _add_counts(headline_launches, f32_launches)
+    for row in kernels:
+        row["launches"] += f32_launches.get(row["name"], 0)
     phase_whole_fit()
     tiled, codebook_launches, codebook_c = phase_codebook(headline_launches)
     for row in kernels:

@@ -11,11 +11,14 @@
 // the plain PyTorch versions live in kmeans_tpu_torch/ops/cuda_lloyd.py.
 //
 // Two scoring cores.  K1, K2, K4 and K5 score bf16 x in bf16 compute with
-// d % 8 == 0 and 16-byte-aligned bases (the rule is scoring_core in
-// cuda_lloyd.py, and the wrapper passes its choice in) with the Hopper core
-// below (core_score_kernel: TMA into an mbarrier ring -- cp.async for K4's
-// gathered rows --, wgmma, the argmin and second-min taken from registers,
-// over a column range for K5).  Every other input runs score_block:
+// d % 8 == 0, and f32 x in f32 compute with d % 4 == 0, with 16-byte-aligned
+// bases (the rule is scoring_core in cuda_lloyd.py, and the wrapper passes
+// its choice in) on the Hopper core below (core_score_kernel: TMA into an
+// mbarrier ring -- cp.async for K4's gathered rows --, wgmma, the argmin and
+// second-min taken from registers, over a column range for K5; in f32,
+// core32_score_kernel: the reference's six-pass bf16 product, x split into
+// three bf16 pieces on chip and -2C's pieces split by the wrapper).  Every
+// other input runs score_block:
 //
 // * A block scores BM = 128 rows against every centroid in k-tiles of
 //   BN = 128 (score_block).  The rows are a contiguous block (K1, K2) or
@@ -55,7 +58,8 @@
 // does the product for its needed rows only.  score_block is simple rather
 // than fast: no wgmma, no TMA, no software pipelining; the x tile is re-read
 // from L2 once per k-tile.  It stays for the inputs the Hopper core does not
-// take (f32 compute, f32 x, d % 8 != 0).
+// take (f32 x in bf16 compute, bf16 x in f32 compute, a d off TMA's
+// 16-byte row stride, misaligned bases).
 
 #include <cuda.h>             // CUtensorMap and its enums only: no driver call is linked
 #include <cuda_runtime.h>
@@ -655,7 +659,8 @@ tiled_merge_kernel(const XT* __restrict__ x, const float* __restrict__ part_best
 
 // ---------------------------------------------------------------------------
 // The Hopper scoring core of K1, K2, K4 and K5 (bf16 x in bf16 compute,
-// d % 8 == 0, 16-byte-aligned bases).  What bounds it: the distance product,
+// d % 8 == 0, 16-byte-aligned bases; its f32 route, core32_score_kernel, is
+// described after it and shares its epilogue).  What bounds it: the distance product,
 // 2*n*d*k bf16 operations on the tensor cores (>= 5.3 ms at the headline
 // shape), and the L2 traffic of its tiles.  score_block lost to the
 // library's matmul + argmin by 4-6x for four reasons, and the design answers
@@ -705,7 +710,8 @@ tiled_merge_kernel(const XT* __restrict__ x, const float* __restrict__ part_best
 // global index wins across a range edge.  Min and max are exact, so the
 // result does not depend on how the columns are grouped, and the wgmma
 // products sum in the order mma.sync does: the core's labels, scores and
-// second-min equal score_block's bit for bit (chip_smoke.py checks it).  A
+// second-min equal score_block's bit for bit in bf16 (chip_smoke.py checks
+// it; the f32 route's six passes agree with its FMA to the f32 tolerance).  A
 // cluster of two blocks sharing the -2C tile by TMA multicast halved the L2
 // reads of -2C and did not move the headline time beyond its run-to-run
 // spread (PERF.md), so L2 is not what holds the core and it stays one
@@ -855,6 +861,78 @@ __device__ __forceinline__ void core_merge(float& best, int& idx, float& second,
   }
 }
 
+// A consumer thread's part of one column sub-slice's argmin: it holds rows
+// r and r + 8 (h = 0, 1) and, in n8 chunk j, columns col0 + 8j + c_lo (+1),
+// score acc[4j + 2h + e] - csq.  It adds csq (+inf at or past col_hi) in
+// increasing column order with strict '<', the 4 lanes that share a row
+// merge by (value, index), and the sub-slice is carried into the row's
+// run with strict '<' (later sub-slices hold higher indices); with SECOND
+// the second-min rides the same lattice as score_block's.
+template <int NJ, bool SECOND>
+__device__ __forceinline__ void core_scan_slice(const float (&acc)[4 * NJ],
+                                                const float* __restrict__ csq, int col0,
+                                                int col_hi, int c_lo, float (&run_best)[2],
+                                                int (&run_idx)[2], float (&run_second)[2]) {
+  float best[2] = {INFINITY, INFINITY}, second[2] = {INFINITY, INFINITY};
+  int idx[2] = {col0, col0};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = col0 + 8 * j + c_lo + e;
+      const float cs = col < col_hi ? __ldg(csq + col) : INFINITY;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v = cs + acc[4 * j + 2 * h + e];
+        if (v < best[h]) {
+          if constexpr (SECOND) second[h] = best[h];
+          best[h] = v;
+          idx[h] = col;
+        } else if constexpr (SECOND) {
+          second[h] = fminf(second[h], v);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1)
+      core_merge<SECOND>(best[h], idx[h], second[h],
+                         __shfl_xor_sync(0xffffffffu, best[h], o),
+                         __shfl_xor_sync(0xffffffffu, idx[h], o),
+                         SECOND ? __shfl_xor_sync(0xffffffffu, second[h], o) : 0.f);
+    if constexpr (SECOND)
+      run_second[h] = fminf(fminf(run_second[h], second[h]), fmaxf(run_best[h], best[h]));
+    if (best[h] < run_best[h]) {
+      run_best[h] = best[h];
+      run_idx[h] = idx[h];
+    }
+  }
+}
+
+// A tile's per-row triples into the (ranges, n) part buffers: one lane of
+// the 4 that share each of the thread's two rows r_lo and r_lo + 8.
+template <bool SECOND>
+__device__ __forceinline__ void core_write_parts(const float (&run_best)[2],
+                                                 const int (&run_idx)[2],
+                                                 const float (&run_second)[2], int row0,
+                                                 int r_lo, int lane, int m, int n, int range,
+                                                 float* __restrict__ part_best,
+                                                 int* __restrict__ part_idx,
+                                                 float* __restrict__ part_second) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + r_lo + 8 * h;
+    if ((lane & 3) == 0 && row < m) {
+      const size_t o = (size_t)range * n + row;
+      part_best[o] = run_best[h];
+      part_idx[o] = run_idx[h];
+      if constexpr (SECOND) part_second[o] = run_second[h];
+    }
+  }
+}
+
 // Scores rows [0, n) of x_map, or with GATHER the rows rows[0 .. *count)
 // of x (a slot per listed row), against the columns of c_map in ranges of
 // k_tile (a multiple of 128), and writes each (range, row or slot)'s
@@ -971,55 +1049,325 @@ core_score_kernel(const __grid_constant__ CUtensorMap x_map,
         }
         wgmma_wait<0>();
         if (t128 == 0) mbar_arrive(&empty[held]);
+        core_scan_slice<CORE_BN / 8, SECOND>(acc, csq, col0, col_hi, c_lo, run_best, run_idx,
+                                             run_second);
+      }
+      core_write_parts<SECOND>(run_best, run_idx, run_second, row0, r_lo, lane, m, n, range,
+                               part_best, part_idx, part_second);
+    }
+  }
+}
 
-        float best[2] = {INFINITY, INFINITY}, second[2] = {INFINITY, INFINITY};
-        int idx[2] = {col0, col0};
+// ---------------------------------------------------------------------------
+// The core's f32 route: f32 x in f32 compute (d % 4 == 0, 16-byte-aligned
+// bases), K1, K2, K4 and K5 alike.  The reference computes every f32
+// product at Precision.HIGHEST, which on its own chip is six bf16 passes
+// (jax.lax.Precision's own documentation; DotAlgorithmPreset
+// BF16_BF16_F32_X6): each f32 operand is split exactly into three bf16
+// pieces, v = v1 + v2 + v3, and x1c1 + x1c2 + x2c1 + x1c3 + x2c2 + x3c1 is
+// summed in f32; the dropped products are each below 2^-24 of |x.c|.  This
+// route runs the same six products on wgmma.  What bounds it: 6 x 2*n*d*k
+// bf16 operations (31.5 TFLOP at the headline shape: >= 31.8 ms at 989
+// TFLOP/s), against 67 TFLOP/s for any f32 FMA kernel (>= 78 ms there).
+// Relative to the bf16 core it adds:
+//   * operands: -2C's three pieces (3, k, d8) bf16 are split by the wrapper
+//     (d8 = d rounded up to 8, zero columns past d) and come by one 3-D TMA
+//     load a stage (64-byte swizzle, 32 features of 128 centroids a piece).
+//     x comes as f32 -- by TMA (128-byte swizzle, 32 features of 128 rows),
+//     or for K4's gathered rows by cp.async, 16 bytes each, into the same
+//     layout -- into a ring of C32_XSTAGES tiles of its own, loaded
+//     C32_XSTAGES - 1 stages ahead, and the producer warpgroup splits each
+//     tile into three bf16 tiles in the stage (64-byte swizzle, the layout
+//     TMA gives the C pieces): x is never split in device memory, which
+//     would be 1.5x an f32 x more to read.  The split is cvt.rn.bf16x2 and
+//     an exact f32 subtraction, twice (split_bf16x3 in cuda_lloyd.py, the
+//     same bits), bank-conflict free on both sides;
+//   * accumulation: per 16-feature step each consumer warpgroup issues the
+//     five correction products, smallest first, into one accumulator and
+//     then x1c1 into another (m64n128k16: 64 + 64 registers a thread, so a
+//     sub-slice is 128 columns), and the epilogue adds the two once:
+//     the tensor core's accumulation, which aligns to the largest addend
+//     and truncates, never mixes the small terms into the large sum, and
+//     x1c1 alone carries the bf16 core's error.  SPLIT = false sums all six
+//     into one accumulator, the variant chip_smoke.py measures beside it;
+//   * the epilogue is the bf16 core's (core_scan_slice), over 128 columns:
+//     csq + (x1c1 + corrections), +inf past the range, the lowest-index
+//     argmin and the second-min carried in registers, the ranges merged in
+//     order by the finishing launches.  K1, K2 and K4 take 256-column
+//     ranges (two sub-slices), as on the bf16 core, so their part buffers
+//     are the same shape, and a column's sum does not depend on the range:
+//     K1, K2, K4 and K5 give a row the same bits.  Against score_block's
+//     IEEE f32 FMA the scores agree to the f32 tolerance, not bit for bit.
+// ---------------------------------------------------------------------------
+constexpr int C32_BN = 128;                      // centroids of a sub-slice
+constexpr int C32_BK = 32;                       // features a stage: 128 bytes of f32 x
+constexpr int C32_STAGES = 3;                    // the pieces ring
+constexpr int C32_XSTAGES = 4;                   // the f32 x ring
+constexpr int C32_XF_BYTES = CORE_BM * C32_BK * 4;        // an f32 x tile
+constexpr int C32_XP_BYTES = CORE_BM * C32_BK * 2;        // one bf16 piece of it
+constexpr int C32_CP_BYTES = C32_BN * C32_BK * 2;         // one bf16 piece of a -2C tile
+constexpr int C32_STAGE_BYTES = 3 * (C32_XP_BYTES + C32_CP_BYTES);
+// Dynamic shared memory: the pieces ring, the x ring and the alignment
+// slack; kmeans_tpu_torch/ops/plan.py prices it, with the rings' 14
+// mbarriers, as CORE_F32_SMEM_BYTES.
+constexpr int CORE32_SMEM = C32_STAGES * C32_STAGE_BYTES + C32_XSTAGES * C32_XF_BYTES + 1024;
+// The producer warpgroup splits x, so it keeps more registers than the
+// bf16 core's; the consumers hold 128 accumulators, not 128 + 128.
+constexpr int C32_PRODUCER_REGS = 88;
+constexpr int C32_CONSUMER_REGS = 208;
+static_assert(128 * (168 - C32_PRODUCER_REGS) >= 256 * (C32_CONSUMER_REGS - 168),
+              "the consumers' setmaxnreg.inc would wait forever");
+static_assert(CORE32_SMEM + 14 * 8 <= 232448, "the f32 core's rings overflow shared memory");
+
+// wgmma shared-memory descriptor of a K-major bf16 tile with 64-byte rows
+// and the 64-byte swizzle: 8-row groups 512 bytes apart (SBO).
+__device__ __forceinline__ uint64_t sw64_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) | (2ull << 62);
+}
+
+// A 3-D TMA load of the box at (c0, c1, c2) of map into dst, completing on bar.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// d (+)= A . B^T over 16 features: A 64 rows of an x piece, B 128 rows of a
+// -2C piece, both K-major in shared memory (64-byte swizzle); scale_d == 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Two f32 values split exactly into three bf16 pairs (see above).
+__device__ __forceinline__ void split3(float a, float b, uint32_t& p0, uint32_t& p1,
+                                       uint32_t& p2) {
+  const __nv_bfloat162 h0 = __floats2bfloat162_rn(a, b);
+  const float2 f0 = __bfloat1622float2(h0);
+  const float ra = __fsub_rn(a, f0.x), rb = __fsub_rn(b, f0.y);
+  const __nv_bfloat162 h1 = __floats2bfloat162_rn(ra, rb);
+  const float2 f1 = __bfloat1622float2(h1);
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(__fsub_rn(ra, f1.x), __fsub_rn(rb, f1.y));
+  p0 = bf2_bits(h0);
+  p1 = bf2_bits(h1);
+  p2 = bf2_bits(h2);
+}
+
+// A block's walk over its work, in the order the consumers score it:
+// tiles t = blockIdx.x, + gridDim.x, ... (row-block-major), each range's
+// 128-column sub-slices, each sub-slice's 32-feature blocks.
+struct Walk32 {
+  int tiles, ranges, kblocks, k, k_tile;
+  int t, col0, kb;
+  __device__ __forceinline__ Walk32(int tiles_, int ranges_, int kblocks_, int k_, int k_tile_)
+      : tiles(tiles_), ranges(ranges_), kblocks(kblocks_), k(k_), k_tile(k_tile_),
+        t(blockIdx.x), col0((blockIdx.x % ranges_) * k_tile_), kb(0) {}
+  __device__ __forceinline__ bool valid() const { return t < tiles; }
+  __device__ __forceinline__ int row0() const { return (t / ranges) * CORE_BM; }
+  __device__ __forceinline__ void next() {
+    if (++kb < kblocks) return;
+    kb = 0;
+    col0 += C32_BN;
+    if (col0 < min(k, (t % ranges) * k_tile + k_tile)) return;
+    t += gridDim.x;
+    col0 = (t % ranges) * k_tile;
+  }
+};
+
+// core_score_kernel's f32 route (see above): the same arguments, x in f32,
+// c_map over -2C's three bf16 pieces.
+template <bool GATHER, bool SECOND, bool SPLIT>
+__global__ void __launch_bounds__(CORE_THREADS, 1)
+core32_score_kernel(const __grid_constant__ CUtensorMap x_map,
+                    const __grid_constant__ CUtensorMap c_map, const float* __restrict__ csq,
+                    const float* __restrict__ x, const int* __restrict__ rows,
+                    const int* __restrict__ count, int n, int d, int k, int k_tile,
+                    float* __restrict__ part_best, int* __restrict__ part_idx,
+                    float* __restrict__ part_second) {
+  extern __shared__ __align__(1024) unsigned char core_smem[];
+  __shared__ __align__(8) uint64_t full[C32_STAGES], empty[C32_STAGES];
+  __shared__ __align__(8) uint64_t xfull[C32_XSTAGES], xempty[C32_XSTAGES];
+  unsigned char* ring = core_smem + ((1024u - (smem_u32(core_smem) & 1023u)) & 1023u);
+  unsigned char* xring = ring + C32_STAGES * C32_STAGE_BYTES;
+  const int m = GATHER ? *count : n;     // rows to score
+  const int ranges = (k + k_tile - 1) / k_tile;
+  const int tiles = ((m + CORE_BM - 1) / CORE_BM) * ranges;   // row-block-major
+  const int kblocks = (d + C32_BK - 1) / C32_BK;
+  const int wg = threadIdx.x >> 7, t128 = threadIdx.x & 127;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C32_STAGES; ++s) {
+      mbar_init(&full[s], 1 + 128);     // the C pieces' TMA and the 128 splitting threads
+      mbar_init(&empty[s], 2);          // one arrival from each consumer warpgroup
+    }
+    for (int s = 0; s < C32_XSTAGES; ++s) {
+      mbar_init(&xfull[s], GATHER ? 128 : 1);   // each copying thread, or the TMA's
+      mbar_init(&xempty[s], 128);               // each splitting thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // The producer: thread 0 issues the TMA loads (with GATHER every thread
+    // copies 8 rows' 16-byte chunk t128 % 8 of each x tile), x tiles
+    // C32_XSTAGES - 1 stages ahead; every thread splits 4 16-byte chunks
+    // (8 features of a row) of each tile into the three pieces.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C32_PRODUCER_REGS));
+    const int chunk = t128 & 7;
+    const CUtensorMap* xm = &x_map;
+    Walk32 cv(tiles, ranges, kblocks, k, k_tile), ld = cv;
+    int loads = 0;
+    auto load_x = [&]() {
+      const int slot = loads % C32_XSTAGES;
+      unsigned char* xf = xring + slot * C32_XF_BYTES;
+      if (GATHER || t128 == 0) mbar_wait(&xempty[slot], ((loads / C32_XSTAGES) & 1) ^ 1u);
+      if constexpr (GATHER) {
+        const int f = ld.kb * C32_BK + chunk * 4, row0 = ld.row0();
+#pragma unroll 1
+        for (int i = 0; i < 8; ++i) {
+          const int r = (t128 >> 3) + 16 * i;
+          const int src = row0 + r < m && f < d ? __ldg(rows + row0 + r) : -1;
+          cp_async_16(xf + r * (C32_BK * 4) + ((chunk ^ (r & 7)) << 4),
+                      x + (src >= 0 ? (size_t)src * d + f : 0), src >= 0 ? 16 : 0);
+        }
+        cp_async_arrive(&xfull[slot]);
+      } else if (t128 == 0) {
+        mbar_expect_tx(&xfull[slot], C32_XF_BYTES);
+        tma_load_2d(xf, xm, &xfull[slot], ld.kb * C32_BK, ld.row0());
+      }
+      ++loads;
+      ld.next();
+    };
+    for (int i = 0; i < C32_XSTAGES - 1 && ld.valid(); ++i) load_x();
+    for (int i = 0; cv.valid(); ++i, cv.next()) {
+      if (ld.valid()) load_x();
+      const int stage = i % C32_STAGES;
+      mbar_wait(&empty[stage], ((i / C32_STAGES) & 1) ^ 1u);
+      unsigned char* st = ring + stage * C32_STAGE_BYTES;
+      if (t128 == 0) {
+        mbar_expect_tx(&full[stage], 3 * C32_CP_BYTES);
+        tma_load_3d(st + 3 * C32_XP_BYTES, &c_map, &full[stage], cv.kb * C32_BK, cv.col0, 0);
+      }
+      const int slot = i % C32_XSTAGES;
+      mbar_wait(&xfull[slot], (i / C32_XSTAGES) & 1);
+      const unsigned char* xf = xring + slot * C32_XF_BYTES;
+#pragma unroll 1
+      for (int u = t128; u < CORE_BM * 4; u += 128) {
+        // Row r's 16-byte output chunk c: features 8c .. 8c + 7, the f32
+        // chunks 2c and 2c + 1 of the 128-byte-swizzled tile.
+        const int r = u >> 2, c = u & 3;
+        const float4 a =
+            *reinterpret_cast<const float4*>(xf + r * 128 + (((2 * c) ^ (r & 7)) << 4));
+        const float4 b =
+            *reinterpret_cast<const float4*>(xf + r * 128 + (((2 * c + 1) ^ (r & 7)) << 4));
+        uint4 q0, q1, q2;
+        split3(a.x, a.y, q0.x, q1.x, q2.x);
+        split3(a.z, a.w, q0.y, q1.y, q2.y);
+        split3(b.x, b.y, q0.z, q1.z, q2.z);
+        split3(b.z, b.w, q0.w, q1.w, q2.w);
+        const int o = r * (C32_BK * 2) + ((c ^ ((r >> 1) & 3)) << 4);
+        *reinterpret_cast<uint4*>(st + o) = q0;
+        *reinterpret_cast<uint4*>(st + C32_XP_BYTES + o) = q1;
+        *reinterpret_cast<uint4*>(st + 2 * C32_XP_BYTES + o) = q2;
+      }
+      mbar_arrive(&xempty[slot]);
+      // The pieces were written through the generic proxy; wgmma reads
+      // through the async proxy.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&full[stage]);
+    }
+    if constexpr (GATHER) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    // A consumer: rows cw*64 .. cw*64 + 63 of each tile, the bf16 core's
+    // fragment layout over 128 columns.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C32_CONSUMER_REGS));
+    const int cw = wg - 1, lane = threadIdx.x & 31;
+    const int r_lo = cw * 64 + (t128 >> 5) * 16 + (lane >> 2);
+    const int c_lo = (lane & 3) * 2;
+    float acc[64], acc_c[SPLIT ? 64 : 1];
 #pragma unroll
-        for (int j = 0; j < CORE_BN / 8; ++j) {
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = col0 + 8 * j + c_lo + e;
-            const float cs = col < col_hi ? __ldg(csq + col) : INFINITY;
+    for (int i = 0; i < (SPLIT ? 64 : 1); ++i) acc_c[i] = 0.f;
+    int i = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int row0 = (t / ranges) * CORE_BM, range = t % ranges;
+      const int col_lo = range * k_tile, col_hi = min(k, col_lo + k_tile);
+      float run_best[2] = {INFINITY, INFINITY}, run_second[2] = {INFINITY, INFINITY};
+      int run_idx[2] = {col_lo, col_lo};
+      for (int col0 = col_lo; col0 < col_hi; col0 += C32_BN) {
+        int held = -1;                  // the stage whose wgmma group is in flight
+        for (int kb = 0; kb < kblocks; ++kb, ++i) {
+          const int stage = i % C32_STAGES;
+          mbar_wait(&full[stage], (i / C32_STAGES) & 1);
+          const unsigned char* st = ring + stage * C32_STAGE_BYTES;
+          uint64_t xa[3], cb[3];
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const float v = cs + acc[4 * j + 2 * h + e];
-              if (v < best[h]) {
-                if constexpr (SECOND) second[h] = best[h];
-                best[h] = v;
-                idx[h] = col;
-              } else if constexpr (SECOND) {
-                second[h] = fminf(second[h], v);
-              }
+          for (int p = 0; p < 3; ++p) {
+            xa[p] = sw64_desc(st + p * C32_XP_BYTES + cw * 64 * (C32_BK * 2));
+            cb[p] = sw64_desc(st + 3 * C32_XP_BYTES + p * C32_CP_BYTES);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < C32_BK / 16; ++kk) {   // 16 features = 32 bytes = 2 units
+            const int acc_on = (kb > 0 || kk > 0) ? 1 : 0;
+            const int u = 2 * kk;
+            if constexpr (SPLIT) {
+              wgmma_m64n128k16(acc_c, xa[2] + u, cb[0] + u, acc_on);
+              wgmma_m64n128k16(acc_c, xa[1] + u, cb[1] + u, 1);
+              wgmma_m64n128k16(acc_c, xa[0] + u, cb[2] + u, 1);
+              wgmma_m64n128k16(acc_c, xa[1] + u, cb[0] + u, 1);
+              wgmma_m64n128k16(acc_c, xa[0] + u, cb[1] + u, 1);
+              wgmma_m64n128k16(acc, xa[0] + u, cb[0] + u, acc_on);
+            } else {
+              wgmma_m64n128k16(acc, xa[2] + u, cb[0] + u, acc_on);
+              wgmma_m64n128k16(acc, xa[1] + u, cb[1] + u, 1);
+              wgmma_m64n128k16(acc, xa[0] + u, cb[2] + u, 1);
+              wgmma_m64n128k16(acc, xa[1] + u, cb[0] + u, 1);
+              wgmma_m64n128k16(acc, xa[0] + u, cb[1] + u, 1);
+              wgmma_m64n128k16(acc, xa[0] + u, cb[0] + u, 1);
             }
           }
+          wgmma_commit();
+          wgmma_wait<1>();
+          if (held >= 0 && t128 == 0) mbar_arrive(&empty[held]);
+          held = stage;
         }
+        wgmma_wait<0>();
+        if (t128 == 0) mbar_arrive(&empty[held]);
+        if constexpr (SPLIT) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-#pragma unroll
-          for (int o = 1; o < 4; o <<= 1)
-            core_merge<SECOND>(best[h], idx[h], second[h],
-                               __shfl_xor_sync(0xffffffffu, best[h], o),
-                               __shfl_xor_sync(0xffffffffu, idx[h], o),
-                               SECOND ? __shfl_xor_sync(0xffffffffu, second[h], o) : 0.f);
-          // Later sub-slices hold higher indices: strict '<'.
-          if constexpr (SECOND)
-            run_second[h] = fminf(fminf(run_second[h], second[h]), fmaxf(run_best[h], best[h]));
-          if (best[h] < run_best[h]) {
-            run_best[h] = best[h];
-            run_idx[h] = idx[h];
-          }
+          for (int j = 0; j < 64; ++j) acc[j] = __fadd_rn(acc[j], acc_c[j]);
         }
+        core_scan_slice<C32_BN / 8, SECOND>(acc, csq, col0, col_hi, c_lo, run_best, run_idx,
+                                            run_second);
       }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + r_lo + 8 * h;
-        if ((lane & 3) == 0 && row < m) {
-          const size_t o = (size_t)range * n + row;
-          part_best[o] = run_best[h];
-          part_idx[o] = run_idx[h];
-          if constexpr (SECOND) part_second[o] = run_second[h];
-        }
-      }
+      core_write_parts<SECOND>(run_best, run_idx, run_second, row0, r_lo, lane, m, n, range,
+                               part_best, part_idx, part_second);
     }
   }
 }
@@ -1112,8 +1460,9 @@ hamerly_list_kernel(const unsigned char* __restrict__ need, int n,
 // Launch 5 of 5, after the core's gathered scoring (4 of 5): a warp per
 // listed row merges its slices with the second-min and runs K4's row
 // epilogue.
+template <class XT, class CT>
 __global__ void __launch_bounds__(NT)
-core_hamerly_finish_kernel(const bf16* __restrict__ x, const int* __restrict__ rows,
+core_hamerly_finish_kernel(const XT* __restrict__ x, const int* __restrict__ rows,
                            const int* __restrict__ count, const float* __restrict__ part_best,
                            const int* __restrict__ part_idx,
                            const float* __restrict__ part_second, int slices, int n,
@@ -1126,8 +1475,8 @@ core_hamerly_finish_kernel(const bf16* __restrict__ x, const int* __restrict__ r
   float best, second;
   int lab;
   merge_parts(part_best, part_idx, part_second, slices, n, slot, best, lab, second);
-  hamerly_row<bf16, bf16>(x, w, prev, rows[slot], d, k, lab, best, second, threadIdx.x & 31,
-                          labels, sb, slb, dsums, dcounts);
+  hamerly_row<XT, CT>(x, w, prev, rows[slot], d, k, lab, best, second, threadIdx.x & 31,
+                      labels, sb, slb, dsums, dcounts);
 }
 
 // ---------------------------------------------------------------------------
@@ -1743,18 +2092,32 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a row-major (rows, d) bf16 matrix, read in boxes of
-// CORE_BK features by box_rows rows with the 128-byte swizzle; reads past
-// the edges fill zeros.
-int make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d, int rows,
-             int box_rows) {
+// The tensor map of a row-major (rows, d) matrix of esize-byte elements,
+// read in boxes of box_cols features by box_rows rows with the 128-byte
+// swizzle; reads past the edges fill zeros.
+int make_map(EncodeTiled encode, CUtensorMap* map, const void* base, CUtensorMapDataType dtype,
+             int esize, int d, int rows, int box_cols, int box_rows) {
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)CORE_BK, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUresult r = encode(map, dtype, 2, const_cast<void*>(base), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kBadTensorMap;
+}
+
+// The tensor map of -2C's three bf16 pieces, a (3, k, d8) array, read in
+// boxes of C32_BK features by C32_BN centroids by all 3 pieces with the
+// 64-byte swizzle; reads past k and d8 fill zeros.
+int make_pieces_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d8, int k) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d8, (cuuint64_t)k, 3};
+  const cuuint64_t strides[2] = {(cuuint64_t)d8 * 2, (cuuint64_t)k * d8 * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)C32_BK, (cuuint32_t)C32_BN, 3};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kBadTensorMap;
 }
@@ -1770,9 +2133,10 @@ int launch_core_score(const void* x, const void* neg2c, const float* csq, const 
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kNoTensorMap;
   CUtensorMap x_map{}, c_map;
+  constexpr CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   if (!GATHER)
-    if (int e = make_map(encode, &x_map, x, d, n, CORE_BM)) return e;
-  if (int e = make_map(encode, &c_map, neg2c, d, k, CORE_BN)) return e;
+    if (int e = make_map(encode, &x_map, x, bf, 2, d, n, CORE_BK, CORE_BM)) return e;
+  if (int e = make_map(encode, &c_map, neg2c, bf, 2, d, k, CORE_BK, CORE_BN)) return e;
   int dev = 0, sms = 0;
   if (int e = (int)cudaGetDevice(&dev)) return e;
   if (int e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) return e;
@@ -1787,8 +2151,62 @@ int launch_core_score(const void* x, const void* neg2c, const float* csq, const 
   return (int)cudaGetLastError();
 }
 
+// The f32 route's score launch, as launch_core_score's: x in f32, pieces
+// -2C's (3, k, round_up(d, 8)) bf16 split.
+template <bool GATHER, bool SECOND, bool SPLIT>
+int launch_core32_score(const void* x, const void* pieces, const float* csq, const int* rows,
+                        const int* count, int n, int d, int k, int k_tile, float* part_best,
+                        int* part_idx, float* part_second, cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kNoTensorMap;
+  CUtensorMap x_map{}, c_map;
+  if (!GATHER)
+    if (int e = make_map(encode, &x_map, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, d, n, C32_BK,
+                         CORE_BM))
+      return e;
+  if (int e = make_pieces_map(encode, &c_map, pieces, (d + 7) & ~7, k)) return e;
+  int dev = 0, sms = 0;
+  if (int e = (int)cudaGetDevice(&dev)) return e;
+  if (int e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) return e;
+  auto kern = core32_score_kernel<GATHER, SECOND, SPLIT>;
+  if (int e = set_smem(kern, CORE32_SMEM)) return e;
+  const long long tiles =
+      (long long)((n + CORE_BM - 1) / CORE_BM) * ((k + k_tile - 1) / k_tile);
+  const int grid = (int)std::min<long long>(tiles, sms);
+  kern<<<grid, CORE_THREADS, CORE32_SMEM, stream>>>(
+      x_map, c_map, csq, static_cast<const float*>(x), rows, count, n, d, k, k_tile, part_best,
+      part_idx, part_second);
+  return (int)cudaGetLastError();
+}
+
+// The core for x of type XT: core = 1 the bf16 core or the f32 route,
+// core = 2 the f32 route's one-accumulator variant (dense rows without the
+// second-min only).
+template <class XT, bool GATHER, bool SECOND>
+int launch_core(int core, const void* x, const void* c, const float* csq, const int* rows,
+                const int* count, int n, int d, int k, int k_tile, float* part_best,
+                int* part_idx, float* part_second, cudaStream_t stream) {
+  if constexpr (std::is_same<XT, bf16>::value) {
+    if (core != 1) return kBadCore;
+    return launch_core_score<GATHER, SECOND>(x, c, csq, rows, count, n, d, k, k_tile, part_best,
+                                             part_idx, part_second, stream);
+  } else {
+    if (core == 1)
+      return launch_core32_score<GATHER, SECOND, true>(x, c, csq, rows, count, n, d, k, k_tile,
+                                                       part_best, part_idx, part_second, stream);
+    if constexpr (!GATHER && !SECOND)
+      if (core == 2)
+        return launch_core32_score<false, false, false>(x, c, csq, rows, count, n, d, k, k_tile,
+                                                        part_best, part_idx, part_second,
+                                                        stream);
+    return kBadCore;
+  }
+}
+
+// The Hopper core takes bf16 x in bf16 compute and f32 x in f32 compute,
+// with vector rows (d a multiple of 8, or of 4 in f32; aligned bases).
 template <class XT, class CT, bool VEC>
-constexpr bool core_takes = std::is_same<XT, bf16>::value && std::is_same<CT, bf16>::value && VEC;
+constexpr bool core_takes = std::is_same<XT, CT>::value && VEC;
 
 template <class XT, class CT, bool VEC>
 int launch_hamerly(const void* x, const void* neg2c, const float* csq, const float* w,
@@ -1815,12 +2233,12 @@ int launch_hamerly(const void* x, const void* neg2c, const float* csq, const flo
     if (int e = (int)cudaGetLastError()) return e;
     hamerly_list_kernel<<<groups, NT, 0, stream>>>(need, n, group_start, rows);
     if (int e = (int)cudaGetLastError()) return e;
-    if (int e = launch_core_score<true, true>(x, neg2c, csq, rows, n_rec, n, d, k, CORE_BN,
-                                              part_best, part_idx, part_second, stream))
+    if (int e = launch_core<XT, true, true>(core, x, neg2c, csq, rows, n_rec, n, d, k, CORE_BN,
+                                            part_best, part_idx, part_second, stream))
       return e;
     const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
-    core_hamerly_finish_kernel<<<(unsigned)blocks, NT, 0, stream>>>(
-        static_cast<const bf16*>(x), rows, n_rec, part_best, part_idx, part_second,
+    core_hamerly_finish_kernel<XT, CT><<<(unsigned)blocks, NT, 0, stream>>>(
+        static_cast<const XT*>(x), rows, n_rec, part_best, part_idx, part_second,
         (k + CORE_BN - 1) / CORE_BN, n, w, prev, d, k, labels, sb, slb, dsums, dcounts);
     return (int)cudaGetLastError();
   } else {
@@ -1841,12 +2259,12 @@ int launch_tiled_argmin(const void* x, const void* neg2c, const float* csq, int 
   if (core) {
     if constexpr (core_takes<XT, CT, VEC>) {
       if (int e = with_second
-                      ? launch_core_score<false, true>(x, neg2c, csq, nullptr, nullptr, n, d, k,
-                                                       k_tile, part_best, part_idx, part_second,
-                                                       stream)
-                      : launch_core_score<false, false>(x, neg2c, csq, nullptr, nullptr, n, d, k,
-                                                        k_tile, part_best, part_idx, nullptr,
-                                                        stream))
+                      ? launch_core<XT, false, true>(core, x, neg2c, csq, nullptr, nullptr, n, d,
+                                                     k, k_tile, part_best, part_idx, part_second,
+                                                     stream)
+                      : launch_core<XT, false, false>(core, x, neg2c, csq, nullptr, nullptr, n, d,
+                                                      k, k_tile, part_best, part_idx, nullptr,
+                                                      stream))
         return e;
     } else {
       return kBadCore;
@@ -1882,8 +2300,8 @@ int launch_pass(const void* x, const void* neg2c, const float* csq, const float*
   const int merge_raw = raw || with_update;
   if (core) {
     if constexpr (core_takes<XT, CT, VEC>) {
-      if (int e = launch_core_score<false, false>(x, neg2c, csq, nullptr, nullptr, n, d, k,
-                                                  CORE_BN, part_best, part_idx, nullptr, stream))
+      if (int e = launch_core<XT, false, false>(core, x, neg2c, csq, nullptr, nullptr, n, d, k,
+                                                CORE_BN, part_best, part_idx, nullptr, stream))
         return e;
       const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
       tiled_merge_kernel<XT><<<(unsigned)blocks, NT, 0, stream>>>(
@@ -1917,8 +2335,8 @@ int launch_delta(const void* x, const void* neg2c, const float* csq, const float
   const XT* xt = static_cast<const XT*>(x);
   if (core) {
     if constexpr (core_takes<XT, CT, VEC>) {
-      if (int e = launch_core_score<false, false>(x, neg2c, csq, nullptr, nullptr, n, d, k,
-                                                  CORE_BN, part_best, part_idx, nullptr, stream))
+      if (int e = launch_core<XT, false, false>(core, x, neg2c, csq, nullptr, nullptr, n, d, k,
+                                                CORE_BN, part_best, part_idx, nullptr, stream))
         return e;
       const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
       core_delta_finish_kernel<XT, CT><<<(unsigned)blocks, NT, 0, stream>>>(
@@ -1955,8 +2373,10 @@ int launch_delta(const void* x, const void* neg2c, const float* csq, const float
     return kBadDtype;                                                               \
   } while (0)
 
-// core = 1 scores with the Hopper core (the wrapper's scoring_core rule);
-// part_best / part_idx are its (ceil(k / 256), n) slice buffers.  K1 folds
+// core = 1 scores with the Hopper core (the wrapper's scoring_core rule; in
+// f32, neg2c is then -2C's (3, k, round_up(d, 8)) bf16 pieces), core = 2
+// with its f32 one-accumulator variant; part_best / part_idx are its
+// (ceil(k / 256), n) slice buffers.  K1 folds
 // on the fold core when with_update (fold_vec its vector rule, the scratch
 // as _fold_scratch in cuda_lloyd.py sizes it, with the norms unless raw).
 extern "C" int kml_lloyd_pass(const void* x, int x_dtype, const void* neg2c, int cd,
@@ -1991,7 +2411,8 @@ extern "C" int kml_accumulate(const void* x, int x_dtype, int cd, const int* lab
                part, part_counts, sq_part, sums, counts, static_cast<cudaStream_t>(stream));
 }
 
-// core = 1: the Hopper core.  part_best / part_idx / part_second are its
+// core = 1: the Hopper core (in f32 neg2c is -2C's bf16 pieces, as for
+// kml_lloyd_pass).  part_best / part_idx / part_second are its
 // (ceil(k / 256), n) slice buffers, rows (n) and group_start (one per
 // 1024-row group) the list of needed rows; n_rec is the device-side count
 // the core reads.  score_block (core = 0) takes none of them.
@@ -2008,7 +2429,9 @@ extern "C" int kml_lloyd_hamerly(const void* x, int x_dtype, const void* neg2c, 
                part_second, rows, group_start, static_cast<cudaStream_t>(stream));
 }
 
-// core = 1: the Hopper core over ranges of k_tile columns.
+// core = 1: the Hopper core over ranges of k_tile columns (in f32 neg2c is
+// -2C's bf16 pieces); core = 2 its f32 one-accumulator variant, without
+// the second-min.
 extern "C" int kml_tiled_argmin(const void* x, int x_dtype, const void* neg2c, int cd,
                                 const float* csq, int n, int d, int k, int k_tile, int raw,
                                 int with_second, int vec, int core, float* part_best,

@@ -41,10 +41,17 @@ same bits every launch and the same sums from all three at the same labels
 K1, K2, K4 and K5 score with one of two cores (:func:`scoring_core`): the
 Hopper core (TMA loads into an mbarrier ring -- ``cp.async`` for K4's
 gathered rows --, ``wgmma``, the argmin and second-min taken from registers,
-over ``k_tile``-wide column ranges for K5) for bf16 x in bf16 compute with
-16-byte rows, ``score_block`` (``mma.sync`` in bf16, CUDA-core FMA in f32)
-for every other input.  The two give the same labels, scores and second-min
-bit for bit.
+over ``k_tile``-wide column ranges for K5) for bf16 x in bf16 compute and
+f32 x in f32 compute with 16-byte rows, ``score_block`` (``mma.sync`` in
+bf16, CUDA-core FMA in f32) for every other input.  In bf16 the two give
+the same labels, scores and second-min bit for bit.  In f32 the core runs
+the reference's ``Precision.HIGHEST`` algorithm (six bf16 passes): x and
+−2·C are each split exactly into three bf16 pieces (:func:`split_bf16x3`,
+:func:`neg2c_pieces`) and the six products that matter are summed in f32
+on the tensor cores (:func:`six_pass_scores_plain` is its plain model), so
+its scores agree with ``score_block``'s and the plain versions' IEEE f32
+to the f32 tolerance, not bit for bit.  Whichever core scores a row, K1,
+K2, K4 and K5 give it the same label, score and second-min bit for bit.
 """
 
 from __future__ import annotations
@@ -64,7 +71,8 @@ __all__ = ["lloyd_pass_cuda", "lloyd_delta_cuda", "accumulate_cuda",
            "lloyd_hamerly_plain", "tiled_argmin_plain", "tiled_fold_plain",
            "hamerly_compaction_plain", "fold_order_plain",
            "fold_core_plain", "fold_sort_passes", "launch_counts",
-           "reset_launch_counts", "scoring_core",
+           "reset_launch_counts", "scoring_core", "split_bf16x3",
+           "neg2c_pieces", "six_pass_scores_plain",
            "DENSE_GROUP_ROWS", "DENSE_SLOTS", "HAMERLY_SLOTS"]
 
 #: ``dense_tiles`` keeps the TPU kernels' meaning: the number of 1024-row
@@ -85,8 +93,14 @@ _SORT_BITS = 8
 _SORT_TILE = 4096
 _FOLD_CHUNK = 256
 _FOLD_SPAN = 2048
-#: Centroids of one column slice of the Hopper core (``CORE_BN``).
+#: Centroids of one column range of K1, K2 and K4 on the Hopper core
+#: (``CORE_BN``: one 256-column slice in bf16, two 128-column sub-slices
+#: on the f32 route).
 _CORE_SLICE = 256
+#: The ``core`` code of the C entry points: ``score_block``, the Hopper
+#: core, and the f32 route's one-accumulator variant, which ``chip_smoke.py``
+#: measures beside it (dense rows without the second-min only).
+_CORE_CODES = {"score_block": 0, "wgmma": 1, "wgmma_one_acc": 2}
 #: Negative codes of the C entry points (CUDA's own errors are positive).
 _ERRORS = {-1: "no kernel for this dtype pair",
            -2: "the Hopper core does not take this input",
@@ -150,6 +164,40 @@ def _check_k_tile(k_tile: int) -> None:
                          f"got {k_tile}")
 
 
+def split_bf16x3(v: torch.Tensor) -> torch.Tensor:
+    """The exact three-piece bf16 split of f32 ``v``, shape ``(3,
+    *v.shape)``: each piece the bf16 nearest to what the pieces before it
+    leave, so ``v == p0 + p1 + p2`` in f32 (every residual is exact in
+    f32, and round-to-nearest leaves at most 8 significant bits for the
+    third piece).  Exact wherever the third piece's bits stay at or above
+    bf16's least subnormal, 2⁻¹³³: for |v| >= 2⁻¹¹⁰ and for 0 (−0 sums to
+    +0); below that the split drops v's bits under 2⁻¹³³.  |v| within
+    half a bf16 ulp of f32's largest finite value rounds its first piece to
+    inf.  The core's f32 route splits x this way on chip (``cvt.rn.bf16x2``
+    and ``sub.rn``), the same bits."""
+    rest = v.float()
+    out = torch.empty(3, *v.shape, dtype=torch.bfloat16, device=v.device)
+    for i in range(3):
+        out[i] = rest
+        rest = rest - out[i].float()
+    return out
+
+
+def neg2c_pieces(neg2c: torch.Tensor) -> torch.Tensor:
+    """The three bf16 pieces of an f32 −2·C that the core's f32 route reads
+    by TMA: ``(3, k, d8)`` bf16, d8 = d rounded up to 8 (TMA's 16-byte row
+    stride in bf16), columns past d zero, so that they add 0 to every
+    product (:func:`split_bf16x3`; −2·C is an exponent shift of C, so its
+    pieces are −2 times C's).  Three PyTorch passes over k·d, outside the
+    product; K5 takes them precomputed (``neg2c_pieces=``) from a caller
+    that scores many batches against one −2·C."""
+    k, d = neg2c.shape
+    out = torch.zeros(3, k, -(-d // 8) * 8, dtype=torch.bfloat16,
+                      device=neg2c.device)
+    out[:, :, :d] = split_bf16x3(neg2c)
+    return out
+
+
 def _check_cuda_inputs(name: str, x: torch.Tensor, k: int, cd: torch.dtype,
                        w: torch.Tensor, neg2c: Optional[torch.Tensor],
                        *vectors: torch.Tensor) -> None:
@@ -188,15 +236,35 @@ def _vec_ok(d: int, cd: torch.dtype, *tensors: torch.Tensor) -> int:
 def scoring_core(x: torch.Tensor, cd: torch.dtype,
                  *operands: torch.Tensor) -> str:
     """The core K1, K2, K4 and K5 score ``x`` with: ``"wgmma"`` (the Hopper
-    core) where :func:`kmeans_tpu_torch.ops.plan.core_takes` says so and x
-    and ``operands`` start on 16-byte boundaries, else ``"score_block"``.
-    A fixed rule on dtype, d and alignment: a failed build or launch never
+    core, bf16 or its f32 route) where
+    :func:`kmeans_tpu_torch.ops.plan.core_takes` says so and x and
+    ``operands`` start on 16-byte boundaries, else ``"score_block"``.  A
+    fixed rule on dtype, d and alignment: a failed build or launch never
     picks the other core."""
     d = x.shape[1]
-    takes = (x.dtype == cd == torch.bfloat16
-             and core_takes("classic", d, 2, 2)
+    takes = (x.dtype in _DTYPE_CODES and cd in _DTYPE_CODES
+             and core_takes("classic", d, x.dtype.itemsize, cd.itemsize)
              and _vec_ok(d, cd, x, *operands))
     return "wgmma" if takes else "score_block"
+
+
+def _core_operand(neg2c: torch.Tensor, core: str,
+                  pieces: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """What the scoring core reads of −2·C: ``neg2c`` itself, or on the
+    core's f32 route its three bf16 pieces (``pieces`` when the caller
+    holds them, checked, else split now)."""
+    if core == "score_block" or neg2c.dtype != torch.float32:
+        return neg2c
+    if pieces is None:
+        return neg2c_pieces(neg2c)
+    k, d = neg2c.shape
+    if (tuple(pieces.shape) != (3, k, -(-d // 8) * 8)
+            or pieces.dtype != torch.bfloat16 or pieces.device != neg2c.device
+            or not pieces.is_contiguous() or pieces.data_ptr() % 16):
+        raise ValueError("neg2c_pieces must be neg2c_pieces(neg2c): a "
+                         "contiguous, 16-byte-aligned (3, k, d rounded up "
+                         f"to 8) bfloat16 tensor on {neg2c.device}")
+    return pieces
 
 
 def _core_parts(x: torch.Tensor, slices: int, second: bool = False):
@@ -217,7 +285,7 @@ def _core_parts(x: torch.Tensor, slices: int, second: bool = False):
 def _core_slices(x: torch.Tensor, k: int, core: str):
     """K1's and K2's part buffers on the Hopper core, (⌈k/256⌉, n) each, or
     ``(None, None)`` for ``score_block``."""
-    if core != "wgmma":
+    if core == "score_block":
         return None, None
     return _core_parts(x, -(-k // _CORE_SLICE))
 
@@ -327,6 +395,35 @@ def _argmin_plain(x, centroids, cd, chunk_size, rows=None, with_second=False,
             if with_second:
                 second[s] = part.scatter_(1, lab, torch.inf).amin(dim=1)
     return (labels, part_min, second) if with_second else (labels, part_min)
+
+
+def six_pass_scores_plain(x, neg2c_pieces, csq, chunk_size=4096):
+    """A plain model of the core's f32 route: ``csq + x·(−2·C)ᵀ`` as the
+    six bf16 products of x's and −2·C's exact three-piece splits
+    (:func:`split_bf16x3`, :func:`neg2c_pieces`) that the reference's
+    ``Precision.HIGHEST`` sums on its own chip, each product in f32 (bf16
+    pieces multiply exactly): the five corrections x3c1 + x2c2 + x1c3 +
+    x2c1 + x1c2, added once to the leading x1c1, as the kernel keeps the
+    two in separate accumulators and adds them in its epilogue; the dropped
+    terms are below one f32 ulp of |x·c|.  The kernel sums each product in
+    another order, so its scores agree with this model to the f32
+    tolerance, not bit for bit.  The CPU tests and ``chip_smoke.py`` phase
+    3 hold the route to it; no sweep runs it.  Returns (n, k) f32."""
+    d = x.shape[1]
+    cp = neg2c_pieces[:, :, :d].float()
+    csq = csq.to(device=x.device, dtype=torch.float32)
+    out = torch.empty(x.shape[0], cp.shape[1], dtype=torch.float32,
+                      device=x.device)
+    pairs = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1))
+    with full_f32():
+        for s in _chunks(x.shape[0], chunk_size):
+            xp = split_bf16x3(x[s]).float()
+            corr = None
+            for i, j in pairs:
+                p = xp[i] @ cp[j].T
+                corr = p if corr is None else corr + p
+            out[s] = csq + (xp[0] @ cp[0].T + corr)
+    return out
 
 
 def _row_sq_plain(x, chunk_size):
@@ -733,6 +830,7 @@ def lloyd_pass_cuda(x, centroids, *, weights=None, compute_dtype=None,
     _check_cuda_inputs("lloyd_pass_cuda", x, k, cd, w, neg2c)
     dev = x.device
     core = scoring_core(x, cd, neg2c)
+    c_op = _core_operand(neg2c, core)
     part_best, part_idx = _core_slices(x, k, core)
     labels = torch.empty(n, dtype=torch.int32, device=dev)
     min_d2 = torch.empty(n, dtype=torch.float32, device=dev)
@@ -748,10 +846,10 @@ def lloyd_pass_cuda(x, centroids, *, weights=None, compute_dtype=None,
         counts = torch.zeros(k, dtype=torch.float32, device=dev)
         fold = (0,) + (None,) * 6
     _launch(lloyd_pass_cuda, "kml_lloyd_pass", x,
-            x.data_ptr(), _DTYPE_CODES[x.dtype], neg2c.data_ptr(),
+            x.data_ptr(), _DTYPE_CODES[x.dtype], c_op.data_ptr(),
             _DTYPE_CODES[cd], csq.data_ptr(), w.data_ptr(), n, d, k,
             int(with_update), int(raw_scores), _vec_ok(d, cd, x, neg2c),
-            int(core == "wgmma"), labels.data_ptr(), min_d2.data_ptr(),
+            _CORE_CODES[core], labels.data_ptr(), min_d2.data_ptr(),
             sums.data_ptr(), counts.data_ptr(), _ptr(part_best),
             _ptr(part_idx), *fold)
     return labels, min_d2, sums, counts, (min_d2 * w).sum()
@@ -787,6 +885,7 @@ def lloyd_delta_cuda(x, centroids, labels_prev, *, weights=None,
     _check_cuda_inputs("lloyd_delta_cuda", x, k, cd, w, neg2c, prev)
     dev = x.device
     core = scoring_core(x, cd, neg2c)
+    c_op = _core_operand(neg2c, core)
     part_best, part_idx = _core_slices(x, k, core)
     labels = torch.empty(n, dtype=torch.int32, device=dev)
     min_d2 = torch.empty(n, dtype=torch.float32, device=dev)
@@ -796,10 +895,10 @@ def lloyd_delta_cuda(x, centroids, labels_prev, *, weights=None,
     groups = torch.zeros(-(-n // DENSE_GROUP_ROWS), dtype=torch.int32,
                          device=dev)
     _launch(lloyd_delta_cuda, "kml_lloyd_delta", x,
-            x.data_ptr(), _DTYPE_CODES[x.dtype], neg2c.data_ptr(),
+            x.data_ptr(), _DTYPE_CODES[x.dtype], c_op.data_ptr(),
             _DTYPE_CODES[cd], csq.data_ptr(), w.data_ptr(), prev.data_ptr(),
             n, d, k, int(with_mind), _vec_ok(d, cd, x, neg2c),
-            int(core == "wgmma"), labels.data_ptr(), min_d2.data_ptr(),
+            _CORE_CODES[core], labels.data_ptr(), min_d2.data_ptr(),
             dsums.data_ptr(), dcounts.data_ptr(), n_changed.data_ptr(),
             groups.data_ptr(), _ptr(part_best), _ptr(part_idx))
     dense_tiles = (groups > DENSE_SLOTS).sum().int()
@@ -883,6 +982,7 @@ def lloyd_hamerly_cuda(x, centroids, labels_prev, need, sb_in, slb_in, *,
     _check_cuda_inputs("lloyd_hamerly_cuda", x, k, cd, w, neg2c, prev, need,
                        sb_in, slb_in)
     core = scoring_core(x, cd, neg2c)
+    c_op = _core_operand(neg2c, core)
     labels = torch.empty(n, dtype=torch.int32, device=dev)
     sb = torch.empty(n, dtype=torch.float32, device=dev)
     slb = torch.empty(n, dtype=torch.float32, device=dev)
@@ -894,15 +994,15 @@ def lloyd_hamerly_cuda(x, centroids, labels_prev, need, sb_in, slb_in, *,
     # On the core: its slice buffers (indexed by a needed row's rank), the
     # list of needed rows, and each group's first rank in that list.
     scratch = []
-    if core == "wgmma":
+    if core != "score_block":
         scratch = [*_core_parts(x, -(-k // _CORE_SLICE), second=True),
                    torch.empty(n, dtype=torch.int32, device=dev),
                    torch.empty_like(groups)]
     _launch(lloyd_hamerly_cuda, "kml_lloyd_hamerly", x,
-            x.data_ptr(), _DTYPE_CODES[x.dtype], neg2c.data_ptr(),
+            x.data_ptr(), _DTYPE_CODES[x.dtype], c_op.data_ptr(),
             _DTYPE_CODES[cd], csq.data_ptr(), w.data_ptr(), prev.data_ptr(),
             need.data_ptr(), sb_in.data_ptr(), slb_in.data_ptr(), n, d, k,
-            _vec_ok(d, cd, x, neg2c), int(core == "wgmma"),
+            _vec_ok(d, cd, x, neg2c), _CORE_CODES[core],
             labels.data_ptr(), sb.data_ptr(), slb.data_ptr(),
             dsums.data_ptr(), dcounts.data_ptr(), n_rec.data_ptr(),
             groups.data_ptr(),
@@ -913,7 +1013,7 @@ def lloyd_hamerly_cuda(x, centroids, labels_prev, need, sb_in, slb_in, *,
 
 @_counted
 def tiled_argmin_cuda(x, neg2c, csq, *, k_tile, raw_scores=False,
-                      with_second=False):
+                      with_second=False, neg2c_pieces=None):
     """K5: the streamed argmin (replaces ``_tiled_argmin``).
 
     ``neg2c`` is −2·C in the compute dtype (k, d) and ``csq`` its f32
@@ -925,7 +1025,10 @@ def tiled_argmin_cuda(x, neg2c, csq, *, k_tile, raw_scores=False,
     :func:`scoring_core`'s core: the Hopper core walks ``k_tile``-wide
     column ranges, a row block's ranges on neighbouring blocks;
     ``score_block`` takes a block for each (slice, 128-row block),
-    slice-major."""
+    slice-major.  On the core's f32 route it reads −2·C's three bf16
+    pieces: ``neg2c_pieces`` (``neg2c_pieces(neg2c)``, from a caller that
+    holds them across calls) or split here; the plain version ignores
+    them."""
     if x.device.type == "cpu":
         return tiled_argmin_plain(x, neg2c, csq, k_tile=k_tile,
                                   raw_scores=raw_scores,
@@ -941,15 +1044,16 @@ def tiled_argmin_cuda(x, neg2c, csq, *, k_tile, raw_scores=False,
         raise ValueError(f"tiled_argmin_cuda: csq shape {tuple(csq.shape)} "
                          f"!= ({k},)")
     core = scoring_core(x, cd, neg2c)
+    c_op = _core_operand(neg2c, core, neg2c_pieces)
     parts = _core_parts(x, -(-k // k_tile), second=with_second)
     labels = torch.empty(n, dtype=torch.int32, device=dev)
     best = torch.empty(n, dtype=torch.float32, device=dev)
     second = torch.empty_like(best) if with_second else None
     _launch(tiled_argmin_cuda, "kml_tiled_argmin", x,
-            x.data_ptr(), _DTYPE_CODES[x.dtype], neg2c.data_ptr(),
+            x.data_ptr(), _DTYPE_CODES[x.dtype], c_op.data_ptr(),
             _DTYPE_CODES[cd], csq.data_ptr(), n, d, k, k_tile,
             int(raw_scores), int(with_second), _vec_ok(d, cd, x, neg2c),
-            int(core == "wgmma"), *(t.data_ptr() for t in parts),
+            _CORE_CODES[core], *(t.data_ptr() for t in parts),
             *([None] * (not with_second)),
             labels.data_ptr(), best.data_ptr(), _ptr(second))
     return (labels, best, second) if with_second else (labels, best)

@@ -4,7 +4,8 @@ Counterpart of ``vmem_breakdown`` / ``max_k_tile`` / ``kernel_plan`` in
 ``kmeans_tpu/ops/pallas_lloyd.py``, with the card's L2 cache in the role the
 TPU's VMEM plays there.  The port's untiled kernels (K1–K4) take any k: they
 stream the centroids through shared memory (in 256-wide slices on the Hopper
-core, 128-wide tiles in ``score_block``), and K2–K4 scatter their changed
+core -- two 128-wide sub-slices on its f32 route --, 128-wide tiles in
+``score_block``), and K2–K4 scatter their changed
 rows with f32 atomics into the sums.  Both rest on L2: every row block
 streams all of −2·C, and the atomics resolve in L2 while the sums fit
 there.  Once −2·C and the f32 sums outgrow it, the plan switches to the
@@ -21,8 +22,10 @@ Two layers, as in the reference:
   else ``"tiled"`` with the widest 128-multiple slice whose −2·C fits;
   ``"refuse"`` when not even one 128-column slice fits, or a block of the
   scoring core the shape runs (:func:`kernel_smem_bytes`: the Hopper core
-  at bf16 with d % 8 == 0 on either route, ``score_block`` otherwise) does
-  not fit the card's opt-in shared memory.
+  at bf16 with d % 8 == 0 or f32 with d % 4 == 0 on either route,
+  ``score_block`` otherwise) does not fit the card's opt-in shared memory.
+  On the core's f32 route −2·C is held as its three bf16 pieces
+  (:func:`neg2c_bytes`).
 * :func:`device_plan` adds the vetoes: fractional weights in a non-f32
   compute dtype, a device that is not a CUDA card, dtypes the kernels do not
   take, shapes out of range.
@@ -48,7 +51,8 @@ __all__ = ["KernelPlan", "Budget", "card_budget", "l2_breakdown",
            "max_k_tile", "kernel_plan", "device_plan", "shape_plan",
            "core_takes", "kernel_smem_bytes", "KINDS", "LANE",
            "L2_FALLBACK_BYTES", "SMEM_FALLBACK_BYTES",
-           "SCORE_BLOCK_SMEM_BYTES", "CORE_SMEM_BYTES", "CORE_KINDS"]
+           "SCORE_BLOCK_SMEM_BYTES", "CORE_SMEM_BYTES",
+           "CORE_F32_SMEM_BYTES", "CORE_KINDS", "neg2c_bytes"]
 
 #: Kernel kinds, the reference's plus ``accumulate`` (the labeled fold).
 KINDS = ("classic", "delta", "hamerly", "yinyang", "accumulate")
@@ -66,6 +70,13 @@ SCORE_BLOCK_SMEM_BYTES = 128 * (128 + 4) * 4
 #: and a 256 x 64 bf16 −2C tile, 1024 bytes of alignment slack, and the
 #: ring's 8 mbarriers.
 CORE_SMEM_BYTES = 4 * (128 + 256) * 64 * 2 + 1024 + 8 * 8
+#: Shared memory of the core's f32 route (``CORE32_SMEM`` in
+#: ``csrc/lloyd.cu``): a ring of 3 stages, each the three bf16 pieces of a
+#: 128 x 32 x tile and of a 128 x 32 −2C tile; a ring of 4 f32 x tiles
+#: (128 x 32) that the producer splits; 1024 bytes of alignment slack, and
+#: the two rings' 14 mbarriers.
+CORE_F32_SMEM_BYTES = (3 * 6 * 128 * 32 * 2 + 4 * 128 * 32 * 4 + 1024
+                       + 14 * 8)
 #: The kinds whose kernels take the Hopper core: K1, K2 and K4 untiled
 #: (yinyang runs K4), K5 tiled.
 CORE_KINDS = ("classic", "delta", "hamerly", "yinyang")
@@ -122,13 +133,20 @@ def card_budget(device=None) -> Budget:
 def core_takes(kind: str, d: int, x_itemsize: int, cd_itemsize: int) -> bool:
     """Whether a sweep of ``kind`` scores with the Hopper core, on either
     route: every scoring kind on bf16 x in bf16 compute with d a multiple
-    of 8 (TMA's 16-byte row stride, and K4's 16-byte ``cp.async`` chunks;
-    the wrappers add 16-byte-aligned bases).  f32 compute stays real f32
-    on the CUDA cores, f32 x is cast on load (TMA cannot), and an odd d
-    such as glove's 300 breaks the stride rule: those run
-    ``score_block``.  The labeled fold scores nothing."""
-    return (kind in CORE_KINDS and x_itemsize == 2 and cd_itemsize == 2
-            and d % 8 == 0)
+    of 8, or f32 x in f32 compute with d a multiple of 4 -- TMA's 16-byte
+    row stride, and K4's 16-byte ``cp.async`` chunks; the wrappers add
+    16-byte-aligned bases.  f32 compute scores as the reference's
+    ``Precision.HIGHEST`` does on its own chip: each f32 operand split
+    exactly into three bf16 pieces and six bf16 products summed in f32
+    (x split on chip, −2·C by the wrapper, padded with zero columns to a
+    multiple of 8, so an f32 d % 8 == 4 such as glove's 300 costs
+    nothing).  f32 x in bf16 compute (TMA cannot cast on load), bf16 x in
+    f32 compute and a d that breaks the stride rule run ``score_block``.
+    The labeled fold scores nothing."""
+    if kind not in CORE_KINDS or x_itemsize != cd_itemsize:
+        return False
+    return (x_itemsize == 2 and d % 8 == 0) or (x_itemsize == 4
+                                                 and d % 4 == 0)
 
 
 def kernel_smem_bytes(kind: str, d: int, *, x_itemsize: int = 2,
@@ -139,8 +157,19 @@ def kernel_smem_bytes(kind: str, d: int, *, x_itemsize: int = 2,
     if kind == "accumulate":
         return 0
     if core_takes(kind, d, x_itemsize, cd_itemsize):
-        return CORE_SMEM_BYTES
+        return CORE_F32_SMEM_BYTES if cd_itemsize == 4 else CORE_SMEM_BYTES
     return SCORE_BLOCK_SMEM_BYTES
+
+
+def neg2c_bytes(kind: str, d: int, k: int, *, x_itemsize: int = 2,
+                cd_itemsize: int = 2) -> int:
+    """Bytes of the −2·C operand a sweep of ``kind`` reads for k
+    centroids: k·d in the compute dtype, or on the core's f32 route its
+    three bf16 pieces, k rows of d rounded up to 8 columns (6 bytes an
+    element)."""
+    if cd_itemsize == 4 and core_takes(kind, d, x_itemsize, cd_itemsize):
+        return k * _round_up(d, 8) * 6
+    return k * d * cd_itemsize
 
 
 def _check_kind(kind: str) -> None:
@@ -154,23 +183,27 @@ def _round_up(v: int, m: int) -> int:
 
 def l2_breakdown(kind: str, d: int, k: int, *, cd_itemsize: int = 2,
                  k_tile: Optional[int] = None,
-                 groups: Optional[int] = None) -> dict:
+                 groups: Optional[int] = None,
+                 x_itemsize: int = 2) -> dict:
     """Named bytes that a sweep of ``kind`` keeps in L2: untiled, −2·C in
-    the compute dtype, ``||c||²``, the f32 sums and counts (the labeled
-    fold has only the sums and counts); with ``k_tile``, the one centroid
-    slice the resident blocks share (the labeled fold's slice of sums).
-    ``yinyang`` adds the centroid → group map and the per-group drift
-    vectors (t = ``groups``, default ⌈k/10⌉).  x is streamed, not held, so it
-    is not priced."""
+    the compute dtype (its three bf16 pieces on the core's f32 route, which
+    ``x_itemsize`` and ``cd_itemsize`` 4 select: :func:`neg2c_bytes`),
+    ``||c||²``, the f32 sums and counts (the labeled fold has only the sums
+    and counts); with ``k_tile``, the one centroid slice the resident
+    blocks share (the labeled fold's slice of sums).  ``yinyang`` adds the
+    centroid → group map and the per-group drift vectors (t = ``groups``,
+    default ⌈k/10⌉).  x is streamed, not held, so it is not priced."""
     _check_kind(kind)
     cols = k if k_tile is None else min(k_tile, _round_up(k, LANE))
+    c_bytes = functools.partial(neg2c_bytes, kind, d, cd_itemsize=cd_itemsize,
+                                x_itemsize=x_itemsize)
     if kind == "accumulate":
         terms = {"sums": cols * d * 4, "counts": cols * 4}
     elif k_tile is None:
-        terms = {"neg2c": k * d * cd_itemsize, "csq": k * 4,
+        terms = {"neg2c": c_bytes(k), "csq": k * 4,
                  "sums": k * d * 4, "counts": k * 4}
     else:
-        terms = {"neg2c_slice": cols * d * cd_itemsize, "csq_slice": cols * 4}
+        terms = {"neg2c_slice": c_bytes(cols), "csq_slice": cols * 4}
     if kind == "yinyang":
         t = groups if groups is not None else -(-k // 10)
         terms["group_map"] = k * 4
@@ -178,19 +211,22 @@ def l2_breakdown(kind: str, d: int, k: int, *, cd_itemsize: int = 2,
     return terms
 
 
-def _fits(kind, d, k, budget, *, cd_itemsize, k_tile=None, groups=None):
+def _fits(kind, d, k, budget, *, cd_itemsize, k_tile=None, groups=None,
+          x_itemsize=2):
     return sum(l2_breakdown(kind, d, k, cd_itemsize=cd_itemsize,
-                            k_tile=k_tile, groups=groups).values()
+                            k_tile=k_tile, groups=groups,
+                            x_itemsize=x_itemsize).values()
                ) <= budget.l2_bytes
 
 
 def max_k_tile(kind: str, d: int, k: int, *, cd_itemsize: int = 2,
                groups: Optional[int] = None,
-               budget: Optional[Budget] = None) -> Optional[int]:
+               budget: Optional[Budget] = None,
+               x_itemsize: int = 2) -> Optional[int]:
     """The widest multiple of 128 (capped at k rounded up to 128) whose
     slice fits the budget, or None when one 128-column slice does not."""
     budget = budget or card_budget()
-    kw = dict(cd_itemsize=cd_itemsize, groups=groups)
+    kw = dict(cd_itemsize=cd_itemsize, groups=groups, x_itemsize=x_itemsize)
     if not _fits(kind, d, k, budget, k_tile=LANE, **kw):
         return None
     lo, hi = 1, _round_up(max(k, 1), LANE) // LANE
@@ -215,7 +251,7 @@ def kernel_plan(kind: str, d: int, k: int, *, x_itemsize: int = 2,
                           "the kernels take float32 or bfloat16 x and compute")
     if not 1 <= d < 2 ** 31 or not 1 <= k < 2 ** 31:
         return KernelPlan("refuse", None, f"d={d}, k={k} out of range")
-    kw = dict(cd_itemsize=cd_itemsize, groups=groups)
+    kw = dict(cd_itemsize=cd_itemsize, groups=groups, x_itemsize=x_itemsize)
     mib = budget.l2_bytes / 2 ** 20
     mib_held = sum(l2_breakdown(kind, d, k, **kw).values()) / 2 ** 20
     held = ("the f32 sums" if kind == "accumulate" else
@@ -234,8 +270,8 @@ def kernel_plan(kind: str, d: int, k: int, *, x_itemsize: int = 2,
     smem = kernel_smem_bytes(kind, d, x_itemsize=x_itemsize,
                              cd_itemsize=cd_itemsize)
     if smem > budget.smem_per_block:
-        core = ("the Hopper core" if smem == CORE_SMEM_BYTES
-                else "score_block")
+        core = ("score_block" if smem == SCORE_BLOCK_SMEM_BYTES
+                else "the Hopper core")
         return KernelPlan(
             "refuse", None, f"a block of {core} needs {smem} B of shared "
             f"memory; the card offers {budget.smem_per_block}")

@@ -55,10 +55,10 @@ import numpy as np
 import torch
 
 from kmeans_tpu_torch.device import resolve_device
-from kmeans_tpu_torch.ops.cuda_lloyd import tiled_argmin_cuda
+from kmeans_tpu_torch.ops.cuda_lloyd import neg2c_pieces, tiled_argmin_cuda
 from kmeans_tpu_torch.ops.hamerly import (closure_assign_device,
                                           closure_candidates)
-from kmeans_tpu_torch.ops.plan import LANE, kernel_plan
+from kmeans_tpu_torch.ops.plan import LANE, core_takes, kernel_plan
 from kmeans_tpu_torch.quant import (QUANT_MARGIN_REL, QUANT_MODES,
                                     dequantize_matrix, quant_assign_device,
                                     quant_prune, quantize_codebook)
@@ -267,10 +267,13 @@ def decode_labels(body: bytes):
 def dense_k_tile(k: int, d: int, budget=None) -> int:
     """K5's column range for the dense route: the planner's ``k_tile`` for
     f32 operands (``kernel_plan("classic", d, k, x_itemsize=4,
-    cd_itemsize=4)``) where it tiles, else 128 columns: a range is one
-    block's work for 128 rows, and one range over all of k leaves most of
-    the card idle at a serving batch (K5's labels do not depend on the
-    range).  A refused shape raises: the route has no other kernel."""
+    cd_itemsize=4)``, which prices the core's f32 pieces) where it tiles,
+    else 128 columns: a range is one block's work for 128 rows, and one
+    range over all of k leaves most of the card idle at a serving batch.
+    On the core's f32 route 256-column ranges measured as fast at a full
+    imagenet-serve batch and slower at its mean batch (PERF.md §6), so 128
+    stays.  K5's labels do not depend on the range.  A refused shape
+    raises: the route has no other kernel."""
     plan = kernel_plan("classic", d, k, x_itemsize=4, cd_itemsize=4,
                        budget=budget)
     if plan.mode == "refuse":
@@ -516,7 +519,7 @@ class PreparedModel:
 
     __slots__ = ("gen", "k", "d", "csq", "pruned", "g_n", "m",
                  "gc", "gc2", "gsq", "cand", "csq_cand", "thr",
-                 "cand_mats2", "device", "_dev", "_pdev", "_quant")
+                 "cand_mats2", "device", "_dev", "_pieces", "_pdev", "_quant")
 
     def __init__(self, gen, *, prune_min_k: int = 256, device=None):
         self.gen = gen
@@ -524,6 +527,7 @@ class PreparedModel:
         self.device = resolve_device(device)
         self.csq = gen.sq_norms()
         self._dev = None
+        self._pieces = None
         self._pdev = None
         self._quant = None
         self.pruned = bool(prune_min_k) and gen.k >= int(prune_min_k)
@@ -552,12 +556,23 @@ class PreparedModel:
     def dense_dev(self):
         """``(−2·C, csq, k_tile)`` for K5: the f32 operands on the device,
         moved once per generation (−2·C is exact, a power-of-two scale),
-        and :func:`dense_k_tile`."""
+        and :func:`dense_k_tile`.  On a card where the core's f32 route
+        takes d, −2·C's three bf16 pieces are split once beside them
+        (:meth:`dense_pieces`)."""
         if self._dev is None:
-            self._dev = (*self._tensors(
-                self.gen.centroids * np.float32(-2.0), self.csq),
-                dense_k_tile(self.k, self.d))
+            neg2c, csq = self._tensors(self.gen.centroids * np.float32(-2.0),
+                                       self.csq)
+            if self.device.type == "cuda" and core_takes("classic", self.d,
+                                                         4, 4):
+                self._pieces = neg2c_pieces(neg2c)
+            self._dev = (neg2c, csq, dense_k_tile(self.k, self.d))
         return self._dev
+
+    def dense_pieces(self):
+        """−2·C's bf16 pieces for K5's ``neg2c_pieces=`` (None where K5
+        scores without them: its plain version, or ``score_block``)."""
+        self.dense_dev()
+        return self._pieces
 
     def pruned_dev(self):
         """``(gc, gsq, cand, csq_cand, thr, centroids)`` on the device for
@@ -967,7 +982,8 @@ class AssignEngine:
         """K5's labels of staged rows (its plain version on the CPU)."""
         neg2c, csq, k_tile = prep.dense_dev()
         labels = tiled_argmin_cuda(x_dev, neg2c, csq, k_tile=k_tile,
-                                   raw_scores=True)[0]
+                                   raw_scores=True,
+                                   neg2c_pieces=prep.dense_pieces())[0]
         return labels.cpu().numpy()
 
     def _run_kernel(self, kind: str, prep: PreparedModel,

@@ -1,6 +1,7 @@
 """The scoring-core rule of K1, K2, K4 and K5, the planner's shared-memory
-pricing of the core on either route, the plain version of K4's compaction,
-and K6's fold scratch shared by K1 and ``tiled_fold_cuda``.
+pricing of the core (bf16 and its f32 route) on either route, the plain
+version of K4's compaction, and K6's fold scratch shared by K1 and
+``tiled_fold_cuda``.
 
 All of it is Python that runs without a card: the rule and the sizes are
 what the wrappers hand the kernels, so they are checked here at the shapes
@@ -21,7 +22,7 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, BF16, 8, "wgmma"),               # one 16-byte row
     (BF16, BF16, 200, "wgmma"),             # a multiple of 8, not of 64
     (BF16, BF16, 300, "score_block"),       # glove: TMA's stride rule fails
-    (F32, F32, 2048, "score_block"),        # real f32 on the CUDA cores
+    (F32, F32, 2048, "wgmma"),              # the f32 route: six bf16 passes
     (F32, BF16, 2048, "score_block"),       # cast on load: TMA cannot
     (BF16, F32, 2048, "score_block"),
 ])
@@ -55,10 +56,11 @@ def test_kernel_smem_bytes_prices_the_core_a_shape_runs(kind, d, x_itemsize,
                                                          cd_itemsize):
     got = P.kernel_smem_bytes(kind, d, x_itemsize=x_itemsize,
                               cd_itemsize=cd_itemsize)
-    core = (kind != "accumulate" and d % 8 == 0 and x_itemsize == 2
-            and cd_itemsize == 2)
-    want = (0 if kind == "accumulate" else P.CORE_SMEM_BYTES if core
-            else P.SCORE_BLOCK_SMEM_BYTES)
+    core = kind != "accumulate" and x_itemsize == cd_itemsize and (
+        d % 8 == 0 if x_itemsize == 2 else d % 4 == 0)
+    want = (0 if kind == "accumulate" else P.SCORE_BLOCK_SMEM_BYTES
+            if not core else P.CORE_SMEM_BYTES if x_itemsize == 2
+            else P.CORE_F32_SMEM_BYTES)
     assert got == want
     # The tiled route's K5 scores on the same core: a budget one byte short
     # of it refuses the codebook shape where the core takes the input.
@@ -75,13 +77,19 @@ def test_core_smem_fits_the_h100_and_matches_the_kernel_ring():
     assert P.SCORE_BLOCK_SMEM_BYTES == 67_584
     assert P.SCORE_BLOCK_SMEM_BYTES < P.CORE_SMEM_BYTES <= \
         P.SMEM_FALLBACK_BYTES
+    # The f32 route (CORE32_SMEM): 3 stages of six 128 x 32 bf16 pieces, 4
+    # f32 x tiles of 128 x 32, the slack, and 14 mbarriers.
+    assert P.CORE_F32_SMEM_BYTES == 3 * 49152 + 4 * 16384 + 1024 + 112 \
+        == 214_128
+    assert P.CORE_SMEM_BYTES < P.CORE_F32_SMEM_BYTES <= P.SMEM_FALLBACK_BYTES
 
 
 @pytest.mark.parametrize("kind,d,cd_itemsize,mode", [
     ("classic", 2048, 2, "refuse"),     # needs the core, which does not fit
     ("delta", 2048, 2, "refuse"),
     ("delta", 300, 2, "untiled"),       # score_block fits
-    ("classic", 2048, 4, "untiled"),
+    ("classic", 2048, 4, "refuse"),     # the core's f32 route needs more
+    ("delta", 2050, 4, "untiled"),      # f32, d % 4 != 0: score_block
     ("hamerly", 2048, 2, "refuse"),     # K4 scores on the core too
     ("yinyang", 2048, 2, "refuse"),
     ("accumulate", 2048, 2, "untiled"),
@@ -94,8 +102,9 @@ def test_planner_refuses_when_the_core_does_not_fit(kind, d, cd_itemsize,
                          cd_itemsize=cd_itemsize, budget=small)
     assert plan.mode == mode, plan
     if mode == "refuse":
-        assert "Hopper core" in plan.why and str(P.CORE_SMEM_BYTES) in \
-            plan.why
+        assert "Hopper core" in plan.why and str(
+            P.CORE_SMEM_BYTES if cd_itemsize == 2
+            else P.CORE_F32_SMEM_BYTES) in plan.why
     # With the H100's budget every one of them runs untiled; at the
     # codebook width the tiled route's K5 takes the same core, so the small
     # budget refuses it where it refused the untiled route.
@@ -166,9 +175,9 @@ def test_fold_sort_passes_and_launches(k, passes):
 
 @pytest.mark.parametrize("kind", ["hamerly", "yinyang", "classic"])
 def test_planner_prices_the_core_for_k4_and_the_tiled_route(kind):
-    """K4 (hamerly, yinyang) and the tiled route's K5 need the core's ring;
-    glove's d = 300 and f32 compute stay on score_block, whose block fits
-    a budget the core does not."""
+    """K4 (hamerly, yinyang) and the tiled route's K5 need the core's ring,
+    in bf16 and on its f32 route; glove's d = 300 in bf16 stays on
+    score_block, whose block fits a budget the core does not."""
     budget = P.card_budget()
     short = P.Budget(budget.l2_bytes, P.CORE_SMEM_BYTES - 1, "test")
     for k in (1000, 65536):
@@ -179,7 +188,9 @@ def test_planner_prices_the_core_for_k4_and_the_tiled_route(kind):
         assert P.kernel_plan(kind, 300, k, budget=short).mode == (
             "untiled" if k == 1000 else "tiled")
         assert P.kernel_plan(kind, 2048, k, x_itemsize=4, cd_itemsize=4,
-                             budget=short).mode == (
+                             budget=short).mode == "refuse"
+        assert P.kernel_plan(kind, 2048, k, x_itemsize=4,
+                             cd_itemsize=4).mode == (
             "untiled" if k == 1000 else "tiled")
 
 

@@ -414,6 +414,119 @@ def test_tiled_argmin_on_the_core_matches_score_block(card, n, d, k, k_tile):
         assert torch.equal(got[2][rows], got[1][rows])
 
 
+def _scores64(x, c):
+    """f64 scores csq − 2x·c and their scale ||x||² + ||c||²."""
+    x64, c64 = x.double(), c.double()
+    csq = (c64 * c64).sum(1)
+    return (csq - 2.0 * x64 @ c64.T,
+            (x64 * x64).sum(1)[:, None] + csq[None, :])
+
+
+@pytest.mark.parametrize("n,d,k", [(2053, 4, 3), (2053, 100, 257),
+                                   (1031, 2048, 1000), (4099, 64, 256)])
+def test_f32_core_matches_plain_versions_and_the_six_pass_model(card, n, d,
+                                                               k):
+    """f32 x in f32 compute on the core's f32 route (six bf16 passes):
+    K1's and K2's labels equal the plain version's (tie-free blobs), the
+    raw scores agree with the plain IEEE f32 and the six-pass model to the
+    score tolerance and stay within 1e-5 and γ_d = d·2⁻²⁴ of the row scale
+    of the f64 product; K4 with every row needed and K5 at k_tile 128 and
+    384 give K2's labels and raw scores, K1's normed min and each other's
+    second-min bit for bit; two launches are equal bit for bit."""
+    x, c, w, prev = _blobs(14, n, d, k, card)
+    f32 = torch.float32
+    neg2c, csq = K._score_operands(c, f32)
+    assert K.scoring_core(x, f32, neg2c) == "wgmma"
+    k1 = K.lloyd_pass_cuda(x, c, weights=w, compute_dtype=f32)
+    k1n = K.lloyd_pass_cuda(x, c, compute_dtype=f32, with_update=False)
+    k2 = K.lloyd_delta_cuda(x, c, prev, weights=w, compute_dtype=f32,
+                            with_mind=False)
+    again = K.lloyd_delta_cuda(x, c, prev, weights=w, compute_dtype=f32,
+                               with_mind=False)
+    ones = torch.ones(n, dtype=torch.bool, device=card)
+    zeros = torch.zeros(n, device=card)
+    k4 = K.lloyd_hamerly_cuda(x, c, prev, ones, zeros, zeros,
+                              compute_dtype=f32)
+    want1 = K.lloyd_pass_plain(x, c, weights=w, compute_dtype=f32)
+    want2 = K.lloyd_delta_plain(x, c, prev, weights=w, compute_dtype=f32,
+                                with_mind=False)
+    torch.cuda.synchronize()
+    assert torch.equal(k1[0], want1[0]) and torch.equal(k2[0], want2[0])
+    assert torch.equal(k1[0], k2[0])
+    for g, e in zip(k1[1:], want1[1:]):
+        _close(g, e)
+    _close_scores(k2[1], want2[1])
+    for g, e in zip(k2[2:5], want2[2:5]):
+        _close(g, e)
+    assert all(torch.equal(a, b) for a, b in zip(k2[:2], again[:2]))
+    assert torch.equal(k4[0], k2[0]) and torch.equal(k4[1], k2[1])
+    model = K.six_pass_scores_plain(x, K.neg2c_pieces(neg2c), csq)
+    lab = k2[0].long()[:, None]
+    s64, scale = _scores64(x, c)
+    at = scale.gather(1, lab)[:, 0]
+    err = (k2[1].double() - s64.gather(1, lab)[:, 0]).abs() / at
+    assert float(err.max()) <= min(1e-5, d * 2.0 ** -24)
+    mod = (k2[1].double() - model.gather(1, lab)[:, 0].double()).abs() / at
+    assert float(mod.max()) <= 1e-5
+    for k_tile in (128, 384):
+        lab5, raw5, sec5 = K.tiled_argmin_cuda(
+            x, neg2c, csq, k_tile=k_tile, raw_scores=True, with_second=True)
+        normed = K.tiled_argmin_cuda(x, neg2c, csq, k_tile=k_tile)[1]
+        torch.cuda.synchronize()
+        assert torch.equal(lab5, k2[0]) and torch.equal(raw5, k2[1])
+        assert torch.equal(sec5, k4[2]) and torch.equal(normed, k1n[1])
+
+
+def test_f32_core_ties_at_sub_slice_and_range_edges(card):
+    """Exact duplicate centroids tie exactly on the f32 route too (equal
+    pieces): at the 128-column sub-slice edge inside a 256-column range
+    (127 | 128, K1 and K2), and for K4 and K5 at range edges (255 | 256,
+    383 | 384 at k_tile 128 and 384), the lower index wins with second-min
+    == min."""
+    n, d, k = 2053, 96, 520
+    x, c, _, prev = _blobs(15, n, d, k, card)
+    pairs = ((127, 128), (255, 256), (383, 384))
+    for i, (lo, hi) in enumerate(pairs):
+        c[hi] = c[lo]
+        x[8 * i:8 * (i + 1)] = c[lo]
+    f32 = torch.float32
+    neg2c, csq = K._score_operands(c, f32)
+    ones = torch.ones(n, dtype=torch.bool, device=card)
+    zeros = torch.zeros(n, device=card)
+    outs = [K.lloyd_hamerly_cuda(x, c, prev, ones, zeros, zeros,
+                                 compute_dtype=f32)[:3]]
+    outs += [K.tiled_argmin_cuda(x, neg2c, csq, k_tile=kt, raw_scores=True,
+                                 with_second=True) for kt in (128, 384)]
+    lab1 = K.lloyd_pass_cuda(x, c, compute_dtype=f32)[0]
+    lab2 = K.lloyd_delta_cuda(x, c, prev, compute_dtype=f32)[0]
+    torch.cuda.synchronize()
+    for i, (lo, _) in enumerate(pairs):
+        rows = slice(8 * i, 8 * (i + 1))
+        assert bool((lab1[rows] == lo).all() and (lab2[rows] == lo).all())
+        for lab, best, second in outs:
+            assert bool((lab[rows] == lo).all())
+            assert torch.equal(second[rows], best[rows])
+
+
+def test_k5_takes_held_pieces(card):
+    """K5's ``neg2c_pieces=`` (the serving engine's, split once a
+    generation) gives the bits of pieces split per call; pieces that are
+    not ``neg2c_pieces(neg2c)``'s shape raise before any launch."""
+    x, c, _, _ = _blobs(16, 1031, 300, 130, card)
+    neg2c, csq = K._score_operands(c, torch.float32)
+    held = K.neg2c_pieces(neg2c)
+    K.reset_launch_counts()
+    a = K.tiled_argmin_cuda(x, neg2c, csq, k_tile=128, raw_scores=True)
+    b = K.tiled_argmin_cuda(x, neg2c, csq, k_tile=128, raw_scores=True,
+                            neg2c_pieces=held)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, e) for g, e in zip(a, b))
+    with pytest.raises(ValueError, match="neg2c_pieces"):
+        K.tiled_argmin_cuda(x, neg2c, csq, k_tile=128,
+                            neg2c_pieces=held[:, :, :296].contiguous())
+    assert K.launch_counts()["tiled_argmin_cuda"] == 2
+
+
 FOLD_CORE_CASES = [
     # n, d, k, x dtype, compute dtype, every row on one label
     (2053, 2048, 1000, torch.bfloat16, torch.bfloat16, False),

@@ -330,9 +330,10 @@ def test_dense_route_runs_k5_over_its_column_ranges(monkeypatch):
     calls = []
     real = A.tiled_argmin_cuda
 
-    def spy(x_t, neg2c, csq, *, k_tile, raw_scores=False):
+    def spy(x_t, neg2c, csq, *, k_tile, raw_scores=False, **kw):
         calls.append((x_t.device.type, k_tile, raw_scores))
-        return real(x_t, neg2c, csq, k_tile=k_tile, raw_scores=raw_scores)
+        return real(x_t, neg2c, csq, k_tile=k_tile, raw_scores=raw_scores,
+                    **kw)
 
     monkeypatch.setattr(A, "tiled_argmin_cuda", spy)
     want = A.assign_direct(gen, x)
@@ -361,9 +362,10 @@ def test_certificate_failures_rescore_on_k5_where_the_batch_was_staged(
     calls = []
     real = A.tiled_argmin_cuda
 
-    def spy(x_t, neg2c, csq, *, k_tile, raw_scores=False):
+    def spy(x_t, neg2c, csq, *, k_tile, raw_scores=False, **kw):
         calls.append(x_t.clone())
-        return real(x_t, neg2c, csq, k_tile=k_tile, raw_scores=raw_scores)
+        return real(x_t, neg2c, csq, k_tile=k_tile, raw_scores=raw_scores,
+                    **kw)
 
     monkeypatch.setattr(A, "tiled_argmin_cuda", spy)
     eng = _engine(gen, **ROUTES[route])

@@ -529,7 +529,9 @@ def test_fit_delta_on_the_tiled_route_matches_the_reference(monkeypatch):
     cfg = dict(k=k, update="delta")
     untiled = fit_lloyd(x, k, init=c0, device="cpu", max_iter=20, tol=-1.0,
                         config=KMeansConfig(**cfg))
-    monkeypatch.setattr(P, "L2_FALLBACK_BYTES", 16_000)
+    # 3/4 of it holds one 128-column slice of −2C's three bf16 pieces (the
+    # core's f32 route: 6 bytes an element) and its csq, not two.
+    monkeypatch.setattr(P, "L2_FALLBACK_BYTES", 20_000)
     plan = fit_plan(x, k, config=KMeansConfig(**cfg), device="cpu")
     assert plan["mode"] == "tiled" and plan["k_tile"] == 128, plan
     port = fit_lloyd(x, k, init=c0, device="cpu", max_iter=20, tol=-1.0,
