@@ -10,7 +10,7 @@ if any fails:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` for sm_90a, with its seconds, register report, and the
    registers and spills of each variant of the Hopper core (bf16 and its
-   f32 route, with the f32 one-accumulator variant);
+   f32 route);
 3. each kernel against its plain PyTorch version on the card: ragged n,
    d in {2, 100, 2048}, k in {3, 1000}, float32 and bfloat16, zero-weight
    rows, a −1 sentinel ``prev``, out-of-range labels, and exact ties; each
@@ -26,8 +26,7 @@ if any fails:
    the f32 route's 128-column sub-slices) and, for K4 and K5, at a
    sub-slice edge inside a range and at range edges, in both dtypes; the
    f32 route's worst score error against an f64 product over the f32
-   cases, within SCORE_RTOL and (d + 2)·2⁻²⁴ of ||x||² + ||c||², printed
-   beside its one-accumulator variant's;
+   cases, within SCORE_RTOL and (d + 2)·2⁻²⁴ of ||x||² + ||c||²;
    the Hamerly kernel (K4) at need fractions 0, about 10% and 100%, and
    with every row needed against the delta kernel (K2), bit for bit; the
    k-tiled pair at 128-column slices (K5's labels, raw scores and
@@ -56,9 +55,11 @@ if any fails:
    "delta")`` (F32_SWEEPS sweeps) and F32_HAMERLY_SWEEPS hand-driven
    ``hamerly_pass`` sweeps, each run's counts set to 0 before it and read
    after, labels held against K1 and the plain route, then K1, K2 and K4
-   timed beside both bounds (six bf16 passes, f32 FMA), ``torch.mm`` +
-   ``argmin`` with TF32 off, ``score_block`` and the one-accumulator
-   variant, and the route's score error against f64 on sampled rows;
+   held against their plain versions and timed beside both bounds (six
+   bf16 passes, f32 FMA), ``torch.mm`` + ``argmin`` with TF32 off and
+   ``score_block``, and the route's score error against f64 on sampled
+   rows; then K2 in f32 on the route and on ``score_block`` at the glove
+   shape (n = 400,000, k = 1000) over d in F32_WIDTHS;
 5. whole ``KMeans(compute_dtype="bfloat16")`` fits with k-means++ at the
    ``glove`` shape, ``update="delta"`` and the default ``"auto"`` (the
    adaptive loop: n >= 16384), each held against a plain-backend fit,
@@ -97,10 +98,14 @@ if any fails:
    pruned or quant batch whose certificate failures it rescores; then K5
    in f32 (the core's f32 route) at the serving batch shapes against its
    plain version, both bounds and ``torch.mm`` + ``argmin`` with TF32 off,
-   beside its other column range, its one-accumulator variant and
-   ``score_block``, with each one's score error against f64;
-9. a ``{"kernels": [...]}`` line (K5's launches include serving's) and,
-   last, the ``{"ok": true, ...}`` line.
+   beside its other column range and ``score_block``, with each one's
+   score error against f64;
+9. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+   line.  A kernel has a row for each compute dtype its main-path runs
+   score in: bf16 (phases 4 and 6) and the f32 route (K1, K2 and K4 from
+   imagenet-delta-f32, K5 from each served model's runs), each row's
+   launches counted in its own runs and its times taken at its own
+   shape.
 
 ``python3 chip_smoke.py --fold-split`` runs phases 1 and 7 only (the
 kernels build at their first call), so it also splits an older tree's K6.
@@ -232,17 +237,15 @@ def phase_device():
 
 #: The Hopper core's variants as ptxas names them (the mangled
 #: ``core_score_kernel<GATHER, SECOND>`` and, on the f32 route,
-#: ``core32_score_kernel<GATHER, SECOND, SPLIT>``), and what runs each.
+#: ``core32_score_kernel<GATHER, SECOND>``), and what runs each.
 CORE_VARIANTS = {
     "core_score_kernelILb0ELb0E": "dense (K1, K2, K5)",
     "core_score_kernelILb0ELb1E": "dense with second-min (K5 for Hamerly)",
     "core_score_kernelILb1ELb1E": "gathered with second-min (K4)",
-    "core32_score_kernelILb0ELb0ELb1E": "f32 dense (K1, K2, K5)",
-    "core32_score_kernelILb0ELb1ELb1E":
+    "core32_score_kernelILb0ELb0E": "f32 dense (K1, K2, K5)",
+    "core32_score_kernelILb0ELb1E":
         "f32 dense with second-min (K5 for Hamerly)",
-    "core32_score_kernelILb1ELb1ELb1E": "f32 gathered with second-min (K4)",
-    "core32_score_kernelILb0ELb0ELb0E":
-        "f32 dense, one accumulator (measured beside the route)",
+    "core32_score_kernelILb1ELb1E": "f32 gathered with second-min (K4)",
 }
 
 
@@ -546,18 +549,16 @@ def _straddling_tie_cases(gen):
         print(f"  ok {name}")
 
 
-class _ForcedCore:
-    """Within it, K1, K2, K4 and K5 score every input with ``core``: the
-    wrappers read ``cuda_lloyd.scoring_core`` at each call."""
-
-    def __init__(self, core):
-        self.core = core
+class _ForcedScoreBlock:
+    """Within it, K1, K2, K4 and K5 score every input with ``score_block``
+    (the parent's f32 route): the wrappers read
+    ``cuda_lloyd.scoring_core`` at each call."""
 
     def __enter__(self):
         from kmeans_tpu_torch.ops import cuda_lloyd as K
 
         self._rule = K.scoring_core
-        K.scoring_core = lambda *args: self.core
+        K.scoring_core = lambda *args: "score_block"
 
     def __exit__(self, *exc):
         from kmeans_tpu_torch.ops import cuda_lloyd as K
@@ -565,21 +566,9 @@ class _ForcedCore:
         K.scoring_core = self._rule
 
 
-class _ForcedScoreBlock(_ForcedCore):
-    """``score_block`` for every input (the parent's f32 route)."""
-
-    def __init__(self):
-        super().__init__("score_block")
-
-
-#: The f32 route's one-accumulator variant (all six products in one
-#: accumulator), which the smoke measures beside the route: K1, K2 and K5
-#: without the second-min only.
-ONE_ACC = "wgmma_one_acc"
 #: Worst relative score error against the f64 product, (error / (||x||² +
-#: ||c||²), d, case), of the f32 route and of its one-accumulator variant
-#: over phase 3's f32 cases.
-F32_ERRORS = {"route": [], ONE_ACC: []}
+#: ||c||²), d, case), of the f32 route over phase 3's f32 cases.
+F32_ERRORS = []
 
 
 def _f32_score_error(x, c, lab, raw):
@@ -591,22 +580,16 @@ def _f32_score_error(x, c, lab, raw):
 
 
 def _record_f32_errors(name, x, c, prev):
-    """K2's raw scores on the f32 route and on its one-accumulator variant
-    against the f64 product, into F32_ERRORS."""
+    """K2's raw scores on the f32 route against the f64 product, into
+    F32_ERRORS."""
     import torch
 
     from kmeans_tpu_torch.ops import cuda_lloyd as K
 
-    f32 = torch.float32
-    for variant in F32_ERRORS:
-        core = _ForcedCore(ONE_ACC) if variant == ONE_ACC else _ForcedCore(
-            "wgmma")
-        with core:
-            lab, raw = K.lloyd_delta_cuda(x, c, prev, compute_dtype=f32,
-                                          with_mind=False)[:2]
-        _sync()
-        F32_ERRORS[variant].append((_f32_score_error(x, c, lab, raw),
-                                    x.shape[1], name))
+    lab, raw = K.lloyd_delta_cuda(x, c, prev, compute_dtype=torch.float32,
+                                  with_mind=False)[:2]
+    _sync()
+    F32_ERRORS.append((_f32_score_error(x, c, lab, raw), x.shape[1], name))
 
 
 def _check_k1_repeats(name, x, c, cd, w, k1):
@@ -1032,18 +1015,16 @@ def _gamma(d):
 
 
 def _f32_error_summary():
-    """The worst f32-route and one-accumulator errors over phase 3's f32
-    cases; the route must stay within SCORE_RTOL and :func:`_gamma` of
-    the row scale."""
-    for variant, errs in F32_ERRORS.items():
-        worst = max(errs)
-        print(f"f32 {'route (split accumulators)' if variant == 'route' else 'one-accumulator variant'}"
-              f": worst |score − f64| / (||x||² + ||c||²) over "
-              f"{len(errs)} cases {worst[0]:.3e} (d={worst[1]}: {worst[2]})"
-              f"; per d: " + ", ".join(
-                  f"d={d} {max(e for e, dd, _ in errs if dd == d):.3e}"
-                  for d in sorted({dd for _, dd, _ in errs})))
-    for rel, d, name in F32_ERRORS["route"]:
+    """The worst f32-route error over phase 3's f32 cases; it must stay
+    within SCORE_RTOL and :func:`_gamma` of the row scale."""
+    errs = F32_ERRORS
+    worst = max(errs)
+    print(f"f32 route: worst |score − f64| / (||x||² + ||c||²) over "
+          f"{len(errs)} cases {worst[0]:.3e} (d={worst[1]}: {worst[2]}); "
+          "per d: " + ", ".join(
+              f"d={d} {max(e for e, dd, _ in errs if dd == d):.3e}"
+              for d in sorted({dd for _, dd, _ in errs})))
+    for rel, d, name in errs:
         _check(rel <= min(SCORE_RTOL, _gamma(d)),
                f"f32 route {name}: score error {rel:.3e} of the row scale "
                f"beyond min(SCORE_RTOL, γ = {_gamma(d):.3e})")
@@ -1062,15 +1043,17 @@ def _bound_ms(bytes_moved, tensor_ops=0.0, f32_ops=0.0):
 
 
 def _kernel_row(name, launches, ms, plain_ms, library_ms, err, bytes_moved,
-                tensor_ops, f32_ops):
+                tensor_ops, f32_ops, what=""):
     """One entry of the ``{"kernels": [...]}`` line, printed as it is
-    made; ``library_ms`` may be None."""
+    made; ``library_ms`` may be None.  ``what`` names the row's compute
+    (and shape) where the wrapper ``name`` has more than one row."""
     bound, by = _bound_ms(bytes_moved, tensor_ops, f32_ops)
     lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
-    print(f"{name}: {ms:.3f} ms (bound {bound:.3f} ms by {by}), plain "
-          f"{plain_ms:.3f} ms, library {lib}, max abs err vs plain "
-          f"{err:.3e}")
-    return {"name": name, "route": "cuda", "source": SOURCE,
+    label = f"{name} ({what})" if what else name
+    print(f"{label}: {launches} launches, {ms:.3f} ms (bound {bound:.3f} ms "
+          f"by {by}), plain {plain_ms:.3f} ms, library {lib}, max abs err "
+          f"vs plain {err:.3e}")
+    return {"name": label, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
@@ -1608,6 +1591,11 @@ F32_SWEEPS = 20
 F32_HAMERLY_SWEEPS = 4
 #: Rows of the f32 error sample against the f64 product.
 F32_ERROR_ROWS = 4096
+#: Widths at which K2 in f32 is timed on the core's f32 route and on
+#: ``score_block``, at the glove shape's n and k: the narrowest the rule
+#: admits, the 32-feature stage's multiples, glove's d = 300 (d % 8 == 4,
+#: −2C's pieces padded to 304 columns) between its neighbours, and wider.
+F32_WIDTHS = (4, 8, 16, 32, 64, 128, 296, 300, 304, 512)
 
 
 def _f32_bounds(n, d, k):
@@ -1638,8 +1626,7 @@ def _f32_sweep_times(x, c, prev, need, reps=5):
     """CUDA-event ms of K1 (with its fold), K2 (raw, from ``prev``) and K4
     (the rows of ``need``) in f32 at ``x``'s shape, of their plain
     versions (one timed run each), of ``torch.mm`` + ``argmin`` with TF32
-    off, and, where the tree has it, of K2 on the f32 route's
-    one-accumulator variant; with the scoring core."""
+    off; with the scoring core."""
     import torch
 
     from kmeans_tpu_torch.ops import cuda_lloyd as K
@@ -1666,9 +1653,6 @@ def _f32_sweep_times(x, c, prev, need, reps=5):
     out["K4 plain"] = _time_ms(lambda: K.lloyd_hamerly_plain(
         x, c, prev, need, zeros, zeros, compute_dtype=f32), 1)
     out["library"] = _time_ms(_f32_library(x, neg2c, csq, 262144), 3)
-    if ONE_ACC in getattr(K, "_CORE_CODES", {}):
-        with _ForcedCore(ONE_ACC):
-            out["K2 one-acc"] = _time_ms(k2, reps)
     return out
 
 
@@ -1676,10 +1660,7 @@ def _print_f32_times(what, times, n, d, k, n_need):
     route, ffma = _f32_bounds(n, d, k)
     route4, ffma4 = _f32_bounds(n_need, d, k)
     print(f"{what} f32 (core {times['core']}): K1 {times['K1']:.3f} ms, K2 "
-          f"{times['K2']:.3f} ms"
-          + (f" (one accumulator {times['K2 one-acc']:.3f} ms)"
-             if "K2 one-acc" in times else "")
-          + f", K4 at {n_need} needed rows {times['K4']:.3f} ms (bounds "
+          f"{times['K2']:.3f} ms, K4 at {n_need} needed rows {times['K4']:.3f} ms (bounds "
           f"{route4:.3f}, {ffma4:.3f} ms); plain "
           f"K1 {times['K1 plain']:.3f}, K2 {times['K2 plain']:.3f}, K4 "
           f"{times['K4 plain']:.3f} ms; "
@@ -1691,10 +1672,9 @@ def _print_f32_times(what, times, n, d, k, n_need):
 
 
 def _f32_row_errors(name, x, c, prev, rows=F32_ERROR_ROWS):
-    """K2's raw scores on ``rows`` sampled rows (the f32 route, and its
-    one-accumulator variant where the tree has it) against the f64 product
-    at each row's label, relative to ||x||² + ||c||²: printed, and the
-    route's held to SCORE_RTOL and :func:`_gamma`.  Returns the route's."""
+    """K2's raw scores on ``rows`` sampled rows against the f64 product at
+    each row's label, relative to ||x||² + ||c||²: printed, and on the f32
+    route held to SCORE_RTOL and :func:`_gamma`.  Returns the error."""
     import torch
 
     from kmeans_tpu_torch.ops import cuda_lloyd as K
@@ -1703,29 +1683,19 @@ def _f32_row_errors(name, x, c, prev, rows=F32_ERROR_ROWS):
     gen = torch.Generator(device="cuda").manual_seed(17)
     pick = torch.randperm(x.shape[0], generator=gen, device="cuda")[:rows]
     xs, ps = x[pick].contiguous(), prev[pick].contiguous()
-    errs = {}
-    variants = [("route", "wgmma")]
-    if ONE_ACC in getattr(K, "_CORE_CODES", {}):
-        variants.append(("one accumulator", ONE_ACC))
     core = K.scoring_core(xs, f32, c)
-    for what, forced in variants:
-        with _ForcedCore(forced if core == "wgmma" else core):
-            lab, raw = K.lloyd_delta_cuda(xs, c, ps, compute_dtype=f32,
-                                          with_mind=False)[:2]
-        _sync()
-        errs[what] = _f32_score_error(xs, c, lab, raw)
-        if core != "wgmma":
-            break
+    lab, raw = K.lloyd_delta_cuda(xs, c, ps, compute_dtype=f32,
+                                  with_mind=False)[:2]
+    _sync()
+    err = _f32_score_error(xs, c, lab, raw)
     d = x.shape[1]
     print(f"{name} f32 score error against f64 on {rows} rows (core "
-          f"{core}): " + ", ".join(f"{w} {e:.3e}" for w, e in errs.items())
-          + f" of ||x||² + ||c||² (SCORE_RTOL {SCORE_RTOL}, γ "
-          f"{_gamma(d):.3e})")
+          f"{core}): {err:.3e} of ||x||² + ||c||² (SCORE_RTOL {SCORE_RTOL}, "
+          f"γ {_gamma(d):.3e})")
     if core == "wgmma":
-        _check(errs["route"] <= min(SCORE_RTOL, _gamma(d)),
-               f"{name}: f32 score error {errs['route']:.3e} beyond "
-               f"min(SCORE_RTOL, γ)")
-    return errs["route"]
+        _check(err <= min(SCORE_RTOL, _gamma(d)),
+               f"{name}: f32 score error {err:.3e} beyond min(SCORE_RTOL, γ)")
+    return err
 
 
 def phase_headline_f32():
@@ -1736,9 +1706,10 @@ def phase_headline_f32():
     ``fit_lloyd(update="delta")`` (F32_SWEEPS sweeps: K1 and K2) and
     F32_HAMERLY_SWEEPS hand-driven ``hamerly_pass`` sweeps (K4) -- each
     held against K1, and the fit's labels against the plain route's; then
-    K1, K2 and K4 timed beside their bounds, the library and the
-    one-accumulator variant, and the route's score error against f64.
-    Nothing is cut but the sweep depth.  Returns the runs' launches."""
+    K1, K2 and K4 against their plain versions, timed beside their bounds,
+    the library and ``score_block``, and the route's score error against
+    f64; then :func:`_f32_widths`.  Nothing is cut but the sweep depth.
+    Returns the three kernels' ``kernels`` rows, with the runs' launches."""
     import torch
 
     import kmeans_tpu_torch as kt
@@ -1833,17 +1804,149 @@ def phase_headline_f32():
             x, c, prev, compute_dtype=f32, with_mind=False), 2)
     print(f"imagenet-delta-f32 K2 on score_block (the parent's f32 route): "
           f"{sb_ms:.3f} ms")
-    got = K.lloyd_delta_cuda(x, c, prev, compute_dtype=f32, with_mind=False)
-    want = K.lloyd_delta_plain(x, c, prev, compute_dtype=f32,
-                               with_mind=False)
-    moved = _check_labels_rows("K2 f32 headline", x, c, f32, got[0], want[0])
-    same = got[0] == want[0]
-    err = _within("K2 f32 headline raw scores", got[1][same], want[1][same],
-                  _row_scale(x, c, f32, got[0])[same])
-    print(f"K2 f32 headline: {moved} rows labelled differently from the "
-          f"plain version (ties), max abs err {err:.3e}")
+    rows = _f32_kernel_rows(x, c, prev, need, times, launches)
     _f32_row_errors("imagenet-delta-f32", x, c, prev)
-    return launches
+    del x, c, prev, need
+    _f32_widths()
+    return rows
+
+
+def _f32_widths(n=400_000, k=1000, reps=5):
+    """K2 in f32 at n rows and k centroids over d in F32_WIDTHS: the
+    scoring core the rule picks, K2's CUDA-event ms there and on
+    ``score_block`` (labels equal but for near-ties within SCORE_RTOL), and
+    the route's share of the f32 product it computes (a stage of 32
+    features: ⌈d/32⌉·32 of them).  Seeded Gaussian data, centroids drawn
+    from the rows, ``prev`` the labels at centroids one small step away."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    f32 = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    for d in F32_WIDTHS:
+        x = torch.randn(n, d, generator=gen, device="cuda")
+        c = x[torch.randperm(n, generator=gen, device="cuda")[:k]].clone()
+        prev = K.lloyd_pass_cuda(x, c, compute_dtype=f32,
+                                 with_update=False)[0]
+        c += 0.05 * torch.randn(k, d, generator=gen, device="cuda")
+        core = K.scoring_core(x, f32, c)
+
+        def k2():
+            return K.lloyd_delta_cuda(x, c, prev, compute_dtype=f32,
+                                      with_mind=False)
+
+        ms = _time_ms(k2, reps)
+        lab = k2()[0]
+        with _ForcedScoreBlock():
+            sb_ms = _time_ms(k2, reps)
+            lab_sb = k2()[0]
+        moved = _check_labels_rows(f"K2 f32 d={d}", x, c, f32, lab, lab_sb)
+        print(f"f32 width n={n} d={d} k={k}: K2 on {core} {ms:.3f} ms, on "
+              f"score_block {sb_ms:.3f} ms (x{sb_ms / ms:.2f}); the route "
+              f"computes {d / (-(-d // 32) * 32):.3f} useful of its "
+              f"products; {moved} labels differ (ties)")
+        del x, c, prev
+
+
+def _f32_kernel_rows(x, c, prev, need, times, launches):
+    """The ``kernels`` rows of K1, K2 and K4 on the f32 route at the
+    headline shape: each against its plain version (labels up to ties,
+    scores within SCORE_RTOL of the row scale, sums within SUMS_RTOL),
+    with ``times`` from :func:`_f32_sweep_times`, the launches of
+    imagenet-delta-f32's runs and the route's bound: ``x`` read once in
+    f32, −2C's three bf16 pieces, six bf16 products on the tensor cores.
+    K4's library call is ``torch.mm`` of the needed rows with TF32 off,
+    then the two least scores with ``topk``."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.ops.distance import full_f32
+
+    f32 = torch.float32
+    n, d = x.shape
+    k = c.shape[0]
+    zeros = torch.zeros(n, device="cuda")
+    neg2c, csq = K._score_operands(c, f32)
+    xb, x_row = n * d * 4, n * 4
+    cb = 3 * k * (-(-d // 8) * 8) * 2 + k * 4
+    fold = k * d * 4 + k * 4
+    dist_ops = 2.0 * n * d * k
+    rows = []
+
+    def dsums_err(name, got_lab, dsums, mask):
+        changed = (got_lab != prev) & mask
+        add = K.accumulate_plain(x, torch.where(changed, got_lab, -1), k,
+                                 compute_dtype=f32)
+        sub = K.accumulate_plain(x, torch.where(changed, prev, -1), k,
+                                 compute_dtype=f32)
+        return _close(name, dsums, add[0] - sub[0]), int(changed.sum())
+
+    got = K.lloyd_pass_cuda(x, c, compute_dtype=f32)
+    plain = K.lloyd_pass_plain(x, c, compute_dtype=f32)
+    _check_labels_rows("K1 f32 headline", x, c, f32, got[0], plain[0])
+    same = got[0] == plain[0]
+    want = K.accumulate_plain(x, got[0], k, compute_dtype=f32)
+    err = max(_close("K1 f32 headline sums", got[2], want[0]),
+              _within("K1 f32 headline min_d2", got[1][same], plain[1][same],
+                      _row_scale(x, c, f32, got[0])[same]))
+    del got, plain, want
+    rows.append(_kernel_row(
+        "lloyd_pass_cuda", launches.get("lloyd_pass_cuda", 0), times["K1"],
+        times["K1 plain"], times["library"], err,
+        xb + x_row + cb + 2 * x_row + fold, 6 * dist_ops, 4.0 * n * d,
+        "f32 route"))
+
+    got = K.lloyd_delta_cuda(x, c, prev, compute_dtype=f32, with_mind=False)
+    plain = K.lloyd_delta_plain(x, c, prev, compute_dtype=f32,
+                                with_mind=False)
+    moved = _check_labels_rows("K2 f32 headline", x, c, f32, got[0],
+                               plain[0])
+    same = got[0] == plain[0]
+    all_rows = torch.ones(n, dtype=torch.bool, device="cuda")
+    sums_err, n_changed = dsums_err("K2 f32 headline dsums", got[0], got[2],
+                                    all_rows)
+    err = max(sums_err, _within("K2 f32 headline raw scores", got[1][same],
+                                plain[1][same],
+                                _row_scale(x, c, f32, got[0])[same]))
+    print(f"K2 f32 headline: {n_changed} of {n} rows changed; {moved} rows "
+          f"labelled differently from the plain version (ties)")
+    del got, plain
+    rows.append(_kernel_row(
+        "lloyd_delta_cuda", launches.get("lloyd_delta_cuda", 0), times["K2"],
+        times["K2 plain"], times["library"], err,
+        xb + 2 * x_row + cb + 2 * x_row + fold, 6 * dist_ops,
+        4.0 * n_changed * d, "f32 route"))
+
+    got = K.lloyd_hamerly_cuda(x, c, prev, need, zeros, zeros,
+                               compute_dtype=f32)
+    plain = K.lloyd_hamerly_plain(x, c, prev, need, zeros, zeros,
+                                  compute_dtype=f32)
+    _check_labels_rows("K4 f32 headline", x[need], c, f32, got[0][need],
+                       plain[0][need])
+    same = (got[0] == plain[0]) & need
+    sums_err, n_changed = dsums_err("K4 f32 headline dsums", got[0], got[3],
+                                    need)
+    err = max(sums_err, _within("K4 f32 headline sb", got[1][same],
+                                plain[1][same],
+                                _row_scale(x, c, f32, got[0])[same]))
+    _check(bool(torch.equal(got[0][~need], prev[~need])),
+           "K4 f32 headline: a row not needed changed its label")
+    del got, plain
+    picked = need.nonzero()[:, 0]
+    n_rec = int(picked.numel())
+
+    def library():
+        with full_f32():
+            return torch.mm(x[picked], neg2c.T).add_(csq).topk(
+                2, dim=1, largest=False)
+
+    rows.append(_kernel_row(
+        "lloyd_hamerly_cuda", launches.get("lloyd_hamerly_cuda", 0),
+        times["K4"], times["K4 plain"], _time_ms(library, 3), err,
+        n_rec * d * 4 + n * (4 + 1 + 4 + 4 + 4) + cb + n * 12 + fold,
+        6 * 2.0 * n_rec * d * k, 4.0 * n_changed * d, "f32 route"))
+    return rows
 
 
 def phase_f32_bench():
@@ -1857,8 +1960,9 @@ def phase_f32_bench():
     4's data, init and depth, twice), and K1, K2
     and K4 (13.4% of the rows needed, the headline's steady Hamerly
     share) at the headline shape, each beside ``torch.mm`` + ``argmin``
-    with TF32 off and both bounds, the one-accumulator variant where the
-    tree has it, and the route's score error against f64 on sampled rows.
+    with TF32 off and both bounds, and the route's score error against f64
+    on sampled rows; then K2 at the glove shape over d in F32_WIDTHS on
+    the tree's f32 rule and on ``score_block``.
     Blob data from a seed, f32.  Written against the APIs every tree since
     the serving engine has."""
     import torch
@@ -1888,18 +1992,12 @@ def phase_f32_bench():
         for k_tile in dict.fromkeys(tiles):
             times[k_tile] = _time_ms(lambda: K.tiled_argmin_cuda(
                 x, neg2c, csq, k_tile=k_tile, raw_scores=True, **kw), reps)
-        one = ""
-        if ONE_ACC in getattr(K, "_CORE_CODES", {}):
-            with _ForcedCore(ONE_ACC):
-                one_ms = _time_ms(lambda: K.tiled_argmin_cuda(
-                    x, neg2c, csq, k_tile=tiles[0], raw_scores=True), reps)
-            one = f", one accumulator {one_ms:.3f} ms"
         lib = _time_ms(_f32_library(x, neg2c, csq), reps)
         route, ffma = _f32_bounds(rows, d, k)
         print(f"f32-bench K5 {rows} x {k} x {d} (core {core}): "
               + ", ".join(f"k_tile {kt_} {ms:.3f} ms"
                           for kt_, ms in times.items())
-              + f"{one}; torch.mm+argmin (TF32 off) {lib:.3f} ms; bounds "
+              + f"; torch.mm+argmin (TF32 off) {lib:.3f} ms; bounds "
               f"{route:.3f} ms (six passes), {ffma:.3f} ms (f32 FMA)")
         prev = K.tiled_argmin_cuda(x, neg2c, csq, k_tile=tiles[0],
                                    raw_scores=True)[0]
@@ -1929,6 +2027,8 @@ def phase_f32_bench():
     times = _f32_sweep_times(x, c, prev, need)
     _print_f32_times("f32-bench headline", times, n, d, k, int(need.sum()))
     _f32_row_errors("f32-bench headline", x, c, prev)
+    del x, c, prev, need
+    _f32_widths()
 
 
 # ---------------------------------------------------------------------------
@@ -2683,15 +2783,15 @@ def _route_scan_ms(name, route, card, prep, x):
           f"{ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s of f32 product)")
 
 
-def _k5_serving(name, card, pool_t, centroids, rows, k_tile):
+def _k5_serving(name, card, pool_t, centroids, rows, k_tile, launches):
     """K5 in f32 at a serving batch shape on the core's f32 route, called
     as the engine calls it (−2C's pieces held): against its plain version,
     both bounds and ``torch.mm`` + ``argmin`` with TF32 off; beside it, in
-    the same call, its other column range (bit for bit), its
-    one-accumulator variant and ``score_block`` (the parent's f32 route:
-    labels equal but for near-ties within SCORE_RTOL); the score error of
-    the route and of the variant against f64 on 512 rows.  Returns its
-    ms."""
+    the same call, its other column range (bit for bit) and
+    ``score_block`` (the parent's f32 route: labels equal but for near-ties
+    within SCORE_RTOL); the score error of each against f64 on 512 rows.
+    Returns its ``kernels`` row, with ``launches`` (the model's serving
+    runs') and the route's bound."""
     import torch
 
     from kmeans_tpu_torch.ops import cuda_lloyd as K
@@ -2723,15 +2823,13 @@ def _k5_serving(name, card, pool_t, centroids, rows, k_tile):
     other_ms, out = _time_auto(lambda: k5(other))
     _check(bool(torch.equal(out[0], lab) and torch.equal(out[1], raw)),
            f"K5 f32 {name}: k_tile={other} differs from k_tile={k_tile}")
-    with _ForcedCore(ONE_ACC):
-        one_ms, (lab1, raw1) = _time_auto(k5)
     with _ForcedScoreBlock():
         sb_ms, (lab_sb, raw_sb) = _time_auto(k5)
     _check_labels_rows(f"K5 f32 {name} vs score_block", x, c, f32, lab,
                        lab_sb)
     sample = slice(0, 512)
     errs = [_f32_score_error(x[sample], c, lb[sample], rw[sample])
-            for lb, rw in ((lab, raw), (lab1, raw1), (lab_sb, raw_sb))]
+            for lb, rw in ((lab, raw), (lab_sb, raw_sb))]
     _check(errs[0] <= min(SCORE_RTOL, _gamma(d)),
            f"K5 f32 {name}: score error {errs[0]:.3e} beyond min("
            "SCORE_RTOL, γ)")
@@ -2743,11 +2841,13 @@ def _k5_serving(name, card, pool_t, centroids, rows, k_tile):
           f"{ffma_b:.3f} ms f32 FMA), plain {plain_ms:.3f} ms, "
           f"torch.mm+argmin (TF32 off) {lib_ms:.3f} ms; {moved} labels "
           f"differ from the plain version (ties), max abs err {err:.3e}; at "
-          f"k_tile={other} {other_ms:.3f} ms, bit for bit equal; one "
-          f"accumulator {one_ms:.3f} ms; score_block {sb_ms:.3f} ms; score "
-          f"error against f64 on 512 rows: route {errs[0]:.3e}, one "
-          f"accumulator {errs[1]:.3e}, score_block {errs[2]:.3e}")
-    return ms
+          f"k_tile={other} {other_ms:.3f} ms, bit for bit equal; "
+          f"score_block {sb_ms:.3f} ms; score error against f64 on 512 "
+          f"rows: route {errs[0]:.3e}, score_block {errs[1]:.3e}")
+    return _kernel_row(
+        "tiled_argmin_cuda", launches, ms, plain_ms, lib_ms, err,
+        rows * d * 4 + pieces.numel() * 2 + k * 4 + rows * 8, 6 * ops, 0.0,
+        f"f32 route, {name} batch of {rows}")
 
 
 def _serve_models(imagenet_c, codebook_c):
@@ -2769,15 +2869,17 @@ def phase_serve(card, models):
     imagenet-serve (the headline delta fit's centroids, k = 1000: the
     default pruned route, then the dense route on K5) and codebook-serve
     (the codebook fit's, k = 65536: the default int8 quant route, then the
-    dense route).  Returns K5's launches in the runs."""
+    dense route).  Returns K5's ``kernels`` row for each model, with the
+    launches of that model's runs."""
     import numpy as np
     import torch
 
     from kmeans_tpu_torch.serve.assign import dense_k_tile
 
-    total = {}
+    total, rows = {}, []
     t_phase = time.perf_counter()
     for name, centroids, points, routes, seed in models:
+        model_counts = {}
         k, d = centroids.shape
         rng = np.random.default_rng(seed)
         pool = centroids[rng.integers(0, k, size=SERVE_POOL)]
@@ -2795,7 +2897,7 @@ def phase_serve(card, models):
         for route, cfg_kw in routes:
             responses, counts, prep = _serve_run(
                 name, route, card, centroids, pool, points, perm, cfg_kw)
-            _add_counts(total, counts)
+            _add_counts(model_counts, counts)
             _route_scan_ms(name, route, card, prep, pool_t[:batch])
             del prep
             answered[route] = _check_responses(name, route, responses,
@@ -2817,11 +2919,13 @@ def phase_serve(card, models):
             print(f"serve {name}: the {first} and {route} routes label "
                   f"{moved} of the {seen} rows both answered differently "
                   f"(each a tie within {SCORE_RTOL})")
-        _k5_serving(name, card, pool_t, gen_c[1], batch, k_tile)
+        rows.append(_k5_serving(name, card, pool_t, gen_c[1], batch, k_tile,
+                                model_counts.get("tiled_argmin_cuda", 0)))
+        _add_counts(total, model_counts)
         del pool_t, labels
     print(f"serving phase: {time.perf_counter() - t_phase:.1f} s; serving "
           f"launches {total}")
-    return total
+    return rows
 
 
 def main() -> int:
@@ -2841,18 +2945,13 @@ def main() -> int:
     phase_build()
     phase_kernels()
     kernels, headline_launches, imagenet_c = phase_headline()
-    f32_launches = phase_headline_f32()
-    _add_counts(headline_launches, f32_launches)
-    for row in kernels:
-        row["launches"] += f32_launches.get(row["name"], 0)
+    f32_rows = phase_headline_f32()
     phase_whole_fit()
     tiled, codebook_launches, codebook_c = phase_codebook(headline_launches)
     for row in kernels:
         row["launches"] += codebook_launches.get(row["name"], 0)
-    kernels += tiled
-    serve_launches = phase_serve(card, _serve_models(imagenet_c, codebook_c))
-    for row in kernels:
-        row["launches"] += serve_launches.get(row["name"], 0)
+    kernels += tiled + f32_rows
+    kernels += phase_serve(card, _serve_models(imagenet_c, codebook_c))
     phase_fold_split()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -1088,8 +1088,9 @@ core_score_kernel(const __grid_constant__ CUtensorMap x_map,
 //     sub-slice is 128 columns), and the epilogue adds the two once:
 //     the tensor core's accumulation, which aligns to the largest addend
 //     and truncates, never mixes the small terms into the large sum, and
-//     x1c1 alone carries the bf16 core's error.  SPLIT = false sums all six
-//     into one accumulator, the variant chip_smoke.py measures beside it;
+//     x1c1 alone carries the bf16 core's error (all six in one
+//     accumulator measured 1.0-1.5e-5 of the row scale against f64, over
+//     SCORE_RTOL, and no faster);
 //   * the epilogue is the bf16 core's (core_scan_slice), over 128 columns:
 //     csq + (x1c1 + corrections), +inf past the range, the lowest-index
 //     argmin and the second-min carried in registers, the ranges merged in
@@ -1200,7 +1201,7 @@ struct Walk32 {
 
 // core_score_kernel's f32 route (see above): the same arguments, x in f32,
 // c_map over -2C's three bf16 pieces.
-template <bool GATHER, bool SECOND, bool SPLIT>
+template <bool GATHER, bool SECOND>
 __global__ void __launch_bounds__(CORE_THREADS, 1)
 core32_score_kernel(const __grid_constant__ CUtensorMap x_map,
                     const __grid_constant__ CUtensorMap c_map, const float* __restrict__ csq,
@@ -1308,11 +1309,11 @@ core32_score_kernel(const __grid_constant__ CUtensorMap x_map,
     const int cw = wg - 1, lane = threadIdx.x & 31;
     const int r_lo = cw * 64 + (t128 >> 5) * 16 + (lane >> 2);
     const int c_lo = (lane & 3) * 2;
-    float acc[64], acc_c[SPLIT ? 64 : 1];
+    float acc[64], acc_c[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < (SPLIT ? 64 : 1); ++i) acc_c[i] = 0.f;
+    for (int i = 0; i < 64; ++i) acc_c[i] = 0.f;
     int i = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int row0 = (t / ranges) * CORE_BM, range = t % ranges;
@@ -1336,21 +1337,12 @@ core32_score_kernel(const __grid_constant__ CUtensorMap x_map,
           for (int kk = 0; kk < C32_BK / 16; ++kk) {   // 16 features = 32 bytes = 2 units
             const int acc_on = (kb > 0 || kk > 0) ? 1 : 0;
             const int u = 2 * kk;
-            if constexpr (SPLIT) {
-              wgmma_m64n128k16(acc_c, xa[2] + u, cb[0] + u, acc_on);
-              wgmma_m64n128k16(acc_c, xa[1] + u, cb[1] + u, 1);
-              wgmma_m64n128k16(acc_c, xa[0] + u, cb[2] + u, 1);
-              wgmma_m64n128k16(acc_c, xa[1] + u, cb[0] + u, 1);
-              wgmma_m64n128k16(acc_c, xa[0] + u, cb[1] + u, 1);
-              wgmma_m64n128k16(acc, xa[0] + u, cb[0] + u, acc_on);
-            } else {
-              wgmma_m64n128k16(acc, xa[2] + u, cb[0] + u, acc_on);
-              wgmma_m64n128k16(acc, xa[1] + u, cb[1] + u, 1);
-              wgmma_m64n128k16(acc, xa[0] + u, cb[2] + u, 1);
-              wgmma_m64n128k16(acc, xa[1] + u, cb[0] + u, 1);
-              wgmma_m64n128k16(acc, xa[0] + u, cb[1] + u, 1);
-              wgmma_m64n128k16(acc, xa[0] + u, cb[0] + u, 1);
-            }
+            wgmma_m64n128k16(acc_c, xa[2] + u, cb[0] + u, acc_on);
+            wgmma_m64n128k16(acc_c, xa[1] + u, cb[1] + u, 1);
+            wgmma_m64n128k16(acc_c, xa[0] + u, cb[2] + u, 1);
+            wgmma_m64n128k16(acc_c, xa[1] + u, cb[0] + u, 1);
+            wgmma_m64n128k16(acc_c, xa[0] + u, cb[1] + u, 1);
+            wgmma_m64n128k16(acc, xa[0] + u, cb[0] + u, acc_on);
           }
           wgmma_commit();
           wgmma_wait<1>();
@@ -1359,10 +1351,8 @@ core32_score_kernel(const __grid_constant__ CUtensorMap x_map,
         }
         wgmma_wait<0>();
         if (t128 == 0) mbar_arrive(&empty[held]);
-        if constexpr (SPLIT) {
 #pragma unroll
-          for (int j = 0; j < 64; ++j) acc[j] = __fadd_rn(acc[j], acc_c[j]);
-        }
+        for (int j = 0; j < 64; ++j) acc[j] = __fadd_rn(acc[j], acc_c[j]);
         core_scan_slice<C32_BN / 8, SECOND>(acc, csq, col0, col_hi, c_lo, run_best, run_idx,
                                             run_second);
       }
@@ -2153,7 +2143,7 @@ int launch_core_score(const void* x, const void* neg2c, const float* csq, const 
 
 // The f32 route's score launch, as launch_core_score's: x in f32, pieces
 // -2C's (3, k, round_up(d, 8)) bf16 split.
-template <bool GATHER, bool SECOND, bool SPLIT>
+template <bool GATHER, bool SECOND>
 int launch_core32_score(const void* x, const void* pieces, const float* csq, const int* rows,
                         const int* count, int n, int d, int k, int k_tile, float* part_best,
                         int* part_idx, float* part_second, cudaStream_t stream) {
@@ -2168,7 +2158,7 @@ int launch_core32_score(const void* x, const void* pieces, const float* csq, con
   int dev = 0, sms = 0;
   if (int e = (int)cudaGetDevice(&dev)) return e;
   if (int e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) return e;
-  auto kern = core32_score_kernel<GATHER, SECOND, SPLIT>;
+  auto kern = core32_score_kernel<GATHER, SECOND>;
   if (int e = set_smem(kern, CORE32_SMEM)) return e;
   const long long tiles =
       (long long)((n + CORE_BM - 1) / CORE_BM) * ((k + k_tile - 1) / k_tile);
@@ -2179,28 +2169,18 @@ int launch_core32_score(const void* x, const void* pieces, const float* csq, con
   return (int)cudaGetLastError();
 }
 
-// The core for x of type XT: core = 1 the bf16 core or the f32 route,
-// core = 2 the f32 route's one-accumulator variant (dense rows without the
-// second-min only).
+// The core for x of type XT (core = 1): the bf16 core or the f32 route.
 template <class XT, bool GATHER, bool SECOND>
 int launch_core(int core, const void* x, const void* c, const float* csq, const int* rows,
                 const int* count, int n, int d, int k, int k_tile, float* part_best,
                 int* part_idx, float* part_second, cudaStream_t stream) {
-  if constexpr (std::is_same<XT, bf16>::value) {
-    if (core != 1) return kBadCore;
+  if (core != 1) return kBadCore;
+  if constexpr (std::is_same<XT, bf16>::value)
     return launch_core_score<GATHER, SECOND>(x, c, csq, rows, count, n, d, k, k_tile, part_best,
                                              part_idx, part_second, stream);
-  } else {
-    if (core == 1)
-      return launch_core32_score<GATHER, SECOND, true>(x, c, csq, rows, count, n, d, k, k_tile,
-                                                       part_best, part_idx, part_second, stream);
-    if constexpr (!GATHER && !SECOND)
-      if (core == 2)
-        return launch_core32_score<false, false, false>(x, c, csq, rows, count, n, d, k, k_tile,
-                                                        part_best, part_idx, part_second,
-                                                        stream);
-    return kBadCore;
-  }
+  else
+    return launch_core32_score<GATHER, SECOND>(x, c, csq, rows, count, n, d, k, k_tile,
+                                               part_best, part_idx, part_second, stream);
 }
 
 // The Hopper core takes bf16 x in bf16 compute and f32 x in f32 compute,
@@ -2374,9 +2354,8 @@ int launch_delta(const void* x, const void* neg2c, const float* csq, const float
   } while (0)
 
 // core = 1 scores with the Hopper core (the wrapper's scoring_core rule; in
-// f32, neg2c is then -2C's (3, k, round_up(d, 8)) bf16 pieces), core = 2
-// with its f32 one-accumulator variant; part_best / part_idx are its
-// (ceil(k / 256), n) slice buffers.  K1 folds
+// f32, neg2c is then -2C's (3, k, round_up(d, 8)) bf16 pieces);
+// part_best / part_idx are its (ceil(k / 256), n) slice buffers.  K1 folds
 // on the fold core when with_update (fold_vec its vector rule, the scratch
 // as _fold_scratch in cuda_lloyd.py sizes it, with the norms unless raw).
 extern "C" int kml_lloyd_pass(const void* x, int x_dtype, const void* neg2c, int cd,
@@ -2430,8 +2409,7 @@ extern "C" int kml_lloyd_hamerly(const void* x, int x_dtype, const void* neg2c, 
 }
 
 // core = 1: the Hopper core over ranges of k_tile columns (in f32 neg2c is
-// -2C's bf16 pieces); core = 2 its f32 one-accumulator variant, without
-// the second-min.
+// -2C's bf16 pieces).
 extern "C" int kml_tiled_argmin(const void* x, int x_dtype, const void* neg2c, int cd,
                                 const float* csq, int n, int d, int k, int k_tile, int raw,
                                 int with_second, int vec, int core, float* part_best,

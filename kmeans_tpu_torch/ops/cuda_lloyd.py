@@ -97,10 +97,9 @@ _FOLD_SPAN = 2048
 #: (``CORE_BN``: one 256-column slice in bf16, two 128-column sub-slices
 #: on the f32 route).
 _CORE_SLICE = 256
-#: The ``core`` code of the C entry points: ``score_block``, the Hopper
-#: core, and the f32 route's one-accumulator variant, which ``chip_smoke.py``
-#: measures beside it (dense rows without the second-min only).
-_CORE_CODES = {"score_block": 0, "wgmma": 1, "wgmma_one_acc": 2}
+#: The ``core`` code of the C entry points: ``score_block`` or the Hopper
+#: core (bf16, or its f32 route).
+_CORE_CODES = {"score_block": 0, "wgmma": 1}
 #: Negative codes of the C entry points (CUDA's own errors are positive).
 _ERRORS = {-1: "no kernel for this dtype pair",
            -2: "the Hopper core does not take this input",

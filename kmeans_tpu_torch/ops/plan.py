@@ -139,10 +139,14 @@ def core_takes(kind: str, d: int, x_itemsize: int, cd_itemsize: int) -> bool:
     ``Precision.HIGHEST`` does on its own chip: each f32 operand split
     exactly into three bf16 pieces and six bf16 products summed in f32
     (x split on chip, −2·C by the wrapper, padded with zero columns to a
-    multiple of 8, so an f32 d % 8 == 4 such as glove's 300 costs
-    nothing).  f32 x in bf16 compute (TMA cannot cast on load), bf16 x in
-    f32 compute and a d that breaks the stride rule run ``score_block``.
-    The labeled fold scores nothing."""
+    multiple of 8 so that TMA can stride it when d % 8 == 4).  The route
+    runs 32-feature stages, so a narrow or ragged d pays for ⌈d/32⌉·32
+    features; K2 on it still beat ``score_block`` at every d measured,
+    4 to 512 (by 5–19% at d = 4, 2.6× at glove's 300, within 8% of the
+    time of 296 and 304; ``chip_smoke.py``'s ``_f32_widths``).  f32 x
+    in bf16 compute (TMA cannot cast on load), bf16 x in f32 compute and
+    a d that breaks the stride rule run ``score_block``.  The labeled
+    fold scores nothing."""
     if kind not in CORE_KINDS or x_itemsize != cd_itemsize:
         return False
     return (x_itemsize == 2 and d % 8 == 0) or (x_itemsize == 4
