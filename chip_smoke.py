@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 from the root of a checkout.  It builds the port's CUDA kernels from
-``kmeans_tpu_torch/csrc/lloyd.cu`` and runs eight phases, exiting non-zero
+``kmeans_tpu_torch/csrc/lloyd.cu`` and runs nine phases, exiting non-zero
 if any fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -100,12 +100,28 @@ if any fails:
    plain version, both bounds and ``torch.mm`` + ``argmin`` with TF32 off,
    beside its other column range and ``score_block``, with each one's
    score error against f64;
-9. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+9. the accelerated and minibatch fits, run after phase 8, each run with
+   the launch counts set to 0 before it and read after: imagenet-accel
+   (``bench.py --accel``'s hard instances at the headline width, bf16,
+   seeds ACCEL_SEEDS: plain ``fit_lloyd``, beta, Anderson and
+   ``fit_minibatch(schedule="nested")`` from one k-means++ start each,
+   each after a warm-up; K1 in every arm, K2 in the Anderson and nested
+   arms, the medians of their inertia within ``bench.py``'s one-sided
+   gates of plain's; on seed 0, K2 with and without row norms and
+   ``anderson_step`` behind queued work, which fails on a host sync, and
+   beta and Anderson for ACCEL_CHECK_ITERS sweeps on ``backend="cuda"``
+   and ``"plain"`` with equal outcome sequences),
+   cifar10-minibatch (f32; the fit, the early-stopping fit and
+   ``partial_fit`` calls, the fit's seconds split into seeding, steps and
+   the final sweep, cuda and plain centroids equal bit for bit) and
+   imagenet-minibatch (bf16; the same split, ``batch_stats`` beside K1 on
+   one gathered batch, a step checked for host syncs);
+10. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.  A kernel has a row for each compute dtype its main-path runs
-   score in: bf16 (phases 4 and 6) and the f32 route (K1, K2 and K4 from
-   imagenet-delta-f32, K5 from each served model's runs), each row's
-   launches counted in its own runs and its times taken at its own
-   shape.
+   score in: bf16 (phases 4, 6 and 9) and the f32 route (K1, K2 and K4
+   from imagenet-delta-f32 and K1 from phase 9's cifar10 runs, K5 from
+   each served model's runs), each row's launches counted in its own runs
+   and its times taken at its own shape.
 
 ``python3 chip_smoke.py --fold-split`` runs phases 1 and 7 only (the
 kernels build at their first call), so it also splits an older tree's K6.
@@ -113,6 +129,8 @@ kernels build at their first call), so it also splits an older tree's K6.
 :func:`phase_f32_bench` only (the f32-compute kernels at the serving and
 headline shapes beside the library), so a copy of this script run in an
 older checkout times that tree's f32 route in the same call.
+``python3 chip_smoke.py --accel`` runs phases 1 and 9 only (the kernels
+build at their first call).
 
 The bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of memory, 989
 TFLOP/s bf16 on the tensor cores and 67 TFLOP/s f32 outside them; an f32
@@ -131,6 +149,7 @@ import time
 
 HEADLINE = dict(n=1_280_000, d=2048, k=1000)
 CODEBOOK = dict(n=1_280_000, d=2048, k=65536)
+CIFAR10 = dict(n=50_000, d=3072, k=100)
 MEM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
@@ -2928,6 +2947,451 @@ def phase_serve(card, models):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the accelerated and minibatch fits
+# ---------------------------------------------------------------------------
+
+#: imagenet-accel: ``bench.py --accel``'s hard instance at the headline
+#: width (``bench.py:_make_data`` with k_gen = k, its cluster_std and a
+#: latent r = 48 geometry), seeded once with k-means++ on the first
+#: ACCEL_SEED_ROWS rows, every arm run to ACCEL_TOL_REL × the mean
+#: per-feature variance of those rows.
+ACCEL_STD = 3.5
+ACCEL_LATENT_R = 48
+#: ``bench.py --accel``'s instance seeds: data from ``seed``, the start
+#: from ``seed + 1``.
+ACCEL_SEEDS = (0, 1, 2)
+ACCEL_SEED_ROWS = 65536
+ACCEL_TOL_REL = 1e-4
+ACCEL_MAX_ITER = 500
+ACCEL_CHUNK = 65536
+#: Sweeps of the cuda-against-plain runs of each accelerated arm.
+ACCEL_CHECK_ITERS = 6
+#: ``bench.py``'s --accel gates on final inertia against plain Lloyd's
+#: (``GATE_ACCEL_REL_INERTIA``, ``GATE_NESTED_REL_INERTIA``), one-sided,
+#: on the median over the instances.
+GATE_ANDERSON_REL = 1e-3
+GATE_NESTED_REL = 1e-2
+#: The minibatch runs: BASELINE.json's configs 4 (cifar10) and 5
+#: (imagenet, on one card), sklearn's default max_no_improvement.
+MB_BATCH = 8192
+MB_STEPS = 200
+MB_NO_IMPROVEMENT = 10
+MB_PARTIAL_FITS = 10
+
+
+def _accel_data(n, d, k_gen, seed=0, tile=32768):
+    """``bench.py:_make_data``'s latent recipe in bf16 on the card, tile by
+    tile (no f32 (n, d) tensor): centres and the (r, d) projection from
+    ``numpy.random.default_rng(seed)``, each tile's labels and latent noise
+    from a ``torch.Generator`` seeded with ``seed``."""
+    import numpy as np
+    import torch
+
+    from kmeans_tpu_torch.ops.distance import full_f32
+
+    rng = np.random.default_rng(seed)
+    proj = rng.normal(size=(ACCEL_LATENT_R, d)).astype(np.float32)
+    proj /= np.linalg.norm(proj, axis=1, keepdims=True)
+    centres = (rng.normal(size=(k_gen, ACCEL_LATENT_R)).astype(np.float32)
+               * 3) @ proj
+    centres = torch.from_numpy(centres).cuda()
+    proj = torch.from_numpy(proj).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.empty(n, d, dtype=torch.bfloat16, device="cuda")
+    for s in range(0, n, tile):
+        e = min(n, s + tile)
+        lab = torch.randint(0, k_gen, (e - s,), generator=gen, device="cuda")
+        z = torch.randn(e - s, ACCEL_LATENT_R, generator=gen, device="cuda")
+        with full_f32():
+            noise = z @ proj
+        x[s:e] = (centres[lab] + ACCEL_STD * noise).to(torch.bfloat16)
+    return x
+
+
+def _timed_run(warm, fn):
+    """``warm()`` (a short call at the same shapes), then ``fn()`` with the
+    launch counts set to 0 just before and read just after: ``(out, host
+    seconds around the synchronised call, launches)``."""
+    warm()
+    _sync()
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return out, time.perf_counter() - t0, K.launch_counts()
+
+
+def _accel_instance(seed, card, check):
+    """One instance of imagenet-accel (data and start from ``seed``): the
+    four arms from one k-means++ start, plain ``fit_lloyd``
+    (``update="auto"``), beta, Anderson and the nested ladder with its
+    full-batch finish, each after a warm-up at the same shapes; with
+    ``check``, the Anderson cost split and each accelerated arm for
+    ACCEL_CHECK_ITERS sweeps on ``backend="cuda"`` and ``"plain"``.
+    Returns ``({arm: inertia relative to plain's}, launches)``."""
+    import dataclasses
+
+    import torch
+
+    import kmeans_tpu_torch as kt
+
+    n, d, k = HEADLINE["n"], HEADLINE["d"], HEADLINE["k"]
+    t0 = time.perf_counter()
+    x = _accel_data(n, d, k, seed=seed)
+    sub = x[:ACCEL_SEED_ROWS]
+    tol = ACCEL_TOL_REL * float(sub.float().var(dim=0, unbiased=False)
+                                .mean())
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    c0 = kt.kmeans_plus_plus(gen, sub, k, compute_dtype="bfloat16")
+    _sync()
+    name = f"imagenet-accel seed {seed}"
+    print(f"{name} data: n={n} d={d} k={k} bf16, std {ACCEL_STD}, latent r "
+          f"{ACCEL_LATENT_R}; k-means++ on {ACCEL_SEED_ROWS} rows; tol "
+          f"{tol:.6e}; {time.perf_counter() - t0:.2f} s to make")
+    cfg = kt.KMeansConfig(k=k, compute_dtype="bfloat16",
+                          max_iter=ACCEL_MAX_ITER, chunk_size=ACCEL_CHUNK)
+    warm_cfg = dataclasses.replace(cfg, max_iter=2)
+    total = {}
+
+    def fit(config, accel=None):
+        if accel is None:
+            return kt.fit_lloyd(x, k, init=c0, tol=tol, config=config)
+        return kt.fit_lloyd_accelerated(x, k, init=c0, tol=tol,
+                                        config=config, accel=accel,
+                                        diag=True)
+
+    def nested(config):
+        return kt.fit_minibatch(x, k, init=c0, tol=tol, config=config,
+                                schedule="nested", return_ladder=True)
+
+    arms, rel = {}, {}
+    for arm, run in (("plain", lambda c: (fit(c), None)),
+                     ("beta", lambda c: fit(c, "beta")),
+                     ("anderson", lambda c: fit(c, "anderson")),
+                     ("nested", nested)):
+        (state, extra), secs, counts = _timed_run(lambda: run(warm_cfg),
+                                                  lambda: run(cfg))
+        _add_counts(total, counts)
+        arms[arm] = state
+        inertia = float(state.inertia)
+        line = (f"{name} {arm}: {int(state.n_iter)} iterations, converged "
+                f"{bool(state.converged)}, {secs:.3f} s, inertia "
+                f"{inertia:.6e}")
+        if arm != "plain":
+            plain = float(arms["plain"].inertia)
+            rel[arm] = (inertia - plain) / plain
+            line += f" ({rel[arm]:+.3e} of plain's)"
+        if arm in ("beta", "anderson"):
+            line += (f"; outcomes accepted {extra['accepted']}, rejected "
+                     f"{extra['rejected']}, fallback {extra['fallback']}")
+        if arm == "nested":
+            ladder = sum(it for _, it in extra)
+            full = int(state.n_iter) - ladder
+            epochs = sum(b * it for b, it in extra) / n + full
+            line += (f"; rungs {extra}, full-batch iterations {full}, "
+                     f"epochs {epochs:.3f}")
+        print(f"{line}; launches {counts} ({card})")
+        _check(_finite(state.centroids) and math.isfinite(inertia),
+               f"{name} {arm}: non-finite result")
+        _check(counts["lloyd_pass_cuda"] >= 1,
+               f"{name} {arm}: K1 did not launch")
+        if arm in ("anderson", "nested"):
+            _check(counts["lloyd_delta_cuda"] >= 1,
+                   f"{name} {arm}: K2 did not launch")
+    if not check:
+        return rel, total
+    _anderson_costs(x, arms["plain"].centroids, card)
+    del arms
+    for accel in ("beta", "anderson"):
+        runs = {}
+        for backend in ("cuda", "plain"):
+            short = dataclasses.replace(cfg, backend=backend,
+                                        max_iter=ACCEL_CHECK_ITERS)
+            runs[backend] = kt.fit_lloyd_accelerated(
+                x, k, init=c0, tol=-1.0, config=short, accel=accel,
+                diag=True)
+        (a, da), (b, db) = runs["cuda"], runs["plain"]
+        fa, fb = float(a.inertia), float(b.inertia)
+        print(f"{name} {accel}, {ACCEL_CHECK_ITERS} sweeps: outcomes cuda "
+              f"{da['outcomes']}, plain {db['outcomes']}; inertia cuda "
+              f"{fa:.6e}, plain {fb:.6e}")
+        _check(da["outcomes"] == db["outcomes"],
+               f"{name} {accel}: the cuda and plain runs took different "
+               "outcome sequences")
+        _check(abs(fa - fb) <= FIT_INERTIA_RTOL * abs(fb),
+               f"{name} {accel}: cuda inertia {fa} vs plain {fb} beyond "
+               f"rtol {FIT_INERTIA_RTOL}")
+    return rel, total
+
+
+def _imagenet_accel(card):
+    """``bench.py --accel``'s protocol at the headline width: one instance
+    per seed in ACCEL_SEEDS, and its quality gates judged as
+    ``bench.py:accel_gates`` judges them, on the median over the instances
+    of each arm's inertia relative to plain's: one instance's trajectory
+    is chaotic, and K2's and K4's atomics, which move the sums' last bits
+    from run to run, can send plain's own fit to another basin.  Returns
+    the launches."""
+    total, rels = {}, []
+    for seed in ACCEL_SEEDS:
+        rel, counts = _accel_instance(seed, card, check=seed == 0)
+        rels.append(rel)
+        _add_counts(total, counts)
+    for arm, gate in (("anderson", GATE_ANDERSON_REL),
+                      ("nested", GATE_NESTED_REL)):
+        each = [r[arm] for r in rels]
+        med = statistics.median(each)
+        print(f"imagenet-accel {arm}: inertia relative to plain's "
+              f"{', '.join(f'{v:+.3e}' for v in each)}, median {med:+.3e} "
+              f"(gate {gate})")
+        _check(med <= gate, f"imagenet-accel {arm}: the median final "
+               f"inertia {med:+.3e} above plain Lloyd's is past the gate "
+               f"{gate}")
+    return total
+
+
+def _behind_queue(name, fn, reps=4):
+    """``fn()`` enqueued behind ≈ 0.1 s of device work (five 8192² f32
+    products), ``reps`` times: a call that reads nothing back returns long
+    before that queue drains, and fails the check otherwise; and since the
+    host has enqueued all of ``fn`` by the time the device reaches the
+    event before it, two events around the call time its device work
+    alone.  Returns ``(host ms, queued ms, median device ms after the
+    first)``."""
+    import torch
+
+    big = torch.ones(8192, 8192, device="cuda")
+    device_ms = []
+    for _ in range(reps):
+        _sync()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            big @ big
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        host_ms = 1e3 * (time.perf_counter() - t1)
+        _sync()
+        queued_ms = 1e3 * (time.perf_counter() - t0)
+        device_ms.append(start.elapsed_time(end))
+        _check(host_ms < 0.5 * queued_ms,
+               f"{name} waited for the device: a host sync in it")
+    return host_ms, queued_ms, statistics.median(device_ms[1:])
+
+
+def _anderson_costs(x, c, card):
+    """What an Anderson sweep adds to K2 at the headline shape, by CUDA
+    events: K2 with the row norms (the objective the safeguard reads every
+    sweep) and without (the plain delta loop's sweep), and one
+    ``anderson_step`` on full m = 5 rings of k·d floats with ``tol`` and
+    ``reg`` as the loop passes them (0-d tensors on the card), behind a
+    queue (:func:`_behind_queue`)."""
+    import torch
+
+    from kmeans_tpu_torch.ops import anderson as A
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lab = K.lloyd_pass_cuda(x, c, compute_dtype=bf16)[0]
+    c1 = c + 0.01 * torch.randn(c.shape, generator=gen, device="cuda")
+    k2 = {mind: _time_ms(lambda: K.lloyd_delta_cuda(
+        x, c1, lab, compute_dtype=bf16, with_mind=mind), 5)
+        for mind in (False, True)}
+    tol = torch.tensor(1e-12, device="cuda")
+    reg = torch.tensor(1e-8, device="cuda")
+    st = A.anderson_state(c, *A.anderson_reset(5, c.numel())[:2])
+    f = torch.tensor(1e9, device="cuda")
+    cur = c
+    for _ in range(6):
+        tc = cur + 0.01 * torch.randn(c.shape, generator=gen, device="cuda")
+        f = f * 0.99
+        cur, st, _ = A.anderson_step(cur, tc, f, ((tc - cur) ** 2).sum(),
+                                     st, tol=tol, reg=reg)
+    tc = cur + 0.01 * torch.randn(c.shape, generator=gen, device="cuda")
+    sh = ((tc - cur) ** 2).sum()
+    host_ms, queued_ms, device_ms = _behind_queue(
+        "anderson_step", lambda: A.anderson_step(cur, tc, f * 0.99, sh, st,
+                                                 tol=tol, reg=reg))
+    print(f"imagenet-accel Anderson costs: K2 {k2[False]:.3f} ms without "
+          f"the row norms, {k2[True]:.3f} ms with; anderson_step (m = 5, "
+          f"k·d = {c.numel()}) device {device_ms:.3f} ms, host "
+          f"{host_ms:.3f} ms behind {queued_ms:.1f} ms of queued work "
+          f"({card})")
+
+
+def _minibatch_split(name, x, est_kw, card):
+    """One ``MiniBatchKMeans.fit`` after a warm-up fit at the same shapes
+    (two steps), and its seconds split: the fit's seeding replayed on its
+    own draws (the subsample, then k-means++ on it), the steps from there
+    (``fit_minibatch`` from the replayed centroids with the generator where
+    the seeding left it, which must give the fit's centroids bit for bit)
+    less the final sweep, timed alone.  Returns ``(estimator,
+    launches)``."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.init import init_centroids
+
+    n = x.shape[0]
+    k = est_kw["n_clusters"]
+    cd = est_kw.get("compute_dtype")
+    est, secs, counts = _timed_run(
+        lambda: kt.MiniBatchKMeans(**dict(est_kw, steps=2)).fit(x),
+        lambda: kt.MiniBatchKMeans(**est_kw).fit(x))
+    steps = int(est.state.n_iter)
+    gen = torch.Generator(device="cuda").manual_seed(est_kw.get("seed", 0))
+    t0 = time.perf_counter()
+    sub = min(n, max(4 * k * 16, 65536))
+    xs = x[torch.randperm(n, generator=gen, device="cuda")[:sub]] \
+        if sub < n else x
+    c_seed = init_centroids(gen, xs, k, compute_dtype=cd)
+    _sync()
+    seed_s = time.perf_counter() - t0
+    del xs
+    cfg = kt.KMeansConfig(k=k, compute_dtype=cd, batch_size=MB_BATCH,
+                          steps=MB_STEPS, seed=est_kw.get("seed", 0),
+                          backend=est_kw.get("backend", "auto"))
+    t0 = time.perf_counter()
+    rest = kt.fit_minibatch(x, k, generator=gen, config=cfg, init=c_seed,
+                            tol=est_kw.get("tol"),
+                            max_no_improvement=est_kw.get(
+                                "max_no_improvement"))
+    _sync()
+    rest_s = time.perf_counter() - t0
+    _check(torch.equal(rest.centroids, est.cluster_centers_),
+           f"{name}: the seeding replayed and the steps from there do not "
+           "give the fit's centroids")
+    t0 = time.perf_counter()
+    kt.lloyd_pass(x, rest.centroids, compute_dtype=cd)
+    _sync()
+    final_s = time.perf_counter() - t0
+    step_s = rest_s - final_s
+    print(f"{name}: {steps} steps, converged {bool(est.state.converged)}, "
+          f"{secs:.3f} s; split: seeding {seed_s:.3f} + steps {step_s:.3f} "
+          f"({1e3 * step_s / steps:.3f} ms a step, {steps / step_s:.1f} "
+          f"steps/s) + final sweep {final_s:.3f}; inertia "
+          f"{est.inertia_:.6e}; launches {counts} ({card})")
+    _check(_finite(est.cluster_centers_) and math.isfinite(est.inertia_),
+           f"{name}: non-finite result")
+    _check(counts["lloyd_pass_cuda"] >= 1, f"{name}: K1 did not launch")
+    return est, counts
+
+
+def _cifar10_minibatch(card):
+    """BASELINE config 4: the fit, the fit with early stopping, and
+    MB_PARTIAL_FITS partial_fit calls; the fit on ``backend="cuda"`` against
+    ``"plain"``.  Returns the f32 route's launches."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.ops.cuda_lloyd import scoring_core
+
+    n, d, k = CIFAR10["n"], CIFAR10["d"], CIFAR10["k"]
+    x, _, _ = kt.make_blobs(0, n, d, k)
+    f32 = torch.float32
+    core = scoring_core(x, f32, x[:k])
+    print(f"cifar10-minibatch: n={n} d={d} k={k} f32 ({x.numel() * 4 / 1e6:.0f}"
+          f" MB), scoring core {core}")
+    _check(core == "wgmma", "cifar10 does not take the core's f32 route")
+    kw = dict(n_clusters=k, batch_size=MB_BATCH, steps=MB_STEPS, seed=0)
+    total = {}
+    est, counts = _minibatch_split("cifar10-minibatch fit", x,
+                                   dict(kw, backend="cuda"), card)
+    _add_counts(total, counts)
+    tol = ACCEL_TOL_REL * float(x.var(dim=0, unbiased=False).mean())
+    early, counts = _minibatch_split(
+        f"cifar10-minibatch fit, tol {tol:.6e}, max_no_improvement "
+        f"{MB_NO_IMPROVEMENT}", x,
+        dict(kw, tol=tol, max_no_improvement=MB_NO_IMPROVEMENT), card)
+    _add_counts(total, counts)
+    stream = kt.MiniBatchKMeans(**kw)
+    rows = n // MB_PARTIAL_FITS
+    stream.partial_fit(x[:rows])              # seeds; the warm-up
+    _sync()
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(MB_PARTIAL_FITS):
+        stream.partial_fit(x[i * rows:(i + 1) * rows])
+    _sync()
+    secs = time.perf_counter() - t0
+    counts = K.launch_counts()
+    _add_counts(total, counts)
+    print(f"cifar10-minibatch partial_fit: {MB_PARTIAL_FITS} calls of {rows} "
+          f"rows in {secs:.3f} s ({1e3 * secs / MB_PARTIAL_FITS:.3f} ms a "
+          f"call), batch inertia {stream.inertia_:.6e}; launches {counts}")
+    _check(counts["lloyd_pass_cuda"] == MB_PARTIAL_FITS,
+           "cifar10-minibatch partial_fit: K1 did not launch once a call")
+    _check(_finite(stream.cluster_centers_), "partial_fit: non-finite")
+    plain = kt.MiniBatchKMeans(**kw, backend="plain").fit(x)
+    _check(torch.equal(est.cluster_centers_, plain.cluster_centers_),
+           "cifar10-minibatch: the cuda and plain fits' centroids differ: "
+           "the steps are the same code on the same draws")
+    moved = _check_labels_rows("cifar10-minibatch final labels", x,
+                               est.cluster_centers_, f32, est.labels_,
+                               plain.labels_)
+    print(f"cifar10-minibatch: cuda and plain fits' centroids equal bit for "
+          f"bit; {moved} final labels differ, each a tie within "
+          f"{SCORE_RTOL}")
+    return total
+
+
+def _imagenet_minibatch(card):
+    """BASELINE config 5 on one card, and one step's ``batch_stats`` beside
+    K1 on the same gathered rows.  Returns the launches."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.minibatch import batch_stats, batch_update
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    n, d, k = HEADLINE["n"], HEADLINE["d"], HEADLINE["k"]
+    bf16 = torch.bfloat16
+    x, _, _ = kt.make_blobs(0, n, d, k, dtype=bf16)
+    kw = dict(n_clusters=k, batch_size=MB_BATCH, steps=MB_STEPS,
+              compute_dtype="bfloat16")
+    est, counts = _minibatch_split("imagenet-minibatch fit", x, kw, card)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    xb = x[torch.randint(0, n, (MB_BATCH,), generator=gen, device="cuda")]
+    c = est.cluster_centers_
+    stats_ms = _time_ms(lambda: batch_stats(c, xb, compute_dtype=bf16), 10)
+    k1_ms = _time_ms(lambda: K.lloyd_pass_cuda(xb, c, compute_dtype=bf16),
+                     10)
+    n_seen = est.state.counts
+    host_ms, queued_ms, step_ms = _behind_queue(
+        "a minibatch step", lambda: batch_update(
+            c, n_seen, x[torch.randint(0, n, (MB_BATCH,), generator=gen,
+                                       device="cuda")],
+            compute_dtype=bf16))
+    print(f"imagenet-minibatch step at {MB_BATCH} gathered rows: batch_stats "
+          f"{stats_ms:.3f} ms, K1 (lloyd_pass_cuda) {k1_ms:.3f} ms; a whole "
+          f"step (draw, gather, batch_update) device {step_ms:.3f} ms, host "
+          f"{host_ms:.3f} ms behind {queued_ms:.1f} ms of queued work "
+          f"({card})")
+    return counts
+
+
+def phase_accel_minibatch(card):
+    """Phase 9: imagenet-accel, cifar10-minibatch and imagenet-minibatch.
+    Returns ``{"bf16": launches, "f32": launches}`` for the kernels line."""
+    t_phase = time.perf_counter()
+    bf16 = _imagenet_accel(card)
+    f32 = _cifar10_minibatch(card)
+    _add_counts(bf16, _imagenet_minibatch(card))
+    print(f"accelerated and minibatch phase: "
+          f"{time.perf_counter() - t_phase:.1f} s; launches bf16 {bf16}, "
+          f"f32 {f32}")
+    return {"bf16": bf16, "f32": f32}
+
+
 def main() -> int:
     import torch
 
@@ -2942,6 +3406,9 @@ def main() -> int:
     if sys.argv[1:] == ["--f32-bench"]:
         phase_f32_bench()
         return 0
+    if sys.argv[1:] == ["--accel"]:
+        phase_accel_minibatch(card)
+        return 0
     phase_build()
     phase_kernels()
     kernels, headline_launches, imagenet_c = phase_headline()
@@ -2951,7 +3418,15 @@ def main() -> int:
     for row in kernels:
         row["launches"] += codebook_launches.get(row["name"], 0)
     kernels += tiled + f32_rows
-    kernels += phase_serve(card, _serve_models(imagenet_c, codebook_c))
+    serve_rows = phase_serve(card, _serve_models(imagenet_c, codebook_c))
+    accel = phase_accel_minibatch(card)
+    for row in kernels:
+        # Phase 9's launches join the bf16 rows and the f32 route's rows.
+        name, _, what = row["name"].partition(" ")
+        compute = {"": "bf16", "(f32 route)": "f32"}.get(what)
+        if compute:
+            row["launches"] += accel[compute].get(name, 0)
+    kernels += serve_rows
     phase_fold_split()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

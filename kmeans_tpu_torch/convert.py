@@ -3,8 +3,10 @@
 A reference ``KMeansState`` (or any mapping or object with the fields
 ``centroids``, ``labels``, ``counts``, ``inertia``, ``n_iter`` and, where
 present, ``converged``) becomes a port :class:`KMeansState` on a device, and
-back.  A reference registry ``Generation`` (its published fields) becomes a
-port :class:`~kmeans_tpu_torch.continuous.registry.Generation`, and a fitted
+back.  A reference ``MiniBatchKMeans``'s state and lifetime counts
+(``_n_seen``) carry on in the port's estimator.  A reference registry
+``Generation`` (its published fields) becomes a port
+:class:`~kmeans_tpu_torch.continuous.registry.Generation`, and a fitted
 state publishes into a port registry, so both engines can serve one model.
 Nothing here imports JAX: a JAX array converts through ``numpy.asarray``.
 """
@@ -18,8 +20,8 @@ from kmeans_tpu_torch.continuous.registry import Generation, ModelRegistry
 from kmeans_tpu_torch.device import resolve_device
 from kmeans_tpu_torch.models.lloyd import KMeansState
 
-__all__ = ["state_from_numpy", "state_to_numpy", "generation_from_numpy",
-           "publish_state"]
+__all__ = ["state_from_numpy", "state_to_numpy", "minibatch_from_numpy",
+           "generation_from_numpy", "publish_state"]
 
 _DTYPES = {"centroids": np.float32, "labels": np.int32, "inertia": np.float32,
            "n_iter": np.int32, "converged": np.bool_, "counts": np.float32}
@@ -55,6 +57,24 @@ def state_to_numpy(state: KMeansState) -> dict:
     return {name: np.asarray(getattr(state, name).cpu().numpy(),
                              dtype=_DTYPES[name])
             for name in KMeansState._fields}
+
+
+def minibatch_from_numpy(state, n_seen=None, *, device=None):
+    """``(state, n_seen)`` for a port ``MiniBatchKMeans`` on ``device``
+    (None is the card) to carry on a reference estimator's ``partial_fit``
+    stream: ``state`` as :func:`state_from_numpy` takes it (the estimator's
+    ``state`` fields) and ``n_seen`` its ``_n_seen`` lifetime counts, or
+    None after ``fit`` (the port rescales from the state's counts, as the
+    reference does).  Set both on the estimator::
+
+        est = MiniBatchKMeans(n_clusters=k, batch_size=b)
+        est.state, est._n_seen = minibatch_from_numpy(fields, n_seen)
+    """
+    st = state_from_numpy(state, device=device)
+    if n_seen is not None:
+        n_seen = torch.from_numpy(np.array(n_seen, dtype=np.float32,
+                                           order="C")).to(st.centroids.device)
+    return st, n_seen
 
 
 def generation_from_numpy(src) -> Generation:

@@ -142,6 +142,86 @@ def test_fit_on_the_card_matches_the_plain_backend(card):
     assert km.cluster_centers_.is_cuda and np.isfinite(km.inertia_)
 
 
+def _labels_up_to_ties(x, c, got, want):
+    """Labels equal but on rows whose two choices both score within 1e-5
+    of the row scale of the f64 minimum (the f32 route's tolerance)."""
+    rows = (got != want).nonzero()[:, 0]
+    s, scale = _scores64(x[rows], c)
+    best = s.min(dim=1).values
+    for lab in (got, want):
+        pick = lab[rows].long()[:, None]
+        gap = s.gather(1, pick)[:, 0] - best
+        assert bool((gap <= 1e-5 * scale.gather(1, pick)[:, 0]).all())
+
+
+@pytest.mark.parametrize("accel,update", [
+    ("beta", "auto"), ("anderson", "matmul"), ("anderson", "auto")])
+def test_accelerated_fits_on_the_card_match_the_plain_backend(
+        card, accel, update):
+    """The beta loop (K1 every sweep) and the Anderson loop (K1, and K2 on
+    its delta sweeps under "auto") against the same loops on the plain
+    versions: the first 8 sweeps from data rows on overlapping blobs
+    (plain Lloyd takes 17 sweeps to a 1e-6 shift there, so each of the 8
+    moves the objective far more than the f32 sums' rounding and every
+    decision is clear): the same outcome sequence, and labels up to
+    ties."""
+    from kmeans_tpu_torch import fit_lloyd_accelerated
+
+    rng = np.random.default_rng(6)
+    centres = rng.normal(size=(20, 32)).astype(np.float32)
+    x = centres[rng.integers(0, 20, size=8192)] + rng.normal(size=(8192, 32))
+    x = torch.from_numpy(x.astype(np.float32)).to(card)
+    fits = {}
+    for backend in ("cuda", "plain"):
+        cfg = KMeansConfig(k=20, update=update, backend=backend)
+        K.reset_launch_counts()
+        fits[backend] = fit_lloyd_accelerated(
+            x, 20, init=x[:20], config=cfg, tol=-1.0, max_iter=8,
+            accel=accel, diag=True)
+        launches = K.launch_counts()
+        if backend == "cuda":
+            assert launches["lloyd_pass_cuda"] >= 2
+            if accel == "anderson" and update == "auto":
+                assert launches["lloyd_delta_cuda"] >= 1
+        else:
+            assert not any(launches.values())
+    (a, da), (b, db) = fits["cuda"], fits["plain"]
+    assert da["outcomes"] == db["outcomes"] and len(da["outcomes"]) == 8
+    _labels_up_to_ties(x, a.centroids, a.labels, b.labels)
+    _close(a.centroids, b.centroids)
+
+
+def test_minibatch_fits_on_the_card_match_the_plain_backend(card):
+    """The Sculley steps are the same PyTorch code on either backend, so
+    with one seed the centroids are equal bit for bit; the final sweep (K1)
+    gives the plain version's labels up to ties.  The nested ladder (K1 on
+    every rung) and its finish (K1, K2) match the plain route."""
+    from kmeans_tpu_torch import MiniBatchKMeans, fit_minibatch
+
+    x = _blobs(7, 6000, 48, 7, card)[0]
+    ests = {}
+    for backend in ("cuda", "plain"):
+        K.reset_launch_counts()
+        ests[backend] = MiniBatchKMeans(
+            n_clusters=7, batch_size=512, steps=40, seed=3,
+            backend=backend).fit(x)
+        assert K.launch_counts()["lloyd_pass_cuda"] == (backend == "cuda")
+    a, b = ests["cuda"].state, ests["plain"].state
+    assert torch.equal(a.centroids, b.centroids)
+    _labels_up_to_ties(x, a.centroids, a.labels, b.labels)
+    nested = {}
+    for backend in ("cuda", "plain"):
+        cfg = KMeansConfig(k=7, nested_start=512, backend=backend)
+        nested[backend] = fit_minibatch(x, 7, init=x[:7], config=cfg,
+                                        tol=1e-4, schedule="nested",
+                                        return_ladder=True)
+    (a, ra), (b, rb) = nested["cuda"], nested["plain"]
+    assert ra == rb and len(ra) >= 2
+    assert int(a.n_iter) == int(b.n_iter)
+    _labels_up_to_ties(x, a.centroids, a.labels, b.labels)
+    _close(a.centroids, b.centroids)
+
+
 @pytest.mark.parametrize("update", ["auto", "hamerly", "yinyang"])
 def test_pruned_fit_on_the_card_matches_the_plain_backend(card, update):
     """The bound-pruned loops through K4 against the same loops on the
