@@ -2742,7 +2742,9 @@ def _serve_run(name, route, card, centroids, pool, points, perm, cfg_kw):
         else (rescored > 0) <= k5 <= min(st["batches"], rescored)),
            f"serve {name} {route}: launches {counts}, K5 expected one a "
            f"dense batch, one a batch with rescored rows")
-    return responses, counts, prep
+    summary = {"qps": n_req / seconds, "points_s": n_pts / seconds,
+               "p50": p50, "p99": p99}
+    return responses, counts, prep, summary
 
 
 def _check_responses(name, route, responses, pool_t, labels, gen_c, points):
@@ -2889,13 +2891,14 @@ def phase_serve(card, models):
     default pruned route, then the dense route on K5) and codebook-serve
     (the codebook fit's, k = 65536: the default int8 quant route, then the
     dense route).  Returns K5's ``kernels`` row for each model, with the
-    launches of that model's runs."""
+    launches of that model's runs, and ``{(model, route): {"qps",
+    "points_s", "p50", "p99"}}`` of each run."""
     import numpy as np
     import torch
 
     from kmeans_tpu_torch.serve.assign import dense_k_tile
 
-    total, rows = {}, []
+    total, rows, summaries = {}, [], {}
     t_phase = time.perf_counter()
     for name, centroids, points, routes, seed in models:
         model_counts = {}
@@ -2914,7 +2917,7 @@ def phase_serve(card, models):
         answered = {}
         batch = min(SERVE_CLIENTS * points, 8192)
         for route, cfg_kw in routes:
-            responses, counts, prep = _serve_run(
+            responses, counts, prep, summaries[name, route] = _serve_run(
                 name, route, card, centroids, pool, points, perm, cfg_kw)
             _add_counts(model_counts, counts)
             _route_scan_ms(name, route, card, prep, pool_t[:batch])
@@ -2944,7 +2947,7 @@ def phase_serve(card, models):
         del pool_t, labels
     print(f"serving phase: {time.perf_counter() - t_phase:.1f} s; serving "
           f"launches {total}")
-    return rows
+    return rows, summaries
 
 
 # ---------------------------------------------------------------------------
@@ -3392,7 +3395,553 @@ def phase_accel_minibatch(card):
     return {"bf16": bf16, "f32": f32}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the model over HTTP (imagenet-http)
+# ---------------------------------------------------------------------------
+
+#: Closed-loop clients, points a request and seconds of a run, as phase 8's
+#: imagenet-serve runs.  The clients run in a process of their own (this
+#: script with --http-client, standard library and numpy only), so their
+#: interpreter lock is not charged to the server.
+HTTP_CLIENTS = 48
+HTTP_POINTS = 64
+HTTP_SECONDS = 3.0
+#: Distinct bodies the JSON run cycles through (a 64 x 2048 request is
+#: about 2.7 MB of JSON text), encoded once by the client before it starts.
+HTTP_JSON_SLOTS = 32
+#: The longest one HTTP call of a run may take.
+HTTP_CALL_S = 60.0
+#: Frame headers of the binary wire protocol
+#: (``kmeans_tpu_torch.serve.assign``), for the client, which imports
+#: nothing of the port: magic, version, dtype, flags, n, d | n, k, gen.
+_HTTP_POINTS_HEADER = "<4sBBHII"
+_HTTP_LABELS_HEADER = "<4sBBHIIQ"
+
+
+def _http_client(spec) -> int:
+    """One run's load, in its own process: ``spec["clients"]`` threads,
+    each on a keep-alive connection of its own, post ``spec["points"]``-row
+    slices of the pool (binary frames, with the distances flag, or JSON)
+    for ``spec["seconds"]`` and on until a response from generation
+    ``spec["new_gen"]`` arrives.  Prints READY once the threads run; writes
+    every response to ``spec["out"]`` (npz)."""
+    import http.client
+    import itertools
+    import struct
+    import threading
+
+    import numpy as np
+
+    pool = np.load(spec["pool"])
+    points, mode = spec["points"], spec["mode"]
+    n_pool, d = pool.shape
+    slots = n_pool // points
+    if mode == "json":
+        slots = min(slots, HTTP_JSON_SLOTS)
+        bodies = [json.dumps({"points": pool[i * points:(i + 1) * points]
+                              .tolist()}).encode() for i in range(slots)]
+        ctype = "application/json"
+    else:
+        header = struct.pack(_HTTP_POINTS_HEADER, b"KMPT", 1, 1,
+                             1 if mode == "distances" else 0, points, d)
+        ctype = "application/x-kmeans-points"
+    lab_size = struct.calcsize(_HTTP_LABELS_HEADER)
+    lock = threading.Lock()
+    counter = itertools.count()
+    stop, seen_new = threading.Event(), threading.Event()
+    rows, labels, dists, errors = [], [], [], []
+
+    def client(tno):
+        conn, conn_no = None, 0
+        while not stop.is_set():
+            if conn is None:
+                conn = http.client.HTTPConnection(
+                    spec["host"], spec["port"], timeout=HTTP_CALL_S)
+                trace = f"{spec['run']:04x}{tno:04x}{conn_no:08x}"
+                conn_no += 1
+            with lock:
+                slot = next(counter) % slots
+            lo = slot * points
+            body = (bodies[slot] if mode == "json"
+                    else header + pool[lo:lo + points].tobytes())
+            t0 = time.perf_counter()
+            try:
+                conn.request("POST", "/api/assign", body=body, headers={
+                    "Content-Type": ctype, "X-Trace-Id": trace})
+                r = conn.getresponse()
+                payload = r.read()
+            except (OSError, http.client.HTTPException) as e:
+                with lock:
+                    errors.append(repr(e))
+                conn.close()
+                conn = None
+                continue
+            t1 = time.perf_counter()
+            gen, lab, dist = -1, np.full(points, -1, np.int32), None
+            if r.status == 200 and mode == "json":
+                obj = json.loads(payload)
+                gen, lab = obj["generation"], np.asarray(obj["labels"],
+                                                         np.int32)
+            elif r.status == 200:
+                _, _, _, flags, n, _, gen = struct.unpack_from(
+                    _HTTP_LABELS_HEADER, payload)
+                lab = np.frombuffer(payload, "<i4", n, lab_size)
+                if flags & 1:
+                    dist = np.frombuffer(payload, "<f4", n,
+                                         lab_size + 4 * n)
+            with lock:
+                rows.append((lo, r.status, gen, t1 - t0, t1 - t_start,
+                             tno))
+                labels.append(lab)
+                if mode == "distances":
+                    dists.append(dist if dist is not None
+                                 else np.full(points, np.nan, np.float32))
+            if gen == spec["new_gen"]:
+                seen_new.set()
+            if r.will_close:
+                conn.close()
+                conn = None
+        if conn is not None:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(spec["clients"])]
+    t_start = time.perf_counter()
+    for t in threads:
+        t.start()
+    print("READY", flush=True)
+    time.sleep(max(0.0, t_start + spec["seconds"] - time.perf_counter()))
+    seen_new.wait(spec["swap_wait"])
+    stop.set()
+    for t in threads:
+        t.join(timeout=2 * HTTP_CALL_S)
+    seconds = time.perf_counter() - t_start
+    with lock:
+        table = np.array(rows, np.float64).reshape(-1, 6)
+        np.savez(spec["out"], table=table, seconds=seconds,
+                 labels=np.stack(labels) if labels else np.zeros((0, points)),
+                 dists=(np.stack(dists) if dists
+                        else np.zeros((0, points), np.float32)),
+                 errors=np.array(errors, dtype=str),
+                 hung=sum(t.is_alive() for t in threads))
+    return 0
+
+
+def _http_get(base, path, data=None, ctype="application/json"):
+    """``(status, body bytes)`` of one request to the server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_CALL_S) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _scrape(base):
+    """``{(name, sorted labels): value}`` of the server's ``/metrics``."""
+    from kmeans_tpu_torch.obs.registry import parse_exposition
+
+    st, body = _http_get(base, "/metrics")
+    _check(st == 200, f"/metrics answered {st}")
+    return {(smp.name, tuple(sorted(smp.labels))): smp.value
+            for fam in parse_exposition(body.decode()).values()
+            for smp in fam.samples}
+
+
+def _metric(before, after, name, **labels):
+    key = (name, tuple(sorted(labels.items())))
+    return after.get(key, 0.0) - before.get(key, 0.0)
+
+
+def _trace_spans(base, prefix):
+    """This run's completed spans from ``/api/trace`` (parsed strictly: a
+    NaN or an Infinity fails the run), those whose trace id starts with
+    the run's ``prefix``."""
+    def strict(token):
+        raise SmokeFailure(f"/api/trace holds {token}: not strict JSON")
+
+    st, body = _http_get(base, "/api/trace")
+    _check(st == 200, f"/api/trace answered {st}")
+    doc = json.loads(body.decode(), parse_constant=strict)
+    names = {e["tid"]: e["args"]["name"] for e in doc["traceEvents"]
+             if e.get("name") == "thread_name"}
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"
+             and str(e["args"].get("trace_id", "")).startswith(prefix)]
+    _check(all(e["tid"] in names for e in spans),
+           "/api/trace: a span's tid has no thread_name row")
+    return spans
+
+
+def _span_split(name, spans, prev_tids):
+    """The lanes and the time split of one run's spans: every connection
+    (one trace id, one handler thread) has exactly one tid, no two
+    connections share one, and none is a tid of the previous run's
+    handler threads (which ended).  Returns the run's handler tids and a
+    line of means: decode (request span start to its ``assign.queue``
+    span), the engine (``assign.queue``: queue, batch and kernel), encode
+    (after it to the request span's end), and per batch ``assign.stage``
+    and ``assign.kernel``."""
+    reqs = [e for e in spans if e["name"] == "POST /api/assign"]
+    lanes = {}
+    for e in reqs:
+        lanes.setdefault(e["args"]["trace_id"], set()).add(e["tid"])
+    tids = set().union(*lanes.values()) if lanes else set()
+    _check(bool(lanes) and all(len(t) == 1 for t in lanes.values())
+           and len(tids) == len(lanes) and not tids & prev_tids,
+           f"{name}: /api/trace lanes: {len(lanes)} connections on "
+           f"{len(tids)} tids, {len(tids & prev_tids)} shared with the "
+           f"previous run")
+    queue = {e["args"]["parent_id"]: e for e in spans
+             if e["name"] == "assign.queue"}
+    split = []
+    for r in reqs:
+        q = queue.get(r["args"]["span_id"])
+        if q is not None:
+            split.append((q["ts"] - r["ts"], q["dur"],
+                          r["ts"] + r["dur"] - q["ts"] - q["dur"], r["dur"]))
+
+    def mean_ms(values):
+        return 1e-3 * statistics.fmean(values) if values else float("nan")
+
+    per_batch = {n: [e["dur"] for e in spans if e["name"] == n]
+                 for n in ("assign.batch", "assign.stage", "assign.kernel")}
+    rows = [e["args"]["rows"] for e in spans if e["name"] == "assign.batch"]
+    line = (f"{len(lanes)} connections on {len(tids)} handler lanes; "
+            f"span split over {len(split)} requests (means): decode "
+            f"{mean_ms([s[0] for s in split]):.3f} ms, engine (assign.queue)"
+            f" {mean_ms([s[1] for s in split]):.3f} ms, encode "
+            f"{mean_ms([s[2] for s in split]):.3f} ms, request span "
+            f"{mean_ms([s[3] for s in split]):.3f} ms; over "
+            f"{len(per_batch['assign.batch'])} batches of "
+            f"{statistics.fmean(rows) if rows else float('nan'):.1f} rows: "
+            f"assign.batch {mean_ms(per_batch['assign.batch']):.3f} ms, "
+            f"assign.stage {mean_ms(per_batch['assign.stage']):.3f} ms, "
+            f"assign.kernel {mean_ms(per_batch['assign.kernel']):.3f} ms")
+    return tids, line
+
+
+def _check_http_responses(name, table, got, ctx):
+    """Every response's labels against K5's labels of its own generation
+    (odd generations serve the model, even ones its permutation); a label
+    that differs must be a near-tie within SCORE_RTOL."""
+    import numpy as np
+    import torch
+
+    idx = table[:, 0].astype(np.int64)[:, None] + np.arange(HTTP_POINTS)
+    moved = 0
+    for g in sorted({int(v) for v in table[:, 2]}):
+        sel = np.flatnonzero(table[:, 2] == g)
+        want = ctx["labels"][g % 2].cpu().numpy()[idx[sel]].ravel()
+        mine = got[sel].ravel()
+        diff = np.flatnonzero(mine != want)
+        if diff.size:
+            rows = torch.from_numpy(idx[sel].ravel()[diff]).cuda()
+            moved += _check_labels_rows(
+                f"{name} generation {g}", ctx["pool_t"][rows],
+                ctx["gen_c"][g % 2].cuda(), torch.float32,
+                torch.from_numpy(mine[diff]).cuda(),
+                torch.from_numpy(want[diff]).cuda())
+    print(f"{name}: every one of {len(table)} responses checked against "
+          f"K5 of its own generation, {moved} rows differ (each a tie "
+          "within the tolerance)")
+
+
+def _check_distances(name, data, ctx):
+    """Each returned distance against f64: ``|dist² − ||x − c||²|`` within
+    1e-5 of ``||x||² + ||c||²``, c the centroid the response labelled."""
+    import numpy as np
+    import torch
+
+    table, pool_t = data["table"], ctx["pool_t"]
+    worst = 0.0
+    for g in sorted({int(v) for v in table[:, 2]}):
+        sel = np.flatnonzero(table[:, 2] == g)
+        c = ctx["gen_c"][g % 2].cuda().double()
+        for part in np.array_split(sel, max(1, sel.size // 512)):
+            lo = table[part, 0].astype(np.int64)
+            idx = torch.from_numpy((lo[:, None] + np.arange(
+                data["labels"].shape[1])[None, :]).ravel()).cuda()
+            lab = torch.from_numpy(data["labels"][part].ravel()).cuda().long()
+            x = pool_t[idx].double()
+            cc = c[lab]
+            d2 = ((x - cc) ** 2).sum(1)
+            scale = (x * x).sum(1) + (cc * cc).sum(1)
+            got = torch.from_numpy(data["dists"][part].ravel()).cuda()
+            err = ((got.double() ** 2 - d2).abs() / scale)
+            worst = max(worst, float(err.max()))
+    _check(worst <= 1e-5, f"{name}: a distance is {worst:.3e} of "
+           "||x||² + ||c||² off f64, beyond 1e-5")
+    return worst
+
+
+def _http_run(ctx, name, base, mode, run, gen_to, route):
+    """One run of phase 10 against the server at ``base``: the client
+    process, a publish of generation ``gen_to`` from a registry that first
+    loads the directory's latest, and ``POST /api/model/reload`` half-way;
+    every response held to K5's labels of its generation, the metrics'
+    counts to the client's, the launches to the batches.  Returns the
+    run's summary and K5's launches."""
+    import urllib.parse
+
+    import numpy as np
+
+    from kmeans_tpu_torch.continuous.registry import ModelRegistry
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    gen_from = gen_to - 1
+    url = urllib.parse.urlparse(base)
+    out = f"{ctx['dir']}/run{run}.npz"
+    spec = {"host": url.hostname, "port": url.port, "pool": ctx["pool_path"],
+            "out": out, "points": HTTP_POINTS, "clients": HTTP_CLIENTS,
+            "seconds": HTTP_SECONDS, "swap_wait": SERVE_SWAP_WAIT_S,
+            "mode": mode, "run": run, "new_gen": gen_to}
+    before = _scrape(base)
+    K.reset_launch_counts()
+    proc = subprocess.Popen(
+        [sys.executable, __file__, "--http-client", json.dumps(spec)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ready = proc.stdout.readline().strip()
+        _check(ready == "READY", f"{name}: the client did not start: "
+               f"{ready!r} {proc.stderr.read()[-2000:] if ready == '' else ''}")
+        time.sleep(HTTP_SECONDS / 2)
+        t_pub = time.perf_counter()
+        other = ModelRegistry(path=ctx["model_dir"])
+        other.load_latest()
+        _check(other.generation == gen_from,
+               f"{name}: the directory holds generation "
+               f"{other.generation}, not {gen_from}")
+        other.publish(ctx["centroids"][gen_to % 2], generation=gen_to,
+                      trigger="drift")
+        st, body = _http_get(base, "/api/model/reload", b"{}")
+        _check(st == 200 and json.loads(body) == {"generation": gen_to},
+               f"{name}: reload answered {st} {body[:200]!r}")
+        t_reload = time.perf_counter() - t_pub
+        _, err = proc.communicate(
+            timeout=HTTP_SECONDS + SERVE_SWAP_WAIT_S + 4 * HTTP_CALL_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    _check(proc.returncode == 0, f"{name}: the client failed: {err[-2000:]}")
+    counts = K.launch_counts()
+    after = _scrape(base)
+    data = dict(np.load(out))
+    table, seconds = data["table"], float(data["seconds"])
+    status = table[:, 1].astype(int)
+    n_req = len(table)
+    n_503 = int((status == 503).sum())
+    gens = {int(g) for g in table[status == 200, 2]}
+    _check(not data["errors"].size and not int(data["hung"])
+           and n_req and (status == 200).all(),
+           f"{name}: {n_req} responses, {int((status != 200).sum())} not "
+           f"200 ({n_503} 503s), {data['errors'].size} connection errors "
+           f"{data['errors'][:1]}, {int(data['hung'])} clients hung")
+    _check(gens == {gen_from, gen_to},
+           f"{name}: generations {sorted(gens)}, not {gen_from} and {gen_to}")
+    _check_http_responses(f"{name} {mode}", table, data["labels"], ctx)
+    dist_err = (_check_distances(f"{name} {mode}", data, ctx)
+                if mode == "distances" else None)
+    # The server's own counts against the client's.
+    fmt = "json" if mode == "json" else "binary"
+    seen = {
+        "POST /api/assign 200": _metric(
+            before, after, "kmeans_tpu_http_requests_total", method="POST",
+            route="/api/assign", status="200"),
+        "wire " + fmt: _metric(before, after,
+                               "kmeans_tpu_assign_wire_requests_total",
+                               format=fmt),
+        "reload 200": _metric(
+            before, after, "kmeans_tpu_http_requests_total", method="POST",
+            route="/api/model/reload", status="200"),
+    }
+    _check(seen == {"POST /api/assign 200": n_req, "wire " + fmt: n_req,
+                    "reload 200": 1},
+           f"{name}: /metrics counted {seen}, the client {n_req} requests "
+           "and one reload")
+    batches = {kind: _metric(before, after, "kmeans_tpu_assign_batches_total",
+                             kernel=kind)
+               for kind in ("dense", "pruned", "quant")}
+    fallback = _metric(before, after,
+                       "kmeans_tpu_assign_pruned_fallback_rows_total")
+    k5 = counts["tiled_argmin_cuda"]
+    n_batches = int(sum(batches.values()))
+    _check(batches[route] == n_batches > 0 and sum(counts.values()) == k5
+           and (k5 == n_batches if route == "dense"
+                else (fallback > 0) <= k5 <= min(n_batches, fallback)),
+           f"{name}: batches {batches}, fallback rows {fallback}, launches "
+           f"{counts}: K5 expected once a dense batch, once a batch with "
+           "rescored rows")
+    tids, split = _span_split(f"{name} {mode}",
+                              _trace_spans(base, f"{run:04x}"),
+                              ctx["prev_tids"])
+    ctx["prev_tids"] = tids
+    lat = table[:, 3].tolist()
+    p50, p99, top = _percentiles(lat)
+    new = table[table[:, 2] == gen_to]
+    summary = {"qps": n_req / seconds, "points_s": n_req * HTTP_POINTS
+               / seconds, "p50": p50, "p99": p99}
+    print(f"http {name} {mode} ({ctx['card']}): {n_req} requests in "
+          f"{seconds:.3f} s = {summary['qps']:.1f} QPS, "
+          f"{summary['points_s']:.0f} points/s; p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms, max {top:.3f} ms; 503s {n_503}; {n_batches} "
+          f"{route} batches, fallback rows {int(fallback)}; K5 launches {k5};"
+          f" publish and reload {t_reload:.3f} s, first generation-{gen_to}"
+          f" response at {float(new[:, 4].min()):.3f} s of the run"
+          + ("" if dist_err is None else
+             f"; distances' worst error {dist_err:.3e} of ||x||²+||c||²"))
+    print(f"http {name} {mode}: {split}")
+    return summary, k5
+
+
+def _http_context(card, centroids, tmp):
+    """The model directory (generation 1 published through the port's
+    registry), the query pool (phase 8's: the centroids plus unit noise)
+    written for the client, and K5's labels of every pool row for both
+    of the run's models: odd generations serve ``centroids``, even ones
+    a permutation of them."""
+    import numpy as np
+    import torch
+
+    from kmeans_tpu_torch.continuous.registry import ModelRegistry
+    from kmeans_tpu_torch.serve.assign import dense_k_tile
+
+    k, d = centroids.shape
+    rng = np.random.default_rng(21)
+    pool = centroids[rng.integers(0, k, size=SERVE_POOL)]
+    pool += rng.standard_normal(pool.shape, dtype=np.float32)
+    perm = rng.permutation(k)
+    models = (centroids[perm], centroids)          # [generation % 2]
+    model_dir = f"{tmp}/model"
+    ModelRegistry(path=model_dir).publish(models[1], generation=1,
+                                          trigger="initial")
+    pool_path = f"{tmp}/pool.npy"
+    np.save(pool_path, pool)
+    pool_t = torch.from_numpy(pool).cuda()
+    gen_c = [torch.from_numpy(np.ascontiguousarray(m)) for m in models]
+    k_tile = dense_k_tile(k, d)
+    labels = [_pool_labels(pool_t, c, k_tile) for c in gen_c]
+    _sync()
+    return {"card": card, "dir": tmp, "model_dir": model_dir,
+            "pool_path": pool_path, "pool_t": pool_t, "centroids": models,
+            "gen_c": gen_c, "labels": labels, "prev_tids": set()}
+
+
+def _http_cli_runs(ctx, port, result):
+    """The orchestrator of the command-line server's runs (on a thread;
+    the server has the main thread): wait for /readyz, warm each wire
+    format once, run binary, binary with distances and JSON, check
+    /readyz, then stop the server as Ctrl-C does."""
+    import _thread
+
+    base = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            try:
+                st, _ = _http_get(base, "/readyz")
+                break
+            except OSError:
+                _check(time.monotonic() < deadline,
+                       "the command-line server never answered /readyz")
+                time.sleep(0.2)
+        _check(st == 200, f"/readyz answered {st} at boot")
+        for mode, run, gen in (("binary", 1, 2), ("distances", 2, 3),
+                               ("json", 3, 4)):
+            result[mode] = _http_run(ctx, "imagenet-http cli", base, mode,
+                                     run, gen, "pruned")
+        st, body = _http_get(base, "/readyz")
+        _check(st == 200 and json.loads(body)["model"] == 4,
+               f"/readyz after the runs: {st} {body[:200]!r}")
+    except BaseException as e:         # handed to the main thread
+        result["error"] = e
+    finally:
+        _thread.interrupt_main()
+
+
+def phase_http(card, centroids, serve_summaries):
+    """Phase 10, imagenet-http: ``python -m kmeans_tpu_torch.cli serve
+    --model-dir D`` (its ``main``, on this process's main thread, stopped
+    by a simulated Ctrl-C) serves ``centroids`` on 127.0.0.1 under the
+    default ``ServeConfig`` (the pruned route): binary, binary with
+    distances and JSON runs; then a ``KMeansServer`` with
+    ``assign_prune_min_k=0`` over the same directory (the dense route on
+    K5, which the command line has no flag for): a binary run.  Each run's
+    numbers are printed beside phase 8's for the same route.  Returns K5's
+    launches over the phase."""
+    import signal
+    import socket
+    import tempfile
+    import threading
+
+    from kmeans_tpu_torch import cli
+    from kmeans_tpu_torch.config import ServeConfig
+    from kmeans_tpu_torch.serve.server import KMeansServer
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_http_") as tmp:
+        ctx = _http_context(card, centroids, tmp)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        result = {}
+        orch = threading.Thread(target=_http_cli_runs,
+                                args=(ctx, port, result), daemon=True)
+        # The command line stops on KeyboardInterrupt; make sure SIGINT
+        # raises it even where this process inherited it ignored.
+        prior = signal.signal(signal.SIGINT, signal.default_int_handler)
+        orch.start()
+        try:
+            rc = cli.main(["serve", "--model-dir", ctx["model_dir"],
+                           "--host", "127.0.0.1", "--port", str(port)])
+        except KeyboardInterrupt:
+            rc = 0
+        finally:
+            orch.join(timeout=60)
+            signal.signal(signal.SIGINT, prior)
+        if "error" in result:
+            raise result["error"]
+        _check(rc == 0 and not orch.is_alive() and len(result) == 3,
+               f"the command-line server exited {rc} with runs "
+               f"{sorted(result)}")
+        server = KMeansServer(ServeConfig(
+            host="127.0.0.1", port=0, model_dir=ctx["model_dir"],
+            assign_prune_min_k=0))
+        httpd = server.start()
+        try:
+            base = f"http://127.0.0.1:{httpd.server_address[1]}"
+            _check(_http_get(base, "/readyz")[0] == 200,
+                   "the dense server is not ready")
+            result["dense"] = _http_run(ctx, "imagenet-http dense", base,
+                                        "binary", 4, 5, "dense")
+        finally:
+            server.stop()
+    launches = 0
+    for mode, route in (("binary", "pruned"), ("distances", "pruned"),
+                        ("json", "pruned"), ("dense", "dense")):
+        summary, k5 = result[mode]
+        launches += k5
+        inproc = serve_summaries.get(("imagenet-serve", route))
+        beside = ("phase 8 not run" if inproc is None else
+                  f"phase 8 in process: {inproc['qps']:.1f} QPS, "
+                  f"{inproc['points_s']:.0f} points/s, p50 "
+                  f"{inproc['p50']:.3f} ms, p99 {inproc['p99']:.3f} ms")
+        print(f"imagenet-http {mode} ({route} route, {card}): "
+              f"{summary['qps']:.1f} QPS, {summary['points_s']:.0f} "
+              f"points/s, p50 {summary['p50']:.3f} ms, p99 "
+              f"{summary['p99']:.3f} ms; {beside}")
+    print(f"http phase: {time.perf_counter() - t_phase:.1f} s; K5 launches "
+          f"{launches}")
+    return launches
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--http-client"]:
+        return _http_client(json.loads(sys.argv[2]))
     import torch
 
     if not torch.cuda.is_available():
@@ -3409,6 +3958,12 @@ def main() -> int:
     if sys.argv[1:] == ["--accel"]:
         phase_accel_minibatch(card)
         return 0
+    if sys.argv[1:] == ["--serve-http"]:
+        from kmeans_tpu_torch.data.synthetic import make_blobs
+
+        centres = make_blobs(0, 1, HEADLINE["d"], HEADLINE["k"])[2]
+        phase_http(card, centres.cpu().numpy(), {})
+        return 0
     phase_build()
     phase_kernels()
     kernels, headline_launches, imagenet_c = phase_headline()
@@ -3418,7 +3973,8 @@ def main() -> int:
     for row in kernels:
         row["launches"] += codebook_launches.get(row["name"], 0)
     kernels += tiled + f32_rows
-    serve_rows = phase_serve(card, _serve_models(imagenet_c, codebook_c))
+    serve_rows, serve_summaries = phase_serve(
+        card, _serve_models(imagenet_c, codebook_c))
     accel = phase_accel_minibatch(card)
     for row in kernels:
         # Phase 9's launches join the bf16 rows and the f32 route's rows.
@@ -3426,6 +3982,11 @@ def main() -> int:
         compute = {"": "bf16", "(f32 route)": "f32"}.get(what)
         if compute:
             row["launches"] += accel[compute].get(name, 0)
+    http_launches = phase_http(card, imagenet_c, serve_summaries)
+    # Phase 10 serves the imagenet-serve model: its K5 launches join that
+    # model's row.
+    (row,) = [r for r in serve_rows if "imagenet-serve" in r["name"]]
+    row["launches"] += http_launches
     kernels += serve_rows
     phase_fold_split()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -6,8 +6,11 @@ yinyang sweeps and the adaptive ``update="auto"`` loop, the accelerated fits
 (beta, Anderson, the nested ladder) and minibatch k-means, whose sweep
 kernels are hand-written CUDA for Hopper (``csrc/lloyd.cu``), built with
 ``nvcc`` at first use.  The assignment engine (:class:`AssignEngine`) serves
-a fitted model from a :class:`ModelRegistry`: dense scoring on the
-streamed-argmin kernel, closure-pruned and int8-codebook routes.  Every
+a fitted model from a :class:`ModelRegistry` (in memory, or a directory
+of verified checkpoints): dense scoring on the streamed-argmin kernel,
+closure-pruned and int8-codebook routes; :mod:`kmeans_tpu_torch.serve.server`
+puts it behind HTTP (``python -m kmeans_tpu_torch.cli serve --model-dir D``).
+Every
 public entry point runs on the card unless the caller
 passes ``device="cpu"``, where the kernels' plain PyTorch versions run; with
 no card and no ``device="cpu"`` it raises.

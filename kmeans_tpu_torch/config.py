@@ -9,15 +9,18 @@ on the card, the plain PyTorch versions for one on the CPU), ``"cuda"`` and
 accelerated and minibatch engines' knobs) are kept so that a configuration
 carries over unchanged.
 
-:class:`ServeConfig` holds the reference's ``assign_*`` fields, the ones the
-assignment engine (:mod:`kmeans_tpu_torch.serve.assign`) reads, with the
-same defaults; the HTTP, room and fleet fields wait for the server.
+:class:`ServeConfig` holds every field of the reference's, with its
+defaults, so one configuration picks the same route and limits on both
+servers.  The board's fields (``max_render_cards``, ``max_concurrent_train``,
+``persist_dir``, ``persist_debounce_s``) and the fleet supervisor's
+(``fleet_*``) are kept for that but not read yet: the port's server has no
+board routes and no fleet, and refuses a ``persist_dir``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 __all__ = ["KMeansConfig", "ServeConfig"]
 
@@ -158,9 +161,43 @@ class KMeansConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """The assignment engine's knobs (``kmeans_tpu/config.py``'s
-    ``ServeConfig``, its ``assign_*`` fields only)."""
+    """The server's and the assignment engine's knobs
+    (``kmeans_tpu/config.py``'s ``ServeConfig``, field for field)."""
 
+    host: str = "127.0.0.1"
+    port: int = 8787
+    #: Cap on cards materialized into a browser-facing document (board).
+    max_render_cards: int = 2000
+    #: Server-wide bound on concurrent ``train`` jobs (board).
+    max_concurrent_train: int = 2
+    #: ``Retry-After`` floor, in seconds, of a 503 (no generation yet, a
+    #: full queue, a shed request); the measured backlog over the drain
+    #: rate raises it under load.
+    retry_after_s: int = 5
+    #: Bounded uniform jitter added to ``Retry-After`` per response, so
+    #: rejected clients do not all come back in the same second.  0 sends
+    #: the exact integer.
+    retry_after_jitter_s: float = 2.0
+    #: Model registry checkpoint directory: the newest verified generation
+    #: is restored at boot and re-loaded on ``POST /api/model/reload``.
+    #: None leaves the registry in memory only.
+    model_dir: Optional[str] = None
+    #: Request-body byte cap of every POST (413 beyond it).
+    max_import_bytes: int = 4 * 1024 * 1024
+    #: Room durability directory (board); the port's server refuses it.
+    persist_dir: Optional[str] = None
+    #: Seconds of quiet after a version bump before a room is written
+    #: (board).
+    persist_debounce_s: float = 0.5
+    #: Serve ``GET /metrics`` (Prometheus text); off answers 404.
+    metrics: bool = True
+    #: Enable the process span tracer while the server runs and serve
+    #: ``GET /api/trace``; off leaves the tracer switch alone and answers
+    #: 404.  ``X-Trace-Id`` is minted or adopted either way.
+    tracing: bool = True
+    #: JSONL telemetry file of train jobs (board); probed for
+    #: writability at construction.
+    telemetry_path: Optional[str] = None
     #: Per-request row cap (a request asking for an unbounded distance
     #: computation is refused at the wire; the batcher re-coalesces split
     #: requests anyway).
@@ -205,3 +242,50 @@ class ServeConfig:
     #: Batches with fewer rows than this skip the quant tier for the f32
     #: pruned route (same labels; both are exact).
     assign_quant_min_rows: int = 512
+    #: Bind the listening socket with ``SO_REUSEPORT`` so fleet worker
+    #: processes share one port.  Off by default: a lone server wants the
+    #: EADDRINUSE a stale twin would otherwise silently split traffic with.
+    reuse_port: bool = False
+    #: Fleet supervisor knobs (the fleet is not ported yet): heartbeat
+    #: cadence and timeout, respawn backoff, drain budget and registry
+    #: watch cadence.
+    fleet_heartbeat_s: float = 0.5
+    fleet_heartbeat_timeout_s: float = 3.0
+    fleet_backoff_base_s: float = 0.1
+    fleet_backoff_max_s: float = 5.0
+    fleet_drain_s: float = 5.0
+    fleet_reload_poll_s: float = 0.1
+    #: Per-tenant admission control on ``POST /api/assign``:
+    #: ``(class, priority, rate_per_s, burst)`` tuples.  A request's
+    #: ``X-Tenant`` names its tenant; a tenant matching a class belongs to
+    #: it, anything else (no header included) to the lowest-priority
+    #: class.  Each tenant value gets its own token bucket at its class's
+    #: rate (0 = unmetered).  Empty, the default, disables admission.
+    tenant_classes: Tuple[Tuple[str, int, float, float], ...] = ()
+    #: Once the assign queue passes this fraction of
+    #: ``assign_pending_limit``, classes shed lowest priority first, at
+    #: evenly spaced thresholds up to the top class at a full queue.
+    shed_start_fraction: float = 0.5
+    #: Directory where the server appends its completed spans as
+    #: ``spans-<pid>.jsonl``.  None disables the spool; the span ring
+    #: works either way.
+    trace_dir: Optional[str] = None
+    #: Port of the fleet supervisor's observability endpoint (fleet).
+    fleet_obs_port: Optional[int] = 0
+    #: Burn-rate SLO monitor (:mod:`kmeans_tpu_torch.obs.slo`): while a
+    #: window is in breach ``/readyz`` answers 503.  Off gates readiness
+    #: on the model and the engine only.
+    slo: bool = False
+    #: Latency SLO: a request slower than this is a bad event; the
+    #: objective is the good fraction required.
+    slo_latency_target_s: float = 0.25
+    slo_latency_objective: float = 0.99
+    #: Availability SLO: 5xx or shed responses are bad events.
+    slo_availability_objective: float = 0.999
+    #: Rolling windows and their burn-rate thresholds, one to one.
+    slo_windows_s: Tuple[float, ...] = (10.0, 60.0, 300.0)
+    slo_burn_thresholds: Tuple[float, ...] = (14.4, 6.0, 1.0)
+    #: A window breaches only with at least this many events in it.
+    slo_min_samples: int = 50
+    #: Burn re-evaluation rate limit.
+    slo_eval_s: float = 0.25

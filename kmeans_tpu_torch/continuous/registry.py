@@ -1,4 +1,4 @@
-"""Fitted-model registry: atomic hot-swap publish, in memory.
+"""Fitted-model registry: atomic hot-swap publish and verified persistence.
 
 Counterpart of ``kmeans_tpu/continuous/registry.py``.  A
 :class:`ModelRegistry` holds the current :class:`Generation`, an immutable
@@ -7,20 +7,40 @@ so a reader that took ``current()`` before a swap finishes its request on
 the old generation and the next request sees the new one; no reader sees a
 torn model and nothing blocks while a swap happens.
 
-Persistence (``path=``, ``load_latest``) rides the reference's verified
-checkpoints, which the port does not have yet: a registry with a ``path``
-refuses to publish rather than skip the write.
+With ``path=`` every publish first writes a verified checkpoint
+(:mod:`kmeans_tpu_torch.utils.checkpoint`, the reference's format, so
+either package reads the other's model directory) and then swaps: disk is
+never behind memory, including at the ``registry.swap`` fault site between
+the two.  ``load_latest`` restores the newest verified generation.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from kmeans_tpu_torch.obs import counter as _obs_counter, gauge as _obs_gauge
+from kmeans_tpu_torch.obs import tracing as _tracing
+from kmeans_tpu_torch.utils import faults
+from kmeans_tpu_torch.utils.checkpoint import (latest_step,
+                                               load_array_checkpoint,
+                                               save_array_checkpoint)
+
 __all__ = ["Generation", "ModelRegistry"]
+
+_REGISTRY_GENERATION = _obs_gauge(
+    "kmeans_tpu_registry_generation",
+    "Generation number of the model currently served by the registry "
+    "(0 = no model published yet)",
+)
+_REGISTRY_SWAPS_TOTAL = _obs_counter(
+    "kmeans_tpu_registry_swaps_total",
+    "Model generations published (atomic hot-swaps completed)",
+    labels=("trigger",),
+)
 
 
 class Generation:
@@ -82,12 +102,15 @@ class Generation:
 
 
 class ModelRegistry:
-    """Current-generation holder.  ``path`` names the reference's
-    checkpoint directory; the port keeps it for call compatibility and
-    refuses to publish under it (see the module docstring)."""
+    """Current-generation holder with persist-then-swap publishes.
 
-    def __init__(self, path: Optional[str] = None):
+    ``path`` is the checkpoint directory (None keeps the registry in
+    memory); ``keep`` step-tagged retention dirs survive each publish.
+    """
+
+    def __init__(self, path: Optional[str] = None, *, keep: int = 2):
         self.path = path
+        self.keep = int(keep)
         self._cond = threading.Condition()
         self._current: Optional[Generation] = None
 
@@ -111,29 +134,92 @@ class ModelRegistry:
 
     def publish(self, centroids, *, trigger: str = "publish",
                 meta: Optional[Dict[str, Any]] = None,
+                extra_arrays: Optional[Dict[str, np.ndarray]] = None,
                 generation: Optional[int] = None) -> Generation:
-        """Install a new generation atomically and return it.  A
-        ``generation`` equal to the current one is a no-op reload; a lower
-        one raises."""
-        if self.path:
-            raise NotImplementedError(
-                f"ModelRegistry(path={self.path!r}): persistence needs the "
-                "verified checkpoints, which the port does not have yet; "
-                "use path=None")
+        """Persist (when ``path`` is set), then install a new generation
+        atomically; returns it.  ``extra_arrays`` ride the same verified
+        checkpoint and ``meta`` lands in its ``extra`` dict and the
+        generation's metadata.  A ``generation`` equal to the current one
+        is a no-op reload; a lower one raises."""
         gen_no = (self.generation + 1 if generation is None
                   else int(generation))
         gen = Generation(centroids, gen_no, trigger=trigger, meta=meta)
+        if self.path and self._current is None:
+            # A fresh registry over a dir that already holds a newer
+            # generation would lose every later load to that stale higher
+            # step.  Strictly greater: an equal step is this publish's own
+            # checkpoint from a retried attempt.
+            prior = latest_step(self.path)
+            if prior is not None and prior > gen_no:
+                raise ValueError(
+                    f"model dir {self.path!r} already holds generation "
+                    f"{prior} (final or retention siblings); resume from "
+                    "it (load_latest / --resume) or remove "
+                    f"{self.path!r}, {self.path!r}.old and "
+                    f"{self.path!r}.step-* to start fresh"
+                )
+        if self.path:
+            arrays = {"centroids": gen.centroids}
+            for name, arr in (extra_arrays or {}).items():
+                if name in arrays:
+                    raise ValueError(f"extra array name {name!r} collides")
+                arrays[name] = np.asarray(arr)
+            save_array_checkpoint(
+                self.path, arrays, step=gen_no,
+                extra={"continuous_model": True, "trigger": gen.trigger,
+                       "created_ts": gen.created_ts, **gen.meta},
+                keep=self.keep,
+            )
+        # A kill here leaves disk one generation ahead of memory: the safe
+        # direction (a restart serves the newer model).
+        faults.check("registry.swap")
         self._install(gen)
         return gen
 
     def _install(self, gen: Generation) -> None:
-        with self._cond:
-            cur = self._current
-            if cur is not None and gen.generation <= cur.generation:
-                if gen.generation == cur.generation:
-                    return
-                raise ValueError(
-                    f"generation {gen.generation} does not advance the "
-                    f"registry (current {cur.generation})")
-            self._current = gen
-            self._cond.notify_all()
+        with _tracing.span("registry.swap", category="swap",
+                           generation=gen.generation, trigger=gen.trigger):
+            with self._cond:
+                cur = self._current
+                if cur is not None and gen.generation <= cur.generation:
+                    if gen.generation == cur.generation:
+                        return        # reload of what is already served
+                    raise ValueError(
+                        f"generation {gen.generation} does not advance the "
+                        f"registry (current {cur.generation})")
+                self._current = gen
+                self._cond.notify_all()
+        _REGISTRY_GENERATION.set(gen.generation)
+        _REGISTRY_SWAPS_TOTAL.labels(trigger=gen.trigger).inc()
+
+    def load_latest(self) -> Optional[Tuple[Generation, dict, dict]]:
+        """Restore the newest verified generation from ``path``.
+
+        Returns ``(generation, arrays, meta)`` (the raw checkpoint
+        contents), or None when no checkpoint exists.  A checkpoint that
+        exists but fails verification raises
+        :class:`~kmeans_tpu_torch.utils.checkpoint.CorruptCheckpointError`,
+        and one without the registry's tag a ``ValueError``: serving a
+        silently wrong model is the one thing this layer must not do.
+        """
+        if not self.path:
+            return None
+        try:
+            arrays, meta = load_array_checkpoint(self.path)
+        except FileNotFoundError:
+            return None
+        extra = dict(meta.get("extra") or {})
+        if not extra.pop("continuous_model", False):
+            raise ValueError(
+                f"checkpoint at {self.path!r} is not a model-registry "
+                "checkpoint (no continuous_model tag) — refusing to serve "
+                "arbitrary arrays as a model"
+            )
+        gen = Generation(
+            arrays["centroids"], int(meta["step"]),
+            trigger=str(extra.pop("trigger", "resume")),
+            created_ts=extra.pop("created_ts", None),
+            meta=extra,
+        )
+        self._install(gen)
+        return gen, arrays, meta

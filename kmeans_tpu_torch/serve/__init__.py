@@ -1,5 +1,7 @@
-"""Serving: the assignment engine (:mod:`kmeans_tpu_torch.serve.assign`)."""
+"""Serving: the HTTP model server (:mod:`kmeans_tpu_torch.serve.server`) and
+the assignment engine (:mod:`kmeans_tpu_torch.serve.assign`)."""
 
 from kmeans_tpu_torch.serve.assign import AssignEngine, assign_direct
+from kmeans_tpu_torch.serve.server import KMeansServer, serve
 
-__all__ = ["AssignEngine", "assign_direct"]
+__all__ = ["KMeansServer", "serve", "AssignEngine", "assign_direct"]

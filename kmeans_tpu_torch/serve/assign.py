@@ -36,10 +36,18 @@ Hot-swap contract: the registry's generation is read once per coalesced
 batch; every request in it is answered from that immutable snapshot and
 reports its number.  Nothing is dropped for a swap.
 
+Observability, as in the reference: the ``kmeans_tpu_assign_*`` metric
+families on the port's :mod:`~kmeans_tpu_torch.obs` registry, and the spans
+``assign.queue`` (a request's wait, on the submitting thread),
+``assign.batch`` (chained into the first request's trace), ``assign.stage``,
+``assign.kernel`` and ``assign.quant``.  :meth:`AssignEngine.queue_depth`
+and :meth:`AssignEngine.drain_rate` feed the server's admission control and
+its ``Retry-After``.
+
 Known differences from the reference: nothing compiles per shape, so
 batches are not padded to the bucket ladder (``batch_rows_pow2`` stays as
-a summary of batch sizes) and ``stats()`` has no shape-cache counters; the
-Prometheus metrics and tracing spans wait for the port's ``obs``.
+a summary of batch sizes), and there is no shape cache to count
+(``stats()`` and the metrics have no shape-cache counters).
 """
 
 from __future__ import annotations
@@ -54,7 +62,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from kmeans_tpu_torch import obs
 from kmeans_tpu_torch.device import resolve_device
+from kmeans_tpu_torch.obs import tracing as _tracing
 from kmeans_tpu_torch.ops.cuda_lloyd import neg2c_pieces, tiled_argmin_cuda
 from kmeans_tpu_torch.ops.hamerly import (closure_assign_device,
                                           closure_candidates)
@@ -82,7 +92,88 @@ __all__ = [
     "WIRE_LABELS_CONTENT_TYPE",
     "WIRE_FLAG_DISTANCES",
     "WIRE_VERSION",
+    "ASSIGN_REQUEST_SECONDS",
+    "WIRE_REQUESTS_TOTAL",
+    "WIRE_BYTES_TOTAL",
 ]
+
+# ---------------------------------------------------------------------------
+# Observability: the reference's families, names, labels and buckets.  Sub-ms
+# buckets: the engine's request latency is single-digit ms.
+# ---------------------------------------------------------------------------
+_MS_BUCKETS = (0.0002, 0.0005, 0.001, 0.002, 0.004, 0.008, 0.016,
+               0.032, 0.064, 0.128, 0.256, 1.0, 5.0, 30.0)
+
+ASSIGN_REQUEST_SECONDS = obs.histogram(
+    "kmeans_tpu_assign_request_seconds",
+    "POST /api/assign wall time per request (queue wait + kernel "
+    "included); path = batched | direct",
+    labels=("path",), buckets=_MS_BUCKETS,
+)
+_QUEUE_DELAY_SECONDS = obs.histogram(
+    "kmeans_tpu_assign_queue_delay_seconds",
+    "Queue delay of the OLDEST request in each dispatched micro-batch "
+    "— the quantity ServeConfig.assign_max_delay_s bounds (plus at "
+    "most one in-flight batch ahead of it)",
+    buckets=_MS_BUCKETS,
+)
+_BATCH_ROWS = obs.histogram(
+    "kmeans_tpu_assign_batch_rows",
+    "Coalesced rows per dispatched micro-batch (pre-padding; the "
+    "batch-size distribution of the serving load)",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096,
+             8192, 16384),
+)
+_BATCHES_TOTAL = obs.counter(
+    "kmeans_tpu_assign_batches_total",
+    "Micro-batches dispatched, by kernel kind (pruned = closure-"
+    "candidate scoring; dense = all-k scoring; quant = compressed-"
+    "codebook scoring with exact rescore)",
+    labels=("kernel",),
+)
+_FALLBACK_ROWS_TOTAL = obs.counter(
+    "kmeans_tpu_assign_pruned_fallback_rows_total",
+    "Rows whose closure-pruning exactness certificate failed and were "
+    "rescored by the dense kernel (pruning stays exact; this counts "
+    "what it cost)",
+)
+_QUANT_REQUESTS_TOTAL = obs.counter(
+    "kmeans_tpu_assign_quant_requests_total",
+    "POST /api/assign requests answered through the compressed-codebook "
+    "scoring tier, by quantization tier (tier = int8 | bf16; docs/"
+    "SERVING.md \"Compressed codebook\")",
+    labels=("tier",),
+)
+_QUANT_CANDIDATES = obs.histogram(
+    "kmeans_tpu_assign_quant_candidates",
+    "Per-batch mean survivor fraction of the error-bounded quantized "
+    "prune (surviving candidates / candidates scored; host tier — the "
+    "device tier certifies rows without materializing counts).  Near 0 "
+    "= the quantized bounds are tight and almost every row resolves "
+    "without an exact rescore",
+    buckets=(0.001, 0.002, 0.005, 0.01, 0.02, 0.05, 0.1, 0.2, 0.5, 1.0),
+)
+_QUANT_RESCORE_ROWS_TOTAL = obs.counter(
+    "kmeans_tpu_assign_quant_rescore_rows_total",
+    "Rows whose quantized candidate set stayed ambiguous and were "
+    "rescored by the exact f32 machinery (the survivors-only gather on "
+    "the host tier, the dense rescue on the device tier) — the price "
+    "of compression; labels stay exact either way",
+)
+WIRE_REQUESTS_TOTAL = obs.counter(
+    "kmeans_tpu_assign_wire_requests_total",
+    "POST /api/assign requests by negotiated wire format (binary = the "
+    "application/x-kmeans-points frame, json = the legacy object; "
+    "malformed frames count before they 400, so rejects are visible)",
+    labels=("format",),
+)
+WIRE_BYTES_TOTAL = obs.counter(
+    "kmeans_tpu_assign_wire_bytes_total",
+    "POST /api/assign body bytes by direction (rx = request payload "
+    "read, tx = response payload written), both wire formats — the "
+    "transport-cost denominator behind the binary protocol's win",
+    labels=("direction",),
+)
 
 #: Relative certificate margin: the pruned scores' f32 error is ~1e-6·d
 #: relative, and 1e-3 stays two orders of magnitude above it, as
@@ -417,8 +508,9 @@ def _quant_host(x: np.ndarray, prep: "PreparedModel", tier, pool=None,
     candidate list complete among all k — rows failing it rescore
     densely in the engine, exactly like the f32 path.
 
-    Returns ``(labels, ok, n_rescore)``: int32 labels, the closure
-    certificate, and the rows that needed the exact rescore."""
+    Returns ``(labels, ok, n_cand_sum, n_rescore)``: int32 labels, the
+    closure certificate, the surviving candidates summed over the rows,
+    and the rows that needed the exact rescore."""
     n = x.shape[0]
     g_n = prep.gc.shape[0]
     sg = x @ prep.gc2                                          # (B, G)
@@ -442,7 +534,7 @@ def _quant_host(x: np.ndarray, prep: "PreparedModel", tier, pool=None,
     s *= tier.scale2_cand[gso]
     s += tier.csqh_cand[gso]
     xsq = np.einsum("bd,bd->b", xs, xs)
-    labels_s, se_best, _n_cand, n_rescore = quant_prune(
+    labels_s, se_best, n_cand, n_rescore = quant_prune(
         xs, xsq, s, tier.err_cand[gso], prep.cand[gso],
         prep.gen.centroids, prep.csq)
     dg = np.sqrt(np.maximum(
@@ -454,7 +546,7 @@ def _quant_host(x: np.ndarray, prep: "PreparedModel", tier, pool=None,
     ok = np.empty(n, bool)
     labels[order] = labels_s.astype(np.int32)
     ok[order] = ok_s
-    return labels, ok, n_rescore
+    return labels, ok, int(n_cand.sum()), n_rescore
 
 
 def assign_direct(gen, x: np.ndarray) -> np.ndarray:
@@ -597,7 +689,8 @@ class PreparedModel:
 class _Pending:
     """One enqueued request: rows in, labels + generation out."""
 
-    __slots__ = ("points", "n", "event", "labels", "gen", "error", "t_enq")
+    __slots__ = ("points", "n", "event", "labels", "gen", "error", "t_enq",
+                 "ctx")
 
     def __init__(self, points: np.ndarray):
         self.points = points
@@ -607,6 +700,7 @@ class _Pending:
         self.gen = None
         self.error: Optional[Exception] = None
         self.t_enq = time.perf_counter()
+        self.ctx = _tracing.current_context()
 
 
 _SHUTDOWN = object()
@@ -661,6 +755,10 @@ class AssignEngine:
         self._stats_lock = threading.Lock()
         self._prep: "collections.OrderedDict[int, PreparedModel]" = \
             collections.OrderedDict()
+        #: EWMA of dispatched requests/s across the dispatchers: the drain
+        #: rate behind the server's Retry-After.
+        self._drain_ewma = 0.0
+        self._last_dispatch_ts: Optional[float] = None
         self._n_batches = 0
         self._n_rows = 0
         self._n_requests = 0
@@ -703,7 +801,10 @@ class AssignEngine:
             # The enqueue-vs-stop() race: if stop()'s drain ran before
             # this put landed, nobody else will fail it.
             self._drain_pending()
-        if not p.event.wait(float(self.cfg.assign_timeout_s)):
+        with _tracing.span("assign.queue", category="serve_queue",
+                           rows=p.n):
+            done = p.event.wait(float(self.cfg.assign_timeout_s))
+        if not done:
             raise AssignTimeoutError(
                 f"assign batch did not complete within "
                 f"{self.cfg.assign_timeout_s}s")
@@ -771,6 +872,18 @@ class AssignEngine:
     def closed(self) -> bool:
         """True once :meth:`stop` has run (permanent)."""
         return self._closed
+
+    def queue_depth(self) -> int:
+        """Requests waiting in the pending queue: the backlog the server's
+        ``Retry-After`` divides by the drain rate."""
+        return self._q.qsize()
+
+    def drain_rate(self) -> float:
+        """EWMA of dispatched requests/s (0.0 until two batches have
+        dispatched).  Requests, not rows: the queue is bounded in
+        requests, so a rejected client's wait is depth over this."""
+        with self._stats_lock:
+            return self._drain_ewma
 
     def stats(self) -> Dict[str, object]:
         """Snapshot of the engine's counters."""
@@ -926,19 +1039,46 @@ class AssignEngine:
                 p.event.set()
         if not good:
             return
+        t_disp = time.perf_counter()
         rows = sum(p.n for p in good)
+        # One observation a batch, of the oldest member: the quantity
+        # assign_max_delay_s bounds.
+        _QUEUE_DELAY_SECONDS.observe(t_disp - min(p.t_enq for p in good))
         prep = self._prepared(gen)
         qmode = self._quant_mode(prep, rows)
         kind = ("quant" if qmode
                 else "pruned" if prep.pruned else "dense")
-        x = (good[0].points if len(good) == 1
-             else np.concatenate([p.points for p in good]))
-        labels = self._run_kernel(kind, prep, x, rows, qmode=qmode)
+        if qmode:
+            _QUANT_REQUESTS_TOTAL.labels(tier=qmode).inc(len(good))
+        # The batch span chains into the first request's trace, so one
+        # trace shows request -> queue -> batch -> kernel.
+        ctx = next((p.ctx for p in good if p.ctx is not None), None)
+        with _tracing.use_context(ctx), \
+                _tracing.span("assign.batch", category="serve_batch",
+                              rows=rows, requests=len(good),
+                              kernel=kind, generation=gen.generation):
+            with _tracing.span("assign.stage", category="serve_transfer",
+                               rows=rows, requests=len(good)):
+                x = (good[0].points if len(good) == 1
+                     else np.concatenate([p.points for p in good]))
+            labels = self._run_kernel(kind, prep, x, rows, qmode=qmode)
+        t_done = time.perf_counter()
         with self._stats_lock:
+            if self._last_dispatch_ts is not None:
+                # Requests finished over the gap since the previous batch
+                # completed, smoothed as the arrival-gap estimate is.
+                rate = len(good) / max(t_done - self._last_dispatch_ts,
+                                       1e-6)
+                self._drain_ewma = (rate if self._drain_ewma == 0.0
+                                    else 0.8 * self._drain_ewma
+                                    + 0.2 * rate)
+            self._last_dispatch_ts = t_done
             self._n_batches += 1
             self._n_requests += len(good)
             self._n_rows += rows
             self._bucket_counts[self._bucket(rows)] += 1
+        _BATCH_ROWS.observe(rows)
+        _BATCHES_TOTAL.labels(kernel=kind).inc()
         off = 0
         for p in good:
             p.labels = labels[off:off + p.n]
@@ -989,6 +1129,12 @@ class AssignEngine:
     def _run_kernel(self, kind: str, prep: PreparedModel,
                     x: np.ndarray, rows: int,
                     qmode: Optional[str] = None) -> np.ndarray:
+        with _tracing.span("assign.kernel", category="serve_kernel",
+                           kernel=kind, rows=rows):
+            return self._route(kind, prep, x, rows, qmode)
+
+    def _route(self, kind: str, prep: PreparedModel, x: np.ndarray,
+               rows: int, qmode: Optional[str]) -> np.ndarray:
         if kind == "quant":
             return self._run_quant(prep, x, rows, qmode)
         if kind == "pruned":
@@ -1007,6 +1153,7 @@ class AssignEngine:
                 # Pruning is an optimization, never an approximation.
                 with self._stats_lock:
                     self._n_fallback_rows += int(bad.size)
+                _FALLBACK_ROWS_TOTAL.inc(int(bad.size))
                 self._rescore(prep, x, labels, bad, x_dev)
             return labels
         return self._dense(prep, self._stage(x))
@@ -1020,26 +1167,34 @@ class AssignEngine:
         the whole compressed codebook; rows it cannot certify are rescored
         densely (:meth:`_rescore`) and counted as quant rescores."""
         tier = prep.quant_tier(mode)
-        if self._pruned_route() == "device":
-            x_dev = self._stage(x)
-            labels, ok = _pair_to_host(*quant_assign_device(
-                x_dev, *tier.device(self.device), mode,
-                k_tile=quant_k_tile(rows, prep.k),
-                margin_rel=QUANT_MARGIN_REL))
+        route = self._pruned_route()
+        with _tracing.span("assign.quant", category="serve_quant",
+                           tier=mode, route=route, rows=rows):
+            if route == "device":
+                x_dev = self._stage(x)
+                labels, ok = _pair_to_host(*quant_assign_device(
+                    x_dev, *tier.device(self.device), mode,
+                    k_tile=quant_k_tile(rows, prep.k),
+                    margin_rel=QUANT_MARGIN_REL))
+                bad = np.flatnonzero(~ok)
+                with self._stats_lock:
+                    self._n_quant_batches += 1
+                    self._n_quant_rescore_rows += int(bad.size)
+                if bad.size:
+                    _QUANT_RESCORE_ROWS_TOTAL.inc(int(bad.size))
+                    self._rescore(prep, x, labels, bad, x_dev)
+                return labels
+            labels, ok, n_cand, n_rescore = _quant_host(
+                x, prep, tier, pool=self._pool, chunks=self._kernel_threads)
+            _QUANT_CANDIDATES.observe(n_cand / max(1, rows * prep.m))
+            if n_rescore:
+                _QUANT_RESCORE_ROWS_TOTAL.inc(n_rescore)
             bad = np.flatnonzero(~ok)
             with self._stats_lock:
                 self._n_quant_batches += 1
-                self._n_quant_rescore_rows += int(bad.size)
-            if bad.size:
-                self._rescore(prep, x, labels, bad, x_dev)
-            return labels
-        labels, ok, n_rescore = _quant_host(
-            x, prep, tier, pool=self._pool, chunks=self._kernel_threads)
-        bad = np.flatnonzero(~ok)
-        with self._stats_lock:
-            self._n_quant_batches += 1
-            self._n_quant_rescore_rows += n_rescore
-            self._n_fallback_rows += int(bad.size)
+                self._n_quant_rescore_rows += n_rescore
+                self._n_fallback_rows += int(bad.size)
         if bad.size:
+            _FALLBACK_ROWS_TOTAL.inc(int(bad.size))
             self._rescore(prep, x, labels, bad)
         return labels

@@ -755,3 +755,43 @@ def test_engine_dense_route_fails_the_batch_where_k5_refuses(card,
     finally:
         eng.stop()
     assert K.launch_counts()["tiled_argmin_cuda"] == 0
+
+
+def test_server_on_the_card_answers_with_k5_labels(card, tmp_path):
+    """``KMeansServer`` with no ``device`` serves on the card: one binary
+    request over HTTP gets K5's labels, from one K5 launch (the dense
+    route)."""
+    import urllib.request
+
+    from kmeans_tpu_torch.config import ServeConfig
+    from kmeans_tpu_torch.continuous.registry import ModelRegistry
+    from kmeans_tpu_torch.serve import assign as A
+    from kmeans_tpu_torch.serve.server import KMeansServer
+
+    c, x = _serve_problem(6, 300, 128, 256)
+    path = str(tmp_path / "model")
+    ModelRegistry(path=path).publish(c)
+    s = KMeansServer(ServeConfig(port=0, model_dir=path,
+                                 assign_prune_min_k=0))
+    assert s.device.type == "cuda"
+    httpd = s.start()
+    try:
+        K.reset_launch_counts()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/api/assign",
+            data=A.encode_points(x),
+            headers={"Content-Type": A.WIRE_POINTS_CONTENT_TYPE},
+            method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            labels, _, generation, k = A.decode_labels(r.read())
+        counts = K.launch_counts()
+    finally:
+        s.stop()
+    ct = torch.from_numpy(c).to(card)
+    want = K.tiled_argmin_cuda(
+        torch.from_numpy(x).to(card), (ct * -2).contiguous(),
+        (ct * ct).sum(1), k_tile=A.dense_k_tile(*c.shape),
+        raw_scores=True)[0]
+    np.testing.assert_array_equal(labels, want.cpu().numpy())
+    assert (generation, k) == (1, 300)
+    assert counts["tiled_argmin_cuda"] == 1

@@ -680,7 +680,7 @@ def test_hot_swap_hammer_every_response_self_consistent(route):
 # Registry, conversion, and the kernels' entry under threads
 # ---------------------------------------------------------------------------
 
-def test_registry_publish_swap_and_refusals():
+def test_registry_publish_swap_and_refusals(tmp_path):
     reg = ModelRegistry()
     assert reg.current() is None and reg.generation == 0
     c = np.arange(6, dtype=np.float64).reshape(3, 2)
@@ -703,8 +703,16 @@ def test_registry_publish_swap_and_refusals():
     assert reg.wait_for(3, timeout=0.0) and reg.generation == 3
     with pytest.raises(ValueError, match=r"\(k, d\)"):
         Generation(np.zeros(3), 1)
-    with pytest.raises(NotImplementedError, match="persistence"):
-        ModelRegistry("/nonexistent/models").publish(c)
+    # A registry with a path persists before it swaps: a fresh registry
+    # over the directory restores the generation, and a fresh registry that
+    # would publish under it is refused.
+    path = str(tmp_path / "models")
+    ModelRegistry(path).publish(c, generation=4)
+    back, arrays, _ = ModelRegistry(path).load_latest()
+    assert back.generation == 4
+    np.testing.assert_array_equal(arrays["centroids"], c.astype(np.float32))
+    with pytest.raises(ValueError, match="already holds generation 4"):
+        ModelRegistry(path).publish(c)
 
 
 def test_generation_and_fit_state_carry_across():
