@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 from the root of a checkout.  It builds the port's CUDA kernels from
-``kmeans_tpu_torch/csrc/lloyd.cu`` and runs nine phases, exiting non-zero
-if any fails:
+``kmeans_tpu_torch/csrc/lloyd.cu`` and runs eleven phases, exiting
+non-zero if any fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` for sm_90a, with its seconds, register report, and the
@@ -116,7 +116,28 @@ if any fails:
    the final sweep, cuda and plain centroids equal bit for bit) and
    imagenet-minibatch (bf16; the same split, ``batch_stats`` beside K1 on
    one gathered batch, a step checked for host syncs);
-10. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+10. the model over HTTP (imagenet-http): ``python -m
+   kmeans_tpu_torch.cli serve --model-dir D`` on phase 4's centroids,
+   binary, distances and JSON runs of 48 keep-alive clients in a client
+   process, a publish and a reload half-way, then the dense route; every
+   response held to K5's labels of its generation, ``/metrics`` to the
+   client's counts, ``/api/trace`` to one lane per connection;
+11. the serving fleet (imagenet-fleet): the same model and pool, 48
+   keep-alive clients split over two client processes: one ``cli serve``
+   process, then fleets of 1, 2 and 4 workers on the default route
+   (``cli serve --workers N --fleet-obs-port P`` for N > 1), 4 on the
+   dense route, each run publishing a generation that the supervisor
+   pushes to its workers half-way; every response held to K5's labels
+   of its generation, no 503, no drop, no unplanned exit, the aggregated
+   ``/metrics`` to the clients' counts with the fit's families under a
+   ``worker`` label, the merged ``/api/trace`` strict JSON with every
+   worker's lanes, a clean drain; QPS, p50 / p99, each worker's boot and
+   first response, the card's memory and busy share, the span split;
+   K5's launches counted from the workers' traces and held to their
+   engine counters; then the kill drill (``fleet.heartbeat:kill@2``:
+   the RTO beside the reference's gate, only in-flight requests lost)
+   and a rolling replace with no failed request, at 2 workers;
+12. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.  A kernel has a row for each compute dtype its main-path runs
    score in: bf16 (phases 4, 6 and 9) and the f32 route (K1, K2 and K4
    from imagenet-delta-f32 and K1 from phase 9's cifar10 runs, K5 from
@@ -130,7 +151,8 @@ kernels build at their first call), so it also splits an older tree's K6.
 headline shapes beside the library), so a copy of this script run in an
 older checkout times that tree's f32 route in the same call.
 ``python3 chip_smoke.py --accel`` runs phases 1 and 9 only (the kernels
-build at their first call).
+build at their first call); ``--serve-http`` and ``--fleet`` run phases 1
+and 10, and 1 and 11, on ``make_blobs`` centres.
 
 The bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of memory, 989
 TFLOP/s bf16 on the tensor cores and 67 TFLOP/s f32 outside them; an f32
@@ -3423,10 +3445,18 @@ def _http_client(spec) -> int:
     each on a keep-alive connection of its own, post ``spec["points"]``-row
     slices of the pool (binary frames, with the distances flag, or JSON)
     for ``spec["seconds"]`` and on until a response from generation
-    ``spec["new_gen"]`` arrives.  Prints READY once the threads run; writes
-    every response to ``spec["out"]`` (npz)."""
+    ``spec["new_gen"]`` arrives (None: no wait) and, with
+    ``spec["until_file"]``, until that file exists.  Options: ``fresh``, a
+    new connection for every request (the fleet drills' clients), ``pace``
+    seconds between a client's requests, ``tno_base`` added to the client
+    numbers in the trace ids (a second client process of one run),
+    ``retry_resets``: a request whose connection fails before any byte of
+    a response is sent once more on a new connection, and the failed
+    attempt's trace id is kept (``retried``).  Prints READY once the
+    threads run; writes every response to ``spec["out"]`` (npz)."""
     import http.client
     import itertools
+    import os
     import struct
     import threading
 
@@ -3446,21 +3476,29 @@ def _http_client(spec) -> int:
                              1 if mode == "distances" else 0, points, d)
         ctype = "application/x-kmeans-points"
     lab_size = struct.calcsize(_HTTP_LABELS_HEADER)
+    fresh, pace = spec.get("fresh", False), spec.get("pace", 0.0)
+    tno_base = spec.get("tno_base", 0)
+    retry = spec.get("retry_resets", False)
+    retried = []
     lock = threading.Lock()
     counter = itertools.count()
     stop, seen_new = threading.Event(), threading.Event()
     rows, labels, dists, errors = [], [], [], []
 
     def client(tno):
-        conn, conn_no = None, 0
+        conn, conn_no, again = None, 0, None
         while not stop.is_set():
             if conn is None:
                 conn = http.client.HTTPConnection(
                     spec["host"], spec["port"], timeout=HTTP_CALL_S)
-                trace = f"{spec['run']:04x}{tno:04x}{conn_no:08x}"
+                trace = (f"{spec['run']:04x}{tno_base + tno:04x}"
+                         f"{conn_no:08x}")
                 conn_no += 1
-            with lock:
-                slot = next(counter) % slots
+            is_retry, slot = again is not None, again
+            again = None
+            if not is_retry:
+                with lock:
+                    slot = next(counter) % slots
             lo = slot * points
             body = (bodies[slot] if mode == "json"
                     else header + pool[lo:lo + points].tobytes())
@@ -3471,10 +3509,14 @@ def _http_client(spec) -> int:
                 r = conn.getresponse()
                 payload = r.read()
             except (OSError, http.client.HTTPException) as e:
-                with lock:
-                    errors.append(repr(e))
                 conn.close()
                 conn = None
+                with lock:
+                    if retry and not is_retry:
+                        retried.append(trace)
+                        again = slot
+                    else:
+                        errors.append(repr(e))
                 continue
             t1 = time.perf_counter()
             gen, lab, dist = -1, np.full(points, -1, np.int32), None
@@ -3491,18 +3533,24 @@ def _http_client(spec) -> int:
                                          lab_size + 4 * n)
             with lock:
                 rows.append((lo, r.status, gen, t1 - t0, t1 - t_start,
-                             tno))
+                             tno_base + tno))
                 labels.append(lab)
                 if mode == "distances":
                     dists.append(dist if dist is not None
                                  else np.full(points, np.nan, np.float32))
             if gen == spec["new_gen"]:
                 seen_new.set()
-            if r.will_close:
+            if r.will_close or fresh:
                 conn.close()
                 conn = None
+            if pace:
+                stop.wait(pace)
         if conn is not None:
             conn.close()
+        if again is not None:
+            with lock:
+                errors.append("a reset request was not retried before the "
+                              "run stopped")
 
     threads = [threading.Thread(target=client, args=(i,), daemon=True)
                for i in range(spec["clients"])]
@@ -3511,7 +3559,12 @@ def _http_client(spec) -> int:
         t.start()
     print("READY", flush=True)
     time.sleep(max(0.0, t_start + spec["seconds"] - time.perf_counter()))
-    seen_new.wait(spec["swap_wait"])
+    if spec["new_gen"] is not None:
+        seen_new.wait(spec["swap_wait"])
+    deadline = time.perf_counter() + spec["swap_wait"]
+    while spec.get("until_file") and not os.path.exists(
+            spec["until_file"]) and time.perf_counter() < deadline:
+        time.sleep(0.02)
     stop.set()
     for t in threads:
         t.join(timeout=2 * HTTP_CALL_S)
@@ -3523,6 +3576,7 @@ def _http_client(spec) -> int:
                  dists=(np.stack(dists) if dists
                         else np.zeros((0, points), np.float32)),
                  errors=np.array(errors, dtype=str),
+                 retried=np.array(retried, dtype=str),
                  hung=sum(t.is_alive() for t in threads))
     return 0
 
@@ -3557,30 +3611,40 @@ def _metric(before, after, name, **labels):
     return after.get(key, 0.0) - before.get(key, 0.0)
 
 
-def _trace_spans(base, prefix):
-    """This run's completed spans from ``/api/trace`` (parsed strictly: a
-    NaN or an Infinity fails the run), those whose trace id starts with
-    the run's ``prefix``."""
+def _strict_trace(base):
+    """``/api/trace`` at ``base``, parsed strictly: a NaN or an Infinity
+    fails the run."""
     def strict(token):
         raise SmokeFailure(f"/api/trace holds {token}: not strict JSON")
 
     st, body = _http_get(base, "/api/trace")
     _check(st == 200, f"/api/trace answered {st}")
-    doc = json.loads(body.decode(), parse_constant=strict)
-    names = {e["tid"]: e["args"]["name"] for e in doc["traceEvents"]
-             if e.get("name") == "thread_name"}
+    return json.loads(body.decode(), parse_constant=strict)
+
+
+def _run_spans(doc, prefix):
+    """The completed spans of a trace document whose trace id starts with
+    the run's ``prefix``; each must sit on a lane (pid, tid) that has a
+    thread_name row."""
+    names = {(e["pid"], e["tid"]): e["args"]["name"]
+             for e in doc["traceEvents"] if e.get("name") == "thread_name"}
     spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"
              and str(e["args"].get("trace_id", "")).startswith(prefix)]
-    _check(all(e["tid"] in names for e in spans),
-           "/api/trace: a span's tid has no thread_name row")
+    _check(all((e["pid"], e["tid"]) in names for e in spans),
+           "trace: a span's lane has no thread_name row")
     return spans
+
+
+def _trace_spans(base, prefix):
+    """This run's completed spans from ``/api/trace``."""
+    return _run_spans(_strict_trace(base), prefix)
 
 
 def _span_split(name, spans, prev_tids):
     """The lanes and the time split of one run's spans: every connection
-    (one trace id, one handler thread) has exactly one tid, no two
-    connections share one, and none is a tid of the previous run's
-    handler threads (which ended).  Returns the run's handler tids and a
+    (one trace id, one handler thread) has exactly one lane (pid, tid),
+    no two connections share one, and none is a lane of the previous
+    run's handler threads (which ended).  Returns the run's lanes and a
     line of means: decode (request span start to its ``assign.queue``
     span), the engine (``assign.queue``: queue, batch and kernel), encode
     (after it to the request span's end), and per batch ``assign.stage``
@@ -3588,18 +3652,19 @@ def _span_split(name, spans, prev_tids):
     reqs = [e for e in spans if e["name"] == "POST /api/assign"]
     lanes = {}
     for e in reqs:
-        lanes.setdefault(e["args"]["trace_id"], set()).add(e["tid"])
+        lanes.setdefault(e["args"]["trace_id"], set()).add(
+            (e["pid"], e["tid"]))
     tids = set().union(*lanes.values()) if lanes else set()
     _check(bool(lanes) and all(len(t) == 1 for t in lanes.values())
            and len(tids) == len(lanes) and not tids & prev_tids,
            f"{name}: /api/trace lanes: {len(lanes)} connections on "
            f"{len(tids)} tids, {len(tids & prev_tids)} shared with the "
            f"previous run")
-    queue = {e["args"]["parent_id"]: e for e in spans
+    queue = {(e["pid"], e["args"]["parent_id"]): e for e in spans
              if e["name"] == "assign.queue"}
     split = []
     for r in reqs:
-        q = queue.get(r["args"]["span_id"])
+        q = queue.get((r["pid"], r["args"]["span_id"]))
         if q is not None:
             split.append((q["ts"] - r["ts"], q["dur"],
                           r["ts"] + r["dur"] - q["ts"] - q["dur"], r["dur"]))
@@ -3863,7 +3928,7 @@ def _http_cli_runs(ctx, port, result):
         _thread.interrupt_main()
 
 
-def phase_http(card, centroids, serve_summaries):
+def phase_http(card, centroids, serve_summaries, summaries=None):
     """Phase 10, imagenet-http: ``python -m kmeans_tpu_torch.cli serve
     --model-dir D`` (its ``main``, on this process's main thread, stopped
     by a simulated Ctrl-C) serves ``centroids`` on 127.0.0.1 under the
@@ -3871,8 +3936,9 @@ def phase_http(card, centroids, serve_summaries):
     distances and JSON runs; then a ``KMeansServer`` with
     ``assign_prune_min_k=0`` over the same directory (the dense route on
     K5, which the command line has no flag for): a binary run.  Each run's
-    numbers are printed beside phase 8's for the same route.  Returns K5's
-    launches over the phase."""
+    numbers are printed beside phase 8's for the same route, and each run's
+    summary goes into ``summaries`` by mode.  Returns K5's launches over the
+    phase."""
     import signal
     import socket
     import tempfile
@@ -3925,6 +3991,8 @@ def phase_http(card, centroids, serve_summaries):
                         ("json", "pruned"), ("dense", "dense")):
         summary, k5 = result[mode]
         launches += k5
+        if summaries is not None:
+            summaries[mode] = summary
         inproc = serve_summaries.get(("imagenet-serve", route))
         beside = ("phase 8 not run" if inproc is None else
                   f"phase 8 in process: {inproc['qps']:.1f} QPS, "
@@ -3939,9 +4007,694 @@ def phase_http(card, centroids, serve_summaries):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the serving fleet on the card (imagenet-fleet)
+# ---------------------------------------------------------------------------
+
+#: Worker counts of the pruned-route runs (``cli serve --workers N``), of
+#: the dense run (the embedding API) and of the drills.
+FLEET_SIZES = (1, 2, 4)
+FLEET_DENSE_WORKERS = 4
+FLEET_DRILL_WORKERS = 2
+#: Client processes a run's HTTP_CLIENTS keep-alive clients are split over.
+FLEET_CLIENT_PROCS = 2
+#: The drills' clients: a fresh connection a request, paced, as the
+#: reference's slow drills (tests/test_fleet.py) send them.
+FLEET_DRILL_CLIENTS = 8
+FLEET_DRILL_PACE_S = 0.02
+#: The longest a fleet may take to boot, drain or recover.
+FLEET_WAIT_S = 120.0
+#: Fresh-connection requests a fleet answers before a run's clock starts,
+#: per worker: the kernel spreads them over the listeners, so each worker
+#: has paid its first request (timed from the trace) before the load.
+FLEET_WARM_PER_WORKER = 8
+#: The reference's recovery gate for the kill drill (the soak gate that
+#: tests/test_fleet.py's drill cites), printed beside the measured RTO.
+FLEET_REF_RTO_S = 2.0
+#: nvidia-smi's utilization.gpu sampling period during a run.
+FLEET_UTIL_PERIOD_S = 0.1
+
+
+def _final_workers(sup):
+    """Each slot's last worker once the fleet has stopped: ``{"kind":
+    "final", "slot", "pid", "returncode", "drained"}`` (its FLEET_DRAINED
+    line read before its pipe closed)."""
+    out = []
+    for slot, h in sorted(sup._workers.items()):
+        deadline = time.monotonic() + 10.0
+        while not h.eof and time.monotonic() < deadline:
+            time.sleep(0.01)
+        out.append({"kind": "final", "slot": slot, "pid": h.proc.pid,
+                    "returncode": h.proc.poll(), "drained": h.drained})
+    return out
+
+
+def _fleet_cli(spec) -> int:
+    """``chip_smoke.py --fleet-cli SPEC``: ``kmeans_tpu_torch.cli.main(
+    spec["argv"])`` in this process, with each event of its fleet
+    supervisor appended to ``spec["events"]`` as a JSON line (monotonic
+    clock, which every process of the machine shares) and, once it
+    returns, each slot's final worker (:func:`_final_workers`), so the
+    smoke reads a command-line fleet as it reads an embedded one."""
+    import threading
+
+    from kmeans_tpu_torch import cli
+    from kmeans_tpu_torch.serve import fleet
+
+    log = open(spec["events"], "a", encoding="utf-8")
+    lock = threading.Lock()
+    record, start = fleet.FleetSupervisor._event, fleet.FleetSupervisor.start
+    sups = []
+
+    def write(ev):
+        with lock:
+            log.write(json.dumps(ev) + "\n")
+            log.flush()
+
+    def _event(self, kind, slot=None, **detail):
+        record(self, kind, slot, **detail)
+        with self._events_lock:
+            write(self.events[-1])
+
+    def _start(self):
+        sups.append(self)
+        start(self)
+
+    fleet.FleetSupervisor._event = _event
+    fleet.FleetSupervisor.start = _start
+    rc = cli.main(spec["argv"])
+    for sup in sups:
+        for ev in _final_workers(sup):
+            write(ev)
+    return rc
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class _FleetUnderTest:
+    """A server the phase drives: ``cli serve`` in a process of its own
+    (``--fleet-cli``; SIGTERM drains a fleet, SIGINT stops one server) or
+    an embedded ``FleetSupervisor``.  Both give their supervisor's
+    events."""
+
+    def __init__(self, name, tmp, argv=None, sup=None, stop_signal=None):
+        import signal
+
+        self.name, self.sup, self.proc = name, sup, None
+        self.events_path = f"{tmp}/{name}.events"
+        self.err_path = f"{tmp}/{name}.stderr"
+        self.stop_signal = stop_signal or signal.SIGTERM
+        if sup is not None:
+            sup.start()
+            return
+        spec = {"argv": argv, "events": self.events_path}
+        with open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, __file__, "--fleet-cli", json.dumps(spec)],
+                stdout=subprocess.DEVNULL, stderr=err)
+
+    def events(self, kind=None):
+        if self.sup is not None:
+            with self.sup._events_lock:
+                evs = list(self.sup.events) + getattr(self, "final", [])
+        else:
+            try:
+                with open(self.events_path, encoding="utf-8") as f:
+                    evs = [json.loads(ln) for ln in f if ln.endswith("\n")]
+            except FileNotFoundError:
+                evs = []
+        return [e for e in evs if kind is None or e["kind"] == kind]
+
+    def check_alive(self):
+        _check(self.proc is None or self.proc.poll() is None,
+               f"{self.name}: the server exited {self.proc.poll() if self.proc else ''}:"
+               f" {self.stderr()[-2000:]}")
+
+    def stderr(self):
+        if self.proc is None:
+            return ""
+        with open(self.err_path, encoding="utf-8", errors="replace") as f:
+            return f.read()
+
+    def stop(self):
+        """Drain and stop: ``(clean, exit code, stderr)``."""
+        if self.sup is not None:
+            clean = self.sup.stop(graceful=True)
+            self.final = _final_workers(self.sup)
+            return clean, 0 if clean else 1, ""
+        self.proc.send_signal(self.stop_signal)
+        try:
+            rc = self.proc.wait(timeout=FLEET_WAIT_S)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            rc = "killed after a drain timeout"
+        return rc == 0, rc, self.stderr()
+
+    def kill(self):
+        if self.sup is not None:
+            self.sup.stop(graceful=False)
+        elif self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _fleet_ready(fleet, n, base):
+    """Until every slot's first worker sent READY (``n`` > 0) and the
+    shared port answers ``/readyz`` 200.  Returns ``{slot:
+    spawn-to-ready seconds}``."""
+    deadline = time.monotonic() + FLEET_WAIT_S
+    while True:
+        fleet.check_alive()
+        ready = {e["slot"]: e for e in fleet.events("ready")}
+        if len(ready) >= n:
+            try:
+                if _http_get(base, "/readyz")[0] == 200:
+                    break
+            except OSError:
+                pass
+        _check(time.monotonic() < deadline,
+               f"{fleet.name}: not ready in {FLEET_WAIT_S} s: "
+               f"{fleet.events()[-6:]}")
+        time.sleep(0.05)
+    spawned = {e["slot"]: e for e in fleet.events("spawn")
+               if e["incarnation"] == 1}
+    return {slot: ready[slot]["ts"] - spawned[slot]["ts"]
+            for slot in sorted(ready)}
+
+
+def _fleet_warm(ctx, base, n):
+    """FLEET_WARM_PER_WORKER fresh-connection requests a worker, each
+    answered 200 (trace ids ``ffff...``, outside every run's prefix)."""
+    from kmeans_tpu_torch.serve import assign as A
+
+    frame = A.encode_points(ctx["pool_t"][:HTTP_POINTS].cpu().numpy())
+    for i in range(FLEET_WARM_PER_WORKER * max(n, 1)):
+        st, _ = _http_get(base, "/api/assign", frame,
+                          A.WIRE_POINTS_CONTENT_TYPE)
+        _check(st == 200, f"warm-up request {i} answered {st}")
+
+
+def _gpu_sampler():
+    """Sample ``utilization.gpu`` every FLEET_UTIL_PERIOD_S on a thread;
+    returns the function that stops it and gives the samples (%)."""
+    import threading
+
+    samples, stop = [], threading.Event()
+
+    def loop():
+        while not stop.is_set():
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=utilization.gpu",
+                     "--format=csv,noheader,nounits"],
+                    capture_output=True, text=True, timeout=10).stdout
+            except (OSError, subprocess.SubprocessError):
+                return                  # no samples: printed as nan
+            try:
+                samples.append(float(out.split()[0]))
+            except (IndexError, ValueError):
+                pass
+            stop.wait(FLEET_UTIL_PERIOD_S)
+
+    t = threading.Thread(target=loop, daemon=True)
+    t.start()
+
+    def finish():
+        stop.set()
+        t.join(timeout=15)
+        return samples
+
+    return finish
+
+
+def _card_memory():
+    """``(card MiB in use, [(pid, MiB) of each compute process])`` from
+    nvidia-smi.  In a container the pids may be the host's (or all 1), so
+    a worker's share is also read as the rise of the card's total."""
+    def query(*args):
+        return subprocess.run(["nvidia-smi", *args,
+                               "--format=csv,noheader,nounits"],
+                              capture_output=True, text=True,
+                              timeout=10).stdout
+
+    total = float(query("--query-gpu=memory.used").split()[0])
+    apps = []
+    for line in query("--query-compute-apps=pid,used_memory").splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            apps.append((int(parts[0]), float(parts[1])))
+    return total, apps
+
+
+def _fleet_load(ctx, port, run, gen_to, *, procs, clients, fresh=False,
+                pace=0.0, until_file=None, seconds=HTTP_SECONDS,
+                retry_resets=False):
+    """Start ``procs`` client processes sharing ``clients`` threads;
+    returns them with their output paths, once each printed READY."""
+    started = []
+    per = clients // procs
+    for i in range(procs):
+        out = f"{ctx['dir']}/run{run:x}-{i}.npz"
+        spec = {"host": "127.0.0.1", "port": port,
+                "pool": ctx["pool_path"], "out": out,
+                "points": HTTP_POINTS, "clients": per, "seconds": seconds,
+                "swap_wait": SERVE_SWAP_WAIT_S, "mode": "binary",
+                "run": run, "new_gen": gen_to, "tno_base": i * per,
+                "fresh": fresh, "pace": pace, "until_file": until_file,
+                "retry_resets": retry_resets}
+        proc = subprocess.Popen(
+            [sys.executable, __file__, "--http-client", json.dumps(spec)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        started.append((proc, out))
+    for proc, _ in started:
+        ready = proc.stdout.readline().strip()
+        _check(ready == "READY", f"a client did not start: {ready!r}")
+    return started
+
+
+def _fleet_collect(name, started):
+    """Wait for the client processes; their responses merged: ``(table,
+    labels, errors, hung, seconds, retried)``."""
+    import numpy as np
+
+    tables, labels, errors, hung, seconds = [], [], [], 0, 0.0
+    retried = []
+    for proc, out in started:
+        try:
+            _, err = proc.communicate(
+                timeout=HTTP_SECONDS + 2 * SERVE_SWAP_WAIT_S
+                + 4 * HTTP_CALL_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        _check(proc.returncode == 0,
+               f"{name}: a client failed: {err[-2000:]}")
+        data = np.load(out)
+        tables.append(data["table"])
+        labels.append(data["labels"])
+        errors += list(data["errors"])
+        retried += [str(t) for t in data["retried"]]
+        hung += int(data["hung"])
+        seconds = max(seconds, float(data["seconds"]))
+    return (np.concatenate(tables), np.concatenate(labels), errors, hung,
+            seconds, retried)
+
+
+def _k5_of_trace(doc):
+    """K5's launches in a fleet's merged trace: each dense batch's
+    ``assign.kernel`` span and each ``assign.rescore`` span (a pruned
+    batch whose certificate failures K5 rescored)."""
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    dense = sum(1 for e in spans if e["name"] == "assign.kernel"
+                and e["args"].get("kernel") == "dense")
+    rescored = sum(1 for e in spans if e["name"] == "assign.rescore")
+    return dense, rescored
+
+
+def _first_responses(doc, names):
+    """``{lane name: ms}``: the server-side time of each worker's first
+    ``POST /api/assign`` (its CUDA context, the library's load and the
+    prepared model's build included)."""
+    first = {}
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X" and e["name"] == "POST /api/assign":
+            if e["pid"] not in first or e["ts"] < first[e["pid"]]["ts"]:
+                first[e["pid"]] = e
+    return {names.get(pid, f"pid {pid}"): 1e-3 * e["dur"]
+            for pid, e in sorted(first.items())}
+
+
+def _fleet_run(ctx, name, fleet, n, route, run, gen_to, port, obs_port,
+               trace_dir):
+    """One run of phase 11 against ``fleet`` (``n`` workers; 0 is one
+    server process): boot, warm-up, the two client processes, a publish
+    half-way (a fleet's supervisor pushes RELOAD; one server is told by
+    ``POST /api/model/reload``), the card's memory and busy share, then
+    the checks: K5's labels of each response's generation, no 503, no
+    drop, no unplanned exit, the (aggregated) ``/metrics`` against the
+    client's counts and C2's families under a ``worker`` label, the
+    (merged) trace strict JSON with every worker pid's lanes, a clean
+    drain with exit 0; K5's launches from the workers' trace, held to the
+    engine counters.  Returns the run's summary."""
+    import numpy as np
+
+    from kmeans_tpu_torch.continuous.registry import ModelRegistry
+    from kmeans_tpu_torch.obs.fleetview import merge_spool
+    from kmeans_tpu_torch.obs.registry import parse_exposition
+
+    base = f"http://127.0.0.1:{port}"
+    mbase = base if n == 0 else f"http://127.0.0.1:{obs_port}"
+    gen_from = gen_to - 1
+    boot = _fleet_ready(fleet, n, base)
+    mem_before = _card_memory()[0]     # no worker has touched the card
+    _fleet_warm(ctx, base, n)
+    before = _scrape(mbase)
+    started = _fleet_load(ctx, port, run, gen_to, procs=FLEET_CLIENT_PROCS,
+                          clients=HTTP_CLIENTS)
+    sampler = _gpu_sampler()
+    time.sleep(HTTP_SECONDS / 2)
+    other = ModelRegistry(path=ctx["model_dir"])
+    other.load_latest()
+    _check(other.generation == gen_from,
+           f"{name}: the directory holds generation {other.generation}, "
+           f"not {gen_from}")
+    other.publish(ctx["centroids"][gen_to % 2], generation=gen_to,
+                  trigger="drift")
+    if n == 0:
+        st, body = _http_get(base, "/api/model/reload", b"{}")
+        _check(st == 200 and json.loads(body) == {"generation": gen_to},
+               f"{name}: reload answered {st} {body[:200]!r}")
+    mem = _card_memory()
+    table, got, errors, hung, seconds, _ = _fleet_collect(name, started)
+    util = sampler()
+    after = _scrape(mbase)
+    status = table[:, 1].astype(int)
+    n_req = len(table)
+    gens = {int(g) for g in table[status == 200, 2]}
+    _check(not errors and not hung and n_req and (status == 200).all(),
+           f"{name}: {n_req} responses, {int((status != 200).sum())} not "
+           f"200 ({int((status == 503).sum())} 503s), {len(errors)} "
+           f"connection errors {errors[:1]}, {hung} clients hung")
+    _check(gens == {gen_from, gen_to},
+           f"{name}: generations {sorted(gens)}, not {gen_from} and {gen_to}")
+    _check_http_responses(name, table, got, ctx)
+    seen = {
+        "POST /api/assign 200": _metric(
+            before, after, "kmeans_tpu_http_requests_total", method="POST",
+            route="/api/assign", status="200"),
+        "wire binary": _metric(before, after,
+                               "kmeans_tpu_assign_wire_requests_total",
+                               format="binary"),
+    }
+    _check(seen == {"POST /api/assign 200": n_req, "wire binary": n_req},
+           f"{name}: /metrics counted {seen}, the clients {n_req}")
+    text = _http_get(mbase, "/metrics")[1].decode()
+    families = parse_exposition(text)
+    fit_fams = ("kmeans_tpu_sweep_recompute_rows_total",
+                "kmeans_tpu_sweep_group_filter_fraction",
+                "kmeans_tpu_accel_steps_total")
+    _check(all(f in families for f in fit_fams),
+           f"{name}: /metrics lacks {[f for f in fit_fams if f not in families]}")
+    lanes = [str(i) for i in range(n)]
+    for fam in fit_fams[1:]:
+        have = {s.label_dict().get("worker") for s in families[fam].samples}
+        _check(n == 0 or set(lanes) <= have,
+               f"{name}: {fam} has lanes {sorted(map(str, have))}, not "
+               f"every worker's {lanes}")
+    if n:
+        restarts = families["kmeans_tpu_fleet_restarts_total"].samples
+        _check(all(s.value == 0 for s in restarts),
+               f"{name}: the supervisor counted restarts")
+    # The (merged) trace over HTTP: strict JSON, every worker's lanes.
+    time.sleep(0.6)                   # one spool flush period
+    doc = _strict_trace(mbase)
+    spans = _run_spans(doc, f"{run:04x}")
+    pids = {e["pid"] for e in spans if e["name"] == "POST /api/assign"}
+    spawns = {e["pid"]: e["slot"] for e in fleet.events("spawn")}
+    if n:
+        procs = {e["pid"]: e["args"]["name"] for e in doc["traceEvents"]
+                 if e.get("name") == "process_name"}
+        _check(len(pids) == n and all(
+            procs.get(p) == f"worker {spawns.get(p)}" for p in pids),
+            f"{name}: /api/trace has request lanes of pids {sorted(pids)} "
+            f"named {[procs.get(p) for p in pids]}, not {n} workers'")
+    clean, rc, err = fleet.stop()
+    _check(clean and rc == 0 and "Traceback" not in err
+           and "CUDA error" not in err,
+           f"{name}: the server stopped with {rc}: {err[-2000:]}")
+    # No unplanned exit: every exit the monitor saw was a drained one,
+    # and each slot's worker drained and exited 0.
+    exits, final = fleet.events("exit"), fleet.events("final")
+    _check(all(e["drained"] and e["returncode"] == 0 for e in exits)
+           and not fleet.events("sigkill") and len(final) == n
+           and all(e["drained"] and e["returncode"] == 0 for e in final),
+           f"{name}: exits {exits}, final workers {final}, sigkills "
+           f"{fleet.events('sigkill')}")
+    # The complete trace from the spool, after the drain flushed it.
+    full = merge_spool(trace_dir, {p: f"worker {s}"
+                                   for p, s in spawns.items()})
+    dense, rescored = _k5_of_trace(full)
+    batches = {kind: after.get(("kmeans_tpu_assign_batches_total",
+                                (("kernel", kind),)), 0.0)
+               for kind in ("dense", "pruned")}
+    fallback = after.get(("kmeans_tpu_assign_pruned_fallback_rows_total",
+                          ()), 0.0)
+    _check(dense == batches["dense"]
+           and (fallback > 0) <= rescored
+           <= min(batches["pruned"], fallback)
+           and batches[route] > 0,
+           f"{name}: the trace has {dense} dense kernels and {rescored} "
+           f"rescores; /metrics {batches} batches, {fallback} fallback rows")
+    tids, split = _span_split(name, _run_spans(full, f"{run:04x}"), set())
+    lat = table[:, 3].tolist()
+    p50, p99, top = _percentiles(lat)
+    new = table[table[:, 2] == gen_to]
+    first = _first_responses(full, {p: f"worker {s}"
+                                    for p, s in spawns.items()}
+                             if n else {})
+    summary = {"qps": n_req / seconds, "points_s": n_req * HTTP_POINTS
+               / seconds, "p50": p50, "p99": p99, "k5": dense + rescored,
+               "boot": boot, "first": first}
+    busy = statistics.fmean(util) if util else float("nan")
+    worker_mem = (f"the card's {mem[0]:.0f} MiB in use, "
+                  f"{mem[0] - mem_before:.0f} more than at READY "
+                  f"({(mem[0] - mem_before) / max(n, 1):.0f} a worker); "
+                  f"compute processes (pid, MiB) {mem[1]}")
+    print(f"fleet {name} ({ctx['card']}): {n_req} requests in "
+          f"{seconds:.3f} s = {summary['qps']:.1f} QPS, "
+          f"{summary['points_s']:.0f} points/s; p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms, max {top:.3f} ms; 503s 0; "
+          f"{int(sum(batches.values()))} batches ({batches}), fallback rows "
+          f"{int(fallback)}; K5 launches {dense + rescored} ({dense} dense "
+          f"+ {rescored} rescores, from the workers' trace); first "
+          f"generation-{gen_to} response at {float(new[:, 4].min()):.3f} s "
+          "of the run")
+    print(f"fleet {name}: spawn-to-ready s "
+          f"{ {f'worker {k}': round(v, 3) for k, v in boot.items()} }; "
+          f"first response ms (server side) "
+          f"{ {k: round(v, 3) for k, v in first.items()} }; card memory: "
+          f"{worker_mem}; card busy {busy:.1f}% over {len(util)} "
+          f"samples of utilization.gpu")
+    print(f"fleet {name}: {split}")
+    return summary
+
+
+def _fleet_drill(ctx, name, run, kill):
+    """A drill at FLEET_DRILL_WORKERS workers on the embedding API, under
+    FLEET_DRILL_CLIENTS paced fresh-connection clients: the kill drill
+    (``fleet.heartbeat:kill@2`` in slot 0's first incarnation; prints the
+    RTO, its exit to its replacement's ``ready``, beside the reference's
+    gate, and counts the failed requests, which may only be the ones in
+    flight: one a client) or the rolling replace (``rolling_replace()``,
+    what SIGHUP runs: no request may fail).  In the rolling replace a
+    connection reset before any byte of a response is sent once more on a
+    new connection: such an attempt may only be one no worker accepted (a
+    connection queued on a listener as it closes is reset by the kernel),
+    so its trace id must be on no request span of the workers' spool, and
+    every predecessor must drain with no accepted request unanswered.
+    Every answered request is held to K5's labels.  Returns ``(summary
+    line, K5 launches seen in the trace)``."""
+    from kmeans_tpu_torch.config import ServeConfig
+    from kmeans_tpu_torch.obs.fleetview import merge_spool
+    from kmeans_tpu_torch.serve.fleet import FleetSupervisor
+
+    port = _free_port()
+    trace_dir = f"{ctx['dir']}/trace-{name}"
+    env = ({0: {"KMEANS_TPU_FAULTS": "fleet.heartbeat:kill@2"}} if kill
+           else None)
+    sup = FleetSupervisor(ServeConfig(
+        host="127.0.0.1", port=port, model_dir=ctx["model_dir"],
+        trace_dir=trace_dir, fleet_obs_port=None),
+        workers=FLEET_DRILL_WORKERS, worker_env=env)
+    fleet = _FleetUnderTest(name, ctx["dir"], sup=sup)
+    until = f"{ctx['dir']}/{name}.stop"
+    started = []
+    try:
+        _fleet_ready(fleet, FLEET_DRILL_WORKERS,
+                     f"http://127.0.0.1:{port}")
+        started = _fleet_load(ctx, port, run, None, procs=1,
+                              clients=FLEET_DRILL_CLIENTS, fresh=True,
+                              pace=FLEET_DRILL_PACE_S, until_file=until,
+                              seconds=1.0, retry_resets=not kill)
+        if kill:
+            deadline = time.monotonic() + FLEET_WAIT_S
+            while True:
+                died = [e for e in fleet.events("exit") if e["slot"] == 0]
+                back = [e for e in fleet.events("ready")
+                        if died and e["slot"] == 0
+                        and e["ts"] > died[0]["ts"]]
+                if back:
+                    break
+                _check(time.monotonic() < deadline,
+                       f"{name}: slot 0 did not die and come back: "
+                       f"{fleet.events()[-8:]}")
+                time.sleep(0.02)
+            time.sleep(1.0)            # the replacement serves under load
+        else:
+            time.sleep(1.0)
+            sup.rolling_replace()
+            time.sleep(1.0)
+        open(until, "w").close()
+        table, got, errors, hung, seconds, retried = _fleet_collect(
+            name, started)
+        started = []
+        status = table[:, 1].astype(int)
+        ok = status == 200
+        failed = len(errors) + int((~ok).sum())
+        _check(not hung and ok.any(), f"{name}: {hung} clients hung")
+        _check_http_responses(name, table[ok], got[ok], ctx)
+        st, _ = _http_get(f"http://127.0.0.1:{port}", "/api/model")
+        _check(st == 200, f"{name}: the fleet does not answer after it")
+        clean, _, _ = fleet.stop()
+    finally:
+        for proc, _ in started:
+            proc.kill()
+            proc.communicate()
+        fleet.kill()
+    spool = merge_spool(trace_dir)
+    dense, rescored = _k5_of_trace(spool)
+    sigkills = fleet.events("sigkill")
+    exits = fleet.events("exit")
+    if kill:
+        died = [e for e in exits if e["slot"] == 0][0]
+        back = [e for e in fleet.events("ready")
+                if e["slot"] == 0 and e["ts"] > died["ts"]][0]
+        rto = back["ts"] - died["ts"]
+        _check(died["returncode"] == 137 and died["incarnation"] == 1
+               and not died["drained"],
+               f"{name}: slot 0's first exit was {died}")
+        _check(failed <= FLEET_DRILL_CLIENTS and clean,
+               f"{name}: {failed} failed requests ({errors[:3]}), more "
+               f"than the {FLEET_DRILL_CLIENTS} a kill can catch in "
+               "flight")
+        line = (f"kill drill: RTO {rto:.3f} s (slot 0 exit 137 to its "
+                f"replacement's ready; the reference's gate "
+                f"{FLEET_REF_RTO_S:.1f} s), {failed} failed requests of "
+                f"{len(table) + len(errors)} ({errors[:3]}), "
+                f"{int(ok.sum())} answered in {seconds:.3f} s")
+    else:
+        rolled = {e["slot"] for e in fleet.events("rolled")}
+        drained = fleet.events("drained")
+        served = {e["args"].get("trace_id") for e in spool["traceEvents"]
+                  if e.get("name") == "POST /api/assign"}
+        _check(failed == 0 and clean and rolled == {0, 1}
+               and not sigkills and all(e["drained"] for e in exits)
+               and all(e["unanswered"] == 0 for e in drained)
+               and not served & set(retried),
+               f"{name}: {failed} failed requests ({errors[:3]}), rolled "
+               f"{sorted(rolled)}, sigkills {sigkills}, drains {drained}, "
+               f"reset attempts a worker answered "
+               f"{sorted(served & set(retried))}")
+        line = (f"rolling replace: both slots rolled, 0 failed requests "
+                f"of {len(table)}, no SIGKILL, every predecessor drained "
+                f"with no accepted request unanswered, {len(retried)} "
+                f"connections reset before any worker accepted them "
+                f"(sent again), in {seconds:.3f} s of load")
+    print(f"fleet {name} ({ctx['card']}): {line}; K5 launches in the "
+          f"trace {dense + rescored}")
+    return line, dense + rescored
+
+
+def phase_fleet(card, centroids, http_summaries):
+    """Phase 11, imagenet-fleet: imagenet-http's model and pool, 48
+    keep-alive clients split over two client processes, binary frames of
+    64 points, HTTP_SECONDS a run.  First one ``cli serve`` process (the
+    two client processes separate the client's interpreter lock from the
+    server's), then N workers for N in FLEET_SIZES on the default (pruned)
+    route: ``cli serve --workers N --fleet-obs-port P`` for N > 1, and the
+    embedding API for one worker (the command line serves ``--workers 1``
+    in-process, as the reference's does), then FLEET_DENSE_WORKERS workers
+    on the dense route (the embedding API: ``assign_prune_min_k=0`` has no
+    flag), each publishing a generation half-way; then the
+    kill drill and the rolling replace at FLEET_DRILL_WORKERS.  Returns
+    K5's launches over the phase (the workers' traces)."""
+    import signal
+    import tempfile
+
+    from kmeans_tpu_torch.config import ServeConfig
+    from kmeans_tpu_torch.serve.fleet import FleetSupervisor
+
+    t_phase = time.perf_counter()
+    launches, rows = 0, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        ctx = _http_context(card, centroids, tmp)
+        gen, run = 1, 0x11
+        runs = [("one process", 0, "pruned")]
+        runs += [(f"{n} workers", n, "pruned") for n in FLEET_SIZES]
+        runs += [(f"{FLEET_DENSE_WORKERS} workers dense",
+                  FLEET_DENSE_WORKERS, "dense")]
+        for label, n, route in runs:
+            port, obs_port = _free_port(), _free_port()
+            trace_dir = f"{tmp}/trace-{run:x}"
+            argv = ["serve", "--model-dir", ctx["model_dir"], "--host",
+                    "127.0.0.1", "--port", str(port), "--trace-dir",
+                    trace_dir]
+            name = f"imagenet-fleet {label}"
+            if route == "dense" or n == 1:
+                # The embedding API: the command line runs one worker
+                # in-process (as the reference's does) and has no flag
+                # for the dense route.
+                extra = {"assign_prune_min_k": 0} if route == "dense" else {}
+                fleet = _FleetUnderTest(
+                    f"run{run:x}", tmp, sup=FleetSupervisor(ServeConfig(
+                        host="127.0.0.1", port=port,
+                        model_dir=ctx["model_dir"], trace_dir=trace_dir,
+                        fleet_obs_port=obs_port, **extra), workers=n))
+            elif n == 0:
+                fleet = _FleetUnderTest(f"run{run:x}", tmp, argv=argv,
+                                        stop_signal=signal.SIGINT)
+            else:
+                fleet = _FleetUnderTest(
+                    f"run{run:x}", tmp, argv=argv + [
+                        "--workers", str(n), "--fleet-obs-port",
+                        str(obs_port)])
+            try:
+                summary = _fleet_run(ctx, name, fleet, n, route, run,
+                                     gen + 1, port, obs_port, trace_dir)
+            finally:
+                fleet.kill()
+            gen, run = gen + 1, run + 1
+            launches += summary["k5"]
+            rows.append((label, route, summary))
+        drills = []
+        for name, kill in (("kill", True), ("rolling", False)):
+            line, k5 = _fleet_drill(ctx, f"imagenet-fleet {name}", run,
+                                    kill)
+            drills.append(line)
+            launches += k5
+            run += 1
+    one = http_summaries.get("binary")
+    print("imagenet-fleet, binary, 48 clients in "
+          f"{FLEET_CLIENT_PROCS} processes ({card}); phase 10 (one client "
+          "process, one server): "
+          + (f"{one['qps']:.1f} QPS, p50 {one['p50']:.3f} ms, p99 "
+             f"{one['p99']:.3f} ms" if one else "not run"))
+    for label, route, summary in rows:
+        print(f"imagenet-fleet {label} ({route} route, {card}): "
+              f"{summary['qps']:.1f} QPS, {summary['points_s']:.0f} "
+              f"points/s, p50 {summary['p50']:.3f} ms, p99 "
+              f"{summary['p99']:.3f} ms; K5 launches {summary['k5']}")
+    for line in drills:
+        print(f"imagenet-fleet {line}")
+    print(f"fleet phase: {time.perf_counter() - t_phase:.1f} s; K5 launches "
+          f"{launches} (the workers' traces: dense batches' assign.kernel "
+          "and assign.rescore spans)")
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--http-client"]:
         return _http_client(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--fleet-cli"]:
+        return _fleet_cli(json.loads(sys.argv[2]))
     import torch
 
     if not torch.cuda.is_available():
@@ -3964,6 +4717,12 @@ def main() -> int:
         centres = make_blobs(0, 1, HEADLINE["d"], HEADLINE["k"])[2]
         phase_http(card, centres.cpu().numpy(), {})
         return 0
+    if sys.argv[1:] == ["--fleet"]:
+        from kmeans_tpu_torch.data.synthetic import make_blobs
+
+        centres = make_blobs(0, 1, HEADLINE["d"], HEADLINE["k"])[2]
+        phase_fleet(card, centres.cpu().numpy(), {})
+        return 0
     phase_build()
     phase_kernels()
     kernels, headline_launches, imagenet_c = phase_headline()
@@ -3982,11 +4741,19 @@ def main() -> int:
         compute = {"": "bf16", "(f32 route)": "f32"}.get(what)
         if compute:
             row["launches"] += accel[compute].get(name, 0)
-    http_launches = phase_http(card, imagenet_c, serve_summaries)
-    # Phase 10 serves the imagenet-serve model: its K5 launches join that
-    # model's row.
+    http_summaries = {}
+    http_launches = phase_http(card, imagenet_c, serve_summaries,
+                               http_summaries)
+    fleet_launches = phase_fleet(card, imagenet_c, http_summaries)
+    # Phases 10 and 11 serve the imagenet-serve model: their K5 launches
+    # join that model's row.
     (row,) = [r for r in serve_rows if "imagenet-serve" in r["name"]]
-    row["launches"] += http_launches
+    print(f"{row['name']} launches: phase 8 {row['launches']} and phase 10 "
+          f"{http_launches} (the wrapper's counter in this process), phase "
+          f"11 {fleet_launches} (the fleet workers' traces: one "
+          "assign.kernel span a dense batch, one assign.rescore span a "
+          "rescored pruned batch, held to their engine counters)")
+    row["launches"] += http_launches + fleet_launches
     kernels += serve_rows
     phase_fold_split()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

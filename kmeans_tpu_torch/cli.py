@@ -1,15 +1,20 @@
 """Command line of the port: ``serve``.
 
     python -m kmeans_tpu_torch.cli serve --model-dir DIR [--port 8787]
+        [--workers N [--fleet-obs-port PORT]]
 
 serves ``POST /api/assign`` from the newest verified generation in DIR (a
 :class:`~kmeans_tpu_torch.continuous.registry.ModelRegistry` directory of
 either package), scored on the card; ``--device cpu`` runs the kernels'
-plain versions on the CPU.  The flags are the reference's
-(``kmeans_tpu/cli.py serve``) plus ``--device``.  Known differences: the
-fleet (``--workers`` above 1, ``--fleet-obs-port``) and board persistence
-(``--persist-dir``, unset by default here) are not ported, and asking for
-them exits with code 2.
+plain versions on the CPU.  ``--workers N`` above 1 runs the fleet
+(:mod:`kmeans_tpu_torch.serve.fleet`): N worker processes on the one port,
+each with its own engine on ``--device``, a supervisor that respawns them,
+pushes new generations to them, drains them on SIGTERM and replaces them
+one by one on SIGHUP, and with ``--fleet-obs-port`` the fleet's aggregated
+``/metrics`` and merged ``/api/trace``.  The flags are the reference's
+(``kmeans_tpu/cli.py serve``) plus ``--device``.  Known difference: board
+persistence (``--persist-dir``, unset by default here) is not ported, and
+asking for it exits with code 2.
 """
 
 from __future__ import annotations
@@ -21,10 +26,8 @@ import sys
 def _cmd_serve(args) -> int:
     from kmeans_tpu_torch.serve.server import serve
 
-    if args.workers > 1 or args.fleet_obs_port is not None:
-        print("error: the serving fleet (--workers N, --fleet-obs-port) is "
-              "not ported yet; run one server per card", file=sys.stderr)
-        return 2
+    if args.workers > 1:
+        return _serve_fleet(args)
     print(f"serving on http://{args.host}:{args.port}/ (Ctrl-C to stop)",
           file=sys.stderr)
     if args.metrics:
@@ -58,6 +61,57 @@ def _cmd_serve(args) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     return 0
+
+
+def _serve_fleet(args) -> int:
+    """``serve --workers N``: supervise N SO_REUSEPORT worker processes,
+    each scoring on ``--device``, instead of serving in-process."""
+    from kmeans_tpu_torch.config import ServeConfig
+    from kmeans_tpu_torch.serve.fleet import FleetSupervisor
+
+    overrides = {
+        "host": args.host, "port": args.port,
+        "persist_dir": args.persist_dir or None,
+        "metrics": args.metrics,
+        "telemetry_path": args.telemetry,
+        "model_dir": args.model_dir or None,
+        "assign_batching": args.assign_batching,
+        "assign_max_delay_s": (args.assign_max_delay_ms / 1000.0
+                               if args.assign_max_delay_ms is not None
+                               else None),
+        "assign_max_batch_rows": args.assign_max_batch,
+        "assign_max_points": args.assign_max_points,
+        "assign_quant": args.assign_quant,
+        "trace_dir": args.trace_dir or None,
+        "slo": args.slo,
+        "slo_latency_target_s": (args.slo_latency_target_ms / 1000.0
+                                 if args.slo_latency_target_ms
+                                 is not None else None),
+        "slo_min_samples": args.slo_min_samples,
+        "fleet_obs_port": args.fleet_obs_port,
+    }
+    try:
+        config = ServeConfig(**{k: v for k, v in overrides.items()
+                                if v is not None})
+        if config.persist_dir:
+            # Every worker's server would refuse it at boot.
+            raise ValueError(
+                f"persist_dir={config.persist_dir!r}: board persistence is "
+                "not ported; the port serves models only")
+        sup = FleetSupervisor(config, workers=args.workers,
+                              device=args.device)
+    except (ValueError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    print(f"fleet: {args.workers} workers on "
+          f"http://{args.host}:{args.port}/ (SIGTERM drains, "
+          f"SIGHUP rolling-replaces, Ctrl-C to stop)", file=sys.stderr)
+    try:
+        return sup.run()
+    except KeyboardInterrupt:
+        # Second signal: hard stop.
+        sup.stop(graceful=False)
+        return 1
 
 
 def main(argv=None) -> int:
@@ -108,7 +162,9 @@ def main(argv=None) -> int:
                         "codebooks)")
     s.add_argument("--trace-dir", default=None, metavar="DIR",
                    help="spool completed spans to spans-<pid>.jsonl "
-                        "under DIR")
+                        "under DIR (with --workers N the supervisor also "
+                        "serves the merged trace at its obs endpoint's "
+                        "/api/trace)")
     s.add_argument("--slo", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="burn-rate SLO monitor: /readyz answers 503 while "
@@ -122,11 +178,19 @@ def main(argv=None) -> int:
                         "(default 50)")
     s.add_argument("--fleet-obs-port", type=int, default=None,
                    metavar="PORT",
-                   help="fleet observability port; the fleet is not "
-                        "ported, refused if given")
+                   help="fixed port for the supervisor's fleet "
+                        "observability endpoint (--workers N only: the "
+                        "workers' /metrics aggregated under a worker "
+                        "label, the merged /api/trace, /readyz; default: "
+                        "an ephemeral port, announced in the supervisor's "
+                        "obs_up event)")
     s.add_argument("--workers", type=int, default=1, metavar="N",
-                   help="fleet worker processes; the fleet is not ported, "
-                        "so only 1 runs")
+                   help="run N supervised SO_REUSEPORT worker processes, "
+                        "each with its own engine on --device, instead of "
+                        "serving in-process (crashed workers respawn with "
+                        "backoff; model-dir publishes are pushed to every "
+                        "worker; SIGTERM drains, SIGHUP replaces the "
+                        "workers one by one)")
     s.set_defaults(fn=_cmd_serve)
 
     args = p.parse_args(argv)

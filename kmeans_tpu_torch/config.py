@@ -12,9 +12,10 @@ carries over unchanged.
 :class:`ServeConfig` holds every field of the reference's, with its
 defaults, so one configuration picks the same route and limits on both
 servers.  The board's fields (``max_render_cards``, ``max_concurrent_train``,
-``persist_dir``, ``persist_debounce_s``) and the fleet supervisor's
-(``fleet_*``) are kept for that but not read yet: the port's server has no
-board routes and no fleet, and refuses a ``persist_dir``.
+``persist_dir``, ``persist_debounce_s``) are kept for that but not read yet:
+the port's server has no board routes and refuses a ``persist_dir``.  The
+fleet supervisor (:mod:`kmeans_tpu_torch.serve.fleet`) reads the
+``fleet_*`` fields; ``fleet_drain_s`` also bounds a server's own drain.
 """
 
 from __future__ import annotations
@@ -246,9 +247,9 @@ class ServeConfig:
     #: processes share one port.  Off by default: a lone server wants the
     #: EADDRINUSE a stale twin would otherwise silently split traffic with.
     reuse_port: bool = False
-    #: Fleet supervisor knobs (the fleet is not ported yet): heartbeat
-    #: cadence and timeout, respawn backoff, drain budget and registry
-    #: watch cadence.
+    #: Fleet supervisor knobs: heartbeat cadence and timeout, respawn
+    #: backoff, drain budget (also the longest a server's stop() waits for
+    #: accepted requests) and registry watch cadence.
     fleet_heartbeat_s: float = 0.5
     fleet_heartbeat_timeout_s: float = 3.0
     fleet_backoff_base_s: float = 0.1

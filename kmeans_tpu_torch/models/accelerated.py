@@ -25,19 +25,18 @@ reads one flag (``done``) back per iteration, as ``fit_lloyd``'s does.
 (:func:`kmeans_tpu_torch.models.minibatch.nested_ladder`) and promotes its
 warm start into the full-batch loop.
 
-:data:`ACCEL_STEPS` counts Anderson outcomes across the process under the
-reference's metric name and labels.  It is an in-process tally until the
-port has the reference's metrics registry, as the kernels' launch counts
-stand in for its cost observatory.
+:data:`ACCEL_STEPS` counts Anderson outcomes across the process: the
+reference's ``kmeans_tpu_accel_steps_total{outcome}`` on the port's metrics
+registry (``kmeans_tpu_torch.obs``), its three series created at import.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Optional
 
 import torch
 
+from kmeans_tpu_torch import obs
 from kmeans_tpu_torch.device import as_tensor, resolve_device
 from kmeans_tpu_torch.models.init import resolve_fit_inputs
 from kmeans_tpu_torch.models.lloyd import KMeansState
@@ -59,41 +58,26 @@ OUTCOMES = {OUTCOME_ACCEPTED: "accepted", OUTCOME_REJECTED: "rejected",
             OUTCOME_FALLBACK: "fallback"}
 
 
-class OutcomeTally:
-    """A labelled counter kept in the process: ``inc(n, outcome=...)`` and
-    ``value(outcome=...)``, the reads of the reference's counter."""
-
-    def __init__(self, name: str, help: str, outcomes):
-        self.name = name
-        self.help = help
-        self._lock = threading.Lock()
-        self._values = dict.fromkeys(outcomes, 0)
-
-    def inc(self, amount: int = 1, *, outcome: str) -> None:
-        with self._lock:
-            self._values[outcome] += int(amount)
-
-    def value(self, *, outcome: str) -> int:
-        with self._lock:
-            return self._values[outcome]
-
-
 #: Extrapolation outcomes across every Anderson fit in the process:
 #: ``accepted`` = the extrapolated iterate was used, ``rejected`` = the
 #: safeguard fired, ``fallback`` = the plain Lloyd step ran.  Each fit adds
 #: its totals when it returns.
-ACCEL_STEPS = OutcomeTally(
+ACCEL_STEPS = obs.counter(
     "kmeans_tpu_accel_steps_total",
     "Accelerated-fit extrapolation steps by outcome",
-    OUTCOMES.values())
+    labels=("outcome",),
+)
+for _o in OUTCOMES.values():
+    ACCEL_STEPS.labels(outcome=_o)
+del _o
 
 
 def record_accel_steps(n_accepted: int, n_rejected: int,
                        n_fallback: int) -> None:
     """Fold one fit's outcome totals into :data:`ACCEL_STEPS`."""
-    ACCEL_STEPS.inc(n_accepted, outcome="accepted")
-    ACCEL_STEPS.inc(n_rejected, outcome="rejected")
-    ACCEL_STEPS.inc(n_fallback, outcome="fallback")
+    ACCEL_STEPS.labels(outcome="accepted").inc(int(n_accepted))
+    ACCEL_STEPS.labels(outcome="rejected").inc(int(n_rejected))
+    ACCEL_STEPS.labels(outcome="fallback").inc(int(n_fallback))
 
 
 def _finish(x, c, it, converged, outcomes, kw):

@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from kmeans_tpu_torch import obs
 from kmeans_tpu_torch.config import KMeansConfig
 from kmeans_tpu_torch.data.synthetic import generator_for
 from kmeans_tpu_torch.device import as_dtype, as_tensor, resolve_device
@@ -52,6 +53,23 @@ __all__ = ["KMeansState", "fit_lloyd", "fit_plan", "KMeans",
 
 #: ``diag["final_flavor"]`` codes, the reference's.
 _DENSE, _DELTA, _YINYANG, _HAMERLY = -1, 0, 1, 2
+
+#: Pruned-sweep observability, the reference's families: the exact row and
+#: group counters the hamerly / yinyang sweeps already count on the device,
+#: stamped once per fit from the counters ``diag`` reads back at fit exit
+#: (dense and delta fits stamp nothing and stay free of host syncs).
+_SWEEP_RECOMPUTE_ROWS = obs.counter(
+    "kmeans_tpu_sweep_recompute_rows_total",
+    "Rows whose distances a pruned-exact Lloyd fit actually recomputed, "
+    "summed over its sweeps (exact on-device counters; backend-"
+    "independent)",
+    labels=("update",),
+)
+_SWEEP_GROUP_FILTER_FRACTION = obs.gauge(
+    "kmeans_tpu_sweep_group_filter_fraction",
+    "Fraction of (recomputed row, centroid group) pairs the most recent "
+    "yinyang fit's local group filter proved need no distances",
+)
 
 
 class KMeansState(NamedTuple):
@@ -252,6 +270,12 @@ def fit_lloyd(
         max_iter=max_iter if max_iter is not None else cfg.max_iter,
         chunk_size=cfg.chunk_size, compute_dtype=cfg.compute_dtype,
         update=update, empty=cfg.empty, backend=backend, **loop)
+    if update in ("hamerly", "yinyang", "adaptive"):
+        _SWEEP_RECOMPUTE_ROWS.labels(update=update).inc(
+            max(dg["recompute_rows"], 0.0))
+        if dg["group_pairs_seen"] > 0:
+            _SWEEP_GROUP_FILTER_FRACTION.set(
+                dg["group_pairs_pruned"] / dg["group_pairs_seen"])
     return (state, dg) if diag else state
 
 

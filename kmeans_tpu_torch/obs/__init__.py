@@ -14,7 +14,8 @@ which does):
   its own (see that module).
 * :mod:`kmeans_tpu_torch.obs.slo`: the burn-rate SLO monitor that gates
   ``/readyz``.
-* :mod:`kmeans_tpu_torch.obs.fleetview`: the span spool only.
+* :mod:`kmeans_tpu_torch.obs.fleetview`: the fleet's pane: the span spool,
+  the merged trace, the aggregated ``/metrics`` and the obs endpoints.
 
 The reference's ``costmodel`` is bound to JAX's compiled programs and is
 not here.  ``enable()`` / ``disable()`` toggle the metrics registry; the

@@ -1113,10 +1113,15 @@ class AssignEngine:
             d2 = -2.0 * (sub @ prep.gen.centroids.T) + prep.csq[None, :]
             labels[bad] = d2.argmin(axis=1).astype(np.int32)
             return
-        sub = (x_dev.index_select(0, torch.from_numpy(bad).to(x_dev.device))
-               if x_dev is not None
-               else self._stage(np.ascontiguousarray(x[bad])))
-        labels[bad] = self._dense(prep, sub)
+        # One K5 launch a rescored batch: the span marks it in the trace,
+        # where a fleet's launches are counted across its workers.
+        with _tracing.span("assign.rescore", category="serve_rescore",
+                           rows=int(bad.size)):
+            sub = (x_dev.index_select(
+                0, torch.from_numpy(bad).to(x_dev.device))
+                if x_dev is not None
+                else self._stage(np.ascontiguousarray(x[bad])))
+            labels[bad] = self._dense(prep, sub)
 
     def _dense(self, prep: PreparedModel, x_dev: torch.Tensor) -> np.ndarray:
         """K5's labels of staged rows (its plain version on the CPU)."""

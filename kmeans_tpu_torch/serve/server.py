@@ -20,7 +20,10 @@ Known differences from the reference: the board (rooms, SSE, ``/api/state``,
 ``/api/mutate``, ``/api/hello``, ``/api/import`` / ``export``, the static
 app and the ``train`` op) is not ported yet, so its routes answer the
 reference's 404 ``not found``, ``/healthz`` reports ``"rooms": 0`` and a
-``persist_dir`` is refused.  There is no fleet (``serve/fleet.py``).
+``persist_dir`` is refused.  :meth:`KMeansServer.stop` drains: accepted
+requests finish on the engine before it stops, where the reference's stop
+fails the queued ones with 503; a fleet worker's drain
+(:mod:`kmeans_tpu_torch.serve.fleet`) relies on it.
 """
 
 from __future__ import annotations
@@ -219,13 +222,62 @@ class _TenantAdmission:
 class _BackloggedHTTPServer(ThreadingHTTPServer):
     """ThreadingHTTPServer with a serving-grade accept backlog (128, not
     socketserver's 5, which overflows at a few hundred connections a
-    second), and ``SO_REUSEPORT`` set before the bind when asked."""
+    second), and ``SO_REUSEPORT`` set before the bind when asked.
+
+    It counts its busy requests for a drain: a connection's first request
+    from its accept, each later keep-alive request from its parse, each
+    until its response is written (:meth:`wait_idle`).  Once ``draining``
+    is set every response carries ``Connection: close``."""
 
     request_queue_size = 128
 
     def __init__(self, addr, handler, *, reuse_port: bool = False):
         self._reuse_port = bool(reuse_port)
+        self._busy = 0
+        self._busy_cv = threading.Condition()
+        self.draining = False
         super().__init__(addr, handler)
+
+    def process_request(self, request, client_address):
+        self.busy(+1)
+        try:
+            super().process_request(request, client_address)
+        except BaseException:
+            self.busy(-1)
+            raise
+
+    def busy(self, delta: int) -> None:
+        with self._busy_cv:
+            self._busy += delta
+            if self._busy <= 0:
+                self._busy_cv.notify_all()
+
+    def serve_pending(self) -> None:
+        """Hand each connection already in the accept queue to a handler
+        (after the serve loop has stopped), so that closing the listener
+        resets none of them: the serve loop's last wake-up is a
+        connection it leaves unaccepted."""
+        if self.socket.fileno() < 0:     # closed by an earlier stop()
+            return
+        self.socket.setblocking(False)
+        while True:
+            try:
+                request, client_address = self.get_request()
+            except OSError:          # the queue is empty
+                return
+            request.setblocking(True)
+            try:
+                self.process_request(request, client_address)
+            except Exception:
+                self.handle_error(request, client_address)
+                self.shutdown_request(request)
+
+    def wait_idle(self, timeout: float) -> int:
+        """Wait, at most ``timeout`` seconds, until no accepted request is
+        unanswered; returns how many still are."""
+        with self._busy_cv:
+            self._busy_cv.wait_for(lambda: self._busy <= 0, timeout)
+            return max(self._busy, 0)
 
     def server_bind(self):
         if self._reuse_port:
@@ -303,6 +355,9 @@ class KMeansServer:
                 ) from e
         obs.record_build_info(self.device.type)
         self._tracer_held = False
+        #: Accepted requests the last stop() left unanswered when its
+        #: drain ran out of ``fleet_drain_s`` (0 on a clean drain).
+        self.drain_unanswered = 0
 
     def current_model(self):
         """The registry's current generation, or None (no registry or
@@ -385,6 +440,32 @@ class KMeansServer:
 
             def log_message(self, fmt, *args):   # quiet by default
                 pass
+
+            # -- drain accounting ------------------------------------------
+            def setup(self):
+                super().setup()
+                # Busy since the accept (process_request counted it).
+                self._busy_now = True
+
+            def parse_request(self):
+                if not self._busy_now:       # a later keep-alive request
+                    self._busy_now = True
+                    self.server.busy(+1)
+                return super().parse_request()
+
+            def handle_one_request(self):
+                try:
+                    super().handle_one_request()
+                finally:
+                    if self._busy_now:
+                        self._busy_now = False
+                        self.server.busy(-1)
+
+            def end_headers(self):
+                if self.server.draining:
+                    # Send the client elsewhere for its next request.
+                    self.send_header("Connection", "close")
+                super().end_headers()
 
             # -- plumbing --------------------------------------------------
             def send_response(self, code, message=None):
@@ -728,12 +809,20 @@ class KMeansServer:
         return self.httpd
 
     def stop(self):
+        """Drain, then stop: stop accepting, let every accepted request
+        finish (at most ``fleet_drain_s``; each response from then on
+        closes its connection), then stop the engine after its last
+        batch."""
         if self.httpd:
+            self.httpd.draining = True
             self.httpd.shutdown()
+            self.httpd.serve_pending()
             self.httpd.server_close()
+            self.drain_unanswered = self.httpd.wait_idle(
+                float(self.config.fleet_drain_s))
         if self.assign_engine is not None:
             # After the HTTP teardown: a handler still waiting on a batch
-            # gets its 503 from the drain instead of hanging.
+            # past the drain gets its 503 instead of hanging.
             self.assign_engine.stop()
         if self._span_spool is not None:
             _tracing.TRACER.set_sink(None)

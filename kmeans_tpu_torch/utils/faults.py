@@ -1,8 +1,9 @@
 """Deterministic fault injection for the hardened failure paths.
 
 A copy of ``kmeans_tpu/utils/faults.py``, its counter on the port's
-``obs``.  The port's code declares the checkpoint sites (``ckpt.*``) and
-``registry.swap``; the catalog below is the reference's whole list.
+``obs``.  The port's code declares the checkpoint sites (``ckpt.*``),
+``registry.swap`` and the fleet's (``fleet.*``, in
+``serve/fleet.py``); the catalog below is the reference's whole list.
 
 The long-running surfaces (streamed fits, the sharded engine, the serve
 layer) die to preemptions, torn writes, and transient I/O errors in

@@ -795,3 +795,86 @@ def test_server_on_the_card_answers_with_k5_labels(card, tmp_path):
     np.testing.assert_array_equal(labels, want.cpu().numpy())
     assert (generation, k) == (1, 300)
     assert counts["tiled_argmin_cuda"] == 1
+
+
+def test_cli_fleet_on_the_card_answers_reloads_and_drains(card, tmp_path):
+    """``python -m kmeans_tpu_torch.cli serve --workers 2`` with no
+    ``--device`` serves on the card: binary requests over fresh
+    connections (spread over both workers) get K5's labels, a generation
+    published to the directory reaches every worker, and SIGTERM drains
+    the fleet with exit 0."""
+    import os
+    import signal
+    import socket
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    from kmeans_tpu_torch.continuous.registry import ModelRegistry
+    from kmeans_tpu_torch.serve import assign as A
+
+    c, x = _serve_problem(6, 300, 128, 256)
+    path = str(tmp_path / "model")
+    ModelRegistry(path=path).publish(c)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    env.pop("KMEANS_TPU_FAULTS", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kmeans_tpu_torch.cli", "serve", "--workers",
+         "2", "--port", str(port), "--model-dir", path],
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    base = f"http://127.0.0.1:{port}"
+
+    def labels_of():
+        req = urllib.request.Request(
+            base + "/api/assign", data=A.encode_points(x),
+            headers={"Content-Type": A.WIRE_POINTS_CONTENT_TYPE},
+            method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            lab, _, gen, _ = A.decode_labels(r.read())
+        return lab, gen
+
+    def k5(cc):
+        ct = torch.from_numpy(cc).to(card)
+        return K.tiled_argmin_cuda(
+            torch.from_numpy(x).to(card), (ct * -2).contiguous(),
+            (ct * ct).sum(1), k_tile=A.dense_k_tile(*cc.shape),
+            raw_scores=True)[0].cpu().numpy()
+
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            assert proc.poll() is None, proc.communicate(timeout=30)[0]
+            try:
+                with urllib.request.urlopen(base + "/readyz", timeout=5):
+                    break
+            except OSError:
+                assert time.monotonic() < deadline, "fleet never ready"
+                time.sleep(0.2)
+        for _ in range(8):
+            lab, gen = labels_of()
+            assert gen == 1
+            np.testing.assert_array_equal(lab, k5(c))
+        reg = ModelRegistry(path=path)
+        reg.load_latest()
+        c2 = c[::-1].copy()
+        reg.publish(c2)
+        deadline = time.monotonic() + 60
+        while sum(labels_of()[1] == 2 for _ in range(8)) < 8:
+            assert time.monotonic() < deadline, "generation 2 never served"
+            time.sleep(0.1)
+        lab, gen = labels_of()
+        np.testing.assert_array_equal(lab, k5(c2))
+        proc.send_signal(signal.SIGTERM)
+        out = proc.communicate(timeout=60)[0]
+        assert proc.returncode == 0, out
+        assert "Traceback" not in out and "CUDA error" not in out, out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()

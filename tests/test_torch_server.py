@@ -469,7 +469,14 @@ def test_metrics_families(servers, side):
                  "kmeans_tpu_assign_queue_delay_seconds_count",
                  "kmeans_tpu_assign_points_total",
                  "kmeans_tpu_registry_generation",
-                 "kmeans_tpu_metrics_scrape_seconds_count"):
+                 "kmeans_tpu_metrics_scrape_seconds_count",
+                 # The fit's families (C2): in every process of either
+                 # package, the outcome series from import on.
+                 "# TYPE kmeans_tpu_sweep_recompute_rows_total counter",
+                 "# TYPE kmeans_tpu_sweep_group_filter_fraction gauge",
+                 'kmeans_tpu_accel_steps_total{outcome="accepted"}',
+                 'kmeans_tpu_accel_steps_total{outcome="rejected"}',
+                 'kmeans_tpu_accel_steps_total{outcome="fallback"}'):
         assert want in text, want
     if side == "port":
         from kmeans_tpu import obs as ref_obs
@@ -688,10 +695,13 @@ def test_no_card_raises_naming_the_cpu_device():
 @pytest.mark.parametrize("argv", [
     ["--workers", "2"], ["--fleet-obs-port", "0"],
     ["--persist-dir", "rooms"], [],
+    ["--workers", "2", "--device", "cpu"],
+    ["--workers", "2", "--device", "cpu", "--persist-dir", "rooms"],
 ])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
-    """The fleet and board persistence exit 2 with one line, as does no
-    card without ``--device cpu``."""
+    """Board persistence exits 2 with one line (on one server or a
+    fleet), as do no card without ``--device cpu`` and a fleet on an
+    ephemeral port (``--port 0``)."""
     assert cli.main(["serve", "--port", "0"] + argv) == 2
     err = capsys.readouterr().err
     assert err.splitlines()[-1].startswith("error: ")
