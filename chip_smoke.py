@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 from the root of a checkout.  It builds the port's CUDA kernels from
-``kmeans_tpu_torch/csrc/lloyd.cu`` and runs eleven phases, exiting
+``kmeans_tpu_torch/csrc/lloyd.cu`` and runs twelve phases, exiting
 non-zero if any fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -137,12 +137,33 @@ non-zero if any fails:
    engine counters; then the kill drill (``fleet.heartbeat:kill@2``:
    the RTO beside the reference's gate, only in-flight requests lost)
    and a rolling replace with no failed request, at 2 workers;
-12. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+12. the step-paced runner and ``cli train``, each run's launch counts set
+   to 0 before it and read after: in process on phase 4's bf16 data and
+   c0, ``LloydRunner(update="delta")`` for RUNNER_ITERS iterations with a
+   callback and telemetry, held to ``fit_lloyd(update="delta")`` from the
+   same c0 (iterations equal, inertia within FIT_INERTIA_RTOL; K1 and K2
+   only), its ms a sweep beside the fused fit's in this call, then
+   ``update="yinyang"`` (K4; the last sweep's labels against K1 at the
+   centroids it scored, any difference a tie) and ``accel="anderson"``
+   (its outcome totals); at ``codebook`` on phase 6's data,
+   ``update="delta"`` for CODEBOOK_SWEEPS iterations (K5 and K6 only) held
+   to phase 6's fit; then ``python -m kmeans_tpu_torch.cli train --config
+   imagenet --model lloyd`` in subprocesses (``chip_smoke.py --train-cli
+   SPEC`` runs the module as ``-m`` does and records its launch counts):
+   an f32 runner for CLI_ITERS iterations with progress, checkpoints,
+   telemetry, a span trace and the export, all checked; the preemption
+   drill (SIGTERM once a progress line reports iteration DRILL_AT: exit 3,
+   a "resume with" line, a checkpoint at that step, then ``--resume`` to
+   iteration CLI_ITERS within FIT_INERTIA_RTOL of the uninterrupted run);
+   the same shape in bf16 compute (``score_block``); the fused adaptive fit;
+   and ``train --config cifar10`` (minibatch), each with its wall time;
+13. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.  A kernel has a row for each compute dtype its main-path runs
-   score in: bf16 (phases 4, 6 and 9) and the f32 route (K1, K2 and K4
-   from imagenet-delta-f32 and K1 from phase 9's cifar10 runs, K5 from
-   each served model's runs), each row's launches counted in its own runs
-   and its times taken at its own shape.
+   score in: bf16 (phases 4, 6, 9 and 12's in-process and bf16 runs) and
+   the f32 route (K1, K2 and K4 from imagenet-delta-f32, phase 12's f32
+   CLI runs and K1 from phase 9's cifar10 runs, K5 from each served
+   model's runs), each row's launches counted in its own runs and its
+   times taken at its own shape.
 
 ``python3 chip_smoke.py --fold-split`` runs phases 1 and 7 only (the
 kernels build at their first call), so it also splits an older tree's K6.
@@ -152,7 +173,8 @@ headline shapes beside the library), so a copy of this script run in an
 older checkout times that tree's f32 route in the same call.
 ``python3 chip_smoke.py --accel`` runs phases 1 and 9 only (the kernels
 build at their first call); ``--serve-http`` and ``--fleet`` run phases 1
-and 10, and 1 and 11, on ``make_blobs`` centres.
+and 10, and 1 and 11, on ``make_blobs`` centres; ``--runner`` runs phases
+1, 2 and 12 (it makes phase 6's fit itself).
 
 The bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of memory, 989
 TFLOP/s bf16 on the tensor cores and 67 TFLOP/s f32 outside them; an f32
@@ -4690,11 +4712,416 @@ def phase_fleet(card, centroids, http_summaries):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the step-paced runner and ``cli train``
+# ---------------------------------------------------------------------------
+
+#: Iterations of each in-process runner at the headline, and of the CLI's
+#: headline runs; the iteration at or after which the drill sends SIGTERM.
+RUNNER_ITERS = 20
+CLI_ITERS = 40
+CLI_CHECKPOINT_EVERY = 5
+DRILL_AT = 8
+#: Seconds any one ``cli train`` process may take, build and data included.
+CLI_TIMEOUT_S = 300
+
+
+def _train_cli(spec) -> int:
+    """``chip_smoke.py --train-cli SPEC``: ``python -m kmeans_tpu_torch.cli``
+    with ``spec["argv"]``, run as ``-m`` runs it (:mod:`runpy`), the launch
+    counts set to 0 before it and written to ``spec["counts"]`` (JSON)
+    after it, whatever its exit code."""
+    import runpy
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    K.reset_launch_counts()
+    sys.argv = ["kmeans_tpu_torch.cli"] + spec["argv"]
+    try:
+        runpy.run_module("kmeans_tpu_torch.cli", run_name="__main__",
+                         alter_sys=True)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+    finally:
+        with open(spec["counts"], "w", encoding="utf-8") as f:
+            json.dump(K.launch_counts(), f)
+    return rc
+
+
+class _CliRun:
+    """One ``cli train`` process (:func:`_train_cli`): its stderr read line
+    by line (``on_line`` may send it a signal), its result line, exit code,
+    launch counts and wall time."""
+
+    def __init__(self, tmp, name, argv, on_line=None):
+        import os
+        import threading
+
+        self.name = name
+        counts = f"{tmp}/{name}.counts.json"
+        out_path = f"{tmp}/{name}.out"
+        root = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        with open(out_path, "w", encoding="utf-8") as out:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--train-cli",
+                 json.dumps({"argv": argv, "counts": counts})],
+                cwd=root, stdout=out, stderr=subprocess.PIPE, text=True)
+            self.err = []
+            self.signal_at = None
+            # A process that hangs without a line is killed at the limit.
+            watchdog = threading.Timer(CLI_TIMEOUT_S, proc.kill)
+            watchdog.start()
+            try:
+                for line in proc.stderr:
+                    self.err.append(line.rstrip("\n"))
+                    if on_line is not None and self.signal_at is None \
+                            and on_line(self, line, proc):
+                        self.signal_at = time.perf_counter()
+                self.rc = proc.wait(timeout=60)
+            finally:
+                watchdog.cancel()
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        self.seconds = time.perf_counter() - t0
+        self.exit_s = (None if self.signal_at is None
+                       else time.perf_counter() - self.signal_at)
+        self.stdout = open(out_path, encoding="utf-8").read()
+        self.counts = json.load(open(counts, encoding="utf-8"))
+        self.progress = [json.loads(ln) for ln in self.err
+                         if ln.startswith('{"event": "iter"')]
+        self.result = None
+        lines = self.stdout.strip().splitlines()
+        if self.rc == 0 and lines:
+            self.result = json.loads(lines[-1])
+
+    def need(self, rc=0):
+        _check(self.rc == rc,
+               f"{self.name}: exit code {self.rc} (wanted {rc}); stderr "
+               f"tail {self.err[-6:]}")
+        return self
+
+    def iter_ms(self):
+        """Median milliseconds of the progress lines' iterations past the
+        first two (each sweep function's first call)."""
+        sec = [e["seconds"] for e in self.progress[2:]]
+        return 1e3 * statistics.median(sec) if sec else float("nan")
+
+    def line(self, extra=""):
+        res = self.result or {}
+        return (f"{self.name}: exit {self.rc}, {self.seconds:.3f} s of wall "
+                f"time (process, CUDA context, data, k-means++, fit); fit "
+                f"{res.get('wall_s', float('nan'))} s, n_iter "
+                f"{res.get('n_iter')}, inertia {res.get('inertia')}; "
+                f"launches {self.counts}{extra}")
+
+
+def _runner_headline(card):
+    """In-process runners on phase 4's bf16 data and c0: ``update="delta"``
+    held to ``fit_lloyd``, then yinyang and Anderson.  Returns the bf16
+    launch counts of the runner runs."""
+    import io
+
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.init import random_init
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    n, d, k = HEADLINE["n"], HEADLINE["d"], HEADLINE["k"]
+    bf16 = torch.bfloat16
+    x, _, _ = kt.make_blobs(0, n, d, k, dtype=bf16)
+    c0 = random_init(torch.Generator(device="cuda").manual_seed(1), x, k)
+    cfg = kt.KMeansConfig(k=k, update="delta", compute_dtype="bfloat16")
+    # A warm-up through K1 and K2, so no timed run loads the library.
+    kt.fit_lloyd(x, k, config=cfg, init=c0, max_iter=2, tol=-1.0)
+    _sync()
+    t0 = time.perf_counter()
+    fused = kt.fit_lloyd(x, k, config=cfg, init=c0, max_iter=RUNNER_ITERS,
+                         tol=-1.0)
+    _sync()
+    fused_s = time.perf_counter() - t0
+    launches = {}
+
+    def run(name, config, accel=None, seen=None):
+        runner = kt.LloydRunner(x, k, config=config, accel=accel)
+        runner.init(c0)
+        infos, buf = [], io.StringIO()
+
+        def callback(info):
+            infos.append(info)
+            if seen is not None and info.iteration == RUNNER_ITERS - 1:
+                seen["c"] = runner.centroids.clone()
+
+        t0 = time.perf_counter()
+        state, counts = _counted_run(lambda: runner.run(
+            max_iter=RUNNER_ITERS, tol=-1.0, callback=callback,
+            telemetry=kt.obs.TelemetryWriter(buf)))
+        wall = time.perf_counter() - t0
+        _add_counts(launches, counts)
+        events = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+        iters = [e for e in events if e["event"] == "iter"]
+        _check(len(infos) == len(iters) == int(state.n_iter) == RUNNER_ITERS
+               and _finite(state.centroids)
+               and math.isfinite(float(state.inertia)),
+               f"{name}: {len(infos)} iterations or a non-finite result")
+        steady = [i.seconds for i in infos[1:] if i.iteration % 16 != 1]
+        print(f"{name} ({card}): {RUNNER_ITERS} iterations + finalize in "
+              f"{wall:.3f} s = {1e3 * wall / (RUNNER_ITERS + 1):.3f} ms a "
+              f"sweep; steady iteration (median, host sync included) "
+              f"{1e3 * statistics.median(steady):.3f} ms; first iteration "
+              f"{1e3 * infos[0].seconds:.3f} ms ({iters[0]['phase']}); "
+              f"final inertia {float(state.inertia):.6e}; launches {counts}")
+        return runner, state, counts, iters, wall
+
+    _, delta, counts, _, wall = run("runner delta", cfg)
+    fused_ms = 1e3 * fused_s / (RUNNER_ITERS + 1)
+    print(f"runner delta against fit_lloyd(update='delta', init=c0, "
+          f"max_iter={RUNNER_ITERS}, tol=-1) in this call ({card}): fused "
+          f"{fused_s:.3f} s = {fused_ms:.3f} ms a sweep (final view "
+          f"included), runner {1e3 * wall / (RUNNER_ITERS + 1):.3f} ms a "
+          f"sweep: {wall / fused_s:.3f}x, the price of a callback, a "
+          "telemetry event and two host reads an iteration")
+    _check(counts["lloyd_pass_cuda"] == 3 and counts["lloyd_delta_cuda"]
+           == RUNNER_ITERS - 2 and sum(counts.values()) == RUNNER_ITERS + 1,
+           f"runner delta: launches {counts}, wanted K1 3 (iterations 1 "
+           f"and 17, finalize) and K2 {RUNNER_ITERS - 2}")
+    _check(int(delta.n_iter) == int(fused.n_iter) == RUNNER_ITERS,
+           "runner delta: iterations differ from the fused fit's")
+    rel = abs(float(delta.inertia) - float(fused.inertia)) / float(
+        fused.inertia)
+    _check(rel <= FIT_INERTIA_RTOL,
+           f"runner delta: inertia {float(delta.inertia)} against the "
+           f"fused fit's {float(fused.inertia)} (rel {rel:.3e})")
+    print(f"  runner delta inertia against the fused fit's: rel "
+          f"{rel:.3e} (<= {FIT_INERTIA_RTOL})")
+
+    seen = {}
+    runner, yy, counts, iters, _ = run(
+        "runner yinyang", kt.KMeansConfig(k=k, update="yinyang",
+                                          compute_dtype="bfloat16"),
+        seen=seen)
+    _check(counts["lloyd_hamerly_cuda"] == RUNNER_ITERS
+           and counts["lloyd_pass_cuda"] == 1
+           and sum(counts.values()) == RUNNER_ITERS + 1,
+           f"runner yinyang: launches {counts}, wanted K4 {RUNNER_ITERS} "
+           "and K1 once (finalize)")
+    fracs = [e["recompute_fraction"] for e in iters]
+    print(f"  recompute fraction per iteration: "
+          f"{[round(f, 4) for f in fracs]}")
+    last = runner._dstate[0]
+    k1 = K.lloyd_pass_cuda(x, seen["c"], compute_dtype=bf16,
+                           with_update=False)[0]
+    moved = _check_labels_rows("runner yinyang", x, seen["c"], bf16, last,
+                               k1)
+    rel = abs(float(yy.inertia) - float(delta.inertia)) / float(
+        delta.inertia)
+    _check(rel <= FIT_INERTIA_RTOL,
+           f"runner yinyang: inertia {float(yy.inertia)} against the delta "
+           f"runner's {float(delta.inertia)}")
+    print(f"  last yinyang sweep against K1 at the centroids it scored: "
+          f"{moved} labels differ, each a tie within {SCORE_RTOL}; final "
+          f"inertia against the delta runner's: rel {rel:.3e}")
+
+    _, acc, counts, iters, _ = run("runner anderson", cfg, accel="anderson")
+    totals = {o: sum(e["accel"] == o for e in iters)
+              for o in ("accepted", "rejected", "fallback")}
+    _check(sum(totals.values()) == RUNNER_ITERS,
+           f"runner anderson: outcomes {totals}")
+    print(f"  anderson outcomes {totals}; final inertia against the delta "
+          f"runner's: {float(acc.inertia) / float(delta.inertia):.6f}x")
+    return launches
+
+
+def _runner_codebook(card, codebook_c):
+    """The runner at ``codebook`` on phase 6's data and c0 (K5 and K6
+    only), held to phase 6's fit (``codebook_c``; made here when phase 6
+    did not run).  Returns its bf16 launch counts."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.init import random_init
+
+    n, d, k = CODEBOOK["n"], CODEBOOK["d"], CODEBOOK["k"]
+    x, _, _ = kt.make_blobs(11, n, d, k, dtype=torch.bfloat16)
+    c0 = random_init(torch.Generator(device="cuda").manual_seed(2), x, k)
+    if codebook_c is None:
+        codebook_c = kt.KMeans(
+            n_clusters=k, update="delta", compute_dtype="bfloat16", init=c0,
+            max_iter=CODEBOOK_SWEEPS, tol=-1.0).fit(x).cluster_centers_
+    want = torch.as_tensor(codebook_c, device="cuda")
+    runner = kt.LloydRunner(x, k, config=kt.KMeansConfig(
+        k=k, update="delta", compute_dtype="bfloat16"))
+    runner.init(c0)
+    infos = []
+    t0 = time.perf_counter()
+    state, counts = _counted_run(lambda: runner.run(
+        max_iter=CODEBOOK_SWEEPS, tol=-1.0, callback=infos.append))
+    wall = time.perf_counter() - t0
+    _check(counts["tiled_argmin_cuda"] == CODEBOOK_SWEEPS + 1
+           and counts["tiled_fold_cuda"] == CODEBOOK_SWEEPS + 1
+           and sum(counts.values()) == 2 * (CODEBOOK_SWEEPS + 1),
+           f"runner codebook: launches {counts}, wanted K5 and K6 only")
+    err = _close("runner codebook centroids against phase 6's fit",
+                 state.centroids, want)
+    print(f"runner codebook ({card}): {CODEBOOK_SWEEPS} iterations + "
+          f"finalize in {wall:.3f} s; per iteration "
+          f"{[round(1e3 * i.seconds, 3) for i in infos]} ms; centroids "
+          f"against phase 6's fit: max abs error {err:.3e}; inertia "
+          f"{float(state.inertia):.6e}; launches {counts}")
+    return counts
+
+
+def _cli_runs(card, tmp):
+    """The headline CLI runs (f32 runner, the drill and its resume, bf16,
+    the fused adaptive fit) and the cifar10 minibatch fit.  Returns
+    ``(bf16 counts, f32 counts)``."""
+    import signal
+
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.utils.checkpoint import latest_step
+
+    d = HEADLINE["d"]
+    probe = torch.zeros(8, d, device="cuda")
+    print(f"scoring core of the CLI's headline runs: f32 data in f32 "
+          f"compute {K.scoring_core(probe, torch.float32, probe)}, in bf16 "
+          f"compute {K.scoring_core(probe, torch.bfloat16, probe.bfloat16())}"
+          " (ROADMAP B6)")
+    base = ["train", "--config", "imagenet", "--model", "lloyd",
+            "--max-iter", str(CLI_ITERS), "--tol", "-1"]
+    f32, bf16 = {}, {}
+    t_cli = time.perf_counter()
+
+    d1, tel, trace, out = (f"{tmp}/d1", f"{tmp}/run.jsonl",
+                           f"{tmp}/trace.json", f"{tmp}/board.json")
+    run1 = _CliRun(tmp, "cli f32 runner", base + [
+        "--dtype", "float32", "--progress", "--checkpoint", d1,
+        "--checkpoint-every", str(CLI_CHECKPOINT_EVERY), "--telemetry", tel,
+        "--trace", trace, "--out", out]).need()
+    _add_counts(f32, run1.counts)
+    events = [json.loads(ln) for ln in open(tel, encoding="utf-8")]
+    iters = [e for e in events if e["event"] == "iter"]
+    _check(events[0]["event"] == "run_start"
+           and events[-1]["event"] == "run_done"
+           and [e["iteration"] for e in iters] == list(range(1, CLI_ITERS + 1))
+           and all(e["device"] == "cuda" for e in iters),
+           f"cli f32 runner: telemetry {[e['event'] for e in events][:4]}")
+    doc = json.loads(open(trace, encoding="utf-8").read())
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    names = [e["name"] for e in spans]
+    saves = CLI_ITERS // CLI_CHECKPOINT_EVERY
+    _check(names.count("lloyd.run") == 1
+           and names.count("iteration") == CLI_ITERS
+           and names.count("checkpoint_save") == saves,
+           f"cli f32 runner: trace spans lloyd.run "
+           f"{names.count('lloyd.run')}, iteration "
+           f"{names.count('iteration')}, checkpoint_save "
+           f"{names.count('checkpoint_save')}")
+    board = json.loads(open(out, encoding="utf-8").read())
+    _check(sorted(board) == ["cards", "centroids", "meta"]
+           and len(board["cards"]) == 500 and latest_step(d1) == CLI_ITERS,
+           "cli f32 runner: the export or the last checkpoint is wrong")
+    _check(run1.counts["lloyd_pass_cuda"] == 4
+           and run1.counts["lloyd_delta_cuda"] == CLI_ITERS - 3,
+           f"cli f32 runner: launches {run1.counts}")
+    print(run1.line(f"; steady iteration {run1.iter_ms():.3f} ms; "
+                    f"{len(iters)} iter events, {len(spans)} spans "
+                    f"({saves} checkpoint_save), {len(board['cards'])} "
+                    "cards exported"))
+
+    d2 = f"{tmp}/d2"
+
+    def sigterm(run, line, proc):
+        if line.startswith('{"event": "iter"') and \
+                json.loads(line)["iteration"] >= DRILL_AT:
+            proc.send_signal(signal.SIGTERM)
+            return True
+        return False
+
+    drill = _CliRun(tmp, "cli drill", base + [
+        "--dtype", "float32", "--progress", "--checkpoint", d2],
+        on_line=sigterm).need(3)
+    _add_counts(f32, drill.counts)
+    step = latest_step(d2)
+    _check(f"resume with: --resume {d2}" in drill.err and step is not None
+           and any(f"at iteration {step};" in ln for ln in drill.err)
+           and DRILL_AT <= step < CLI_ITERS,
+           f"cli drill: no resumable exit at the signal: {drill.err[-3:]}")
+    resumed = _CliRun(tmp, "cli resume", base[:-4] + [
+        "--max-iter", str(CLI_ITERS - step), "--tol", "-1", "--dtype",
+        "float32", "--resume", d2]).need()
+    _add_counts(f32, resumed.counts)
+    rel = abs(resumed.result["inertia"] - run1.result["inertia"]) / \
+        run1.result["inertia"]
+    _check(resumed.result["n_iter"] == CLI_ITERS and rel <= FIT_INERTIA_RTOL,
+           f"cli resume: n_iter {resumed.result['n_iter']}, inertia rel "
+           f"{rel:.3e} against the uninterrupted run")
+    print(drill.line(f"; SIGTERM at iteration >= {DRILL_AT}, checkpoint at "
+                     f"step {step}, {drill.exit_s:.3f} s from the signal to "
+                     "the exit"))
+    print(resumed.line(f"; resumed at {step}, finished at iteration "
+                       f"{resumed.result['n_iter']}, inertia rel {rel:.3e} "
+                       "against the uninterrupted run"))
+
+    run3 = _CliRun(tmp, "cli bf16 runner", base + [
+        "--dtype", "bfloat16", "--progress"]).need()
+    _add_counts(bf16, run3.counts)
+    print(run3.line(f"; steady iteration {run3.iter_ms():.3f} ms on "
+                    f"score_block (f32 run: {run1.iter_ms():.3f} ms on the "
+                    "f32 route)"))
+
+    fused = _CliRun(tmp, "cli fused", ["train", "--config", "imagenet",
+                                       "--model", "lloyd", "--max-iter",
+                                       "20", "--tol", "-1"]).need()
+    _add_counts(f32, fused.counts)
+    _check(fused.counts["lloyd_pass_cuda"] >= 2
+           and fused.counts["lloyd_delta_cuda"] >= 1
+           and fused.counts["lloyd_hamerly_cuda"] >= 1,
+           f"cli fused: the adaptive loop launched {fused.counts}")
+    print(fused.line(" (the adaptive update='auto' loop, f32)"))
+
+    mb = _CliRun(tmp, "cli cifar10", ["train", "--config", "cifar10"]).need()
+    _add_counts(f32, mb.counts)
+    _check(mb.result["mode"] == "minibatch" and mb.result["n_iter"] == 200
+           and mb.counts["lloyd_pass_cuda"] >= 1,
+           f"cli cifar10: {mb.result}, launches {mb.counts}")
+    print(mb.line(" (minibatch, f32)"))
+    print(f"cli runs: {time.perf_counter() - t_cli:.1f} s")
+    return bf16, f32
+
+
+def phase_runner(card, codebook_c):
+    """Phase 12: the step-paced runner in process (headline delta, yinyang
+    and Anderson; ``codebook`` delta) and ``cli train`` in subprocesses.
+    Returns ``{"bf16": counts, "f32": counts}``."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    bf16 = _runner_headline(card)
+    torch.cuda.empty_cache()
+    _add_counts(bf16, _runner_codebook(card, codebook_c))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        cli_bf16, f32 = _cli_runs(card, tmp)
+    _add_counts(bf16, cli_bf16)
+    print(f"runner and cli phase: {time.perf_counter() - t_phase:.1f} s; "
+          f"launches bf16 {bf16}, f32 {f32}")
+    return {"bf16": bf16, "f32": f32}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--http-client"]:
         return _http_client(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--fleet-cli"]:
         return _fleet_cli(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--train-cli"]:
+        return _train_cli(json.loads(sys.argv[2]))
     import torch
 
     if not torch.cuda.is_available():
@@ -4716,6 +5143,10 @@ def main() -> int:
 
         centres = make_blobs(0, 1, HEADLINE["d"], HEADLINE["k"])[2]
         phase_http(card, centres.cpu().numpy(), {})
+        return 0
+    if sys.argv[1:] == ["--runner"]:
+        phase_build()
+        phase_runner(card, None)
         return 0
     if sys.argv[1:] == ["--fleet"]:
         from kmeans_tpu_torch.data.synthetic import make_blobs
@@ -4754,6 +5185,14 @@ def main() -> int:
           "assign.kernel span a dense batch, one assign.rescore span a "
           "rescored pruned batch, held to their engine counters)")
     row["launches"] += http_launches + fleet_launches
+    runner = phase_runner(card, codebook_c)
+    for row in kernels:
+        # Phase 12's launches join the bf16 rows and the f32 route's rows,
+        # as phase 9's do.
+        name, _, what = row["name"].partition(" ")
+        compute = {"": "bf16", "(f32 route)": "f32"}.get(what)
+        if compute:
+            row["launches"] += runner[compute].get(name, 0)
     kernels += serve_rows
     phase_fold_split()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -10,7 +10,9 @@ a fitted model from a :class:`ModelRegistry` (in memory, or a directory
 of verified checkpoints): dense scoring on the streamed-argmin kernel,
 closure-pruned and int8-codebook routes; :mod:`kmeans_tpu_torch.serve.server`
 puts it behind HTTP (``python -m kmeans_tpu_torch.cli serve --model-dir D``).
-Every
+:class:`LloydRunner` steps a fit one sweep at a time (callbacks, telemetry,
+checkpoints, a resumable exit on SIGTERM), and ``python -m
+kmeans_tpu_torch.cli train`` fits from the command line.  Every
 public entry point runs on the card unless the caller
 passes ``device="cpu"``, where the kernels' plain PyTorch versions run; with
 no card and no ``device="cpu"`` it raises.
@@ -25,6 +27,7 @@ from kmeans_tpu_torch.models.lloyd import (KMeans, KMeansState, fit_lloyd,
                                            fit_plan)
 from kmeans_tpu_torch.models.minibatch import (MiniBatchKMeans, batch_update,
                                                fit_minibatch, nested_ladder)
+from kmeans_tpu_torch.models.runner import IterInfo, LloydRunner
 from kmeans_tpu_torch.ops.delta import delta_pass
 from kmeans_tpu_torch.ops.lloyd import lloyd_pass
 from kmeans_tpu_torch.serve.assign import AssignEngine
@@ -33,4 +36,4 @@ __all__ = ["KMeans", "KMeansConfig", "KMeansState", "fit_lloyd", "fit_plan",
            "kmeans_plus_plus", "make_blobs", "lloyd_pass", "delta_pass",
            "ServeConfig", "Generation", "ModelRegistry", "AssignEngine",
            "fit_lloyd_accelerated", "fit_minibatch", "MiniBatchKMeans",
-           "nested_ladder", "batch_update"]
+           "nested_ladder", "batch_update", "LloydRunner", "IterInfo"]

@@ -1,4 +1,25 @@
-"""Command line of the port: ``serve``.
+"""Command line of the port: ``train`` (alias ``fit``) and ``serve``.
+
+    python -m kmeans_tpu_torch.cli train --config imagenet [--model lloyd]
+        [--progress] [--checkpoint DIR [--checkpoint-every N]] [--resume DIR]
+        [--telemetry OUT.jsonl] [--trace OUT.json] [--out board.json]
+
+fits on the card (``--device cpu`` runs the kernels' plain versions on the
+CPU) and prints one JSON result line with the reference's keys.  The
+families are the reference's ``lloyd`` (the fused :func:`fit_lloyd`, or
+the step-paced :class:`~kmeans_tpu_torch.models.runner.LloydRunner`
+under ``--progress/--checkpoint/--resume/--telemetry/--trace/--xla-trace/
+--profile``), ``accelerated`` and in-memory ``minibatch``; a SIGTERM or
+SIGINT during a runner fit cuts a checkpoint and exits 3 with a "resume
+with: ..." line.  ``--xla-trace DIR`` writes a :mod:`torch.profiler` Chrome
+trace into DIR (the reference writes a ``jax.profiler`` trace there).
+Generated data (``--config`` or ``--n/--d/--k``) is the port's
+``make_blobs`` on the chosen device from ``--seed``, so a resumed process
+regenerates the same rows.  What the port does not have yet is refused
+with exit code 2 and one line naming its ROADMAP queue item: the other
+families, ``--pca``/``--whiten``, ``--coreset`` and ``--merge-k`` (A9),
+``--stream`` (A8), ``--mesh`` above 1, ``--ckpt-dir``, ``--ckpt-every``
+and ``--comm`` (A4).
 
     python -m kmeans_tpu_torch.cli serve --model-dir DIR [--port 8787]
         [--workers N [--fleet-obs-port PORT]]
@@ -12,7 +33,7 @@ each with its own engine on ``--device``, a supervisor that respawns them,
 pushes new generations to them, drains them on SIGTERM and replaces them
 one by one on SIGHUP, and with ``--fleet-obs-port`` the fleet's aggregated
 ``/metrics`` and merged ``/api/trace``.  The flags are the reference's
-(``kmeans_tpu/cli.py serve``) plus ``--device``.  Known difference: board
+(``kmeans_tpu/cli.py``) plus ``--device``.  Known difference: board
 persistence (``--persist-dir``, unset by default here) is not ported, and
 asking for it exits with code 2.
 """
@@ -20,7 +41,385 @@ asking for it exits with code 2.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
+import time
+
+
+#: The reference's families the port does not have yet (ROADMAP A9).
+_UNPORTED_MODELS = ("spherical", "bisecting", "fuzzy", "gmm", "kernel",
+                    "kmedoids", "trimmed", "balanced", "spectral", "xmeans",
+                    "gmeans")
+
+
+def _load_npy(path):
+    """``np.load`` with the CLI's one-line-error contract: a missing file
+    or a corrupt or short ``.npy`` prints one line and returns None."""
+    import numpy as np
+
+    try:
+        return np.load(path)
+    except (OSError, ValueError, EOFError) as e:
+        print(f"error: cannot load {path!r}: {e}", file=sys.stderr)
+        return None
+
+
+def _not_ported(args):
+    """The one refusal line for a flag or family the port does not have
+    yet, naming its ROADMAP queue item; None when everything asked for is
+    ported."""
+    if args.stream:
+        return ("--stream (the out-of-core streamed fits) is not ported "
+                "yet (ROADMAP A8)")
+    sharded = [f for f, on in (
+        (f"--mesh {args.mesh}", args.mesh and args.mesh > 1),
+        ("--ckpt-dir", args.ckpt_dir), ("--ckpt-every",
+                                        args.ckpt_every is not None),
+        ("--comm", args.comm)) if on]
+    if sharded:
+        return (f"{sharded[0]} needs the sharded engine, which is not "
+                "ported yet (ROADMAP A4)")
+    if args.model in _UNPORTED_MODELS:
+        return (f"--model {args.model} is not ported yet (ROADMAP A9); "
+                "the port fits lloyd, accelerated and minibatch")
+    for flag, on in (("--pca", args.pca is not None),
+                     ("--whiten", args.whiten),
+                     ("--coreset", args.coreset is not None),
+                     ("--merge-k", args.merge_k is not None)):
+        if on:
+            return f"{flag} is not ported yet (ROADMAP A9)"
+    return None
+
+
+def _cmd_train(args) -> int:
+    refused = _not_ported(args)
+    if refused:
+        print(f"error: {refused}", file=sys.stderr)
+        return 2
+
+    import numpy as np
+
+    import kmeans_tpu_torch.models as models
+    from kmeans_tpu_torch import obs
+    from kmeans_tpu_torch.config import KMeansConfig
+    from kmeans_tpu_torch.data.synthetic import bench_config, make_blobs
+    from kmeans_tpu_torch.device import as_tensor, resolve_device
+    from kmeans_tpu_torch.session import dataset_to_document, export_json
+
+    if args.config:
+        cfg = bench_config(args.config)
+        n, d, k = cfg["n"], cfg["d"], cfg["k"]
+        cfg_minibatch = cfg["minibatch"]
+    else:
+        n, d, k = args.n, args.d, args.k
+        cfg_minibatch = False
+    seed_v = args.seed if args.seed is not None else 0
+    # Precedence: explicit --model > explicit --minibatch/--no-minibatch >
+    # the named config's minibatch default.  Contradictory explicit flags
+    # are an error, not a silent override.
+    if args.model is not None and args.minibatch is not None and (
+        (args.minibatch and args.model != "minibatch")
+        or (not args.minibatch and args.model == "minibatch")
+    ):
+        print(
+            f"error: --model {args.model} contradicts "
+            f"--{'minibatch' if args.minibatch else 'no-minibatch'}",
+            file=sys.stderr,
+        )
+        return 2
+    runner_flagged = bool(args.progress or args.checkpoint or args.resume
+                          or args.profile or args.telemetry or args.trace
+                          or args.xla_trace)
+    if args.model is not None:
+        model = args.model
+    else:
+        use_mb = args.minibatch if args.minibatch is not None else cfg_minibatch
+        model = "minibatch" if use_mb else "lloyd"
+    if args.accel and args.model is None and model == "lloyd" \
+            and not runner_flagged:
+        # --accel names the accelerated family; without an explicit
+        # --model (and without the runner flags, which keep the lloyd
+        # runner and accelerate its steps) it selects the fused loop.
+        model = "accelerated"
+    minibatch = model == "minibatch"
+
+    if args.input:
+        x = _load_npy(args.input)
+        if x is None:
+            return 2
+        if x.ndim != 2:
+            print(f"error: {args.input} must be a 2-D array", file=sys.stderr)
+            return 2
+        n, d = x.shape
+
+    # --accel / --schedule configure the accelerated-fit engine: --accel
+    # anderson|beta picks the fused accelerated loop's extrapolation (or,
+    # with runner flags, step-paced Anderson inside LloydRunner);
+    # --schedule nested prepends the doubling subsample ladder (also for
+    # the in-memory minibatch path).  Combinations that would be silently
+    # ignored are rejected.
+    if args.anderson_m is not None and args.accel != "anderson":
+        print("error: --anderson-m tunes the Anderson history depth; it "
+              "requires --accel anderson", file=sys.stderr)
+        return 2
+    if args.accel:
+        if model not in ("accelerated", "lloyd"):
+            print(f"error: --accel runs the accelerated Lloyd family; it "
+                  f"has no effect with --model {model} (use --model "
+                  "accelerated, or lloyd with the runner flags)",
+                  file=sys.stderr)
+            return 2
+        if model == "lloyd" and not runner_flagged:
+            print("error: --accel with --model lloyd needs the step-paced "
+                  "runner (--progress/--checkpoint/--telemetry/…); the "
+                  "fused loop is --model accelerated", file=sys.stderr)
+            return 2
+        if model == "lloyd" and args.accel != "anderson":
+            print("error: the runner's step-paced acceleration is "
+                  "anderson; --accel beta runs only the fused --model "
+                  "accelerated loop", file=sys.stderr)
+            return 2
+    if args.schedule:
+        if model not in ("accelerated", "minibatch"):
+            print(f"error: --schedule configures the in-memory "
+                  f"accelerated/minibatch fits; it has no effect with "
+                  f"--model {model}", file=sys.stderr)
+            return 2
+        if args.schedule == "nested" and model == "minibatch" and (
+                args.steps is not None or args.batch_size is not None):
+            print("error: --steps/--batch-size drive the Sculley "
+                  "streaming loop; --schedule nested is ladder-paced "
+                  "(promotes on the sampling noise floor, finishes "
+                  "full-batch to --tol)", file=sys.stderr)
+            return 2
+
+    # --max-iter governs the Lloyd-family loop; the minibatch path is
+    # step-based (a nested-schedule minibatch fit is ladder-paced: it
+    # honours --max-iter per rung and --tol at the full-batch finish).
+    step_based = minibatch and args.schedule != "nested"
+    if step_based and args.max_iter is not None:
+        print("error: --max-iter has no effect with the step-based "
+              "minibatch/stream paths; use --steps/--batch-size",
+              file=sys.stderr)
+        return 2
+    if not step_based and (args.steps is not None
+                           or args.batch_size is not None):
+        print(f"error: --steps/--batch-size are minibatch/stream flags; "
+              f"--model {model} runs to --max-iter/--tol", file=sys.stderr)
+        return 2
+    if args.covariance_type and model != "gmm":
+        print(f"error: --covariance-type is a GMM flag; --model {model} "
+              "ignores it", file=sys.stderr)
+        return 2
+
+    # --update configures the Lloyd-family centroid reduction; paths that
+    # never read it must reject it rather than mislead.
+    if args.update:
+        if model not in ("lloyd", "accelerated"):
+            print(f"error: --update configures the Lloyd-family reduction; "
+                  f"it has no effect with --model {model}", file=sys.stderr)
+            return 2
+        if args.update in ("delta", "hamerly", "yinyang") \
+                and model != "lloyd":
+            print(f"error: --update {args.update} (the incremental sweep) "
+                  "runs only in the lloyd family; accelerated/spherical/"
+                  "trimmed use the dense reduction (or --update auto to "
+                  "let the policy decide)", file=sys.stderr)
+            return 2
+        if args.update in ("hamerly", "yinyang") and args.accel:
+            print(f"error: --update {args.update} carries refresh-cadence "
+                  "score bounds that do not compose with --accel's "
+                  "between-sweep extrapolation; drop --accel or use "
+                  "--update auto/delta", file=sys.stderr)
+            return 2
+
+    if args.profile and args.xla_trace and args.profile != args.xla_trace:
+        # --profile is the legacy spelling of --xla-trace; two different
+        # directories would silently drop one.
+        print("error: --profile is the legacy spelling of --xla-trace; "
+              "passing both with different directories is ambiguous — "
+              "drop one", file=sys.stderr)
+        return 2
+    if args.steps is not None and args.steps < 1:
+        print("error: --steps must be positive", file=sys.stderr)
+        return 2
+    if args.batch_size is not None and args.batch_size < 1:
+        print("error: --batch-size must be positive", file=sys.stderr)
+        return 2
+
+    cfg_kw = {}
+    if args.steps is not None:
+        cfg_kw["steps"] = args.steps
+    if args.batch_size is not None:
+        cfg_kw["batch_size"] = args.batch_size
+    if args.update:
+        cfg_kw["update"] = args.update
+    if args.yinyang_groups is not None:
+        if args.yinyang_groups < 1:
+            print("error: --yinyang-groups must be >= 1", file=sys.stderr)
+            return 2
+        if args.update not in (None, "auto", "yinyang"):
+            print(f"error: --yinyang-groups configures the yinyang group "
+                  f"bounds; it has no effect with --update {args.update}",
+                  file=sys.stderr)
+            return 2
+        cfg_kw["yinyang_groups"] = args.yinyang_groups
+    if args.accel:
+        cfg_kw["accel"] = args.accel
+    if args.schedule:
+        cfg_kw["schedule"] = args.schedule
+    if args.anderson_m is not None:
+        cfg_kw["anderson_m"] = args.anderson_m
+    kcfg = KMeansConfig(
+        k=k, init=args.init,
+        max_iter=args.max_iter if args.max_iter is not None else 100,
+        tol=args.tol, seed=seed_v, compute_dtype=args.dtype, **cfg_kw,
+    )
+
+    # --checkpoint/--resume/--progress/--profile/--telemetry/--trace/
+    # --xla-trace ride the step-paced runner; the one-shot fused fits have
+    # no iteration boundary to emit events or spans at.
+    if runner_flagged and model != "lloyd":
+        print(
+            "error: --progress/--checkpoint/--resume/--profile/--telemetry/"
+            "--trace/--xla-trace "
+            "require a step-paced loop (they would be silently ignored "
+            f"with the one-shot --model {model}); use --model lloyd, "
+            "--stream, or drop those flags",
+            file=sys.stderr,
+        )
+        return 2
+    if args.trim_fraction is not None:
+        print("error: --trim-fraction requires --model trimmed",
+              file=sys.stderr)
+        return 2
+
+    # Past every flag validation: a usage error reports at once and leaves
+    # nothing behind (the --trace probe creates the file if absent, so it
+    # runs only now), and no usage error needs a card.
+    if args.trace:
+        try:
+            obs.probe_writable(args.trace)
+        except OSError as e:
+            print(f"error: cannot write trace to {args.trace!r}: {e}",
+                  file=sys.stderr)
+            return 2
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError:
+        print(f"error: no CUDA device is available for --device "
+              f"{args.device}; pass --device cpu to run the kernels' plain "
+              "versions on the CPU", file=sys.stderr)
+        return 2
+    obs.record_build_info(dev.type)     # kmeans_tpu_build_info{version,backend}
+
+    if args.input:
+        x = as_tensor(x, dev)
+    else:
+        x, _, _ = make_blobs(seed_v, n, d, k, cluster_std=args.cluster_std,
+                             device=dev)
+
+    t0 = time.perf_counter()
+    if runner_flagged:
+        import contextlib
+
+        from kmeans_tpu_torch.utils import capture
+        from kmeans_tpu_torch.utils.checkpoint import CorruptCheckpointError
+
+        runner = models.LloydRunner(
+            x, k, config=kcfg, device=dev,
+            accel="anderson" if args.accel == "anderson" else None,
+        )
+        if args.resume:
+            try:
+                step = runner.resume(args.resume)
+            except (FileNotFoundError, CorruptCheckpointError,
+                    ValueError) as e:
+                # A missing, torn or foreign checkpoint dir is one line,
+                # not a traceback.
+                print(f"error: cannot resume from {args.resume!r}: {e}",
+                      file=sys.stderr)
+                return 2
+            print(f"resumed from {args.resume} at iteration {step}",
+                  file=sys.stderr)
+        else:
+            runner.init()
+
+        def progress(info):
+            if args.progress:
+                print(json.dumps({"event": "iter", **info.as_dict()}),
+                      file=sys.stderr)
+
+        tw = None
+        if args.telemetry:
+            # Opened after resume validation: TelemetryWriter truncates its
+            # file, and a failed --resume must not destroy a previous run's
+            # telemetry on its way to exit 2.
+            try:
+                tw = obs.TelemetryWriter(args.telemetry)
+            except OSError as e:
+                print(f"error: cannot write telemetry to "
+                      f"{args.telemetry!r}: {e}", file=sys.stderr)
+                return 2
+
+        # One flag captures both timelines: --trace writes the host span
+        # timeline as Chrome trace-event JSON, --xla-trace (or the legacy
+        # --profile) adds the torch.profiler device trace over the same
+        # window.
+        xla_dir = args.xla_trace or args.profile
+        ctx = (capture(args.trace, xla_dir=xla_dir, name="cli.fit")
+               if (args.trace or xla_dir) else contextlib.nullcontext())
+        try:
+            with ctx:
+                state = runner.run(
+                    callback=progress,
+                    # A --resume run without --checkpoint keeps saving (and
+                    # cuts its preemption checkpoint) into the resume dir;
+                    # an explicit --checkpoint wins.
+                    checkpoint_path=args.checkpoint or args.resume,
+                    checkpoint_every=args.checkpoint_every,
+                    checkpoint_keep=args.checkpoint_keep,
+                    telemetry=tw,
+                )
+        finally:
+            if tw is not None:
+                tw.close()
+    else:
+        fit = {
+            "lloyd": models.fit_lloyd,
+            "accelerated": models.fit_lloyd_accelerated,
+            "minibatch": models.fit_minibatch,
+        }[model]
+        state = fit(x, k, config=kcfg, device=dev)
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(dev)
+    fit_s = time.perf_counter() - t0
+
+    # One "inertia" field, lower is better for every family.
+    result = {
+        "n": int(n), "d": int(d), "k": int(k),
+        "inertia": models.state_objective(state),
+        "n_iter": int(state.n_iter),
+        "converged": bool(state.converged),
+        "wall_s": round(fit_s, 4),
+        "mode": model,
+    }
+    print(json.dumps(result))
+
+    if args.out:
+        # Only the first max_cards rows are exported.
+        doc = dataset_to_document(
+            np.asarray(x[:args.max_cards].float().cpu()),
+            np.asarray(state.labels[:args.max_cards].cpu()),
+            max_cards=args.max_cards,
+            enforce_limit=k <= 3,
+        )
+        with open(args.out, "w", encoding="utf-8") as f:
+            f.write(export_json(doc))
+        print(f"wrote {args.out}", file=sys.stderr)
+    return 0
 
 
 def _cmd_serve(args) -> int:
@@ -118,6 +517,127 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m kmeans_tpu_torch.cli")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    t = sub.add_parser("train", aliases=["fit"],
+                       help="fit k-means and optionally export JSON")
+    t.add_argument("--config", choices=[
+        "blobs2d", "mnist", "glove", "cifar10", "imagenet"
+    ], help="named BASELINE config (synthetic data at its shape)")
+    t.add_argument("--input", help="path to a .npy (n, d) feature matrix")
+    t.add_argument("--stream", action="store_true",
+                   help="the out-of-core streamed fits; not ported yet "
+                        "(ROADMAP A8), refused")
+    t.add_argument("--n", type=int, default=500)
+    t.add_argument("--d", type=int, default=2)
+    t.add_argument("--k", type=int, default=3)
+    t.add_argument("--minibatch", action=argparse.BooleanOptionalAction,
+                   default=None, help="alias for --model minibatch "
+                   "(named configs set it from BASELINE)")
+    t.add_argument("--model", default=None, choices=[
+        "lloyd", "accelerated", "minibatch", *_UNPORTED_MODELS,
+    ], help="model family (default: lloyd, or the config's minibatch "
+            "choice); the port fits lloyd, accelerated and minibatch, and "
+            "refuses the others (ROADMAP A9)")
+    t.add_argument("--covariance-type", default=None,
+                   choices=["diag", "spherical", "tied"],
+                   help="GMM covariance structure (--model gmm, not ported)")
+    t.add_argument("--trim-fraction", type=float, default=None,
+                   help="--model trimmed (not ported)")
+    t.add_argument("--init", default="k-means++",
+                   choices=["k-means++", "k-means||", "random"])
+    t.add_argument("--mesh", type=int, default=0,
+                   help="data-parallel mesh size (0/1 = single device; "
+                        "above 1 needs the sharded engine, ROADMAP A4)")
+    t.add_argument("--max-iter", type=int, default=None,
+                   help="Lloyd-family iteration cap (default 100); the "
+                        "minibatch path is step-based — use --steps")
+    t.add_argument("--steps", type=int, default=None,
+                   help="minibatch SGD steps (default 200)")
+    t.add_argument("--coreset", type=int, default=None,
+                   help="lightweight coreset (not ported, ROADMAP A9)")
+    t.add_argument("--merge-k", type=int, default=None,
+                   help="dendrogram merge to a coarser k (not ported, "
+                        "ROADMAP A9)")
+    t.add_argument("--pca", type=int, default=None,
+                   help="PCA projection (not ported, ROADMAP A9)")
+    t.add_argument("--whiten", action="store_true",
+                   help="with --pca (not ported, ROADMAP A9)")
+    t.add_argument("--batch-size", type=int, default=None,
+                   help="minibatch batch size (default 8192)")
+    t.add_argument("--update", default=None,
+                   choices=["auto", "matmul", "segment", "delta",
+                            "hamerly", "yinyang"],
+                   help="Lloyd centroid-update reduction (default auto: the "
+                        "incremental 'delta' sweep, which large fits switch "
+                        "with yinyang at runtime from the measured "
+                        "recompute fraction); 'hamerly' and 'yinyang' "
+                        "prune the distance pass with exact score bounds")
+    t.add_argument("--yinyang-groups", type=int, default=None,
+                   help="centroid group count t of the yinyang bounds "
+                        "(default ceil(k/10)); needs --update yinyang or "
+                        "auto")
+    t.add_argument("--comm", default=None,
+                   choices=["auto", "allreduce", "scatter"],
+                   help="sweep-merge collective of the sharded fit (not "
+                        "ported, ROADMAP A4)")
+    t.add_argument("--accel", default=None, choices=["beta", "anderson"],
+                   help="accelerated-fit extrapolation (selects --model "
+                        "accelerated when no model is given); with the "
+                        "runner flags, 'anderson' accelerates the "
+                        "step-paced lloyd runner and stamps per-iteration "
+                        "outcomes into the telemetry")
+    t.add_argument("--schedule", default=None, choices=["full", "nested"],
+                   help="iteration schedule of the accelerated/minibatch "
+                        "fits: 'nested' runs the doubling subsample ladder "
+                        "before the full-batch loop")
+    t.add_argument("--anderson-m", type=int, default=None,
+                   help="Anderson history depth m (default 5; requires "
+                        "--accel anderson)")
+    t.add_argument("--tol", type=float, default=1e-4)
+    t.add_argument("--seed", type=int, default=None,
+                   help="RNG seed of the generated data and the init "
+                        "(default 0)")
+    t.add_argument("--dtype", default=None,
+                   choices=[None, "bfloat16", "float32"],
+                   help="compute dtype of the distance product (the data "
+                        "stays float32)")
+    t.add_argument("--cluster-std", type=float, default=0.6)
+    t.add_argument("--device", default="cuda",
+                   help="where the fit runs: cuda (the default; exits 2 "
+                        "without a card) or cpu (the kernels' plain "
+                        "versions)")
+    t.add_argument("--out", help="write reference-schema export JSON here")
+    t.add_argument("--max-cards", type=int, default=500)
+    t.add_argument("--progress", action="store_true",
+                   help="print one JSON line per Lloyd iteration to stderr")
+    t.add_argument("--checkpoint", help="checkpoint directory (periodic "
+                   "saves of the Lloyd runner)")
+    t.add_argument("--checkpoint-every", type=int, default=10)
+    t.add_argument("--checkpoint-keep", type=int, default=0,
+                   help="retain up to N displaced checkpoints as step-"
+                        "tagged siblings (rolling history; 0 = none)")
+    t.add_argument("--resume", help="resume the Lloyd runner from this "
+                   "checkpoint directory (it keeps saving there unless "
+                   "--checkpoint names another)")
+    t.add_argument("--ckpt-dir", help="the sharded engine's elastic "
+                   "checkpoint (not ported, ROADMAP A4)")
+    t.add_argument("--ckpt-every", type=int, default=None,
+                   help="with --ckpt-dir (not ported, ROADMAP A4)")
+    t.add_argument("--profile", help="legacy spelling of --xla-trace")
+    t.add_argument("--trace", metavar="OUT.json",
+                   help="write the run's host span timeline (the runner's "
+                        "iteration, sweep, update, host sync and checkpoint "
+                        "spans) as Chrome trace-event JSON; runs the "
+                        "step-paced Lloyd runner")
+    t.add_argument("--xla-trace", metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the device "
+                        "timeline into DIR/trace.json over the same window "
+                        "as --trace")
+    t.add_argument("--telemetry", metavar="OUT.jsonl",
+                   help="write one JSON telemetry event per iteration to "
+                        "this file (inertia, shift, seconds, device, "
+                        "phase); runs the step-paced Lloyd runner")
+    t.set_defaults(fn=_cmd_train)
+
     s = sub.add_parser("serve", help="run the HTTP model server")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8787)
@@ -194,7 +714,18 @@ def main(argv=None) -> int:
     s.set_defaults(fn=_cmd_serve)
 
     args = p.parse_args(argv)
-    return args.fn(args)
+    from kmeans_tpu_torch.utils.preempt import Preempted
+
+    try:
+        return args.fn(args)
+    except Preempted as e:
+        # SIGTERM/SIGINT during a long fit: the loop already cut a final
+        # checkpoint; report the resumable state and exit with a distinct
+        # code (3 = preempted; 2 = usage error).
+        print(f"preempted: {e}", file=sys.stderr)
+        if e.resume_hint:
+            print(f"resume with: {e.resume_hint}", file=sys.stderr)
+        return 3
 
 
 if __name__ == "__main__":

@@ -23,7 +23,39 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["KMeansConfig", "ServeConfig"]
+__all__ = ["KMeansConfig", "ServeConfig", "COLORS", "MAX_CENTROIDS",
+           "ROOM_ALPHABET", "ROOM_CODE_LEN", "POS_CLAMP_X", "POS_CLAMP_Y",
+           "clamp_pos"]
+
+# ---------------------------------------------------------------------------
+# The reference's board constants that the session copies read
+# (``kmeans_tpu/config.py``, its values)
+# ---------------------------------------------------------------------------
+
+#: Centroid color palette, first-unused-wins (app.mjs:8,125).
+COLORS: Tuple[str, ...] = (
+    "#6EE7B7", "#93C5FD", "#FBCFE8", "#FDE68A", "#C7D2FE", "#FCA5A5",
+)
+
+#: Hard cap on centroid zones in the collaborative session (app.mjs:127).
+MAX_CENTROIDS: int = 3
+
+#: Room-code alphabet: A-Z + 2-9 minus lookalikes I/O/0/1 (app.mjs:19).
+ROOM_ALPHABET: str = "ABCDEFGHJKLMNPQRSTUVWXYZ23456789"
+ROOM_CODE_LEN: int = 4
+
+#: Normalized drop-position clamp bounds: x ∈ [0.02, 0.92], y ∈ [0.10, 0.92]
+#: (app.mjs:366-367).
+POS_CLAMP_X: Tuple[float, float] = (0.02, 0.92)
+POS_CLAMP_Y: Tuple[float, float] = (0.10, 0.92)
+
+
+def clamp_pos(x: float, y: float) -> Tuple[float, float]:
+    """Clamp a normalized board position exactly as the drop handler does
+    (app.mjs:362-367)."""
+    cx = min(max(x, POS_CLAMP_X[0]), POS_CLAMP_X[1])
+    cy = min(max(y, POS_CLAMP_Y[0]), POS_CLAMP_Y[1])
+    return (cx, cy)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,10 @@
 """Structured run telemetry: one JSONL event per iteration/step.
 
-A copy of ``kmeans_tpu/obs/telemetry.py``.
+A copy of ``kmeans_tpu/obs/telemetry.py``.  In the port the producer is
+``LloydRunner.run`` (:mod:`kmeans_tpu_torch.models.runner`, and so the
+CLI's ``train --telemetry``), whose ``phase`` tag marks the first call of
+each sweep function (on the card, the kernel library's load) instead of an
+XLA compile.
 
 The observability layer's top half (docs/OBSERVABILITY.md): where the
 registry answers "how is the process doing right now", the telemetry

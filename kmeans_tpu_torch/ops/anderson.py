@@ -173,8 +173,9 @@ def anderson_state(c0: torch.Tensor, xs0: torch.Tensor,
 
 def anderson_step(c, tc, f_c, shift_sq, state: AndersonState, *, tol, reg):
     """One safeguarded accept / reject / fallback decision — the one copy
-    of that arithmetic, as in the reference (the sharded loop and the
-    step-paced runner will call it too).
+    of that arithmetic, as in the reference: the fused Anderson loop and
+    the step-paced runner (:mod:`kmeans_tpu_torch.models.runner`) call it,
+    and the sharded loop will.
 
     Inputs: the pre-sweep iterate ``c``, its plain Lloyd update
     ``tc = T(c)``, the objective ``f_c`` measured at ``c`` and

@@ -26,8 +26,11 @@ Known differences from the reference:
 * Arrays come back as numpy arrays, and ``meta["config_obj"]`` is the
   port's :class:`~kmeans_tpu_torch.config.KMeansConfig`.
 
-The state checkpoints of the fitting runner (``save_checkpoint``,
-``load_checkpoint``, ``PeriodicSaver``) are not ported yet.
+On that layer sit the step-paced runner's state checkpoints
+(:func:`save_checkpoint` / :func:`load_checkpoint`: the ``KMeansState``
+field layout, so a runner of either package resumes from the other's
+directory) and the streamed fits' resume helpers
+(:func:`resolve_resume_params`, :class:`PeriodicSaver`).
 """
 
 from __future__ import annotations
@@ -48,8 +51,10 @@ from kmeans_tpu_torch.obs import counter as _obs_counter
 from kmeans_tpu_torch.obs import tracing as _tracing
 from kmeans_tpu_torch.utils import faults
 
-__all__ = ["save_array_checkpoint", "load_array_checkpoint", "latest_step",
-           "CorruptCheckpointError", "UnsupportedFormatError"]
+__all__ = ["save_checkpoint", "load_checkpoint", "save_array_checkpoint",
+           "load_array_checkpoint", "latest_step", "resolve_resume_params",
+           "PeriodicSaver", "CorruptCheckpointError",
+           "UnsupportedFormatError"]
 
 #: The reference's checkpoint counters, same names and labels.  ``role``
 #: classifies the candidate dir: final, the ``.old`` swap survivor, or a
@@ -79,6 +84,50 @@ class CorruptCheckpointError(ValueError):
 
 class UnsupportedFormatError(ValueError):
     """A checkpoint in a format the port does not read (orbax)."""
+
+
+def resolve_resume_params(ck: dict, specs) -> dict:
+    """Shared resume-parameter reconciliation for the streamed fits.
+
+    ``specs`` is a list of ``(name, ck_key, explicit, default)``: an
+    explicitly passed value (``explicit is not None``) that contradicts the
+    checkpoint raises; otherwise the checkpoint's value is adopted (or the
+    default when the checkpoint predates the key).  Returns
+    ``{name: resolved_value}``, each value cast to the default's type.
+    """
+    resolved = {}
+    for name, ck_key, explicit, default in specs:
+        current = explicit if explicit is not None else default
+        cast = type(default)          # str for names, int/float for numbers
+        if ck_key in ck:
+            if explicit is not None and cast(ck[ck_key]) != cast(explicit):
+                raise ValueError(
+                    f"resume {name}={explicit} contradicts the "
+                    f"checkpoint's {name}={ck[ck_key]}; drop the argument "
+                    "or restart without resume"
+                )
+            resolved[name] = cast(ck[ck_key])
+        else:
+            resolved[name] = current
+    return resolved
+
+
+class PeriodicSaver:
+    """Cadence and dedup for periodic checkpoint saves: fires every
+    ``every`` steps (and on ``force=True``), never twice for one step."""
+
+    def __init__(self, path: Optional[str], every: int):
+        self.path = path
+        self.every = every
+        self._last = -1
+
+    def maybe(self, step: int, save, *, force: bool = False) -> None:
+        if not self.path or step == self._last:
+            return
+        if not force and (self.every < 1 or step % self.every != 0):
+            return
+        self._last = step
+        save()
 
 
 def _candidate_role(dirpath: str) -> str:
@@ -165,6 +214,43 @@ def save_array_checkpoint(
         return _save_array_checkpoint(path, arrays, step=step,
                                       config=config, key=key, extra=extra,
                                       keep=keep)
+
+
+def _host(v) -> np.ndarray:
+    """A tensor (on any device) or array as a numpy array."""
+    if hasattr(v, "detach"):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def _state_arrays(state) -> dict:
+    return {
+        "centroids": _host(state.centroids),
+        "labels": _host(state.labels),
+        "inertia": _host(state.inertia),
+        "n_iter": _host(state.n_iter),
+        "converged": _host(state.converged),
+        "counts": _host(state.counts),
+    }
+
+
+def save_checkpoint(
+    path: str,
+    state,
+    *,
+    step: int = 0,
+    config: Optional[KMeansConfig] = None,
+    key=None,
+    extra: Optional[dict] = None,
+    keep: int = 0,
+) -> str:
+    """Write a resumable ``KMeansState`` checkpoint; returns ``path``.  A
+    thin wrapper over :func:`save_array_checkpoint` with the state's field
+    layout (the reference's format on disk)."""
+    return save_array_checkpoint(
+        path, _state_arrays(state), step=step, config=config, key=key,
+        extra=extra, keep=keep,
+    )
 
 
 def _save_array_checkpoint(path, arrays, *, step, config, key, extra,
@@ -339,6 +425,33 @@ def load_array_checkpoint(path: str) -> Tuple[dict, dict]:
     if meta.get("config"):
         meta["config_obj"] = KMeansConfig(**meta["config"])
     return arrays, meta
+
+
+def load_checkpoint(path: str) -> Tuple[object, dict]:
+    """Returns ``(KMeansState, meta)``: the ``KMeansState`` view of
+    :func:`load_array_checkpoint`, its fields CPU tensors.  A verified
+    bundle of another kind raises ``ValueError`` in the reference's
+    words."""
+    import torch
+
+    from kmeans_tpu_torch.models.lloyd import KMeansState
+
+    arrays, meta = load_array_checkpoint(path)
+    fields = ("centroids", "labels", "inertia", "n_iter", "converged",
+              "counts")
+    missing = [f for f in fields if f not in arrays]
+    if missing:
+        # A digest-valid bundle of the wrong kind (e.g. the elastic
+        # engine's centroids-only checkpoint) must be a clear refusal,
+        # not a KeyError from the middle of state reconstruction.
+        engine = (meta.get("extra") or {}).get("engine")
+        saved_by = f"; it was saved by {engine}" if engine else ""
+        raise ValueError(
+            f"checkpoint at {path!r} is not a step-paced runner "
+            f"checkpoint (missing {', '.join(missing)}){saved_by}")
+    state = KMeansState(*(torch.from_numpy(np.array(arrays[f]))
+                          for f in fields))
+    return state, meta
 
 
 def latest_step(path: str) -> Optional[int]:

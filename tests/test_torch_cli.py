@@ -1,0 +1,549 @@
+"""The port's ``train`` command against the JAX package's, on the CPU.
+
+Each behaviour test of the reference's CLI suite (``tests/test_cli.py``,
+the CLI tests of ``tests/test_obs.py`` and ``tests/test_tracing.py``) runs
+its body once through each package's ``main`` (``side``; the port's with
+``--device cpu`` appended).  Where a body asks for something the port does
+not have yet (``--stream``, a family of ROADMAP A9), the port's side holds
+the refusal instead: exit code 2 and one line naming the queue item.  The
+flag guards run through both ``main``s and must give the same exit code and
+the same stderr, line for line.  A fit through both on the same
+well-separated ``--input`` must give result lines with the same keys and
+inertia within ``INERTIA_RTOL`` (the k-means++ draws differ: ``jax.random``
+against a ``torch.Generator``, but on these blobs both reach the same
+partition).  ``--out`` writes the reference's bytes for the same rows and
+labels.
+"""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from kmeans_tpu import cli as ref_cli
+from kmeans_tpu import session as ref_session
+from kmeans_tpu.obs import read_events
+from kmeans_tpu_torch import cli as port_cli
+from kmeans_tpu_torch import session as port_session
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: Final inertia of the two packages' fits of the same separated blobs: the
+#: same partition, f32 sums in another order.
+INERTIA_RTOL = 1e-4
+SIDES = ("ref", "port")
+
+
+@pytest.fixture(autouse=True)
+def npz_format(monkeypatch):
+    """Hide orbax, so the reference's runner checkpoints are npz bundles."""
+    monkeypatch.setitem(sys.modules, "orbax", None)
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
+
+
+def _main(side):
+    if side == "ref":
+        return ref_cli.main
+    return lambda argv: port_cli.main(list(argv) + ["--device", "cpu"])
+
+
+def _run(side, capsys, argv):
+    rc = _main(side)(argv)
+    out = capsys.readouterr()
+    return rc, out.out, out.err
+
+
+def _refused(err, item):
+    """The port's refusal: one stderr line naming the ROADMAP item."""
+    lines = err.strip().splitlines()
+    return len(lines) == 1 and lines[0].startswith("error: ") \
+        and f"ROADMAP {item}" in lines[0]
+
+
+def _separated(seed, n, d, k, std=0.3):
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-10, 10, size=(k, d))
+    lab = rng.integers(0, k, size=n)
+    return (centers[lab] + std * rng.normal(size=(n, d))).astype(np.float32)
+
+
+@pytest.fixture()
+def cifar_like_npy(tmp_path):
+    """(2048, 3072) float32 features on disk, the CIFAR-10 feature width at
+    a test-sized row count."""
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(10, 3072)).astype(np.float32) * 3
+    lab = rng.integers(0, 10, size=(2048,))
+    x = (centers[lab] + rng.normal(size=(2048, 3072))).astype(np.float32)
+    p = tmp_path / "cifar_like.npy"
+    np.save(p, x)
+    return str(p)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_cli.py, once per package
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("side", SIDES)
+def test_train_input_npy_end_to_end(side, cifar_like_npy, tmp_path, capsys):
+    out_json = str(tmp_path / "board.json")
+    rc, out, _ = _run(side, capsys, [
+        "train", "--input", cifar_like_npy, "--k", "10",
+        "--max-iter", "10", "--max-cards", "50", "--out", out_json,
+    ])
+    assert rc in (0, None)
+    res = json.loads(out.splitlines()[0])
+    assert (res["n"], res["d"], res["k"]) == (2048, 3072, 10)
+    assert res["n_iter"] >= 1
+    doc = json.loads(open(out_json).read())
+    assert sorted(doc) == ["cards", "centroids", "meta"]
+    assert len(doc["cards"]) == 50
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_train_minibatch_rejects_max_iter(side, capsys):
+    rc, _, err = _run(side, capsys, [
+        "train", "--model", "minibatch", "--max-iter", "50",
+    ])
+    assert rc == 2
+    assert "--steps" in err
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_train_lloyd_rejects_steps(side, capsys):
+    rc, _, err = _run(side, capsys, ["train", "--steps", "5"])
+    assert rc == 2
+    assert "minibatch" in err
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_train_minibatch_steps_take_effect(side, capsys):
+    rc, out, _ = _run(side, capsys, [
+        "train", "--model", "minibatch", "--n", "512", "--d", "8",
+        "--k", "3", "--steps", "7", "--batch-size", "64",
+    ])
+    assert rc in (0, None)
+    assert json.loads(out.splitlines()[0])["n_iter"] == 7
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_train_accel_anderson_nested(side, capsys):
+    """n = 20000, more than twice the default nested_start, so the ladder
+    runs rungs (8192, 16384)."""
+    rc, out, _ = _run(side, capsys, [
+        "train", "--n", "20000", "--d", "8", "--k", "4",
+        "--accel", "anderson", "--schedule", "nested",
+        "--anderson-m", "4",
+    ])
+    assert rc in (0, None)
+    res = json.loads(out.splitlines()[0])
+    assert res["mode"] == "accelerated"
+    assert np.isfinite(res["inertia"]) and res["n_iter"] >= 1
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_train_accel_flag_guards(side, capsys):
+    base = ["train", "--n", "200", "--d", "4", "--k", "3"]
+    # --accel with a family that would ignore it (the port refuses the
+    # family itself: A9).
+    rc, _, err = _run(side, capsys, base + ["--model", "gmm", "--accel",
+                                            "anderson"])
+    assert rc == 2
+    assert "--accel" in err if side == "ref" else _refused(err, "A9")
+    rc, _, err = _run(side, capsys, base + ["--anderson-m", "4"])
+    assert rc == 2 and "--anderson-m" in err
+    rc, _, err = _run(side, capsys, base + ["--model", "kernel",
+                                            "--schedule", "nested"])
+    assert rc == 2
+    assert "--schedule" in err if side == "ref" else _refused(err, "A9")
+    rc, _, err = _run(side, capsys, base + ["--model", "minibatch",
+                                            "--schedule", "nested",
+                                            "--steps", "5"])
+    assert rc == 2 and "ladder" in err
+    rc, _, err = _run(side, capsys, base + ["--model", "lloyd", "--accel",
+                                            "beta", "--progress"])
+    assert rc == 2 and "anderson" in err
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_train_accel_runner_telemetry(side, tmp_path, capsys):
+    tpath = str(tmp_path / "accel.jsonl")
+    rc, out, _ = _run(side, capsys, [
+        "train", "--n", "3000", "--d", "6", "--k", "4",
+        "--model", "lloyd", "--accel", "anderson",
+        "--telemetry", tpath,
+    ])
+    assert rc in (0, None)
+    events = [json.loads(line) for line in open(tpath)]
+    iters = [e for e in events if e.get("event") == "iter"]
+    assert iters
+    assert all(e.get("accel") in ("accepted", "rejected", "fallback")
+               for e in iters)
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_train_minibatch_nested_schedule(side, capsys):
+    rc, out, _ = _run(side, capsys, [
+        "train", "--n", "4000", "--d", "6", "--k", "4",
+        "--model", "minibatch", "--schedule", "nested",
+        "--max-iter", "50",
+    ])
+    assert rc in (0, None)
+    res = json.loads(out.splitlines()[0])
+    assert res["mode"] == "minibatch"
+    assert np.isfinite(res["inertia"])
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_cli_train_update_delta(side, capsys):
+    rc = _main(side)([
+        "train", "--n", "2000", "--d", "8", "--k", "4",
+        "--update", "delta", "--max-iter", "30",
+    ])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip())
+    assert out["mode"] == "lloyd" and out["converged"]
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_cli_runner_resume_corrupt_one_line_error(side, tmp_path, capsys):
+    data = tmp_path / "x.npy"
+    np.save(data, np.random.default_rng(0).normal(
+        size=(200, 4)).astype(np.float32))
+    torn = tmp_path / "ck"
+    torn.mkdir()
+    (torn / "meta.json").write_text("{torn")
+    for resume in (str(torn), str(tmp_path / "nope")):
+        rc, _, err = _run(side, capsys, [
+            "train", "--input", str(data), "--k", "3", "--max-iter", "2",
+            "--resume", resume,
+        ])
+        assert rc == 2, resume
+        assert "Traceback" not in err
+        assert "error: cannot resume" in err
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_cli_checkpoint_keep_creates_step_dirs(side, tmp_path, capsys):
+    """The streamed fits' retention (the port has no streamed fits yet:
+    --stream is refused, A8, and nothing is written)."""
+    data = tmp_path / "x.npy"
+    np.save(data, np.random.default_rng(0).normal(
+        size=(400, 4)).astype(np.float32))
+    rc, _, err = _run(side, capsys, [
+        "train", "--input", str(data), "--k", "3", "--stream",
+        "--model", "minibatch", "--steps", "4", "--batch-size", "64",
+        "--checkpoint", str(tmp_path / "ck"), "--checkpoint-every", "1",
+        "--checkpoint-keep", "2",
+    ])
+    tagged = sorted(p for p in os.listdir(tmp_path)
+                    if p.startswith("ck.step-"))
+    if side == "ref":
+        assert rc == 0
+        assert tagged == ["ck.step-00000002", "ck.step-00000003"]
+    else:
+        assert rc == 2 and _refused(err, "A8") and tagged == []
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_cli_checkpoint_keep_reaches_lloyd_runner(side, tmp_path, capsys):
+    data = tmp_path / "x.npy"
+    np.save(data, np.random.default_rng(0).normal(
+        size=(400, 4)).astype(np.float32))
+    rc, _, _ = _run(side, capsys, [
+        "train", "--input", str(data), "--k", "3", "--max-iter", "4",
+        "--tol", "0",
+        "--checkpoint", str(tmp_path / "ck"), "--checkpoint-every", "1",
+        "--checkpoint-keep", "2",
+    ])
+    assert rc == 0
+    tagged = [p for p in os.listdir(tmp_path) if p.startswith("ck.step-")]
+    assert len(tagged) == 2
+
+
+# ---------------------------------------------------------------------------
+# tests/test_obs.py and tests/test_tracing.py CLI tests, once per package
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("side", SIDES)
+def test_cli_fit_telemetry_one_event_per_iteration(side, tmp_path):
+    out = str(tmp_path / "out.jsonl")
+    rc = _main(side)(["fit", "--n", "300", "--d", "2", "--k", "3",
+                      "--telemetry", out])
+    assert rc == 0
+    events = read_events(out)
+    iters = [e for e in events if e["event"] == "iter"]
+    assert len(iters) >= 1
+    assert [e["iteration"] for e in iters] == \
+        list(range(1, len(iters) + 1))
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_cli_failed_resume_preserves_existing_telemetry(side, tmp_path,
+                                                        capsys):
+    out = tmp_path / "out.jsonl"
+    prior = '{"event":"iter","iteration":1}\n'
+    out.write_text(prior, encoding="utf-8")
+    rc = _main(side)(["fit", "--n", "100", "--d", "2", "--k", "2",
+                      "--telemetry", str(out),
+                      "--resume", str(tmp_path / "no_such_ckpt")])
+    assert rc == 2
+    assert "cannot resume" in capsys.readouterr().err
+    assert out.read_text(encoding="utf-8") == prior
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_cli_failed_stream_resume_preserves_existing_telemetry(
+        side, tmp_path, capsys):
+    """A refused or failed streamed resume leaves an earlier run's
+    telemetry as it was (the port refuses --stream: A8)."""
+    data = np.random.default_rng(0).normal(size=(1000, 3)) \
+        .astype(np.float32)
+    npy = str(tmp_path / "x.npy")
+    np.save(npy, data)
+    out = tmp_path / "out.jsonl"
+    ck = str(tmp_path / "ck")
+    prior = '{"event":"iter","iteration":1}\n'
+    out.write_text(prior, encoding="utf-8")
+    if side == "ref":
+        rc = _main(side)(["train", "--stream", "--input", npy, "--k", "2",
+                          "--steps", "3", "--batch-size", "128",
+                          "--checkpoint", ck, "--telemetry", str(out)])
+        assert rc == 0
+        prior = out.read_text(encoding="utf-8")
+        assert prior.count("\n") == 3
+        capsys.readouterr()
+    rc = _main(side)(["train", "--stream", "--input", npy, "--k", "2",
+                      "--steps", "3", "--batch-size", "512",
+                      "--resume", ck, "--telemetry", str(out)])
+    assert rc == 2
+    err = capsys.readouterr().err
+    assert "contradicts" in err if side == "ref" else _refused(err, "A8")
+    assert out.read_text(encoding="utf-8") == prior
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_cli_telemetry_requires_step_paced_loop(side, tmp_path, capsys):
+    rc = _main(side)(["fit", "--model", "gmm", "--n", "100", "--d", "2",
+                      "--k", "2", "--telemetry", str(tmp_path / "x.jsonl")])
+    assert rc == 2
+    err = capsys.readouterr().err
+    assert "step-paced" in err if side == "ref" else _refused(err, "A9")
+    rc = _main(side)(["fit", "--model", "accelerated", "--n", "100", "--d",
+                      "2", "--k", "2", "--telemetry",
+                      str(tmp_path / "x.jsonl")])
+    assert rc == 2 and "step-paced" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_cli_fit_trace_and_telemetry_cross_reference(side, tmp_path):
+    out = str(tmp_path / "out.json")
+    tel = str(tmp_path / "run.jsonl")
+    rc = _main(side)(["fit", "--n", "1500", "--d", "4", "--k", "3",
+                      "--trace", out, "--telemetry", tel])
+    assert rc == 0
+    doc = json.loads(open(out, encoding="utf-8").read())
+    evs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    trace_ids = {e["args"]["trace_id"] for e in evs}
+    (run_span,) = [e for e in evs if e["name"] == "lloyd.run"]
+    events = read_events(tel)
+    iters = [e for e in events if e["event"] == "iter"]
+    assert iters
+    assert sum(e["name"] == "iteration" for e in evs) == len(iters)
+    for e in events:
+        assert e["trace_id"] in trace_ids
+        assert e["run_id"] == run_span["args"]["run_id"]
+
+
+# ---------------------------------------------------------------------------
+# The port against the reference
+# ---------------------------------------------------------------------------
+
+GUARDS = [
+    ["train", "--model", "minibatch", "--max-iter", "50"],
+    ["train", "--steps", "5"],
+    ["train", "--anderson-m", "4"],
+    ["train", "--model", "minibatch", "--schedule", "nested", "--steps",
+     "5"],
+    ["train", "--model", "lloyd", "--accel", "beta", "--progress"],
+    ["train", "--model", "lloyd", "--accel", "anderson"],
+    ["train", "--model", "minibatch", "--accel", "anderson"],
+    ["train", "--schedule", "nested"],
+    ["train", "--model", "lloyd", "--minibatch"],
+    ["train", "--model", "minibatch", "--no-minibatch"],
+    ["train", "--update", "delta", "--minibatch"],
+    ["train", "--model", "accelerated", "--update", "yinyang"],
+    ["train", "--update", "hamerly", "--accel", "anderson", "--progress"],
+    ["train", "--yinyang-groups", "0"],
+    ["train", "--update", "delta", "--yinyang-groups", "4"],
+    ["train", "--covariance-type", "tied"],
+    ["train", "--trim-fraction", "0.1"],
+    ["train", "--model", "accelerated", "--progress"],
+    ["train", "--model", "minibatch", "--steps", "0"],
+    ["train", "--model", "minibatch", "--batch-size", "0"],
+    ["train", "--profile", "a", "--xla-trace", "b"],
+]
+
+
+@pytest.mark.parametrize("argv", GUARDS, ids=lambda a: " ".join(a[1:]))
+def test_flag_guards_equal_the_references(argv, capsys):
+    """Each guard exits 2 with the reference's stderr, line for line, and
+    needs no card."""
+    ref = _run("ref", capsys, argv)
+    got = port_cli.main(argv)           # no --device: a guard needs no card
+    err = capsys.readouterr().err
+    assert (got, err) == (ref[0], ref[2])
+    assert got == 2 and len(err.strip().splitlines()) == 1
+
+
+def test_input_errors_equal_the_references(tmp_path, capsys):
+    garbage = tmp_path / "garbage.npy"
+    garbage.write_bytes(b"this is not an npy file at all")
+    flat = tmp_path / "flat.npy"
+    np.save(flat, np.zeros(10, np.float32))
+    for path in (str(tmp_path / "missing.npy"), str(garbage), str(flat)):
+        argv = ["train", "--input", path, "--k", "3"]
+        ref = _run("ref", capsys, argv)
+        got = _run("port", capsys, argv)
+        assert got[0] == ref[0] == 2 and got[2] == ref[2], path
+
+
+@pytest.mark.parametrize("runner", [False, True], ids=["fused", "runner"])
+@pytest.mark.parametrize("update", ["auto", "delta", "yinyang"])
+def test_result_line_matches_the_references(update, runner, tmp_path,
+                                            capsys):
+    x = _separated(21, 2000, 8, 4)
+    npy = str(tmp_path / "x.npy")
+    np.save(npy, x)
+    argv = ["train", "--input", npy, "--k", "4", "--update", update,
+            "--tol", "1e-6"]
+    if runner:
+        argv += ["--progress"]
+    rc_r, out_r, err_r = _run("ref", capsys, argv)
+    rc_p, out_p, err_p = _run("port", capsys, argv)
+    assert rc_r == rc_p == 0, err_p
+    ref, got = json.loads(out_r), json.loads(out_p)
+    assert list(got) == list(ref)
+    assert {k: got[k] for k in ("n", "d", "k", "mode", "converged")} == \
+        {k: ref[k] for k in ("n", "d", "k", "mode", "converged")}
+    np.testing.assert_allclose(got["inertia"], ref["inertia"],
+                               rtol=INERTIA_RTOL)
+    if runner:
+        lines = [json.loads(ln) for ln in err_p.splitlines()]
+        ref_lines = [json.loads(ln) for ln in err_r.splitlines()]
+        assert all(list(ln) == list(ref_lines[0]) for ln in lines)
+        assert lines[-1]["iteration"] == got["n_iter"]
+
+
+def test_export_bytes_equal_the_references(tmp_path, capsys):
+    """``--out`` is the reference's document: the same rows and labels give
+    the same bytes through either package's session copy, and the port's
+    ``train --out`` writes that document for its fit's labels."""
+    from kmeans_tpu_torch import KMeansConfig, fit_lloyd
+
+    x = _separated(22, 600, 5, 3)
+    for labels in (np.arange(600) % 3, np.where(np.arange(600) % 7 == 0,
+                                                -1, np.arange(600) % 2)):
+        for n_cards in (50, 500):
+            mine = port_session.export_json(port_session.dataset_to_document(
+                x[:n_cards], labels[:n_cards], max_cards=n_cards))
+            ref = ref_session.export_json(ref_session.dataset_to_document(
+                x[:n_cards], labels[:n_cards], max_cards=n_cards))
+            assert mine == ref
+    npy = str(tmp_path / "x.npy")
+    np.save(npy, x)
+    out = str(tmp_path / "board.json")
+    assert _main("port")(["train", "--input", npy, "--k", "3",
+                          "--max-cards", "120", "--out", out]) == 0
+    capsys.readouterr()
+    st = fit_lloyd(x, 3, config=KMeansConfig(k=3, max_iter=100, tol=1e-4,
+                                            seed=0), device="cpu")
+    want = ref_session.export_json(ref_session.dataset_to_document(
+        x[:120], st.labels.numpy()[:120], max_cards=120))
+    assert open(out, encoding="utf-8").read() == want
+
+
+REFUSED = [
+    (["--stream", "--input", "x.npy"], "A8"),
+    (["--mesh", "2"], "A4"),
+    (["--ckpt-dir", "ck"], "A4"),
+    (["--ckpt-every", "3"], "A4"),
+    (["--comm", "scatter"], "A4"),
+    (["--model", "gmm"], "A9"),
+    (["--model", "xmeans"], "A9"),
+    (["--model", "trimmed", "--trim-fraction", "0.1"], "A9"),
+    (["--pca", "1"], "A9"),
+    (["--whiten"], "A9"),
+    (["--coreset", "100"], "A9"),
+    (["--merge-k", "2"], "A9"),
+]
+
+
+@pytest.mark.parametrize("extra,item", REFUSED,
+                         ids=[" ".join(e) for e, _ in REFUSED])
+def test_unported_flags_are_refused(extra, item, capsys):
+    rc = port_cli.main(["train", "--n", "100", "--d", "2", "--k", "2"]
+                       + extra)
+    assert rc == 2
+    out = capsys.readouterr()
+    assert out.out == "" and _refused(out.err, item)
+
+
+def test_device_defaults_to_the_card(capsys):
+    """``--device`` defaults to ``cuda``: without a card the fit exits 2
+    with one line naming ``--device cpu`` (no fallback), after the flag
+    guards."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    rc = port_cli.main(["train", "--n", "100", "--d", "2", "--k", "2"])
+    err = capsys.readouterr().err
+    assert rc == 2 and "no CUDA device" in err and "--device cpu" in err
+    assert len(err.strip().splitlines()) == 1
+
+
+def test_sigterm_cuts_a_checkpoint_and_the_resume_finishes(tmp_path):
+    """The preemption drill in a child process: SIGTERM once a progress
+    line reports iteration >= 3 exits 3 with a "resume with" line and a
+    checkpoint at that step; ``--resume`` for the rest finishes at the
+    uninterrupted run's iteration count and inertia."""
+    from kmeans_tpu_torch.utils.checkpoint import latest_step
+
+    npy = str(tmp_path / "x.npy")
+    np.save(npy, _separated(23, 20000, 16, 8, std=3.0))
+    ck = str(tmp_path / "ck")
+    base = [sys.executable, "-m", "kmeans_tpu_torch.cli", "train",
+            "--device", "cpu", "--input", npy, "--k", "8", "--tol", "-1"]
+    total = 30
+    full = subprocess.run(base + ["--max-iter", str(total)],
+                          capture_output=True, text=True, cwd=REPO,
+                          timeout=120)
+    assert full.returncode == 0, full.stderr
+    proc = subprocess.Popen(
+        base + ["--max-iter", str(total), "--progress", "--checkpoint", ck,
+                "--checkpoint-every", "1000"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
+    try:
+        for line in proc.stderr:
+            if line.startswith("{") and json.loads(line)["iteration"] >= 3:
+                proc.send_signal(signal.SIGTERM)
+                break
+        out, err = proc.communicate(timeout=120)
+    finally:
+        proc.kill()
+    assert proc.returncode == 3, err
+    assert f"resume with: --resume {ck}" in err.splitlines()
+    step = latest_step(ck)
+    assert 3 <= step < total and f"at iteration {step};" in err
+    resumed = subprocess.run(
+        base + ["--max-iter", str(total - step), "--resume", ck],
+        capture_output=True, text=True, cwd=REPO, timeout=120)
+    assert resumed.returncode == 0, resumed.stderr
+    got, want = json.loads(resumed.stdout), json.loads(full.stdout)
+    assert got["n_iter"] == want["n_iter"] == total
+    np.testing.assert_allclose(got["inertia"], want["inertia"],
+                               rtol=INERTIA_RTOL)

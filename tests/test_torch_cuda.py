@@ -878,3 +878,32 @@ def test_cli_fleet_on_the_card_answers_reloads_and_drains(card, tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
+
+
+@pytest.mark.parametrize("update", ["delta", "yinyang"])
+def test_runner_on_the_card_matches_the_plain_backend(card, update):
+    """Five step-paced iterations on the card's kernels against the same
+    runner on ``backend="plain"``: the same labels, per-iteration inertia
+    and centroids to the sums' tolerance, and the kernels launched."""
+    from kmeans_tpu_torch.models import LloydRunner
+
+    x, c, _, _ = _blobs(5, 4099, 48, 7, card)
+    runs = {}
+    for backend in ("auto", "plain"):
+        r = LloydRunner(x, 7, config=KMeansConfig(k=7, update=update,
+                                                  backend=backend))
+        r.init(c)
+        infos = []
+        K.reset_launch_counts()
+        state = r.run(max_iter=5, tol=-1.0, callback=infos.append)
+        runs[backend] = (state, infos, K.launch_counts())
+    (a, ia, launches), (b, ib, plain_launches) = runs["auto"], runs["plain"]
+    assert int(a.n_iter) == int(b.n_iter) == 5
+    assert torch.equal(a.labels, b.labels)
+    _close(a.centroids, b.centroids)
+    np.testing.assert_allclose([i.inertia for i in ia],
+                               [i.inertia for i in ib], rtol=1e-4)
+    assert launches["lloyd_pass_cuda"] >= 2
+    kernel = "lloyd_delta_cuda" if update == "delta" else "lloyd_hamerly_cuda"
+    assert launches[kernel] >= 4
+    assert sum(plain_launches.values()) == 0

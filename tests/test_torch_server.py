@@ -476,7 +476,13 @@ def test_metrics_families(servers, side):
                  "# TYPE kmeans_tpu_sweep_group_filter_fraction gauge",
                  'kmeans_tpu_accel_steps_total{outcome="accepted"}',
                  'kmeans_tpu_accel_steps_total{outcome="rejected"}',
-                 'kmeans_tpu_accel_steps_total{outcome="fallback"}'):
+                 'kmeans_tpu_accel_steps_total{outcome="fallback"}',
+                 # The step-paced runner's families, its model label
+                 # seeded at import in either package.
+                 "# TYPE kmeans_tpu_iteration_seconds histogram",
+                 'kmeans_tpu_iteration_seconds_count{model="lloyd"}',
+                 "# TYPE kmeans_tpu_iterations_total counter",
+                 'kmeans_tpu_iterations_total{model="lloyd"}'):
         assert want in text, want
     if side == "port":
         from kmeans_tpu import obs as ref_obs
