@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 from the root of a checkout.  It builds the port's CUDA kernels from
-``kmeans_tpu_torch/csrc/lloyd.cu`` and runs twelve phases, exiting
+``kmeans_tpu_torch/csrc/lloyd.cu`` and runs fourteen phases, exiting
 non-zero if any fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -136,7 +136,9 @@ non-zero if any fails:
    K5's launches counted from the workers' traces and held to their
    engine counters; then the kill drill (``fleet.heartbeat:kill@2``:
    the RTO beside the reference's gate, only in-flight requests lost)
-   and a rolling replace with no failed request, at 2 workers;
+   and a rolling replace with no failed request, at 2 workers, with SSE
+   subscribers on both workers through it (each stream ended by its
+   worker's drain) and through the fleet's drain after it;
 12. the step-paced runner and ``cli train``, each run's launch counts set
    to 0 before it and read after: in process on phase 4's bf16 data and
    c0, ``LloydRunner(update="delta")`` for RUNNER_ITERS iterations with a
@@ -157,13 +159,46 @@ non-zero if any fails:
    iteration CLI_ITERS within FIT_INERTIA_RTOL of the uninterrupted run);
    the same shape in bf16 compute (``score_block``); the fused adaptive fit;
    and ``train --config cifar10`` (minibatch), each with its wall time;
-13. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+13. the board and the trimmed family, each run's launch counts set to 0
+   before it and read after: trimmed-headline (``fit_trimmed(
+   trim_fraction=TRIM_FRACTION)`` on phase 4's bf16 data and c0 for
+   TRIM_ITERS iterations: K1 only; the mask is K1's min_d2 at the final
+   centroids ranked with the lowest-index tie-break, the labels -1 exactly
+   there, the counts sum to n - m, the inertia the inliers' min_d2 within
+   SUMS_RTOL, the final inertia within FIT_INERTIA_RTOL of the plain
+   backend's fit on the card; ms an iteration beside K1 alone and the trim
+   split into selection, gather and fold with CUDA events),
+   trimmed-codebook (phase 6's data, ``n_trim`` TRIM_CODEBOOK_M,
+   TRIM_CODEBOOK_ITERS iterations and the final view, the depth cut: K5
+   and K6 only, labels against K5's, ties apart), trimmed-cli (``cli train
+   --config imagenet --model trimmed`` in a child process: its result
+   line, the export's unassigned outliers, its launches; board-http's
+   first server boots meanwhile), then board-http:
+   ``cli serve --persist-dir D`` in a child process (``chip_smoke.py
+   --board-cli SPEC`` runs ``cli.main`` and writes its launch counts and
+   its ``stop()`` time): the fixture and ``autoAssign`` with and without
+   outliers, the ``train`` op (``lloyd`` at n = 100,000, d = 2, k = 3: an
+   SSE event an iteration with the live centroids; the request cap, d =
+   80, k = 100, merged to the board; ``trimmed``), BOARD_MUTATORS mutating
+   clients and BOARD_SUBSCRIBERS SSE subscribers in one room for
+   BOARD_SECONDS (mutations/s, the delay from a mutate's response to each
+   subscriber's event, no 503), kill -9 and a restart on D (each room's
+   ``/api/state`` as before the kill), a ``Last-Event-ID`` reconnect that
+   replays the missed ``train`` events, and SIGINT with SSE subscribers
+   and assign clients attached (``stop()`` well under ``fleet_drain_s``,
+   no accepted request unanswered); the board server's K5 launches (the
+   stop drill's model) and K6 launches (the train op's trimmed fits at d =
+   2) are printed and on no row of phase 14;
+14. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.  A kernel has a row for each compute dtype its main-path runs
-   score in: bf16 (phases 4, 6, 9 and 12's in-process and bf16 runs) and
-   the f32 route (K1, K2 and K4 from imagenet-delta-f32, phase 12's f32
-   CLI runs and K1 from phase 9's cifar10 runs, K5 from each served
-   model's runs), each row's launches counted in its own runs and its
-   times taken at its own shape.
+   score in: bf16 (phases 4, 6, 9, 12's in-process and bf16 runs and 13's
+   in-process trimmed runs) and f32 (the route's K1, K2 and K4 from
+   imagenet-delta-f32, phase 12's f32 CLI runs, phase 13's trimmed CLI run
+   and K1 from phase 9's cifar10 runs, with the board server's f32 K1 and
+   K2 launches on ``score_block`` at d <= 80; K5 from each served model's
+   runs), each
+   row's launches counted in its own runs and its times taken at its own
+   shape.
 
 ``python3 chip_smoke.py --fold-split`` runs phases 1 and 7 only (the
 kernels build at their first call), so it also splits an older tree's K6.
@@ -174,7 +209,8 @@ older checkout times that tree's f32 route in the same call.
 ``python3 chip_smoke.py --accel`` runs phases 1 and 9 only (the kernels
 build at their first call); ``--serve-http`` and ``--fleet`` run phases 1
 and 10, and 1 and 11, on ``make_blobs`` centres; ``--runner`` runs phases
-1, 2 and 12 (it makes phase 6's fit itself).
+1, 2 and 12 (it makes phase 6's fit itself); ``--board`` runs phases 1
+and 13 (the kernels build at their first call).
 
 The bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of memory, 989
 TFLOP/s bf16 on the tensor cores and 67 TFLOP/s f32 outside them; an f32
@@ -2500,6 +2536,11 @@ def phase_codebook(headline_launches):
 SPLIT_CHURN = 0.02
 #: K6 calls in each profile of the split.
 SPLIT_REPS = 5
+#: Idle seconds at each end of a profile's recording: kineto drops a
+#: device record whose span, mapped onto the host's clock, falls outside
+#: the recording's window, and a call that starts or ends right at the
+#: window's edge can lose its launches that way.
+SPLIT_EDGE_S = 0.1
 
 
 def _kernel_name(name):
@@ -2520,8 +2561,9 @@ def _device_split(fn, reps):
     order the kernels first ran, memsets and copies included.  The
     profiler's own warm-up step takes one more call, whose records are
     dropped: tracing starts with it, so no measured call loses the
-    launches that ran while CUPTI was being enabled."""
-    import torch
+    launches that ran while CUPTI was being enabled.  The recording opens
+    and closes SPLIT_EDGE_S away from the first and the last measured
+    call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -2530,9 +2572,15 @@ def _device_split(fn, reps):
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=reps,
                                    repeat=1)) as prof:
-        for _ in range(1 + reps):
+        fn()
+        _sync()
+        prof.step()
+        time.sleep(SPLIT_EDGE_S)
+        for rep in range(reps):
             fn()
             _sync()
+            if rep == reps - 1:
+                time.sleep(SPLIT_EDGE_S)
             prof.step()
     split = {}
     for evt in sorted((e for e in prof.events()
@@ -2587,12 +2635,6 @@ def phase_fold_split():
         whole = _time_ms(call, 5)
         scratch_ms = _time_ms(lambda: K._fold_scratch(x, k, dual), 5)
         split = _device_split(call, SPLIT_REPS)
-        passes = getattr(K, "fold_sort_passes", None)
-        hists = sum(launches for name, launches, _ in split
-                    if name.startswith("sort_hist_kernel"))
-        _check(passes is None or hists == passes(k),
-               f"K6 at k={k} made {hists} radix passes a call, not "
-               f"fold_sort_passes' {passes and passes(k)}")
         what = (f"K6 split ({case}) {'dual' if dual else 'single'} fold, "
                 f"n={n} d={d} k={k}"
                 + (f", {int(w.sum())} rows changed" if dual else ""))
@@ -2602,6 +2644,18 @@ def phase_fold_split():
               f"{sum(t for _, _, t in split):.3f} ms of device time a call")
         for name, launches, ms in split:
             print(f"  {name}: {launches:g} a call, {ms:.3f} ms a call")
+        torn = [name for name, launches, _ in split
+                if launches != int(launches)]
+        _check(not torn,
+               f"the profile of K6 at k={k} lost records: {', '.join(torn)} "
+               f"ran a number of times that is not a multiple of the "
+               f"{SPLIT_REPS} calls")
+        passes = getattr(K, "fold_sort_passes", None)
+        hists = sum(launches for name, launches, _ in split
+                    if name.startswith("sort_hist_kernel"))
+        _check(passes is None or hists == passes(k),
+               f"K6 at k={k} made {hists} radix passes a call, not "
+               f"fold_sort_passes' {passes and passes(k)}")
 
 
 # ---------------------------------------------------------------------------
@@ -4055,6 +4109,9 @@ FLEET_WARM_PER_WORKER = 8
 FLEET_REF_RTO_S = 2.0
 #: nvidia-smi's utilization.gpu sampling period during a run.
 FLEET_UTIL_PERIOD_S = 0.1
+#: SSE subscribers the rolling drill keeps on its workers (more are
+#: opened until they sit on every worker), in one room.
+FLEET_SSE_SUBS = 8
 
 
 def _final_workers(sup):
@@ -4509,6 +4566,62 @@ def _fleet_run(ctx, name, fleet, n, route, run, gen_to, port, obs_port,
     return summary
 
 
+class _SseWatch:
+    """SSE subscribers of one room on a fleet's shared port, each read to
+    its end on a thread of its own, which records when (the supervisor's
+    clock, ``time.monotonic()``) and how (the server's close, or an
+    error) the stream ended.  Opens FLEET_SSE_SUBS, and more (up to four
+    times as many) until they sit on two or more workers: a worker's room
+    counts its own subscribers, so with the subscribers opened one by one
+    the largest ``peers`` of their hellos is one less than the most on
+    one worker, and the rest are on others."""
+
+    def __init__(self, base, room):
+        import threading
+
+        self.ends = []                  # (monotonic time, closed cleanly)
+        self._lock = threading.Lock()
+        self.threads = []
+        seen = set()                    # the peer counts the hellos gave
+        while len(self.threads) < FLEET_SSE_SUBS or (
+                len(self.threads) == max(seen) + 1
+                and len(self.threads) < 4 * FLEET_SSE_SUBS):
+            sock, buf = _sse_open(base, room)
+            hello, _ = _sse_events(sock, buf,
+                                   lambda e: e["type"] == "hello")
+            seen.add(hello[-1][1]["peers"])
+            t = threading.Thread(target=self._read, args=(sock,),
+                                 daemon=True)
+            t.start()
+            self.threads.append(t)
+        _check(len(self.threads) > max(seen) + 1,
+               f"SSE on the fleet: all {len(self.threads)} subscribers on "
+               "one worker")
+
+    def _read(self, sock):
+        sock.settimeout(FLEET_WAIT_S)
+        clean = False
+        try:
+            while sock.recv(65536):
+                pass
+            clean = True
+        except OSError:
+            pass
+        finally:
+            sock.close()
+        with self._lock:
+            self.ends.append((time.monotonic(), clean))
+
+    def wait(self, timeout):
+        """The ``(time, clean)`` ends, once every stream ended or after
+        ``timeout`` seconds."""
+        deadline = time.monotonic() + timeout
+        for t in self.threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+        with self._lock:
+            return list(self.ends)
+
+
 def _fleet_drill(ctx, name, run, kill):
     """A drill at FLEET_DRILL_WORKERS workers on the embedding API, under
     FLEET_DRILL_CLIENTS paced fresh-connection clients: the kill drill
@@ -4522,6 +4635,11 @@ def _fleet_drill(ctx, name, run, kill):
     connection queued on a listener as it closes is reset by the kernel),
     so its trace id must be on no request span of the workers' spool, and
     every predecessor must drain with no accepted request unanswered.
+    The rolling drill's workers keep rooms in a ``persist_dir``, as ``cli
+    serve`` gives them, and SSE subscribers (:class:`_SseWatch`) sit on
+    both workers through the replace, each stream ended by its worker's
+    drain; then more on both successors through the fleet's drain (what
+    SIGTERM runs), which must end in under half of ``fleet_drain_s``.
     Every answered request is held to K5's labels.  Returns ``(summary
     line, K5 launches seen in the trace)``."""
     from kmeans_tpu_torch.config import ServeConfig
@@ -4532,16 +4650,18 @@ def _fleet_drill(ctx, name, run, kill):
     trace_dir = f"{ctx['dir']}/trace-{name}"
     env = ({0: {"KMEANS_TPU_FAULTS": "fleet.heartbeat:kill@2"}} if kill
            else None)
+    base = f"http://127.0.0.1:{port}"
     sup = FleetSupervisor(ServeConfig(
         host="127.0.0.1", port=port, model_dir=ctx["model_dir"],
-        trace_dir=trace_dir, fleet_obs_port=None),
+        trace_dir=trace_dir, fleet_obs_port=None,
+        persist_dir=None if kill else f"{ctx['dir']}/rooms-{run:x}"),
         workers=FLEET_DRILL_WORKERS, worker_env=env)
+    drain_s = float(sup.config.fleet_drain_s)
     fleet = _FleetUnderTest(name, ctx["dir"], sup=sup)
     until = f"{ctx['dir']}/{name}.stop"
     started = []
     try:
-        _fleet_ready(fleet, FLEET_DRILL_WORKERS,
-                     f"http://127.0.0.1:{port}")
+        _fleet_ready(fleet, FLEET_DRILL_WORKERS, base)
         started = _fleet_load(ctx, port, run, None, procs=1,
                               clients=FLEET_DRILL_CLIENTS, fresh=True,
                               pace=FLEET_DRILL_PACE_S, until_file=until,
@@ -4561,6 +4681,7 @@ def _fleet_drill(ctx, name, run, kill):
                 time.sleep(0.02)
             time.sleep(1.0)            # the replacement serves under load
         else:
+            watch = _SseWatch(base, "FLT")
             time.sleep(1.0)
             sup.rolling_replace()
             time.sleep(1.0)
@@ -4573,9 +4694,16 @@ def _fleet_drill(ctx, name, run, kill):
         failed = len(errors) + int((~ok).sum())
         _check(not hung and ok.any(), f"{name}: {hung} clients hung")
         _check_http_responses(name, table[ok], got[ok], ctx)
-        st, _ = _http_get(f"http://127.0.0.1:{port}", "/api/model")
+        st, _ = _http_get(base, "/api/model")
         _check(st == 200, f"{name}: the fleet does not answer after it")
+        if not kill:
+            rolled_ends, n_subs = watch.wait(2 * drain_s), len(watch.threads)
+            watch = _SseWatch(base, "FLT")
+        t0 = time.monotonic()
         clean, _, _ = fleet.stop()
+        stop_s = time.monotonic() - t0
+        if not kill:
+            final_ends, n_final = watch.wait(2 * drain_s), len(watch.threads)
     finally:
         for proc, _ in started:
             proc.kill()
@@ -4603,7 +4731,8 @@ def _fleet_drill(ctx, name, run, kill):
                 f"{len(table) + len(errors)} ({errors[:3]}), "
                 f"{int(ok.sum())} answered in {seconds:.3f} s")
     else:
-        rolled = {e["slot"] for e in fleet.events("rolled")}
+        rolled_ts = {e["slot"]: e["ts"] for e in fleet.events("rolled")}
+        rolled = set(rolled_ts)
         drained = fleet.events("drained")
         served = {e["args"].get("trace_id") for e in spool["traceEvents"]
                   if e.get("name") == "POST /api/assign"}
@@ -4615,11 +4744,29 @@ def _fleet_drill(ctx, name, run, kill):
                f"{sorted(rolled)}, sigkills {sigkills}, drains {drained}, "
                f"reset attempts a worker answered "
                f"{sorted(served & set(retried))}")
+        # Slot 1's predecessor drains only once slot 0's has exited and
+        # slot 1's successor is ready: a stream that ended before slot 1
+        # rolled was on slot 0's predecessor.
+        ended = [sum(rolled_ts[0] <= t < rolled_ts[1]
+                     for t, _ in rolled_ends),
+                 sum(t >= rolled_ts[1] for t, _ in rolled_ends)]
+        _check(sum(ended) == n_subs and all(c for _, c in rolled_ends)
+               and min(ended) > 0 and len(final_ends) == n_final
+               and all(c for _, c in final_ends) and stop_s < drain_s / 2,
+               f"{name}: SSE streams through the rolling replace "
+               f"{rolled_ends} (rolled {rolled_ts}), through the fleet's "
+               f"drain {final_ends}, its stop {stop_s:.3f} s")
         line = (f"rolling replace: both slots rolled, 0 failed requests "
                 f"of {len(table)}, no SIGKILL, every predecessor drained "
                 f"with no accepted request unanswered, {len(retried)} "
                 f"connections reset before any worker accepted them "
-                f"(sent again), in {seconds:.3f} s of load")
+                f"(sent again), in {seconds:.3f} s of load; SSE: "
+                f"{n_subs} subscribers through it ({ended[0]} and "
+                f"{ended[1]} closed by the two predecessors' drains), then "
+                f"{n_final} on the successors through the fleet's drain "
+                f"(what SIGTERM runs): its stop {stop_s:.3f} s "
+                f"(fleet_drain_s {drain_s}), every stream closed by the "
+                f"server, 0 accepted requests unanswered")
     print(f"fleet {name} ({ctx['card']}): {line}; K5 launches in the "
           f"trace {dense + rescored}")
     return line, dense + rescored
@@ -5115,6 +5262,868 @@ def phase_runner(card, codebook_c):
     return {"bf16": bf16, "f32": f32}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the board and the trimmed family
+# ---------------------------------------------------------------------------
+
+TRIM_FRACTION = 0.05
+#: m at the headline: TRIM_FRACTION of its rows.
+TRIM_M = 64_000
+TRIM_ITERS = 20
+#: trimmed-codebook: the depth is cut to 2 iterations and the final view.
+TRIM_CODEBOOK_ITERS = 2
+TRIM_CODEBOOK_M = TRIM_M
+BOARD_MUTATORS = 16
+BOARD_SUBSCRIBERS = 32
+BOARD_SECONDS = 3.0
+#: Seconds the board server may take to answer /healthz after its spawn.
+BOARD_BOOT_S = 120.0
+#: The assign model of the board server's stop drill: k rows of width d.
+BOARD_MODEL = dict(k=8, d=16)
+
+
+def _trim_split(x, labels, min_d2, m, k):
+    """CUDA-event ms of the trim's parts at one sweep's output: the
+    selection (the stable sort of the (n,) keys), the gather of the m rows,
+    the fold of those rows on K6, and the whole correction."""
+    from kmeans_tpu_torch.models.trimmed import trim_select, trim_subtract
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    vals, idx = trim_select(min_d2, None, m)
+    xg = x[idx]
+    lt = labels[idx]
+    select_ms = _time_ms(lambda: trim_select(min_d2, None, m), 5)
+    gather_ms = _time_ms(lambda: x[idx], 5)
+    fold_ms = _time_ms(lambda: K.tiled_fold_cuda(xg, None, lt, None, k), 5)
+    whole_ms = _time_ms(lambda: trim_subtract(x, labels, idx, None, vals, k,
+                                              backend="cuda"), 5)
+    return select_ms, gather_ms, fold_ms, whole_ms
+
+
+def _trimmed_headline(card):
+    """trimmed-headline: ``fit_trimmed(trim_fraction=0.05)`` on phase 4's
+    bf16 data and c0 for TRIM_ITERS iterations (K1 only), held to K1 at the
+    final centroids and to the same fit on the plain backend.  Returns its
+    launch counts."""
+    import numpy as np
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.init import random_init
+    from kmeans_tpu_torch.models.trimmed import resolve_n_trim
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    n, d, k = HEADLINE["n"], HEADLINE["d"], HEADLINE["k"]
+    bf16 = torch.bfloat16
+    x, _, _ = kt.make_blobs(0, n, d, k, dtype=bf16)
+    c0 = random_init(torch.Generator(device="cuda").manual_seed(1), x, k)
+    m = resolve_n_trim(n, trim_fraction=TRIM_FRACTION, n_trim=None)
+    _check(m == TRIM_M, f"trimmed-headline: m = {m}, not {TRIM_M}")
+    cfg = kt.KMeansConfig(k=k, compute_dtype="bfloat16")
+
+    def fit(config=cfg, iters=TRIM_ITERS):
+        return kt.fit_trimmed(x, k, trim_fraction=TRIM_FRACTION,
+                              config=config, init=c0, max_iter=iters,
+                              tol=-1.0)
+
+    fit(iters=1)                  # the warm-up: library, sort, gather
+    _sync()
+    t0 = time.perf_counter()
+    state, counts = _counted_run(fit)
+    wall = time.perf_counter() - t0
+    _check(counts["lloyd_pass_cuda"] == TRIM_ITERS + 1
+           and counts["tiled_fold_cuda"] == TRIM_ITERS + 1
+           and sum(counts.values()) == 2 * (TRIM_ITERS + 1),
+           f"trimmed-headline: launches {counts}, wanted K1 and K6 "
+           f"{TRIM_ITERS + 1} times each (a sweep and the correction's "
+           "fold an iteration and in the final view)")
+    c = state.centroids
+    lab1, mind1 = K.lloyd_pass_cuda(x, c, compute_dtype=bf16,
+                                    with_update=False)[:2]
+    mind_np = mind1.cpu().numpy()
+    want_mask = np.zeros(n, bool)
+    want_mask[np.argsort(-mind_np, kind="stable")[:m]] = True
+    mask = state.outlier_mask.cpu().numpy()
+    labels = state.labels
+    _check(bool((mask == want_mask).all()),
+           f"trimmed-headline: {int((mask != want_mask).sum())} rows of the "
+           "mask differ from K1's min_d2 ranked with the lowest-index "
+           "tie-break")
+    _check(bool(((labels == -1).cpu().numpy() == mask).all())
+           and bool((labels[~state.outlier_mask] ==
+                     lab1[~state.outlier_mask]).all()),
+           "trimmed-headline: the labels are not -1 exactly on the mask "
+           "and K1's elsewhere")
+    total = float(state.counts.double().sum())
+    _check(total == n - m,
+           f"trimmed-headline: counts sum to {total}, not n - m = {n - m}")
+    want_inertia = float(mind1.double()[~state.outlier_mask].sum())
+    rel_i = abs(float(state.inertia) - want_inertia) / want_inertia
+    _check(rel_i <= SUMS_RTOL,
+           f"trimmed-headline: inertia {float(state.inertia)} against the "
+           f"inliers' summed min_d2 {want_inertia} (rel {rel_i:.3e})")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plain, plain_counts = _counted_run(lambda: fit(
+        kt.KMeansConfig(k=k, compute_dtype="bfloat16", backend="plain")))
+    plain_s = time.perf_counter() - t0
+    _check(sum(plain_counts.values()) == 0,
+           f"trimmed-headline plain: launched {plain_counts}")
+    rel = abs(float(state.inertia) - float(plain.inertia)) / float(
+        plain.inertia)
+    _check(rel <= FIT_INERTIA_RTOL,
+           f"trimmed-headline: final inertia {float(state.inertia)} against "
+           f"the plain backend's {float(plain.inertia)} (rel {rel:.3e})")
+    del plain
+    k1_ms = _time_ms(lambda: K.lloyd_pass_cuda(x, c, compute_dtype=bf16), 5)
+    select_ms, gather_ms, fold_ms, whole_ms = _trim_split(
+        x, lab1, mind1, m, k)
+    it_ms = 1e3 * wall / (TRIM_ITERS + 1)
+    print(f"trimmed-headline ({card}): fit_trimmed(trim_fraction="
+          f"{TRIM_FRACTION}, m={m}) n={n} d={d} k={k} bf16, {TRIM_ITERS} "
+          f"iterations + final view in {wall:.3f} s = {it_ms:.3f} ms an "
+          f"iteration against K1 alone {k1_ms:.3f} ms at the final "
+          f"centroids; the trim {whole_ms:.3f} ms (selection, a stable sort "
+          f"of {n} keys, {select_ms:.3f}; gather of {m} x {d} bf16 rows "
+          f"{gather_ms:.3f}; fold on K6 {fold_ms:.3f}); launches {counts}")
+    print(f"  held: the mask is K1's min_d2 ranked with the lowest-index "
+          f"tie-break; labels -1 exactly there and K1's elsewhere; counts "
+          f"sum to n - m = {n - m}; inertia against the inliers' min_d2 rel "
+          f"{rel_i:.3e} (<= {SUMS_RTOL}); against the plain backend's fit "
+          f"({plain_s:.3f} s) rel {rel:.3e} (<= {FIT_INERTIA_RTOL})")
+    return counts
+
+
+def _trimmed_codebook(card):
+    """trimmed-codebook: phase 6's data and c0 (k = 65536), n_trim =
+    TRIM_CODEBOOK_M, TRIM_CODEBOOK_ITERS iterations and the final view (the
+    depth cut); K5 and K6 only; labels against K5's at the final
+    centroids, ties apart.  Returns its launch counts."""
+    import numpy as np
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.init import random_init
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.ops.plan import shape_plan
+
+    n, d, k = CODEBOOK["n"], CODEBOOK["d"], CODEBOOK["k"]
+    bf16 = torch.bfloat16
+    x, _, _ = kt.make_blobs(11, n, d, k, dtype=bf16)
+    c0 = random_init(torch.Generator(device="cuda").manual_seed(2), x, k)
+    cfg = kt.KMeansConfig(k=k, compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    state, counts = _counted_run(lambda: kt.fit_trimmed(
+        x, k, n_trim=TRIM_CODEBOOK_M, config=cfg, init=c0,
+        max_iter=TRIM_CODEBOOK_ITERS, tol=-1.0))
+    wall = time.perf_counter() - t0
+    sweeps = TRIM_CODEBOOK_ITERS + 1
+    _check(counts["tiled_argmin_cuda"] == sweeps
+           and counts["tiled_fold_cuda"] == 2 * sweeps
+           and sum(counts.values()) == 3 * sweeps,
+           f"trimmed-codebook: launches {counts}, wanted K5 and K6 only "
+           "(K6 also for each iteration's correction)")
+    c = state.centroids
+    k_tile = shape_plan("classic", x, k, compute_dtype=bf16).k_tile
+    lab5, min5 = K.tiled_argmin_cuda(x, *K._score_operands(c, bf16),
+                                     k_tile=k_tile)
+    # The inliers' labels against K5's (an outlier's -1 stands in as K5's).
+    got = torch.where(state.outlier_mask, lab5, state.labels)
+    moved = _check_labels_rows("trimmed-codebook", x, c, bf16, got, lab5)
+    mind_np = min5.cpu().numpy()
+    want_mask = np.zeros(n, bool)
+    want_mask[np.argsort(-mind_np, kind="stable")[:TRIM_CODEBOOK_M]] = True
+    _check(bool((state.outlier_mask.cpu().numpy() == want_mask).all()),
+           "trimmed-codebook: the mask is not K5's min_d2's top m")
+    _check(float(state.counts.double().sum()) == n - TRIM_CODEBOOK_M,
+           "trimmed-codebook: counts do not sum to n - m")
+    print(f"trimmed-codebook ({card}): fit_trimmed(n_trim="
+          f"{TRIM_CODEBOOK_M}) n={n} d={d} k={k} bf16 (k_tile {k_tile}), "
+          f"{TRIM_CODEBOOK_ITERS} iterations + final view (depth cut) in "
+          f"{wall:.3f} s = {1e3 * wall / sweeps:.3f} ms an iteration; "
+          f"labels against K5's at the final centroids: {moved} differ, "
+          f"each a tie within {SCORE_RTOL}; the mask is K5's top m; "
+          f"launches {counts}")
+    return counts
+
+
+def _trimmed_cli(card, tmp):
+    """trimmed-cli: ``cli train --config imagenet --model trimmed`` in a
+    child process (f32 data, the core's f32 route).  Returns its launch
+    counts."""
+    out = f"{tmp}/trimmed.json"
+    run = _CliRun(tmp, "cli trimmed", [
+        "train", "--config", "imagenet", "--model", "trimmed",
+        "--trim-fraction", str(TRIM_FRACTION), "--max-iter",
+        str(TRIM_ITERS), "--tol", "-1", "--out", out]).need()
+    res = run.result
+    board = json.loads(open(out, encoding="utf-8").read())
+    unassigned = [c for c in board["cards"] if c["assignedTo"] is None]
+    _check(res["mode"] == "trimmed" and res["n_iter"] == TRIM_ITERS
+           and res["n"] == HEADLINE["n"] and math.isfinite(res["inertia"])
+           and len(board["cards"]) == 500
+           and all(f"pos:{c['id']}" not in board["meta"]
+                   for c in unassigned),
+           f"cli trimmed: result {res}, {len(unassigned)} unassigned")
+    _check(run.counts["lloyd_pass_cuda"] == TRIM_ITERS + 1
+           and run.counts["tiled_fold_cuda"] == TRIM_ITERS + 1
+           and sum(run.counts.values()) == 2 * (TRIM_ITERS + 1),
+           f"cli trimmed: launches {run.counts}")
+    print(run.line(f"; the export: {len(board['cards'])} cards, "
+                   f"{len(unassigned)} unassigned (outliers), "
+                   f"{len(board['centroids'])} zones (f32, the f32 route)"))
+    return run.counts
+
+
+def _board_cli(spec) -> int:
+    """``chip_smoke.py --board-cli SPEC``: ``kmeans_tpu_torch.cli.main(
+    spec["argv"])`` (``cli serve``) in this process, its launch counts
+    written to ``spec["counts"]`` every 0.1 s and at its exit (a kill -9
+    leaves the last write), and its server's ``stop()`` seconds and
+    ``drain_unanswered`` to ``spec["stop"]``."""
+    import os
+    import threading
+
+    from kmeans_tpu_torch import cli
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.serve import server
+
+    def dump():
+        tmp = f"{spec['counts']}.{threading.get_ident()}.tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(K.launch_counts(), f)
+        os.replace(tmp, spec["counts"])
+
+    done = threading.Event()
+
+    def loop():
+        while not done.wait(0.1):
+            dump()
+
+    stop = server.KMeansServer.stop
+
+    def timed_stop(self):
+        t0 = time.perf_counter()
+        stop(self)
+        with open(spec["stop"], "w", encoding="utf-8") as f:
+            json.dump({"stop_s": time.perf_counter() - t0,
+                       "drain_unanswered": self.drain_unanswered}, f)
+
+    server.KMeansServer.stop = timed_stop
+    K.reset_launch_counts()
+    dumper = threading.Thread(target=loop, daemon=True)
+    dumper.start()
+    try:
+        return cli.main(spec["argv"])
+    finally:
+        done.set()
+        dumper.join()
+        dump()
+
+
+class _BoardServer:
+    """``cli serve`` in a process of its own (``--board-cli``)."""
+
+    def __init__(self, tmp, name, argv, port):
+        self.name = name
+        self.base = f"http://127.0.0.1:{port}"
+        self.spec = {"argv": argv, "counts": f"{tmp}/{name}.counts.json",
+                     "stop": f"{tmp}/{name}.stop.json"}
+        self.err_path = f"{tmp}/{name}.stderr"
+        self.boot_s = None
+        self._t0 = time.perf_counter()
+        with open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, __file__, "--board-cli",
+                 json.dumps(self.spec)], stdout=subprocess.DEVNULL,
+                stderr=err)
+
+    def ready(self):
+        """Wait for ``/healthz``; ``boot_s`` is the spawn to its first
+        200."""
+        deadline = time.monotonic() + BOARD_BOOT_S
+        while self.boot_s is None:
+            _check(self.proc.poll() is None,
+                   f"{self.name}: exited {self.proc.poll()}: "
+                   f"{open(self.err_path).read()[-2000:]}")
+            try:
+                if _http_get(self.base, "/healthz")[0] == 200:
+                    self.boot_s = time.perf_counter() - self._t0
+                    break
+            except OSError:
+                pass
+            _check(time.monotonic() < deadline, f"{self.name}: no /healthz")
+            time.sleep(0.05)
+        return self
+
+    def counts(self):
+        with open(self.spec["counts"], encoding="utf-8") as f:
+            return json.load(f)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+def _sse_open(base, room, last_event_id=None):
+    """A raw-socket SSE subscription: ``(socket, buffer)`` past the
+    headers."""
+    import socket
+
+    host, port = base.replace("http://", "").split(":")
+    sock = socket.create_connection((host, int(port)), timeout=HTTP_CALL_S)
+    extra = ("" if last_event_id is None
+             else f"Last-Event-ID: {last_event_id}\r\n")
+    sock.sendall(f"GET /api/events?room={room} HTTP/1.1\r\nHost: {host}\r\n"
+                 f"{extra}\r\n".encode())
+    buf = b""
+    while b"\r\n\r\n" not in buf:
+        chunk = sock.recv(65536)
+        _check(bool(chunk), f"SSE {room}: closed before its headers")
+        buf += chunk
+    return sock, buf.split(b"\r\n\r\n", 1)[1]
+
+
+def _sse_events(sock, buf, until):
+    """Read ``(id, event)`` pairs until ``until(event)``; returns them and
+    the rest of the buffer."""
+    out = []
+    while True:
+        while b"\n\n" not in buf:
+            chunk = sock.recv(65536)
+            _check(bool(chunk), "SSE stream closed early")
+            buf += chunk
+        frame, buf = buf.split(b"\n\n", 1)
+        lines = frame.decode().split("\n")
+        data = [ln[6:] for ln in lines if ln.startswith("data: ")]
+        if not data:
+            continue
+        ids = [int(ln[4:]) for ln in lines if ln.startswith("id: ")]
+        ev = json.loads(data[0])
+        out.append((ids[0] if ids else None, ev))
+        if until(ev):
+            return out, buf
+
+
+def _board_mutate(base, room, op, args=None):
+    st, body = _http_get(base, f"/api/mutate?room={room}",
+                         json.dumps({"op": op, "args": args or {}}).encode())
+    return st, json.loads(body)
+
+
+def _board_state(base, room):
+    st, body = _http_get(base, f"/api/state?room={room}")
+    _check(st == 200, f"/api/state?room={room} answered {st}")
+    return json.loads(body)
+
+
+def _board_train(base, room, args):
+    """A train op with a subscriber attached: ``(wall s, the train events,
+    train_done)``; a train_error fails the run."""
+    sock, buf = _sse_open(base, room)
+    try:
+        _sse_events(sock, buf, lambda e: e["type"] == "hello")
+        t0 = time.perf_counter()
+        st, out = _board_mutate(base, room, "train", args)
+        _check(st == 200 and out.get("started"), f"train {args}: {st} {out}")
+        evs, _ = _sse_events(sock, buf, lambda e: e["type"] in (
+            "train_done", "train_error"))
+        wall = time.perf_counter() - t0
+    finally:
+        sock.close()
+    done = evs[-1][1]
+    _check(done["type"] == "train_done", f"train {args}: {done}")
+    return wall, [e for _, e in evs if e["type"] == "train"], done
+
+
+def _board_ops(card, base):
+    """The fixture, autoAssign with and without outliers, and the train op
+    (lloyd with live centroids, the request cap merged to the board, the
+    trimmed family)."""
+    fix = "FIX"
+    t0 = time.perf_counter()
+    _check(_board_mutate(base, fix, "populate")[0] == 200, "populate")
+    for name in ("A", "B", "C"):
+        _check(_board_mutate(base, fix, "addCentroid", {"name": name})[0]
+               == 200, "addCentroid")
+    st, out = _board_mutate(base, fix, "autoAssign", {"seed": 0})
+    _check(st == 200, f"autoAssign: {st} {out}")
+    plain = _board_state(base, fix)
+    _check(plain["unassigned"] == 0,
+           f"autoAssign left {plain['unassigned']} cards unassigned")
+    st, out = _board_mutate(base, fix, "autoAssign",
+                            {"seed": 0, "outliers": 2})
+    _check(st == 200, f"autoAssign outliers=2: {st} {out}")
+    trimmed = _board_state(base, fix)
+    left = sorted(c["id"] for c in trimmed["cards"]
+                  if c["assignedTo"] is None)
+    _check(len(left) == 2, f"autoAssign outliers=2 left {left} unassigned")
+    auto_s = time.perf_counter() - t0
+    print(f"board autoAssign ({card}): the fixture (12 cards, 3 zones) "
+          f"assigned in full, then outliers=2 left {left} unassigned (the "
+          f"designated outliers are seed:t10 and seed:t11: "
+          f"{'both' if left == ['seed:t10', 'seed:t11'] else 'not both'} "
+          f"of them); {auto_s:.3f} s for the ops and both fits")
+
+    wall, iters, done = _board_train(base, "TRN", {
+        "n": 100_000, "d": 2, "k": 3, "max_iter": 30})
+    inert = [e["inertia"] for e in iters]
+    _check([e["iteration"] for e in iters] == list(range(1, done["n_iter"]
+                                                         + 1))
+           and all(len(e["centroids"]) == 3 and all(
+               0.0 <= v <= 1.0 for p in e["centroids"] for v in p)
+               for e in iters)
+           and all(b <= a * (1 + 1e-6) for a, b in zip(inert, inert[1:])),
+           f"train lloyd: {len(iters)} events for {done['n_iter']} "
+           "iterations, or live centroids out of [0, 1], or a rising "
+           "inertia")
+    board = _board_state(base, "TRN")
+    _check(len(board["cards"]) == 2000 and len(board["centroids"]) == 3
+           and board["unassigned"] == 0, "train lloyd: the board")
+    print(f"board train lloyd ({card}): n=100000 d=2 k=3, {done['n_iter']} "
+          f"iterations, {len(iters)} SSE train events each with 3 live "
+          f"centroids in [0, 1], inertia non-increasing "
+          f"{inert[0]:.6e} -> {inert[-1]:.6e}; {wall:.3f} s from the request "
+          "to train_done; the board: 2000 cards, 3 zones")
+
+    wall, iters, done = _board_train(base, "CAP", {
+        "n": 100_000, "d": 80, "k": 100, "max_iter": 30})
+    board = _board_state(base, "CAP")
+    _check(done["k"] == 100 and 1 <= len(board["centroids"]) <= 3
+           and len(board["cards"]) == 2000,
+           f"train at the cap: {done}, {len(board['centroids'])} zones")
+    print(f"board train at the request cap ({card}): n=100000 d=80 k=100 "
+          f"lloyd, {done['n_iter']} iterations, k={done['k']} merged "
+          f"to {len(board['centroids'])} zones; {wall:.3f} s")
+
+    wall, iters, done = _board_train(base, "TRM", {
+        "n": 100_000, "d": 2, "k": 3, "max_iter": 30, "model": "trimmed"})
+    board = _board_state(base, "TRM")
+    _check(0 < board["unassigned"] < 2000 and len(board["centroids"]) == 3,
+           f"train trimmed: {board['unassigned']} unassigned")
+    print(f"board train trimmed ({card}): n=100000 d=2 k=3, "
+          f"{done['n_iter']} iterations, {board['unassigned']} of the 2000 "
+          f"board cards unassigned (5% trimmed); {wall:.3f} s")
+
+
+def _board_load(card, base):
+    """BOARD_MUTATORS clients adding cards and BOARD_SUBSCRIBERS SSE
+    subscribers in one room for BOARD_SECONDS: mutations/s, the delay from
+    a mutate's response to each subscriber's change event (the version of
+    the i-th card added is the room's version before the run plus i), the
+    events each subscriber missed (a full queue drops) and the 503s."""
+    import http.client
+    import threading
+
+    room = "LOAD"
+    v0 = _board_state(base, room)["version"]
+    host, port = base.replace("http://", "").split(":")
+    stop = threading.Event()
+    responses, errors = {}, []
+    seen = [dict() for _ in range(BOARD_SUBSCRIBERS)]
+    socks = []
+    for _ in range(BOARD_SUBSCRIBERS):
+        sock, buf = _sse_open(base, room)
+        _sse_events(sock, buf, lambda e: e["type"] == "hello")
+        socks.append((sock, buf))
+
+    def subscriber(i):
+        sock, buf = socks[i]
+        sock.settimeout(0.2)
+        while True:
+            while b"\n\n" not in buf:
+                try:
+                    chunk = sock.recv(65536)
+                except OSError:
+                    if stop.is_set():
+                        return
+                    continue
+                if not chunk:
+                    return
+                buf += chunk
+            frame, buf = buf.split(b"\n\n", 1)
+            now = time.perf_counter()
+            for ln in frame.decode().split("\n"):
+                if ln.startswith("data: "):
+                    ev = json.loads(ln[6:])
+                    if ev.get("type") == "change":
+                        seen[i][ev["version"]] = now
+
+    def mutator(j):
+        conn = http.client.HTTPConnection(host, int(port),
+                                          timeout=HTTP_CALL_S)
+        i = 0
+        try:
+            while not stop.is_set():
+                title = f"m{j}-{i}"
+                conn.request("POST", f"/api/mutate?room={room}",
+                             json.dumps({"op": "addCard",
+                                         "args": {"title": title}}),
+                             {"Content-Type": "application/json"})
+                r = conn.getresponse()
+                r.read()
+                now = time.perf_counter()
+                if r.status != 200:
+                    errors.append(r.status)
+                responses[title] = now
+                i += 1
+        finally:
+            conn.close()
+
+    readers = [threading.Thread(target=subscriber, args=(i,), daemon=True)
+               for i in range(BOARD_SUBSCRIBERS)]
+    writers = [threading.Thread(target=mutator, args=(j,), daemon=True)
+               for j in range(BOARD_MUTATORS)]
+    for t in readers + writers:
+        t.start()
+    t0 = time.perf_counter()
+    time.sleep(BOARD_SECONDS)
+    stop.set()
+    for t in writers:
+        t.join(HTTP_CALL_S)
+    wall = time.perf_counter() - t0
+    time.sleep(0.5)               # the last events reach the subscribers
+    for t in readers:
+        t.join(HTTP_CALL_S)
+    for sock, _ in socks:
+        sock.close()
+    state = _board_state(base, room)
+    added = [c["title"] for c in state["cards"]
+             if c["title"] in responses]
+    # One more change: its write lets the server see the closed streams.
+    _board_mutate(base, room, "setMode", {"mode": "playtest"})
+    deadline = time.monotonic() + HTTP_CALL_S
+    while _board_state(base, room)["peers"] > 0:
+        _check(time.monotonic() < deadline, "board load: streams linger")
+        time.sleep(0.05)
+    _check(len(added) == len(responses) and not errors,
+           f"board load: {len(errors)} errors ({sorted(set(errors))}), "
+           f"{len(added)} cards for {len(responses)} responses")
+    _check(state["version"] == v0 + len(added),
+           "board load: the version is not one a mutation")
+    delays, missed = [], 0
+    for got in seen:
+        for i, title in enumerate(added):
+            t_ev = got.get(v0 + 1 + i)
+            if t_ev is None:
+                missed += 1
+            else:
+                delays.append(t_ev - responses[title])
+    p50, p99, _ = _percentiles(delays)
+    print(f"board load ({card}): {BOARD_MUTATORS} mutating clients "
+          f"(keep-alive, addCard) and {BOARD_SUBSCRIBERS} SSE subscribers "
+          f"in one room for {wall:.3f} s: {len(added)} mutations = "
+          f"{len(added) / wall:.1f} mutations/s, 0 errors (no 503); the "
+          f"change event reached each subscriber p50 {p50:.3f} ms / "
+          f"p99 {p99:.3f} ms after the mutate's response (negative: "
+          f"before it), {len(delays)} deliveries, {missed} missed (a "
+          f"subscriber queue full)")
+    return len(added) / wall
+
+
+def _board_stop_drill(card, srv, model_c, trace_dir):
+    """SIGINT with SSE subscribers attached and assign clients running:
+    the stop time, drain_unanswered and the clients' answers.  Each
+    request carries its own ``X-Trace-Id``: a request the client saw reset
+    must be on no span of the server's spool (the server never read it:
+    the listener's close, or the interrupt between an accept and its
+    handler), and every answered one on one."""
+    import http.client
+    import signal
+    import threading
+
+    import numpy as np
+
+    subs = []
+    for _ in range(4):
+        sock, buf = _sse_open(srv.base, "STOP")
+        _sse_events(sock, buf, lambda e: e["type"] == "hello")
+        subs.append(sock)
+    host, port = srv.base.replace("http://", "").split(":")
+    rng = np.random.default_rng(0)
+    pts = (model_c[rng.integers(0, len(model_c), 64)]
+           + 0.01 * rng.normal(size=(64, model_c.shape[1]))).astype(
+        np.float32)
+    body = json.dumps({"points": pts.tolist()})
+    want = np.argmin(((pts[:, None, :] - model_c[None]) ** 2).sum(-1), 1)
+    tally = {"ok": 0, "wrong": 0, "503": 0, "other": 0, "refused": 0,
+             "reset": 0, "timeout": 0}
+    ids = {key: [] for key in tally}
+    failed = {}               # trace id -> (exception, wall start, end)
+    lock = threading.Lock()
+    stopped = threading.Event()
+    seq = iter(range(1 << 40))
+
+    def client():
+        while not stopped.is_set():
+            with lock:
+                tid = f"b0a2d{next(seq):011x}"
+            # A connect the exiting server never completes fails in 5 s.
+            conn = http.client.HTTPConnection(host, int(port), timeout=5)
+            t_start = time.time()
+            try:
+                conn.request("POST", "/api/assign", body,
+                             {"Content-Type": "application/json",
+                              "X-Trace-Id": tid})
+                r = conn.getresponse()
+                out = r.read()
+                key = ("ok" if r.status == 200 else "503" if r.status == 503
+                       else "other")
+                if key == "ok" and json.loads(out)["labels"] != \
+                        want.tolist():
+                    key = "wrong"
+            except ConnectionRefusedError:
+                key = "refused"
+            except (ConnectionResetError, http.client.RemoteDisconnected,
+                    BrokenPipeError) as e:
+                key = "reset"
+                failed[tid] = (repr(e), t_start, time.time())
+            except TimeoutError as e:
+                key = "timeout"
+                failed[tid] = (repr(e), t_start, time.time())
+            finally:
+                conn.close()
+            with lock:
+                tally[key] += 1
+                ids[key].append(tid)
+            if key in ("refused", "reset", "timeout"):
+                time.sleep(0.01)
+
+    threads = [threading.Thread(target=client, daemon=True)
+               for _ in range(4)]
+    for t in threads:
+        t.start()
+    time.sleep(1.0)
+    t0 = time.perf_counter()
+    t_signal = time.time()
+    srv.proc.send_signal(signal.SIGINT)
+    rc = srv.proc.wait(timeout=60)
+    exit_s = time.perf_counter() - t0
+    time.sleep(0.2)
+    stopped.set()
+    for t in threads:
+        t.join(60)
+    closed = 0
+    for sock in subs:
+        sock.settimeout(5.0)
+        try:
+            while sock.recv(65536):
+                pass
+            closed += 1
+        except OSError:
+            pass
+        sock.close()
+    rec = json.load(open(srv.spec["stop"], encoding="utf-8"))
+    from kmeans_tpu_torch.obs.fleetview import read_spool_events
+
+    spans = {e["args"].get("trace_id"): e
+             for evs in read_spool_events(trace_dir).values() for e in evs
+             if e.get("name") == "POST /api/assign"}
+    served = set(spans)
+    lost = sorted(set(ids["reset"] + ids["refused"] + ids["timeout"])
+                  & served)
+    detail = [(tid, failed.get(tid), round(failed[tid][1] - t_signal, 4)
+               if tid in failed else None, spans[tid]["ts"] / 1e6
+               - t_signal, spans[tid]["dur"]) for tid in lost]
+    drain_s = 5.0                  # ServeConfig.fleet_drain_s
+    _check(rc == 0 and rec["drain_unanswered"] == 0
+           and rec["stop_s"] < drain_s / 2 and closed == len(subs)
+           and tally["503"] == 0 and tally["other"] == 0
+           and tally["wrong"] == 0 and tally["ok"] > 0
+           and set(ids["ok"]) <= served and not lost,
+           f"board stop: exit {rc}, {rec}, {closed} streams closed, "
+           f"clients {tally}, failed requests the server served (id, "
+           f"error, start and span start after the signal in s, span "
+           f"µs): {detail}, answered ids on no span: "
+           f"{len(set(ids['ok']) - served)}")
+    print(f"board stop ({card}): SIGINT with {len(subs)} SSE subscribers "
+          f"and 4 assign clients attached: stop() {rec['stop_s']:.3f} s "
+          f"(fleet_drain_s {drain_s}), exit code {rc} {exit_s:.3f} s after "
+          f"the signal, {rec['drain_unanswered']} accepted requests "
+          f"unanswered, every stream closed; the clients: {tally['ok']} "
+          f"answered with the right labels, 0 503, {tally['refused']} "
+          f"refused after the close, {tally['reset']} reset and "
+          f"{tally['timeout']} timed out connecting, each before the "
+          f"server read it (its trace id on no span); no request the "
+          f"server read was lost")
+
+
+def _board_spawn(tmp):
+    """Publish the stop drill's assign model and spawn board-http's first
+    server (``cli serve --persist-dir D --port P``), not waiting for it:
+    it boots while trimmed-cli runs.  Returns ``(server, argv, port,
+    model centroids, trace directory)``."""
+    import numpy as np
+
+    from kmeans_tpu_torch.continuous.registry import ModelRegistry
+
+    rooms, model_dir, trace_dir = (f"{tmp}/rooms", f"{tmp}/model",
+                                   f"{tmp}/trace")
+    rng = np.random.default_rng(7)
+    model_c = (rng.normal(size=(BOARD_MODEL["k"], BOARD_MODEL["d"])) * 10
+               ).astype(np.float32)
+    ModelRegistry(path=model_dir).publish(model_c)
+    port = _free_port()
+    argv = ["serve", "--persist-dir", rooms, "--port", str(port),
+            "--model-dir", model_dir, "--trace-dir", trace_dir]
+    return (_BoardServer(tmp, "board-a", argv, port), argv, port, model_c,
+            trace_dir)
+
+
+def _board_http(card, tmp, spawned):
+    """board-http: the server of :func:`_board_spawn` on the card: the
+    ops and the train op, the load, kill -9 and the revival, the
+    Last-Event-ID replay, the stop drill.  Returns the launch counts of
+    both server processes."""
+    a, argv, port, model_c, trace_dir = spawned
+    t_phase = time.perf_counter()
+    try:
+        a.ready()
+        print(f"board server ({card}): cli serve --persist-dir up "
+              f"{a.boot_s:.3f} s after its spawn (process, CUDA context, "
+              f"library load; it booted while trimmed-cli ran)")
+        _board_ops(card, a.base)
+        _board_load(card, a.base)
+        before = {room: _board_state(a.base, room)
+                  for room in ("FIX", "TRN", "CAP", "TRM", "LOAD")}
+        # Past the debounce of the last mutation: every room is on disk.
+        time.sleep(0.5 + 1.0)
+        counts_a = a.counts()
+    finally:
+        a.kill()
+    t0 = time.perf_counter()
+    b = _BoardServer(tmp, "board-b", argv, port)
+    try:
+        b.ready()
+        for room, want in before.items():
+            got = _board_state(b.base, room)
+            got.pop("version")
+            want.pop("version")
+            _check(got == want, f"board revival: /api/state?room={room} "
+                   "differs from before the kill")
+        print(f"board kill -9 ({card}): the restarted server answered in "
+              f"{time.perf_counter() - t0:.3f} s and served the 5 rooms' "
+              "/api/state as before the kill (the document version counts "
+              "anew in the new process)")
+        sock, buf = _sse_open(b.base, "RPLY")
+        _sse_events(sock, buf, lambda e: e["type"] == "hello")
+        st, out = _board_mutate(b.base, "RPLY", "train", {
+            "n": 100_000, "d": 2, "k": 30, "max_iter": 30})
+        _check(st == 200, f"train for the replay: {st} {out}")
+        first, _ = _sse_events(sock, buf, lambda e: e["type"] == "train"
+                               and e["iteration"] >= 2)
+        last_id = first[-1][0]
+        sock.close()
+        time.sleep(0.5)
+        sock, buf = _sse_open(b.base, "RPLY", last_event_id=last_id)
+        rest, _ = _sse_events(sock, buf, lambda e: e["type"] in (
+            "train_done", "train_error"))
+        sock.close()
+        ids = [i for i, _ in rest if i is not None]
+        its = [e["iteration"] for _, e in first + rest
+               if e["type"] == "train"]
+        done = rest[-1][1]
+        _check(done["type"] == "train_done"
+               and ids == list(range(last_id + 1, last_id + 1 + len(ids)))
+               and its == list(range(1, done["n_iter"] + 1)),
+               f"Last-Event-ID replay: ids {ids[:5]}.., iterations {its}")
+        print(f"board Last-Event-ID ({card}): a subscriber dropped after "
+              f"event {last_id} (iteration 2) and reconnected 0.5 s later "
+              f"with Last-Event-ID: {len(ids)} events replayed in order, "
+              f"every iteration 1..{done['n_iter']} and train_done received")
+        _board_stop_drill(card, b, model_c, trace_dir)
+        counts_b = b.counts()
+    finally:
+        b.kill()
+    counts = {}
+    _add_counts(counts, counts_a)
+    _add_counts(counts, counts_b)
+    _check(counts["lloyd_pass_cuda"] > 0 and counts["lloyd_delta_cuda"] > 0,
+           f"board: the server processes launched {counts}")
+    print(f"board-http: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"(both server processes; f32 data, score_block at these widths) "
+          f"{counts}")
+    return counts
+
+
+def _k6_f32_row(launches):
+    """The kernels-line row of K6 folding f32 rows, the trimmed fit's
+    correction on f32 data (TRIM_M rows of the headline's width into k =
+    1000): time beside its plain version, its byte bound and
+    ``index_add_``, with ``launches`` from trimmed-cli's run (f32 data at
+    the headline, m = TRIM_M)."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    m, d, k = TRIM_M, HEADLINE["d"], HEADLINE["k"]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    xt = torch.randn(m, d, generator=gen, device="cuda")
+    lt = torch.randint(0, k, (m,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    sums, counts = K.tiled_fold_cuda(xt, None, lt, None, k)
+    want_s, want_c = K.tiled_fold_plain(xt, None, lt, None, k)
+    err = _close("K6 f32 (trimmed correction) against its plain version",
+                 sums, want_s)
+    _check(bool(torch.equal(counts, want_c)), "K6 f32: counts differ")
+    ms = _time_ms(lambda: K.tiled_fold_cuda(xt, None, lt, None, k), 10)
+    plain_ms = _time_ms(lambda: K.tiled_fold_plain(xt, None, lt, None, k), 3)
+    lab64 = lt.long()
+
+    def library():
+        return (torch.zeros(k, d, device="cuda").index_add_(0, lab64, xt),
+                torch.zeros(k, device="cuda").index_add_(
+                    0, lab64, torch.ones(m, device="cuda")))
+
+    library_ms = _time_ms(library, 10)
+    moved = m * d * 4 + m * 4 + k * d * 4 + k * 4
+    return _kernel_row("tiled_fold_cuda", launches, ms, plain_ms, library_ms,
+                       err, moved, 0.0, m * d, what="f32, trimmed correction")
+
+
+def phase_board(card):
+    """Phase 13: trimmed-headline, trimmed-codebook and trimmed-cli, then
+    board-http.  Returns ``({"bf16": counts, "f32": counts}, rows)``: the
+    in-process trimmed runs compute in bf16; the CLI's trimmed run (the f32
+    route) and the board server's fits (f32 compute on ``score_block``) in
+    f32.  The CLI's K6 launches (the correction's fold of f32 rows) make a
+    row of their own (:func:`_k6_f32_row`); the board server's K5 and K6
+    launches, at shapes no row times, are printed and on no row."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    bf16, f32 = {}, {}
+    _add_counts(bf16, _trimmed_headline(card))
+    torch.cuda.empty_cache()
+    _add_counts(bf16, _trimmed_codebook(card))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_board_") as tmp:
+        spawned = _board_spawn(tmp)
+        try:
+            cli_counts = _trimmed_cli(card, tmp)
+            board = _board_http(card, tmp, spawned)
+        finally:
+            spawned[0].kill()
+    # On no row: the board server's K5 launches serve the stop drill's
+    # assign model, and its K6 launches fold the train op's trimmed fits
+    # at d = 2, k = 3, a shape the f32 K6 row does not time.
+    apart = ("tiled_argmin_cuda", "tiled_fold_cuda")
+    _add_counts(f32, {n: v for n, v in cli_counts.items()
+                      if n != "tiled_fold_cuda"})
+    _add_counts(f32, {n: v for n, v in board.items() if n not in apart})
+    rows = [_k6_f32_row(cli_counts["tiled_fold_cuda"])]
+    print(f"board phase: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"bf16 {bf16}, f32 {f32}; on no row, the board server's K5 "
+          f"launches (the stop drill's d={BOARD_MODEL['d']} model) "
+          f"{board.get('tiled_argmin_cuda', 0)} and K6 launches (the "
+          f"train op's trimmed fits, d=2 k=3) "
+          f"{board.get('tiled_fold_cuda', 0)}")
+    return {"bf16": bf16, "f32": f32}, rows
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--http-client"]:
         return _http_client(json.loads(sys.argv[2]))
@@ -5122,6 +6131,8 @@ def main() -> int:
         return _fleet_cli(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--train-cli"]:
         return _train_cli(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--board-cli"]:
+        return _board_cli(json.loads(sys.argv[2]))
     import torch
 
     if not torch.cuda.is_available():
@@ -5147,6 +6158,9 @@ def main() -> int:
     if sys.argv[1:] == ["--runner"]:
         phase_build()
         phase_runner(card, None)
+        return 0
+    if sys.argv[1:] == ["--board"]:
+        phase_board(card)
         return 0
     if sys.argv[1:] == ["--fleet"]:
         from kmeans_tpu_torch.data.synthetic import make_blobs
@@ -5193,7 +6207,15 @@ def main() -> int:
         compute = {"": "bf16", "(f32 route)": "f32"}.get(what)
         if compute:
             row["launches"] += runner[compute].get(name, 0)
-    kernels += serve_rows
+    board, board_rows = phase_board(card)
+    for row in kernels:
+        # Phase 13's launches join the bf16 rows and the f32 rows, as
+        # phase 12's do.
+        name, _, what = row["name"].partition(" ")
+        compute = {"": "bf16", "(f32 route)": "f32"}.get(what)
+        if compute:
+            row["launches"] += board[compute].get(name, 0)
+    kernels += board_rows + serve_rows
     phase_fold_split()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -3,9 +3,9 @@
 A package of its own beside the JAX one, which it never imports: full-batch
 Lloyd k-means with the incremental delta sweep, the bound-pruned hamerly and
 yinyang sweeps and the adaptive ``update="auto"`` loop, the accelerated fits
-(beta, Anderson, the nested ladder) and minibatch k-means, whose sweep
-kernels are hand-written CUDA for Hopper (``csrc/lloyd.cu``), built with
-``nvcc`` at first use.  The assignment engine (:class:`AssignEngine`) serves
+(beta, Anderson, the nested ladder), minibatch and trimmed k-means, whose
+sweep kernels are hand-written CUDA for Hopper (``csrc/lloyd.cu``), built
+with ``nvcc`` at first use.  The assignment engine (:class:`AssignEngine`) serves
 a fitted model from a :class:`ModelRegistry` (in memory, or a directory
 of verified checkpoints): dense scoring on the streamed-argmin kernel,
 closure-pruned and int8-codebook routes; :mod:`kmeans_tpu_torch.serve.server`
@@ -28,6 +28,8 @@ from kmeans_tpu_torch.models.lloyd import (KMeans, KMeansState, fit_lloyd,
 from kmeans_tpu_torch.models.minibatch import (MiniBatchKMeans, batch_update,
                                                fit_minibatch, nested_ladder)
 from kmeans_tpu_torch.models.runner import IterInfo, LloydRunner
+from kmeans_tpu_torch.models.trimmed import (TrimmedKMeans, TrimmedState,
+                                             fit_trimmed)
 from kmeans_tpu_torch.ops.delta import delta_pass
 from kmeans_tpu_torch.ops.lloyd import lloyd_pass
 from kmeans_tpu_torch.serve.assign import AssignEngine
@@ -36,4 +38,5 @@ __all__ = ["KMeans", "KMeansConfig", "KMeansState", "fit_lloyd", "fit_plan",
            "kmeans_plus_plus", "make_blobs", "lloyd_pass", "delta_pass",
            "ServeConfig", "Generation", "ModelRegistry", "AssignEngine",
            "fit_lloyd_accelerated", "fit_minibatch", "MiniBatchKMeans",
-           "nested_ladder", "batch_update", "LloydRunner", "IterInfo"]
+           "nested_ladder", "batch_update", "LloydRunner", "IterInfo",
+           "TrimmedKMeans", "TrimmedState", "fit_trimmed"]

@@ -9,7 +9,8 @@ CPU) and prints one JSON result line with the reference's keys.  The
 families are the reference's ``lloyd`` (the fused :func:`fit_lloyd`, or
 the step-paced :class:`~kmeans_tpu_torch.models.runner.LloydRunner`
 under ``--progress/--checkpoint/--resume/--telemetry/--trace/--xla-trace/
---profile``), ``accelerated`` and in-memory ``minibatch``; a SIGTERM or
+--profile``), ``accelerated``, in-memory ``minibatch`` and ``trimmed``
+(``--trim-fraction``; its outliers export as unassigned cards); a SIGTERM or
 SIGINT during a runner fit cuts a checkpoint and exits 3 with a "resume
 with: ..." line.  ``--xla-trace DIR`` writes a :mod:`torch.profiler` Chrome
 trace into DIR (the reference writes a ``jax.profiler`` trace there).
@@ -21,10 +22,14 @@ families, ``--pca``/``--whiten``, ``--coreset`` and ``--merge-k`` (A9),
 ``--stream`` (A8), ``--mesh`` above 1, ``--ckpt-dir``, ``--ckpt-every``
 and ``--comm`` (A4).
 
-    python -m kmeans_tpu_torch.cli serve --model-dir DIR [--port 8787]
-        [--workers N [--fleet-obs-port PORT]]
+    python -m kmeans_tpu_torch.cli serve [--model-dir DIR] [--port 8787]
+        [--persist-dir DIR] [--workers N [--fleet-obs-port PORT]]
 
-serves ``POST /api/assign`` from the newest verified generation in DIR (a
+serves the board (``/``, ``/api/state``, ``/api/mutate``, ``/api/events``
+and the rest: rooms kept in ``--persist-dir``, ``.kmeans_rooms`` by
+default, ``''`` for none; the ``autoAssign`` and ``train`` ops fit on the
+card) and ``POST /api/assign`` from the newest verified generation in the
+model directory (a
 :class:`~kmeans_tpu_torch.continuous.registry.ModelRegistry` directory of
 either package), scored on the card; ``--device cpu`` runs the kernels'
 plain versions on the CPU.  ``--workers N`` above 1 runs the fleet
@@ -33,9 +38,7 @@ each with its own engine on ``--device``, a supervisor that respawns them,
 pushes new generations to them, drains them on SIGTERM and replaces them
 one by one on SIGHUP, and with ``--fleet-obs-port`` the fleet's aggregated
 ``/metrics`` and merged ``/api/trace``.  The flags are the reference's
-(``kmeans_tpu/cli.py``) plus ``--device``.  Known difference: board
-persistence (``--persist-dir``, unset by default here) is not ported, and
-asking for it exits with code 2.
+(``kmeans_tpu/cli.py``) plus ``--device``.
 """
 
 from __future__ import annotations
@@ -45,11 +48,7 @@ import json
 import sys
 import time
 
-
-#: The reference's families the port does not have yet (ROADMAP A9).
-_UNPORTED_MODELS = ("spherical", "bisecting", "fuzzy", "gmm", "kernel",
-                    "kmedoids", "trimmed", "balanced", "spectral", "xmeans",
-                    "gmeans")
+from kmeans_tpu_torch.config import UNPORTED_FAMILIES
 
 
 def _load_npy(path):
@@ -79,9 +78,9 @@ def _not_ported(args):
     if sharded:
         return (f"{sharded[0]} needs the sharded engine, which is not "
                 "ported yet (ROADMAP A4)")
-    if args.model in _UNPORTED_MODELS:
+    if args.model in UNPORTED_FAMILIES:
         return (f"--model {args.model} is not ported yet (ROADMAP A9); "
-                "the port fits lloyd, accelerated and minibatch")
+                "the port fits lloyd, accelerated, minibatch and trimmed")
     for flag, on in (("--pca", args.pca is not None),
                      ("--whiten", args.whiten),
                      ("--coreset", args.coreset is not None),
@@ -215,7 +214,7 @@ def _cmd_train(args) -> int:
     # --update configures the Lloyd-family centroid reduction; paths that
     # never read it must reject it rather than mislead.
     if args.update:
-        if model not in ("lloyd", "accelerated"):
+        if model not in ("lloyd", "accelerated", "trimmed"):
             print(f"error: --update configures the Lloyd-family reduction; "
                   f"it has no effect with --model {model}", file=sys.stderr)
             return 2
@@ -290,9 +289,15 @@ def _cmd_train(args) -> int:
         )
         return 2
     if args.trim_fraction is not None:
-        print("error: --trim-fraction requires --model trimmed",
-              file=sys.stderr)
-        return 2
+        if model != "trimmed":
+            print("error: --trim-fraction requires --model trimmed",
+                  file=sys.stderr)
+            return 2
+        if not 0.0 <= args.trim_fraction < 1.0:
+            print("error: --trim-fraction must be in [0, 1)", file=sys.stderr)
+            return 2
+    trim_fraction = (args.trim_fraction if args.trim_fraction is not None
+                     else 0.05)
 
     # Past every flag validation: a usage error reports at once and leaves
     # nothing behind (the --trace probe creates the file if absent, so it
@@ -389,8 +394,11 @@ def _cmd_train(args) -> int:
             "lloyd": models.fit_lloyd,
             "accelerated": models.fit_lloyd_accelerated,
             "minibatch": models.fit_minibatch,
+            "trimmed": models.fit_trimmed,
         }[model]
-        state = fit(x, k, config=kcfg, device=dev)
+        fit_kw = ({"trim_fraction": trim_fraction}
+                  if model == "trimmed" else {})
+        state = fit(x, k, config=kcfg, device=dev, **fit_kw)
     if dev.type == "cuda":
         import torch
 
@@ -409,7 +417,8 @@ def _cmd_train(args) -> int:
     print(json.dumps(result))
 
     if args.out:
-        # Only the first max_cards rows are exported.
+        # Only the first max_cards rows are exported; a trimmed fit's
+        # outliers (label -1) become unassigned cards.
         doc = dataset_to_document(
             np.asarray(x[:args.max_cards].float().cpu()),
             np.asarray(state.labels[:args.max_cards].cpu()),
@@ -455,8 +464,8 @@ def _cmd_serve(args) -> int:
     except KeyboardInterrupt:
         pass
     except (ValueError, RuntimeError) as e:
-        # Config mistakes (an unwritable --telemetry path, --persist-dir,
-        # no card without --device cpu) surface at construction: one line.
+        # Config mistakes (an unwritable --telemetry path, no card without
+        # --device cpu) surface at construction: one line.
         print(f"error: {e}", file=sys.stderr)
         return 2
     return 0
@@ -492,11 +501,6 @@ def _serve_fleet(args) -> int:
     try:
         config = ServeConfig(**{k: v for k, v in overrides.items()
                                 if v is not None})
-        if config.persist_dir:
-            # Every worker's server would refuse it at boot.
-            raise ValueError(
-                f"persist_dir={config.persist_dir!r}: board persistence is "
-                "not ported; the port serves models only")
         sup = FleetSupervisor(config, workers=args.workers,
                               device=args.device)
     except (ValueError, RuntimeError) as e:
@@ -533,15 +537,17 @@ def main(argv=None) -> int:
                    default=None, help="alias for --model minibatch "
                    "(named configs set it from BASELINE)")
     t.add_argument("--model", default=None, choices=[
-        "lloyd", "accelerated", "minibatch", *_UNPORTED_MODELS,
+        "lloyd", "accelerated", "minibatch", "trimmed", *UNPORTED_FAMILIES,
     ], help="model family (default: lloyd, or the config's minibatch "
-            "choice); the port fits lloyd, accelerated and minibatch, and "
-            "refuses the others (ROADMAP A9)")
+            "choice); the port fits lloyd, accelerated, minibatch and "
+            "trimmed, and refuses the others (ROADMAP A9)")
     t.add_argument("--covariance-type", default=None,
                    choices=["diag", "spherical", "tied"],
                    help="GMM covariance structure (--model gmm, not ported)")
     t.add_argument("--trim-fraction", type=float, default=None,
-                   help="--model trimmed (not ported)")
+                   help="--model trimmed: fraction of points excluded as "
+                        "outliers each iteration (default 0.05); trimmed "
+                        "points export as unassigned cards")
     t.add_argument("--init", default="k-means++",
                    choices=["k-means++", "k-means||", "random"])
     t.add_argument("--mesh", type=int, default=0,
@@ -638,15 +644,17 @@ def main(argv=None) -> int:
                         "phase); runs the step-paced Lloyd runner")
     t.set_defaults(fn=_cmd_train)
 
-    s = sub.add_parser("serve", help="run the HTTP model server")
+    s = sub.add_parser("serve", help="run the HTTP/SSE board and model "
+                                     "server")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8787)
     s.add_argument("--device", default="cuda",
-                   help="where the assignment engine scores: cuda (the "
-                        "default; raises without a card) or cpu (the "
-                        "kernels' plain versions)")
-    s.add_argument("--persist-dir", default=None, metavar="DIR",
-                   help="board persistence; not ported, refused if given")
+                   help="where the assignment engine scores and the board's "
+                        "fits run: cuda (the default; raises without a "
+                        "card) or cpu (the kernels' plain versions)")
+    s.add_argument("--persist-dir", default=".kmeans_rooms", metavar="DIR",
+                   help="directory for durable rooms (reloaded on restart; "
+                        "pass '' to disable)")
     s.add_argument("--metrics", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="serve GET /metrics (Prometheus text; default on)")

@@ -11,11 +11,14 @@ carries over unchanged.
 
 :class:`ServeConfig` holds every field of the reference's, with its
 defaults, so one configuration picks the same route and limits on both
-servers.  The board's fields (``max_render_cards``, ``max_concurrent_train``,
-``persist_dir``, ``persist_debounce_s``) are kept for that but not read yet:
-the port's server has no board routes and refuses a ``persist_dir``.  The
-fleet supervisor (:mod:`kmeans_tpu_torch.serve.fleet`) reads the
-``fleet_*`` fields; ``fleet_drain_s`` also bounds a server's own drain.
+servers; the board (:mod:`kmeans_tpu_torch.serve.server`'s rooms) reads
+``max_render_cards``, ``max_concurrent_train``, ``persist_dir`` and
+``persist_debounce_s`` as the reference's does.  The fleet supervisor
+(:mod:`kmeans_tpu_torch.serve.fleet`) reads the ``fleet_*`` fields;
+``fleet_drain_s`` also bounds a server's own drain.
+
+The board's constants (the palette, the centroid cap, room codes, the drop
+clamp, the session modes and the zone height rule) are the reference's.
 """
 
 from __future__ import annotations
@@ -25,11 +28,16 @@ from typing import Optional, Tuple
 
 __all__ = ["KMeansConfig", "ServeConfig", "COLORS", "MAX_CENTROIDS",
            "ROOM_ALPHABET", "ROOM_CODE_LEN", "POS_CLAMP_X", "POS_CLAMP_Y",
-           "clamp_pos"]
+           "clamp_pos", "MODES", "zone_min_height_px", "UNPORTED_FAMILIES"]
+
+#: The reference's model families the port does not have yet (ROADMAP A9):
+#: ``cli train --model`` and the board's ``train`` op refuse them.
+UNPORTED_FAMILIES: Tuple[str, ...] = (
+    "spherical", "bisecting", "fuzzy", "gmm", "kernel", "kmedoids",
+    "balanced", "spectral", "xmeans", "gmeans")
 
 # ---------------------------------------------------------------------------
-# The reference's board constants that the session copies read
-# (``kmeans_tpu/config.py``, its values)
+# The reference's board constants (``kmeans_tpu/config.py``, its values)
 # ---------------------------------------------------------------------------
 
 #: Centroid color palette, first-unused-wins (app.mjs:8,125).
@@ -56,6 +64,23 @@ def clamp_pos(x: float, y: float) -> Tuple[float, float]:
     cx = min(max(x, POS_CLAMP_X[0]), POS_CLAMP_X[1])
     cy = min(max(y, POS_CLAMP_Y[0]), POS_CLAMP_Y[1])
     return (cx, cy)
+
+
+#: Card geometry for zone min-height: max(260, 64 + n*(110+10)) px
+#: (app.mjs:302-306).
+CARD_H_PX: int = 110
+CARD_GAP_PX: int = 10
+ZONE_BASE_PX: int = 64
+ZONE_MIN_PX: int = 260
+
+#: Session modes (index.html:125-127). ``mode`` is synced but never branched
+#: on in the reference (SURVEY.md §8.7); it is kept as a document field.
+MODES: Tuple[str, ...] = ("learn", "playtest", "custom")
+
+
+def zone_min_height_px(n_cards: int) -> int:
+    """Zone min-height rule from app.mjs:302-306."""
+    return max(ZONE_MIN_PX, ZONE_BASE_PX + n_cards * (CARD_H_PX + CARD_GAP_PX))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,7 +242,8 @@ class ServeConfig:
     model_dir: Optional[str] = None
     #: Request-body byte cap of every POST (413 beyond it).
     max_import_bytes: int = 4 * 1024 * 1024
-    #: Room durability directory (board); the port's server refuses it.
+    #: Room durability directory (board): each room is written there as
+    #: export JSON and revived at boot.  None keeps rooms in memory only.
     persist_dir: Optional[str] = None
     #: Seconds of quiet after a version bump before a room is written
     #: (board).

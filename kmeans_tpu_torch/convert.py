@@ -3,7 +3,9 @@
 A reference ``KMeansState`` (or any mapping or object with the fields
 ``centroids``, ``labels``, ``counts``, ``inertia``, ``n_iter`` and, where
 present, ``converged``) becomes a port :class:`KMeansState` on a device, and
-back.  A reference ``MiniBatchKMeans``'s state and lifetime counts
+back; :func:`trimmed_from_numpy` / :func:`trimmed_to_numpy` do the same
+for a reference ``TrimmedState`` (its ``outlier_mask`` too).  A reference
+``MiniBatchKMeans``'s state and lifetime counts
 (``_n_seen``) carry on in the port's estimator.  A reference registry
 ``Generation`` (its published fields) becomes a port
 :class:`~kmeans_tpu_torch.continuous.registry.Generation`, and a fitted
@@ -19,12 +21,15 @@ import torch
 from kmeans_tpu_torch.continuous.registry import Generation, ModelRegistry
 from kmeans_tpu_torch.device import resolve_device
 from kmeans_tpu_torch.models.lloyd import KMeansState
+from kmeans_tpu_torch.models.trimmed import TrimmedState
 
 __all__ = ["state_from_numpy", "state_to_numpy", "minibatch_from_numpy",
+           "trimmed_from_numpy", "trimmed_to_numpy",
            "generation_from_numpy", "publish_state"]
 
 _DTYPES = {"centroids": np.float32, "labels": np.int32, "inertia": np.float32,
-           "n_iter": np.int32, "converged": np.bool_, "counts": np.float32}
+           "n_iter": np.int32, "converged": np.bool_, "counts": np.float32,
+           "outlier_mask": np.bool_}
 
 
 def _field(src, name, default=None):
@@ -33,10 +38,10 @@ def _field(src, name, default=None):
     return getattr(src, name, default)
 
 
-def state_from_numpy(src, *, device=None) -> KMeansState:
+def state_from_numpy(src, *, device=None, cls=KMeansState):
     """A port state on ``device`` (None is the card) from ``src``: a mapping
     or an object with the state's fields (``converged`` defaults to
-    False)."""
+    False).  ``cls`` is the state type (the fields it names are read)."""
     dev = resolve_device(device)
 
     def field(name):
@@ -49,14 +54,28 @@ def state_from_numpy(src, *, device=None) -> KMeansState:
         arr = np.array(value, dtype=_DTYPES[name], order="C")
         return torch.from_numpy(arr).to(dev)
 
-    return KMeansState(**{name: field(name) for name in KMeansState._fields})
+    return cls(**{name: field(name) for name in cls._fields})
 
 
-def state_to_numpy(state: KMeansState) -> dict:
-    """``{field: numpy array}`` of a port state, in the reference's dtypes."""
+def state_to_numpy(state) -> dict:
+    """``{field: numpy array}`` of a port state (``KMeansState`` or
+    ``TrimmedState``), in the reference's dtypes."""
     return {name: np.asarray(getattr(state, name).cpu().numpy(),
                              dtype=_DTYPES[name])
-            for name in KMeansState._fields}
+            for name in state._fields}
+
+
+def trimmed_from_numpy(src, *, device=None) -> TrimmedState:
+    """A port :class:`TrimmedState` on ``device`` (None is the card) from
+    ``src``, a reference ``TrimmedState`` or a mapping with its fields."""
+    return state_from_numpy(src, device=device, cls=TrimmedState)
+
+
+def trimmed_to_numpy(state: TrimmedState) -> dict:
+    """``{field: numpy array}`` of a port :class:`TrimmedState`, in the
+    reference's dtypes; the reference's ``TrimmedState(**fields)`` takes
+    it."""
+    return state_to_numpy(state)
 
 
 def minibatch_from_numpy(state, n_seen=None, *, device=None):

@@ -1,12 +1,17 @@
 """Fit models of the port: initialization, full-batch Lloyd, the
-step-paced runner, the accelerated fits and minibatch k-means."""
+step-paced runner, the accelerated fits, minibatch and trimmed k-means, and
+the dendrogram merge of fitted centroids."""
 
 from kmeans_tpu_torch.models.accelerated import fit_lloyd_accelerated
+from kmeans_tpu_torch.models.hierarchy import (centroid_linkage, cut_linkage,
+                                               merge_to_k)
 from kmeans_tpu_torch.models.lloyd import (KMeans, KMeansState, fit_lloyd,
                                            fit_plan)
 from kmeans_tpu_torch.models.minibatch import (MiniBatchKMeans, batch_update,
                                                fit_minibatch, nested_ladder)
 from kmeans_tpu_torch.models.runner import IterInfo, LloydRunner
+from kmeans_tpu_torch.models.trimmed import (TrimmedKMeans, TrimmedState,
+                                             fit_trimmed)
 
 
 def state_centers(state):
@@ -18,6 +23,28 @@ def state_centers(state):
         if arr is not None:
             return arr
     return None
+
+
+def state_counts(state):
+    """The per-cluster size / mass array of any family's fit state, or
+    ``None`` when it cannot be determined: the reference's one copy of the
+    field-name mapping (counts / resp_counts, with a label histogram for a
+    state that carries labels but no counts), beside :func:`state_centers`.
+    The dendrogram merge reads it."""
+    import numpy as np
+
+    from kmeans_tpu_torch.models.hierarchy import _host
+
+    for attr in ("counts", "resp_counts"):
+        arr = getattr(state, attr, None)
+        if arr is not None:
+            return arr
+    centers = state_centers(state)
+    labels = getattr(state, "labels", None)
+    if centers is None or labels is None:
+        return None
+    labels = np.asarray(_host(labels))
+    return np.bincount(labels[labels >= 0], minlength=centers.shape[0])
 
 
 def state_objective(state) -> float:
@@ -35,4 +62,6 @@ def state_objective(state) -> float:
 __all__ = ["KMeans", "KMeansState", "fit_lloyd", "fit_plan",
            "fit_lloyd_accelerated", "fit_minibatch", "MiniBatchKMeans",
            "nested_ladder", "batch_update", "LloydRunner", "IterInfo",
-           "state_centers", "state_objective"]
+           "TrimmedKMeans", "TrimmedState", "fit_trimmed", "centroid_linkage",
+           "cut_linkage", "merge_to_k", "state_centers", "state_counts",
+           "state_objective"]

@@ -1,9 +1,10 @@
 """Session/state layer: the reference's document model, metrics and schema.
 
-Copies of ``kmeans_tpu/session/`` (the reference's ``auto_assign`` is not
-ported: it fits with the trimmed family)."""
+Copies of ``kmeans_tpu/session/``; ``auto_assign`` fits on the port's
+device."""
 
 from kmeans_tpu_torch.session.bridge import (
+    auto_assign,
     cards_to_features,
     dataset_to_document,
 )
@@ -36,6 +37,7 @@ from kmeans_tpu_torch.session.seeds import (
 )
 
 __all__ = [
+    "auto_assign",
     "cards_to_features",
     "dataset_to_document",
     "CentroidLimitError",

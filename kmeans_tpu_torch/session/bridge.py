@@ -1,8 +1,8 @@
-"""Bridge from a fitted clustering to the session document.
+"""Bridge between the numeric engine and the session document.
 
-A copy of ``dataset_to_document`` and ``cards_to_features`` from
-``kmeans_tpu/session/bridge.py``: JAX-free, but importing it would run
-``kmeans_tpu/__init__.py``, which imports JAX.
+Counterpart of ``kmeans_tpu/session/bridge.py``; ``dataset_to_document``
+and ``cards_to_features`` are copies (JAX-free, but importing them would
+run ``kmeans_tpu/__init__.py``, which imports JAX).
 
 * ``dataset_to_document`` — turn a fitted clustering over 2-D data into a
   session document whose cards sit at their data coordinates (normalized
@@ -10,9 +10,12 @@ A copy of ``dataset_to_document`` and ``cards_to_features`` from
   colored, named centroid zones; ``train --out`` exports it.
 * ``cards_to_features`` — featurize cards for the numeric engine: binary
   bag-of-trait-tokens vectors using the reference's own tokenizer.
-
-The reference's ``auto_assign`` fits with the trimmed family, which the
-port does not have yet; it is not here.
+* ``auto_assign`` — one fit over the document's cards on the device
+  (``fit_lloyd``, or ``fit_trimmed`` with an outlier budget), writing the
+  assignments back through the normal mutators in one transaction (locked
+  zones are respected: their cards are kept, everyone else is
+  re-assigned).  k-means++ draws from a :class:`torch.Generator` seeded
+  with ``seed``, where the reference draws from ``jax.random.key(seed)``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from kmeans_tpu_torch.session.metrics import tokens_for_card
 __all__ = [
     "dataset_to_document",
     "cards_to_features",
+    "auto_assign",
 ]
 
 
@@ -128,3 +132,75 @@ def cards_to_features(
         for t in ts:
             x[i, index[t]] = 1.0
     return x, vocab
+
+
+def auto_assign(
+    doc: Document,
+    *,
+    seed: int = 0,
+    features: str = "traits",
+    outliers: int = 0,
+    device=None,
+) -> dict:
+    """Run the assign step for the humans on ``device`` (None is the
+    card): fit k = the number of unlocked centroids on the document's
+    cards and write the assignments back.  Returns the new metrics
+    snapshot.
+
+    ``features``: "traits" (bag-of-tokens) or "pos" (board coordinates;
+    cards without a position fall back to zero vectors).  Locked zones
+    follow app.mjs:360 in both directions: their cards keep their
+    assignment AND no card is moved into them.
+
+    ``outliers`` > 0 runs the trimmed family (k-means--) instead of plain
+    Lloyd and leaves the ``outliers`` least-fitting cards UNASSIGNED (the
+    fixture's designated outliers ``seed:t10`` / ``t11``, app.mjs:214-215,
+    are the ones the teaching game expects humans to leave off every
+    zone).  Locked-zone cards carry weight 0, so they never eat that
+    budget.
+    """
+    from kmeans_tpu_torch.config import KMeansConfig
+    from kmeans_tpu_torch.data.synthetic import generator_for
+    from kmeans_tpu_torch.device import resolve_device
+    from kmeans_tpu_torch.models import fit_lloyd, fit_trimmed
+
+    unlocked = [c for c in doc.centroids if not c.get("locked")]
+    k = len(unlocked)
+    if k == 0 or not doc.cards:
+        return doc.snapshot()
+
+    if features == "pos":
+        x = np.zeros((len(doc.cards), 2), np.float32)
+        for i, c in enumerate(doc.cards):
+            p = doc.get_card_pos(c["id"])
+            if p:
+                x[i] = (p["x"], p["y"])
+    else:
+        x, _ = cards_to_features(doc.cards)
+
+    dev = resolve_device(device)
+    gen = generator_for(seed, dev)
+    locked_ids = {c["id"] for c in doc.centroids if c.get("locked")}
+    cfg = KMeansConfig(k=k, max_iter=50, chunk_size=max(64, len(doc.cards)))
+    if outliers > 0:
+        w = np.array(
+            [0.0 if c.get("assignedTo") in locked_ids else 1.0
+             for c in doc.cards], np.float32,
+        )
+        m = min(int(outliers), max(int(w.sum()) - 1, 0))
+        state = fit_trimmed(x, k, n_trim=m, generator=gen, config=cfg,
+                            weights=w, device=dev)
+    else:
+        state = fit_lloyd(x, k, generator=gen, config=cfg, device=dev)
+    labels = state.labels.cpu().numpy()
+
+    order = [c["id"] for c in unlocked]
+    with doc.txn():
+        for i, card in enumerate(doc.cards):
+            if card.get("assignedTo") in locked_ids:
+                continue
+            lab = int(labels[i])
+            doc.update_card_assign(
+                card["id"], None if lab < 0 else order[lab % k]
+            )
+    return doc.snapshot()

@@ -381,6 +381,13 @@ GUARDS = [
     ["train", "--update", "delta", "--yinyang-groups", "4"],
     ["train", "--covariance-type", "tied"],
     ["train", "--trim-fraction", "0.1"],
+    ["train", "--model", "trimmed", "--trim-fraction", "1.5"],
+    ["train", "--model", "trimmed", "--trim-fraction", "-0.1"],
+    ["train", "--model", "trimmed", "--update", "delta"],
+    ["train", "--model", "trimmed", "--accel", "beta"],
+    ["train", "--model", "trimmed", "--progress"],
+    ["train", "--model", "trimmed", "--schedule", "nested"],
+    ["train", "--model", "trimmed", "--steps", "5"],
     ["train", "--model", "accelerated", "--progress"],
     ["train", "--model", "minibatch", "--steps", "0"],
     ["train", "--model", "minibatch", "--batch-size", "0"],
@@ -474,7 +481,7 @@ REFUSED = [
     (["--comm", "scatter"], "A4"),
     (["--model", "gmm"], "A9"),
     (["--model", "xmeans"], "A9"),
-    (["--model", "trimmed", "--trim-fraction", "0.1"], "A9"),
+    (["--model", "trimmed", "--mesh", "2"], "A4"),
     (["--pca", "1"], "A9"),
     (["--whiten"], "A9"),
     (["--coreset", "100"], "A9"),
@@ -547,3 +554,100 @@ def test_sigterm_cuts_a_checkpoint_and_the_resume_finishes(tmp_path):
     assert got["n_iter"] == want["n_iter"] == total
     np.testing.assert_allclose(got["inertia"], want["inertia"],
                                rtol=INERTIA_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# --model trimmed, and serve's --persist-dir
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("side", SIDES)
+def test_train_trimmed_family(side, tmp_path, capsys):
+    """tests/test_cli.py's: 5% of 200 rows export as unassigned cards,
+    without a board position."""
+    out_json = str(tmp_path / "trimmed.json")
+    rc, out, _ = _run(side, capsys, [
+        "train", "--n", "200", "--d", "2", "--k", "3", "--model", "trimmed",
+        "--trim-fraction", "0.05", "--max-iter", "20", "--out", out_json,
+    ])
+    assert rc == 0
+    res = json.loads(out.splitlines()[0])
+    assert res["mode"] == "trimmed" and np.isfinite(res["inertia"])
+    doc = json.loads(open(out_json).read())
+    unassigned = [c for c in doc["cards"] if c["assignedTo"] is None]
+    assert len(unassigned) == 10
+    for c in unassigned:
+        assert f"pos:{c['id']}" not in doc["meta"]
+
+
+def test_train_trimmed_matches_the_references(tmp_path, capsys):
+    """The same separated ``--input`` through both CLIs: the same
+    result-line keys, n and k, the same 8 rows trimmed in both exports, and
+    the inertia within INERTIA_RTOL (the draws differ; on these blobs both
+    reach the same partition)."""
+    x = _separated(24, 400, 3, 3)
+    npy = str(tmp_path / "x.npy")
+    np.save(npy, x)
+    outs = []
+    for side in SIDES:
+        out_json = str(tmp_path / f"{side}.json")
+        rc, out, _ = _run(side, capsys, [
+            "train", "--input", npy, "--k", "3", "--model", "trimmed",
+            "--trim-fraction", "0.02", "--tol", "1e-6", "--out", out_json,
+            "--max-cards", "400"])
+        assert rc == 0
+        doc = json.loads(open(out_json).read())
+        outs.append((json.loads(out), [c["assignedTo"] is None
+                                       for c in doc["cards"]]))
+    (ref, ref_un), (got, got_un) = outs
+    assert list(got) == list(ref)
+    assert {k: got[k] for k in ("n", "d", "k", "mode")} == \
+        {k: ref[k] for k in ("n", "d", "k", "mode")}
+    np.testing.assert_allclose(got["inertia"], ref["inertia"],
+                               rtol=INERTIA_RTOL)
+    assert got_un == ref_un and sum(got_un) == 8
+
+
+@pytest.mark.parametrize("extra,want", [([], ".kmeans_rooms"),
+                                         (["--persist-dir", ""], None),
+                                         (["--persist-dir", "d"], "d")])
+def test_serve_persist_dir_defaults_to_the_references(extra, want,
+                                                      monkeypatch, capsys):
+    """``serve --persist-dir`` defaults to the reference's ``.kmeans_rooms``
+    ('' keeps rooms in memory): both CLIs hand ``serve`` the same value."""
+    import kmeans_tpu.serve as ref_serve
+
+    from kmeans_tpu_torch.serve import server as port_server
+
+    got = {}
+    for side, mod in (("ref", ref_serve), ("port", port_server)):
+        monkeypatch.setattr(mod, "serve", lambda *a, _side=side, **kw:
+                            got.setdefault(_side, kw["persist_dir"]))
+    assert ref_cli.main(["serve"] + extra) == 0
+    assert port_cli.main(["serve", "--device", "cpu"] + extra) == 0
+    capsys.readouterr()
+    assert got == {"ref": want, "port": want}
+
+
+def test_serve_fleet_passes_persist_dir_to_the_workers(tmp_path,
+                                                        monkeypatch):
+    """``serve --workers N`` hands ``--persist-dir`` to the supervisor's
+    config, which every worker's server reads (the reference's)."""
+    from kmeans_tpu_torch.serve import fleet
+
+    got = {}
+
+    class Sup:
+        def __init__(self, config, workers, device):
+            got.update(config=config, workers=workers, device=device)
+
+        def run(self):
+            return 0
+
+    monkeypatch.setattr(fleet, "FleetSupervisor", Sup)
+    rooms = str(tmp_path / "rooms")
+    assert port_cli.main(["serve", "--workers", "3", "--port", "8799",
+                          "--device", "cpu", "--persist-dir", rooms]) == 0
+    assert got["config"].persist_dir == rooms and got["workers"] == 3
+    assert port_cli.main(["serve", "--workers", "2", "--port", "8799",
+                          "--device", "cpu", "--persist-dir", ""]) == 0
+    assert got["config"].persist_dir is None

@@ -825,7 +825,8 @@ def test_cli_fleet_on_the_card_answers_reloads_and_drains(card, tmp_path):
     env.pop("KMEANS_TPU_FAULTS", None)
     proc = subprocess.Popen(
         [sys.executable, "-m", "kmeans_tpu_torch.cli", "serve", "--workers",
-         "2", "--port", str(port), "--model-dir", path],
+         "2", "--port", str(port), "--model-dir", path, "--persist-dir",
+         str(tmp_path / "rooms")],
         cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
     base = f"http://127.0.0.1:{port}"
@@ -907,3 +908,37 @@ def test_runner_on_the_card_matches_the_plain_backend(card, update):
     kernel = "lloyd_delta_cuda" if update == "delta" else "lloyd_hamerly_cuda"
     assert launches[kernel] >= 4
     assert sum(plain_launches.values()) == 0
+
+
+@pytest.mark.parametrize("budget", [dict(n_trim=150), dict(n_trim=0),
+                                    dict(trim_fraction=1e-4)])
+@pytest.mark.parametrize("k", [5, 300])
+def test_trimmed_fit_on_the_card_matches_the_plain_backend(card, k, budget):
+    """``fit_trimmed`` on the kernels (K1, and K6 for the correction's
+    fold) gives the plain backend's labels and mask on the card from one
+    init, zero-weight rows included; sums to the fold's tolerance.  With
+    no row trimmed (``n_trim=0``, or a fraction of 3000 rows that rounds
+    to 0) nothing is folded: K6 is not launched."""
+    from kmeans_tpu_torch import fit_trimmed
+
+    x, c, w, _ = _blobs(17, 3000, 64, k, card)
+    cfg = dict(init="given", max_iter=8, tol=-1.0)
+    folds = 9 if budget.get("n_trim") == 150 else 0
+    states = []
+    for backend in ("cuda", "plain"):
+        K.reset_launch_counts()
+        states.append(fit_trimmed(
+            x, k, init=c, weights=w, device=card,
+            config=KMeansConfig(k=k, backend=backend, **cfg), **budget))
+        counts = K.launch_counts()
+        if backend == "cuda":
+            assert counts["lloyd_pass_cuda"] == 9
+            assert counts["tiled_fold_cuda"] == folds
+        else:
+            assert sum(counts.values()) == 0
+    got, want = states
+    assert torch.equal(got.labels, want.labels)
+    assert torch.equal(got.outlier_mask, want.outlier_mask)
+    assert not bool(got.outlier_mask[w == 0].any())
+    _close(got.centroids, want.centroids)
+    _close(got.counts, want.counts)

@@ -402,12 +402,11 @@ def _cli_fleet(side, tmp_path, model_dir, port, *extra):
     env = dict(os.environ, PYTHONPATH=REPO)
     env.pop("KMEANS_TPU_FAULTS", None)
     env.setdefault("JAX_PLATFORMS", "cpu")
-    if side == "ref":
-        cmd = [sys.executable, "-m", "kmeans_tpu.cli", "serve",
-               "--persist-dir", str(tmp_path / "rooms")]
-    else:
-        cmd = [sys.executable, "-m", "kmeans_tpu_torch.cli", "serve",
-               "--device", "cpu"]
+    cmd = ([sys.executable, "-m", "kmeans_tpu.cli", "serve"]
+           if side == "ref" else
+           [sys.executable, "-m", "kmeans_tpu_torch.cli", "serve",
+            "--device", "cpu"])
+    cmd += ["--persist-dir", str(tmp_path / "rooms")]
     return subprocess.Popen(
         cmd + ["--workers", "2", "--port", str(port), "--model-dir",
                model_dir, *extra],

@@ -15,8 +15,8 @@ runs its jitted routes under JAX on the CPU.
   ``tests/test_serve_wire.py``, the admission and readiness tests of
   ``tests/test_fleet.py`` and the server tests of ``tests/test_tracing.py``
   run once per server (``side``).
-* The port's own surface: no card without ``device="cpu"`` raises, a
-  ``persist_dir`` is refused, the CLI, and a lane per handler thread in
+* The port's own surface: no card without ``device="cpu"`` raises, the
+  CLI, and a lane per handler thread in
   ``/api/trace``.
 
 Every server is stopped in teardown and every wait has a timeout.
@@ -691,11 +691,18 @@ def test_api_trace_has_a_lane_per_handler_thread(servers):
 # The port's own surface
 # ---------------------------------------------------------------------------
 
-def test_no_card_raises_naming_the_cpu_device():
+def test_no_card_raises_naming_the_cpu_device(tmp_path):
+    """No card without ``device="cpu"`` raises before anything is made: a
+    ``persist_dir`` is not created (with ``device="cpu"`` it is, and its
+    rooms are revived)."""
+    rooms = tmp_path / "rooms"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         KMeansServer(ServeConfig(port=0))
-    with pytest.raises(ValueError, match="board persistence"):
-        KMeansServer(ServeConfig(port=0, persist_dir="rooms"), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        KMeansServer(ServeConfig(port=0, persist_dir=str(rooms)))
+    assert not rooms.exists()
+    KMeansServer(ServeConfig(port=0, persist_dir=str(rooms)), device="cpu")
+    assert rooms.is_dir()
 
 
 @pytest.mark.parametrize("argv", [
@@ -705,9 +712,9 @@ def test_no_card_raises_naming_the_cpu_device():
     ["--workers", "2", "--device", "cpu", "--persist-dir", "rooms"],
 ])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
-    """Board persistence exits 2 with one line (on one server or a
-    fleet), as do no card without ``--device cpu`` and a fleet on an
-    ephemeral port (``--port 0``)."""
+    """No card without ``--device cpu`` and a fleet on an ephemeral port
+    (``--port 0``) exit 2 with one line, a ``--persist-dir`` given or
+    not."""
     assert cli.main(["serve", "--port", "0"] + argv) == 2
     err = capsys.readouterr().err
     assert err.splitlines()[-1].startswith("error: ")
