@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 from the root of a checkout.  It builds the port's CUDA kernels from
-``kmeans_tpu_torch/csrc/lloyd.cu`` and runs fourteen phases, exiting
+``kmeans_tpu_torch/csrc/lloyd.cu`` and runs fifteen phases, exiting
 non-zero if any fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -188,17 +188,41 @@ non-zero if any fails:
    and assign clients attached (``stop()`` well under ``fleet_drain_s``,
    no accepted request unanswered); the board server's K5 launches (the
    stop drill's model) and K6 launches (the train op's trimmed fits at d =
-   2) are printed and on no row of phase 14;
-14. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+   2) are printed and on no row of phase 15;
+14. out-of-core streaming and continuous clustering, each run's launch
+   counts set to 0 before it and read after: imagenet-stream (the
+   headline's 1.28M x 2048 f32 rows in host memory, ``fit_minibatch_stream``
+   for STREAM_STEPS steps of STREAM_BATCH from a fixed init, in f32 and in
+   bf16 compute with bf16 transfer: every batch through the native gather,
+   the card's peak memory under STREAM_PEAK_BYTES above its level before,
+   the centroids equal bit for bit to the same batches through
+   ``batch_update`` on card-resident copies, the final pass's labels the
+   plain backend's but ties and its inertia within SUMS_RTOL; steps/s, a
+   step's split, the SMs' idle share, the producer's stalls, the final
+   pass and the core K1 took), cifar10-stream-cli (``cli train --stream``
+   on a cifar10-shaped ``.npy`` in child processes, beside
+   imagenet-continuous: the result line, the
+   SIGTERM drill at step STREAM_DRILL_AT and its resume, bit for bit the
+   uninterrupted run's centroids) and imagenet-continuous (``cli
+   continuous`` with CONT_ARGV in a child process, ``chip_smoke.py
+   --continuous-cli SPEC``, which times the pipeline's pieces: an initial,
+   a drift and a scheduled refit and a compaction; the kill drills at the
+   second refit's site and at the second publish's swap, each resumed,
+   with its RTO, the same generations and triggers and the final one
+   within CONT_FINAL_RTOL in inertia (beside two undisturbed runs'
+   spread); then ``cli serve
+   --model-dir D`` beside a second run, CONT_CLIENTS keep-alive clients, a
+   reload after each generation line, every response held to K5's labels
+   of its generation, no 503 and no drop);
+15. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.  A kernel has a row for each compute dtype its main-path runs
-   score in: bf16 (phases 4, 6, 9, 12's in-process and bf16 runs and 13's
-   in-process trimmed runs) and f32 (the route's K1, K2 and K4 from
-   imagenet-delta-f32, phase 12's f32 CLI runs, phase 13's trimmed CLI run
-   and K1 from phase 9's cifar10 runs, with the board server's f32 K1 and
-   K2 launches on ``score_block`` at d <= 80; K5 from each served model's
-   runs), each
-   row's launches counted in its own runs and its times taken at its own
-   shape.
+   score in: bf16 (phases 4, 6, 9, 12's in-process and bf16 runs, 13's
+   in-process trimmed runs and 14's bf16 stream) and f32 (the route's K1,
+   K2 and K4 from imagenet-delta-f32, phase 12's f32 CLI runs, phase 13's
+   trimmed CLI run, K1 from phase 9's cifar10 runs and phase 14's f32 runs,
+   with the board server's f32 K1 and K2 launches on ``score_block`` at d
+   <= 80; K5 from each served model's runs), each row's launches counted
+   in its own runs and its times taken at its own shape.
 
 ``python3 chip_smoke.py --fold-split`` runs phases 1 and 7 only (the
 kernels build at their first call), so it also splits an older tree's K6.
@@ -210,7 +234,8 @@ older checkout times that tree's f32 route in the same call.
 build at their first call); ``--serve-http`` and ``--fleet`` run phases 1
 and 10, and 1 and 11, on ``make_blobs`` centres; ``--runner`` runs phases
 1, 2 and 12 (it makes phase 6's fit itself); ``--board`` runs phases 1
-and 13 (the kernels build at their first call).
+and 13 (the kernels build at their first call); ``--stream`` runs phases
+1, 2 and 14.
 
 The bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of memory, 989
 TFLOP/s bf16 on the tensor cores and 67 TFLOP/s f32 outside them; an f32
@@ -4880,6 +4905,7 @@ def _train_cli(spec) -> int:
     after it, whatever its exit code."""
     import runpy
 
+    from kmeans_tpu_torch.native import loader as NL
     from kmeans_tpu_torch.ops import cuda_lloyd as K
 
     K.reset_launch_counts()
@@ -4893,6 +4919,9 @@ def _train_cli(spec) -> int:
     finally:
         with open(spec["counts"], "w", encoding="utf-8") as f:
             json.dump(K.launch_counts(), f)
+        if spec.get("gathers"):
+            with open(spec["gathers"], "w", encoding="utf-8") as f:
+                json.dump(NL.gather_counts(), f)
     return rc
 
 
@@ -4901,7 +4930,7 @@ class _CliRun:
     by line (``on_line`` may send it a signal), its result line, exit code,
     launch counts and wall time."""
 
-    def __init__(self, tmp, name, argv, on_line=None):
+    def __init__(self, tmp, name, argv, on_line=None, gathers=None):
         import os
         import threading
 
@@ -4913,7 +4942,8 @@ class _CliRun:
         with open(out_path, "w", encoding="utf-8") as out:
             proc = subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--train-cli",
-                 json.dumps({"argv": argv, "counts": counts})],
+                 json.dumps({"argv": argv, "counts": counts,
+                             "gathers": gathers})],
                 cwd=root, stdout=out, stderr=subprocess.PIPE, text=True)
             self.err = []
             self.signal_at = None
@@ -4937,6 +4967,8 @@ class _CliRun:
                        else time.perf_counter() - self.signal_at)
         self.stdout = open(out_path, encoding="utf-8").read()
         self.counts = json.load(open(counts, encoding="utf-8"))
+        self.gathers = (json.load(open(gathers, encoding="utf-8"))
+                        if gathers else None)
         self.progress = [json.loads(ln) for ln in self.err
                          if ln.startswith('{"event": "iter"')]
         self.result = None
@@ -6124,6 +6156,804 @@ def phase_board(card):
     return {"bf16": bf16, "f32": f32}, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: out-of-core streaming and continuous clustering
+# ---------------------------------------------------------------------------
+
+#: imagenet-stream: the headline's rows on the host (README's
+#: ``fit_minibatch_stream(data, 1000, steps=500, batch_size=8192)``).
+STREAM_STEPS = 500
+STREAM_BATCH = 8192
+#: The most card memory a streamed fit may add above what the process held
+#: before it: the prefetch queue and its copies in flight (at most
+#: ``prefetch_depth + 2`` batches of 64 MiB in f32), the centroids and the
+#: update's temporaries (about 130 MiB), and a final-pass chunk (8192 rows)
+#: with K1's scratch.  About a twentieth of the 10.5 GB the fit streams.
+STREAM_PEAK_BYTES = 512 << 20
+#: cifar10-stream-cli: SIGTERM once the telemetry reports this step.
+STREAM_DRILL_AT = 250
+#: imagenet-continuous: the reference's defaults but for these.
+#: The reference's default drift (6.0) is sized for its default d = 8: at d
+#: = 2048 it moves the per-point inertia by 36 over a noise floor of about
+#: 737 (2048 · 0.6²), under the detectors' thresholds; 64 moves it by 4096.
+CONT_ARGV = ["continuous", "--k", "1000", "--d", "2048", "--batch-n", "8192",
+             "--batches", "48", "--drift-at", "24", "--drift", "64"]
+CONT_BATCHES = 48
+#: Keep-alive clients and points a request of the continuous -> serve run.
+CONT_CLIENTS = 8
+CONT_POOL = 4096
+#: The longest a child process of this phase may take.
+CONT_TIMEOUT_S = 300
+#: A resumed run's final generation against the undisturbed run's, in
+#: inertia: the pipeline's own test of "the model changed", its threshold
+#: detector's default ratio.  K2 adds changed rows with f32 atomics, in an
+#: order that changes from run to run, and at k = 1000 the drift refits
+#: turn that rounding into other labels and reseeded centres, so two
+#: undisturbed runs differ too (the serve run is one; its spread is
+#: printed beside the drills').  The schedule (generations, triggers,
+#: batches) must be exact.
+CONT_FINAL_RTOL = 0.25
+
+
+def _stream_fit_run(name, x_np, c0, cd, transfer):
+    """One imagenet-stream fit on the card, counted and timed: the fit
+    (its steps' wall time: the first step's start to the card's idle after
+    the last; the final pass's seconds and K1 launches), the card's peak
+    memory above its level before, the native gathers and the producer's
+    stalls.  Returns ``(state, info)``."""
+    import torch
+
+    from kmeans_tpu_torch.config import KMeansConfig
+    from kmeans_tpu_torch.data import stream as DS
+    from kmeans_tpu_torch.models import minibatch as MB
+    from kmeans_tpu_torch.models import streaming as S
+    from kmeans_tpu_torch.native import loader as NL
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    k = c0.shape[0]
+    cfg = KMeansConfig(k=k, steps=STREAM_STEPS, batch_size=STREAM_BATCH,
+                       compute_dtype=cd, seed=0)
+    marks = {}
+    real_update, real_assign = MB.batch_update, S.assign_stream
+
+    def update(*a, **kw):
+        marks.setdefault("t_first", time.perf_counter())
+        return real_update(*a, **kw)
+
+    def final_pass(*a, **kw):
+        _sync()                       # the steps' device work ends here
+        marks["t_steps"] = time.perf_counter()
+        before = K.launch_counts()
+        out = real_assign(*a, **kw)
+        marks["final_s"] = time.perf_counter() - marks["t_steps"]
+        after = K.launch_counts()
+        marks["final_k1"] = (after["lloyd_pass_cuda"]
+                             - before["lloyd_pass_cuda"])
+        return out
+
+    _sync()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stalls0 = DS._PREFETCH_STALLS_TOTAL.value()
+    NL.reset_gather_counts()
+    K.reset_launch_counts()
+    MB.batch_update, S.assign_stream = update, final_pass
+    try:
+        t0 = time.perf_counter()
+        state = S.fit_minibatch_stream(
+            x_np, k, config=cfg, init=c0, transfer_dtype=transfer,
+            device="cuda")
+        _sync()
+        wall = time.perf_counter() - t0
+    finally:
+        MB.batch_update, S.assign_stream = real_update, real_assign
+    counts = K.launch_counts()
+    gathers = NL.gather_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    info = {"name": name, "counts": counts, "gathers": gathers,
+            "peak": peak, "wall": wall,
+            "steps_s": marks["t_steps"] - marks["t_first"],
+            "final_s": marks["final_s"], "final_k1": marks["final_k1"],
+            "stalls": DS._PREFETCH_STALLS_TOTAL.value() - stalls0}
+    _check(gathers == {"native": STREAM_STEPS, "numpy": 0},
+           f"{name}: gathers {gathers}: every batch must take the native "
+           "gather")
+    _check(int(state.n_iter) == STREAM_STEPS and set(counts) and
+           counts["lloyd_pass_cuda"] == marks["final_k1"] > 0
+           and sum(counts.values()) == counts["lloyd_pass_cuda"],
+           f"{name}: n_iter {int(state.n_iter)}, launches {counts} (K1 in "
+           f"the final pass: {marks['final_k1']})")
+    _check(peak < STREAM_PEAK_BYTES,
+           f"{name}: the card's peak rose {peak} bytes, beyond the bound "
+           f"{STREAM_PEAK_BYTES}")
+    return state, info
+
+
+def _stream_replay(x_np, c0, cd, to_bf16):
+    """The fit's batches again, one at a time with a sync each: the native
+    gather into a pinned buffer (host clock), its copy to the card and
+    ``batch_update`` on the card-resident batch (CUDA events).  Returns
+    ``(centroids, n_seen, median gather ms, median copy ms, median update
+    ms, summed update ms)``."""
+    import torch
+
+    from kmeans_tpu_torch.data.stream import PinnedRing, sample_batches
+    from kmeans_tpu_torch.models.minibatch import batch_update
+
+    n, d = x_np.shape
+    k = c0.shape[0]
+    ring = PinnedRing(1, STREAM_BATCH, d,
+                      torch.bfloat16 if to_bf16 else torch.float32)
+    c = torch.from_numpy(c0).cuda()
+    n_seen = torch.zeros(k, dtype=torch.float32, device="cuda")
+    batches = sample_batches(x_np, STREAM_BATCH, STREAM_STEPS, seed=0,
+                             to_bf16=to_bf16, ring=ring)
+    g_ms, c_ms, u_ms = [], [], []
+    for _ in range(STREAM_STEPS):
+        t0 = time.perf_counter()
+        buf = next(batches)
+        g_ms.append(1e3 * (time.perf_counter() - t0))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        xb = buf.to("cuda", non_blocking=True)
+        ev[1].record()
+        ring.copied(ev[1])
+        c, n_seen, _, _ = batch_update(c, n_seen, xb, compute_dtype=cd)
+        ev[2].record()
+        ev[2].synchronize()
+        c_ms.append(ev[0].elapsed_time(ev[1]))
+        u_ms.append(ev[1].elapsed_time(ev[2]))
+    med = statistics.median
+    return c, n_seen, med(g_ms), med(c_ms), med(u_ms), sum(u_ms)
+
+
+def _imagenet_stream(card):
+    """imagenet-stream: the headline's 1.28M x 2048 f32 rows in host
+    memory, 500 steps of 8192 from a fixed init, in f32 (full-width
+    transfer) and in bf16 compute (bf16 transfer, fused in the gather).
+    Returns ``{"bf16": counts, "f32": counts}``."""
+    import numpy as np
+    import torch
+
+    from kmeans_tpu_torch.data.synthetic import make_blobs
+    from kmeans_tpu_torch.models import streaming as S
+    from kmeans_tpu_torch.native import native_available
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    _check(native_available(), "imagenet-stream: the native gather does "
+           "not build on this host")
+    n, d, k = HEADLINE["n"], HEADLINE["d"], HEADLINE["k"]
+    t0 = time.perf_counter()
+    x_t = make_blobs(14, n, d, k, device="cuda")[0]
+    x_np = x_t.cpu().numpy()
+    del x_t
+    torch.cuda.empty_cache()
+    print(f"imagenet-stream: {n} x {d} f32 rows ({x_np.nbytes / 1e9:.2f} GB)"
+          f" made on the card and copied to host memory in "
+          f"{time.perf_counter() - t0:.1f} s")
+    c0 = np.ascontiguousarray(x_np[::n // k][:k])
+    probe = torch.zeros(8, d, device="cuda")
+    launches = {"bf16": {}, "f32": {}}
+    for cd, transfer, key in ((None, None, "f32"),
+                              ("bfloat16", "auto", "bf16")):
+        name = f"imagenet-stream {key}"
+        core = K.scoring_core(
+            probe, torch.float32 if cd is None else torch.bfloat16,
+            probe if cd is None else probe.bfloat16())
+        state, info = _stream_fit_run(name, x_np, c0, cd, transfer)
+        _add_counts(launches[key], info["counts"])
+        to_bf16 = transfer == "auto"
+        c_r, n_r, g_ms, cp_ms, u_ms, u_sum = _stream_replay(
+            x_np, c0, cd, to_bf16)
+        _check(torch.equal(c_r, state.centroids),
+               f"{name}: the streamed centroids differ from the replay on "
+               f"card-resident batches (max abs "
+               f"{float((c_r - state.centroids).abs().max())})")
+        t1 = time.perf_counter()
+        lab_p, inertia_p = S.assign_stream(
+            x_np, state.centroids, chunk_size=8192, compute_dtype=cd,
+            backend="plain", device="cuda")
+        plain_s = time.perf_counter() - t1
+        lab = state.labels.cpu()
+        lab_pt = torch.from_numpy(lab_p)
+        rows = (lab != lab_pt).nonzero()[:, 0]
+        moved = 0
+        if rows.numel():
+            xs = torch.from_numpy(x_np[rows.numpy()]).cuda()
+            moved = _check_labels_rows(
+                f"{name} final pass", xs, state.centroids,
+                torch.float32 if cd is None else torch.bfloat16,
+                lab[rows].cuda(), lab_pt[rows].cuda())
+        rel = abs(float(state.inertia) - inertia_p) / inertia_p
+        _check(rel <= SUMS_RTOL,
+               f"{name}: final-pass inertia {float(state.inertia)} against "
+               f"the plain backend's {inertia_p} (rel {rel:.3e})")
+        steps_per_s = STREAM_STEPS / info["steps_s"]
+        idle = 1.0 - (u_sum / 1e3) / info["steps_s"]
+        print(f"{name} ({card}): {STREAM_STEPS} steps of {STREAM_BATCH} in "
+              f"{info['steps_s']:.3f} s = {steps_per_s:.1f} steps/s "
+              f"(transfer {'bf16' if to_bf16 else 'f32'}); a step alone "
+              f"(the replay, one sync a step): native gather {g_ms:.3f} ms "
+              f"(host clock), copy to the card {cp_ms:.3f} ms and "
+              f"batch_update {u_ms:.3f} ms (CUDA events); the SMs' idle "
+              f"share over the streamed steps {idle:.3f} (1 - the replay's "
+              f"summed batch_update time / the steps' wall time); producer "
+              f"stalls {info['stalls']:.0f}; final pass {info['final_s']:.3f}"
+              f" s with {info['final_k1']} K1 launches on {core} (plain "
+              f"backend {plain_s:.3f} s), labels equal but {moved} rows "
+              f"(ties), inertia rel {rel:.3e}; peak card memory +"
+              f"{info['peak'] / 2**20:.1f} MiB (bound "
+              f"{STREAM_PEAK_BYTES / 2**20:.0f} MiB); gathers "
+              f"{info['gathers']}; fit wall {info['wall']:.3f} s; centroids "
+              "equal to the replay's bit for bit")
+        del state
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _cifar10_stream_cli(card, tmp):
+    """cifar10-stream-cli: a cifar10-shaped f32 ``.npy`` streamed by ``cli
+    train --stream`` in child processes: the uninterrupted run, the
+    SIGTERM drill and its resume, whose centroids must equal the
+    uninterrupted run's bit for bit.  Returns the f32 launch counts."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from kmeans_tpu_torch.data.synthetic import make_blobs
+    from kmeans_tpu_torch.utils.checkpoint import (latest_step,
+                                                   load_array_checkpoint)
+
+    n, d, k = CIFAR10["n"], CIFAR10["d"], CIFAR10["k"]
+    path = f"{tmp}/cifar10.npy"
+    np.save(path, make_blobs(15, n, d, k, device="cuda")[0].cpu().numpy())
+    torch.cuda.empty_cache()
+    base = ["train", "--stream", "--input", path, "--k", str(k), "--steps",
+            str(STREAM_STEPS), "--batch-size", str(STREAM_BATCH)]
+    d0, d1 = f"{tmp}/s0", f"{tmp}/s1"
+    runs = {}
+
+    def go(key, *args, **kw):
+        runs[key] = _CliRun(tmp, *args, **kw)
+
+    def sigterm(run, line, proc):
+        import signal
+
+        if not line.startswith("{"):
+            return False
+        try:
+            ev = json.loads(line)
+        except ValueError:
+            return False
+        if ev.get("event") == "iter" and ev["iteration"] >= STREAM_DRILL_AT:
+            proc.send_signal(signal.SIGTERM)
+            return True
+        return False
+
+    threads = [
+        threading.Thread(target=go, args=(
+            "full", "stream cli", base + ["--checkpoint", d0]),
+            kwargs={"gathers": f"{tmp}/full.gathers.json"}),
+        threading.Thread(target=go, args=(
+            "drill", "stream cli drill",
+            base + ["--checkpoint", d1, "--telemetry", "/dev/stderr"]),
+            kwargs={"on_line": sigterm,
+                    "gathers": f"{tmp}/drill.gathers.json"}),
+    ]
+    t_all = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    full = runs["full"].need()
+    drill = runs["drill"].need(3)
+    res = full.result
+    _check(res["mode"] == "minibatch" and res.get("stream") is True
+           and res["n_iter"] == STREAM_STEPS and res["n"] == n
+           and full.counts["lloyd_pass_cuda"] >= 1
+           and full.gathers["numpy"] == 0
+           and full.gathers["native"] == STREAM_STEPS,
+           f"stream cli: {res}, launches {full.counts}, gathers "
+           f"{full.gathers}")
+    step = latest_step(d1)
+    _check(f"resume with: --resume {d1}" in drill.err and step is not None
+           and any(f"at step {step}/{STREAM_STEPS}" in ln
+                   for ln in drill.err)
+           and STREAM_DRILL_AT <= step < STREAM_STEPS,
+           f"stream cli drill: no resumable exit at the signal: "
+           f"{drill.err[-3:]}")
+    resumed = _CliRun(tmp, "stream cli resume", base + ["--resume", d1],
+                      gathers=f"{tmp}/resume.gathers.json").need()
+    a0, _ = load_array_checkpoint(d0)
+    a1, _ = load_array_checkpoint(d1)
+    _check(resumed.result["n_iter"] == STREAM_STEPS
+           and np.array_equal(a0["centroids"], a1["centroids"])
+           and np.array_equal(a0["counts"], a1["counts"])
+           and resumed.result["inertia"] == res["inertia"]
+           and resumed.gathers["native"] == STREAM_STEPS - step,
+           f"stream cli resume: n_iter {resumed.result['n_iter']}, "
+           f"centroids max abs diff "
+           f"{float(np.abs(a0['centroids'] - a1['centroids']).max())}, "
+           f"inertia {resumed.result['inertia']} vs {res['inertia']}, "
+           f"gathers {resumed.gathers}")
+    f32 = {}
+    for run in (full, drill, resumed):
+        _add_counts(f32, run.counts)
+    print(full.line(f"; native gathers {full.gathers['native']}"))
+    print(drill.line(f"; SIGTERM at step >= {STREAM_DRILL_AT}, checkpoint "
+                     f"at step {step}, {drill.exit_s:.3f} s from the signal "
+                     "to the exit"))
+    print(resumed.line(f"; resumed at {step}, centroids and counts equal "
+                       "to the uninterrupted run's bit for bit, inertia "
+                       "equal"))
+    print(f"cifar10-stream-cli ({card}): {time.perf_counter() - t_all:.1f} s"
+          " (the uninterrupted run and the drill at once, then the resume; "
+          "beside imagenet-continuous)")
+    return f32
+
+
+def _continuous_cli(spec) -> int:
+    """``chip_smoke.py --continuous-cli SPEC``: ``python -m
+    kmeans_tpu_torch.cli`` with ``spec["argv"]`` as :func:`_train_cli`
+    runs it, the pipeline's pieces timed on the host clock (synthesis,
+    batch inertia, push with any compaction, refit with its publish),
+    written to ``spec["counts"]`` with the launch counts after it (a
+    killed run writes nothing)."""
+    import runpy
+
+    from kmeans_tpu_torch.continuous import pipeline as P
+    from kmeans_tpu_torch.continuous import window as W
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    split = {"synthesis": 0.0, "inertia": 0.0, "push": 0.0, "refit": 0.0}
+    refits = []
+    windows = []
+
+    def timed(cls, attr, key):
+        fn = getattr(cls, attr)
+
+        def wrapper(self, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                split[key] += dt
+                if key == "refit":
+                    refits.append([a[0], dt])
+                if key == "push":
+                    windows.append([self.n_points, self.compactions])
+
+        setattr(cls, attr, wrapper)
+
+    timed(P.ContinuousPipeline, "_next_batch", "synthesis")
+    timed(P.ContinuousPipeline, "_batch_inertia", "inertia")
+    timed(W.SlidingWindow, "push", "push")
+    timed(P.ContinuousPipeline, "_refit", "refit")
+    K.reset_launch_counts()
+    sys.argv = ["kmeans_tpu_torch.cli"] + spec["argv"]
+    try:
+        runpy.run_module("kmeans_tpu_torch.cli", run_name="__main__",
+                         alter_sys=True)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+    finally:
+        with open(spec["counts"], "w", encoding="utf-8") as f:
+            json.dump({"launches": K.launch_counts(), "split": split,
+                       "refits": refits, "windows": windows}, f)
+    return rc
+
+
+class _ContRun:
+    """One ``cli continuous`` process (:func:`_continuous_cli`) on its own
+    thread: its stdout's JSON lines as they come (``on_line`` sees each),
+    its exit code, the times of its exit and of its ``resumed`` line, and
+    what it wrote at exit."""
+
+    def __init__(self, tmp, name, argv, env=None, on_line=None,
+                 model_dir=None):
+        import os
+        import threading
+
+        self.name, self.lines, self.rc = name, [], None
+        #: {generation: centroids}, read from ``model_dir`` as each
+        #: ``generation`` line arrives (and the generation a ``resumed``
+        #: line names).
+        self.model_dir, self.centroids = model_dir, {}
+        self.t_exit = self.t_resumed = None
+        self._counts = f"{tmp}/{name}.json"
+        self._err = f"{tmp}/{name}.err"
+        full_env = dict(os.environ, **(env or {}))
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--continuous-cli",
+             json.dumps({"argv": argv, "counts": self._counts})],
+            cwd=root, env=full_env, stdout=subprocess.PIPE,
+            stderr=open(self._err, "w", encoding="utf-8"), text=True)
+        self._on_line = on_line
+        self._thread = threading.Thread(target=self._read, daemon=True)
+        self._thread.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                ev = json.loads(line)
+            except ValueError:
+                continue
+            if ev.get("event") == "resumed":
+                self.t_resumed = time.perf_counter()
+            if self.model_dir and ev.get("event") in ("resumed",
+                                                       "generation"):
+                g = ev["generation"]
+                self.centroids[g] = _gen_centroids(self.model_dir, g)
+            self.lines.append(ev)
+            if self._on_line is not None:
+                self._on_line(ev)
+        self.rc = self.proc.wait()
+        self.t_exit = time.perf_counter()
+
+    def wait(self, rc=0):
+        import threading
+
+        watchdog = threading.Timer(CONT_TIMEOUT_S, self.proc.kill)
+        watchdog.start()
+        try:
+            self._thread.join()
+        finally:
+            watchdog.cancel()
+        err = open(self._err, encoding="utf-8").read()
+        _check(self.rc == rc, f"{self.name}: exit code {self.rc} (wanted "
+               f"{rc}); stderr tail {err[-1500:]!r}")
+        self.seconds = self.t_exit - self.t0
+        self.data = (json.load(open(self._counts, encoding="utf-8"))
+                     if rc == 0 else None)
+        return self
+
+    def gens(self):
+        return [(e["generation"], e["trigger"], e["batch"])
+                for e in self.lines if e["event"] == "generation"]
+
+    def done(self):
+        (d,) = [e for e in self.lines if e["event"] == "done"]
+        return d
+
+
+def _gen_centroids(model_dir, g):
+    """Generation ``g``'s centroids, from ``model_dir`` or its step-tagged
+    sibling (a later publish may be renaming one into the other)."""
+    import numpy as np
+
+    for _ in range(100):
+        for src in (model_dir, f"{model_dir}.step-{g:08d}"):
+            try:
+                with open(f"{src}/meta.json", encoding="utf-8") as f:
+                    if int(json.load(f)["step"]) != g:
+                        continue
+                with np.load(f"{src}/arrays.npz") as z:
+                    return z["centroids"]
+            except (OSError, ValueError, KeyError):
+                continue
+        time.sleep(0.02)
+    raise SmokeFailure(f"generation {g} never appeared in {model_dir}")
+
+
+def _cont_inertia(c_np, x_eval):
+    """Inertia of ``x_eval`` at centroids ``c_np`` (on the card, f64 sums
+    of K1's min_d2)."""
+    import torch
+
+    from kmeans_tpu_torch.ops.distance import assign
+
+    _, mind = assign(x_eval, torch.from_numpy(c_np).cuda(), device="cuda")
+    return float(mind.double().sum())
+
+
+def _cont_serve(card, tmp, pool_np):
+    """The continuous -> serve composition: ``cli serve --model-dir D``
+    beside a second continuous run on D (retention kept for every
+    generation), CONT_CLIENTS keep-alive binary clients, ``POST
+    /api/model/reload`` after each generation line; every response held
+    to K5's labels of its generation, no 503, no drop."""
+    import os
+    import signal
+
+    import numpy as np
+    import torch
+
+    from kmeans_tpu_torch.serve.assign import dense_k_tile
+
+    model_dir = f"{tmp}/serve_model"
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    pool_path = f"{tmp}/cont_pool.npy"
+    np.save(pool_path, pool_np)
+    reloads, first = [], []
+    state = {"server": None}
+
+    def on_gen(ev):
+        if ev["event"] != "generation":
+            return
+        if state["server"] is None:
+            first.append(ev)
+            return
+        st, body = _http_get(base, "/api/model/reload", b"{}")
+        reloads.append((ev["generation"], st, json.loads(body)))
+
+    cont = _ContRun(tmp, "continuous serve run",
+                    CONT_ARGV + ["--model-dir", model_dir,
+                                 "--checkpoint-keep", str(CONT_BATCHES)],
+                    on_line=on_gen, model_dir=model_dir)
+    deadline = time.monotonic() + CONT_TIMEOUT_S
+    while not first:
+        _check(time.monotonic() < deadline and cont.proc.poll() is None,
+               "continuous serve run: no first generation")
+        time.sleep(0.05)
+    counts = f"{tmp}/serve.counts.json"
+    srv_err_path = f"{tmp}/serve.err"
+    srv = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-cli",
+         json.dumps({"argv": ["serve", "--model-dir", model_dir, "--port",
+                              str(port), "--persist-dir", ""],
+                     "counts": counts})],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.DEVNULL,
+        stderr=open(srv_err_path, "w", encoding="utf-8"))
+    client = None
+    try:
+        while True:
+            try:
+                st, _ = _http_get(base, "/readyz")
+                if st == 200:
+                    break
+            except OSError:
+                pass
+            _check(time.monotonic() < deadline and srv.poll() is None,
+                   "continuous serve: the server never became ready")
+            time.sleep(0.2)
+        state["server"] = True
+        until = f"{tmp}/cont_done"
+        spec = {"host": "127.0.0.1", "port": port, "pool": pool_path,
+                "out": f"{tmp}/cont_serve.npz", "points": HTTP_POINTS,
+                "clients": CONT_CLIENTS, "seconds": 0.0,
+                "swap_wait": CONT_TIMEOUT_S, "mode": "binary", "run": 14,
+                "new_gen": None, "until_file": until}
+        client = subprocess.Popen(
+            [sys.executable, __file__, "--http-client", json.dumps(spec)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        _check(client.stdout.readline().strip() == "READY",
+               "continuous serve: the client did not start")
+        cont.wait()
+        # One more reload after the run, so the last generation serves.
+        st, body = _http_get(base, "/api/model/reload", b"{}")
+        reloads.append((cont.done()["generation"], st, json.loads(body)))
+        time.sleep(0.5)
+        open(until, "w").close()
+        _, cerr = client.communicate(timeout=4 * HTTP_CALL_S)
+        _check(client.returncode == 0,
+               f"continuous serve: the client failed: {cerr[-2000:]}")
+    finally:
+        for proc in (client, srv):
+            if proc is not None and proc.poll() is None:
+                proc.send_signal(signal.SIGINT)
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+    srv_err = open(srv_err_path, encoding="utf-8").read()
+    _check(srv.returncode == 0, f"continuous serve: the server exited "
+           f"{srv.returncode}: {srv_err[-1500:]}")
+    data = dict(np.load(spec["out"]))
+    table = data["table"]
+    status = table[:, 1].astype(int)
+    _check(not data["errors"].size and not int(data["hung"]) and len(table)
+           and (status == 200).all(),
+           f"continuous serve: {len(table)} responses, "
+           f"{int((status != 200).sum())} not 200 "
+           f"({int((status == 503).sum())} 503s), {data['errors'].size} "
+           f"connection errors")
+    _check(all(st == 200 for _, st, _ in reloads),
+           f"continuous serve: reloads {reloads}")
+    pool_t = torch.from_numpy(pool_np).cuda()
+    k_tile = dense_k_tile(1000, pool_np.shape[1])
+    idx = table[:, 0].astype(np.int64)[:, None] + np.arange(HTTP_POINTS)
+    moved, gens = 0, sorted({int(v) for v in table[:, 2]})
+    for g in gens:
+        step_dir = f"{model_dir}.step-{g:08d}"
+        src = step_dir if os.path.isdir(step_dir) else model_dir
+        c_np = np.load(f"{src}/arrays.npz")["centroids"]
+        meta = json.load(open(f"{src}/meta.json", encoding="utf-8"))
+        _check(int(meta["step"]) == g,
+               f"continuous serve: generation {g} is not on disk")
+        c = torch.from_numpy(c_np).cuda()
+        want = _pool_labels(pool_t, c, k_tile).cpu().numpy()
+        sel = np.flatnonzero(table[:, 2] == g)
+        mine = data["labels"][sel].ravel()
+        exp = want[idx[sel]].ravel()
+        diff = np.flatnonzero(mine != exp)
+        if diff.size:
+            rows = torch.from_numpy(idx[sel].ravel()[diff]).cuda()
+            moved += _check_labels_rows(
+                f"continuous serve generation {g}", pool_t[rows], c,
+                torch.float32, torch.from_numpy(mine[diff]).cuda(),
+                torch.from_numpy(exp[diff]).cuda())
+    seconds = float(data["seconds"])
+    lat = table[:, 3].tolist()
+    p50, p99, top = _percentiles(lat)
+    srv_counts = json.load(open(counts, encoding="utf-8"))
+    print(f"continuous -> serve ({card}): {len(table)} responses in "
+          f"{seconds:.3f} s ({len(table) / seconds:.1f} QPS, "
+          f"{CONT_CLIENTS} keep-alive clients, {HTTP_POINTS} points each), "
+          f"p50 {p50:.3f} ms, p99 {p99:.3f} ms, max {top:.3f} ms; "
+          f"generations served {gens} (reloads {len(reloads)}), every "
+          f"response held to K5 of its generation ({moved} rows differ, "
+          f"each a tie), no 503 and no drop; the server's launches "
+          f"{srv_counts}; the run's generations {cont.gens()}")
+    return cont
+
+
+def _imagenet_continuous(card, tmp):
+    """imagenet-continuous: ``cli continuous`` at k = 1000, d = 2048, batch
+    8192, 48 batches, a drift of 64 at batch 24, the reference's other
+    defaults, in a child process; at once with it, the kill drills (a kill
+    at the second refit's site and at the second publish's swap, each
+    followed by ``--resume``) and the continuous -> serve composition.
+    Returns the f32 launch counts."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from kmeans_tpu_torch.continuous import drift_batch
+
+    t_all = time.perf_counter()
+    runs = {}
+    drills = (("refit", "continuous.refit:kill@2"),
+              ("swap", "registry.swap:kill@2"))
+
+    def drill(key, faults_spec):
+        d = f"{tmp}/cont_{key}"
+        killed = _ContRun(tmp, f"continuous kill {key}",
+                          CONT_ARGV + ["--model-dir", d],
+                          env={"KMEANS_TPU_FAULTS": faults_spec}).wait(137)
+        resumed = _ContRun(tmp, f"continuous resume {key}",
+                           CONT_ARGV + ["--model-dir", d, "--resume"],
+                           model_dir=d)
+        resumed.wait()
+        runs[key] = (killed, resumed, d)
+
+    rng = np.random.default_rng(5)
+    pool = drift_batch(CONT_BATCHES - 1, n=CONT_POOL, d=2048, k=1000,
+                       drift_at=24, drift=64.0, seed=0)
+    pool += 0.1 * rng.standard_normal(pool.shape, dtype=np.float32)
+
+    def serve():
+        runs["serve"] = _cont_serve(card, tmp, pool)
+
+    full_dir = f"{tmp}/cont_full"
+    full = _ContRun(tmp, "continuous", CONT_ARGV + ["--model-dir", full_dir],
+                    model_dir=full_dir)
+    threads = [threading.Thread(target=drill, args=a) for a in drills]
+    threads.append(threading.Thread(target=serve))
+    for t in threads:
+        t.start()
+    full.wait()
+    for t in threads:
+        t.join()
+    _check(len(runs) == len(drills) + 1, "imagenet-continuous: a drill or "
+           "the serve run failed (see its exit above)")
+    replica = runs.pop("serve")
+    gens = full.gens()
+    triggers = [t for _, t, _ in gens]
+    done = full.done()
+    comps = full.data["windows"][-1][1] if full.data["windows"] else 0
+    _check({"initial", "drift", "scheduled"} <= set(triggers) and comps >= 1
+           and done["batches"] == CONT_BATCHES,
+           f"imagenet-continuous: triggers {triggers}, compactions {comps},"
+           f" done {done}")
+    x_eval = torch.from_numpy(drift_batch(
+        CONT_BATCHES - 1, n=8192, d=2048, k=1000, drift_at=24,
+        drift=64.0)).cuda()
+
+    def rel(a, g):
+        """Generation g's inertia on x_eval: run a's against the
+        undisturbed run's, relative."""
+        want = _cont_inertia(full.centroids[g], x_eval)
+        return abs(_cont_inertia(a.centroids[g], x_eval) - want) / want
+
+    launches = dict(full.data["launches"])
+    _check(replica.gens() == gens,
+           f"continuous serve run: generations {replica.gens()}, the "
+           f"undisturbed run's {gens}")
+    spread = {g: rel(replica, g) for g in sorted(replica.centroids)}
+    print(f"continuous serve run against the undisturbed run (two runs of "
+          f"one stream): the same generations and triggers; inertia rel by "
+          f"generation { {g: float(f'{r:.3e}') for g, r in spread.items()} }")
+    failed = []
+    for key, (killed, resumed, d) in runs.items():
+        res = [e for e in resumed.lines if e["event"] == "resumed"][0]
+        rd = resumed.done()
+        g0 = res["generation"]
+        want = [g for g in gens if g[0] > g0]
+        _check(rd["generation"] == done["generation"]
+               and rd["batches"] == done["batches"]
+               and resumed.gens() == want
+               and set(killed.gens()) <= set(gens),
+               f"continuous {key} drill: resumed at generation {g0}, done "
+               f"{rd}, generations {resumed.gens()} (undisturbed {want})")
+        rels = {g: rel(resumed, g) for g in sorted(resumed.centroids)}
+        if rels[rd["generation"]] > CONT_FINAL_RTOL:
+            failed.append(key)
+        rto = resumed.t_resumed - killed.t_exit
+        _add_counts(launches, resumed.data["launches"])
+        print(f"continuous {key} drill ({card}): killed at the second "
+              f"{'refit' if key == 'refit' else 'publish'} (exit 137 after "
+              f"{killed.seconds:.3f} s, generations {killed.gens()}); "
+              f"resumed at generation {g0}, batch {res['batch_idx']}; RTO "
+              f"{rto:.3f} s from the kill to the resumed line; ended at "
+              f"generation {rd['generation']} after {rd['batches']} batches "
+              f"as the undisturbed run; inertia rel to the undisturbed run "
+              f"by generation "
+              f"{ {g: float(f'{r:.3e}') for g, r in rels.items()} }")
+    _check(not failed, f"continuous drills {failed}: the final generation's "
+           f"inertia is beyond CONT_FINAL_RTOL of the undisturbed run's")
+    sp = full.data["split"]
+    by_trigger = {}
+    for trig, sec in full.data["refits"]:
+        by_trigger.setdefault(trig, []).append(round(sec, 3))
+    rate = CONT_BATCHES / sum(sp.values())
+    print(f"imagenet-continuous ({card}): {CONT_BATCHES} batches in "
+          f"{full.seconds:.3f} s of process ({rate:.2f} batches/s over "
+          f"the pipeline's own time, four pipelines, a server and "
+          f"cifar10-stream-cli's processes at once); a batch's split: "
+          f"synthesis "
+          f"{1e3 * sp['synthesis'] / CONT_BATCHES:.1f} ms, batch inertia "
+          f"{1e3 * sp['inertia'] / CONT_BATCHES:.1f} ms, push/compact "
+          f"{1e3 * sp['push'] / CONT_BATCHES:.1f} ms, refit "
+          f"{1e3 * sp['refit'] / CONT_BATCHES:.1f} ms; refit seconds by "
+          f"trigger {by_trigger}; generations {gens}; compactions {comps}; "
+          f"launches {full.data['launches']}")
+    _add_counts(launches, replica.data["launches"])
+    print(f"imagenet-continuous: {time.perf_counter() - t_all:.1f} s in all")
+    return launches
+
+
+def phase_stream(card):
+    """Phase 14: imagenet-stream in process, then cifar10-stream-cli and
+    imagenet-continuous at once, in child processes.  Returns ``{"bf16":
+    counts, "f32": counts}``."""
+    import tempfile
+    import threading
+
+    t_phase = time.perf_counter()
+    launches = _imagenet_stream(card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        cli = {}
+
+        def stream_cli():
+            try:
+                cli["counts"] = _cifar10_stream_cli(card, tmp)
+            except BaseException as e:       # re-raised below
+                cli["error"] = e
+
+        t = threading.Thread(target=stream_cli)
+        t.start()
+        try:
+            _add_counts(launches["f32"], _imagenet_continuous(card, tmp))
+        finally:
+            t.join()
+        if "error" in cli:
+            raise cli["error"]
+        _add_counts(launches["f32"], cli["counts"])
+    print(f"stream and continuous phase: {time.perf_counter() - t_phase:.1f}"
+          f" s; launches bf16 {launches['bf16']}, f32 {launches['f32']}")
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--http-client"]:
         return _http_client(json.loads(sys.argv[2]))
@@ -6133,6 +6963,8 @@ def main() -> int:
         return _train_cli(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--board-cli"]:
         return _board_cli(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--continuous-cli"]:
+        return _continuous_cli(json.loads(sys.argv[2]))
     import torch
 
     if not torch.cuda.is_available():
@@ -6161,6 +6993,11 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--board"]:
         phase_board(card)
+        return 0
+    if sys.argv[1:] == ["--stream"]:
+        phase_build()
+        phase_stream(card)
+        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
         return 0
     if sys.argv[1:] == ["--fleet"]:
         from kmeans_tpu_torch.data.synthetic import make_blobs
@@ -6215,6 +7052,15 @@ def main() -> int:
         compute = {"": "bf16", "(f32 route)": "f32"}.get(what)
         if compute:
             row["launches"] += board[compute].get(name, 0)
+    stream = phase_stream(card)
+    for row in kernels:
+        # Phase 14's launches (K1 of the final passes, the batch inertia,
+        # the coresets and the refits; K2 of the refits) join the bf16 rows
+        # and the f32 route's rows, as phase 13's do.
+        name, _, what = row["name"].partition(" ")
+        compute = {"": "bf16", "(f32 route)": "f32"}.get(what)
+        if compute:
+            row["launches"] += stream[compute].get(name, 0)
     kernels += board_rows + serve_rows
     phase_fold_split()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

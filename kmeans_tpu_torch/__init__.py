@@ -3,7 +3,9 @@
 A package of its own beside the JAX one, which it never imports: full-batch
 Lloyd k-means with the incremental delta sweep, the bound-pruned hamerly and
 yinyang sweeps and the adaptive ``update="auto"`` loop, the accelerated fits
-(beta, Anderson, the nested ladder), minibatch and trimmed k-means, whose
+(beta, Anderson, the nested ladder), minibatch (in memory, or streamed out
+of core from host memory: :func:`fit_minibatch_stream`) and trimmed
+k-means, whose
 sweep kernels are hand-written CUDA for Hopper (``csrc/lloyd.cu``), built
 with ``nvcc`` at first use.  The assignment engine (:class:`AssignEngine`) serves
 a fitted model from a :class:`ModelRegistry` (in memory, or a directory
@@ -12,7 +14,9 @@ closure-pruned and int8-codebook routes; :mod:`kmeans_tpu_torch.serve.server`
 puts it behind HTTP (``python -m kmeans_tpu_torch.cli serve --model-dir D``).
 :class:`LloydRunner` steps a fit one sweep at a time (callbacks, telemetry,
 checkpoints, a resumable exit on SIGTERM), and ``python -m
-kmeans_tpu_torch.cli train`` fits from the command line.  Every
+kmeans_tpu_torch.cli train`` fits from the command line.
+:mod:`kmeans_tpu_torch.continuous` runs drift-aware continuous clustering
+into the registry (``python -m kmeans_tpu_torch.cli continuous``).  Every
 public entry point runs on the card unless the caller
 passes ``device="cpu"``, where the kernels' plain PyTorch versions run; with
 no card and no ``device="cpu"`` it raises.
@@ -28,6 +32,8 @@ from kmeans_tpu_torch.models.lloyd import (KMeans, KMeansState, fit_lloyd,
 from kmeans_tpu_torch.models.minibatch import (MiniBatchKMeans, batch_update,
                                                fit_minibatch, nested_ladder)
 from kmeans_tpu_torch.models.runner import IterInfo, LloydRunner
+from kmeans_tpu_torch.models.streaming import (assign_stream,
+                                               fit_minibatch_stream)
 from kmeans_tpu_torch.models.trimmed import (TrimmedKMeans, TrimmedState,
                                              fit_trimmed)
 from kmeans_tpu_torch.ops.delta import delta_pass
@@ -39,4 +45,5 @@ __all__ = ["KMeans", "KMeansConfig", "KMeansState", "fit_lloyd", "fit_plan",
            "ServeConfig", "Generation", "ModelRegistry", "AssignEngine",
            "fit_lloyd_accelerated", "fit_minibatch", "MiniBatchKMeans",
            "nested_ladder", "batch_update", "LloydRunner", "IterInfo",
-           "TrimmedKMeans", "TrimmedState", "fit_trimmed"]
+           "TrimmedKMeans", "TrimmedState", "fit_trimmed",
+           "fit_minibatch_stream", "assign_stream"]

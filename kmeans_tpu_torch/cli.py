@@ -1,4 +1,5 @@
-"""Command line of the port: ``train`` (alias ``fit``) and ``serve``.
+"""Command line of the port: ``train`` (alias ``fit``), ``continuous`` and
+``serve``.
 
     python -m kmeans_tpu_torch.cli train --config imagenet [--model lloyd]
         [--progress] [--checkpoint DIR [--checkpoint-every N]] [--resume DIR]
@@ -10,17 +11,34 @@ families are the reference's ``lloyd`` (the fused :func:`fit_lloyd`, or
 the step-paced :class:`~kmeans_tpu_torch.models.runner.LloydRunner`
 under ``--progress/--checkpoint/--resume/--telemetry/--trace/--xla-trace/
 --profile``), ``accelerated``, in-memory ``minibatch`` and ``trimmed``
-(``--trim-fraction``; its outliers export as unassigned cards); a SIGTERM or
-SIGINT during a runner fit cuts a checkpoint and exits 3 with a "resume
-with: ..." line.  ``--xla-trace DIR`` writes a :mod:`torch.profiler` Chrome
-trace into DIR (the reference writes a ``jax.profiler`` trace there).
+(``--trim-fraction``; its outliers export as unassigned cards), and
+``--stream``: the out-of-core minibatch fit
+(:func:`~kmeans_tpu_torch.models.streaming.fit_minibatch_stream`) over
+``--input`` memory-mapped on the host, with ``--steps``, ``--batch-size``,
+``--checkpoint`` / ``--resume`` in one directory, ``--telemetry`` and
+``--trace``.  ``--coreset M`` fits lloyd, accelerated or trimmed on an
+M-point lightweight coreset of the data, weighted.  A SIGTERM or SIGINT
+during a runner or streamed fit cuts a checkpoint and exits 3 with a
+"resume with: ..." line.  ``--xla-trace DIR`` writes a
+:mod:`torch.profiler` Chrome trace into DIR (the reference writes a
+``jax.profiler`` trace there).
 Generated data (``--config`` or ``--n/--d/--k``) is the port's
 ``make_blobs`` on the chosen device from ``--seed``, so a resumed process
 regenerates the same rows.  What the port does not have yet is refused
 with exit code 2 and one line naming its ROADMAP queue item: the other
-families, ``--pca``/``--whiten``, ``--coreset`` and ``--merge-k`` (A9),
-``--stream`` (A8), ``--mesh`` above 1, ``--ckpt-dir``, ``--ckpt-every``
-and ``--comm`` (A4).
+families (``--stream --model gmm`` among them), ``--pca``/``--whiten`` and
+``--merge-k`` (A9), ``--mesh`` above 1 (``--stream`` or not),
+``--ckpt-dir``, ``--ckpt-every`` and ``--comm`` (A4).
+
+    python -m kmeans_tpu_torch.cli continuous [--k 4] [--batches 60]
+        [--model-dir DIR [--resume]] [--input X.npy] [--progress]
+
+runs the drift-aware continuous pipeline
+(:class:`~kmeans_tpu_torch.continuous.pipeline.ContinuousPipeline`) on the
+card over the synthetic drifting stream (or ``--input`` in cycling chunks),
+publishing each refit to the model registry in ``--model-dir``, with the
+reference's JSON lines on stdout (``resumed``, ``generation``, ``done``)
+and ``batch`` lines on stderr under ``--progress``.
 
     python -m kmeans_tpu_torch.cli serve [--model-dir DIR] [--port 8787]
         [--persist-dir DIR] [--workers N [--fleet-obs-port PORT]]
@@ -67,9 +85,6 @@ def _not_ported(args):
     """The one refusal line for a flag or family the port does not have
     yet, naming its ROADMAP queue item; None when everything asked for is
     ported."""
-    if args.stream:
-        return ("--stream (the out-of-core streamed fits) is not ported "
-                "yet (ROADMAP A8)")
     sharded = [f for f, on in (
         (f"--mesh {args.mesh}", args.mesh and args.mesh > 1),
         ("--ckpt-dir", args.ckpt_dir), ("--ckpt-every",
@@ -83,7 +98,6 @@ def _not_ported(args):
                 "the port fits lloyd, accelerated, minibatch and trimmed")
     for flag, on in (("--pca", args.pca is not None),
                      ("--whiten", args.whiten),
-                     ("--coreset", args.coreset is not None),
                      ("--merge-k", args.merge_k is not None)):
         if on:
             return f"{flag} is not ported yet (ROADMAP A9)"
@@ -95,6 +109,8 @@ def _cmd_train(args) -> int:
     if refused:
         print(f"error: {refused}", file=sys.stderr)
         return 2
+
+    import os
 
     import numpy as np
 
@@ -126,11 +142,20 @@ def _cmd_train(args) -> int:
             file=sys.stderr,
         )
         return 2
+    if args.stream and args.minibatch is False and args.model is None:
+        # --stream defaults to the minibatch path, which --no-minibatch
+        # contradicts (an explicit --model gmm stream is the reference's).
+        print("error: --stream defaults to the out-of-core minibatch "
+              "path; --no-minibatch contradicts it (pass --model gmm for "
+              "the streamed mixture)", file=sys.stderr)
+        return 2
     runner_flagged = bool(args.progress or args.checkpoint or args.resume
                           or args.profile or args.telemetry or args.trace
                           or args.xla_trace)
     if args.model is not None:
         model = args.model
+    elif args.stream:
+        model = "minibatch"  # --stream defaults to out-of-core minibatch
     else:
         use_mb = args.minibatch if args.minibatch is not None else cfg_minibatch
         model = "minibatch" if use_mb else "lloyd"
@@ -141,11 +166,33 @@ def _cmd_train(args) -> int:
         # runner and accelerate its steps) it selects the fused loop.
         model = "accelerated"
     minibatch = model == "minibatch"
+    stream_ok = ("minibatch", "gmm")
+    if args.stream and model not in stream_ok:
+        print("error: --stream is the out-of-core path; it supports "
+              f"--model {'/'.join(stream_ok)}, not {model}",
+              file=sys.stderr)
+        return 2
 
+    if args.stream and not args.input:
+        print("error: --stream requires --input (a .npy to memory-map)",
+              file=sys.stderr)
+        return 2
     if args.input:
-        x = _load_npy(args.input)
-        if x is None:
-            return 2
+        if args.stream:
+            from kmeans_tpu_torch.data.stream import load_mmap
+
+            try:
+                x = load_mmap(args.input)
+            except (OSError, ValueError, EOFError) as e:
+                # A missing path, a corrupt or truncated .npy, or a non-2-D
+                # array is one line, not a traceback.
+                print(f"error: cannot load {args.input!r}: {e}",
+                      file=sys.stderr)
+                return 2
+        else:
+            x = _load_npy(args.input)
+            if x is None:
+                return 2
         if x.ndim != 2:
             print(f"error: {args.input} must be a 2-D array", file=sys.stderr)
             return 2
@@ -162,9 +209,10 @@ def _cmd_train(args) -> int:
               "requires --accel anderson", file=sys.stderr)
         return 2
     if args.accel:
-        if model not in ("accelerated", "lloyd"):
+        if args.stream or model not in ("accelerated", "lloyd"):
             print(f"error: --accel runs the accelerated Lloyd family; it "
-                  f"has no effect with --model {model} (use --model "
+                  f"has no effect with --model {model}"
+                  f"{' --stream' if args.stream else ''} (use --model "
                   "accelerated, or lloyd with the runner flags)",
                   file=sys.stderr)
             return 2
@@ -179,10 +227,11 @@ def _cmd_train(args) -> int:
                   "accelerated loop", file=sys.stderr)
             return 2
     if args.schedule:
-        if model not in ("accelerated", "minibatch"):
+        if args.stream or model not in ("accelerated", "minibatch"):
             print(f"error: --schedule configures the in-memory "
                   f"accelerated/minibatch fits; it has no effect with "
-                  f"--model {model}", file=sys.stderr)
+                  f"--model {model}{' --stream' if args.stream else ''}",
+                  file=sys.stderr)
             return 2
         if args.schedule == "nested" and model == "minibatch" and (
                 args.steps is not None or args.batch_size is not None):
@@ -192,9 +241,9 @@ def _cmd_train(args) -> int:
                   "full-batch to --tol)", file=sys.stderr)
             return 2
 
-    # --max-iter governs the Lloyd-family loop; the minibatch path is
-    # step-based (a nested-schedule minibatch fit is ladder-paced: it
-    # honours --max-iter per rung and --tol at the full-batch finish).
+    # --max-iter governs the Lloyd-family loop; the minibatch and stream
+    # paths are step-based (a nested-schedule minibatch fit is ladder-paced:
+    # it honours --max-iter per rung and --tol at the full-batch finish).
     step_based = minibatch and args.schedule != "nested"
     if step_based and args.max_iter is not None:
         print("error: --max-iter has no effect with the step-based "
@@ -214,9 +263,10 @@ def _cmd_train(args) -> int:
     # --update configures the Lloyd-family centroid reduction; paths that
     # never read it must reject it rather than mislead.
     if args.update:
-        if model not in ("lloyd", "accelerated", "trimmed"):
+        if model not in ("lloyd", "accelerated", "trimmed") or args.stream:
             print(f"error: --update configures the Lloyd-family reduction; "
-                  f"it has no effect with --model {model}", file=sys.stderr)
+                  f"it has no effect with --model {model}"
+                  f"{' --stream' if args.stream else ''}", file=sys.stderr)
             return 2
         if args.update in ("delta", "hamerly", "yinyang") \
                 and model != "lloyd":
@@ -275,10 +325,19 @@ def _cmd_train(args) -> int:
         tol=args.tol, seed=seed_v, compute_dtype=args.dtype, **cfg_kw,
     )
 
-    # --checkpoint/--resume/--progress/--profile/--telemetry/--trace/
-    # --xla-trace ride the step-paced runner; the one-shot fused fits have
-    # no iteration boundary to emit events or spans at.
-    if runner_flagged and model != "lloyd":
+    # --checkpoint/--resume ride the step-paced Lloyd runner or the streamed
+    # fit (both checkpoint natively); --progress/--profile are runner-only.
+    # --telemetry and --trace/--xla-trace need a step-paced loop (runner or
+    # streamed): the one-shot fused fits have no iteration boundary to emit
+    # events or spans at.
+    stream_ckpt = args.stream and (args.checkpoint or args.resume)
+    want_runner = not args.stream and runner_flagged
+    if args.stream and (args.progress or args.profile):
+        print("error: --progress/--profile require the full-batch Lloyd "
+              "runner; the streamed paths support --checkpoint/--resume/"
+              "--telemetry/--trace/--xla-trace", file=sys.stderr)
+        return 2
+    if want_runner and model != "lloyd":
         print(
             "error: --progress/--checkpoint/--resume/--profile/--telemetry/"
             "--trace/--xla-trace "
@@ -287,6 +346,14 @@ def _cmd_train(args) -> int:
             "--stream, or drop those flags",
             file=sys.stderr,
         )
+        return 2
+    if args.stream and args.resume and args.checkpoint \
+            and os.path.realpath(args.resume) != \
+            os.path.realpath(args.checkpoint):
+        # The streamed fit uses one directory for both resume and saves.
+        print("error: a streamed --resume continues from (and keeps "
+              "saving into) one directory; --checkpoint must match "
+              "--resume or be dropped", file=sys.stderr)
         return 2
     if args.trim_fraction is not None:
         if model != "trimmed":
@@ -298,6 +365,25 @@ def _cmd_train(args) -> int:
             return 2
     trim_fraction = (args.trim_fraction if args.trim_fraction is not None
                      else 0.05)
+
+    # The reference's list of the families a coreset fit allows; of them
+    # the port has lloyd, accelerated and trimmed (the others are refused
+    # above, ROADMAP A9).
+    coreset_ok = ("lloyd", "accelerated", "spherical", "bisecting", "fuzzy",
+                  "gmm", "kernel", "kmedoids", "trimmed", "balanced")
+    fit_weights = None
+    if args.coreset is not None:
+        if args.coreset < 1:
+            print("error: --coreset must be positive", file=sys.stderr)
+            return 2
+        if model not in coreset_ok or args.stream or want_runner:
+            print(
+                "error: --coreset runs a weighted single-device fit; it "
+                f"supports --model {'/'.join(coreset_ok)} without "
+                "--stream/--mesh/runner flags",
+                file=sys.stderr,
+            )
+            return 2
 
     # Past every flag validation: a usage error reports at once and leaves
     # nothing behind (the --trace probe creates the file if absent, so it
@@ -318,14 +404,26 @@ def _cmd_train(args) -> int:
         return 2
     obs.record_build_info(dev.type)     # kmeans_tpu_build_info{version,backend}
 
-    if args.input:
+    if args.stream:
+        pass                # the host memmap stays where it is
+    elif args.input:
         x = as_tensor(x, dev)
     else:
         x, _, _ = make_blobs(seed_v, n, d, k, cluster_std=args.cluster_std,
                              device=dev)
 
     t0 = time.perf_counter()
-    if runner_flagged:
+    if args.coreset is not None:
+        import torch
+
+        from kmeans_tpu_torch.data.coreset import lightweight_coreset
+
+        x, fit_weights = lightweight_coreset(
+            torch.Generator(device=dev).manual_seed(seed_v + 1), x,
+            args.coreset, chunk_size=kcfg.chunk_size,
+            compute_dtype=kcfg.compute_dtype, device=dev,
+        )
+    if want_runner:
         import contextlib
 
         from kmeans_tpu_torch.utils import capture
@@ -389,6 +487,10 @@ def _cmd_train(args) -> int:
         finally:
             if tw is not None:
                 tw.close()
+    elif args.stream:
+        state = _train_stream(args, x, k, kcfg, dev, stream_ckpt)
+        if isinstance(state, int):
+            return state
     else:
         fit = {
             "lloyd": models.fit_lloyd,
@@ -398,6 +500,8 @@ def _cmd_train(args) -> int:
         }[model]
         fit_kw = ({"trim_fraction": trim_fraction}
                   if model == "trimmed" else {})
+        if fit_weights is not None:
+            fit_kw["weights"] = fit_weights
         state = fit(x, k, config=kcfg, device=dev, **fit_kw)
     if dev.type == "cuda":
         import torch
@@ -414,13 +518,20 @@ def _cmd_train(args) -> int:
         "wall_s": round(fit_s, 4),
         "mode": model,
     }
+    if args.stream:
+        result["stream"] = True
+    if args.coreset is not None:
+        result["coreset"] = args.coreset
     print(json.dumps(result))
 
     if args.out:
-        # Only the first max_cards rows are exported; a trimmed fit's
-        # outliers (label -1) become unassigned cards.
+        # Only the first max_cards rows are exported (sliced first, so a
+        # --stream memmap never materializes); a trimmed fit's outliers
+        # (label -1) become unassigned cards.
+        rows = x[:args.max_cards]
         doc = dataset_to_document(
-            np.asarray(x[:args.max_cards].float().cpu()),
+            np.asarray(rows if args.stream else rows.float().cpu(),
+                       dtype=np.float32),
             np.asarray(state.labels[:args.max_cards].cpu()),
             max_cards=args.max_cards,
             enforce_limit=k <= 3,
@@ -428,6 +539,224 @@ def _cmd_train(args) -> int:
         with open(args.out, "w", encoding="utf-8") as f:
             f.write(export_json(doc))
         print(f"wrote {args.out}", file=sys.stderr)
+    return 0
+
+
+def _train_stream(args, x, k, kcfg, dev, stream_ckpt):
+    """``train --stream``: the streamed minibatch fit of the memory-mapped
+    ``x``; its state, or an exit code after a one-line error."""
+    import contextlib
+
+    from kmeans_tpu_torch import obs
+    from kmeans_tpu_torch.models.streaming import fit_minibatch_stream
+    from kmeans_tpu_torch.utils import capture
+    from kmeans_tpu_torch.utils.checkpoint import latest_step
+    from kmeans_tpu_torch.utils.retry import RetryError
+
+    ckpt_kw = {}
+    if stream_ckpt:
+        if args.resume and latest_step(args.resume) is None:
+            # A mistyped --resume dir must not silently train from scratch
+            # (and overwrite it) with exit 0.
+            print(f"error: no checkpoint found at {args.resume!r} "
+                  "to resume from", file=sys.stderr)
+            return 2
+        ckpt_kw = {"checkpoint_path": args.resume or args.checkpoint,
+                   "checkpoint_every": args.checkpoint_every,
+                   "checkpoint_keep": args.checkpoint_keep,
+                   "resume": bool(args.resume)}
+    # Explicit flags pass through as explicit arguments (None when the user
+    # typed nothing), so the fit's refusal of a contradicted resume fires
+    # for CLI flags too.
+    stream_kw = dict(steps=args.steps, batch_size=args.batch_size,
+                     seed=args.seed, **ckpt_kw)
+    tw_box = [None]
+    if args.telemetry:
+        try:
+            # A probe that does not truncate: the resume parameters are
+            # checked inside the fit, and a failed --resume must not
+            # destroy a previous run's telemetry on its way to exit 2.  The
+            # writer opens on the first step.
+            obs.probe_writable(args.telemetry)
+        except OSError as e:
+            print(f"error: cannot write telemetry to "
+                  f"{args.telemetry!r}: {e}", file=sys.stderr)
+            return 2
+        stepped = [False]
+
+        def _stream_event(info):
+            tw = tw_box[0]
+            if tw is None:
+                tw = tw_box[0] = obs.TelemetryWriter(args.telemetry, common={
+                    "model": "minibatch_stream", "device": dev.type})
+            # The first step of this process carries the one-time costs
+            # (on the card: the library's load), as the runner's does.
+            phase = "step" if stepped[0] else "compile+step"
+            stepped[0] = True
+            tw.iteration(info, phase=phase)
+
+        stream_kw["callback"] = _stream_event
+    xla_dir = args.xla_trace or args.profile
+    trace_ctx = (capture(args.trace, xla_dir=xla_dir,
+                         name="cli.train_stream")
+                 if (args.trace or xla_dir) else contextlib.nullcontext())
+    try:
+        try:
+            with trace_ctx:
+                return fit_minibatch_stream(x, k, config=kcfg, device=dev,
+                                            **stream_kw)
+        except ValueError as e:
+            # Predictable user errors (a foreign checkpoint, contradicted
+            # sampling parameters, a step mismatch) are one line.
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        except RetryError as e:
+            # A permanent host-read fault: the budget is exhausted, and the
+            # last periodic checkpoint (if any) stays resumable.
+            print(f"error: streamed fit failed after retries: {e}",
+                  file=sys.stderr)
+            if stream_ckpt:
+                ckpt = args.resume or args.checkpoint
+                if latest_step(ckpt) is not None:
+                    print(f"the last checkpoint at {ckpt!r} remains "
+                          "resumable with --resume", file=sys.stderr)
+            return 1
+    finally:
+        if tw_box[0] is not None:
+            tw_box[0].close()
+
+
+def _cmd_continuous(args) -> int:
+    """Run the drift-aware continuous pipeline on ``--device``.
+
+    Prints one JSON line per generation publish on stdout and a final
+    ``done`` line; ``--progress`` adds one line per batch on stderr.  Exit 3
+    on preemption with the resume hint, like every long-running fit.
+    """
+    import functools
+
+    import numpy as np
+
+    from kmeans_tpu_torch.continuous import (ContinuousConfig,
+                                             ContinuousPipeline,
+                                             ModelRegistry, drift_batch)
+    from kmeans_tpu_torch.device import resolve_device
+
+    if args.resume and not args.model_dir:
+        print("error: --resume requires --model-dir (the registry "
+              "checkpoint directory)", file=sys.stderr)
+        return 2
+    if args.batches < 1:
+        print("error: --batches must be >= 1", file=sys.stderr)
+        return 2
+
+    if args.input:
+        x = _load_npy(args.input)
+        if x is None:
+            return 2
+        if x.ndim != 2:
+            print(f"error: {args.input} must be a 2-D array",
+                  file=sys.stderr)
+            return 2
+        n = x.shape[0]
+        if n < args.batch_n:
+            print(f"error: {args.input} has {n} rows < --batch-n "
+                  f"{args.batch_n}", file=sys.stderr)
+            return 2
+
+        def source(t, _x=x, _n=n):
+            # Sequential chunks, cycling: batch t is a pure function of t,
+            # so --resume replays the stream exactly.
+            lo = (t * args.batch_n) % _n
+            idx = (np.arange(args.batch_n) + lo) % _n
+            return np.ascontiguousarray(_x[idx], dtype=np.float32)
+    else:
+        source = functools.partial(
+            drift_batch, n=args.batch_n, d=args.d,
+            k=args.stream_k if args.stream_k is not None else args.k,
+            seed=args.stream_seed, drift_at=args.drift_at,
+            drift=args.drift, drift_len=args.drift_len,
+            cluster_std=args.cluster_std,
+        )
+
+    cfg = ContinuousConfig(
+        k=args.k, window_batches=args.window_batches,
+        compact_above=args.compact_above, coreset_size=args.coreset,
+        refit_iters=args.refit_iters, drift_ratio=args.drift_ratio,
+        ewma_alpha=args.ewma_alpha, ewma_k_sigma=args.ewma_k_sigma,
+        min_refit_batches=args.min_refit_batches,
+        refit_every=args.refit_every,
+        warmup_batches=args.warmup_batches, seed=args.seed,
+    )
+    try:
+        cfg.validate()
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError:
+        print(f"error: no CUDA device is available for --device "
+              f"{args.device}; pass --device cpu to run the kernels' plain "
+              "versions on the CPU", file=sys.stderr)
+        return 2
+    try:
+        registry = ModelRegistry(path=args.model_dir or None,
+                                 keep=args.checkpoint_keep)
+        pipe = ContinuousPipeline(source, cfg, registry=registry,
+                                  resume=args.resume, device=dev)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.resume:
+        # The recovery clock stops at this line: the verified generation
+        # is restored and serving could resume.
+        print(json.dumps({
+            "event": "resumed", "generation": registry.generation,
+            "batch_idx": pipe.batch_idx, "ts": round(time.time(), 6),
+        }), flush=True)
+
+    seen = [registry.generation]
+
+    def on_batch(info):
+        if registry.generation != seen[0]:
+            seen[0] = registry.generation
+            print(json.dumps({
+                "event": "generation", "generation": seen[0],
+                "trigger": info.refit, "batch": info.batch,
+                "inertia_pp": info.inertia_pp,
+                "ts": round(time.time(), 6),
+            }), flush=True)
+        if args.progress:
+            print(json.dumps({"event": "batch", **info.as_dict()}),
+                  file=sys.stderr)
+
+    tw = None
+    if args.telemetry:
+        from kmeans_tpu_torch import obs
+
+        try:
+            obs.probe_writable(args.telemetry)
+        except OSError as e:
+            print(f"error: cannot write telemetry to {args.telemetry!r}: "
+                  f"{e}", file=sys.stderr)
+            return 2
+        tw = obs.TelemetryWriter(args.telemetry, append=True)
+    try:
+        try:
+            gen = pipe.run(args.batches, callback=on_batch, telemetry=tw)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    finally:
+        if tw is not None:
+            tw.close()
+    print(json.dumps({
+        "event": "done", "batches": pipe.batch_idx,
+        "generation": registry.generation,
+        "trigger": gen.trigger if gen is not None else None,
+        "ts": round(time.time(), 6),
+    }), flush=True)
     return 0
 
 
@@ -528,8 +857,9 @@ def main(argv=None) -> int:
     ], help="named BASELINE config (synthetic data at its shape)")
     t.add_argument("--input", help="path to a .npy (n, d) feature matrix")
     t.add_argument("--stream", action="store_true",
-                   help="the out-of-core streamed fits; not ported yet "
-                        "(ROADMAP A8), refused")
+                   help="out-of-core minibatch fit: --input is memory-"
+                        "mapped and batches stream from the host to the "
+                        "device (--model gmm is not ported, ROADMAP A9)")
     t.add_argument("--n", type=int, default=500)
     t.add_argument("--d", type=int, default=2)
     t.add_argument("--k", type=int, default=3)
@@ -557,9 +887,11 @@ def main(argv=None) -> int:
                    help="Lloyd-family iteration cap (default 100); the "
                         "minibatch path is step-based — use --steps")
     t.add_argument("--steps", type=int, default=None,
-                   help="minibatch SGD steps (default 200)")
+                   help="minibatch/stream SGD steps (default 200)")
     t.add_argument("--coreset", type=int, default=None,
-                   help="lightweight coreset (not ported, ROADMAP A9)")
+                   help="reduce the data to an M-point lightweight coreset "
+                        "(Bachem et al. 2018) and run the fit weighted "
+                        "(lloyd, accelerated, trimmed)")
     t.add_argument("--merge-k", type=int, default=None,
                    help="dendrogram merge to a coarser k (not ported, "
                         "ROADMAP A9)")
@@ -568,7 +900,7 @@ def main(argv=None) -> int:
     t.add_argument("--whiten", action="store_true",
                    help="with --pca (not ported, ROADMAP A9)")
     t.add_argument("--batch-size", type=int, default=None,
-                   help="minibatch batch size (default 8192)")
+                   help="minibatch/stream batch size (default 8192)")
     t.add_argument("--update", default=None,
                    choices=["auto", "matmul", "segment", "delta",
                             "hamerly", "yinyang"],
@@ -616,14 +948,15 @@ def main(argv=None) -> int:
     t.add_argument("--progress", action="store_true",
                    help="print one JSON line per Lloyd iteration to stderr")
     t.add_argument("--checkpoint", help="checkpoint directory (periodic "
-                   "saves of the Lloyd runner)")
+                   "saves of the Lloyd runner or the streamed fit)")
     t.add_argument("--checkpoint-every", type=int, default=10)
     t.add_argument("--checkpoint-keep", type=int, default=0,
                    help="retain up to N displaced checkpoints as step-"
                         "tagged siblings (rolling history; 0 = none)")
-    t.add_argument("--resume", help="resume the Lloyd runner from this "
-                   "checkpoint directory (it keeps saving there unless "
-                   "--checkpoint names another)")
+    t.add_argument("--resume", help="resume the Lloyd runner or the "
+                   "streamed fit from this checkpoint directory (it keeps "
+                   "saving there; the runner's unless --checkpoint names "
+                   "another)")
     t.add_argument("--ckpt-dir", help="the sharded engine's elastic "
                    "checkpoint (not ported, ROADMAP A4)")
     t.add_argument("--ckpt-every", type=int, default=None,
@@ -641,8 +974,73 @@ def main(argv=None) -> int:
     t.add_argument("--telemetry", metavar="OUT.jsonl",
                    help="write one JSON telemetry event per iteration to "
                         "this file (inertia, shift, seconds, device, "
-                        "phase); runs the step-paced Lloyd runner")
+                        "phase); runs the step-paced Lloyd runner, or "
+                        "one event a step with --stream")
     t.set_defaults(fn=_cmd_train)
+
+    c = sub.add_parser(
+        "continuous",
+        help="run the drift-aware continuous clustering pipeline",
+    )
+    c.add_argument("--k", type=int, default=4)
+    c.add_argument("--batches", type=int, default=60,
+                   help="total stream length in batches (absolute; a "
+                        "--resume continues from the checkpointed "
+                        "position toward this total)")
+    c.add_argument("--model-dir", default=None, metavar="DIR",
+                   help="model-registry checkpoint directory (each "
+                        "generation publishes here atomically); serve "
+                        "--model-dir points at the same directory")
+    c.add_argument("--resume", action="store_true",
+                   help="restore the newest verified generation from "
+                        "--model-dir and replay the stream from its "
+                        "recorded position")
+    c.add_argument("--input", help="path to a .npy (n, d) matrix streamed "
+                                   "as cycling sequential chunks (default: "
+                                   "synthetic drifting blobs)")
+    c.add_argument("--batch-n", type=int, default=512,
+                   help="rows per stream batch")
+    c.add_argument("--d", type=int, default=8)
+    c.add_argument("--stream-k", type=int, default=None,
+                   help="generating cluster count of the synthetic "
+                        "stream (default: --k)")
+    c.add_argument("--stream-seed", type=int, default=0)
+    c.add_argument("--drift-at", type=int, default=30,
+                   help="batch index where the synthetic centers drift")
+    c.add_argument("--drift", type=float, default=6.0,
+                   help="drift offset norm per center")
+    c.add_argument("--drift-len", type=int, default=0,
+                   help="batches the drift glides over (0 = abrupt)")
+    c.add_argument("--cluster-std", type=float, default=0.6)
+    c.add_argument("--window-batches", type=int, default=8)
+    c.add_argument("--compact-above", type=int, default=32768,
+                   help="window point count that triggers coreset "
+                        "compaction")
+    c.add_argument("--coreset", type=int, default=4096,
+                   help="compacted window coreset size")
+    c.add_argument("--refit-iters", type=int, default=25)
+    c.add_argument("--drift-ratio", type=float, default=0.25)
+    c.add_argument("--ewma-alpha", type=float, default=0.3)
+    c.add_argument("--ewma-k-sigma", type=float, default=6.0)
+    c.add_argument("--min-refit-batches", type=int, default=2)
+    c.add_argument("--refit-every", type=int, default=10,
+                   help="scheduled refit cadence in batches since the "
+                        "last refit (0 disables; drift triggers still "
+                        "fire)")
+    c.add_argument("--warmup-batches", type=int, default=2)
+    c.add_argument("--checkpoint-keep", type=int, default=2,
+                   help="step-tagged retention dirs kept per generation "
+                        "checkpoint")
+    c.add_argument("--seed", type=int, default=0)
+    c.add_argument("--device", default="cuda",
+                   help="where scoring, compactions and refits run: cuda "
+                        "(the default; exits 2 without a card) or cpu "
+                        "(the kernels' plain versions)")
+    c.add_argument("--progress", action="store_true",
+                   help="print one JSON line per batch to stderr")
+    c.add_argument("--telemetry", metavar="OUT.jsonl",
+                   help="append one JSON telemetry event per batch")
+    c.set_defaults(fn=_cmd_continuous)
 
     s = sub.add_parser("serve", help="run the HTTP/SSE board and model "
                                      "server")

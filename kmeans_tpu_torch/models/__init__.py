@@ -1,6 +1,7 @@
 """Fit models of the port: initialization, full-batch Lloyd, the
-step-paced runner, the accelerated fits, minibatch and trimmed k-means, and
-the dendrogram merge of fitted centroids."""
+step-paced runner, the accelerated fits, minibatch (in memory and streamed
+from the host) and trimmed k-means, and the dendrogram merge of fitted
+centroids."""
 
 from kmeans_tpu_torch.models.accelerated import fit_lloyd_accelerated
 from kmeans_tpu_torch.models.hierarchy import (centroid_linkage, cut_linkage,
@@ -10,6 +11,8 @@ from kmeans_tpu_torch.models.lloyd import (KMeans, KMeansState, fit_lloyd,
 from kmeans_tpu_torch.models.minibatch import (MiniBatchKMeans, batch_update,
                                                fit_minibatch, nested_ladder)
 from kmeans_tpu_torch.models.runner import IterInfo, LloydRunner
+from kmeans_tpu_torch.models.streaming import (assign_stream,
+                                               fit_minibatch_stream)
 from kmeans_tpu_torch.models.trimmed import (TrimmedKMeans, TrimmedState,
                                              fit_trimmed)
 
@@ -62,6 +65,7 @@ def state_objective(state) -> float:
 __all__ = ["KMeans", "KMeansState", "fit_lloyd", "fit_plan",
            "fit_lloyd_accelerated", "fit_minibatch", "MiniBatchKMeans",
            "nested_ladder", "batch_update", "LloydRunner", "IterInfo",
+           "fit_minibatch_stream", "assign_stream",
            "TrimmedKMeans", "TrimmedState", "fit_trimmed", "centroid_linkage",
            "cut_linkage", "merge_to_k", "state_centers", "state_counts",
            "state_objective"]

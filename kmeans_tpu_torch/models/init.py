@@ -18,7 +18,8 @@ from kmeans_tpu_torch.device import as_tensor, resolve_device
 from kmeans_tpu_torch.ops.distance import full_f32, resolve_cd, sq_norms
 
 __all__ = ["random_init", "kmeans_plus_plus", "kmeans_parallel",
-           "init_centroids", "resolve_fit_config", "resolve_fit_inputs"]
+           "init_centroids", "resolve_fit_config", "resolve_fit_inputs",
+           "host_subsample_seed"]
 
 
 def _gumbel(n: int, generator: torch.Generator, device) -> torch.Tensor:
@@ -209,3 +210,34 @@ def resolve_fit_inputs(x, k, generator, config, init, weights):
             compute_dtype=cfg.compute_dtype, chunk_size=cfg.chunk_size,
         )
     return cfg, gen, c0
+
+
+def host_subsample_seed(data, k, generator, cfg, init, *, host_seed,
+                        device):
+    """The streamed fits' seeding: ``init`` resolved against host-resident
+    ``data`` (an ndarray or memmap), as the reference's.
+
+    An explicit (k, d) array is shape-checked before any read; otherwise
+    the configured init method runs on ``device`` over a host-gathered
+    subsample: ``min(n, max(64·k, 65536))`` distinct rows from
+    ``np.random.default_rng(host_seed)``, sorted (a forward scan on a
+    memmap), the reference's rows exactly.  The init method's own draws
+    come from ``generator``.  Returns ``c0`` (k, d) float32 on ``device``.
+    """
+    import numpy as np
+
+    n, d = data.shape
+    if init is not None and not isinstance(init, str):
+        c0 = as_tensor(init, device, torch.float32)
+        if tuple(c0.shape) != (k, d):
+            raise ValueError(
+                f"init centroids shape {tuple(c0.shape)} != {(k, d)}")
+        return c0
+    sub = min(n, max(4 * k * 16, 65536))
+    rng = np.random.default_rng(host_seed)
+    sidx = np.sort(rng.choice(n, size=sub, replace=False))
+    xs = as_tensor(np.ascontiguousarray(data[sidx]), device)
+    method = init if isinstance(init, str) else cfg.init
+    return init_centroids(generator, xs, k, method=method,
+                          compute_dtype=cfg.compute_dtype,
+                          chunk_size=cfg.chunk_size)

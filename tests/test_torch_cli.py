@@ -4,8 +4,9 @@ Each behaviour test of the reference's CLI suite (``tests/test_cli.py``,
 the CLI tests of ``tests/test_obs.py`` and ``tests/test_tracing.py``) runs
 its body once through each package's ``main`` (``side``; the port's with
 ``--device cpu`` appended).  Where a body asks for something the port does
-not have yet (``--stream``, a family of ROADMAP A9), the port's side holds
-the refusal instead: exit code 2 and one line naming the queue item.  The
+not have yet (a family of ROADMAP A9, the sharded engine of A4), the port's
+side holds the refusal instead: exit code 2 and one line naming the queue
+item.  The
 flag guards run through both ``main``s and must give the same exit code and
 the same stderr, line for line.  A fit through both on the same
 well-separated ``--input`` must give result lines with the same keys and
@@ -228,8 +229,7 @@ def test_cli_runner_resume_corrupt_one_line_error(side, tmp_path, capsys):
 
 @pytest.mark.parametrize("side", SIDES)
 def test_cli_checkpoint_keep_creates_step_dirs(side, tmp_path, capsys):
-    """The streamed fits' retention (the port has no streamed fits yet:
-    --stream is refused, A8, and nothing is written)."""
+    """The streamed fit's retention: two step-tagged siblings kept."""
     data = tmp_path / "x.npy"
     np.save(data, np.random.default_rng(0).normal(
         size=(400, 4)).astype(np.float32))
@@ -241,11 +241,8 @@ def test_cli_checkpoint_keep_creates_step_dirs(side, tmp_path, capsys):
     ])
     tagged = sorted(p for p in os.listdir(tmp_path)
                     if p.startswith("ck.step-"))
-    if side == "ref":
-        assert rc == 0
-        assert tagged == ["ck.step-00000002", "ck.step-00000003"]
-    else:
-        assert rc == 2 and _refused(err, "A8") and tagged == []
+    assert rc == 0, err
+    assert tagged == ["ck.step-00000002", "ck.step-00000003"]
 
 
 @pytest.mark.parametrize("side", SIDES)
@@ -298,8 +295,8 @@ def test_cli_failed_resume_preserves_existing_telemetry(side, tmp_path,
 @pytest.mark.parametrize("side", SIDES)
 def test_cli_failed_stream_resume_preserves_existing_telemetry(
         side, tmp_path, capsys):
-    """A refused or failed streamed resume leaves an earlier run's
-    telemetry as it was (the port refuses --stream: A8)."""
+    """A refused streamed resume leaves an earlier run's telemetry as it
+    was."""
     data = np.random.default_rng(0).normal(size=(1000, 3)) \
         .astype(np.float32)
     npy = str(tmp_path / "x.npy")
@@ -308,20 +305,19 @@ def test_cli_failed_stream_resume_preserves_existing_telemetry(
     ck = str(tmp_path / "ck")
     prior = '{"event":"iter","iteration":1}\n'
     out.write_text(prior, encoding="utf-8")
-    if side == "ref":
-        rc = _main(side)(["train", "--stream", "--input", npy, "--k", "2",
-                          "--steps", "3", "--batch-size", "128",
-                          "--checkpoint", ck, "--telemetry", str(out)])
-        assert rc == 0
-        prior = out.read_text(encoding="utf-8")
-        assert prior.count("\n") == 3
-        capsys.readouterr()
+    rc = _main(side)(["train", "--stream", "--input", npy, "--k", "2",
+                      "--steps", "3", "--batch-size", "128",
+                      "--checkpoint", ck, "--telemetry", str(out)])
+    assert rc == 0
+    prior = out.read_text(encoding="utf-8")
+    assert prior.count("\n") == 3
+    capsys.readouterr()
     rc = _main(side)(["train", "--stream", "--input", npy, "--k", "2",
                       "--steps", "3", "--batch-size", "512",
                       "--resume", ck, "--telemetry", str(out)])
     assert rc == 2
     err = capsys.readouterr().err
-    assert "contradicts" in err if side == "ref" else _refused(err, "A8")
+    assert "contradicts" in err
     assert out.read_text(encoding="utf-8") == prior
 
 
@@ -474,7 +470,8 @@ def test_export_bytes_equal_the_references(tmp_path, capsys):
 
 
 REFUSED = [
-    (["--stream", "--input", "x.npy"], "A8"),
+    (["--stream", "--input", "x.npy", "--model", "gmm"], "A9"),
+    (["--stream", "--input", "x.npy", "--mesh", "2"], "A4"),
     (["--mesh", "2"], "A4"),
     (["--ckpt-dir", "ck"], "A4"),
     (["--ckpt-every", "3"], "A4"),
@@ -484,7 +481,6 @@ REFUSED = [
     (["--model", "trimmed", "--mesh", "2"], "A4"),
     (["--pca", "1"], "A9"),
     (["--whiten"], "A9"),
-    (["--coreset", "100"], "A9"),
     (["--merge-k", "2"], "A9"),
 ]
 

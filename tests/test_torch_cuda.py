@@ -942,3 +942,102 @@ def test_trimmed_fit_on_the_card_matches_the_plain_backend(card, k, budget):
     assert not bool(got.outlier_mask[w == 0].any())
     _close(got.centroids, want.centroids)
     _close(got.counts, want.counts)
+
+
+def _host_blobs(seed, n, d, k):
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(size=(k, d)).astype(np.float32) * 6
+    lab = rng.integers(0, k, size=n)
+    x = (centres[lab] + rng.normal(size=(n, d))).astype(np.float32)
+    pick = [int(np.flatnonzero(lab == j)[0]) for j in range(k)]
+    return x, x[pick].copy()
+
+
+@pytest.mark.parametrize("background", [False, True])
+@pytest.mark.parametrize("to_bf16", [False, True])
+def test_pinned_prefetch_on_the_card_keeps_order_and_values(card, background,
+                                                            to_bf16):
+    """Batches gathered into the pinned ring and copied on the side stream
+    arrive on the card in order, equal to a fresh host gather, with the
+    native gather only."""
+    from kmeans_tpu_torch.data import stream
+    from kmeans_tpu_torch.native import loader
+
+    x, _ = _host_blobs(3, 20_000, 256, 4)
+    dtype = torch.bfloat16 if to_bf16 else torch.float32
+    ring = stream.staging_ring(card, 2, 512, 256, dtype)
+    assert all(b.is_pinned() for b in ring.bufs) and len(ring.bufs) == 3
+    loader.reset_gather_counts()
+    got = [b.clone() for b in stream.prefetch_to_device(
+        stream.sample_batches(x, 512, 12, seed=5, to_bf16=to_bf16,
+                              ring=ring),
+        depth=2, device=card, background=background, ring=ring)]
+    assert loader.gather_counts() == {"native": 12, "numpy": 0}
+    want = list(stream.sample_batches(x, 512, 12, seed=5, to_bf16=to_bf16))
+    assert len(got) == 12
+    for a, b in zip(got, want):
+        assert a.is_cuda and a.dtype == dtype
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("transfer,cd", [(None, None), ("auto", "bfloat16")])
+def test_streamed_fit_on_the_card_matches_a_replay(card, transfer, cd):
+    """``fit_minibatch_stream`` on the card equals, bit for bit, the same
+    batches through ``batch_update`` on card-resident copies; its final
+    pass is K1 and gives the plain backend's labels."""
+    from kmeans_tpu_torch.data.stream import sample_batches
+    from kmeans_tpu_torch.models.minibatch import batch_update
+    from kmeans_tpu_torch.models.streaming import (assign_stream,
+                                                   fit_minibatch_stream)
+
+    x, c0 = _host_blobs(4, 30_000, 128, 6)
+    to_bf16 = transfer == "auto"
+    K.reset_launch_counts()
+    st = fit_minibatch_stream(
+        x, 6, init=c0, transfer_dtype=transfer, device=card,
+        config=KMeansConfig(k=6, steps=40, batch_size=1024,
+                            compute_dtype=cd))
+    assert K.launch_counts()["lloyd_pass_cuda"] >= 1
+    c = torch.from_numpy(c0).to(card)
+    n_seen = torch.zeros(6, device=card)
+    for xb in sample_batches(x, 1024, 40, to_bf16=to_bf16):
+        c, n_seen, _, _ = batch_update(c, n_seen, xb.to(card),
+                                       compute_dtype=cd)
+    assert torch.equal(st.centroids, c)
+    lab, inertia = assign_stream(x, st.centroids, chunk_size=8192,
+                                 compute_dtype=cd, backend="plain",
+                                 device=card)
+    assert np.array_equal(st.labels.cpu().numpy(), lab)
+    np.testing.assert_allclose(float(st.inertia), inertia, rtol=1e-4)
+
+
+def test_continuous_pipeline_on_the_card_matches_the_cpu(card):
+    """The pipeline on the card (K1 for the batch inertia and the
+    coresets, K1 and K2 in the refits) against the same pipeline on the
+    CPU, with no compaction (the two devices' generators draw differently):
+    the same triggers and generations, per-point inertia to 1e-3."""
+    import functools
+
+    from kmeans_tpu_torch.continuous import (ContinuousConfig,
+                                             ContinuousPipeline,
+                                             ModelRegistry, drift_batch)
+
+    src = functools.partial(drift_batch, n=512, d=16, k=4, seed=2,
+                            drift_at=8, drift=12.0)
+    runs = {}
+    for dev in (card, torch.device("cpu")):
+        infos = []
+        K.reset_launch_counts()
+        pipe = ContinuousPipeline(
+            src, ContinuousConfig(k=4, refit_every=5), device=dev,
+            registry=ModelRegistry())
+        pipe.run(20, callback=infos.append)
+        runs[dev.type] = (infos, K.launch_counts())
+    (a, launches), (b, cpu_launches) = runs["cuda"], runs["cpu"]
+    assert [(i.refit, i.generation) for i in a] == \
+        [(i.refit, i.generation) for i in b]
+    assert "drift" in {i.refit for i in a}
+    np.testing.assert_allclose([i.inertia_pp or 0.0 for i in a],
+                               [i.inertia_pp or 0.0 for i in b], rtol=1e-3)
+    assert launches["lloyd_pass_cuda"] > 0 and launches["lloyd_delta_cuda"] > 0
+    assert sum(cpu_launches.values()) == 0
