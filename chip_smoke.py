@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 from the root of a checkout.  It builds the port's CUDA kernels from
-``kmeans_tpu_torch/csrc/lloyd.cu`` and runs fifteen phases, exiting
+``kmeans_tpu_torch/csrc/lloyd.cu`` and runs sixteen phases, exiting
 non-zero if any fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -188,7 +188,7 @@ non-zero if any fails:
    and assign clients attached (``stop()`` well under ``fleet_drain_s``,
    no accepted request unanswered); the board server's K5 launches (the
    stop drill's model) and K6 launches (the train op's trimmed fits at d =
-   2) are printed and on no row of phase 15;
+   2) are printed and on no row of phase 16;
 14. out-of-core streaming and continuous clustering, each run's launch
    counts set to 0 before it and read after: imagenet-stream (the
    headline's 1.28M x 2048 f32 rows in host memory, ``fit_minibatch_stream``
@@ -214,7 +214,31 @@ non-zero if any fails:
    --model-dir D`` beside a second run, CONT_CLIENTS keep-alive clients, a
    reload after each generation line, every response held to K5's labels
    of its generation, no 503 and no drop);
-15. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+15. the data-parallel engine (``kmeans_tpu_torch.parallel``), each run's
+   launch counts set to 0 before it and read after, on every rank:
+   imagenet-dp1-nccl (``fit_lloyd_sharded(update="delta")`` on an NCCL mesh
+   of one in this process, MESH_SWEEPS sweeps on phase 4's data and c0,
+   held to ``fit_lloyd`` from the same c0 -- labels but ties, centroids
+   within SUMS_RTOL, inertia within FIT_INERTIA_RTOL -- both timed here);
+   then a gloo mesh of two ranks sharing the card (``chip_smoke.py
+   --mesh-rank SPEC``): the three collectives on card tensors through
+   gloo, each result checked, then imagenet-dp2-gloo (``update`` matmul,
+   delta, hamerly and yinyang, each under ``comm="allreduce"`` and
+   ``"scatter"``, held to the single-device fit of its flavour by
+   inertia, by ties at each run's centroids and by its last sweep, one
+   card's classic pass bit for bit; each sweep
+   split into the local pass, the merge and the update by host clock and
+   CUDA events, and the collectives' payload beside
+   ``_sweep_collective_bytes``), codebook-dp2-gloo (k = 65536 on phase 6's
+   data, MESH_CODEBOOK_SWEEPS delta sweeps, K5 and K6 on each rank,
+   scatter against allreduce and the single-device fit) and
+   cifar10-dp2-minibatch (``fit_minibatch_sharded`` for MB_STEPS steps of
+   MB_BATCH, its centroids against a replay of both ranks' draws on one
+   device, steps/s beside the single-device fit's); then train-mesh (``cli
+   train --mesh N`` for lloyd and minibatch in child processes, N the card
+   count, or ``--mesh 2 --device cpu`` at a small shape on a
+   one-card host, against ``--mesh 1``);
+16. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.  A kernel has a row for each compute dtype its main-path runs
    score in: bf16 (phases 4, 6, 9, 12's in-process and bf16 runs, 13's
    in-process trimmed runs and 14's bf16 stream) and f32 (the route's K1,
@@ -235,7 +259,7 @@ build at their first call); ``--serve-http`` and ``--fleet`` run phases 1
 and 10, and 1 and 11, on ``make_blobs`` centres; ``--runner`` runs phases
 1, 2 and 12 (it makes phase 6's fit itself); ``--board`` runs phases 1
 and 13 (the kernels build at their first call); ``--stream`` runs phases
-1, 2 and 14.
+1, 2 and 14; ``--mesh`` runs phases 1, 2 and 15.
 
 The bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of memory, 989
 TFLOP/s bf16 on the tensor cores and 67 TFLOP/s f32 outside them; an f32
@@ -6954,6 +6978,609 @@ def phase_stream(card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the data-parallel engine
+# ---------------------------------------------------------------------------
+
+#: Sweeps of each imagenet-dp run: the delta refresh at sweep 16 runs.
+MESH_SWEEPS = 20
+#: codebook-dp2-gloo's depth cut: the refresh sweep and one delta sweep.
+MESH_CODEBOOK_SWEEPS = 2
+#: The update flavours and merges of imagenet-dp2-gloo.
+MESH_UPDATES = ("matmul", "delta", "hamerly", "yinyang")
+MESH_COMMS = ("allreduce", "scatter")
+#: Seconds the two-rank world of phase 15 may take, data and fits included.
+MESH_TIMEOUT_S = 600
+#: train-mesh's small shape for ``--mesh 2 --device cpu`` on one card.
+MESH_CLI_SMALL = ["--n", "4000", "--d", "16", "--k", "8"]
+
+
+def _mesh_fit(mesh, x, k, c0, update, comm, sweeps):
+    """One timed ``fit_lloyd_sharded`` on ``mesh``: the launch counts and
+    the mesh's collective counters set to 0 just before it and read just
+    after, each sweep split by host clock and CUDA events.  Returns
+    ``(state, seconds, launches, stats, split)``."""
+    import torch
+
+    from kmeans_tpu_torch.config import KMeansConfig
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.parallel import fit_lloyd_sharded
+    from kmeans_tpu_torch.parallel.engine import sweep_split
+
+    cfg = KMeansConfig(k=k, update=update, comm=comm,
+                       compute_dtype="bfloat16")
+    mesh.barrier()
+    _sync()
+    K.reset_launch_counts()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    with sweep_split(mesh) as sp:
+        state = fit_lloyd_sharded(x, k, mesh=mesh, config=cfg, init=c0,
+                                  max_iter=sweeps, tol=-1.0)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (state, secs, K.launch_counts(),
+            {op: list(v) for op, v in mesh.stats.items()}, sp.summary())
+
+
+def _single_fit(x, k, c0, update, sweeps):
+    """The single-device fit of ``update`` from ``c0``: ``(state, seconds,
+    launches)``."""
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    cfg = kt.KMeansConfig(k=k, update=update, compute_dtype="bfloat16")
+    _sync()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = kt.fit_lloyd(x, k, config=cfg, init=c0, max_iter=sweeps,
+                         tol=-1.0)
+    _sync()
+    return state, time.perf_counter() - t0, K.launch_counts()
+
+
+def _check_labels_pair(name, x, c_a, lab_a, c_b, lab_b, cd):
+    """Two fits' final labels, each at its own centroids: they agree but on
+    rows where each label is within SCORE_RTOL of its own run's f64
+    minimum and the other run's label scores within SCORE_RTOL plus the
+    two runs' centroid difference (the f64 change of those two scores from
+    ``c_b`` to ``c_a``) of the minimum at ``c_a``: a tie to within the
+    rounding by which the runs' centroids differ.  Returns ``(rows that
+    differ, the largest such score change)``."""
+    rows = (lab_a != lab_b).nonzero()[:, 0]
+    worst = 0.0
+    for part in rows.split(1024):
+        if not part.numel():
+            continue
+        s_a, scale_a = _scores64(x[part], c_a, cd)
+        s_b, scale_b = _scores64(x[part], c_b, cd)
+        _near_min(name, s_a, scale_a, lab_a[part])
+        _near_min(f"{name} (other run)", s_b, scale_b, lab_b[part])
+        la = lab_a[part].long()[:, None]
+        lb = lab_b[part].long()[:, None]
+        drift = ((s_a.gather(1, la) - s_b.gather(1, la)).abs()
+                 + (s_a.gather(1, lb) - s_b.gather(1, lb)).abs())[:, 0]
+        gap = s_a.gather(1, lb)[:, 0] - s_a.min(dim=1).values
+        tol = SCORE_RTOL * scale_a.gather(1, lb)[:, 0] + drift
+        _check(bool((gap <= tol).all()),
+               f"{name}: {int((gap > tol).sum())} rows labelled apart "
+               "beyond a tie within the runs' centroid difference")
+        worst = max(worst, float(drift.max()))
+    return int(rows.numel()), worst
+
+
+def _hold_to_single(name, x, got, want, cd, same_centroids=False):
+    """A sharded fit against the single-device fit of its flavour from the
+    same c0.  The trajectory: the same sweeps, each run's labels a
+    near-tie argmin at its own centroids wherever they differ
+    (:func:`_check_labels_pair`), the inertia within FIT_INERTIA_RTOL and,
+    with ``same_centroids``, the centroids within SUMS_RTOL.  A sharded
+    merge sums each cluster's rows in another order than one card's fold
+    core, so two runs' centroids differ at f32 rounding from the first
+    sweep on; a row that ties to within that rounding may then take the
+    other label and move both its clusters' means by ≈ 1/count of a row,
+    so only a run that sums in one place holds the centroids to SUMS_RTOL.
+    The last sweep exactly: one card's classic pass at the sharded fit's
+    final centroids gives its labels and counts bit for bit and its
+    inertia within SUMS_RTOL.  Returns ``(rows moved, centroid error,
+    relative inertia difference)``."""
+    import kmeans_tpu_torch as kt
+
+    _check(int(got.n_iter) == int(want.n_iter),
+           f"{name}: {int(got.n_iter)} sweeps against {int(want.n_iter)}")
+    _check(_finite(got.centroids) and math.isfinite(float(got.inertia)),
+           f"{name}: non-finite result")
+    moved, _ = _check_labels_pair(name, x, got.centroids, got.labels,
+                                  want.centroids, want.labels, cd)
+    err = float((got.centroids - want.centroids).abs().max())
+    if same_centroids:
+        _close(f"{name} centroids", got.centroids, want.centroids)
+    rel = abs(float(got.inertia) - float(want.inertia)) / float(want.inertia)
+    _check(rel <= FIT_INERTIA_RTOL,
+           f"{name}: inertia {float(got.inertia)!r} against "
+           f"{float(want.inertia)!r} (relative {rel:.3e})")
+    labels, _, _, counts, inertia = kt.lloyd_pass(
+        x, got.centroids, compute_dtype=cd, device=x.device)
+    _check(_equal(labels, got.labels) and _equal(counts, got.counts),
+           f"{name}: the final labels or counts are not one card's classic "
+           "pass at the same centroids")
+    _close(f"{name} final inertia", got.inertia, inertia)
+    return moved, err, rel
+
+
+def _equal(a, b):
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
+def _split_line(split):
+    """Median milliseconds of each part of a run's sweeps: host clock and
+    CUDA events."""
+    parts = {}
+    for sweep in split:
+        for name, (host, dev) in sweep.items():
+            parts.setdefault(name, []).append((host, dev))
+    return ", ".join(
+        f"{name} {statistics.median(h for h, _ in v):.3f} host / "
+        f"{statistics.median(d for _, d in v):.3f} device ms"
+        for name, v in parts.items())
+
+
+def _gloo_probe(mesh):
+    """The mesh's three collectives on card tensors over gloo, called as
+    the engine calls them (no staging through the host): the sum, the
+    reduce-scattered block and the rank-ordered gather must be right.
+    Returns the torch and CUDA versions they ran on."""
+    import torch
+
+    t = torch.full((4, 3), float(mesh.rank + 1), device=mesh.device)
+    want_sum = float(sum(range(1, mesh.size + 1)))
+    _check(float(mesh.all_reduce(t.clone())[0, 0]) == want_sum,
+           "gloo all_reduce on the card: wrong sum")
+    got = mesh.reduce_scatter(torch.cat([t] * mesh.size))
+    _check(got.is_cuda and tuple(got.shape) == (4, 3)
+           and bool((got == want_sum).all()),
+           "gloo reduce_scatter on the card: wrong block")
+    got = mesh.all_gather(t[:1])
+    _check(got.is_cuda and [float(v) for v in got[:, 0]]
+           == [float(r + 1) for r in range(mesh.size)],
+           "gloo all_gather on the card: wrong order")
+    return f"torch {torch.__version__}, CUDA {torch.version.cuda}"
+
+
+def _mesh_rank(spec) -> int:
+    """``chip_smoke.py --mesh-rank SPEC``: one rank of phase 15's two-rank
+    gloo world on the one card (``WORLD_SIZE`` / ``RANK`` / ``MASTER_*``
+    from the parent).  Runs imagenet-dp2-gloo, codebook-dp2-gloo and
+    cifar10-dp2-minibatch; rank 0 also runs the single-device fits and
+    holds each sharded run to its counterpart.  Writes the rank's launches,
+    times, collective counters and splits to ``spec["out"] % rank``."""
+    import torch.distributed as dist
+
+    from kmeans_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh((2, 1), ("data", "model"),
+                     devices=["cuda:0", "cuda:0"], backend="gloo")
+    out = {"rank": mesh.rank, "runs": {}}
+    try:
+        out["probe"] = _gloo_probe(mesh)
+        _mesh_rank_headline(mesh, out)
+        _mesh_rank_codebook(mesh, out)
+        _mesh_rank_minibatch(mesh, out)
+    finally:
+        with open(spec["out"] % mesh.rank, "w", encoding="utf-8") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _mesh_rank_headline(mesh, out):
+    """imagenet-dp2-gloo on one rank."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.init import random_init
+
+    n, d, k = HEADLINE["n"], HEADLINE["d"], HEADLINE["k"]
+    bf16 = torch.bfloat16
+    x, _, _ = kt.make_blobs(0, n, d, k, dtype=bf16)
+    c0 = random_init(torch.Generator(device="cuda").manual_seed(1), x, k)
+    singles = {}
+    if mesh.rank == 0:
+        for update in MESH_UPDATES:
+            singles[update] = _single_fit(x, k, c0, update, MESH_SWEEPS)
+            st, secs, launches = singles[update]
+            out["runs"][f"single {update}"] = {
+                "seconds": secs, "launches": launches}
+            print(f"imagenet-dp2-gloo: single-device {update} fit, "
+                  f"{MESH_SWEEPS} sweeps + final view, {secs:.3f} s "
+                  f"({1e3 * secs / MESH_SWEEPS:.3f} ms a sweep), inertia "
+                  f"{float(st.inertia):.6e}, launches {launches}",
+                  flush=True)
+    # A warm-up: the rank's first call of each sweep function loads the
+    # kernel library; its launches count on no row.
+    for update in MESH_UPDATES:
+        _mesh_fit(mesh, x, k, c0, update, "allreduce", 1)
+    for update in MESH_UPDATES:
+        for comm in MESH_COMMS:
+            name = f"imagenet-dp2-gloo {update} {comm}"
+            st, secs, launches, stats, split = _mesh_fit(
+                mesh, x, k, c0, update, comm, MESH_SWEEPS)
+            out["runs"][name] = {"seconds": secs, "launches": launches,
+                                 "stats": stats, "split": split}
+            need = {"matmul": "lloyd_pass_cuda", "delta": "lloyd_delta_cuda",
+                    "hamerly": "lloyd_hamerly_cuda",
+                    "yinyang": "lloyd_hamerly_cuda"}[update]
+            _check(launches[need] >= 1 and launches["lloyd_pass_cuda"] >= 1,
+                   f"{name}: rank {mesh.rank} launched {launches}")
+            if mesh.rank == 0:
+                moved, err, rel = _hold_to_single(name, x, st,
+                                                  singles[update][0], bf16)
+                print(f"{name}: {secs:.3f} s ({1e3 * secs / MESH_SWEEPS:.3f}"
+                      f" ms a sweep, two ranks sharing the card's SMs, "
+                      f"merges through gloo on the host: not a scaling "
+                      f"number); against the single-device fit: {moved} "
+                      f"labels moved (ties at each run's centroids), "
+                      f"centroids max abs diff {err:.3e}, inertia rel "
+                      f"{rel:.3e}; the final pass one card's at the same "
+                      f"centroids; launches {launches}", flush=True)
+    del x
+
+
+def _mesh_rank_codebook(mesh, out):
+    """codebook-dp2-gloo on one rank: K5 and K6 on each rank's rows."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.init import random_init
+
+    n, d, k = CODEBOOK["n"], CODEBOOK["d"], CODEBOOK["k"]
+    bf16 = torch.bfloat16
+    x, _, _ = kt.make_blobs(11, n, d, k, dtype=bf16)
+    c0 = random_init(torch.Generator(device="cuda").manual_seed(2), x, k)
+    torch.cuda.reset_peak_memory_stats()
+    single = None
+    if mesh.rank == 0:
+        single, secs, launches = _single_fit(x, k, c0, "delta",
+                                             MESH_CODEBOOK_SWEEPS)
+        out["runs"]["single codebook delta"] = {"seconds": secs,
+                                                "launches": launches}
+        print(f"codebook-dp2-gloo: single-device delta fit, "
+              f"{MESH_CODEBOOK_SWEEPS} sweeps + final view, {secs:.3f} s, "
+              f"launches {launches}", flush=True)
+    states = {}
+    for comm in MESH_COMMS:
+        name = f"codebook-dp2-gloo delta {comm}"
+        st, secs, launches, stats, split = _mesh_fit(
+            mesh, x, k, c0, "delta", comm, MESH_CODEBOOK_SWEEPS)
+        out["runs"][name] = {"seconds": secs, "launches": launches,
+                             "stats": stats, "split": split}
+        _check(launches["tiled_argmin_cuda"] >= 1
+               and launches["tiled_fold_cuda"] >= 1
+               and not launches["lloyd_pass_cuda"]
+               and not launches["lloyd_delta_cuda"],
+               f"{name}: rank {mesh.rank} did not tile: {launches}")
+        states[comm] = st
+        if mesh.rank == 0:
+            moved, err, rel = _hold_to_single(name, x, st, single, bf16)
+            print(f"{name}: {secs:.3f} s; against the single-device fit: "
+                  f"{moved} labels moved (ties), centroids max abs diff "
+                  f"{err:.3e}, inertia rel {rel:.3e}; launches {launches}",
+                  flush=True)
+    out["codebook_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if mesh.rank == 0:
+        a, s = states["allreduce"], states["scatter"]
+        moved, _ = _check_labels_pair(
+            "codebook-dp2-gloo scatter vs allreduce", x, s.centroids,
+            s.labels, a.centroids, a.labels, bf16)
+        err = float((s.centroids - a.centroids).abs().max())
+        print(f"codebook-dp2-gloo: scatter against allreduce: {moved} labels "
+              f"moved (ties), centroids max abs diff {err:.3e}", flush=True)
+    del x
+
+
+def _mesh_rank_minibatch(mesh, out):
+    """cifar10-dp2-minibatch on one rank (BASELINE config 5's engine at
+    cifar10's shape); rank 0 replays both ranks' draws on one device."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.minibatch import (apply_batch_stats,
+                                                   batch_stats)
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.parallel import engine as E
+    from kmeans_tpu_torch.parallel import fit_minibatch_sharded, sharded_assign
+
+    n, d, k = CIFAR10["n"], CIFAR10["d"], CIFAR10["k"]
+    x, _, _ = kt.make_blobs(0, n, d, k)
+    c0 = kt.kmeans_plus_plus(torch.Generator(device="cuda").manual_seed(3),
+                             x, k)
+    cfg = kt.KMeansConfig(k=k, batch_size=MB_BATCH, steps=MB_STEPS, seed=0)
+    fit_minibatch_sharded(x, k, mesh=mesh, config=cfg, init=c0, steps=2)
+    mesh.barrier()
+    _sync()
+    K.reset_launch_counts()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    st = fit_minibatch_sharded(x, k, mesh=mesh, config=cfg, init=c0)
+    _sync()
+    secs = time.perf_counter() - t0
+    launches = K.launch_counts()
+    stats = {op: list(v) for op, v in mesh.stats.items()}
+    mesh.barrier()
+    t0 = time.perf_counter()
+    sharded_assign(x, st.centroids, mesh=mesh)
+    _sync()
+    final_s = time.perf_counter() - t0
+    out["runs"]["cifar10-dp2-minibatch"] = {
+        "seconds": secs, "final_s": final_s, "launches": launches,
+        "stats": stats}
+    _check(launches["lloyd_pass_cuda"] >= 1,
+           f"cifar10-dp2-minibatch: rank {mesh.rank} launched no K1")
+    if mesh.rank != 0:
+        return
+    # The replay: both ranks' index sets, their stats summed, the update.
+    dp = mesh.size
+    n_loc = -(-n // dp)
+    b_loc = MB_BATCH // dp
+    seed = E.minibatch_loop_seed(
+        torch.Generator(device="cuda").manual_seed(0), "cuda")
+    gens = [E.minibatch_rank_generator(seed, r, "cuda") for r in range(dp)]
+    shard = [E._minibatch_shard(n, n_loc, dp, r) for r in range(dp)]
+    c = c0.clone()
+    n_seen = torch.zeros(k, device="cuda")
+    for _ in range(MB_STEPS):
+        bc = bs = None
+        for r in range(dp):
+            n_valid, s_i = shard[r]
+            idx = torch.randint(0, max(n_valid, 1), (b_loc,),
+                                generator=gens[r], device="cuda")
+            c_r, s_r, _ = batch_stats(c, x[r * n_loc + idx],
+                                      compute_dtype=None, row_weight=s_i)
+            bc = c_r if bc is None else bc + c_r
+            bs = s_r if bs is None else bs + s_r
+        c, n_seen, _ = apply_batch_stats(c, n_seen, bc, bs)
+    err = _close("cifar10-dp2-minibatch against its replay", st.centroids, c)
+    single_cfg = kt.KMeansConfig(k=k, batch_size=MB_BATCH, steps=MB_STEPS,
+                                 seed=0)
+    kt.fit_minibatch(x, k, config=single_cfg, init=c0, steps=2)
+    _sync()
+    t0 = time.perf_counter()
+    one = kt.fit_minibatch(x, k, config=single_cfg, init=c0)
+    _sync()
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kt.lloyd_pass(x, one.centroids)
+    _sync()
+    one_final = time.perf_counter() - t0
+    steps_s = MB_STEPS / max(secs - final_s, 1e-9)
+    one_steps_s = MB_STEPS / max(one_s - one_final, 1e-9)
+    print(f"cifar10-dp2-minibatch: {MB_STEPS} steps of {MB_BATCH} "
+          f"({b_loc} a rank) in {secs:.3f} s with the final sharded "
+          f"assignment ({final_s:.3f} s): {steps_s:.1f} steps/s, against "
+          f"the single-device fit's {one_steps_s:.1f} steps/s ({one_s:.3f} "
+          f"s, final sweep {one_final:.3f} s) on the same card, two ranks "
+          f"sharing it; centroids against the replay of both ranks' draws "
+          f"on one device: max abs err {err:.3e}; inertia "
+          f"{float(st.inertia):.6e} (single-device {float(one.inertia):.6e})"
+          f"; all-reduces {stats['all_reduce']}; launches {launches}",
+          flush=True)
+
+
+def _mesh_world(card, tmp):
+    """Spawn phase 15's two-rank gloo world on the one card and wait for it
+    (a rank that fails stops the other).  Returns each rank's record."""
+    import os
+
+    from kmeans_tpu_torch.parallel.mesh import free_port
+
+    spec = {"out": f"{tmp}/mesh-rank%d.json"}
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE="2",
+               PYTHONUNBUFFERED="1")
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+         json.dumps(spec)], cwd=root,
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r))) for r in range(2)]
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    rcs = [p.returncode for p in procs]
+    _check(rcs == [0, 0], f"phase 15's gloo world: rank exit codes {rcs}")
+    return [json.load(open(spec["out"] % r, encoding="utf-8"))
+            for r in range(2)]
+
+
+def _mesh_cli(card, tmp):
+    """train-mesh: ``cli train --mesh N`` for lloyd and minibatch in child
+    processes, N the host's card count where it is 2 or more; on one card,
+    ``--mesh 2 --device cpu`` at a small shape (the launcher, the result
+    line and ``--out``), against ``--mesh 1``."""
+    import os
+
+    import torch
+
+    n_cards = torch.cuda.device_count()
+    root = os.path.dirname(os.path.abspath(__file__))
+    if n_cards >= 2:
+        base = ["train", "--config", "imagenet", "--mesh", str(n_cards)]
+        runs = {"lloyd": base + ["--model", "lloyd"],
+                "minibatch": base + ["--model", "minibatch"]}
+        single = None
+    else:
+        print(f"train-mesh: cli train --config imagenet --mesh N needs two "
+              f"or more cards, and this host has {n_cards} ({card}); "
+              f"running --mesh 2 --device cpu at {' '.join(MESH_CLI_SMALL)} "
+              "instead (the launcher, the result line and --out, not speed)")
+        base = ["train", *MESH_CLI_SMALL, "--device", "cpu", "--seed", "3"]
+        runs = {"lloyd": base + ["--mesh", "2", "--comm", "scatter"],
+                "minibatch": base + ["--mesh", "2", "--model", "minibatch",
+                                     "--steps", "50", "--batch-size", "512"]}
+        single = {"lloyd": base, "minibatch": base + [
+            "--model", "minibatch", "--steps", "50", "--batch-size", "512"]}
+    # Every run at once: they share no state, and on one card they are
+    # CPU processes.
+    procs = {}
+    t0 = time.perf_counter()
+    for model, argv in runs.items():
+        procs[model] = subprocess.Popen(
+            [sys.executable, "-m", "kmeans_tpu_torch.cli", *argv, "--out",
+             f"{tmp}/train-mesh-{model}.json"], cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        if single is not None:
+            procs[model, 1] = subprocess.Popen(
+                [sys.executable, "-m", "kmeans_tpu_torch.cli",
+                 *single[model]], cwd=root, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+    outs = {}
+    try:
+        for key, proc in procs.items():
+            outs[key] = proc.communicate(timeout=CLI_TIMEOUT_S)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs = time.perf_counter() - t0
+    for key, proc in procs.items():
+        _check(proc.returncode == 0,
+               f"train-mesh {key}: exit {proc.returncode}, stderr "
+               f"{outs[key][1].strip().splitlines()[-6:]}")
+    for model, argv in runs.items():
+        lines = outs[model][0].strip().splitlines()
+        _check(len(lines) == 1, f"train-mesh {model}: {len(lines)} result "
+               "lines (rank 0 alone prints one)")
+        res = json.loads(lines[0])
+        doc = json.load(open(f"{tmp}/train-mesh-{model}.json",
+                             encoding="utf-8"))
+        _check(res["mode"] == model and res["mesh"] == int(argv[
+            argv.index("--mesh") + 1]) and math.isfinite(res["inertia"])
+               and isinstance(doc, dict),
+               f"train-mesh {model}: result {res}")
+        line = f"train-mesh {model}: {' '.join(argv)}: {res}"
+        if single is not None:
+            ref = json.loads(outs[model, 1][0].strip().splitlines()[-1])
+            same = ("n", "d", "k", "n_iter", "mode")
+            _check({f: res[f] for f in same} == {f: ref[f] for f in same},
+                   f"train-mesh {model}: {res} against --mesh 1 {ref}")
+            if model == "lloyd":
+                _check(abs(res["inertia"] - ref["inertia"])
+                       <= FIT_INERTIA_RTOL * ref["inertia"],
+                       f"train-mesh lloyd: inertia {res['inertia']} against "
+                       f"--mesh 1 {ref['inertia']}")
+            line += f"; --mesh 1: {ref}"
+        print(line)
+    print(f"train-mesh: {len(procs)} processes at once, {secs:.1f} s")
+
+
+def phase_mesh(card):
+    """Phase 15: the data-parallel engine (see the module docstring):
+    imagenet-dp1-nccl in this process, then imagenet-dp2-gloo,
+    codebook-dp2-gloo and cifar10-dp2-minibatch in a two-rank gloo world
+    on the card, then train-mesh.  Returns the runs' launches by compute:
+    ``{"bf16": {...}, "f32": {...}}``."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.init import random_init
+    from kmeans_tpu_torch.parallel import make_mesh
+    from kmeans_tpu_torch.parallel.engine import _sweep_collective_bytes
+
+    t_all = time.perf_counter()
+    n, d, k = HEADLINE["n"], HEADLINE["d"], HEADLINE["k"]
+    bf16 = torch.bfloat16
+    totals = {"bf16": {}, "f32": {}}
+
+    def add(compute, launches):
+        for name, v in launches.items():
+            totals[compute][name] = totals[compute].get(name, 0) + v
+
+    # imagenet-dp1-nccl: the engine on an NCCL mesh of one, held to the
+    # single-device delta fit, both timed in this call.
+    x, _, _ = kt.make_blobs(0, n, d, k, dtype=bf16)
+    c0 = random_init(torch.Generator(device="cuda").manual_seed(1), x, k)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    _check(mesh.backend == "nccl",
+           f"imagenet-dp1-nccl: {mesh}")
+    _mesh_fit(mesh, x, k, c0, "delta", "auto", 1)
+    _single_fit(x, k, c0, "delta", 1)
+    want, one_s, one_l = _single_fit(x, k, c0, "delta", MESH_SWEEPS)
+    got, secs, launches, stats, split = _mesh_fit(mesh, x, k, c0, "delta",
+                                                  "auto", MESH_SWEEPS)
+    add("bf16", one_l)
+    add("bf16", launches)
+    moved, err, rel = _hold_to_single("imagenet-dp1-nccl", x, got, want,
+                                      bf16, same_centroids=True)
+    _check(launches["lloyd_delta_cuda"] >= MESH_SWEEPS
+           and launches["accumulate_cuda"] >= 2
+           and launches["lloyd_pass_cuda"] >= 1,
+           f"imagenet-dp1-nccl: launches {launches}")
+    print(f"imagenet-dp1-nccl ({card}): fit_lloyd_sharded(update='delta', "
+          f"comm='auto') on an NCCL mesh of one, {MESH_SWEEPS} sweeps + "
+          f"final view, {secs:.3f} s against fit_lloyd's {one_s:.3f} s "
+          f"(engine/fit {secs / one_s:.3f}); {moved} labels moved (ties), "
+          f"centroids max abs err {err:.3e}, inertia rel {rel:.3e}; "
+          f"launches {launches} (fit_lloyd: {one_l}); collectives "
+          f"{stats}; a sweep: {_split_line(split)}")
+    del x, want, got
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        ranks = _mesh_world(card, tmp)
+        print(f"gloo on the card ({card}): all_reduce, reduce_scatter and "
+              f"all_gather take card tensors and give the right values "
+              f"({ranks[0]['probe']}); no collective is staged by hand")
+        for name in ranks[0]["runs"]:
+            recs = [r["runs"].get(name) for r in ranks]
+            for rec in recs:
+                if rec is not None:
+                    add("f32" if name.startswith("cifar10") else "bf16",
+                        rec["launches"])
+            if "split" not in recs[0]:
+                continue
+            flavour = name.split()[0]
+            kk = CODEBOOK["k"] if flavour.startswith("codebook") else k
+            comm = name.split()[-1]
+            sweeps = (MESH_CODEBOOK_SWEEPS if flavour.startswith("codebook")
+                      else MESH_SWEEPS)
+            for r, rec in enumerate(recs):
+                moved_b = sum(v[1] for op, v in rec["stats"].items())
+                ring = _sweep_collective_bytes(comm, dp=2, k=kk, d=d)
+                print(f"{name} rank {r}: a sweep: "
+                      f"{_split_line(rec['split'])}; collectives "
+                      f"{rec['stats']} ({moved_b / sweeps / 1e6:.3f} MB of "
+                      f"payload a sweep with the final pass spread over "
+                      f"the sweeps; ring model {ring / 1e6:.3f} MB a device "
+                      f"a sweep)")
+        print(f"codebook-dp2-gloo: each rank's peak card memory from its "
+              f"data on (the full x, kept, its block a view of it; rank 0 "
+              f"also ran the single-device fit): "
+              f"{[round(r['codebook_peak_gb'], 3) for r in ranks]} GB")
+        mb = [r["runs"]["cifar10-dp2-minibatch"] for r in ranks]
+        print(f"cifar10-dp2-minibatch ranks: seconds "
+              f"{[round(m['seconds'], 3) for m in mb]}, launches "
+              f"{[m['launches'] for m in mb]}")
+        _mesh_cli(card, tmp)
+    print(f"phase 15 ({card}): {time.perf_counter() - t_all:.1f} s; "
+          f"launches {totals}")
+    return totals
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--http-client"]:
         return _http_client(json.loads(sys.argv[2]))
@@ -6965,6 +7592,8 @@ def main() -> int:
         return _board_cli(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--continuous-cli"]:
         return _continuous_cli(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return _mesh_rank(json.loads(sys.argv[2]))
     import torch
 
     if not torch.cuda.is_available():
@@ -6997,6 +7626,11 @@ def main() -> int:
     if sys.argv[1:] == ["--stream"]:
         phase_build()
         phase_stream(card)
+        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+        return 0
+    if sys.argv[1:] == ["--mesh"]:
+        phase_build()
+        phase_mesh(card)
         print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
         return 0
     if sys.argv[1:] == ["--fleet"]:
@@ -7061,6 +7695,15 @@ def main() -> int:
         compute = {"": "bf16", "(f32 route)": "f32"}.get(what)
         if compute:
             row["launches"] += stream[compute].get(name, 0)
+    mesh = phase_mesh(card)
+    for row in kernels:
+        # Phase 15's launches (every rank's, and the single-device fits it
+        # holds them to) join the bf16 rows and the f32 route's rows, as
+        # phase 14's do.
+        name, _, what = row["name"].partition(" ")
+        compute = {"": "bf16", "(f32 route)": "f32"}.get(what)
+        if compute:
+            row["launches"] += mesh[compute].get(name, 0)
     kernels += board_rows + serve_rows
     phase_fold_split()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

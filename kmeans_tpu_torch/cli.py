@@ -27,8 +27,18 @@ Generated data (``--config`` or ``--n/--d/--k``) is the port's
 regenerates the same rows.  What the port does not have yet is refused
 with exit code 2 and one line naming its ROADMAP queue item: the other
 families (``--stream --model gmm`` among them), ``--pca``/``--whiten`` and
-``--merge-k`` (A9), ``--mesh`` above 1 (``--stream`` or not),
-``--ckpt-dir``, ``--ckpt-every`` and ``--comm`` (A4).
+``--merge-k`` (A9), ``--ckpt-dir`` / ``--ckpt-every`` and ``--mesh`` with
+``--stream``, ``accelerated`` or ``trimmed`` (A4b).
+
+``--mesh N`` (N > 1) fits ``--model lloyd`` or ``minibatch`` data parallel
+on N ranks, one process per device (:mod:`kmeans_tpu_torch.parallel`):
+the command starts N copies of itself, rank i on ``cuda:i`` (NCCL) or,
+with ``--device cpu``, N gloo CPU processes, joined over a free local
+port; rank 0 prints the result line and writes ``--out``.  Under an
+existing ``torch.distributed`` environment (``WORLD_SIZE`` set, as
+``torchrun`` sets it) the process joins that group as its rank instead.
+``--comm`` picks the sharded sweep's merge, and the runner flags step the
+dense reduction on the mesh.
 
     python -m kmeans_tpu_torch.cli continuous [--k 4] [--batches 60]
         [--model-dir DIR [--resume]] [--input X.npy] [--progress]
@@ -85,14 +95,15 @@ def _not_ported(args):
     """The one refusal line for a flag or family the port does not have
     yet, naming its ROADMAP queue item; None when everything asked for is
     ported."""
-    sharded = [f for f, on in (
-        (f"--mesh {args.mesh}", args.mesh and args.mesh > 1),
+    elastic = [f for f, on in (
         ("--ckpt-dir", args.ckpt_dir), ("--ckpt-every",
-                                        args.ckpt_every is not None),
-        ("--comm", args.comm)) if on]
-    if sharded:
-        return (f"{sharded[0]} needs the sharded engine, which is not "
-                "ported yet (ROADMAP A4)")
+                                        args.ckpt_every is not None)) if on]
+    if elastic:
+        return (f"{elastic[0]} needs the sharded engine's elastic "
+                "checkpoint, which is not ported yet (ROADMAP A4b)")
+    if args.stream and args.mesh and args.mesh > 1:
+        return (f"--stream --mesh {args.mesh} needs the sharded engine's "
+                "streamed step, which is not ported yet (ROADMAP A4b)")
     if args.model in UNPORTED_FAMILIES:
         return (f"--model {args.model} is not ported yet (ROADMAP A9); "
                 "the port fits lloyd, accelerated, minibatch and trimmed")
@@ -226,11 +237,21 @@ def _cmd_train(args) -> int:
                   "anderson; --accel beta runs only the fused --model "
                   "accelerated loop", file=sys.stderr)
             return 2
+        if model == "lloyd" and args.mesh and args.mesh > 1:
+            print("error: --accel with runner flags steps single-device; "
+                  "the sharded loop is --model accelerated --mesh N",
+                  file=sys.stderr)
+            return 2
     if args.schedule:
         if args.stream or model not in ("accelerated", "minibatch"):
             print(f"error: --schedule configures the in-memory "
                   f"accelerated/minibatch fits; it has no effect with "
                   f"--model {model}{' --stream' if args.stream else ''}",
+                  file=sys.stderr)
+            return 2
+        if args.schedule == "nested" and args.mesh and args.mesh > 1:
+            print("error: --schedule nested runs the single-device "
+                  "subsample ladder; drop --mesh or use --schedule full",
                   file=sys.stderr)
             return 2
         if args.schedule == "nested" and model == "minibatch" and (
@@ -275,11 +296,41 @@ def _cmd_train(args) -> int:
                   "trimmed use the dense reduction (or --update auto to "
                   "let the policy decide)", file=sys.stderr)
             return 2
+        if args.update in ("delta", "hamerly", "yinyang") \
+                and runner_flagged and args.mesh and args.mesh > 1:
+            print(f"error: --update {args.update} with runner flags "
+                  "(--progress/--checkpoint/--resume/--profile/"
+                  "--telemetry/--trace/--xla-trace) runs single-device "
+                  "only; the mesh runner steps the dense reduction — drop "
+                  "--mesh or the runner flags, or use --update auto",
+                  file=sys.stderr)
+            return 2
         if args.update in ("hamerly", "yinyang") and args.accel:
             print(f"error: --update {args.update} carries refresh-cadence "
                   "score bounds that do not compose with --accel's "
                   "between-sweep extrapolation; drop --accel or use "
                   "--update auto/delta", file=sys.stderr)
+            return 2
+
+    # --comm configures the sharded engine's sweep-merge collective; only
+    # paths that reach fit_lloyd_sharded read it.
+    if args.comm:
+        comm_models = model == "lloyd"
+        if args.stream or not comm_models or not (args.mesh
+                                                  and args.mesh > 1):
+            why = ("--stream" if args.stream
+                   else f"--model {model}" if not comm_models
+                   else f"--mesh {args.mesh or 1}")
+            print("error: --comm configures the sharded sweep-merge "
+                  "collective; it needs --mesh > 1 and a lloyd-family "
+                  f"model (no effect with {why})", file=sys.stderr)
+            return 2
+        if runner_flagged:
+            print("error: --comm rides the fused sharded fit; the "
+                  "step-paced runner (--progress/--checkpoint/--resume/"
+                  "--profile/--telemetry/--trace/--xla-trace) steps the "
+                  "allreduce merge — drop those flags or --comm",
+                  file=sys.stderr)
             return 2
 
     if args.profile and args.xla_trace and args.profile != args.xla_trace:
@@ -366,6 +417,13 @@ def _cmd_train(args) -> int:
     trim_fraction = (args.trim_fraction if args.trim_fraction is not None
                      else 0.05)
 
+    mesh_n = args.mesh if args.mesh and args.mesh > 1 else 0
+    if mesh_n and model not in ("lloyd", "minibatch"):
+        print(f"error: --model {model} --mesh {mesh_n} (its sharded fit) "
+              "is not ported yet (ROADMAP A4b); the port's mesh fits "
+              "lloyd and minibatch", file=sys.stderr)
+        return 2
+
     # The reference's list of the families a coreset fit allows; of them
     # the port has lloyd, accelerated and trimmed (the others are refused
     # above, ROADMAP A9).
@@ -376,7 +434,8 @@ def _cmd_train(args) -> int:
         if args.coreset < 1:
             print("error: --coreset must be positive", file=sys.stderr)
             return 2
-        if model not in coreset_ok or args.stream or want_runner:
+        if model not in coreset_ok or args.stream or mesh_n \
+                or want_runner:
             print(
                 "error: --coreset runs a weighted single-device fit; it "
                 f"supports --model {'/'.join(coreset_ok)} without "
@@ -395,13 +454,29 @@ def _cmd_train(args) -> int:
             print(f"error: cannot write trace to {args.trace!r}: {e}",
                   file=sys.stderr)
             return 2
+    mesh = None
+    if mesh_n and not os.environ.get("WORLD_SIZE"):
+        return _launch_mesh(args, mesh_n)
     try:
-        dev = resolve_device(args.device)
+        if mesh_n:
+            mesh = _join_mesh(args, mesh_n)
+            dev = mesh.device
+        else:
+            dev = resolve_device(args.device)
     except RuntimeError:
         print(f"error: no CUDA device is available for --device "
               f"{args.device}; pass --device cpu to run the kernels' plain "
               "versions on the CPU", file=sys.stderr)
         return 2
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    # On a mesh every rank fits; rank 0 alone reports and writes files.
+    main_rank = mesh is None or mesh.rank == 0
+    if not main_rank:
+        args.out = args.telemetry = args.trace = None
+        args.xla_trace = args.profile = None
+        args.progress = False
     obs.record_build_info(dev.type)     # kmeans_tpu_build_info{version,backend}
 
     if args.stream:
@@ -430,7 +505,7 @@ def _cmd_train(args) -> int:
         from kmeans_tpu_torch.utils.checkpoint import CorruptCheckpointError
 
         runner = models.LloydRunner(
-            x, k, config=kcfg, device=dev,
+            x, k, config=kcfg, device=dev, mesh=mesh,
             accel="anderson" if args.accel == "anderson" else None,
         )
         if args.resume:
@@ -491,6 +566,12 @@ def _cmd_train(args) -> int:
         state = _train_stream(args, x, k, kcfg, dev, stream_ckpt)
         if isinstance(state, int):
             return state
+    elif mesh is not None:
+        from kmeans_tpu_torch import parallel
+
+        fit = {"lloyd": parallel.fit_lloyd_sharded,
+               "minibatch": parallel.fit_minibatch_sharded}[model]
+        state = fit(x, k, mesh=mesh, config=kcfg)
     else:
         fit = {
             "lloyd": models.fit_lloyd,
@@ -522,6 +603,10 @@ def _cmd_train(args) -> int:
         result["stream"] = True
     if args.coreset is not None:
         result["coreset"] = args.coreset
+    if mesh is not None:
+        result["mesh"] = mesh.size
+        if not main_rank:
+            return 0
     print(json.dumps(result))
 
     if args.out:
@@ -540,6 +625,81 @@ def _cmd_train(args) -> int:
             f.write(export_json(doc))
         print(f"wrote {args.out}", file=sys.stderr)
     return 0
+
+
+def _launch_mesh(args, n: int) -> int:
+    """Run ``train`` as ``n`` ranks: ``n`` copies of this command with
+    ``WORLD_SIZE`` / ``RANK`` / ``LOCAL_RANK`` and a free local rendezvous
+    port; rank 0's output is the run's.  A rank that fails stops the
+    others.  Returns the first failing rank's exit code, else 0."""
+    import os
+    import signal
+    import subprocess
+
+    import kmeans_tpu_torch
+    from kmeans_tpu_torch.parallel.mesh import free_port
+
+    if args.device != "cpu":
+        import torch
+
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < n:
+            print(f"error: --mesh {n} runs one rank per card and this host "
+                  f"has {have}; pass --device cpu to run the ranks as gloo "
+                  "CPU processes", file=sys.stderr)
+            return 2
+    root = os.path.dirname(os.path.dirname(
+        os.path.abspath(kmeans_tpu_torch.__file__)))
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE=str(n),
+               LOCAL_WORLD_SIZE=str(n),
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "kmeans_tpu_torch.cli", *args.argv],
+        env=dict(env, RANK=str(i), LOCAL_RANK=str(i))) for i in range(n)]
+    rcs = [None] * n
+    try:
+        while any(rc is None for rc in rcs):
+            rcs = [p.poll() for p in procs]
+            if any(rc not in (None, 0) for rc in rcs):
+                break
+            time.sleep(0.05)
+    except KeyboardInterrupt:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGINT)
+    finally:
+        deadline = time.monotonic() + 10.0
+        for p in procs:
+            if p.poll() is None:
+                if any(rc not in (None, 0) for rc in rcs):
+                    p.terminate()
+                try:
+                    p.wait(timeout=max(0.1, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+    rcs = [p.returncode for p in procs]
+    return next((rc for rc in rcs if rc), 0)
+
+
+def _join_mesh(args, n: int):
+    """This rank's mesh of ``n`` ranks from the ``torch.distributed``
+    environment (``WORLD_SIZE`` / ``RANK`` / ``MASTER_*``): NCCL on the
+    cards, gloo CPU processes with ``--device cpu``."""
+    import os
+
+    from kmeans_tpu_torch.parallel import make_mesh
+
+    world = int(os.environ["WORLD_SIZE"])
+    if world != n:
+        raise ValueError(f"--mesh {n} contradicts the process group's "
+                         f"WORLD_SIZE={world}")
+    if args.device == "cpu":
+        return make_mesh((n, 1), ("data", "model"), platform="cpu")
+    return make_mesh((n, 1), ("data", "model"))
 
 
 def _train_stream(args, x, k, kcfg, dev, stream_ckpt):
@@ -881,8 +1041,9 @@ def main(argv=None) -> int:
     t.add_argument("--init", default="k-means++",
                    choices=["k-means++", "k-means||", "random"])
     t.add_argument("--mesh", type=int, default=0,
-                   help="data-parallel mesh size (0/1 = single device; "
-                        "above 1 needs the sharded engine, ROADMAP A4)")
+                   help="data-parallel mesh size (0/1 = single device): N "
+                        "ranks, one process per card (--device cpu: gloo "
+                        "CPU processes); lloyd and minibatch")
     t.add_argument("--max-iter", type=int, default=None,
                    help="Lloyd-family iteration cap (default 100); the "
                         "minibatch path is step-based — use --steps")
@@ -915,8 +1076,13 @@ def main(argv=None) -> int:
                         "auto")
     t.add_argument("--comm", default=None,
                    choices=["auto", "allreduce", "scatter"],
-                   help="sweep-merge collective of the sharded fit (not "
-                        "ported, ROADMAP A4)")
+                   help="sweep-merge collective of the sharded fit "
+                        "(needs --mesh > 1): 'allreduce' sums the full "
+                        "per-rank sums|counts slab, 'scatter' reduce-"
+                        "scatters it so each rank owns and updates a "
+                        "k/mesh slice, then all-gathers the centroids; "
+                        "'auto' scatters once the f32 (k, d) slab reaches "
+                        "4 MiB")
     t.add_argument("--accel", default=None, choices=["beta", "anderson"],
                    help="accelerated-fit extrapolation (selects --model "
                         "accelerated when no model is given); with the "
@@ -958,9 +1124,9 @@ def main(argv=None) -> int:
                    "saving there; the runner's unless --checkpoint names "
                    "another)")
     t.add_argument("--ckpt-dir", help="the sharded engine's elastic "
-                   "checkpoint (not ported, ROADMAP A4)")
+                   "checkpoint (not ported, ROADMAP A4b)")
     t.add_argument("--ckpt-every", type=int, default=None,
-                   help="with --ckpt-dir (not ported, ROADMAP A4)")
+                   help="with --ckpt-dir (not ported, ROADMAP A4b)")
     t.add_argument("--profile", help="legacy spelling of --xla-trace")
     t.add_argument("--trace", metavar="OUT.json",
                    help="write the run's host span timeline (the runner's "
@@ -1120,8 +1286,10 @@ def main(argv=None) -> int:
     s.set_defaults(fn=_cmd_serve)
 
     args = p.parse_args(argv)
+    args.argv = list(sys.argv[1:] if argv is None else argv)
     from kmeans_tpu_torch.utils.preempt import Preempted
 
+    grouped = _in_process_group()
     try:
         return args.fn(args)
     except Preempted as e:
@@ -1132,6 +1300,17 @@ def main(argv=None) -> int:
         if e.resume_hint:
             print(f"resume with: {e.resume_hint}", file=sys.stderr)
         return 3
+    finally:
+        if not grouped and _in_process_group():
+            # A --mesh rank leaves the group it joined, so it exits cleanly;
+            # a group the caller made stays.
+            sys.modules["torch.distributed"].destroy_process_group()
+
+
+def _in_process_group() -> bool:
+    dist = sys.modules.get("torch.distributed")
+    return bool(dist is not None and dist.is_available()
+                and dist.is_initialized())
 
 
 if __name__ == "__main__":

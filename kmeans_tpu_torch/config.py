@@ -5,9 +5,12 @@ from there field for field (that module imports no JAX, but importing it
 would run ``kmeans_tpu/__init__.py``, which does).  Only ``backend`` differs:
 its values name the port's routes, ``"auto"`` (the CUDA kernels for a tensor
 on the card, the plain PyTorch versions for one on the CPU), ``"cuda"`` and
-``"plain"``.  Fields that no ported module reads yet (``comm``, the
-accelerated and minibatch engines' knobs) are kept so that a configuration
-carries over unchanged.
+``"plain"``.  Every field is kept (``comm`` is read by the
+sharded engine, :mod:`kmeans_tpu_torch.parallel`), so that a configuration
+carries over unchanged.  :class:`MeshConfig`, :class:`RunConfig` and
+:func:`run_config_from_dict` are the reference's; ``MeshConfig.platform``
+names the device type of the port's mesh (``None`` or ``"cuda"``: the
+cards over NCCL; ``"cpu"``: gloo CPU processes).
 
 :class:`ServeConfig` holds every field of the reference's, with its
 defaults, so one configuration picks the same route and limits on both
@@ -26,7 +29,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["KMeansConfig", "ServeConfig", "COLORS", "MAX_CENTROIDS",
+__all__ = ["KMeansConfig", "ServeConfig", "MeshConfig", "RunConfig",
+           "run_config_from_dict", "COLORS", "MAX_CENTROIDS",
            "ROOM_ALPHABET", "ROOM_CODE_LEN", "POS_CLAMP_X", "POS_CLAMP_Y",
            "clamp_pos", "MODES", "zone_min_height_px", "UNPORTED_FAMILIES"]
 
@@ -218,6 +222,29 @@ class KMeansConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout for the sharded engine.
+
+    ``data`` shards points (DP, the north-star axis); ``model`` optionally
+    shards centroids over k (TP) when k·d is too large per device.
+    """
+
+    data: int = 1
+    model: int = 1
+    data_axis: str = "data"
+    model_axis: str = "model"
+    platform: Optional[str] = None   # None = the cards
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.data, self.model)
+
+    @property
+    def axis_names(self) -> Tuple[str, str]:
+        return (self.data_axis, self.model_axis)
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """The server's and the assignment engine's knobs
     (``kmeans_tpu/config.py``'s ``ServeConfig``, field for field)."""
@@ -348,3 +375,24 @@ class ServeConfig:
     slo_min_samples: int = 50
     #: Burn re-evaluation rate limit.
     slo_eval_s: float = 0.25
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """One fully-specified run: data shape + engine + mesh."""
+
+    n: int = 500
+    d: int = 2
+    kmeans: KMeansConfig = dataclasses.field(default_factory=KMeansConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    minibatch: bool = False
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def run_config_from_dict(d: dict) -> RunConfig:
+    d = dict(d)
+    km = KMeansConfig(**d.pop("kmeans", {}))
+    mesh = MeshConfig(**d.pop("mesh", {}))
+    return RunConfig(kmeans=km.validate(), mesh=mesh, **d)

@@ -18,8 +18,11 @@ ground long jobs use:
 
 Known differences from the reference:
 
-* One device.  The reference's mesh / tensor-parallel step waits for the
-  port's sharded engine; ``mesh=`` raises.
+* ``mesh=`` (a :class:`~kmeans_tpu_torch.parallel.mesh.Mesh`, one process
+  per device) steps the dense per-sweep reduction through the sharded
+  engine's DP body (``parallel.engine._dp_local_pass``): every rank keeps
+  its row block and the centroids replicated, and only rank 0 writes a
+  checkpoint.  The reference's tensor-parallel step waits for ROADMAP A4b.
 * Nothing is compiled per shape, so the iteration events carry no
   ``compile_s`` / ``compile_flops`` / ``compile_bytes``.  The ``phase`` tag
   stays: ``compile+step`` marks the first call of each sweep function in
@@ -217,14 +220,25 @@ class LloydRunner:
                 )
             self._accel = True
             self._accel_m = self.cfg.anderson_m
+        self.mesh = mesh
         if mesh is not None:
-            raise ValueError(
-                "LloydRunner on a mesh needs the sharded engine "
-                "(fit_lloyd_sharded, ROADMAP A4), which is not ported "
-                "yet; run it on one device"
-            )
-        dev = resolve_device(device)
-        self.x = as_tensor(x, dev).contiguous()
+            from kmeans_tpu_torch.parallel.engine import _place
+
+            # The step-wise mesh path runs the dense per-sweep reduction
+            # (stateless rank bodies); the carried-state incremental loops
+            # on a mesh are fit_lloyd_sharded's.
+            if self.cfg.update in ("delta", "hamerly", "yinyang"):
+                raise ValueError(
+                    "LloydRunner on a mesh runs the dense per-sweep "
+                    "reduction; use fit_lloyd_sharded(update='delta'/"
+                    "'hamerly'/'yinyang') for the incremental sharded "
+                    "loops, or update='auto'"
+                )
+            dev = mesh.device
+            self.x, self._w, _, self._n = _place(x, mesh, "data")
+        else:
+            dev = resolve_device(device)
+            self.x = as_tensor(x, dev).contiguous()
         self.device = dev
         self.generator = generator_for(
             self.cfg.seed if generator is None else generator, dev)
@@ -238,8 +252,11 @@ class LloydRunner:
                                            dtype=torch.float32, device=dev)
         cfg = self.cfg
         # The runner has no sample weights, so "auto" resolves to the
-        # incremental delta loop (the path fit_lloyd's default takes).
-        self._update = resolve_update(cfg.update, w_exact=True)
+        # incremental delta loop (the path fit_lloyd's default takes); on a
+        # mesh, to the dense reduction.
+        self._update = (("matmul" if cfg.update == "auto" else cfg.update)
+                        if mesh is not None
+                        else resolve_update(cfg.update, w_exact=True))
         if self._update in ("hamerly", "yinyang"):
             if self._accel:
                 raise ValueError(
@@ -255,8 +272,10 @@ class LloydRunner:
                     "reseeds from are never computed; use "
                     "empty='keep'"
                 )
-        self._backend = resolve_backend(cfg.backend, self.x, k,
-                                        compute_dtype=cfg.compute_dtype)
+        self._backend = resolve_backend(
+            cfg.backend, self.x, k,
+            weights=self._w if mesh is not None else None,
+            weights_are_binary=True, compute_dtype=cfg.compute_dtype)
         self._kw = dict(chunk_size=cfg.chunk_size,
                         compute_dtype=cfg.compute_dtype,
                         backend=self._backend, device=dev)
@@ -275,7 +294,17 @@ class LloydRunner:
     def _step(self, c):
         """The classic sweep (every sweep of a dense update, the delta
         loop's refresh): ``(new_c, inertia, shift², labels, sums,
-        counts)``."""
+        counts)``; on a mesh ``(new_c, inertia, shift²)``, the rank body
+        and its merge."""
+        if self.mesh is not None:
+            from kmeans_tpu_torch.parallel.engine import _dp_local_pass
+
+            new_c, inertia, _ = _dp_local_pass(
+                self.mesh, self.x, c, self._w,
+                chunk_size=self.cfg.chunk_size,
+                compute_dtype=self.cfg.compute_dtype, update=self._update,
+                backend=self._backend, empty=self.cfg.empty)
+            return new_c, inertia, ((new_c - c) ** 2).sum()
         labels, min_d2, sums, counts, inertia = lloyd_pass(
             self.x, c, update=self._update, **self._kw)
         new_c, shift_sq = self._new_centroids(c, sums, counts, min_d2)
@@ -340,6 +369,16 @@ class LloydRunner:
         self._group_of = None        # yinyang groups re-form per init
         if init is not None and not isinstance(init, str):
             self.centroids = as_tensor(init, self.device, torch.float32)
+        elif self.mesh is not None:
+            from kmeans_tpu_torch.parallel.init_sharded import init_on_mesh
+
+            # On a mesh the rank's block carries zero padding rows: the
+            # sharded seeding gives them weight 0.
+            self.centroids = init_on_mesh(
+                self.generator, self.x, self.k, mesh=self.mesh, n=self._n,
+                method=init if isinstance(init, str) else self.cfg.init,
+                weights=self._w, compute_dtype=self.cfg.compute_dtype,
+                chunk_size=self.cfg.chunk_size)
         else:
             method = init if isinstance(init, str) else self.cfg.init
             self.centroids = init_centroids(
@@ -589,9 +628,18 @@ class LloydRunner:
         return converged, saved
 
     def finalize(self, *, converged: bool = False) -> KMeansState:
-        """Labels, inertia and counts at the current centroids."""
-        labels, _, _, counts, inertia = lloyd_pass(self.x, self.centroids,
-                                                   **self._kw)
+        """Labels, inertia and counts at the current centroids (on a mesh,
+        of every row: the engine's final labeling pass)."""
+        if self.mesh is not None:
+            from kmeans_tpu_torch.parallel.engine import _dense_final
+
+            labels, inertia, counts = _dense_final(
+                self.mesh, self.x, self._w, self.centroids, self._n,
+                chunk_size=self.cfg.chunk_size,
+                compute_dtype=self.cfg.compute_dtype, backend=self._backend)
+        else:
+            labels, _, _, counts, inertia = lloyd_pass(
+                self.x, self.centroids, **self._kw)
         return KMeansState(
             self.centroids[: self.k],
             labels,
@@ -604,6 +652,10 @@ class LloydRunner:
 
     # --------------------------------------------------------- checkpointing
     def checkpoint(self, path: str, *, keep: int = 0) -> str:
+        """Save centroids and iteration; on a mesh only rank 0 writes (the
+        centroids are replicated)."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return path
         state = KMeansState(
             self.centroids,
             torch.zeros(0, dtype=torch.int32),

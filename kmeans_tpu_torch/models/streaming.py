@@ -16,8 +16,7 @@ the reference's bit for bit, and the checkpoints are the reference's
 ``total_steps``, ``transfer_width`` and ``mesh_dp``): either package
 resumes the other's directory.  Known differences: the seeding's init
 method draws from a :class:`torch.Generator` (the subsample rows are the
-reference's), and ``mesh=`` raises: the sharded stream step waits for the
-port's sharded engine (ROADMAP A4).
+reference's), and ``mesh=`` raises: the sharded stream step waits for ROADMAP A4b.
 """
 
 from __future__ import annotations
@@ -209,12 +208,13 @@ def fit_minibatch_stream(
     step boundary and raise :class:`~kmeans_tpu_torch.utils.preempt.
     Preempted`.  With ``final_pass`` a streamed labeling pass fills labels,
     inertia and counts; otherwise those fields are empty.  ``mesh`` raises:
-    the sharded stream step waits for ROADMAP A4.
+    the sharded stream step waits for ROADMAP A4b.
     """
     if mesh is not None:
         raise ValueError(
-            "mesh= needs the sharded engine, which is not ported yet "
-            "(ROADMAP A4); fit_minibatch_stream runs on one device")
+            "mesh= needs the sharded engine's streamed step, which is not "
+            "ported yet (ROADMAP A4b); fit_minibatch_stream runs on one "
+            "device")
     dev = resolve_device(device)
     cfg, generator = resolve_fit_config(k, generator, config, dev)
     n, d = data.shape

@@ -1,0 +1,215 @@
+"""Device mesh of the sharded engine: one process per device.
+
+Counterpart of ``kmeans_tpu/parallel/mesh.py``.  The reference builds a
+``jax.sharding.Mesh`` over the local devices of one controlling process;
+the port runs one process per device, joined by ``torch.distributed``
+(NCCL between cards, gloo between CPU processes), and a :class:`Mesh` is
+one rank's view of that group: its rank, the world size, its device and
+the axis names.  Points shard over the ``data`` axis; the ``model`` axis
+(centroids sharded over k) is not ported yet and must be 1.
+
+Every rank calls the engine with the same global data; each keeps only its
+contiguous row block on its device, and the per-sweep merges are the
+collectives of :class:`Mesh`.
+
+A gloo mesh may also hold CUDA tensors: several ranks sharing one card,
+which NCCL refuses.  Gloo takes card tensors for all three collectives the
+engine uses (``all_reduce`` and the tensor forms of ``reduce_scatter`` and
+``all_gather``; ``chip_smoke.py`` phase 15 checks it), so no collective is
+staged by hand.  Nothing falls back from NCCL to gloo.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import socket
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from kmeans_tpu_torch.config import MeshConfig
+from kmeans_tpu_torch.parallel import distributed as _distributed
+
+__all__ = ["Mesh", "make_mesh", "cpu_mesh", "mesh_from_config",
+           "free_port"]
+
+# The tensor forms of the two collectives (renamed ``*_single`` in newer
+# torch releases; the older names remain there, deprecated).
+_all_gather_tensor = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_reduce_scatter_tensor = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+#: The refusal of a model axis above 1.
+_A4B = ("a model axis above 1 (centroids sharded over k) is not ported "
+        "yet (ROADMAP A4b); use a data-parallel mesh (model=1)")
+
+
+def free_port() -> int:
+    """A free local TCP port for a rendezvous."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Mesh:
+    """One rank's view of a mesh of processes (one device each).
+
+    ``group`` is the process group of the mesh, ``rank`` / ``size`` this
+    process's place in it, ``device`` its device and ``backend`` the
+    group's (``"nccl"`` or ``"gloo"``).  ``stats`` counts the calls and
+    payload bytes (each call's input) of each collective since the last
+    :meth:`reset_stats`; ``split`` is the engine's per-sweep recorder while
+    :func:`~kmeans_tpu_torch.parallel.engine.sweep_split` is active.
+    """
+
+    def __init__(self, shape: Tuple[int, ...], axis_names: Tuple[str, ...],
+                 group, device: torch.device, backend: str):
+        self.shape = tuple(int(s) for s in shape)
+        self.axis_names = tuple(axis_names)
+        self.axis_sizes = dict(zip(self.axis_names, self.shape))
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+        self.device = device
+        self.backend = backend
+        self.split = None
+        self.reset_stats()
+
+    def __repr__(self) -> str:
+        return (f"Mesh(shape={self.shape}, axis_names={self.axis_names}, "
+                f"rank={self.rank}, device={self.device}, "
+                f"backend={self.backend!r})")
+
+    def reset_stats(self) -> None:
+        self.stats = {op: [0, 0] for op in
+                      ("all_reduce", "reduce_scatter", "all_gather")}
+
+    def _count(self, op: str, t: torch.Tensor) -> None:
+        s = self.stats[op]
+        s[0] += 1
+        s[1] += t.numel() * t.element_size()
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the mesh, in place; returns ``t``."""
+        self._count("all_reduce", t)
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` (``size · m`` rows) over the mesh and return this
+        rank's block of ``m`` rows (the tiled ``psum_scatter``)."""
+        self._count("reduce_scatter", t)
+        t = t.contiguous()
+        m = t.shape[0] // self.size
+        out = torch.empty((m,) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        _reduce_scatter_tensor(out, t, group=self.group)
+        return out
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Concatenate every rank's ``t`` along dim 0, in rank order (the
+        tiled ``all_gather``)."""
+        self._count("all_gather", t)
+        t = t.contiguous()
+        shape = (self.size * t.shape[0],) + tuple(t.shape[1:])
+        out = torch.empty(shape, dtype=t.dtype, device=t.device)
+        _all_gather_tensor(out, t, group=self.group)
+        return out
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.group)
+
+
+def make_mesh(
+    shape: Optional[Tuple[int, ...]] = None,
+    axis_names: Tuple[str, ...] = ("data", "model"),
+    *,
+    devices: Optional[Sequence] = None,
+    platform: Optional[str] = None,
+    backend: Optional[str] = None,
+) -> Mesh:
+    """This rank's mesh over ``devices`` (default: every card of the host;
+    ``platform="cpu"``: one CPU device per rank).
+
+    Joins the process group first (:func:`~kmeans_tpu_torch.parallel.
+    distributed.ensure_initialized`, from ``WORLD_SIZE`` / ``RANK`` /
+    ``MASTER_ADDR`` / ``MASTER_PORT``); a process outside any group makes
+    a group of one.  ``devices`` lists the host's devices in local-rank
+    order; this rank takes ``devices[LOCAL_RANK]`` (``RANK`` without it).
+    With no ``shape``, every rank lands on the first axis (pure DP).
+    ``backend`` defaults to NCCL on the cards and gloo on the CPU; a gloo
+    backend on the cards is allowed (several ranks may then share one
+    card), NCCL on the CPU is refused.
+    """
+    if shape is not None:
+        sizes = dict(zip(axis_names, shape))
+        if any(s > 1 for a, s in sizes.items() if a != axis_names[0]):
+            raise ValueError(_A4B)
+    if devices is not None:
+        devices = [torch.device(dv) for dv in devices]
+        if not devices:
+            raise ValueError("a mesh needs at least one device")
+        kind = devices[0].type
+    else:
+        kind = "cpu" if platform == "cpu" else "cuda"
+        if kind == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available for the mesh; pass "
+                "platform='cpu' (cpu_mesh) to run the ranks as gloo CPU "
+                "processes")
+    if backend is None:
+        backend = "nccl" if kind == "cuda" else "gloo"
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"unknown backend {backend!r}; the mesh runs "
+                         "'nccl' (cards) or 'gloo'")
+    if backend == "nccl" and kind != "cuda":
+        raise ValueError("NCCL runs between cards; a CPU mesh is gloo")
+    _distributed.ensure_initialized(backend=backend)
+    if not dist.is_initialized():
+        # A lone process: a group of one over a local rendezvous.
+        dist.init_process_group(
+            backend=backend, init_method=f"tcp://127.0.0.1:{free_port()}",
+            world_size=1, rank=0, timeout=datetime.timedelta(
+                seconds=_distributed.INIT_TIMEOUT_S))
+    world = dist.get_world_size()
+    if devices is None:
+        devices = ([torch.device("cpu")] * world if kind == "cpu" else
+                   [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())])
+    if shape is None:
+        shape = (world,) + (1,) * (len(axis_names) - 1)
+    n_needed = int(np.prod(shape))
+    if n_needed > len(devices):
+        raise ValueError(
+            f"mesh shape {tuple(shape)} needs {n_needed} devices, have "
+            f"{len(devices)}")
+    if n_needed != world:
+        raise ValueError(
+            f"mesh shape {tuple(shape)} needs {n_needed} processes, the "
+            f"process group has {world}")
+    local = os.environ.get("LOCAL_RANK")
+    idx = int(local) if local not in (None, "") else dist.get_rank()
+    device = devices[idx]
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    group = dist.group.WORLD
+    if dist.get_backend() != backend:
+        group = dist.new_group(backend=backend, timeout=datetime.timedelta(
+            seconds=_distributed.INIT_TIMEOUT_S))
+    return Mesh(tuple(shape), tuple(axis_names), group, device, backend)
+
+
+def cpu_mesh(
+    shape: Tuple[int, ...],
+    axis_names: Tuple[str, ...] = ("data", "model"),
+) -> Mesh:
+    """Mesh of gloo CPU processes (tests and dry runs)."""
+    return make_mesh(shape, axis_names, platform="cpu", backend="gloo")
+
+
+def mesh_from_config(cfg: MeshConfig) -> Mesh:
+    return make_mesh(cfg.shape, cfg.axis_names, platform=cfg.platform)

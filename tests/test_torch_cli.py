@@ -4,7 +4,7 @@ Each behaviour test of the reference's CLI suite (``tests/test_cli.py``,
 the CLI tests of ``tests/test_obs.py`` and ``tests/test_tracing.py``) runs
 its body once through each package's ``main`` (``side``; the port's with
 ``--device cpu`` appended).  Where a body asks for something the port does
-not have yet (a family of ROADMAP A9, the sharded engine of A4), the port's
+not have yet (a family of ROADMAP A9, the sharded engine's A4b), the port's
 side holds the refusal instead: exit code 2 and one line naming the queue
 item.  The
 flag guards run through both ``main``s and must give the same exit code and
@@ -388,6 +388,19 @@ GUARDS = [
     ["train", "--model", "minibatch", "--steps", "0"],
     ["train", "--model", "minibatch", "--batch-size", "0"],
     ["train", "--profile", "a", "--xla-trace", "b"],
+    # The sharded engine's guards (--mesh above 1, --comm).
+    ["train", "--model", "lloyd", "--accel", "anderson", "--progress",
+     "--mesh", "2"],
+    ["train", "--model", "minibatch", "--schedule", "nested", "--mesh",
+     "2"],
+    ["train", "--update", "delta", "--progress", "--mesh", "2"],
+    ["train", "--update", "yinyang", "--telemetry", "t.jsonl", "--mesh",
+     "2"],
+    ["train", "--comm", "scatter"],
+    ["train", "--comm", "allreduce", "--mesh", "1"],
+    ["train", "--comm", "scatter", "--model", "minibatch", "--mesh", "2"],
+    ["train", "--comm", "scatter", "--mesh", "2", "--progress"],
+    ["train", "--coreset", "50", "--mesh", "2"],
 ]
 
 
@@ -471,14 +484,14 @@ def test_export_bytes_equal_the_references(tmp_path, capsys):
 
 REFUSED = [
     (["--stream", "--input", "x.npy", "--model", "gmm"], "A9"),
-    (["--stream", "--input", "x.npy", "--mesh", "2"], "A4"),
-    (["--mesh", "2"], "A4"),
-    (["--ckpt-dir", "ck"], "A4"),
-    (["--ckpt-every", "3"], "A4"),
-    (["--comm", "scatter"], "A4"),
+    (["--stream", "--input", "x.npy", "--mesh", "2"], "A4b"),
+    (["--model", "accelerated", "--mesh", "2"], "A4b"),
+    (["--ckpt-dir", "ck"], "A4b"),
+    (["--ckpt-every", "3"], "A4b"),
+    (["--mesh", "2", "--ckpt-dir", "ck"], "A4b"),
     (["--model", "gmm"], "A9"),
     (["--model", "xmeans"], "A9"),
-    (["--model", "trimmed", "--mesh", "2"], "A4"),
+    (["--model", "trimmed", "--mesh", "2"], "A4b"),
     (["--pca", "1"], "A9"),
     (["--whiten"], "A9"),
     (["--merge-k", "2"], "A9"),
@@ -647,3 +660,99 @@ def test_serve_fleet_passes_persist_dir_to_the_workers(tmp_path,
     assert port_cli.main(["serve", "--workers", "2", "--port", "8799",
                           "--device", "cpu", "--persist-dir", ""]) == 0
     assert got["config"].persist_dir is None
+
+
+def _cli_result(argv, env=None, cwd=None):
+    """``python -m kmeans_tpu_torch.cli`` in a child process: its exit
+    code, result line (None without one), stdout and stderr."""
+    env = dict(os.environ if env is None else env, OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-m", "kmeans_tpu_torch.cli",
+                          *argv], cwd=cwd or REPO, env=env,
+                         capture_output=True, text=True, timeout=240)
+    lines = out.stdout.strip().splitlines()
+    res = json.loads(lines[-1]) if out.returncode == 0 and lines else None
+    return out.returncode, res, out.stdout, out.stderr
+
+
+MESH_BASE = ["train", "--n", "3000", "--d", "8", "--k", "5", "--seed", "2",
+             "--device", "cpu"]
+
+
+@pytest.mark.parametrize("model,extra", [
+    ("lloyd", ["--comm", "scatter"]),
+    ("minibatch", ["--steps", "40", "--batch-size", "256"]),
+])
+def test_train_mesh_runs_gloo_ranks_on_the_cpu(model, extra, tmp_path):
+    """``train --mesh 2 --device cpu`` starts two gloo CPU ranks; rank 0
+    alone prints the result line and writes ``--out``.  Its fields match
+    the ``--mesh 1`` run from the same seed: lloyd's sharded k-means++ draws
+    what the single-device one draws, so the fit is the same fit (inertia
+    to the sum order); minibatch's batches are per-rank draws, so its
+    inertia only lands near the single-device fit's."""
+    out1, out2 = str(tmp_path / "one.json"), str(tmp_path / "two.json")
+    base = MESH_BASE + ["--model", model]
+    one_extra = [a for a in extra if a not in ("--comm", "scatter")]
+    rc1, one, _, err1 = _cli_result(base + one_extra + ["--out", out1])
+    rc2, two, stdout, err2 = _cli_result(base + extra + ["--mesh", "2",
+                                                         "--out", out2])
+    assert rc1 == 0 and rc2 == 0, err1 + err2
+    assert len(stdout.strip().splitlines()) == 1
+    assert two["mesh"] == 2 and "mesh" not in one
+    same = ("n", "d", "k", "n_iter", "mode", "converged")
+    assert {f: two[f] for f in same} == {f: one[f] for f in same}
+    assert sorted(set(two) - {"mesh"}) == sorted(one)
+    if model == "lloyd":
+        np.testing.assert_allclose(two["inertia"], one["inertia"],
+                                   rtol=1e-5)
+        assert open(out2).read() == open(out1).read()
+    else:
+        np.testing.assert_allclose(two["inertia"], one["inertia"],
+                                   rtol=0.05)
+        json.loads(open(out2).read())
+    assert err2.count("wrote ") == 1
+
+
+def test_train_mesh_joins_an_existing_process_group(tmp_path):
+    """Under a ``torch.distributed`` environment (``WORLD_SIZE`` set, as
+    ``torchrun`` sets it) each process joins the group as its rank instead
+    of starting ranks: rank 0 prints the result line, rank 1 nothing."""
+    from kmeans_tpu_torch.parallel.mesh import free_port
+
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE="2",
+               PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    argv = [sys.executable, "-m", "kmeans_tpu_torch.cli", *MESH_BASE,
+            "--mesh", "2"]
+    procs = [subprocess.Popen(argv, cwd=str(tmp_path),
+                              env=dict(env, RANK=str(r)),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    res = json.loads(outs[0][0].strip().splitlines()[-1])
+    assert res["mesh"] == 2 and res["mode"] == "lloyd"
+    assert outs[1][0].strip() == ""
+
+
+def test_train_mesh_usage_errors(monkeypatch, capsys):
+    """``--mesh N`` on the cards needs N of them (this host has none), and
+    under a process group it must match ``WORLD_SIZE``: one line, exit 2,
+    before any rank starts or any group is joined."""
+    import torch
+
+    if not torch.cuda.is_available():
+        rc = port_cli.main(MESH_BASE[:-2] + ["--mesh", "2"])
+        err = capsys.readouterr().err.strip().splitlines()
+        assert rc == 2 and len(err) == 1 and "--device cpu" in err[0]
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    rc = port_cli.main(MESH_BASE + ["--mesh", "3"])
+    err = capsys.readouterr().err.strip().splitlines()
+    assert rc == 2 and err == [
+        "error: --mesh 3 contradicts the process group's WORLD_SIZE=2"]
+

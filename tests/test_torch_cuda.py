@@ -1041,3 +1041,29 @@ def test_continuous_pipeline_on_the_card_matches_the_cpu(card):
                                [i.inertia_pp or 0.0 for i in b], rtol=1e-3)
     assert launches["lloyd_pass_cuda"] > 0 and launches["lloyd_delta_cuda"] > 0
     assert sum(cpu_launches.values()) == 0
+
+
+@pytest.mark.parametrize("update", ["delta", "matmul"])
+def test_nccl_mesh_of_one_matches_fit_lloyd(card, update):
+    """The sharded engine on an NCCL mesh of one card (a process group of
+    one, made by ``make_mesh``) gives ``fit_lloyd``'s fit from the same c0:
+    labels equal, centroids and inertia to the sums' tolerance."""
+    import torch.distributed as dist
+
+    from kmeans_tpu_torch.parallel import fit_lloyd_sharded, make_mesh
+
+    x, c, _, _ = _blobs(21, 20_000, 64, 12, card)
+    cfg = KMeansConfig(k=12, update=update)
+    want = fit_lloyd(x, 12, config=cfg, init=c, max_iter=20, tol=-1.0)
+    mesh = make_mesh((1, 1))
+    try:
+        assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+        got = fit_lloyd_sharded(x, 12, mesh=mesh, config=cfg, init=c,
+                                max_iter=20, tol=-1.0)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got.labels, want.labels)
+    assert int(got.n_iter) == int(want.n_iter)
+    _close(got.centroids, want.centroids)
+    _close(got.inertia, want.inertia)
+    _close(got.counts, want.counts)

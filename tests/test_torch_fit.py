@@ -238,6 +238,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith('jax.') or m == 'kmeans_tpu'"
         " or m.startswith('kmeans_tpu.'))\n"
+        "walked = ['kmeans_tpu_torch.parallel.' + m for m in"
+        " ('mesh', 'distributed', 'engine', 'init_sharded')]\n"
+        "bad += [m + ' not walked' for m in walked if m not in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

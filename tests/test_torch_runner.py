@@ -513,8 +513,14 @@ def test_runner_hot_loop_unobserved_when_disabled(pkg):
 
 
 def test_runner_mesh_names_the_sharded_engine(blobs):
-    with pytest.raises(ValueError, match="sharded engine.*A4"):
-        port_models.LloydRunner(blobs, 4, mesh=object(), device=CPU)
+    """On a mesh the runner steps the dense reduction; the incremental
+    updates are the sharded engine's (``fit_lloyd_sharded``), refused
+    with the reference's line before the mesh is touched."""
+    for update in ("delta", "hamerly", "yinyang"):
+        with pytest.raises(ValueError, match="fit_lloyd_sharded"):
+            port_models.LloydRunner(
+                blobs, 4, config=KMeansConfig(k=4, update=update),
+                mesh=object(), device=CPU)
 
 
 def test_runner_raises_without_a_card(blobs):

@@ -1,0 +1,235 @@
+"""One rank of a gloo CPU world for the port's sharded-engine tests.
+
+    python tests/torch_mesh_worker.py CASES.pkl OUT.pkl
+
+runs under ``WORLD_SIZE`` / ``RANK`` / ``MASTER_ADDR`` / ``MASTER_PORT``
+(set by :func:`run_world`), builds a CPU mesh over the world, runs every
+case of ``CASES.pkl`` (a list of ``(name, op, kwargs)``) in order and, on
+rank 0, pickles ``{name: result}`` to ``OUT.pkl``.  A case that raises gives
+``{"error": "<type>: <message>"}``; the engine validates before its first
+collective, identically on every rank, so such a case raises on every rank
+and the world goes on.  Imports the port only (no JAX).
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _np(t):
+    import numpy as np
+    import torch
+
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def _state(s):
+    return {"centroids": _np(s.centroids), "labels": _np(s.labels),
+            "inertia": float(s.inertia), "n_iter": int(s.n_iter),
+            "converged": bool(s.converged), "counts": _np(s.counts)}
+
+
+def _cfg(kw):
+    from kmeans_tpu_torch.config import KMeansConfig
+
+    return KMeansConfig(**kw) if kw is not None else None
+
+
+def op_fit(mesh, x, k, config=None, **kw):
+    from kmeans_tpu_torch.parallel import fit_lloyd_sharded
+
+    return _state(fit_lloyd_sharded(x, k, mesh=mesh, config=_cfg(config),
+                                    **kw))
+
+
+def op_minibatch(mesh, x, k, config=None, **kw):
+    from kmeans_tpu_torch.parallel import fit_minibatch_sharded
+
+    return _state(fit_minibatch_sharded(x, k, mesh=mesh, config=_cfg(config),
+                                        **kw))
+
+
+def op_minibatch_draws(mesh, n, d, k, batch_size, steps, seed):
+    """Each rank's batch indices of a minibatch fit: ``(s_i, n_loc,
+    [global index arrays, one a step])``, all ranks gathered."""
+    import torch
+
+    from kmeans_tpu_torch.parallel.engine import (_minibatch_shard,
+                                                  minibatch_loop_seed,
+                                                  minibatch_rank_generator)
+
+    dp = mesh.size
+    n_loc = -(-n // dp)
+    out = []
+    # The loop seed: the fit's first draw after an explicit init.
+    loop_seed = minibatch_loop_seed(torch.Generator().manual_seed(seed),
+                                    "cpu")
+    for r in range(dp):
+        n_valid, s_i = _minibatch_shard(n, n_loc, dp, r)
+        g = minibatch_rank_generator(loop_seed, r, "cpu")
+        idx = [_np(torch.randint(0, max(n_valid, 1), (batch_size // dp,),
+                                 generator=g)) + r * n_loc
+               for _ in range(steps)]
+        out.append((s_i, n_valid, idx))
+    return out
+
+
+def op_assign(mesh, x, c, **kw):
+    from kmeans_tpu_torch.parallel import sharded_assign
+
+    labels, mind = sharded_assign(x, c, mesh=mesh, **kw)
+    return {"labels": _np(labels), "mind": _np(mind)}
+
+
+def op_init(mesh, x, k, method, seed, weights=None, **kw):
+    """The engine's sharded seeding on the padded row blocks."""
+    import torch
+
+    from kmeans_tpu_torch.parallel.engine import _place
+    from kmeans_tpu_torch.parallel.init_sharded import init_on_mesh
+
+    x_loc, w_loc, _, n = _place(x, mesh, "data", weights=weights)
+    gen = torch.Generator().manual_seed(seed)
+    c = init_on_mesh(gen, x_loc, k, mesh=mesh, n=n, method=method,
+                     weights=w_loc, user_weights=weights is not None, **kw)
+    # The generator must stand where the single-device seeding leaves it.
+    nxt = torch.rand(4, generator=gen)
+    return {"centroids": _np(c), "next": _np(nxt)}
+
+
+def op_kmpar(mesh, x, k, seed, **kw):
+    """kmeans_parallel_sharded on the blocks (the reference's rounds /
+    oversampling knobs)."""
+    import torch
+
+    from kmeans_tpu_torch.parallel import kmeans_parallel_sharded
+    from kmeans_tpu_torch.parallel.engine import _place
+
+    x_loc, w_loc, _, n = _place(x, mesh, "data")
+    gen = torch.Generator().manual_seed(seed)
+    return _np(kmeans_parallel_sharded(gen, x_loc, k, mesh=mesh, n=n,
+                                       weights=w_loc, **kw))
+
+
+def op_runner(mesh, x, k, config=None, init=None, **kw):
+    from kmeans_tpu_torch.models.runner import LloydRunner
+
+    r = LloydRunner(x, k, config=_cfg(config), mesh=mesh, device="cpu")
+    r.init(init)
+    return _state(r.run(**kw))
+
+
+def op_mesh(mesh, shape, axis_names=("data", "model")):
+    from kmeans_tpu_torch.parallel import make_mesh
+
+    m = make_mesh(shape, axis_names, platform="cpu")
+    return {"shape": m.shape, "rank": m.rank, "size": m.size}
+
+
+def op_split(mesh, x, k, init, comm, sweeps):
+    """A fit recorded by ``sweep_split``: its per-sweep summary."""
+    from kmeans_tpu_torch.parallel import fit_lloyd_sharded
+    from kmeans_tpu_torch.parallel.engine import sweep_split
+
+    with sweep_split(mesh) as sp:
+        fit_lloyd_sharded(x, k, mesh=mesh, init=init, max_iter=sweeps,
+                          tol=-1.0, config=_cfg(dict(k=k, comm=comm)))
+    assert mesh.split is None
+    return sp.summary()
+
+
+def op_winners(mesh, x, min_d2, k):
+    """The sharded ranked-winner list on the padded row blocks."""
+    import numpy as np
+    import torch
+
+    from kmeans_tpu_torch.parallel.engine import _place, _ranked_winners_dp
+
+    x_loc, w_loc, _, n = _place(x, mesh, "data")
+    n_loc = x_loc.shape[0]
+    lo = mesh.rank * n_loc
+    m = np.full(n_loc, -np.inf, np.float32)
+    part = np.asarray(min_d2, np.float32)[lo:lo + n_loc]
+    m[:part.shape[0]] = part
+    return _np(_ranked_winners_dp(mesh, x_loc, torch.from_numpy(m), k))
+
+
+def main(cases_path, out_path):
+    sys.path.insert(0, _REPO)
+    import torch
+
+    torch.set_num_threads(1)
+    from kmeans_tpu_torch.parallel import cpu_mesh
+
+    with open(cases_path, "rb") as f:
+        cases = pickle.load(f)
+    world = int(os.environ["WORLD_SIZE"])
+    mesh = cpu_mesh((world, 1))
+    results = {}
+    for name, op, kw in cases:
+        try:
+            results[name] = globals()[f"op_{op}"](mesh, **kw)
+        except Exception as e:  # allow-silent-except: the case's error is its result, reported to the test
+            results[name] = {"error": f"{type(e).__name__}: {e}"}
+    if mesh.rank == 0:
+        with open(out_path, "wb") as f:
+            pickle.dump(results, f)
+    torch.distributed.destroy_process_group()
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_world(world: int, cases, *, timeout: float = 240.0):
+    """Run ``cases`` in a gloo world of ``world`` CPU processes; returns
+    rank 0's ``{name: result}``.  Every rank is killed after ``timeout``
+    seconds, so a hung collective fails the caller instead of the suite."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cases_path = os.path.join(tmp, "cases.pkl")
+        out_path = os.path.join(tmp, "out.pkl")
+        with open(cases_path, "wb") as f:
+            pickle.dump(list(cases), f)
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world),
+                   OMP_NUM_THREADS="1")
+        env.pop("LOCAL_RANK", None)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), cases_path,
+             out_path], env=dict(env, RANK=str(r)), cwd=_REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(world)]
+        logs = []
+        deadline = time.monotonic() + timeout
+        try:
+            for p in procs:
+                out, _ = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+                logs.append(out.decode(errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            raise RuntimeError("a rank failed:\n" + "\n".join(
+                f"--- rank {r} rc={p.returncode}\n{log[-3000:]}"
+                for r, (p, log) in enumerate(zip(procs, logs))))
+        with open(out_path, "rb") as f:
+            return pickle.load(f)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2])
