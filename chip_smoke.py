@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 from the root of a checkout.  It builds the port's CUDA kernels from
-``kmeans_tpu_torch/csrc/lloyd.cu`` and runs sixteen phases, exiting
+``kmeans_tpu_torch/csrc/lloyd.cu`` and runs seventeen phases, exiting
 non-zero if any fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -35,7 +35,13 @@ non-zero if any fails:
    bit), and ties on either side of a slice edge; the fold core (K6 single
    and dual, K3, K1's fold) at d in {64, 100, 300, 2048, 4104}, k in
    {1, 3, 7, 1000}, f32 and bf16, every row on one label: equal bit for
-   bit to ``fold_core_plain``, to a second launch and to each other;
+   bit to ``fold_core_plain``, to a second launch and to each other; the
+   sharded TP body's hooks at TP_HOOK_CASES (the Hopper core in bf16 and
+   on its f32 route, and ``score_block``): K1 and K5 in raw-score mode on
+   two k-slices with ``valid_cols`` masking the last columns, the two
+   slices resolved into one card's K1 labels but ties, and K3 and K6 with
+   the resolved scores and relative labels, each against its plain
+   version;
 4. the slice at full width, at n = 1,280,000, d = 2048, k = 1000 in bf16:
    the main path in three runs, each with the launch counts set to 0 just
    before it and read just after -- ``fit_lloyd(update="delta")`` (20
@@ -188,7 +194,7 @@ non-zero if any fails:
    and assign clients attached (``stop()`` well under ``fleet_drain_s``,
    no accepted request unanswered); the board server's K5 launches (the
    stop drill's model) and K6 launches (the train op's trimmed fits at d =
-   2) are printed and on no row of phase 16;
+   2) are printed and on no row of phase 17;
 14. out-of-core streaming and continuous clustering, each run's launch
    counts set to 0 before it and read after: imagenet-stream (the
    headline's 1.28M x 2048 f32 rows in host memory, ``fit_minibatch_stream``
@@ -238,7 +244,38 @@ non-zero if any fails:
    train --mesh N`` for lloyd and minibatch in child processes, N the card
    count, or ``--mesh 2 --device cpu`` at a small shape on a
    one-card host, against ``--mesh 1``);
-16. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+16. the rest of the sharded engine, each run's launch counts set to 0
+   before it and read after, on every rank and child, no number of it a
+   scaling number (one card): imagenet-accel-dp1-nccl (phase 4's data and
+   c0, ``fit_lloyd_accelerated_sharded`` with β and with Anderson to
+   convergence on an NCCL mesh of one, each held to the single-device fit
+   from the same c0: sweeps equal, centroids within SUMS_RTOL, inertia
+   within FIT_INERTIA_RTOL; timed beside it); imagenet-elastic-dp1-nccl
+   (ELASTIC_SWEEPS sweeps at ``ckpt_every`` ELASTIC_EVERY, matmul and
+   delta, uninterrupted here, then cut by SIGTERM at the second boundary
+   and resumed, each in a child process, ``chip_smoke.py --elastic-rank
+   SPEC``: matmul bit for bit, delta within FIT_INERTIA_RTOL and ties;
+   the seconds a bundle and the restart); TP×FP on four gloo ranks at
+   TPFP_SHAPE (held, not timed); then a gloo world of two ranks sharing
+   the card (``chip_smoke.py --sharded-rank SPEC``): the MIN all-reduce
+   on card tensors, trimmed-dp2-gloo (``fit_trimmed_sharded``,
+   m = TRIM_M, TRIM_ITERS iterations: K1 and K6 on each rank, its mask
+   one card's top m at its centroids exactly, held to ``fit_trimmed``),
+   elastic-dp2-gloo (the card-cut matmul bundle resumed on two ranks),
+   imagenet-tp2-gloo and imagenet-fp2-gloo (TP_SWEEPS classic sweeps on
+   meshes (1, 2) with model = 2 and (1, 1, 2) with feature = 2, K1's
+   launches with ``valid_cols`` counted, each sweep split into its pass,
+   MIN resolve, fold, merge and update, held to the single-device fit),
+   imagenet-stream-dp2-gloo (phase 14's stream for SHARDED_STREAM_STEPS
+   steps, each rank gathering half of each batch; steps/s, a rank's step
+   split, the centroids a one-device replay of both halves bit for bit),
+   codebook-dp2-gloo's peak card memory a rank after C4 and
+   codebook-tp2-gloo (TP_CODEBOOK_SWEEPS classic sweeps at k = 65536, K5
+   and K6 with ``valid_cols``, the final labels one card's K5 pass but
+   ties); and train-mesh (``cli train --mesh 2 --device cpu`` for
+   accelerated, trimmed, ``--stream`` and ``--ckpt-dir`` with a cut and a
+   resume, against ``--mesh 1`` and the uninterrupted run);
+17. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.  A kernel has a row for each compute dtype its main-path runs
    score in: bf16 (phases 4, 6, 9, 12's in-process and bf16 runs, 13's
    in-process trimmed runs and 14's bf16 stream) and f32 (the route's K1,
@@ -259,7 +296,8 @@ build at their first call); ``--serve-http`` and ``--fleet`` run phases 1
 and 10, and 1 and 11, on ``make_blobs`` centres; ``--runner`` runs phases
 1, 2 and 12 (it makes phase 6's fit itself); ``--board`` runs phases 1
 and 13 (the kernels build at their first call); ``--stream`` runs phases
-1, 2 and 14; ``--mesh`` runs phases 1, 2 and 15.
+1, 2 and 14; ``--mesh`` runs phases 1, 2 and 15; ``--sharded`` runs
+phases 1, 2 and 16.
 
 The bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of memory, 989
 TFLOP/s bf16 on the tensor cores and 67 TFLOP/s f32 outside them; an f32
@@ -1027,6 +1065,85 @@ def _fold_core_cases(gen):
               "fold_core_plain and each other bit for bit")
 
 
+#: The TP hooks' cases (d, x dtype, compute dtype): the Hopper core in
+#: bf16 (d % 8 == 0), its f32 route (d % 4 == 0) and ``score_block``.
+TP_HOOK_CASES = ((2048, "bf16", "bf16"), (300, "f32", "f32"),
+                 (100, "f32", "bf16"))
+
+
+def _tp_hook_cases(gen):
+    """The sharded TP body's kernel hooks on the card, each held against
+    its plain version: two model ranks' slices of 500 of k = 1000 columns,
+    k_real = 997 (the last three columns of the second slice masked by
+    ``valid_cols``); K1 in raw-score mode on each slice, untiled and on the
+    tiled route (K5 at 128-column slices); the two slices resolved as the
+    two MIN all-reduces resolve them (the value, then the lowest index),
+    which must give one card's K1 labels over the 997 columns but ties;
+    then K3 with the resolved scores and each slice's relative labels
+    (rows won by the other slice fall outside ``[0, 500)`` and drop),
+    untiled and on K6 (``k_tile``).  Returns the number of cases."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    n, k, k_loc, k_real = 2053, 1000, 500, 997
+    n_cases = 0
+    for d, xd, cd in TP_HOOK_CASES:
+        xd, cd = dt[xd], dt[cd]
+        x, c, w, _ = _case_inputs(gen, n, d, k, xd, False)
+        core = K.scoring_core(x, cd, c.to(cd))
+        head = f"n={n} d={d} x={str(xd)[6:]} cd={str(cd)[6:]} core {core}"
+        labs, raws = [], []
+        for m in range(2):
+            cl = c[m * k_loc:(m + 1) * k_loc]
+            valid = (m * k_loc + torch.arange(k_loc, device="cuda")) < k_real
+            live = int(valid.sum())
+            for k_tile in (None, 128):
+                name = (f"K1 valid_cols raw_scores {head} slice {m} "
+                        f"k_tile {k_tile}")
+                kw = dict(valid_cols=valid, with_update=False,
+                          raw_scores=True, compute_dtype=cd, k_tile=k_tile)
+                lab, raw, _, _, _ = K.lloyd_pass_cuda(x, cl, **kw)
+                _sync()
+                plab, praw, _, _, _ = K.lloyd_pass_plain(x, cl, **kw)
+                _check(int(lab.max()) < live,
+                       f"{name}: a masked column won")
+                chosen, tol, _ = _check_labels(name, x, cl[:live], cd, lab,
+                                               plab)
+                _within(f"{name} raw scores", raw, chosen, tol)
+                _within(f"{name} raw scores (plain)", praw, chosen, tol)
+                n_cases += 1
+                if k_tile is None:
+                    labs.append(lab)
+                    raws.append(raw)
+        g = torch.minimum(raws[0], raws[1])
+        cand = [torch.where(raws[m] == g, labs[m] + m * k_loc, k)
+                for m in range(2)]
+        lab_g = torch.minimum(cand[0], cand[1]).to(torch.int32)
+        one = K.lloyd_pass_cuda(x, c[:k_real], with_update=False,
+                                compute_dtype=cd)[0]
+        _sync()
+        _check_labels(f"TP resolve {head}", x, c[:k_real], cd, lab_g, one)
+        for m in range(2):
+            rel = lab_g - m * k_loc
+            for k_tile in (None, 128):
+                name = f"K3 given scores {head} slice {m} k_tile {k_tile}"
+                kw = dict(scores=g, weights=w, compute_dtype=cd,
+                          k_tile=k_tile)
+                s3, c3, m3 = K.accumulate_cuda(x, rel, k_loc, **kw)
+                _sync()
+                ps3, pc3, pm3 = K.accumulate_plain(x, rel, k_loc, **kw)
+                _close(f"{name} sums", s3, ps3)
+                _check(bool(torch.equal(c3, pc3)), f"{name} counts")
+                _close(f"{name} min_d2", m3, pm3, rtol=1e-5)
+                n_cases += 1
+        print(f"  ok TP hooks {head}: K1 / K5 with valid_cols in raw-score "
+              "mode and K3 / K6 with given scores against their plain "
+              "versions, the resolved labels one card's K1 labels but ties")
+    return n_cases
+
+
 def phase_kernels():
     import torch
 
@@ -1141,6 +1258,7 @@ def phase_kernels():
         _slice_edge_core_ties(gen, cd)
         _core_range_edge_ties(gen, cd)
     _fold_core_cases(gen)
+    n_tp = _tp_hook_cases(gen)
     print(f"scoring cores over the cases: {cores}; the Hopper core's labels, "
           "min_d2, raw scores, sb, slb and second-min (K1, K2, K4, K5 at "
           "k_tile 128, 384, 1024) equal score_block's bit for bit in bf16 "
@@ -1148,8 +1266,9 @@ def phase_kernels():
           "K2's bit for bit, and two launches of K1, K4 and K5 equal each "
           "other bit for bit")
     _f32_error_summary()
-    print(f"kernels vs plain: {len(cases) + 8 + len(FOLD_CORE_CASES)} "
-          "cases agree (score rtol "
+    print(f"kernels vs plain: "
+          f"{len(cases) + 8 + len(FOLD_CORE_CASES) + n_tp} cases agree "
+          "(score rtol "
           f"{SCORE_RTOL}, sums rtol {SUMS_RTOL}, counts exact; K5 equal to "
           "K1, K2 and K4 bit for bit; K6 equal to itself bit for bit)")
 
@@ -7529,6 +7648,9 @@ def phase_mesh(card):
            and launches["accumulate_cuda"] >= 2
            and launches["lloyd_pass_cuda"] >= 1,
            f"imagenet-dp1-nccl: launches {launches}")
+    _check(stats["all_reduce"][0] >= MESH_SWEEPS,
+           f"imagenet-dp1-nccl: NCCL collectives {stats}, not one "
+           f"all-reduce a sweep")
     print(f"imagenet-dp1-nccl ({card}): fit_lloyd_sharded(update='delta', "
           f"comm='auto') on an NCCL mesh of one, {MESH_SWEEPS} sweeps + "
           f"final view, {secs:.3f} s against fit_lloyd's {one_s:.3f} s "
@@ -7568,8 +7690,9 @@ def phase_mesh(card):
                       f"the sweeps; ring model {ring / 1e6:.3f} MB a device "
                       f"a sweep)")
         print(f"codebook-dp2-gloo: each rank's peak card memory from its "
-              f"data on (the full x, kept, its block a view of it; rank 0 "
-              f"also ran the single-device fit): "
+              f"data on (this phase hands the fit the full x on the card "
+              f"and keeps it; since C4 the block is a copy of the rank's "
+              f"rows beside it; rank 0 also ran the single-device fit): "
               f"{[round(r['codebook_peak_gb'], 3) for r in ranks]} GB")
         mb = [r["runs"]["cifar10-dp2-minibatch"] for r in ranks]
         print(f"cifar10-dp2-minibatch ranks: seconds "
@@ -7578,6 +7701,955 @@ def phase_mesh(card):
         _mesh_cli(card, tmp)
     print(f"phase 15 ({card}): {time.perf_counter() - t_all:.1f} s; "
           f"launches {totals}")
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the rest of the sharded engine
+# ---------------------------------------------------------------------------
+
+#: imagenet-accel-dp1-nccl: both extrapolations to convergence (default
+#: tol), at most this many sweeps.
+SHARDED_ACCEL_MAX_ITER = 100
+#: The elastic drills: sweeps, bundle cadence (the cut comes at the second
+#: boundary, sweep 8) and the fault that cuts them.
+ELASTIC_SWEEPS = 20
+ELASTIC_EVERY = 4
+ELASTIC_FAULT = "engine.sweep_merge:sigterm@2"
+#: imagenet-stream-dp2-gloo: phase 14's stream cut to this many steps.
+SHARDED_STREAM_STEPS = 200
+#: imagenet-tp2-gloo / -fp2-gloo: classic sweeps; codebook-tp2-gloo's cut.
+TP_SWEEPS = 20
+TP_CODEBOOK_SWEEPS = 2
+#: TP×FP on four gloo ranks: a small shape, held, not timed.
+TPFP_SHAPE = dict(n=100_000, d=256, k=200)
+TPFP_SWEEPS = 10
+#: Seconds a world or a child of this phase may take.
+SHARDED_TIMEOUT_S = 420
+#: codebook-dp2-gloo's peak card memory a rank before C4's repair (the
+#: lowest of phase 15's readings, 10.1–10.7 GB, NVIDIA H100 80GB HBM3 at
+#: 700.00 W: each rank kept the full x) and the least drop the repair must
+#: show (a rank's 2.62 GB half of x no longer held twice).
+CODEBOOK_PEAK_BEFORE_C4_GB = 10.1
+C4_MIN_DROP_GB = 2.5
+#: train-mesh's small shape for phase 16's ``cli train --mesh 2 --device
+#: cpu`` runs.
+SHARDED_CLI_SMALL = ["--n", "4000", "--d", "16", "--k", "8", "--seed", "3",
+                     "--device", "cpu"]
+
+
+def _state_record(st):
+    """A state's tensors on the host, for a file another process reads."""
+    return {"centroids": st.centroids.cpu(), "labels": st.labels.cpu(),
+            "inertia": float(st.inertia), "n_iter": int(st.n_iter),
+            "counts": st.counts.cpu()}
+
+
+def _headline_data():
+    """Phase 4's bf16 data and c0, made on the card from their seeds."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.init import random_init
+
+    n, d, k = HEADLINE["n"], HEADLINE["d"], HEADLINE["k"]
+    x, _, _ = kt.make_blobs(0, n, d, k, dtype=torch.bfloat16)
+    c0 = random_init(torch.Generator(device="cuda").manual_seed(1), x, k)
+    return x, c0
+
+
+def _sharded_accel(card, mesh, x, c0):
+    """imagenet-accel-dp1-nccl: β and Anderson to convergence on an NCCL
+    mesh of one, each held to the single-device ``fit_lloyd_accelerated``
+    from the same c0 (dense sweeps both): iterations equal, centroids
+    within SUMS_RTOL, inertia within FIT_INERTIA_RTOL; each timed beside
+    it after a warm-up.  Returns the runs' launches."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.parallel import fit_lloyd_accelerated_sharded
+
+    k = c0.shape[0]
+    cfg = kt.KMeansConfig(k=k, update="matmul", compute_dtype="bfloat16",
+                          max_iter=SHARDED_ACCEL_MAX_ITER)
+    total = {}
+    for accel in ("beta", "anderson"):
+        runs = {}
+        for name, fit in (("one card", lambda n_it: kt.fit_lloyd_accelerated(
+                x, k, config=cfg, init=c0, accel=accel, max_iter=n_it)),
+                          ("mesh", lambda n_it: fit_lloyd_accelerated_sharded(
+                x, k, mesh=mesh, config=cfg, init=c0, accel=accel,
+                max_iter=n_it))):
+            fit(2)                                  # warm-up
+            _sync()
+            K.reset_launch_counts()
+            mesh.reset_stats()
+            t0 = time.perf_counter()
+            st = fit(SHARDED_ACCEL_MAX_ITER)
+            _sync()
+            runs[name] = (st, time.perf_counter() - t0, K.launch_counts(),
+                          mesh.stats["all_reduce"][0])
+            _add_counts(total, runs[name][2])
+        (one, one_s, _, _), (got, secs, launches, n_ar) = (runs["one card"],
+                                                          runs["mesh"])
+        tag = f"imagenet-accel-dp1-nccl {accel}"
+        _check(int(got.n_iter) == int(one.n_iter),
+               f"{tag}: {int(got.n_iter)} sweeps against one card's "
+               f"{int(one.n_iter)}")
+        err = _close(f"{tag} centroids", got.centroids, one.centroids)
+        rel = abs(float(got.inertia) - float(one.inertia)) / float(
+            one.inertia)
+        _check(rel <= FIT_INERTIA_RTOL and _finite(got.centroids),
+               f"{tag}: inertia {float(got.inertia)!r} against "
+               f"{float(one.inertia)!r}")
+        _check(launches["lloyd_pass_cuda"] >= int(got.n_iter),
+               f"{tag}: launches {launches}")
+        _check(n_ar >= int(got.n_iter),
+               f"{tag}: {n_ar} NCCL all-reduces in {int(got.n_iter)} sweeps")
+        print(f"{tag} ({card}): fit_lloyd_accelerated_sharded(accel="
+              f"{accel!r}) on an NCCL mesh of one, {int(got.n_iter)} sweeps "
+              f"(converged {bool(got.converged)}) in {secs:.3f} s against "
+              f"fit_lloyd_accelerated's {int(one.n_iter)} in {one_s:.3f} s "
+              f"(mesh/one card {secs / one_s:.3f}); centroids max abs err "
+              f"{err:.3e}, inertia rel {rel:.3e}; launches {launches}; "
+              f"NCCL all-reduces {n_ar}", flush=True)
+    torch.cuda.empty_cache()
+    return total
+
+
+def _elastic_fit(mesh, x, c0, update, ck, resume=False):
+    """One elastic ``fit_lloyd_sharded`` of the drills: ELASTIC_SWEEPS
+    sweeps of ``update``, bundles every ELASTIC_EVERY into ``ck``."""
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.parallel import fit_lloyd_sharded
+
+    cfg = kt.KMeansConfig(k=c0.shape[0], update=update,
+                          compute_dtype="bfloat16")
+    return fit_lloyd_sharded(x, c0.shape[0], mesh=mesh, config=cfg, init=c0,
+                             max_iter=ELASTIC_SWEEPS, tol=-1.0, ckpt_dir=ck,
+                             ckpt_every=ELASTIC_EVERY, resume=resume)
+
+
+def _elastic_rank(spec) -> int:
+    """``chip_smoke.py --elastic-rank SPEC``: one elastic fit on an NCCL
+    mesh of one in a child process (phase 4's data and c0 made here from
+    their seeds), cut by ``KMEANS_TPU_FAULTS`` when the parent sets it, or
+    resumed (``spec["resume"]``).  Writes its state (``spec["state"]``,
+    ``torch.save``), the wall-clock time just before the fit, its seconds,
+    launches and bundle seconds (``kmeans_tpu_engine_ckpt_seconds``) or
+    the sweep it was preempted at to ``spec["out"]``."""
+    import torch
+    import torch.distributed as dist
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.parallel import engine as E
+    from kmeans_tpu_torch.parallel import make_mesh
+    from kmeans_tpu_torch.utils.preempt import Preempted
+
+    x, c0 = _headline_data()
+    mesh = make_mesh((1, 1), ("data", "model"))
+    out = {}
+    K.reset_launch_counts()
+    out["t_fit"] = time.time()
+    try:
+        st = _elastic_fit(mesh, x, c0, spec["update"], spec["ckpt"],
+                          resume=spec["resume"])
+        torch.cuda.synchronize()
+        torch.save(_state_record(st), spec["state"])
+    except Preempted as e:
+        out["preempted"] = e.step
+    out["seconds"] = time.time() - out["t_fit"]
+    out["launches"] = K.launch_counts()
+    out["bundles"], out["bundle_s"], _ = E._ENGINE_CKPT_SECONDS.snapshot()
+    with open(spec["out"], "w", encoding="utf-8") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn_children(specs, env=None):
+    """Start ``chip_smoke.py --elastic-rank`` children at once and wait for
+    them (each killed at SHARDED_TIMEOUT_S).  Returns ``[(record, spawn
+    time, exit time)]`` in order."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for spec in specs:
+        t_spawn = time.time()
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--elastic-rank",
+             json.dumps(spec)], cwd=root,
+            env=dict(os.environ, **(env or {}), PYTHONUNBUFFERED="1")),
+            t_spawn))
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    exits = [None] * len(procs)
+    try:
+        while any(t is None for t in exits) and time.monotonic() < deadline:
+            for i, (p, _) in enumerate(procs):
+                if exits[i] is None and p.poll() is not None:
+                    exits[i] = time.time()
+            time.sleep(0.05)
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    out = []
+    for (p, t_spawn), t_exit, spec in zip(procs, exits, specs):
+        _check(p.returncode == 0, f"elastic child {spec['name']}: exit "
+               f"{p.returncode}")
+        with open(spec["out"], encoding="utf-8") as f:
+            out.append((json.load(f), t_spawn, t_exit))
+    return out
+
+
+def _elastic_whole(card, mesh, x, c0, tmp):
+    """imagenet-elastic-dp1-nccl's uninterrupted runs (matmul and delta),
+    in this process.  Returns ``(launches, {update: state file})``."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.parallel import engine as E
+    from kmeans_tpu_torch.utils.checkpoint import latest_step
+
+    total = {}
+    whole = {}
+    for update in ("matmul", "delta"):
+        _elastic_fit(mesh, x, c0, update, f"{tmp}/elastic-warm-{update}")
+        _sync()
+        K.reset_launch_counts()
+        mesh.reset_stats()
+        n0, s0, _ = E._ENGINE_CKPT_SECONDS.snapshot()
+        t0 = time.perf_counter()
+        st = _elastic_fit(mesh, x, c0, update, f"{tmp}/elastic-{update}")
+        _sync()
+        secs = time.perf_counter() - t0
+        n_ar = mesh.stats["all_reduce"][0]
+        n1, s1, _ = E._ENGINE_CKPT_SECONDS.snapshot()
+        launches = K.launch_counts()
+        _add_counts(total, launches)
+        whole[update] = f"{tmp}/elastic-{update}.pt"
+        torch.save(_state_record(st), whole[update])
+        _check(int(st.n_iter) == ELASTIC_SWEEPS and n1 - n0 == 5
+               and n_ar >= ELASTIC_SWEEPS,
+               f"imagenet-elastic-dp1-nccl {update}: {int(st.n_iter)} "
+               f"sweeps, {n1 - n0} bundles, {n_ar} NCCL all-reduces")
+        print(f"imagenet-elastic-dp1-nccl {update} ({card}): "
+              f"{ELASTIC_SWEEPS} sweeps at ckpt_every={ELASTIC_EVERY} in "
+              f"{secs:.3f} s, {n1 - n0} bundles at "
+              f"{1e3 * (s1 - s0) / (n1 - n0):.2f} ms each (the pull of "
+              f"the global centroids and the verified save); launches "
+              f"{launches}; NCCL all-reduces {n_ar}", flush=True)
+    return total, whole
+
+
+def _elastic_cuts(tmp):
+    """imagenet-elastic-dp1-nccl's cut runs: two children at once, each
+    SIGTERMed by the fault at its second boundary.  Returns ``(launches,
+    specs, records)``."""
+    from kmeans_tpu_torch.utils.checkpoint import latest_step
+
+    total = {}
+    specs = [dict(name=f"cut {u}", update=u, resume=False,
+                  ckpt=f"{tmp}/elastic-cut-{u}", state=f"{tmp}/cut-{u}.pt",
+                  out=f"{tmp}/cut-{u}.json") for u in ("matmul", "delta")]
+    cuts = _spawn_children(specs, env={"KMEANS_TPU_FAULTS": ELASTIC_FAULT})
+    for spec, (rec, _, _) in zip(specs, cuts):
+        _check(rec.get("preempted") == 2 * ELASTIC_EVERY
+               and latest_step(spec["ckpt"]) == 2 * ELASTIC_EVERY,
+               f"imagenet-elastic {spec['name']}: {rec}")
+        _add_counts(total, rec["launches"])
+    import shutil
+
+    # The bundle the two-rank gloo mesh resumes, before the resume here
+    # writes over it.
+    shutil.copytree(f"{tmp}/elastic-cut-matmul", f"{tmp}/elastic-gloo")
+    return total, specs, cuts
+
+
+def _elastic_resumes(card, x, tmp, specs, cuts, whole):
+    """imagenet-elastic-dp1-nccl's resumes, two children at once, each held
+    to the uninterrupted run: bit for bit for matmul; for delta, inertia
+    within FIT_INERTIA_RTOL and labels but ties (K2's atomics).  Returns
+    the launches."""
+    import torch
+
+    total = {}
+    rspecs = [dict(spec, name=f"resume {spec['update']}", resume=True,
+                   state=f"{tmp}/resumed-{spec['update']}.pt",
+                   out=f"{tmp}/resumed-{spec['update']}.json")
+              for spec in specs]
+    resumed = _spawn_children(rspecs)
+    for spec, (rec, t_spawn, _), (cut, _, t_exit) in zip(rspecs, resumed,
+                                                         cuts):
+        update = spec["update"]
+        _add_counts(total, rec["launches"])
+        got = torch.load(spec["state"])
+        want = torch.load(whole[update])
+        _check(got["n_iter"] == ELASTIC_SWEEPS,
+               f"imagenet-elastic resume {update}: {got['n_iter']} sweeps")
+        if update == "matmul":
+            _check(torch.equal(got["centroids"], want["centroids"])
+                   and torch.equal(got["labels"], want["labels"])
+                   and got["inertia"] == want["inertia"],
+                   "imagenet-elastic matmul: the cut and resumed run is not "
+                   "the uninterrupted one bit for bit")
+            held = "bit for bit the uninterrupted run"
+        else:
+            rel = abs(got["inertia"] - want["inertia"]) / want["inertia"]
+            _check(rel <= FIT_INERTIA_RTOL,
+                   f"imagenet-elastic delta: inertia rel {rel:.3e}")
+            moved, _ = _check_labels_pair(
+                "imagenet-elastic delta resume", x,
+                got["centroids"].cuda(), got["labels"].cuda(),
+                want["centroids"].cuda(), want["labels"].cuda(),
+                torch.bfloat16)
+            held = (f"inertia rel {rel:.3e}, {moved} labels moved (ties; "
+                    "K2's atomics)")
+        print(f"imagenet-elastic-dp1-nccl {update} drill ({card}): SIGTERM "
+              f"at the second boundary, exit at sweep {cut['preempted']} "
+              f"after {cut['bundles']} bundles ({1e3 * cut['bundle_s'] / max(cut['bundles'], 1):.2f} "
+              f"ms each); the restart: {rec['t_fit'] - t_spawn:.2f} s from "
+              f"its spawn to the resumed fit's call (process, card context, "
+              f"data regenerated), {t_spawn - t_exit:.2f} s after the cut's "
+              f"exit; the resumed {ELASTIC_SWEEPS - cut['preempted']} sweeps "
+              f"{rec['seconds']:.3f} s; {held}", flush=True)
+    return total
+
+
+def _gloo_probe16(mesh):
+    """Phase 16's collectives on card tensors over gloo: the MIN
+    all-reduce of int32 and of f32."""
+    import torch
+
+    t = torch.tensor([10 - mesh.rank, 3 + mesh.rank], dtype=torch.int32,
+                     device=mesh.device)
+    got = mesh.all_reduce(t, op="min")
+    _check(got.is_cuda and got.tolist() == [10 - (mesh.size - 1), 3],
+           f"gloo MIN all_reduce of int32 on the card: {got.tolist()}")
+    f = torch.tensor([float(mesh.rank) - 0.5], device=mesh.device)
+    _check(float(mesh.all_reduce(f, op="min")[0]) == -0.5,
+           "gloo MIN all_reduce of f32 on the card")
+
+
+def _masked_counts(K):
+    """K1's and K5's launches with ``valid_cols`` (the TP hook) since the
+    last reset, as the module's launch sites count them."""
+    m = K.launch_counts(masked=True)
+    return {"K1": m["lloyd_pass_cuda"], "K5": m["tiled_argmin_cuda"]}
+
+
+def _sharded_run(mesh, name, out, fn):
+    """One timed run on ``mesh``: counts and collectives set to 0 just
+    before, read just after, its sweeps split.  Returns the state."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.parallel.engine import sweep_split
+
+    mesh.barrier()
+    _sync()
+    K.reset_launch_counts()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    with sweep_split(mesh) as sp:
+        st = fn()
+        torch.cuda.synchronize()
+    out["runs"][name] = {"seconds": time.perf_counter() - t0,
+                         "launches": K.launch_counts(),
+                         "valid_cols": _masked_counts(K),
+                         "stats": {op: list(v)
+                                   for op, v in mesh.stats.items()},
+                         "split": sp.summary()}
+    return st
+
+
+def _sharded_rank(spec) -> int:
+    """``chip_smoke.py --sharded-rank SPEC``: one rank of phase 16's gloo
+    world on the one card (``spec["world"]`` ranks; 4: the TP×FP check).
+    Writes the rank's record to ``spec["out"] % rank``."""
+    import torch.distributed as dist
+
+    from kmeans_tpu_torch.parallel import make_mesh
+
+    world = spec["world"]
+    mesh = make_mesh((world, 1), ("data", "model"),
+                     devices=["cuda:0"] * world, backend="gloo")
+    out = {"rank": mesh.rank, "runs": {}}
+    try:
+        _gloo_probe16(mesh)
+        if mesh.rank == 0:
+            print(f"gloo on the card, {world} ranks: the MIN all-reduce of "
+                  "int32 and f32 takes card tensors and gives the right "
+                  "values", flush=True)
+        if world == 4:
+            _sharded_rank_tpfp(out)
+        else:
+            x, c0 = _headline_data()
+            x_host = x.cpu()
+            if mesh.rank != 0:
+                del x
+                x = None
+            _sharded_rank_trimmed(mesh, out, x, x_host, c0)
+            _sharded_rank_elastic(mesh, out, x, x_host, c0, spec)
+            _sharded_rank_tp_fp(out, x, x_host, c0)
+            del x, x_host
+            _sharded_rank_stream(mesh, out)
+            _sharded_rank_codebook(out, mesh)
+    finally:
+        with open(spec["out"] % mesh.rank, "w", encoding="utf-8") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _sharded_rank_trimmed(mesh, out, x, x_host, c0):
+    """trimmed-dp2-gloo on one rank; rank 0 holds it to ``fit_trimmed``
+    and to one card's top-m at the sharded fit's centroids."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.trimmed import trim_select
+    from kmeans_tpu_torch.parallel import fit_trimmed_sharded
+
+    k = c0.shape[0]
+    cfg = kt.KMeansConfig(k=k, compute_dtype="bfloat16")
+
+    def fit(n_it):
+        return fit_trimmed_sharded(x_host, k, mesh=mesh, n_trim=TRIM_M,
+                                   config=cfg, init=c0, max_iter=n_it,
+                                   tol=-1.0)
+
+    fit(1)
+    st = _sharded_run(mesh, "trimmed-dp2-gloo", out,
+                      lambda: fit(TRIM_ITERS))
+    launches = out["runs"]["trimmed-dp2-gloo"]["launches"]
+    _check(launches["lloyd_pass_cuda"] >= TRIM_ITERS
+           and launches["tiled_fold_cuda"] >= TRIM_ITERS,
+           f"trimmed-dp2-gloo: rank {mesh.rank} launched {launches}")
+    if mesh.rank != 0:
+        return
+    _sync()
+    t0 = time.perf_counter()
+    one = kt.fit_trimmed(x, k, n_trim=TRIM_M, config=cfg, init=c0,
+                         max_iter=TRIM_ITERS, tol=-1.0)
+    _sync()
+    one_s = time.perf_counter() - t0
+    # The selection exactly: one card's K1 min_d2 at the sharded fit's
+    # centroids, its top m by the same order, is the sharded mask.
+    _, min_d2, _, _, _ = kt.lloyd_pass(x, st.centroids,
+                                       compute_dtype="bfloat16")
+    _, idx = trim_select(min_d2, None, TRIM_M)
+    mask = torch.zeros(x.shape[0], dtype=torch.bool, device="cuda")
+    mask[idx] = True
+    _check(torch.equal(mask, st.outlier_mask),
+           "trimmed-dp2-gloo: the mask is not one card's top m at the "
+           "sharded centroids")
+    differ = int((st.outlier_mask != one.outlier_mask).sum())
+    tau = float(min_d2[idx[-1]])
+    near = float((min_d2[st.outlier_mask != one.outlier_mask]
+                  - tau).abs().max()) if differ else 0.0
+    rel = abs(float(st.inertia) - float(one.inertia)) / float(one.inertia)
+    _check(rel <= FIT_INERTIA_RTOL and differ <= TRIM_M // 100,
+           f"trimmed-dp2-gloo: inertia rel {rel:.3e}, {differ} rows "
+           "trimmed apart from fit_trimmed")
+    run = out["runs"]["trimmed-dp2-gloo"]
+    print(f"trimmed-dp2-gloo: m = {TRIM_M}, {TRIM_ITERS} iterations on two "
+          f"ranks sharing the card in {run['seconds']:.3f} s "
+          f"({1e3 * run['seconds'] / TRIM_ITERS:.3f} ms an iteration; "
+          f"fit_trimmed on one card {one_s:.3f} s); the mask one card's "
+          f"top m at the sharded centroids exactly; against fit_trimmed "
+          f"{differ} rows trimmed apart, within {near:.3e} of tau "
+          f"{tau:.6e} at the sharded centroids, inertia rel {rel:.3e}; "
+          f"launches {launches}", flush=True)
+
+
+def _sharded_rank_elastic(mesh, out, x, x_host, c0, spec):
+    """The card-cut matmul bundle (sweep 8 of one rank's NCCL fit) resumed
+    on this two-rank gloo mesh; rank 0 holds it to the uninterrupted
+    run: labels but ties, inertia within FIT_INERTIA_RTOL."""
+    import torch
+
+    st = _sharded_run(mesh, "elastic-dp2-gloo resume", out,
+                      lambda: _elastic_fit(mesh, x_host, c0, "matmul",
+                                           spec["elastic_ck"], resume=True))
+    if mesh.rank != 0:
+        return
+    want = torch.load(spec["elastic_whole"])
+    _check(int(st.n_iter) == ELASTIC_SWEEPS,
+           f"elastic-dp2-gloo: {int(st.n_iter)} sweeps")
+    rel = abs(float(st.inertia) - want["inertia"]) / want["inertia"]
+    _check(rel <= FIT_INERTIA_RTOL,
+           f"elastic-dp2-gloo: inertia rel {rel:.3e}")
+    moved, _ = _check_labels_pair(
+        "elastic-dp2-gloo", x, st.centroids, st.labels,
+        want["centroids"].cuda(), want["labels"].cuda(), torch.bfloat16)
+    print(f"elastic-dp2-gloo: the bundle cut on an NCCL mesh of one at "
+          f"sweep {2 * ELASTIC_EVERY}, resumed on two gloo ranks: "
+          f"{int(st.n_iter)} sweeps, {moved} labels moved against the "
+          f"uninterrupted run (ties), inertia rel {rel:.3e}; "
+          f"{out['runs']['elastic-dp2-gloo resume']['seconds']:.3f} s",
+          flush=True)
+
+
+def _tp_line(name, run):
+    vc = run["valid_cols"]
+    return (f"{name}: {run['seconds']:.3f} s; K1 launches with valid_cols "
+            f"{vc['K1']}, K5 {vc['K5']}; a sweep: {_split_line(run['split'])}"
+            f"; collectives {run['stats']}")
+
+
+def _sharded_rank_tp_fp(out, x, x_host, c0):
+    """imagenet-tp2-gloo (mesh (1, 2), model = 2) and imagenet-fp2-gloo
+    (mesh (1, 1, 2), feature = 2): TP_SWEEPS classic sweeps each; rank 0
+    holds them to the single-device classic fit."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.parallel import fit_lloyd_sharded, make_mesh
+
+    k = c0.shape[0]
+    cfg = kt.KMeansConfig(k=k, update="matmul", compute_dtype="bfloat16")
+    dev = ["cuda:0", "cuda:0"]
+    meshes = {
+        "imagenet-tp2-gloo": (make_mesh((1, 2), ("data", "model"),
+                                        devices=dev, backend="gloo"),
+                              dict(model_axis="model")),
+        "imagenet-fp2-gloo": (make_mesh((1, 1, 2),
+                                        ("data", "model", "feature"),
+                                        devices=dev, backend="gloo"),
+                              dict(feature_axis="feature")),
+    }
+    one = None
+    if x is not None:
+        _sync()
+        t0 = time.perf_counter()
+        one = kt.fit_lloyd(x, k, config=cfg, init=c0, max_iter=TP_SWEEPS,
+                           tol=-1.0)
+        _sync()
+        out["one_s"] = time.perf_counter() - t0
+    for name, (mesh, axes) in meshes.items():
+        st = _sharded_run(mesh, name, out, lambda: fit_lloyd_sharded(
+            x_host, k, mesh=mesh, config=cfg, init=c0, max_iter=TP_SWEEPS,
+            tol=-1.0, **axes))
+        run = out["runs"][name]
+        need = "K1" if "tp2" in name else None
+        _check(run["launches"]["lloyd_pass_cuda"] >= 1
+               and (need is None or run["valid_cols"][need] >= TP_SWEEPS),
+               f"{name}: rank {mesh.rank} launched {run['launches']}, "
+               f"valid_cols {run['valid_cols']}")
+        if one is not None:
+            moved, err, rel = _hold_to_single(name, x, st, one,
+                                              torch.bfloat16)
+            print(f"{_tp_line(name, run)}; against the single-device "
+                  f"classic fit ({out['one_s']:.3f} s): {moved} labels "
+                  f"moved (ties), centroids max abs diff {err:.3e}, inertia "
+                  f"rel {rel:.3e}; launches {run['launches']}", flush=True)
+        del st
+        torch.cuda.empty_cache()
+
+
+def _sharded_rank_stream(mesh, out):
+    """imagenet-stream-dp2-gloo on one rank: phase 14's f32 rows in this
+    rank's host memory, SHARDED_STREAM_STEPS steps of STREAM_BATCH, each
+    rank gathering its half of every step's sorted indices; rank 0 replays
+    both halves on one device (the centroids bit for bit) and times a
+    step's split on its half."""
+    import numpy as np
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.data.stream import PinnedRing, sample_batches
+    from kmeans_tpu_torch.data.synthetic import make_blobs
+    from kmeans_tpu_torch.models import streaming as S
+    from kmeans_tpu_torch.models.minibatch import (apply_batch_stats,
+                                                   batch_stats)
+    from kmeans_tpu_torch.native import loader as NL
+
+    n, d, k = HEADLINE["n"], HEADLINE["d"], HEADLINE["k"]
+    x_t = make_blobs(14, n, d, k, device="cuda")[0]
+    x_np = x_t.cpu().numpy()
+    del x_t
+    torch.cuda.empty_cache()
+    c0 = np.ascontiguousarray(x_np[::n // k][:k])
+    cfg = kt.KMeansConfig(k=k, steps=SHARDED_STREAM_STEPS,
+                          batch_size=STREAM_BATCH, seed=0)
+    marks = {}
+    real_final = S._sharded_final
+
+    def final(*a, **kw):
+        _sync()
+        marks["t_steps"] = time.perf_counter()
+        return real_final(*a, **kw)
+
+    NL.reset_gather_counts()
+    S._sharded_final = final
+    try:
+        mesh.barrier()
+        t0 = time.perf_counter()
+        st = _sharded_run(mesh, "imagenet-stream-dp2-gloo", out,
+                          lambda: S.fit_minibatch_stream(
+                              x_np, k, config=cfg, init=c0, mesh=mesh))
+    finally:
+        S._sharded_final = real_final
+    run = out["runs"]["imagenet-stream-dp2-gloo"]
+    run["steps_s"] = marks["t_steps"] - t0
+    run["gathers"] = NL.gather_counts()
+    _check(run["gathers"] == {"native": SHARDED_STREAM_STEPS, "numpy": 0},
+           f"imagenet-stream-dp2-gloo: gathers {run['gathers']}")
+    if mesh.rank != 0:
+        return
+    half = STREAM_BATCH // mesh.size
+    ring = PinnedRing(1, half, d, torch.float32)
+    parts = [sample_batches(x_np, STREAM_BATCH, SHARDED_STREAM_STEPS, seed=0,
+                            part=(r, mesh.size),
+                            ring=ring if r == 0 else None)
+             for r in range(mesh.size)]
+    c = torch.from_numpy(c0).cuda()
+    n_seen = torch.zeros(k, device="cuda")
+    g_ms, c_ms, u_ms = [], [], []
+    for _ in range(SHARDED_STREAM_STEPS):
+        t1 = time.perf_counter()
+        buf = next(parts[0])
+        g_ms.append(1e3 * (time.perf_counter() - t1))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        xb = buf.to("cuda", non_blocking=True)
+        ev[1].record()
+        ring.copied(ev[1])
+        bc, bs, _ = batch_stats(c, xb, compute_dtype=None)
+        ev[2].record()
+        ev[2].synchronize()
+        c_ms.append(ev[0].elapsed_time(ev[1]))
+        u_ms.append(ev[1].elapsed_time(ev[2]))
+        for p in parts[1:]:
+            c_r, s_r, _ = batch_stats(c, next(p).cuda(), compute_dtype=None)
+            bc, bs = bc + c_r, bs + s_r
+        c, n_seen, _ = apply_batch_stats(c, n_seen, bc, bs)
+    _check(torch.equal(c, st.centroids),
+           f"imagenet-stream-dp2-gloo: the centroids differ from the replay "
+           f"of both ranks' halves (max abs "
+           f"{float((c - st.centroids).abs().max())})")
+    _check(st.labels.shape[0] == n and _finite(st.centroids)
+           and math.isfinite(float(st.inertia)),
+           "imagenet-stream-dp2-gloo: the final pass")
+    med = statistics.median
+    print(f"imagenet-stream-dp2-gloo: {SHARDED_STREAM_STEPS} steps of "
+          f"{STREAM_BATCH} ({half} rows gathered a rank) in "
+          f"{run['steps_s']:.3f} s = "
+          f"{SHARDED_STREAM_STEPS / run['steps_s']:.1f} steps/s (phase 14, "
+          f"one rank: 76.8-189.2), two ranks sharing the card; a rank's "
+          f"step alone: native gather of its half {med(g_ms):.3f} ms (host "
+          f"clock), copy {med(c_ms):.3f} ms and batch_stats "
+          f"{med(u_ms):.3f} ms (CUDA events); the centroids the replay of "
+          f"both halves bit for bit; all-reduces "
+          f"{run['stats']['all_reduce']}; launches {run['launches']}",
+          flush=True)
+
+
+def _sharded_rank_codebook(out, mesh):
+    """codebook-dp2-gloo's memory line after C4 (the data moved to the
+    host before the fit: each rank places its own 640,000 rows), then
+    codebook-tp2-gloo: TP_CODEBOOK_SWEEPS classic sweeps at k = 65536 over
+    two model ranks (32,768 columns each, K5 / K6 with valid_cols)."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.init import random_init
+    from kmeans_tpu_torch.parallel import fit_lloyd_sharded, make_mesh
+
+    n, d, k = CODEBOOK["n"], CODEBOOK["d"], CODEBOOK["k"]
+    x, _, _ = kt.make_blobs(11, n, d, k, dtype=torch.bfloat16)
+    c0 = random_init(torch.Generator(device="cuda").manual_seed(2), x, k)
+    x_host = x.cpu()
+    del x
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = kt.KMeansConfig(k=k, update="delta", comm="allreduce",
+                          compute_dtype="bfloat16")
+    st = _sharded_run(mesh, "codebook-dp2-gloo delta allreduce", out,
+                      lambda: fit_lloyd_sharded(
+                          x_host, k, mesh=mesh, config=cfg, init=c0,
+                          max_iter=MESH_CODEBOOK_SWEEPS, tol=-1.0))
+    out["codebook_peak_gb"] = peak = torch.cuda.max_memory_allocated() / 1e9
+    _check(peak <= CODEBOOK_PEAK_BEFORE_C4_GB - C4_MIN_DROP_GB,
+           f"codebook-dp2-gloo: rank {mesh.rank}'s peak card memory "
+           f"{peak:.3f} GB, not {C4_MIN_DROP_GB} GB below phase 15's "
+           f"{CODEBOOK_PEAK_BEFORE_C4_GB} GB before C4's repair")
+    del st
+    torch.cuda.empty_cache()
+    tp = make_mesh((1, 2), ("data", "model"), devices=["cuda:0", "cuda:0"],
+                   backend="gloo")
+    cfg = kt.KMeansConfig(k=k, update="matmul", compute_dtype="bfloat16")
+    st = _sharded_run(tp, "codebook-tp2-gloo", out,
+                      lambda: fit_lloyd_sharded(
+                          x_host, k, mesh=tp, config=cfg, init=c0,
+                          max_iter=TP_CODEBOOK_SWEEPS, tol=-1.0,
+                          model_axis="model"))
+    run = out["runs"]["codebook-tp2-gloo"]
+    launches = run["launches"]
+    _check(launches["tiled_argmin_cuda"] >= TP_CODEBOOK_SWEEPS
+           and launches["tiled_fold_cuda"] >= TP_CODEBOOK_SWEEPS
+           and run["valid_cols"]["K5"] >= TP_CODEBOOK_SWEEPS
+           and not launches["lloyd_pass_cuda"],
+           f"codebook-tp2-gloo: rank {tp.rank} launched {launches}, "
+           f"valid_cols {run['valid_cols']}")
+    if tp.rank != 0:
+        return
+    # The last sweep exactly: one card's classic pass (K5) at the TP fit's
+    # centroids gives its labels but ties.
+    x = x_host.cuda()
+    labels = kt.lloyd_pass(x, st.centroids, compute_dtype="bfloat16",
+                           with_update=False)[0]
+    _sync()
+    moved = _check_labels_rows("codebook-tp2-gloo last sweep", x,
+                               st.centroids, torch.bfloat16, st.labels,
+                               labels)
+    print(f"{_tp_line('codebook-tp2-gloo', run)}; the final labels one "
+          f"card's pass at the same centroids but {moved} rows (ties); "
+          f"launches {launches}", flush=True)
+
+
+def _sharded_rank_tpfp(out):
+    """TP×FP on a mesh (1, 2, 2) of four gloo ranks at TPFP_SHAPE: held to
+    the single-device classic fit (rank 0), not timed."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.init import random_init
+    from kmeans_tpu_torch.parallel import fit_lloyd_sharded, make_mesh
+
+    n, d, k = TPFP_SHAPE["n"], TPFP_SHAPE["d"], TPFP_SHAPE["k"]
+    x, _, _ = kt.make_blobs(5, n, d, k, dtype=torch.bfloat16)
+    c0 = random_init(torch.Generator(device="cuda").manual_seed(5), x, k)
+    mesh = make_mesh((1, 2, 2), ("data", "model", "feature"),
+                     devices=["cuda:0"] * 4, backend="gloo")
+    cfg = kt.KMeansConfig(k=k, update="matmul", compute_dtype="bfloat16")
+    st = _sharded_run(mesh, "tpfp-4-gloo", out, lambda: fit_lloyd_sharded(
+        x.cpu(), k, mesh=mesh, config=cfg, init=c0, max_iter=TPFP_SWEEPS,
+        tol=-1.0, model_axis="model", feature_axis="feature"))
+    run = out["runs"]["tpfp-4-gloo"]
+    _check(run["valid_cols"]["K1"] >= TPFP_SWEEPS,
+           f"tpfp-4-gloo: rank {mesh.rank}: {run}")
+    if mesh.rank == 0:
+        one = kt.fit_lloyd(x, k, config=cfg, init=c0, max_iter=TPFP_SWEEPS,
+                           tol=-1.0)
+        moved, err, rel = _hold_to_single("tpfp-4-gloo", x, st, one,
+                                          torch.bfloat16)
+        print(f"tpfp-4-gloo: a (1, 2, 2) mesh of four gloo ranks at n = "
+              f"{n}, d = {d}, k = {k}, {TPFP_SWEEPS} classic sweeps: "
+              f"{moved} labels moved against the single-device fit (ties), "
+              f"centroids max abs diff {err:.3e}, inertia rel {rel:.3e}; "
+              f"K1 launches with valid_cols {run['valid_cols']['K1']} "
+              f"(rank 0)", flush=True)
+
+
+def _sharded_world(world, tmp, extra=None):
+    """Spawn a gloo world of ``world`` ranks on the one card
+    (``--sharded-rank``) and wait for it; a rank that fails stops the
+    rest.  Returns each rank's record."""
+    import os
+
+    from kmeans_tpu_torch.parallel.mesh import free_port
+
+    spec = dict(extra or {}, world=world,
+                out=f"{tmp}/sharded-{world}-rank%d.json")
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE=str(world),
+               PYTHONUNBUFFERED="1")
+    env.pop("KMEANS_TPU_FAULTS", None)
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+         json.dumps(spec)], cwd=root,
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r))) for r in range(world)]
+    return procs, spec
+
+
+def _wait_world(name, procs, spec):
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    rcs = [p.returncode for p in procs]
+    _check(all(rc == 0 for rc in rcs), f"{name}: rank exit codes {rcs}")
+    out = []
+    for r in range(len(procs)):
+        with open(spec["out"] % r, encoding="utf-8") as f:
+            out.append(json.load(f))
+    return out
+
+
+def _sharded_cli(tmp):
+    """train-mesh (phase 16): ``cli train --mesh 2 --device cpu`` for
+    accelerated, trimmed, ``--stream`` and ``--ckpt-dir`` with a cut and a
+    resume, each against its ``--mesh 1`` run (the elastic one against the
+    uninterrupted elastic run), all in CPU processes.  Returns the
+    processes' records."""
+    import os
+
+    import numpy as np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    npy = f"{tmp}/train-mesh-x.npy"
+    rng = np.random.default_rng(3)
+    centres = rng.uniform(-10, 10, size=(8, 16))
+    np.save(npy, (centres[rng.integers(0, 8, 6000)]
+                  + 0.5 * rng.normal(size=(6000, 16))).astype(np.float32))
+    base = ["train", *SHARDED_CLI_SMALL]
+    stream = ["train", "--stream", "--input", npy, "--k", "8", "--steps",
+              "40", "--batch-size", "512", "--seed", "3", "--device", "cpu"]
+    elastic = base + ["--update", "matmul", "--tol", "-1", "--max-iter",
+                      "12", "--ckpt-every", "4", "--mesh", "2"]
+    ck = f"{tmp}/train-mesh-ck"
+    runs = {
+        "accelerated": base + ["--model", "accelerated", "--mesh", "2"],
+        "accelerated 1": base + ["--model", "accelerated"],
+        "trimmed": base + ["--model", "trimmed", "--mesh", "2"],
+        "trimmed 1": base + ["--model", "trimmed"],
+        "stream": stream + ["--mesh", "2"],
+        "stream 1": stream,
+        "elastic": elastic + ["--ckpt-dir", f"{tmp}/train-mesh-whole"],
+        "elastic cut": elastic + ["--ckpt-dir", ck],
+    }
+
+    def start(argv, env=None):
+        return subprocess.Popen(
+            [sys.executable, "-m", "kmeans_tpu_torch.cli", *argv], cwd=root,
+            env=dict(os.environ, **(env or {})), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    t0 = time.perf_counter()
+    procs = {name: start(argv, {"KMEANS_TPU_FAULTS": ELASTIC_FAULT}
+                         if name == "elastic cut" else None)
+             for name, argv in runs.items()}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            outs[name] = p.communicate(timeout=CLI_TIMEOUT_S) + (
+                p.returncode,)
+        p = start(elastic + ["--ckpt-dir", ck, "--resume", ck])
+        outs["elastic resumed"] = p.communicate(timeout=CLI_TIMEOUT_S) + (
+            p.returncode,)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    return outs, secs
+
+
+def _check_sharded_cli(outs, secs):
+    def result(name):
+        out, err, rc = outs[name]
+        _check(rc == 0, f"train-mesh {name}: exit {rc}, stderr "
+               f"{err.strip().splitlines()[-4:]}")
+        lines = out.strip().splitlines()
+        _check(len(lines) == 1, f"train-mesh {name}: {len(lines)} result "
+               "lines (rank 0 alone prints one)")
+        return json.loads(lines[0])
+
+    for model in ("accelerated", "trimmed", "stream"):
+        two, one = result(model), result(f"{model} 1")
+        same = ("n", "d", "k", "n_iter", "mode")
+        _check({f: two[f] for f in same} == {f: one[f] for f in same}
+               and two["mesh"] == 2
+               and abs(two["inertia"] - one["inertia"])
+               <= FIT_INERTIA_RTOL * one["inertia"],
+               f"train-mesh {model}: {two} against --mesh 1 {one}")
+        print(f"train-mesh {model}: --mesh 2 {two}; --mesh 1 {one}")
+    _, err, rc = outs["elastic cut"]
+    _check(rc == 3 and "--resume" in err,
+           f"train-mesh elastic cut: exit {rc}, {err.strip()[-300:]}")
+    whole, resumed = result("elastic"), result("elastic resumed")
+    _check(resumed["n_iter"] == whole["n_iter"]
+           and resumed["inertia"] == whole["inertia"],
+           f"train-mesh elastic: resumed {resumed} against {whole}")
+    print(f"train-mesh elastic: --ckpt-dir cut at sweep 8 (exit 3), "
+          f"--resume to {resumed['n_iter']} sweeps: {resumed}, the "
+          f"uninterrupted run's inertia exactly; every run: {secs:.1f} s")
+
+
+def phase_sharded(card):
+    """Phase 16: the rest of the sharded engine (see the module
+    docstring).  Returns the runs' launches by compute: ``{"bf16": {...},
+    "f32": {...}}``; no number of it is a scaling number (one card)."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from kmeans_tpu_torch.parallel import make_mesh
+
+    t_all = time.perf_counter()
+    totals = {"bf16": {}, "f32": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        x, c0 = _headline_data()
+        mesh = make_mesh((1, 1), ("data", "model"))
+        _check(mesh.backend == "nccl", f"phase 16: {mesh}")
+        _add_counts(totals["bf16"], _sharded_accel(card, mesh, x, c0))
+        launches, whole = _elastic_whole(card, mesh, x, c0, tmp)
+        _add_counts(totals["bf16"], launches)
+        dist.destroy_process_group()
+        # The untimed work from here on overlaps: train-mesh's CPU
+        # processes beside the drill's children, the TP×FP world beside
+        # the resumes (their restart times share the host with them).
+        cli_out = {}
+        cli = threading.Thread(
+            target=lambda: cli_out.update(zip(("outs", "secs"),
+                                              _sharded_cli(tmp))))
+        cli.start()
+        launches, specs, cuts = _elastic_cuts(tmp)
+        _add_counts(totals["bf16"], launches)
+        procs4, spec4 = _sharded_world(4, tmp)
+        _add_counts(totals["bf16"],
+                    _elastic_resumes(card, x, tmp, specs, cuts, whole))
+        del x, c0
+        torch.cuda.empty_cache()
+        ranks4 = _wait_world("tpfp-4-gloo", procs4, spec4)
+        procs, spec = _sharded_world(2, tmp, dict(
+            elastic_ck=f"{tmp}/elastic-gloo",
+            elastic_whole=whole["matmul"]))
+        ranks = _wait_world("phase 16's gloo world", procs, spec)
+        for rank in ranks + ranks4:
+            for name, rec in rank["runs"].items():
+                _add_counts(totals["f32" if "stream" in name else "bf16"],
+                            rec["launches"])
+        for name in ranks[0]["runs"]:
+            for r, rank in enumerate(ranks):
+                rec = rank["runs"][name]
+                split = (f"a sweep: {_split_line(rec['split'])}; "
+                         if rec["split"] else "")
+                print(f"{name} rank {r}: {rec['seconds']:.3f} s; {split}"
+                      f"collectives {rec['stats']}; launches "
+                      f"{rec['launches']}")
+        print(f"codebook-dp2-gloo after C4 ({card}): each rank's peak card "
+              f"memory from its data on (its own 640,000 rows placed from "
+              f"host memory; phase 15 kept the full x on each rank: "
+              f"10.1-10.7 GB): "
+              f"{[round(r['codebook_peak_gb'], 3) for r in ranks]} GB")
+        cli.join(timeout=CLI_TIMEOUT_S)
+        _check("outs" in cli_out, "train-mesh: the CLI runs did not end")
+        _check_sharded_cli(cli_out["outs"], cli_out["secs"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_all
+    print(f"phase 16 ({card}): {secs:.1f} s (two and four ranks share one "
+          f"card: no number here is a scaling number); launches {totals}")
     return totals
 
 
@@ -7594,6 +8666,10 @@ def main() -> int:
         return _continuous_cli(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-rank"]:
         return _mesh_rank(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--elastic-rank"]:
+        return _elastic_rank(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        return _sharded_rank(json.loads(sys.argv[2]))
     import torch
 
     if not torch.cuda.is_available():
@@ -7631,6 +8707,11 @@ def main() -> int:
     if sys.argv[1:] == ["--mesh"]:
         phase_build()
         phase_mesh(card)
+        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+        return 0
+    if sys.argv[1:] == ["--sharded"]:
+        phase_build()
+        phase_sharded(card)
         print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
         return 0
     if sys.argv[1:] == ["--fleet"]:
@@ -7696,14 +8777,16 @@ def main() -> int:
         if compute:
             row["launches"] += stream[compute].get(name, 0)
     mesh = phase_mesh(card)
+    sharded = phase_sharded(card)
     for row in kernels:
-        # Phase 15's launches (every rank's, and the single-device fits it
-        # holds them to) join the bf16 rows and the f32 route's rows, as
-        # phase 14's do.
+        # Phases 15's and 16's launches (every rank's, every child's, and
+        # the single-device fits they are held to) join the bf16 rows and
+        # the f32 route's rows, as phase 14's do.
         name, _, what = row["name"].partition(" ")
         compute = {"": "bf16", "(f32 route)": "f32"}.get(what)
         if compute:
-            row["launches"] += mesh[compute].get(name, 0)
+            row["launches"] += (mesh[compute].get(name, 0)
+                                + sharded[compute].get(name, 0))
     kernels += board_rows + serve_rows
     phase_fold_split()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -24,21 +24,29 @@ during a runner or streamed fit cuts a checkpoint and exits 3 with a
 ``jax.profiler`` trace there).
 Generated data (``--config`` or ``--n/--d/--k``) is the port's
 ``make_blobs`` on the chosen device from ``--seed``, so a resumed process
-regenerates the same rows.  What the port does not have yet is refused
-with exit code 2 and one line naming its ROADMAP queue item: the other
-families (``--stream --model gmm`` among them), ``--pca``/``--whiten`` and
-``--merge-k`` (A9), ``--ckpt-dir`` / ``--ckpt-every`` and ``--mesh`` with
-``--stream``, ``accelerated`` or ``trimmed`` (A4b).
+regenerates the same rows.  ``--merge-k K`` exports the fit's labels
+merged to K groups along the centroid dendrogram (:func:`~kmeans_tpu_torch.
+models.hierarchy.merge_to_k`) and adds ``merged_k`` to the result line.
+What the port does not have yet is refused with exit code 2 and one line
+naming its ROADMAP queue item: the other families (``--stream --model
+gmm`` among them) and ``--pca``/``--whiten`` (A9).
 
-``--mesh N`` (N > 1) fits ``--model lloyd`` or ``minibatch`` data parallel
-on N ranks, one process per device (:mod:`kmeans_tpu_torch.parallel`):
-the command starts N copies of itself, rank i on ``cuda:i`` (NCCL) or,
-with ``--device cpu``, N gloo CPU processes, joined over a free local
-port; rank 0 prints the result line and writes ``--out``.  Under an
-existing ``torch.distributed`` environment (``WORLD_SIZE`` set, as
-``torchrun`` sets it) the process joins that group as its rank instead.
-``--comm`` picks the sharded sweep's merge, and the runner flags step the
-dense reduction on the mesh.
+``--mesh N`` (N > 1) fits ``--model lloyd``, ``accelerated``, ``trimmed``
+or ``minibatch`` data parallel on N ranks, one process per device
+(:mod:`kmeans_tpu_torch.parallel`), and ``--stream --mesh N`` runs the
+streamed fit's step sharded: the command starts N copies of itself, rank i
+on ``cuda:i`` (NCCL) or, with ``--device cpu``, N gloo CPU processes,
+joined over a free local port; rank 0 prints the result line and writes
+``--out``.  The data stays on the host (``--input`` memory-mapped, shared
+through the page cache; generated data moved off the card once made) and
+each rank places only its own rows.  Under an existing
+``torch.distributed`` environment (``WORLD_SIZE`` set, as ``torchrun``
+sets it) the process joins that group as its rank instead.  ``--comm``
+picks the sharded sweep's merge, and the runner flags step the dense
+reduction on the mesh.  ``--ckpt-dir D [--ckpt-every N]`` runs ``--model
+lloyd --mesh N`` elastic: rank 0 saves the global centroids every N sweeps
+and on SIGTERM / SIGINT (exit 3 with a resume line), and ``--resume D``
+continues them, on any mesh size and ``--comm``.
 
     python -m kmeans_tpu_torch.cli continuous [--k 4] [--batches 60]
         [--model-dir DIR [--resume]] [--input X.npy] [--progress]
@@ -95,21 +103,11 @@ def _not_ported(args):
     """The one refusal line for a flag or family the port does not have
     yet, naming its ROADMAP queue item; None when everything asked for is
     ported."""
-    elastic = [f for f, on in (
-        ("--ckpt-dir", args.ckpt_dir), ("--ckpt-every",
-                                        args.ckpt_every is not None)) if on]
-    if elastic:
-        return (f"{elastic[0]} needs the sharded engine's elastic "
-                "checkpoint, which is not ported yet (ROADMAP A4b)")
-    if args.stream and args.mesh and args.mesh > 1:
-        return (f"--stream --mesh {args.mesh} needs the sharded engine's "
-                "streamed step, which is not ported yet (ROADMAP A4b)")
     if args.model in UNPORTED_FAMILIES:
         return (f"--model {args.model} is not ported yet (ROADMAP A9); "
                 "the port fits lloyd, accelerated, minibatch and trimmed")
     for flag, on in (("--pca", args.pca is not None),
-                     ("--whiten", args.whiten),
-                     ("--merge-k", args.merge_k is not None)):
+                     ("--whiten", args.whiten)):
         if on:
             return f"{flag} is not ported yet (ROADMAP A9)"
     return None
@@ -188,8 +186,11 @@ def _cmd_train(args) -> int:
         print("error: --stream requires --input (a .npy to memory-map)",
               file=sys.stderr)
         return 2
+    mesh_n = args.mesh if args.mesh and args.mesh > 1 else 0
     if args.input:
-        if args.stream:
+        if args.stream or mesh_n:
+            # On a mesh too the rows stay mapped on the host, where every
+            # rank shares them through the page cache.
             from kmeans_tpu_torch.data.stream import load_mmap
 
             try:
@@ -208,6 +209,68 @@ def _cmd_train(args) -> int:
             print(f"error: {args.input} must be a 2-D array", file=sys.stderr)
             return 2
         n, d = x.shape
+
+    if args.merge_k is not None:
+        # The mistakes knowable before the fit fail before it.
+        if args.merge_k < 1:
+            print("error: --merge-k must be >= 1", file=sys.stderr)
+            return 2
+        if args.merge_k >= k:
+            print(f"error: --merge-k must be in [1, {k - 1}] for --k {k}",
+                  file=sys.stderr)
+            return 2
+
+    # --ckpt-dir turns on the sharded engine's elastic path: sweep-granular
+    # mesh-agnostic checkpoints cut by fit_lloyd_sharded itself (distinct
+    # from --checkpoint, which paces the step-wise runner and the streamed
+    # fit).  With it, --resume resumes the engine from that directory,
+    # possibly on another --mesh or --comm than the run that saved it.
+    engine_ckpt = bool(args.ckpt_dir)
+    if engine_ckpt:
+        if args.stream or model != "lloyd" or not mesh_n:
+            why = ("--stream" if args.stream
+                   else f"--model {model}" if model != "lloyd"
+                   else f"--mesh {args.mesh or 1}")
+            print("error: --ckpt-dir is the sharded engine's elastic "
+                  "checkpoint; it needs --model lloyd --mesh > 1 (no "
+                  f"effect with {why}) — the step-paced and streamed "
+                  "paths checkpoint via --checkpoint", file=sys.stderr)
+            return 2
+        if bool(args.progress or args.checkpoint or args.profile
+                or args.telemetry or args.trace or args.xla_trace):
+            print("error: --ckpt-dir rides the fused sharded fit; drop "
+                  "the step-paced flags (--progress/--checkpoint/"
+                  "--profile/--telemetry/--trace/--xla-trace) or use "
+                  "--checkpoint with the runner instead", file=sys.stderr)
+            return 2
+        if args.resume and os.path.realpath(args.resume) != \
+                os.path.realpath(args.ckpt_dir):
+            print("error: an elastic --resume continues from (and keeps "
+                  "saving into) one directory; --resume must match "
+                  "--ckpt-dir", file=sys.stderr)
+            return 2
+        if args.resume:
+            # A mistyped --resume dir must not silently train from scratch
+            # (and overwrite it) with exit 0; checked before any rank
+            # starts.
+            from kmeans_tpu_torch.utils.checkpoint import latest_step
+
+            if latest_step(args.ckpt_dir) is None:
+                print(f"error: no checkpoint found at {args.ckpt_dir!r} "
+                      "to resume from", file=sys.stderr)
+                return 2
+        # --resume belongs to the elastic engine, not the runner.
+        runner_flagged = bool(args.progress or args.checkpoint
+                              or args.profile or args.telemetry
+                              or args.trace or args.xla_trace)
+    if args.ckpt_every is not None:
+        if not engine_ckpt:
+            print("error: --ckpt-every paces the elastic engine "
+                  "checkpoint; it needs --ckpt-dir", file=sys.stderr)
+            return 2
+        if args.ckpt_every < 1:
+            print("error: --ckpt-every must be positive", file=sys.stderr)
+            return 2
 
     # --accel / --schedule configure the accelerated-fit engine: --accel
     # anderson|beta picks the fused accelerated loop's extrapolation (or,
@@ -417,11 +480,10 @@ def _cmd_train(args) -> int:
     trim_fraction = (args.trim_fraction if args.trim_fraction is not None
                      else 0.05)
 
-    mesh_n = args.mesh if args.mesh and args.mesh > 1 else 0
-    if mesh_n and model not in ("lloyd", "minibatch"):
-        print(f"error: --model {model} --mesh {mesh_n} (its sharded fit) "
-              "is not ported yet (ROADMAP A4b); the port's mesh fits "
-              "lloyd and minibatch", file=sys.stderr)
+    mesh_ok = ("lloyd", "accelerated", "minibatch", "trimmed")
+    if mesh_n and model not in mesh_ok:
+        print(f"error: --mesh supports --model {'/'.join(mesh_ok)}, not "
+              f"{model}", file=sys.stderr)
         return 2
 
     # The reference's list of the families a coreset fit allows; of them
@@ -479,13 +541,17 @@ def _cmd_train(args) -> int:
         args.progress = False
     obs.record_build_info(dev.type)     # kmeans_tpu_build_info{version,backend}
 
-    if args.stream:
+    if args.stream or (args.input and mesh is not None):
         pass                # the host memmap stays where it is
     elif args.input:
         x = as_tensor(x, dev)
     else:
         x, _, _ = make_blobs(seed_v, n, d, k, cluster_std=args.cluster_std,
                              device=dev)
+        if mesh is not None:
+            # Each rank places only its own rows: the generated data leaves
+            # the card once made.
+            x = x.cpu()
 
     t0 = time.perf_counter()
     if args.coreset is not None:
@@ -563,15 +629,29 @@ def _cmd_train(args) -> int:
             if tw is not None:
                 tw.close()
     elif args.stream:
-        state = _train_stream(args, x, k, kcfg, dev, stream_ckpt)
+        state = _train_stream(args, x, k, kcfg, dev, stream_ckpt, mesh)
         if isinstance(state, int):
             return state
     elif mesh is not None:
         from kmeans_tpu_torch import parallel
 
         fit = {"lloyd": parallel.fit_lloyd_sharded,
-               "minibatch": parallel.fit_minibatch_sharded}[model]
-        state = fit(x, k, mesh=mesh, config=kcfg)
+               "accelerated": parallel.fit_lloyd_accelerated_sharded,
+               "minibatch": parallel.fit_minibatch_sharded,
+               "trimmed": parallel.fit_trimmed_sharded}[model]
+        fit_kw = ({"trim_fraction": trim_fraction}
+                  if model == "trimmed" else {})
+        if engine_ckpt:
+            if args.resume and main_rank:
+                from kmeans_tpu_torch.utils.checkpoint import latest_step
+
+                print(f"resuming sharded fit from {args.ckpt_dir} at sweep "
+                      f"{latest_step(args.ckpt_dir)}", file=sys.stderr)
+            fit_kw.update(ckpt_dir=args.ckpt_dir,
+                          ckpt_every=args.ckpt_every,
+                          ckpt_keep=args.checkpoint_keep,
+                          resume=bool(args.resume))
+        state = fit(x, k, mesh=mesh, config=kcfg, **fit_kw)
     else:
         fit = {
             "lloyd": models.fit_lloyd,
@@ -590,6 +670,21 @@ def _cmd_train(args) -> int:
         torch.cuda.synchronize(dev)
     fit_s = time.perf_counter() - t0
 
+    export_labels = state.labels
+    merged_k = None
+    if args.merge_k is not None:
+        fitted_k = int(models.state_centers(state).shape[0])
+        if fitted_k < 2:
+            print("error: --merge-k: this fit has only 1 center; "
+                  "nothing to merge", file=sys.stderr)
+            return 2
+        if args.merge_k >= fitted_k:
+            print(f"error: --merge-k must be in [1, {fitted_k - 1}] "
+                  "for this fit", file=sys.stderr)
+            return 2
+        export_labels, _ = models.merge_to_k(state, args.merge_k)
+        merged_k = args.merge_k
+
     # One "inertia" field, lower is better for every family.
     result = {
         "n": int(n), "d": int(d), "k": int(k),
@@ -603,6 +698,8 @@ def _cmd_train(args) -> int:
         result["stream"] = True
     if args.coreset is not None:
         result["coreset"] = args.coreset
+    if merged_k is not None:
+        result["merged_k"] = merged_k
     if mesh is not None:
         result["mesh"] = mesh.size
         if not main_rank:
@@ -614,12 +711,15 @@ def _cmd_train(args) -> int:
         # --stream memmap never materializes); a trimmed fit's outliers
         # (label -1) become unassigned cards.
         rows = x[:args.max_cards]
+        k_eff = merged_k if merged_k is not None else k
         doc = dataset_to_document(
-            np.asarray(rows if args.stream else rows.float().cpu(),
-                       dtype=np.float32),
-            np.asarray(state.labels[:args.max_cards].cpu()),
+            np.asarray(rows if isinstance(rows, np.ndarray)
+                       else rows.float().cpu(), dtype=np.float32),
+            np.asarray(export_labels[:args.max_cards].cpu()
+                       if hasattr(export_labels, "cpu")
+                       else export_labels[:args.max_cards]),
             max_cards=args.max_cards,
-            enforce_limit=k <= 3,
+            enforce_limit=k_eff <= 3,
         )
         with open(args.out, "w", encoding="utf-8") as f:
             f.write(export_json(doc))
@@ -659,30 +759,35 @@ def _launch_mesh(args, n: int) -> int:
     procs = [subprocess.Popen(
         [sys.executable, "-m", "kmeans_tpu_torch.cli", *args.argv],
         env=dict(env, RANK=str(i), LOCAL_RANK=str(i))) for i in range(n)]
-    rcs = [None] * n
+    first = 0
     try:
-        while any(rc is None for rc in rcs):
-            rcs = [p.poll() for p in procs]
-            if any(rc not in (None, 0) for rc in rcs):
-                break
+        while not first and any(p.poll() is None for p in procs):
+            first = next((p.returncode for p in procs if p.returncode), 0)
             time.sleep(0.05)
+        first = first or next((p.returncode for p in procs
+                               if p.returncode), 0)
     except KeyboardInterrupt:
         for p in procs:
             if p.poll() is None:
                 p.send_signal(signal.SIGINT)
     finally:
+        # A failed rank stops the others; they get a moment to stop by
+        # themselves first (a preempted mesh exits 3 on every rank).
         deadline = time.monotonic() + 10.0
         for p in procs:
             if p.poll() is None:
-                if any(rc not in (None, 0) for rc in rcs):
-                    p.terminate()
+                if first:
+                    try:
+                        p.wait(timeout=max(0.1, min(
+                            2.0, deadline - time.monotonic())))
+                    except subprocess.TimeoutExpired:
+                        p.terminate()
                 try:
                     p.wait(timeout=max(0.1, deadline - time.monotonic()))
                 except subprocess.TimeoutExpired:
                     p.kill()
                     p.wait()
-    rcs = [p.returncode for p in procs]
-    return next((rc for rc in rcs if rc), 0)
+    return first or next((p.returncode for p in procs if p.returncode), 0)
 
 
 def _join_mesh(args, n: int):
@@ -702,9 +807,10 @@ def _join_mesh(args, n: int):
     return make_mesh((n, 1), ("data", "model"))
 
 
-def _train_stream(args, x, k, kcfg, dev, stream_ckpt):
+def _train_stream(args, x, k, kcfg, dev, stream_ckpt, mesh):
     """``train --stream``: the streamed minibatch fit of the memory-mapped
-    ``x``; its state, or an exit code after a one-line error."""
+    ``x`` (sharded over ``mesh`` when one is given); its state, or an exit
+    code after a one-line error."""
     import contextlib
 
     from kmeans_tpu_torch import obs
@@ -729,7 +835,7 @@ def _train_stream(args, x, k, kcfg, dev, stream_ckpt):
     # typed nothing), so the fit's refusal of a contradicted resume fires
     # for CLI flags too.
     stream_kw = dict(steps=args.steps, batch_size=args.batch_size,
-                     seed=args.seed, **ckpt_kw)
+                     seed=args.seed, mesh=mesh, **ckpt_kw)
     tw_box = [None]
     if args.telemetry:
         try:
@@ -1043,7 +1149,8 @@ def main(argv=None) -> int:
     t.add_argument("--mesh", type=int, default=0,
                    help="data-parallel mesh size (0/1 = single device): N "
                         "ranks, one process per card (--device cpu: gloo "
-                        "CPU processes); lloyd and minibatch")
+                        "CPU processes); lloyd, accelerated, minibatch, "
+                        "trimmed and --stream")
     t.add_argument("--max-iter", type=int, default=None,
                    help="Lloyd-family iteration cap (default 100); the "
                         "minibatch path is step-based — use --steps")
@@ -1054,8 +1161,8 @@ def main(argv=None) -> int:
                         "(Bachem et al. 2018) and run the fit weighted "
                         "(lloyd, accelerated, trimmed)")
     t.add_argument("--merge-k", type=int, default=None,
-                   help="dendrogram merge to a coarser k (not ported, "
-                        "ROADMAP A9)")
+                   help="export the labels merged to a coarser k along the "
+                        "centroid dendrogram (Ward linkage)")
     t.add_argument("--pca", type=int, default=None,
                    help="PCA projection (not ported, ROADMAP A9)")
     t.add_argument("--whiten", action="store_true",
@@ -1123,10 +1230,13 @@ def main(argv=None) -> int:
                    "streamed fit from this checkpoint directory (it keeps "
                    "saving there; the runner's unless --checkpoint names "
                    "another)")
-    t.add_argument("--ckpt-dir", help="the sharded engine's elastic "
-                   "checkpoint (not ported, ROADMAP A4b)")
+    t.add_argument("--ckpt-dir", help="elastic checkpoint directory of the "
+                   "sharded engine (--model lloyd --mesh > 1): global "
+                   "centroids every --ckpt-every sweeps and on SIGTERM; "
+                   "--resume DIR continues them on any mesh size")
     t.add_argument("--ckpt-every", type=int, default=None,
-                   help="with --ckpt-dir (not ported, ROADMAP A4b)")
+                   help="sweeps between elastic checkpoints (default 10; "
+                        "needs --ckpt-dir)")
     t.add_argument("--profile", help="legacy spelling of --xla-trace")
     t.add_argument("--trace", metavar="OUT.json",
                    help="write the run's host span timeline (the runner's "
@@ -1296,15 +1406,25 @@ def main(argv=None) -> int:
         # SIGTERM/SIGINT during a long fit: the loop already cut a final
         # checkpoint; report the resumable state and exit with a distinct
         # code (3 = preempted; 2 = usage error).
-        print(f"preempted: {e}", file=sys.stderr)
-        if e.resume_hint:
-            print(f"resume with: {e.resume_hint}", file=sys.stderr)
+        # On a mesh every rank stops at the same boundary; rank 0 reports.
+        import os
+
+        if os.environ.get("RANK", "0") == "0":
+            print(f"preempted: {e}", file=sys.stderr)
+            if e.resume_hint:
+                print(f"resume with: {e.resume_hint}", file=sys.stderr)
         return 3
     finally:
         if not grouped and _in_process_group():
-            # A --mesh rank leaves the group it joined, so it exits cleanly;
-            # a group the caller made stays.
+            # A --mesh rank leaves the group it joined (a group the caller
+            # made stays), and frees the group's objects now: one still
+            # held at the interpreter's teardown (by a reference cycle)
+            # can abort the exit, "terminate called without an active
+            # exception", a rank's code then -6.
+            import gc
+
             sys.modules["torch.distributed"].destroy_process_group()
+            gc.collect()
 
 
 def _in_process_group() -> bool:

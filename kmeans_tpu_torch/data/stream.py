@@ -26,7 +26,7 @@ from __future__ import annotations
 import queue
 import threading
 import warnings
-from typing import Iterable, Iterator, Optional
+from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -124,9 +124,13 @@ def sample_batches(
     to_bf16: bool = False,
     retry: Optional[RetryPolicy] = None,
     ring: Optional[PinnedRing] = None,
+    part: Tuple[int, int] = (0, 1),
 ) -> Iterator[torch.Tensor]:
     """Yield batches ``start_step..steps-1`` as CPU tensors, sampled with
-    replacement from host ``data``.
+    replacement from host ``data``.  With ``part=(r, p)`` only the r-th of
+    p equal contiguous slices of each step's sorted index list is gathered
+    (``batch_size // p`` rows, ``batch_size`` a multiple of p): the rows a
+    rank of a p-way data axis takes of the global batch.
 
     Each step draws from its own ``np.random.default_rng((seed, step))``,
     so batch t is a pure function of (seed, t), the reference's batch bit
@@ -156,9 +160,13 @@ def sample_batches(
         return gather_rows(data, idx, to_bf16=to_bf16,
                            out=None if ring is None else ring.next())
 
+    r, p = part
+    if batch_size % p or not 0 <= r < p:
+        raise ValueError(f"bad part={part} of batch_size={batch_size}")
+    b = batch_size // p
     for step in range(start_step, steps):
         rng = np.random.default_rng((seed, step))
-        idx = np.sort(rng.integers(0, n, size=batch_size))
+        idx = np.sort(rng.integers(0, n, size=batch_size))[r * b:(r + 1) * b]
         yield policy.call(read, idx, site="stream.read")
 
 

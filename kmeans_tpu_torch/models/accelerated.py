@@ -51,7 +51,8 @@ from kmeans_tpu_torch.ops.lloyd import (lloyd_pass, resolve_backend,
                                         resolve_update, weights_exact)
 from kmeans_tpu_torch.ops.update import apply_update
 
-__all__ = ["fit_lloyd_accelerated", "record_accel_steps", "ACCEL_STEPS"]
+__all__ = ["fit_lloyd_accelerated", "record_accel_steps", "ACCEL_STEPS",
+           "beta_iterations", "anderson_iterations"]
 
 #: The outcome labels, by ``OUTCOME_*`` code.
 OUTCOMES = {OUTCOME_ACCEPTED: "accepted", OUTCOME_REJECTED: "rejected",
@@ -92,10 +93,13 @@ def _finish(x, c, it, converged, outcomes, kw):
                        torch.tensor(converged, device=dev), counts), codes
 
 
-def _accelerated_loop(x, centroids0, weights, tol, *, max_iter, chunk_size,
-                      compute_dtype, update, backend, beta_max=1.0):
-    """The beta loop.  Returns ``(KMeansState, outcome codes)``: per
-    iteration ``OUTCOME_REJECTED`` where the safeguard fired, else
+def beta_iterations(sweep, centroids0, tol, *, max_iter, beta_max=1.0):
+    """The beta loop's iterations: ``sweep(c)`` gives ``(T(c), f(c))``,
+    the Lloyd update of ``c`` and the objective at ``c`` (one fused pass,
+    or on a mesh one pass and one merge: every rank then takes the same
+    branch, since it reads the merged objective).  Returns ``(c_safe,
+    iterations, converged, outcome codes)``: per iteration
+    ``OUTCOME_REJECTED`` where the safeguard fired, else
     ``OUTCOME_ACCEPTED``.
 
     Only an extrapolated iterate (β > 0) can be rejected.  A plain step —
@@ -108,10 +112,7 @@ def _accelerated_loop(x, centroids0, weights, tol, *, max_iter, chunk_size,
     At β = 1 with frozen labels the iterate mirrors about the fixed point
     (``c' = 2m − c``) at a constant shift, so the loop ends when a rounding
     rise of the objective rejects a step, here as in the reference."""
-    dev = x.device
-    kw = dict(weights=weights, chunk_size=chunk_size,
-              compute_dtype=compute_dtype, update=update, backend=backend,
-              device=dev)
+    dev = centroids0.device
     f32 = torch.float32
     tol = torch.tensor(tol, dtype=f32, device=dev)
     c = c_safe = centroids0.float()
@@ -121,8 +122,7 @@ def _accelerated_loop(x, centroids0, weights, tol, *, max_iter, chunk_size,
     outcomes = []
     it, done = 0, False
     while it < max_iter and not done:
-        _, _, sums, counts, f_c = lloyd_pass(x, c, **kw)
-        tc = apply_update(c, sums, counts)
+        tc, f_c = sweep(c)
         shift_sq = ((tc - c) ** 2).sum()
         # f_c is the objective at the current iterate: if the previous
         # extrapolation raised it, restart from the last plain Lloyd output
@@ -141,18 +141,61 @@ def _accelerated_loop(x, centroids0, weights, tol, *, max_iter, chunk_size,
         done = bool(((shift_sq <= tol) & ~rejected).item())
     # Land on the safe iterate: `c` may be an extrapolation that was never
     # checked; `c_safe` is always the last plain Lloyd output.
-    return _finish(x, c_safe, it, done, outcomes, kw)
+    return c_safe, it, done, outcomes
+
+
+def anderson_iterations(sweep, centroids0, xs0, rs0, tol, reg, *, max_iter,
+                        inject_at=None):
+    """Anderson-accelerated iterations: ``sweep(c, it)`` gives ``(T(c),
+    f(c))`` as in :func:`beta_iterations`; the decision is
+    :func:`~kmeans_tpu_torch.ops.anderson.anderson_step`, the one copy.
+    Returns ``(c_safe, iterations, converged, outcome codes)``.
+
+    ``inject_at`` is the safeguard drill: at that iteration the next
+    iterate is displaced far from the data, so the objective grows and the
+    reject path fires."""
+    tol = torch.tensor(tol, dtype=torch.float32, device=centroids0.device)
+    c = centroids0.float()
+    st = anderson_state(centroids0, xs0, rs0)
+    outcomes = []
+    it, done = 0, False
+    while it < max_iter and not done:
+        tc, f_c = sweep(c, it)
+        shift_sq = ((tc - c) ** 2).sum()
+        c, st, outcome = anderson_step(c, tc, f_c, shift_sq, st, tol=tol,
+                                       reg=reg)
+        if it == inject_at:
+            c = c + 1e3 * (1.0 + c.abs())
+        outcomes.append(outcome)
+        it += 1
+        done = bool(((shift_sq <= tol)
+                     & (outcome != OUTCOME_REJECTED)).item())
+    # Land on the safe iterate; the history rings go with `st`.
+    return st.c_safe, it, done, outcomes
+
+
+def _accelerated_loop(x, centroids0, weights, tol, *, max_iter, chunk_size,
+                      compute_dtype, update, backend, beta_max=1.0):
+    """The beta loop on one device (:func:`beta_iterations` over the fused
+    pass).  Returns ``(KMeansState, outcome codes)``."""
+    kw = dict(weights=weights, chunk_size=chunk_size,
+              compute_dtype=compute_dtype, update=update, backend=backend,
+              device=x.device)
+
+    def sweep(c):
+        _, _, sums, counts, f_c = lloyd_pass(x, c, **kw)
+        return apply_update(c, sums, counts), f_c
+
+    c, it, done, outcomes = beta_iterations(
+        sweep, centroids0, tol, max_iter=max_iter, beta_max=beta_max)
+    return _finish(x, c, it, done, outcomes, kw)
 
 
 def _anderson_loop(x, centroids0, weights, tol, xs0, rs0, reg, *, max_iter,
                    chunk_size, compute_dtype, update, backend,
                    inject_at=None):
-    """Anderson-accelerated Lloyd.  Returns ``(KMeansState, outcome
-    codes)``; the outcome totals are the codes' counts.
-
-    ``inject_at`` is the safeguard drill: at that iteration the next iterate
-    is displaced far from the data, so the objective grows and the reject
-    path fires.
+    """Anderson-accelerated Lloyd on one device.  Returns ``(KMeansState,
+    outcome codes)``; the outcome totals are the codes' counts.
 
     With ``update="delta"`` the sweeps carry (labels, sums, counts) as
     ``fit_lloyd``'s delta loop does, refresh every ``DELTA_REFRESH`` sweeps
@@ -174,32 +217,22 @@ def _anderson_loop(x, centroids0, weights, tol, xs0, rs0, reg, *, max_iter,
                    # The safeguard reads the objective every sweep, so the
                    # raw-score shortcut is never safe here.
                    with_mind=True, device=dev)
-    tol = torch.tensor(tol, dtype=torch.float32, device=dev)
-    c = centroids0.float()
-    st = anderson_state(centroids0, xs0, rs0)
-    lab = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    sums = torch.zeros(k, d, dtype=torch.float32, device=dev)
-    counts = torch.zeros(k, dtype=torch.float32, device=dev)
-    outcomes = []
-    it, done = 0, False
-    while it < max_iter and not done:
+    carry = [torch.full((n,), -1, dtype=torch.int32, device=dev),
+             torch.zeros(k, d, dtype=torch.float32, device=dev),
+             torch.zeros(k, dtype=torch.float32, device=dev)]
+
+    def sweep(c, it):
         if update != "delta" or it % DELTA_REFRESH == 0:
             lab, _, sums, counts, f_c = lloyd_pass(x, c, **kw)
         else:
-            lab, _, sums, counts, f_c, _ = delta_pass(x, c, lab, sums,
-                                                      counts, **dkw)
-        tc = apply_update(c, sums, counts)
-        shift_sq = ((tc - c) ** 2).sum()
-        c, st, outcome = anderson_step(c, tc, f_c, shift_sq, st, tol=tol,
-                                       reg=reg)
-        if it == inject_at:
-            c = c + 1e3 * (1.0 + c.abs())
-        outcomes.append(outcome)
-        it += 1
-        done = bool(((shift_sq <= tol)
-                     & (outcome != OUTCOME_REJECTED)).item())
-    # Land on the safe iterate; the history rings go with `st`.
-    return _finish(x, st.c_safe, it, done, outcomes, kw)
+            lab, _, sums, counts, f_c, _ = delta_pass(x, c, *carry, **dkw)
+        carry[:] = lab, sums, counts
+        return apply_update(c, sums, counts), f_c
+
+    c, it, done, outcomes = anderson_iterations(
+        sweep, centroids0, xs0, rs0, tol, reg, max_iter=max_iter,
+        inject_at=inject_at)
+    return _finish(x, c, it, done, outcomes, kw)
 
 
 def fit_lloyd_accelerated(

@@ -20,9 +20,12 @@ Known differences from the reference:
 
 * ``mesh=`` (a :class:`~kmeans_tpu_torch.parallel.mesh.Mesh`, one process
   per device) steps the dense per-sweep reduction through the sharded
-  engine's DP body (``parallel.engine._dp_local_pass``): every rank keeps
-  its row block and the centroids replicated, and only rank 0 writes a
-  checkpoint.  The reference's tensor-parallel step waits for ROADMAP A4b.
+  engine's DP body (``parallel.engine._dp_local_pass``), or with
+  ``model_axis`` its TP body (``parallel.engine._sharded_pass``: K1 in
+  raw-score mode on this rank's k-slice, two MIN all-reduces, K3's fold):
+  every rank keeps its row block, the runner's centroids stay whole on
+  every rank (each TP step gathers the slices), and only rank 0 writes a
+  checkpoint.
 * Nothing is compiled per shape, so the iteration events carry no
   ``compile_s`` / ``compile_flops`` / ``compile_bytes``.  The ``phase`` tag
   stays: ``compile+step`` marks the first call of each sweep function in
@@ -171,6 +174,7 @@ class LloydRunner:
         config: Optional[KMeansConfig] = None,
         generator: Optional[torch.Generator] = None,
         mesh=None,
+        model_axis: Optional[str] = None,
         accel: Optional[str] = None,
         device=None,
     ):
@@ -221,6 +225,7 @@ class LloydRunner:
             self._accel = True
             self._accel_m = self.cfg.anderson_m
         self.mesh = mesh
+        self._ax = None
         if mesh is not None:
             from kmeans_tpu_torch.parallel.engine import _place
 
@@ -236,6 +241,18 @@ class LloydRunner:
                 )
             dev = mesh.device
             self.x, self._w, _, self._n = _place(x, mesh, "data")
+            if model_axis is not None:
+                from kmeans_tpu_torch.parallel.engine import _Axes
+
+                mp = mesh.axis_sizes[model_axis]
+                if k % mp != 0:
+                    raise ValueError(
+                        f"LloydRunner TP path needs k % model axis == 0 "
+                        f"(k={k}, model={mp}); use fit_lloyd_sharded for "
+                        "automatic k padding")
+                self._ax = _Axes(mesh, "data", model_axis, None)
+        elif model_axis is not None:
+            raise ValueError("model_axis needs mesh=")
         else:
             dev = resolve_device(device)
             self.x = as_tensor(x, dev).contiguous()
@@ -272,10 +289,18 @@ class LloydRunner:
                     "reseeds from are never computed; use "
                     "empty='keep'"
                 )
-        self._backend = resolve_backend(
-            cfg.backend, self.x, k,
-            weights=self._w if mesh is not None else None,
-            weights_are_binary=True, compute_dtype=cfg.compute_dtype)
+        if self._ax is not None:
+            from kmeans_tpu_torch.ops.lloyd import sweep_route
+
+            self._backend, self._k_tile = sweep_route(
+                "classic", cfg.backend, self.x, k // self._ax.mp,
+                weights=self._w, weights_are_binary=True,
+                compute_dtype=cfg.compute_dtype)
+        else:
+            self._backend = resolve_backend(
+                cfg.backend, self.x, k,
+                weights=self._w if mesh is not None else None,
+                weights_are_binary=True, compute_dtype=cfg.compute_dtype)
         self._kw = dict(chunk_size=cfg.chunk_size,
                         compute_dtype=cfg.compute_dtype,
                         backend=self._backend, device=dev)
@@ -296,6 +321,14 @@ class LloydRunner:
         loop's refresh): ``(new_c, inertia, shift², labels, sums,
         counts)``; on a mesh ``(new_c, inertia, shift²)``, the rank body
         and its merge."""
+        if self._ax is not None:
+            from kmeans_tpu_torch.parallel.engine import _sharded_pass
+
+            new_loc, _, inertia, _, _ = _sharded_pass(
+                self._ax, self.x, self._w, self._k_slice(c),
+                empty=self.cfg.empty, **self._tp_kw())
+            new_c = self._ax.model.all_gather(new_loc)
+            return new_c, inertia, ((new_c - c) ** 2).sum()
         if self.mesh is not None:
             from kmeans_tpu_torch.parallel.engine import _dp_local_pass
 
@@ -309,6 +342,18 @@ class LloydRunner:
             self.x, c, update=self._update, **self._kw)
         new_c, shift_sq = self._new_centroids(c, sums, counts, min_d2)
         return new_c, inertia, shift_sq, labels, sums, counts
+
+    def _k_slice(self, c):
+        k_loc = self.k // self._ax.mp
+        m = self._ax.model.rank
+        return c[m * k_loc:(m + 1) * k_loc]
+
+    def _tp_kw(self):
+        return dict(k_real=self.k, route=self._backend, k_tile=self._k_tile,
+                    kw=dict(chunk_size=self.cfg.chunk_size,
+                            compute_dtype=self.cfg.compute_dtype,
+                            update=self._update, weights_are_binary=True,
+                            backend=self._backend))
 
     def _step_delta(self, c, lab, sums, counts):
         """The carried-state delta sweep; inertia is reported every
@@ -375,7 +420,8 @@ class LloydRunner:
             # On a mesh the rank's block carries zero padding rows: the
             # sharded seeding gives them weight 0.
             self.centroids = init_on_mesh(
-                self.generator, self.x, self.k, mesh=self.mesh, n=self._n,
+                self.generator, self.x, self.k, n=self._n,
+                mesh=self.mesh if self._ax is None else self._ax.rows,
                 method=init if isinstance(init, str) else self.cfg.init,
                 weights=self._w, compute_dtype=self.cfg.compute_dtype,
                 chunk_size=self.cfg.chunk_size)
@@ -630,7 +676,16 @@ class LloydRunner:
     def finalize(self, *, converged: bool = False) -> KMeansState:
         """Labels, inertia and counts at the current centroids (on a mesh,
         of every row: the engine's final labeling pass)."""
-        if self.mesh is not None:
+        if self._ax is not None:
+            from kmeans_tpu_torch.parallel.engine import (_gather_rows,
+                                                          _sharded_pass)
+
+            _, _, inertia, counts, labels = _sharded_pass(
+                self._ax, self.x, self._w, self._k_slice(self.centroids),
+                final=True, **self._tp_kw())
+            labels = _gather_rows(self._ax.rows, labels, self._n)
+            counts = self._ax.model.all_gather(counts)
+        elif self.mesh is not None:
             from kmeans_tpu_torch.parallel.engine import _dense_final
 
             labels, inertia, counts = _dense_final(

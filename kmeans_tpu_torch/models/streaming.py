@@ -14,9 +14,13 @@ Batches are a pure function of (seed, step) drawn with numpy, so they are
 the reference's bit for bit, and the checkpoints are the reference's
 (``extra`` holds ``stream``, ``host_seed``, ``batch_size``,
 ``total_steps``, ``transfer_width`` and ``mesh_dp``): either package
-resumes the other's directory.  Known differences: the seeding's init
-method draws from a :class:`torch.Generator` (the subsample rows are the
-reference's), and ``mesh=`` raises: the sharded stream step waits for ROADMAP A4b.
+resumes the other's directory.  With ``mesh=`` (a data-parallel
+:class:`~kmeans_tpu_torch.parallel.mesh.Mesh`) each rank gathers only its
+contiguous slice of every step's index list, computes that slice's
+:func:`~kmeans_tpu_torch.models.minibatch.batch_stats`, and one all-reduce
+of (counts | sums) feeds the replicated Sculley update, as the reference's
+sharded step does.  Known difference: the seeding's init method draws from
+a :class:`torch.Generator` (the subsample rows are the reference's).
 """
 
 from __future__ import annotations
@@ -182,6 +186,7 @@ def fit_minibatch_stream(
     checkpoint_keep: int = 0,
     resume: bool = False,
     mesh=None,
+    data_axis: str = "data",
     callback: Optional[Callable] = None,
     device=None,
 ) -> KMeansState:
@@ -207,19 +212,24 @@ def fit_minibatch_stream(
     reference's refusals.  SIGTERM / SIGINT cut a checkpoint at the next
     step boundary and raise :class:`~kmeans_tpu_torch.utils.preempt.
     Preempted`.  With ``final_pass`` a streamed labeling pass fills labels,
-    inertia and counts; otherwise those fields are empty.  ``mesh`` raises:
-    the sharded stream step waits for ROADMAP A4b.
+    inertia and counts; otherwise those fields are empty.
+
+    ``mesh`` runs the step sharded (every rank calls this with the same
+    arguments, on its mesh device): the batch is rounded down to a multiple
+    of the data axis, ``max(dp, bs - bs % dp)`` rows, each rank gathers its
+    ``1/dp`` contiguous slice of the sorted index list, and one all-reduce
+    merges the slices' stats.  Rank 0 alone writes checkpoints (``mesh_dp``
+    records dp, and a resume refuses another), a signal on any rank stops
+    every rank within two steps (its flag rides the all-reduce and is read
+    a step late, so the loop never waits on the card for it), and the
+    final pass labels each rank's contiguous row block.
     """
-    if mesh is not None:
-        raise ValueError(
-            "mesh= needs the sharded engine's streamed step, which is not "
-            "ported yet (ROADMAP A4b); fit_minibatch_stream runs on one "
-            "device")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     cfg, generator = resolve_fit_config(k, generator, config, dev)
     n, d = data.shape
     bs = batch_size if batch_size is not None else cfg.batch_size
-    dp = 0
+    dp = mesh.axis_sizes[data_axis] if mesh is not None else 0
+    rank0 = mesh is None or mesh.rank == 0
     n_steps = steps if steps is not None else cfg.steps
     host_seed = seed if seed is not None else cfg.seed
     to_bf16 = _transfer_width(transfer_dtype, cfg.compute_dtype, data.dtype)
@@ -253,11 +263,13 @@ def fit_minibatch_stream(
     from kmeans_tpu_torch.models.minibatch import batch_update
     from kmeans_tpu_torch.models.runner import StepObserver
     from kmeans_tpu_torch.obs import tracing as _tracing
+    from kmeans_tpu_torch.parallel.engine import _any_rank
     from kmeans_tpu_torch.utils.checkpoint import (PeriodicSaver,
                                                    save_checkpoint)
     from kmeans_tpu_torch.utils.preempt import Preempted, PreemptionGuard
 
-    saver = PeriodicSaver(checkpoint_path, checkpoint_every)
+    saver = PeriodicSaver(checkpoint_path if rank0 else None,
+                          checkpoint_every)
 
     def checkpoint_now(c, n_seen, step):
         save_checkpoint(
@@ -277,12 +289,17 @@ def fit_minibatch_stream(
             keep=checkpoint_keep,
         )
 
+    # Rounded after the resume check: the checkpoint records the raw
+    # batch size, the mesh_dp check pins dp, and the two give bs_eff.
+    bs_eff = max(dp, bs - bs % dp) if dp else bs
+    part = (mesh.rank, dp) if mesh is not None else (0, 1)
     c = c0.float()
-    ring = staging_ring(dev, prefetch_depth, bs, d,
+    ring = staging_ring(dev, prefetch_depth, bs_eff // part[1], d,
                         torch.bfloat16 if to_bf16 else torch_dtype(data.dtype))
-    batches = sample_batches(data, bs, n_steps, seed=host_seed,
+    batches = sample_batches(data, bs_eff, n_steps, seed=host_seed,
                              start_step=start_step, to_bf16=to_bf16,
-                             ring=ring)
+                             ring=ring, part=part)
+    flags = _MeshFlags(mesh) if mesh is not None else None
     step = start_step
     rec = StepObserver("minibatch_stream", callback)
     fit_span = _tracing.span("fit_minibatch_stream", category="run",
@@ -306,8 +323,14 @@ def fit_minibatch_stream(
                     with _tracing.span(
                             "sweep", category="compile"
                             if step == start_step else "assign"):
-                        c, n_seen, _, _ = batch_update(
-                            c, n_seen, xb, compute_dtype=cfg.compute_dtype)
+                        if mesh is None:
+                            c, n_seen, _, _ = batch_update(
+                                c, n_seen, xb,
+                                compute_dtype=cfg.compute_dtype)
+                        else:
+                            c, n_seen = _sharded_step(
+                                mesh, c, n_seen, xb, flags, guard.triggered,
+                                compute_dtype=cfg.compute_dtype)
                     step += 1
                     # The shift read syncs with the card, so the step's
                     # seconds are true wall time (no callback: no sync and
@@ -322,9 +345,13 @@ def fit_minibatch_stream(
                     saver.maybe(step, lambda c=c, ns=n_seen, t=step:
                                 checkpoint_now(c, ns, t))
                     rec.exclude()    # checkpoint writes are not step time
-                    if guard.triggered and step < n_steps:
+                    stop = (guard.triggered if mesh is None
+                            else flags.previous())
+                    if stop and step < n_steps:
                         saver.maybe(step, lambda c=c, ns=n_seen, t=step:
                                     checkpoint_now(c, ns, t), force=True)
+                        if mesh is not None:
+                            mesh.barrier()    # the bundle is whole
                         raise Preempted.during(
                             f"fit_minibatch_stream preempted by signal at "
                             f"step {step}/{n_steps}",
@@ -335,7 +362,11 @@ def fit_minibatch_stream(
             # A signal during the last step: with a checkpoint, exit
             # resumable (the final pass could outlast the grace window);
             # without one, finish rather than discard the streamed phase.
-            if guard.triggered and checkpoint_path is not None:
+            # On a mesh one all-reduce of the flag (after rank 0's save)
+            # gives every rank the same answer.
+            stop = (guard.triggered if mesh is None else
+                    _any_rank(mesh, guard.triggered or flags.previous()))
+            if stop and checkpoint_path is not None:
                 raise Preempted.during(
                     f"fit_minibatch_stream preempted by signal after the "
                     f"final step ({step}/{n_steps})" + (
@@ -348,10 +379,12 @@ def fit_minibatch_stream(
         if final_pass:
             with _tracing.span("final_pass", category="assign",
                                model="minibatch_stream"):
-                labels_np, inertia = assign_stream(
-                    data, c, chunk_size=max(cfg.chunk_size, 8192),
-                    compute_dtype=cfg.compute_dtype, device=dev,
-                )
+                kw = dict(chunk_size=max(cfg.chunk_size, 8192),
+                          compute_dtype=cfg.compute_dtype, device=dev)
+                if mesh is None:
+                    labels_np, inertia = assign_stream(data, c, **kw)
+                else:
+                    labels_np, inertia = _sharded_final(mesh, data, c, kw)
             labels = torch.from_numpy(labels_np).to(dev)
             counts = torch.from_numpy(
                 np.bincount(labels_np, minlength=k).astype(np.float32)
@@ -371,3 +404,79 @@ def fit_minibatch_stream(
             converged=torch.tensor(False, device=dev),
             counts=counts,
         )
+
+
+class _MeshFlags:
+    """The mesh's preemption flags: each step's merged flag is copied to
+    the host without a wait, and :meth:`previous` reads the one of the
+    step before, which every rank reads alike."""
+
+    def __init__(self, mesh):
+        self._on = torch.ones(1, device=mesh.device)
+        self._off = torch.zeros(1, device=mesh.device)
+        self._cuda = mesh.device.type == "cuda"
+        self._prev = None
+        self._last = None
+
+    def local(self, triggered: bool) -> torch.Tensor:
+        return self._on if triggered else self._off
+
+    def merged(self, flag: torch.Tensor) -> None:
+        self._prev = self._last
+        if self._cuda:
+            host = torch.empty(1, pin_memory=True)
+            host.copy_(flag, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            self._last = (host, ev)
+        else:
+            self._last = (flag.clone(), None)
+
+    def previous(self) -> bool:
+        if self._prev is None:
+            return False
+        host, ev = self._prev
+        if ev is not None:
+            ev.synchronize()
+        return bool(host[0] > 0)
+
+
+def _sharded_step(mesh, c, n_seen, xb_loc, flags, triggered, *,
+                  compute_dtype):
+    """One streamed step on a mesh: this rank's slice of the batch, one
+    all-reduce of the packed (counts | sums | flag), the replicated
+    Sculley update."""
+    from kmeans_tpu_torch.models.minibatch import (apply_batch_stats,
+                                                   batch_stats)
+
+    bc, bsums, _ = batch_stats(c, xb_loc, compute_dtype=compute_dtype)
+    k, d = bsums.shape
+    packed = mesh.all_reduce(torch.cat([
+        torch.cat([bc[:, None], bsums], dim=1).reshape(-1),
+        flags.local(triggered)]))
+    flags.merged(packed[-1:])
+    stats = packed[:-1].view(k, d + 1)
+    new_c, n_after, _ = apply_batch_stats(c, n_seen, stats[:, 0],
+                                          stats[:, 1:])
+    return new_c, n_after
+
+
+def _sharded_final(mesh, data, c, kw):
+    """The final pass on a mesh: each rank labels its contiguous block of
+    rows; the labels are all-gathered and the inertias summed.  Returns
+    ``(labels (n,) int32 ndarray, inertia float)``."""
+    from kmeans_tpu_torch.parallel.engine import _gather_rows
+
+    n = data.shape[0]
+    n_loc = -(-n // mesh.size)
+    lo = min(mesh.rank * n_loc, n)
+    hi = min(lo + n_loc, n)
+    lab = torch.full((n_loc,), -1, dtype=torch.int32)
+    inertia = 0.0
+    if hi > lo:
+        lab_np, inertia = assign_stream(data[lo:hi], c, **kw)
+        lab[:hi - lo] = torch.from_numpy(lab_np)
+    labels = _gather_rows(mesh, lab.to(mesh.device), n)
+    total = mesh.all_reduce(torch.tensor([inertia], dtype=torch.float64,
+                                         device=mesh.device))
+    return labels.cpu().numpy(), float(total[0])

@@ -49,7 +49,7 @@ from kmeans_tpu_torch.ops.lloyd import lloyd_pass, resolve_backend
 from kmeans_tpu_torch.ops.update import apply_update, reseed_empty_farthest
 
 __all__ = ["TrimmedState", "fit_trimmed", "TrimmedKMeans", "resolve_n_trim",
-           "trim_select", "trim_subtract", "trim_correction"]
+           "trim_select", "trim_subtract", "trim_correction", "order_keys"]
 
 
 class TrimmedState(NamedTuple):
@@ -98,10 +98,17 @@ def trim_select(min_d2: torch.Tensor, weights: Optional[torch.Tensor],
     index order."""
     d2m = min_d2 if weights is None else torch.where(
         weights > 0, min_d2, -torch.inf)
-    bits = d2m.float().contiguous().view(torch.int32)
-    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
-    idx = torch.sort(key, descending=True, stable=True).indices[:m]
+    idx = torch.sort(order_keys(d2m), descending=True,
+                     stable=True).indices[:m]
     return d2m[idx], idx
+
+
+def order_keys(v: torch.Tensor) -> torch.Tensor:
+    """``v``'s f32 bits as int32 keys in the floats' total order
+    (``lax.top_k``'s: -0.0 below +0.0), the order the trim selection
+    sorts by on one device and across a mesh."""
+    bits = v.float().contiguous().view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
 
 
 def trim_subtract(x, labels, idx, wt, vals, k: int, *, backend: str):

@@ -113,26 +113,30 @@ _COUNT_LOCK = threading.Lock()
 
 
 def _counted(fn):
-    fn.launches = 0
+    fn.launches = fn.masked_launches = 0
     return fn
 
 
-def _count(wrapper) -> None:
-    """One launch of ``wrapper``'s kernel."""
+def _count(wrapper, masked: bool = False) -> None:
+    """One launch of ``wrapper``'s kernel; ``masked``: with columns masked
+    out of the argmin (the sharded callers' ``valid_cols``)."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        wrapper.masked_launches += int(masked)
 
 
-def launch_counts() -> dict:
-    """``{wrapper name: launches}`` since the last reset."""
+def launch_counts(masked: bool = False) -> dict:
+    """``{wrapper name: launches}`` since the last reset; with ``masked``
+    only the launches with masked columns (K1's and K5's)."""
+    attr = "masked_launches" if masked else "launches"
     with _COUNT_LOCK:
-        return {f.__name__: f.launches for f in _WRAPPERS}
+        return {f.__name__: getattr(f, attr) for f in _WRAPPERS}
 
 
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
         for f in _WRAPPERS:
-            f.launches = 0
+            f.launches = f.masked_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -343,9 +347,10 @@ def fold_sort_passes(k: int) -> int:
     return -(-k.bit_length() // _SORT_BITS)
 
 
-def _launch(wrapper, entry: str, x: torch.Tensor, *args) -> None:
+def _launch(wrapper, entry: str, x: torch.Tensor, *args,
+            masked: bool = False) -> None:
     """Call one C entry point on PyTorch's current stream of x's device and
-    raise if the launch was refused."""
+    raise if the launch was refused; ``masked`` goes to :func:`_count`."""
     from kmeans_tpu_torch.ops._build import library
 
     fn = getattr(library(), entry)
@@ -355,7 +360,7 @@ def _launch(wrapper, entry: str, x: torch.Tensor, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__}: kernel launch failed: "
                            f"{_ERRORS.get(err, f'CUDA error {err}')}")
-    _count(wrapper)
+    _count(wrapper, masked)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -464,12 +469,13 @@ def _signed_fold_plain(x, k, labels, prev, changed, w, cd, chunk_size):
 
 
 def tiled_argmin_plain(x, neg2c, csq, *, k_tile, raw_scores=False,
-                       with_second=False, chunk_size=4096):
+                       with_second=False, chunk_size=4096, masked=False):
     """Plain version of :func:`tiled_argmin_cuda`: each chunk of rows is
     scored one ``k_tile``-wide slice at a time, and the slices are merged
     online in increasing order with strict ``<`` (the lowest global index
     wins a tie) and, with ``with_second``, the second-min lattice
-    ``min(s_a, s_b, max(b_a, b_b))``."""
+    ``min(s_a, s_b, max(b_a, b_b))``.  ``masked`` (the wrapper's launch
+    count) changes nothing here."""
     _check_k_tile(k_tile)
     n, k = x.shape[0], neg2c.shape[0]
     cd = neg2c.dtype
@@ -620,7 +626,8 @@ def _pass_tiled(on_card, x, centroids, w, cd, fold_dtype, with_update,
     k, d = centroids.shape
     neg2c, csq = _score_operands(centroids, cd, valid_cols)
     labels, min_d2 = argmin(x, neg2c, csq, k_tile=k_tile,
-                            raw_scores=raw_scores)
+                            raw_scores=raw_scores,
+                            masked=valid_cols is not None)
     if with_update:
         sums, counts = fold(x, w, labels, None, k, compute_dtype=fold_dtype)
     else:
@@ -850,7 +857,7 @@ def lloyd_pass_cuda(x, centroids, *, weights=None, compute_dtype=None,
             int(with_update), int(raw_scores), _vec_ok(d, cd, x, neg2c),
             _CORE_CODES[core], labels.data_ptr(), min_d2.data_ptr(),
             sums.data_ptr(), counts.data_ptr(), _ptr(part_best),
-            _ptr(part_idx), *fold)
+            _ptr(part_idx), *fold, masked=valid_cols is not None)
     return labels, min_d2, sums, counts, (min_d2 * w).sum()
 
 
@@ -1012,7 +1019,7 @@ def lloyd_hamerly_cuda(x, centroids, labels_prev, need, sb_in, slb_in, *,
 
 @_counted
 def tiled_argmin_cuda(x, neg2c, csq, *, k_tile, raw_scores=False,
-                      with_second=False, neg2c_pieces=None):
+                      with_second=False, neg2c_pieces=None, masked=False):
     """K5: the streamed argmin (replaces ``_tiled_argmin``).
 
     ``neg2c`` is −2·C in the compute dtype (k, d) and ``csq`` its f32
@@ -1027,7 +1034,8 @@ def tiled_argmin_cuda(x, neg2c, csq, *, k_tile, raw_scores=False,
     slice-major.  On the core's f32 route it reads −2·C's three bf16
     pieces: ``neg2c_pieces`` (``neg2c_pieces(neg2c)``, from a caller that
     holds them across calls) or split here; the plain version ignores
-    them."""
+    them.  ``masked`` says that ``csq`` masks columns (the sharded callers'
+    ``valid_cols``): the launch counts in ``launch_counts(masked=True)``."""
     if x.device.type == "cpu":
         return tiled_argmin_plain(x, neg2c, csq, k_tile=k_tile,
                                   raw_scores=raw_scores,
@@ -1054,7 +1062,7 @@ def tiled_argmin_cuda(x, neg2c, csq, *, k_tile, raw_scores=False,
             int(raw_scores), int(with_second), _vec_ok(d, cd, x, neg2c),
             _CORE_CODES[core], *(t.data_ptr() for t in parts),
             *([None] * (not with_second)),
-            labels.data_ptr(), best.data_ptr(), _ptr(second))
+            labels.data_ptr(), best.data_ptr(), _ptr(second), masked=masked)
     return (labels, best, second) if with_second else (labels, best)
 
 

@@ -1,9 +1,9 @@
-"""Sharded Lloyd engine: data parallel over a mesh of processes.
+"""Sharded Lloyd engine over a mesh of processes.
 
-Counterpart of the data-parallel half of ``kmeans_tpu/parallel/engine.py``.
-The reference runs one ``shard_map`` program over a ``jax.sharding.Mesh``;
-the port runs one process per device (:mod:`kmeans_tpu_torch.parallel.
-mesh`), and each rank drives the same sweep loop on its own rows:
+Counterpart of ``kmeans_tpu/parallel/engine.py``.  The reference runs one
+``shard_map`` program over a ``jax.sharding.Mesh``; the port runs one
+process per device (:mod:`kmeans_tpu_torch.parallel.mesh`), and each rank
+drives the same sweep loop on its own block.  Data parallel:
 
 * points are sharded by contiguous row blocks, padded to a multiple of the
   mesh size with weight-0 rows (:func:`_pad_rows`); centroids are
@@ -23,14 +23,28 @@ mesh`), and each rank drives the same sweep loop on its own rows:
   global :class:`~kmeans_tpu_torch.models.lloyd.KMeansState` (labels
   all-gathered).
 
-The reference's TP, FP and TP×FP bodies, its elastic checkpoint loop and
-the sharded families other than Lloyd and minibatch are not ported yet
-(ROADMAP A4b, A9); their arguments raise with one line naming the item.
+With a ``model`` axis the centroids shard over k, with a ``feature`` axis x
+and the centroids over d, and both compose (:func:`_sharded_pass`: K1 in
+raw-score mode on the k-slice, two MIN all-reduces, K3's labeled fold; each
+rank places full rows of its share of the data block, the rows the
+reference's feature exchange would hand it, and gathers only the
+centroids' columns).  Beside the Lloyd fit the engine runs the reference's other DP
+loops on the same rank bodies: :func:`fit_lloyd_accelerated_sharded` (β
+and Anderson extrapolation, one merge a sweep, the decision replicated) and
+:func:`fit_trimmed_sharded` (each rank nominates its top rows, one
+all-gather of their keys gives the global threshold, the correction is
+subtracted before the merge).  With ``ckpt_dir`` :func:`fit_lloyd_sharded`
+runs elastic: sweep segments of ``ckpt_every`` sweeps, each ending in a
+checkpoint of the global centroids that rank 0 writes in the reference's
+format, so a run cut on one mesh resumes on another, in either package.
+The sharded families other than Lloyd, accelerated, trimmed and minibatch
+are not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Optional, Union
 
@@ -51,9 +65,11 @@ from kmeans_tpu_torch.ops.lloyd import (lloyd_pass, resolve_backend,
 from kmeans_tpu_torch.ops.update import apply_update
 from kmeans_tpu_torch.ops.yinyang import centroid_groups, yinyang_pass
 from kmeans_tpu_torch.parallel.init_sharded import init_on_mesh
+from kmeans_tpu_torch.utils import faults
 
-__all__ = ["fit_lloyd_sharded", "fit_minibatch_sharded", "sharded_assign",
-           "pad_and_place", "sweep_split"]
+__all__ = ["fit_lloyd_sharded", "fit_lloyd_accelerated_sharded",
+           "fit_trimmed_sharded", "fit_minibatch_sharded", "sharded_assign",
+           "pad_and_place", "sweep_split", "ENGINE_CKPT_EVERY"]
 
 #: Sharded-engine observability, the reference's families.  ``layout`` is
 #: "dp<N>"; the sweep time is the fit's wall time over its sweeps.
@@ -87,8 +103,23 @@ _ENGINE_COLLECTIVE_BYTES = obs.gauge(
     labels=("function", "comm"),
 )
 
-#: The refusals of what this slice does not port.
-_A4B = "is not ported yet (ROADMAP A4b); the port's sharded engine is DP-only"
+_ENGINE_CKPT_SECONDS = obs.histogram(
+    "kmeans_tpu_engine_ckpt_seconds",
+    "Wall time of one engine checkpoint cut at a sweep boundary (device "
+    "pull of the finished global f32 centroids + verified atomic save)",
+)
+_ENGINE_RESUMES_TOTAL = obs.counter(
+    "kmeans_tpu_engine_resumes_total",
+    "Sharded-fit resume attempts by outcome (ok = restored and continued; "
+    "finished = the checkpoint was already converged; refused = config "
+    "fingerprint contradiction; error = missing or corrupt checkpoint)",
+    labels=("outcome",),
+)
+
+#: Default sweep cadence of the elastic checkpoint loop (the reference's).
+ENGINE_CKPT_EVERY = 10
+
+#: The refusal of what the port does not have yet.
 _SPHERE_A9 = ("center_update='sphere' is fit_spherical_sharded's update, "
               "which is not ported yet (ROADMAP A9)")
 
@@ -209,26 +240,44 @@ def _row_block(x, n: int, n_loc: int, rank: int, device) -> torch.Tensor:
     on ``device``, without padding all of ``x``: rows past n are 0."""
     lo = rank * n_loc
     hi = min(lo + n_loc, n)
-    block = as_tensor(x[lo:max(hi, lo)], device)
+    rows = x[lo:max(hi, lo)]
+    if isinstance(rows, np.ndarray) and not rows.flags.writeable:
+        rows = np.array(rows)     # a read-only memmap: this rank's rows
+    block = as_tensor(rows, device)
     if block.shape[0] < n_loc:
         block = torch.cat([block, block.new_zeros(
             (n_loc - block.shape[0],) + tuple(block.shape[1:]))])
-    return block.contiguous()
+    # A view of a larger tensor on the same device would keep all of x
+    # alive for the whole fit: the block owns its rows.
+    if not block.is_contiguous() or block.untyped_storage().nbytes() != \
+            block.numel() * block.element_size():
+        block = block.clone(memory_format=torch.contiguous_format)
+    return block
 
 
-def _place(x, mesh, data_axis: str, weights=None):
+def _place(x, mesh, data_axis: str, weights=None, feature_axis=None):
     """``(x_loc, w_loc, w_host, n)``: this rank's row block and weights on
     its device, the global padded weights (numpy) and the real row count.
-    ``x`` is the global data (numpy or a tensor), the same on every rank."""
+    ``x`` is the global data (numpy or a tensor), the same on every rank.
+    With ``feature_axis`` the rows pad to a multiple of data × feature
+    ranks and the block is this rank's share of full rows over both axes
+    (block ``data · fp + feature``), its columns zero-padded to a multiple
+    of the feature ranks: the rows the reference's feature exchange hands
+    each device, read here from the global x, which every rank holds."""
     dp = mesh.axis_sizes[data_axis]
-    n = x.shape[0]
-    _, w_host, _ = _pad_rows(np.empty((n, 0), np.float32), dp,
+    fp = mesh.axis_sizes[feature_axis] if feature_axis else 1
+    n, d = x.shape
+    _, w_host, _ = _pad_rows(np.empty((n, 0), np.float32), dp * fp,
                              weights=weights)
-    n_loc = w_host.shape[0] // dp
-    x_loc = _row_block(x, n, n_loc, mesh.rank, mesh.device)
+    n_loc = w_host.shape[0] // (dp * fp)
+    i = mesh.coord(data_axis) * fp + (mesh.coord(feature_axis) if fp > 1
+                                      else 0)
+    x_loc = _row_block(x, n, n_loc, i, mesh.device)
+    if d % fp:
+        x_loc = torch.cat([x_loc, x_loc.new_zeros(
+            (n_loc, (-d) % fp))], dim=1)
     w_loc = torch.from_numpy(
-        w_host[mesh.rank * n_loc:(mesh.rank + 1) * n_loc].copy()).to(
-            mesh.device)
+        w_host[i * n_loc:(i + 1) * n_loc].copy()).to(mesh.device)
     return x_loc, w_loc, w_host, n
 
 
@@ -362,17 +411,18 @@ def _reseed_empty_farthest_dp(mesh, new_c, counts, x_loc, min_d2):
 
 
 def _reseed_empty_farthest_tp(mesh, new_c_loc, counts_loc, valid, x_loc,
-                              min_d2, k_real):
+                              min_d2, k_real, slice_mesh=None):
     """k-sliced farthest reseed: every slice owner computes the same ranked
-    winner list and claims the winners whose global rank matches its
-    empty slots, rank = (empties on lower slices, an exclusive sum over
-    the mesh) + (local empty position).  Padded slots (``~valid``) are
-    never empty."""
+    winner list (over ``mesh``, the rows) and claims the winners whose
+    global rank matches its empty slots, rank = (empties on lower slices,
+    an exclusive sum over ``slice_mesh``, default ``mesh``) + (local empty
+    position).  Padded slots (``~valid``) are never empty."""
+    slice_mesh = mesh if slice_mesh is None else slice_mesh
     repl = _ranked_winners_dp(mesh, x_loc, min_d2, k_real)
     empty_loc = (counts_loc <= 0) & valid
     n_empty_loc = empty_loc.int().sum().reshape(1)
-    per_slice = mesh.all_gather(n_empty_loc)              # (dp,)
-    off = per_slice[:mesh.rank].sum()
+    per_slice = slice_mesh.all_gather(n_empty_loc)        # (slices,)
+    off = per_slice[:slice_mesh.rank].sum()
     rank = torch.where(empty_loc, torch.cumsum(empty_loc.int(), 0) - 1 + off,
                        0)
     return torch.where(empty_loc[:, None], repl[rank], new_c_loc)
@@ -482,6 +532,110 @@ def _dp_bound_local_pass(sweep, mesh, x_loc, c, w_loc, lab_prev, sums_loc,
     _mark(mesh, "merge")
     new_c = apply_update(c, g_sums, g_counts)
     return (new_c, labels, sums_new, counts_new, sb2, lower2, c_cd2, csq2)
+
+
+# ---------------------------------------------------------------------------
+# The TP, FP and TP×FP bodies
+# ---------------------------------------------------------------------------
+
+class _Axes:
+    """The views of a mesh with a model or feature axis that the sharded
+    bodies reduce over: ``model``, ``feature``, ``rows`` (data × feature:
+    the blocks of full rows, block ``data · fp + feature``, in global row
+    order) and
+    ``slice`` (model × feature: the ranks that hold the rest of the
+    centroids)."""
+
+    def __init__(self, mesh, data_axis, model_axis, feature_axis):
+        self.model = mesh.sub((model_axis,))
+        self.feature = mesh.sub((feature_axis,))
+        self.rows = mesh.sub((data_axis, feature_axis))
+        self.slice = mesh.sub((model_axis, feature_axis))
+        self.mp, self.fp = self.model.size, self.feature.size
+
+
+def _gather_cols(mesh, t):
+    """Every rank's 2-D ``t`` side by side (dim 1), in rank order."""
+    if mesh.size == 1:
+        return t
+    return mesh.all_gather(t.t().contiguous()).t().contiguous()
+
+
+def _sharded_pass(ax, x_rows, w_rows, c_loc, *, k_real, route, k_tile, kw,
+                  empty="keep", final=False):
+    """One sweep of the DP×TP, DP×FP and DP×TP×FP bodies.
+
+    The feature ranks' centroid columns are gathered into this model
+    rank's full-width k-slice.  With a model axis the sweep is the
+    reference's three phases: K1 scores the slice in raw-score mode with
+    ``valid_cols`` masking the padded columns, two whole-shard MIN
+    all-reduces over the model ranks resolve the value and then the lowest
+    global index (``jnp.argmin``'s labels exactly), and K3 folds the rows
+    this slice won (``scores=`` the global minimum; labels outside the
+    slice drop).  Without one, K1 runs unchanged on the full centroids.  A
+    k-slice the planner tiles goes through K5 / K6 the same way
+    (``k_tile``); on the CPU every phase is the plain version.  One
+    all-reduce over the row blocks (data × feature) merges (sums | counts
+    | inertia); the update and the farthest reseed run on the full-width
+    slice, and this rank keeps its feature columns.  Returns ``(new_c_loc,
+    shift², inertia, counts, labels)``; with ``final`` the update is
+    skipped (``new_c_loc`` and shift² None)."""
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    c_sl = _gather_cols(ax.feature, c_loc).float()
+    valid = None
+    if ax.mp > 1:
+        k_loc = c_sl.shape[0]
+        k_off = ax.model.rank * k_loc
+        valid = (k_off + torch.arange(k_loc, device=c_sl.device)) < k_real
+        on_card = route == "cuda"
+        score = K.lloyd_pass_cuda if on_card else K.lloyd_pass_plain
+        fold = K.accumulate_cuda if on_card else K.accumulate_plain
+        lab_l, raw_l, _, _, _ = score(
+            x_rows, c_sl, valid_cols=valid, with_update=False,
+            raw_scores=True, compute_dtype=kw["compute_dtype"],
+            k_tile=k_tile)
+        _mark(ax.model, "pass")
+        g = ax.model.all_reduce(raw_l.clone(), op="min")
+        cand = torch.where(raw_l == g, lab_l + k_off,
+                           k_loc * ax.mp).to(torch.int32)
+        labels = ax.model.all_reduce(cand, op="min")
+        _mark(ax.model, "resolve")
+        sums, counts, mind = fold(
+            x_rows, labels - k_off, k_loc, scores=g, weights=w_rows,
+            compute_dtype=kw["compute_dtype"], k_tile=k_tile)
+        inertia = (mind * w_rows).sum()
+        _mark(ax.model, "fold")
+    else:
+        labels, mind, sums, counts, inertia = lloyd_pass(
+            x_rows, c_sl, weights=w_rows, device=x_rows.device, **kw)
+        _mark(ax.model, "pass")
+    sums, counts, inertia = _fused_psum_merge(ax.rows, sums, counts, inertia)
+    _mark(ax.model, "merge")
+    if final:
+        return None, None, inertia, counts, labels
+    new_sl = apply_update(c_sl, sums, counts)
+    if empty == "farthest":
+        masked = torch.where(w_rows > 0, mind, -torch.inf)
+        if valid is None:
+            new_sl = _reseed_empty_farthest_dp(ax.rows, new_sl, counts,
+                                               x_rows, masked)
+        else:
+            new_sl = _reseed_empty_farthest_tp(
+                ax.rows, new_sl, counts, valid, x_rows, masked, k_real,
+                slice_mesh=ax.model)
+    d_loc = c_loc.shape[1]
+    j = ax.feature.rank
+    new_c = new_sl[:, j * d_loc:(j + 1) * d_loc].contiguous()
+    shift_sq = ax.slice.all_reduce(
+        ((new_c - c_loc.float()) ** 2).sum().reshape(1))[0]
+    return new_c, shift_sq, inertia, counts, labels
+
+
+def _global_centroids(ax, c_loc, k: int, d: int):
+    """The (k, d) centroids from every rank's slice: the feature ranks'
+    columns, then the model ranks' rows, padding cut."""
+    return ax.model.all_gather(_gather_cols(ax.feature, c_loc))[:k, :d]
 
 
 # ---------------------------------------------------------------------------
@@ -655,12 +809,129 @@ def _sweep_collective_bytes(comm, *, dp, k, d):
 # Entry points
 # ---------------------------------------------------------------------------
 
-def _refuse_unported(model_axis, feature_axis, ckpt_dir, resume):
-    for name, on in (("model_axis", model_axis),
-                     ("feature_axis", feature_axis),
-                     ("ckpt_dir", ckpt_dir), ("resume", resume)):
-        if on:
-            raise ValueError(f"{name} {_A4B}")
+def _check_weights(x, weights) -> None:
+    if weights is not None:
+        w_shape = tuple(weights.shape if isinstance(weights, torch.Tensor)
+                        else np.shape(weights))
+        if w_shape != (x.shape[0],):
+            raise ValueError(f"weights shape {w_shape} != ({x.shape[0]},)")
+
+
+def _given_init(init, cfg, k: int, d: int, device):
+    """``(c0, method)``: an explicit (k, d) init on ``device`` (method
+    None), or None and the seeding method to run."""
+    if init is not None and not isinstance(init, str):
+        c0 = as_tensor(init, device, torch.float32)
+        if tuple(c0.shape) != (k, d):
+            raise ValueError(
+                f"init centroids shape {tuple(c0.shape)} != {(k, d)}")
+        return c0, None
+    method = init if isinstance(init, str) else cfg.init
+    if method == "given":
+        raise ValueError("init='given' needs an explicit (k, d) array")
+    return None, method
+
+
+def _placed(x, mesh, data_axis, weights, feature_axis=None):
+    """Placement shared by the sharded fits: ``(x_loc, w_loc, w_host, n,
+    weights_binary)``."""
+    x_loc, w_loc, w_host, n = _place(x, mesh, data_axis, weights=weights,
+                                     feature_axis=feature_axis)
+    weights_binary = bool(np.all((w_host == 0.0) | (w_host == 1.0)))
+    return x_loc, w_loc, w_host, n, weights_binary
+
+
+def _seed_on_mesh(gen, x_loc, w_loc, k, *, mesh, n, method, weights, cfg):
+    return init_on_mesh(gen, x_loc, k, mesh=mesh, n=n, method=method,
+                        weights=w_loc, user_weights=weights is not None,
+                        compute_dtype=cfg.compute_dtype,
+                        chunk_size=cfg.chunk_size).float()
+
+
+def _any_rank(mesh, flag: bool) -> bool:
+    """Whether ``flag`` holds on any rank: one all-reduce of a scalar, so
+    every rank takes the same branch."""
+    t = torch.tensor([1.0 if flag else 0.0], device=mesh.device)
+    return bool(mesh.all_reduce(t)[0].item() > 0)
+
+
+def _dtype_name(dt) -> Optional[str]:
+    """A compute dtype as the reference's config spells it."""
+    if dt is None:
+        return None
+    if isinstance(dt, torch.dtype):
+        return str(dt).replace("torch.", "")
+    return str(dt)
+
+
+def engine_fingerprint(cfg: KMeansConfig, *, k: int, d: int,
+                       center_update: str = "mean",
+                       tol: Optional[float] = None) -> dict:
+    """The reference's ``kmeans_tpu.config.engine_fingerprint``, key for
+    key: the mesh-agnostic identity of a sharded fit stored in an elastic
+    checkpoint and checked on resume.  It leaves out everything a resume
+    may change: mesh shape, device count, comm mode, backend, chunk_size
+    and max_iter."""
+    return {
+        "k": int(k),
+        "d": int(d),
+        "update": cfg.update,
+        "empty": cfg.empty,
+        "init": cfg.init,
+        "seed": int(cfg.seed),
+        "tol": float(tol if tol is not None else cfg.tol),
+        "compute_dtype": _dtype_name(cfg.compute_dtype),
+        "center_update": center_update,
+    }
+
+
+def _resolve_elastic(ckpt_dir, resume):
+    """The reference's argument checks of the elastic path; returns the
+    checkpoint directory (None: not elastic)."""
+    if isinstance(resume, str) and resume:
+        if ckpt_dir is not None and (os.path.realpath(ckpt_dir)
+                                     != os.path.realpath(resume)):
+            raise ValueError(
+                f"resume={resume!r} names a different directory than "
+                f"ckpt_dir={ckpt_dir!r}; pass one of them")
+        ckpt_dir = resume
+    if resume and ckpt_dir is None:
+        raise ValueError(
+            "resume=True needs ckpt_dir (or pass the directory itself as "
+            "resume=<path>)")
+    return ckpt_dir
+
+
+def _load_engine_resume(ckpt_dir, fp_want, *, k, d):
+    """Restore an elastic checkpoint: verified load, fingerprint check,
+    outcome accounting.  Returns ``(centroids (numpy), start_it, meta)``;
+    the centroids then take the explicit-init path of a fresh fit."""
+    from kmeans_tpu_torch.utils.checkpoint import (CorruptCheckpointError,
+                                                   load_array_checkpoint)
+
+    faults.check("engine.resume")
+    try:
+        arrays, meta = load_array_checkpoint(ckpt_dir)
+    except (FileNotFoundError, CorruptCheckpointError):
+        _ENGINE_RESUMES_TOTAL.labels(outcome="error").inc()
+        raise
+    extra = meta.get("extra") or {}
+    fp_have = extra.get("fingerprint")
+    if fp_have != fp_want:
+        _ENGINE_RESUMES_TOTAL.labels(outcome="refused").inc()
+        raise ValueError(
+            f"refusing to resume from {ckpt_dir!r}: checkpoint fingerprint "
+            f"{fp_have!r} contradicts this fit's {fp_want!r} (k, d, update, "
+            "tol, dtype and seed must match; mesh shape, device count and "
+            "comm mode may differ freely)")
+    c_host = np.asarray(arrays["centroids"], np.float32)
+    if c_host.shape != (k, d):
+        _ENGINE_RESUMES_TOTAL.labels(outcome="refused").inc()
+        raise ValueError(
+            f"checkpoint centroids shape {c_host.shape} != {(k, d)}")
+    _ENGINE_RESUMES_TOTAL.labels(
+        outcome="finished" if extra.get("converged") else "ok").inc()
+    return c_host, int(meta.get("step", 0)), meta
 
 
 def fit_lloyd_sharded(
@@ -683,57 +954,69 @@ def fit_lloyd_sharded(
     ckpt_keep: int = 0,
     resume: Union[bool, str] = False,
 ) -> KMeansState:
-    """Full-batch Lloyd, data parallel over ``mesh``
-    (:func:`~kmeans_tpu_torch.parallel.mesh.make_mesh`).
+    """Full-batch Lloyd over ``mesh`` (:func:`~kmeans_tpu_torch.parallel.
+    mesh.make_mesh`): data parallel, or with ``model_axis`` (centroids
+    sharded over k, padded to a multiple of its ranks) and / or
+    ``feature_axis`` (x and centroids sharded over d, padded likewise; rows
+    pad to a multiple of data × feature ranks) the reference's DP×TP,
+    DP×FP and DP×TP×FP bodies (:func:`_sharded_pass`).
 
-    Every rank calls this with the same global ``x`` (host numpy or a
-    tensor) and keeps its contiguous row block on its device.  ``weights``
-    (optional (n,) nonnegative) ride the per-rank weight vector the engine
-    already uses for row padding; fractional weights demote the dense
-    update to the segment reduction and refuse explicit ``"delta"``, as on
-    one device.  ``update`` (``config.update``): ``"auto"`` is the DP delta
-    loop where weights are exact; ``"matmul"``/``"segment"``, ``"delta"``,
-    ``"hamerly"`` and ``"yinyang"`` as on one device.  ``comm``
-    (``config.comm``) picks the merge (:func:`_resolve_comm`).  Every rank
-    returns the global state on its device.  ``generator`` drives the init
-    draws (default: seeded with ``config.seed``); the sharded seeding draws
-    what the single-device one draws.
+    Every rank calls this with the same global ``x`` (host numpy, a host
+    tensor or a card tensor) and places its own block on its device, a
+    copy: host data stays on the host (a memory-mapped ``.npy`` is shared
+    through the page cache) and no rank keeps all of ``x`` on its card.
+    ``weights`` (optional (n,) nonnegative) ride the per-rank weight vector
+    the engine already uses for row padding; fractional weights demote the
+    dense update to the segment reduction and refuse explicit ``"delta"``,
+    as on one device.  ``update`` (``config.update``): ``"auto"`` is the DP
+    delta loop where weights are exact (the dense reduction on a model or
+    feature axis, where the incremental flavours raise); ``"matmul"`` /
+    ``"segment"``, ``"delta"``, ``"hamerly"`` and ``"yinyang"`` as on one
+    device.  ``comm`` (``config.comm``) picks the DP merge
+    (:func:`_resolve_comm`; ``"scatter"`` raises on a model or feature
+    axis).  Every rank returns the global state on its device.
+    ``generator`` drives the init draws (default: seeded with
+    ``config.seed``); the sharded seeding draws what the single-device one
+    draws.
 
-    ``model_axis``, ``feature_axis``, ``ckpt_dir`` and ``resume`` are not
-    ported yet (ROADMAP A4b) and raise first; ``ckpt_every`` and
-    ``ckpt_keep`` are read only with ``ckpt_dir``.
+    ``ckpt_dir`` turns on the elastic loop (:func:`_fit_lloyd_elastic`):
+    every ``ckpt_every`` sweeps (default :data:`ENGINE_CKPT_EVERY`) and on
+    SIGTERM / SIGINT on any rank, rank 0 saves the global f32 centroids,
+    the sweep and :func:`engine_fingerprint` as the reference's bundle;
+    ``ckpt_keep`` older bundles survive.  ``resume=True`` (or
+    ``resume=<dir>``) continues such a bundle on whatever mesh shape and
+    comm this call has, and refuses one whose fingerprint contradicts this
+    call's.
     """
-    _refuse_unported(model_axis, feature_axis, ckpt_dir, resume)
+    ckpt_dir = _resolve_elastic(ckpt_dir, resume)
     cfg, gen = resolve_fit_config(k, generator, config, mesh.device)
     if center_update not in ("mean", "sphere"):
         raise ValueError(f"unknown center_update {center_update!r}")
     if center_update == "sphere":
         raise ValueError(_SPHERE_A9)
+    if ckpt_dir is not None and ckpt_every is not None and ckpt_every <= 0:
+        raise ValueError(f"ckpt_every must be positive, got {ckpt_every}")
+    sharded = bool(model_axis or feature_axis)
     dp = mesh.axis_sizes[data_axis]
+    mp = mesh.axis_sizes[model_axis] if model_axis else 1
+    fp = mesh.axis_sizes[feature_axis] if feature_axis else 1
     d = x.shape[1]
-    if weights is not None:
-        w_shape = tuple(weights.shape if isinstance(weights, torch.Tensor)
-                        else np.shape(weights))
-        if w_shape != (x.shape[0],):
-            raise ValueError(f"weights shape {w_shape} != ({x.shape[0]},)")
-    if init is not None and not isinstance(init, str):
-        c0 = as_tensor(init, mesh.device, torch.float32)
-        if tuple(c0.shape) != (k, d):
-            raise ValueError(
-                f"init centroids shape {tuple(c0.shape)} != {(k, d)}")
-        method = None
-    else:
-        c0 = None
-        method = init if isinstance(init, str) else cfg.init
-        if method == "given":
-            raise ValueError("init='given' needs an explicit (k, d) array")
+    _check_weights(x, weights)
+    fp_want = (engine_fingerprint(cfg, k=k, d=d, center_update=center_update,
+                                  tol=tol) if ckpt_dir is not None else None)
+    start_it, resume_meta = 0, None
+    if resume:
+        init, start_it, resume_meta = _load_engine_resume(ckpt_dir, fp_want,
+                                                          k=k, d=d)
+    c0, method = _given_init(init, cfg, k, d, mesh.device)
     # Every check runs before the first collective, the same on every rank.
-    x_loc, w_loc, w_host, n = _place(x, mesh, data_axis, weights=weights)
-    weights_binary = bool(np.all((w_host == 0.0) | (w_host == 1.0)))
+    x_loc, w_loc, w_host, n, weights_binary = _placed(
+        x, mesh, data_axis, weights, feature_axis)
     cd = resolve_cd(cfg.compute_dtype, x_loc.dtype)
     w_exact = weights_exact(cd, weights=w_host,
                             weights_are_binary=weights_binary)
-    update = resolve_update(cfg.update, w_exact=w_exact, sharded_axes=False)
+    update = resolve_update(cfg.update, w_exact=w_exact,
+                            sharded_axes=sharded)
     if update in ("hamerly", "yinyang") and cfg.empty != "keep":
         raise ValueError(
             f"update={update!r} prunes rows from the distance pass (no "
@@ -741,59 +1024,456 @@ def fit_lloyd_sharded(
             "use empty='keep' with the default center update, or "
             "update='auto'/'delta'"
         )
-    backend = resolve_backend(cfg.backend, x_loc, k, weights=w_loc,
-                              weights_are_binary=weights_binary,
-                              compute_dtype=cfg.compute_dtype)
-    comm = _resolve_comm(cfg.comm, dp=dp, sharded_axes=False, k=k, d=d)
+    comm = _resolve_comm(cfg.comm, dp=dp, sharded_axes=sharded, k=k, d=d)
+    k_pad, d_pad = k + (-k) % mp, d + (-d) % fp
+    if sharded:
+        from kmeans_tpu_torch.ops.lloyd import sweep_route
+
+        # The route at the shapes the rank's kernels see: the k-slice over
+        # full rows.
+        backend, k_tile = sweep_route(
+            "classic", cfg.backend, x_loc, k_pad // mp,
+            weights=w_loc, weights_are_binary=weights_binary,
+            compute_dtype=cfg.compute_dtype)
+        ax = _Axes(mesh, data_axis, model_axis, feature_axis)
+        seed_mesh = ax.rows
+    else:
+        backend = resolve_backend(cfg.backend, x_loc, k, weights=w_loc,
+                                  weights_are_binary=weights_binary,
+                                  compute_dtype=cfg.compute_dtype)
+        seed_mesh = mesh
 
     if c0 is None:
-        c0 = init_on_mesh(gen, x_loc, k, mesh=mesh, n=n, method=method,
-                          weights=w_loc, user_weights=weights is not None,
-                          compute_dtype=cfg.compute_dtype,
-                          chunk_size=cfg.chunk_size)
+        c0 = _seed_on_mesh(gen, x_loc, w_loc, k, mesh=seed_mesh, n=n,
+                           method=method, weights=weights, cfg=cfg)[:, :d]
     tol_v = torch.tensor(tol if tol is not None else cfg.tol,
                          dtype=torch.float32, device=mesh.device)
     max_it = max_iter if max_iter is not None else cfg.max_iter
     c0 = c0.float()
     kw = dict(chunk_size=cfg.chunk_size, compute_dtype=cfg.compute_dtype,
               backend=backend, comm=comm)
-    if update == "delta":
-        step = _delta_steps(mesh, x_loc, w_loc, c0, empty=cfg.empty,
-                            center_update=center_update, **kw)
-    elif update in ("hamerly", "yinyang"):
-        groups = {}
-        if update == "yinyang":
-            # The centroid → group map, formed once on the host from c0.
-            g_np, t_groups = centroid_groups(
-                c0.cpu().numpy(), cfg.yinyang_groups, seed=cfg.seed)
-            groups = dict(group_of=torch.from_numpy(g_np).to(mesh.device),
-                          t=t_groups)
-        step = _bound_steps(mesh, x_loc, w_loc, c0, **groups, **kw)
+    final_kw = dict(chunk_size=cfg.chunk_size,
+                    compute_dtype=cfg.compute_dtype, backend=backend,
+                    weights_binary=weights_binary)
+    group_of = t_groups = None
+    if update == "yinyang":
+        # The centroid → group map, formed once on the host from the
+        # centroids this run starts from (on a resume, the checkpoint's).
+        g_np, t_groups = centroid_groups(
+            c0.cpu().numpy(), cfg.yinyang_groups, seed=cfg.seed)
+        group_of = torch.from_numpy(g_np).to(mesh.device)
+
+    if sharded:
+        # This rank's slice: model rank m's k rows, feature rank j's
+        # columns, of the padded centroids.
+        k_loc, d_loc = k_pad // mp, d_pad // fp
+        m, j = ax.model.rank, ax.feature.rank
+        c_full = torch.zeros(k_pad, d_pad, device=mesh.device)
+        c_full[:k, :d] = c0
+        c0 = c_full[m * k_loc:(m + 1) * k_loc,
+                    j * d_loc:(j + 1) * d_loc].contiguous()
+        skw = dict(k_real=k, route=backend, k_tile=k_tile, kw=dict(
+            chunk_size=cfg.chunk_size, compute_dtype=cfg.compute_dtype,
+            update=update, weights_are_binary=weights_binary,
+            backend=backend))
+
+        def make_step(c_start):
+            def step(c, it):
+                return _sharded_pass(ax, x_loc, w_loc, c, empty=cfg.empty,
+                                     **skw)[:2]
+            return step
+
+        def to_global(c):
+            return _global_centroids(ax, c, k, d)
     else:
-        step = _dense_steps(mesh, x_loc, w_loc, update=update,
-                            empty=cfg.empty, weights_binary=weights_binary,
-                            center_update=center_update, **kw)
-    layout = _mesh_layout(dp, 1, 1)
+        def make_step(c_start):
+            """The sweep step of ``update`` with its carried state fresh
+            from ``c_start`` (the elastic loop builds one a segment)."""
+            if update == "delta":
+                return _delta_steps(mesh, x_loc, w_loc, c_start,
+                                    empty=cfg.empty,
+                                    center_update=center_update, **kw)
+            if update in ("hamerly", "yinyang"):
+                return _bound_steps(mesh, x_loc, w_loc, c_start,
+                                    group_of=group_of, t=t_groups, **kw)
+            return _dense_steps(mesh, x_loc, w_loc, update=update,
+                                empty=cfg.empty,
+                                weights_binary=weights_binary,
+                                center_update=center_update, **kw)
+
+        def to_global(c):
+            return c[:k]
+
+    layout = _mesh_layout(dp, mp, fp)
     with _tracing.span("fit_lloyd_sharded", category="fit",
                        kind=f"lloyd.{update}", backend=backend,
                        layout=layout):
         t_run0 = time.perf_counter()
-        c, n_iter, converged = _sweep_loop(mesh, step, c0, tol_v, max_it)
-        labels, inertia, counts = _dense_final(
-            mesh, x_loc, w_loc, c, n, chunk_size=cfg.chunk_size,
-            compute_dtype=cfg.compute_dtype, backend=backend,
-            weights_binary=weights_binary)
+        if ckpt_dir is not None:
+            c, n_iter, converged = _fit_lloyd_elastic(
+                mesh, make_step, c0, tol_v, max_it=max_it, cfg=cfg,
+                to_global=to_global, ckpt_dir=ckpt_dir,
+                ckpt_every=ckpt_every, ckpt_keep=ckpt_keep,
+                start_it=start_it, resume_meta=resume_meta,
+                fingerprint=fp_want, extra={
+                    "engine": "fit_lloyd_sharded", "layout": layout,
+                    "comm": comm, "update": update})
+            sweeps = max(n_iter - start_it, 1)
+        else:
+            c, n_iter, converged = _sweep_loop(mesh, make_step(c0), c0,
+                                               tol_v, max_it)
+            sweeps = n_iter
+        if sharded:
+            _, _, inertia, counts, labels = _sharded_pass(
+                ax, x_loc, w_loc, c, final=True, **skw)
+            labels = _gather_rows(ax.rows, labels, n)
+            counts = ax.model.all_gather(counts)
+        else:
+            labels, inertia, counts = _dense_final(mesh, x_loc, w_loc, c,
+                                                   n, **final_kw)
+        c = to_global(c)
         if obs.enabled():
-            _observe_sharded_fit(f"lloyd.{update}", backend, layout, dp,
-                                 time.perf_counter() - t_run0, n_iter)
-            _ENGINE_COLLECTIVE_BYTES.labels(
-                function=f"lloyd.{update}", comm=comm).set(float(
-                    _sweep_collective_bytes(comm, dp=dp, k=k, d=d)))
+            _observe_sharded_fit(f"lloyd.{update}", backend, layout,
+                                 dp * mp * fp, time.perf_counter() - t_run0,
+                                 sweeps)
+            if not sharded:
+                _ENGINE_COLLECTIVE_BYTES.labels(
+                    function=f"lloyd.{update}", comm=comm).set(float(
+                        _sweep_collective_bytes(comm, dp=dp, k=k, d=d)))
     dev = mesh.device
     return KMeansState(
-        c[:k], labels, inertia,
+        c, labels, inertia,
         torch.tensor(n_iter, dtype=torch.int32, device=dev),
         torch.tensor(converged, device=dev), counts[:k])
+
+
+def _fit_lloyd_elastic(mesh, make_step, c0, tol_v, *, max_it, cfg,
+                       to_global, ckpt_dir, ckpt_every, ckpt_keep, start_it,
+                       resume_meta, fingerprint, extra):
+    """The elastic sweep loop: segments of ``ckpt_every`` sweeps.
+
+    Each segment builds its step afresh from the centroids it starts from
+    (``make_step``), so the delta, hamerly and yinyang flavours re-derive
+    their carried state with a full refresh at every segment start, and the
+    refresh cadence is segment-relative, as in the reference's segment
+    programs: a resumed run replays an uninterrupted elastic run with the
+    same cadence (the classic update's trajectory is the fused loop's).
+    At each boundary every rank assembles the global centroids
+    (``to_global``: a gather where the mesh shards them) and rank 0 saves
+    them (the reference's ``save_array_checkpoint`` bundle: ``centroids``,
+    the sweep as ``step``, the fingerprint and ``converged`` in
+    ``extra``); then every rank joins one all-reduce of its
+    :class:`PreemptionGuard` flag, which also keeps the others from going
+    on before the bundle is whole.  A signal on any rank stops all of them
+    there with :class:`Preempted`.  Returns ``(c, sweep index,
+    converged)``."""
+    from kmeans_tpu_torch.models.runner import seed_key_data
+    from kmeans_tpu_torch.parallel.distributed import heartbeat
+    from kmeans_tpu_torch.utils.checkpoint import save_array_checkpoint
+    from kmeans_tpu_torch.utils.preempt import Preempted, PreemptionGuard
+
+    every = int(ckpt_every) if ckpt_every else ENGINE_CKPT_EVERY
+
+    def cut(c, it, done):
+        faults.check("engine.ckpt")
+        t0 = time.perf_counter()
+        c_glob = to_global(c)
+        if mesh.rank == 0:
+            save_array_checkpoint(
+                ckpt_dir, {"centroids": c_glob.cpu().numpy()}, step=it,
+                config=cfg, key=seed_key_data(cfg.seed),
+                extra=dict(extra, fingerprint=fingerprint,
+                           converged=bool(done)),
+                keep=ckpt_keep)
+        _ENGINE_CKPT_SECONDS.observe(time.perf_counter() - t0)
+
+    it = start_it
+    done = bool(((resume_meta or {}).get("extra") or {}).get("converged"))
+    c = c0
+    with PreemptionGuard() as guard:
+        while it < max_it and not done:
+            stop = min(it + every, max_it)
+            with _tracing.span("sweep_segment", category="assign"):
+                c, n_seg, done = _sweep_loop(mesh, make_step(c), c, tol_v,
+                                             stop - it)
+            it += n_seg
+            faults.check("engine.sweep_merge")
+            cut(c, it, done)
+            preempted = _any_rank(mesh, guard.triggered)
+            heartbeat()
+            if preempted and not done and it < max_it:
+                raise Preempted.during(
+                    "fit_lloyd_sharded", path=ckpt_dir, step=it,
+                    resume_hint=f"--ckpt-dir {ckpt_dir} --resume {ckpt_dir}")
+    return c, it, done
+
+
+def fit_lloyd_accelerated_sharded(
+    x,
+    k: int,
+    *,
+    mesh,
+    generator: Optional[torch.Generator] = None,
+    config: Optional[KMeansConfig] = None,
+    init=None,
+    weights=None,
+    data_axis: str = "data",
+    tol: Optional[float] = None,
+    max_iter: Optional[int] = None,
+    beta_max: float = 1.0,
+    accel: Optional[str] = None,
+    anderson_m: Optional[int] = None,
+    anderson_reg: Optional[float] = None,
+) -> KMeansState:
+    """Safeguarded extrapolated Lloyd, data parallel over ``mesh``: the
+    sharded counterpart of :func:`~kmeans_tpu_torch.models.accelerated.
+    fit_lloyd_accelerated` (``accel`` ``"beta"`` or ``"anderson"``, default
+    ``config.accel``).
+
+    Each sweep is the DP rank body (:func:`_dp_local_pass`: K1 on the
+    card) with one all-reduce of (sums | counts | inertia); the
+    extrapolation runs replicated on every rank through the single-device
+    loops' own iterations (:func:`~kmeans_tpu_torch.models.accelerated.
+    beta_iterations`, :func:`~kmeans_tpu_torch.models.accelerated.
+    anderson_iterations`), and its accept / reject test reads the merged
+    objective, so every rank takes the same branch.  As in the reference,
+    the sweeps are the dense reduction (``update`` "auto" and "delta" run
+    "matmul", "segment" where weights are inexact), ``schedule`` must be
+    ``"full"`` and ``empty="farthest"`` is refused.  The β loop keeps the
+    port's one difference from the reference: a plain (β = 0) step is
+    never rejected."""
+    from kmeans_tpu_torch.models.accelerated import (anderson_iterations,
+                                                     beta_iterations,
+                                                     record_accel_steps)
+    from kmeans_tpu_torch.ops.anderson import (OUTCOME_ACCEPTED,
+                                               OUTCOME_FALLBACK,
+                                               OUTCOME_REJECTED,
+                                               anderson_reset)
+
+    cfg, gen = resolve_fit_config(k, generator, config, mesh.device)
+    accel = accel if accel is not None else cfg.accel
+    if accel not in ("beta", "anderson"):
+        raise ValueError(f"unknown accel {accel!r}")
+    if cfg.schedule != "full":
+        raise NotImplementedError(
+            f"schedule={cfg.schedule!r} is not supported by the sharded "
+            "accelerated loop (the nested subsample ladder is single-device "
+            "today); use fit_lloyd_accelerated or schedule='full'")
+    if cfg.empty == "farthest":
+        raise NotImplementedError(
+            "empty='farthest' is not supported by the accelerated loop "
+            "(reseeding mid-extrapolation breaks the fixed-point "
+            "safeguard); use fit_lloyd_sharded")
+    m = anderson_m if anderson_m is not None else cfg.anderson_m
+    if accel == "anderson" and not 2 <= m <= 64:
+        raise ValueError(f"anderson_m must be in [2, 64], got {m}")
+    d = x.shape[1]
+    _check_weights(x, weights)
+    c0, method = _given_init(init, cfg, k, d, mesh.device)
+    x_loc, w_loc, w_host, n, weights_binary = _placed(x, mesh, data_axis,
+                                                      weights)
+    w_exact = weights_exact(resolve_cd(cfg.compute_dtype, x_loc.dtype),
+                            weights=w_host, weights_are_binary=weights_binary)
+    update = cfg.update
+    if update in ("auto", "delta"):
+        # The accelerated loop's sweeps are the dense reduction, as in
+        # the reference (the incremental update is the Lloyd fit's).
+        update = "matmul"
+    if update == "matmul" and not w_exact:
+        update = "segment"
+    backend = resolve_backend(cfg.backend, x_loc, k, weights=w_loc,
+                              weights_are_binary=weights_binary,
+                              compute_dtype=cfg.compute_dtype)
+    if c0 is None:
+        c0 = _seed_on_mesh(gen, x_loc, w_loc, k, mesh=mesh, n=n,
+                           method=method, weights=weights, cfg=cfg)
+    tol_f = float(tol if tol is not None else cfg.tol)
+    max_it = max_iter if max_iter is not None else cfg.max_iter
+    kw = dict(chunk_size=cfg.chunk_size, compute_dtype=cfg.compute_dtype,
+              backend=backend)
+
+    def sweep(c, it=None):
+        new_c, inertia, _ = _dp_local_pass(
+            mesh, x_loc, c, w_loc, update=update, empty="keep",
+            weights_binary=weights_binary, **kw)
+        return new_c, inertia
+
+    layout = _mesh_layout(mesh.axis_sizes[data_axis], 1, 1)
+    with _tracing.span("fit_lloyd_accelerated_sharded", category="fit",
+                       kind=f"accel.{accel}", backend=backend,
+                       layout=layout):
+        if accel == "beta":
+            c, it, done, codes = beta_iterations(
+                sweep, c0.float(), tol_f, max_iter=max_it,
+                beta_max=beta_max)
+        else:
+            reg = anderson_reg if anderson_reg is not None \
+                else cfg.anderson_reg
+            xs0, rs0, _ = anderson_reset(m, k * d, device=mesh.device)
+            c, it, done, codes = anderson_iterations(
+                sweep, c0.float(), xs0, rs0, tol_f,
+                torch.tensor(reg, dtype=torch.float32, device=mesh.device),
+                max_iter=max_it)
+        labels, inertia, counts = _dense_final(
+            mesh, x_loc, w_loc, c, n, weights_binary=weights_binary, **kw)
+    if accel == "anderson":
+        codes = [int(v) for v in codes]
+        record_accel_steps(codes.count(OUTCOME_ACCEPTED),
+                           codes.count(OUTCOME_REJECTED),
+                           codes.count(OUTCOME_FALLBACK))
+    dev = mesh.device
+    return KMeansState(c, labels, inertia,
+                       torch.tensor(it, dtype=torch.int32, device=dev),
+                       torch.tensor(done, device=dev), counts)
+
+
+def _trim_select_dp(mesh, d2m, m_loc: int, m: int):
+    """Global top-``m`` selection across the data axis with ``lax.top_k``'s
+    semantics (largest first, the lowest GLOBAL index on a tie), without
+    gathering the per-row distances:
+
+    1. each rank nominates its local top ``m_loc = min(m, n_loc)`` (any
+       global winner is a local winner);
+    2. one all-gather of the candidates' order keys gives every rank the
+       global m-th largest, τ;
+    3. every row above τ is trimmed, and the rest of the budget goes to the
+       rows equal to τ in global row order: one all-gather of each rank's
+       (above, equal) counts says how many ties lower ranks take (rows are
+       contiguous blocks, so lower rank, then lower local index, IS global
+       order).
+
+    The order is :func:`~kmeans_tpu_torch.models.trimmed.trim_select`'s
+    (the floats' bits as ordered int32 keys).  Returns ``(idx_loc, sel,
+    vals_loc)``: the candidates' local rows, a mask over them (True =
+    trimmed) and their values."""
+    from kmeans_tpu_torch.models.trimmed import order_keys
+
+    key = order_keys(d2m)
+    key_loc, idx_loc = torch.sort(key, descending=True, stable=True)
+    key_loc, idx_loc = key_loc[:m_loc], idx_loc[:m_loc]
+    keys_all = mesh.all_gather(key_loc)                  # (dp·m_loc,)
+    tau = torch.sort(keys_all, descending=True).values[m - 1]
+    counts = torch.stack([(key > tau).sum(), (key == tau).sum()])
+    counts = mesh.all_gather(counts.reshape(1, 2))        # (dp, 2)
+    total_gt = counts[:, 0].sum()
+    ties_before = counts[:mesh.rank, 1].sum()
+    take = torch.clamp(m - total_gt - ties_before, min=0)
+    take = torch.minimum(take, counts[mesh.rank, 1])
+    eq = key_loc == tau
+    tie_rank = torch.cumsum(eq.to(torch.int64), 0) - 1
+    sel = (key_loc > tau) | (eq & (tie_rank < take))
+    return idx_loc, sel, d2m[idx_loc]
+
+
+def _trimmed_local_pass(mesh, x_loc, c, w_loc, *, m, m_loc, final, kw,
+                        empty="keep"):
+    """DP rank body of trimmed k-means: the rank's fused pass (K1 on the
+    card), the distributed top-m selection, the trimmed rows' contribution
+    subtracted before the one merge (K6 folds it on the card).  Returns
+    ``(new_c, inertia, counts)``, or with ``final`` ``(inertia, counts,
+    labels, out_mask)`` with the rank's rows' labels (-1 = trimmed)."""
+    from kmeans_tpu_torch.models.trimmed import trim_subtract
+
+    labels, min_d2, sums, counts, inertia = lloyd_pass(
+        x_loc, c, weights=w_loc, device=x_loc.device, **kw)
+    _mark(mesh, "pass")
+    d2m = torch.where(w_loc > 0, min_d2, -torch.inf)
+    idx, sel, vals = _trim_select_dp(mesh, d2m, m_loc, m)
+    _mark(mesh, "select")
+    k = c.shape[0]
+    wt = torch.where(sel, w_loc[idx].float(), 0.0)
+    s_corr, c_corr, i_corr = trim_subtract(x_loc, labels, idx, wt, vals, k,
+                                           backend=kw["backend"])
+    _mark(mesh, "correction")
+    sums, counts, inertia = _fused_psum_merge(
+        mesh, sums - s_corr, counts - c_corr, inertia - i_corr)
+    _mark(mesh, "merge")
+    if final:
+        out_mask = torch.zeros(w_loc.shape, dtype=torch.bool,
+                               device=w_loc.device)
+        out_mask[idx] = sel
+        return inertia, counts, torch.where(out_mask, -1, labels), out_mask
+    new_c = apply_update(c, sums, counts)
+    if empty == "farthest":
+        # Inliers only: a trimmed outlier must never seed an empty slot.
+        mind = d2m.clone()
+        mind[idx] = torch.where(sel, -torch.inf, vals)
+        new_c = _reseed_empty_farthest_dp(mesh, new_c, counts, x_loc, mind)
+    return new_c, inertia, counts
+
+
+def fit_trimmed_sharded(
+    x,
+    k: int,
+    *,
+    mesh,
+    trim_fraction: Optional[float] = None,
+    n_trim: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+    config: Optional[KMeansConfig] = None,
+    init=None,
+    weights=None,
+    data_axis: str = "data",
+    tol: Optional[float] = None,
+    max_iter: Optional[int] = None,
+):
+    """Trimmed k-means (k-means--), data parallel over ``mesh``: the
+    sharded counterpart of :func:`~kmeans_tpu_torch.models.trimmed.
+    fit_trimmed`, with its outlier set, tie order included, through the
+    distributed selection :func:`_trim_select_dp`.  Returns a
+    :class:`~kmeans_tpu_torch.models.trimmed.TrimmedState` (every rank the
+    global one); ``n_trim=0`` is :func:`fit_lloyd_sharded` with an
+    all-false mask."""
+    from kmeans_tpu_torch.models.trimmed import TrimmedState, resolve_n_trim
+
+    m = resolve_n_trim(x.shape[0], trim_fraction=trim_fraction,
+                       n_trim=n_trim)
+    cfg, gen = resolve_fit_config(k, generator, config, mesh.device)
+    d = x.shape[1]
+    _check_weights(x, weights)
+    c0, method = _given_init(init, cfg, k, d, mesh.device)
+    dev = mesh.device
+    if m == 0:
+        st = fit_lloyd_sharded(x, k, mesh=mesh, generator=gen,
+                               config=config, init=init, weights=weights,
+                               data_axis=data_axis, tol=tol,
+                               max_iter=max_iter)
+        return TrimmedState(*st, torch.zeros(x.shape[0], dtype=torch.bool,
+                                             device=dev))
+    x_loc, w_loc, w_host, n, weights_binary = _placed(x, mesh, data_axis,
+                                                      weights)
+    m_loc = min(m, x_loc.shape[0])
+    backend = resolve_backend(cfg.backend, x_loc, k, weights=w_loc,
+                              weights_are_binary=weights_binary,
+                              compute_dtype=cfg.compute_dtype)
+    if c0 is None:
+        c0 = _seed_on_mesh(gen, x_loc, w_loc, k, mesh=mesh, n=n,
+                           method=method, weights=weights, cfg=cfg)
+    kw = dict(chunk_size=cfg.chunk_size, compute_dtype=cfg.compute_dtype,
+              update=cfg.update, weights_are_binary=weights_binary,
+              backend=backend)
+    tol_v = torch.tensor(tol if tol is not None else cfg.tol,
+                         dtype=torch.float32, device=dev)
+    max_it = max_iter if max_iter is not None else cfg.max_iter
+
+    def step(c, it):
+        new_c, _, _ = _trimmed_local_pass(mesh, x_loc, c, w_loc, m=m,
+                                          m_loc=m_loc, final=False, kw=kw,
+                                          empty=cfg.empty)
+        return new_c, None
+
+    layout = _mesh_layout(mesh.axis_sizes[data_axis], 1, 1)
+    with _tracing.span("fit_trimmed_sharded", category="fit",
+                       kind="trimmed", backend=backend, layout=layout):
+        c, n_iter, converged = _sweep_loop(mesh, step, c0.float(), tol_v,
+                                           max_it)
+        inertia, counts, labels, out_mask = _trimmed_local_pass(
+            mesh, x_loc, c, w_loc, m=m, m_loc=m_loc, final=True, kw=kw)
+    return TrimmedState(
+        c, _gather_rows(mesh, labels, n), inertia,
+        torch.tensor(n_iter, dtype=torch.int32, device=dev),
+        torch.tensor(converged, device=dev), counts,
+        _gather_rows(mesh, out_mask.to(torch.uint8), n).bool())
 
 
 def _assign_local(mesh, x_loc, centroids, n, *, chunk_size, compute_dtype,

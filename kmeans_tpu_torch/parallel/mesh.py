@@ -5,12 +5,19 @@ Counterpart of ``kmeans_tpu/parallel/mesh.py``.  The reference builds a
 the port runs one process per device, joined by ``torch.distributed``
 (NCCL between cards, gloo between CPU processes), and a :class:`Mesh` is
 one rank's view of that group: its rank, the world size, its device and
-the axis names.  Points shard over the ``data`` axis; the ``model`` axis
-(centroids sharded over k) is not ported yet and must be 1.
+the axis names.  Ranks lie on the mesh in row-major order (rank =
+``np.ravel_multi_index(coords, shape)``, as the reference's devices
+reshape), points shard over the ``data`` axis, centroids over k on the
+``model`` axis and both over d on the ``feature`` axis.  Where more than
+one axis is above 1, :func:`make_mesh` makes one process group for each
+set of those axes (every rank calls ``new_group`` for every group, in one
+order), and :meth:`Mesh.sub` is the view of the ranks this one shares
+every other coordinate with: a reduction over ``model`` alone, or over
+``data`` and ``feature`` together.
 
 Every rank calls the engine with the same global data; each keeps only its
-contiguous row block on its device, and the per-sweep merges are the
-collectives of :class:`Mesh`.
+own block on its device, and the per-sweep merges are the collectives of
+:class:`Mesh`.
 
 A gloo mesh may also hold CUDA tensors: several ranks sharing one card,
 which NCCL refuses.  Gloo takes card tensors for all three collectives the
@@ -22,6 +29,7 @@ staged by hand.  Nothing falls back from NCCL to gloo.
 from __future__ import annotations
 
 import datetime
+import itertools
 import os
 import socket
 from typing import Optional, Sequence, Tuple
@@ -43,9 +51,9 @@ _all_gather_tensor = getattr(dist, "all_gather_single", None) or \
 _reduce_scatter_tensor = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
 
-#: The refusal of a model axis above 1.
-_A4B = ("a model axis above 1 (centroids sharded over k) is not ported "
-        "yet (ROADMAP A4b); use a data-parallel mesh (model=1)")
+#: ``Mesh.all_reduce``'s reductions.
+_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+        "max": dist.ReduceOp.MAX}
 
 
 def free_port() -> int:
@@ -67,17 +75,64 @@ class Mesh:
     """
 
     def __init__(self, shape: Tuple[int, ...], axis_names: Tuple[str, ...],
-                 group, device: torch.device, backend: str):
+                 group, device: torch.device, backend: str, *,
+                 axis_groups=None, root=None):
         self.shape = tuple(int(s) for s in shape)
         self.axis_names = tuple(axis_names)
         self.axis_sizes = dict(zip(self.axis_names, self.shape))
         self.group = group
-        self.rank = dist.get_rank(group)
-        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group) if group is not None else 0
+        self.size = dist.get_world_size(group) if group is not None else 1
         self.device = device
         self.backend = backend
-        self.split = None
-        self.reset_stats()
+        # The whole mesh of a view (None: this one; no reference to itself,
+        # so a mesh and its groups go when the last reference does).
+        self._of = root
+        self._axis_groups = axis_groups or {}
+        if root is None:
+            self._split = None
+            self.coords = dict(zip(self.axis_names, (int(i) for i in (
+                np.unravel_index(self.rank, self.shape)))))
+            self.reset_stats()
+
+    @property
+    def _root(self) -> "Mesh":
+        return self if self._of is None else self._of
+
+    @property
+    def split(self):
+        return self._root._split
+
+    @split.setter
+    def split(self, value):
+        self._root._split = value
+
+    @property
+    def stats(self):
+        return self._root._stats
+
+    def coord(self, axis: str) -> int:
+        """This rank's index along ``axis`` of the whole mesh."""
+        return self._root.coords[axis]
+
+    def sub(self, axes) -> "Mesh":
+        """The view of the ranks that share this rank's coordinate on every
+        axis outside ``axes`` (names; None entries are skipped): its
+        collectives run over ``axes`` alone, in row-major order of their
+        coordinates.  Axes of size 1 add nothing; a view of size 1 has no
+        group and runs no collective at all (the mesh itself, even of one
+        rank, runs every collective in its group)."""
+        root = self._root
+        live = frozenset(a for a in axes if a is not None
+                         and root.axis_sizes[a] > 1)
+        if live == frozenset(a for a, s in root.axis_sizes.items() if s > 1):
+            return root
+        shape = tuple(root.axis_sizes[a] for a in root.axis_names
+                      if a in live)
+        names = tuple(a for a in root.axis_names if a in live)
+        group = root._axis_groups[live] if live else None
+        return Mesh(shape or (1,), names or ("local",), group, root.device,
+                    root.backend, root=root)
 
     def __repr__(self) -> str:
         return (f"Mesh(shape={self.shape}, axis_names={self.axis_names}, "
@@ -85,23 +140,29 @@ class Mesh:
                 f"backend={self.backend!r})")
 
     def reset_stats(self) -> None:
-        self.stats = {op: [0, 0] for op in
-                      ("all_reduce", "reduce_scatter", "all_gather")}
+        """Counters of every view of this mesh are the mesh's own."""
+        self._root._stats = {op: [0, 0] for op in (
+            "all_reduce", "reduce_scatter", "all_gather")}
 
     def _count(self, op: str, t: torch.Tensor) -> None:
         s = self.stats[op]
         s[0] += 1
         s[1] += t.numel() * t.element_size()
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the mesh, in place; returns ``t``."""
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Reduce ``t`` over the mesh (``op`` "sum", "min" or "max"), in
+        place; returns ``t``."""
+        if self.group is None:
+            return t
         self._count("all_reduce", t)
-        dist.all_reduce(t, group=self.group)
+        dist.all_reduce(t, op=_OPS[op], group=self.group)
         return t
 
     def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` (``size · m`` rows) over the mesh and return this
         rank's block of ``m`` rows (the tiled ``psum_scatter``)."""
+        if self.group is None:
+            return t
         self._count("reduce_scatter", t)
         t = t.contiguous()
         m = t.shape[0] // self.size
@@ -113,6 +174,8 @@ class Mesh:
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Concatenate every rank's ``t`` along dim 0, in rank order (the
         tiled ``all_gather``)."""
+        if self.group is None:
+            return t
         self._count("all_gather", t)
         t = t.contiguous()
         shape = (self.size * t.shape[0],) + tuple(t.shape[1:])
@@ -121,7 +184,33 @@ class Mesh:
         return out
 
     def barrier(self) -> None:
-        dist.barrier(group=self.group)
+        if self.group is not None:
+            dist.barrier(group=self.group)
+
+
+def _axis_groups(shape, axis_names, backend):
+    """One process group per set of mesh axes above 1 (short of all of
+    them): ``{frozenset(axis names): the group holding this rank}``.
+    Every rank makes every group, in one order, as ``new_group`` needs."""
+    live = [i for i, s in enumerate(shape) if s > 1]
+    groups = {}
+    if len(live) < 2:
+        return groups
+    me = dist.get_rank()
+    ranks = np.arange(int(np.prod(shape))).reshape(shape)
+    timeout = datetime.timedelta(seconds=_distributed.INIT_TIMEOUT_S)
+    for r in range(1, len(live)):
+        for subset in itertools.combinations(live, r):
+            others = [i for i in range(len(shape)) if i not in subset]
+            size = int(np.prod([shape[i] for i in subset]))
+            rows = np.transpose(ranks, others + list(subset)).reshape(
+                -1, size)
+            for row in rows:
+                g = dist.new_group(row.tolist(), backend=backend,
+                                   timeout=timeout)
+                if me in row:
+                    groups[frozenset(axis_names[i] for i in subset)] = g
+    return groups
 
 
 def make_mesh(
@@ -145,10 +234,6 @@ def make_mesh(
     backend on the cards is allowed (several ranks may then share one
     card), NCCL on the CPU is refused.
     """
-    if shape is not None:
-        sizes = dict(zip(axis_names, shape))
-        if any(s > 1 for a, s in sizes.items() if a != axis_names[0]):
-            raise ValueError(_A4B)
     if devices is not None:
         devices = [torch.device(dv) for dv in devices]
         if not devices:
@@ -200,7 +285,9 @@ def make_mesh(
     if dist.get_backend() != backend:
         group = dist.new_group(backend=backend, timeout=datetime.timedelta(
             seconds=_distributed.INIT_TIMEOUT_S))
-    return Mesh(tuple(shape), tuple(axis_names), group, device, backend)
+    return Mesh(tuple(shape), tuple(axis_names), group, device, backend,
+                axis_groups=_axis_groups(tuple(shape), tuple(axis_names),
+                                         backend))
 
 
 def cpu_mesh(

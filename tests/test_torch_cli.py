@@ -4,8 +4,8 @@ Each behaviour test of the reference's CLI suite (``tests/test_cli.py``,
 the CLI tests of ``tests/test_obs.py`` and ``tests/test_tracing.py``) runs
 its body once through each package's ``main`` (``side``; the port's with
 ``--device cpu`` appended).  Where a body asks for something the port does
-not have yet (a family of ROADMAP A9, the sharded engine's A4b), the port's
-side holds the refusal instead: exit code 2 and one line naming the queue
+not have yet (a family of ROADMAP A9), the port's side holds the refusal
+instead: exit code 2 and one line naming the queue
 item.  The
 flag guards run through both ``main``s and must give the same exit code and
 the same stderr, line for line.  A fit through both on the same
@@ -401,6 +401,16 @@ GUARDS = [
     ["train", "--comm", "scatter", "--model", "minibatch", "--mesh", "2"],
     ["train", "--comm", "scatter", "--mesh", "2", "--progress"],
     ["train", "--coreset", "50", "--mesh", "2"],
+    # The elastic checkpoint's guards (--ckpt-dir, --ckpt-every), and
+    # --merge-k's before the fit.
+    ["train", "--ckpt-dir", "ck"],
+    ["train", "--ckpt-every", "3"],
+    ["train", "--ckpt-dir", "ck", "--model", "accelerated", "--mesh", "2"],
+    ["train", "--ckpt-dir", "ck", "--mesh", "2", "--progress"],
+    ["train", "--ckpt-dir", "ck", "--resume", "other", "--mesh", "2"],
+    ["train", "--ckpt-dir", "ck", "--ckpt-every", "0", "--mesh", "2"],
+    ["train", "--merge-k", "0"],
+    ["train", "--merge-k", "3", "--k", "3"],
 ]
 
 
@@ -484,17 +494,10 @@ def test_export_bytes_equal_the_references(tmp_path, capsys):
 
 REFUSED = [
     (["--stream", "--input", "x.npy", "--model", "gmm"], "A9"),
-    (["--stream", "--input", "x.npy", "--mesh", "2"], "A4b"),
-    (["--model", "accelerated", "--mesh", "2"], "A4b"),
-    (["--ckpt-dir", "ck"], "A4b"),
-    (["--ckpt-every", "3"], "A4b"),
-    (["--mesh", "2", "--ckpt-dir", "ck"], "A4b"),
     (["--model", "gmm"], "A9"),
     (["--model", "xmeans"], "A9"),
-    (["--model", "trimmed", "--mesh", "2"], "A4b"),
     (["--pca", "1"], "A9"),
     (["--whiten"], "A9"),
-    (["--merge-k", "2"], "A9"),
 ]
 
 
@@ -681,14 +684,17 @@ MESH_BASE = ["train", "--n", "3000", "--d", "8", "--k", "5", "--seed", "2",
 @pytest.mark.parametrize("model,extra", [
     ("lloyd", ["--comm", "scatter"]),
     ("minibatch", ["--steps", "40", "--batch-size", "256"]),
+    ("accelerated", ["--accel", "anderson"]),
+    ("trimmed", ["--trim-fraction", "0.02"]),
 ])
 def test_train_mesh_runs_gloo_ranks_on_the_cpu(model, extra, tmp_path):
     """``train --mesh 2 --device cpu`` starts two gloo CPU ranks; rank 0
     alone prints the result line and writes ``--out``.  Its fields match
-    the ``--mesh 1`` run from the same seed: lloyd's sharded k-means++ draws
-    what the single-device one draws, so the fit is the same fit (inertia
-    to the sum order); minibatch's batches are per-rank draws, so its
-    inertia only lands near the single-device fit's."""
+    the ``--mesh 1`` run from the same seed: the sharded k-means++ draws
+    what the single-device one draws, so the lloyd, accelerated and trimmed
+    fits are the same fits (inertia to the sum order); minibatch's batches
+    are per-rank draws, so its inertia only lands near the single-device
+    fit's."""
     out1, out2 = str(tmp_path / "one.json"), str(tmp_path / "two.json")
     base = MESH_BASE + ["--model", model]
     one_extra = [a for a in extra if a not in ("--comm", "scatter")]
@@ -701,7 +707,7 @@ def test_train_mesh_runs_gloo_ranks_on_the_cpu(model, extra, tmp_path):
     same = ("n", "d", "k", "n_iter", "mode", "converged")
     assert {f: two[f] for f in same} == {f: one[f] for f in same}
     assert sorted(set(two) - {"mesh"}) == sorted(one)
-    if model == "lloyd":
+    if model != "minibatch":
         np.testing.assert_allclose(two["inertia"], one["inertia"],
                                    rtol=1e-5)
         assert open(out2).read() == open(out1).read()
@@ -756,3 +762,91 @@ def test_train_mesh_usage_errors(monkeypatch, capsys):
     assert rc == 2 and err == [
         "error: --mesh 3 contradicts the process group's WORLD_SIZE=2"]
 
+
+def test_train_stream_mesh_splits_each_batch(tmp_path):
+    """``train --stream --mesh 2``: each rank gathers half of every step's
+    batch and one all-reduce merges the halves, so the fit is the
+    single-device stream's on the same batches (inertia to the sum order),
+    and the sharded final pass labels every row alike."""
+    npy = str(tmp_path / "x.npy")
+    np.save(npy, _separated(31, 6000, 8, 5))
+    base = ["train", "--stream", "--input", npy, "--k", "5", "--steps",
+            "30", "--batch-size", "512", "--seed", "4", "--device", "cpu"]
+    out1, out2 = str(tmp_path / "one.json"), str(tmp_path / "two.json")
+    rc1, one, _, err1 = _cli_result(base + ["--out", out1])
+    rc2, two, _, err2 = _cli_result(base + ["--mesh", "2", "--out", out2])
+    assert rc1 == 0 and rc2 == 0, err1 + err2
+    assert two.pop("mesh") == 2
+    np.testing.assert_allclose(two.pop("inertia"), one.pop("inertia"),
+                               rtol=1e-5)
+    two.pop("wall_s"), one.pop("wall_s")
+    assert two == one
+    assert open(out2).read() == open(out1).read()
+
+
+def test_train_elastic_preempt_and_resume(tmp_path):
+    """``--mesh 2 --ckpt-dir D``: SIGTERM on both ranks at the second
+    segment boundary exits 3 with the reference's resume hint and a bundle
+    at that sweep; ``--resume D`` finishes at the sweep count and inertia
+    of the same fit uninterrupted on one device (the same seeding; the
+    classic update's elastic run is the fused one), and a missing resume
+    directory is one line, exit 2."""
+    from kmeans_tpu_torch import KMeansConfig, fit_lloyd
+    from kmeans_tpu_torch.data.synthetic import make_blobs
+    from kmeans_tpu_torch.utils.checkpoint import latest_step
+
+    ck = str(tmp_path / "ck")
+    base = MESH_BASE + ["--mesh", "2", "--update", "matmul", "--tol", "-1",
+                        "--max-iter", "12", "--ckpt-every", "4"]
+    x = make_blobs(2, 3000, 8, 5, cluster_std=0.6, device="cpu")[0]
+    whole = fit_lloyd(x, 5, config=KMeansConfig(
+        k=5, update="matmul", tol=-1.0, max_iter=12, seed=2), device="cpu")
+    whole = {"n_iter": int(whole.n_iter), "inertia": float(whole.inertia)}
+    env = dict(os.environ, KMEANS_TPU_FAULTS="engine.sweep_merge:sigterm@2")
+    rc, _, _, err = _cli_result(base + ["--ckpt-dir", ck], env=env)
+    assert rc == 3, err
+    assert f"--ckpt-dir {ck} --resume {ck}" in err
+    assert latest_step(ck) == 8
+    rc, got, _, err = _cli_result(base + ["--ckpt-dir", ck, "--resume", ck])
+    assert rc == 0, err
+    assert f"resuming sharded fit from {ck} at sweep 8" in err
+    assert got["n_iter"] == whole["n_iter"] == 12
+    np.testing.assert_allclose(got["inertia"], whole["inertia"], rtol=1e-5)
+    nope = str(tmp_path / "nope")
+    rc, _, _, err = _cli_result(base + ["--ckpt-dir", nope, "--resume",
+                                        nope])
+    assert rc == 2 and err.strip().splitlines() == [
+        f"error: no checkpoint found at {nope!r} to resume from"]
+
+
+def _partition(doc):
+    """A board document's card → zone assignment as a canonical partition
+    (zones renumbered by first appearance)."""
+    ids = {}
+    return [ids.setdefault(c.get("assignedTo"), len(ids))
+            for c in doc["cards"]]
+
+
+def test_merge_k_matches_the_references(tmp_path, capsys):
+    """``--merge-k``: the result line's keys and ``merged_k`` are the
+    reference's, and the exported cards fall into the same merged groups
+    (the k-means++ draws differ, so the groups are compared as a partition,
+    not by number)."""
+    npy = str(tmp_path / "x.npy")
+    np.save(npy, _separated(33, 1500, 6, 6, std=0.2))
+    docs = {}
+    lines = {}
+    for side in SIDES:
+        out = str(tmp_path / f"{side}.json")
+        rc, stdout, err = _run(side, capsys, [
+            "train", "--input", npy, "--k", "6", "--merge-k", "3",
+            "--max-cards", "400", "--out", out])
+        assert rc in (0, None), err
+        lines[side] = json.loads(stdout.splitlines()[0])
+        docs[side] = json.load(open(out, encoding="utf-8"))
+    assert list(lines["port"]) == list(lines["ref"])
+    assert lines["port"]["merged_k"] == lines["ref"]["merged_k"] == 3
+    np.testing.assert_allclose(lines["port"]["inertia"],
+                               lines["ref"]["inertia"], rtol=INERTIA_RTOL)
+    assert _partition(docs["port"]) == _partition(docs["ref"])
+    assert len(set(_partition(docs["port"]))) == 3

@@ -1067,3 +1067,44 @@ def test_nccl_mesh_of_one_matches_fit_lloyd(card, update):
     _close(got.centroids, want.centroids)
     _close(got.inertia, want.inertia)
     _close(got.counts, want.counts)
+
+
+def test_row_block_owns_its_rows_on_the_card(card):
+    """A rank's block of a card tensor is a copy of its rows, not a view
+    that keeps all of x alive on the card: its storage is n_loc rows."""
+    from kmeans_tpu_torch.parallel.engine import _row_block
+
+    x = torch.randn(40, 3, device=card)
+    view = torch.randn(80, 3, device=card)[:40]
+    for xin in (x, view):
+        for rank in range(4):
+            block = _row_block(xin, 40, 11, rank, card)
+            assert block.untyped_storage().nbytes() == 11 * 3 * 4
+            rows = xin[11 * rank:11 * rank + 11]
+            assert torch.equal(block[:rows.shape[0]], rows)
+
+
+@pytest.mark.parametrize("k_tile", [None, 128])
+@pytest.mark.parametrize("x_dtype,cd", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)])
+def test_tp_hooks_match_plain(card, x_dtype, cd, k_tile):
+    """The TP body's hooks: K1 (or K5) in raw-score mode with the last
+    columns masked by ``valid_cols``, and K3 (or K6) with given scores and
+    relative labels, some outside the slice, against the plain versions."""
+    x, c, w, _ = _blobs(11, 3001, 256, 300, card)
+    x = x.to(x_dtype)
+    valid = torch.arange(300, device=card) < 297
+    kw = dict(valid_cols=valid, with_update=False, raw_scores=True,
+              compute_dtype=cd, k_tile=k_tile)
+    lab, raw, _, _, _ = K.lloyd_pass_cuda(x, c, **kw)
+    plab, praw, _, _, _ = K.lloyd_pass_plain(x, c, **kw)
+    torch.testing.assert_close(lab, plab, rtol=0, atol=0)
+    assert int(lab.max()) < 297
+    _close_scores(raw, praw)
+    rel = (lab - 100).to(torch.int32)         # a slice of [100, 200)
+    fkw = dict(scores=raw, weights=w, compute_dtype=cd, k_tile=k_tile)
+    got = K.accumulate_cuda(x, rel, 100, **fkw)
+    want = K.accumulate_plain(x, rel, 100, **fkw)
+    _close(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    _close_scores(got[2], want[2])

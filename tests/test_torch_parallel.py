@@ -144,13 +144,16 @@ def _cases():
         x=XF, k=4, init=CF, max_iter=MAX_ITER, tol=1e-10,
         config=dict(k=4, update="auto", empty="farthest"))))
     # Refusals (raised on every rank before the first collective).
-    for arg in ("model_axis", "feature_axis", "ckpt_dir", "resume"):
-        cases.append((f"refuse {arg}", "fit", dict(
-            x=X, init=C0, k=5, **{arg: "model" if "axis" in arg else
-                                  ("ck" if arg == "ckpt_dir" else True)})))
+    # Model and feature axes of one rank: the sharded body on a DP mesh.
+    cases.append(("model_axis of 1", "fit", dict(
+        x=X, init=C0, model_axis="model", **_fit_kw(5))))
+    cases.append(("feature_axis of 1", "fit", dict(
+        x=X, init=C0, feature_axis="feature", mesh_axes=(
+            "data", "model", "feature"), **_fit_kw(5))))
     cases.append(("refuse sphere", "fit",
                   dict(x=X, init=C0, k=5, center_update="sphere")))
-    cases.append(("refuse model mesh", "mesh", dict(shape=(1, 2))))
+    cases.append(("model mesh", "mesh", dict(shape=(1, 2))))
+    cases.append(("mesh freed", "mesh_freed", {}))
     cases.append(("refuse big mesh", "mesh", dict(shape=(8, 1))))
     cases.append(("guard hamerly farthest", "fit", dict(
         x=X, init=C0, k=5, config=dict(k=5, update="hamerly",
@@ -161,6 +164,8 @@ def _cases():
     cases.append(("guard init shape", "fit", dict(x=X, init=C0[:3], k=5)))
     cases.append(("guard weights shape", "fit",
                   dict(x=X, init=C0, k=5, weights=W_FRAC[:10])))
+    cases.append(("guard resume without dir", "fit",
+                  dict(x=X, init=C0, k=5, resume=True)))
     return cases
 
 
@@ -472,13 +477,51 @@ def test_runner_on_a_mesh_matches_the_dense_fit(worlds, dp):
 
 
 @pytest.mark.parametrize("dp", DPS)
-@pytest.mark.parametrize("case,item", [
-    ("refuse model_axis", "A4b"), ("refuse feature_axis", "A4b"),
-    ("refuse ckpt_dir", "A4b"), ("refuse resume", "A4b"),
-    ("refuse sphere", "A9"), ("refuse model mesh", "A4b")])
+@pytest.mark.parametrize("case,item", [("refuse sphere", "A9")])
 def test_unported_arguments_name_their_item(worlds, dp, case, item):
     err = worlds[dp][case]["error"]
     assert err.startswith("ValueError") and f"ROADMAP {item}" in err
+
+
+@pytest.mark.parametrize("dp", DPS)
+@pytest.mark.parametrize("case", ["model_axis of 1", "feature_axis of 1"])
+def test_one_rank_model_and_feature_axes_are_data_parallel(worlds, ref_meshes,
+                                                           dp, case):
+    """A model or feature axis of one rank runs the sharded body with
+    nothing to resolve across slices: the reference's dense DP fit."""
+    want = _ref_fit(ref_meshes[dp], X, C0, 5, update="matmul")
+    _assert_state(worlds[dp][case], want)
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_mesh_with_a_model_axis(worlds, dp):
+    """A (1, 2) mesh of the world: its shape and this rank's place on
+    it (the world of 4 has too many ranks for it)."""
+    got = worlds[dp]["model mesh"]
+    if dp == 2:
+        assert got == {"shape": (1, 2), "rank": 0, "size": 2}
+    else:
+        assert got["error"] == ("ValueError: mesh shape (1, 2) needs 2 "
+                                "processes, the process group has 4")
+
+
+def test_mesh_of_one_runs_its_collectives():
+    """A mesh of one rank runs every collective in its group (only a
+    view without a group, one rank of a larger mesh, skips them): each
+    sweep's merge and the final pass's are issued, as an NCCL world of one
+    on a card issues them."""
+    got = run_world(1, [("stats", "stats", dict(x=X, k=5, init=C0,
+                                                sweeps=3))])["stats"]
+    assert got["all_reduce"][0] >= 3 + 1, got
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_a_mesh_goes_with_its_last_reference(worlds, dp):
+    """No mesh or view refers to itself, so its process group goes when
+    the caller drops it, not at the interpreter's teardown, where a live
+    group can abort the exit ("terminate called without an active
+    exception")."""
+    assert worlds[dp]["mesh freed"] is True
 
 
 @pytest.mark.parametrize("dp", DPS)
@@ -496,6 +539,7 @@ def test_mesh_needs_its_devices(worlds, dp):
         update="delta", compute_dtype="bfloat16"))),
     ("guard init shape", dict(init=C0[:3])),
     ("guard weights shape", dict(weights=W_FRAC[:10])),
+    ("guard resume without dir", dict(resume=True)),
 ])
 def test_guards_print_the_reference_line(worlds, ref_meshes, dp, case, kw):
     kw = dict(kw)
@@ -540,6 +584,7 @@ def test_engine_families_on_the_registry():
 
 def test_package_surface():
     for name in ("fit_lloyd_sharded", "fit_minibatch_sharded",
+                 "fit_lloyd_accelerated_sharded", "fit_trimmed_sharded",
                  "sharded_assign", "kmeans_parallel_sharded", "make_mesh",
                  "cpu_mesh", "mesh_from_config", "ensure_initialized",
                  "process_info"):

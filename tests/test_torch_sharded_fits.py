@@ -1,0 +1,420 @@
+"""The port's sharded accelerated, trimmed and streamed fits against the JAX
+package's, on the CPU, and the placement that keeps each rank to its rows.
+
+One gloo world of four CPU processes (``tests/torch_mesh_worker.py``) runs
+every case once (dp 4: every problem's rows pad, and the trimmed budget
+exceeds a rank's rows); the reference runs on the conftest's virtual CPU
+mesh of the same dp, from the same numpy inputs and an explicit c0.  Labels,
+outlier masks and iteration counts must be equal (the data is tie-free
+blobs, or ties exactly where a test pins the lowest-index rule); centroids,
+counts and inertia agree to RTOL / ATOL (1e-5), the two packages summing
+the same f32 terms in other orders.
+"""
+
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from torch_mesh_worker import run_world  # noqa: E402
+
+from kmeans_tpu.config import KMeansConfig as RefConfig  # noqa: E402
+from kmeans_tpu.data import make_blobs as ref_make_blobs  # noqa: E402
+from kmeans_tpu.models.streaming import \
+    fit_minibatch_stream as ref_fit_stream  # noqa: E402
+from kmeans_tpu.parallel import engine as ref_engine  # noqa: E402
+from kmeans_tpu.parallel import make_mesh as ref_make_mesh  # noqa: E402
+import kmeans_tpu_torch as kt  # noqa: E402
+from kmeans_tpu_torch.parallel import engine as port_engine  # noqa: E402
+
+RTOL = 1e-5
+ATOL = 1e-5
+DPS = (4,)
+MAX_ITER = 25
+
+
+def _blobs(seed, n, d, k, std=0.5, spread=3.0):
+    rng = np.random.default_rng(seed)
+    centres = (rng.normal(size=(k, d)) * spread).astype(np.float32)
+    lab = rng.integers(0, k, size=n)
+    return (centres[lab] + std * rng.normal(size=(n, d))).astype(np.float32)
+
+
+# n = 1001 is uneven for dp 4 (the padding rows).
+X = _blobs(0, 1001, 16, 5)
+C0 = X[:5].copy()
+W_FRAC = np.random.default_rng(2).uniform(0.5, 2.0, 1001).astype(np.float32)
+# The reference's trimmed tie case (``tests/test_trimmed.py``, its data):
+# exact duplicate far rows, so the trim threshold has real ties and only
+# the lowest indices may be trimmed.
+XT = np.array(ref_make_blobs(jax.random.key(21), 331, 6, 4,
+                             cluster_std=0.5)[0])
+XT[7] = XT[130] = XT[260] = 300.0
+CT = XT[:4].copy()
+# m = 40 larger than a rank's rows (97 rows: 25 a rank at dp 4), weighted.
+XB = np.random.default_rng(5).normal(size=(97, 4)).astype(np.float32)
+WB = np.random.default_rng(5).uniform(0.5, 1.5, 97).astype(np.float32)
+# Empty slots under trimming: two init centroids on one row.
+XE = _blobs(3, 401, 8, 4)
+CE = np.stack([XE[0], XE[0], XE[1], XE[2]]).astype(np.float32)
+# The streamed fit: 4003 rows, batches of 250 (248 on dp 4: the rounding).
+XS = _blobs(13, 4003, 10, 5, std=0.3)
+CS = XS[:5].copy()
+STREAM_KW = dict(batch_size=250, steps=40, seed=3)
+#: The accelerated cases: name → (accel, beta_max, tol).  At β = 1 the beta
+#: loop's end is decided by a rounding rise of the objective, which two
+#: packages summing in other orders reach at other sweeps
+#: (``tests/test_torch_accel.py``'s cases say why), so β = 1 runs to a
+#: tolerance that stops it first and β = 0.5 (a contraction) to 1e-3, as
+#: there.
+ACCEL = {"beta": ("beta", 1.0, 1e-1), "beta half": ("beta", 0.5, 1e-3),
+         "anderson": ("anderson", 1.0, 1e-3)}
+
+
+@pytest.fixture(scope="module")
+def stream_file(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("stream") / "xs.npy")
+    np.save(path, XS)
+    return path
+
+
+def _cases(stream_path, tmp):
+    cases = []
+    for name, (accel, beta_max, tol) in ACCEL.items():
+        cases.append((f"accel {name}", "accel", dict(
+            x=X, k=5, init=C0, tol=tol, max_iter=MAX_ITER, accel=accel,
+            beta_max=beta_max)))
+    cases.append(("accel weighted", "accel", dict(
+        x=X, k=5, init=C0, tol=1e-3, max_iter=MAX_ITER, weights=W_FRAC,
+        beta_max=0.5, config=dict(k=5, compute_dtype="float32"))))
+    cases.append(("accel seeded", "accel", dict(
+        x=X, k=5, tol=1e-3, max_iter=MAX_ITER,
+        config=dict(k=5, seed=4, accel="anderson"))))
+    for name, cfg in (("nested", dict(schedule="nested")),
+                      ("farthest", dict(empty="farthest")),
+                      ("accel", dict())):
+        cases.append((f"accel guard {name}", "accel", dict(
+            x=X, k=5, init=C0, config=dict(k=5, **cfg),
+            **({"accel": "momentum"} if name == "accel" else {}))))
+    tkw = dict(tol=1e-10, config=dict(k=4, init="given", chunk_size=64))
+    cases.append(("trimmed ties", "trimmed", dict(
+        x=XT, k=4, n_trim=2, init=CT, max_iter=MAX_ITER, **tkw)))
+    cases.append(("trimmed big m", "trimmed", dict(
+        x=XB, k=3, n_trim=40, init=XB[:3].copy(), weights=WB, max_iter=15,
+        tol=1e-10, config=dict(k=3, init="given", chunk_size=32))))
+    cases.append(("trimmed zero", "trimmed", dict(
+        x=XB, k=3, n_trim=0, init=XB[:3].copy(), max_iter=10, tol=1e-10,
+        config=dict(k=3, init="given", chunk_size=32))))
+    cases.append(("trimmed farthest", "trimmed", dict(
+        x=XE, k=4, trim_fraction=0.05, init=CE, max_iter=MAX_ITER,
+        tol=1e-10, config=dict(k=4, empty="farthest"))))
+    cases.append(("stream", "stream", dict(
+        path=stream_path, k=5, init=CS, **STREAM_KW)))
+    ck = os.path.join(tmp, "stream-ck")
+    cases.append(("stream ckpt", "stream", dict(
+        path=stream_path, k=5, init=CS, checkpoint_path=ck,
+        checkpoint_every=10, **STREAM_KW)))
+    # SIGTERM on rank 0 alone, at its 12th batch read: every rank stops
+    # at one step, and the resumed run is the uninterrupted one.
+    cases.append(("stream preempted", "stream", dict(
+        path=stream_path, k=5, init=CS, checkpoint_path=ck + "-cut",
+        checkpoint_every=10, fault="stream.read:sigterm@12", fault_rank=0,
+        **STREAM_KW)))
+    cases.append(("stream resumed", "stream", dict(
+        path=stream_path, k=5, checkpoint_path=ck + "-cut",
+        checkpoint_every=10, resume=True, **STREAM_KW)))
+    cases.append(("block storage", "block_storage", dict(x=X)))
+    return cases
+
+
+@pytest.fixture(scope="module")
+def worlds(stream_file, tmp_path_factory):
+    out = {}
+    for dp in DPS:
+        tmp = str(tmp_path_factory.mktemp(f"dp{dp}"))
+        out[dp] = run_world(dp, _cases(stream_file, tmp))
+        out[dp]["tmp"] = tmp
+    return out
+
+
+@pytest.fixture(scope="module")
+def ref_meshes(cpu_devices):
+    return {dp: ref_make_mesh((dp, 1), ("data", "model"),
+                              devices=cpu_devices[:dp]) for dp in (2, 4)}
+
+
+def _ok(res):
+    assert "error" not in res, res["error"]
+    return res
+
+
+def _assert_state(got, want, labels=True):
+    _ok(got)
+    if labels:
+        np.testing.assert_array_equal(got["labels"],
+                                      np.asarray(want.labels))
+    np.testing.assert_allclose(got["centroids"], np.asarray(want.centroids),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got["counts"], np.asarray(want.counts),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got["inertia"], float(want.inertia),
+                               rtol=RTOL)
+    assert got["n_iter"] == int(want.n_iter)
+    assert got["converged"] == bool(want.converged)
+
+
+# ---------------------------------------------------------------------------
+# (a) the accelerated fits
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dp", DPS)
+@pytest.mark.parametrize("name", list(ACCEL))
+def test_accelerated_matches_the_reference(worlds, ref_meshes, dp, name):
+    """β and Anderson on the mesh against the reference's sharded loop of
+    the same dp: the same iterations, accept / reject path and result."""
+    accel, beta_max, tol = ACCEL[name]
+    want = ref_engine.fit_lloyd_accelerated_sharded(
+        X, 5, mesh=ref_meshes[dp], init=C0, tol=tol, max_iter=MAX_ITER,
+        accel=accel, beta_max=beta_max)
+    _assert_state(worlds[dp][f"accel {name}"], want)
+
+
+@pytest.mark.parametrize("dp", DPS)
+@pytest.mark.parametrize("name", list(ACCEL))
+def test_accelerated_is_the_single_device_fit(worlds, dp, name):
+    """The mesh runs the single-device loop's own iterations on merged
+    sweeps: the port's ``fit_lloyd_accelerated`` (dense sweeps) from the
+    same c0 gives the same labels and iterations."""
+    accel, beta_max, tol = ACCEL[name]
+    got = _ok(worlds[dp][f"accel {name}"])
+    want = kt.fit_lloyd_accelerated(
+        X, 5, init=C0, tol=tol, max_iter=MAX_ITER, accel=accel,
+        beta_max=beta_max, device="cpu",
+        config=kt.KMeansConfig(k=5, update="matmul"))
+    np.testing.assert_array_equal(got["labels"], want.labels.numpy())
+    np.testing.assert_allclose(got["centroids"], want.centroids.numpy(),
+                               rtol=RTOL, atol=ATOL)
+    assert got["n_iter"] == int(want.n_iter)
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_accelerated_weighted_and_seeded(worlds, ref_meshes, dp):
+    """Fractional weights in f32 (the dense update demoted to the segment
+    reduction), and k-means++ from ``config.seed``: the single-device
+    port's seeding (a ``torch.Generator``'s draws) gives the same fit."""
+    want = ref_engine.fit_lloyd_accelerated_sharded(
+        X, 5, mesh=ref_meshes[dp], init=C0, tol=1e-3, max_iter=MAX_ITER,
+        weights=W_FRAC, beta_max=0.5,
+        config=RefConfig(k=5, compute_dtype="float32"))
+    _assert_state(worlds[dp]["accel weighted"], want)
+    got = _ok(worlds[dp]["accel seeded"])
+    one = kt.fit_lloyd_accelerated(
+        X, 5, tol=1e-3, max_iter=MAX_ITER, device="cpu",
+        config=kt.KMeansConfig(k=5, seed=4, accel="anderson",
+                               update="matmul"))
+    np.testing.assert_array_equal(got["labels"], one.labels.numpy())
+    assert got["n_iter"] == int(one.n_iter)
+
+
+@pytest.mark.parametrize("dp", DPS)
+@pytest.mark.parametrize("case,kw", [
+    ("nested", dict(config=dict(schedule="nested"))),
+    ("farthest", dict(config=dict(empty="farthest"))),
+    ("accel", dict(accel="momentum"))])
+def test_accelerated_guards_print_the_reference_line(worlds, ref_meshes, dp,
+                                                     case, kw):
+    kw = dict(kw)
+    cfg = RefConfig(k=5, **kw.pop("config", {}))
+    with pytest.raises((ValueError, NotImplementedError)) as e:
+        ref_engine.fit_lloyd_accelerated_sharded(
+            X, 5, mesh=ref_meshes[dp], init=C0, config=cfg, **kw)
+    assert worlds[dp][f"accel guard {case}"]["error"] == \
+        f"{type(e.value).__name__}: {e.value}"
+
+
+# ---------------------------------------------------------------------------
+# (b) the trimmed fit
+# ---------------------------------------------------------------------------
+
+def _assert_trimmed(got, want):
+    _ok(got)
+    np.testing.assert_array_equal(got["outlier_mask"],
+                                  np.asarray(want.outlier_mask))
+    _assert_state(got, want)
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_trimmed_ties_match_the_reference(worlds, ref_meshes, dp):
+    """Three equal far rows and a budget of two: the two lowest global
+    indices are trimmed (rows 7 and 130, on different ranks), as
+    the reference's sharded selection and one device's ``lax.top_k``
+    order them."""
+    cfg = RefConfig(k=4, init="given", chunk_size=64)
+    want = ref_engine.fit_trimmed_sharded(
+        XT, 4, mesh=ref_meshes[dp], n_trim=2, init=CT, tol=1e-10,
+        max_iter=MAX_ITER, config=cfg)
+    got = worlds[dp]["trimmed ties"]
+    _assert_trimmed(got, want)
+    mask = got["outlier_mask"]
+    assert mask[7] and mask[130] and not mask[260]
+    one = kt.fit_trimmed(XT, 4, n_trim=2, init=CT, tol=1e-10,
+                         max_iter=MAX_ITER, device="cpu",
+                         config=kt.KMeansConfig(k=4, init="given",
+                                                chunk_size=64))
+    np.testing.assert_array_equal(mask, one.outlier_mask.numpy())
+    np.testing.assert_array_equal(got["labels"], one.labels.numpy())
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_trimmed_big_m_weights_match_the_reference(worlds, ref_meshes, dp):
+    """m = 40 above a rank's 25 rows: ``m_loc`` is the rank's rows, and
+    the weights ride the correction."""
+    want = ref_engine.fit_trimmed_sharded(
+        XB, 3, mesh=ref_meshes[dp], n_trim=40, init=XB[:3].copy(),
+        weights=WB, tol=1e-10, max_iter=15,
+        config=RefConfig(k=3, init="given", chunk_size=32))
+    _assert_trimmed(worlds[dp]["trimmed big m"], want)
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_trimmed_zero_and_farthest_match_the_reference(worlds, ref_meshes,
+                                                       dp):
+    """``n_trim=0`` is the plain sharded fit with an all-false mask; under
+    ``empty="farthest"`` an empty slot takes the worst inlier."""
+    got = _ok(worlds[dp]["trimmed zero"])
+    want = ref_engine.fit_trimmed_sharded(
+        XB, 3, mesh=ref_meshes[dp], n_trim=0, init=XB[:3].copy(),
+        tol=1e-10, max_iter=10,
+        config=RefConfig(k=3, init="given", chunk_size=32))
+    np.testing.assert_array_equal(got["labels"], np.asarray(want.labels))
+    assert not got["outlier_mask"].any()
+    want = ref_engine.fit_trimmed_sharded(
+        XE, 4, mesh=ref_meshes[dp], trim_fraction=0.05, init=CE, tol=1e-10,
+        max_iter=MAX_ITER, config=RefConfig(k=4, empty="farthest"))
+    got = worlds[dp]["trimmed farthest"]
+    _assert_trimmed(got, want)
+    assert np.all(got["counts"] > 0)
+
+
+# ---------------------------------------------------------------------------
+# (c) the streamed sharded step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dp", DPS)
+def test_stream_matches_the_reference(worlds, ref_meshes, dp, stream_file):
+    """Each rank gathers its contiguous slice of every step's sorted index
+    list; one all-reduce merges the slices' stats: the reference's sharded
+    step on the same batches (250 rows rounded to 248), and its final
+    pass."""
+    want = ref_fit_stream(np.load(stream_file, mmap_mode="r"), 5,
+                          init=jnp.asarray(CS), mesh=ref_meshes[dp],
+                          **STREAM_KW)
+    _assert_state(worlds[dp]["stream"], want)
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_stream_checkpoint_is_the_references(worlds, ref_meshes, dp,
+                                             stream_file):
+    """Rank 0 alone writes the bundle; ``mesh_dp`` records dp, the
+    reference's loader reads it, and a resume on another dp is refused
+    by both packages with the same line."""
+    from kmeans_tpu.utils.checkpoint import load_array_checkpoint
+
+    got = _ok(worlds[dp]["stream ckpt"])
+    _assert_state(got, _as_state(worlds[dp]["stream"]))
+    ck = os.path.join(worlds[dp]["tmp"], "stream-ck")
+    arrays, meta = load_array_checkpoint(ck)
+    assert meta["extra"]["mesh_dp"] == dp and int(arrays["n_iter"]) == 40
+    np.testing.assert_array_equal(arrays["centroids"], got["centroids"])
+    other = 2
+    with pytest.raises(ValueError) as ref_e:
+        ref_fit_stream(np.load(stream_file, mmap_mode="r"), 5,
+                       mesh=ref_meshes[other], checkpoint_path=ck,
+                       resume=True, **STREAM_KW)
+    assert f"({dp})" in str(ref_e.value)
+
+
+def _as_state(res):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(**_ok(res))
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_stream_signal_on_one_rank_stops_all(worlds, dp):
+    """SIGTERM reaches rank 0 alone: its flag rides the next all-reduce,
+    every rank stops at the same step (the world ends; a rank left behind
+    would wait in a collective), rank 0's bundle is at that step, and the
+    resume finishes bit for bit as the uninterrupted fit."""
+    from kmeans_tpu_torch.utils.checkpoint import latest_step
+
+    cut = worlds[dp]["stream preempted"]
+    assert "preempted" in cut, cut
+    step = cut["preempted"]
+    assert 0 < step < STREAM_KW["steps"]
+    ck = os.path.join(worlds[dp]["tmp"], "stream-ck-cut")
+    assert latest_step(ck) is not None
+    whole = _ok(worlds[dp]["stream"])
+    got = _ok(worlds[dp]["stream resumed"])
+    np.testing.assert_array_equal(got["centroids"], whole["centroids"])
+    np.testing.assert_array_equal(got["labels"], whole["labels"])
+    assert got["n_iter"] == STREAM_KW["steps"]
+
+
+@pytest.mark.parametrize("dp", [2, 4])
+def test_stream_rank_slices_are_the_batch(dp, stream_file):
+    """``sample_batches(part=(r, p))``: the p slices of a step, in rank
+    order, are the whole batch."""
+    from kmeans_tpu_torch.data.stream import sample_batches
+
+    data = np.load(stream_file, mmap_mode="r")
+    whole = list(sample_batches(data, 248, 3, seed=3))
+    parts = [list(sample_batches(data, 248, 3, seed=3, part=(r, dp)))
+             for r in range(dp)]
+    for step in range(3):
+        torch.testing.assert_close(
+            torch.cat([p[step] for p in parts]), whole[step], rtol=0,
+            atol=0)
+    with pytest.raises(ValueError, match="part"):
+        next(sample_batches(data, 250, 3, part=(0, 4)))
+
+
+# ---------------------------------------------------------------------------
+# Placement: each rank keeps its own rows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["numpy", "tensor", "view"])
+def test_row_block_owns_its_rows(kind):
+    """A rank's block is a copy of its rows, never a view that keeps all
+    of ``x`` alive: its storage is n_loc rows, for numpy input, a host
+    tensor and a view of a larger tensor on the block's device (on the
+    card, a card tensor: ``tests/test_torch_cuda.py`` holds that case)."""
+    x = np.arange(40 * 3, dtype=np.float32).reshape(40, 3)
+    xin = {"numpy": x, "tensor": torch.from_numpy(x),
+           "view": torch.from_numpy(np.concatenate([x, x]))[:40]}[kind]
+    for rank in range(4):
+        block = port_engine._row_block(xin, 40, 11, rank, "cpu")
+        assert block.untyped_storage().nbytes() == 11 * 3 * 4
+        np.testing.assert_array_equal(block[:min(11, 40 - 11 * rank)],
+                                      x[11 * rank:11 * rank + 11])
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_placed_blocks_own_their_rows(worlds, dp):
+    """The same through ``_place`` on every rank of the world."""
+    for rows_bytes, storage in worlds[dp]["block storage"]:
+        assert storage == rows_bytes
+
+
+def test_package_surface_has_the_new_fits():
+    import kmeans_tpu_torch.parallel as p
+
+    for name in ("fit_lloyd_accelerated_sharded", "fit_trimmed_sharded"):
+        assert hasattr(p, name), name
+    assert port_engine.ENGINE_CKPT_EVERY == ref_engine.ENGINE_CKPT_EVERY

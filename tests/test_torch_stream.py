@@ -496,8 +496,15 @@ def test_resume_refusals_print_the_reference_messages(tmp_path):
     with pytest.raises(ValueError, match="checkpoint centroids"):
         _port_fit(x[:, :8], None, 4, None, None, checkpoint_path=ck,
                   resume=True)
-    with pytest.raises(ValueError, match="sharded engine.*A4"):
-        _port_fit(x, c0, 5, None, None, mesh=object())
+    # A mesh resume of a one-device stream: the reference's mesh_dp line.
+    from types import SimpleNamespace
+
+    mesh2 = SimpleNamespace(axis_sizes={"data": 2}, rank=0,
+                            device=torch.device(CPU))
+    with pytest.raises(ValueError, match=r"resume mesh \(data axis 2\) "
+                       r"contradicts the checkpoint's \(absent\)"):
+        _port_fit(x, None, 5, None, None, checkpoint_path=ck, resume=True,
+                  mesh=mesh2)
     with pytest.raises(ValueError, match="transfer_dtype must be"):
         _port_fit(x, c0, 5, "int8", None)
 
@@ -615,8 +622,9 @@ def test_cli_stream_guard_lines_equal_the_reference(case, tmp_path, npy,
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--model", "gmm"], "A9"), (["--mesh", "2"], "A4"),
-    (["--model", "gmm", "--mesh", "4"], "A4")])
+    (["--model", "gmm"], "A9"),
+    (["--model", "gmm", "--mesh", "2", "--device", "cpu"], "A9"),
+    (["--model", "gmm", "--mesh", "4"], "A9")])
 def test_cli_stream_refusals_name_the_queue_item(extra, item, npy, capsys):
     rc = port_cli.main(["train", "--stream", "--input", npy] + extra)
     err = capsys.readouterr().err.strip().splitlines()

@@ -121,12 +121,128 @@ def op_kmpar(mesh, x, k, seed, **kw):
                                        weights=w_loc, **kw))
 
 
-def op_runner(mesh, x, k, config=None, init=None, **kw):
+def op_runner(mesh, x, k, config=None, init=None, model_axis=None, **kw):
     from kmeans_tpu_torch.models.runner import LloydRunner
 
-    r = LloydRunner(x, k, config=_cfg(config), mesh=mesh, device="cpu")
+    r = LloydRunner(x, k, config=_cfg(config), mesh=mesh,
+                    model_axis=model_axis, device="cpu")
     r.init(init)
     return _state(r.run(**kw))
+
+
+def op_accel(mesh, x, k, config=None, **kw):
+    from kmeans_tpu_torch.parallel import fit_lloyd_accelerated_sharded
+
+    return _state(fit_lloyd_accelerated_sharded(x, k, mesh=mesh,
+                                                config=_cfg(config), **kw))
+
+
+def op_trimmed(mesh, x, k, config=None, **kw):
+    from kmeans_tpu_torch.parallel import fit_trimmed_sharded
+
+    st = fit_trimmed_sharded(x, k, mesh=mesh, config=_cfg(config), **kw)
+    return dict(_state(st), outlier_mask=_np(st.outlier_mask))
+
+
+def _faults(mesh, fault, fault_rank):
+    """``fault`` (a fault spec) installed on every rank, or on
+    ``fault_rank`` alone."""
+    import contextlib
+
+    from kmeans_tpu_torch.utils import faults
+
+    if fault is None or fault_rank not in (None, mesh.rank):
+        return contextlib.nullcontext()
+    return faults.active(fault)
+
+
+def op_stream(mesh, path, k, config=None, fault=None, fault_rank=None,
+              **kw):
+    """``fit_minibatch_stream(mesh=)`` over the ``.npy`` at ``path``,
+    memory-mapped, with ``fault`` (:func:`_faults`); a :class:`Preempted`
+    is its result."""
+    import numpy as np
+
+    from kmeans_tpu_torch.models.streaming import fit_minibatch_stream
+    from kmeans_tpu_torch.utils.preempt import Preempted
+
+    data = np.load(path, mmap_mode="r")
+    try:
+        with _faults(mesh, fault, fault_rank):
+            return _state(fit_minibatch_stream(data, k, mesh=mesh,
+                                               config=_cfg(config), **kw))
+    except Preempted as e:
+        return {"preempted": e.step}
+
+
+def op_elastic(mesh, x, k, config=None, fault=None, fault_rank=None, **kw):
+    """``fit_lloyd_sharded`` with ``fault`` (:func:`_faults`); a
+    :class:`Preempted` is its result.  Adds the resume outcomes this call
+    counted."""
+    from kmeans_tpu_torch.parallel import fit_lloyd_sharded
+    from kmeans_tpu_torch.parallel.engine import _ENGINE_RESUMES_TOTAL
+    from kmeans_tpu_torch.utils.preempt import Preempted
+
+    outcomes = ("ok", "finished", "refused", "error")
+    before = {o: _ENGINE_RESUMES_TOTAL.value(outcome=o) for o in outcomes}
+    try:
+        with _faults(mesh, fault, fault_rank):
+            out = _state(fit_lloyd_sharded(x, k, mesh=mesh,
+                                           config=_cfg(config), **kw))
+    except Preempted as e:
+        out = {"preempted": e.step, "hint": e.resume_hint}
+    except (ValueError, FileNotFoundError) as e:
+        out = {"error": f"{type(e).__name__}: {e}"}
+    out["resumes"] = {o: _ENGINE_RESUMES_TOTAL.value(outcome=o) - before[o]
+                      for o in outcomes}
+    return out
+
+
+def op_block_storage(mesh, x):
+    """Bytes of storage behind this rank's placed block, for numpy, host
+    tensor and host-tensor-view inputs: ``[(rows, storage bytes)]``."""
+    import numpy as np
+    import torch
+
+    from kmeans_tpu_torch.parallel.engine import _place
+
+    out = []
+    big = torch.from_numpy(np.concatenate([x, x]))
+    for xin in (x, torch.from_numpy(x), big[:x.shape[0]]):
+        x_loc = _place(xin, mesh, "data")[0]
+        out.append((x_loc.shape[0] * x_loc.shape[1] * x_loc.element_size(),
+                    x_loc.untyped_storage().nbytes()))
+    return out
+
+
+def op_tp_tiled(mesh, x, c):
+    """One TP sweep of ``c`` over the mesh's model ranks, untiled and with
+    ``k_tile=128`` (the plain K5 / K6 route): labels, counts, the updated
+    global centroids and the inertia of each."""
+    import torch
+
+    from kmeans_tpu_torch.parallel.engine import (_Axes, _gather_rows,
+                                                  _global_centroids, _place,
+                                                  _sharded_pass)
+
+    ax = _Axes(mesh, "data", "model", None)
+    x_loc, w_loc, _, n = _place(x, mesh, "data")
+    k, d = c.shape
+    k_loc = -(-k // ax.mp)
+    c_full = torch.zeros(k_loc * ax.mp, d)
+    c_full[:k] = torch.from_numpy(c)
+    c_loc = c_full[ax.model.rank * k_loc:(ax.model.rank + 1) * k_loc]
+    out = {"labels": [], "counts": [], "centroids": [], "inertia": []}
+    for k_tile in (None, 128):
+        new_c, _, inertia, counts, labels = _sharded_pass(
+            ax, x_loc, w_loc, c_loc, k_real=k, route="plain", k_tile=k_tile,
+            kw=dict(chunk_size=4096, compute_dtype=None, update="matmul",
+                    weights_are_binary=True, backend="plain"))
+        out["labels"].append(_np(_gather_rows(ax.rows, labels, n)))
+        out["counts"].append(_np(ax.model.all_gather(counts)[:k]))
+        out["centroids"].append(_np(_global_centroids(ax, new_c, k, d)))
+        out["inertia"].append(float(inertia))
+    return out
 
 
 def op_mesh(mesh, shape, axis_names=("data", "model")):
@@ -146,6 +262,38 @@ def op_split(mesh, x, k, init, comm, sweeps):
                           tol=-1.0, config=_cfg(dict(k=k, comm=comm)))
     assert mesh.split is None
     return sp.summary()
+
+
+def op_mesh_freed(mesh):
+    """Whether a mesh (and a view of it) goes with its last reference,
+    the cyclic collector off: a mesh that outlives its process group to
+    the interpreter's teardown can abort the process's exit."""
+    import gc
+    import weakref
+
+    from kmeans_tpu_torch.parallel import cpu_mesh
+
+    gc.disable()
+    try:
+        m = cpu_mesh(mesh.shape, mesh.axis_names)
+        view = m.sub(("data",))
+        ref = weakref.ref(m)
+        del m, view
+        return ref() is None
+    finally:
+        gc.enable()
+
+
+def op_stats(mesh, x, k, init, sweeps, **kw):
+    """The mesh's collective counts over one fit: ``{op: [calls,
+    bytes]}``."""
+    from kmeans_tpu_torch.parallel import fit_lloyd_sharded
+
+    mesh.reset_stats()
+    fit_lloyd_sharded(x, k, mesh=mesh, init=init, max_iter=sweeps,
+                      tol=-1.0, config=_cfg(dict(k=k, update="matmul")),
+                      **kw)
+    return {op: list(v) for op, v in mesh.stats.items()}
 
 
 def op_winners(mesh, x, min_d2, k):
@@ -175,10 +323,23 @@ def main(cases_path, out_path):
         cases = pickle.load(f)
     world = int(os.environ["WORLD_SIZE"])
     mesh = cpu_mesh((world, 1))
+    # A case may ask for another mesh of the world: ``mesh_shape`` and
+    # ``mesh_axes`` (every rank makes it, in case order).
+    meshes = {}
     results = {}
     for name, op, kw in cases:
+        shape = kw.pop("mesh_shape", None)
+        axes = tuple(kw.pop("mesh_axes", ("data", "model")))
+        if shape is None and len(axes) != 2:
+            shape = (world,) + (1,) * (len(axes) - 1)
+        m = mesh
+        if shape is not None:
+            key = (tuple(shape), axes)
+            if key not in meshes:
+                meshes[key] = cpu_mesh(tuple(shape), axes)
+            m = meshes[key]
         try:
-            results[name] = globals()[f"op_{op}"](mesh, **kw)
+            results[name] = globals()[f"op_{op}"](m, **kw)
         except Exception as e:  # allow-silent-except: the case's error is its result, reported to the test
             results[name] = {"error": f"{type(e).__name__}: {e}"}
     if mesh.rank == 0:
