@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 from the root of a checkout.  It builds the port's CUDA kernels from
-``kmeans_tpu_torch/csrc/lloyd.cu`` and runs seventeen phases, exiting
+``kmeans_tpu_torch/csrc/lloyd.cu`` and runs eighteen phases, exiting
 non-zero if any fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -194,7 +194,7 @@ non-zero if any fails:
    and assign clients attached (``stop()`` well under ``fleet_drain_s``,
    no accepted request unanswered); the board server's K5 launches (the
    stop drill's model) and K6 launches (the train op's trimmed fits at d =
-   2) are printed and on no row of phase 17;
+   2) are printed and on no row of phase 18;
 14. out-of-core streaming and continuous clustering, each run's launch
    counts set to 0 before it and read after: imagenet-stream (the
    headline's 1.28M x 2048 f32 rows in host memory, ``fit_minibatch_stream``
@@ -275,15 +275,49 @@ non-zero if any fails:
    ties); and train-mesh (``cli train --mesh 2 --device cpu`` for
    accelerated, trimmed, ``--stream`` and ``--ckpt-dir`` with a cut and a
    resume, against ``--mesh 1`` and the uninterrupted run);
-17. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+17. the Lloyd-based families and model selection, each run's launch
+   counts set to 0 before it and read after: glove-spherical (``glove``'s
+   shape, n = 400,000, d = 300, k = 1000, SPHERE_SWEEPS sweeps from a
+   fixed unit-norm init, in f32 on K1's f32 route and in bf16 on
+   ``score_block``: K1 alone, SPHERE_SWEEPS + 1 launches, each held to the
+   same fit on ``backend="plain"`` on the card: labels but ties,
+   centroids within SUMS_RTOL, every norm within 1e-6 of 1; ms a pass),
+   glove-bisecting (f32, k = BISECT_K: seconds, splits, launches, counts
+   summing to n, the inertia an f64 recomputation's within
+   FIT_INERTIA_RTOL; at BISECT_HOLD_K, on rows of as many blobs, the
+   plain backend's split sequence and inertia, the card's busy share
+   under ``torch.profiler``; a bf16
+   run, whose inner fits the weights veto sends to the plain route, with
+   ``fit_plan``'s "why" and only the assigns' K1 launched),
+   spherical-dp1-nccl (``fit_spherical_sharded`` on an NCCL mesh of one
+   against ``fit_spherical``: bit for bit, an all-reduce a sweep, the
+   time ratio), imagenet-spherical (the headline's bf16 data on the
+   Hopper core, SPHERE_SWEEPS sweeps: the card's peak memory of the fit
+   and of the chunked normalization beside the whole-array f32 one, whose
+   bits it keeps), glove-xmeans and glove-gmeans (f32, AUTOK_BLOBS
+   generating blobs, k_max AUTOK_K_MAX: the discovered k, rounds, seconds
+   and launches, each held to the plain backend on the first
+   AUTOK_HOLD_ROWS rows: the same k, inertia within FIT_INERTIA_RTOL),
+   mnist-sweep (``cli sweep`` on an mnist-shaped ``.npy`` in child
+   processes, ``chip_smoke.py --sweep-cli SPEC``, by silhouette and by
+   the gap statistic: seconds a row, each silhouette row's scores
+   recomputed in f64 on the card, both suggesting 10), then a gloo world
+   of two ranks sharing the card (``chip_smoke.py --families-rank SPEC``:
+   spherical on FP, mesh (1, 1, 2), and bisecting on DP at k =
+   FAM_GLOO_BISECT_K on rows of as many blobs, each held to one card's
+   fit) beside train-mesh
+   (``cli train --mesh 2 --device cpu`` for spherical, bisecting, xmeans
+   and gmeans against ``--mesh 1``);
+18. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.  A kernel has a row for each compute dtype its main-path runs
    score in: bf16 (phases 4, 6, 9, 12's in-process and bf16 runs, 13's
-   in-process trimmed runs and 14's bf16 stream) and f32 (the route's K1,
-   K2 and K4 from imagenet-delta-f32, phase 12's f32 CLI runs, phase 13's
-   trimmed CLI run, K1 from phase 9's cifar10 runs and phase 14's f32 runs,
-   with the board server's f32 K1 and K2 launches on ``score_block`` at d
-   <= 80; K5 from each served model's runs), each row's launches counted
-   in its own runs and its times taken at its own shape.
+   in-process trimmed runs, 14's bf16 stream and 17's bf16 runs) and f32
+   (the route's K1, K2 and K4 from imagenet-delta-f32, phase 12's f32 CLI
+   runs, phase 13's trimmed CLI run, K1 from phase 9's cifar10 runs,
+   phase 14's f32 runs and phase 17's f32 runs, with the board server's
+   f32 K1 and K2 launches on ``score_block`` at d <= 80; K5 from each
+   served model's runs), each row's launches counted in its own runs and
+   its times taken at its own shape.
 
 ``python3 chip_smoke.py --fold-split`` runs phases 1 and 7 only (the
 kernels build at their first call), so it also splits an older tree's K6.
@@ -297,7 +331,7 @@ and 10, and 1 and 11, on ``make_blobs`` centres; ``--runner`` runs phases
 1, 2 and 12 (it makes phase 6's fit itself); ``--board`` runs phases 1
 and 13 (the kernels build at their first call); ``--stream`` runs phases
 1, 2 and 14; ``--mesh`` runs phases 1, 2 and 15; ``--sharded`` runs
-phases 1, 2 and 16.
+phases 1, 2 and 16; ``--families`` runs phases 1, 2 and 17.
 
 The bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of memory, 989
 TFLOP/s bf16 on the tensor cores and 67 TFLOP/s f32 outside them; an f32
@@ -8653,6 +8687,941 @@ def phase_sharded(card):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the Lloyd-based families and model selection
+# ---------------------------------------------------------------------------
+
+#: BASELINE.json's glove config (the spherical family's), and mnist's.
+GLOVE = dict(n=400_000, d=300, k=1000)
+MNIST = dict(n=60_000, d=784, k=10)
+#: Sweeps of each spherical fit (tol -1: every one runs): 21 K1 passes.
+SPHERE_SWEEPS = 20
+#: glove-bisecting's k and the k of its hold against the plain backend.
+BISECT_K = 1000
+BISECT_HOLD_K = 32
+#: glove-xmeans / -gmeans: the generating blobs, k_max, and the rows their
+#: hold against the plain backend runs on.  k_max is cut from 1000 to fit
+#: the phase's time: at 1000 x-means took 56.9 s to find the 256 blobs and
+#: g-means ran to k_max in 27.5 s (it splits blobs of ≈ 5 rows a
+#: dimension: the 2-means axis makes their projection non-normal), and
+#: their holds 114 s more (NVIDIA H100 80GB HBM3, 700.00 W).
+AUTOK_BLOBS = 256
+AUTOK_K_MAX = 64
+AUTOK_HOLD_ROWS = 50_000
+#: mnist-sweep: ``cli sweep``'s range and seeding, and the blobs' spread.
+#: k-means++ misses one of ten blobs in d = 784 about one late draw in
+#: five at unit spread (a blob's own D² is 2·d·σ², ≈ 1568, against ≈ 5e4
+#: between blobs), and a sweep then suggests 9; k-means|| oversamples.
+SWEEP_RANGE = ["--k-min", "2", "--k-max", "16", "--init", "k-means||"]
+SWEEP_STD = 0.5
+#: Tolerances of the sweep rows' recomputation in f64: the port scores in
+#: f32 from the expanded product ‖x‖² − 2x·y + ‖y‖², which rounds at
+#: ‖x‖²'s scale (≈ 2.6e4 at mnist's width) against distances of ≈ 20.
+#: Davies–Bouldin divides by centroid distances taken the same way (the
+#: reference's f32 Gram): two centroids of one blob (k above 10) are close,
+#: so its bound adds 4·2⁻²⁴·(‖cᵢ‖² + ‖cⱼ‖²) / ‖cᵢ − cⱼ‖², the largest over
+#: the row's centroid pairs.
+SWEEP_SIL_ATOL = 1e-4
+SWEEP_DISPERSION_RTOL = 1e-4
+#: The gap statistic overshoots the 10 blobs at this width: splitting one
+#: Gaussian blob of 6,000 rows in 784 dims cuts its SSE by ≈ (2/π)·1.85/784
+#: (the sample covariance's top eigenvalue, inflated by d/n), 1.5e-4 of
+#: W at k = 10, more than a split of the uniform reference set cuts its W
+#: (≈ (3/4)/784/10 = 9.6e-5), so Gap(11) > Gap(10) + s on Gaussian blobs
+#: (the card's run suggested 11).  It must not undershoot.
+SWEEP_GAP_OVER = 2
+#: The gloo world's bisecting k (31 splits, each an engine fit and assign).
+FAM_GLOO_BISECT_K = 32
+#: train-mesh: ``cli train`` at a small shape, ``--mesh 2 --device cpu``.
+FAMILIES_CLI_SMALL = ["--n", "4000", "--d", "16", "--seed", "3",
+                      "--device", "cpu"]
+
+
+def _glove(seed, k_gen):
+    """glove-shaped f32 blobs on the card and their generating centres."""
+    import kmeans_tpu_torch as kt
+
+    x, _, centres = kt.make_blobs(seed, GLOVE["n"], GLOVE["d"], k_gen)
+    return x, centres
+
+
+def _sphere_c0(centres, seed):
+    """The fixed unit-norm init: each generating centre moved by a tenth of
+    a unit normal, normalized (near the blobs, so no label of the fits is
+    left to a tie between the devices' summation orders)."""
+    import torch
+
+    from kmeans_tpu_torch.models.spherical import normalize_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return normalize_rows(centres + 0.1 * torch.randn(
+        centres.shape, generator=gen, device="cuda"))
+
+
+def _unit_norms(name, c):
+    err = float((c.double().norm(dim=1) - 1.0).abs().max())
+    _check(err <= 1e-6, f"{name}: a centroid's norm is off 1 by {err}")
+    return err
+
+
+def _timed_fit(fn):
+    """``(state, CUDA-event ms, launches)`` of one fit, the counts set to 0
+    just before and read just after."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    _sync()
+    K.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    st = fn()
+    end.record()
+    end.synchronize()
+    return st, start.elapsed_time(end), K.launch_counts()
+
+
+def _only(name, counts, want):
+    """The run launched exactly ``want`` (name -> count) and nothing
+    else."""
+    got = {k: v for k, v in counts.items() if v}
+    _check(got == want, f"{name}: launches {got}, wanted {want}")
+
+
+def _glove_spherical(card, x, centres, totals):
+    """glove-spherical in f32 (K1's f32 route) and bf16 (``score_block``):
+    SPHERE_SWEEPS sweeps from a fixed unit-norm init, held to the same fit
+    on ``backend="plain"`` on the card."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.spherical import normalize_rows
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    k = GLOVE["k"]
+    c0 = _sphere_c0(centres, 21)
+    for cd, compute, core in (("float32", "f32", "wgmma"),
+                              ("bfloat16", "bf16", "score_block")):
+        dt = getattr(torch, cd)
+        norm_ms, xn = _time_auto(lambda: normalize_rows(x, dtype=dt))
+        # One pass first, outside the counts: the route's first call.
+        kt.lloyd_pass(xn, c0, compute_dtype=dt, device="cuda")
+        got_core = (K.scoring_core(xn, dt, torch.empty(3, GLOVE["d"],
+                                                       device="cuda"))
+                    if cd == "float32" else K.scoring_core(xn, dt))
+        _check(got_core == core, f"glove-spherical {cd}: K1 on {got_core}")
+        fits = {}
+        for backend in ("auto", "plain"):
+            cfg = kt.KMeansConfig(k=k, compute_dtype=cd, backend=backend)
+            fits[backend] = _timed_fit(lambda: kt.fit_spherical(
+                x, k, init=c0, config=cfg, tol=-1.0,
+                max_iter=SPHERE_SWEEPS))
+        (st, ms, counts), (pst, pms, pcounts) = fits["auto"], fits["plain"]
+        _only(f"glove-spherical {cd}", counts,
+              {"lloyd_pass_cuda": SPHERE_SWEEPS + 1})
+        _only(f"glove-spherical {cd} plain", pcounts, {})
+        _add_counts(totals[compute], counts)
+        _check(int(st.n_iter) == int(pst.n_iter) == SPHERE_SWEEPS,
+               f"glove-spherical {cd}: sweeps {int(st.n_iter)}, plain "
+               f"{int(pst.n_iter)}")
+        moved, _ = _check_labels_pair(f"glove-spherical {cd}", xn,
+                                      st.centroids, st.labels,
+                                      pst.centroids, pst.labels, dt)
+        err = _close(f"glove-spherical {cd} centroids", st.centroids,
+                     pst.centroids)
+        norm_err = _unit_norms(f"glove-spherical {cd}", st.centroids)
+        if cd == "float32":
+            _silhouette_forms(card, xn, st.labels, k)
+        del xn
+        passes = SPHERE_SWEEPS + 1
+        print(f"glove-spherical {cd} ({card}): n={GLOVE['n']} d="
+              f"{GLOVE['d']} k={k}, {SPHERE_SWEEPS} sweeps, K1 on "
+              f"{got_core}: {ms:.3f} ms in all, {(ms - norm_ms) / passes:.3f}"
+              f" ms a pass ({passes} passes) after the {norm_ms:.3f} ms "
+              f"normalization; plain {pms:.3f} ms; launches {counts}; "
+              f"{moved} labels differ from the plain fit (ties), centroids "
+              f"within {err:.3e}, norms within {norm_err:.1e} of 1; inertia "
+              f"{float(st.inertia):.6e} / plain {float(pst.inertia):.6e}")
+
+
+#: sweep_k's silhouette sample and chunk.
+SIL_SAMPLE = 10_000
+SIL_CHUNK = 4096
+
+
+def _silhouette_forms(card, x, labels, k):
+    """sweep_k's silhouette at glove (SIL_SAMPLE rows against every row,
+    k = 1000): the port's scatter of each distance tile into its
+    per-cluster sums (``index_add_``, m·n adds) beside the reference's
+    one-hot product (2·m·n·k flops, IEEE f32), on one sample; the two
+    means agree to the f32 sums' order."""
+    import torch
+
+    from kmeans_tpu_torch import metrics as M
+    from kmeans_tpu_torch.ops.distance import cd_product, sq_norms
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    idx = M.sample_rows(gen, x.shape[0], SIL_SAMPLE, x.device)
+    valid = torch.ones(x.shape[0], dtype=torch.bool, device="cuda")
+
+    def scatter():
+        return M._silhouette_samples(x[idx], labels[idx], x, labels, valid,
+                                     k=k, chunk_size=SIL_CHUNK,
+                                     compute_dtype=None).mean()
+
+    def onehot():
+        xe = x[idx]
+        xe_sq = sq_norms(xe)
+        sums = torch.zeros(SIL_SAMPLE, k, device="cuda")
+        for lo in range(0, x.shape[0], SIL_CHUNK):
+            xb, lb = x[lo:lo + SIL_CHUNK], labels[lo:lo + SIL_CHUNK].long()
+            d = (xe_sq[:, None] - 2.0 * cd_product(xe, xb, torch.float32)
+                 + sq_norms(xb)[None, :]).clamp_min_(0.0).sqrt_()
+            hot = torch.nn.functional.one_hot(lb, k).float()
+            sums += cd_product(d, hot.T.contiguous(), torch.float32)
+        return sums
+
+    s_ms, s = _time_auto(scatter)
+    o_ms, sums = _time_auto(onehot)
+    # The one-hot sums against the scatter's, through the same epilogue.
+    counts = torch.bincount(labels.long(), minlength=k).float()
+    own = labels[idx].long()
+    rows = torch.arange(SIL_SAMPLE, device="cuda")
+    a = sums[rows, own] / (counts[own] - 1.0).clamp_min(1.0)
+    other = torch.where(counts[None, :] > 0,
+                        sums / counts.clamp_min(1.0)[None, :], torch.inf)
+    b = torch.where(own[:, None] == torch.arange(k, device="cuda"),
+                    torch.inf, other).amin(1)
+    o = torch.where(counts[own] <= 1.0, 0.0,
+                    (b - a) / torch.maximum(a, b).clamp_min(1e-30)).mean()
+    rel = abs(float(s) - float(o)) / max(abs(float(o)), 1e-30)
+    _check(rel <= SCORE_RTOL, f"silhouette at glove: scatter {float(s)} "
+           f"against one-hot {float(o)}")
+    print(f"silhouette at glove ({card}): {SIL_SAMPLE} sampled rows against "
+          f"{x.shape[0]}, k={k}, chunks of {SIL_CHUNK}: the port's scatter "
+          f"(index_add_) {s_ms:.3f} ms, the reference's one-hot product "
+          f"{o_ms:.3f} ms (IEEE f32); means {float(s):.6f} / "
+          f"{float(o):.6f}")
+
+
+def _imagenet_spherical(card, totals):
+    """imagenet-spherical: the headline bf16 data on the Hopper core,
+    SPHERE_SWEEPS sweeps; the card's peak memory of the chunked
+    normalization beside the whole-array f32 one it replaces."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.spherical import normalize_rows
+
+    x, c0 = _headline_data()
+    n, k = HEADLINE["n"], HEADLINE["k"]
+    _sync()
+
+    def peak(fn):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        _sync()
+        return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    def whole():
+        xf = x.float()
+        return (xf / (xf * xf).sum(-1, keepdim=True).sqrt().clamp_min(
+            1e-12)).to(torch.bfloat16)
+
+    want, whole_gb = peak(whole)
+    got, chunk_gb = peak(lambda: normalize_rows(x, dtype=torch.bfloat16))
+    # One pass first, outside the counts: the route's first call.
+    kt.lloyd_pass(got, c0.float(), compute_dtype=torch.bfloat16,
+                  device="cuda")
+    _check(_equal(got, want), "imagenet-spherical: the chunked "
+           "normalization's bits differ from the whole-array one's")
+    del got, want
+    torch.cuda.empty_cache()
+    cfg = kt.KMeansConfig(k=k, compute_dtype="bfloat16")
+    (st, ms, counts), fit_gb = peak(lambda: _timed_fit(
+        lambda: kt.fit_spherical(x, k, init=c0, config=cfg, tol=-1.0,
+                                 max_iter=SPHERE_SWEEPS)))
+    _only("imagenet-spherical", counts, {"lloyd_pass_cuda": SPHERE_SWEEPS + 1})
+    _add_counts(totals["bf16"], counts)
+    _check(_finite(st.centroids) and math.isfinite(float(st.inertia))
+           and int(st.counts.sum()) == n, "imagenet-spherical: result")
+    norm_err = _unit_norms("imagenet-spherical", st.centroids)
+    print(f"imagenet-spherical bf16 ({card}): n={n} d={HEADLINE['d']} k={k}, "
+          f"{SPHERE_SWEEPS} sweeps: {ms:.3f} ms in all, "
+          f"{ms / (SPHERE_SWEEPS + 1):.3f} ms a pass with the normalization "
+          f"(K1 yardstick 10.459 ms); launches {counts}; norms within "
+          f"{norm_err:.1e} of 1; peak card memory above x (5.24 GB): the "
+          f"fit {fit_gb:.3f} GB, the chunked normalization alone "
+          f"{chunk_gb:.3f} GB, the whole-array f32 one it replaces "
+          f"{whole_gb:.3f} GB")
+    del x, c0, st
+    torch.cuda.empty_cache()
+
+
+def _busy_share(fn):
+    """``(fn(), wall seconds, the share of the wall time the card ran
+    kernels)`` under ``torch.profiler`` (CUPTI): the sum of the device
+    records over the host clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        _sync()
+        wall = time.perf_counter() - t0
+    busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    _check(busy > 0, "the profiler recorded no device time")
+    return out, wall, busy / wall
+
+
+def _split_members():
+    """Wrap ``kmeans_tpu_torch.models.bisecting.fit_lloyd`` to record each
+    inner fit's member count (its weights' support): the split sequence.
+    Returns ``(records, undo)``."""
+    import kmeans_tpu_torch.models.bisecting as B
+
+    real = B.fit_lloyd
+    seen = []
+
+    def fit_lloyd(x, k, **kw):
+        w = kw.get("weights")
+        seen.append(int((w > 0).sum()) if w is not None else -1)
+        return real(x, k, **kw)
+
+    B.fit_lloyd = fit_lloyd
+
+    def undo():
+        B.fit_lloyd = real
+    return seen, undo
+
+
+def _inertia64(x, labels, c):
+    """Σ ‖x − c[label]‖² in f64, a block of rows at a time."""
+    total = 0.0
+    for lo in range(0, x.shape[0], 65536):
+        diff = x[lo:lo + 65536].double() - c[labels[lo:lo + 65536].long()
+                                             ].double()
+        total += float((diff * diff).sum())
+    return total
+
+
+def _glove_bisecting(card, x, totals):
+    """glove-bisecting in f32: BISECT_K leaves (each split a masked 2-means
+    over all the rows and an assign), its invariants; then at
+    BISECT_HOLD_K the kernels against ``backend="plain"`` from the same
+    generator (the same split sequence), under the profiler for the host's
+    share; then one bf16 run, which the weights veto sends to the plain
+    route."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.ops.plan import WEIGHTS_VETO
+
+    n = x.shape[0]
+    cfg = kt.KMeansConfig(k=BISECT_K, seed=0)
+    t0 = time.perf_counter()
+    st, counts = _counted_run(lambda: kt.fit_bisecting(x, BISECT_K,
+                                                       config=cfg))
+    secs = time.perf_counter() - t0
+    _add_counts(totals["f32"], counts)
+    for kname in ("lloyd_pass_cuda", "lloyd_delta_cuda"):
+        _check(counts.get(kname, 0) > 0,
+               f"glove-bisecting: {kname} never launched: {counts}")
+    splits = int(st.n_iter)
+    _check(abs(float(st.counts.sum()) - n) < 0.5,
+           f"glove-bisecting: counts sum to {float(st.counts.sum())}")
+    want = _inertia64(x, st.labels, st.centroids)
+    rel = abs(float(st.inertia) - want) / want
+    _check(rel <= FIT_INERTIA_RTOL, f"glove-bisecting: inertia "
+           f"{float(st.inertia)!r} against f64 {want!r} ({rel:.3e})")
+    print(f"glove-bisecting f32 ({card}): n={n} d={x.shape[1]} "
+          f"k={BISECT_K}: {splits} splits in {secs:.3f} s "
+          f"({1e3 * secs / max(splits, 1):.3f} ms a split); launches "
+          f"{counts}; counts sum to n, inertia within {rel:.2e} of f64")
+
+    # The hold runs on glove-shaped rows of BISECT_HOLD_K blobs: each split
+    # then parts whole blobs, so no row's side is left to a tie.  (A 2-means
+    # of many blobs can cut through one, and the routes' f32 orders then
+    # walk to different local optima: the k = 1000 data's first split did.)
+    xh, _ = _glove(5, BISECT_HOLD_K)
+    runs = {}
+    for backend in ("auto", "plain"):
+        seen, undo = _split_members()
+        hcfg = kt.KMeansConfig(k=BISECT_HOLD_K, seed=0, backend=backend)
+
+        def run():
+            return _counted_run(lambda: kt.fit_bisecting(
+                xh, BISECT_HOLD_K, config=hcfg))
+        try:
+            # Only the kernels' run is profiled: the plain route's many
+            # small launches would swamp the trace.
+            if backend == "auto":
+                (hst, hcounts), wall, busy = _busy_share(run)
+            else:
+                t0 = time.perf_counter()
+                hst, hcounts = run()
+                wall, busy = time.perf_counter() - t0, float("nan")
+        finally:
+            undo()
+        runs[backend] = (hst, hcounts, wall, busy, seen)
+    (a, ac, aw, ab, aseen), (p, pc, pw, pb, pseen) = (runs["auto"],
+                                                      runs["plain"])
+    _add_counts(totals["f32"], ac)
+    _only("glove-bisecting hold plain", pc, {})
+    _check(aseen == pseen, f"glove-bisecting k={BISECT_HOLD_K}: split "
+           f"member counts {aseen[:8]}... against plain {pseen[:8]}...")
+    rel = abs(float(a.inertia) - float(p.inertia)) / float(p.inertia)
+    _check(rel <= FIT_INERTIA_RTOL, f"glove-bisecting k={BISECT_HOLD_K}: "
+           f"inertia {float(a.inertia)!r} against plain {float(p.inertia)!r}")
+    moved = int((a.labels != p.labels).sum())
+    del xh
+    print(f"glove-bisecting k={BISECT_HOLD_K} ({card}; {BISECT_HOLD_K} "
+          f"generating blobs): {int(a.n_iter)} "
+          f"splits, the plain backend's split sequence ({len(aseen)} inner "
+          f"fits, member counts equal); {aw:.3f} s under the profiler, the "
+          f"card busy {ab:.3f} of it (host share {1 - ab:.3f}); plain "
+          f"{pw:.3f} s; launches {ac}; inertia within {rel:.2e}, {moved} "
+          "labels differ")
+
+    # bf16: the inner fits' 0/1 masks are weights the fit is not told are
+    # binary, so the reference's exactness policy refuses the kernels.
+    xs = x[:20_000].to(torch.bfloat16)
+    bcfg = kt.KMeansConfig(k=8, seed=0, compute_dtype="bfloat16")
+    mask = (torch.arange(xs.shape[0], device="cuda") % 2).float()
+    plan = kt.fit_plan(xs, 2, config=kt.KMeansConfig(
+        k=2, compute_dtype="bfloat16", empty="keep"), weights=mask)
+    _check(plan["backend"] == "plain" and plan["why"] == WEIGHTS_VETO,
+           f"bf16 bisecting's inner fit: plan {plan}")
+    bst, bcounts = _counted_run(lambda: kt.fit_bisecting(xs, 8,
+                                                         config=bcfg))
+    # Only the assigns (no weights) run a kernel: K1, once a split and
+    # once for the root.
+    _only("bf16 bisecting", bcounts,
+          {"lloyd_pass_cuda": int(bst.n_iter) + 1})
+    _add_counts(totals["bf16"], bcounts)
+    print(f"bf16 bisecting (n={xs.shape[0]}, k=8): the inner fits' plan "
+          f"{plan['backend']} / {plan['update']} ({plan['why']}): no inner "
+          f"fit launched a kernel; the assigns' K1 {bcounts}")
+
+
+def _glove_autok(card, totals):
+    """glove-xmeans and glove-gmeans in f32 on AUTOK_BLOBS generating blobs
+    (k_min 1, k_max AUTOK_K_MAX), each held to ``backend="plain"`` on the
+    first AUTOK_HOLD_ROWS rows from the same generator."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+
+    x, _ = _glove(8, AUTOK_BLOBS)
+    for family in ("xmeans", "gmeans"):
+        fit = getattr(kt, f"fit_{family}")
+        cfg = kt.KMeansConfig(k=1, seed=0)
+        t0 = time.perf_counter()
+        st, counts = _counted_run(lambda: fit(x, AUTOK_K_MAX, config=cfg))
+        secs = time.perf_counter() - t0
+        _add_counts(totals["f32"], counts)
+        _check(counts.get("lloyd_pass_cuda", 0) > 0
+               and counts.get("lloyd_delta_cuda", 0) > 0,
+               f"glove-{family}: launches {counts}")
+        k_found = int(st.centroids.shape[0])
+        _check(_finite(st.centroids) and int(st.counts.sum()) == x.shape[0],
+               f"glove-{family}: result")
+        held = {}
+        for backend in ("auto", "plain"):
+            hcfg = kt.KMeansConfig(k=1, seed=0, backend=backend)
+            held[backend] = _counted_run(lambda: fit(
+                x[:AUTOK_HOLD_ROWS], AUTOK_K_MAX, config=hcfg))
+        (a, ac), (p, pc) = held["auto"], held["plain"]
+        _add_counts(totals["f32"], ac)
+        _only(f"glove-{family} hold plain", pc, {})
+        ka, kp = int(a.centroids.shape[0]), int(p.centroids.shape[0])
+        rel = abs(float(a.inertia) - float(p.inertia)) / float(p.inertia)
+        _check(ka == kp and rel <= FIT_INERTIA_RTOL,
+               f"glove-{family} on {AUTOK_HOLD_ROWS} rows: k {ka} against "
+               f"plain {kp}, inertia {float(a.inertia)!r} against "
+               f"{float(p.inertia)!r}")
+        print(f"glove-{family} f32 ({card}): n={x.shape[0]}, {AUTOK_BLOBS} "
+              f"generating blobs, k_max={AUTOK_K_MAX}: k={k_found} in "
+              f"{int(st.n_iter)} rounds (converged {bool(st.converged)}), "
+              f"{secs:.3f} s; launches {counts}; on the first "
+              f"{AUTOK_HOLD_ROWS} rows k={ka} as the plain backend's, "
+              f"inertia within {rel:.2e}")
+    del x
+    torch.cuda.empty_cache()
+
+
+def _sweep_cli(spec) -> int:
+    """``chip_smoke.py --sweep-cli SPEC``: ``cli.main(["sweep", ...])``
+    with the launch counts set to 0 before it and written to
+    ``spec["counts"]`` after it, every fit's labels and centroids and every
+    silhouette sample written to ``spec["dump"]`` (torch.save), and each
+    row's seconds (from its fit's start to the next's) in the dump."""
+    import torch
+
+    import kmeans_tpu_torch.models as models
+    from kmeans_tpu_torch import cli
+    from kmeans_tpu_torch import metrics as M
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    fits, samples, starts = [], [], []
+    real_fit, real_sample = models.fit_lloyd, M.sample_rows
+
+    def fit_lloyd(x, k, **kw):
+        starts.append(time.perf_counter())
+        st = real_fit(x, k, **kw)
+        fits.append((st.labels.cpu(), st.centroids.cpu()))
+        return st
+
+    def sample_rows(*a, **kw):
+        idx = real_sample(*a, **kw)
+        samples.append(idx.cpu())
+        return idx
+
+    models.fit_lloyd, M.sample_rows = fit_lloyd, sample_rows
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(spec["argv"])
+    finally:
+        ends = starts[1:] + [time.perf_counter()]
+        with open(spec["counts"], "w", encoding="utf-8") as f:
+            json.dump(K.launch_counts(), f)
+        torch.save({"fits": fits, "samples": samples,
+                    "seconds": [e - s for s, e in zip(starts, ends)],
+                    "total": time.perf_counter() - t0}, spec["dump"])
+    return rc or 0
+
+
+def _silhouette64(x, labels, idx, k):
+    """The sampled silhouette of ``idx`` against every row, in f64."""
+    import torch
+
+    x64 = x.double()
+    lab = labels.long()
+    xe = x64[idx.long()]
+    own = lab[idx.long()]
+    counts = torch.bincount(lab, minlength=k).double()
+    sums = torch.zeros(xe.shape[0], k, dtype=torch.float64, device="cuda")
+    xe_sq = (xe * xe).sum(1)
+    for lo in range(0, x64.shape[0], 4096):
+        xb = x64[lo:lo + 4096]
+        d2 = (xe_sq[:, None] - 2.0 * xe @ xb.T
+              + (xb * xb).sum(1)[None, :]).clamp_min(0.0)
+        sums.index_add_(1, lab[lo:lo + 4096], d2.sqrt())
+    rows = torch.arange(xe.shape[0], device="cuda")
+    a = sums[rows, own] / (counts[own] - 1.0).clamp_min(1.0)
+    other = torch.where(counts[None, :] > 0,
+                        sums / counts.clamp_min(1.0)[None, :], torch.inf)
+    b = torch.where(own[:, None] == torch.arange(k, device="cuda"),
+                    torch.inf, other).amin(1)
+    s = (b - a) / torch.maximum(a, b).clamp_min(1e-30)
+    return float(torch.where(counts[own] <= 1.0, 0.0, s).mean())
+
+
+def _dispersion64(x, labels, c):
+    """(Davies–Bouldin, Calinski–Harabasz) at centroids ``c`` in f64."""
+    import torch
+
+    x64, c64, lab = x.double(), c.double(), labels.long()
+    k = c64.shape[0]
+    counts = torch.bincount(lab, minlength=k).double()
+    dist = torch.zeros(k, dtype=torch.float64, device="cuda").index_add_(
+        0, lab, (x64 - c64[lab]).norm(dim=1))
+    nz = counts > 0
+    s = torch.where(nz, dist / counts.clamp_min(1.0), 0.0)
+    cd = torch.cdist(c64, c64)
+    ratio = (s[:, None] + s[None, :]) / torch.where(cd > 0, cd, torch.inf)
+    both = nz[:, None] & nz[None, :] & ~torch.eye(k, dtype=torch.bool,
+                                                  device="cuda")
+    db = float((torch.where(both, ratio, -torch.inf).amax(1).clamp_min(0.0)
+                * nz).sum() / nz.sum())
+    wss = float(((x64 - c64[lab]) ** 2).sum())
+    mean = x64.mean(0)
+    bss = float((counts * ((c64 - mean) ** 2).sum(1)).sum())
+    k_eff = max(int(nz.sum()), 2)
+    ch = (bss / max(k_eff - 1, 1)) / max(wss / max(x64.shape[0] - k_eff, 1),
+                                         1e-30)
+    return db, ch
+
+
+def _mnist_sweep(card, tmp, totals):
+    """mnist-sweep: ``cli sweep`` in child processes on an mnist-shaped
+    ``.npy`` (MNIST's shape, its 10 generating blobs), SWEEP_RANGE, once
+    by silhouette and once by the gap statistic (3 reference sets): each
+    silhouette row's score (on the child's own sample), DB and CH
+    recomputed in f64 on the card from its fit's labels and centroids, and
+    each gap row's log W from its data fit's in f64 (within SCORE_RTOL of
+    the rows' ‖x‖² + ‖c‖², over W).  The silhouette
+    suggests 10; the gap statistic 10 or more (see SWEEP_GAP_OVER)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import kmeans_tpu_torch as kt
+
+    x, _, _ = kt.make_blobs(17, MNIST["n"], MNIST["d"], MNIST["k"],
+                            cluster_std=SWEEP_STD)
+    npy = f"{tmp}/mnist.npy"
+    np.save(npy, x.cpu().numpy())
+    root = os.path.dirname(os.path.abspath(__file__))
+    for crit, extra in (("silhouette", []), ("gap", ["--gap-refs", "3"])):
+        spec = {"argv": ["sweep", "--input", npy, *SWEEP_RANGE,
+                         "--criterion", crit, *extra],
+                "counts": f"{tmp}/sweep-{crit}.counts.json",
+                "dump": f"{tmp}/sweep-{crit}.pt"}
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--sweep-cli",
+             json.dumps(spec)], cwd=root, capture_output=True, text=True,
+            timeout=CLI_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        _check(out.returncode == 0, f"mnist-sweep {crit}: exit "
+               f"{out.returncode}, stderr {out.stderr[-2000:]}")
+        lines = [json.loads(ln) for ln in out.stdout.strip().splitlines()]
+        rows, last = lines[:-1], lines[-1]
+        counts = json.load(open(spec["counts"], encoding="utf-8"))
+        dump = torch.load(spec["dump"])
+        _add_counts(totals["f32"], counts)
+        _check(counts.get("lloyd_pass_cuda", 0) > 0,
+               f"mnist-sweep {crit}: launches {counts}")
+        least = MNIST["k"]
+        most = MNIST["k"] + (SWEEP_GAP_OVER if crit == "gap" else 0)
+        _check(list(last) == ["suggested_k"]
+               and least <= last["suggested_k"] <= most,
+               f"mnist-sweep {crit}: suggested {last}")
+        worst, worst_tol = [0.0, 0.0, 0.0], 0.0
+        if crit == "silhouette":
+            # No sample where the rows are no more than the sample size:
+            # the silhouette then runs over every row.
+            samples = dump["samples"] or [
+                torch.arange(x.shape[0])] * len(rows)
+            _check(len(dump["fits"]) == len(rows) == len(samples),
+                   f"mnist-sweep: {len(dump['fits'])} fits, "
+                   f"{len(samples)} samples, {len(rows)} rows")
+            for row, (lab, c), idx in zip(rows, dump["fits"], samples):
+                lab, c = lab.cuda(), c.cuda()
+                sil = _silhouette64(x, lab, idx.cuda(), row["k"])
+                db, ch = _dispersion64(x, lab, c)
+                c64 = c.double()
+                csq = (c64 * c64).sum(1)
+                cd2 = torch.cdist(c64, c64) ** 2
+                off = ~torch.eye(c64.shape[0], dtype=torch.bool,
+                                 device="cuda")
+                db_tol = SWEEP_DISPERSION_RTOL + float(
+                    (4 * 2.0 ** -24 * (csq[:, None] + csq[None, :])
+                     / cd2.clamp_min(1e-30))[off].max())
+                errs = (abs(row["silhouette"] - sil),
+                        abs(row["davies_bouldin"] - db) / abs(db),
+                        abs(row["calinski_harabasz"] - ch) / abs(ch))
+                _check(errs[0] <= SWEEP_SIL_ATOL and errs[1] <= db_tol
+                       and errs[2] <= SWEEP_DISPERSION_RTOL,
+                       f"mnist-sweep k={row['k']}: silhouette "
+                       f"{row['silhouette']} vs f64 {sil}, DB "
+                       f"{row['davies_bouldin']} vs {db}, CH "
+                       f"{row['calinski_harabasz']} vs {ch}")
+                worst = [max(w, e) for w, e in zip(worst, errs)]
+                worst_tol = max(worst_tol, db_tol)
+        if crit == "gap":
+            # gap_statistic fits the data, then each reference set, for
+            # each k in turn: every (1 + refs)-th fit is a data fit.
+            stride = 1 + int(extra[1])
+            data_fits = dump["fits"][::stride]
+            _check(len(data_fits) == len(rows),
+                   f"mnist-sweep gap: {len(dump['fits'])} fits for "
+                   f"{len(rows)} rows")
+            for row, (lab, c) in zip(rows, data_fits):
+                # Each row's score may be off SCORE_RTOL of ‖x‖² + ‖c‖²
+                # (the f32 route's bound, phase 3), far above its own
+                # ‖x − c‖² here: W within their sum, log W within that
+                # over W.
+                lab, c = lab.cuda(), c.cuda()
+                w64 = _inertia64(x, lab, c)
+                scale = float(((x.double() ** 2).sum(1) + (
+                    c.double() ** 2).sum(1)[lab.long()]).sum())
+                err = abs(math.log(w64) - row["log_w"])
+                tol = SCORE_RTOL * scale / w64
+                _check(err <= tol, f"mnist-sweep gap k={row['k']}: log W "
+                       f"{row['log_w']} against f64 {math.log(w64)} "
+                       f"(bound {tol:.2e})")
+                worst[0] = max(worst[0], err)
+                worst_tol = max(worst_tol, tol)
+        per_row = dump["total"] / max(len(rows), 1)
+        print(f"mnist-sweep --criterion {crit} ({card}): n={MNIST['n']} "
+              f"d={MNIST['d']}, k {SWEEP_RANGE[1]}..{SWEEP_RANGE[3]}, "
+              f"{SWEEP_RANGE[5]}: "
+              f"{secs:.3f} s of process, {dump['total']:.3f} s in "
+              f"cli.main, {per_row:.3f} s a row; suggested_k "
+              f"{last['suggested_k']}; launches {counts}"
+              + (f"; log W within {worst[0]:.2e} of f64 on the card "
+                 f"(bound at most {worst_tol:.2e})"
+                 if crit == "gap" else
+                 f"; against f64 on the card: silhouette within "
+                 f"{worst[0]:.2e}, DB {worst[1]:.2e} relative (bound at "
+                 f"most {worst_tol:.2e}), CH {worst[2]:.2e} relative"))
+    del x
+
+
+def _spherical_dp1(card, x, centres, totals):
+    """spherical-dp1-nccl: ``fit_spherical_sharded`` (the dense sweep) on
+    an NCCL mesh of one against ``fit_spherical`` from the same init: the
+    same K1 sweeps and one all-reduce a sweep, so bit for bit."""
+    import torch.distributed as dist
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.parallel import fit_spherical_sharded, make_mesh
+
+    k = GLOVE["k"]
+    c0 = _sphere_c0(centres, 22)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    _check(mesh.backend == "nccl", f"spherical-dp1: {mesh}")
+    cfg = kt.KMeansConfig(k=k, update="matmul")
+    try:
+        # A sweep of each first, outside the counts: NCCL makes its
+        # communicator at the first collective.
+        for fn in (kt.fit_spherical, lambda *a, **kw: fit_spherical_sharded(
+                *a, mesh=mesh, **kw)):
+            fn(x, k, init=c0, config=cfg, tol=-1.0, max_iter=1)
+        one = _timed_fit(lambda: kt.fit_spherical(
+            x, k, init=c0, config=cfg, tol=-1.0, max_iter=SPHERE_SWEEPS))
+        mesh.reset_stats()
+        dp1 = _timed_fit(lambda: fit_spherical_sharded(
+            x, k, mesh=mesh, init=c0, config=cfg, tol=-1.0,
+            max_iter=SPHERE_SWEEPS))
+        stats = {op: list(v) for op, v in mesh.stats.items()}
+    finally:
+        dist.destroy_process_group()
+    (a, a_ms, a_counts), (b, b_ms, b_counts) = one, dp1
+    _add_counts(totals["f32"], a_counts)
+    _add_counts(totals["f32"], b_counts)
+    _check(a_counts == b_counts, f"spherical-dp1: launches {b_counts} "
+           f"against one card's {a_counts}")
+    _check(_equal(a.labels, b.labels) and _equal(a.centroids, b.centroids)
+           and _equal(a.counts, b.counts),
+           "spherical-dp1: not bit for bit one card's fit")
+    reduces = stats.get("all_reduce", [0])[0]
+    _check(reduces >= SPHERE_SWEEPS, f"spherical-dp1: collectives {stats}")
+    print(f"spherical-dp1-nccl ({card}): {SPHERE_SWEEPS} sweeps at glove: "
+          f"{b_ms:.3f} ms against fit_spherical's {a_ms:.3f} ms "
+          f"({b_ms / a_ms:.3f}x); bit for bit; launches {b_counts}; "
+          f"collectives {stats}")
+
+
+def _families_rank(spec) -> int:
+    """``chip_smoke.py --families-rank SPEC``: one of two gloo ranks on the
+    one card: spherical on FP (mesh (1, 1, 2), feature = 2) and bisecting
+    on DP (mesh (2, 1)) at glove, each held by rank 0 to one card's fit.
+    Writes the rank's record to ``spec["out"] % rank``."""
+    import torch
+    import torch.distributed as dist
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.parallel import fit_spherical_sharded, make_mesh
+
+    fp = make_mesh((1, 1, 2), ("data", "model", "feature"),
+                   devices=["cuda:0"] * 2, backend="gloo")
+    dpm = make_mesh((2, 1), ("data", "model"), devices=["cuda:0"] * 2,
+                    backend="gloo")
+    out = {"rank": fp.rank, "runs": {}}
+    try:
+        x, centres = _glove(3, GLOVE["k"])
+        # Bisecting runs on rows of as many blobs as leaves, as its hold in
+        # the process does (each split parts whole blobs).
+        xb, _ = _glove(5, FAM_GLOO_BISECT_K)
+        c0 = _sphere_c0(centres, 23)
+        k = GLOVE["k"]
+        cfg = kt.KMeansConfig(k=k, update="matmul")
+        runs = {
+            "spherical-fp2-gloo": lambda: fit_spherical_sharded(
+                x, k, mesh=fp, init=c0, config=cfg, tol=-1.0,
+                max_iter=SPHERE_SWEEPS, feature_axis="feature"),
+            "bisecting-dp2-gloo": lambda: kt.fit_bisecting(
+                xb, FAM_GLOO_BISECT_K, mesh=dpm,
+                config=kt.KMeansConfig(k=FAM_GLOO_BISECT_K, seed=0)),
+        }
+        for name, fn in runs.items():
+            dpm.barrier()
+            _sync()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            st = fn()
+            _sync()
+            out["runs"][name] = {"seconds": time.perf_counter() - t0,
+                                 "launches": K.launch_counts()}
+            if fp.rank == 0:
+                if name.startswith("spherical"):
+                    want = kt.fit_spherical(x, k, init=c0, config=cfg,
+                                            tol=-1.0, max_iter=SPHERE_SWEEPS)
+                    from kmeans_tpu_torch.models.spherical import \
+                        normalize_rows
+                    moved, _ = _check_labels_pair(
+                        name, normalize_rows(x), st.centroids, st.labels,
+                        want.centroids, want.labels, torch.float32)
+                    _unit_norms(name, st.centroids)
+                else:
+                    want = kt.fit_bisecting(xb, FAM_GLOO_BISECT_K,
+                                            config=kt.KMeansConfig(
+                                                k=FAM_GLOO_BISECT_K, seed=0))
+                    moved = int((st.labels != want.labels).sum())
+                    _check(moved <= 1e-4 * xb.shape[0],
+                           f"{name}: {moved} labels differ from one card's")
+                _check(int(st.n_iter) == int(want.n_iter),
+                       f"{name}: {int(st.n_iter)} against one card's "
+                       f"{int(want.n_iter)}")
+                rel = abs(float(st.inertia) - float(want.inertia)) / float(
+                    want.inertia)
+                _check(rel <= FIT_INERTIA_RTOL, f"{name}: inertia "
+                       f"{float(st.inertia)!r} against one card's "
+                       f"{float(want.inertia)!r}")
+                out["runs"][name].update(moved=moved, rel=rel,
+                                         n_iter=int(st.n_iter))
+    finally:
+        with open(spec["out"] % fp.rank, "w", encoding="utf-8") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _families_world(tmp):
+    """Spawn phase 17's gloo world of two ranks on the one card."""
+    import os
+
+    from kmeans_tpu_torch.parallel.mesh import free_port
+
+    spec = {"out": f"{tmp}/families-rank%d.json"}
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE="2",
+               PYTHONUNBUFFERED="1")
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--families-rank",
+         json.dumps(spec)], cwd=root,
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r))) for r in range(2)]
+    return procs, spec
+
+
+def _families_cli(tmp):
+    """train-mesh (phase 17): ``cli train --mesh 2 --device cpu`` for
+    spherical, bisecting, xmeans and gmeans against ``--mesh 1``, in CPU
+    processes.  Returns ``{name: (stdout, stderr, rc)}`` and seconds."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = {}
+    for family, k in (("spherical", "8"), ("bisecting", "8"),
+                      ("xmeans", "16"), ("gmeans", "16")):
+        base = ["train", *FAMILIES_CLI_SMALL, "--model", family, "--k", k]
+        runs[family] = base + ["--mesh", "2"]
+        runs[f"{family} 1"] = base
+    t0 = time.perf_counter()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "kmeans_tpu_torch.cli", *argv], cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, argv in runs.items()}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            outs[name] = p.communicate(timeout=CLI_TIMEOUT_S) + (
+                p.returncode,)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs, time.perf_counter() - t0
+
+
+def _check_families_cli(outs, secs):
+    for family in ("spherical", "bisecting", "xmeans", "gmeans"):
+        res = {}
+        for name in (family, f"{family} 1"):
+            out, err, rc = outs[name]
+            _check(rc == 0, f"train-mesh {name}: exit {rc}, stderr "
+                   f"{err[-1500:]}")
+            res[name] = json.loads(out.strip().splitlines()[-1])
+        two, one = res[family], res[f"{family} 1"]
+        same = ("n", "d", "k", "n_iter", "mode", "converged")
+        _check({f: two[f] for f in same} == {f: one[f] for f in same}
+               and two["mesh"] == 2
+               and abs(two["inertia"] - one["inertia"])
+               <= 1e-5 * abs(one["inertia"]),
+               f"train-mesh {family}: {two} against {one}")
+        print(f"train-mesh {family} (--mesh 2 --device cpu): k={two['k']}, "
+              f"n_iter {two['n_iter']}, inertia {two['inertia']} against "
+              f"--mesh 1's {one['inertia']}")
+    print(f"train-mesh (phase 17): {secs:.1f} s for the eight CPU runs")
+
+
+def phase_families(card):
+    """Phase 17: the Lloyd-based families and model selection (see the
+    module docstring).  Returns the runs' launches by compute:
+    ``{"bf16": {...}, "f32": {...}}``."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    t_all = time.perf_counter()
+    totals = {"bf16": {}, "f32": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    def mark(what):
+        print(f"  [phase 17: {what} done at {time.perf_counter() - t_all:.1f}"
+              " s]", flush=True)
+
+    try:
+        x, centres = _glove(0, GLOVE["k"])
+        _glove_spherical(card, x, centres, totals)
+        mark("glove-spherical")
+        _glove_bisecting(card, x, totals)
+        mark("glove-bisecting")
+        _spherical_dp1(card, x, centres, totals)
+        mark("spherical-dp1-nccl")
+        del x, centres
+        torch.cuda.empty_cache()
+        _imagenet_spherical(card, totals)
+        mark("imagenet-spherical")
+        _glove_autok(card, totals)
+        mark("glove-xmeans, glove-gmeans")
+        _mnist_sweep(card, tmp, totals)
+        mark("mnist-sweep")
+        # The untimed work overlaps: train-mesh's CPU processes beside the
+        # gloo world (whose seconds are no scaling numbers).
+        cli_out = {}
+        cli = threading.Thread(target=lambda: cli_out.update(
+            zip(("outs", "secs"), _families_cli(tmp))))
+        cli.start()
+        procs, spec = _families_world(tmp)
+        ranks = _wait_world("phase 17's gloo world", procs, spec)
+        for rank in ranks:
+            for rec in rank["runs"].values():
+                _add_counts(totals["f32"], rec["launches"])
+        for name, rec in ranks[0]["runs"].items():
+            secs = [r["runs"][name]["seconds"] for r in ranks]
+            print(f"{name} ({card}; two ranks share the card, not a "
+                  f"scaling number): {rec['n_iter']} "
+                  f"{'sweeps' if 'spherical' in name else 'splits'} as one "
+                  f"card's, {rec['moved']} labels differ (ties), inertia "
+                  f"within {rec['rel']:.2e}; {[round(s, 3) for s in secs]} "
+                  f"s a rank; launches a rank "
+                  f"{[r['runs'][name]['launches'] for r in ranks]}")
+        cli.join(timeout=CLI_TIMEOUT_S)
+        _check("outs" in cli_out, "train-mesh: the CLI runs did not end")
+        _check_families_cli(cli_out["outs"], cli_out["secs"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_all
+    print(f"phase 17 ({card}): {secs:.1f} s; launches {totals}")
+    return totals
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--http-client"]:
         return _http_client(json.loads(sys.argv[2]))
@@ -8670,6 +9639,10 @@ def main() -> int:
         return _elastic_rank(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--sharded-rank"]:
         return _sharded_rank(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--families-rank"]:
+        return _families_rank(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--sweep-cli"]:
+        return _sweep_cli(json.loads(sys.argv[2]))
     import torch
 
     if not torch.cuda.is_available():
@@ -8712,6 +9685,11 @@ def main() -> int:
     if sys.argv[1:] == ["--sharded"]:
         phase_build()
         phase_sharded(card)
+        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+        return 0
+    if sys.argv[1:] == ["--families"]:
+        phase_build()
+        phase_families(card)
         print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
         return 0
     if sys.argv[1:] == ["--fleet"]:
@@ -8778,15 +9756,22 @@ def main() -> int:
             row["launches"] += stream[compute].get(name, 0)
     mesh = phase_mesh(card)
     sharded = phase_sharded(card)
+    families = phase_families(card)
+    names = {row["name"] for row in kernels}
     for row in kernels:
-        # Phases 15's and 16's launches (every rank's, every child's, and
-        # the single-device fits they are held to) join the bf16 rows and
-        # the f32 route's rows, as phase 14's do.
+        # Phases 15's, 16's and 17's launches (every rank's, every
+        # child's, and the single-device fits they are held to) join the
+        # bf16 rows and the f32 route's rows, as phase 14's do; phase 17's
+        # f32 launches of a kernel with no f32 row (K3, the sharded delta
+        # loop's refresh) join its one row.
         name, _, what = row["name"].partition(" ")
         compute = {"": "bf16", "(f32 route)": "f32"}.get(what)
         if compute:
             row["launches"] += (mesh[compute].get(name, 0)
-                                + sharded[compute].get(name, 0))
+                                + sharded[compute].get(name, 0)
+                                + families[compute].get(name, 0))
+        if not what and f"{name} (f32 route)" not in names:
+            row["launches"] += families["f32"].get(name, 0)
     kernels += board_rows + serve_rows
     phase_fold_split()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -1,5 +1,5 @@
-"""Command line of the port: ``train`` (alias ``fit``), ``continuous`` and
-``serve``.
+"""Command line of the port: ``train`` (alias ``fit``), ``sweep``,
+``continuous`` and ``serve``.
 
     python -m kmeans_tpu_torch.cli train --config imagenet [--model lloyd]
         [--progress] [--checkpoint DIR [--checkpoint-every N]] [--resume DIR]
@@ -10,14 +10,17 @@ CPU) and prints one JSON result line with the reference's keys.  The
 families are the reference's ``lloyd`` (the fused :func:`fit_lloyd`, or
 the step-paced :class:`~kmeans_tpu_torch.models.runner.LloydRunner`
 under ``--progress/--checkpoint/--resume/--telemetry/--trace/--xla-trace/
---profile``), ``accelerated``, in-memory ``minibatch`` and ``trimmed``
-(``--trim-fraction``; its outliers export as unassigned cards), and
+--profile``), ``accelerated``, in-memory ``minibatch``, ``trimmed``
+(``--trim-fraction``; its outliers export as unassigned cards),
+``spherical``, ``bisecting``, and ``xmeans`` / ``gmeans`` (``--k`` is
+k_max; the result line reports the discovered k), and
 ``--stream``: the out-of-core minibatch fit
 (:func:`~kmeans_tpu_torch.models.streaming.fit_minibatch_stream`) over
 ``--input`` memory-mapped on the host, with ``--steps``, ``--batch-size``,
 ``--checkpoint`` / ``--resume`` in one directory, ``--telemetry`` and
-``--trace``.  ``--coreset M`` fits lloyd, accelerated or trimmed on an
-M-point lightweight coreset of the data, weighted.  A SIGTERM or SIGINT
+``--trace``.  ``--coreset M`` fits lloyd, accelerated, spherical,
+bisecting or trimmed on an M-point lightweight coreset of the data,
+weighted.  A SIGTERM or SIGINT
 during a runner or streamed fit cuts a checkpoint and exits 3 with a
 "resume with: ..." line.  ``--xla-trace DIR`` writes a
 :mod:`torch.profiler` Chrome trace into DIR (the reference writes a
@@ -28,11 +31,13 @@ regenerates the same rows.  ``--merge-k K`` exports the fit's labels
 merged to K groups along the centroid dendrogram (:func:`~kmeans_tpu_torch.
 models.hierarchy.merge_to_k`) and adds ``merged_k`` to the result line.
 What the port does not have yet is refused with exit code 2 and one line
-naming its ROADMAP queue item: the other families (``--stream --model
-gmm`` among them) and ``--pca``/``--whiten`` (A9).
+naming its ROADMAP queue item: fuzzy, gmm (``--stream --model gmm``
+among them), balanced, ``--pca``/``--whiten`` (A9b), kernel, kmedoids and
+spectral (A9c).
 
-``--mesh N`` (N > 1) fits ``--model lloyd``, ``accelerated``, ``trimmed``
-or ``minibatch`` data parallel on N ranks, one process per device
+``--mesh N`` (N > 1) fits every ported family on N ranks, one process per
+device (``spherical`` on the sharded engine's sphere update; ``bisecting``,
+``xmeans`` and ``gmeans`` with every inner fit and assign on it)
 (:mod:`kmeans_tpu_torch.parallel`), and ``--stream --mesh N`` runs the
 streamed fit's step sharded: the command starts N copies of itself, rank i
 on ``cuda:i`` (NCCL) or, with ``--device cpu``, N gloo CPU processes,
@@ -42,7 +47,8 @@ through the page cache; generated data moved off the card once made) and
 each rank places only its own rows.  Under an existing
 ``torch.distributed`` environment (``WORLD_SIZE`` set, as ``torchrun``
 sets it) the process joins that group as its rank instead.  ``--comm``
-picks the sharded sweep's merge, and the runner flags step the dense
+picks the sharded sweep's merge (lloyd, spherical, bisecting, xmeans and
+gmeans), and the runner flags step the dense
 reduction on the mesh.  ``--ckpt-dir D [--ckpt-every N]`` runs ``--model
 lloyd --mesh N`` elastic: rank 0 saves the global centroids every N sweeps
 and on SIGTERM / SIGINT (exit 3 with a resume line), and ``--resume D``
@@ -57,6 +63,13 @@ card over the synthetic drifting stream (or ``--input`` in cycling chunks),
 publishing each refit to the model registry in ``--model-dir``, with the
 reference's JSON lines on stdout (``resumed``, ``generation``, ``done``)
 and ``batch`` lines on stderr under ``--progress``.
+
+    python -m kmeans_tpu_torch.cli sweep [--input X.npy] [--k-min 2]
+        [--k-max 8] [--model lloyd] [--criterion silhouette|gap|elbow]
+
+fits every k of the range on the card, prints one scored JSON line per k
+(:func:`~kmeans_tpu_torch.models.selection.sweep_k`, or the gap statistic)
+and then ``{"suggested_k": K}``, as the reference's ``sweep`` does.
 
     python -m kmeans_tpu_torch.cli serve [--model-dir DIR] [--port 8787]
         [--persist-dir DIR] [--workers N [--fleet-obs-port PORT]]
@@ -84,7 +97,7 @@ import json
 import sys
 import time
 
-from kmeans_tpu_torch.config import UNPORTED_FAMILIES
+from kmeans_tpu_torch.config import UNPORTED_FAMILIES, unported
 
 
 def _load_npy(path):
@@ -104,12 +117,11 @@ def _not_ported(args):
     yet, naming its ROADMAP queue item; None when everything asked for is
     ported."""
     if args.model in UNPORTED_FAMILIES:
-        return (f"--model {args.model} is not ported yet (ROADMAP A9); "
-                "the port fits lloyd, accelerated, minibatch and trimmed")
+        return f"--model {unported(args.model)}"
     for flag, on in (("--pca", args.pca is not None),
                      ("--whiten", args.whiten)):
         if on:
-            return f"{flag} is not ported yet (ROADMAP A9)"
+            return f"{flag} is not ported yet (ROADMAP A9b)"
     return None
 
 
@@ -215,7 +227,7 @@ def _cmd_train(args) -> int:
         if args.merge_k < 1:
             print("error: --merge-k must be >= 1", file=sys.stderr)
             return 2
-        if args.merge_k >= k:
+        if model not in ("xmeans", "gmeans") and args.merge_k >= k:
             print(f"error: --merge-k must be in [1, {k - 1}] for --k {k}",
                   file=sys.stderr)
             return 2
@@ -347,7 +359,8 @@ def _cmd_train(args) -> int:
     # --update configures the Lloyd-family centroid reduction; paths that
     # never read it must reject it rather than mislead.
     if args.update:
-        if model not in ("lloyd", "accelerated", "trimmed") or args.stream:
+        if model not in ("lloyd", "accelerated", "spherical", "trimmed") \
+                or args.stream:
             print(f"error: --update configures the Lloyd-family reduction; "
                   f"it has no effect with --model {model}"
                   f"{' --stream' if args.stream else ''}", file=sys.stderr)
@@ -378,7 +391,8 @@ def _cmd_train(args) -> int:
     # --comm configures the sharded engine's sweep-merge collective; only
     # paths that reach fit_lloyd_sharded read it.
     if args.comm:
-        comm_models = model == "lloyd"
+        comm_models = model in ("lloyd", "spherical", "xmeans", "gmeans",
+                                "bisecting", "spectral")
         if args.stream or not comm_models or not (args.mesh
                                                   and args.mesh > 1):
             why = ("--stream" if args.stream
@@ -417,6 +431,8 @@ def _cmd_train(args) -> int:
         cfg_kw["batch_size"] = args.batch_size
     if args.update:
         cfg_kw["update"] = args.update
+    if args.comm:
+        cfg_kw["comm"] = args.comm
     if args.yinyang_groups is not None:
         if args.yinyang_groups < 1:
             print("error: --yinyang-groups must be >= 1", file=sys.stderr)
@@ -480,15 +496,17 @@ def _cmd_train(args) -> int:
     trim_fraction = (args.trim_fraction if args.trim_fraction is not None
                      else 0.05)
 
-    mesh_ok = ("lloyd", "accelerated", "minibatch", "trimmed")
+    mesh_ok = ("lloyd", "accelerated", "minibatch", "spherical", "fuzzy",
+               "gmm", "kernel", "kmedoids", "trimmed", "balanced",
+               "xmeans", "gmeans", "spectral", "bisecting")
     if mesh_n and model not in mesh_ok:
         print(f"error: --mesh supports --model {'/'.join(mesh_ok)}, not "
               f"{model}", file=sys.stderr)
         return 2
 
     # The reference's list of the families a coreset fit allows; of them
-    # the port has lloyd, accelerated and trimmed (the others are refused
-    # above, ROADMAP A9).
+    # the port has lloyd, accelerated, spherical, bisecting and trimmed
+    # (the others are refused above, ROADMAP A9b / A9c).
     coreset_ok = ("lloyd", "accelerated", "spherical", "bisecting", "fuzzy",
                   "gmm", "kernel", "kmedoids", "trimmed", "balanced")
     fit_weights = None
@@ -632,12 +650,21 @@ def _cmd_train(args) -> int:
         state = _train_stream(args, x, k, kcfg, dev, stream_ckpt, mesh)
         if isinstance(state, int):
             return state
+    elif mesh is not None and model in ("xmeans", "gmeans", "bisecting"):
+        # The families that take the mesh themselves: every inner fit and
+        # assign rides the sharded engine.
+        fit = {"xmeans": models.fit_xmeans, "gmeans": models.fit_gmeans,
+               "bisecting": models.fit_bisecting}[model]
+        state = fit(x, k, config=kcfg, mesh=mesh)
+        if model in ("xmeans", "gmeans"):
+            k = int(state.centroids.shape[0])
     elif mesh is not None:
         from kmeans_tpu_torch import parallel
 
         fit = {"lloyd": parallel.fit_lloyd_sharded,
                "accelerated": parallel.fit_lloyd_accelerated_sharded,
                "minibatch": parallel.fit_minibatch_sharded,
+               "spherical": parallel.fit_spherical_sharded,
                "trimmed": parallel.fit_trimmed_sharded}[model]
         fit_kw = ({"trim_fraction": trim_fraction}
                   if model == "trimmed" else {})
@@ -657,13 +684,19 @@ def _cmd_train(args) -> int:
             "lloyd": models.fit_lloyd,
             "accelerated": models.fit_lloyd_accelerated,
             "minibatch": models.fit_minibatch,
+            "spherical": models.fit_spherical,
+            "bisecting": models.fit_bisecting,
             "trimmed": models.fit_trimmed,
+            "xmeans": models.fit_xmeans,   # --k is k_max; k is discovered
+            "gmeans": models.fit_gmeans,   # likewise (Anderson-Darling)
         }[model]
         fit_kw = ({"trim_fraction": trim_fraction}
                   if model == "trimmed" else {})
         if fit_weights is not None:
             fit_kw["weights"] = fit_weights
         state = fit(x, k, config=kcfg, device=dev, **fit_kw)
+        if model in ("xmeans", "gmeans"):
+            k = int(state.centroids.shape[0])
     if dev.type == "cuda":
         import torch
 
@@ -890,6 +923,74 @@ def _train_stream(args, x, k, kcfg, dev, stream_ckpt, mesh):
     finally:
         if tw_box[0] is not None:
             tw_box[0].close()
+
+
+def _cmd_sweep(args) -> int:
+    """Sweep k and print one scored JSON line per k, then a suggestion."""
+    # A family the port does not have yet is refused first, by name.
+    refused = unported(args.model)
+    if refused:
+        print(f"error: --model {refused}", file=sys.stderr)
+        return 2
+    # Flag mismatches knowable before the data is loaded fail first.
+    if args.criterion in ("bic", "aic") and args.model != "gmm":
+        print(f"error: --criterion {args.criterion} requires --model gmm",
+              file=sys.stderr)
+        return 2
+    if args.criterion == "gap" and args.model != "lloyd":
+        print("error: --criterion gap runs Lloyd fits against uniform "
+              "reference data; it requires --model lloyd", file=sys.stderr)
+        return 2
+    if args.criterion == "elbow" and \
+            len(range(args.k_min, args.k_max + 1, args.k_step)) < 3:
+        print("error: --criterion elbow needs at least 3 swept k values",
+              file=sys.stderr)
+        return 2
+
+    from kmeans_tpu_torch.data.synthetic import make_blobs
+    from kmeans_tpu_torch.device import resolve_device
+    from kmeans_tpu_torch.models import (gap_statistic, suggest_k,
+                                         suggest_k_gap, sweep_k)
+
+    if args.input:
+        x = _load_npy(args.input)
+        if x is None:
+            return 2
+        if x.ndim != 2:
+            print(f"error: {args.input} must be a 2-D array", file=sys.stderr)
+            return 2
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError:
+        print(f"error: no CUDA device is available for --device "
+              f"{args.device}; pass --device cpu to run the kernels' plain "
+              "versions on the CPU", file=sys.stderr)
+        return 2
+    if not args.input:
+        x, _, _ = make_blobs(args.seed, args.n, args.d, args.true_k,
+                             cluster_std=args.cluster_std, device=dev)
+
+    ks = list(range(args.k_min, args.k_max + 1, args.k_step))
+    try:
+        if args.criterion == "gap":
+            rows = gap_statistic(
+                x, ks, n_refs=args.gap_refs, max_iter=args.max_iter,
+                compute_dtype=args.dtype, init=args.init, seed=args.seed,
+                device=dev)
+            suggestion = suggest_k_gap(rows)
+        else:
+            rows = sweep_k(
+                x, ks, model=args.model, max_iter=args.max_iter,
+                compute_dtype=args.dtype, init=args.init, seed=args.seed,
+                silhouette_sample=args.silhouette_sample, device=dev)
+            suggestion = suggest_k(rows, criterion=args.criterion)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    for row in rows:
+        print(json.dumps(row))
+    print(json.dumps({"suggested_k": suggestion}))
+    return 0
 
 
 def _cmd_continuous(args) -> int:
@@ -1125,7 +1226,7 @@ def main(argv=None) -> int:
     t.add_argument("--stream", action="store_true",
                    help="out-of-core minibatch fit: --input is memory-"
                         "mapped and batches stream from the host to the "
-                        "device (--model gmm is not ported, ROADMAP A9)")
+                        "device (--model gmm is not ported, ROADMAP A9b)")
     t.add_argument("--n", type=int, default=500)
     t.add_argument("--d", type=int, default=2)
     t.add_argument("--k", type=int, default=3)
@@ -1133,10 +1234,13 @@ def main(argv=None) -> int:
                    default=None, help="alias for --model minibatch "
                    "(named configs set it from BASELINE)")
     t.add_argument("--model", default=None, choices=[
-        "lloyd", "accelerated", "minibatch", "trimmed", *UNPORTED_FAMILIES,
+        "lloyd", "accelerated", "minibatch", "spherical", "bisecting",
+        "fuzzy", "gmm", "kernel", "kmedoids", "trimmed", "balanced",
+        "spectral", "xmeans", "gmeans",
     ], help="model family (default: lloyd, or the config's minibatch "
-            "choice); the port fits lloyd, accelerated, minibatch and "
-            "trimmed, and refuses the others (ROADMAP A9)")
+            "choice); for xmeans/gmeans, --k is k_max and k is discovered; "
+            "fuzzy, gmm, balanced (ROADMAP A9b), kernel, kmedoids and "
+            "spectral (A9c) are refused")
     t.add_argument("--covariance-type", default=None,
                    choices=["diag", "spherical", "tied"],
                    help="GMM covariance structure (--model gmm, not ported)")
@@ -1164,9 +1268,9 @@ def main(argv=None) -> int:
                    help="export the labels merged to a coarser k along the "
                         "centroid dendrogram (Ward linkage)")
     t.add_argument("--pca", type=int, default=None,
-                   help="PCA projection (not ported, ROADMAP A9)")
+                   help="PCA projection (not ported, ROADMAP A9b)")
     t.add_argument("--whiten", action="store_true",
-                   help="with --pca (not ported, ROADMAP A9)")
+                   help="with --pca (not ported, ROADMAP A9b)")
     t.add_argument("--batch-size", type=int, default=None,
                    help="minibatch/stream batch size (default 8192)")
     t.add_argument("--update", default=None,
@@ -1253,6 +1357,42 @@ def main(argv=None) -> int:
                         "phase); runs the step-paced Lloyd runner, or "
                         "one event a step with --stream")
     t.set_defaults(fn=_cmd_train)
+
+    w = sub.add_parser("sweep", help="sweep k, score fits, suggest a k")
+    w.add_argument("--input", help="path to a .npy (n, d) feature matrix")
+    w.add_argument("--n", type=int, default=2000)
+    w.add_argument("--d", type=int, default=8)
+    w.add_argument("--true-k", type=int, default=4,
+                   help="generating k for the synthetic fallback data")
+    w.add_argument("--k-min", type=int, default=2)
+    w.add_argument("--k-max", type=int, default=8)
+    w.add_argument("--k-step", type=int, default=1)
+    w.add_argument("--model", default="lloyd", choices=[
+        "lloyd", "accelerated", "minibatch", "spherical", "bisecting",
+        "fuzzy", "gmm", "kernel", "kmedoids", "balanced", "spectral",
+    ], help="model family; fuzzy, gmm, balanced (ROADMAP A9b), kernel, "
+            "kmedoids and spectral (A9c) are refused")
+    w.add_argument("--criterion", default="silhouette",
+                   choices=["silhouette", "bic", "aic", "gap", "elbow"],
+                   help="suggestion rule; bic/aic need --model gmm, gap "
+                        "runs the Tibshirani gap statistic (--model "
+                        "lloyd), elbow is the objective kneedle read of "
+                        "the inertia curve (any model)")
+    w.add_argument("--gap-refs", type=int, default=10,
+                   help="reference datasets per k for --criterion gap")
+    w.add_argument("--init", default="k-means++",
+                   choices=["k-means++", "k-means||", "random"])
+    w.add_argument("--max-iter", type=int, default=100)
+    w.add_argument("--seed", type=int, default=0)
+    w.add_argument("--dtype", default=None,
+                   choices=[None, "bfloat16", "float32"])
+    w.add_argument("--cluster-std", type=float, default=0.4)
+    w.add_argument("--silhouette-sample", type=int, default=10_000)
+    w.add_argument("--device", default="cuda",
+                   help="where the fits run: cuda (the default; exits 2 "
+                        "without a card) or cpu (the kernels' plain "
+                        "versions)")
+    w.set_defaults(fn=_cmd_sweep)
 
     c = sub.add_parser(
         "continuous",

@@ -1,9 +1,13 @@
 """Fit models of the port: initialization, full-batch Lloyd, the
 step-paced runner, the accelerated fits, minibatch (in memory and streamed
-from the host) and trimmed k-means, and the dendrogram merge of fitted
-centroids."""
+from the host), trimmed, spherical and bisecting k-means, x-means and
+g-means (automatic k), model selection (k sweeps, the gap statistic) and
+the dendrogram merge of fitted centroids."""
 
 from kmeans_tpu_torch.models.accelerated import fit_lloyd_accelerated
+from kmeans_tpu_torch.models.bisecting import BisectingKMeans, fit_bisecting
+from kmeans_tpu_torch.models.gmeans import (GMeans, anderson_darling_normal,
+                                            fit_gmeans)
 from kmeans_tpu_torch.models.hierarchy import (centroid_linkage, cut_linkage,
                                                merge_to_k)
 from kmeans_tpu_torch.models.lloyd import (KMeans, KMeansState, fit_lloyd,
@@ -11,10 +15,15 @@ from kmeans_tpu_torch.models.lloyd import (KMeans, KMeansState, fit_lloyd,
 from kmeans_tpu_torch.models.minibatch import (MiniBatchKMeans, batch_update,
                                                fit_minibatch, nested_ladder)
 from kmeans_tpu_torch.models.runner import IterInfo, LloydRunner
+from kmeans_tpu_torch.models.selection import (gap_statistic, suggest_k,
+                                               suggest_k_gap, sweep_k)
+from kmeans_tpu_torch.models.spherical import (SphericalKMeans,
+                                               fit_spherical, normalize_rows)
 from kmeans_tpu_torch.models.streaming import (assign_stream,
                                                fit_minibatch_stream)
 from kmeans_tpu_torch.models.trimmed import (TrimmedKMeans, TrimmedState,
                                              fit_trimmed)
+from kmeans_tpu_torch.models.xmeans import XMeans, bic_score, fit_xmeans
 
 
 def state_centers(state):
@@ -68,4 +77,8 @@ __all__ = ["KMeans", "KMeansState", "fit_lloyd", "fit_plan",
            "fit_minibatch_stream", "assign_stream",
            "TrimmedKMeans", "TrimmedState", "fit_trimmed", "centroid_linkage",
            "cut_linkage", "merge_to_k", "state_centers", "state_counts",
-           "state_objective"]
+           "state_objective", "SphericalKMeans", "fit_spherical",
+           "normalize_rows", "BisectingKMeans", "fit_bisecting", "XMeans",
+           "bic_score", "fit_xmeans", "GMeans", "anderson_darling_normal",
+           "fit_gmeans", "sweep_k", "suggest_k", "gap_statistic",
+           "suggest_k_gap"]

@@ -37,8 +37,12 @@ subtracted before the merge).  With ``ckpt_dir`` :func:`fit_lloyd_sharded`
 runs elastic: sweep segments of ``ckpt_every`` sweeps, each ending in a
 checkpoint of the global centroids that rank 0 writes in the reference's
 format, so a run cut on one mesh resumes on another, in either package.
-The sharded families other than Lloyd, accelerated, trimmed and minibatch
-are not ported yet (ROADMAP A9).
+``center_update="sphere"`` is spherical k-means on every layout
+(:func:`fit_spherical_sharded`): the renormalized direction sum, taken
+from the full-width merged sums (the FP body holds full rows, so the norm
+needs no collective of its own).  The sharded fuzzy, GMM, balanced,
+k-medoids, kernel and spectral families are not ported yet (ROADMAP A9b,
+A9c).
 """
 
 from __future__ import annotations
@@ -68,8 +72,9 @@ from kmeans_tpu_torch.parallel.init_sharded import init_on_mesh
 from kmeans_tpu_torch.utils import faults
 
 __all__ = ["fit_lloyd_sharded", "fit_lloyd_accelerated_sharded",
-           "fit_trimmed_sharded", "fit_minibatch_sharded", "sharded_assign",
-           "pad_and_place", "sweep_split", "ENGINE_CKPT_EVERY"]
+           "fit_trimmed_sharded", "fit_minibatch_sharded",
+           "fit_spherical_sharded", "sharded_assign", "pad_and_place",
+           "sweep_split", "ENGINE_CKPT_EVERY"]
 
 #: Sharded-engine observability, the reference's families.  ``layout`` is
 #: "dp<N>"; the sweep time is the fit's wall time over its sweeps.
@@ -118,11 +123,6 @@ _ENGINE_RESUMES_TOTAL = obs.counter(
 
 #: Default sweep cadence of the elastic checkpoint loop (the reference's).
 ENGINE_CKPT_EVERY = 10
-
-#: The refusal of what the port does not have yet.
-_SPHERE_A9 = ("center_update='sphere' is fit_spherical_sharded's update, "
-              "which is not ported yet (ROADMAP A9)")
-
 
 def _mesh_layout(dp: int, mp: int, fp: int) -> str:
     parts = [f"dp{dp}"]
@@ -300,11 +300,15 @@ def _gather_rows(mesh, t: torch.Tensor, n: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _apply_center_update(c, sums, counts, *, center_update):
-    """The post-reduce centroid rule: ``"mean"`` is Lloyd (sums/counts,
-    empties keep).  ``"sphere"`` belongs to the spherical family (A9)."""
-    if center_update != "mean":
-        raise ValueError(_SPHERE_A9)
-    return apply_update(c, sums, counts)
+    """The one post-reduce centroid rule of every rank body: ``"mean"`` is
+    Lloyd (sums/counts, empties keep), ``"sphere"`` spherical k-means (the
+    renormalized direction sum; degenerate clusters keep).  ``sums`` always
+    spans every column of its rows, so the norm is local."""
+    if center_update == "mean":
+        return apply_update(c, sums, counts)
+    from kmeans_tpu_torch.models.spherical import _renormalize_update
+
+    return _renormalize_update(c, sums, counts)
 
 
 def _fused_psum_merge(mesh, sums, counts, inertia=None):
@@ -562,7 +566,7 @@ def _gather_cols(mesh, t):
 
 
 def _sharded_pass(ax, x_rows, w_rows, c_loc, *, k_real, route, k_tile, kw,
-                  empty="keep", final=False):
+                  empty="keep", final=False, center_update="mean"):
     """One sweep of the DP×TP, DP×FP and DP×TP×FP bodies.
 
     The feature ranks' centroid columns are gathered into this model
@@ -576,7 +580,9 @@ def _sharded_pass(ax, x_rows, w_rows, c_loc, *, k_real, route, k_tile, kw,
     k-slice the planner tiles goes through K5 / K6 the same way
     (``k_tile``); on the CPU every phase is the plain version.  One
     all-reduce over the row blocks (data × feature) merges (sums | counts
-    | inertia); the update and the farthest reseed run on the full-width
+    | inertia); the update (``center_update``: the sphere's norm is taken
+    over the full width here, where the reference's FP body all-reduces
+    the per-slice norms) and the farthest reseed run on the full-width
     slice, and this rank keeps its feature columns.  Returns ``(new_c_loc,
     shift², inertia, counts, labels)``; with ``final`` the update is
     skipped (``new_c_loc`` and shift² None)."""
@@ -614,7 +620,8 @@ def _sharded_pass(ax, x_rows, w_rows, c_loc, *, k_real, route, k_tile, kw,
     _mark(ax.model, "merge")
     if final:
         return None, None, inertia, counts, labels
-    new_sl = apply_update(c_sl, sums, counts)
+    new_sl = _apply_center_update(c_sl, sums, counts,
+                                  center_update=center_update)
     if empty == "farthest":
         masked = torch.where(w_rows > 0, mind, -torch.inf)
         if valid is None:
@@ -992,8 +999,11 @@ def fit_lloyd_sharded(
     cfg, gen = resolve_fit_config(k, generator, config, mesh.device)
     if center_update not in ("mean", "sphere"):
         raise ValueError(f"unknown center_update {center_update!r}")
-    if center_update == "sphere":
-        raise ValueError(_SPHERE_A9)
+    if center_update == "sphere" and cfg.empty == "farthest":
+        raise ValueError(
+            "spherical fits keep degenerate clusters (matching "
+            "fit_spherical); empty='farthest' is a Lloyd policy"
+        )
     if ckpt_dir is not None and ckpt_every is not None and ckpt_every <= 0:
         raise ValueError(f"ckpt_every must be positive, got {ckpt_every}")
     sharded = bool(model_axis or feature_axis)
@@ -1017,7 +1027,8 @@ def fit_lloyd_sharded(
                             weights_are_binary=weights_binary)
     update = resolve_update(cfg.update, w_exact=w_exact,
                             sharded_axes=sharded)
-    if update in ("hamerly", "yinyang") and cfg.empty != "keep":
+    if update in ("hamerly", "yinyang") and (cfg.empty != "keep"
+                                             or center_update != "mean"):
         raise ValueError(
             f"update={update!r} prunes rows from the distance pass (no "
             "per-sweep min_d2 for farthest-reseed, mean updates only); "
@@ -1050,6 +1061,13 @@ def fit_lloyd_sharded(
                          dtype=torch.float32, device=mesh.device)
     max_it = max_iter if max_iter is not None else cfg.max_iter
     c0 = c0.float()
+    if center_update == "sphere" and resume_meta is None:
+        # Every init route lands on the sphere (fit_spherical's c0); a
+        # resumed cut is already there, and renormalizing it would move it
+        # by an ulp off the uninterrupted run.
+        from kmeans_tpu_torch.models.spherical import normalize_rows
+
+        c0 = normalize_rows(c0)
     kw = dict(chunk_size=cfg.chunk_size, compute_dtype=cfg.compute_dtype,
               backend=backend, comm=comm)
     final_kw = dict(chunk_size=cfg.chunk_size,
@@ -1080,7 +1098,7 @@ def fit_lloyd_sharded(
         def make_step(c_start):
             def step(c, it):
                 return _sharded_pass(ax, x_loc, w_loc, c, empty=cfg.empty,
-                                     **skw)[:2]
+                                     center_update=center_update, **skw)[:2]
             return step
 
         def to_global(c):
@@ -1145,6 +1163,47 @@ def fit_lloyd_sharded(
         c, labels, inertia,
         torch.tensor(n_iter, dtype=torch.int32, device=dev),
         torch.tensor(converged, device=dev), counts[:k])
+
+
+def fit_spherical_sharded(
+    x,
+    k: int,
+    *,
+    mesh,
+    generator: Optional[torch.Generator] = None,
+    config: Optional[KMeansConfig] = None,
+    init=None,
+    weights=None,
+    data_axis: str = "data",
+    model_axis: Optional[str] = None,
+    feature_axis: Optional[str] = None,
+    tol: Optional[float] = None,
+    max_iter: Optional[int] = None,
+    pre_normalized: bool = False,
+) -> KMeansState:
+    """Spherical k-means over ``mesh``: the layouts of
+    :func:`fit_lloyd_sharded` with the renormalized-direction update of
+    :func:`~kmeans_tpu_torch.models.spherical.fit_spherical`.
+
+    Rows are unit-normalized (in f32) unless ``pre_normalized=True``: host
+    numpy stays on the host (each rank then places its block), a tensor is
+    normalized where it lies, a block of rows at a time.  Every init route
+    is projected onto the sphere inside :func:`fit_lloyd_sharded`.
+    Returned centroids are unit-norm; ``inertia`` is Σ w·2(1−cos)."""
+    from kmeans_tpu_torch.models.spherical import normalize_rows
+
+    if not pre_normalized:
+        if isinstance(x, np.ndarray):
+            xf = x.astype(np.float32, copy=False)
+            norms = np.sqrt((xf * xf).sum(axis=1, keepdims=True))
+            x = xf / np.maximum(norms, 1e-12)
+        else:
+            x = normalize_rows(x)
+    return fit_lloyd_sharded(
+        x, k, mesh=mesh, generator=generator, config=config, init=init,
+        weights=weights, data_axis=data_axis, model_axis=model_axis,
+        feature_axis=feature_axis, tol=tol, max_iter=max_iter,
+        center_update="sphere")
 
 
 def _fit_lloyd_elastic(mesh, make_step, c0, tol_v, *, max_it, cfg,

@@ -55,8 +55,8 @@ Known differences from the reference:
 * The ``train`` op's data is the port's ``make_blobs`` from a
   :class:`torch.Generator` seeded with ``seed`` (and its k-means++ from
   ``seed + 1``), not the reference's ``jax.random`` draws.  The families
-  the port does not have yet answer 400 naming ROADMAP A9, before any other
-  check.
+  the port does not have yet answer 400 naming their ROADMAP item (A9b,
+  A9c), before any other check.
 """
 
 from __future__ import annotations
@@ -82,7 +82,7 @@ import numpy as np
 
 from kmeans_tpu_torch import obs
 from kmeans_tpu_torch.config import (MAX_CENTROIDS, UNPORTED_FAMILIES,
-                                     ServeConfig)
+                                     ServeConfig, unported)
 from kmeans_tpu_torch.continuous.registry import ModelRegistry
 from kmeans_tpu_torch.device import resolve_device
 from kmeans_tpu_torch.obs import tracing as _tracing
@@ -193,7 +193,11 @@ _SLO_EXEMPT_ROUTES = frozenset((
 _TRAIN_FITS = {
     "accelerated": "fit_lloyd_accelerated",
     "minibatch": "fit_minibatch",
+    "spherical": "fit_spherical",
+    "bisecting": "fit_bisecting",
     "trimmed": "fit_trimmed",   # outliers come back as unassigned cards
+    "xmeans": "fit_xmeans",     # k acts as k_max; BIC discovers the k
+    "gmeans": "fit_gmeans",     # k_max likewise; Anderson-Darling test
 }
 
 def _state_k(state) -> int:
@@ -932,9 +936,7 @@ class KMeansServer:
         replaces the room's board as an imported document."""
         model = str(args.get("model", "lloyd"))
         if model in UNPORTED_FAMILIES:
-            raise ValueError(
-                f"train model {model!r} is not ported yet (ROADMAP A9); the "
-                "port trains lloyd, accelerated, minibatch and trimmed")
+            raise ValueError(f"train model {unported(model)}")
         n = min(int(args.get("n", 2000)), 100_000)
         d = min(int(args.get("d", 2)), 512)
         k = min(int(args.get("k", 3)), 100)
@@ -956,6 +958,14 @@ class KMeansServer:
         # The data volume one unauthenticated request may demand.
         if n * d > 8_000_000:
             raise ValueError("train shape too large: n*d must be <= 8e6")
+        if model in ("xmeans", "gmeans"):
+            # Worst case ~max_rounds·(2k split fits + 1 global fit) full-
+            # array passes at the fit's default max_rounds=16: the same
+            # 8e10 work budget as the other families' worst case.
+            if 48 * n * d * k * max_iter > 8e10:
+                raise ValueError(
+                    f"{model} work too large: 48·n·d·k·max_iter must be "
+                    "<= 8e10")
         # One training per room and a server-wide bound on them.
         if not self._train_slot_acquire():
             raise CapacityError(

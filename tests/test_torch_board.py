@@ -18,7 +18,7 @@ Mirrors the board tests of ``tests/test_server.py`` and the
   positions as features: tie-free).
 * The ``train`` op's ported families run on the port (``lloyd`` streams
   an event an iteration, with live centroids at d = 2); the reference's
-  other families answer 400 naming ROADMAP A9.
+  other families answer 400 naming their ROADMAP item (A9b, A9c).
 * ``stop()`` ends the SSE streams and returns promptly.
 
 The port runs with ``device="cpu"``.  Every server is stopped in teardown,
@@ -688,6 +688,14 @@ def test_train_lloyd_streams_an_event_an_iteration(servers):
                  "trim_fraction": 0.05}, dict(k=3, unassigned=10)),
     ("trimmed", {"n": 200, "d": 2, "k": 6, "max_iter": 10},
      dict(k=6, unassigned=10)),
+    ("spherical", {"n": 200, "d": 2, "k": 3, "max_iter": 10},
+     dict(k=3, unassigned=0)),
+    ("bisecting", {"n": 300, "d": 2, "k": 5, "max_iter": 10},
+     dict(k=5, n_iter=4, unassigned=0)),
+    ("xmeans", {"n": 300, "d": 2, "k": 8, "max_iter": 10},
+     dict(unassigned=0)),
+    ("gmeans", {"n": 300, "d": 2, "k": 8, "max_iter": 10},
+     dict(unassigned=0)),
 ])
 def test_train_one_shot_families_reach_the_board(servers, model, args,
                                                  check):
@@ -712,6 +720,18 @@ def test_train_unported_families_answer_400_naming_a9(servers, model):
         assert code == 400 and "ROADMAP A9" in out["error"], out
         assert len(out["error"].splitlines()) == 1
     assert s._train_inflight == 0
+
+
+@pytest.mark.parametrize("model", ["xmeans", "gmeans"])
+def test_train_auto_k_work_cap_is_the_references(pair, model):
+    """The auto-k families' work cap (48·n·d·k·max_iter ≤ 8e10) answers
+    both servers' 400 with the same error, before any fit."""
+    args = {"model": model, "n": 100_000, "d": 80, "k": 100,
+            "max_iter": 100}
+    got = [_mutate(s.base, "CAP", "train", args) for s in pair]
+    assert got[0] == got[1] and got[0][0] == 400, got
+    assert "work too large" in got[0][1]["error"]
+    assert all(s._train_inflight == 0 for s in pair)
 
 
 def test_train_telemetry_and_metric_families(servers, tmp_path):

@@ -35,6 +35,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: Final inertia of the two packages' fits of the same separated blobs: the
 #: same partition, f32 sums in another order.
 INERTIA_RTOL = 1e-4
+#: ``sweep``'s floats: scores taken at two packages' fits from one start
+#: (their centroids agree to 1e-5, which Davies–Bouldin's centroid
+#: distances amplify above the blob count); ``SWEEP_ATOL`` for the gap
+#: rows' logs and spreads near 0; inertia also to 1e-6 of Σ‖x‖².
+SWEEP_RTOL = 1e-4
+SWEEP_ATOL = 1e-5
 SIDES = ("ref", "port")
 
 
@@ -411,6 +417,16 @@ GUARDS = [
     ["train", "--ckpt-dir", "ck", "--ckpt-every", "0", "--mesh", "2"],
     ["train", "--merge-k", "0"],
     ["train", "--merge-k", "3", "--k", "3"],
+    # The families of ROADMAP A9a: their flags and tables.
+    ["train", "--model", "spherical", "--update", "delta"],
+    ["train", "--model", "bisecting", "--update", "matmul"],
+    ["train", "--model", "xmeans", "--comm", "scatter"],
+    ["train", "--model", "gmeans", "--coreset", "50"],
+    ["train", "--model", "spherical", "--trim-fraction", "0.1"],
+    ["train", "--model", "bisecting", "--progress"],
+    ["sweep", "--criterion", "bic"],
+    ["sweep", "--criterion", "gap", "--model", "accelerated"],
+    ["sweep", "--criterion", "elbow", "--k-max", "3"],
 ]
 
 
@@ -493,11 +509,11 @@ def test_export_bytes_equal_the_references(tmp_path, capsys):
 
 
 REFUSED = [
-    (["--stream", "--input", "x.npy", "--model", "gmm"], "A9"),
-    (["--model", "gmm"], "A9"),
-    (["--model", "xmeans"], "A9"),
-    (["--pca", "1"], "A9"),
-    (["--whiten"], "A9"),
+    (["--stream", "--input", "x.npy", "--model", "gmm"], "A9b"),
+    (["--model", "gmm"], "A9b"),
+    (["--model", "fuzzy"], "A9b"),
+    (["--pca", "1"], "A9b"),
+    (["--whiten"], "A9b"),
 ]
 
 
@@ -850,3 +866,189 @@ def test_merge_k_matches_the_references(tmp_path, capsys):
                                lines["ref"]["inertia"], rtol=INERTIA_RTOL)
     assert _partition(docs["port"]) == _partition(docs["ref"])
     assert len(set(_partition(docs["port"]))) == 3
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP A9a: cli sweep and the spherical, bisecting and auto-k families
+# ---------------------------------------------------------------------------
+
+def _replay_inits(monkeypatch, port_module, ref_module, run_port):
+    """Run ``run_port`` with the port's inner-fit starts recorded (wrapping
+    ``port_module.fit_lloyd``), then wrap ``ref_module.fit_lloyd`` to
+    replay them (``tests/torch_replay.py``); returns ``run_port()``."""
+    from torch_replay import record_fit_lloyd, replay_fit_lloyd
+
+    inits = []
+    with monkeypatch.context() as m:
+        record_fit_lloyd(m, port_module, inits)
+        out = run_port()
+    replay_fit_lloyd(monkeypatch, ref_module, inits)
+    return out
+
+
+@pytest.mark.parametrize("family", ["spherical", "bisecting", "xmeans",
+                                    "gmeans"])
+def test_train_families_match_the_references(family, tmp_path, capsys,
+                                             monkeypatch):
+    """``train --model F`` prints the reference's result line: the same
+    keys, k (the discovered k for x-means and g-means, with ``--k`` as
+    k_max), n_iter and inertia within ``INERTIA_RTOL``.  The splitting
+    families' inner starts are the port's, replayed; spherical's k-means++
+    draws differ, and on these blobs reach the same partition."""
+    import kmeans_tpu.models.bisecting as ref_bisecting
+    import kmeans_tpu.models.xmeans as ref_xmeans
+    import kmeans_tpu_torch.models.bisecting as port_bisecting
+
+    npy = str(tmp_path / "x.npy")
+    np.save(npy, _separated(41, 1200, 6, 4, std=0.25))
+    argv = ["train", "--input", npy, "--model", family, "--k",
+            "8" if family in ("xmeans", "gmeans") else "4"]
+    if family == "spherical":
+        rc_p, out_p, err_p = _run("port", capsys, argv)
+    else:
+        ref_module = ref_bisecting if family == "bisecting" else ref_xmeans
+        rc_p, out_p, err_p = _replay_inits(
+            monkeypatch, port_bisecting, ref_module,
+            lambda: _run("port", capsys, argv))
+    rc_r, out_r, err_r = _run("ref", capsys, argv)
+    assert rc_r in (0, None) and rc_p == 0, err_p + err_r
+    ref, got = json.loads(out_r), json.loads(out_p)
+    assert list(got) == list(ref)
+    same = ("n", "d", "k", "mode", "n_iter", "converged")
+    assert {f: got[f] for f in same} == {f: ref[f] for f in same}
+    np.testing.assert_allclose(got["inertia"], ref["inertia"],
+                               rtol=INERTIA_RTOL)
+
+
+@pytest.mark.parametrize("family", ["spherical", "bisecting"])
+def test_train_coreset_takes_the_new_families(family, tmp_path, capsys):
+    """``--coreset M`` fits spherical and bisecting on the weighted coreset,
+    as the reference's list allows; the result line carries ``coreset``."""
+    npy = str(tmp_path / "x.npy")
+    np.save(npy, _separated(42, 1500, 5, 3))
+    argv = ["train", "--input", npy, "--model", family, "--k", "3",
+            "--coreset", "300"]
+    rc_p, out_p, err_p = _run("port", capsys, argv)
+    rc_r, out_r, _ = _run("ref", capsys, argv)
+    assert rc_p == 0 and rc_r in (0, None), err_p
+    got, ref = json.loads(out_p), json.loads(out_r)
+    assert list(got) == list(ref) and got["coreset"] == 300
+    assert got["k"] == 3 and np.isfinite(got["inertia"])
+
+
+def test_train_merge_k_takes_the_discovered_k(tmp_path, capsys,
+                                              monkeypatch):
+    """x-means' ``--k`` is k_max, so ``--merge-k`` is checked against the
+    discovered k after the fit, as in the reference."""
+    import kmeans_tpu.models.xmeans as ref_xmeans
+    import kmeans_tpu_torch.models.bisecting as port_bisecting
+
+    npy = str(tmp_path / "x.npy")
+    np.save(npy, _separated(43, 1200, 6, 5, std=0.25))
+    for merge in ("2", "8"):
+        argv = ["train", "--input", npy, "--model", "xmeans", "--k", "8",
+                "--merge-k", merge]
+        rc_p, out_p, err_p = _replay_inits(
+            monkeypatch, port_bisecting, ref_xmeans,
+            lambda: _run("port", capsys, argv))
+        rc_r, out_r, err_r = _run("ref", capsys, argv)
+        monkeypatch.undo()
+        assert (rc_p, err_p) == (rc_r or 0, err_r)
+        if merge == "2":
+            assert json.loads(out_p)["merged_k"] == 2
+            assert list(json.loads(out_p)) == list(json.loads(out_r))
+
+
+def test_comm_reaches_the_sharded_fit(monkeypatch, capsys):
+    """``--comm`` is the sharded merge the fit runs: the config the ranks
+    get carries it (the port dropped it before; the reference passes it)."""
+    import kmeans_tpu_torch.config as port_config
+
+    seen = []
+
+    class Recording(port_config.KMeansConfig):
+        def __init__(self, *a, **kw):
+            seen.append(kw.get("comm"))
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(port_config, "KMeansConfig", Recording)
+    monkeypatch.setattr(port_cli, "_launch_mesh", lambda args, n: 0)
+    for model in ("lloyd", "spherical", "bisecting"):
+        assert port_cli.main(["train", "--model", model, "--comm",
+                              "scatter", "--mesh", "2", "--device",
+                              "cpu"]) == 0
+    assert seen == ["scatter"] * 3
+
+
+@pytest.fixture()
+def sweep_npy(tmp_path):
+    # Six blobs swept at k = 2..6: from one start two packages' Lloyd fits
+    # follow one path where every cluster is a union of blobs; above the
+    # blob count a boundary row's near-tie can flip on the f32 sum order
+    # and the paths part (n_iter differs), in either package alone too.
+    rng = np.random.default_rng(44)
+    centers = rng.uniform(-10, 10, size=(6, 6))
+    lab = rng.integers(0, 6, size=900)
+    x = (centers[lab] + 0.4 * rng.normal(size=(900, 6))).astype(np.float32)
+    p = tmp_path / "sweep.npy"
+    np.save(p, x)
+    return str(p)
+
+
+@pytest.mark.parametrize("criterion", ["silhouette", "elbow", "gap"])
+def test_sweep_lines_match_the_references(criterion, sweep_npy, capsys,
+                                          monkeypatch):
+    """``sweep`` prints the reference's lines: one scored row per k with
+    the same keys, k, ``n_iter`` and ``converged``, the floats within
+    ``SWEEP_RTOL``, and the same ``suggested_k``.  Every fit starts where
+    the port's did, and the silhouette samples and gap reference sets are
+    the port's draws (``tests/torch_replay.py``)."""
+    import kmeans_tpu.models as ref_models
+    import kmeans_tpu_torch.models as port_models
+    from kmeans_tpu_torch import metrics as port_metrics
+    from kmeans_tpu_torch.models import selection as port_selection
+    from torch_replay import record_calls, replay_jax_random
+
+    argv = ["sweep", "--input", sweep_npy, "--k-min", "2", "--k-max", "6",
+            "--criterion", criterion, "--silhouette-sample", "400",
+            "--gap-refs", "2"]
+    draws = []
+    name, jax_name = (("uniform_rows", "uniform") if criterion == "gap"
+                      else ("sample_rows", "choice"))
+    with monkeypatch.context() as m:
+        record_calls(m, port_selection if criterion == "gap"
+                     else port_metrics, name, draws)
+        rc_p, out_p, err_p = _replay_inits(
+            monkeypatch, port_models, ref_models,
+            lambda: _run("port", capsys, argv))
+    replay_jax_random(monkeypatch, jax_name, draws)
+    rc_r, out_r, err_r = _run("ref", capsys, argv)
+    assert rc_p == 0 and rc_r in (0, None), err_p + err_r
+    got = [json.loads(ln) for ln in out_p.splitlines()]
+    ref = [json.loads(ln) for ln in out_r.splitlines()]
+    assert [list(r) for r in got] == [list(r) for r in ref]
+    assert got[-1] == ref[-1] and list(got[-1]) == ["suggested_k"]
+    # A row's inertia rounds each row's expanded distance at ‖x‖²'s scale.
+    x = np.load(sweep_npy).astype(np.float64)
+    inertia_atol = 1e-6 * float((x ** 2).sum())
+    for g, r in zip(got[:-1], ref[:-1]):
+        for key, want in r.items():
+            if isinstance(want, float):
+                atol = inertia_atol if key == "inertia" else SWEEP_ATOL
+                np.testing.assert_allclose(g[key], want, rtol=SWEEP_RTOL,
+                                           atol=atol, err_msg=key)
+            else:
+                assert g[key] == want, key
+
+
+@pytest.mark.parametrize("model", ["fuzzy", "gmm", "balanced", "kernel",
+                                   "kmedoids", "spectral"])
+def test_sweep_refuses_the_unported_families(model, capsys):
+    """``sweep --model F`` for a family of A9b / A9c: exit 2, one line
+    naming its item, nothing printed on stdout, no fit and no card."""
+    from kmeans_tpu_torch.config import UNPORTED_ITEMS
+
+    rc = port_cli.main(["sweep", "--model", model])
+    out = capsys.readouterr()
+    assert rc == 2 and out.out == ""
+    assert _refused(out.err, UNPORTED_ITEMS[model])

@@ -240,6 +240,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         " or m.startswith('kmeans_tpu.'))\n"
         "walked = ['kmeans_tpu_torch.parallel.' + m for m in"
         " ('mesh', 'distributed', 'engine', 'init_sharded')]\n"
+        "walked += ['kmeans_tpu_torch.metrics'] + ["
+        "'kmeans_tpu_torch.models.' + m for m in ('selection',"
+        " 'spherical', 'bisecting', 'xmeans', 'gmeans')]\n"
         "bad += [m + ' not walked' for m in walked if m not in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -151,7 +151,8 @@ def _cases():
         x=X, init=C0, feature_axis="feature", mesh_axes=(
             "data", "model", "feature"), **_fit_kw(5))))
     cases.append(("refuse sphere", "fit",
-                  dict(x=X, init=C0, k=5, center_update="sphere")))
+                  dict(x=X, init=C0, k=5, center_update="sphere",
+                       config=dict(k=5, empty="farthest"))))
     cases.append(("model mesh", "mesh", dict(shape=(1, 2))))
     cases.append(("mesh freed", "mesh_freed", {}))
     cases.append(("refuse big mesh", "mesh", dict(shape=(8, 1))))
@@ -477,10 +478,18 @@ def test_runner_on_a_mesh_matches_the_dense_fit(worlds, dp):
 
 
 @pytest.mark.parametrize("dp", DPS)
-@pytest.mark.parametrize("case,item", [("refuse sphere", "A9")])
-def test_unported_arguments_name_their_item(worlds, dp, case, item):
+@pytest.mark.parametrize("case,item", [("refuse sphere", "A9a")])
+def test_unported_arguments_name_their_item(worlds, ref_meshes, dp, case,
+                                            item):
+    """The sphere update, ported with the spherical family (ROADMAP
+    ``item``), refuses what the reference's refuses, with its error: the
+    farthest reseed is a Lloyd policy."""
     err = worlds[dp][case]["error"]
-    assert err.startswith("ValueError") and f"ROADMAP {item}" in err
+    with pytest.raises(ValueError) as want:
+        ref_engine.fit_lloyd_sharded(
+            X, 5, mesh=ref_meshes[dp], init=C0, center_update="sphere",
+            config=RefConfig(k=5, empty="farthest"))
+    assert err == f"ValueError: {want.value}"
 
 
 @pytest.mark.parametrize("dp", DPS)

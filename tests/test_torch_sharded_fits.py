@@ -1,5 +1,7 @@
-"""The port's sharded accelerated, trimmed and streamed fits against the JAX
-package's, on the CPU, and the placement that keeps each rank to its rows.
+"""The port's sharded accelerated, trimmed, streamed and spherical fits
+against the JAX package's, on the CPU, the families that run their inner
+fits on the mesh (bisecting, x-means, g-means, and ``cli train --mesh``
+for the four of them), and the placement that keeps each rank to its rows.
 
 One gloo world of four CPU processes (``tests/torch_mesh_worker.py``) runs
 every case once (dp 4: every problem's rows pad, and the trimmed budget
@@ -8,9 +10,17 @@ mesh of the same dp, from the same numpy inputs and an explicit c0.  Labels,
 outlier masks and iteration counts must be equal (the data is tie-free
 blobs, or ties exactly where a test pins the lowest-index rule); centroids,
 counts and inertia agree to RTOL / ATOL (1e-5), the two packages summing
-the same f32 terms in other orders.
+the same f32 terms in other orders.  The spherical fits run the sphere
+update on DP (delta and dense, allreduce and scatter), FP (mesh (2, 1, 2):
+each rank's sums are full width, so the norm needs no collective) and TP
+(mesh (2, 2)); every centroid's norm is 1 within 1e-6.  The mesh families
+are held to the port's single-device fit from the same seed (the sharded
+seeding draws what one device draws), their inertia also to
+``INERTIA_ATOL_REL`` of Σ‖x‖² (each row's expanded distance rounds at
+‖x‖²'s scale).
 """
 
+import json
 import os
 import sys
 
@@ -35,6 +45,7 @@ from kmeans_tpu_torch.parallel import engine as port_engine  # noqa: E402
 
 RTOL = 1e-5
 ATOL = 1e-5
+INERTIA_ATOL_REL = 1e-6
 DPS = (4,)
 MAX_ITER = 25
 
@@ -67,6 +78,44 @@ CE = np.stack([XE[0], XE[0], XE[1], XE[2]]).astype(np.float32)
 XS = _blobs(13, 4003, 10, 5, std=0.3)
 CS = XS[:5].copy()
 STREAM_KW = dict(batch_size=250, steps=40, seed=3)
+
+
+def _directions(seed, n, d, k, spread=0.15):
+    """Rows around k unit directions with random magnitudes: the spherical
+    family's data."""
+    rng = np.random.default_rng(seed)
+    dirs = rng.normal(size=(k, d))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    lab = rng.integers(0, k, size=n)
+    x = (dirs[lab] + spread * rng.normal(size=(n, d))) * rng.uniform(
+        0.5, 20.0, size=(n, 1))
+    return x.astype(np.float32)
+
+
+# d = 15 pads to 16 columns on the feature axis of 2.
+XSP = _directions(15, 1001, 15, 5)
+CSP = XSP[:5].copy()
+#: The sphere cases: name → (mesh kwargs, fit kwargs).
+SPHERE = {
+    "dp": ({}, {}),
+    "dp matmul": ({}, dict(config=dict(k=5, update="matmul"))),
+    "dp scatter": ({}, dict(config=dict(k=5, comm="scatter"))),
+    "fp": (dict(mesh_shape=(2, 1, 2), mesh_axes=("data", "model",
+                                                 "feature")),
+           dict(feature_axis="feature")),
+    "tp": (dict(mesh_shape=(2, 2), mesh_axes=("data", "model")),
+           dict(model_axis="model")),
+}
+# The auto-k and bisecting families on the mesh: separated blobs.
+XA = _blobs(17, 1001, 6, 4, std=0.4, spread=6.0)
+FAMILIES = {"bisecting": (5, dict(k=5, seed=3)),
+            "xmeans": (8, dict(k=1, seed=3)),
+            "gmeans": (8, dict(k=1, seed=3))}
+#: ``cli train`` on the world (``--mesh 4``) against one device.
+CLI_BASE = ["train", "--n", "1500", "--d", "6", "--seed", "2", "--device",
+            "cpu", "--max-iter", "30"]
+CLI_FAMILIES = {"spherical": "4", "bisecting": "4", "xmeans": "8",
+                "gmeans": "8"}
 #: The accelerated cases: name → (accel, beta_max, tol).  At β = 1 the beta
 #: loop's end is decided by a rounding rise of the objective, which two
 #: packages summing in other orders reach at other sweeps
@@ -130,6 +179,16 @@ def _cases(stream_path, tmp):
         path=stream_path, k=5, checkpoint_path=ck + "-cut",
         checkpoint_every=10, resume=True, **STREAM_KW)))
     cases.append(("block storage", "block_storage", dict(x=X)))
+    for name, (mesh_kw, kw) in SPHERE.items():
+        cases.append((f"sphere {name}", "sphere", dict(
+            x=XSP, k=5, init=CSP, tol=1e-10, max_iter=MAX_ITER, **mesh_kw,
+            **kw)))
+    for family, (k, cfg) in FAMILIES.items():
+        cases.append((f"{family} mesh", "family", dict(
+            family=family, x=XA, k=k, config=cfg)))
+    for family, k in CLI_FAMILIES.items():
+        cases.append((f"cli {family}", "cli", dict(argv=CLI_BASE + [
+            "--model", family, "--k", k, "--mesh", str(DPS[0])])))
     return cases
 
 
@@ -415,6 +474,100 @@ def test_placed_blocks_own_their_rows(worlds, dp):
 def test_package_surface_has_the_new_fits():
     import kmeans_tpu_torch.parallel as p
 
-    for name in ("fit_lloyd_accelerated_sharded", "fit_trimmed_sharded"):
+    for name in ("fit_lloyd_accelerated_sharded", "fit_trimmed_sharded",
+                 "fit_spherical_sharded"):
         assert hasattr(p, name), name
     assert port_engine.ENGINE_CKPT_EVERY == ref_engine.ENGINE_CKPT_EVERY
+
+
+# ---------------------------------------------------------------------------
+# (d) the sphere update and the families that fit on the mesh
+# ---------------------------------------------------------------------------
+
+def _ref_sphere_mesh(cpu_devices, name, dp):
+    shape, axes = {"fp": ((2, 1, 2), ("data", "model", "feature")),
+                   "tp": ((2, 2), ("data", "model"))}.get(
+                       name, ((dp, 1), ("data", "model")))
+    return ref_make_mesh(shape, axes, devices=cpu_devices[:dp])
+
+
+@pytest.mark.parametrize("dp", DPS)
+@pytest.mark.parametrize("name", list(SPHERE))
+def test_sphere_update_matches_the_reference(worlds, cpu_devices, dp, name):
+    """``fit_spherical_sharded`` on every layout against the reference's:
+    the same labels and iterations, unit-norm centroids."""
+    mesh_kw, kw = SPHERE[name]
+    kw = dict(kw)
+    cfg = kw.pop("config", None)
+    want = ref_engine.fit_spherical_sharded(
+        XSP, 5, mesh=_ref_sphere_mesh(cpu_devices, name, dp), init=CSP,
+        tol=1e-10, max_iter=MAX_ITER,
+        config=None if cfg is None else RefConfig(**cfg), **kw)
+    got = worlds[dp][f"sphere {name}"]
+    _assert_state(got, want)
+    np.testing.assert_allclose(np.linalg.norm(got["centroids"], axis=1), 1.0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_sphere_dense_mesh_is_the_single_device_fit(worlds, dp):
+    """The dense sphere sweep on the mesh runs ``fit_spherical``'s
+    iterations: the same labels and centroids from the same init."""
+    got = _ok(worlds[dp]["sphere dp matmul"])
+    want = kt.fit_spherical(XSP, 5, init=CSP, tol=1e-10, max_iter=MAX_ITER,
+                            device="cpu")
+    np.testing.assert_array_equal(got["labels"], want.labels.numpy())
+    np.testing.assert_allclose(got["centroids"], want.centroids.numpy(),
+                               rtol=RTOL, atol=ATOL)
+    assert got["n_iter"] == int(want.n_iter)
+
+
+def _inertia_close(got, want, x):
+    atol = INERTIA_ATOL_REL * float((np.asarray(x, np.float64) ** 2).sum())
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=atol)
+
+
+@pytest.mark.parametrize("dp", DPS)
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_families_on_the_mesh_are_the_single_device_fits(worlds, dp,
+                                                         family):
+    """Bisecting, x-means and g-means with ``mesh``: every inner fit on the
+    engine (the split masks admitted as binary weights), the same splits,
+    discovered k and labels as one device's fit from the same seed."""
+    import kmeans_tpu_torch.models as models
+
+    k, cfg = FAMILIES[family]
+    got = _ok(worlds[dp][f"{family} mesh"])
+    want = getattr(models, f"fit_{family}")(
+        XA, k, config=kt.KMeansConfig(**cfg), device="cpu")
+    np.testing.assert_array_equal(got["labels"], want.labels.numpy())
+    assert got["centroids"].shape == tuple(want.centroids.shape)
+    np.testing.assert_allclose(got["centroids"], want.centroids.numpy(),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got["counts"], want.counts.numpy(),
+                               rtol=RTOL, atol=ATOL)
+    assert got["n_iter"] == int(want.n_iter)
+    assert got["converged"] == bool(want.converged)
+    _inertia_close(got["inertia"], float(want.inertia), XA)
+
+
+@pytest.mark.parametrize("dp", DPS)
+@pytest.mark.parametrize("family", list(CLI_FAMILIES))
+def test_train_mesh_families_print_the_one_device_line(worlds, dp, family,
+                                                       capsys):
+    """``cli train --model F --mesh N`` joined to the world: rank 0 prints
+    one result line, the ``--mesh 1`` line's fields (the discovered k for
+    x-means and g-means) plus ``mesh``."""
+    from kmeans_tpu_torch import cli as port_cli
+
+    res = _ok(worlds[dp][f"cli {family}"])
+    assert res["rc"] == 0, res["err"]
+    two = json.loads(res["out"].strip().splitlines()[-1])
+    argv = CLI_BASE + ["--model", family, "--k", CLI_FAMILIES[family]]
+    assert port_cli.main(argv) == 0
+    one = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert two["mesh"] == dp and "mesh" not in one
+    same = ("n", "d", "k", "n_iter", "mode", "converged")
+    assert {f: two[f] for f in same} == {f: one[f] for f in same}
+    assert sorted(set(two) - {"mesh"}) == sorted(one)
+    np.testing.assert_allclose(two["inertia"], one["inertia"], rtol=1e-5)

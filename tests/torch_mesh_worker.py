@@ -144,6 +144,36 @@ def op_trimmed(mesh, x, k, config=None, **kw):
     return dict(_state(st), outlier_mask=_np(st.outlier_mask))
 
 
+def op_sphere(mesh, x, k, config=None, **kw):
+    from kmeans_tpu_torch.parallel import fit_spherical_sharded
+
+    return _state(fit_spherical_sharded(x, k, mesh=mesh, config=_cfg(config),
+                                        **kw))
+
+
+def op_family(mesh, family, x, k, config=None, **kw):
+    """``fit_bisecting`` / ``fit_xmeans`` / ``fit_gmeans`` with ``mesh``:
+    every inner fit and assign on the sharded engine."""
+    import kmeans_tpu_torch.models as models
+
+    fit = getattr(models, f"fit_{family}")
+    return _state(fit(x, k, mesh=mesh, config=_cfg(config), **kw))
+
+
+def op_cli(mesh, argv):
+    """``cli.main(argv)`` joining this world as its mesh (``--mesh`` must
+    be the world's size): rank 0's exit code and printed lines."""
+    import contextlib
+    import io
+
+    from kmeans_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(list(argv))
+    return {"rc": rc, "out": out.getvalue(), "err": err.getvalue()}
+
+
 def _faults(mesh, fault, fault_rank):
     """``fault`` (a fault spec) installed on every rank, or on
     ``fault_rank`` alone."""
