@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 from the root of a checkout.  It builds the port's CUDA kernels from
-``kmeans_tpu_torch/csrc/lloyd.cu`` and runs eighteen phases, exiting
+``kmeans_tpu_torch/csrc/lloyd.cu`` and runs nineteen phases, exiting
 non-zero if any fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -87,7 +87,7 @@ non-zero if any fails:
 7. K6's device time split by kernel (a ``torch.profiler`` trace of
    ordinary calls) on seeded inputs at the full width: the single fold at
    k = 1000 and at k = 65536, and the dual fold at k = 65536 with 2% of
-   the rows changed;
+   the rows changed (the full run prints it after phase 17);
 8. serving, run after phase 6: the assignment engine
    (``kmeans_tpu_torch.serve.assign.AssignEngine``) on the card serves
    phase 4's delta-fit centroids (imagenet-serve, k = 1000: the default
@@ -308,13 +308,48 @@ non-zero if any fails:
    fit) beside train-mesh
    (``cli train --mesh 2 --device cpu`` for spherical, bisecting, xmeans
    and gmeans against ``--mesh 1``);
-18. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+18. the soft, balanced and projected families (no kernel of their own:
+   their products are ``torch.matmul``, their passes plain PyTorch, as
+   the reference's are XLA code), each from a fixed init: imagenet-gmm
+   (``fit_gmm`` at n = 1,280,000, d = 2048, k = 1000, diag, bf16,
+   GMM_ITERS EM iterations: ms an iteration, one pass's products and
+   other kernels under ``torch.profiler``, the peak memory, every pass's
+   log-likelihood rising but for its f32 rounding and the last against an
+   f64 recomputation on the card), mnist-gmm (diag, spherical and tied in
+   f32, each held to the port's CPU fit; the tied fit's Cholesky factor
+   and solves timed), glove-fuzzy (f32 and bf16, FUZZY_ITERS iterations;
+   one pass's sums, soft counts and J against f64 on the card; the first
+   FUZZY_HOLD_ROWS rows against the CPU fit), mnist-balanced
+   (``BalancedKMeans`` with 200 Sinkhorn sweeps a step: the column masses
+   at the capacities, the hard counts near n/k, then ``predict`` on K1),
+   gmm-dp1-nccl and fuzzy-dp1-nccl (the sharded fits on an NCCL mesh of
+   one, bit for bit one card's), glove-balanced-dp1-nccl
+   (``fit_balanced_sharded`` at n·k = 4e8, past the single-device gate,
+   BAL_ITERS outer iterations: ms a Sinkhorn sweep against its bound, the
+   peak memory and two all-reduces a sweep; held at BAL_HOLD_ROWS rows
+   and BAL_HOLD_ITERS outer iterations to ``fit_balanced``),
+   cifar10-pca-cli (``cli train --pca 256 --whiten
+   --k 100`` in a child process, its Lloyd fit's K1 and K2 counted; the
+   moment product and eigh timed, the components held to the CPU's up to
+   sign), cifar10-gmm-stream (the streamed GMM at the CLI's defaults in
+   process: steps a second and the card's idle share; ``cli train
+   --stream --model gmm`` in a child process with a SIGTERM drill, its
+   directory resumed here and ending on the uninterrupted run bit for
+   bit), mnist-sweep-bic (``cli sweep
+   --model gmm --criterion bic`` in a child process, every row's BIC
+   against f64), a gloo world of two ranks sharing the card
+   (``chip_smoke.py --soft-rank SPEC``: gmm, fuzzy, balanced and
+   ``pca_fit_sharded`` on DP, each held to one card's) and train-mesh
+   (``cli train --mesh 2 --device cpu`` for fuzzy, gmm and balanced
+   against ``--mesh 1``);
+19. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.  A kernel has a row for each compute dtype its main-path runs
    score in: bf16 (phases 4, 6, 9, 12's in-process and bf16 runs, 13's
    in-process trimmed runs, 14's bf16 stream and 17's bf16 runs) and f32
    (the route's K1, K2 and K4 from imagenet-delta-f32, phase 12's f32 CLI
    runs, phase 13's trimmed CLI run, K1 from phase 9's cifar10 runs,
-   phase 14's f32 runs and phase 17's f32 runs, with the board server's
+   phase 14's f32 runs and phase 17's and 18's f32 runs, with the board
+   server's
    f32 K1 and K2 launches on ``score_block`` at d <= 80; K5 from each
    served model's runs), each row's launches counted in its own runs and
    its times taken at its own shape.
@@ -331,7 +366,8 @@ and 10, and 1 and 11, on ``make_blobs`` centres; ``--runner`` runs phases
 1, 2 and 12 (it makes phase 6's fit itself); ``--board`` runs phases 1
 and 13 (the kernels build at their first call); ``--stream`` runs phases
 1, 2 and 14; ``--mesh`` runs phases 1, 2 and 15; ``--sharded`` runs
-phases 1, 2 and 16; ``--families`` runs phases 1, 2 and 17.
+phases 1, 2 and 16; ``--families`` runs phases 1, 2 and 17; ``--soft``
+runs phases 1, 2 and 18.
 
 The bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of memory, 989
 TFLOP/s bf16 on the tensor cores and 67 TFLOP/s f32 outside them; an f32
@@ -5354,10 +5390,48 @@ def _cli_runs(card, tmp):
 
     d1, tel, trace, out = (f"{tmp}/d1", f"{tmp}/run.jsonl",
                            f"{tmp}/trace.json", f"{tmp}/board.json")
-    run1 = _CliRun(tmp, "cli f32 runner", base + [
-        "--dtype", "float32", "--progress", "--checkpoint", d1,
-        "--checkpoint-every", str(CLI_CHECKPOINT_EVERY), "--telemetry", tel,
-        "--trace", trace, "--out", out]).need()
+    d2 = f"{tmp}/d2"
+    runs = {}
+
+    def sigterm(run, line, proc):
+        if line.startswith('{"event": "iter"') and \
+                json.loads(line)["iteration"] >= DRILL_AT:
+            proc.send_signal(signal.SIGTERM)
+            return True
+        return False
+
+    def f32_chain():
+        runs["run1"] = _CliRun(tmp, "cli f32 runner", base + [
+            "--dtype", "float32", "--progress", "--checkpoint", d1,
+            "--checkpoint-every", str(CLI_CHECKPOINT_EVERY), "--telemetry",
+            tel, "--trace", trace, "--out", out]).need()
+        runs["drill"] = _CliRun(tmp, "cli drill", base + [
+            "--dtype", "float32", "--progress", "--checkpoint", d2],
+            on_line=sigterm).need(3)
+        # The drill's checkpoint step, read before the resume, which keeps
+        # saving into the same directory.
+        step = runs["step"] = latest_step(d2)
+        _check(step is not None and DRILL_AT <= step < CLI_ITERS,
+               f"cli drill: checkpoint at {step}")
+        runs["resumed"] = _CliRun(tmp, "cli resume", base[:-4] + [
+            "--max-iter", str(CLI_ITERS - step), "--tol", "-1", "--dtype",
+            "float32", "--resume", d2]).need()
+
+    def other_chain():
+        runs["run3"] = _CliRun(tmp, "cli bf16 runner", base + [
+            "--dtype", "bfloat16", "--progress"]).need()
+        runs["fused"] = _CliRun(tmp, "cli fused", [
+            "train", "--config", "imagenet", "--model", "lloyd",
+            "--max-iter", "20", "--tol", "-1"]).need()
+        runs["mb"] = _CliRun(tmp, "cli cifar10",
+                             ["train", "--config", "cifar10"]).need()
+
+    # The two chains at once (each run's per-iteration times are its
+    # process's beside the other chain's, not the card's alone).
+    _at_once(f32_chain, other_chain)
+    run1, drill, resumed = runs["run1"], runs["drill"], runs["resumed"]
+    run3, fused, mb = runs["run3"], runs["fused"], runs["mb"]
+
     _add_counts(f32, run1.counts)
     events = [json.loads(ln) for ln in open(tel, encoding="utf-8")]
     iters = [e for e in events if e["event"] == "iter"]
@@ -5389,27 +5463,11 @@ def _cli_runs(card, tmp):
                     f"({saves} checkpoint_save), {len(board['cards'])} "
                     "cards exported"))
 
-    d2 = f"{tmp}/d2"
-
-    def sigterm(run, line, proc):
-        if line.startswith('{"event": "iter"') and \
-                json.loads(line)["iteration"] >= DRILL_AT:
-            proc.send_signal(signal.SIGTERM)
-            return True
-        return False
-
-    drill = _CliRun(tmp, "cli drill", base + [
-        "--dtype", "float32", "--progress", "--checkpoint", d2],
-        on_line=sigterm).need(3)
     _add_counts(f32, drill.counts)
-    step = latest_step(d2)
-    _check(f"resume with: --resume {d2}" in drill.err and step is not None
-           and any(f"at iteration {step};" in ln for ln in drill.err)
-           and DRILL_AT <= step < CLI_ITERS,
+    step = runs["step"]
+    _check(f"resume with: --resume {d2}" in drill.err
+           and any(f"at iteration {step};" in ln for ln in drill.err),
            f"cli drill: no resumable exit at the signal: {drill.err[-3:]}")
-    resumed = _CliRun(tmp, "cli resume", base[:-4] + [
-        "--max-iter", str(CLI_ITERS - step), "--tol", "-1", "--dtype",
-        "float32", "--resume", d2]).need()
     _add_counts(f32, resumed.counts)
     rel = abs(resumed.result["inertia"] - run1.result["inertia"]) / \
         run1.result["inertia"]
@@ -5423,16 +5481,11 @@ def _cli_runs(card, tmp):
                        f"{resumed.result['n_iter']}, inertia rel {rel:.3e} "
                        "against the uninterrupted run"))
 
-    run3 = _CliRun(tmp, "cli bf16 runner", base + [
-        "--dtype", "bfloat16", "--progress"]).need()
     _add_counts(bf16, run3.counts)
     print(run3.line(f"; steady iteration {run3.iter_ms():.3f} ms on "
                     f"score_block (f32 run: {run1.iter_ms():.3f} ms on the "
                     "f32 route)"))
 
-    fused = _CliRun(tmp, "cli fused", ["train", "--config", "imagenet",
-                                       "--model", "lloyd", "--max-iter",
-                                       "20", "--tol", "-1"]).need()
     _add_counts(f32, fused.counts)
     _check(fused.counts["lloyd_pass_cuda"] >= 2
            and fused.counts["lloyd_delta_cuda"] >= 1
@@ -5440,13 +5493,13 @@ def _cli_runs(card, tmp):
            f"cli fused: the adaptive loop launched {fused.counts}")
     print(fused.line(" (the adaptive update='auto' loop, f32)"))
 
-    mb = _CliRun(tmp, "cli cifar10", ["train", "--config", "cifar10"]).need()
     _add_counts(f32, mb.counts)
     _check(mb.result["mode"] == "minibatch" and mb.result["n_iter"] == 200
            and mb.counts["lloyd_pass_cuda"] >= 1,
            f"cli cifar10: {mb.result}, launches {mb.counts}")
     print(mb.line(" (minibatch, f32)"))
-    print(f"cli runs: {time.perf_counter() - t_cli:.1f} s")
+    print(f"cli runs: {time.perf_counter() - t_cli:.1f} s (the f32 runner, "
+          "drill and resume beside the bf16, fused and cifar10 runs)")
     return bf16, f32
 
 
@@ -9168,13 +9221,21 @@ def _sweep_cli(spec) -> int:
     from kmeans_tpu_torch import metrics as M
     from kmeans_tpu_torch.ops import cuda_lloyd as K
 
-    fits, samples, starts = [], [], []
+    fits, samples, starts, gmms = [], [], [], []
     real_fit, real_sample = models.fit_lloyd, M.sample_rows
+    real_gmm = models.fit_gmm
 
     def fit_lloyd(x, k, **kw):
         starts.append(time.perf_counter())
         st = real_fit(x, k, **kw)
         fits.append((st.labels.cpu(), st.centroids.cpu()))
+        return st
+
+    def fit_gmm(x, k, **kw):
+        starts.append(time.perf_counter())
+        st = real_gmm(x, k, **kw)
+        gmms.append((st.means.cpu(), st.covariances.cpu(),
+                     st.mix_weights.cpu()))
         return st
 
     def sample_rows(*a, **kw):
@@ -9183,6 +9244,7 @@ def _sweep_cli(spec) -> int:
         return idx
 
     models.fit_lloyd, M.sample_rows = fit_lloyd, sample_rows
+    models.fit_gmm = fit_gmm
     K.reset_launch_counts()
     t0 = time.perf_counter()
     try:
@@ -9191,7 +9253,7 @@ def _sweep_cli(spec) -> int:
         ends = starts[1:] + [time.perf_counter()]
         with open(spec["counts"], "w", encoding="utf-8") as f:
             json.dump(K.launch_counts(), f)
-        torch.save({"fits": fits, "samples": samples,
+        torch.save({"fits": fits, "samples": samples, "gmm": gmms,
                     "seconds": [e - s for s, e in zip(starts, ends)],
                     "total": time.perf_counter() - t0}, spec["dump"])
     return rc or 0
@@ -9590,15 +9652,17 @@ def phase_families(card):
         mark("imagenet-spherical")
         _glove_autok(card, totals)
         mark("glove-xmeans, glove-gmeans")
-        _mnist_sweep(card, tmp, totals)
-        mark("mnist-sweep")
-        # The untimed work overlaps: train-mesh's CPU processes beside the
-        # gloo world (whose seconds are no scaling numbers).
+        # The child processes overlap: train-mesh's CPU processes and the
+        # gloo world (whose seconds are no scaling numbers) beside
+        # mnist-sweep's (whose seconds a row are the process's, not the
+        # card's alone).
         cli_out = {}
         cli = threading.Thread(target=lambda: cli_out.update(
             zip(("outs", "secs"), _families_cli(tmp))))
         cli.start()
         procs, spec = _families_world(tmp)
+        _or_stop(procs, lambda: _mnist_sweep(card, tmp, totals))
+        mark("mnist-sweep")
         ranks = _wait_world("phase 17's gloo world", procs, spec)
         for rank in ranks:
             for rec in rank["runs"].values():
@@ -9619,6 +9683,1127 @@ def phase_families(card):
         shutil.rmtree(tmp, ignore_errors=True)
     secs = time.perf_counter() - t_all
     print(f"phase 17 ({card}): {secs:.1f} s; launches {totals}")
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the soft, balanced and projected families
+# ---------------------------------------------------------------------------
+
+#: imagenet-gmm: EM iterations at the headline (tol 0) and the rows of a
+#: tile (the config's ``chunk_size``: 64 tiles a pass).
+GMM_ITERS = 10
+GMM_CHUNK = 20_000
+#: mnist-gmm: EM iterations of each covariance type, in f32.
+MNIST_GMM_ITERS = 20
+#: mnist-gmm's hold to the CPU fit: the total log-likelihood, and a row
+#: labelled apart must be a near-tie there, its two log-densities within
+#: this share of their size (two fits whose parameters agree to their f32
+#: sums' order).
+MNIST_GMM_LL_RTOL = 1e-5
+GMM_TIE_RTOL = 1e-5
+#: glove-fuzzy: iterations (tol -1: every one runs), and the rows and
+#: iterations of its hold against the CPU fit (the CPU's f32 products at
+#: k = 1000 take about 0.5 s a pass there).
+FUZZY_ITERS = 20
+FUZZY_HOLD_ROWS = 50_000
+FUZZY_HOLD_ITERS = 5
+#: Its one-pass hold in f64: the sums, soft counts and J to this share of
+#: their largest entry (memberships from f32 expanded distances, which
+#: round at ‖x‖² + ‖c‖²).
+FUZZY_F64_RTOL = 1e-4
+#: mnist-balanced: the hard counts' band around n/k, and the outer
+#: iterations' cap.
+BAL_COUNT_BAND = 0.05
+BAL_MNIST_ITERS = 30
+#: glove-balanced-dp1-nccl: outer iterations (tol -1), cut from the
+#: default 100 to fit the phase; the rows of its hold against fit_balanced
+#: (the most under its 1.5e8-element gate at k = 1000) and the hold's
+#: outer iterations (each fit's final view adds one more plan); the sweeps
+#: of the per-sweep probe.
+BAL_ITERS = 3
+BAL_HOLD_ROWS = 150_000
+BAL_HOLD_ITERS = 1
+BAL_PROBE_SWEEPS = 20
+#: A balanced row labelled apart from the single-device fit must be a
+#: near-tie of d² − g there: within this share of ‖x‖² + ‖c‖².
+BAL_TIE_RTOL = 1e-4
+#: cifar10-pca-cli: the projection; the covariance's perturbation by the
+#: f32 sums' order, PCA_PERTURB of the largest eigenvalue (the card runs
+#: measured 5.8e-7 of it between the card's and the CPU's eigenvalues);
+#: a component is held up to sign to PCA_COMP_ATOL where that perturbation
+#: over its eigengap (Davis–Kahan's bound on its turn) is within it, and
+#: the eigenvalues to PCA_VAR_RTOL of the largest (an eigenvalue moves by
+#: at most the perturbation: Weyl).
+PCA_M = 256
+PCA_PERTURB = 2.0 ** -18
+PCA_COMP_ATOL = 1e-3
+PCA_VAR_RTOL = 1e-4
+#: cifar10-gmm-stream: the streamed mixture's k and the SIGTERM drill's
+#: step (``cli train --stream``'s defaults: 200 steps of 8192 rows).
+GMM_STREAM_K = 100
+GMM_STREAM_STEPS = 200
+GMM_STREAM_DRILL_AT = 100
+#: mnist-sweep-bic: its suggestion must lie in this band (the blobs: 10).
+BIC_BAND = (10, 12)
+#: train-mesh: ``cli train`` at a small shape, ``--mesh 2 --device cpu``
+#: (balanced's 200 Sinkhorn sweeps are two gloo all-reduces each: three
+#: passes).
+SOFT_CLI_SMALL = ["--n", "4000", "--d", "16", "--seed", "3", "--device",
+                  "cpu", "--max-iter", "2"]
+
+
+def _near_c0(centres, seed, scale=0.1):
+    """A fixed init near the generating centres (so no fit of the phase
+    is left to a seeding draw)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return centres.float() + scale * torch.randn(
+        centres.shape, generator=gen, device="cuda")
+
+
+def _mnist():
+    """mnist-shaped f32 blobs on the card (phase 17's, SWEEP_STD) and
+    their generating centres."""
+    import kmeans_tpu_torch as kt
+
+    x, _, centres = kt.make_blobs(17, MNIST["n"], MNIST["d"], MNIST["k"],
+                                  cluster_std=SWEEP_STD)
+    return x, centres
+
+
+def _gmm_ll64(x, params, cd, chunk=8192):
+    """The diag mixture's total log-likelihood recomputed in f64 on the
+    card from ``params``, with the fit's own ``cd``-rounded operands (x,
+    x² and the terms rounded as the E-step rounds them), so only the f32
+    accumulation differs; and ``scale``, Σ over rows of the largest
+    |const| + |x·lin| + ½|x²·inv_var|, which that accumulation rounds
+    at."""
+    import torch
+
+    from kmeans_tpu_torch.models.gmm import _logp_terms
+
+    quad, lin, const = _logp_terms(params, "diag")
+    q, l, c = quad.to(cd).double(), lin.to(cd).double(), const.double()
+    ll = scale = 0.0
+    for lo in range(0, x.shape[0], chunk):
+        xb = x[lo:lo + chunk]
+        xf = xb.float()
+        cross = xb.to(cd).double() @ l.T
+        quad_t = (xf * xf).to(cd).double() @ q.T
+        logp = c[None, :] + cross - 0.5 * quad_t
+        ll += float(torch.logsumexp(logp, dim=1).sum())
+        scale += float((c.abs()[None, :] + cross.abs()
+                        + 0.5 * quad_t.abs()).amax(dim=1).sum())
+    return ll, scale
+
+
+def _gmm_params(st):
+    import torch
+
+    from kmeans_tpu_torch.models.gmm import GMMParams
+
+    return GMMParams(st.means, st.covariances,
+                     torch.log(st.mix_weights.clamp_min(1e-37)))
+
+
+def _record_ll():
+    """Wrap ``gmm_scan_tiles`` to keep every card pass's total
+    log-likelihood (no sync; the CPU holds' passes, on their thread, are
+    not kept).  Returns ``(lls, undo)``."""
+    import kmeans_tpu_torch.models.gmm as G
+
+    real = G.gmm_scan_tiles
+    lls = []
+
+    def scan(x, *a, **kw):
+        out = real(x, *a, **kw)
+        if x.is_cuda:
+            lls.append(out[3])
+        return out
+
+    G.gmm_scan_tiles = scan
+
+    def undo():
+        G.gmm_scan_tiles = real
+    return lls, undo
+
+
+def _products_split(fn):
+    """``fn()`` under ``torch.profiler``: the ms of its product kernels
+    (cuBLAS's and CUTLASS's gemm) and of everything else on the card."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync()
+    gemm = re.compile(r"gemm|nvjet|xmma|cutlass", re.I)
+    prod = other = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.end - e.time_range.start
+        if gemm.search(e.name):
+            prod += us
+        else:
+            other += us
+    _check(prod > 0 and other > 0, "the profiler recorded no products")
+    return prod / 1e3, other / 1e3
+
+
+def _imagenet_gmm(card, totals):
+    """imagenet-gmm: fit_gmm at the headline (phase 4's bf16 data; diag,
+    bf16 compute, from an init near the generating centres), GMM_ITERS EM
+    iterations (tol −1: every one runs, as tol 0 does unless a pass repeats
+    its predecessor's log-likelihood to the bit): ms an iteration, the
+    products' and the elementwise passes' shares of one pass, the peak
+    memory; every pass's log-likelihood must not fall by more than its f32
+    rounding, and the final one must agree with an f64 recomputation from
+    the final parameters."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.gmm import gmm_scan_tiles
+
+    n, d, k = HEADLINE["n"], HEADLINE["d"], HEADLINE["k"]
+    # Near the centres every component starts on its blob: from random
+    # rows (phase 4's c0) several start in one blob, and in bf16 compute
+    # the ones left with a few rows collapse to ``reg_covar``, where the
+    # bf16-rounded x·lin and x²·inv_var terms (|x|·|lin| ≈ 1e11) swamp
+    # the log-density (the first card run: the log-likelihood jumped from
+    # −1.6e9 to +7.8e9 and back).
+    x, _, centres = kt.make_blobs(0, n, d, k, dtype=torch.bfloat16)
+    c0 = _near_c0(centres, 30)
+    del centres
+    cfg = kt.KMeansConfig(k=k, compute_dtype="bfloat16",
+                          chunk_size=GMM_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    lls, undo = _record_ll()
+    try:
+        st, ms, counts = _timed_fit(lambda: kt.fit_gmm(
+            x, k, init=c0, config=cfg, tol=-1.0, max_iter=GMM_ITERS))
+    finally:
+        undo()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    _only("imagenet-gmm", counts, {})
+    _add_counts(totals["bf16"], counts)
+    _check(int(st.n_iter) == GMM_ITERS and len(lls) == GMM_ITERS + 1,
+           f"imagenet-gmm: {int(st.n_iter)} iterations, {len(lls)} passes")
+    ll = [float(v) for v in lls]
+    tiles = -(-n // GMM_CHUNK)
+    # Each pass sums every row's f32 log-density into its tile's total and
+    # the tiles in order: (tiles + log2 of a tile's rows) f32 steps of the
+    # rows' absolute sum, which is |ll| (every log-density is negative at
+    # d = 2048).
+    fall_tol = (tiles + math.log2(GMM_CHUNK)) * 2.0 ** -24 * max(
+        abs(v) for v in ll)
+    falls = [a - b for a, b in zip(ll, ll[1:])]
+    _check(all(f <= fall_tol for f in falls),
+           f"imagenet-gmm: the log-likelihood fell by {max(falls):.6e} "
+           f"(bound {fall_tol:.6e}): {ll}")
+    ll64, scale = _gmm_ll64(x, _gmm_params(st), torch.bfloat16)
+    err = abs(float(st.log_likelihood) - ll64)
+    ll_tol = 2.0 ** -24 * (d + tiles + math.log2(GMM_CHUNK)) * scale
+    _check(err <= ll_tol, f"imagenet-gmm: log-likelihood "
+           f"{float(st.log_likelihood)!r} against f64 {ll64!r} (bound "
+           f"{ll_tol:.3e})")
+    _check(bool(torch.isfinite(st.means).all()
+                and torch.isfinite(st.covariances).all()
+                and (st.covariances > 0).all()),
+           "imagenet-gmm: a parameter is not finite")
+    prod_ms, other_ms = _products_split(lambda: gmm_scan_tiles(
+        x, None, _gmm_params(st), chunk_size=GMM_CHUNK,
+        compute_dtype=torch.bfloat16, with_labels=False))
+    flop = 8.0 * n * d * k
+    print(f"imagenet-gmm ({card}): n={n} d={d} k={k} diag, bf16 compute, "
+          f"{GMM_ITERS} EM iterations: {ms:.3f} ms in all, "
+          f"{ms / (GMM_ITERS + 1):.3f} ms a pass ({GMM_ITERS} EM passes "
+          f"and the labelling pass); one EM pass under the profiler: "
+          f"products {prod_ms:.3f} ms (8·n·d·k = {flop:.3e} FLOP: "
+          f"{flop / prod_ms / 1e9:.1f} TFLOP/s; bound "
+          f"{flop / 989e12 * 1e3:.3f} ms at 989 TFLOP/s), other kernels "
+          f"{other_ms:.3f} ms; peak "
+          f"{peak:.3f} GB above the data; log-likelihood {ll[0]:.6e} -> "
+          f"{float(st.log_likelihood):.6e}, largest fall "
+          f"{max(falls):.3e} (bound {fall_tol:.3e}); against f64 on the "
+          f"card {err:.3e} (bound {ll_tol:.3e}); launches {counts}")
+    del x, st
+    torch.cuda.empty_cache()
+
+
+def _gmm_near_ties(name, x, params, cov, lab_a, lab_b):
+    """Rows labelled apart by two GMM fits must be near-ties of the
+    log-densities at ``params`` (f64): within GMM_TIE_RTOL of their
+    size."""
+    import torch
+
+    from kmeans_tpu_torch.models.gmm import _logp_terms
+
+    rows = (lab_a != lab_b).nonzero()[:, 0]
+    if not rows.numel():
+        return 0
+    p64 = type(params)(*(t.double() for t in params))
+    quad, lin, const = _logp_terms(p64, cov)
+    xr = x[rows].double()
+    if cov == "tied":
+        z = xr @ quad.T
+        q = (z * z).sum(1)[:, None]
+    else:
+        q = (xr * xr) @ quad.T
+    logp = const[None, :] + xr @ lin.T - 0.5 * q
+    a = logp.gather(1, lab_a[rows].long()[:, None])[:, 0]
+    b = logp.gather(1, lab_b[rows].long()[:, None])[:, 0]
+    tol = GMM_TIE_RTOL * torch.maximum(a.abs(), b.abs())
+    _check(bool(((a - b).abs() <= tol).all()),
+           f"{name}: {int(((a - b).abs() > tol).sum())} rows labelled apart"
+           " beyond a near-tie")
+    return int(rows.numel())
+
+
+def _mnist_gmm(card, x, centres, cpu_fits):
+    """mnist-gmm: fit_gmm at mnist's shape in f32 for each covariance
+    type, MNIST_GMM_ITERS iterations, held to the port's CPU fit from the
+    same init (``cpu_fits``, run beside the card's work); the tied fit's
+    Cholesky factor and triangular solve timed."""
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.gmm import _logp_terms
+
+    k = MNIST["k"]
+    c0 = _near_c0(centres, 31)
+    cfg = kt.KMeansConfig(k=k, compute_dtype="float32")
+    for cov in ("diag", "spherical", "tied"):
+        st, ms, counts = _timed_fit(lambda: kt.fit_gmm(
+            x, k, covariance_type=cov, init=c0, config=cfg, tol=-1.0,
+            max_iter=MNIST_GMM_ITERS))
+        _only(f"mnist-gmm {cov}", counts, {})
+        cpu = cpu_fits(f"gmm {cov}")
+        ll_c, ll_g = float(cpu.log_likelihood), float(st.log_likelihood)
+        _check(int(st.n_iter) == int(cpu.n_iter)
+               and abs(ll_g - ll_c) <= MNIST_GMM_LL_RTOL * abs(ll_c),
+               f"mnist-gmm {cov}: n_iter {int(st.n_iter)} / CPU "
+               f"{int(cpu.n_iter)}, log-likelihood {ll_g!r} / CPU {ll_c!r}")
+        moved = _gmm_near_ties(f"mnist-gmm {cov}", x, _gmm_params(st), cov,
+                               st.labels, cpu.labels.cuda())
+        extra = ""
+        if cov == "tied":
+            params = _gmm_params(st)
+            chol_ms, _ = _time_auto(lambda: _logp_terms(params, "tied"))
+            extra = (f"; Cholesky factor and triangular solves of the "
+                     f"({MNIST['d']}, {MNIST['d']}) covariance "
+                     f"{chol_ms:.3f} ms a pass")
+        print(f"mnist-gmm {cov} ({card}): n={MNIST['n']} d={MNIST['d']} "
+              f"k={k} f32, {int(st.n_iter)} iterations: {ms / 1e3:.3f} s "
+              f"a fit; log-likelihood {ll_g:.6e}, CPU {ll_c:.6e} (rtol "
+              f"{abs(ll_g - ll_c) / abs(ll_c):.2e}); {moved} labels differ"
+              f" from the CPU fit (near-ties){extra}")
+
+
+def _fcm64(x, c, m, chunk=8192):
+    """One fuzzy pass in f64 on the card at centroids ``c``: (sums,
+    counts, J), memberships from the f64 expanded distances."""
+    import torch
+
+    from kmeans_tpu_torch.models.fuzzy import _memberships_tile
+
+    c64 = c.double()
+    csq = (c64 * c64).sum(1)
+    k, d = c.shape
+    sums = torch.zeros((k, d), dtype=torch.float64, device="cuda")
+    counts = torch.zeros(k, dtype=torch.float64, device="cuda")
+    obj = 0.0
+    for lo in range(0, x.shape[0], chunk):
+        xb = x[lo:lo + chunk].double()
+        d2 = ((xb * xb).sum(1)[:, None] - 2.0 * xb @ c64.T
+              + csq[None, :]).clamp_min(0.0)
+        um = _memberships_tile(d2, 1.0 / (m - 1.0)) ** m
+        obj += float((um * d2).sum())
+        sums += um.T @ xb
+        counts += um.sum(0)
+    return sums, counts, obj
+
+
+def _glove_fuzzy(card, cpu_fits):
+    """glove-fuzzy: fit_fuzzy at glove (k = 1000, m = 2), FUZZY_ITERS
+    iterations in f32 and in bf16 from one init; one f32 pass held to f64
+    on the card; the f32 fit on the first FUZZY_HOLD_ROWS rows held to the
+    port's CPU fit (``cpu_fits``)."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.fuzzy import fcm_scan_tiles
+
+    x, centres = _glove(0, GLOVE["k"])
+    k = GLOVE["k"]
+    c0 = _near_c0(centres, 32)
+    out = {}
+    for cd in ("float32", "bfloat16"):
+        cfg = kt.KMeansConfig(k=k, compute_dtype=cd)
+        st, ms, counts = _timed_fit(lambda: kt.fit_fuzzy(
+            x, k, init=c0, config=cfg, tol=-1.0, max_iter=FUZZY_ITERS))
+        _only(f"glove-fuzzy {cd}", counts, {})
+        _check(int(st.n_iter) == FUZZY_ITERS
+               and bool(torch.isfinite(st.centroids).all()),
+               f"glove-fuzzy {cd}: {int(st.n_iter)} iterations")
+        out[cd] = (st, ms)
+    st, ms = out["float32"]
+    sums, cnt, obj, _ = fcm_scan_tiles(x, None, st.centroids, m=2.0,
+                                       chunk_size=4096,
+                                       compute_dtype=torch.float32,
+                                       with_labels=False)
+    s64, c64, o64 = _fcm64(x, st.centroids, 2.0)
+    errs = (float((sums.double() - s64).abs().max() / s64.abs().max()),
+            float((cnt.double() - c64).abs().max() / c64.abs().max()),
+            abs(float(obj) - o64) / abs(o64))
+    _check(max(errs) <= FUZZY_F64_RTOL,
+           f"glove-fuzzy: one pass against f64: sums {errs[0]:.2e}, "
+           f"counts {errs[1]:.2e}, J {errs[2]:.2e} (bound {FUZZY_F64_RTOL})")
+    # The hold on the first rows, against the CPU fit from the same init.
+    xh = x[:FUZZY_HOLD_ROWS]
+    hold = kt.fit_fuzzy(xh, k, init=c0, tol=-1.0, max_iter=FUZZY_HOLD_ITERS,
+                        config=kt.KMeansConfig(k=k, compute_dtype="float32"))
+    cpu = cpu_fits("fuzzy")
+    moved, _ = _check_labels_pair("glove-fuzzy hold", xh, hold.centroids,
+                                  hold.labels, cpu.centroids.cuda(),
+                                  cpu.labels.cuda(), torch.float32)
+    c_err = _close("glove-fuzzy hold centroids", hold.centroids,
+                   cpu.centroids.cuda())
+    j_rel = abs(float(hold.objective) - float(cpu.objective)) / abs(
+        float(cpu.objective))
+    _check(j_rel <= SUMS_RTOL, f"glove-fuzzy hold: J {float(hold.objective)}"
+           f" against the CPU's {float(cpu.objective)}")
+    passes = FUZZY_ITERS + 1
+    print(f"glove-fuzzy ({card}): n={GLOVE['n']} d={GLOVE['d']} k={k} "
+          f"m=2, {FUZZY_ITERS} iterations: f32 {ms:.3f} ms "
+          f"({ms / passes:.3f} ms a pass), bf16 {out['bfloat16'][1]:.3f} ms "
+          f"({out['bfloat16'][1] / passes:.3f} ms a pass); one f32 pass "
+          f"against f64 on the card: sums {errs[0]:.2e}, soft counts "
+          f"{errs[1]:.2e}, J {errs[2]:.2e} (bound {FUZZY_F64_RTOL}); on the"
+          f" first {FUZZY_HOLD_ROWS} rows, {FUZZY_HOLD_ITERS} iterations, "
+          f"against the CPU fit: {moved} labels differ (ties), centroids "
+          f"within {c_err:.2e}, J within {j_rel:.2e}")
+    del x, out, st, hold
+    torch.cuda.empty_cache()
+
+
+def _mnist_balanced(card, x, centres, totals):
+    """mnist-balanced: ``BalancedKMeans`` at mnist's shape (200 Sinkhorn
+    sweeps a step): the column masses are the capacities, the hard counts
+    within BAL_COUNT_BAND of n/k; then ``predict`` on the card (K1)."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.ops.distance import assign
+
+    n, k = MNIST["n"], MNIST["k"]
+    c0 = _near_c0(centres, 33)
+    est = kt.BalancedKMeans(n_clusters=k, init=c0, max_iter=BAL_MNIST_ITERS)
+    torch.cuda.reset_peak_memory_stats()
+    _, ms, counts = _timed_fit(lambda: est.fit(x))
+    _only("mnist-balanced fit", counts, {})
+    st = est.state
+    masses = st.col_masses.double()
+    rel = float(((masses - 1.0 / k).abs() * k).max())
+    _check(rel <= 1e-4, f"mnist-balanced: column masses {masses.tolist()}")
+    band = float(((st.counts.double() - n / k).abs() / (n / k)).max())
+    _check(band <= BAL_COUNT_BAND,
+           f"mnist-balanced: hard counts {st.counts.tolist()} beyond "
+           f"{BAL_COUNT_BAND} of n/k")
+    _sync()
+    K.reset_launch_counts()
+    labels = est.predict(x)
+    _sync()
+    pcounts = K.launch_counts()
+    _check(pcounts.get("lloyd_pass_cuda", 0) >= 1,
+           f"mnist-balanced predict: launches {pcounts}")
+    _add_counts(totals["f32"], pcounts)
+    plain, _ = assign(x, st.centroids, backend="plain")
+    moved, _ = _check_labels_pair("mnist-balanced predict", x, st.centroids,
+                                  labels, st.centroids, plain,
+                                  torch.float32)
+    print(f"mnist-balanced ({card}): n={n} d={MNIST['d']} k={k}, 200 "
+          f"sweeps a step, {int(st.n_iter)} steps: {ms / 1e3:.3f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; column masses"
+          f" within {rel:.2e} of the capacities, hard counts within "
+          f"{band:.2%} of n/k ({st.counts.int().tolist()}); predict on "
+          f"K1: launches {pcounts}, {moved} labels differ from the plain "
+          "assignment (ties)")
+
+
+def _balanced_ties(name, x, c, lab_a, lab_b, g):
+    """Balanced labels apart must be near-ties of d² − g at ``c``."""
+    import torch
+
+    rows = (lab_a != lab_b).nonzero()[:, 0]
+    if not rows.numel():
+        return 0
+    xr = x[rows].double()
+    c64 = c.double()
+    scale = (xr * xr).sum(1)[:, None] + (c64 * c64).sum(1)[None, :]
+    s = scale - 2.0 * xr @ c64.T - g.double()[None, :]
+    a = s.gather(1, lab_a[rows].long()[:, None])[:, 0]
+    b = s.gather(1, lab_b[rows].long()[:, None])[:, 0]
+    tol = BAL_TIE_RTOL * torch.maximum(
+        scale.gather(1, lab_a[rows].long()[:, None])[:, 0],
+        scale.gather(1, lab_b[rows].long()[:, None])[:, 0])
+    _check(bool(((a - b).abs() <= tol).all()),
+           f"{name}: {int(((a - b).abs() > tol).sum())} rows labelled apart"
+           " beyond a near-tie of d² − g")
+    return int(rows.numel())
+
+
+def _glove_balanced_dp1(card, mesh):
+    """glove-balanced-dp1-nccl: fit_balanced_sharded at glove (n·k =
+    4e8, past the single-device gate) on an NCCL mesh of one, BAL_ITERS
+    outer iterations: ms a Sinkhorn sweep against its bound, the peak
+    memory, the all-reduces a sweep; held at BAL_HOLD_ROWS rows to
+    fit_balanced."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.balanced import (log_row_masses,
+                                                  resolve_capacities,
+                                                  sinkhorn_potentials)
+    from kmeans_tpu_torch.ops.distance import pairwise_sq_dists
+    from kmeans_tpu_torch.parallel import fit_balanced_sharded
+
+    x, centres = _glove(1, GLOVE["k"])
+    n, k = GLOVE["n"], GLOVE["k"]
+    c0 = _near_c0(centres, 34)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    mesh.reset_stats()
+    st, ms, counts = _timed_fit(lambda: fit_balanced_sharded(
+        x, k, mesh=mesh, init=c0, tol=-1.0, max_iter=BAL_ITERS))
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    reduces = mesh.stats["all_reduce"][0]
+    passes = BAL_ITERS + 1
+    per_sweep = (reduces - 1 - passes) / (passes * 200)
+    _only("glove-balanced-dp1", counts, {})
+    _check(int(st.n_iter) == BAL_ITERS and per_sweep == 2,
+           f"glove-balanced-dp1: {int(st.n_iter)} iterations, all-reduces "
+           f"{reduces}")
+    _check(float(((st.col_masses.double() - 1.0 / k).abs() * k).max())
+           <= 1e-3, "glove-balanced-dp1: column masses off the capacities")
+    # BAL_PROBE_SWEEPS sweeps on the mesh at the final centroids' d².
+    log_a = log_row_masses(None, n, "cuda")
+    cap = resolve_capacities(k, None, "cuda")
+    buf = torch.empty((n, k), device="cuda")
+    eps = 0.5 * float(pairwise_sq_dists(x, c0).amin(1).mean())
+    d2 = pairwise_sq_dists(x, st.centroids)
+    t_probe, _ = _time_auto(lambda: sinkhorn_potentials(
+        d2, log_a, torch.log(cap), epsilon=eps, sweeps=BAL_PROBE_SWEEPS,
+        buf=buf, mesh=mesh))
+    sweep_ms = t_probe / BAL_PROBE_SWEEPS
+    bound_ms = 2 * n * k * 4 / MEM_BYTES_PER_S * 1e3
+    del buf, d2
+    # The hold under the gate: the sharded and the single-device fits of
+    # the first BAL_HOLD_ROWS rows, from one init.
+    xh = x[:BAL_HOLD_ROWS]
+    a = fit_balanced_sharded(xh, k, mesh=mesh, init=c0, tol=-1.0,
+                             max_iter=BAL_HOLD_ITERS)
+    b = kt.fit_balanced(xh, k, init=c0, tol=-1.0, max_iter=BAL_HOLD_ITERS)
+    c_err = _close("glove-balanced hold centroids", a.centroids, b.centroids)
+    d2 = pairwise_sq_dists(xh, b.centroids)
+    eps_h = 0.5 * float(pairwise_sq_dists(xh, c0).amin(1).mean())
+    _, g = sinkhorn_potentials(d2, log_row_masses(None, BAL_HOLD_ROWS,
+                                                  "cuda"),
+                               torch.log(cap), epsilon=eps_h, sweeps=200)
+    del d2
+    moved = _balanced_ties("glove-balanced hold", xh, b.centroids, a.labels,
+                           b.labels, g)
+    print(f"glove-balanced-dp1-nccl ({card}): n={n} d={GLOVE['d']} k={k} "
+          f"(n·k = {n * k:.1e}), {BAL_ITERS} outer iterations of 200 "
+          f"sweeps (cut from 100): {ms / 1e3:.3f} s; a Sinkhorn sweep "
+          f"{sweep_ms:.3f} ms against its bound {bound_ms:.3f} ms (two "
+          f"reads of the {n * k * 4 / 1e9:.2f} GB plan at 3.35 TB/s); peak "
+          f"{peak:.3f} GB above the data; {reduces} all-reduces, "
+          f"{per_sweep:g} a sweep; at n={BAL_HOLD_ROWS}, "
+          f"{BAL_HOLD_ITERS} outer iteration, against fit_balanced: "
+          f"centroids within {c_err:.2e}, {moved} labels differ (near-ties "
+          "of d² − g)")
+    del x, st, a, b
+    torch.cuda.empty_cache()
+
+
+def _soft_dp1(card, mesh, x, centres):
+    """gmm-dp1-nccl and fuzzy-dp1-nccl at mnist's shape: the sharded fit
+    on an NCCL mesh of one against the single-device fit, bit for bit."""
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.parallel import fit_fuzzy_sharded, fit_gmm_sharded
+
+    k = MNIST["k"]
+    c0 = _near_c0(centres, 35)
+    cfg = kt.KMeansConfig(k=k)
+    runs = {
+        "gmm": (lambda: kt.fit_gmm(x, k, init=c0, config=cfg, tol=-1.0,
+                                   max_iter=MNIST_GMM_ITERS),
+                lambda: fit_gmm_sharded(x, k, mesh=mesh, init=c0, config=cfg,
+                                        tol=-1.0, max_iter=MNIST_GMM_ITERS)),
+        "fuzzy": (lambda: kt.fit_fuzzy(x, k, init=c0, config=cfg, tol=-1.0,
+                                       max_iter=FUZZY_ITERS),
+                  lambda: fit_fuzzy_sharded(x, k, mesh=mesh, init=c0,
+                                            config=cfg, tol=-1.0,
+                                            max_iter=FUZZY_ITERS)),
+    }
+    # One sharded fit first, outside the timing: NCCL makes its
+    # communicator at the first collective.
+    fit_fuzzy_sharded(x, k, mesh=mesh, init=c0, config=cfg, max_iter=1)
+    for name, (one_fn, dp1_fn) in runs.items():
+        (a, a_ms, _), (b, b_ms, _) = _timed_fit(one_fn), _timed_fit(dp1_fn)
+        for field in a._fields:
+            _check(_equal(getattr(a, field), getattr(b, field)),
+                   f"{name}-dp1: {field} not bit for bit one card's")
+        print(f"{name}-dp1-nccl ({card}): mnist shape, {int(a.n_iter)} "
+              f"iterations: {b_ms:.3f} ms against one card's {a_ms:.3f} ms "
+              f"({b_ms / a_ms:.3f}x); bit for bit")
+
+
+def _pca_parts(card, x):
+    """The PCA fit's two parts on the card at cifar10: the moment product
+    (IEEE f32) and eigh, timed; returns the card's state."""
+    import torch
+
+    from kmeans_tpu_torch.data.preprocess import (_finish, _moments,
+                                                  _top_eigs)
+    from kmeans_tpu_torch.ops.distance import full_f32
+
+    mom_ms, (s, ss, mu0) = _time_auto(lambda: _moments(x, 8192,
+                                                       torch.float32))
+    cov = ss / x.shape[0]
+    with full_f32():
+        eig_ms, _ = _time_auto(lambda: _top_eigs(cov, PCA_M))
+    n, d = x.shape
+    print(f"cifar10-pca ({card}): n={n} d={d}: the moment product "
+          f"{mom_ms:.3f} ms (2·n·d² = {2 * n * d * d:.3e} FLOP, "
+          f"{2 * n * d * d / mom_ms / 1e9:.1f} TFLOP/s in IEEE f32), eigh of"
+          f" the ({d}, {d}) covariance {eig_ms:.3f} ms")
+    return _finish(s, ss, mu0, n, PCA_M, True)
+
+
+def _pca_hold(name, got, want):
+    """Components up to sign where PCA_PERTURB of the largest eigenvalue
+    over their eigengap is within PCA_COMP_ATOL, and every eigenvalue.
+    Returns ``(held, worst component error, worst eigenvalue error)``."""
+    import torch
+
+    ev = want.explained_variance.double().cpu()
+    # The gap below the last component is to one not fitted: never held.
+    prev = torch.cat([ev[:1] * 0 + float("inf"), ev[:-1] - ev[1:]])
+    nxt = torch.cat([ev[:-1] - ev[1:], ev[-1:] * 0])
+    held = torch.minimum(prev, nxt) * PCA_COMP_ATOL >= PCA_PERTURB * ev.max()
+    gc, wc = got.components.double().cpu(), want.components.double().cpu()
+    sign = torch.sign((gc * wc).sum(1))
+    err = (gc * sign[:, None] - wc).abs().amax(1)
+    _check(bool((err[held] <= PCA_COMP_ATOL).all()),
+           f"{name}: components {int((err[held] > PCA_COMP_ATOL).sum())}"
+           " apart beyond their tolerance")
+    var_rel = float((got.explained_variance.double().cpu() - ev).abs().max()
+                    / ev.max())
+    _check(var_rel <= PCA_VAR_RTOL,
+           f"{name}: explained variances within {var_rel:.2e}")
+    _check(bool(held.any()), f"{name}: no component's eigengap holds it")
+    return int(held.sum()), float(err[held].max()), var_rel
+
+
+def _cifar10_pca(card, tmp, path, got, cpu_fits, totals):
+    """cifar10-pca-cli: ``cli train --input cifar10.npy --pca 256
+    --whiten --k 100`` in a child process (the Lloyd fit's K1 and K2
+    launches counted); ``got``, the card's fit (:func:`_pca_parts`), held
+    to the port's CPU pca_fit up to sign."""
+    run = _CliRun(tmp, "cifar10-pca-cli", [
+        "train", "--input", path, "--pca", str(PCA_M), "--whiten", "--k",
+        str(CIFAR10["k"])]).need()
+    res = run.result
+    _check(res["d"] == PCA_M and res["mode"] == "lloyd"
+           and run.counts.get("lloyd_pass_cuda", 0) >= 1,
+           f"cifar10-pca-cli: {res}, launches {run.counts}")
+    _add_counts(totals["f32"], run.counts)
+    held, worst, var_rel = _pca_hold("cifar10-pca", got, cpu_fits("pca"))
+    print(run.line(f"; d after --pca: {res['d']}; K1 launches "
+                   f"{run.counts.get('lloyd_pass_cuda', 0)}, K2 "
+                   f"{run.counts.get('lloyd_delta_cuda', 0)}"))
+    print(f"cifar10-pca ({card}) against the CPU's pca_fit: {held} of "
+          f"{PCA_M} components held up to sign (those whose eigengap turns "
+          f"them by at most {PCA_COMP_ATOL}), within {worst:.2e};"
+          f" explained variances within {var_rel:.2e} of the largest (bound "
+          f"{PCA_VAR_RTOL})")
+
+
+def _cifar10_gmm_stream(card, tmp, path):
+    """cifar10-gmm-stream: the streamed GMM at ``cli train --stream --model
+    gmm``'s defaults in this process (checkpointing into ``tmp/g0`` at the
+    end), under the profiler for steps a second and the card's idle
+    share."""
+    import numpy as np
+
+    from kmeans_tpu_torch.models.gmm_stream import fit_gmm_stream
+
+    data = np.load(path, mmap_mode="r")
+    k = GMM_STREAM_K
+    st, wall, busy = _busy_share(lambda: fit_gmm_stream(
+        data, k, steps=GMM_STREAM_STEPS, final_pass=False,
+        checkpoint_path=f"{tmp}/g0"))
+    print(f"cifar10-gmm-stream ({card}): n={CIFAR10['n']} d={CIFAR10['d']}"
+          f" k={k}, {GMM_STREAM_STEPS} steps of 8192 rows in process: "
+          f"{wall:.3f} s, {GMM_STREAM_STEPS / wall:.1f} steps/s, the card "
+          f"busy {busy:.1%} of the wall time (idle {1 - busy:.1%}); "
+          f"n_iter {int(st.n_iter)}")
+
+
+def _gmm_stream_drill(card, tmp, path):
+    """cifar10-gmm-stream's CLI: ``cli train --stream --model gmm`` in a
+    child process with a SIGTERM drill, then the library's resume of its
+    directory in this process, which must end on
+    :func:`_cifar10_gmm_stream`'s parameters and statistics bit for bit
+    (the CLI's seeding draws what that process drew)."""
+    import numpy as np
+
+    from kmeans_tpu_torch.models.gmm_stream import fit_gmm_stream
+    from kmeans_tpu_torch.utils.checkpoint import (latest_step,
+                                                   load_array_checkpoint)
+
+    d0, d1 = f"{tmp}/g0", f"{tmp}/g1"
+    base = ["train", "--stream", "--model", "gmm", "--input", path, "--k",
+            str(GMM_STREAM_K)]
+
+    def sigterm(run, line, proc):
+        import signal
+
+        if not line.startswith("{"):
+            return False
+        try:
+            ev = json.loads(line)
+        except ValueError:
+            return False
+        if ev.get("event") == "iter" and \
+                ev["iteration"] >= GMM_STREAM_DRILL_AT:
+            proc.send_signal(signal.SIGTERM)
+            return True
+        return False
+
+    drill = _CliRun(tmp, "gmm stream cli drill",
+                    base + ["--checkpoint", d1, "--telemetry", "/dev/stderr"],
+                    on_line=sigterm).need(3)
+    step = latest_step(d1)
+    _check(step is not None
+           and GMM_STREAM_DRILL_AT <= step < GMM_STREAM_STEPS
+           and f"resume with: --resume {d1}" in drill.err,
+           f"gmm stream cli drill: checkpoint at {step}, stderr "
+           f"{drill.err[-3:]}")
+    t0 = time.perf_counter()
+    st = fit_gmm_stream(np.load(path, mmap_mode="r"), GMM_STREAM_K,
+                        checkpoint_path=d1, resume=True, final_pass=False)
+    secs = time.perf_counter() - t0
+    a0, m0 = load_array_checkpoint(d0)
+    a1, m1 = load_array_checkpoint(d1)
+    same = sorted(a0) == sorted(a1) and all(
+        np.array_equal(a0[f], a1[f]) for f in a0)
+    _check(same and m0["step"] == m1["step"] == GMM_STREAM_STEPS
+           and int(st.n_iter) == GMM_STREAM_STEPS,
+           f"gmm stream resume: n_iter {int(st.n_iter)}; arrays equal to "
+           f"the uninterrupted run's: {same}")
+    print(drill.line(f"; SIGTERM at step >= {GMM_STREAM_DRILL_AT}, "
+                     f"checkpoint at step {step}"))
+    print(f"gmm stream resume ({card}): the drill's directory resumed at "
+          f"step {step} in {secs:.3f} s; parameters and statistics equal to "
+          "the uninterrupted run's bit for bit")
+
+
+def _mnist_sweep_bic(card, tmp, x, totals):
+    """mnist-sweep-bic: ``cli sweep --model gmm --criterion bic`` in a
+    child process (SWEEP_RANGE's k-means|| seeding) on phase 17's
+    mnist-shaped ``.npy``: seconds a row, each row's BIC against an f64
+    recomputation from its fit's parameters on the card."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from kmeans_tpu_torch.models.gmm import GMMParams
+
+    npy = f"{tmp}/mnist.npy"
+    np.save(npy, x.cpu().numpy())
+    spec = {"argv": ["sweep", "--input", npy, *SWEEP_RANGE, "--model",
+                     "gmm", "--criterion", "bic"],
+            "counts": f"{tmp}/sweep-bic.counts.json",
+            "dump": f"{tmp}/sweep-bic.pt"}
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--sweep-cli",
+         json.dumps(spec)], cwd=root, capture_output=True, text=True,
+        timeout=CLI_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    _check(out.returncode == 0, f"mnist-sweep-bic: exit {out.returncode}, "
+           f"stderr {out.stderr[-2000:]}")
+    lines = [json.loads(ln) for ln in out.stdout.strip().splitlines()]
+    rows, last = lines[:-1], lines[-1]
+    counts = json.load(open(spec["counts"], encoding="utf-8"))
+    dump = torch.load(spec["dump"])
+    _add_counts(totals["f32"], counts)
+    _check(counts.get("lloyd_pass_cuda", 0) > 0
+           and len(dump["gmm"]) == len(rows),
+           f"mnist-sweep-bic: launches {counts}, {len(dump['gmm'])} fits")
+    n, d = x.shape
+    worst = worst_tol = 0.0
+    for row, (means, cov, weights) in zip(rows, dump["gmm"]):
+        params = GMMParams(means.cuda(), cov.cuda(),
+                           torch.log(weights.cuda().clamp_min(1e-37)))
+        ll64, scale = _gmm_ll64(x, params, torch.float32)
+        p = 2 * row["k"] * d + (row["k"] - 1)
+        bic64 = -2.0 * ll64 + p * math.log(n)
+        tol = 2 * 2.0 ** -24 * (d + 64) * scale
+        err = abs(row["bic"] - bic64)
+        _check(err <= tol, f"mnist-sweep-bic k={row['k']}: BIC "
+               f"{row['bic']} against f64 {bic64} (bound {tol:.3e})")
+        worst, worst_tol = max(worst, err), max(worst_tol, tol)
+    _check(list(last) == ["suggested_k"]
+           and BIC_BAND[0] <= last["suggested_k"] <= BIC_BAND[1],
+           f"mnist-sweep-bic: suggested {last}")
+    print(f"mnist-sweep-bic ({card}): n={n} d={d}, k "
+          f"{SWEEP_RANGE[1]}..{SWEEP_RANGE[3]}, {SWEEP_RANGE[5]}: "
+          f"{secs:.3f} s of process, {dump['total']:.3f} s in cli.main, "
+          f"{dump['total'] / max(len(rows), 1):.3f} s a row; suggested_k "
+          f"{last['suggested_k']} (band {BIC_BAND}); BIC within "
+          f"{worst:.3e} of f64 on the card (bound at most {worst_tol:.3e});"
+          f" launches {counts}")
+
+
+def _soft_rank(spec) -> int:
+    """``chip_smoke.py --soft-rank SPEC``: one of two gloo ranks on the one
+    card running gmm, fuzzy and balanced on DP and pca_fit_sharded at
+    mnist's shape, each held by rank 0 to one card's fit.  Writes the
+    rank's record to ``spec["out"] % rank``."""
+    import torch.distributed as dist
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch import parallel
+    from kmeans_tpu_torch.data.preprocess import pca_fit
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    mesh = parallel.make_mesh((2, 1), ("data", "model"),
+                              devices=["cuda:0"] * 2, backend="gloo")
+    out = {"rank": mesh.rank, "runs": {}}
+    try:
+        x, centres = _mnist()
+        k = MNIST["k"]
+        c0 = _near_c0(centres, 36)
+        cfg = kt.KMeansConfig(k=k)
+        its = dict(tol=-1.0, max_iter=10)     # every iteration runs
+        runs = {
+            "gmm-dp2-gloo": (
+                lambda: parallel.fit_gmm_sharded(x, k, mesh=mesh, init=c0,
+                                                 config=cfg, **its),
+                lambda: kt.fit_gmm(x, k, init=c0, config=cfg, **its)),
+            "fuzzy-dp2-gloo": (
+                lambda: parallel.fit_fuzzy_sharded(x, k, mesh=mesh, init=c0,
+                                                   config=cfg, **its),
+                lambda: kt.fit_fuzzy(x, k, init=c0, config=cfg, **its)),
+            "balanced-dp2-gloo": (
+                lambda: parallel.fit_balanced_sharded(
+                    x, k, mesh=mesh, init=c0, config=cfg, tol=-1.0,
+                    max_iter=3),
+                lambda: kt.fit_balanced(x, k, init=c0, config=cfg, tol=-1.0,
+                                        max_iter=3)),
+            "pca-dp2-gloo": (
+                lambda: parallel.pca_fit_sharded(x, 32, mesh=mesh),
+                lambda: pca_fit(x, 32)),
+        }
+        for name, (fn, one) in runs.items():
+            mesh.barrier()
+            _sync()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            st = fn()
+            _sync()
+            rec = out["runs"][name] = {"seconds": time.perf_counter() - t0,
+                                       "launches": K.launch_counts()}
+            if mesh.rank:
+                continue
+            want = one()
+            if name.startswith("pca"):
+                held, worst, _ = _pca_hold(name, st, want)
+                rec.update(moved=0, detail=f"{held} components within "
+                           f"{worst:.2e}")
+                continue
+            if name.startswith("balanced"):
+                _close(f"{name} centroids", st.centroids, want.centroids)
+                moved = int((st.labels != want.labels).sum())
+                _check(moved <= 1e-4 * x.shape[0],
+                       f"{name}: {moved} labels differ from one card's")
+            else:
+                field = "means" if name.startswith("gmm") else "centroids"
+                _close(f"{name} {field}", getattr(st, field),
+                       getattr(want, field))
+                moved = int((st.labels != want.labels).sum())
+                _check(moved == 0 and int(st.n_iter) == int(want.n_iter),
+                       f"{name}: {moved} labels differ, {int(st.n_iter)} "
+                       f"iterations against {int(want.n_iter)}")
+            rec.update(moved=moved, detail=f"{int(st.n_iter)} iterations")
+    finally:
+        with open(spec["out"] % mesh.rank, "w", encoding="utf-8") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _soft_world(tmp):
+    """Spawn phase 18's gloo world of two ranks on the one card."""
+    import os
+
+    from kmeans_tpu_torch.parallel.mesh import free_port
+
+    spec = {"out": f"{tmp}/soft-rank%d.json"}
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE="2",
+               PYTHONUNBUFFERED="1")
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--soft-rank",
+         json.dumps(spec)], cwd=root,
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r))) for r in range(2)]
+    return procs, spec
+
+
+def _soft_cli(tmp):
+    """train-mesh (phase 18): ``cli train --mesh 2 --device cpu`` for
+    fuzzy, gmm and balanced against ``--mesh 1``, in CPU processes.
+    Returns ``{name: (stdout, stderr, rc)}`` and seconds."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = {}
+    for family in ("fuzzy", "gmm", "balanced"):
+        base = ["train", *SOFT_CLI_SMALL, "--model", family, "--k", "8"]
+        runs[family] = base + ["--mesh", "2"]
+        runs[f"{family} 1"] = base
+    t0 = time.perf_counter()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "kmeans_tpu_torch.cli", *argv], cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, argv in runs.items()}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            outs[name] = p.communicate(timeout=CLI_TIMEOUT_S) + (
+                p.returncode,)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs, time.perf_counter() - t0
+
+
+def _check_soft_cli(outs, secs):
+    for family in ("fuzzy", "gmm", "balanced"):
+        res = {}
+        for name in (family, f"{family} 1"):
+            out, err, rc = outs[name]
+            _check(rc == 0, f"train-mesh {name}: exit {rc}, stderr "
+                   f"{err[-1500:]}")
+            res[name] = json.loads(out.strip().splitlines()[-1])
+        two, one = res[family], res[f"{family} 1"]
+        same = ("n", "d", "k", "n_iter", "mode", "converged")
+        _check({f: two[f] for f in same} == {f: one[f] for f in same}
+               and two["mesh"] == 2
+               and abs(two["inertia"] - one["inertia"])
+               <= 1e-4 * abs(one["inertia"]),
+               f"train-mesh {family}: {two} against {one}")
+        print(f"train-mesh {family} (--mesh 2 --device cpu): k={two['k']}, "
+              f"n_iter {two['n_iter']}, objective {two['inertia']} against "
+              f"--mesh 1's {one['inertia']}")
+    print(f"train-mesh (phase 18): {secs:.1f} s for the six CPU runs")
+
+
+def _cpu_holds(x_mnist, c_mnist, x_glove, c_glove, x_cifar):
+    """The port's CPU fits the card's runs are held to, run on a thread
+    beside them: ``(start(), get(name))``."""
+    import threading
+
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.data.preprocess import pca_fit
+
+    jobs = {}
+    k = MNIST["k"]
+    # In the order the card's runs ask for them.
+    jobs["fuzzy"] = lambda: kt.fit_fuzzy(
+        x_glove, GLOVE["k"], init=c_glove, tol=-1.0,
+        max_iter=FUZZY_HOLD_ITERS, device="cpu",
+        config=kt.KMeansConfig(k=GLOVE["k"], compute_dtype="float32"))
+    for cov in ("diag", "spherical", "tied"):
+        jobs[f"gmm {cov}"] = (lambda cov=cov: kt.fit_gmm(
+            x_mnist, k, covariance_type=cov, init=c_mnist, tol=-1.0,
+            max_iter=MNIST_GMM_ITERS, device="cpu",
+            config=kt.KMeansConfig(k=k, compute_dtype="float32")))
+    jobs["pca"] = lambda: pca_fit(x_cifar, PCA_M, whiten=True, device="cpu")
+    done, errors = {}, {}
+
+    def run():
+        torch.set_num_threads(4)
+        for name, fn in jobs.items():
+            try:
+                done[name] = fn()
+            except Exception as e:  # allow-silent-except: re-raised by get() on the main thread
+                errors[name] = e
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def get(name):
+        while name not in done and name not in errors:
+            _check(thread.is_alive() or name in done or name in errors,
+                   f"the CPU hold {name} never ran")
+            time.sleep(0.05)
+        if name in errors:
+            raise SmokeFailure(f"the CPU hold {name}: {errors[name]!r}")
+        return done[name]
+    return get, thread
+
+
+def _or_stop(procs, fn):
+    """``fn()``; if it fails, the processes ``procs`` (a gloo world started
+    beside it) are killed before the failure goes on."""
+    try:
+        fn()
+    except BaseException:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        raise
+
+
+def _at_once(*fns):
+    """Run each of ``fns`` on a thread of its own and wait for all; the
+    first failure is raised once every one has ended."""
+    import threading
+
+    errors = []
+
+    def run(fn):
+        try:
+            fn()
+        except BaseException as e:  # allow-silent-except: re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(fn,)) for fn in fns]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
+def phase_soft(card):
+    """Phase 18: the soft, balanced and projected families (see the module
+    docstring).  Returns the runs' launches by compute: ``{"bf16": {...},
+    "f32": {...}}``."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from kmeans_tpu_torch.data.synthetic import make_blobs
+    from kmeans_tpu_torch.parallel import make_mesh
+
+    t_all = time.perf_counter()
+    totals = {"bf16": {}, "f32": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_soft_")
+    cli = cpu_thread = None
+
+    def mark(what):
+        print(f"  [phase 18: {what} done at {time.perf_counter() - t_all:.1f}"
+              " s]", flush=True)
+
+    try:
+        # The CPU holds' inputs, made on the card and copied off; their
+        # fits run on a thread beside the card's work.
+        x_m, centres_m = _mnist()
+        c_m = _near_c0(centres_m, 31)
+        xg, centres_g = _glove(0, GLOVE["k"])
+        c_g = _near_c0(centres_g, 32)
+        path = f"{tmp}/cifar10.npy"
+        x_c = make_blobs(15, CIFAR10["n"], CIFAR10["d"], CIFAR10["k"],
+                         device="cuda")[0]
+        x_c_host = x_c.cpu().numpy()
+        np.save(path, x_c_host)
+        cpu_fits, cpu_thread = _cpu_holds(x_m.cpu(), c_m.cpu(),
+                              xg[:FUZZY_HOLD_ROWS].cpu(), c_g.cpu(),
+                              torch.from_numpy(x_c_host))
+        del xg, centres_g
+        # train-mesh's CPU processes run beside everything.
+        cli_out = {}
+        cli = threading.Thread(target=lambda: cli_out.update(
+            zip(("outs", "secs"), _soft_cli(tmp))))
+        cli.start()
+        _imagenet_gmm(card, totals)
+        mark("imagenet-gmm")
+        _glove_fuzzy(card, cpu_fits)
+        mark("glove-fuzzy")
+        _mnist_balanced(card, x_m, centres_m, totals)
+        mark("mnist-balanced")
+        mesh = make_mesh((1, 1), ("data", "model"))
+        _check(mesh.backend == "nccl", f"phase 18's mesh of one: {mesh}")
+        try:
+            _soft_dp1(card, mesh, x_m, centres_m)
+            mark("gmm-dp1-nccl, fuzzy-dp1-nccl")
+            _glove_balanced_dp1(card, mesh)
+            mark("glove-balanced-dp1-nccl")
+        finally:
+            dist.destroy_process_group()
+        # After the runs above, which the CPU holds' thread runs beside.
+        _mnist_gmm(card, x_m, centres_m, cpu_fits)
+        mark("mnist-gmm")
+        got_pca = _pca_parts(card, x_c)
+        del x_c
+        torch.cuda.empty_cache()
+        _cifar10_gmm_stream(card, tmp, path)
+        mark("cifar10-pca, cifar10-gmm-stream in process")
+        # The child processes at once (their seconds are no measurements
+        # of the card): the --pca fit, the stream's drill and resume, the
+        # BIC sweep and the gloo world.
+        procs, spec = _soft_world(tmp)
+        _or_stop(procs, lambda: _at_once(
+            lambda: _cifar10_pca(card, tmp, path, got_pca, cpu_fits, totals),
+            lambda: _gmm_stream_drill(card, tmp, path),
+            lambda: _mnist_sweep_bic(card, tmp, x_m, totals)))
+        ranks = _wait_world("phase 18's gloo world", procs, spec)
+        for rank in ranks:
+            for rec in rank["runs"].values():
+                _add_counts(totals["f32"], rec["launches"])
+        for name, rec in ranks[0]["runs"].items():
+            secs = [r["runs"][name]["seconds"] for r in ranks]
+            print(f"{name} ({card}; two ranks share the card, not a "
+                  f"scaling number): held to one card's fit ({rec['detail']}"
+                  f", {rec['moved']} labels differ); "
+                  f"{[round(s, 3) for s in secs]} s a rank; launches a rank "
+                  f"{[r['runs'][name]['launches'] for r in ranks]}")
+        cli.join(timeout=CLI_TIMEOUT_S)
+        _check("outs" in cli_out, "train-mesh: the CLI runs did not end")
+        _check_soft_cli(cli_out["outs"], cli_out["secs"])
+    finally:
+        # On a failure too: the CPU processes and the CPU fits end before
+        # the phase does.
+        for thread in (cli, cpu_thread):
+            if thread is not None:
+                thread.join(timeout=CLI_TIMEOUT_S)
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_all
+    print(f"phase 18 ({card}): {secs:.1f} s; launches {totals}")
     return totals
 
 
@@ -9643,6 +10828,8 @@ def main() -> int:
         return _families_rank(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--sweep-cli"]:
         return _sweep_cli(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--soft-rank"]:
+        return _soft_rank(json.loads(sys.argv[2]))
     import torch
 
     if not torch.cuda.is_available():
@@ -9690,6 +10877,11 @@ def main() -> int:
     if sys.argv[1:] == ["--families"]:
         phase_build()
         phase_families(card)
+        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+        return 0
+    if sys.argv[1:] == ["--soft"]:
+        phase_build()
+        phase_soft(card)
         print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
         return 0
     if sys.argv[1:] == ["--fleet"]:
@@ -9757,23 +10949,29 @@ def main() -> int:
     mesh = phase_mesh(card)
     sharded = phase_sharded(card)
     families = phase_families(card)
+    # Phase 7's split before phase 18, whose profiles of thousands of
+    # small kernels precede it otherwise (the proof smoke that ran it
+    # after them lost records of its own short kernels).
+    phase_fold_split()
+    soft = phase_soft(card)
     names = {row["name"] for row in kernels}
     for row in kernels:
-        # Phases 15's, 16's and 17's launches (every rank's, every
+        # Phases 15's, 16's, 17's and 18's launches (every rank's, every
         # child's, and the single-device fits they are held to) join the
         # bf16 rows and the f32 route's rows, as phase 14's do; phase 17's
-        # f32 launches of a kernel with no f32 row (K3, the sharded delta
-        # loop's refresh) join its one row.
+        # and 18's f32 launches of a kernel with no f32 row (K3, the
+        # sharded delta loop's refresh) join its one row.
         name, _, what = row["name"].partition(" ")
         compute = {"": "bf16", "(f32 route)": "f32"}.get(what)
         if compute:
             row["launches"] += (mesh[compute].get(name, 0)
                                 + sharded[compute].get(name, 0)
-                                + families[compute].get(name, 0))
+                                + families[compute].get(name, 0)
+                                + soft[compute].get(name, 0))
         if not what and f"{name} (f32 route)" not in names:
-            row["launches"] += families["f32"].get(name, 0)
+            row["launches"] += (families["f32"].get(name, 0)
+                                + soft["f32"].get(name, 0))
     kernels += board_rows + serve_rows
-    phase_fold_split()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,10 @@ Lloyd k-means with the incremental delta sweep, the bound-pruned hamerly and
 yinyang sweeps and the adaptive ``update="auto"`` loop, the accelerated fits
 (beta, Anderson, the nested ladder), minibatch (in memory, or streamed out
 of core from host memory: :func:`fit_minibatch_stream`), trimmed,
-spherical and bisecting k-means, x-means and g-means, and model selection
+spherical and bisecting k-means, x-means and g-means, Gaussian mixtures
+(:func:`fit_gmm`, streamed: :func:`fit_gmm_stream`), fuzzy c-means,
+balanced (Sinkhorn) k-means, PCA / whitening
+(:mod:`kmeans_tpu_torch.data.preprocess`) and model selection
 (:func:`sweep_k`, :mod:`kmeans_tpu_torch.metrics`), whose
 sweep kernels are hand-written CUDA for Hopper (``csrc/lloyd.cu``), built
 with ``nvcc`` at first use.  The assignment engine (:class:`AssignEngine`) serves
@@ -27,8 +30,12 @@ from kmeans_tpu_torch.config import KMeansConfig, ServeConfig
 from kmeans_tpu_torch.continuous.registry import Generation, ModelRegistry
 from kmeans_tpu_torch.data.synthetic import make_blobs
 from kmeans_tpu_torch.models.accelerated import fit_lloyd_accelerated
+from kmeans_tpu_torch.models.balanced import BalancedKMeans, fit_balanced
 from kmeans_tpu_torch.models.bisecting import BisectingKMeans, fit_bisecting
+from kmeans_tpu_torch.models.fuzzy import FuzzyCMeans, fit_fuzzy
 from kmeans_tpu_torch.models.gmeans import GMeans, fit_gmeans
+from kmeans_tpu_torch.models.gmm import GaussianMixture, fit_gmm
+from kmeans_tpu_torch.models.gmm_stream import fit_gmm_stream
 from kmeans_tpu_torch.models.init import kmeans_plus_plus
 from kmeans_tpu_torch.models.lloyd import (KMeans, KMeansState, fit_lloyd,
                                            fit_plan)
@@ -54,4 +61,6 @@ __all__ = ["KMeans", "KMeansConfig", "KMeansState", "fit_lloyd", "fit_plan",
            "TrimmedKMeans", "TrimmedState", "fit_trimmed",
            "fit_minibatch_stream", "assign_stream", "SphericalKMeans",
            "fit_spherical", "BisectingKMeans", "fit_bisecting", "XMeans",
-           "fit_xmeans", "GMeans", "fit_gmeans", "sweep_k", "suggest_k"]
+           "fit_xmeans", "GMeans", "fit_gmeans", "sweep_k", "suggest_k",
+           "GaussianMixture", "fit_gmm", "fit_gmm_stream", "FuzzyCMeans",
+           "fit_fuzzy", "BalancedKMeans", "fit_balanced"]

@@ -12,15 +12,20 @@ the step-paced :class:`~kmeans_tpu_torch.models.runner.LloydRunner`
 under ``--progress/--checkpoint/--resume/--telemetry/--trace/--xla-trace/
 --profile``), ``accelerated``, in-memory ``minibatch``, ``trimmed``
 (``--trim-fraction``; its outliers export as unassigned cards),
-``spherical``, ``bisecting``, and ``xmeans`` / ``gmeans`` (``--k`` is
-k_max; the result line reports the discovered k), and
+``spherical``, ``bisecting``, ``xmeans`` / ``gmeans`` (``--k`` is
+k_max; the result line reports the discovered k), ``fuzzy``, ``gmm``
+(``--covariance-type``) and ``balanced``, and
 ``--stream``: the out-of-core minibatch fit
-(:func:`~kmeans_tpu_torch.models.streaming.fit_minibatch_stream`) over
+(:func:`~kmeans_tpu_torch.models.streaming.fit_minibatch_stream`), or
+with ``--model gmm`` online EM (:func:`~kmeans_tpu_torch.models.
+gmm_stream.fit_gmm_stream`), over
 ``--input`` memory-mapped on the host, with ``--steps``, ``--batch-size``,
 ``--checkpoint`` / ``--resume`` in one directory, ``--telemetry`` and
 ``--trace``.  ``--coreset M`` fits lloyd, accelerated, spherical,
-bisecting or trimmed on an M-point lightweight coreset of the data,
-weighted.  A SIGTERM or SIGINT
+bisecting, fuzzy, gmm, trimmed or balanced on an M-point lightweight
+coreset of the data, weighted.  ``--pca N [--whiten]`` projects the
+in-memory data onto its top N principal components on the device first
+(:mod:`kmeans_tpu_torch.data.preprocess`).  A SIGTERM or SIGINT
 during a runner or streamed fit cuts a checkpoint and exits 3 with a
 "resume with: ..." line.  ``--xla-trace DIR`` writes a
 :mod:`torch.profiler` Chrome trace into DIR (the reference writes a
@@ -31,13 +36,12 @@ regenerates the same rows.  ``--merge-k K`` exports the fit's labels
 merged to K groups along the centroid dendrogram (:func:`~kmeans_tpu_torch.
 models.hierarchy.merge_to_k`) and adds ``merged_k`` to the result line.
 What the port does not have yet is refused with exit code 2 and one line
-naming its ROADMAP queue item: fuzzy, gmm (``--stream --model gmm``
-among them), balanced, ``--pca``/``--whiten`` (A9b), kernel, kmedoids and
-spectral (A9c).
+naming its ROADMAP queue item: kernel, kmedoids and spectral (A9c).
 
 ``--mesh N`` (N > 1) fits every ported family on N ranks, one process per
 device (``spherical`` on the sharded engine's sphere update; ``bisecting``,
-``xmeans`` and ``gmeans`` with every inner fit and assign on it)
+``xmeans`` and ``gmeans`` with every inner fit and assign on it; fuzzy,
+gmm and balanced on their DP bodies)
 (:mod:`kmeans_tpu_torch.parallel`), and ``--stream --mesh N`` runs the
 streamed fit's step sharded: the command starts N copies of itself, rank i
 on ``cuda:i`` (NCCL) or, with ``--device cpu``, N gloo CPU processes,
@@ -68,7 +72,8 @@ and ``batch`` lines on stderr under ``--progress``.
         [--k-max 8] [--model lloyd] [--criterion silhouette|gap|elbow]
 
 fits every k of the range on the card, prints one scored JSON line per k
-(:func:`~kmeans_tpu_torch.models.selection.sweep_k`, or the gap statistic)
+(:func:`~kmeans_tpu_torch.models.selection.sweep_k`, or the gap statistic;
+``--model gmm`` rows carry ``bic`` / ``aic`` for ``--criterion bic|aic``)
 and then ``{"suggested_k": K}``, as the reference's ``sweep`` does.
 
     python -m kmeans_tpu_torch.cli serve [--model-dir DIR] [--port 8787]
@@ -113,15 +118,11 @@ def _load_npy(path):
 
 
 def _not_ported(args):
-    """The one refusal line for a flag or family the port does not have
-    yet, naming its ROADMAP queue item; None when everything asked for is
+    """The one refusal line for a family the port does not have yet,
+    naming its ROADMAP queue item; None when everything asked for is
     ported."""
     if args.model in UNPORTED_FAMILIES:
         return f"--model {unported(args.model)}"
-    for flag, on in (("--pca", args.pca is not None),
-                     ("--whiten", args.whiten)):
-        if on:
-            return f"{flag} is not ported yet (ROADMAP A9b)"
     return None
 
 
@@ -229,6 +230,19 @@ def _cmd_train(args) -> int:
             return 2
         if model not in ("xmeans", "gmeans") and args.merge_k >= k:
             print(f"error: --merge-k must be in [1, {k - 1}] for --k {k}",
+                  file=sys.stderr)
+            return 2
+    if args.whiten and args.pca is None:
+        print("error: --whiten requires --pca", file=sys.stderr)
+        return 2
+    if args.pca is not None:
+        if args.stream:
+            print("error: --pca projects in-memory data; for out-of-core "
+                  "inputs fit with kmeans_tpu_torch.data.pca_fit_stream "
+                  "and write the projection to disk first", file=sys.stderr)
+            return 2
+        if not 1 <= args.pca < d:
+            print(f"error: --pca must be in [1, {d - 1}] for d={d}",
                   file=sys.stderr)
             return 2
 
@@ -340,7 +354,8 @@ def _cmd_train(args) -> int:
     # --max-iter governs the Lloyd-family loop; the minibatch and stream
     # paths are step-based (a nested-schedule minibatch fit is ladder-paced:
     # it honours --max-iter per rung and --tol at the full-batch finish).
-    step_based = minibatch and args.schedule != "nested"
+    step_based = (minibatch and args.schedule != "nested") \
+        or (args.stream and model == "gmm")
     if step_based and args.max_iter is not None:
         print("error: --max-iter has no effect with the step-based "
               "minibatch/stream paths; use --steps/--batch-size",
@@ -355,6 +370,10 @@ def _cmd_train(args) -> int:
         print(f"error: --covariance-type is a GMM flag; --model {model} "
               "ignores it", file=sys.stderr)
         return 2
+    # One copy of the GMM fit-kwarg plumbing for the mesh, stream and
+    # in-memory dispatches.
+    gmm_kw = ({"covariance_type": args.covariance_type}
+              if model == "gmm" and args.covariance_type else {})
 
     # --update configures the Lloyd-family centroid reduction; paths that
     # never read it must reject it rather than mislead.
@@ -505,8 +524,7 @@ def _cmd_train(args) -> int:
         return 2
 
     # The reference's list of the families a coreset fit allows; of them
-    # the port has lloyd, accelerated, spherical, bisecting and trimmed
-    # (the others are refused above, ROADMAP A9b / A9c).
+    # kernel and kmedoids are refused above (ROADMAP A9c).
     coreset_ok = ("lloyd", "accelerated", "spherical", "bisecting", "fuzzy",
                   "gmm", "kernel", "kmedoids", "trimmed", "balanced")
     fit_weights = None
@@ -570,6 +588,18 @@ def _cmd_train(args) -> int:
             # Each rank places only its own rows: the generated data leaves
             # the card once made.
             x = x.cpu()
+    if args.pca is not None:
+        from kmeans_tpu_torch.data.preprocess import pca_fit, pca_transform
+
+        # On the device, in f32; on a mesh every rank projects the same
+        # rows and places its own block of the projection.
+        if isinstance(x, np.ndarray) and not x.flags.writeable:
+            x = np.array(x)       # a read-only memmap
+        pst = pca_fit(x, args.pca, whiten=args.whiten, device=dev)
+        x = pca_transform(pst, x)
+        if mesh is not None:
+            x = x.cpu()
+        d = args.pca
 
     t0 = time.perf_counter()
     if args.coreset is not None:
@@ -647,7 +677,8 @@ def _cmd_train(args) -> int:
             if tw is not None:
                 tw.close()
     elif args.stream:
-        state = _train_stream(args, x, k, kcfg, dev, stream_ckpt, mesh)
+        state = _train_stream(args, x, k, kcfg, dev, stream_ckpt, mesh,
+                              model, gmm_kw)
         if isinstance(state, int):
             return state
     elif mesh is not None and model in ("xmeans", "gmeans", "bisecting"):
@@ -665,9 +696,12 @@ def _cmd_train(args) -> int:
                "accelerated": parallel.fit_lloyd_accelerated_sharded,
                "minibatch": parallel.fit_minibatch_sharded,
                "spherical": parallel.fit_spherical_sharded,
-               "trimmed": parallel.fit_trimmed_sharded}[model]
+               "fuzzy": parallel.fit_fuzzy_sharded,
+               "gmm": parallel.fit_gmm_sharded,
+               "trimmed": parallel.fit_trimmed_sharded,
+               "balanced": parallel.fit_balanced_sharded}[model]
         fit_kw = ({"trim_fraction": trim_fraction}
-                  if model == "trimmed" else {})
+                  if model == "trimmed" else {}) | gmm_kw
         if engine_ckpt:
             if args.resume and main_rank:
                 from kmeans_tpu_torch.utils.checkpoint import latest_step
@@ -686,12 +720,15 @@ def _cmd_train(args) -> int:
             "minibatch": models.fit_minibatch,
             "spherical": models.fit_spherical,
             "bisecting": models.fit_bisecting,
+            "fuzzy": models.fit_fuzzy,
+            "gmm": models.fit_gmm,
             "trimmed": models.fit_trimmed,
+            "balanced": models.fit_balanced,
             "xmeans": models.fit_xmeans,   # --k is k_max; k is discovered
             "gmeans": models.fit_gmeans,   # likewise (Anderson-Darling)
         }[model]
         fit_kw = ({"trim_fraction": trim_fraction}
-                  if model == "trimmed" else {})
+                  if model == "trimmed" else {}) | gmm_kw
         if fit_weights is not None:
             fit_kw["weights"] = fit_weights
         state = fit(x, k, config=kcfg, device=dev, **fit_kw)
@@ -840,13 +877,14 @@ def _join_mesh(args, n: int):
     return make_mesh((n, 1), ("data", "model"))
 
 
-def _train_stream(args, x, k, kcfg, dev, stream_ckpt, mesh):
-    """``train --stream``: the streamed minibatch fit of the memory-mapped
-    ``x`` (sharded over ``mesh`` when one is given); its state, or an exit
-    code after a one-line error."""
+def _train_stream(args, x, k, kcfg, dev, stream_ckpt, mesh, model, gmm_kw):
+    """``train --stream``: the streamed minibatch fit, or online EM with
+    ``--model gmm``, of the memory-mapped ``x`` (sharded over ``mesh`` when
+    one is given); its state, or an exit code after a one-line error."""
     import contextlib
 
     from kmeans_tpu_torch import obs
+    from kmeans_tpu_torch.models.gmm_stream import fit_gmm_stream
     from kmeans_tpu_torch.models.streaming import fit_minibatch_stream
     from kmeans_tpu_torch.utils import capture
     from kmeans_tpu_torch.utils.checkpoint import latest_step
@@ -868,7 +906,10 @@ def _train_stream(args, x, k, kcfg, dev, stream_ckpt, mesh):
     # typed nothing), so the fit's refusal of a contradicted resume fires
     # for CLI flags too.
     stream_kw = dict(steps=args.steps, batch_size=args.batch_size,
-                     seed=args.seed, mesh=mesh, **ckpt_kw)
+                     seed=args.seed, mesh=mesh, **ckpt_kw, **gmm_kw)
+    fit_stream = (fit_gmm_stream if model == "gmm"
+                  else fit_minibatch_stream)
+    model_label = "gmm_stream" if model == "gmm" else "minibatch_stream"
     tw_box = [None]
     if args.telemetry:
         try:
@@ -887,7 +928,7 @@ def _train_stream(args, x, k, kcfg, dev, stream_ckpt, mesh):
             tw = tw_box[0]
             if tw is None:
                 tw = tw_box[0] = obs.TelemetryWriter(args.telemetry, common={
-                    "model": "minibatch_stream", "device": dev.type})
+                    "model": model_label, "device": dev.type})
             # The first step of this process carries the one-time costs
             # (on the card: the library's load), as the runner's does.
             phase = "step" if stepped[0] else "compile+step"
@@ -902,8 +943,8 @@ def _train_stream(args, x, k, kcfg, dev, stream_ckpt, mesh):
     try:
         try:
             with trace_ctx:
-                return fit_minibatch_stream(x, k, config=kcfg, device=dev,
-                                            **stream_kw)
+                return fit_stream(x, k, config=kcfg, device=dev,
+                                  **stream_kw)
         except ValueError as e:
             # Predictable user errors (a foreign checkpoint, contradicted
             # sampling parameters, a step mismatch) are one line.
@@ -1226,7 +1267,7 @@ def main(argv=None) -> int:
     t.add_argument("--stream", action="store_true",
                    help="out-of-core minibatch fit: --input is memory-"
                         "mapped and batches stream from the host to the "
-                        "device (--model gmm is not ported, ROADMAP A9b)")
+                        "device (online EM with --model gmm)")
     t.add_argument("--n", type=int, default=500)
     t.add_argument("--d", type=int, default=2)
     t.add_argument("--k", type=int, default=3)
@@ -1239,11 +1280,11 @@ def main(argv=None) -> int:
         "spectral", "xmeans", "gmeans",
     ], help="model family (default: lloyd, or the config's minibatch "
             "choice); for xmeans/gmeans, --k is k_max and k is discovered; "
-            "fuzzy, gmm, balanced (ROADMAP A9b), kernel, kmedoids and "
-            "spectral (A9c) are refused")
+            "kernel, kmedoids and spectral (ROADMAP A9c) are refused")
     t.add_argument("--covariance-type", default=None,
                    choices=["diag", "spherical", "tied"],
-                   help="GMM covariance structure (--model gmm, not ported)")
+                   help="GMM covariance structure (--model gmm; streamed "
+                        "GMM supports diag/spherical)")
     t.add_argument("--trim-fraction", type=float, default=None,
                    help="--model trimmed: fraction of points excluded as "
                         "outliers each iteration (default 0.05); trimmed "
@@ -1253,8 +1294,8 @@ def main(argv=None) -> int:
     t.add_argument("--mesh", type=int, default=0,
                    help="data-parallel mesh size (0/1 = single device): N "
                         "ranks, one process per card (--device cpu: gloo "
-                        "CPU processes); lloyd, accelerated, minibatch, "
-                        "trimmed and --stream")
+                        "CPU processes); every ported family and "
+                        "--stream")
     t.add_argument("--max-iter", type=int, default=None,
                    help="Lloyd-family iteration cap (default 100); the "
                         "minibatch path is step-based — use --steps")
@@ -1262,15 +1303,15 @@ def main(argv=None) -> int:
                    help="minibatch/stream SGD steps (default 200)")
     t.add_argument("--coreset", type=int, default=None,
                    help="reduce the data to an M-point lightweight coreset "
-                        "(Bachem et al. 2018) and run the fit weighted "
-                        "(lloyd, accelerated, trimmed)")
+                        "(Bachem et al. 2018) and run the fit weighted")
     t.add_argument("--merge-k", type=int, default=None,
                    help="export the labels merged to a coarser k along the "
                         "centroid dendrogram (Ward linkage)")
     t.add_argument("--pca", type=int, default=None,
-                   help="PCA projection (not ported, ROADMAP A9b)")
+                   help="project onto the top N principal components "
+                        "before fitting (composes with --coreset/--mesh)")
     t.add_argument("--whiten", action="store_true",
-                   help="with --pca (not ported, ROADMAP A9b)")
+                   help="with --pca: rescale components to unit variance")
     t.add_argument("--batch-size", type=int, default=None,
                    help="minibatch/stream batch size (default 8192)")
     t.add_argument("--update", default=None,
@@ -1370,8 +1411,8 @@ def main(argv=None) -> int:
     w.add_argument("--model", default="lloyd", choices=[
         "lloyd", "accelerated", "minibatch", "spherical", "bisecting",
         "fuzzy", "gmm", "kernel", "kmedoids", "balanced", "spectral",
-    ], help="model family; fuzzy, gmm, balanced (ROADMAP A9b), kernel, "
-            "kmedoids and spectral (A9c) are refused")
+    ], help="model family; kernel, kmedoids and spectral (ROADMAP A9c) "
+            "are refused")
     w.add_argument("--criterion", default="silhouette",
                    choices=["silhouette", "bic", "aic", "gap", "elbow"],
                    help="suggestion rule; bic/aic need --model gmm, gap "

@@ -36,17 +36,16 @@ __all__ = ["KMeansConfig", "ServeConfig", "MeshConfig", "RunConfig",
            "UNPORTED_ITEMS", "PORTED_FAMILIES", "unported"]
 
 #: The reference's model families the port does not have yet, each with
-#: its ROADMAP item (A9b: the soft, balanced and projected families; A9c:
-#: the pairwise ones): ``cli train --model``, ``cli sweep --model``,
-#: ``sweep_k`` and the board's ``train`` op refuse them by name.
-UNPORTED_ITEMS = {"fuzzy": "A9b", "gmm": "A9b", "balanced": "A9b",
-                  "kernel": "A9c", "kmedoids": "A9c", "spectral": "A9c"}
+#: its ROADMAP item (A9c: the pairwise families): ``cli train --model``,
+#: ``cli sweep --model``, ``sweep_k`` and the board's ``train`` op refuse
+#: them by name.
+UNPORTED_ITEMS = {"kernel": "A9c", "kmedoids": "A9c", "spectral": "A9c"}
 UNPORTED_FAMILIES: Tuple[str, ...] = tuple(UNPORTED_ITEMS)
 
 #: The families the port fits.
 PORTED_FAMILIES: Tuple[str, ...] = (
     "lloyd", "accelerated", "minibatch", "trimmed", "spherical",
-    "bisecting", "xmeans", "gmeans")
+    "bisecting", "xmeans", "gmeans", "fuzzy", "gmm", "balanced")
 
 
 def unported(family: str) -> Optional[str]:

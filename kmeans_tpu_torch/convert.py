@@ -4,7 +4,12 @@ A reference ``KMeansState`` (or any mapping or object with the fields
 ``centroids``, ``labels``, ``counts``, ``inertia``, ``n_iter`` and, where
 present, ``converged``) becomes a port :class:`KMeansState` on a device, and
 back; :func:`trimmed_from_numpy` / :func:`trimmed_to_numpy` do the same
-for a reference ``TrimmedState`` (its ``outlier_mask`` too).  A reference
+for a reference ``TrimmedState`` (its ``outlier_mask`` too), and
+:func:`gmm_from_numpy` / :func:`gmm_to_numpy`, :func:`fuzzy_from_numpy`,
+:func:`balanced_from_numpy` and :func:`pca_from_numpy` /
+:func:`pca_to_numpy` for the GMM, fuzzy, balanced and PCA states, so a
+reference fit carried across predicts, soft-predicts and projects the
+same in the port.  A reference
 ``MiniBatchKMeans``'s state and lifetime counts
 (``_n_seen``) carry on in the port's estimator.  A reference registry
 ``Generation`` (its published fields) becomes a port
@@ -19,17 +24,26 @@ import numpy as np
 import torch
 
 from kmeans_tpu_torch.continuous.registry import Generation, ModelRegistry
+from kmeans_tpu_torch.data.preprocess import PCAState
 from kmeans_tpu_torch.device import resolve_device
+from kmeans_tpu_torch.models.balanced import BalancedState
+from kmeans_tpu_torch.models.fuzzy import FuzzyState
+from kmeans_tpu_torch.models.gmm import GMMState
 from kmeans_tpu_torch.models.lloyd import KMeansState
 from kmeans_tpu_torch.models.trimmed import TrimmedState
 
 __all__ = ["state_from_numpy", "state_to_numpy", "minibatch_from_numpy",
-           "trimmed_from_numpy", "trimmed_to_numpy",
+           "trimmed_from_numpy", "trimmed_to_numpy", "gmm_from_numpy",
+           "gmm_to_numpy", "fuzzy_from_numpy", "balanced_from_numpy",
+           "pca_from_numpy", "pca_to_numpy",
            "generation_from_numpy", "publish_state"]
 
 _DTYPES = {"centroids": np.float32, "labels": np.int32, "inertia": np.float32,
            "n_iter": np.int32, "converged": np.bool_, "counts": np.float32,
-           "outlier_mask": np.bool_}
+           "outlier_mask": np.bool_, "means": np.float32,
+           "covariances": np.float32, "mix_weights": np.float32,
+           "log_likelihood": np.float32, "resp_counts": np.float32,
+           "objective": np.float32, "col_masses": np.float32}
 
 
 def _field(src, name, default=None):
@@ -76,6 +90,55 @@ def trimmed_to_numpy(state: TrimmedState) -> dict:
     reference's dtypes; the reference's ``TrimmedState(**fields)`` takes
     it."""
     return state_to_numpy(state)
+
+
+def gmm_from_numpy(src, *, device=None) -> GMMState:
+    """A port :class:`~kmeans_tpu_torch.models.gmm.GMMState` on ``device``
+    (None is the card) from a reference ``GMMState`` or a mapping with its
+    fields: set it as a ``GaussianMixture``'s ``state``."""
+    return state_from_numpy(src, device=device, cls=GMMState)
+
+
+def gmm_to_numpy(state: GMMState) -> dict:
+    """``{field: numpy array}`` of a port GMM state; the reference's
+    ``GMMState(**fields)`` takes it."""
+    return state_to_numpy(state)
+
+
+def fuzzy_from_numpy(src, *, device=None) -> FuzzyState:
+    """A port :class:`~kmeans_tpu_torch.models.fuzzy.FuzzyState` from a
+    reference ``FuzzyState`` or a mapping with its fields."""
+    return state_from_numpy(src, device=device, cls=FuzzyState)
+
+
+def balanced_from_numpy(src, *, device=None) -> BalancedState:
+    """A port :class:`~kmeans_tpu_torch.models.balanced.BalancedState`
+    from a reference ``BalancedState`` or a mapping with its fields."""
+    return state_from_numpy(src, device=device, cls=BalancedState)
+
+
+def pca_from_numpy(src, *, device=None) -> PCAState:
+    """A port :class:`~kmeans_tpu_torch.data.preprocess.PCAState` on
+    ``device`` (None is the card) from a reference ``PCAState`` or a
+    mapping with its fields (``mean``, ``components``,
+    ``explained_variance``, ``whiten``)."""
+    dev = resolve_device(device)
+
+    def arr(name):
+        return torch.from_numpy(np.array(_field(src, name), dtype=np.float32,
+                                         order="C")).to(dev)
+
+    return PCAState(arr("mean"), arr("components"),
+                    arr("explained_variance"), bool(_field(src, "whiten")))
+
+
+def pca_to_numpy(state: PCAState) -> dict:
+    """``{field: value}`` of a port PCA state (float32 arrays and the
+    ``whiten`` flag); the reference's ``PCAState(**fields)`` takes it."""
+    out = {name: np.asarray(getattr(state, name).cpu().numpy(), np.float32)
+           for name in ("mean", "components", "explained_variance")}
+    out["whiten"] = bool(state.whiten)
+    return out
 
 
 def minibatch_from_numpy(state, n_seen=None, *, device=None):

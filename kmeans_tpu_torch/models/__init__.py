@@ -1,13 +1,25 @@
 """Fit models of the port: initialization, full-batch Lloyd, the
 step-paced runner, the accelerated fits, minibatch (in memory and streamed
 from the host), trimmed, spherical and bisecting k-means, x-means and
-g-means (automatic k), model selection (k sweeps, the gap statistic) and
-the dendrogram merge of fitted centroids."""
+g-means (automatic k), Gaussian mixtures (in memory and streamed), fuzzy
+c-means, balanced (Sinkhorn) k-means, model selection (k sweeps, the gap
+statistic, BIC / AIC) and the dendrogram merge of fitted centroids."""
 
 from kmeans_tpu_torch.models.accelerated import fit_lloyd_accelerated
+from kmeans_tpu_torch.models.balanced import (BalancedKMeans, BalancedState,
+                                              fit_balanced,
+                                              resolve_capacities,
+                                              sinkhorn_potentials)
 from kmeans_tpu_torch.models.bisecting import BisectingKMeans, fit_bisecting
+from kmeans_tpu_torch.models.fuzzy import (FuzzyCMeans, FuzzyState,
+                                           fit_fuzzy, fuzzy_memberships)
 from kmeans_tpu_torch.models.gmeans import (GMeans, anderson_darling_normal,
                                             fit_gmeans)
+from kmeans_tpu_torch.models.gmm import (GaussianMixture, GMMParams,
+                                         GMMState, fit_gmm, gmm_log_resp,
+                                         gmm_predict, gmm_sample)
+from kmeans_tpu_torch.models.gmm_stream import (fit_gmm_stream,
+                                                gmm_assign_stream)
 from kmeans_tpu_torch.models.hierarchy import (centroid_linkage, cut_linkage,
                                                merge_to_k)
 from kmeans_tpu_torch.models.lloyd import (KMeans, KMeansState, fit_lloyd,
@@ -81,4 +93,9 @@ __all__ = ["KMeans", "KMeansState", "fit_lloyd", "fit_plan",
            "normalize_rows", "BisectingKMeans", "fit_bisecting", "XMeans",
            "bic_score", "fit_xmeans", "GMeans", "anderson_darling_normal",
            "fit_gmeans", "sweep_k", "suggest_k", "gap_statistic",
-           "suggest_k_gap"]
+           "suggest_k_gap", "GMMParams", "GMMState", "fit_gmm",
+           "GaussianMixture", "gmm_predict", "gmm_log_resp", "gmm_sample",
+           "fit_gmm_stream", "gmm_assign_stream", "FuzzyState", "fit_fuzzy",
+           "FuzzyCMeans", "fuzzy_memberships", "BalancedState",
+           "fit_balanced", "BalancedKMeans", "sinkhorn_potentials",
+           "resolve_capacities"]

@@ -213,7 +213,7 @@ def resolve_fit_inputs(x, k, generator, config, init, weights):
 
 
 def host_subsample_seed(data, k, generator, cfg, init, *, host_seed,
-                        device):
+                        device, return_sample=False):
     """The streamed fits' seeding: ``init`` resolved against host-resident
     ``data`` (an ndarray or memmap), as the reference's.
 
@@ -222,22 +222,28 @@ def host_subsample_seed(data, k, generator, cfg, init, *, host_seed,
     subsample: ``min(n, max(64·k, 65536))`` distinct rows from
     ``np.random.default_rng(host_seed)``, sorted (a forward scan on a
     memmap), the reference's rows exactly.  The init method's own draws
-    come from ``generator``.  Returns ``c0`` (k, d) float32 on ``device``.
+    come from ``generator``.  Returns ``c0`` (k, d) float32 on ``device``,
+    or ``(c0, subsample)`` with ``return_sample`` (the streamed GMM takes
+    its starting variances from the subsample).
     """
     import numpy as np
 
     n, d = data.shape
+    c0 = None
     if init is not None and not isinstance(init, str):
         c0 = as_tensor(init, device, torch.float32)
         if tuple(c0.shape) != (k, d):
             raise ValueError(
                 f"init centroids shape {tuple(c0.shape)} != {(k, d)}")
-        return c0
+        if not return_sample:
+            return c0
     sub = min(n, max(4 * k * 16, 65536))
     rng = np.random.default_rng(host_seed)
     sidx = np.sort(rng.choice(n, size=sub, replace=False))
     xs = as_tensor(np.ascontiguousarray(data[sidx]), device)
-    method = init if isinstance(init, str) else cfg.init
-    return init_centroids(generator, xs, k, method=method,
-                          compute_dtype=cfg.compute_dtype,
-                          chunk_size=cfg.chunk_size)
+    if c0 is None:
+        method = init if isinstance(init, str) else cfg.init
+        c0 = init_centroids(generator, xs, k, method=method,
+                            compute_dtype=cfg.compute_dtype,
+                            chunk_size=cfg.chunk_size)
+    return (c0, xs) if return_sample else c0

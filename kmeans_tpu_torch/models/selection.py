@@ -3,7 +3,8 @@
 Counterpart of ``kmeans_tpu/models/selection.py``: fit a range of k, report
 inertia (the elbow curve) and the internal quality metrics of
 :mod:`kmeans_tpu_torch.metrics`, and suggest the k with the best
-silhouette; or the gap statistic against uniform reference sets.
+silhouette (or, for a GMM sweep, the lowest BIC / AIC); or the gap
+statistic against uniform reference sets.
 
 The draws — each fit's seeding, each silhouette sample, each gap reference
 set — come from one :class:`torch.Generator` (default: seeded with
@@ -78,8 +79,12 @@ def sweep_k(
     davies_bouldin, calinski_harabasz}`` ("inertia" is each family's
     lower-is-better objective via
     :func:`kmeans_tpu_torch.models.state_objective`; the scores need k ≥
-    2).  Silhouette is the chunked, sampled implementation.  A family the
-    port does not have yet is refused by name before any fit."""
+    2).  GMM rows also carry ``bic`` / ``aic`` (the diag-covariance
+    parameter count), for ``suggest_k(rows, criterion="bic")``.
+    Silhouette is the chunked, sampled implementation.  A family the port
+    does not have yet is refused by name before any fit."""
+    import math
+
     import kmeans_tpu_torch.models as models
     from kmeans_tpu_torch.data.synthetic import generator_for
     from kmeans_tpu_torch.metrics import dispersion_scores, silhouette_score
@@ -109,6 +114,14 @@ def sweep_k(
             "n_iter": int(state.n_iter),
             "converged": bool(state.converged),
         }
+        if model == "gmm":
+            # Diag covariance (the fit default): k·d means + k·d variances
+            # + (k-1) mixing weights.
+            n, d = x.shape
+            p = 2 * int(k) * d + (int(k) - 1)
+            ll = float(state.log_likelihood)
+            row["bic"] = -2.0 * ll + p * math.log(n)
+            row["aic"] = -2.0 * ll + 2 * p
         if k >= 2:
             row["silhouette"] = float(silhouette_score(
                 x, state.labels, k=int(k), sample_size=silhouette_sample,

@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["chunk_tiles", "sq_norms", "pairwise_sq_dists", "assign",
-           "full_f32", "cd_product", "resolve_cd"]
+           "full_f32", "cd_product", "cd_matmul", "resolve_cd"]
 
 
 def resolve_cd(compute_dtype, x_dtype: torch.dtype) -> torch.dtype:
@@ -53,6 +53,17 @@ def cd_product(a: torch.Tensor, b: torch.Tensor, cd: torch.dtype):
     ``preferred_element_type=f32`` semantics."""
     with full_f32():
         return a.to(cd).float() @ b.to(cd).float().T
+
+
+def cd_matmul(a: torch.Tensor, b: torch.Tensor, cd: torch.dtype):
+    """``cd(a) @ cd(b)`` with f32 accumulation and output: on the card a
+    bf16 product with f32 output, else the f32 product of the
+    ``cd``-rounded operands with TF32 off (the same values: bf16 products
+    are exact in f32)."""
+    if a.is_cuda and cd == torch.bfloat16:
+        return torch.mm(a.to(cd), b.to(cd), out_dtype=torch.float32)
+    with full_f32():
+        return a.to(cd).float() @ b.to(cd).float()
 
 
 def chunk_tiles(x: torch.Tensor, w: Optional[torch.Tensor], chunk_size: int):

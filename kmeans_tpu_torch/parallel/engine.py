@@ -30,19 +30,21 @@ rank places full rows of its share of the data block, the rows the
 reference's feature exchange would hand it, and gathers only the
 centroids' columns).  Beside the Lloyd fit the engine runs the reference's other DP
 loops on the same rank bodies: :func:`fit_lloyd_accelerated_sharded` (β
-and Anderson extrapolation, one merge a sweep, the decision replicated) and
+and Anderson extrapolation, one merge a sweep, the decision replicated),
 :func:`fit_trimmed_sharded` (each rank nominates its top rows, one
 all-gather of their keys gives the global threshold, the correction is
-subtracted before the merge).  With ``ckpt_dir`` :func:`fit_lloyd_sharded`
+subtracted before the merge), :func:`fit_fuzzy_sharded` and
+:func:`fit_gmm_sharded` (local soft moments, one all-reduce a pass) and
+:func:`fit_balanced_sharded` (the transport plan split by rows, the
+column logsumexp a MAX and a SUM all-reduce a Sinkhorn sweep).  With ``ckpt_dir`` :func:`fit_lloyd_sharded`
 runs elastic: sweep segments of ``ckpt_every`` sweeps, each ending in a
 checkpoint of the global centroids that rank 0 writes in the reference's
 format, so a run cut on one mesh resumes on another, in either package.
 ``center_update="sphere"`` is spherical k-means on every layout
 (:func:`fit_spherical_sharded`): the renormalized direction sum, taken
 from the full-width merged sums (the FP body holds full rows, so the norm
-needs no collective of its own).  The sharded fuzzy, GMM, balanced,
-k-medoids, kernel and spectral families are not ported yet (ROADMAP A9b,
-A9c).
+needs no collective of its own).  The sharded k-medoids, kernel and
+spectral families are not ported yet (ROADMAP A9c).
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ from kmeans_tpu_torch.utils import faults
 
 __all__ = ["fit_lloyd_sharded", "fit_lloyd_accelerated_sharded",
            "fit_trimmed_sharded", "fit_minibatch_sharded",
+           "fit_balanced_sharded", "fit_fuzzy_sharded", "fit_gmm_sharded",
            "fit_spherical_sharded", "sharded_assign", "pad_and_place",
            "sweep_split", "ENGINE_CKPT_EVERY"]
 
@@ -1533,6 +1536,176 @@ def fit_trimmed_sharded(
         torch.tensor(n_iter, dtype=torch.int32, device=dev),
         torch.tensor(converged, device=dev), counts,
         _gather_rows(mesh, out_mask.to(torch.uint8), n).bool())
+
+
+def _sharded_start(x, k, mesh, data_axis, generator, config, init, weights):
+    """What the soft and balanced sharded fits share: ``(cfg, x_loc,
+    w_loc, w_host, n, c0)`` — the config, this rank's placed rows and
+    weights (padding rows weight 0), the global padded weights, the real
+    row count and the starting centroids (given, or seeded on the mesh)."""
+    cfg, gen = resolve_fit_config(k, generator, config, mesh.device)
+    _check_weights(x, weights)
+    c0, method = _given_init(init, cfg, k, x.shape[1], mesh.device)
+    x_loc, w_loc, w_host, n = _place(x, mesh, data_axis, weights=weights)
+    if c0 is None:
+        c0 = _seed_on_mesh(gen, x_loc, w_loc, k, mesh=mesh, n=n,
+                           method=method, weights=weights, cfg=cfg)
+    return cfg, x_loc, w_loc, w_host, n, c0.float()
+
+
+def _soft_fit(mesh, kind: str, loop, n: int):
+    """Run a soft or balanced family's loop (its model module's, given this
+    rank's rows and the mesh) under the sharded fit's span; every rank
+    returns the global state, its labels gathered."""
+    layout = _mesh_layout(mesh.size, 1, 1)
+    with _tracing.span(f"fit_{kind}_sharded", category="fit", kind=kind,
+                       layout=layout):
+        st = loop()
+    return st._replace(labels=_gather_rows(mesh, st.labels, n))
+
+
+def _mean_min_sq_dist(mesh, x_loc, c0, w_loc, *, compute_dtype) -> float:
+    """The epsilon scale of :func:`fit_balanced`: the mean squared
+    distance to the nearest seed over the real rows (padding excluded by
+    the weight mask), with one all-reduce."""
+    from kmeans_tpu_torch.ops.distance import pairwise_sq_dists
+
+    mind = pairwise_sq_dists(x_loc, c0,
+                             compute_dtype=compute_dtype).amin(dim=1)
+    real = (w_loc > 0).float()
+    t = mesh.all_reduce(torch.stack([(mind * real).sum(), real.sum()]))
+    return float(t[0] / t[1])
+
+
+def fit_balanced_sharded(
+    x,
+    k: int,
+    *,
+    mesh,
+    capacities=None,
+    epsilon: float = 0.5,
+    sinkhorn_sweeps: int = 200,
+    generator: Optional[torch.Generator] = None,
+    config: Optional[KMeansConfig] = None,
+    init=None,
+    weights=None,
+    data_axis: str = "data",
+    tol: Optional[float] = None,
+    max_iter: Optional[int] = None,
+    normalize_epsilon: bool = True,
+):
+    """Balanced (Sinkhorn-OT) k-means, data parallel over ``mesh``: the
+    (n, k) transport plan split by rows, past the single-device fit's
+    size gate.  Each rank runs :func:`~kmeans_tpu_torch.models.balanced.
+    fit_balanced`'s loop on its rows; the column step's logsumexp is a MAX
+    and a SUM all-reduce a sweep, the update one all-reduce a step.
+    Centroids, inertia and column masses match the single-device fit to
+    float tolerance; labels agree except on near-tie rows, where
+    ``argmin(d² − g)`` can flip because the distributed logsumexp sums
+    ``g`` in another order.  Returns a :class:`~kmeans_tpu_torch.models.
+    balanced.BalancedState` (every rank the global one)."""
+    from kmeans_tpu_torch.models.balanced import (_balanced_loop,
+                                                  check_sinkhorn_args,
+                                                  resolve_capacities)
+    from kmeans_tpu_torch.models.gmm import to_f32
+
+    check_sinkhorn_args(epsilon, sinkhorn_sweeps)
+    cap = resolve_capacities(k, capacities, mesh.device)
+    cfg, x_loc, w_loc, w_host, n, c0 = _sharded_start(
+        x, k, mesh, data_axis, generator, config, init, weights)
+    # Normalized log row masses on the host (padding rows -inf).
+    wa = np.asarray(w_host, np.float64)
+    with np.errstate(divide="ignore"):
+        log_a = np.where(wa > 0, np.log(np.maximum(wa, 1e-300)), -np.inf)
+    log_a = log_a - np.log(wa.sum())
+    n_loc = x_loc.shape[0]
+    lo = mesh.coord(data_axis) * n_loc
+    log_a_loc = torch.from_numpy(
+        log_a[lo:lo + n_loc].astype(np.float32)).to(mesh.device)
+    eps_v = float(epsilon)
+    if normalize_epsilon:
+        eps_v = max(eps_v * _mean_min_sq_dist(
+            mesh, x_loc, c0, w_loc, compute_dtype=cfg.compute_dtype), 1e-12)
+    return _soft_fit(mesh, "balanced", lambda: _balanced_loop(
+        x_loc, c0, w_loc, log_a_loc, torch.log(cap), cap,
+        to_f32(tol if tol is not None else cfg.tol), eps_v,
+        max_iter=max_iter if max_iter is not None else cfg.max_iter,
+        sweeps=sinkhorn_sweeps, compute_dtype=cfg.compute_dtype,
+        mesh=mesh), n)
+
+
+def fit_fuzzy_sharded(
+    x,
+    k: int,
+    *,
+    mesh,
+    m: float = 2.0,
+    generator: Optional[torch.Generator] = None,
+    config: Optional[KMeansConfig] = None,
+    init=None,
+    weights=None,
+    data_axis: str = "data",
+    tol: Optional[float] = None,
+    max_iter: Optional[int] = None,
+):
+    """Fuzzy c-means, data parallel over ``mesh``: each rank runs
+    :func:`~kmeans_tpu_torch.models.fuzzy.fit_fuzzy`'s loop on its rows,
+    the soft sums all-reduced once a pass.  Returns a
+    :class:`~kmeans_tpu_torch.models.fuzzy.FuzzyState` equal to the
+    single-device fit (labels exactly, floats to tolerance; bit for bit
+    on a mesh of one)."""
+    from kmeans_tpu_torch.models.fuzzy import _fcm_loop
+    from kmeans_tpu_torch.models.gmm import to_f32
+
+    if not m > 1.0:
+        raise ValueError(f"fuzziness m must be > 1, got {m}")
+    cfg, x_loc, w_loc, _, n, c0 = _sharded_start(
+        x, k, mesh, data_axis, generator, config, init, weights)
+    return _soft_fit(mesh, "fuzzy", lambda: _fcm_loop(
+        x_loc, c0, w_loc, to_f32(tol if tol is not None else cfg.tol),
+        m=float(m), max_iter=max_iter if max_iter is not None
+        else cfg.max_iter, chunk_size=cfg.chunk_size,
+        compute_dtype=cfg.compute_dtype, mesh=mesh), n)
+
+
+def fit_gmm_sharded(
+    x,
+    k: int,
+    *,
+    mesh,
+    covariance_type: str = "diag",
+    reg_covar: float = 1e-6,
+    generator: Optional[torch.Generator] = None,
+    config: Optional[KMeansConfig] = None,
+    init=None,
+    weights=None,
+    data_axis: str = "data",
+    tol: Optional[float] = None,
+    max_iter: Optional[int] = None,
+):
+    """Gaussian mixture EM, data parallel over ``mesh``: each rank runs
+    :func:`~kmeans_tpu_torch.models.gmm.fit_gmm`'s loop on its rows, the
+    soft moments all-reduced once a pass (the starting variances and the
+    tied scatter once a fit).  Returns a :class:`~kmeans_tpu_torch.models.
+    gmm.GMMState` equal to the single-device fit (labels exactly, floats
+    to tolerance; bit for bit on a mesh of one)."""
+    from kmeans_tpu_torch.models.gmm import _gmm_loop, to_f32
+
+    if covariance_type not in ("diag", "spherical", "tied"):
+        raise ValueError(
+            f"covariance_type must be 'diag', 'spherical' or 'tied', "
+            f"got {covariance_type!r}"
+        )
+    if not reg_covar >= 0.0:
+        raise ValueError(f"reg_covar must be >= 0, got {reg_covar}")
+    cfg, x_loc, w_loc, _, n, c0 = _sharded_start(
+        x, k, mesh, data_axis, generator, config, init, weights)
+    return _soft_fit(mesh, "gmm", lambda: _gmm_loop(
+        x_loc, c0, w_loc, to_f32(tol if tol is not None else cfg.tol),
+        to_f32(reg_covar), max_iter=max_iter if max_iter is not None
+        else cfg.max_iter, chunk_size=cfg.chunk_size,
+        compute_dtype=cfg.compute_dtype, covariance_type=covariance_type,
+        mesh=mesh), n)
 
 
 def _assign_local(mesh, x_loc, centroids, n, *, chunk_size, compute_dtype,

@@ -158,6 +158,17 @@ class Mesh:
         dist.all_reduce(t, op=_OPS[op], group=self.group)
         return t
 
+    def all_reduce_packed(self, *ts: torch.Tensor):
+        """Sum f32 tensors of any shapes over the mesh in ONE all-reduce of
+        their packed concatenation; returns the sums, each in its own
+        shape (views of the packed buffer)."""
+        packed = self.all_reduce(torch.cat([t.reshape(-1) for t in ts]))
+        out, lo = [], 0
+        for t in ts:
+            out.append(packed[lo:lo + t.numel()].view(t.shape))
+            lo += t.numel()
+        return tuple(out)
+
     def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` (``size · m`` rows) over the mesh and return this
         rank's block of ``m`` rows (the tiled ``psum_scatter``)."""

@@ -55,8 +55,8 @@ Known differences from the reference:
 * The ``train`` op's data is the port's ``make_blobs`` from a
   :class:`torch.Generator` seeded with ``seed`` (and its k-means++ from
   ``seed + 1``), not the reference's ``jax.random`` draws.  The families
-  the port does not have yet answer 400 naming their ROADMAP item (A9b,
-  A9c), before any other check.
+  the port does not have yet answer 400 naming their ROADMAP item (A9c),
+  before any other check.
 """
 
 from __future__ import annotations
@@ -195,7 +195,10 @@ _TRAIN_FITS = {
     "minibatch": "fit_minibatch",
     "spherical": "fit_spherical",
     "bisecting": "fit_bisecting",
+    "fuzzy": "fit_fuzzy",
+    "gmm": "fit_gmm",
     "trimmed": "fit_trimmed",   # outliers come back as unassigned cards
+    "balanced": "fit_balanced",  # same-size clusters via Sinkhorn OT
     "xmeans": "fit_xmeans",     # k acts as k_max; BIC discovers the k
     "gmeans": "fit_gmeans",     # k_max likewise; Anderson-Darling test
 }
@@ -958,6 +961,15 @@ class KMeansServer:
         # The data volume one unauthenticated request may demand.
         if n * d > 8_000_000:
             raise ValueError("train shape too large: n*d must be <= 8e6")
+        if model == "balanced":
+            # Each outer iteration runs sinkhorn_sweeps (200 by default)
+            # O(n·k) log-domain sweeps (two logsumexps each) on top of the
+            # distance product: the same 8e10 work budget.
+            if n * k * max_iter * 400 > 8e10:
+                raise ValueError(
+                    "balanced work too large: n·k·max_iter·400 must be "
+                    "<= 8e10"
+                )
         if model in ("xmeans", "gmeans"):
             # Worst case ~max_rounds·(2k split fits + 1 global fit) full-
             # array passes at the fit's default max_rounds=16: the same

@@ -261,7 +261,7 @@ def _save_array_checkpoint(path, arrays, *, step, config, key, extra,
     shutil.rmtree(path, ignore_errors=True)
     os.makedirs(path, exist_ok=True)
     faults.check("ckpt.pre_write")
-    arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    arrays = {k: _host(v) for k, v in arrays.items()}
     # Zero-size arrays are recorded by shape and dtype and rebuilt at load,
     # as the reference does (orbax refuses them, and the format is shared).
     empty = {

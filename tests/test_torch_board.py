@@ -17,8 +17,9 @@ Mirrors the board tests of ``tests/test_server.py`` and the
   k-means++ draws are replayed through the reference as ``init=`` (board
   positions as features: tie-free).
 * The ``train`` op's ported families run on the port (``lloyd`` streams
-  an event an iteration, with live centroids at d = 2); the reference's
-  other families answer 400 naming their ROADMAP item (A9b, A9c).
+  an event an iteration, with live centroids at d = 2), fuzzy, gmm and
+  balanced among them, with the reference's balanced work cap; the
+  reference's other families answer 400 naming their ROADMAP item (A9c).
 * ``stop()`` ends the SSE streams and returns promptly.
 
 The port runs with ``device="cpu"``.  Every server is stopped in teardown,
@@ -696,6 +697,12 @@ def test_train_lloyd_streams_an_event_an_iteration(servers):
      dict(unassigned=0)),
     ("gmeans", {"n": 300, "d": 2, "k": 8, "max_iter": 10},
      dict(unassigned=0)),
+    ("fuzzy", {"n": 300, "d": 2, "k": 3, "max_iter": 10},
+     dict(k=3, unassigned=0)),
+    ("gmm", {"n": 300, "d": 2, "k": 3, "max_iter": 10},
+     dict(k=3, unassigned=0)),
+    ("balanced", {"n": 240, "d": 2, "k": 3, "max_iter": 5},
+     dict(k=3, unassigned=0)),
 ])
 def test_train_one_shot_families_reach_the_board(servers, model, args,
                                                  check):
@@ -722,10 +729,11 @@ def test_train_unported_families_answer_400_naming_a9(servers, model):
     assert s._train_inflight == 0
 
 
-@pytest.mark.parametrize("model", ["xmeans", "gmeans"])
+@pytest.mark.parametrize("model", ["xmeans", "gmeans", "balanced"])
 def test_train_auto_k_work_cap_is_the_references(pair, model):
-    """The auto-k families' work cap (48·n·d·k·max_iter ≤ 8e10) answers
-    both servers' 400 with the same error, before any fit."""
+    """The auto-k families' work cap (48·n·d·k·max_iter ≤ 8e10) and the
+    balanced one (n·k·max_iter·400 ≤ 8e10) answer both servers' 400 with
+    the same error, before any fit."""
     args = {"model": model, "n": 100_000, "d": 80, "k": 100,
             "max_iter": 100}
     got = [_mutate(s.base, "CAP", "train", args) for s in pair]

@@ -324,3 +324,22 @@ def test_port_refuses_an_orbax_bundle(tmp_path):
     with pytest.raises(ckpt.UnsupportedFormatError,
                        match="'orbax' format.*npz"):
         ModelRegistry(path=path).load_latest()
+
+
+def test_array_checkpoint_takes_tensors_the_way_state_checkpoints_do(
+        tmp_path):
+    """``save_array_checkpoint`` converts each array as ``save_checkpoint``
+    does (detached, copied to the host), so the streamed GMM's parameters
+    and statistics save from wherever they live: a card tensor, or here a
+    tensor that ``numpy.asarray`` refuses (it requires grad).  The
+    reference reads the bundle."""
+    import torch
+
+    path = str(tmp_path / "ck")
+    means = torch.arange(6, dtype=torch.float32).view(2, 3).requires_grad_()
+    ckpt.save_array_checkpoint(path, {"means": means,
+                                      "log_pi": torch.zeros(2)}, step=3)
+    arrays, meta = ref_ckpt.load_array_checkpoint(path)
+    np.testing.assert_array_equal(arrays["means"],
+                                  means.detach().numpy())
+    assert meta["step"] == 3

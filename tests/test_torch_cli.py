@@ -154,12 +154,10 @@ def test_train_accel_anderson_nested(side, capsys):
 @pytest.mark.parametrize("side", SIDES)
 def test_train_accel_flag_guards(side, capsys):
     base = ["train", "--n", "200", "--d", "4", "--k", "3"]
-    # --accel with a family that would ignore it (the port refuses the
-    # family itself: A9).
+    # --accel with a family that would ignore it.
     rc, _, err = _run(side, capsys, base + ["--model", "gmm", "--accel",
                                             "anderson"])
-    assert rc == 2
-    assert "--accel" in err if side == "ref" else _refused(err, "A9")
+    assert rc == 2 and "--accel" in err
     rc, _, err = _run(side, capsys, base + ["--anderson-m", "4"])
     assert rc == 2 and "--anderson-m" in err
     rc, _, err = _run(side, capsys, base + ["--model", "kernel",
@@ -332,8 +330,7 @@ def test_cli_telemetry_requires_step_paced_loop(side, tmp_path, capsys):
     rc = _main(side)(["fit", "--model", "gmm", "--n", "100", "--d", "2",
                       "--k", "2", "--telemetry", str(tmp_path / "x.jsonl")])
     assert rc == 2
-    err = capsys.readouterr().err
-    assert "step-paced" in err if side == "ref" else _refused(err, "A9")
+    assert "step-paced" in capsys.readouterr().err
     rc = _main(side)(["fit", "--model", "accelerated", "--n", "100", "--d",
                       "2", "--k", "2", "--telemetry",
                       str(tmp_path / "x.jsonl")])
@@ -509,11 +506,11 @@ def test_export_bytes_equal_the_references(tmp_path, capsys):
 
 
 REFUSED = [
-    (["--stream", "--input", "x.npy", "--model", "gmm"], "A9b"),
-    (["--model", "gmm"], "A9b"),
-    (["--model", "fuzzy"], "A9b"),
-    (["--pca", "1"], "A9b"),
-    (["--whiten"], "A9b"),
+    (["--stream", "--input", "x.npy", "--model", "kmedoids"], "A9c"),
+    (["--model", "kernel"], "A9c"),
+    (["--model", "spectral"], "A9c"),
+    (["--pca", "1", "--model", "kernel"], "A9c"),
+    (["--whiten", "--model", "spectral"], "A9c"),
 ]
 
 
@@ -920,10 +917,12 @@ def test_train_families_match_the_references(family, tmp_path, capsys,
                                rtol=INERTIA_RTOL)
 
 
-@pytest.mark.parametrize("family", ["spherical", "bisecting"])
+@pytest.mark.parametrize("family", ["spherical", "bisecting", "fuzzy", "gmm",
+                                    "balanced"])
 def test_train_coreset_takes_the_new_families(family, tmp_path, capsys):
-    """``--coreset M`` fits spherical and bisecting on the weighted coreset,
-    as the reference's list allows; the result line carries ``coreset``."""
+    """``--coreset M`` fits spherical, bisecting, fuzzy, gmm and balanced
+    on the weighted coreset, as the reference's list allows; the result
+    line carries ``coreset``."""
     npy = str(tmp_path / "x.npy")
     np.save(npy, _separated(42, 1500, 5, 3))
     argv = ["train", "--input", npy, "--model", family, "--k", "3",
@@ -1041,14 +1040,150 @@ def test_sweep_lines_match_the_references(criterion, sweep_npy, capsys,
                 assert g[key] == want, key
 
 
-@pytest.mark.parametrize("model", ["fuzzy", "gmm", "balanced", "kernel",
-                                   "kmedoids", "spectral"])
+@pytest.mark.parametrize("model", ["kernel", "kmedoids", "spectral"])
 def test_sweep_refuses_the_unported_families(model, capsys):
-    """``sweep --model F`` for a family of A9b / A9c: exit 2, one line
-    naming its item, nothing printed on stdout, no fit and no card."""
+    """``sweep --model F`` for a family of A9c: exit 2, one line naming its
+    item, nothing printed on stdout, no fit and no card."""
     from kmeans_tpu_torch.config import UNPORTED_ITEMS
 
     rc = port_cli.main(["sweep", "--model", model])
     out = capsys.readouterr()
     assert rc == 2 and out.out == ""
     assert _refused(out.err, UNPORTED_ITEMS[model])
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP A9b: the soft, balanced and projected families
+# ---------------------------------------------------------------------------
+
+def _replay_fit_inputs(monkeypatch, family, run_port):
+    """Run ``run_port`` with the port's seeding of ``family`` recorded,
+    then have the reference's start from it; returns ``run_port()``."""
+    import importlib
+
+    from torch_replay import record_fit_inputs, replay_fit_inputs
+
+    port_module = importlib.import_module(f"kmeans_tpu_torch.models.{family}")
+    ref_module = importlib.import_module(f"kmeans_tpu.models.{family}")
+    inits = []
+    with monkeypatch.context() as m:
+        record_fit_inputs(m, port_module, inits)
+        out = run_port()
+    replay_fit_inputs(monkeypatch, ref_module, inits)
+    return out
+
+
+@pytest.mark.parametrize("family,extra", [
+    ("fuzzy", []), ("gmm", []), ("gmm", ["--covariance-type", "tied"]),
+    ("gmm", ["--covariance-type", "spherical"]), ("balanced", [])],
+    ids=["fuzzy", "gmm", "gmm-tied", "gmm-spherical", "balanced"])
+def test_train_soft_families_match_the_references(family, extra, tmp_path,
+                                                  capsys, monkeypatch):
+    """``train --model F`` prints the reference's result line from the
+    port's k-means++ start replayed through the reference: the same keys,
+    n_iter and mode, the objective (J, the negated log-likelihood, the
+    balanced inertia) within ``INERTIA_RTOL``."""
+    npy = str(tmp_path / "x.npy")
+    np.save(npy, _separated(45, 900, 5, 3, std=0.6))
+    argv = ["train", "--input", npy, "--model", family, "--k", "3",
+            "--max-iter", "20"] + extra
+    module = "balanced" if family == "balanced" else family
+    rc_p, out_p, err_p = _replay_fit_inputs(
+        monkeypatch, module, lambda: _run("port", capsys, argv))
+    rc_r, out_r, err_r = _run("ref", capsys, argv)
+    assert rc_r in (0, None) and rc_p == 0, err_p + err_r
+    ref, got = json.loads(out_r), json.loads(out_p)
+    assert list(got) == list(ref)
+    same = ("n", "d", "k", "mode", "n_iter", "converged")
+    assert {f: got[f] for f in same} == {f: ref[f] for f in same}
+    np.testing.assert_allclose(got["inertia"], ref["inertia"],
+                               rtol=INERTIA_RTOL)
+
+
+@pytest.mark.parametrize("extra", [["--whiten"], []],
+                         ids=["whiten", "plain"])
+def test_train_pca_matches_the_references(extra, tmp_path, capsys,
+                                          monkeypatch):
+    """``train --pca 4 [--whiten]``: the reference's projection carried
+    into the port (``convert.pca_from_numpy``: eigenvector signs are
+    neither package's to fix), then the Lloyd fit from the port's
+    k-means++ start replayed through the reference; the same result line
+    (d is the projected width)."""
+    import kmeans_tpu.models as ref_models
+    import kmeans_tpu_torch.data.preprocess as port_pre
+    import kmeans_tpu_torch.models as port_models
+    from kmeans_tpu.data import pca_fit as ref_pca_fit
+    from kmeans_tpu_torch.convert import pca_from_numpy
+
+    npy = str(tmp_path / "x.npy")
+    rng = np.random.default_rng(46)
+    x = _separated(46, 900, 4, 3, std=0.4) @ rng.normal(size=(4, 10))
+    np.save(npy, (x + 0.01 * rng.normal(size=x.shape)).astype(np.float32))
+    monkeypatch.setattr(port_pre, "pca_fit", lambda x, m, whiten, device:
+                        pca_from_numpy(ref_pca_fit(np.asarray(x), m,
+                                                   whiten=whiten),
+                                       device=device))
+    argv = ["train", "--input", npy, "--k", "3", "--pca", "4"] + extra
+    rc_p, out_p, err_p = _replay_inits(
+        monkeypatch, port_models, ref_models,
+        lambda: _run("port", capsys, argv))
+    rc_r, out_r, err_r = _run("ref", capsys, argv)
+    assert rc_r in (0, None) and rc_p == 0, err_p + err_r
+    ref, got = json.loads(out_r), json.loads(out_p)
+    assert list(got) == list(ref) and got["d"] == 4
+    same = ("n", "d", "k", "mode", "n_iter", "converged")
+    assert {f: got[f] for f in same} == {f: ref[f] for f in same}
+    np.testing.assert_allclose(got["inertia"], ref["inertia"],
+                               rtol=INERTIA_RTOL)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--whiten"], ["--pca", "2"], ["--pca", "0"],
+    ["--stream", "--pca", "1"]], ids=lambda a: " ".join(a))
+def test_pca_guards_equal_the_references(argv, tmp_path, capsys):
+    npy = str(tmp_path / "x.npy")
+    np.save(npy, _separated(47, 50, 2, 2))
+    full = ["train", "--input", npy, "--k", "2"] + argv
+    got = [_run(side, capsys, full) for side in SIDES]
+    assert got[0][0] == 2
+    if "--stream" in argv:
+        # The reference names its own module in the hint.
+        assert got[1][0] == 2 and "--pca projects" in got[1][2]
+    else:
+        assert (got[1][0], got[1][2]) == (2, got[0][2])
+
+
+@pytest.mark.parametrize("criterion", ["bic", "aic"])
+def test_sweep_gmm_criteria_match_the_references(criterion, sweep_npy,
+                                                 capsys, monkeypatch):
+    """``sweep --model gmm --criterion bic|aic``: every row carries the
+    reference's ``bic`` / ``aic`` (the diag parameter count) within
+    ``SWEEP_RTOL``, from the port's starts and silhouette samples replayed
+    through the reference, and the same ``suggested_k``."""
+    import kmeans_tpu.models.gmm as ref_gmm
+    import kmeans_tpu_torch.models.gmm as port_gmm
+    from kmeans_tpu_torch import metrics as port_metrics
+    from torch_replay import (record_calls, record_fit_inputs,
+                              replay_fit_inputs, replay_jax_random)
+
+    argv = ["sweep", "--input", sweep_npy, "--k-min", "2", "--k-max", "6",
+            "--model", "gmm", "--criterion", criterion,
+            "--silhouette-sample", "400", "--max-iter", "30"]
+    draws, inits = [], []
+    with monkeypatch.context() as m:
+        record_calls(m, port_metrics, "sample_rows", draws)
+        record_fit_inputs(m, port_gmm, inits)
+        rc_p, out_p, err_p = _run("port", capsys, argv)
+    replay_fit_inputs(monkeypatch, ref_gmm, inits)
+    replay_jax_random(monkeypatch, "choice", draws)
+    rc_r, out_r, err_r = _run("ref", capsys, argv)
+    assert rc_p == 0 and rc_r in (0, None), err_p + err_r
+    got = [json.loads(ln) for ln in out_p.splitlines()]
+    ref = [json.loads(ln) for ln in out_r.splitlines()]
+    assert [list(r) for r in got] == [list(r) for r in ref]
+    assert got[-1] == ref[-1]
+    for g, r in zip(got[:-1], ref[:-1]):
+        assert g["k"] == r["k"] and g["n_iter"] == r["n_iter"]
+        for key in ("inertia", "bic", "aic", "silhouette"):
+            np.testing.assert_allclose(g[key], r[key], rtol=SWEEP_RTOL,
+                                       err_msg=key)

@@ -242,7 +242,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         " ('mesh', 'distributed', 'engine', 'init_sharded')]\n"
         "walked += ['kmeans_tpu_torch.metrics'] + ["
         "'kmeans_tpu_torch.models.' + m for m in ('selection',"
-        " 'spherical', 'bisecting', 'xmeans', 'gmeans')]\n"
+        " 'spherical', 'bisecting', 'xmeans', 'gmeans', 'gmm',"
+        " 'gmm_stream', 'fuzzy', 'balanced')]\n"
+        "walked += ['kmeans_tpu_torch.data.preprocess',"
+        " 'kmeans_tpu_torch.parallel.preprocess']\n"
         "bad += [m + ' not walked' for m in walked if m not in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -250,3 +253,34 @@ def test_port_imports_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_soft_balanced_and_pca_entry_points_default_to_the_card(tmp_path):
+    """The families of ROADMAP A9b run on the card unless the caller asks
+    for the CPU: without a card each entry point raises, with no quiet
+    fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.data import pca_fit, pca_fit_stream
+    from kmeans_tpu_torch.models import fuzzy_memberships
+
+    x, c0 = _problem()
+    path = str(tmp_path / "x.npy")
+    np.save(path, x)
+    data = np.load(path, mmap_mode="r")
+    calls = [
+        lambda: kt.fit_gmm(x, 5, init=c0),
+        lambda: kt.GaussianMixture(n_components=5).fit(x),
+        lambda: kt.fit_gmm_stream(data, 5, init=c0, steps=2),
+        lambda: kt.fit_fuzzy(x, 5, init=c0),
+        lambda: kt.FuzzyCMeans(n_clusters=5).fit(x),
+        lambda: fuzzy_memberships(x, c0),
+        lambda: kt.fit_balanced(x, 5, init=c0),
+        lambda: kt.BalancedKMeans(n_clusters=5).fit(x),
+        lambda: pca_fit(x, 2),
+        lambda: pca_fit_stream(data, 2),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

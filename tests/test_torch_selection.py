@@ -10,8 +10,9 @@ same things.  Rows must have the same keys, k, ``n_iter`` and
 rounding of each row's expanded distance), silhouette, Davies–Bouldin and
 Calinski–Harabasz to ``SCORE_RTOL`` (1e-4: taken at centroids that agree
 to 1e-5, which DB's centroid distances amplify), and the gap rows' logs to
-1e-5 absolute.  The ``suggest_*`` rules are host arithmetic and must pick
-the same k.  A family the port does not have yet is refused by name before
+1e-5 absolute.  The soft families' sweeps (GMM rows with ``bic`` /
+``aic``) replay the port's starts through ``resolve_fit_inputs``.  The
+``suggest_*`` rules are host arithmetic and must pick the same k.  A family the port does not have yet is refused by name before
 any fit.
 """
 
@@ -85,7 +86,7 @@ def test_sweep_k_matches_the_reference(monkeypatch, sample):
 
 
 @pytest.mark.parametrize("model", ["accelerated", "minibatch", "spherical",
-                                   "bisecting"])
+                                   "bisecting", "fuzzy", "gmm", "balanced"])
 def test_sweep_k_takes_every_ported_family(model):
     """Each ported family of ``_FITTERS`` sweeps: the reference's row keys
     for every k and, on separated blobs, the reference's suggestion (the
@@ -95,6 +96,41 @@ def test_sweep_k_takes_every_ported_family(model):
     want = ref_sweep_k(x, [3, 4], model=model, seed=1)
     assert [list(r) for r in got] == [list(r) for r in want]
     assert suggest_k(got) == ref_suggest_k(want) == 4
+
+
+@pytest.mark.parametrize("model", ["gmm", "fuzzy"])
+def test_soft_sweeps_match_the_reference(monkeypatch, model):
+    """A GMM or fuzzy sweep from the port's starts (replayed through the
+    reference's ``resolve_fit_inputs``) and silhouette samples: the
+    reference's rows, GMM rows with ``bic`` / ``aic`` to RTOL, and the
+    same BIC / AIC / silhouette suggestions.  The sweep stops at the blob
+    count: above it EM converges slowly, and its stop rule can meet the
+    tolerance one iteration apart in two f32 sum orders."""
+    import importlib
+
+    from torch_replay import record_fit_inputs, replay_fit_inputs
+
+    port_mod = importlib.import_module(f"kmeans_tpu_torch.models.{model}")
+    ref_mod = importlib.import_module(f"kmeans_tpu.models.{model}")
+    x = _blobs(6, n=600)
+    inits, drawn = [], []
+    with monkeypatch.context() as m:
+        record_fit_inputs(m, port_mod, inits)
+        record_calls(m, port_metrics, "sample_rows", drawn)
+        got = sweep_k(x, [2, 3, 4], model=model, seed=3, max_iter=30,
+                      silhouette_sample=300, chunk_size=256, device=CPU)
+    used = replay_fit_inputs(monkeypatch, ref_mod, inits)
+    replay_jax_random(monkeypatch, "choice", drawn)
+    want = ref_sweep_k(x, [2, 3, 4], model=model, seed=3, max_iter=30,
+                       silhouette_sample=300, chunk_size=256)
+    assert used() == len(inits) == 3
+    _rows_close(got, want, x)
+    criteria = ["silhouette"] + (["bic", "aic"] if model == "gmm" else [])
+    for c in criteria:
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g[c], w[c], rtol=RTOL, err_msg=c)
+        assert suggest_k(got, criterion=c) == \
+            ref_suggest_k(want, criterion=c) == 4
 
 
 def test_gap_statistic_matches_the_reference(monkeypatch):

@@ -1,7 +1,9 @@
 """The port's sharded accelerated, trimmed, streamed and spherical fits
 against the JAX package's, on the CPU, the families that run their inner
 fits on the mesh (bisecting, x-means, g-means, and ``cli train --mesh``
-for the four of them), and the placement that keeps each rank to its rows.
+for the four of them), the sharded soft, balanced and projected fits
+(fuzzy, GMM, balanced, PCA and the streamed GMM), and the placement that
+keeps each rank to its rows.
 
 One gloo world of four CPU processes (``tests/torch_mesh_worker.py``) runs
 every case once (dp 4: every problem's rows pad, and the trimmed budget
@@ -17,7 +19,11 @@ each rank's sums are full width, so the norm needs no collective) and TP
 are held to the port's single-device fit from the same seed (the sharded
 seeding draws what one device draws), their inertia also to
 ``INERTIA_ATOL_REL`` of Σ‖x‖² (each row's expanded distance rounds at
-‖x‖²'s scale).
+‖x‖²'s scale).  The soft and balanced fits are held to the reference's
+sharded fit of the same dp and to the port's single-device fit: labels
+and ``n_iter`` equal, floats to SOFT_RTOL / SOFT_ATOL (1e-4: EM and the
+Sinkhorn sweeps carry the f32 sum order's differences through every
+iteration); PCA components up to a per-row sign (1e-4).
 """
 
 import json
@@ -48,6 +54,8 @@ ATOL = 1e-5
 INERTIA_ATOL_REL = 1e-6
 DPS = (4,)
 MAX_ITER = 25
+SOFT_RTOL = 1e-4
+SOFT_ATOL = 1e-4
 
 
 def _blobs(seed, n, d, k, std=0.5, spread=3.0):
@@ -115,7 +123,26 @@ FAMILIES = {"bisecting": (5, dict(k=5, seed=3)),
 CLI_BASE = ["train", "--n", "1500", "--d", "6", "--seed", "2", "--device",
             "cpu", "--max-iter", "30"]
 CLI_FAMILIES = {"spherical": "4", "bisecting": "4", "xmeans": "8",
-                "gmeans": "8"}
+                "gmeans": "8", "fuzzy": "4", "gmm": "4"}
+# The soft and balanced families: unequal blobs (balancing moves rows),
+# n = 1001 uneven for dp 4, a third of the weights 0 in one case.
+XSB = _blobs(19, 1001, 6, 4, std=0.6, spread=4.0)
+CSB = XSB[:4].copy()
+WZ = np.ones(1001, np.float32)
+WZ[4::3] = 0.0
+#: name → (family, fit kwargs), each run on the world and held to the
+#: reference's sharded fit and to the port's single-device one.
+SOFT = {
+    "fuzzy": ("fuzzy", dict(tol=1e-8, max_iter=10)),
+    "fuzzy weighted": ("fuzzy", dict(tol=1e-8, max_iter=10,
+                                     weights=W_FRAC)),
+    "gmm diag": ("gmm", dict(tol=1e-3, max_iter=10)),
+    "gmm tied": ("gmm", dict(tol=1e-3, max_iter=10,
+                             covariance_type="tied")),
+    "balanced": ("balanced", dict(tol=1e-6, max_iter=4, sinkhorn_sweeps=10)),
+    "balanced zero weights": ("balanced", dict(
+        tol=1e-6, max_iter=4, sinkhorn_sweeps=10, weights=WZ)),
+}
 #: The accelerated cases: name → (accel, beta_max, tol).  At β = 1 the beta
 #: loop's end is decided by a rounding rise of the objective, which two
 #: packages summing in other orders reach at other sweeps
@@ -186,6 +213,15 @@ def _cases(stream_path, tmp):
     for family, (k, cfg) in FAMILIES.items():
         cases.append((f"{family} mesh", "family", dict(
             family=family, x=XA, k=k, config=cfg)))
+    for name, (family, kw) in SOFT.items():
+        cases.append((f"soft {name}", "soft", dict(
+            family=family, x=XSB, k=4, init=CSB,
+            config=dict(k=4, chunk_size=128), **kw)))
+    cases.append(("pca", "pca", dict(x=X + 50.0, n_components=4,
+                                     whiten=True, chunk_size=96)))
+    cases.append(("gmm stream", "gmm_stream", dict(
+        path=stream_path, k=5, init=CS, config=dict(k=5, chunk_size=512),
+        **STREAM_KW)))
     for family, k in CLI_FAMILIES.items():
         cases.append((f"cli {family}", "cli", dict(argv=CLI_BASE + [
             "--model", family, "--k", k, "--mesh", str(DPS[0])])))
@@ -571,3 +607,118 @@ def test_train_mesh_families_print_the_one_device_line(worlds, dp, family,
     assert {f: two[f] for f in same} == {f: one[f] for f in same}
     assert sorted(set(two) - {"mesh"}) == sorted(one)
     np.testing.assert_allclose(two["inertia"], one["inertia"], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# (e) the soft, balanced and projected fits
+# ---------------------------------------------------------------------------
+
+def _soft_fits(name, dp, ref_mesh):
+    """``(reference sharded fit, port single-device fit)`` of a SOFT case."""
+    import kmeans_tpu_torch.models as models
+
+    family, kw = SOFT[name]
+    kw = dict(kw)
+    w = kw.pop("weights", None)
+    ref = getattr(ref_engine, f"fit_{family}_sharded")(
+        XSB, 4, mesh=ref_mesh, init=CSB, weights=w,
+        config=RefConfig(k=4, chunk_size=128), **kw)
+    one = getattr(models, f"fit_{family}")(
+        XSB, 4, init=CSB, weights=w, device="cpu",
+        config=kt.KMeansConfig(k=4, chunk_size=128), **kw)
+    return ref, one
+
+
+def _soft_same(got, want, what):
+    for name, v in got.items():
+        if name in ("all_reduces",):
+            continue
+        w = want[name] if isinstance(want, dict) else getattr(want, name)
+        w = np.asarray(w.numpy() if isinstance(w, torch.Tensor) else w)
+        if name == "labels" or w.dtype.kind in "iub":
+            np.testing.assert_array_equal(v, w, err_msg=f"{what} {name}")
+        else:
+            np.testing.assert_allclose(v, w, rtol=SOFT_RTOL, atol=SOFT_ATOL,
+                                       err_msg=f"{what} {name}")
+
+
+@pytest.mark.parametrize("dp", DPS)
+@pytest.mark.parametrize("name", list(SOFT))
+def test_soft_and_balanced_fits_match_the_reference(worlds, ref_meshes, dp,
+                                                    name):
+    """Fuzzy, GMM (diag, tied) and balanced (with weight-0 rows too) on the
+    world against the reference's sharded fit of the same dp and the
+    port's single-device fit from the same c0."""
+    got = _ok(worlds[dp][f"soft {name}"])
+    ref, one = _soft_fits(name, dp, ref_meshes[dp])
+    _soft_same(got, ref, "reference")
+    _soft_same(got, one._asdict(), "single device")
+    for v in got.values():
+        if isinstance(v, np.ndarray) and v.dtype.kind == "f":
+            assert not np.isnan(v).any()
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_soft_fits_count_their_all_reduces(worlds, dp):
+    """One all-reduce a pass: fuzzy's passes and its final pass; GMM's
+    also its starting variances' and its total weight's.  Balanced: one
+    for ε's scale, then two a Sinkhorn sweep and one for each pass's
+    merge.  (The labels' gather is an all-gather.)"""
+    fz = worlds[dp]["soft fuzzy"]
+    assert fz["all_reduces"] == int(fz["n_iter"]) + 1
+    gm = worlds[dp]["soft gmm diag"]
+    assert gm["all_reduces"] == int(gm["n_iter"]) + 3
+    bal = worlds[dp]["soft balanced"]
+    sweeps = SOFT["balanced"][1]["sinkhorn_sweeps"]
+    passes = int(bal["n_iter"]) + 1
+    # ε's scale, then per pass the sweeps and the update / final merge.
+    assert bal["all_reduces"] == 1 + passes * (2 * sweeps + 1)
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_pca_fit_sharded_matches_the_reference(worlds, ref_meshes, dp):
+    """The global pilot mean and the merged centred moments: components up
+    to sign, variances and mean as the reference's sharded fit and the
+    port's single-device fit."""
+    from kmeans_tpu.parallel.preprocess import \
+        pca_fit_sharded as ref_pca_sharded
+
+    got = _ok(worlds[dp]["pca"])
+    want = ref_pca_sharded(X + 50.0, 4, mesh=ref_meshes[dp], whiten=True,
+                           chunk_size=96)
+    one = kt.data.pca_fit(X + 50.0, 4, whiten=True, chunk_size=96,
+                          device="cpu")
+    for w in (want, one):
+        wc = np.asarray(w.components.numpy() if isinstance(
+            w.components, torch.Tensor) else w.components)
+        s = np.sign((got["components"] * wc).sum(axis=1))
+        np.testing.assert_allclose(got["components"] * s[:, None], wc,
+                                   atol=1e-4)
+        np.testing.assert_allclose(got["explained_variance"],
+                                   np.asarray(w.explained_variance),
+                                   rtol=1e-4)
+        np.testing.assert_allclose(got["mean"], np.asarray(w.mean),
+                                   rtol=1e-5)
+    assert got["whiten"] is True
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_gmm_stream_on_the_mesh_matches_the_reference(worlds, ref_meshes,
+                                                      dp, stream_file):
+    """The streamed GMM with each rank gathering its slice of every batch
+    (250 rows round to 248 on dp 4) and one all-reduce of the soft moments
+    a step: the reference's mesh stream."""
+    from kmeans_tpu.models.gmm_stream import fit_gmm_stream as ref_gmm_stream
+
+    got = _ok(worlds[dp]["gmm stream"])
+    data = np.load(stream_file, mmap_mode="r")
+    want = ref_gmm_stream(data, 5, mesh=ref_meshes[dp], init=jnp.asarray(CS),
+                          config=RefConfig(k=5, chunk_size=512), **STREAM_KW)
+    np.testing.assert_array_equal(got["labels"], np.asarray(want.labels))
+    assert int(got["n_iter"]) == int(want.n_iter)
+    for name in ("means", "covariances", "mix_weights"):
+        np.testing.assert_allclose(got[name], np.asarray(getattr(want, name)),
+                                   rtol=SOFT_RTOL, atol=SOFT_ATOL,
+                                   err_msg=name)
+    np.testing.assert_allclose(float(got["log_likelihood"]),
+                               float(want.log_likelihood), rtol=1e-5)

@@ -9,8 +9,10 @@ from one explicit init (centroids and ``n_seen`` to rtol 1e-5, labels
 exact on separated blobs, inertia allclose, for every ``transfer_dtype``),
 checkpoints written by either package and resumed by the other, the resume
 refusals (the same messages), ``assign_stream`` and ``cli train --stream``
-(the same guard lines; ``--model gmm`` and ``--mesh`` refused naming A9
-and A4).  The port runs with ``device="cpu"``: the kernels' plain versions.
+(the same guard lines; the pairwise families refused naming A9c), with
+``--model gmm`` the streamed mixture's result line (its seeding replayed
+through the reference) and its checkpoints resumed across the packages.
+The port runs with ``device="cpu"``: the kernels' plain versions.
 """
 
 import os
@@ -622,9 +624,9 @@ def test_cli_stream_guard_lines_equal_the_reference(case, tmp_path, npy,
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--model", "gmm"], "A9"),
-    (["--model", "gmm", "--mesh", "2", "--device", "cpu"], "A9"),
-    (["--model", "gmm", "--mesh", "4"], "A9")])
+    (["--model", "kernel"], "A9"),
+    (["--model", "kmedoids", "--mesh", "2", "--device", "cpu"], "A9"),
+    (["--model", "spectral", "--mesh", "4"], "A9")])
 def test_cli_stream_refusals_name_the_queue_item(extra, item, npy, capsys):
     rc = port_cli.main(["train", "--stream", "--input", npy] + extra)
     err = capsys.readouterr().err.strip().splitlines()
@@ -662,4 +664,78 @@ def test_cli_stream_resumes_the_other_packages_directory(writer, tmp_path,
     out = capsys.readouterr().out.strip().splitlines()
     assert rc == 0 and '"n_iter": 25' in out[-1]
     assert load_array_checkpoint(ck)[1]["step"] == 25
+    shutil.rmtree(ck)
+
+
+def _gmm_stream_lines(npy, capsys, monkeypatch, extra):
+    """``train --stream --model gmm`` in both packages, the reference's
+    seeding replaced by the port's (its k-means++ start on the same host
+    subsample); returns the two result lines."""
+    import json
+
+    import jax.numpy as jnp
+
+    from kmeans_tpu.models import gmm_stream as ref_gmm_stream
+    from kmeans_tpu_torch.models import gmm_stream as port_gmm_stream
+
+    starts = []
+    real = port_gmm_stream.host_subsample_seed
+
+    def record(*a, **kw):
+        c0, xs = real(*a, **kw)
+        starts.append(c0.numpy().copy())
+        return c0, xs
+
+    argv = ["train", "--stream", "--model", "gmm", "--input", npy, "--k",
+            "3", "--batch-size", "128"] + extra
+    with monkeypatch.context() as m:
+        m.setattr(port_gmm_stream, "host_subsample_seed", record)
+        assert _main("port")(argv) == 0
+    port = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    ref_real = ref_gmm_stream.host_subsample_seed
+
+    def replay(data, k, key, cfg, init, **kw):
+        return ref_real(data, k, key, cfg, jnp.asarray(starts[0]), **kw)
+
+    monkeypatch.setattr(ref_gmm_stream, "host_subsample_seed", replay)
+    assert _main("ref")(argv) == 0
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    return ref, port
+
+
+@pytest.mark.parametrize("cov", ["diag", "spherical"])
+def test_cli_stream_gmm_result_lines_agree(cov, npy, capsys, monkeypatch):
+    """The streamed mixture's result line: the reference's keys, steps and
+    mode, and its objective (the negated total log-likelihood) to 1e-5."""
+    ref, port = _gmm_stream_lines(npy, capsys, monkeypatch, [
+        "--steps", "30", "--covariance-type", cov])
+    assert list(port) == list(ref)
+    same = ("n", "d", "k", "n_iter", "mode", "stream", "converged")
+    assert {k: port[k] for k in same} == {k: ref[k] for k in same}
+    assert port["mode"] == "gmm" and port["n_iter"] == 30
+    np.testing.assert_allclose(port["inertia"], ref["inertia"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("writer", SIDES)
+def test_cli_stream_gmm_resumes_the_other_packages_directory(
+        writer, tmp_path, npy, capsys):
+    """A ``--stream --model gmm`` checkpoint of either package resumes in
+    the other (the stream tag, schedule and statistics are the
+    reference's), to the requested step."""
+    ck = str(tmp_path / "ck")
+    base = ["train", "--stream", "--model", "gmm", "--input", npy, "--k",
+            "3", "--batch-size", "64"]
+    assert _main(writer)(base + ["--steps", "10", "--checkpoint", ck]) == 0
+    other = "port" if writer == "ref" else "ref"
+    rc = _main(other)(base + ["--steps", "25", "--resume", ck])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert rc == 0 and '"n_iter": 25' in out[-1] and '"gmm"' in out[-1]
+    meta = load_array_checkpoint(ck)[1]
+    assert meta["step"] == 25 and meta["extra"]["stream"] == "gmm"
+    # A minibatch resume of the GMM directory is refused, as the
+    # reference's is.
+    plain = ["train", "--stream", "--input", npy, "--k", "3",
+             "--batch-size", "64", "--steps", "30", "--resume", ck]
+    got = [(_main(side)(plain), capsys.readouterr().err) for side in SIDES]
+    assert got[0][0] == got[1][0] == 2 and got[0][1] == got[1][1]
     shutil.rmtree(ck)

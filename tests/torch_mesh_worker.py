@@ -151,6 +151,44 @@ def op_sphere(mesh, x, k, config=None, **kw):
                                         **kw))
 
 
+def op_soft(mesh, family, x, k, config=None, **kw):
+    """``fit_fuzzy_sharded`` / ``fit_gmm_sharded`` /
+    ``fit_balanced_sharded``: the state's fields as numpy, and the mesh's
+    all-reduce count over the fit."""
+    import torch
+
+    from kmeans_tpu_torch import parallel
+
+    fit = getattr(parallel, f"fit_{family}_sharded")
+    mesh.reset_stats()
+    st = fit(x, k, mesh=mesh, config=_cfg(config), **kw)
+    out = {name: _np(v) if isinstance(v, torch.Tensor) else v
+           for name, v in st._asdict().items()}
+    out["all_reduces"] = mesh.stats["all_reduce"][0]
+    return out
+
+
+def op_pca(mesh, x, n_components, **kw):
+    from kmeans_tpu_torch.parallel import pca_fit_sharded
+
+    st = pca_fit_sharded(x, n_components, mesh=mesh, **kw)
+    return {"mean": _np(st.mean), "components": _np(st.components),
+            "explained_variance": _np(st.explained_variance),
+            "whiten": st.whiten}
+
+
+def op_gmm_stream(mesh, path, k, config=None, **kw):
+    """``fit_gmm_stream(mesh=)`` over the ``.npy`` at ``path``,
+    memory-mapped."""
+    import numpy as np
+
+    from kmeans_tpu_torch.models.gmm_stream import fit_gmm_stream
+
+    st = fit_gmm_stream(np.load(path, mmap_mode="r"), k, mesh=mesh,
+                        config=_cfg(config), **kw)
+    return {name: _np(v) for name, v in st._asdict().items()}
+
+
 def op_family(mesh, family, x, k, config=None, **kw):
     """``fit_bisecting`` / ``fit_xmeans`` / ``fit_gmeans`` with ``mesh``:
     every inner fit and assign on the sharded engine."""

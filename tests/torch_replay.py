@@ -1,6 +1,7 @@
 """Replaying the port's draws through the JAX package, for the tests of the
 families that seed their own inner fits (bisecting, x-means, g-means,
-``sweep_k``, ``gap_statistic``).
+``sweep_k``, ``gap_statistic``) and of the soft and balanced families'
+restarts and sweeps (each fit's seeding, through ``resolve_fit_inputs``).
 
 The port draws from a :class:`torch.Generator` and the reference from
 ``jax.random`` keys, so their k-means++ starts and samples differ.  A test
@@ -94,3 +95,36 @@ def replay_jax_random(monkeypatch, name, values):
         return jnp.asarray(next(it))
 
     monkeypatch.setattr(jax.random, name, draw)
+
+
+def record_fit_inputs(monkeypatch, module, inits):
+    """Wrap ``module.resolve_fit_inputs`` (the port's, as a family module
+    imported it) so each start it resolves is appended to ``inits``: the
+    soft and balanced families' seeding, one call a fit."""
+    real = module.resolve_fit_inputs
+
+    def resolve(*a, **kw):
+        cfg, gen, c0 = real(*a, **kw)
+        inits.append(_np(c0).astype(np.float32))
+        return cfg, gen, c0
+
+    monkeypatch.setattr(module, "resolve_fit_inputs", resolve)
+
+
+def replay_fit_inputs(monkeypatch, module, inits):
+    """Wrap ``module.resolve_fit_inputs`` (the reference's) so its calls
+    start, in order, from the port's recorded ``inits``; returns a
+    function that says how many were used."""
+    import jax.numpy as jnp
+
+    real = module.resolve_fit_inputs
+    used = [0]
+
+    def resolve(x, k, key, config, init, weights):
+        c0 = inits[used[0]]
+        used[0] += 1
+        assert c0.shape[0] == k, (c0.shape, k)
+        return real(x, k, key, config, jnp.asarray(c0), weights)
+
+    monkeypatch.setattr(module, "resolve_fit_inputs", resolve)
+    return lambda: used[0]
