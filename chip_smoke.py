@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 from the root of a checkout.  It builds the port's CUDA kernels from
-``kmeans_tpu_torch/csrc/lloyd.cu`` and runs nineteen phases, exiting
-non-zero if any fails:
+``kmeans_tpu_torch/csrc/lloyd.cu`` and runs nineteen phases and a final
+report, exiting non-zero if any fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` for sm_90a, with its seconds, register report, and the
@@ -129,10 +129,10 @@ non-zero if any fails:
    response held to K5's labels of its generation, ``/metrics`` to the
    client's counts, ``/api/trace`` to one lane per connection;
 11. the serving fleet (imagenet-fleet): the same model and pool, 48
-   keep-alive clients split over two client processes: one ``cli serve``
-   process, then fleets of 1, 2 and 4 workers on the default route
-   (``cli serve --workers N --fleet-obs-port P`` for N > 1), 4 on the
-   dense route, each run publishing a generation that the supervisor
+   keep-alive clients split over two client processes, FLEET_SECONDS a
+   run: fleets of FLEET_SIZES workers on the default route (``cli serve
+   --workers N --fleet-obs-port P`` for N > 1), 4 on the dense route,
+   each run publishing a generation that the supervisor
    pushes to its workers half-way; every response held to K5's labels
    of its generation, no 503, no drop, no unplanned exit, the aggregated
    ``/metrics`` to the clients' counts with the fit's families under a
@@ -256,7 +256,9 @@ non-zero if any fails:
    and resumed, each in a child process, ``chip_smoke.py --elastic-rank
    SPEC``: matmul bit for bit, delta within FIT_INERTIA_RTOL and ties;
    the seconds a bundle and the restart); TP×FP on four gloo ranks at
-   TPFP_SHAPE (held, not timed); then a gloo world of two ranks sharing
+   TPFP_SHAPE (held, not timed; the cut children, this world and
+   train-mesh's CPU processes start with the phase, beside the in-process
+   runs); after the cut a gloo world of two ranks sharing
    the card (``chip_smoke.py --sharded-rank SPEC``): the MIN all-reduce
    on card tensors, trimmed-dp2-gloo (``fit_trimmed_sharded``,
    m = TRIM_M, TRIM_ITERS iterations: K1 and K6 on each rank, its mask
@@ -342,14 +344,42 @@ non-zero if any fails:
    ``pca_fit_sharded`` on DP, each held to one card's) and train-mesh
    (``cli train --mesh 2 --device cpu`` for fuzzy, gmm and balanced
    against ``--mesh 1``);
-19. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+19. the pairwise families (no kernel of their own: the medoid cost
+   sweep, the kernel-mass sweep and the Nyström tiles are ``torch.matmul``
+   and plain PyTorch, as the reference's are XLA code; K1 and K2 from
+   their assignments and Lloyd fits): mnist-kmedoids (``fit_kmedoids`` at
+   n = 60,000, d = 784, k = 10 from fixed indices, at most PAIRWISE_ITERS
+   iterations: ms an iteration, the cost sweep alone against its bound,
+   the peak memory; the port's CPU fit on the first PAIRWISE_HOLD_ROWS
+   rows gives the same medoids, two clusters' medoids cost the least of
+   their members in f64 on the card; ``KMedoids.predict`` on K1),
+   mnist-kernel (rbf at γ = 1/d from k-means++ and K1: a mass pass
+   against its bound, the objective pass by pass never rising past its
+   f32 rounding, ``kernel_assign`` with the cached T reproducing the
+   training labels, the linear kernel's objective against Lloyd's f64
+   inertia of its partition), rings-spectral (``make_rings`` at n = 1e6:
+   the embedding's stages timed, ``fit_spectral`` on K1 and K2, ARI above
+   0.99, unit rows), glove-spectral (n = 400,000, d = 300, k = 100: the
+   projector of sampled rows against an f64 recomputation on the card),
+   glove-nystrom (``nystrom_features(m=1024)``, then a k = 1000 Lloyd fit
+   on K1's f32 route and K2), kmedoids-, kernel- and spectral-dp1-nccl
+   (bit for bit one card's; no ring shift at world size 1), a gloo world
+   of two ranks sharing the card (``chip_smoke.py --pairwise-rank SPEC``:
+   the two ring passes and the sharded embedding, each held to one
+   card's; the ring shifts staged through host memory) beside a probe
+   world that sends a card tensor over gloo directly, pairwise-cli (``cli
+   train --model spectral --input rings.npy --out board.json`` in a child
+   process), train-mesh (``cli train --mesh 2 --device cpu`` for the
+   three against ``--mesh 1``) and the board's ``train`` op for kmedoids
+   and kernel at the cap's n = 20,000;
+20. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.  A kernel has a row for each compute dtype its main-path runs
    score in: bf16 (phases 4, 6, 9, 12's in-process and bf16 runs, 13's
    in-process trimmed runs, 14's bf16 stream and 17's bf16 runs) and f32
    (the route's K1, K2 and K4 from imagenet-delta-f32, phase 12's f32 CLI
    runs, phase 13's trimmed CLI run, K1 from phase 9's cifar10 runs,
-   phase 14's f32 runs and phase 17's and 18's f32 runs, with the board
-   server's
+   phase 14's f32 runs and phase 17's, 18's and 19's f32 runs, with the
+   board server's
    f32 K1 and K2 launches on ``score_block`` at d <= 80; K5 from each
    served model's runs), each row's launches counted in its own runs and
    its times taken at its own shape.
@@ -367,7 +397,7 @@ and 10, and 1 and 11, on ``make_blobs`` centres; ``--runner`` runs phases
 and 13 (the kernels build at their first call); ``--stream`` runs phases
 1, 2 and 14; ``--mesh`` runs phases 1, 2 and 15; ``--sharded`` runs
 phases 1, 2 and 16; ``--families`` runs phases 1, 2 and 17; ``--soft``
-runs phases 1, 2 and 18.
+runs phases 1, 2 and 18; ``--pairwise`` runs phases 1, 2 and 19.
 
 The bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of memory, 989
 TFLOP/s bf16 on the tensor cores and 67 TFLOP/s f32 outside them; an f32
@@ -4326,10 +4356,16 @@ def phase_http(card, centroids, serve_summaries, summaries=None):
 # ---------------------------------------------------------------------------
 
 #: Worker counts of the pruned-route runs (``cli serve --workers N``), of
-#: the dense run (the embedding API) and of the drills.
-FLEET_SIZES = (1, 2, 4)
+#: the dense run (the embedding API) and of the drills.  Depth cut (PR 19):
+#: the pruned route at 4 workers alone, 1, 2 and 4 before (the embedding
+#: API still runs the dense fleet and both drills, at 4 and 2 workers),
+#: and no single-process run before them (phase 10 drives ``cli serve``).
+FLEET_SIZES = (4,)
 FLEET_DENSE_WORKERS = 4
 FLEET_DRILL_WORKERS = 2
+#: A fleet run's client window.  Depth cut (PR 19): 1.5 s, phase 10's
+#: HTTP_SECONDS (3.0 s) before.
+FLEET_SECONDS = 1.5
 #: Client processes a run's HTTP_CLIENTS keep-alive clients are split over.
 FLEET_CLIENT_PROCS = 2
 #: The drills' clients: a fresh connection a request, paced, as the
@@ -4416,17 +4452,13 @@ def _free_port():
 
 class _FleetUnderTest:
     """A server the phase drives: ``cli serve`` in a process of its own
-    (``--fleet-cli``; SIGTERM drains a fleet, SIGINT stops one server) or
-    an embedded ``FleetSupervisor``.  Both give their supervisor's
-    events."""
+    (``--fleet-cli``; SIGTERM drains it) or an embedded
+    ``FleetSupervisor``.  Both give their supervisor's events."""
 
-    def __init__(self, name, tmp, argv=None, sup=None, stop_signal=None):
-        import signal
-
+    def __init__(self, name, tmp, argv=None, sup=None):
         self.name, self.sup, self.proc = name, sup, None
         self.events_path = f"{tmp}/{name}.events"
         self.err_path = f"{tmp}/{name}.stderr"
-        self.stop_signal = stop_signal or signal.SIGTERM
         if sup is not None:
             sup.start()
             return
@@ -4465,7 +4497,9 @@ class _FleetUnderTest:
             clean = self.sup.stop(graceful=True)
             self.final = _final_workers(self.sup)
             return clean, 0 if clean else 1, ""
-        self.proc.send_signal(self.stop_signal)
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
         try:
             rc = self.proc.wait(timeout=FLEET_WAIT_S)
         except subprocess.TimeoutExpired:
@@ -4571,7 +4605,7 @@ def _card_memory():
 
 
 def _fleet_load(ctx, port, run, gen_to, *, procs, clients, fresh=False,
-                pace=0.0, until_file=None, seconds=HTTP_SECONDS,
+                pace=0.0, until_file=None, seconds=FLEET_SECONDS,
                 retry_resets=False):
     """Start ``procs`` client processes sharing ``clients`` threads;
     returns them with their output paths, once each printed READY."""
@@ -4606,7 +4640,7 @@ def _fleet_collect(name, started):
     for proc, out in started:
         try:
             _, err = proc.communicate(
-                timeout=HTTP_SECONDS + 2 * SERVE_SWAP_WAIT_S
+                timeout=FLEET_SECONDS + 2 * SERVE_SWAP_WAIT_S
                 + 4 * HTTP_CALL_S)
         finally:
             if proc.poll() is None:
@@ -4651,10 +4685,9 @@ def _first_responses(doc, names):
 
 def _fleet_run(ctx, name, fleet, n, route, run, gen_to, port, obs_port,
                trace_dir):
-    """One run of phase 11 against ``fleet`` (``n`` workers; 0 is one
-    server process): boot, warm-up, the two client processes, a publish
-    half-way (a fleet's supervisor pushes RELOAD; one server is told by
-    ``POST /api/model/reload``), the card's memory and busy share, then
+    """One run of phase 11 against ``fleet`` (``n`` workers): boot,
+    warm-up, the two client processes, a publish half-way (the
+    supervisor pushes RELOAD), the card's memory and busy share, then
     the checks: K5's labels of each response's generation, no 503, no
     drop, no unplanned exit, the (aggregated) ``/metrics`` against the
     client's counts and C2's families under a ``worker`` label, the
@@ -4668,7 +4701,7 @@ def _fleet_run(ctx, name, fleet, n, route, run, gen_to, port, obs_port,
     from kmeans_tpu_torch.obs.registry import parse_exposition
 
     base = f"http://127.0.0.1:{port}"
-    mbase = base if n == 0 else f"http://127.0.0.1:{obs_port}"
+    mbase = f"http://127.0.0.1:{obs_port}"
     gen_from = gen_to - 1
     boot = _fleet_ready(fleet, n, base)
     mem_before = _card_memory()[0]     # no worker has touched the card
@@ -4677,7 +4710,7 @@ def _fleet_run(ctx, name, fleet, n, route, run, gen_to, port, obs_port,
     started = _fleet_load(ctx, port, run, gen_to, procs=FLEET_CLIENT_PROCS,
                           clients=HTTP_CLIENTS)
     sampler = _gpu_sampler()
-    time.sleep(HTTP_SECONDS / 2)
+    time.sleep(FLEET_SECONDS / 2)
     other = ModelRegistry(path=ctx["model_dir"])
     other.load_latest()
     _check(other.generation == gen_from,
@@ -4685,10 +4718,6 @@ def _fleet_run(ctx, name, fleet, n, route, run, gen_to, port, obs_port,
            f"not {gen_from}")
     other.publish(ctx["centroids"][gen_to % 2], generation=gen_to,
                   trigger="drift")
-    if n == 0:
-        st, body = _http_get(base, "/api/model/reload", b"{}")
-        _check(st == 200 and json.loads(body) == {"generation": gen_to},
-               f"{name}: reload answered {st} {body[:200]!r}")
     mem = _card_memory()
     table, got, errors, hung, seconds, _ = _fleet_collect(name, started)
     util = sampler()
@@ -4723,13 +4752,12 @@ def _fleet_run(ctx, name, fleet, n, route, run, gen_to, port, obs_port,
     lanes = [str(i) for i in range(n)]
     for fam in fit_fams[1:]:
         have = {s.label_dict().get("worker") for s in families[fam].samples}
-        _check(n == 0 or set(lanes) <= have,
+        _check(set(lanes) <= have,
                f"{name}: {fam} has lanes {sorted(map(str, have))}, not "
                f"every worker's {lanes}")
-    if n:
-        restarts = families["kmeans_tpu_fleet_restarts_total"].samples
-        _check(all(s.value == 0 for s in restarts),
-               f"{name}: the supervisor counted restarts")
+    restarts = families["kmeans_tpu_fleet_restarts_total"].samples
+    _check(all(s.value == 0 for s in restarts),
+           f"{name}: the supervisor counted restarts")
     # The (merged) trace over HTTP: strict JSON, every worker's lanes.
     time.sleep(0.6)                   # one spool flush period
     doc = _strict_trace(mbase)
@@ -4775,8 +4803,7 @@ def _fleet_run(ctx, name, fleet, n, route, run, gen_to, port, obs_port,
     p50, p99, top = _percentiles(lat)
     new = table[table[:, 2] == gen_to]
     first = _first_responses(full, {p: f"worker {s}"
-                                    for p, s in spawns.items()}
-                             if n else {})
+                                    for p, s in spawns.items()})
     summary = {"qps": n_req / seconds, "points_s": n_req * HTTP_POINTS
                / seconds, "p50": p50, "p99": p99, "k5": dense + rescored,
                "boot": boot, "first": first}
@@ -5013,17 +5040,18 @@ def _fleet_drill(ctx, name, run, kill):
 def phase_fleet(card, centroids, http_summaries):
     """Phase 11, imagenet-fleet: imagenet-http's model and pool, 48
     keep-alive clients split over two client processes, binary frames of
-    64 points, HTTP_SECONDS a run.  First one ``cli serve`` process (the
-    two client processes separate the client's interpreter lock from the
-    server's), then N workers for N in FLEET_SIZES on the default (pruned)
-    route: ``cli serve --workers N --fleet-obs-port P`` for N > 1, and the
-    embedding API for one worker (the command line serves ``--workers 1``
-    in-process, as the reference's does), then FLEET_DENSE_WORKERS workers
-    on the dense route (the embedding API: ``assign_prune_min_k=0`` has no
-    flag), each publishing a generation half-way; then the
-    kill drill and the rolling replace at FLEET_DRILL_WORKERS.  Returns
-    K5's launches over the phase (the workers' traces)."""
-    import signal
+    64 points, FLEET_SECONDS a run (the two client processes separate the
+    client's interpreter lock from the servers').  N workers for N in
+    FLEET_SIZES on the default (pruned) route: ``cli serve --workers N
+    --fleet-obs-port P`` for N > 1, and the embedding API for one worker
+    (the command line serves ``--workers 1`` in-process, as the
+    reference's does), then FLEET_DENSE_WORKERS workers on the dense route
+    (the embedding API: ``assign_prune_min_k=0`` has no flag), each
+    publishing a generation half-way; then the kill drill and the rolling
+    replace at FLEET_DRILL_WORKERS.  (Until PR 19 a single ``cli serve``
+    process ran first under the same clients; phase 10 drives that
+    command in process.)  Returns K5's launches over the phase (the
+    workers' traces)."""
     import tempfile
 
     from kmeans_tpu_torch.config import ServeConfig
@@ -5034,8 +5062,7 @@ def phase_fleet(card, centroids, http_summaries):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
         ctx = _http_context(card, centroids, tmp)
         gen, run = 1, 0x11
-        runs = [("one process", 0, "pruned")]
-        runs += [(f"{n} workers", n, "pruned") for n in FLEET_SIZES]
+        runs = [(f"{n} workers", n, "pruned") for n in FLEET_SIZES]
         runs += [(f"{FLEET_DENSE_WORKERS} workers dense",
                   FLEET_DENSE_WORKERS, "dense")]
         for label, n, route in runs:
@@ -5055,9 +5082,6 @@ def phase_fleet(card, centroids, http_summaries):
                         host="127.0.0.1", port=port,
                         model_dir=ctx["model_dir"], trace_dir=trace_dir,
                         fleet_obs_port=obs_port, **extra), workers=n))
-            elif n == 0:
-                fleet = _FleetUnderTest(f"run{run:x}", tmp, argv=argv,
-                                        stop_signal=signal.SIGINT)
             else:
                 fleet = _FleetUnderTest(
                     f"run{run:x}", tmp, argv=argv + [
@@ -6392,7 +6416,9 @@ def phase_board(card):
 
 #: imagenet-stream: the headline's rows on the host (README's
 #: ``fit_minibatch_stream(data, 1000, steps=500, batch_size=8192)``).
-STREAM_STEPS = 500
+#: Depth cut (PR 19): 200 steps, 500 before; the drill at step 100, 250
+#: before.
+STREAM_STEPS = 200
 STREAM_BATCH = 8192
 #: The most card memory a streamed fit may add above what the process held
 #: before it: the prefetch queue and its copies in flight (at most
@@ -6401,14 +6427,20 @@ STREAM_BATCH = 8192
 #: with K1's scratch.  About a twentieth of the 10.5 GB the fit streams.
 STREAM_PEAK_BYTES = 512 << 20
 #: cifar10-stream-cli: SIGTERM once the telemetry reports this step.
-STREAM_DRILL_AT = 250
+STREAM_DRILL_AT = 100
 #: imagenet-continuous: the reference's defaults but for these.
 #: The reference's default drift (6.0) is sized for its default d = 8: at d
 #: = 2048 it moves the per-point inertia by 36 over a noise floor of about
 #: 737 (2048 · 0.6²), under the detectors' thresholds; 64 moves it by 4096.
+#: Depth cut (PR 19): 24 batches with the drift at batch 12, 48 and 24
+#: before.  Fewer would end the run before its first scheduled refit
+#: (``--refit-every`` 10 batches after the drift's refits), which the
+#: phase checks for.
+CONT_BATCHES = 24
+CONT_DRIFT_AT = 12
 CONT_ARGV = ["continuous", "--k", "1000", "--d", "2048", "--batch-n", "8192",
-             "--batches", "48", "--drift-at", "24", "--drift", "64"]
-CONT_BATCHES = 48
+             "--batches", str(CONT_BATCHES), "--drift-at", str(CONT_DRIFT_AT),
+             "--drift", "64"]
 #: Keep-alive clients and points a request of the continuous -> serve run.
 CONT_CLIENTS = 8
 CONT_POOL = 4096
@@ -7028,10 +7060,11 @@ def _cont_serve(card, tmp, pool_np):
 
 def _imagenet_continuous(card, tmp):
     """imagenet-continuous: ``cli continuous`` at k = 1000, d = 2048, batch
-    8192, 48 batches, a drift of 64 at batch 24, the reference's other
-    defaults, in a child process; at once with it, the kill drills (a kill
-    at the second refit's site and at the second publish's swap, each
-    followed by ``--resume``) and the continuous -> serve composition.
+    8192, CONT_BATCHES batches, a drift of 64 at batch CONT_DRIFT_AT, the
+    reference's other defaults, in a child process; at once with it, the
+    kill drills (a kill at the second refit's site and at the second
+    publish's swap, each followed by ``--resume``) and the continuous ->
+    serve composition.
     Returns the f32 launch counts."""
     import threading
 
@@ -7058,7 +7091,7 @@ def _imagenet_continuous(card, tmp):
 
     rng = np.random.default_rng(5)
     pool = drift_batch(CONT_BATCHES - 1, n=CONT_POOL, d=2048, k=1000,
-                       drift_at=24, drift=64.0, seed=0)
+                       drift_at=CONT_DRIFT_AT, drift=64.0, seed=0)
     pool += 0.1 * rng.standard_normal(pool.shape, dtype=np.float32)
 
     def serve():
@@ -7086,7 +7119,7 @@ def _imagenet_continuous(card, tmp):
            f"imagenet-continuous: triggers {triggers}, compactions {comps},"
            f" done {done}")
     x_eval = torch.from_numpy(drift_batch(
-        CONT_BATCHES - 1, n=8192, d=2048, k=1000, drift_at=24,
+        CONT_BATCHES - 1, n=8192, d=2048, k=1000, drift_at=CONT_DRIFT_AT,
         drift=64.0)).cuda()
 
     def rel(a, g):
@@ -8684,7 +8717,29 @@ def phase_sharded(card):
     t_all = time.perf_counter()
     totals = {"bf16": {}, "f32": {}}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    cli = cut_thread = None
+    procs4, procs, cut_box = [], [], {}
+
+    def cut():
+        try:
+            cut_box["done"] = _elastic_cuts(tmp)
+        except BaseException as e:  # allow-silent-except: re-raised below
+            cut_box["error"] = e
+
     try:
+        # What needs nothing of this process starts first (since PR 19):
+        # train-mesh's CPU processes, the drill's two cut children and the
+        # four-rank world, beside the in-process runs (their times share
+        # the host with them; the mesh/one-card ratios are taken in one
+        # call on both sides).
+        cli_out = {}
+        cli = threading.Thread(
+            target=lambda: cli_out.update(zip(("outs", "secs"),
+                                              _sharded_cli(tmp))))
+        cli.start()
+        cut_thread = threading.Thread(target=cut)
+        cut_thread.start()
+        procs4, spec4 = _sharded_world(4, tmp)
         x, c0 = _headline_data()
         mesh = make_mesh((1, 1), ("data", "model"))
         _check(mesh.backend == "nccl", f"phase 16: {mesh}")
@@ -8692,25 +8747,21 @@ def phase_sharded(card):
         launches, whole = _elastic_whole(card, mesh, x, c0, tmp)
         _add_counts(totals["bf16"], launches)
         dist.destroy_process_group()
-        # The untimed work from here on overlaps: train-mesh's CPU
-        # processes beside the drill's children, the TP×FP world beside
-        # the resumes (their restart times share the host with them).
-        cli_out = {}
-        cli = threading.Thread(
-            target=lambda: cli_out.update(zip(("outs", "secs"),
-                                              _sharded_cli(tmp))))
-        cli.start()
-        launches, specs, cuts = _elastic_cuts(tmp)
+        cut_thread.join()
+        if "error" in cut_box:
+            raise cut_box["error"]
+        launches, specs, cuts = cut_box["done"]
         _add_counts(totals["bf16"], launches)
-        procs4, spec4 = _sharded_world(4, tmp)
+        # The two-rank world resumes the cut bundle: it starts after the
+        # cut, beside the resumes.
+        procs, spec = _sharded_world(2, tmp, dict(
+            elastic_ck=f"{tmp}/elastic-gloo",
+            elastic_whole=whole["matmul"]))
         _add_counts(totals["bf16"],
                     _elastic_resumes(card, x, tmp, specs, cuts, whole))
         del x, c0
         torch.cuda.empty_cache()
         ranks4 = _wait_world("tpfp-4-gloo", procs4, spec4)
-        procs, spec = _sharded_world(2, tmp, dict(
-            elastic_ck=f"{tmp}/elastic-gloo",
-            elastic_whole=whole["matmul"]))
         ranks = _wait_world("phase 16's gloo world", procs, spec)
         for rank in ranks + ranks4:
             for name, rec in rank["runs"].items():
@@ -8733,6 +8784,15 @@ def phase_sharded(card):
         _check("outs" in cli_out, "train-mesh: the CLI runs did not end")
         _check_sharded_cli(cli_out["outs"], cli_out["secs"])
     finally:
+        # On a failure too: the worlds end, and the children and the CPU
+        # processes before the phase does.
+        for p in procs4 + procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for thread in (cut_thread, cli):
+            if thread is not None:
+                thread.join(timeout=CLI_TIMEOUT_S)
         shutil.rmtree(tmp, ignore_errors=True)
     secs = time.perf_counter() - t_all
     print(f"phase 16 ({card}): {secs:.1f} s (two and four ranks share one "
@@ -10807,6 +10867,916 @@ def phase_soft(card):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the pairwise families
+# ---------------------------------------------------------------------------
+
+#: mnist-kmedoids / mnist-kernel: iterations (cut from the reference's
+#: default 100; both reach their fixed point sooner on these blobs), the
+#: rows of the k-medoids hold on the CPU, and ``predict``'s rows.
+PAIRWISE_ITERS = 10
+PAIRWISE_HOLD_ROWS = 6000
+PAIRWISE_PREDICT_ROWS = 8192
+#: The card's medoid against the least f64 cost of its cluster's members,
+#: relative: each f32 cost sums about 6,000 distances, each from the
+#: expanded ‖x‖² − 2x·y + ‖y‖² rounded at ‖x‖²'s scale (about 2.6e4
+#: against squared distances of about 400 here), so two members whose f64
+#: costs are closer than this are a tie to f32.
+KMEDOIDS_COST_RTOL = 1e-5
+#: rings-spectral: ``make_rings`` with this many rows a ring, its γ.
+RINGS_N_PER = 500_000
+RINGS_GAMMA = 2.0
+#: glove-spectral's k (its blobs: as many) and the rows of its f64 hold.
+GLOVE_SPECTRAL_K = 100
+SPECTRAL_HOLD_ROWS = 4096
+#: glove-nystrom: landmarks, the Lloyd fit's k and its sweeps (tol -1).
+NYSTROM_M = 1024
+NYSTROM_K = 1000
+NYSTROM_SWEEPS = 10
+#: The dp1-nccl runs' rows for k-medoids and kernel k-means, and the gloo
+#: world's rows.
+PAIRWISE_DP_N = 20_000
+PAIRWISE_GLOO_N = 8_000
+#: train-mesh: ``cli train`` at a small shape, ``--mesh 2 --device cpu``.
+PAIRWISE_CLI_SMALL = ["--n", "1500", "--d", "8", "--k", "4", "--seed", "3",
+                      "--device", "cpu", "--max-iter", "10"]
+#: The board's train op at the k-medoids / kernel cap's largest n.
+BOARD_PAIRWISE = dict(n=20_000, d=2, k=3, max_iter=10, seed=3)
+
+
+def _events_ms(fn):
+    """``(result, ms)`` of ``fn()`` between two CUDA events."""
+    import torch
+
+    _sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _peak_above(fn):
+    """``(result, GB)``: the card's peak allocation during ``fn()`` above
+    what was allocated before it."""
+    import torch
+
+    _sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    _sync()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def _first_of_each(labels, k, rows=None):
+    """The first row of each generating blob (among the first ``rows``):
+    the fits' fixed starting medoids."""
+    import numpy as np
+
+    lab = labels.cpu().numpy()[:rows]
+    return np.array([int(np.flatnonzero(lab == b)[0]) for b in range(k)],
+                    np.int32)
+
+
+def _medoid_costs64(x, members_of, cand):
+    """f64 costs, on the card, of each row in ``cand`` as the medoid of the
+    rows ``members_of`` (euclidean, unit weights)."""
+    import torch
+
+    xm = x[members_of].double()
+    out = []
+    for lo in range(0, len(cand), 512):
+        xc = x[cand[lo:lo + 512]].double()
+        out.append(torch.cdist(xc, xm).sum(dim=1))
+    return torch.cat(out)
+
+
+def _mnist_kmedoids(card, x, lab, totals):
+    """mnist-kmedoids: ``fit_kmedoids`` at n = 60,000, d = 784, k = 10 from
+    the first row of each blob, PAIRWISE_ITERS iterations at most: ms an
+    iteration, the cost sweep's share, the peak memory; held, for two
+    clusters, to the least f64 cost of their members; then
+    ``KMedoids.predict`` (K1)."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models import medoids as M
+    from kmeans_tpu_torch.ops.distance import sq_norms
+
+    k = MNIST["k"]
+    idx0 = _first_of_each(lab, k)
+    cfg = kt.KMeansConfig(k=k)
+    # A warm-up iteration pays the process's first products and the
+    # tiles' allocations (about 1.8 s in the first card run) before the
+    # clock.
+    kt.fit_kmedoids(x, k, init=idx0, config=cfg, max_iter=1)
+    (st, fit_ms, launches), peak = _peak_above(lambda: _timed_fit(
+        lambda: kt.fit_kmedoids(x, k, init=idx0, config=cfg,
+                                max_iter=PAIRWISE_ITERS)))
+    _add_counts(totals["f32"], launches)
+    its = int(st.n_iter)
+    _check(bool(st.converged), f"mnist-kmedoids: not converged in {its}")
+    # The cost sweep alone, at the fit's labels (one iteration's O(n²)).
+    w = torch.ones(x.shape[0], device=x.device)
+    x_sq = sq_norms(x)
+    kw = dict(metric="euclidean", chunk_size=cfg.chunk_size,
+              cd=torch.float32)
+    _, sweep_ms = _events_ms(lambda: M._cost_rows(
+        x, x_sq, st.labels, x, x_sq, st.labels, w, **kw))
+    n, d = x.shape
+    flop = 2.0 * n * n * d
+    bound = max(flop / F32_OPS_PER_S, 8.0 * n * n / MEM_BYTES_PER_S) * 1e3
+    # Two clusters' medoids against the least f64 cost of their members.
+    worst = 0.0
+    for c in (0, 1):
+        members = torch.nonzero(st.labels == c)[:, 0]
+        costs = _medoid_costs64(x, members, members)
+        chosen = int(st.medoid_indices[c])
+        mine = float(costs[(members == chosen).nonzero()[0, 0]])
+        least = float(costs.min())
+        rel = (mine - least) / least
+        worst = max(worst, rel)
+        _check(rel <= KMEDOIDS_COST_RTOL,
+               f"mnist-kmedoids cluster {c}: medoid {chosen} costs {mine} "
+               f"in f64, the least member {least}")
+    est = kt.KMedoids(n_clusters=k)
+    est.state = st
+    (pred, _, pred_launches) = _timed_fit(
+        lambda: est.predict(x[:PAIRWISE_PREDICT_ROWS]))
+    _add_counts(totals["f32"], pred_launches)
+    _check(pred_launches["lloyd_pass_cuda"] >= 1 and bool(torch.equal(
+        pred, st.labels[:PAIRWISE_PREDICT_ROWS])),
+           f"mnist-kmedoids predict: {pred_launches}")
+    print(f"mnist-kmedoids ({card}): n={n} d={d} k={k} f32, {its} "
+          f"iterations (converged) in {fit_ms:.1f} ms = {fit_ms / its:.1f} "
+          f"ms an iteration (the final assignment included); the cost "
+          f"sweep alone {sweep_ms:.1f} ms ({sweep_ms / (fit_ms / its):.0%} "
+          f"of an iteration; bound {bound:.1f} ms: 2·n²·d = {flop:.3g} FLOP "
+          f"at 67 TFLOP/s, or one f32 write and read of the n² tile); peak "
+          f"{peak:.3f} GB above the data; launches {launches}; two "
+          f"clusters' medoids within {worst:.2e} of their least f64 member "
+          f"cost (bound {KMEDOIDS_COST_RTOL:g}); predict of "
+          f"{PAIRWISE_PREDICT_ROWS} rows: the training labels, launches "
+          f"{pred_launches}", flush=True)
+
+
+def _kmedoids_hold(card, x, lab, cpu_hold):
+    """mnist-kmedoids' hold on its first PAIRWISE_HOLD_ROWS rows: the
+    card's fit against the port's CPU fit (run on a thread beside the
+    phase's untimed work)."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+
+    k = MNIST["k"]
+    cfg = kt.KMeansConfig(k=k)
+    h = PAIRWISE_HOLD_ROWS
+    idx_h = _first_of_each(lab, k, rows=h)
+    card_h = kt.fit_kmedoids(x[:h], k, init=idx_h, config=cfg,
+                             max_iter=PAIRWISE_ITERS)
+    cpu_h = cpu_hold("kmedoids")
+    _check(bool(torch.equal(card_h.medoid_indices.cpu(),
+                            cpu_h.medoid_indices))
+           and abs(float(card_h.inertia) - float(cpu_h.inertia))
+           <= 1e-5 * float(cpu_h.inertia),
+           f"mnist-kmedoids hold: card {card_h.medoid_indices.tolist()} "
+           f"{float(card_h.inertia)}, CPU {cpu_h.medoid_indices.tolist()} "
+           f"{float(cpu_h.inertia)}")
+    print(f"mnist-kmedoids hold ({card}): the first {h} rows, the same "
+          f"medoid indices as the port's CPU fit, inertia "
+          f"{float(card_h.inertia):.6e} against {float(cpu_h.inertia):.6e}")
+
+
+def _objective_steps(x, labels0, k, cfg):
+    """The kernel fit's passes one at a time: ``(objectives at L0..Lt,
+    labels, ms a mass pass)``, each objective at the labels it is
+    evaluated at (two mass passes a step)."""
+    import torch
+
+    from kmeans_tpu_torch.models import kernel as KK
+
+    w = torch.ones(x.shape[0], device=x.device)
+    kw = dict(k=k, chunk_size=cfg.chunk_size, compute_dtype=None,
+              kernel="rbf", gamma=1.0 / x.shape[1], degree=3, coef0=1.0)
+    st0 = KK._kernel_loop(x, labels0, w, max_iter=0, **kw)
+    objs, labels, total_ms, passes = [float(st0.objective)], labels0, 0.0, 0
+    for _ in range(PAIRWISE_ITERS):
+        st, ms = _events_ms(lambda: KK._kernel_loop(x, labels, w,
+                                                    max_iter=1, **kw))
+        total_ms += ms
+        passes += 2
+        objs.append(float(st.objective))
+        done = bool(torch.equal(st.labels, labels))
+        labels = st.labels
+        if done:
+            break
+    return objs, labels, total_ms / passes
+
+
+def _mnist_kernel(card, x, totals):
+    """mnist-kernel: rbf at γ = 1/d from k-means++ and one assignment (K1),
+    PAIRWISE_ITERS iterations at most; the objective pass by pass, the
+    linear kernel's objective against Lloyd's f64 inertia of its
+    partition, and ``kernel_assign`` with the cached T on 8,192 training
+    rows."""
+    import math
+
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.data.synthetic import generator_for
+    from kmeans_tpu_torch.models import kernel as KK
+
+    k = MNIST["k"]
+    n, d = x.shape
+    cfg = kt.KMeansConfig(k=k, seed=5)
+    (st, fit_ms, launches), peak = _peak_above(lambda: _timed_fit(
+        lambda: kt.fit_kernel_kmeans(x, k, kernel="rbf", config=cfg,
+                                     max_iter=PAIRWISE_ITERS)))
+    _add_counts(totals["f32"], launches)
+    _check(launches["lloyd_pass_cuda"] >= 1,
+           f"mnist-kernel: the seeding's assignment ran no K1: {launches}")
+    its = int(st.n_iter)
+    # The same fit a pass at a time from the same seeded start.
+    lab0 = KK._resolve_labels0(x, k, generator_for(cfg.seed, x.device), cfg,
+                               None, None)
+    objs, lab_steps, pass_ms = _objective_steps(x, lab0, k, cfg)
+    diag_sum = float(n)                        # Σ w·K_ii for rbf
+    rise_bound = 1e-6 * diag_sum
+    rises = [b - a for a, b in zip(objs, objs[1:])]
+    _check(max(rises) <= rise_bound and bool(torch.equal(lab_steps,
+                                                         st.labels)),
+           f"mnist-kernel: objective {objs}, rises {rises} (bound "
+           f"{rise_bound}); the stepped labels equal the fit's: "
+           f"{bool(torch.equal(lab_steps, st.labels))}")
+    flop = 2.0 * n * n * d + 2.0 * n * n * k
+    bound = max(flop / F32_OPS_PER_S, 8.0 * n * n / MEM_BYTES_PER_S) * 1e3
+    # kernel_assign with the cached T on training rows.
+    m = PAIRWISE_PREDICT_ROWS
+    (pred, assign_ms, _) = _timed_fit(lambda: kt.models.kernel_assign(
+        x[:m], x, st.labels, k=k, within_mass=st.within_mass))
+    moved = int((pred != st.labels[:m]).sum())
+    _check(moved == 0 or not bool(st.converged),
+           f"mnist-kernel kernel_assign: {moved} of {m} training rows moved")
+    # The linear kernel: its objective is Lloyd's inertia of its partition.
+    lin = kt.fit_kernel_kmeans(x, k, kernel="linear", config=cfg,
+                               max_iter=3)
+    lab = lin.labels.long()
+    xd = x.double()
+    sums = torch.zeros(k, d, dtype=torch.float64, device=x.device)
+    sums.index_add_(0, lab, xd)
+    cnt = torch.bincount(lab, minlength=k).double()
+    means = sums / cnt.clamp_min(1)[:, None]
+    inertia64 = float(((xd - means[lab]) ** 2).sum())
+    sq_total = float((xd * xd).sum())
+    lin_bound = 4 * math.log2(n) * 2.0 ** -24 * sq_total
+    gap = abs(float(lin.objective) - inertia64)
+    _check(gap <= lin_bound, f"mnist-kernel linear: objective "
+           f"{float(lin.objective)} against f64 inertia {inertia64}")
+    del xd, sums
+    ended = "converged" if bool(st.converged) else "stopped"
+    print(f"mnist-kernel ({card}): rbf γ=1/{d}, n={n} k={k} f32 from "
+          f"k-means++ and K1, {its} iterations ({ended}) "
+          f"in {fit_ms:.1f} ms, the seeding included; a mass pass "
+          f"{pass_ms:.1f} ms (bound {bound:.1f} ms: 2·n²·(d + k) = "
+          f"{flop:.3g} FLOP at 67 TFLOP/s, or one f32 write and read of "
+          f"the n² tile); peak {peak:.3f} GB above the data; launches "
+          f"{launches}; the objective pass by pass "
+          f"{[round(o, 3) for o in objs]}, "
+          f"largest rise {max(rises):.3e} (bound {rise_bound:g}: 1e-6 of "
+          f"Σ K_ii, the f32 sums' scale); kernel_assign of {m} training "
+          f"rows with the cached T: {moved} moved, {assign_ms:.1f} ms; "
+          f"linear kernel: objective {float(lin.objective):.6e} against "
+          f"Lloyd's f64 inertia of its partition {inertia64:.6e} (|diff| "
+          f"{gap:.3e}, bound {lin_bound:.3e}: 4·log₂n·2⁻²⁴·Σ‖x‖²)",
+          flush=True)
+
+
+def _rings_spectral(card, totals, tmp):
+    """rings-spectral: ``make_rings`` at RINGS_N_PER rows a ring, the
+    embedding split into its stages, then ``fit_spectral`` (K1, K2): its
+    seconds and launches; ARI > 0.99 and unit rows.  Returns the rings
+    (saved for the CLI run) and the fit."""
+    import numpy as np
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.metrics import adjusted_rand_index
+    from kmeans_tpu_torch.models import spectral as S
+
+    x, y = kt.data.make_rings(41, RINGS_N_PER)
+    np.save(f"{tmp}/rings.npy", x.cpu().numpy())
+    n = x.shape[0]
+    cfg = kt.KMeansConfig(k=2, seed=1)
+    # The embedding's stages, timed on its own row math.
+    gen, _ = S.fit_generator(None, cfg, x.device)
+    ops = S.landmark_ops(x[S.draw_landmarks(n, 2, None, gen, x.device)],
+                         gamma=RINGS_GAMMA, degree=3, coef0=1.0, reg=1e-4)
+    events = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((name, ev))
+
+    _sync()
+    mark("start")
+    S.embed_rows(x, torch.ones(n, device=x.device), ops, k=2,
+                 gamma=RINGS_GAMMA, cd=torch.float32, chunk_size=4096,
+                 mark=mark)
+    events[-1][1].synchronize()
+    split = {name: events[i][1].elapsed_time(ev)
+             for i, (name, ev) in enumerate(events[1:])}
+    st, fit_ms, launches = _timed_fit(lambda: kt.fit_spectral(
+        x, 2, gamma=RINGS_GAMMA, config=cfg))
+    _add_counts(totals["f32"], launches)
+    ari = float(adjusted_rand_index(y, st.labels))
+    norms = torch.linalg.norm(st.embedding, dim=1)
+    norm_err = float((norms - 1.0).abs().max())
+    _check(ari > 0.99 and norm_err <= 1e-6
+           and launches["lloyd_pass_cuda"] >= 1,
+           f"rings-spectral: ARI {ari}, row norms within {norm_err}, "
+           f"launches {launches}")
+    print(f"rings-spectral ({card}): n={n} d=2 k=2 γ={RINGS_GAMMA}, 256 "
+          f"landmarks: the embedding's stages {split} ms (C tiles, "
+          f"degrees, Gram, eigh, U); fit_spectral {fit_ms:.1f} ms in all "
+          f"({int(st.n_iter)} Lloyd sweeps on the embedding); launches "
+          f"{launches}; ARI against the rings {ari:.6f} (> 0.99), row "
+          f"norms within {norm_err:.1e} of 1", flush=True)
+    return x, y, st
+
+
+def _spectral64(x, landmarks, k, gamma, rows, reg=1e-4, chunk=16384):
+    """The embedding of ``rows`` recomputed in f64 on the card from the
+    same landmarks (every row of x enters the degrees and the Gram), and
+    the Gram's eigenvalues."""
+    import torch
+
+    lf = landmarks.double()
+    l_sq = (lf * lf).sum(1)
+    w = torch.exp(-gamma * (l_sq[:, None] - 2 * lf @ lf.T
+                            + l_sq[None, :]).clamp_min(0))
+    w = 0.5 * (w + w.T)
+    s, u = torch.linalg.eigh(w)
+    cut = reg * s.max()
+    inv_s = torch.where(s > cut, 1.0 / torch.maximum(s, cut), 0.0)
+    w_inv = (u * inv_s) @ u.T
+    w_inv_sqrt = (u * torch.sqrt(inv_s)) @ u.T
+    n = x.shape[0]
+    C = torch.empty(n, lf.shape[0], dtype=torch.float64, device=x.device)
+    for lo in range(0, n, chunk):
+        xb = x[lo:lo + chunk].double()
+        xs = (xb * xb).sum(1)
+        C[lo:lo + chunk] = torch.exp(-gamma * (
+            xs[:, None] - 2 * xb @ lf.T + l_sq[None, :]).clamp_min(0))
+    deg = (C @ (w_inv @ C.sum(0))).clamp_min(1e-12)
+    Z = (C / torch.sqrt(deg)[:, None]) @ w_inv_sqrt
+    del C
+    g = Z.T @ Z
+    g = 0.5 * (g + g.T)
+    s_g, v_g = torch.linalg.eigh(g)
+    m = g.shape[0]
+    top = torch.arange(m - 1, m - k - 1, -1, device=x.device)
+    U = (Z[rows] @ v_g[:, top]) / torch.sqrt(s_g[top].clamp_min(1e-12))
+    U = U / torch.linalg.norm(U, dim=1, keepdim=True)
+    return U, torch.flip(s_g, (0,))
+
+
+def _glove_spectral(card, xg, lab_g, totals):
+    """glove-spectral at full width: ``spectral_embedding`` of n = 400,000,
+    d = 300 rows of GLOVE_SPECTRAL_K blobs to k = GLOVE_SPECTRAL_K, from
+    256 landmarks (2–3 rows of each blob), then ``fit_lloyd`` on the
+    (n, k) embedding (K1's f32 route, K2, K4 if the adaptive loop
+    probes); the projector of SPECTRAL_HOLD_ROWS sampled rows against an
+    f64 recomputation on the card, within the Davis–Kahan bound of the
+    f64 eigengap."""
+    import numpy as np
+    import torch
+
+    import kmeans_tpu_torch as kt
+
+    k = GLOVE_SPECTRAL_K
+    n, d = xg.shape
+    lab = lab_g.cpu().numpy()
+    per = np.full(k, 256 // k)
+    per[:256 % k] += 1
+    lm_idx = np.concatenate([np.flatnonzero(lab == b)[:per[b]]
+                             for b in range(k)])
+    landmarks = xg[torch.from_numpy(lm_idx).cuda()]
+    emb, emb_ms, _ = _timed_fit(lambda: kt.models.spectral_embedding(
+        xg, k, landmarks=landmarks))
+    st, fit_ms, launches = _timed_fit(lambda: kt.fit_lloyd(
+        emb, k, config=kt.KMeansConfig(k=k, seed=2)))
+    _add_counts(totals["f32"], launches)
+    _check(launches["lloyd_pass_cuda"] >= 1,
+           f"glove-spectral: the Lloyd fit ran no K1: {launches}")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = torch.randperm(n, generator=gen, device="cuda")[
+        :SPECTRAL_HOLD_ROWS]
+    u64, s64 = _spectral64(xg, landmarks, k, 1.0 / d, rows)
+    p32 = emb[rows].double() @ emb[rows].double().T
+    err = float((p32 - u64 @ u64.T).abs().max())
+    gap = float(s64[k - 1] - s64[k])
+    dk = 64 * 2.0 ** -24 * float(s64[0]) / max(gap, 1e-30)
+    tol = max(dk, 1e-4)
+    _check(err <= tol, f"glove-spectral: projector error {err:.3e} "
+           f"(Davis–Kahan bound {dk:.3e}, eigengap {gap:.3e})")
+    print(f"glove-spectral ({card}): n={n} d={d} k={k} f32, 256 landmarks "
+          f"(2–3 rows of each of the {k} blobs: a uniform draw leaves about "
+          f"eight blobs without one, whose rows embed as rounding noise): "
+          f"the embedding {emb_ms:.1f} ms, fit_lloyd on it "
+          f"{int(st.n_iter)} sweeps in {fit_ms:.1f} ms; launches "
+          f"{launches}; the projector of {SPECTRAL_HOLD_ROWS} rows against "
+          f"f64 on the card within {err:.3e} (bound {tol:.3e}: "
+          f"64·2⁻²⁴·s₁ over the eigengap s_k − s_(k+1) = {gap:.4e}, or "
+          f"1e-4)", flush=True)
+
+
+def _glove_nystrom(card, xg, totals):
+    """glove-nystrom: ``nystrom_features`` with NYSTROM_M landmarks (the
+    default draw) on glove's rows, then ``fit_lloyd`` at k = NYSTROM_K
+    for NYSTROM_SWEEPS sweeps on K1's f32 route and K2."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    z, feat_ms, _ = _timed_fit(lambda: kt.models.nystrom_features(
+        xg, NYSTROM_M, generator=gen))
+    n = z.shape[0]
+    c0 = z[torch.arange(0, n, n // NYSTROM_K, device="cuda")[:NYSTROM_K]]
+    st, fit_ms, launches = _timed_fit(lambda: kt.fit_lloyd(
+        z, NYSTROM_K, init=c0, tol=-1.0, max_iter=NYSTROM_SWEEPS))
+    _add_counts(totals["f32"], launches)
+    _check(int(st.n_iter) == NYSTROM_SWEEPS
+           and launches["lloyd_pass_cuda"] >= 1
+           and bool(torch.isfinite(st.inertia)),
+           f"glove-nystrom: {int(st.n_iter)} sweeps, launches {launches}")
+    flop = 2.0 * n * NYSTROM_M * GLOVE["d"]
+    print(f"glove-nystrom ({card}): nystrom_features(m={NYSTROM_M}) of "
+          f"{n} x {GLOVE['d']} rows in {feat_ms:.1f} ms (the kernel tiles "
+          f"{flop:.3g} FLOP, the transform's product as many again at m = "
+          f"{NYSTROM_M}); fit_lloyd at k={NYSTROM_K} on the {n} x "
+          f"{NYSTROM_M} features, {NYSTROM_SWEEPS} sweeps in {fit_ms:.1f} "
+          f"ms = {fit_ms / NYSTROM_SWEEPS:.2f} ms a sweep; launches "
+          f"{launches}", flush=True)
+
+
+def _pairwise_dp1(card, mesh, x20, x_rings):
+    """kmedoids-, kernel- and spectral-dp1-nccl: each sharded fit on an
+    NCCL mesh of one against its single-device fit: bit for bit (the
+    spectral Lloyd stage's K2 sums with atomics: its labels but ties),
+    the time ratio and the mesh's traffic."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch import parallel
+
+    k = MNIST["k"]
+    cfg = kt.KMeansConfig(k=k, seed=7)
+    runs = {
+        "kmedoids-dp1-nccl": (
+            lambda: parallel.fit_kmedoids_sharded(
+                x20, k, mesh=mesh, config=cfg, max_iter=PAIRWISE_ITERS),
+            lambda: kt.fit_kmedoids(x20, k, config=cfg,
+                                    max_iter=PAIRWISE_ITERS)),
+        "kernel-dp1-nccl": (
+            lambda: parallel.fit_kernel_kmeans_sharded(
+                x20, k, mesh=mesh, config=cfg, max_iter=PAIRWISE_ITERS),
+            lambda: kt.fit_kernel_kmeans(x20, k, config=cfg,
+                                         max_iter=PAIRWISE_ITERS)),
+        "spectral-dp1-nccl": (
+            lambda: kt.fit_spectral(x_rings, 2, gamma=RINGS_GAMMA,
+                                    config=kt.KMeansConfig(k=2, seed=1),
+                                    mesh=mesh),
+            lambda: kt.fit_spectral(x_rings, 2, gamma=RINGS_GAMMA,
+                                    config=kt.KMeansConfig(k=2, seed=1))),
+    }
+    for name, (sharded, one) in runs.items():
+        sharded()                            # NCCL's communicator, warm
+        mesh.reset_stats()
+        got, ms_mesh, _ = _timed_fit(sharded)
+        stats = {op: list(v) for op, v in mesh.stats.items()}
+        want, ms_one, _ = _timed_fit(one)
+        its = max(int(got.n_iter), 1)
+        if name.startswith("spectral"):
+            moved = int((got.labels != want.labels).sum())
+            _check(bool(torch.equal(got.embedding, want.embedding))
+                   and moved <= 1e-6 * x_rings.shape[0],
+                   f"{name}: embedding equal "
+                   f"{bool(torch.equal(got.embedding, want.embedding))}, "
+                   f"{moved} labels moved")
+            held = (f"the embedding bit for bit, {moved} labels moved "
+                    "(the k-means stage's K2 sums with atomics)")
+        else:
+            same = all(bool(torch.equal(a, b)) for a, b in zip(got, want)
+                       if isinstance(a, torch.Tensor))
+            _check(same, f"{name}: not the single-device fit bit for bit")
+            held = "bit for bit"
+        _check(stats["ring_shift"][0] == 0,
+               f"{name}: {stats['ring_shift']} ring shifts at world size 1")
+        print(f"{name} ({card}): {held}; {ms_mesh:.1f} ms against one "
+              f"card's {ms_one:.1f} ms (mesh/one card "
+              f"{ms_mesh / ms_one:.3f}); {int(got.n_iter)} iterations, "
+              f"all-reduces {stats['all_reduce'][0]} "
+              f"({stats['all_reduce'][0] / its:.1f} an iteration), ring "
+              f"shifts {stats['ring_shift'][0]} (NCCL at world size 1 "
+              f"never shifts)", flush=True)
+
+
+def _pairwise_rank(spec) -> int:
+    """``chip_smoke.py --pairwise-rank SPEC``: one of two gloo ranks on the
+    one card: k-medoids and kernel k-means on a ring of two and
+    ``spectral_embedding_sharded`` at n = PAIRWISE_GLOO_N, each held by
+    rank 0 to one card's fit.  With ``spec["probe"]`` it only sends a
+    card tensor to the other rank over gloo directly and records what
+    arrived."""
+    import torch
+    import torch.distributed as dist
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch import parallel
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    mesh = parallel.make_mesh((2, 1), ("data", "model"),
+                              devices=["cuda:0"] * 2, backend="gloo")
+    out = {"rank": mesh.rank, "runs": {}}
+    try:
+        if spec.get("probe"):
+            t = torch.arange(16, dtype=torch.float32, device="cuda")
+            try:
+                if mesh.rank == 0:
+                    dist.send(t + 1.0, dst=1)
+                    out["probe"] = {"sent": True}
+                else:
+                    got = torch.zeros_like(t)
+                    dist.recv(got, src=0)
+                    torch.cuda.synchronize()
+                    out["probe"] = {"equal": bool(torch.equal(got, t + 1.0))}
+            except Exception as e:  # allow-silent-except: the finding
+                # (gloo refusing a card tensor) is the probe's record.
+                out["probe"] = {"error": f"{type(e).__name__}: {e}"}
+            return 0
+        n, k = PAIRWISE_GLOO_N, MNIST["k"]
+        x, lab, _ = kt.make_blobs(23, n, MNIST["d"], k,
+                                  cluster_std=SWEEP_STD)
+        idx0 = _first_of_each(lab, k)
+        cfg = kt.KMeansConfig(k=k, seed=9)
+        its = dict(max_iter=PAIRWISE_ITERS)
+        runs = {
+            "kmedoids-dp2-gloo": (
+                lambda: parallel.fit_kmedoids_sharded(
+                    x, k, mesh=mesh, init=idx0, config=cfg, **its),
+                lambda: kt.fit_kmedoids(x, k, init=idx0, config=cfg, **its)),
+            "kernel-dp2-gloo": (
+                lambda: parallel.fit_kernel_kmeans_sharded(
+                    x, k, mesh=mesh, config=cfg, **its),
+                lambda: kt.fit_kernel_kmeans(x, k, config=cfg, **its)),
+            "spectral-dp2-gloo": (
+                lambda: parallel.spectral_embedding_sharded(
+                    x, k, mesh=mesh, generator=torch.Generator(
+                        device="cuda").manual_seed(11)),
+                lambda: kt.models.spectral_embedding(
+                    x, k, generator=torch.Generator(
+                        device="cuda").manual_seed(11))),
+        }
+        for name, (fn, one) in runs.items():
+            mesh.barrier()
+            _sync()
+            mesh.reset_stats()
+            K.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            st = fn()
+            _sync()
+            rec = out["runs"][name] = {
+                "seconds": time.perf_counter() - t0,
+                "launches": K.launch_counts(),
+                "stats": {op: list(v) for op, v in mesh.stats.items()},
+                "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                "iters": (int(st.n_iter) if hasattr(st, "n_iter") else 1)}
+            if mesh.rank:
+                continue
+            want = one()
+            if name.startswith("spectral"):
+                s = torch.randperm(n, generator=torch.Generator(
+                    device="cuda").manual_seed(1), device="cuda")[:2048]
+                err = float((st[s] @ st[s].T - want[s] @ want[s].T).abs()
+                            .max())
+                _check(err <= 1e-4, f"{name}: projector error {err}")
+                rec["detail"] = (f"the projector of 2048 rows within "
+                                 f"{err:.2e} of one card's")
+            elif name.startswith("kmedoids"):
+                diff = int((st.medoid_indices != want.medoid_indices).sum())
+                _check(diff == 0, f"{name}: {diff} medoids differ from one "
+                       f"card's: {st.medoid_indices.tolist()} / "
+                       f"{want.medoid_indices.tolist()}")
+                rec["detail"] = (f"the same {k} medoids, inertia "
+                                 f"{float(st.inertia):.6e} against "
+                                 f"{float(want.inertia):.6e}")
+            else:
+                moved = int((st.labels != want.labels).sum())
+                _check(moved <= 1e-3 * n and int(st.n_iter) ==
+                       int(want.n_iter),
+                       f"{name}: {moved} labels moved, "
+                       f"{int(st.n_iter)} iterations against "
+                       f"{int(want.n_iter)}")
+                rec["detail"] = (f"{moved} labels moved (near-ties of the "
+                                 f"ring's f32 sum order), objective "
+                                 f"{float(st.objective):.6e} against "
+                                 f"{float(want.objective):.6e}")
+    finally:
+        with open(spec["out"] % mesh.rank, "w", encoding="utf-8") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _pairwise_world(tmp, probe=False):
+    """Spawn phase 19's gloo world of two ranks on the one card."""
+    import os
+
+    from kmeans_tpu_torch.parallel.mesh import free_port
+
+    tag = "probe" if probe else "rank"
+    spec = {"out": f"{tmp}/pairwise-{tag}%d.json", "probe": probe}
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE="2",
+               PYTHONUNBUFFERED="1")
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--pairwise-rank",
+         json.dumps(spec)], cwd=root,
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r))) for r in range(2)]
+    return procs, spec
+
+
+def _pairwise_probe(procs, spec):
+    """gloo's send / receive of a card tensor: what the probe world found
+    (a rank that crashed or hung is a finding too, not a failure of the
+    phase: the ring stages through host memory on gloo either way)."""
+    deadline = time.monotonic() + 60
+    while any(p.poll() is None for p in procs) \
+            and time.monotonic() < deadline:
+        time.sleep(0.1)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    rcs = [p.returncode for p in procs]
+    found = []
+    for r in range(2):
+        try:
+            with open(spec["out"] % r, encoding="utf-8") as f:
+                found.append(json.load(f).get("probe"))
+        except (OSError, ValueError) as e:
+            found.append({"error": f"no record ({type(e).__name__})"})
+    return f"exit codes {rcs}; the sender {found[0]}, the receiver {found[1]}"
+
+
+def _pairwise_cli(tmp):
+    """train-mesh (phase 19): ``cli train --mesh 2 --device cpu`` for
+    kmedoids, kernel and spectral against ``--mesh 1``, in CPU processes.
+    Returns ``{name: (stdout, stderr, rc)}`` and seconds."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = {}
+    for family in ("kmedoids", "kernel", "spectral"):
+        base = ["train", *PAIRWISE_CLI_SMALL, "--model", family]
+        runs[family] = base + ["--mesh", "2"]
+        runs[f"{family} 1"] = base
+    t0 = time.perf_counter()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "kmeans_tpu_torch.cli", *argv], cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, argv in runs.items()}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            outs[name] = p.communicate(timeout=CLI_TIMEOUT_S) + (
+                p.returncode,)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs, time.perf_counter() - t0
+
+
+def _check_pairwise_cli(outs, secs):
+    for family in ("kmedoids", "kernel", "spectral"):
+        res = {}
+        for name in (family, f"{family} 1"):
+            out, err, rc = outs[name]
+            _check(rc == 0, f"train-mesh {name}: exit {rc}, stderr "
+                   f"{err[-1500:]}")
+            res[name] = json.loads(out.strip().splitlines()[-1])
+        two, one = res[family], res[f"{family} 1"]
+        same = ("n", "d", "k", "n_iter", "mode", "converged")
+        # Spectral's embedding-space inertia is near 0 on separated blobs,
+        # where the all-reduces' order moves it in absolute terms.
+        atol = 1e-4 if family == "spectral" else 0.0
+        _check({f: two[f] for f in same} == {f: one[f] for f in same}
+               and two["mesh"] == 2
+               and abs(two["inertia"] - one["inertia"])
+               <= 1e-5 * abs(one["inertia"]) + atol,
+               f"train-mesh {family}: {two} against {one}")
+        print(f"train-mesh {family} (--mesh 2 --device cpu): n_iter "
+              f"{two['n_iter']}, objective {two['inertia']} against "
+              f"--mesh 1's {one['inertia']}")
+    print(f"train-mesh (phase 19): {secs:.1f} s for the six CPU runs")
+
+
+def _pairwise_board(card):
+    """The board's train op for kmedoids and kernel at the cap's largest n
+    (BOARD_PAIRWISE), on the card: the reference's answer to the request
+    (started, with n, d, k), then ``train_done`` with the fitted k."""
+    from kmeans_tpu_torch.config import ServeConfig
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.serve.server import KMeansServer
+
+    srv = KMeansServer(ServeConfig(port=0, host="127.0.0.1", tracing=False,
+                                   persist_dir=None), device="cuda")
+    base = f"http://127.0.0.1:{srv.start().server_address[1]}"
+    counts = {}
+    try:
+        for model in ("kmedoids", "kernel"):
+            K.reset_launch_counts()
+            args = dict(BOARD_PAIRWISE, model=model)
+            wall, evs, done = _board_train(base, f"PW{model[:2].upper()}",
+                                           args)
+            _add_counts(counts, K.launch_counts())
+            _check(done["model"] == model and done["k"] == args["k"]
+                   and [e.get("iteration") for e in evs] == [0],
+                   f"board train {model}: {done}")
+            print(f"board train {model} ({card}): n={args['n']} d=2 k=3, "
+                  f"{done['n_iter']} iterations, objective "
+                  f"{done['inertia']:.6e}; {wall:.3f} s from the request to "
+                  f"train_done", flush=True)
+    finally:
+        srv.stop()
+    return counts
+
+
+def _cpu_kmedoids_hold(x_hold, idx):
+    """The CPU fit mnist-kmedoids' hold is held to, on a thread beside the
+    card's work: ``(thread, get)``."""
+    import threading
+
+    import kmeans_tpu_torch as kt
+
+    box = {}
+
+    def run():
+        try:
+            box["kmedoids"] = kt.fit_kmedoids(
+                x_hold, MNIST["k"], init=idx,
+                config=kt.KMeansConfig(k=MNIST["k"]),
+                max_iter=PAIRWISE_ITERS, device="cpu")
+        except BaseException as e:  # allow-silent-except: re-raised by get
+            box["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def get(name):
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box[name]
+
+    return thread, get
+
+
+def phase_pairwise(card):
+    """Phase 19: the pairwise families (see the module docstring).
+    Returns the runs' launches by compute: ``{"bf16": {...}, "f32":
+    {...}}``."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.parallel import make_mesh
+
+    t_all = time.perf_counter()
+    totals = {"bf16": {}, "f32": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pairwise_")
+    cli = cpu_thread = cli_thread = None
+    procs, probe = [], []
+
+    def mark(what):
+        print(f"  [phase 19: {what} done at {time.perf_counter() - t_all:.1f}"
+              " s]", flush=True)
+
+    try:
+        # The timed runs first, with no other process of the phase on the
+        # card or the host's cores.
+        x, lab, _ = kt.make_blobs(17, MNIST["n"], MNIST["d"], MNIST["k"],
+                                  cluster_std=SWEEP_STD)
+        _mnist_kmedoids(card, x, lab, totals)
+        mark("mnist-kmedoids")
+        _mnist_kernel(card, x, totals)
+        mark("mnist-kernel")
+        x_rings, _, _ = _rings_spectral(card, totals, tmp)
+        mark("rings-spectral")
+        mesh = make_mesh((1, 1), ("data", "model"))
+        _check(mesh.backend == "nccl", f"phase 19's mesh of one: {mesh}")
+        try:
+            _pairwise_dp1(card, mesh, x[:PAIRWISE_DP_N].contiguous(),
+                          x_rings)
+        finally:
+            dist.destroy_process_group()
+        mark("kmedoids-, kernel-, spectral-dp1-nccl")
+        del x_rings
+        xg, lab_g, _ = kt.make_blobs(0, GLOVE["n"], GLOVE["d"],
+                                     GLOVE_SPECTRAL_K)
+        _glove_spectral(card, xg, lab_g, totals)
+        mark("glove-spectral")
+        _glove_nystrom(card, xg, totals)
+        del xg, lab_g
+        torch.cuda.empty_cache()
+        mark("glove-nystrom")
+        _add_counts(totals["f32"], _pairwise_board(card))
+        mark("the board's train ops")
+        # Then the untimed work at once: the CPU processes, the gloo
+        # worlds, the CLI's child process and the CPU hold.
+        h = PAIRWISE_HOLD_ROWS
+        cpu_thread, cpu_hold = _cpu_kmedoids_hold(
+            x[:h].cpu(), _first_of_each(lab, MNIST["k"], rows=h))
+        cli_out = {}
+        cli = threading.Thread(target=lambda: cli_out.update(
+            zip(("outs", "secs"), _pairwise_cli(tmp))))
+        cli.start()
+        probe = _pairwise_world(tmp, probe=True)
+        procs, spec = _pairwise_world(tmp)
+        spec_cli = {}
+        cli_thread = threading.Thread(target=lambda: spec_cli.update(
+            run=_CliRun(tmp, "pairwise-cli spectral", [
+                "train", "--model", "spectral", "--k", "2", "--input",
+                f"{tmp}/rings.npy", "--out", f"{tmp}/board.json"])))
+        cli_thread.start()
+        _or_stop(procs, lambda: _kmedoids_hold(card, x, lab, cpu_hold))
+        del x
+        cli_thread.join(timeout=CLI_TIMEOUT_S)
+        run = spec_cli.get("run")
+        _check(run is not None, "pairwise-cli: the spectral run did not end")
+        run.need(0)
+        _add_counts(totals["f32"], run.counts)
+        _check(run.result["mode"] == "spectral" and run.result["k"] == 2
+               and os.path.getsize(f"{tmp}/board.json") > 0,
+               f"pairwise-cli: {run.result}")
+        print(run.line(f"; wrote the board "
+                       f"({os.path.getsize(tmp + '/board.json')} bytes)"))
+        ranks = _wait_world("phase 19's gloo world", procs, spec)
+        for rank in ranks:
+            for rec in rank["runs"].values():
+                _add_counts(totals["f32"], rec["launches"])
+        for name, rec in ranks[0]["runs"].items():
+            shifts = [r["runs"][name]["stats"]["ring_shift"][0]
+                      for r in ranks]
+            staged = [r["runs"][name]["stats"]["ring_stage"][0]
+                      for r in ranks]
+            its = max(rec["iters"], 1)
+            print(f"{name} ({card}; two ranks share the card, not a scaling "
+                  f"number): held to one card's fit ({rec['detail']}); "
+                  f"{[round(r['runs'][name]['seconds'], 3) for r in ranks]} "
+                  f"s a rank; ring shifts {shifts} "
+                  f"({shifts[0] / its:.1f} an iteration), staged through "
+                  f"pinned host memory on gloo {staged}; a rank's peak "
+                  f"{[round(r['runs'][name]['peak_gb'], 3) for r in ranks]} "
+                  f"GB; all-reduces "
+                  f"{rec['stats']['all_reduce'][0]}", flush=True)
+        print(f"gloo send / receive of a card tensor (a probe world of two "
+              f"ranks): {_pairwise_probe(*probe)}")
+        cli.join(timeout=CLI_TIMEOUT_S)
+        _check("outs" in cli_out, "train-mesh: the CLI runs did not end")
+        _check_pairwise_cli(cli_out["outs"], cli_out["secs"])
+        cpu_thread.join()
+    finally:
+        for p in procs + list(probe[0] if probe else []):
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for thread in (cli, cpu_thread, cli_thread):
+            if thread is not None:
+                thread.join(timeout=CLI_TIMEOUT_S)
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_all
+    print(f"phase 19 ({card}): {secs:.1f} s; launches {totals}")
+    return totals
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--http-client"]:
         return _http_client(json.loads(sys.argv[2]))
@@ -10830,6 +11800,8 @@ def main() -> int:
         return _sweep_cli(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--soft-rank"]:
         return _soft_rank(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--pairwise-rank"]:
+        return _pairwise_rank(json.loads(sys.argv[2]))
     import torch
 
     if not torch.cuda.is_available():
@@ -10882,6 +11854,11 @@ def main() -> int:
     if sys.argv[1:] == ["--soft"]:
         phase_build()
         phase_soft(card)
+        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+        return 0
+    if sys.argv[1:] == ["--pairwise"]:
+        phase_build()
+        phase_pairwise(card)
         print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
         return 0
     if sys.argv[1:] == ["--fleet"]:
@@ -10954,23 +11931,23 @@ def main() -> int:
     # after them lost records of its own short kernels).
     phase_fold_split()
     soft = phase_soft(card)
+    pairwise = phase_pairwise(card)
     names = {row["name"] for row in kernels}
     for row in kernels:
-        # Phases 15's, 16's, 17's and 18's launches (every rank's, every
-        # child's, and the single-device fits they are held to) join the
-        # bf16 rows and the f32 route's rows, as phase 14's do; phase 17's
-        # and 18's f32 launches of a kernel with no f32 row (K3, the
-        # sharded delta loop's refresh) join its one row.
+        # Phases 15's to 19's launches (every rank's, every child's, and
+        # the single-device fits they are held to) join the bf16 rows and
+        # the f32 route's rows, as phase 14's do; phase 17's to 19's f32
+        # launches of a kernel with no f32 row (K3, the sharded delta
+        # loop's refresh) join its one row.
         name, _, what = row["name"].partition(" ")
         compute = {"": "bf16", "(f32 route)": "f32"}.get(what)
         if compute:
-            row["launches"] += (mesh[compute].get(name, 0)
-                                + sharded[compute].get(name, 0)
-                                + families[compute].get(name, 0)
-                                + soft[compute].get(name, 0))
+            row["launches"] += sum(
+                phase[compute].get(name, 0)
+                for phase in (mesh, sharded, families, soft, pairwise))
         if not what and f"{name} (f32 route)" not in names:
-            row["launches"] += (families["f32"].get(name, 0)
-                                + soft["f32"].get(name, 0))
+            row["launches"] += sum(phase["f32"].get(name, 0)
+                                   for phase in (families, soft, pairwise))
     kernels += board_rows + serve_rows
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

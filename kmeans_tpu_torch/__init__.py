@@ -7,7 +7,8 @@ yinyang sweeps and the adaptive ``update="auto"`` loop, the accelerated fits
 of core from host memory: :func:`fit_minibatch_stream`), trimmed,
 spherical and bisecting k-means, x-means and g-means, Gaussian mixtures
 (:func:`fit_gmm`, streamed: :func:`fit_gmm_stream`), fuzzy c-means,
-balanced (Sinkhorn) k-means, PCA / whitening
+balanced (Sinkhorn) k-means, k-medoids, kernel k-means (with Nyström
+features) and spectral clustering, PCA / whitening
 (:mod:`kmeans_tpu_torch.data.preprocess`) and model selection
 (:func:`sweep_k`, :mod:`kmeans_tpu_torch.metrics`), whose
 sweep kernels are hand-written CUDA for Hopper (``csrc/lloyd.cu``), built
@@ -37,12 +38,15 @@ from kmeans_tpu_torch.models.gmeans import GMeans, fit_gmeans
 from kmeans_tpu_torch.models.gmm import GaussianMixture, fit_gmm
 from kmeans_tpu_torch.models.gmm_stream import fit_gmm_stream
 from kmeans_tpu_torch.models.init import kmeans_plus_plus
+from kmeans_tpu_torch.models.kernel import KernelKMeans, fit_kernel_kmeans
 from kmeans_tpu_torch.models.lloyd import (KMeans, KMeansState, fit_lloyd,
                                            fit_plan)
+from kmeans_tpu_torch.models.medoids import KMedoids, fit_kmedoids
 from kmeans_tpu_torch.models.minibatch import (MiniBatchKMeans, batch_update,
                                                fit_minibatch, nested_ladder)
 from kmeans_tpu_torch.models.runner import IterInfo, LloydRunner
 from kmeans_tpu_torch.models.selection import suggest_k, sweep_k
+from kmeans_tpu_torch.models.spectral import SpectralClustering, fit_spectral
 from kmeans_tpu_torch.models.spherical import SphericalKMeans, fit_spherical
 from kmeans_tpu_torch.models.streaming import (assign_stream,
                                                fit_minibatch_stream)
@@ -63,4 +67,6 @@ __all__ = ["KMeans", "KMeansConfig", "KMeansState", "fit_lloyd", "fit_plan",
            "fit_spherical", "BisectingKMeans", "fit_bisecting", "XMeans",
            "fit_xmeans", "GMeans", "fit_gmeans", "sweep_k", "suggest_k",
            "GaussianMixture", "fit_gmm", "fit_gmm_stream", "FuzzyCMeans",
-           "fit_fuzzy", "BalancedKMeans", "fit_balanced"]
+           "fit_fuzzy", "BalancedKMeans", "fit_balanced", "KernelKMeans",
+           "fit_kernel_kmeans", "KMedoids", "fit_kmedoids",
+           "SpectralClustering", "fit_spectral"]

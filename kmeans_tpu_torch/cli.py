@@ -14,7 +14,8 @@ under ``--progress/--checkpoint/--resume/--telemetry/--trace/--xla-trace/
 (``--trim-fraction``; its outliers export as unassigned cards),
 ``spherical``, ``bisecting``, ``xmeans`` / ``gmeans`` (``--k`` is
 k_max; the result line reports the discovered k), ``fuzzy``, ``gmm``
-(``--covariance-type``) and ``balanced``, and
+(``--covariance-type``), ``balanced``, ``kmedoids``, ``kernel`` and
+``spectral``, and
 ``--stream``: the out-of-core minibatch fit
 (:func:`~kmeans_tpu_torch.models.streaming.fit_minibatch_stream`), or
 with ``--model gmm`` online EM (:func:`~kmeans_tpu_torch.models.
@@ -22,9 +23,10 @@ gmm_stream.fit_gmm_stream`), over
 ``--input`` memory-mapped on the host, with ``--steps``, ``--batch-size``,
 ``--checkpoint`` / ``--resume`` in one directory, ``--telemetry`` and
 ``--trace``.  ``--coreset M`` fits lloyd, accelerated, spherical,
-bisecting, fuzzy, gmm, trimmed or balanced on an M-point lightweight
-coreset of the data, weighted.  ``--pca N [--whiten]`` projects the
-in-memory data onto its top N principal components on the device first
+bisecting, fuzzy, gmm, kernel, kmedoids, trimmed or balanced on an
+M-point lightweight coreset of the data, weighted.  ``--pca N
+[--whiten]`` projects the in-memory data onto its top N principal
+components on the device first
 (:mod:`kmeans_tpu_torch.data.preprocess`).  A SIGTERM or SIGINT
 during a runner or streamed fit cuts a checkpoint and exits 3 with a
 "resume with: ..." line.  ``--xla-trace DIR`` writes a
@@ -34,14 +36,14 @@ Generated data (``--config`` or ``--n/--d/--k``) is the port's
 ``make_blobs`` on the chosen device from ``--seed``, so a resumed process
 regenerates the same rows.  ``--merge-k K`` exports the fit's labels
 merged to K groups along the centroid dendrogram (:func:`~kmeans_tpu_torch.
-models.hierarchy.merge_to_k`) and adds ``merged_k`` to the result line.
-What the port does not have yet is refused with exit code 2 and one line
-naming its ROADMAP queue item: kernel, kmedoids and spectral (A9c).
+models.hierarchy.merge_to_k`) and adds ``merged_k`` to the result line
+(refused for the center-free kernel and spectral fits).
 
-``--mesh N`` (N > 1) fits every ported family on N ranks, one process per
+``--mesh N`` (N > 1) fits every family on N ranks, one process per
 device (``spherical`` on the sharded engine's sphere update; ``bisecting``,
 ``xmeans`` and ``gmeans`` with every inner fit and assign on it; fuzzy,
-gmm and balanced on their DP bodies)
+gmm and balanced on their DP bodies; kmedoids and kernel as ring passes;
+spectral's embedding and its k-means sharded)
 (:mod:`kmeans_tpu_torch.parallel`), and ``--stream --mesh N`` runs the
 streamed fit's step sharded: the command starts N copies of itself, rank i
 on ``cuda:i`` (NCCL) or, with ``--device cpu``, N gloo CPU processes,
@@ -102,8 +104,6 @@ import json
 import sys
 import time
 
-from kmeans_tpu_torch.config import UNPORTED_FAMILIES, unported
-
 
 def _load_npy(path):
     """``np.load`` with the CLI's one-line-error contract: a missing file
@@ -117,21 +117,7 @@ def _load_npy(path):
         return None
 
 
-def _not_ported(args):
-    """The one refusal line for a family the port does not have yet,
-    naming its ROADMAP queue item; None when everything asked for is
-    ported."""
-    if args.model in UNPORTED_FAMILIES:
-        return f"--model {unported(args.model)}"
-    return None
-
-
 def _cmd_train(args) -> int:
-    refused = _not_ported(args)
-    if refused:
-        print(f"error: {refused}", file=sys.stderr)
-        return 2
-
     import os
 
     import numpy as np
@@ -225,6 +211,10 @@ def _cmd_train(args) -> int:
 
     if args.merge_k is not None:
         # The mistakes knowable before the fit fail before it.
+        if model in ("kernel", "spectral"):
+            print(f"error: --merge-k needs a center-based fit; "
+                  f"{model} has no input-space centers", file=sys.stderr)
+            return 2
         if args.merge_k < 1:
             print("error: --merge-k must be >= 1", file=sys.stderr)
             return 2
@@ -523,8 +513,6 @@ def _cmd_train(args) -> int:
               f"{model}", file=sys.stderr)
         return 2
 
-    # The reference's list of the families a coreset fit allows; of them
-    # kernel and kmedoids are refused above (ROADMAP A9c).
     coreset_ok = ("lloyd", "accelerated", "spherical", "bisecting", "fuzzy",
                   "gmm", "kernel", "kmedoids", "trimmed", "balanced")
     fit_weights = None
@@ -681,10 +669,13 @@ def _cmd_train(args) -> int:
                               model, gmm_kw)
         if isinstance(state, int):
             return state
-    elif mesh is not None and model in ("xmeans", "gmeans", "bisecting"):
+    elif mesh is not None and model in ("xmeans", "gmeans", "spectral",
+                                        "bisecting"):
         # The families that take the mesh themselves: every inner fit and
-        # assign rides the sharded engine.
+        # assign rides the sharded engine (spectral's embedding-space
+        # k-means does).
         fit = {"xmeans": models.fit_xmeans, "gmeans": models.fit_gmeans,
+               "spectral": models.fit_spectral,
                "bisecting": models.fit_bisecting}[model]
         state = fit(x, k, config=kcfg, mesh=mesh)
         if model in ("xmeans", "gmeans"):
@@ -698,6 +689,8 @@ def _cmd_train(args) -> int:
                "spherical": parallel.fit_spherical_sharded,
                "fuzzy": parallel.fit_fuzzy_sharded,
                "gmm": parallel.fit_gmm_sharded,
+               "kernel": parallel.fit_kernel_kmeans_sharded,
+               "kmedoids": parallel.fit_kmedoids_sharded,
                "trimmed": parallel.fit_trimmed_sharded,
                "balanced": parallel.fit_balanced_sharded}[model]
         fit_kw = ({"trim_fraction": trim_fraction}
@@ -722,8 +715,11 @@ def _cmd_train(args) -> int:
             "bisecting": models.fit_bisecting,
             "fuzzy": models.fit_fuzzy,
             "gmm": models.fit_gmm,
+            "kernel": models.fit_kernel_kmeans,
+            "kmedoids": models.fit_kmedoids,
             "trimmed": models.fit_trimmed,
             "balanced": models.fit_balanced,
+            "spectral": models.fit_spectral,
             "xmeans": models.fit_xmeans,   # --k is k_max; k is discovered
             "gmeans": models.fit_gmeans,   # likewise (Anderson-Darling)
         }[model]
@@ -968,11 +964,6 @@ def _train_stream(args, x, k, kcfg, dev, stream_ckpt, mesh, model, gmm_kw):
 
 def _cmd_sweep(args) -> int:
     """Sweep k and print one scored JSON line per k, then a suggestion."""
-    # A family the port does not have yet is refused first, by name.
-    refused = unported(args.model)
-    if refused:
-        print(f"error: --model {refused}", file=sys.stderr)
-        return 2
     # Flag mismatches knowable before the data is loaded fail first.
     if args.criterion in ("bic", "aic") and args.model != "gmm":
         print(f"error: --criterion {args.criterion} requires --model gmm",
@@ -985,6 +976,12 @@ def _cmd_sweep(args) -> int:
     if args.criterion == "elbow" and \
             len(range(args.k_min, args.k_max + 1, args.k_step)) < 3:
         print("error: --criterion elbow needs at least 3 swept k values",
+              file=sys.stderr)
+        return 2
+    if args.criterion == "elbow" and args.model == "spectral":
+        print("error: --criterion elbow is meaningless for --model "
+              "spectral (each k's objective lives in a different "
+              "embedding space); use the default silhouette criterion",
               file=sys.stderr)
         return 2
 
@@ -1279,8 +1276,7 @@ def main(argv=None) -> int:
         "fuzzy", "gmm", "kernel", "kmedoids", "trimmed", "balanced",
         "spectral", "xmeans", "gmeans",
     ], help="model family (default: lloyd, or the config's minibatch "
-            "choice); for xmeans/gmeans, --k is k_max and k is discovered; "
-            "kernel, kmedoids and spectral (ROADMAP A9c) are refused")
+            "choice); for xmeans/gmeans, --k is k_max and k is discovered")
     t.add_argument("--covariance-type", default=None,
                    choices=["diag", "spherical", "tied"],
                    help="GMM covariance structure (--model gmm; streamed "
@@ -1411,8 +1407,7 @@ def main(argv=None) -> int:
     w.add_argument("--model", default="lloyd", choices=[
         "lloyd", "accelerated", "minibatch", "spherical", "bisecting",
         "fuzzy", "gmm", "kernel", "kmedoids", "balanced", "spectral",
-    ], help="model family; kernel, kmedoids and spectral (ROADMAP A9c) "
-            "are refused")
+    ])
     w.add_argument("--criterion", default="silhouette",
                    choices=["silhouette", "bic", "aic", "gap", "elbow"],
                    help="suggestion rule; bic/aic need --model gmm, gap "

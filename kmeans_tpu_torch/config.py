@@ -32,30 +32,7 @@ from typing import Optional, Tuple
 __all__ = ["KMeansConfig", "ServeConfig", "MeshConfig", "RunConfig",
            "run_config_from_dict", "COLORS", "MAX_CENTROIDS",
            "ROOM_ALPHABET", "ROOM_CODE_LEN", "POS_CLAMP_X", "POS_CLAMP_Y",
-           "clamp_pos", "MODES", "zone_min_height_px", "UNPORTED_FAMILIES",
-           "UNPORTED_ITEMS", "PORTED_FAMILIES", "unported"]
-
-#: The reference's model families the port does not have yet, each with
-#: its ROADMAP item (A9c: the pairwise families): ``cli train --model``,
-#: ``cli sweep --model``, ``sweep_k`` and the board's ``train`` op refuse
-#: them by name.
-UNPORTED_ITEMS = {"kernel": "A9c", "kmedoids": "A9c", "spectral": "A9c"}
-UNPORTED_FAMILIES: Tuple[str, ...] = tuple(UNPORTED_ITEMS)
-
-#: The families the port fits.
-PORTED_FAMILIES: Tuple[str, ...] = (
-    "lloyd", "accelerated", "minibatch", "trimmed", "spherical",
-    "bisecting", "xmeans", "gmeans", "fuzzy", "gmm", "balanced")
-
-
-def unported(family: str) -> Optional[str]:
-    """The one refusal line for a family the port does not have yet,
-    naming its ROADMAP item; None for a family it has."""
-    item = UNPORTED_ITEMS.get(family)
-    if item is None:
-        return None
-    return (f"{family} is not ported yet (ROADMAP {item}); the port fits "
-            f"{', '.join(PORTED_FAMILIES[:-1])} and {PORTED_FAMILIES[-1]}")
+           "clamp_pos", "MODES", "zone_min_height_px"]
 
 # ---------------------------------------------------------------------------
 # The reference's board constants (``kmeans_tpu/config.py``, its values)

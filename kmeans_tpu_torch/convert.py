@@ -7,9 +7,12 @@ back; :func:`trimmed_from_numpy` / :func:`trimmed_to_numpy` do the same
 for a reference ``TrimmedState`` (its ``outlier_mask`` too), and
 :func:`gmm_from_numpy` / :func:`gmm_to_numpy`, :func:`fuzzy_from_numpy`,
 :func:`balanced_from_numpy` and :func:`pca_from_numpy` /
-:func:`pca_to_numpy` for the GMM, fuzzy, balanced and PCA states, so a
-reference fit carried across predicts, soft-predicts and projects the
-same in the port.  A reference
+:func:`pca_to_numpy` for the GMM, fuzzy, balanced and PCA states, and
+:func:`kmedoids_from_numpy` / :func:`kmedoids_to_numpy`,
+:func:`kernel_from_numpy` (with the rows the fit saw) and
+:func:`spectral_from_numpy` (with its embedding) for the pairwise
+families, so a reference fit carried across predicts, soft-predicts,
+assigns and projects the same in the port.  A reference
 ``MiniBatchKMeans``'s state and lifetime counts
 (``_n_seen``) carry on in the port's estimator.  A reference registry
 ``Generation`` (its published fields) becomes a port
@@ -29,13 +32,17 @@ from kmeans_tpu_torch.device import resolve_device
 from kmeans_tpu_torch.models.balanced import BalancedState
 from kmeans_tpu_torch.models.fuzzy import FuzzyState
 from kmeans_tpu_torch.models.gmm import GMMState
+from kmeans_tpu_torch.models.kernel import KernelKMeansState
 from kmeans_tpu_torch.models.lloyd import KMeansState
+from kmeans_tpu_torch.models.medoids import KMedoidsState
+from kmeans_tpu_torch.models.spectral import SpectralState
 from kmeans_tpu_torch.models.trimmed import TrimmedState
 
 __all__ = ["state_from_numpy", "state_to_numpy", "minibatch_from_numpy",
            "trimmed_from_numpy", "trimmed_to_numpy", "gmm_from_numpy",
            "gmm_to_numpy", "fuzzy_from_numpy", "balanced_from_numpy",
-           "pca_from_numpy", "pca_to_numpy",
+           "pca_from_numpy", "pca_to_numpy", "kmedoids_from_numpy",
+           "kmedoids_to_numpy", "kernel_from_numpy", "spectral_from_numpy",
            "generation_from_numpy", "publish_state"]
 
 _DTYPES = {"centroids": np.float32, "labels": np.int32, "inertia": np.float32,
@@ -43,7 +50,9 @@ _DTYPES = {"centroids": np.float32, "labels": np.int32, "inertia": np.float32,
            "outlier_mask": np.bool_, "means": np.float32,
            "covariances": np.float32, "mix_weights": np.float32,
            "log_likelihood": np.float32, "resp_counts": np.float32,
-           "objective": np.float32, "col_masses": np.float32}
+           "objective": np.float32, "col_masses": np.float32,
+           "medoids": np.float32, "medoid_indices": np.int32,
+           "within_mass": np.float32, "embedding": np.float32}
 
 
 def _field(src, name, default=None):
@@ -184,3 +193,43 @@ def publish_state(registry: ModelRegistry, state, *,
         c = c.detach().cpu().numpy()
     return registry.publish(np.asarray(c, np.float32), trigger=trigger,
                             meta=meta, generation=generation)
+
+
+def kmedoids_from_numpy(src, *, device=None) -> KMedoidsState:
+    """A port :class:`~kmeans_tpu_torch.models.medoids.KMedoidsState` on
+    ``device`` (None is the card) from a reference ``KMedoidsState`` or a
+    mapping with its fields: set it as a ``KMedoids``'s ``state`` to
+    ``predict`` with it."""
+    return state_from_numpy(src, device=device, cls=KMedoidsState)
+
+
+def kmedoids_to_numpy(state: KMedoidsState) -> dict:
+    """``{field: numpy array}`` of a port k-medoids state; the reference's
+    ``KMedoidsState(**fields)`` takes it."""
+    return state_to_numpy(state)
+
+
+def kernel_from_numpy(src, x_fit, weights_fit=None, *, device=None):
+    """``(state, x_fit, weights_fit)`` on ``device`` (None is the card) for
+    a port ``KernelKMeans`` to predict as a reference fit does: ``src`` a
+    reference ``KernelKMeansState`` or a mapping with its fields (labels,
+    counts, ``within_mass`` and the rest), ``x_fit`` / ``weights_fit`` the
+    rows (and weights) it was fitted on.  Set them on the estimator::
+
+        est = KernelKMeans(n_clusters=k, kernel="rbf")
+        est.state, est._x_fit, est._w_fit = kernel_from_numpy(st, x)
+    """
+    dev = resolve_device(device)
+    st = state_from_numpy(src, device=dev, cls=KernelKMeansState)
+    x = torch.from_numpy(np.array(x_fit, dtype=np.float32, order="C")).to(dev)
+    w = None if weights_fit is None else torch.from_numpy(
+        np.array(weights_fit, dtype=np.float32, order="C")).to(dev)
+    return st, x, w
+
+
+def spectral_from_numpy(src, *, device=None) -> SpectralState:
+    """A port :class:`~kmeans_tpu_torch.models.spectral.SpectralState` on
+    ``device`` (None is the card) from a reference ``SpectralState`` or a
+    mapping with its fields, the embedding with them: a final k-means on
+    ``state.embedding`` then runs on the reference's embedding."""
+    return state_from_numpy(src, device=device, cls=SpectralState)

@@ -1,21 +1,24 @@
 """Synthetic datasets for tests and benchmarks.
 
-Counterpart of ``kmeans_tpu/data/synthetic.py``: Gaussian blobs made on the
-device from an explicit :class:`torch.Generator`, and the evaluation shapes
-of ``BASELINE.json``.  The draws differ from the reference's (``jax.random``
-and torch generators share no stream), so tests that compare the two
-packages make their data with numpy.
+Counterpart of ``kmeans_tpu/data/synthetic.py``: Gaussian blobs, concentric
+rings and half-moons made on the device from an explicit
+:class:`torch.Generator`, and the evaluation shapes of ``BASELINE.json``.
+The draws differ from the reference's (``jax.random`` and torch
+generators share no stream), so tests that compare the two packages make
+their data with numpy.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple, Union
 
 import torch
 
 from kmeans_tpu_torch.device import as_dtype, resolve_device
 
-__all__ = ["make_blobs", "BENCH_CONFIGS", "bench_config", "generator_for"]
+__all__ = ["make_blobs", "make_rings", "make_moons", "BENCH_CONFIGS",
+           "bench_config", "generator_for"]
 
 #: The evaluation shapes (data is synthetic with matching dimensions):
 #: BASELINE.json's five configs plus ``codebook``, the extreme-k shape.
@@ -76,3 +79,55 @@ def make_blobs(
         noise = torch.randn(e - s, d, generator=gen, device=dev, dtype=f32)
         x[s:e] = centers[labels[s:e]] + noise * cluster_std
     return x, labels.int(), centers
+
+
+def make_rings(
+    generator: Union[int, torch.Generator],
+    n_per: int,
+    *,
+    radii=(1.0, 6.0),
+    noise: float = 0.05,
+    dtype=torch.float32,
+    device=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Concentric 2-D rings, the canonical dataset Euclidean k-means cannot
+    cut (use the kernel or spectral families).  Returns ``(x
+    (len(radii)·n_per, 2), labels int32)`` on ``device`` (None is the
+    card), one label per ring; each ring draws its angles, then its noise."""
+    dev = resolve_device(device)
+    gen = generator_for(generator, dev)
+    f32 = torch.float32
+    parts, labels = [], []
+    for i, r in enumerate(radii):
+        theta = torch.rand(n_per, generator=gen, device=dev,
+                           dtype=f32) * (2.0 * math.pi)
+        pts = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], 1)
+        parts.append(pts + noise * torch.randn(n_per, 2, generator=gen,
+                                               device=dev, dtype=f32))
+        labels.append(torch.full((n_per,), i, dtype=torch.int32, device=dev))
+    return torch.cat(parts).to(as_dtype(dtype)), torch.cat(labels)
+
+
+def make_moons(
+    generator: Union[int, torch.Generator],
+    n_per: int,
+    *,
+    noise: float = 0.05,
+    dtype=torch.float32,
+    device=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two interleaved half-moon crescents (the other canonical non-convex
+    shape).  Returns ``(x (2·n_per, 2), labels int32)`` on ``device``
+    (None is the card)."""
+    dev = resolve_device(device)
+    gen = generator_for(generator, dev)
+    f32 = torch.float32
+    t1 = torch.rand(n_per, generator=gen, device=dev, dtype=f32) * math.pi
+    t2 = torch.rand(n_per, generator=gen, device=dev, dtype=f32) * math.pi
+    m1 = torch.stack([torch.cos(t1), torch.sin(t1)], 1)
+    m2 = torch.stack([1.0 - torch.cos(t2), 0.5 - torch.sin(t2)], 1)
+    x = torch.cat([m1, m2])
+    x = x + noise * torch.randn(x.shape, generator=gen, device=dev, dtype=f32)
+    labels = torch.cat([torch.zeros(n_per, dtype=torch.int32, device=dev),
+                        torch.ones(n_per, dtype=torch.int32, device=dev)])
+    return x.to(as_dtype(dtype)), labels

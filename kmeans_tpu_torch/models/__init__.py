@@ -2,8 +2,10 @@
 step-paced runner, the accelerated fits, minibatch (in memory and streamed
 from the host), trimmed, spherical and bisecting k-means, x-means and
 g-means (automatic k), Gaussian mixtures (in memory and streamed), fuzzy
-c-means, balanced (Sinkhorn) k-means, model selection (k sweeps, the gap
-statistic, BIC / AIC) and the dendrogram merge of fitted centroids."""
+c-means, balanced (Sinkhorn) k-means, the pairwise families (k-medoids,
+kernel k-means with Nyström features, spectral clustering), model
+selection (k sweeps, the gap statistic, BIC / AIC) and the dendrogram
+merge of fitted centroids."""
 
 from kmeans_tpu_torch.models.accelerated import fit_lloyd_accelerated
 from kmeans_tpu_torch.models.balanced import (BalancedKMeans, BalancedState,
@@ -22,13 +24,21 @@ from kmeans_tpu_torch.models.gmm_stream import (fit_gmm_stream,
                                                 gmm_assign_stream)
 from kmeans_tpu_torch.models.hierarchy import (centroid_linkage, cut_linkage,
                                                merge_to_k)
+from kmeans_tpu_torch.models.kernel import (KernelKMeans, KernelKMeansState,
+                                            fit_kernel_kmeans, kernel_assign,
+                                            nystrom_features)
 from kmeans_tpu_torch.models.lloyd import (KMeans, KMeansState, fit_lloyd,
                                            fit_plan)
+from kmeans_tpu_torch.models.medoids import (KMedoids, KMedoidsState,
+                                             fit_kmedoids)
 from kmeans_tpu_torch.models.minibatch import (MiniBatchKMeans, batch_update,
                                                fit_minibatch, nested_ladder)
 from kmeans_tpu_torch.models.runner import IterInfo, LloydRunner
 from kmeans_tpu_torch.models.selection import (gap_statistic, suggest_k,
                                                suggest_k_gap, sweep_k)
+from kmeans_tpu_torch.models.spectral import (SpectralClustering,
+                                              SpectralState, fit_spectral,
+                                              spectral_embedding)
 from kmeans_tpu_torch.models.spherical import (SphericalKMeans,
                                                fit_spherical, normalize_rows)
 from kmeans_tpu_torch.models.streaming import (assign_stream,
@@ -98,4 +108,7 @@ __all__ = ["KMeans", "KMeansState", "fit_lloyd", "fit_plan",
            "fit_gmm_stream", "gmm_assign_stream", "FuzzyState", "fit_fuzzy",
            "FuzzyCMeans", "fuzzy_memberships", "BalancedState",
            "fit_balanced", "BalancedKMeans", "sinkhorn_potentials",
-           "resolve_capacities"]
+           "resolve_capacities", "KernelKMeans", "KernelKMeansState",
+           "fit_kernel_kmeans", "kernel_assign", "nystrom_features",
+           "KMedoids", "KMedoidsState", "fit_kmedoids", "SpectralClustering",
+           "SpectralState", "fit_spectral", "spectral_embedding"]

@@ -18,7 +18,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from kmeans_tpu_torch.config import KMeansConfig, unported
+from kmeans_tpu_torch.config import KMeansConfig
 from kmeans_tpu_torch.device import as_tensor, resolve_device
 
 __all__ = ["sweep_k", "suggest_k", "gap_statistic", "suggest_k_gap"]
@@ -79,10 +79,14 @@ def sweep_k(
     davies_bouldin, calinski_harabasz}`` ("inertia" is each family's
     lower-is-better objective via
     :func:`kmeans_tpu_torch.models.state_objective`; the scores need k ≥
-    2).  GMM rows also carry ``bic`` / ``aic`` (the diag-covariance
-    parameter count), for ``suggest_k(rows, criterion="bic")``.
-    Silhouette is the chunked, sampled implementation.  A family the port
-    does not have yet is refused by name before any fit."""
+    2, and the two center-based ones are absent for the center-free
+    families: ``kernel`` and ``spectral`` rows carry silhouette only).
+    GMM rows also carry ``bic`` / ``aic`` (the diag-covariance parameter
+    count), for ``suggest_k(rows, criterion="bic")``.  Silhouette is the
+    chunked, sampled implementation, scored in the space the family
+    clustered in: spectral rows in their Laplacian embedding.  Avoid
+    ``criterion="elbow"`` on spectral rows (each row's objective lives in
+    another embedding)."""
     import math
 
     import kmeans_tpu_torch.models as models
@@ -93,9 +97,6 @@ def sweep_k(
         raise ValueError(
             f"unknown model {model!r}; have {sorted(_FITTERS)}"
         )
-    refused = unported(model)
-    if refused:
-        raise ValueError(refused)
     fit = getattr(models, _FITTERS[model])
     dev = resolve_device(device)
     gen = generator_for(seed if generator is None else generator, dev)
@@ -123,9 +124,13 @@ def sweep_k(
             row["bic"] = -2.0 * ll + p * math.log(n)
             row["aic"] = -2.0 * ll + 2 * p
         if k >= 2:
+            # Scored in the family's own geometry: spectral labels mean
+            # something in the Laplacian embedding, not in raw x.
+            x_score = getattr(state, "embedding", None)
             row["silhouette"] = float(silhouette_score(
-                x, state.labels, k=int(k), sample_size=silhouette_sample,
-                generator=gen, chunk_size=chunk_size, device=dev))
+                x if x_score is None else x_score, state.labels, k=int(k),
+                sample_size=silhouette_sample, generator=gen,
+                chunk_size=chunk_size, device=dev))
             centers = models.state_centers(state)
             if centers is not None:
                 db, ch = dispersion_scores(x, state.labels, centers,

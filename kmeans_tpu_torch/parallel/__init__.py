@@ -5,8 +5,10 @@ Counterpart of ``kmeans_tpu/parallel``, one process per device over
 ``torch.distributed`` (NCCL on the cards, gloo between CPU processes): the
 Lloyd fit (DP, DP×TP, DP×FP and DP×TP×FP; elastic checkpoints), the DP
 accelerated, trimmed, spherical, minibatch, fuzzy, GMM and balanced
-fits, ``sharded_assign``, sharded k-means|| and the sharded PCA fit.  The
-pairwise families are not ported yet (ROADMAP A9c).
+fits, ``sharded_assign``, sharded k-means|| and the sharded PCA fit, and
+the pairwise families: k-medoids and kernel k-means as ring passes over
+the row blocks (:meth:`Mesh.ring_shift`) and the spectral embedding with
+landmark-sized all-reduces.
 """
 
 from kmeans_tpu_torch.parallel.distributed import (ensure_initialized,
@@ -17,9 +19,12 @@ from kmeans_tpu_torch.parallel.engine import (
     fit_spherical_sharded, fit_trimmed_sharded, pad_and_place,
     sharded_assign)
 from kmeans_tpu_torch.parallel.init_sharded import kmeans_parallel_sharded
+from kmeans_tpu_torch.parallel.kernel import fit_kernel_kmeans_sharded
+from kmeans_tpu_torch.parallel.medoids import fit_kmedoids_sharded
 from kmeans_tpu_torch.parallel.mesh import (Mesh, cpu_mesh, make_mesh,
                                             mesh_from_config)
 from kmeans_tpu_torch.parallel.preprocess import pca_fit_sharded
+from kmeans_tpu_torch.parallel.spectral import spectral_embedding_sharded
 
 __all__ = [
     "ensure_initialized",
@@ -33,6 +38,9 @@ __all__ = [
     "fit_gmm_sharded",
     "fit_balanced_sharded",
     "pca_fit_sharded",
+    "fit_kernel_kmeans_sharded",
+    "fit_kmedoids_sharded",
+    "spectral_embedding_sharded",
     "kmeans_parallel_sharded",
     "pad_and_place",
     "sharded_assign",

@@ -43,8 +43,11 @@ format, so a run cut on one mesh resumes on another, in either package.
 ``center_update="sphere"`` is spherical k-means on every layout
 (:func:`fit_spherical_sharded`): the renormalized direction sum, taken
 from the full-width merged sums (the FP body holds full rows, so the norm
-needs no collective of its own).  The sharded k-medoids, kernel and
-spectral families are not ported yet (ROADMAP A9c).
+needs no collective of its own).  The pairwise families' ring passes
+(:mod:`~kmeans_tpu_torch.parallel.medoids`, :mod:`~kmeans_tpu_torch.
+parallel.kernel`) and the sharded spectral embedding
+(:mod:`~kmeans_tpu_torch.parallel.spectral`) place their rows with
+:func:`_place` and finish under :func:`_soft_fit`.
 """
 
 from __future__ import annotations

@@ -23,7 +23,12 @@ A gloo mesh may also hold CUDA tensors: several ranks sharing one card,
 which NCCL refuses.  Gloo takes card tensors for all three collectives the
 engine uses (``all_reduce`` and the tensor forms of ``reduce_scatter`` and
 ``all_gather``; ``chip_smoke.py`` phase 15 checks it), so no collective is
-staged by hand.  Nothing falls back from NCCL to gloo.
+staged by hand.  The one point-to-point operation, :meth:`Mesh.ring_shift`
+(the reference's ``ppermute`` to ``(s + 1) % dp``, which the pairwise
+families' ring passes take), moves card tensors over NCCL; on gloo it
+stages them through pinned host buffers (gloo's send and receive read
+and write host memory), and ``stats["ring_stage"]`` counts it.  Nothing
+falls back from NCCL to gloo.
 """
 
 from __future__ import annotations
@@ -69,8 +74,9 @@ class Mesh:
     ``group`` is the process group of the mesh, ``rank`` / ``size`` this
     process's place in it, ``device`` its device and ``backend`` the
     group's (``"nccl"`` or ``"gloo"``).  ``stats`` counts the calls and
-    payload bytes (each call's input) of each collective since the last
-    :meth:`reset_stats`; ``split`` is the engine's per-sweep recorder while
+    payload bytes (each call's input) of each collective, and of the ring
+    shifts and their host staging, since the last :meth:`reset_stats`;
+    ``split`` is the engine's per-sweep recorder while
     :func:`~kmeans_tpu_torch.parallel.engine.sweep_split` is active.
     """
 
@@ -142,7 +148,8 @@ class Mesh:
     def reset_stats(self) -> None:
         """Counters of every view of this mesh are the mesh's own."""
         self._root._stats = {op: [0, 0] for op in (
-            "all_reduce", "reduce_scatter", "all_gather")}
+            "all_reduce", "reduce_scatter", "all_gather", "ring_shift",
+            "ring_stage")}
 
     def _count(self, op: str, t: torch.Tensor) -> None:
         s = self.stats[op]
@@ -193,6 +200,36 @@ class Mesh:
         out = torch.empty(shape, dtype=t.dtype, device=t.device)
         _all_gather_tensor(out, t, group=self.group)
         return out
+
+    def ring_shift(self, *ts: torch.Tensor):
+        """Send each of ``ts`` to the next rank of the ring (``(rank + 1) %
+        size``) and return the previous rank's, in one batch of sends and
+        receives.  At size 1 (or in a view of one rank) the identity:
+        nothing is sent or counted.  On gloo, card tensors go through
+        pinned host buffers (counted under ``"ring_stage"``)."""
+        if self.group is None or self.size == 1:
+            return ts
+        stage = self.backend == "gloo" and any(t.is_cuda for t in ts)
+        nxt = dist.get_global_rank(self.group, (self.rank + 1) % self.size)
+        prv = dist.get_global_rank(self.group, (self.rank - 1) % self.size)
+        send = [t.contiguous() for t in ts]
+        if stage:
+            send = [torch.empty(t.shape, dtype=t.dtype,
+                                pin_memory=True).copy_(t) for t in send]
+        recv = [torch.empty_like(t) for t in send]
+        ops = []
+        for tag, (s, r) in enumerate(zip(send, recv)):
+            ops.append(dist.P2POp(dist.isend, s, nxt, self.group, tag))
+            ops.append(dist.P2POp(dist.irecv, r, prv, self.group, tag))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        nbytes = sum(t.numel() * t.element_size() for t in send)
+        for op in ("ring_shift", "ring_stage") if stage else ("ring_shift",):
+            self.stats[op][0] += 1
+            self.stats[op][1] += nbytes
+        if stage:
+            recv = [r.to(t.device) for r, t in zip(recv, ts)]
+        return tuple(recv)
 
     def barrier(self) -> None:
         if self.group is not None:

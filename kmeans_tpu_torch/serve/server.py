@@ -54,9 +54,7 @@ Known differences from the reference:
   pending save are written after the drain.
 * The ``train`` op's data is the port's ``make_blobs`` from a
   :class:`torch.Generator` seeded with ``seed`` (and its k-means++ from
-  ``seed + 1``), not the reference's ``jax.random`` draws.  The families
-  the port does not have yet answer 400 naming their ROADMAP item (A9c),
-  before any other check.
+  ``seed + 1``), not the reference's ``jax.random`` draws.
 """
 
 from __future__ import annotations
@@ -81,8 +79,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from kmeans_tpu_torch import obs
-from kmeans_tpu_torch.config import (MAX_CENTROIDS, UNPORTED_FAMILIES,
-                                     ServeConfig, unported)
+from kmeans_tpu_torch.config import MAX_CENTROIDS, ServeConfig
 from kmeans_tpu_torch.continuous.registry import ModelRegistry
 from kmeans_tpu_torch.device import resolve_device
 from kmeans_tpu_torch.obs import tracing as _tracing
@@ -197,15 +194,23 @@ _TRAIN_FITS = {
     "bisecting": "fit_bisecting",
     "fuzzy": "fit_fuzzy",
     "gmm": "fit_gmm",
+    "kernel": "fit_kernel_kmeans",
+    "kmedoids": "fit_kmedoids",
     "trimmed": "fit_trimmed",   # outliers come back as unassigned cards
     "balanced": "fit_balanced",  # same-size clusters via Sinkhorn OT
+    "spectral": "fit_spectral",  # graph clustering (rings/moons shapes)
     "xmeans": "fit_xmeans",     # k acts as k_max; BIC discovers the k
     "gmeans": "fit_gmeans",     # k_max likewise; Anderson-Darling test
 }
 
+#: k-medoids' medoid update is O(n²·d): the cap on what one request may
+#: demand of the server.
+_KMEDOIDS_MAX_N = 20_000
+
 def _state_k(state) -> int:
-    """The fitted k of a state: its center array's rows, else the length
-    of its per-cluster counts."""
+    """The fitted k of a state: its center array's rows (x-means and
+    g-means return fewer than k_max), else the length of its per-cluster
+    counts (kernel k-means has no input-space centers)."""
     from kmeans_tpu_torch.models import state_centers
 
     centers = state_centers(state)
@@ -938,8 +943,6 @@ class KMeansServer:
         with at most 3 clusters, directly or through the dendrogram merge,
         replaces the room's board as an imported document."""
         model = str(args.get("model", "lloyd"))
-        if model in UNPORTED_FAMILIES:
-            raise ValueError(f"train model {unported(model)}")
         n = min(int(args.get("n", 2000)), 100_000)
         d = min(int(args.get("d", 2)), 512)
         k = min(int(args.get("k", 3)), 100)
@@ -958,6 +961,18 @@ class KMeansServer:
             raise ValueError("trim_fraction must be in [0, 1)")
         if n < k or n < 1 or d < 1 or k < 1:
             raise ValueError("invalid train shape")
+        if model in ("kmedoids", "kernel"):
+            if n > _KMEDOIDS_MAX_N:
+                raise ValueError(
+                    f"{model} is O(n²); n must be <= {_KMEDOIDS_MAX_N} here"
+                )
+            # The work, not just n: the medoid update and the kernel-mass
+            # sweep are O(n²·d·max_iter); 8e10 is the other families'
+            # worst case (n·d = 8e6 × k = 100 × max_iter = 100).
+            if n * n * d * max_iter > 8e10:
+                raise ValueError(
+                    f"{model} work too large: n²·d·max_iter must be <= 8e10"
+                )
         # The data volume one unauthenticated request may demand.
         if n * d > 8_000_000:
             raise ValueError("train shape too large: n*d must be <= 8e6")

@@ -16,10 +16,11 @@ Mirrors the board tests of ``tests/test_server.py`` and the
 * ``auto_assign``'s write-back equals the reference's when the port's
   k-means++ draws are replayed through the reference as ``init=`` (board
   positions as features: tie-free).
-* The ``train`` op's ported families run on the port (``lloyd`` streams
-  an event an iteration, with live centroids at d = 2), fuzzy, gmm and
-  balanced among them, with the reference's balanced work cap; the
-  reference's other families answer 400 naming their ROADMAP item (A9c).
+* The ``train`` op's families run on the port (``lloyd`` streams an event
+  an iteration, with live centroids at d = 2), fuzzy, gmm, balanced and
+  the pairwise kmedoids, kernel and spectral among them, with the
+  reference's work caps (balanced; kmedoids and kernel: n ≤ 20,000 and
+  n²·d·max_iter ≤ 8e10) and its answers to a bad shape.
 * ``stop()`` ends the SSE streams and returns promptly.
 
 The port runs with ``device="cpu"``.  Every server is stopped in teardown,
@@ -48,8 +49,7 @@ import torch
 
 from kmeans_tpu.config import ServeConfig as RefServeConfig
 from kmeans_tpu.serve.server import KMeansServer as RefServer
-from kmeans_tpu_torch.config import (MODES, UNPORTED_FAMILIES, ServeConfig,
-                                     zone_min_height_px)
+from kmeans_tpu_torch.config import MODES, ServeConfig, zone_min_height_px
 from kmeans_tpu_torch.data.synthetic import generator_for
 from kmeans_tpu_torch.models.init import init_centroids
 from kmeans_tpu_torch.serve import server as port_server
@@ -719,14 +719,39 @@ def test_train_one_shot_families_reach_the_board(servers, model, args,
     assert st["unassigned"] == check["unassigned"]
 
 
-@pytest.mark.parametrize("model", UNPORTED_FAMILIES)
-def test_train_unported_families_answer_400_naming_a9(servers, model):
-    s = servers("port")
-    for args in ({"model": model}, {"model": model, "n": 2, "k": 10}):
-        code, out = _mutate(s.base, "UNP", "train", args)
-        assert code == 400 and "ROADMAP A9" in out["error"], out
-        assert len(out["error"].splitlines()) == 1
+@pytest.mark.parametrize("model", ["kmedoids", "kernel", "spectral"])
+def test_train_pairwise_families_reach_the_board(pair, model):
+    """A pairwise family's ``train`` op: a start marker, then
+    ``train_done`` with the fitted k (kernel and spectral carry it in
+    their counts: they have no input-space centers) and the board's
+    cards; a shape below k answers the reference's 400, before any fit."""
+    ref_s, s = pair
+    done = _train(s, "PWF", dict(model=model, n=300, d=2, k=3,
+                                 max_iter=10))
+    assert done["type"] == "train_done" and done["model"] == model, done
+    assert done["k"] == 3 and done["n_iter"] >= 1
+    assert [e["iteration"] for e in done["events"]] == [0]
+    st = json.loads(_call(s.base, "/api/state?room=PWF")[2])
+    assert len(st["cards"]) == 300 and st["unassigned"] == 0
+    assert 1 <= len(st["centroids"]) <= 3
+    bad = {"model": model, "n": 2, "k": 10}
+    got = [_mutate(x.base, "PWB", "train", bad) for x in (ref_s, s)]
+    assert got[0] == got[1] and got[0][0] == 400, got
     assert s._train_inflight == 0
+
+
+@pytest.mark.parametrize("model,args", [
+    ("kmedoids", {"n": 20_001, "d": 1, "max_iter": 1}),
+    ("kernel", {"n": 20_000, "d": 3, "max_iter": 100}),
+    ("kmedoids", {"n": 10_000, "d": 9, "max_iter": 100}),
+])
+def test_train_pairwise_work_cap_is_the_references(pair, model, args):
+    """k-medoids' and kernel k-means' O(n²) cap (n ≤ 20,000, then
+    n²·d·max_iter ≤ 8e10): both servers answer 400 with one error, before
+    any fit."""
+    got = [_mutate(x.base, "CAPP", "train", dict(args, model=model))
+           for x in pair]
+    assert got[0] == got[1] and got[0][0] == 400, got
 
 
 @pytest.mark.parametrize("model", ["xmeans", "gmeans", "balanced"])

@@ -3,10 +3,7 @@
 Each behaviour test of the reference's CLI suite (``tests/test_cli.py``,
 the CLI tests of ``tests/test_obs.py`` and ``tests/test_tracing.py``) runs
 its body once through each package's ``main`` (``side``; the port's with
-``--device cpu`` appended).  Where a body asks for something the port does
-not have yet (a family of ROADMAP A9), the port's side holds the refusal
-instead: exit code 2 and one line naming the queue
-item.  The
+``--device cpu`` appended).  The
 flag guards run through both ``main``s and must give the same exit code and
 the same stderr, line for line.  A fit through both on the same
 well-separated ``--input`` must give result lines with the same keys and
@@ -61,13 +58,6 @@ def _run(side, capsys, argv):
     rc = _main(side)(argv)
     out = capsys.readouterr()
     return rc, out.out, out.err
-
-
-def _refused(err, item):
-    """The port's refusal: one stderr line naming the ROADMAP item."""
-    lines = err.strip().splitlines()
-    return len(lines) == 1 and lines[0].startswith("error: ") \
-        and f"ROADMAP {item}" in lines[0]
 
 
 def _separated(seed, n, d, k, std=0.3):
@@ -162,8 +152,7 @@ def test_train_accel_flag_guards(side, capsys):
     assert rc == 2 and "--anderson-m" in err
     rc, _, err = _run(side, capsys, base + ["--model", "kernel",
                                             "--schedule", "nested"])
-    assert rc == 2
-    assert "--schedule" in err if side == "ref" else _refused(err, "A9")
+    assert rc == 2 and "--schedule" in err
     rc, _, err = _run(side, capsys, base + ["--model", "minibatch",
                                             "--schedule", "nested",
                                             "--steps", "5"])
@@ -505,23 +494,44 @@ def test_export_bytes_equal_the_references(tmp_path, capsys):
     assert open(out, encoding="utf-8").read() == want
 
 
-REFUSED = [
-    (["--stream", "--input", "x.npy", "--model", "kmedoids"], "A9c"),
-    (["--model", "kernel"], "A9c"),
-    (["--model", "spectral"], "A9c"),
-    (["--pca", "1", "--model", "kernel"], "A9c"),
-    (["--whiten", "--model", "spectral"], "A9c"),
+PAIRWISE_LINES = [
+    ["--stream", "--input", "x.npy", "--model", "kmedoids"],
+    ["--model", "kernel"],
+    ["--model", "spectral"],
+    ["--pca", "1", "--model", "kernel"],
+    ["--whiten", "--model", "spectral"],
 ]
 
 
-@pytest.mark.parametrize("extra,item", REFUSED,
-                         ids=[" ".join(e) for e, _ in REFUSED])
-def test_unported_flags_are_refused(extra, item, capsys):
-    rc = port_cli.main(["train", "--n", "100", "--d", "2", "--k", "2"]
-                       + extra)
-    assert rc == 2
-    out = capsys.readouterr()
-    assert out.out == "" and _refused(out.err, item)
+@pytest.mark.parametrize("extra", PAIRWISE_LINES,
+                         ids=[" ".join(e) for e in PAIRWISE_LINES])
+def test_pairwise_train_lines_are_the_references(extra, tmp_path, capsys,
+                                                 monkeypatch):
+    """``train --model kmedoids|kernel|spectral`` on 100 rows: the port's
+    draws replayed through the reference (the spectral fit from the port's
+    embedding), the same exit code and result line (the objective within
+    ``INERTIA_RTOL``); a flag the family cannot take gives the
+    reference's guard line."""
+    from torch_replay import replay_pairwise
+
+    npy = str(tmp_path / "x.npy")
+    np.save(npy, np.round(_separated(47, 100, 2, 2, std=0.4) * 8.0) / 8.0)
+    argv = ["train", "--input", npy, "--k", "2"] + [
+        a for a in extra if a not in ("--input", "x.npy")]
+    family = extra[extra.index("--model") + 1]
+    rc_p, out_p, err_p = replay_pairwise(
+        monkeypatch, family, lambda: _run("port", capsys, argv))
+    rc_r, out_r, err_r = _run("ref", capsys, argv)
+    assert (rc_p or 0) == (rc_r or 0), err_p + err_r
+    if rc_p:
+        assert rc_p == 2 and (out_p, err_p) == (out_r, err_r)
+        return
+    ref, got = json.loads(out_r), json.loads(out_p)
+    assert list(got) == list(ref)
+    same = ("n", "d", "k", "mode", "n_iter", "converged")
+    assert {f: got[f] for f in same} == {f: ref[f] for f in same}
+    np.testing.assert_allclose(got["inertia"], ref["inertia"],
+                               rtol=INERTIA_RTOL)
 
 
 def test_device_defaults_to_the_card(capsys):
@@ -1041,15 +1051,33 @@ def test_sweep_lines_match_the_references(criterion, sweep_npy, capsys,
 
 
 @pytest.mark.parametrize("model", ["kernel", "kmedoids", "spectral"])
-def test_sweep_refuses_the_unported_families(model, capsys):
-    """``sweep --model F`` for a family of A9c: exit 2, one line naming its
-    item, nothing printed on stdout, no fit and no card."""
-    from kmeans_tpu_torch.config import UNPORTED_ITEMS
+def test_sweep_pairwise_lines_match_the_references(model, tmp_path, capsys,
+                                                   monkeypatch):
+    """``sweep --model F`` for the pairwise families: every fit's draws
+    replayed through the reference, the same rows (spectral's silhouette
+    scored in its embedding, the center-free rows without DB / CH) and
+    the same suggestion."""
+    from torch_replay import replay_pairwise
 
-    rc = port_cli.main(["sweep", "--model", model])
-    out = capsys.readouterr()
-    assert rc == 2 and out.out == ""
-    assert _refused(out.err, UNPORTED_ITEMS[model])
+    npy = str(tmp_path / "x.npy")
+    np.save(npy, np.round(_separated(48, 300, 4, 3, std=0.5) * 8.0) / 8.0)
+    argv = ["sweep", "--input", npy, "--k-min", "2", "--k-max", "3",
+            "--model", model, "--max-iter", "20"]
+    rc_p, out_p, err_p = replay_pairwise(
+        monkeypatch, model, lambda: _run("port", capsys, argv))
+    rc_r, out_r, err_r = _run("ref", capsys, argv)
+    assert rc_p == 0 and rc_r in (0, None), err_p + err_r
+    got = [json.loads(ln) for ln in out_p.splitlines()]
+    ref = [json.loads(ln) for ln in out_r.splitlines()]
+    assert [list(r) for r in got] == [list(r) for r in ref]
+    assert got[-1] == ref[-1]
+    for g, r in zip(got[:-1], ref[:-1]):
+        assert (g["k"], g["n_iter"], g["converged"]) == (
+            r["k"], r["n_iter"], r["converged"])
+        for key, want in r.items():
+            if isinstance(want, float):
+                np.testing.assert_allclose(g[key], want, rtol=SWEEP_RTOL,
+                                           atol=SWEEP_ATOL, err_msg=key)
 
 
 # ---------------------------------------------------------------------------

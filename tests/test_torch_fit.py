@@ -246,6 +246,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         " 'gmm_stream', 'fuzzy', 'balanced')]\n"
         "walked += ['kmeans_tpu_torch.data.preprocess',"
         " 'kmeans_tpu_torch.parallel.preprocess']\n"
+        "walked += ['kmeans_tpu_torch.' + m for m in ('models.medoids',"
+        " 'models.kernel', 'models.spectral', 'parallel.medoids',"
+        " 'parallel.kernel', 'parallel.spectral')]\n"
         "bad += [m + ' not walked' for m in walked if m not in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -284,3 +287,36 @@ def test_soft_balanced_and_pca_entry_points_default_to_the_card(tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+PAIRWISE_ENTRIES = {
+    "fit_kmedoids": lambda kt, x: kt.fit_kmedoids(x, 3, init=[0, 1, 2]),
+    "KMedoids": lambda kt, x: kt.KMedoids(n_clusters=3).fit(x),
+    "fit_kernel_kmeans": lambda kt, x: kt.fit_kernel_kmeans(x, 3),
+    "KernelKMeans": lambda kt, x: kt.KernelKMeans(n_clusters=3).fit(x),
+    "kernel_assign": lambda kt, x: kt.models.kernel_assign(
+        x, x, np.zeros(len(x), np.int32), k=3),
+    "nystrom_features": lambda kt, x: kt.models.nystrom_features(x, 8),
+    "spectral_embedding": lambda kt, x: kt.models.spectral_embedding(x, 3),
+    "fit_spectral": lambda kt, x: kt.fit_spectral(x, 3),
+    "SpectralClustering": lambda kt, x: kt.SpectralClustering(
+        n_clusters=3).fit(x),
+    "make_rings": lambda kt, x: kt.data.make_rings(0, 10),
+    "make_moons": lambda kt, x: kt.data.make_moons(0, 10),
+}
+
+
+@pytest.mark.parametrize("entry", list(PAIRWISE_ENTRIES))
+def test_pairwise_entry_points_default_to_the_card(entry):
+    """The pairwise families and the rings / moons generators run on the
+    card unless the caller passes ``device="cpu"``: without a card each
+    raises, with no quiet fallback to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    import kmeans_tpu_torch as kt
+    import kmeans_tpu_torch.data  # noqa: F401
+    import kmeans_tpu_torch.models  # noqa: F401
+
+    x, _ = _problem()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PAIRWISE_ENTRIES[entry](kt, x[:60])

@@ -35,6 +35,7 @@ from kmeans_tpu.parallel import engine as ref_engine  # noqa: E402
 from kmeans_tpu.parallel import make_mesh as ref_make_mesh  # noqa: E402
 from kmeans_tpu.parallel import sharded_assign as ref_sharded_assign  # noqa
 import kmeans_tpu_torch.parallel as port_parallel  # noqa: E402
+from kmeans_tpu_torch.config import KMeansConfig as kt_config  # noqa: E402
 from kmeans_tpu_torch.models import init as port_init  # noqa: E402
 from kmeans_tpu_torch.models.minibatch import (apply_batch_stats,  # noqa
                                                batch_stats)
@@ -78,6 +79,28 @@ XK, _ = _blobs(5, 1001, 16, 5, std=0.3, spread=10.0)
 # Stationary minibatch (the reference's l.881-935): separated blobs, the
 # true centres as the shared init.
 XST, CST = _blobs(13, 4003, 10, 5, std=0.2)
+# The pairwise families' ring passes: 601 rows (one padding row at dp 2,
+# three at dp 4), explicit medoid indices, labels and landmarks; a
+# seventh of the weights 0 in the weighted cases.
+# The rows lie on a 1/8 grid, where every distance product is exact in f32
+# (see ``tests/test_torch_medoids.py``).
+XP = np.round(_blobs(21, 601, 8, 4, std=0.6, spread=4.0)[0] * 8.0) / 8.0
+IDX0 = np.array([0, 1, 2, 3], np.int32)
+LAB0 = np.random.default_rng(22).integers(0, 4, 601).astype(np.int32)
+WP = np.random.default_rng(23).uniform(0.5, 1.5, 601).astype(np.float32)
+WP[::7] = 0.0
+LP = XP[::19][:32].copy()
+PCFG = dict(k=4, chunk_size=64)
+#: name → (family, fit kwargs), each held to the reference's ring fit of
+#: the same dp and to the port's single-device fit.
+PAIRWISE = {
+    "kmedoids": ("kmedoids", dict(init=IDX0)),
+    "kmedoids weighted": ("kmedoids", dict(init=IDX0, weights=WP,
+                                           metric="sqeuclidean")),
+    "kernel rbf": ("kernel", dict(init=LAB0)),
+    "kernel linear weighted": ("kernel", dict(init=LAB0, weights=WP,
+                                              kernel="linear")),
+}
 
 
 def _fit_kw(k, **cfg):
@@ -167,6 +190,19 @@ def _cases():
                   dict(x=X, init=C0, k=5, weights=W_FRAC[:10])))
     cases.append(("guard resume without dir", "fit",
                   dict(x=X, init=C0, k=5, resume=True)))
+    for name, (family, kw) in PAIRWISE.items():
+        cases.append((f"pairwise {name}", "pairwise", dict(
+            family=family, x=XP, k=4, config=PCFG, max_iter=20, **kw)))
+    for family in ("kmedoids", "kernel"):
+        cases.append((f"pairwise {family} seeded", "pairwise", dict(
+            family=family, x=XP, k=4, max_iter=20,
+            config=dict(PCFG, seed=3))))
+    cases.append(("kernel pads", "kernel_pads", dict(
+        x=XP, k=4, labels0=LAB0, max_iter=20)))
+    cases.append(("spectral", "spectral", dict(x=XP, k=4, landmarks=LP,
+                                                chunk_size=64)))
+    cases.append(("spectral fit", "spectral_fit", dict(
+        x=XP, k=4, n_landmarks=48, config=dict(PCFG, seed=5))))
     return cases
 
 
@@ -596,7 +632,8 @@ def test_package_surface():
                  "fit_lloyd_accelerated_sharded", "fit_trimmed_sharded",
                  "sharded_assign", "kmeans_parallel_sharded", "make_mesh",
                  "cpu_mesh", "mesh_from_config", "ensure_initialized",
-                 "process_info"):
+                 "process_info", "fit_kmedoids_sharded",
+                 "fit_kernel_kmeans_sharded", "spectral_embedding_sharded"):
         assert hasattr(port_parallel, name), name
 
 
@@ -614,3 +651,159 @@ def test_sweep_split_records_each_part(worlds, comm, parts):
         assert all(host >= 0.0 and dev is None
                    for host, dev in sweep.values())
 
+
+
+# ---------------------------------------------------------------------------
+# The pairwise families' ring passes and the sharded spectral embedding
+# ---------------------------------------------------------------------------
+
+def _ref_pairwise(mesh, family, **kw):
+    from kmeans_tpu.parallel import (fit_kernel_kmeans_sharded,
+                                     fit_kmedoids_sharded)
+
+    fit = {"kmedoids": fit_kmedoids_sharded,
+           "kernel": fit_kernel_kmeans_sharded}[family]
+    kw = dict(kw)
+    if "init" in kw:
+        kw["init"] = jnp.asarray(kw["init"])
+    return fit(XP, 4, mesh=mesh, config=RefConfig(**PCFG), max_iter=20,
+               **kw)
+
+
+def _assert_pairwise(got, want, family):
+    """Medoid indices / labels equal (tie-free blobs), floats to RTOL."""
+    _ok(got)
+    np.testing.assert_array_equal(got["labels"], np.asarray(want.labels))
+    assert got["n_iter"] == int(want.n_iter)
+    assert got["converged"] == bool(want.converged)
+    if family == "kmedoids":
+        np.testing.assert_array_equal(got["medoid_indices"],
+                                      np.asarray(want.medoid_indices))
+        np.testing.assert_array_equal(got["medoids"],
+                                      np.asarray(want.medoids))
+        np.testing.assert_allclose(got["inertia"], float(want.inertia),
+                                   rtol=RTOL)
+    else:
+        np.testing.assert_allclose(got["objective"], float(want.objective),
+                                   rtol=RTOL)
+        np.testing.assert_allclose(got["counts"], np.asarray(want.counts),
+                                   rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got["within_mass"],
+                                   np.asarray(want.within_mass), rtol=1e-4)
+
+
+@pytest.mark.parametrize("dp", DPS)
+@pytest.mark.parametrize("name", list(PAIRWISE))
+def test_pairwise_ring_matches_the_reference(worlds, ref_meshes, dp, name):
+    """k-medoids and kernel k-means as ring passes against the reference's
+    ring fits of the same dp (RTOL on the floats: the two packages sum
+    the ring steps' f32 terms in other orders)."""
+    family, kw = PAIRWISE[name]
+    _assert_pairwise(worlds[dp][f"pairwise {name}"],
+                     _ref_pairwise(ref_meshes[dp], family, **kw), family)
+
+
+@pytest.mark.parametrize("dp", DPS)
+@pytest.mark.parametrize("name", list(PAIRWISE))
+def test_pairwise_ring_is_the_single_device_fit(worlds, dp, name):
+    """The ring fit against the port's single-device fit (a ring of one),
+    and the ring's traffic: dp − 1 shifts a sweep of the O(n²) pass, and
+    the all-reduces of each family's step (k-medoids: the medoid rows and
+    two MINs an iteration, then the rows and the inertia; kernel: (N, T)
+    and the changed count an iteration, then (N, T) and the objective)."""
+    import kmeans_tpu_torch.models as port_models
+
+    family, kw = PAIRWISE[name]
+    got = _ok(worlds[dp][f"pairwise {name}"])
+    fit = {"kmedoids": port_models.fit_kmedoids,
+           "kernel": port_models.fit_kernel_kmeans}[family]
+    one = fit(XP, 4, config=kt_config(**PCFG), max_iter=20, device="cpu",
+              **kw)
+    _assert_pairwise(got, one, family)
+    it = got["n_iter"]
+    if family == "kmedoids":
+        assert got["ring_shifts"] == (dp - 1) * it
+        assert got["all_reduces"] == 3 * it + 2
+    else:
+        assert got["ring_shifts"] == (dp - 1) * (it + 1)
+        assert got["all_reduces"] == 2 * it + 2
+
+
+@pytest.mark.parametrize("dp", DPS)
+@pytest.mark.parametrize("family", ["kmedoids", "kernel"])
+def test_seeded_pairwise_ring_is_the_single_device_fit(worlds, dp, family):
+    """Seeded from ``config.seed`` (the D-sampling of medoid rows, or
+    k-means++ and K1 for the kernel labels): the sharded seeding draws
+    what one device draws, so the fit is the single-device one."""
+    import kmeans_tpu_torch.models as port_models
+
+    got = _ok(worlds[dp][f"pairwise {family} seeded"])
+    fit = {"kmedoids": port_models.fit_kmedoids,
+           "kernel": port_models.fit_kernel_kmeans}[family]
+    one = fit(XP, 4, config=kt_config(**PCFG, seed=3), max_iter=20,
+              device="cpu")
+    _assert_pairwise(got, one, family)
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_kernel_ring_pins_padding_rows_to_label_0(worlds, dp):
+    """The padding rows of the last block (global index ≥ n) stay at label
+    0 through every pass, so they never count as changed."""
+    got = _ok(worlds[dp]["kernel pads"])
+    pad = (-601) % dp
+    assert got["labels"].shape == (601 + pad,)
+    assert pad and np.all(got["labels"][601:] == 0)
+    np.testing.assert_array_equal(
+        got["labels"][:601], _ok(worlds[dp]["pairwise kernel rbf"])[
+            "labels"])
+
+
+def _projector(u):
+    u = np.asarray(u, np.float64)
+    return u @ u.T
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_spectral_embedding_sharded_matches_the_reference(worlds, ref_meshes,
+                                                          dp):
+    """The sharded embedding from explicit landmarks: its projector U Uᵀ
+    (free of the eigenvectors' signs and of turns in a degenerate pair)
+    against the reference's sharded embedding and the port's one device,
+    within 1e-5; every rank's ``eigh`` gave the same eigenvectors, bit for
+    bit, and every row has norm 1."""
+    from kmeans_tpu.parallel import spectral_embedding_sharded as ref_embed
+
+    from kmeans_tpu_torch.models import spectral_embedding
+
+    got = _ok(worlds[dp]["spectral"])
+    emb = got["embedding"]
+    assert emb.shape == (601, 4)
+    np.testing.assert_allclose(np.linalg.norm(emb, axis=1), 1.0, atol=1e-6)
+    want = np.asarray(ref_embed(XP, 4, mesh=ref_meshes[dp],
+                                landmarks=jnp.asarray(LP)))
+    np.testing.assert_allclose(_projector(emb), _projector(want), atol=1e-5)
+    one = spectral_embedding(XP, 4, landmarks=LP, chunk_size=64,
+                             device="cpu").numpy()
+    np.testing.assert_allclose(_projector(emb), _projector(one), atol=1e-5)
+    bases = got["bases"]
+    assert bases.shape == (dp, 32, 4)
+    for r in range(1, dp):
+        np.testing.assert_array_equal(bases[r], bases[0])
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_fit_spectral_on_the_mesh_is_the_single_device_fit(worlds, dp):
+    """``fit_spectral(mesh=)`` draws the single-device landmarks and
+    seeding: the same partition (labels up to a permutation), the
+    embedding up to rotation."""
+    from kmeans_tpu_torch.metrics import adjusted_rand_index
+    from kmeans_tpu_torch.models import fit_spectral
+
+    got = _ok(worlds[dp]["spectral fit"])
+    one = fit_spectral(XP, 4, n_landmarks=48, config=kt_config(**PCFG,
+                                                               seed=5),
+                       device="cpu")
+    assert float(adjusted_rand_index(got["labels"], one.labels.numpy(),
+                                     device="cpu")) == 1.0
+    np.testing.assert_allclose(_projector(got["embedding"]),
+                               _projector(one.embedding.numpy()), atol=1e-5)

@@ -12,8 +12,9 @@ Calinski–Harabasz to ``SCORE_RTOL`` (1e-4: taken at centroids that agree
 to 1e-5, which DB's centroid distances amplify), and the gap rows' logs to
 1e-5 absolute.  The soft families' sweeps (GMM rows with ``bic`` /
 ``aic``) replay the port's starts through ``resolve_fit_inputs``.  The
-``suggest_*`` rules are host arithmetic and must pick the same k.  A family the port does not have yet is refused by name before
-any fit.
+``suggest_*`` rules are host arithmetic and must pick the same k.  The
+pairwise families' sweeps replay the port's starting medoids, starting
+labels or spectral embedding and start (``torch_replay.replay_pairwise``).
 """
 
 import numpy as np
@@ -26,7 +27,6 @@ from kmeans_tpu.models import suggest_k_gap as ref_suggest_k_gap
 from kmeans_tpu.models import sweep_k as ref_sweep_k
 import kmeans_tpu_torch.models as port_models
 from kmeans_tpu_torch import metrics as port_metrics
-from kmeans_tpu_torch.config import UNPORTED_ITEMS
 from kmeans_tpu_torch.models import (gap_statistic, suggest_k, suggest_k_gap,
                                      sweep_k)
 from kmeans_tpu_torch.models import selection as port_selection
@@ -193,20 +193,28 @@ def test_suggest_rules_refuse_as_the_reference():
     assert suggest_k_gap(gaps) == ref_suggest_k_gap(gaps) == 4
 
 
-@pytest.mark.parametrize("model", sorted(UNPORTED_ITEMS))
-def test_unported_families_are_refused_before_any_fit(monkeypatch, model):
-    """``sweep_k`` refuses each family of A9b / A9c by name, one line, and
-    fits nothing first."""
-    def boom(*a, **kw):
-        raise AssertionError("a fit ran")
+@pytest.mark.parametrize("model", ["kernel", "kmedoids", "spectral"])
+def test_pairwise_sweeps_match_the_reference(monkeypatch, model):
+    """A k-medoids, kernel or spectral sweep from the port's draws replayed
+    through the reference: the reference's rows (spectral's silhouette in
+    its embedding; the center-free kernel and spectral rows without DB /
+    CH) and the same suggestion.  The rows lie on a 1/8 grid, where the
+    medoid costs are exact products."""
+    from torch_replay import replay_pairwise
 
-    monkeypatch.setattr(port_models, "fit_lloyd", boom)
-    with pytest.raises(ValueError) as e:
-        sweep_k(_blobs(2, n=40), [2, 3], model=model, device=CPU)
-    msg = str(e.value)
-    assert len(msg.splitlines()) == 1
-    assert msg.startswith(f"{model} is not ported yet (ROADMAP "
-                          f"{UNPORTED_ITEMS[model]})")
+    x = np.round(_blobs(7, n=300, d=4, k=3) * 8.0) / 8.0
+    got = replay_pairwise(monkeypatch, model, lambda: sweep_k(
+        x, [2, 3], model=model, seed=3, max_iter=30, chunk_size=128,
+        device=CPU))
+    want = ref_sweep_k(x, [2, 3], model=model, seed=3, max_iter=30,
+                       chunk_size=128)
+    _rows_close(got, want, x)
+    for g, w in zip(got, want):
+        for key in set(w) - {"k", "n_iter", "converged", "inertia"}:
+            np.testing.assert_allclose(g[key], w[key], rtol=SCORE_RTOL,
+                                       err_msg=key)
+    assert ("davies_bouldin" in got[0]) == (model == "kmedoids")
+    assert suggest_k(got) == ref_suggest_k(want)
 
 
 def test_selection_guards_match_the_reference():

@@ -1,9 +1,10 @@
 """The port's sharded accelerated, trimmed, streamed and spherical fits
 against the JAX package's, on the CPU, the families that run their inner
 fits on the mesh (bisecting, x-means, g-means, and ``cli train --mesh``
-for the four of them), the sharded soft, balanced and projected fits
-(fuzzy, GMM, balanced, PCA and the streamed GMM), and the placement that
-keeps each rank to its rows.
+for the four of them, the soft families and the pairwise ones: the
+k-medoids and kernel ring passes and the sharded spectral fit), the
+sharded soft, balanced and projected fits (fuzzy, GMM, balanced, PCA and
+the streamed GMM), and the placement that keeps each rank to its rows.
 
 One gloo world of four CPU processes (``tests/torch_mesh_worker.py``) runs
 every case once (dp 4: every problem's rows pad, and the trimmed budget
@@ -56,6 +57,7 @@ DPS = (4,)
 MAX_ITER = 25
 SOFT_RTOL = 1e-4
 SOFT_ATOL = 1e-4
+SPECTRAL_INERTIA_ATOL = 1e-4
 
 
 def _blobs(seed, n, d, k, std=0.5, spread=3.0):
@@ -123,7 +125,8 @@ FAMILIES = {"bisecting": (5, dict(k=5, seed=3)),
 CLI_BASE = ["train", "--n", "1500", "--d", "6", "--seed", "2", "--device",
             "cpu", "--max-iter", "30"]
 CLI_FAMILIES = {"spherical": "4", "bisecting": "4", "xmeans": "8",
-                "gmeans": "8", "fuzzy": "4", "gmm": "4"}
+                "gmeans": "8", "fuzzy": "4", "gmm": "4", "kmedoids": "4",
+                "kernel": "4"}
 # The soft and balanced families: unequal blobs (balancing moves rows),
 # n = 1001 uneven for dp 4, a third of the weights 0 in one case.
 XSB = _blobs(19, 1001, 6, 4, std=0.6, spread=4.0)
@@ -222,7 +225,7 @@ def _cases(stream_path, tmp):
     cases.append(("gmm stream", "gmm_stream", dict(
         path=stream_path, k=5, init=CS, config=dict(k=5, chunk_size=512),
         **STREAM_KW)))
-    for family, k in CLI_FAMILIES.items():
+    for family, k in dict(CLI_FAMILIES, spectral="4").items():
         cases.append((f"cli {family}", "cli", dict(argv=CLI_BASE + [
             "--model", family, "--k", k, "--mesh", str(DPS[0])])))
     return cases
@@ -607,6 +610,29 @@ def test_train_mesh_families_print_the_one_device_line(worlds, dp, family,
     assert {f: two[f] for f in same} == {f: one[f] for f in same}
     assert sorted(set(two) - {"mesh"}) == sorted(one)
     np.testing.assert_allclose(two["inertia"], one["inertia"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("dp", DPS)
+def test_train_mesh_spectral_prints_the_one_device_line(worlds, dp, capsys):
+    """``cli train --model spectral --mesh N``: the sharded embedding (its
+    two landmark-sized all-reduces) and the engine's k-means print the
+    ``--mesh 1`` line.  The embedding-space inertia of four separated
+    blobs is near 0 (each blob collapses to one point of the embedding),
+    where the all-reduces' f32 order moves it in absolute terms: held to
+    SPECTRAL_INERTIA_ATOL (1e-4, on 1500 unit-norm rows)."""
+    from kmeans_tpu_torch import cli as port_cli
+
+    res = _ok(worlds[dp]["cli spectral"])
+    assert res["rc"] == 0, res["err"]
+    two = json.loads(res["out"].strip().splitlines()[-1])
+    assert port_cli.main(CLI_BASE + ["--model", "spectral", "--k", "4"]) == 0
+    one = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert two["mesh"] == dp and "mesh" not in one
+    same = ("n", "d", "k", "n_iter", "mode", "converged")
+    assert {f: two[f] for f in same} == {f: one[f] for f in same}
+    assert sorted(set(two) - {"mesh"}) == sorted(one)
+    np.testing.assert_allclose(two["inertia"], one["inertia"],
+                               atol=SPECTRAL_INERTIA_ATOL)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ from one explicit init (centroids and ``n_seen`` to rtol 1e-5, labels
 exact on separated blobs, inertia allclose, for every ``transfer_dtype``),
 checkpoints written by either package and resumed by the other, the resume
 refusals (the same messages), ``assign_stream`` and ``cli train --stream``
-(the same guard lines; the pairwise families refused naming A9c), with
+(the same guard lines, the pairwise families' included), with
 ``--model gmm`` the streamed mixture's result line (its seeding replayed
 through the reference) and its checkpoints resumed across the packages.
 The port runs with ``device="cpu"``: the kernels' plain versions.
@@ -623,14 +623,22 @@ def test_cli_stream_guard_lines_equal_the_reference(case, tmp_path, npy,
     assert got[0][0] == 2 and got[0] == got[1]
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--model", "kernel"], "A9"),
-    (["--model", "kmedoids", "--mesh", "2", "--device", "cpu"], "A9"),
-    (["--model", "spectral", "--mesh", "4"], "A9")])
-def test_cli_stream_refusals_name_the_queue_item(extra, item, npy, capsys):
-    rc = port_cli.main(["train", "--stream", "--input", npy] + extra)
-    err = capsys.readouterr().err.strip().splitlines()
-    assert rc == 2 and len(err) == 1 and f"ROADMAP {item}" in err[0]
+@pytest.mark.parametrize("extra", [
+    ["--model", "kernel"], ["--model", "kmedoids", "--mesh", "2"],
+    ["--model", "spectral", "--mesh", "4"]],
+    ids=["kernel", "kmedoids-mesh", "spectral-mesh"])
+def test_cli_stream_pairwise_families_give_the_references_guard(extra, npy,
+                                                                capsys):
+    """``--stream`` with a pairwise family (on a mesh too): the
+    reference's stream guard, exit 2 and the same stderr, before any mesh
+    starts."""
+    got = []
+    for side in SIDES:
+        rc = _main(side)(["train", "--stream", "--input", npy] + extra)
+        out = capsys.readouterr()
+        got.append((rc, out.out, out.err))
+    assert got[0][0] == 2 and got[0] == got[1]
+    assert len(got[1][2].strip().splitlines()) == 1
 
 
 def test_cli_stream_result_lines_agree(npy, capsys):

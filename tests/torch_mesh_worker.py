@@ -168,6 +168,79 @@ def op_soft(mesh, family, x, k, config=None, **kw):
     return out
 
 
+def op_pairwise(mesh, family, x, k, config=None, **kw):
+    """``fit_kmedoids_sharded`` / ``fit_kernel_kmeans_sharded`` (the ring
+    passes): the state's fields as numpy, and the ring shifts and
+    all-reduces of the fit."""
+    import torch
+
+    from kmeans_tpu_torch import parallel
+
+    fit = {"kmedoids": parallel.fit_kmedoids_sharded,
+           "kernel": parallel.fit_kernel_kmeans_sharded}[family]
+    mesh.reset_stats()
+    st = fit(x, k, mesh=mesh, config=_cfg(config), **kw)
+    out = {name: _np(v) if isinstance(v, torch.Tensor) else v
+           for name, v in st._asdict().items()}
+    out["ring_shifts"] = mesh.stats["ring_shift"][0]
+    out["all_reduces"] = mesh.stats["all_reduce"][0]
+    return out
+
+
+def op_kernel_pads(mesh, x, k, labels0, max_iter):
+    """The ring loop of kernel k-means on the placed rows, its labels
+    gathered with the padding rows kept."""
+    import torch
+
+    from kmeans_tpu_torch.models.kernel import _kernel_loop
+    from kmeans_tpu_torch.parallel.engine import _place
+
+    x_loc, w_loc, _, n = _place(x, mesh, "data")
+    n_loc = x_loc.shape[0]
+    lo = mesh.rank * n_loc
+    real = (lo + torch.arange(n_loc)) < n
+    lab0 = torch.zeros(n_loc, dtype=torch.int32)
+    lab0[:max(min(n - lo, n_loc), 0)] = torch.from_numpy(
+        labels0[lo:lo + n_loc])
+    st = _kernel_loop(x_loc, lab0, w_loc, k=k, max_iter=max_iter,
+                      chunk_size=64, compute_dtype=None, kernel="rbf",
+                      gamma=1.0 / x.shape[1], degree=3, coef0=1.0, mesh=mesh,
+                      real=real)
+    return {"labels": _np(mesh.all_gather(st.labels)),
+            "n_iter": int(st.n_iter)}
+
+
+def op_spectral(mesh, x, k, landmarks, chunk_size):
+    """``spectral_embedding_sharded``: the embedding; and every rank's top
+    eigenvectors of the Gram, all-gathered, from the embedding's row math
+    on the rank's placed rows."""
+    import torch
+
+    from kmeans_tpu_torch.models.spectral import embed_rows, landmark_ops
+    from kmeans_tpu_torch.parallel import spectral_embedding_sharded
+    from kmeans_tpu_torch.parallel.engine import _place
+
+    emb = spectral_embedding_sharded(x, k, mesh=mesh, landmarks=landmarks,
+                                     chunk_size=chunk_size)
+    gamma = 1.0 / x.shape[1]
+    ops = landmark_ops(torch.from_numpy(landmarks), gamma=gamma, degree=3,
+                       coef0=1.0, reg=1e-4)
+    x_loc, w_loc, _, _ = _place(x, mesh, "data")
+    _, v = embed_rows(x_loc, (w_loc > 0).float(), ops, k=k, gamma=gamma,
+                      cd=torch.float32, chunk_size=chunk_size, mesh=mesh)
+    return {"embedding": _np(emb),
+            "bases": _np(mesh.all_gather(v[None].contiguous()))}
+
+
+def op_spectral_fit(mesh, x, k, config=None, **kw):
+    """``fit_spectral(mesh=)``: labels, embedding and the k-means' result."""
+    from kmeans_tpu_torch.models import fit_spectral
+
+    st = fit_spectral(x, k, mesh=mesh, config=_cfg(config), **kw)
+    return {"labels": _np(st.labels), "embedding": _np(st.embedding),
+            "inertia": float(st.inertia), "n_iter": int(st.n_iter)}
+
+
 def op_pca(mesh, x, n_components, **kw):
     from kmeans_tpu_torch.parallel import pca_fit_sharded
 

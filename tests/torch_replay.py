@@ -1,7 +1,8 @@
 """Replaying the port's draws through the JAX package, for the tests of the
 families that seed their own inner fits (bisecting, x-means, g-means,
-``sweep_k``, ``gap_statistic``) and of the soft and balanced families'
-restarts and sweeps (each fit's seeding, through ``resolve_fit_inputs``).
+``sweep_k``, ``gap_statistic``), of the soft and balanced families'
+restarts and sweeps (each fit's seeding, through ``resolve_fit_inputs``)
+and of the pairwise families (:func:`replay_pairwise`).
 
 The port draws from a :class:`torch.Generator` and the reference from
 ``jax.random`` keys, so their k-means++ starts and samples differ.  A test
@@ -128,3 +129,37 @@ def replay_fit_inputs(monkeypatch, module, inits):
 
     monkeypatch.setattr(module, "resolve_fit_inputs", resolve)
     return lambda: used[0]
+
+
+def replay_pairwise(monkeypatch, family, run_port):
+    """Run ``run_port`` with the port's draws of a pairwise family recorded
+    (k-medoids' starting indices, kernel k-means' starting labels, or the
+    spectral embedding and its k-means start), then have the reference's
+    fits start from them, call for call; returns ``run_port()``.  The
+    spectral embedding is replayed whole: it is unique only up to a
+    rotation, and a start is a start only in its own basis."""
+    import jax.numpy as jnp
+
+    import kmeans_tpu.models.kernel as ref_kernel
+    import kmeans_tpu.models.medoids as ref_medoids
+    import kmeans_tpu.models.spectral as ref_spectral
+    import kmeans_tpu_torch.models.kernel as port_kernel
+    import kmeans_tpu_torch.models.medoids as port_medoids
+    import kmeans_tpu_torch.models.spectral as port_spectral
+
+    name, port_mod, ref_mod = {
+        "kmedoids": ("resolve_medoid_init", port_medoids, ref_medoids),
+        "kernel": ("_resolve_labels0", port_kernel, ref_kernel),
+        "spectral": ("spectral_embedding", port_spectral, ref_spectral),
+    }[family]
+    drawn, inits = [], []
+    with monkeypatch.context() as m:
+        record_calls(m, port_mod, name, drawn)
+        if family == "spectral":
+            record_fit_lloyd(m, port_spectral, inits)
+        out = run_port()
+    it = iter(drawn)
+    monkeypatch.setattr(ref_mod, name, lambda *a, **kw: jnp.asarray(next(it)))
+    if family == "spectral":
+        replay_fit_lloyd(monkeypatch, ref_spectral, inits)
+    return out
