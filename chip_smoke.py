@@ -35,7 +35,11 @@ report, exiting non-zero if any fails:
    bit), and ties on either side of a slice edge; the fold core (K6 single
    and dual, K3, K1's fold) at d in {64, 100, 300, 2048, 4104}, k in
    {1, 3, 7, 1000}, f32 and bf16, every row on one label: equal bit for
-   bit to ``fold_core_plain``, to a second launch and to each other; the
+   bit to ``fold_core_plain``, to a second launch and to each other; K2's
+   and K4's delta (the fold core's dual fold over the changed rows) in
+   every case equal bit for bit to ``fold_core_plain`` over
+   ``delta_fold_weights``, and a second launch of each equal to the first
+   in every output; the
    sharded TP body's hooks at TP_HOOK_CASES (the Hopper core in bf16 and
    on its f32 route, and ``score_block``): K1 and K5 in raw-score mode on
    two k-slices with ``valid_cols`` masking the last columns, the two
@@ -49,7 +53,8 @@ report, exiting non-zero if any fails:
    delta sweep's refresh branch (``delta_pass(force_full=True)``) and the
    default entry point ``KMeans(compute_dtype="bfloat16")`` with
    ``update="auto"`` (48 sweeps, so the yinyang probe at sweep 16 and its
-   judgment at sweep 32 run); 20 hand-driven ``hamerly_pass`` and 20
+   judgment at sweep 32 run), run twice: the same centroids, labels,
+   sweeps and counters bit for bit; 20 hand-driven ``hamerly_pass`` and 20
    ``yinyang_pass`` sweeps, each held against K1 at the same centroids
    (every label that differs must be a tie); then each kernel at that
    shape against its plain version, its time beside its bound, the plain
@@ -214,9 +219,10 @@ report, exiting non-zero if any fails:
    --continuous-cli SPEC``, which times the pipeline's pieces: an initial,
    a drift and a scheduled refit and a compaction; the kill drills at the
    second refit's site and at the second publish's swap, each resumed,
-   with its RTO, the same generations and triggers and the final one
-   within CONT_FINAL_RTOL in inertia (beside two undisturbed runs'
-   spread); then ``cli serve
+   with its RTO, the same generations and triggers and the final
+   generation's centroids, as each process published them, within
+   CONT_RESUME_TOL of the undisturbed run's, whose every generation a
+   second undisturbed run, the serve run, gives bit for bit); then ``cli serve
    --model-dir D`` beside a second run, CONT_CLIENTS keep-alive clients, a
    reload after each generation line, every response held to K5's labels
    of its generation, no 503 and no drop);
@@ -254,7 +260,7 @@ report, exiting non-zero if any fails:
    (ELASTIC_SWEEPS sweeps at ``ckpt_every`` ELASTIC_EVERY, matmul and
    delta, uninterrupted here, then cut by SIGTERM at the second boundary
    and resumed, each in a child process, ``chip_smoke.py --elastic-rank
-   SPEC``: matmul bit for bit, delta within FIT_INERTIA_RTOL and ties;
+   SPEC``: matmul and delta bit for bit;
    the seconds a bundle and the restart); TP×FP on four gloo ranks at
    TPFP_SHAPE (held, not timed; the cut children, this world and
    train-mesh's CPU processes start with the phase, beside the in-process
@@ -389,7 +395,10 @@ kernels build at their first call), so it also splits an older tree's K6.
 ``python3 chip_smoke.py --f32-bench`` runs phase 1 and
 :func:`phase_f32_bench` only (the f32-compute kernels at the serving and
 headline shapes beside the library), so a copy of this script run in an
-older checkout times that tree's f32 route in the same call.
+older checkout times that tree's f32 route in the same call;
+``--delta-bench`` runs phase 1 and :func:`phase_delta_bench` only (K2, K4
+and the fits they run in, the fold core's share of each, their peak
+memory and whether two launches agree), for the same use.
 ``python3 chip_smoke.py --accel`` runs phases 1 and 9 only (the kernels
 build at their first call); ``--serve-http`` and ``--fleet`` run phases 1
 and 10, and 1 and 11, on ``make_blobs`` centres; ``--runner`` runs phases
@@ -426,8 +435,8 @@ F32_OPS_PER_S = 67e12
 #: one's chosen score may exceed the f64 minimum by this fraction of
 #: ||x_cd||² + ||c||² (which bounds |csq − 2x·c|), and no more.
 SCORE_RTOL = 1e-5
-#: Sums: f32 sums of the same terms, in another order on the card (K2-K4's
-#: atomics, K1's and K6's buckets in row order).
+#: Sums: f32 sums of the same terms, in another order on the card (the fold
+#: core's buckets in row order, against the plain versions' ``index_add_``).
 SUMS_RTOL = 1e-4
 #: Phase 5: final inertia of the kernel fit vs the plain-backend fit.  Both
 #: start from the same k-means++ draw; rows whose two best bf16 scores tie
@@ -695,15 +704,35 @@ def _second64(s, labels):
     return best.values, best.indices
 
 
+def _check_delta_fold(what, x, cd, w, prev, k, out, again, at):
+    """K2's or K4's outputs ``out``, their delta at ``out[at]`` and
+    ``out[at + 1]``: equal bit for bit to ``fold_core_plain`` over
+    ``delta_fold_weights`` at their labels (the fold core's dual fold, in
+    its order op by op), and a second launch ``again`` equal to ``out`` in
+    every output."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    model = K.fold_core_plain(x, K.delta_fold_weights(out[0], prev, w),
+                              out[0], prev, k, compute_dtype=cd)
+    _check(all(torch.equal(a, b) for a, b in zip(out, again)),
+           f"{what}: two launches differ")
+    _check(bool(torch.equal(out[at], model[0])
+                and torch.equal(out[at + 1], model[1])),
+           f"{what}: the delta differs from fold_core_plain's order")
+
+
 def _check_hamerly(name, x, c, cd, w, prev, gen, ties, k2):
     """K4 against its plain version at need fractions 0, about 10% and
     100% (−1 sentinels always needed).  Needed rows: labels near the f64
     minimum, sb within the score tolerance of the f64 score at the label,
     slb of the f64 least score over the other columns; other rows: prev,
     sb_in and slb_in passed through bit for bit; the signed fold against
-    the plain fold at the kernel's labels; the counts exact.  With every
-    row needed, labels and sb equal K2's labels and raw scores bit for bit
-    (``k2``).  Returns the rows labelled differently from the plain
+    the plain fold at the kernel's labels; the counts exact; the delta
+    ``fold_core_plain``'s bit for bit and a second launch the first in
+    every output.  With every row needed, labels and sb equal K2's labels
+    and raw scores bit for bit (``k2``).  Returns the rows labelled differently from the plain
     version."""
     import torch
 
@@ -719,9 +748,12 @@ def _check_hamerly(name, x, c, cd, w, prev, gen, ties, k2):
         need = ((torch.rand(n, generator=gen, device="cuda") < frac)
                 | (p < 0))
         what = f"K4 need={frac:.0%} {name}"
-        lab, sb, slb, dsums, dcounts, n_rec, dense = K.lloyd_hamerly_cuda(
-            x, c, p, need, sb_in, slb_in, weights=w, compute_dtype=cd)
+        args = (x, c, p, need, sb_in, slb_in)
+        out = K.lloyd_hamerly_cuda(*args, weights=w, compute_dtype=cd)
+        again = K.lloyd_hamerly_cuda(*args, weights=w, compute_dtype=cd)
         _sync()
+        lab, sb, slb, dsums, dcounts, n_rec, dense = out
+        _check_delta_fold(what, x, cd, w, p, k, out, again, 3)
         plain = K.lloyd_hamerly_plain(x, c, p, need, sb_in, slb_in,
                                       weights=w, compute_dtype=cd)
         keep = ~need
@@ -931,7 +963,8 @@ def _check_core_k4_k5(name, x, c, cd, w, prev, gen):
     min, second-min and normed min: bit for bit in bf16; on the f32 route
     n_recomputed, dense_tiles and the labels of rows that are no near-tie
     equal, the scores within SCORE_RTOL of the row scale -- and two
-    launches of each equal bit for bit."""
+    launches of each equal bit for bit in every output, K4's delta sums
+    and counts included."""
     import torch
 
     from kmeans_tpu_torch.ops import cuda_lloyd as K
@@ -976,8 +1009,7 @@ def _check_core_k4_k5(name, x, c, cd, w, prev, gen):
         again = K.lloyd_hamerly_cuda(*args, weights=w, compute_dtype=cd)
         _sync()
         what = f"K4 need={frac:.0%} {name}"
-        _check(all(torch.equal(a, b) for a, b, kind in
-                   zip(first, again, k4_out) if kind),
+        _check(all(torch.equal(a, b) for a, b in zip(first, again)),
                f"{what}: two launches differ")
         agree(what, first, ref, k4_out, need)
     neg2c, csq = K._score_operands(c, cd)
@@ -1301,10 +1333,13 @@ def phase_kernels():
                and not c0.any(), f"K1 with_update=False {name}")
         # K2, with_mind both ways; prev holds −1 sentinels.
         for with_mind in (True, False):
-            lab2, mind2, dsums, dcounts, _, n_ch, dense = K.lloyd_delta_cuda(
-                x, c, prev, weights=w, compute_dtype=cd, with_mind=with_mind)
-            k2 = (lab2, mind2)
+            kw = dict(weights=w, compute_dtype=cd, with_mind=with_mind)
+            out = K.lloyd_delta_cuda(x, c, prev, **kw)
+            again = K.lloyd_delta_cuda(x, c, prev, **kw)
             _sync()
+            lab2, mind2, dsums, dcounts, _, n_ch, dense = out
+            k2 = (lab2, mind2)
+            _check_delta_fold(f"K2 {name}", x, cd, w, prev, k, out, again, 2)
             plain2 = K.lloyd_delta_plain(x, c, prev, weights=w,
                                          compute_dtype=cd,
                                          with_mind=with_mind)
@@ -1363,14 +1398,15 @@ def phase_kernels():
           "min_d2, raw scores, sb, slb and second-min (K1, K2, K4, K5 at "
           "k_tile 128, 384, 1024) equal score_block's bit for bit in bf16 "
           "and to SCORE_RTOL on the f32 route, K4's and K5's equal K1's and "
-          "K2's bit for bit, and two launches of K1, K4 and K5 equal each "
-          "other bit for bit")
+          "K2's bit for bit, and two launches of K1, K2, K4 and K5 equal each "
+          "other bit for bit, K2's and K4's delta fold_core_plain's")
     _f32_error_summary()
     print(f"kernels vs plain: "
           f"{len(cases) + 8 + len(FOLD_CORE_CASES) + n_tp} cases agree "
           "(score rtol "
           f"{SCORE_RTOL}, sums rtol {SUMS_RTOL}, counts exact; K5 equal to "
-          "K1, K2 and K4 bit for bit; K6 equal to itself bit for bit)")
+          "K1, K2 and K4 bit for bit; K2's, K4's and K6's sums equal to "
+          "themselves and fold_core_plain bit for bit)")
 
 
 def _gamma(d):
@@ -1694,7 +1730,9 @@ def _auto_fit(x, c0):
     ``update="auto"`` from the fixed init, AUTO_SWEEPS sweeps.  Period 0 is
     delta, the first judgment (sweep 16) promotes yinyang, and the second
     (sweep 32) keeps it or demotes it: ``diag_["final_flavor"]`` says which,
-    and the launch counts must agree.  Returns the launch counts."""
+    and the launch counts must agree.  Then the same fit again, which must
+    give the same centroids, labels, sweeps and counters bit for bit.
+    Returns the launch counts."""
     import torch
 
     import kmeans_tpu_torch as kt
@@ -1748,13 +1786,16 @@ def _auto_fit(x, c0):
                       max_iter=AUTO_SWEEPS, tol=-1.0).fit(x)
     _sync()
     seconds = time.perf_counter() - t0
-    # Its counters may differ a little: K2's and K4's atomic folds sum in
-    # another order each run, which moves the centroids at the f32
-    # rounding level and with them bound tests on the margin.
     print(f"  the same fit again: {seconds:.3f} s = "
           f"{again.n_iter_ / seconds:.3f} iter/s; recompute_rows "
           f"{again.diag_['recompute_rows']:.0f}, final_flavor "
           f"{again.diag_['final_flavor']:.0f}")
+    _check(bool(torch.equal(again.cluster_centers_, km.cluster_centers_)
+                and torch.equal(again.labels_, km.labels_))
+           and again.n_iter_ == km.n_iter_ and again.diag_ == dg,
+           f"auto fit: the same fit again differs (diag {again.diag_})")
+    print("  the same fit again: centroids, labels, sweeps and diag equal "
+          "the first fit's bit for bit")
     return launches
 
 
@@ -2396,6 +2437,145 @@ def phase_f32_bench():
     _f32_row_errors("f32-bench headline", x, c, prev)
     del x, c, prev, need
     _f32_widths()
+
+
+#: ``--delta-bench``: the timed runs of each kernel (the median is kept).
+DELTA_BENCH_REPS = 9
+
+
+def _delta_bench_kernel(what, fn, at, x, prev, cd):
+    """K2 or K4 (``fn``, its delta at ``at`` and ``at + 1``) at ``x``'s
+    shape from the labels ``prev``: the median ms, the device time of one
+    call split into the fold core's kernels (``sort_*``, ``fold_*``) and
+    the rest (:func:`_device_split`), the card's peak memory of one call
+    above the level before it, whether a second launch gives the same
+    delta bit for bit, and in a tree whose K2 and K4 fold on the fold
+    core, K6's dual fold over the call's changed rows alone (the fold the
+    kernel runs, with its own scratch and host calls)."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    ms = _time_ms(fn, DELTA_BENCH_REPS)
+    split = _device_split(fn, 3)
+    fold = sum(t for name, _, t in split if name.startswith(("sort_",
+                                                             "fold_")))
+    rest = sum(t for _, _, t in split) - fold
+    _sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    first = fn()
+    _sync()
+    peak = torch.cuda.max_memory_allocated() - base
+    again = fn()
+    _sync()
+    same = bool(torch.equal(first[at], again[at])
+                and torch.equal(first[at + 1], again[at + 1]))
+    line = (f"delta-bench {what}: {ms:.3f} ms (median of {DELTA_BENCH_REPS});"
+            f" device time a call {rest:.3f} ms outside the fold core, "
+            f"{fold:.3f} ms in it; {int((first[0] != prev).sum())} rows "
+            f"changed; peak "
+            f"{peak / 1e6:.1f} MB above the level before; two launches' "
+            f"delta bit for bit: {same}")
+    if hasattr(K, "delta_fold_weights"):
+        n, k = x.shape[0], first[at].shape[0]
+        fold_w = K.delta_fold_weights(first[0], prev,
+                                      torch.ones(n, device="cuda"))
+        fold_ms = _time_ms(lambda: K.tiled_fold_cuda(
+            x, fold_w, first[0], prev, k, compute_dtype=cd),
+            DELTA_BENCH_REPS)
+        line += f"; the dual fold alone {fold_ms:.3f} ms"
+    print(line, flush=True)
+
+
+def phase_delta_bench():
+    """K2, K4 and the fits they run in, for the tree this script runs in,
+    so that two commits can be compared in one call (copy this script over
+    an older checkout's and run each with ``--delta-bench``, in turns): at
+    the headline shape in bf16 (phase 4's data and init), the
+    imagenet-delta fit (20 sweeps) and imagenet-auto (``KMeans``,
+    AUTO_SWEEPS sweeps) on the host clock, three times each after a first
+    run; then K2
+    at phase 4's inputs (one sweep past the delta fit) and K4 at the
+    Hamerly state after SOUND_SWEEPS hand-driven sweeps (its steady need),
+    as :func:`_delta_bench_kernel` times them; then K2 and K4 in f32 at
+    ``--f32-bench``'s headline inputs (13.4% of the rows needed).  Written
+    against the APIs every tree since the f32 route has."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.init import random_init
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.ops.delta import DELTA_REFRESH
+    from kmeans_tpu_torch.ops.hamerly import (hamerly_bounds, hamerly_pass,
+                                              row_norms)
+    from kmeans_tpu_torch.ops.update import apply_update
+
+    n, d, k = HEADLINE["n"], HEADLINE["d"], HEADLINE["k"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    x, _, _ = kt.make_blobs(0, n, d, k, dtype=bf16)
+    c0 = random_init(torch.Generator(device="cuda").manual_seed(1), x, k)
+    cfg = kt.KMeansConfig(k=k, update="delta", compute_dtype="bfloat16")
+    fits = {"imagenet-delta": lambda: kt.fit_lloyd(
+                x, k, config=cfg, init=c0, max_iter=20, tol=-1.0),
+            "imagenet-auto": lambda: kt.KMeans(
+                n_clusters=k, compute_dtype="bfloat16", init=c0,
+                max_iter=AUTO_SWEEPS, tol=-1.0).fit(x).state}
+    states = {}
+    for name, fit in fits.items():
+        fit()                                   # first use: loads, plans
+        secs = []
+        for _ in range(3):
+            _sync()
+            t0 = time.perf_counter()
+            states[name] = fit()
+            _sync()
+            secs.append(time.perf_counter() - t0)
+        print(f"delta-bench {name}: {int(states[name].n_iter)} sweeps + "
+              f"final view in {', '.join(f'{t:.3f}' for t in secs)} s "
+              f"(median {statistics.median(secs):.3f}); inertia "
+              f"{float(states[name].inertia):.6e}", flush=True)
+    # Phase 4's K2 inputs: one more sweep from the delta fit's centroids.
+    c = states["imagenet-delta"].centroids
+    del states
+    lab, _, sums, counts, _ = K.lloyd_pass_cuda(x, c, compute_dtype=bf16)
+    c1 = apply_update(c, sums, counts)
+    _delta_bench_kernel("headline bf16 K2", lambda: K.lloyd_delta_cuda(
+        x, c1, lab, compute_dtype=bf16, with_mind=False), 2, x, lab, bf16)
+    # The Hamerly state entering sweep SOUND_SWEEPS, as phase 4 drives it.
+    rno = row_norms(x, compute_dtype=bf16)
+    c = c0.clone()
+    sb, slb = torch.zeros(n, device="cuda"), torch.zeros(n, device="cuda")
+    c_cd, csq = c0.to(bf16), torch.zeros(k, device="cuda")
+    for i in range(SOUND_SWEEPS):
+        if i % DELTA_REFRESH == 0:
+            h_lab = torch.full((n,), -1, dtype=torch.int32, device="cuda")
+            sums = torch.zeros(k, d, device="cuda")
+            counts = torch.zeros(k, device="cuda")
+        out = hamerly_pass(x, c, h_lab, sums, counts, sb, slb, c_cd, csq, rno,
+                           compute_dtype="bfloat16")
+        h_lab, sums, counts, sb, slb, c_cd, csq = out[:7]
+        c = apply_update(c, sums, counts)
+    sb2, slb2, need = hamerly_bounds(c, h_lab, sb, slb, c_cd, csq, rno,
+                                     bf16)[:3]
+    _delta_bench_kernel(
+        f"headline bf16 K4 (need {float(need.float().mean()):.4f})",
+        lambda: K.lloyd_hamerly_cuda(x, c, h_lab, need, sb2, slb2,
+                                     compute_dtype=bf16), 3, x, h_lab, bf16)
+    del x, rno, sums, counts, sb, slb, sb2, slb2
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x, _, _ = kt.make_blobs(0, n, d, k, dtype=f32)
+    c = x[torch.randperm(n, generator=gen, device="cuda")[:k]].clone()
+    prev = K.lloyd_pass_cuda(x, c, compute_dtype=f32, with_update=False)[0]
+    c += 0.05 * torch.randn(k, d, generator=gen, device="cuda")
+    need = torch.rand(n, generator=gen, device="cuda") < 0.134
+    zeros = torch.zeros(n, device="cuda")
+    _delta_bench_kernel("headline f32 K2", lambda: K.lloyd_delta_cuda(
+        x, c, prev, compute_dtype=f32, with_mind=False), 2, x, prev, f32)
+    _delta_bench_kernel("headline f32 K4 (need 0.134)",
+                        lambda: K.lloyd_hamerly_cuda(
+                            x, c, prev, need, zeros, zeros,
+                            compute_dtype=f32), 3, x, prev, f32)
 
 
 # ---------------------------------------------------------------------------
@@ -3501,8 +3681,8 @@ def _imagenet_accel(card):
     per seed in ACCEL_SEEDS, and its quality gates judged as
     ``bench.py:accel_gates`` judges them, on the median over the instances
     of each arm's inertia relative to plain's: one instance's trajectory
-    is chaotic, and K2's and K4's atomics, which move the sums' last bits
-    from run to run, can send plain's own fit to another basin.  Returns
+    is chaotic, so a change in the sums' last bits (another summation
+    order, another arm's step) can send a fit to another basin.  Returns
     the launches."""
     total, rels = {}, []
     for seed in ACCEL_SEEDS:
@@ -6446,15 +6626,12 @@ CONT_CLIENTS = 8
 CONT_POOL = 4096
 #: The longest a child process of this phase may take.
 CONT_TIMEOUT_S = 300
-#: A resumed run's final generation against the undisturbed run's, in
-#: inertia: the pipeline's own test of "the model changed", its threshold
-#: detector's default ratio.  K2 adds changed rows with f32 atomics, in an
-#: order that changes from run to run, and at k = 1000 the drift refits
-#: turn that rounding into other labels and reseeded centres, so two
-#: undisturbed runs differ too (the serve run is one; its spread is
-#: printed beside the drills').  The schedule (generations, triggers,
-#: batches) must be exact.
-CONT_FINAL_RTOL = 0.25
+#: A resumed run's final generation against the undisturbed run's: its
+#: centroids within this rtol and atol, the reference's own
+#: ``test_pipeline_resume_replays_identically``.  Two undisturbed runs (the
+#: serve run is the second) must give every generation bit for bit, and
+#: the schedule (generations, triggers, batches) must be exact.
+CONT_RESUME_TOL = 1e-5
 
 
 def _stream_fit_run(name, x_np, c0, cd, transfer):
@@ -6762,10 +6939,15 @@ def _continuous_cli(spec) -> int:
     runs it, the pipeline's pieces timed on the host clock (synthesis,
     batch inertia, push with any compaction, refit with its publish),
     written to ``spec["counts"]`` with the launch counts after it (a
-    killed run writes nothing)."""
+    killed run writes nothing), and each published generation's centroids,
+    as the registry holds them, to ``<counts>.gen<G>.npy`` at its
+    publish."""
     import runpy
 
+    import numpy as np
+
     from kmeans_tpu_torch.continuous import pipeline as P
+    from kmeans_tpu_torch.continuous import registry as R
     from kmeans_tpu_torch.continuous import window as W
     from kmeans_tpu_torch.ops import cuda_lloyd as K
 
@@ -6790,6 +6972,14 @@ def _continuous_cli(spec) -> int:
 
         setattr(cls, attr, wrapper)
 
+    publish = R.ModelRegistry.publish
+
+    def published(self, *a, **kw):
+        gen = publish(self, *a, **kw)
+        np.save(f"{spec['counts']}.gen{gen.generation}.npy", gen.centroids)
+        return gen
+
+    R.ModelRegistry.publish = published
     timed(P.ContinuousPipeline, "_next_batch", "synthesis")
     timed(P.ContinuousPipeline, "_batch_inertia", "inertia")
     timed(W.SlidingWindow, "push", "push")
@@ -6873,6 +7063,14 @@ class _ContRun:
         self.seconds = self.t_exit - self.t0
         self.data = (json.load(open(self._counts, encoding="utf-8"))
                      if rc == 0 else None)
+        import glob
+
+        import numpy as np
+
+        #: {generation: centroids} as this process published them.
+        self.published = {
+            int(p.rsplit(".gen", 1)[1][:-4]): np.load(p)
+            for p in glob.glob(f"{glob.escape(self._counts)}.gen*.npy")}
         return self
 
     def gens(self):
@@ -7124,18 +7322,33 @@ def _imagenet_continuous(card, tmp):
 
     def rel(a, g):
         """Generation g's inertia on x_eval: run a's against the
-        undisturbed run's, relative."""
-        want = _cont_inertia(full.centroids[g], x_eval)
-        return abs(_cont_inertia(a.centroids[g], x_eval) - want) / want
+        undisturbed run's, relative (as published; a resumed run's first
+        generation as read from its model directory)."""
+        want = _cont_inertia(full.published[g], x_eval)
+        got = a.published.get(g, a.centroids[g])
+        return abs(_cont_inertia(got, x_eval) - want) / want
 
     launches = dict(full.data["launches"])
     _check(replica.gens() == gens,
            f"continuous serve run: generations {replica.gens()}, the "
            f"undisturbed run's {gens}")
-    spread = {g: rel(replica, g) for g in sorted(replica.centroids)}
+    differ = {g: float(np.abs(full.published[g].astype(np.float64)
+                              - replica.published[g]).max())
+              for g in sorted(full.published)
+              if not np.array_equal(replica.published[g], full.published[g])}
+    on_disk = {name: [g for g in sorted(run.centroids)
+                      if not np.array_equal(run.centroids[g],
+                                            run.published[g])]
+               for name, run in (("undisturbed", full), ("serve", replica))}
+    print(f"continuous runs: generations whose copy read from the model "
+          f"directory at their line differs from the published one "
+          f"{on_disk}", flush=True)
+    _check(not differ and sorted(replica.published) == sorted(full.published),
+           f"continuous serve run: generations (largest difference) "
+           f"{differ} differ from the undisturbed run's")
     print(f"continuous serve run against the undisturbed run (two runs of "
-          f"one stream): the same generations and triggers; inertia rel by "
-          f"generation { {g: float(f'{r:.3e}') for g, r in spread.items()} }")
+          f"one stream): the same generations and triggers, the centroids "
+          f"of all {len(full.published)} generations bit for bit")
     failed = []
     for key, (killed, resumed, d) in runs.items():
         res = [e for e in resumed.lines if e["event"] == "resumed"][0]
@@ -7149,7 +7362,11 @@ def _imagenet_continuous(card, tmp):
                f"continuous {key} drill: resumed at generation {g0}, done "
                f"{rd}, generations {resumed.gens()} (undisturbed {want})")
         rels = {g: rel(resumed, g) for g in sorted(resumed.centroids)}
-        if rels[rd["generation"]] > CONT_FINAL_RTOL:
+        got_c = resumed.published[rd["generation"]]
+        want_c = full.published[rd["generation"]]
+        err = float(np.abs(got_c.astype(np.float64) - want_c).max())
+        if not np.allclose(got_c, want_c, rtol=CONT_RESUME_TOL,
+                           atol=CONT_RESUME_TOL):
             failed.append(key)
         rto = resumed.t_resumed - killed.t_exit
         _add_counts(launches, resumed.data["launches"])
@@ -7159,11 +7376,14 @@ def _imagenet_continuous(card, tmp):
               f"resumed at generation {g0}, batch {res['batch_idx']}; RTO "
               f"{rto:.3f} s from the kill to the resumed line; ended at "
               f"generation {rd['generation']} after {rd['batches']} batches "
-              f"as the undisturbed run; inertia rel to the undisturbed run "
-              f"by generation "
+              f"as the undisturbed run; its final centroids' largest "
+              f"difference from the undisturbed run's {err:.3e} (bit for "
+              f"bit: {np.array_equal(got_c, want_c)}); inertia rel to the "
+              f"undisturbed run by generation "
               f"{ {g: float(f'{r:.3e}') for g, r in rels.items()} }")
     _check(not failed, f"continuous drills {failed}: the final generation's "
-           f"inertia is beyond CONT_FINAL_RTOL of the undisturbed run's")
+           f"centroids are beyond rtol / atol {CONT_RESUME_TOL} of the "
+           "undisturbed run's")
     sp = full.data["split"]
     by_trigger = {}
     for trig, sec in full.data["refits"]:
@@ -8089,11 +8309,9 @@ def _elastic_cuts(tmp):
     return total, specs, cuts
 
 
-def _elastic_resumes(card, x, tmp, specs, cuts, whole):
+def _elastic_resumes(card, tmp, specs, cuts, whole):
     """imagenet-elastic-dp1-nccl's resumes, two children at once, each held
-    to the uninterrupted run: bit for bit for matmul; for delta, inertia
-    within FIT_INERTIA_RTOL and labels but ties (K2's atomics).  Returns
-    the launches."""
+    to the uninterrupted run bit for bit.  Returns the launches."""
     import torch
 
     total = {}
@@ -8110,24 +8328,11 @@ def _elastic_resumes(card, x, tmp, specs, cuts, whole):
         want = torch.load(whole[update])
         _check(got["n_iter"] == ELASTIC_SWEEPS,
                f"imagenet-elastic resume {update}: {got['n_iter']} sweeps")
-        if update == "matmul":
-            _check(torch.equal(got["centroids"], want["centroids"])
-                   and torch.equal(got["labels"], want["labels"])
-                   and got["inertia"] == want["inertia"],
-                   "imagenet-elastic matmul: the cut and resumed run is not "
-                   "the uninterrupted one bit for bit")
-            held = "bit for bit the uninterrupted run"
-        else:
-            rel = abs(got["inertia"] - want["inertia"]) / want["inertia"]
-            _check(rel <= FIT_INERTIA_RTOL,
-                   f"imagenet-elastic delta: inertia rel {rel:.3e}")
-            moved, _ = _check_labels_pair(
-                "imagenet-elastic delta resume", x,
-                got["centroids"].cuda(), got["labels"].cuda(),
-                want["centroids"].cuda(), want["labels"].cuda(),
-                torch.bfloat16)
-            held = (f"inertia rel {rel:.3e}, {moved} labels moved (ties; "
-                    "K2's atomics)")
+        _check(torch.equal(got["centroids"], want["centroids"])
+               and torch.equal(got["labels"], want["labels"])
+               and got["inertia"] == want["inertia"],
+               f"imagenet-elastic {update}: the cut and resumed run is not "
+               "the uninterrupted one bit for bit")
         print(f"imagenet-elastic-dp1-nccl {update} drill ({card}): SIGTERM "
               f"at the second boundary, exit at sweep {cut['preempted']} "
               f"after {cut['bundles']} bundles ({1e3 * cut['bundle_s'] / max(cut['bundles'], 1):.2f} "
@@ -8135,7 +8340,8 @@ def _elastic_resumes(card, x, tmp, specs, cuts, whole):
               f"its spawn to the resumed fit's call (process, card context, "
               f"data regenerated), {t_spawn - t_exit:.2f} s after the cut's "
               f"exit; the resumed {ELASTIC_SWEEPS - cut['preempted']} sweeps "
-              f"{rec['seconds']:.3f} s; {held}", flush=True)
+              f"{rec['seconds']:.3f} s; bit for bit the uninterrupted run",
+              flush=True)
     return total
 
 
@@ -8758,7 +8964,7 @@ def phase_sharded(card):
             elastic_ck=f"{tmp}/elastic-gloo",
             elastic_whole=whole["matmul"]))
         _add_counts(totals["bf16"],
-                    _elastic_resumes(card, x, tmp, specs, cuts, whole))
+                    _elastic_resumes(card, tmp, specs, cuts, whole))
         del x, c0
         torch.cuda.empty_cache()
         ranks4 = _wait_world("tpfp-4-gloo", procs4, spec4)
@@ -11327,9 +11533,8 @@ def _glove_nystrom(card, xg, totals):
 
 def _pairwise_dp1(card, mesh, x20, x_rings):
     """kmedoids-, kernel- and spectral-dp1-nccl: each sharded fit on an
-    NCCL mesh of one against its single-device fit: bit for bit (the
-    spectral Lloyd stage's K2 sums with atomics: its labels but ties),
-    the time ratio and the mesh's traffic."""
+    NCCL mesh of one against its single-device fit: bit for bit, the time
+    ratio and the mesh's traffic."""
     import torch
 
     import kmeans_tpu_torch as kt
@@ -11362,23 +11567,12 @@ def _pairwise_dp1(card, mesh, x20, x_rings):
         stats = {op: list(v) for op, v in mesh.stats.items()}
         want, ms_one, _ = _timed_fit(one)
         its = max(int(got.n_iter), 1)
-        if name.startswith("spectral"):
-            moved = int((got.labels != want.labels).sum())
-            _check(bool(torch.equal(got.embedding, want.embedding))
-                   and moved <= 1e-6 * x_rings.shape[0],
-                   f"{name}: embedding equal "
-                   f"{bool(torch.equal(got.embedding, want.embedding))}, "
-                   f"{moved} labels moved")
-            held = (f"the embedding bit for bit, {moved} labels moved "
-                    "(the k-means stage's K2 sums with atomics)")
-        else:
-            same = all(bool(torch.equal(a, b)) for a, b in zip(got, want)
-                       if isinstance(a, torch.Tensor))
-            _check(same, f"{name}: not the single-device fit bit for bit")
-            held = "bit for bit"
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got, want)
+                   if isinstance(a, torch.Tensor))
+        _check(same, f"{name}: not the single-device fit bit for bit")
         _check(stats["ring_shift"][0] == 0,
                f"{name}: {stats['ring_shift']} ring shifts at world size 1")
-        print(f"{name} ({card}): {held}; {ms_mesh:.1f} ms against one "
+        print(f"{name} ({card}): bit for bit; {ms_mesh:.1f} ms against one "
               f"card's {ms_one:.1f} ms (mesh/one card "
               f"{ms_mesh / ms_one:.3f}); {int(got.n_iter)} iterations, "
               f"all-reduces {stats['all_reduce'][0]} "
@@ -11814,6 +12008,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--f32-bench"]:
         phase_f32_bench()
+        return 0
+    if sys.argv[1:] == ["--delta-bench"]:
+        phase_delta_bench()
         return 0
     if sys.argv[1:] == ["--accel"]:
         phase_accel_minibatch(card)

@@ -42,12 +42,12 @@
 //   min(second_a, second_b, max(best_a, best_b)), so an exact duplicate of
 //   the best column makes second == best.
 //   Columns past k and rows past n are masked, so any d and k are taken.
-// * K1 folds on the fold core (below) that K3 and K6 run, so its sums have
-//   the same bits every launch, and adds ||x||^2 there.  K2 and K4 scatter
-//   their changed rows: a warp per row adds +-w * float(cd(x[r, :])) into
-//   the sums with f32 atomicAdd, in an order that changes from run to run
-//   at the f32 rounding level.  At the headline shape (k = 1000, d = 2048)
-//   the f32 sums are 8 MB, so the atomics resolve in L2.
+// * K1 folds on the fold core (below) that K3 and K6 run, and adds
+//   ||x||^2 there.  K2 and K4 fold their changed rows there too, with the
+//   dual fold: the scoring epilogue writes each row's fold weight (w on a
+//   changed row, 0 elsewhere) and the fold adds +w at the new label and -w
+//   at the old one.  No kernel sums floats with atomics, so every output
+//   has the same bits every launch.
 // * ||x||^2 is taken from x in its stored dtype, widened to f32: a lane per
 //   32nd column and a butterfly sum (row_sq, the scoring kernels' order),
 //   or on the fold core in its own fixed order.
@@ -364,46 +364,28 @@ lloyd_pass_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
 // (_delta_kernel).  Bound on an H100: the distance product; only changed rows
 // are read a second time.  Design: the TPU kernel compacted changed rows with
 // a permutation-matrix matmul and folded them with a signed one-hot matmul,
-// both workarounds for Mosaic; here each changed row (label != prev, w > 0)
-// is scattered directly: +w at the new label, -w at the old one when
-// 0 <= prev < k.  n_changed is one shared-memory count per block plus one
-// global atomic; group_counts[g] counts the changed rows of the g-th
-// 1024-row group, from which the wrapper reports dense_tiles.  The epilogue
-// of one row (delta_row) is shared with the Hopper core's finishing launch.
-template <class XT, class CT>
+// both workarounds for Mosaic.  Here the scoring launch's row epilogue
+// (delta_row, shared with the Hopper core's finishing launch) writes the
+// label, min_d2 and the row's fold weight: w when the row changed (label !=
+// prev, w > 0), else 0.  The fold core's dual fold then sums the changed
+// rows, +w at the new label and -w at the old one when 0 <= prev < k, each
+// bucket in row order (launch_delta_fold).  n_changed is one shared-memory
+// count per block plus one global integer atomic; group_counts[g] counts
+// the changed rows of the g-th 1024-row group, from which the wrapper
+// reports dense_tiles.
+template <class XT>
 __device__ __forceinline__ bool delta_row(const XT* __restrict__ x, const float* __restrict__ w,
-                                          const int* __restrict__ prev, int gr, int d, int k,
+                                          const int* __restrict__ prev, int gr, int d,
                                           int with_mind, int lab, float best, int lane,
                                           int* __restrict__ labels, float* __restrict__ mind,
-                                          float* __restrict__ dsums,
-                                          float* __restrict__ dcounts) {
-  const int old = prev[gr];
+                                          float* __restrict__ fold_w) {
   const float wr = w[gr];
-  const bool changed = lab != old && wr > 0.f;
-  const bool sub = changed && old >= 0 && old < k;
-  float sq = 0.f;
-  if (with_mind || changed) {
-    const XT* xr = x + (size_t)gr * d;
-    float* add_row = dsums + (size_t)lab * d;
-    float* sub_row = dsums + (size_t)(sub ? old : 0) * d;
-    for (int c = lane; c < d; c += 32) {
-      const float xf = to_f32(xr[c]);
-      sq = fmaf(xf, xf, sq);
-      if (changed) {
-        const float v = wr * cd_round<CT>(xf);
-        atomicAdd(add_row + c, v);
-        if (sub) atomicAdd(sub_row + c, -v);
-      }
-    }
-    sq = warp_sum(sq);
-  }
+  const bool changed = lab != prev[gr] && wr > 0.f;
+  const float sq = with_mind ? row_sq(x + (size_t)gr * d, d, lane) : 0.f;
   if (lane == 0) {
     labels[gr] = lab;
     mind[gr] = with_mind ? fmaxf(best + sq, 0.f) : best;
-    if (changed) {
-      atomicAdd(dcounts + lab, wr);
-      if (sub) atomicAdd(dcounts + old, -wr);
-    }
+    fold_w[gr] = changed ? wr : 0.f;
   }
   return changed;
 }
@@ -414,8 +396,8 @@ lloyd_delta_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
                    const float* __restrict__ csq, const float* __restrict__ w,
                    const int* __restrict__ prev, int n, int d, int k, int with_mind,
                    int* __restrict__ labels, float* __restrict__ mind,
-                   float* __restrict__ dsums, float* __restrict__ dcounts,
-                   int* __restrict__ n_changed, int* __restrict__ group_counts) {
+                   float* __restrict__ fold_w, int* __restrict__ n_changed,
+                   int* __restrict__ group_counts) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float s_csq[BN], s_min[BM];
   __shared__ int s_lab[BM];
@@ -430,8 +412,8 @@ lloyd_delta_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
   for (int r = warp; r < BM; r += NWARP) {
     const int gr = row0 + r;
     if (gr >= n) break;
-    if (delta_row<XT, CT>(x, w, prev, gr, d, k, with_mind, s_lab[r], s_min[r], lane, labels,
-                          mind, dsums, dcounts) &&
+    if (delta_row(x, w, prev, gr, d, with_mind, s_lab[r], s_min[r], lane, labels, mind,
+                  fold_w) &&
         lane == 0)
       atomicAdd(&s_changed, 1);
   }
@@ -451,8 +433,9 @@ lloyd_delta_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
 // group are listed in increasing order (compact_group: a ballot prefix per
 // 256-row round) and the others pass prev / sb_in / slb_in through.  A
 // needed row gets label = the lowest argmin, sb = its score, slb = the least
-// score over the other columns; a changed one (label != prev, w > 0) is
-// scattered as in K2 (hamerly_row).  group_counts[g] is the group's
+// score over the other columns and K2's fold weight (hamerly_row), every
+// other row a fold weight of 0; the dual fold then sums the changed rows
+// as it does K2's (launch_delta_fold).  group_counts[g] is the group's
 // needed-row count, from which the wrapper reports dense_tiles; there is no
 // dense branch.  On score_block a block owns one group and scores its
 // needed rows 128 at a time, gathered (lloyd_hamerly_kernel), so the
@@ -496,38 +479,18 @@ __device__ __forceinline__ int compact_group(const unsigned char* __restrict__ n
   return s_count;
 }
 
-// A scored row's epilogue, a warp per row: label, sb = best, slb = second,
-// and the +-w scatter of a changed row.
-template <class XT, class CT>
-__device__ __forceinline__ void hamerly_row(const XT* __restrict__ x, const float* __restrict__ w,
-                                            const int* __restrict__ prev, int gr, int d, int k,
-                                            int lab, float best, float second, int lane,
-                                            int* __restrict__ labels, float* __restrict__ sb,
-                                            float* __restrict__ slb, float* __restrict__ dsums,
-                                            float* __restrict__ dcounts) {
-  const int old = prev[gr];
+// A scored row's epilogue, a thread per row: label, sb = best, slb =
+// second, and the row's fold weight.
+__device__ __forceinline__ void hamerly_row(const float* __restrict__ w,
+                                            const int* __restrict__ prev, int gr, int lab,
+                                            float best, float second, int* __restrict__ labels,
+                                            float* __restrict__ sb, float* __restrict__ slb,
+                                            float* __restrict__ fold_w) {
   const float wr = w[gr];
-  const bool changed = lab != old && wr > 0.f;
-  const bool sub = changed && old >= 0 && old < k;
-  if (changed) {
-    const XT* xr = x + (size_t)gr * d;
-    float* add_row = dsums + (size_t)lab * d;
-    float* sub_row = dsums + (size_t)(sub ? old : 0) * d;
-    for (int c = lane; c < d; c += 32) {
-      const float v = wr * cd_round<CT>(to_f32(xr[c]));
-      atomicAdd(add_row + c, v);
-      if (sub) atomicAdd(sub_row + c, -v);
-    }
-  }
-  if (lane == 0) {
-    labels[gr] = lab;
-    sb[gr] = best;
-    slb[gr] = second;
-    if (changed) {
-      atomicAdd(dcounts + lab, wr);
-      if (sub) atomicAdd(dcounts + old, -wr);
-    }
-  }
+  labels[gr] = lab;
+  sb[gr] = best;
+  slb[gr] = second;
+  fold_w[gr] = lab != prev[gr] && wr > 0.f ? wr : 0.f;
 }
 
 template <class XT, class CT, bool VEC>
@@ -537,29 +500,28 @@ lloyd_hamerly_kernel(const XT* __restrict__ x, const CT* __restrict__ neg2c,
                      const int* __restrict__ prev, const unsigned char* __restrict__ need,
                      const float* __restrict__ sb_in, const float* __restrict__ slb_in,
                      int n, int d, int k, int* __restrict__ labels, float* __restrict__ sb,
-                     float* __restrict__ slb, float* __restrict__ dsums,
-                     float* __restrict__ dcounts, int* __restrict__ n_rec,
-                     int* __restrict__ group_counts) {
+                     float* __restrict__ slb, float* __restrict__ fold_w,
+                     int* __restrict__ n_rec, int* __restrict__ group_counts) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float s_csq[BN], s_min[BM], s_second[BM];
   __shared__ int s_lab[BM];
   __shared__ int s_rows[GROUP_ROWS];   // the group's needed rows, compacted
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int count = compact_group(
       need, blockIdx.x * GROUP_ROWS, n, [&](int slot, int gr) { s_rows[slot] = gr; },
       [&](int gr) {
         labels[gr] = prev[gr];
         sb[gr] = sb_in[gr];
         slb[gr] = slb_in[gr];
+        fold_w[gr] = 0.f;
       });
 
   for (int s0 = 0; s0 < count; s0 += BM) {
     const int m = min(BM, count - s0);
     score_block<XT, CT, VEC, true, true>(x, s_rows + s0, m, neg2c, csq, d, k, smem, s_csq,
                                          s_min, s_second, s_lab);
-    for (int r = warp; r < m; r += NWARP)
-      hamerly_row<XT, CT>(x, w, prev, s_rows[s0 + r], d, k, s_lab[r], s_min[r], s_second[r],
-                          lane, labels, sb, slb, dsums, dcounts);
+    for (int r = threadIdx.x; r < m; r += NT)
+      hamerly_row(w, prev, s_rows[s0 + r], s_lab[r], s_min[r], s_second[r], labels, sb, slb,
+                  fold_w);
   }
   if (threadIdx.x == 0) {
     group_counts[blockIdx.x] = count;
@@ -704,8 +666,8 @@ tiled_merge_kernel(const XT* __restrict__ x, const float* __restrict__ part_best
 //     blocks of x in flight, 67 MB against a 50 MB L2, and measured 14%
 //     slower at the codebook shape (PERF.md).
 // Each tile writes its triple per row to a (ranges, n) buffer; the finishing
-// launch (a warp per row: tiled_merge_kernel for K1 and K5,
-// core_delta_finish_kernel for K2, core_hamerly_finish_kernel for K4) walks
+// launch (tiled_merge_kernel for K1 and K5, core_delta_finish_kernel for
+// K2, a warp per row; core_hamerly_finish_kernel for K4, a thread) walks
 // the ranges in increasing order with strict '<', K5's rule, so the lowest
 // global index wins across a range edge.  Min and max are exact, so the
 // result does not depend on how the columns are grouped, and the wgmma
@@ -1364,14 +1326,13 @@ core32_score_kernel(const __grid_constant__ CUtensorMap x_map,
 
 // K2's finishing launch after the core: a warp per row merges the slices
 // (strict '<' in increasing slice order) and runs K2's row epilogue.
-template <class XT, class CT>
+template <class XT>
 __global__ void __launch_bounds__(NT)
 core_delta_finish_kernel(const XT* __restrict__ x, const float* __restrict__ part_best,
                          const int* __restrict__ part_idx, int slices,
                          const float* __restrict__ w, const int* __restrict__ prev, int n, int d,
-                         int k, int with_mind, int* __restrict__ labels,
-                         float* __restrict__ mind, float* __restrict__ dsums,
-                         float* __restrict__ dcounts, int* __restrict__ n_changed,
+                         int with_mind, int* __restrict__ labels, float* __restrict__ mind,
+                         float* __restrict__ fold_w, int* __restrict__ n_changed,
                          int* __restrict__ group_counts) {
   __shared__ int s_changed;
   if (threadIdx.x == 0) s_changed = 0;
@@ -1382,8 +1343,7 @@ core_delta_finish_kernel(const XT* __restrict__ x, const float* __restrict__ par
     float best, unused;
     int lab;
     merge_parts(part_best, part_idx, nullptr, slices, n, gr, best, lab, unused);
-    if (delta_row<XT, CT>(x, w, prev, gr, d, k, with_mind, lab, best, lane, labels, mind, dsums,
-                          dcounts) &&
+    if (delta_row(x, w, prev, gr, d, with_mind, lab, best, lane, labels, mind, fold_w) &&
         lane == 0)
       atomicAdd(&s_changed, 1);
   }
@@ -1395,18 +1355,20 @@ core_delta_finish_kernel(const XT* __restrict__ x, const float* __restrict__ par
 }
 
 // K4 on the core, launch 1 of 5: each 1024-row group's needed-row count;
-// the rows not needed pass prev / sb_in / slb_in through.
+// the rows not needed pass prev / sb_in / slb_in through, with a fold
+// weight of 0.
 __global__ void __launch_bounds__(NT)
 hamerly_count_kernel(const unsigned char* __restrict__ need, const int* __restrict__ prev,
                      const float* __restrict__ sb_in, const float* __restrict__ slb_in, int n,
                      int* __restrict__ labels, float* __restrict__ sb, float* __restrict__ slb,
-                     int* __restrict__ group_counts) {
+                     float* __restrict__ fold_w, int* __restrict__ group_counts) {
   const int count = compact_group(
       need, blockIdx.x * GROUP_ROWS, n, [](int, int) {},
       [&](int gr) {
         labels[gr] = prev[gr];
         sb[gr] = sb_in[gr];
         slb[gr] = slb_in[gr];
+        fold_w[gr] = 0.f;
       });
   if (threadIdx.x == 0) group_counts[blockIdx.x] = count;
 }
@@ -1447,26 +1409,23 @@ hamerly_list_kernel(const unsigned char* __restrict__ need, int n,
       need, blockIdx.x * GROUP_ROWS, n, [&](int slot, int gr) { out[slot] = gr; }, [](int) {});
 }
 
-// Launch 5 of 5, after the core's gathered scoring (4 of 5): a warp per
+// Launch 5 of 5, after the core's gathered scoring (4 of 5): a thread per
 // listed row merges its slices with the second-min and runs K4's row
 // epilogue.
-template <class XT, class CT>
 __global__ void __launch_bounds__(NT)
-core_hamerly_finish_kernel(const XT* __restrict__ x, const int* __restrict__ rows,
-                           const int* __restrict__ count, const float* __restrict__ part_best,
+core_hamerly_finish_kernel(const int* __restrict__ rows, const int* __restrict__ count,
+                           const float* __restrict__ part_best,
                            const int* __restrict__ part_idx,
                            const float* __restrict__ part_second, int slices, int n,
-                           const float* __restrict__ w, const int* __restrict__ prev, int d,
-                           int k, int* __restrict__ labels, float* __restrict__ sb,
-                           float* __restrict__ slb, float* __restrict__ dsums,
-                           float* __restrict__ dcounts) {
-  const int slot = (int)(((size_t)blockIdx.x * NT + threadIdx.x) >> 5);
+                           const float* __restrict__ w, const int* __restrict__ prev,
+                           int* __restrict__ labels, float* __restrict__ sb,
+                           float* __restrict__ slb, float* __restrict__ fold_w) {
+  const int slot = (int)(blockIdx.x * (size_t)NT + threadIdx.x);
   if (slot >= *count) return;
   float best, second;
   int lab;
   merge_parts(part_best, part_idx, part_second, slices, n, slot, best, lab, second);
-  hamerly_row<XT, CT>(x, w, prev, rows[slot], d, k, lab, best, second, threadIdx.x & 31,
-                      labels, sb, slb, dsums, dcounts);
+  hamerly_row(w, prev, rows[slot], lab, best, second, labels, sb, slb, fold_w);
 }
 
 // ---------------------------------------------------------------------------
@@ -2188,13 +2147,32 @@ int launch_core(int core, const void* x, const void* c, const float* csq, const 
 template <class XT, class CT, bool VEC>
 constexpr bool core_takes = std::is_same<XT, CT>::value && VEC;
 
+// K2's and K4's delta on the fold core: the dual fold of the weights fold_w
+// (w on a changed row, 0 elsewhere, as the scoring epilogue wrote them) at
+// labels and prev -- +w at the new label, -w at the old one, each bucket
+// in row order.  The scratch is the fold core's (launch_fold).
+template <class XT, class CT>
+int launch_delta_fold(const void* x, const float* fold_w, const int* labels, const int* prev,
+                      int n, int d, int k, int fold_vec, int* sort, int* hist, int* start,
+                      float* part, float* part_counts, float* sq_part, float* dsums,
+                      float* dcounts, cudaStream_t stream) {
+  if (fold_vec)
+    return launch_fold<XT, CT, true>(x, fold_w, labels, prev, n, d, k, nullptr, nullptr, sort,
+                                     hist, start, part, part_counts, sq_part, dsums, dcounts,
+                                     stream);
+  return launch_fold<XT, CT, false>(x, fold_w, labels, prev, n, d, k, nullptr, nullptr, sort,
+                                    hist, start, part, part_counts, sq_part, dsums, dcounts,
+                                    stream);
+}
+
 template <class XT, class CT, bool VEC>
 int launch_hamerly(const void* x, const void* neg2c, const float* csq, const float* w,
                    const int* prev, const unsigned char* need, const float* sb_in,
                    const float* slb_in, int n, int d, int k, int core, int* labels, float* sb,
-                   float* slb, float* dsums, float* dcounts, int* n_rec, int* group_counts,
-                   float* part_best, int* part_idx, float* part_second, int* rows,
-                   int* group_start, cudaStream_t stream) {
+                   float* slb, float* fold_w, float* dsums, float* dcounts, int* n_rec,
+                   int* group_counts, float* part_best, int* part_idx, float* part_second,
+                   int* rows, int* group_start, int fold_vec, int* sort, int* hist, int* start,
+                   float* part, float* part_counts, float* sq_part, cudaStream_t stream) {
   const int groups = (n + GROUP_ROWS - 1) / GROUP_ROWS;
   if (!core) {
     auto kern = lloyd_hamerly_kernel<XT, CT, VEC>;
@@ -2202,12 +2180,10 @@ int launch_hamerly(const void* x, const void* neg2c, const float* csq, const flo
     if (int e = set_smem(kern, smem)) return e;
     kern<<<groups, NT, smem, stream>>>(static_cast<const XT*>(x), static_cast<const CT*>(neg2c),
                                        csq, w, prev, need, sb_in, slb_in, n, d, k, labels, sb,
-                                       slb, dsums, dcounts, n_rec, group_counts);
-    return (int)cudaGetLastError();
-  }
-  if constexpr (core_takes<XT, CT, VEC>) {
+                                       slb, fold_w, n_rec, group_counts);
+  } else if constexpr (core_takes<XT, CT, VEC>) {
     hamerly_count_kernel<<<groups, NT, 0, stream>>>(need, prev, sb_in, slb_in, n, labels, sb,
-                                                    slb, group_counts);
+                                                    slb, fold_w, group_counts);
     if (int e = (int)cudaGetLastError()) return e;
     exclusive_scan_kernel<<<1, SCAN_NT, 0, stream>>>(group_counts, groups, group_start, n_rec);
     if (int e = (int)cudaGetLastError()) return e;
@@ -2216,14 +2192,15 @@ int launch_hamerly(const void* x, const void* neg2c, const float* csq, const flo
     if (int e = launch_core<XT, true, true>(core, x, neg2c, csq, rows, n_rec, n, d, k, CORE_BN,
                                             part_best, part_idx, part_second, stream))
       return e;
-    const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
-    core_hamerly_finish_kernel<XT, CT><<<(unsigned)blocks, NT, 0, stream>>>(
-        static_cast<const XT*>(x), rows, n_rec, part_best, part_idx, part_second,
-        (k + CORE_BN - 1) / CORE_BN, n, w, prev, d, k, labels, sb, slb, dsums, dcounts);
-    return (int)cudaGetLastError();
+    core_hamerly_finish_kernel<<<(n + NT - 1) / NT, NT, 0, stream>>>(
+        rows, n_rec, part_best, part_idx, part_second, (k + CORE_BN - 1) / CORE_BN, n, w, prev,
+        labels, sb, slb, fold_w);
   } else {
     return kBadCore;
   }
+  if (int e = (int)cudaGetLastError()) return e;
+  return launch_delta_fold<XT, CT>(x, fold_w, labels, prev, n, d, k, fold_vec, sort, hist, start,
+                                   part, part_counts, sq_part, dsums, dcounts, stream);
 }
 
 template <class XT, class CT, bool VEC>
@@ -2310,30 +2287,32 @@ int launch_pass(const void* x, const void* neg2c, const float* csq, const float*
 template <class XT, class CT, bool VEC>
 int launch_delta(const void* x, const void* neg2c, const float* csq, const float* w,
                  const int* prev, int n, int d, int k, int with_mind, int core, int* labels,
-                 float* mind, float* dsums, float* dcounts, int* n_changed, int* group_counts,
-                 float* part_best, int* part_idx, cudaStream_t stream) {
+                 float* mind, float* fold_w, float* dsums, float* dcounts, int* n_changed,
+                 int* group_counts, float* part_best, int* part_idx, int fold_vec, int* sort,
+                 int* hist, int* start, float* part, float* part_counts, float* sq_part,
+                 cudaStream_t stream) {
   const XT* xt = static_cast<const XT*>(x);
-  if (core) {
-    if constexpr (core_takes<XT, CT, VEC>) {
-      if (int e = launch_core<XT, false, false>(core, x, neg2c, csq, nullptr, nullptr, n, d, k,
-                                                CORE_BN, part_best, part_idx, nullptr, stream))
-        return e;
-      const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
-      core_delta_finish_kernel<XT, CT><<<(unsigned)blocks, NT, 0, stream>>>(
-          xt, part_best, part_idx, (k + CORE_BN - 1) / CORE_BN, w, prev, n, d, k, with_mind,
-          labels, mind, dsums, dcounts, n_changed, group_counts);
-      return (int)cudaGetLastError();
-    } else {
-      return kBadCore;
-    }
+  if (!core) {
+    auto kern = lloyd_delta_kernel<XT, CT, VEC>;
+    constexpr int smem = smem_bytes<CT>();
+    if (int e = set_smem(kern, smem)) return e;
+    kern<<<(n + BM - 1) / BM, NT, smem, stream>>>(xt, static_cast<const CT*>(neg2c), csq, w,
+                                                  prev, n, d, k, with_mind, labels, mind, fold_w,
+                                                  n_changed, group_counts);
+  } else if constexpr (core_takes<XT, CT, VEC>) {
+    if (int e = launch_core<XT, false, false>(core, x, neg2c, csq, nullptr, nullptr, n, d, k,
+                                              CORE_BN, part_best, part_idx, nullptr, stream))
+      return e;
+    const size_t blocks = ((size_t)n * 32 + NT - 1) / NT;
+    core_delta_finish_kernel<XT><<<(unsigned)blocks, NT, 0, stream>>>(
+        xt, part_best, part_idx, (k + CORE_BN - 1) / CORE_BN, w, prev, n, d, with_mind, labels,
+        mind, fold_w, n_changed, group_counts);
+  } else {
+    return kBadCore;
   }
-  auto kern = lloyd_delta_kernel<XT, CT, VEC>;
-  constexpr int smem = smem_bytes<CT>();
-  if (int e = set_smem(kern, smem)) return e;
-  kern<<<(n + BM - 1) / BM, NT, smem, stream>>>(xt, static_cast<const CT*>(neg2c), csq, w, prev,
-                                                n, d, k, with_mind, labels, mind, dsums,
-                                                dcounts, n_changed, group_counts);
-  return (int)cudaGetLastError();
+  if (int e = (int)cudaGetLastError()) return e;
+  return launch_delta_fold<XT, CT>(x, fold_w, labels, prev, n, d, k, fold_vec, sort, hist, start,
+                                   part, part_counts, sq_part, dsums, dcounts, stream);
 }
 
 }  // namespace
@@ -2369,14 +2348,19 @@ extern "C" int kml_lloyd_pass(const void* x, int x_dtype, const void* neg2c, int
                part_counts, sq_part, static_cast<cudaStream_t>(stream));
 }
 
+// K2: fold_w (n floats) holds each row's fold weight between the scoring
+// launch and the fold core's dual fold, which takes the scratch as
+// kml_tiled_fold's (fold_vec its vector rule).
 extern "C" int kml_lloyd_delta(const void* x, int x_dtype, const void* neg2c, int cd,
                                const float* csq, const float* w, const int* prev, int n, int d,
                                int k, int with_mind, int vec, int core, int* labels, float* mind,
-                               float* dsums, float* dcounts, int* n_changed, int* group_counts,
-                               float* part_best, int* part_idx, void* stream) {
+                               float* fold_w, float* dsums, float* dcounts, int* n_changed,
+                               int* group_counts, float* part_best, int* part_idx, int fold_vec,
+                               int* sort, int* hist, int* start, float* part,
+                               float* part_counts, float* sq_part, void* stream) {
   KML_DISPATCH(launch_delta, x, neg2c, csq, w, prev, n, d, k, with_mind, core, labels, mind,
-               dsums, dcounts, n_changed, group_counts, part_best, part_idx,
-               static_cast<cudaStream_t>(stream));
+               fold_w, dsums, dcounts, n_changed, group_counts, part_best, part_idx, fold_vec,
+               sort, hist, start, part, part_counts, sq_part, static_cast<cudaStream_t>(stream));
 }
 
 // K3 on the fold core: the single fold with the norms (scores may be
@@ -2394,18 +2378,22 @@ extern "C" int kml_accumulate(const void* x, int x_dtype, int cd, const int* lab
 // kml_lloyd_pass).  part_best / part_idx / part_second are its
 // (ceil(k / 256), n) slice buffers, rows (n) and group_start (one per
 // 1024-row group) the list of needed rows; n_rec is the device-side count
-// the core reads.  score_block (core = 0) takes none of them.
+// the core reads.  score_block (core = 0) takes none of them.  fold_w and
+// the fold's scratch as for kml_lloyd_delta.
 extern "C" int kml_lloyd_hamerly(const void* x, int x_dtype, const void* neg2c, int cd,
                                  const float* csq, const float* w, const int* prev,
                                  const unsigned char* need, const float* sb_in,
                                  const float* slb_in, int n, int d, int k, int vec, int core,
-                                 int* labels, float* sb, float* slb, float* dsums,
-                                 float* dcounts, int* n_rec, int* group_counts,
+                                 int* labels, float* sb, float* slb, float* fold_w,
+                                 float* dsums, float* dcounts, int* n_rec, int* group_counts,
                                  float* part_best, int* part_idx, float* part_second,
-                                 int* rows, int* group_start, void* stream) {
+                                 int* rows, int* group_start, int fold_vec, int* sort,
+                                 int* hist, int* start, float* part, float* part_counts,
+                                 float* sq_part, void* stream) {
   KML_DISPATCH(launch_hamerly, x, neg2c, csq, w, prev, need, sb_in, slb_in, n, d, k, core,
-               labels, sb, slb, dsums, dcounts, n_rec, group_counts, part_best, part_idx,
-               part_second, rows, group_start, static_cast<cudaStream_t>(stream));
+               labels, sb, slb, fold_w, dsums, dcounts, n_rec, group_counts, part_best,
+               part_idx, part_second, rows, group_start, fold_vec, sort, hist, start, part,
+               part_counts, sq_part, static_cast<cudaStream_t>(stream));
 }
 
 // core = 1: the Hopper core over ranges of k_tile columns (in f32 neg2c is

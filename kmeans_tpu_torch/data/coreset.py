@@ -12,9 +12,9 @@ probability is its input weight times the lightweight sensitivity
 carries w/(m·q), an unbiased cost estimator.  d(x, μ)² is
 :func:`~kmeans_tpu_torch.ops.distance.assign` against the one centroid μ:
 K1 at k = 1 on the card.  The draws come from a :class:`torch.Generator`
-(``torch.multinomial`` with replacement), where the reference draws with
-``jax.random.choice``; the probabilities, points and weights follow from
-them as in the reference.
+(:func:`draw_indices`: q's CDF at uniform draws), where the reference
+draws with ``jax.random.choice``; the probabilities, points and weights
+follow from them as in the reference.
 """
 
 from __future__ import annotations
@@ -26,7 +26,10 @@ import torch
 from kmeans_tpu_torch.data.synthetic import generator_for
 from kmeans_tpu_torch.device import as_tensor, resolve_device
 
-__all__ = ["lightweight_coreset", "coreset_probabilities"]
+__all__ = ["lightweight_coreset", "coreset_probabilities", "draw_indices"]
+
+#: The fixed-point scale of :func:`draw_indices`' CDF.
+_CDF_SCALE = 2.0 ** 40
 
 
 def coreset_probabilities(x: torch.Tensor, w: torch.Tensor, *,
@@ -46,6 +49,21 @@ def coreset_probabilities(x: torch.Tensor, w: torch.Tensor, *,
     # renormalization only mops up float rounding.
     q = w * (0.5 / w_total + 0.5 * d2 / mass)
     return q / q.sum()
+
+
+def draw_indices(q: torch.Tensor, m: int, generator) -> torch.Tensor:
+    """``m`` i.i.d. draws from ``range(len(q))`` with probabilities ``q``
+    (summing to 1): q's CDF, inverted at ``m`` uniforms from
+    ``generator``.  The CDF is summed in int64 fixed point (q in units of
+    2⁻⁴⁰), so every summation order gives the same bits and a seed the
+    same draws on every run; ``torch.multinomial`` sums a float CDF, which
+    on the card varies from run to run in its last bits.  Rows with q <
+    2⁻⁴¹ are never drawn."""
+    ticks = torch.round(q.double() * _CDF_SCALE).long()
+    cdf = torch.cumsum(ticks, 0)
+    u = torch.rand(m, generator=generator, dtype=torch.float64,
+                   device=q.device)
+    return torch.searchsorted(cdf, (u * cdf[-1]).long(), right=True)
 
 
 def lightweight_coreset(
@@ -77,8 +95,7 @@ def lightweight_coreset(
          else as_tensor(weights, dev, torch.float32))
     q = coreset_probabilities(x, w, chunk_size=chunk_size,
                               compute_dtype=compute_dtype)
-    idx = torch.multinomial(q, m, replacement=True,
-                            generator=generator_for(generator, dev))
+    idx = draw_indices(q, m, generator_for(generator, dev))
     # Importance weights: each draw carries w/(m·q), so the weighted cost of
     # the draws estimates the full weighted cost without bias.
     cw = w[idx] / (m * torch.clamp_min(q[idx], 1e-30))

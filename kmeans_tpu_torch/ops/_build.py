@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: The fold core's arguments (``FoldScratch.args`` in cuda_lloyd.py): vec,
-#: sort, hist, start, part, part_counts, sq_part.
+#: sort, hist, start, part, part_counts, sq_part (K1, K2, K3, K4 and K6).
 _FOLD = [_I, _P, _P, _P, _P, _P, _P]
 #: argtypes of each C entry point: every pointer and the stream as c_void_p.
 _SIGNATURES = {
@@ -42,20 +42,21 @@ _SIGNATURES = {
     "kml_lloyd_pass": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P, *_FOLD, _P],
     # x, x_dtype, neg2c, cd, csq, w, prev, n, d, k, with_mind, vec, core,
-    # labels, mind, dsums, dcounts, n_changed, group_counts, part_best,
-    # part_idx, stream
+    # labels, mind, fold_w, dsums, dcounts, n_changed, group_counts,
+    # part_best, part_idx, the fold's scratch, stream
     "kml_lloyd_delta": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, *_FOLD, _P],
     # x, x_dtype, cd, labels, scores, w, n, d, k, the fold's scratch, sums,
     # counts, mind, stream
     "kml_accumulate": [_P, _I, _I, _P, _P, _P, _I, _I, _I, *_FOLD,
                        _P, _P, _P, _P],
     # x, x_dtype, neg2c, cd, csq, w, prev, need, sb_in, slb_in, n, d, k,
-    # vec, core, labels, sb, slb, dsums, dcounts, n_rec, group_counts,
-    # part_best, part_idx, part_second, rows, group_start, stream
+    # vec, core, labels, sb, slb, fold_w, dsums, dcounts, n_rec,
+    # group_counts, part_best, part_idx, part_second, rows, group_start, the
+    # fold's scratch, stream
     "kml_lloyd_hamerly": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                          _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _P, _P],
+                          _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _P, *_FOLD, _P],
     # x, x_dtype, neg2c, cd, csq, n, d, k, k_tile, raw, with_second, vec,
     # core, part_best, part_idx, part_second, labels, mind, second, stream
     "kml_tiled_argmin": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -56,8 +56,8 @@ MIX_STALL = 8
 
 #: Relative slack of the rejection test, ``f > f_prev·(1 + REJECT_SLACK)``:
 #: the objective is an f32 sum of n terms whose sweep-to-sweep noise (the
-#: accumulation order; on the card, also the delta kernel's atomics) can
-#: exceed the true improvement on a plateau, and a rejection on noise
+#: accumulation order) can exceed the true improvement on a plateau, and a
+#: rejection on noise
 #: sustains itself.  A diverging extrapolation overshoots by far more.
 REJECT_SLACK = 1e-5
 

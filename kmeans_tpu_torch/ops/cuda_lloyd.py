@@ -31,12 +31,14 @@ Numerics shared by the kernels and the plain versions: scores are
 ``||c||² + x_cd·(−2·C_cd)ᵀ`` with f32 accumulation (bf16 operands multiply
 exactly; f32 products never use TF32), the argmin keeps the lowest index on
 a tie, ``||x||²`` is taken from x in its stored dtype, and the fold adds
-``w·float(cd(x))``.  K2 and K4 scatter their changed rows with f32 atomics,
-so their sums differ from the plain versions' (and from run to run) at the
-f32 rounding level; K1, K3 and K6 fold on one fold core, which sorts the
-rows by label (a stable radix sort) and sums each bucket in row order, the
-same bits every launch and the same sums from all three at the same labels
-(:func:`fold_core_plain` is its order, op by op).
+``w·float(cd(x))``.  Every kernel that folds rows folds them on one fold
+core, which sorts the rows by label (a stable radix sort) and sums each
+bucket in row order, with no float atomics: K1, K3 and K6's single fold
+over labels, and K2, K4 and K6's dual fold over the changed rows (+w at
+the new label, −w at the old one; :func:`delta_fold_weights`).  So every
+kernel gives the same bits every launch, and the same sums at the same
+labels; they differ from the plain versions' ``index_add_`` at the f32
+rounding level (:func:`fold_core_plain` is the core's order, op by op).
 
 K1, K2, K4 and K5 score with one of two cores (:func:`scoring_core`): the
 Hopper core (TMA loads into an mbarrier ring -- ``cp.async`` for K4's
@@ -70,8 +72,9 @@ __all__ = ["lloyd_pass_cuda", "lloyd_delta_cuda", "accumulate_cuda",
            "lloyd_pass_plain", "lloyd_delta_plain", "accumulate_plain",
            "lloyd_hamerly_plain", "tiled_argmin_plain", "tiled_fold_plain",
            "hamerly_compaction_plain", "fold_order_plain",
-           "fold_core_plain", "fold_sort_passes", "launch_counts",
-           "reset_launch_counts", "scoring_core", "split_bf16x3",
+           "fold_core_plain", "delta_fold_weights", "fold_sort_passes",
+           "launch_counts", "reset_launch_counts", "scoring_core",
+           "split_bf16x3",
            "neg2c_pieces", "six_pass_scores_plain",
            "DENSE_GROUP_ROWS", "DENSE_SLOTS", "HAMERLY_SLOTS"]
 
@@ -342,6 +345,17 @@ def _fold_scratch(x: torch.Tensor, k: int, dual: bool,
         torch.empty(spans * n if norms and spans > 1 else 0, **floats))
 
 
+def _delta_fold_buffers(x: torch.Tensor, k: int):
+    """K2's and K4's ``(fold_w, dsums, dcounts, scratch)``: the per-row
+    fold weights their scoring launch writes (:func:`delta_fold_weights`)
+    and the dual fold reads, the delta the fold writes in full, and the
+    fold core's scratch for two entries a row."""
+    n, d = x.shape
+    floats = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty(n, **floats), torch.empty(k, d, **floats),
+            torch.empty(k, **floats), _fold_scratch(x, k, dual=True))
+
+
 def fold_sort_passes(k: int) -> int:
     """The fold core's radix passes over keys in [0, k]: 8 bits each."""
     return -(-k.bit_length() // _SORT_BITS)
@@ -557,6 +571,18 @@ def fold_order_plain(weights, labels, labels2, k):
     return keys, entries
 
 
+def delta_fold_weights(labels, prev, weights):
+    """The weights K2's and K4's dual fold takes, as their scoring launches
+    write them: ``w`` on a changed row (``labels != prev`` and ``w > 0``),
+    0 elsewhere.  With ``labels`` as the first labels and ``prev`` as the
+    second, the dual fold of these weights is the signed delta, +w at the
+    new label and −w at the old one where ``0 <= prev < k``; so K2's and
+    K4's ``(dsums, dcounts)`` are ``fold_core_plain(x,
+    delta_fold_weights(labels, prev, w), labels, prev, k)`` bit for bit."""
+    w = weights.to(torch.float32)
+    return torch.where((labels != prev) & (w > 0), w, 0.0)
+
+
 def fold_core_plain(x, weights, labels, labels2, k, *, compute_dtype=None):
     """The fold core's ``(sums, counts)`` in its own order, one f32
     operation at a time, so the kernel must equal it bit for bit: the
@@ -644,11 +670,11 @@ def _delta_tiled(on_card, x, centroids, prev, w, cd, with_mind, k_tile,
     neg2c, csq = _score_operands(centroids, cd)
     labels, min_d2 = argmin(x, neg2c, csq, k_tile=k_tile,
                             raw_scores=not with_mind)
-    changed = (labels != prev) & (w > 0)
-    dsums, dcounts = fold(x, w * changed, labels, prev, centroids.shape[0],
+    fold_w = delta_fold_weights(labels, prev, w)
+    dsums, dcounts = fold(x, fold_w, labels, prev, centroids.shape[0],
                           compute_dtype=cd)
     return (labels, min_d2, dsums, dcounts, (min_d2 * w).sum(),
-            changed.sum().int(), _no_dense_tiles(x))
+            (fold_w > 0).sum().int(), _no_dense_tiles(x))
 
 
 def _hamerly_tiled(on_card, x, centroids, prev, need, sb_in, slb_in, w, cd,
@@ -663,9 +689,8 @@ def _hamerly_tiled(on_card, x, centroids, prev, need, sb_in, slb_in, w, cd,
     labels = torch.where(need, lab_f, prev)
     sb = torch.where(need, m1, sb_in)
     slb = torch.where(need, m2, slb_in)
-    changed = (labels != prev) & (w > 0)
-    dsums, dcounts = fold(x, w * changed, labels, prev, centroids.shape[0],
-                          compute_dtype=cd)
+    dsums, dcounts = fold(x, delta_fold_weights(labels, prev, w), labels,
+                          prev, centroids.shape[0], compute_dtype=cd)
     return (labels, sb, slb, dsums, dcounts, need.sum().int(),
             _no_dense_tiles(x))
 
@@ -872,8 +897,11 @@ def lloyd_delta_cuda(x, centroids, labels_prev, *, weights=None,
     new label and ``−w`` at the old one when ``0 <= prev < k`` (so a −1
     sentinel makes the delta the full reduction).  ``with_mind=False``
     returns the raw score ``min(||c||² − 2x·c)`` in the min_d2 slot.
-    It scores with :func:`scoring_core`'s core and scatters the changed
-    rows with f32 atomics.  ``k_tile`` runs K5 and K6's dual fold instead
+    It scores with :func:`scoring_core`'s core, and the changed rows are
+    folded by the fold core's dual fold inside the same entry point (so
+    ``tiled_fold_cuda.launches`` does not move): the delta is
+    ``fold_core_plain`` of :func:`delta_fold_weights` bit for bit, the
+    same bits every launch.  ``k_tile`` runs K5 and K6's dual fold instead
     of K2 (``dense_tiles`` is then 0)."""
     if x.device.type == "cpu":
         return lloyd_delta_plain(x, centroids, labels_prev, weights=weights,
@@ -895,8 +923,7 @@ def lloyd_delta_cuda(x, centroids, labels_prev, *, weights=None,
     part_best, part_idx = _core_slices(x, k, core)
     labels = torch.empty(n, dtype=torch.int32, device=dev)
     min_d2 = torch.empty(n, dtype=torch.float32, device=dev)
-    dsums = torch.zeros(k, d, dtype=torch.float32, device=dev)
-    dcounts = torch.zeros(k, dtype=torch.float32, device=dev)
+    fold_w, dsums, dcounts, scratch = _delta_fold_buffers(x, k)
     n_changed = torch.zeros(1, dtype=torch.int32, device=dev)
     groups = torch.zeros(-(-n // DENSE_GROUP_ROWS), dtype=torch.int32,
                          device=dev)
@@ -905,8 +932,9 @@ def lloyd_delta_cuda(x, centroids, labels_prev, *, weights=None,
             _DTYPE_CODES[cd], csq.data_ptr(), w.data_ptr(), prev.data_ptr(),
             n, d, k, int(with_mind), _vec_ok(d, cd, x, neg2c),
             _CORE_CODES[core], labels.data_ptr(), min_d2.data_ptr(),
-            dsums.data_ptr(), dcounts.data_ptr(), n_changed.data_ptr(),
-            groups.data_ptr(), _ptr(part_best), _ptr(part_idx))
+            fold_w.data_ptr(), dsums.data_ptr(), dcounts.data_ptr(),
+            n_changed.data_ptr(), groups.data_ptr(), _ptr(part_best),
+            _ptr(part_idx), *scratch.args())
     dense_tiles = (groups > DENSE_SLOTS).sum().int()
     return (labels, min_d2, dsums, dcounts, (min_d2 * w).sum(),
             n_changed[0], dense_tiles)
@@ -960,9 +988,10 @@ def lloyd_hamerly_cuda(x, centroids, labels_prev, need, sb_in, slb_in, *,
     dense_tiles)``.  Only the rows flagged ``need`` are scored: each gets
     the lowest-index argmin, ``sb`` = its score and ``slb`` = the least
     score over the other columns; every other row passes ``labels_prev``,
-    ``sb_in`` and ``slb_in`` through.  The delta is K2's signed fold over
-    the scored rows whose label changed (a −1 sentinel, which the caller
-    must flag ``need``, makes it the full reduction).  On
+    ``sb_in`` and ``slb_in`` through.  The delta is K2's: the fold core's
+    dual fold over the scored rows whose label changed (a −1 sentinel,
+    which the caller must flag ``need``, makes it the full reduction), bit
+    for bit ``fold_core_plain`` of :func:`delta_fold_weights`.  On
     :func:`scoring_core`'s Hopper core the needed rows are listed on the
     card in row order and scored 128 at a time, gathered with
     ``cp.async``; on ``score_block`` each 1024-row group scores its own.
@@ -992,8 +1021,7 @@ def lloyd_hamerly_cuda(x, centroids, labels_prev, need, sb_in, slb_in, *,
     labels = torch.empty(n, dtype=torch.int32, device=dev)
     sb = torch.empty(n, dtype=torch.float32, device=dev)
     slb = torch.empty(n, dtype=torch.float32, device=dev)
-    dsums = torch.zeros(k, d, dtype=torch.float32, device=dev)
-    dcounts = torch.zeros(k, dtype=torch.float32, device=dev)
+    fold_w, dsums, dcounts, fold = _delta_fold_buffers(x, k)
     n_rec = torch.zeros(1, dtype=torch.int32, device=dev)
     groups = torch.empty(-(-n // DENSE_GROUP_ROWS), dtype=torch.int32,
                          device=dev)
@@ -1010,9 +1038,9 @@ def lloyd_hamerly_cuda(x, centroids, labels_prev, need, sb_in, slb_in, *,
             need.data_ptr(), sb_in.data_ptr(), slb_in.data_ptr(), n, d, k,
             _vec_ok(d, cd, x, neg2c), _CORE_CODES[core],
             labels.data_ptr(), sb.data_ptr(), slb.data_ptr(),
-            dsums.data_ptr(), dcounts.data_ptr(), n_rec.data_ptr(),
-            groups.data_ptr(),
-            *(_ptr(t) for t in scratch or [None] * 5))
+            fold_w.data_ptr(), dsums.data_ptr(), dcounts.data_ptr(),
+            n_rec.data_ptr(), groups.data_ptr(),
+            *(_ptr(t) for t in scratch or [None] * 5), *fold.args())
     dense_tiles = (groups > HAMERLY_SLOTS).sum().int()
     return labels, sb, slb, dsums, dcounts, n_rec[0], dense_tiles
 

@@ -5,10 +5,10 @@ Counterpart of ``vmem_breakdown`` / ``max_k_tile`` / ``kernel_plan`` in
 TPU's VMEM plays there.  The port's untiled kernels (K1–K4) take any k: they
 stream the centroids through shared memory (in 256-wide slices on the Hopper
 core -- two 128-wide sub-slices on its f32 route --, 128-wide tiles in
-``score_block``), and K2–K4 scatter their changed
-rows with f32 atomics into the sums.  Both rest on L2: every row block
-streams all of −2·C, and the atomics resolve in L2 while the sums fit
-there.  Once −2·C and the f32 sums outgrow it, the plan switches to the
+``score_block``), and all four fold on the fold core into (k, d) f32
+sums.  Both rest on L2: every row block streams all of −2·C, which stays
+in L2 while it and the f32 sums fit there.  Once −2·C and the f32 sums
+outgrow it, the plan switches to the
 k-tiled pair: K5 (``tiled_argmin_cuda``) scores one centroid slice of
 ``k_tile`` columns at a time and merges the slices' partial argmins (on the
 same core as K1–K4), and K6 (``tiled_fold_cuda``) folds by bucketing the

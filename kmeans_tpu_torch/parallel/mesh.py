@@ -303,11 +303,12 @@ def make_mesh(
         raise ValueError("NCCL runs between cards; a CPU mesh is gloo")
     _distributed.ensure_initialized(backend=backend)
     if not dist.is_initialized():
-        # A lone process: a group of one over a local rendezvous.
+        # A lone process: a group of one over an in-process store (a TCP
+        # rendezvous on a port picked beforehand can lose that port to
+        # another process before it binds it).
         dist.init_process_group(
-            backend=backend, init_method=f"tcp://127.0.0.1:{free_port()}",
-            world_size=1, rank=0, timeout=datetime.timedelta(
-                seconds=_distributed.INIT_TIMEOUT_S))
+            backend=backend, store=dist.HashStore(), world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=_distributed.INIT_TIMEOUT_S))
     world = dist.get_world_size()
     if devices is None:
         devices = ([torch.device("cpu")] * world if kind == "cpu" else

@@ -1509,6 +1509,9 @@ class KMeansServer:
                     if path == "/api/assign":
                         return self._assign()
                     if path == "/api/model/reload":
+                        # The body is unused; read it, or a close with it
+                        # unread resets the connection under the response.
+                        self._drain_body()
                         if server.model_registry is None:
                             return self._error("no model registry "
                                                "configured",

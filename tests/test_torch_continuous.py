@@ -2,7 +2,7 @@
 on the CPU.
 
 torch cannot draw ``jax.random``'s indices, so every coreset draw of the
-port (``torch.multinomial`` on a :class:`torch.Generator`) is recorded and
+port (``coreset.draw_indices`` on a :class:`torch.Generator`) is recorded and
 replayed through the reference by monkeypatching ``jax.random.choice`` in
 the test (nothing of the JAX package changes): points then agree exactly
 and importance weights to rtol 1e-6.  The window, the drift detectors and
@@ -38,6 +38,7 @@ from kmeans_tpu_torch import cli as port_cli
 from kmeans_tpu_torch import continuous as PC
 from kmeans_tpu_torch.config import KMeansConfig
 from kmeans_tpu_torch.continuous import window as port_window
+from kmeans_tpu_torch.data import coreset as coreset_module
 from kmeans_tpu_torch.data.coreset import (coreset_probabilities,
                                            lightweight_coreset)
 from kmeans_tpu_torch.models.lloyd import fit_lloyd
@@ -72,10 +73,10 @@ class Draws:
 
     def __init__(self, monkeypatch):
         self.draws = []
-        real = torch.multinomial
+        real = coreset_module.draw_indices
 
-        def record(q, m, replacement=False, generator=None):
-            idx = real(q, m, replacement=replacement, generator=generator)
+        def record(q, m, generator):
+            idx = real(q, m, generator)
             self.draws.append((q.numpy().copy(), idx.numpy().copy()))
             return idx
 
@@ -86,7 +87,7 @@ class Draws:
                                        atol=1e-9)
             return jnp.asarray(idx, jnp.int32)
 
-        monkeypatch.setattr(torch, "multinomial", record)
+        monkeypatch.setattr(coreset_module, "draw_indices", record)
         monkeypatch.setattr(jax.random, "choice", replay)
 
 
@@ -129,6 +130,25 @@ def test_coreset_probabilities_and_edges():
     b = lightweight_coreset(5, x, 4000, device=CPU)
     assert torch.equal(a[0], b[0])
     assert abs(float(a[1].sum()) - 500) / 500 < 0.1
+
+
+def test_draw_indices_inverts_a_fixed_point_cdf():
+    """The coreset's sampler: one seed gives one set of draws, whatever
+    order the CDF is summed in; a row of probability 0 is never drawn; the
+    draws' frequencies follow q."""
+    q = torch.tensor([0.1, 0.0, 0.6, 0.3])
+    a = coreset_module.draw_indices(q, 100_000,
+                                    torch.Generator().manual_seed(3))
+    b = coreset_module.draw_indices(q, 100_000,
+                                    torch.Generator().manual_seed(3))
+    assert a.dtype == torch.int64 and torch.equal(a, b)
+    # The fixed-point CDF is exact: summed back to front it has the same
+    # bits, so the draws cannot depend on the summation order.
+    ticks = torch.round(q.double() * 2.0 ** 40).long()
+    assert torch.equal(torch.cumsum(ticks, 0)[-1], ticks.flip(0).sum())
+    freq = torch.bincount(a, minlength=4).double() / a.numel()
+    assert float(freq[1]) == 0.0
+    np.testing.assert_allclose(freq.numpy(), q.numpy(), atol=0.01)
 
 
 # ---------------------------------------------------------------------------

@@ -7,11 +7,12 @@ checkout (that machine may have no JAX, which ``tests/conftest.py`` imports):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Inputs are tie-free blobs, so labels must be equal.  Sums agree to rtol
-1e-4 and atol 1e-4·max|want|: K2 and K4 fold with f32 atomics, in an order
-that changes from run to run, and K1, K3 and K6 sum each label's rows in
-row order on the fold core, another order than the plain version's (and
-exactly ``fold_core_plain``'s: equal bit for bit).  Counts of binary
-weights are exact.
+1e-4 and atol 1e-4·max|want|: every kernel that folds rows (K1, K3 and
+K6's single fold; K2, K4 and K6's dual fold over the changed rows) sums
+each label's rows in row order on the fold core, another order than the
+plain version's ``index_add_`` (and exactly ``fold_core_plain``'s: equal
+bit for bit, the same bits every launch).  Counts of binary weights are
+exact.
 Scores (the Hamerly kernel's bounds) agree to rtol 1e-5 and atol
 1e-5·max|want|: the kernel and the plain version sum the same f32 products
 in another order.
@@ -674,6 +675,71 @@ def test_fold_core_gives_one_set_of_bits(card, n, d, k, x_dtype, cd,
                             raw_scores=True)[1]
     sq = x.float().pow(2).sum(1)
     assert bool(((k1[1] - (raw + sq).clamp_min(0)).abs() <= 1e-5 * sq).all())
+
+
+@pytest.mark.parametrize("x_dtype,cd,d", [
+    (torch.bfloat16, torch.bfloat16, 2048), (torch.float32, torch.float32, 64),
+    (torch.float32, torch.bfloat16, 64), (torch.bfloat16, torch.bfloat16, 100)])
+def test_delta_kernels_fold_on_the_fold_core(card, x_dtype, cd, d):
+    """K2 (``with_mind`` both ways) and K4 (need 10% and 100%) on either
+    scoring core, bf16 and the f32 route: ``dsums`` and ``dcounts`` equal
+    ``fold_core_plain`` over ``delta_fold_weights`` bit for bit, and a
+    second launch equals the first in every output."""
+    x, c, w, prev = _blobs(13, 3001, d, 300, card)
+    x = x.to(x_dtype)
+    gen = torch.Generator(device=card).manual_seed(14)
+    core = K.scoring_core(x, cd, c.to(cd))
+    assert core == ("score_block" if x_dtype != cd or d == 100 else "wgmma")
+    runs = [(K.lloyd_delta_cuda, (x, c, prev),
+             dict(weights=w, compute_dtype=cd, with_mind=m), 2)
+            for m in (True, False)]
+    for frac in (0.1, 1.0):
+        need = (torch.rand(3001, generator=gen, device=card) < frac) \
+            | (prev < 0)
+        sb_in = torch.randn(3001, generator=gen, device=card)
+        runs.append((K.lloyd_hamerly_cuda, (x, c, prev, need, sb_in,
+                                            sb_in + 1),
+                     dict(weights=w, compute_dtype=cd), 3))
+    for fn, args, kw, at in runs:
+        got, again = fn(*args, **kw), fn(*args, **kw)
+        fold_w = K.delta_fold_weights(got[0], prev, w)
+        model = K.fold_core_plain(x, fold_w, got[0], prev, 300,
+                                  compute_dtype=cd)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert torch.equal(got[at], model[0])
+        assert torch.equal(got[at + 1], model[1])
+
+
+def test_default_fit_repeats_bit_for_bit(card):
+    """The default fit (``update="auto"``: delta sweeps, then the bound
+    flavours) run twice from one init gives the same centroids, labels,
+    sweeps and counters: no kernel on its path sums floats with
+    atomics."""
+    x, c, _, _ = _blobs(15, 20_000, 64, 40, card)
+    x = x.to(torch.bfloat16)
+    fits = [KMeans(n_clusters=40, compute_dtype="bfloat16", init=c,
+                   max_iter=40, tol=-1.0).fit(x) for _ in range(2)]
+    a, b = fits
+    assert torch.equal(a.cluster_centers_, b.cluster_centers_)
+    assert torch.equal(a.labels_, b.labels_)
+    assert a.n_iter_ == b.n_iter_ == 40 and a.diag_ == b.diag_
+
+
+def test_coreset_draws_repeat_on_the_card(card):
+    """``lightweight_coreset`` on the card: one seed gives the same points
+    and weights on every call (its CDF is summed in fixed point; a float
+    cumsum on the card varies in its last bits from run to run)."""
+    from kmeans_tpu_torch.data.coreset import lightweight_coreset
+
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.normal(size=(36864, 256)).astype(np.float32))
+    w = torch.from_numpy(rng.random(36864).astype(np.float32))
+    x, w = x.to(card), w.to(card)
+    runs = [lightweight_coreset(5, x, 4096, weights=w) for _ in range(10)]
+    torch.cuda.synchronize()
+    for p, cw in runs[1:]:
+        assert torch.equal(p, runs[0][0]) and torch.equal(cw, runs[0][1])
 
 
 def _serve_problem(seed, k, d, n):
