@@ -77,7 +77,9 @@ report, exiting non-zero if any fails:
    with the counts set to 0 before each fit and read after (K1 and K2
    must launch, and K4 on the adaptive loop); and a small bf16 fit with
    fractional weights, which the weights veto sends on the plain route on
-   the card under ``backend="auto"``, held against the CPU;
+   the card under ``backend="auto"``, held against the CPU and run twice
+   on the card, bit for bit, then seeded with k-means|| in bf16 under the
+   same weights, twice, bit for bit;
 6. the ``codebook`` shape, n = 1,280,000, d = 2048, k = 65536 in bf16, where
    the planner tiles: its decision for every kind there and at the headline
    and glove shapes, then the main path in three runs, counts set to 0
@@ -289,14 +291,16 @@ report, exiting non-zero if any fails:
    fixed unit-norm init, in f32 on K1's f32 route and in bf16 on
    ``score_block``: K1 alone, SPHERE_SWEEPS + 1 launches, each held to the
    same fit on ``backend="plain"`` on the card: labels but ties,
-   centroids within SUMS_RTOL, every norm within 1e-6 of 1; ms a pass),
-   glove-bisecting (f32, k = BISECT_K: seconds, splits, launches, counts
-   summing to n, the inertia an f64 recomputation's within
-   FIT_INERTIA_RTOL; at BISECT_HOLD_K, on rows of as many blobs, the
+   centroids within SUMS_RTOL, every norm within 1e-6 of 1; ms a pass;
+   sweep_k's sampled silhouette on the f32 fit's labels, the one-hot
+   product twice, bit for bit, and against f64), glove-bisecting (f32,
+   k = BISECT_K: seconds, splits, launches, counts summing to n, the
+   inertia an f64 recomputation's within FIT_INERTIA_RTOL; at BISECT_HOLD_K, on rows of as many blobs, the
    plain backend's split sequence and inertia, the card's busy share
    under ``torch.profiler``; a bf16
    run, whose inner fits the weights veto sends to the plain route, with
-   ``fit_plan``'s "why" and only the assigns' K1 launched),
+   ``fit_plan``'s "why" and only the assigns' K1 launched, twice: the
+   same split sequence, centroids and labels bit for bit),
    spherical-dp1-nccl (``fit_spherical_sharded`` on an NCCL mesh of one
    against ``fit_spherical``: bit for bit, an all-reduce a sweep, the
    time ratio), imagenet-spherical (the headline's bf16 data on the
@@ -323,7 +327,8 @@ report, exiting non-zero if any fails:
    GMM_ITERS EM iterations: ms an iteration, one pass's products and
    other kernels under ``torch.profiler``, the peak memory, every pass's
    log-likelihood rising but for its f32 rounding and the last against an
-   f64 recomputation on the card), mnist-gmm (diag, spherical and tied in
+   f64 recomputation on the card; ``gmm_sample`` twice from one seed, bit
+   for bit), mnist-gmm (diag, spherical and tied in
    f32, each held to the port's CPU fit; the tied fit's Cholesky factor
    and solves timed), glove-fuzzy (f32 and bf16, FUZZY_ITERS iterations;
    one pass's sums, soft counts and J against f64 on the card; the first
@@ -398,7 +403,11 @@ headline shapes beside the library), so a copy of this script run in an
 older checkout times that tree's f32 route in the same call;
 ``--delta-bench`` runs phase 1 and :func:`phase_delta_bench` only (K2, K4
 and the fits they run in, the fold core's share of each, their peak
-memory and whether two launches agree), for the same use.
+memory and whether two launches agree), for the same use;
+``--fold-bench`` runs phase 1 and :func:`phase_fold_bench` only (the plain
+route's weighted fold in each deterministic form beside ``index_add_``,
+one weighted sweep at the headline and phase 5's weighted fit), for the
+same use.
 ``python3 chip_smoke.py --accel`` runs phases 1 and 9 only (the kernels
 build at their first call); ``--serve-http`` and ``--fleet`` run phases 1
 and 10, and 1 and 11, on ``make_blobs`` centres; ``--runner`` runs phases
@@ -2578,6 +2587,156 @@ def phase_delta_bench():
                             compute_dtype=f32), 3, x, prev, f32)
 
 
+#: ``--fold-bench``: timed runs of each fold form and of the weighted
+#: sweep and fit (the median is kept, after one warm-up run).
+FOLD_BENCH_REPS = 3
+
+
+def _fold_forms(x, labels, w, k, chunk=4096):
+    """The plain route's fold at these inputs -- ``sums[l] += w·float(x)``,
+    ``counts[l] += w`` over the rows -- in each form ``--fold-bench``
+    times, as closures returning ``(sums, counts)``: ``index_add_`` (float
+    atomics: the order varies from run to run), ``index_put_(accumulate=
+    True)`` (sort-based: each output row summed in row order), the fold
+    core's order (``fold_core_plain``) and a one-hot product in IEEE f32
+    (``full_f32``; counts the one-hot matrix's column sums), each over
+    row chunks folded in turn."""
+    import torch
+
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.ops.distance import full_f32
+
+    n, d = x.shape
+
+    def scatter(add, rows=chunk):
+        def run():
+            sums = torch.zeros(k, d, device=x.device)
+            counts = torch.zeros(k, device=x.device)
+            for lo in range(0, n, rows):
+                lab, wr = labels[lo:lo + rows].long(), w[lo:lo + rows]
+                add(sums, lab, x[lo:lo + rows].float() * wr[:, None])
+                add(counts, lab, wr)
+            return sums, counts
+        return run
+
+    def put(t, i, v):
+        t.index_put_((i,), v, accumulate=True)
+
+    def onehot(rows):
+        def run():
+            sums = torch.zeros(k, d, device=x.device)
+            counts = torch.zeros(k, device=x.device)
+            with full_f32():
+                for lo in range(0, n, rows):
+                    hot = torch.nn.functional.one_hot(
+                        labels[lo:lo + rows].long(), k).float()
+                    hot *= w[lo:lo + rows, None]
+                    sums += hot.T @ x[lo:lo + rows].float()
+                    counts += hot.sum(dim=0)
+            return sums, counts
+        return run
+
+    return {
+        "index_add_": scatter(lambda t, i, v: t.index_add_(0, i, v)),
+        "index_put_(accumulate=True)": scatter(put),
+        "index_put_(accumulate=True), 32768-row chunks": scatter(put, 32768),
+        "fold_core_plain order": lambda: K.fold_core_plain(
+            x, w, labels, None, k, compute_dtype=torch.float32),
+        f"one-hot f32, {chunk}-row chunks": onehot(chunk),
+        "one-hot f32, 32768-row chunks": onehot(32768),
+    }
+
+
+def phase_fold_bench():
+    """The plain route's weighted fold on the card, for the tree this
+    script runs in (copy it over an older checkout's to compare two
+    commits in one call, in turns): at the headline shape (phase 4's bf16
+    data, K1's labels at its c0, weights uniform in [0.25, 1.25)), each
+    form of :func:`_fold_forms` twice (bit for bit or not) and against an
+    f64 fold, with its CUDA-event time; one weighted sweep through
+    ``lloyd_pass(update="segment")`` (the weights veto's plain route);
+    and phase 5's fractional-weights fit (n = 20,000, d = 64, k = 16, 20
+    sweeps) on the host clock."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    x, c0 = _headline_data()
+    n, d, k = x.shape[0], x.shape[1], c0.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    w = torch.rand(n, generator=gen, device="cuda") + 0.25
+    labels = K.lloyd_pass_cuda(x, c0, compute_dtype=torch.bfloat16,
+                               with_update=False)[0]
+    want = torch.zeros(k, d, dtype=torch.float64, device="cuda")
+    for lo in range(0, n, 32768):
+        hot = torch.nn.functional.one_hot(labels[lo:lo + 32768].long(),
+                                          k).double()
+        want += (hot * w[lo:lo + 32768, None].double()).T @ x[
+            lo:lo + 32768].double()
+    scale = float(want.abs().max())
+    for name, fn in _fold_forms(x, labels, w, k).items():
+        (s1, c1), (s2, c2) = fn(), fn()
+        _sync()
+        same = ("equal bit for bit" if torch.equal(s1, s2)
+                and torch.equal(c1, c2) else
+                f"differ, sums by up to {float((s1 - s2).abs().max())!r}")
+        err = float((s1.double() - want).abs().max()) / scale
+        ms = _time_ms(fn, FOLD_BENCH_REPS)
+        print(f"fold-bench headline fold ({n} x {d} bf16 rows, k={k}, "
+              f"fractional weights) {name}: {ms:.3f} ms; two runs {same}; "
+              f"max |sums - f64| / max |f64| {err:.3e}", flush=True)
+        del s1, s2, c1, c2
+    del want
+    # By k at the glove shape: the sorted sum sums each segment's rows in
+    # sequence, the one-hot product costs 2·n·k·d.
+    ng, dg = 400_000, 300
+    xg = torch.randn(ng, dg, generator=gen, device="cuda")
+    wg = torch.rand(ng, generator=gen, device="cuda") + 0.25
+    for kk in (2, 8, 32, 128, 256, 1000):
+        lab = torch.randint(0, kk, (ng,), generator=gen, device="cuda")
+        forms = _fold_forms(xg, lab, wg, kk)
+        put, hot = (_time_ms(forms[name], FOLD_BENCH_REPS) for name in (
+            "index_put_(accumulate=True), 32768-row chunks",
+            "one-hot f32, 32768-row chunks"))
+        print(f"fold-bench glove-shape fold ({ng} x {dg} f32 rows, "
+              f"fractional weights) k={kk}: index_put_ {put:.3f} ms, "
+              f"one-hot {hot:.3f} ms (32768-row chunks)", flush=True)
+    del xg, wg, lab, forms
+
+    def sweep():
+        return kt.lloyd_pass(x, c0, weights=w, compute_dtype="bfloat16",
+                             update="segment")
+    K.reset_launch_counts()
+    got, again = sweep(), sweep()
+    _sync()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    _check(not any(K.launch_counts().values()),
+           f"fold-bench: the weighted sweep launched {K.launch_counts()}")
+    print(f"fold-bench headline weighted bf16 sweep (lloyd_pass, "
+          f"update='segment', the plain route): "
+          f"{_time_ms(sweep, FOLD_BENCH_REPS):.3f} ms; two sweeps "
+          f"{'equal bit for bit' if same else 'differ'}", flush=True)
+    del x, c0, w, labels, got, again
+    torch.cuda.empty_cache()
+
+    fn = _fractional_fit_inputs()[0]
+    fits, secs = [fn() for _ in range(2)], []
+    for _ in range(FOLD_BENCH_REPS):
+        _sync()
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        secs.append(time.perf_counter() - t0)
+    a, b = fits
+    same = (torch.equal(a.cluster_centers_, b.cluster_centers_)
+            and torch.equal(a.labels_, b.labels_))
+    print(f"fold-bench phase 5 fractional-weights bf16 fit (n=20000, d=64, "
+          f"k=16, 20 sweeps): {', '.join(f'{t:.4f}' for t in secs)} s "
+          f"(median {statistics.median(secs):.4f}); two fits "
+          f"{'equal bit for bit' if same else 'differ'}", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: whole fits against the plain backend
 # ---------------------------------------------------------------------------
@@ -2633,21 +2792,13 @@ def phase_whole_fit():
     _fractional_weights_fit()
 
 
-def _fractional_weights_fit():
-    """``KMeans(compute_dtype="bfloat16").fit`` with fractional weights on
-    the card: the kernel plan's weights veto refuses it (the reference's
-    exactness policy: bf16 would round the weights in its fold), so
-    ``backend="auto"`` takes the plain route on the card, as the
-    reference's ``"auto"`` takes XLA, with the ``"segment"`` update, and
-    ``fit_plan`` says why; no kernel launches, and the fit agrees with the
-    same fit on the CPU.  Both start from the same centres: k-means++
-    draws from each device's own generator, so the two fits would start
-    apart and could settle in different partitions."""
+def _fractional_fit_inputs():
+    """Phase 5's fractional-weights problem on the card: ``(fit, x, w)``,
+    ``fit(dev)`` the bf16 ``KMeans`` fit of x under weights w on ``dev``
+    (default: the card) from centres near the blobs'."""
     import torch
 
     import kmeans_tpu_torch as kt
-    from kmeans_tpu_torch.ops import cuda_lloyd as K
-    from kmeans_tpu_torch.ops.plan import WEIGHTS_VETO
 
     n, d, k = 20_000, 64, 16
     x, _, centres = kt.make_blobs(4, n, d, k)
@@ -2656,6 +2807,36 @@ def _fractional_weights_fit():
     # Started near the blob centres, both fits find the same partition:
     # no label is left to a tie within the two devices' summation orders.
     c0 = centres + 0.1 * torch.randn(k, d, generator=gen, device="cuda")
+
+    def fit(dev="cuda"):
+        return kt.KMeans(n_clusters=k, compute_dtype="bfloat16",
+                         init=c0.to(dev), max_iter=20, tol=-1.0,
+                         device=dev).fit(x.to(dev), weights=w.to(dev))
+    return fit, x, w
+
+
+def _fractional_weights_fit():
+    """``KMeans(compute_dtype="bfloat16").fit`` with fractional weights on
+    the card: the kernel plan's weights veto refuses it (the reference's
+    exactness policy: bf16 would round the weights in its fold), so
+    ``backend="auto"`` takes the plain route on the card, as the
+    reference's ``"auto"`` takes XLA, with the ``"segment"`` update, and
+    ``fit_plan`` says why; no kernel launches, the fit agrees with the
+    same fit on the CPU, and a second fit on the card equals the first
+    bit for bit.  Both start from the same centres: k-means++ draws from
+    each device's own generator, so the two fits would start apart and
+    could settle in different partitions.  Then the same data seeded with
+    k-means|| in bf16 under the weights (its candidates' weights and its
+    refine fit on the plain route), twice, bit for bit."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.ops.plan import WEIGHTS_VETO
+
+    fit, x, w = _fractional_fit_inputs()
+    n, d = x.shape
+    k = 16
     plan = kt.fit_plan(x, k, config=kt.KMeansConfig(
         k=k, compute_dtype="bfloat16"), weights=w)
     _check(plan["backend"] == "plain" and plan["update"] == "segment"
@@ -2664,9 +2845,7 @@ def _fractional_weights_fit():
     fits = {}
     for dev in ("cuda", "cpu"):
         K.reset_launch_counts()
-        km = kt.KMeans(n_clusters=k, compute_dtype="bfloat16",
-                       init=c0.to(dev), max_iter=20, tol=-1.0,
-                       device=dev).fit(x.to(dev), weights=w.to(dev))
+        km = fit(dev)
         _sync()
         fits[dev] = (km, K.launch_counts())
     (card, counts), (cpu, _) = fits["cuda"], fits["cpu"]
@@ -2677,10 +2856,29 @@ def _fractional_weights_fit():
     _check(abs(a - b) <= FIT_INERTIA_RTOL * abs(b) and _finite(
         card.cluster_centers_), f"fractional-weights fit: card inertia {a} "
            f"vs CPU {b} beyond rtol {FIT_INERTIA_RTOL}")
+    again = fit()
+    _check(torch.equal(again.cluster_centers_, card.cluster_centers_)
+           and torch.equal(again.labels_, card.labels_)
+           and again.inertia_ == card.inertia_,
+           "fractional-weights fit: a second fit on the card differs")
     print(f"KMeans(compute_dtype='bfloat16') with fractional weights, n={n} "
           f"d={d} k={k}: plan {plan['backend']} / {plan['update']}, no "
           f"kernel launched; inertia {a:.6e} on the card, {b:.6e} on the "
-          f"CPU; {moved} labels differ")
+          f"CPU; {moved} labels differ; a second card fit equal bit for "
+          "bit")
+
+    def seeded():
+        return kt.KMeans(n_clusters=k, init="k-means||", seed=4,
+                         compute_dtype="bfloat16", max_iter=20,
+                         tol=-1.0).fit(x, weights=w)
+    first, second = seeded(), seeded()
+    _check(torch.equal(first.cluster_centers_, second.cluster_centers_)
+           and torch.equal(first.labels_, second.labels_),
+           "k-means|| in bf16 under fractional weights: two fits differ")
+    _check(_finite(first.cluster_centers_), "k-means|| fit: non-finite")
+    print(f"KMeans(init='k-means||', compute_dtype='bfloat16') with "
+          f"fractional weights: inertia {first.inertia_:.6e}, two fits "
+          "equal bit for bit")
 
 
 # ---------------------------------------------------------------------------
@@ -9171,57 +9369,34 @@ SIL_CHUNK = 4096
 
 def _silhouette_forms(card, x, labels, k):
     """sweep_k's silhouette at glove (SIL_SAMPLE rows against every row,
-    k = 1000): the port's scatter of each distance tile into its
-    per-cluster sums (``index_add_``, m·n adds) beside the reference's
-    one-hot product (2·m·n·k flops, IEEE f32), on one sample; the two
-    means agree to the f32 sums' order."""
+    k = 1000): the port's one-hot product of each distance tile (2·m·n·k
+    flops, IEEE f32, as the reference forms it), twice on one sample,
+    equal bit for bit, and against the same sample's silhouette in f64."""
     import torch
 
     from kmeans_tpu_torch import metrics as M
-    from kmeans_tpu_torch.ops.distance import cd_product, sq_norms
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     idx = M.sample_rows(gen, x.shape[0], SIL_SAMPLE, x.device)
     valid = torch.ones(x.shape[0], dtype=torch.bool, device="cuda")
 
-    def scatter():
+    def score():
         return M._silhouette_samples(x[idx], labels[idx], x, labels, valid,
                                      k=k, chunk_size=SIL_CHUNK,
                                      compute_dtype=None).mean()
 
-    def onehot():
-        xe = x[idx]
-        xe_sq = sq_norms(xe)
-        sums = torch.zeros(SIL_SAMPLE, k, device="cuda")
-        for lo in range(0, x.shape[0], SIL_CHUNK):
-            xb, lb = x[lo:lo + SIL_CHUNK], labels[lo:lo + SIL_CHUNK].long()
-            d = (xe_sq[:, None] - 2.0 * cd_product(xe, xb, torch.float32)
-                 + sq_norms(xb)[None, :]).clamp_min_(0.0).sqrt_()
-            hot = torch.nn.functional.one_hot(lb, k).float()
-            sums += cd_product(d, hot.T.contiguous(), torch.float32)
-        return sums
-
-    s_ms, s = _time_auto(scatter)
-    o_ms, sums = _time_auto(onehot)
-    # The one-hot sums against the scatter's, through the same epilogue.
-    counts = torch.bincount(labels.long(), minlength=k).float()
-    own = labels[idx].long()
-    rows = torch.arange(SIL_SAMPLE, device="cuda")
-    a = sums[rows, own] / (counts[own] - 1.0).clamp_min(1.0)
-    other = torch.where(counts[None, :] > 0,
-                        sums / counts.clamp_min(1.0)[None, :], torch.inf)
-    b = torch.where(own[:, None] == torch.arange(k, device="cuda"),
-                    torch.inf, other).amin(1)
-    o = torch.where(counts[own] <= 1.0, 0.0,
-                    (b - a) / torch.maximum(a, b).clamp_min(1e-30)).mean()
-    rel = abs(float(s) - float(o)) / max(abs(float(o)), 1e-30)
-    _check(rel <= SCORE_RTOL, f"silhouette at glove: scatter {float(s)} "
-           f"against one-hot {float(o)}")
+    s_ms, s = _time_auto(score)
+    again = score()
+    _check(torch.equal(s, again), f"silhouette at glove: two scores "
+           f"{float(s)!r} and {float(again)!r}")
+    want = _silhouette64(x, labels, idx, k)
+    rel = abs(float(s) - want) / max(abs(want), 1e-30)
+    _check(rel <= SCORE_RTOL, f"silhouette at glove: {float(s)} against "
+           f"f64 {want}")
     print(f"silhouette at glove ({card}): {SIL_SAMPLE} sampled rows against "
-          f"{x.shape[0]}, k={k}, chunks of {SIL_CHUNK}: the port's scatter "
-          f"(index_add_) {s_ms:.3f} ms, the reference's one-hot product "
-          f"{o_ms:.3f} ms (IEEE f32); means {float(s):.6f} / "
-          f"{float(o):.6f}")
+          f"{x.shape[0]}, k={k}, chunks of {SIL_CHUNK}: the one-hot product "
+          f"(IEEE f32) {s_ms:.3f} ms; {float(s):.6f}, a second call equal "
+          f"bit for bit; f64 {want:.6f} (within {rel:.1e})")
 
 
 def _imagenet_spherical(card, totals):
@@ -9416,16 +9591,28 @@ def _glove_bisecting(card, x, totals):
         k=2, compute_dtype="bfloat16", empty="keep"), weights=mask)
     _check(plan["backend"] == "plain" and plan["why"] == WEIGHTS_VETO,
            f"bf16 bisecting's inner fit: plan {plan}")
-    bst, bcounts = _counted_run(lambda: kt.fit_bisecting(xs, 8,
-                                                         config=bcfg))
+    runs = []
+    for _ in range(2):
+        seen, undo = _split_members()
+        try:
+            runs.append(_counted_run(lambda: kt.fit_bisecting(
+                xs, 8, config=bcfg)) + (seen,))
+        finally:
+            undo()
+    (bst, bcounts, bseen), (again, _, aseen) = runs
     # Only the assigns (no weights) run a kernel: K1, once a split and
-    # once for the root.
+    # once for the root.  The repeat's launches join no row.
     _only("bf16 bisecting", bcounts,
           {"lloyd_pass_cuda": int(bst.n_iter) + 1})
     _add_counts(totals["bf16"], bcounts)
+    _check(bseen == aseen and torch.equal(bst.centroids, again.centroids)
+           and torch.equal(bst.labels, again.labels),
+           f"bf16 bisecting: a second run differs (split member counts "
+           f"{bseen} against {aseen})")
     print(f"bf16 bisecting (n={xs.shape[0]}, k=8): the inner fits' plan "
           f"{plan['backend']} / {plan['update']} ({plan['why']}): no inner "
-          f"fit launched a kernel; the assigns' K1 {bcounts}")
+          f"fit launched a kernel; the assigns' K1 {bcounts}; a second run "
+          "the same split sequence, centroids and labels bit for bit")
 
 
 def _glove_autok(card, totals):
@@ -10134,7 +10321,7 @@ def _imagenet_gmm(card, totals):
     import torch
 
     import kmeans_tpu_torch as kt
-    from kmeans_tpu_torch.models.gmm import gmm_scan_tiles
+    from kmeans_tpu_torch.models.gmm import gmm_sample, gmm_scan_tiles
 
     n, d, k = HEADLINE["n"], HEADLINE["d"], HEADLINE["k"]
     # Near the centres every component starts on its blob: from random
@@ -10199,7 +10386,15 @@ def _imagenet_gmm(card, totals):
           f"{float(st.log_likelihood):.6e}, largest fall "
           f"{max(falls):.3e} (bound {fall_tol:.3e}); against f64 on the "
           f"card {err:.3e} (bound {ll_tol:.3e}); launches {counts}")
-    del x, st
+    # gmm_sample draws its components from an int64 CDF: one seed, the
+    # same rows on every call.
+    draws = [gmm_sample(torch.Generator(device="cuda").manual_seed(18),
+                        _gmm_params(st), 200_000) for _ in range(2)]
+    _check(all(torch.equal(a, b) for a, b in zip(*draws)),
+           "imagenet-gmm: two gmm_sample calls from one seed differ")
+    print("imagenet-gmm: gmm_sample of 200000 rows twice from one seed: "
+          "equal bit for bit")
+    del x, st, draws
     torch.cuda.empty_cache()
 
 
@@ -12011,6 +12206,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--delta-bench"]:
         phase_delta_bench()
+        return 0
+    if sys.argv[1:] == ["--fold-bench"]:
+        phase_fold_bench()
         return 0
     if sys.argv[1:] == ["--accel"]:
         phase_accel_minibatch(card)

@@ -14,10 +14,12 @@ Counterpart of ``kmeans_tpu/metrics.py``:
   mutual information, homogeneity / completeness / V, Fowlkes–Mallows —
   count a contingency table in O(n).
 
-Silhouette's per-cluster distance sums are a scatter along the label axis
-(``index_add_`` of each (m, chunk) distance tile by the chunk's labels,
-m·n adds) where the reference multiplies the tile by a (chunk, k) one-hot
-matrix (2·m·n·k flops); only the order of the f32 sums differs.
+Silhouette's per-cluster distance sums multiply each (m, chunk) distance
+tile by the chunk's (chunk, k) one-hot matrix in IEEE f32, as the
+reference does (2·m·n·k flops): the same bits on every run, on either
+device.  Every other sum by label (the counts, Davies–Bouldin's distance
+sums) is :func:`kmeans_tpu_torch.ops.segment.segment_sum`, which sums in a
+fixed order on the card too.
 
 All distances here are Euclidean (not squared), as in the conventional
 definitions of silhouette and Davies–Bouldin.  Every function runs on
@@ -35,6 +37,7 @@ from kmeans_tpu_torch.device import as_tensor, resolve_device
 from kmeans_tpu_torch.ops.distance import (cd_product, full_f32,
                                            pairwise_sq_dists, resolve_cd,
                                            sq_norms)
+from kmeans_tpu_torch.ops.segment import segment_sum
 
 __all__ = [
     "silhouette_score",
@@ -67,7 +70,7 @@ def _silhouette_samples(x_eval, labels_eval, x_all, labels_all, valid_all,
     la = labels_all.long()
     va = valid_all.to(_F32) * (la >= 0)
     la = la.clamp_min(0)
-    counts = torch.zeros(k, dtype=_F32, device=dev).index_add_(0, la, va)
+    counts = segment_sum(va, la, k)
     xe_sq = sq_norms(x_eval)
     dist_sums = torch.zeros(m, k, dtype=_F32, device=dev)
     for lo in range(0, x_all.shape[0], chunk_size):
@@ -76,7 +79,9 @@ def _silhouette_samples(x_eval, labels_eval, x_all, labels_all, valid_all,
         d2 = (xe_sq[:, None] - 2.0 * prod
               + sq_norms(xb)[None, :]).clamp_min_(0.0)
         dist = d2.sqrt_().mul_(va[lo:lo + chunk_size][None, :])
-        dist_sums.index_add_(1, la[lo:lo + chunk_size], dist)
+        hot = torch.nn.functional.one_hot(la[lo:lo + chunk_size], k)
+        with full_f32():
+            dist_sums += dist @ hot.to(_F32)                 # (m, k)
 
     own = labels_eval.long()
     rows = torch.arange(m, device=dev)
@@ -156,9 +161,9 @@ def _db_ch(x, labels, centroids, *, k, chunk_size):
         lb = labels[lo:lo + chunk_size].long()
         diff = xb - cf[lb]
         d2 = (diff * diff).sum(dim=1)
-        dist_sum.index_add_(0, lb, d2.sqrt())
+        segment_sum(d2.sqrt(), lb, k, out=dist_sum)
         wss = wss + d2.sum()
-        counts.index_add_(0, lb, torch.ones_like(d2))
+        segment_sum(torch.ones_like(d2), lb, k, out=counts)
         x_sum = x_sum + xb.sum(dim=0)
     nz = counts > 0
 
@@ -320,19 +325,19 @@ def dunn_index(x, labels, centroids, *, chunk_size: int = 65536,
     c = as_tensor(centroids, dev, _F32)
     k = c.shape[0]
     max_r2 = torch.full((), -torch.inf, dtype=_F32, device=dev)
-    counts = torch.zeros(k + 1, dtype=_F32, device=dev)
+    counts = torch.zeros(k, dtype=_F32, device=dev)
     for lo in range(0, x.shape[0], chunk_size):
         lt = labels[lo:lo + chunk_size]
         vt = lt >= 0
         own = c[lt.clamp_min(0)]
         d2 = ((x[lo:lo + chunk_size].to(_F32) - own) ** 2).sum(dim=-1)
         d2 = torch.where(vt, d2, -torch.inf)
-        counts.index_add_(0, torch.where(vt, lt, k), torch.ones_like(d2))
+        segment_sum(torch.ones_like(d2), lt, k, out=counts)
         max_r2 = torch.maximum(max_r2, d2.max())
     diameter = 2.0 * max_r2.clamp_min(0.0).sqrt()
     # Separation over LIVE clusters only: a drained cluster keeps a stale
     # centroid that can sit arbitrarily close to a live one.
-    live = counts[:k] > 0
+    live = counts > 0
     dc = pairwise_sq_dists(c, c)
     off = torch.eye(k, dtype=torch.bool, device=dev) | ~(
         live[:, None] & live[None, :])

@@ -32,6 +32,7 @@ from kmeans_tpu_torch.device import as_tensor, resolve_device
 from kmeans_tpu_torch.models.init import resolve_fit_inputs
 from kmeans_tpu_torch.models.lloyd import NearestCentroidMixin
 from kmeans_tpu_torch.ops.distance import full_f32, pairwise_sq_dists
+from kmeans_tpu_torch.ops.segment import segment_sum
 
 __all__ = ["BalancedState", "fit_balanced", "BalancedKMeans",
            "sinkhorn_potentials", "resolve_capacities"]
@@ -185,8 +186,7 @@ def _balanced_loop(x, centroids0, weights, log_a, log_b, capacities, tol,
     w = (torch.ones((n,), dtype=torch.float32, device=dev) if weights is None
          else weights.float())
     inertia = mind.sum() if weights is None else (w * mind).sum()
-    counts = torch.zeros((k,), dtype=torch.float32, device=dev).index_add_(
-        0, labels, w)
+    counts = segment_sum(w, labels, k)
     col_masses = plan_into(buf, d2, f, g, epsilon).sum(dim=0)
     inertia, counts, col_masses = _reduce(mesh, inertia, counts, col_masses)
     return BalancedState(c, labels.to(torch.int32), inertia,

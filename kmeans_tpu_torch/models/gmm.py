@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from kmeans_tpu_torch.config import KMeansConfig
+from kmeans_tpu_torch.data.coreset import draw_indices
 from kmeans_tpu_torch.device import as_tensor, resolve_device
 from kmeans_tpu_torch.models.init import resolve_fit_inputs
 from kmeans_tpu_torch.ops.distance import cd_matmul, full_f32, resolve_cd
@@ -396,14 +397,15 @@ def gmm_sample(generator: torch.Generator, params: GMMParams, n: int,
     parameters' device).
 
     Returns ``(x (n, d) float32, components (n,) int32)``: components by
-    the mixing weights, then a Gaussian draw a row (tied: the noise
-    correlated by the shared covariance's Cholesky factor).
+    the mixing weights (``data.coreset.draw_indices``: an int64 CDF, so a
+    seed draws the same components on every run), then a Gaussian draw a
+    row (tied: the noise correlated by the shared covariance's Cholesky
+    factor).
     """
     d = params.means.shape[1]
     dev = params.means.device
     probs = torch.exp(params.log_pi)
-    comp = torch.multinomial(probs / probs.sum(), n, replacement=True,
-                             generator=generator).to(torch.int32)
+    comp = draw_indices(probs / probs.sum(), n, generator).to(torch.int32)
     noise = torch.randn((n, d), generator=generator, dtype=torch.float32,
                         device=dev)
     means = params.means[comp.long()]

@@ -16,6 +16,7 @@ import torch
 from kmeans_tpu_torch.data.synthetic import generator_for
 from kmeans_tpu_torch.device import as_tensor, resolve_device
 from kmeans_tpu_torch.ops.distance import full_f32, resolve_cd, sq_norms
+from kmeans_tpu_torch.ops.segment import segment_sum
 
 __all__ = ["random_init", "kmeans_plus_plus", "kmeans_parallel",
            "init_centroids", "resolve_fit_config", "resolve_fit_inputs",
@@ -145,9 +146,7 @@ def kmeans_parallel(generator: torch.Generator, x: torch.Tensor, k: int, *,
         labels = torch.where(mind < d2, 1 + r * ell + lab.long(), labels)
         d2 = torch.minimum(d2, mind)
     candidates = torch.cat(cands)
-    cand_w = torch.zeros(m, dtype=torch.float32, device=dev)
-    cand_w.index_add_(0, labels, w)
-    cand_w = torch.where(torch.cat(valids), cand_w, 0.0)
+    cand_w = torch.where(torch.cat(valids), segment_sum(w, labels, m), 0.0)
     refine_cfg = KMeansConfig(
         k=k, init="k-means++", max_iter=refine_iters, empty="farthest",
         chunk_size=min(chunk_size, m), compute_dtype=compute_dtype,

@@ -43,6 +43,7 @@ from kmeans_tpu_torch.models.lloyd import (KMeansState, NearestCentroidMixin,
 from kmeans_tpu_torch.ops.distance import (assign, cd_product, resolve_cd,
                                            sq_norms)
 from kmeans_tpu_torch.ops.lloyd import lloyd_pass, resolve_backend
+from kmeans_tpu_torch.ops.segment import segment_sum
 from kmeans_tpu_torch.ops.update import apply_update
 
 __all__ = ["fit_minibatch", "MiniBatchKMeans", "batch_update",
@@ -54,10 +55,10 @@ def batch_stats(centroids, xb, *, compute_dtype, row_weight=None):
     centroids, the additive half of :func:`batch_update`.  ``row_weight``
     (scalar or (b,)) scales every contribution.
 
-    The folds are ``index_put_(accumulate=True)``, which on the card sums
-    each cluster's rows in row order (``index_add_`` there scatters with
-    float atomics, whose order, and so whose last bits, vary from run to
-    run)."""
+    The folds are :func:`~kmeans_tpu_torch.ops.segment.segment_sum`, which
+    on the card sums each cluster's rows in one fixed order (``index_add_``
+    there scatters with float atomics, whose order, and so whose last bits,
+    vary from run to run)."""
     f32 = torch.float32
     cd = resolve_cd(compute_dtype, xb.dtype)
     k, d = centroids.shape
@@ -69,10 +70,8 @@ def batch_stats(centroids, xb, *, compute_dtype, row_weight=None):
          else torch.as_tensor(row_weight, dtype=f32,
                               device=xb.device).expand(b))
     b_inertia = (mind * w).sum()
-    bc = torch.zeros(k, dtype=f32, device=xb.device).index_put_(
-        (labels,), w, accumulate=True)
-    bs = torch.zeros(k, d, dtype=f32, device=xb.device).index_put_(
-        (labels,), xb.float() * w[:, None], accumulate=True)
+    bc = segment_sum(w, labels, k)
+    bs = segment_sum(xb.float() * w[:, None], labels, k)
     return bc, bs, b_inertia
 
 

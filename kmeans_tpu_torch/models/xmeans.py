@@ -33,6 +33,7 @@ from kmeans_tpu_torch.device import as_tensor, resolve_device
 from kmeans_tpu_torch.models.bisecting import inner_fits
 from kmeans_tpu_torch.models.init import resolve_fit_config
 from kmeans_tpu_torch.models.lloyd import KMeansState, NearestCentroidMixin
+from kmeans_tpu_torch.ops.segment import segment_sum
 
 __all__ = ["fit_xmeans", "bic_score", "XMeans"]
 
@@ -128,8 +129,7 @@ def _grow_k(
         _, mind = _assign(x, state.centroids)
         # Every per-cluster stat in one reduction and one read back.
         n_js = state.counts.cpu().numpy()
-        sse_js = torch.zeros(k, dtype=torch.float32, device=dev).index_add_(
-            0, labels, mind).cpu().numpy()
+        sse_js = segment_sum(mind, labels, k).cpu().numpy()
         splits: dict = {}                    # j -> (2, d) children
         for j in range(k):
             if k + len(splits) >= k_max:

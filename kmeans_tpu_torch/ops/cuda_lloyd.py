@@ -37,8 +37,11 @@ bucket in row order, with no float atomics: K1, K3 and K6's single fold
 over labels, and K2, K4 and K6's dual fold over the changed rows (+w at
 the new label, −w at the old one; :func:`delta_fold_weights`).  So every
 kernel gives the same bits every launch, and the same sums at the same
-labels; they differ from the plain versions' ``index_add_`` at the f32
-rounding level (:func:`fold_core_plain` is the core's order, op by op).
+labels; they differ from the plain versions' fold
+(:func:`~kmeans_tpu_torch.ops.segment.segment_sum`: ``index_add_`` on the
+CPU, on the card each label's rows summed in one fixed order, so the
+plain versions repeat too) at the f32 rounding level
+(:func:`fold_core_plain` is the core's order, op by op).
 
 K1, K2, K4 and K5 score with one of two cores (:func:`scoring_core`): the
 Hopper core (TMA loads into an mbarrier ring -- ``cp.async`` for K4's
@@ -66,6 +69,7 @@ import torch
 
 from kmeans_tpu_torch.ops.distance import full_f32, resolve_cd, sq_norms
 from kmeans_tpu_torch.ops.plan import LANE, core_takes
+from kmeans_tpu_torch.ops.segment import segment_sum
 
 __all__ = ["lloyd_pass_cuda", "lloyd_delta_cuda", "accumulate_cuda",
            "lloyd_hamerly_cuda", "tiled_argmin_cuda", "tiled_fold_cuda",
@@ -96,6 +100,11 @@ _SORT_BITS = 8
 _SORT_TILE = 4096
 _FOLD_CHUNK = 256
 _FOLD_SPAN = 2048
+#: Rows the plain versions fold at a time on the card: each chunk syncs
+#: with the host (its rows are picked with ``nonzero``), so chunks of the
+#: sweeps' 4096 rows left the card idle between them (``chip_smoke.py
+#: --fold-bench``).
+_CARD_FOLD_ROWS = 32768
 #: Centroids of one column range of K1, K2 and K4 on the Hopper core
 #: (``CORE_BN``: one 256-column slice in bf16, two 128-column sub-slices
 #: on the f32 route).
@@ -382,7 +391,7 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch versions (chunked matmul + argmin + index_add_)
+# Plain PyTorch versions (chunked matmul + argmin + segment_sum)
 # ---------------------------------------------------------------------------
 
 def _chunks(n: int, chunk_size: int):
@@ -454,8 +463,13 @@ def _row_sq_plain(x, chunk_size):
 def _fold_plain(sums, counts, x, labels, w, fold_dtype, chunk_size, sign=1.0,
                 rows_mask=None):
     """``sums[label] += sign·w·float(fold_dtype(x))``, ``counts[label] +=
-    sign·w`` over rows with ``0 <= label < k`` (and ``rows_mask``)."""
+    sign·w`` over rows with ``0 <= label < k`` (and ``rows_mask``), a chunk
+    of rows at a time with :func:`segment_sum`: ``index_add_`` on the CPU,
+    each label's rows summed in one fixed order on the card, in chunks of
+    at least ``_CARD_FOLD_ROWS`` rows there (each chunk syncs once)."""
     k = sums.shape[0]
+    if x.device.type == "cuda":
+        chunk_size = max(chunk_size, _CARD_FOLD_ROWS)
     for rows in _chunks(x.shape[0], chunk_size):
         lab = labels[rows].long()
         keep = (lab >= 0) & (lab < k)
@@ -466,8 +480,8 @@ def _fold_plain(sums, counts, x, labels, w, fold_dtype, chunk_size, sign=1.0,
             continue
         wr = sign * w[rows][idx]
         xr = x[rows][idx].to(fold_dtype).float() * wr[:, None]
-        sums.index_add_(0, lab[idx], xr)
-        counts.index_add_(0, lab[idx], wr)
+        segment_sum(xr, lab[idx], k, out=sums)
+        segment_sum(wr, lab[idx], k, out=counts)
 
 
 def _signed_fold_plain(x, k, labels, prev, changed, w, cd, chunk_size):

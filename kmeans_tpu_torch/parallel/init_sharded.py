@@ -30,6 +30,7 @@ import torch
 
 from kmeans_tpu_torch.models.init import _d2_to, _gumbel, _kmpar_plan
 from kmeans_tpu_torch.ops.distance import resolve_cd, sq_norms
+from kmeans_tpu_torch.ops.segment import segment_sum
 
 __all__ = ["kmeans_parallel_sharded", "kmeans_plus_plus_sharded",
            "random_init_sharded", "sharded_init_applicable", "init_on_mesh"]
@@ -186,9 +187,8 @@ def kmeans_parallel_sharded(
         labels = torch.where(mind < d2, 1 + r * ell + lab.long(), labels)
         d2 = torch.minimum(d2, mind)
     candidates = torch.cat(cands)
-    cand_w = torch.zeros(m, dtype=torch.float32, device=dev)
-    cand_w.index_add_(0, labels, w)
-    cand_w = torch.where(torch.cat(valids), mesh.all_reduce(cand_w), 0.0)
+    cand_w = torch.where(torch.cat(valids),
+                         mesh.all_reduce(segment_sum(w, labels, m)), 0.0)
     refine_cfg = KMeansConfig(
         k=k, init="k-means++", max_iter=refine_iters, empty="farthest",
         chunk_size=min(chunk_size, m), compute_dtype=compute_dtype,

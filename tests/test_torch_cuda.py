@@ -10,9 +10,10 @@ Inputs are tie-free blobs, so labels must be equal.  Sums agree to rtol
 1e-4 and atol 1e-4·max|want|: every kernel that folds rows (K1, K3 and
 K6's single fold; K2, K4 and K6's dual fold over the changed rows) sums
 each label's rows in row order on the fold core, another order than the
-plain version's ``index_add_`` (and exactly ``fold_core_plain``'s: equal
+plain version's ``segment_sum`` (and exactly ``fold_core_plain``'s: equal
 bit for bit, the same bits every launch).  Counts of binary weights are
-exact.
+exact.  The plain route, the families and the metrics (ROADMAP C11) run
+twice at thousands of rows a cluster and must repeat bit for bit.
 Scores (the Hamerly kernel's bounds) agree to rtol 1e-5 and atol
 1e-5·max|want|: the kernel and the plain version sum the same f32 products
 in another order.
@@ -1174,3 +1175,141 @@ def test_tp_hooks_match_plain(card, x_dtype, cd, k_tile):
     _close(got[0], want[0])
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
     _close_scores(got[2], want[2])
+
+
+# ---------------------------------------------------------------------------
+# C11: the plain route, the families' and the metrics' float sums give the
+# same bits on every run (thousands of rows a cluster, so that an atomic
+# scatter would reorder its adds).
+# ---------------------------------------------------------------------------
+
+def _c11_problem(card, n=200_000, d=64, k=64):
+    """Tie-free blobs, their generating labels, centres near the blobs'
+    and fractional weights, on the card."""
+    rng = np.random.default_rng(21)
+    centres = rng.normal(size=(k, d)).astype(np.float32) * 4
+    lab = rng.integers(0, k, size=n)
+    x = (centres[lab] + rng.normal(size=(n, d))).astype(np.float32)
+    c = (centres + 0.1 * rng.normal(size=(k, d))).astype(np.float32)
+    w = (rng.random(n) + 0.25).astype(np.float32)
+    return [torch.from_numpy(a).to(card) for a in (x, lab, c, w)]
+
+
+def _same_bits(what, got, again):
+    """Two runs' outputs equal bit for bit; the message says by how much
+    each differing one moved."""
+    torch.cuda.synchronize()
+    moved = []
+    for i, (a, b) in enumerate(zip(got, again)):
+        if not torch.equal(a, b):
+            diff = (a.double() - b.double()).abs()
+            moved.append(f"output {i}: {int((diff > 0).sum())} of "
+                         f"{a.numel()} differ, by at most "
+                         f"{float(diff.max())!r}")
+    assert not moved, f"{what}: " + "; ".join(moved)
+
+
+@pytest.mark.parametrize("form", ["pass", "delta", "tiled"])
+def test_plain_route_folds_repeat_on_the_card(card, form):
+    """The plain versions on the card (the route the weights veto takes)
+    fold fractional weights in bf16 to the same bits on every call."""
+    x, lab, c, w = _c11_problem(card)
+    x = x.to(torch.bfloat16)
+    prev = torch.roll(lab, 1).to(torch.int32)
+    calls = {
+        "pass": lambda: K.lloyd_pass_plain(x, c, weights=w,
+                                           compute_dtype=torch.bfloat16,
+                                           update="segment"),
+        "delta": lambda: K.lloyd_delta_plain(x, c, prev, weights=w,
+                                             compute_dtype=torch.bfloat16),
+        "tiled": lambda: K.tiled_fold_plain(x, w, lab.to(torch.int32), prev,
+                                            64, compute_dtype=torch.bfloat16,
+                                            k_tile=None),
+    }
+    _same_bits(f"the plain {form} fold", calls[form](), calls[form]())
+
+
+@pytest.mark.parametrize("init", ["given", "k-means||"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bf16_fits_on_the_plain_route_repeat(card, init, weighted):
+    """A bf16 fit with fractional weights (the weights veto's plain route,
+    ``update="segment"``) and a bf16 fit seeded with k-means|| (its refine
+    fit over the candidates' counts takes that route too) give the same
+    centroids and labels on every run."""
+    x, _, c, w = _c11_problem(card)
+    x = x.to(torch.bfloat16)
+    kw = dict(weights=w) if weighted else {}
+
+    def fit():
+        km = KMeans(n_clusters=64, compute_dtype="bfloat16",
+                    init=c if init == "given" else init, seed=3,
+                    max_iter=10, tol=-1.0).fit(x, **kw)
+        return km.cluster_centers_, km.labels_, torch.tensor(km.inertia_)
+    _same_bits(f"bf16 fit init={init} weighted={weighted}", fit(), fit())
+
+
+@pytest.mark.parametrize("family", ["bisecting", "xmeans"])
+def test_bf16_splitting_families_repeat(card, family):
+    """bf16 bisecting and x-means (their inner 2-means fits take 0/1 masks
+    as weights, so the plain route; x-means' split test sums each
+    cluster's SSE) give the same splits, centroids and labels on every
+    run."""
+    import kmeans_tpu_torch as kt
+
+    x, _, _, _ = _c11_problem(card, k=16)
+    x = x.to(torch.bfloat16)
+    cfg = KMeansConfig(k=8, seed=0, compute_dtype="bfloat16")
+
+    def fit():
+        st = (kt.fit_bisecting(x, 8, config=cfg) if family == "bisecting"
+              else kt.fit_xmeans(x, 16, config=cfg))
+        return st.centroids, st.labels, st.counts, st.n_iter
+    _same_bits(f"bf16 {family}", fit(), fit())
+
+
+def test_scores_repeat_on_the_card(card):
+    """``silhouette_score`` (a sample against every row) and
+    ``davies_bouldin_score`` give the same bits on every call."""
+    from kmeans_tpu_torch.metrics import (davies_bouldin_score,
+                                          silhouette_score)
+
+    x, lab, c, _ = _c11_problem(card)
+
+    def scores():
+        gen = torch.Generator(device=card).manual_seed(5)
+        return (silhouette_score(x, lab, k=64, sample_size=2000,
+                                 generator=gen),
+                davies_bouldin_score(x, lab, c))
+    _same_bits("silhouette and Davies-Bouldin", scores(), scores())
+
+
+def test_balanced_counts_repeat_under_weights(card):
+    """``fit_balanced``'s reported counts under fractional weights are the
+    same bits on every run."""
+    import kmeans_tpu_torch as kt
+
+    x, _, c, w = _c11_problem(card)
+
+    def fit():
+        st = kt.fit_balanced(x, 64, init=c, weights=w, max_iter=3,
+                             sinkhorn_sweeps=50)
+        return st.counts, st.centroids, st.labels
+    _same_bits("balanced counts", fit(), fit())
+
+
+def test_gmm_sample_repeats_on_the_card(card):
+    """``gmm_sample`` draws the same components and rows from one seed on
+    every call."""
+    from kmeans_tpu_torch.models.gmm import GMMParams, gmm_sample
+
+    rng = np.random.default_rng(22)
+    pi = rng.random(64) + 0.1
+    params = GMMParams(*(torch.from_numpy(a.astype(np.float32)).to(card)
+                         for a in (rng.normal(size=(64, 8)) * 4,
+                                   rng.random((64, 8)) + 0.5,
+                                   np.log(pi / pi.sum()))))
+
+    def draw():
+        gen = torch.Generator(device=card).manual_seed(7)
+        return gmm_sample(gen, params, 200_000)
+    _same_bits("gmm_sample", draw(), draw())

@@ -9,6 +9,7 @@ where its kernels' plain versions run; the reference runs its default (XLA)
 route on the CPU.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -256,6 +257,120 @@ def test_port_imports_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+#: Calls that sum floats in an order the card varies from run to run
+#: (float atomics, or a float CUDA scan): each is allowed only inside the
+#: one segment sum, ``ops/segment.py:segment_sum``.
+_SCATTERS = {"index_add", "index_add_", "scatter_add", "scatter_add_",
+             "index_reduce", "index_reduce_"}
+_SEGMENT_SUM = ("segment.py", "segment_sum")
+
+
+def _keyword(call, name, position):
+    """The node of ``call``'s argument ``name`` (or its ``position``-th
+    positional argument), or None."""
+    for kw in call.keywords:
+        if kw.arg == name:
+            return kw.value
+    return call.args[position] if len(call.args) > position else None
+
+
+def _is_const(node, values):
+    return isinstance(node, ast.Constant) and node.value in values
+
+
+def _unordered_sums(source, filename="<source>"):
+    """``(line, call)`` of each call in ``source`` that sums floats in an
+    order that varies on the card, outside ``segment_sum``: ``index_add``,
+    ``scatter_add``, ``index_reduce``, ``put_`` / ``index_put(_)`` with
+    accumulate not a literal False, ``scatter_reduce`` with a reduce other
+    than a literal ``"amin"`` / ``"amax"``, ``bincount`` with weights and
+    ``multinomial`` with replacement not a literal False."""
+    found = []
+
+    def visit(node, inside):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            inside = inside or (os.path.basename(filename),
+                                node.name) == _SEGMENT_SUM
+        if isinstance(node, ast.Call) and not inside:
+            f = node.func
+            name = (f.attr if isinstance(f, ast.Attribute) else
+                    f.id if isinstance(f, ast.Name) else "")
+            # ``torch.f(t, ...)`` (or numpy's) takes the tensor ``t.f(...)``
+            # is called on as its first argument.
+            shift = int(isinstance(f, ast.Name) or (
+                isinstance(f.value, ast.Name)
+                and f.value.id in ("torch", "np", "numpy")))
+            bad = name in _SCATTERS
+            if name in ("put_", "index_put", "index_put_"):
+                acc = _keyword(node, "accumulate", 2 + shift)
+                bad = acc is not None and not _is_const(acc, (False,))
+            if name in ("scatter_reduce", "scatter_reduce_"):
+                red = _keyword(node, "reduce", 3 + shift)
+                bad = not _is_const(red, ("amin", "amax"))
+            if name == "bincount":
+                wts = _keyword(node, "weights", shift)
+                bad = wts is not None and not _is_const(wts, (None,))
+            if name == "multinomial":
+                rep = _keyword(node, "replacement", 1 + shift)
+                bad = rep is not None and not _is_const(rep, (False,))
+            if bad:
+                found.append((node.lineno, name))
+        for child in ast.iter_child_nodes(node):
+            visit(child, inside)
+
+    visit(ast.parse(source, filename), False)
+    return found
+
+
+def test_port_sums_floats_by_label_only_in_segment_sum():
+    """No module of the port sums floats by label with float atomics or a
+    float scan on the card (ROADMAP C11): every such sum is
+    ``ops.segment.segment_sum``, which sums in a fixed order there."""
+    root = os.path.join(REPO, "kmeans_tpu_torch")
+    bad = []
+    for dirpath, _, files in os.walk(root):
+        for name in sorted(files):
+            if name.endswith(".py"):
+                path = os.path.join(dirpath, name)
+                with open(path) as f:
+                    bad += [f"{os.path.relpath(path, REPO)}:{line} {call}"
+                            for line, call in _unordered_sums(f.read(),
+                                                              path)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("source,caught", [
+    ("t.index_add_(0, i, v)", True),
+    ("torch.index_add(t, 0, i, v)", True),
+    ("t.scatter_add_(0, i, v)", True),
+    ("t.index_reduce_(0, i, v, 'prod')", True),
+    ("t.index_put_((i,), v, accumulate=True)", True),
+    ("t.index_put_((i,), v, True)", True),
+    ("t.put_(i, v, accumulate=flag)", True),
+    ("t.index_put_((i,), v)", False),
+    ("t.index_put_((i,), v, accumulate=False)", False),
+    ("t.scatter_reduce(0, i, v, 'sum')", True),
+    ("t.scatter_reduce_(0, i, v, reduce=how)", True),
+    ("t.scatter_reduce(0, i, v, 'amin', include_self=False)", False),
+    ("t.scatter_reduce_(0, i, v, reduce='amax')", False),
+    ("torch.bincount(i, w)", True),
+    ("torch.bincount(i, weights=w, minlength=3)", True),
+    ("torch.bincount(i, minlength=3)", False),
+    ("torch.multinomial(p, 4, replacement=True)", True),
+    ("torch.multinomial(p, 4, True)", True),
+    ("p.multinomial(4, True)", True),
+    ("i.bincount(w)", True),
+    ("torch.index_put(t, (i,), v, True)", True),
+    ("torch.multinomial(p, 4, replacement=False)", False),
+    ("def segment_sum(v, i, k):\n    return t.index_add_(0, i, v)", False),
+    ("def other(v, i, k):\n    return t.index_add_(0, i, v)", True),
+])
+def test_unordered_sum_guard_catches_each_form(source, caught):
+    """The guard above flags each call it names, passes the orderly forms,
+    and allows the scatter inside ``segment_sum`` alone."""
+    assert bool(_unordered_sums(source, "segment.py")) == caught
 
 
 def test_soft_balanced_and_pca_entry_points_default_to_the_card(tmp_path):

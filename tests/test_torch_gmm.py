@@ -202,10 +202,10 @@ def test_estimator_carried_from_the_reference(ct):
 
 @pytest.mark.parametrize("ct", ["diag", "tied"])
 def test_sample_replays_through_the_reference(ct, monkeypatch):
-    """``sample`` draws components and Gaussian noise from a generator
-    seeded with ``seed + 1``; replayed through the reference's
-    ``gmm_sample`` (its ``categorical`` and ``normal`` returning the port's
-    draws), the rows agree to 1e-5."""
+    """``sample`` draws components (``draw_indices``: an int64 CDF) and
+    Gaussian noise from a generator seeded with ``seed + 1``; replayed
+    through the reference's ``gmm_sample`` (its ``categorical`` and
+    ``normal`` returning the port's draws), the rows agree to 1e-5."""
     import torch_replay
 
     x, c0 = _blobs(6, d=5)
@@ -215,7 +215,8 @@ def test_sample_replays_through_the_reference(ct, monkeypatch):
     port.state = gmm_from_numpy(ref.state, device=CPU)
     comps, noise = [], []
     with monkeypatch.context() as m:
-        torch_replay.record_calls(m, torch, "multinomial", comps)
+        torch_replay.record_calls(m, port_gmm_module, "draw_indices",
+                                  comps)
         torch_replay.record_calls(m, torch, "randn", noise)
         xs, comp = port.sample(300)
     assert len(comps) == len(noise) == 1

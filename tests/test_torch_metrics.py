@@ -3,8 +3,8 @@
 Mirrors ``tests/test_metrics.py``.  Every metric of ``kmeans_tpu.metrics``
 runs on the same numpy inputs through both packages (the port with
 ``device="cpu"``).  The geometry metrics sum f32 terms in other orders —
-the port scatters silhouette's distances into per-cluster sums with
-``index_add_`` where the reference multiplies by a one-hot matrix — so
+both packages multiply silhouette's distance tiles by a one-hot matrix, but
+the two matmuls and the other sums by label add in their own orders — so
 they agree to ``RTOL`` = 1e-5 (``BF16_RTOL`` = 1e-4 for the bf16 product,
 whose f32 accumulation order differs too); the contingency metrics count
 exactly and agree to 1e-6.  One row's silhouette agrees to ``ROW_ATOL``
