@@ -79,7 +79,11 @@ report, exiting non-zero if any fails:
    fractional weights, which the weights veto sends on the plain route on
    the card under ``backend="auto"``, held against the CPU and run twice
    on the card, bit for bit, then seeded with k-means|| in bf16 under the
-   same weights, twice, bit for bit;
+   same weights, twice, bit for bit; and the tied-outlier fit
+   (``empty="farthest"``, n = 200,000, d = 64, 128 outliers at ±8·e_i,
+   all tied in min_d2): twice on the kernels and once on the plain
+   backend, each reseeding onto the lowest-index tied outliers (as
+   ``lax.top_k`` picks them), the two card fits equal bit for bit;
 6. the ``codebook`` shape, n = 1,280,000, d = 2048, k = 65536 in bf16, where
    the planner tiles: its decision for every kind there and at the headline
    and glove shapes, then the main path in three runs, counts set to 0
@@ -407,7 +411,9 @@ memory and whether two launches agree), for the same use;
 ``--fold-bench`` runs phase 1 and :func:`phase_fold_bench` only (the plain
 route's weighted fold in each deterministic form beside ``index_add_``,
 one weighted sweep at the headline and phase 5's weighted fit), for the
-same use.
+same use; ``--select-bench`` runs phase 1 and :func:`phase_select_bench`
+only (the farthest reseed's selection at the headline and glove shapes
+and an ``empty="farthest"`` fit at glove's), for the same use.
 ``python3 chip_smoke.py --accel`` runs phases 1 and 9 only (the kernels
 build at their first call); ``--serve-http`` and ``--fleet`` run phases 1
 and 10, and 1 and 11, on ``make_blobs`` centres; ``--runner`` runs phases
@@ -2737,6 +2743,86 @@ def phase_fold_bench():
           f"{'equal bit for bit' if same else 'differ'}", flush=True)
 
 
+#: ``--select-bench``: timed runs of each selection (the median is kept),
+#: and of the fit after a warm-up one.
+SELECT_BENCH_REPS = 20
+SELECT_FIT_REPS = 3
+
+
+def phase_select_bench():
+    """The selections by value on the card, for the tree this script runs
+    in (copy it over an older checkout's to compare two commits in one
+    call, in turns), each a CUDA-event median: ``torch.topk`` (the
+    parent's reseed), a stable descending sort of the order keys (the
+    parent's trim) and the tree's ``ops.select.top_stable`` where it has
+    one, at m = k = 1000 (the reseed) and m = n / 20 (a 5% trim), and the
+    tree's whole ``reseed_empty_farthest`` with ten empty slots, at the
+    headline (phase 4's bf16 data, K1's min_d2 at its c0) and at glove's
+    shape (phase 5's data, K1's min_d2 at its first k rows); then the bf16
+    ``KMeans(empty="farthest")`` fit at glove's shape (k-means++ from
+    seed 0) on the host clock."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.models.trimmed import order_keys
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+    from kmeans_tpu_torch.ops.update import reseed_empty_farthest
+
+    try:
+        from kmeans_tpu_torch.ops.select import top_stable
+    except ImportError:
+        top_stable = None
+    bf16 = torch.bfloat16
+    for shape in ("headline", "glove"):
+        if shape == "headline":
+            x, c0 = _headline_data()
+        else:
+            x = kt.make_blobs(5, 400_000, 300, 1000)[0]
+            c0 = x[:1000].float()
+        n, k = x.shape[0], c0.shape[0]
+        min_d2 = K.lloyd_pass_cuda(x, c0, compute_dtype=bf16,
+                                   with_update=False)[1]
+        counts = torch.ones(k, device="cuda")
+        counts[::100] = 0.0
+        for m in (k, n // 20):
+            forms = {
+                "torch.topk": lambda: torch.topk(min_d2, m),
+                "stable sort of the order keys": lambda: torch.sort(
+                    order_keys(min_d2), descending=True,
+                    stable=True).indices[:m]}
+            if top_stable is not None:
+                forms["top_stable"] = lambda: top_stable(min_d2, m)
+            for name, fn in forms.items():
+                ms = _time_ms(fn, SELECT_BENCH_REPS)
+                print(f"select-bench {shape} (n={n}) m={m} {name}: "
+                      f"{ms:.4f} ms", flush=True)
+        ms = _time_ms(lambda: reseed_empty_farthest(c0, counts, x, min_d2),
+                      SELECT_BENCH_REPS)
+        print(f"select-bench {shape} (n={n}, k={k}) reseed_empty_farthest: "
+              f"{ms:.4f} ms", flush=True)
+        del x, c0, min_d2
+        torch.cuda.empty_cache()
+
+    x = kt.make_blobs(5, 400_000, 300, 1000)[0]
+
+    def fit():
+        return kt.KMeans(n_clusters=1000, empty="farthest",
+                         compute_dtype="bfloat16", seed=0).fit(x)
+    fit()
+    secs, sweeps = [], []
+    for _ in range(SELECT_FIT_REPS):
+        _sync()
+        t0 = time.perf_counter()
+        km = fit()
+        _sync()
+        secs.append(time.perf_counter() - t0)
+        sweeps.append(km.n_iter_)
+    print(f"select-bench glove-shape bf16 KMeans(empty='farthest') fit "
+          f"(n=400000, d=300, k=1000): {', '.join(f'{t:.4f}' for t in secs)}"
+          f" s (median {statistics.median(secs):.4f}), {sweeps} sweeps, "
+          f"inertia {km.inertia_!r}", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: whole fits against the plain backend
 # ---------------------------------------------------------------------------
@@ -2790,6 +2876,7 @@ def phase_whole_fit():
         _check(_finite(fits["auto"].cluster_centers_),
                f"whole fit update={update}: non-finite centroids")
     _fractional_weights_fit()
+    _tied_outlier_fit()
 
 
 def _fractional_fit_inputs():
@@ -2879,6 +2966,84 @@ def _fractional_weights_fit():
     print(f"KMeans(init='k-means||', compute_dtype='bfloat16') with "
           f"fractional weights: inertia {first.inertia_:.6e}, two fits "
           "equal bit for bit")
+
+
+#: Phase 5's tied-outlier fit: blob rows at the origin, then 2·d outliers
+#: at +8·e_i and -8·e_i (in that order), every one at min_d2 64 exactly
+#: from a centroid at the origin.
+TIED_N, TIED_D = 200_000, 64
+
+
+def _tied_outlier_inputs():
+    """``(x, c0)`` of the tied-outlier fit, made on the card: c0 is one
+    centroid at the origin and three at 1e3, so the first sweep empties
+    three clusters and the farthest reseed picks among the tied
+    outliers."""
+    import torch
+
+    d = TIED_D
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    blob = 0.1 * torch.randn(TIED_N - 2 * d, d, generator=gen,
+                             device="cuda")
+    eye = 8 * torch.eye(d, device="cuda")
+    x = torch.cat([blob, eye, -eye])
+    c0 = torch.full((4, d), 1e3, device="cuda")
+    c0[0] = 0.0
+    return x, c0
+
+
+def _tied_outlier_fit():
+    """``KMeans(empty="farthest")`` on rows whose worst fits tie (ROADMAP
+    C13), twice on the kernels and once on ``backend="plain"``: each fit
+    reseeds its three empty clusters onto the three lowest-index outliers
+    (``lax.top_k``'s order; ``torch.topk`` fixes none, and the card's
+    differs from the CPU's), the kernel fits launch K1 and K2 and equal
+    each other bit for bit, the plain fit launches nothing and gives the
+    same labels."""
+    import torch
+
+    import kmeans_tpu_torch as kt
+    from kmeans_tpu_torch.ops import cuda_lloyd as K
+
+    x, c0 = _tied_outlier_inputs()
+    first = TIED_N - 2 * TIED_D
+    want = x[first:first + 3]
+    fits = []
+    for backend in ("auto", "auto", "plain"):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        km = kt.KMeans(n_clusters=4, init=c0, empty="farthest",
+                       backend=backend).fit(x)
+        _sync()
+        secs = time.perf_counter() - t0
+        counts = K.launch_counts()
+        fits.append(km)
+        picked = [int(i) for i in torch.cdist(
+            km.cluster_centers_[1:], x[first:]).argmin(dim=1)]
+        print(f"tied-outlier fit (n={TIED_N}, d={TIED_D}, k=4, "
+              f"empty='farthest') backend={backend}: {km.n_iter_} sweeps, "
+              f"inertia {km.inertia_!r}, {secs:.3f} s; reseeded onto "
+              f"outliers {picked}; launches {counts}")
+        _check(torch.equal(km.cluster_centers_[1:], want),
+               f"tied-outlier fit backend={backend}: reseeded onto outliers "
+               f"{picked}, not the lowest-index [0, 1, 2]")
+        if backend == "auto":
+            _check(counts.get("lloyd_pass_cuda") and counts.get(
+                "lloyd_delta_cuda"), f"tied-outlier fit: launches {counts}")
+        else:
+            _check(not any(counts.values()),
+                   f"tied-outlier fit backend=plain launched {counts}")
+    a, b, plain = fits
+    _check(torch.equal(a.cluster_centers_, b.cluster_centers_)
+           and torch.equal(a.labels_, b.labels_)
+           and a.inertia_ == b.inertia_,
+           "tied-outlier fit: two fits on the card differ")
+    _check(torch.equal(a.labels_, plain.labels_)
+           and a.n_iter_ == plain.n_iter_,
+           "tied-outlier fit: the kernels' labels differ from the plain "
+           "backend's")
+    print("tied-outlier fit: two card fits equal bit for bit, the plain "
+          "backend's labels and sweeps equal")
 
 
 # ---------------------------------------------------------------------------
@@ -12209,6 +12374,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--fold-bench"]:
         phase_fold_bench()
+        return 0
+    if sys.argv[1:] == ["--select-bench"]:
+        phase_select_bench()
         return 0
     if sys.argv[1:] == ["--accel"]:
         phase_accel_minibatch(card)

@@ -17,6 +17,7 @@ from kmeans_tpu_torch.data.synthetic import generator_for
 from kmeans_tpu_torch.device import as_tensor, resolve_device
 from kmeans_tpu_torch.ops.distance import full_f32, resolve_cd, sq_norms
 from kmeans_tpu_torch.ops.segment import segment_sum
+from kmeans_tpu_torch.ops.select import top_stable
 
 __all__ = ["random_init", "kmeans_plus_plus", "kmeans_parallel",
            "init_centroids", "resolve_fit_config", "resolve_fit_inputs",
@@ -132,7 +133,7 @@ def kmeans_parallel(generator: torch.Generator, x: torch.Tensor, k: int, *,
     labels = torch.zeros(n, dtype=torch.int64, device=dev)
     for r in range(rounds):
         score = logw + torch.log(d2) + _gumbel(n, generator, dev)
-        top, idx = torch.topk(score, ell)
+        top, idx = top_stable(score, ell)
         cand = x[idx].float()
         # Picks past the eligible rows come back at −inf: replace them with
         # the round's top pick, which the lowest-index argmin always prefers.

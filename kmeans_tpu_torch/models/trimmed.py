@@ -13,9 +13,9 @@ An iteration is ONE fused sweep plus O(m) work:
   kernel K1 on the card, or K5 + K6 where the planner tiles) gives labels,
   min-distances and the FULL sums / counts / inertia in one read of ``x``;
 * :func:`trim_select` picks the ``m`` largest min-distances, lowest index
-  first among equal values (as ``lax.top_k`` does): a stable descending
-  sort of the (n,) distances' ordered bit keys, whose first ``m`` are
-  taken;
+  first among equal values (as ``lax.top_k`` does):
+  :func:`~kmeans_tpu_torch.ops.select.top_stable` over the (n,)
+  distances' ordered bit keys;
 * the outliers' contributions are *subtracted*: :func:`trim_subtract`
   gathers the m rows and folds them per cluster with the bucketed-fold
   kernel K6 (:func:`~kmeans_tpu_torch.ops.cuda_lloyd.tiled_fold_cuda`: no
@@ -46,6 +46,7 @@ from kmeans_tpu_torch.models.init import resolve_fit_inputs
 from kmeans_tpu_torch.models.lloyd import NearestCentroidMixin, best_of_n_init
 from kmeans_tpu_torch.ops.cuda_lloyd import tiled_fold_cuda, tiled_fold_plain
 from kmeans_tpu_torch.ops.lloyd import lloyd_pass, resolve_backend
+from kmeans_tpu_torch.ops.select import order_keys, top_stable
 from kmeans_tpu_torch.ops.update import apply_update, reseed_empty_farthest
 
 __all__ = ["TrimmedState", "fit_trimmed", "TrimmedKMeans", "resolve_n_trim",
@@ -92,23 +93,12 @@ def trim_select(min_d2: torch.Tensor, weights: Optional[torch.Tensor],
     ranked ``-inf``), in descending order, the lowest index first among
     equal values, as ``lax.top_k`` selects them.
 
-    The sort runs on the floats' bits mapped to ordered int32 keys, so the
-    order is the one total order on every device (``lax.top_k``'s: -0.0
-    ranks below +0.0), and a stable descending sort keeps equal keys in
-    index order."""
+    :func:`~kmeans_tpu_torch.ops.select.top_stable` ranks the floats in
+    their one total order on every device (``lax.top_k``'s: -0.0 ranks
+    below +0.0)."""
     d2m = min_d2 if weights is None else torch.where(
         weights > 0, min_d2, -torch.inf)
-    idx = torch.sort(order_keys(d2m), descending=True,
-                     stable=True).indices[:m]
-    return d2m[idx], idx
-
-
-def order_keys(v: torch.Tensor) -> torch.Tensor:
-    """``v``'s f32 bits as int32 keys in the floats' total order
-    (``lax.top_k``'s: -0.0 below +0.0), the order the trim selection
-    sorts by on one device and across a mesh."""
-    bits = v.float().contiguous().view(torch.int32)
-    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    return top_stable(d2m, m)
 
 
 def trim_subtract(x, labels, idx, wt, vals, k: int, *, backend: str):

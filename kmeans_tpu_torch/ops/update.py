@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from kmeans_tpu_torch.ops.select import top_stable
+
 __all__ = ["apply_update", "reseed_empty_farthest"]
 
 
@@ -26,10 +28,11 @@ def reseed_empty_farthest(centroids: torch.Tensor, counts: torch.Tensor,
                           min_d2: torch.Tensor) -> torch.Tensor:
     """Replace empty clusters with the globally worst-fit points: the j-th
     empty cluster (in index order) takes the point with the j-th largest
-    ``min_d2``."""
+    ``min_d2``, the lower index first among equal values (``lax.top_k``'s
+    order, :func:`~kmeans_tpu_torch.ops.select.top_stable`)."""
     k = centroids.shape[0]
     empty = counts <= 0
     rank = torch.where(empty, torch.cumsum(empty.int(), 0) - 1, 0)
-    cand = torch.topk(min_d2, k).indices
+    _, cand = top_stable(min_d2, k)
     repl = x[cand[rank]].float()
     return torch.where(empty[:, None], repl, centroids.float())

@@ -71,6 +71,7 @@ from kmeans_tpu_torch.ops.distance import resolve_cd
 from kmeans_tpu_torch.ops.hamerly import hamerly_pass, row_norms
 from kmeans_tpu_torch.ops.lloyd import (lloyd_pass, resolve_backend,
                                         resolve_update, weights_exact)
+from kmeans_tpu_torch.ops.select import order_keys, top_stable
 from kmeans_tpu_torch.ops.update import apply_update
 from kmeans_tpu_torch.ops.yinyang import centroid_groups, yinyang_pass
 from kmeans_tpu_torch.parallel.init_sharded import init_on_mesh
@@ -374,14 +375,6 @@ def _scatter_merge_update(mesh, c, sums, counts, x_loc, min_d2, *, empty,
     return new_c, counts_loc, shift_sq
 
 
-def _top_stable(v: torch.Tensor, m: int):
-    """The m largest entries of ``v`` and their indices, descending, the
-    lower index first on a tie (``lax.top_k``'s order; ``torch.topk``
-    fixes none)."""
-    vals, idx = torch.sort(v, descending=True, stable=True)
-    return vals[:m], idx[:m]
-
-
 def _ranked_winners_dp(mesh, x_loc, min_d2, k):
     """The k globally worst-fit rows, ranked, replicated on every rank.
 
@@ -395,7 +388,7 @@ def _ranked_winners_dp(mesh, x_loc, min_d2, k):
     # A rank may hold fewer than k rows: nominate what it has and pad the
     # remaining slots with −inf so they never win.
     k_nom = min(k, n_loc)
-    vals_loc, idx_loc = _top_stable(min_d2.float(), k_nom)
+    vals_loc, idx_loc = top_stable(min_d2.float(), k_nom)
     pts_loc = x_loc[idx_loc].float()
     if k_nom < k:
         vals_loc = torch.cat([vals_loc,
@@ -403,7 +396,7 @@ def _ranked_winners_dp(mesh, x_loc, min_d2, k):
         pts_loc = torch.cat([pts_loc, pts_loc.new_zeros(k - k_nom,
                                                         pts_loc.shape[1])])
     vals_all = mesh.all_gather(vals_loc)                  # (dp·k,)
-    _, win = _top_stable(vals_all, k)
+    _, win = top_stable(vals_all, k)
     win_shard = win // k
     win_slot = win % k
     contrib = torch.where((win_shard == mesh.rank)[:, None],
@@ -1411,8 +1404,6 @@ def _trim_select_dp(mesh, d2m, m_loc: int, m: int):
     (the floats' bits as ordered int32 keys).  Returns ``(idx_loc, sel,
     vals_loc)``: the candidates' local rows, a mask over them (True =
     trimmed) and their values."""
-    from kmeans_tpu_torch.models.trimmed import order_keys
-
     key = order_keys(d2m)
     key_loc, idx_loc = torch.sort(key, descending=True, stable=True)
     key_loc, idx_loc = key_loc[:m_loc], idx_loc[:m_loc]

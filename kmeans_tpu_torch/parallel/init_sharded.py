@@ -31,6 +31,7 @@ import torch
 from kmeans_tpu_torch.models.init import _d2_to, _gumbel, _kmpar_plan
 from kmeans_tpu_torch.ops.distance import resolve_cd, sq_norms
 from kmeans_tpu_torch.ops.segment import segment_sum
+from kmeans_tpu_torch.ops.select import top_stable
 
 __all__ = ["kmeans_parallel_sharded", "kmeans_plus_plus_sharded",
            "random_init_sharded", "sharded_init_applicable", "init_on_mesh"]
@@ -168,12 +169,10 @@ def kmeans_parallel_sharded(
     for r in range(rounds):
         g = _local_stream(_gumbel(n, generator, dev), lo, n_loc)
         score = logw + torch.log(d2) + g
-        lv, lidx = torch.sort(score, descending=True, stable=True)
-        lv, lidx = lv[:lk], lidx[:lk]
+        lv, lidx = top_stable(score, lk)
         packed = torch.cat([lv[:, None], x_loc[lidx].float()], dim=1)
         allp = mesh.all_gather(packed)                   # (dp·lk, d + 1)
-        top, ti = torch.sort(allp[:, 0], descending=True, stable=True)
-        top, ti = top[:ell], ti[:ell]
+        top, ti = top_stable(allp[:, 0], ell)
         cand = allp[ti, 1:]
         if cand.shape[0] < ell:    # fewer rows in all than ell: −inf picks
             pad = ell - cand.shape[0]

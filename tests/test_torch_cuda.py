@@ -13,7 +13,9 @@ each label's rows in row order on the fold core, another order than the
 plain version's ``segment_sum`` (and exactly ``fold_core_plain``'s: equal
 bit for bit, the same bits every launch).  Counts of binary weights are
 exact.  The plain route, the families and the metrics (ROADMAP C11) run
-twice at thousands of rows a cluster and must repeat bit for bit.
+twice at thousands of rows a cluster and must repeat bit for bit.  The
+selections by value (ROADMAP C13) run on values tied on purpose and must
+pick the CPU's rows, bit for bit, on two runs.
 Scores (the Hamerly kernel's bounds) agree to rtol 1e-5 and atol
 1e-5·max|want|: the kernel and the plain version sum the same f32 products
 in another order.
@@ -971,7 +973,10 @@ def test_runner_on_the_card_matches_the_plain_backend(card, update):
     _close(a.centroids, b.centroids)
     np.testing.assert_allclose([i.inertia for i in ia],
                                [i.inertia for i in ib], rtol=1e-4)
-    assert launches["lloyd_pass_cuda"] >= 2
+    # K1 runs the delta loop's refresh sweep and, for both, the final view.
+    # The yinyang loop refreshes on K4 with every row needed (a sentinel
+    # state, as the reference's runner does), so its one K1 is the view.
+    assert launches["lloyd_pass_cuda"] == (2 if update == "delta" else 1)
     kernel = "lloyd_delta_cuda" if update == "delta" else "lloyd_hamerly_cuda"
     assert launches[kernel] >= 4
     assert sum(plain_launches.values()) == 0
@@ -1313,3 +1318,44 @@ def test_gmm_sample_repeats_on_the_card(card):
         gen = torch.Generator(device=card).manual_seed(7)
         return gmm_sample(gen, params, 200_000)
     _same_bits("gmm_sample", draw(), draw())
+
+
+def _bits(t):
+    t = t.cpu().contiguous()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("what", ["top_stable", "reseed"])
+def test_tied_selection_on_the_card_picks_the_cpu_rows(card, what):
+    """ROADMAP C13: 200,000 values in blocks of ties (about 4,000 rows a
+    value, signed zeros in the lowest block): ``top_stable`` (m = 1,000
+    and m = n) and the farthest reseed (k = 1,000, 40 empty slots) pick on
+    the card the rows they pick on the CPU, bit for bit, on two runs."""
+    from kmeans_tpu_torch.ops.update import reseed_empty_farthest
+
+    rng = np.random.default_rng(13)
+    n, d, k = 200_000, 64, 1000
+    v = rng.integers(0, 50, size=n).astype(np.float32)
+    zero = v == 0
+    v[zero] = np.where(rng.random(int(zero.sum())) < 0.5, -0.0, 0.0)
+    if what == "top_stable":
+        from kmeans_tpu_torch.ops.select import top_stable
+
+        def run(dev):
+            t = torch.from_numpy(v).to(dev)
+            return [r for m in (k, n) for r in top_stable(t, m)]
+    else:
+        x = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+        c = rng.normal(size=(k, d)).astype(np.float32)
+        counts = np.ones(k, np.float32)
+        counts[rng.choice(k, 40, replace=False)] = 0
+
+        def run(dev):
+            return [reseed_empty_farthest(*(torch.from_numpy(a).to(dev)
+                                            for a in (c, counts, x, v)))]
+    want = [_bits(t) for t in run("cpu")]
+    for _ in range(2):
+        got = run(card)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g), w)

@@ -324,10 +324,9 @@ def _unordered_sums(source, filename="<source>"):
     return found
 
 
-def test_port_sums_floats_by_label_only_in_segment_sum():
-    """No module of the port sums floats by label with float atomics or a
-    float scan on the card (ROADMAP C11): every such sum is
-    ``ops.segment.segment_sum``, which sums in a fixed order there."""
+def _port_findings(scan):
+    """``path:line call`` of each finding of ``scan(source, path)`` over
+    the port's modules."""
     root = os.path.join(REPO, "kmeans_tpu_torch")
     bad = []
     for dirpath, _, files in os.walk(root):
@@ -336,8 +335,15 @@ def test_port_sums_floats_by_label_only_in_segment_sum():
                 path = os.path.join(dirpath, name)
                 with open(path) as f:
                     bad += [f"{os.path.relpath(path, REPO)}:{line} {call}"
-                            for line, call in _unordered_sums(f.read(),
-                                                              path)]
+                            for line, call in scan(f.read(), path)]
+    return bad
+
+
+def test_port_sums_floats_by_label_only_in_segment_sum():
+    """No module of the port sums floats by label with float atomics or a
+    float scan on the card (ROADMAP C11): every such sum is
+    ``ops.segment.segment_sum``, which sums in a fixed order there."""
+    bad = _port_findings(_unordered_sums)
     assert not bad, bad
 
 
@@ -371,6 +377,85 @@ def test_unordered_sum_guard_catches_each_form(source, caught):
     """The guard above flags each call it names, passes the orderly forms,
     and allows the scatter inside ``segment_sum`` alone."""
     assert bool(_unordered_sums(source, "segment.py")) == caught
+
+
+def _unordered_selections(source, filename="<source>"):
+    """``(line, call)`` of each selection by value whose order among equal
+    values is not ``lax.top_k``'s (ROADMAP C13): a ``topk`` call, and a
+    torch ``sort`` / ``argsort`` whose indices are used without a literal
+    ``stable=True``.  A sort whose values alone are read (``.values``,
+    ``[0]``), a statement ``xs.sort(...)`` (a list in place) and numpy's
+    sorts (which mirror the reference's own numpy calls) pass."""
+    tree = ast.parse(source, filename)
+    parent = {child: node for node in ast.walk(tree)
+              for child in ast.iter_child_nodes(node)}
+    found = []
+
+    def indices_used(call, name):
+        up = parent.get(call)
+        if isinstance(up, ast.Expr):
+            return False
+        if name == "argsort":
+            return True
+        if isinstance(up, ast.Attribute):
+            return up.attr != "values"
+        if isinstance(up, ast.Subscript) and up.value is call:
+            return not _is_const(up.slice, (0,))
+        return True
+
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        name = (f.attr if isinstance(f, ast.Attribute) else
+                f.id if isinstance(f, ast.Name) else "")
+        on_numpy = (isinstance(f, ast.Attribute)
+                    and isinstance(f.value, ast.Name)
+                    and f.value.id in ("np", "numpy"))
+        bad = name == "topk"
+        if name in ("sort", "argsort") and not on_numpy:
+            stable = _keyword(node, "stable", len(node.args))
+            bad = (not _is_const(stable, (True,))
+                   and indices_used(node, name))
+        if bad:
+            found.append((node.lineno, name))
+    return sorted(found)
+
+
+def test_port_selects_by_value_only_in_lax_top_k_order():
+    """No module of the port picks rows by value in an order of its own on
+    a tie (ROADMAP C13): every top-m is ``ops.select.top_stable`` (a stable
+    sort), no module calls ``topk``, and every sort whose indices are used
+    is stable."""
+    bad = _port_findings(_unordered_selections)
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("source,caught", [
+    ("torch.topk(v, 3)", True),
+    ("v.topk(3).indices", True),
+    ("_, i = torch.topk(v, k=3, sorted=True)", True),
+    ("def top_stable(v, m):\n    return torch.topk(v, m)", True),
+    ("i = torch.sort(x, descending=True, stable=True).indices", False),
+    ("v, i = torch.sort(x, descending=True)", True),
+    ("i = torch.sort(x).indices", True),
+    ("i = torch.sort(x)[1]", True),
+    ("v, i = torch.sort(x, descending=True, stable=True)", False),
+    ("v, i = x.sort(stable=True)", False),
+    ("v, i = torch.sort(x, stable=flag)", True),
+    ("v = torch.sort(x, descending=True).values", False),
+    ("v = torch.sort(x)[0]", False),
+    ("i = torch.argsort(x)", True),
+    ("i = x.argsort(descending=True)", True),
+    ("i = torch.argsort(x, stable=True)", False),
+    ("events.sort(key=lambda e: e['ts'])", False),
+    ("i = np.argsort(-d2)", False),
+    ("v = np.sort(x)", False),
+])
+def test_unordered_selection_guard_catches_each_form(source, caught):
+    """The guard above flags each unordered selection and passes the
+    stable and value-only forms."""
+    assert bool(_unordered_selections(source)) == caught
 
 
 def test_soft_balanced_and_pca_entry_points_default_to_the_card(tmp_path):

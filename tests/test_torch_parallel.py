@@ -327,10 +327,10 @@ def test_delta_farthest_matches_the_reference(worlds, ref_meshes, dp, comm):
 
 
 def test_tied_worst_rows_take_the_lowest_index():
-    """``_top_stable`` keeps the lower index on a tie, as ``lax.top_k``
-    does (``torch.topk`` fixes no tie order)."""
+    """The engine's ``top_stable`` keeps the lower index on a tie, as
+    ``lax.top_k`` does (``torch.topk`` fixes no tie order)."""
     v = torch.tensor([1.0, 3.0, 3.0, 2.0, 3.0])
-    vals, idx = port_engine._top_stable(v, 4)
+    vals, idx = port_engine.top_stable(v, 4)
     assert idx.tolist() == [1, 2, 4, 3]
     _, ref_idx = jax.lax.top_k(jnp.asarray(v.numpy()), 4)
     assert idx.tolist() == np.asarray(ref_idx).tolist()
